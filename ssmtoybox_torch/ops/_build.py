@@ -1,0 +1,66 @@
+"""Lazy builds of the package's native sources into shared libraries.
+
+Sources live in ``ssmtoybox_torch/csrc``.  A library is compiled on first use
+into ``build/kernels/`` beside the package, under a name that hashes the
+sources, every header of ``csrc`` and the compiler command, so an edited
+source never loads a stale build.  Compiling goes to a process-unique
+temporary file that is renamed into place, so concurrent processes never load
+a half-written library.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
+
+_lock = threading.Lock()
+_loaded: dict[str, ctypes.CDLL] = {}
+
+#: compiler output of each library built by this process, by name
+BUILD_LOGS: dict[str, str] = {}
+
+
+def find_nvcc() -> str:
+    """Path of the CUDA compiler: ``nvcc`` on PATH, else under CUDA_HOME or
+    /usr/local/cuda."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    raise RuntimeError("nvcc not found (looked on PATH, in $CUDA_HOME and "
+                       "/usr/local/cuda): the CUDA kernels cannot be built")
+
+
+def load(name: str, sources: list[str], cmd: list[str]) -> ctypes.CDLL:
+    """Compile ``sources`` (file names in ``csrc``) with ``cmd`` once and load
+    the library; raises ``RuntimeError`` with the compiler's output on failure."""
+    with _lock:
+        if name in _loaded:
+            return _loaded[name]
+        paths = [os.path.join(CSRC, s) for s in sources]
+        digest = hashlib.sha256(" ".join(cmd).encode())
+        for path in paths + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+            with open(path, "rb") as f:
+                digest.update(f.read())
+        lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+        if not os.path.exists(lib_path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{lib_path}.{os.getpid()}.tmp"
+            proc = subprocess.run(cmd + [f"-I{CSRC}", "-o", tmp] + paths,
+                                  capture_output=True, text=True)
+            BUILD_LOGS[name] = proc.stdout + proc.stderr
+            if proc.returncode != 0:
+                raise RuntimeError(f"building {name} failed ({' '.join(cmd)}):\n"
+                                   f"{BUILD_LOGS[name]}")
+            os.replace(tmp, lib_path)
+        _loaded[name] = ctypes.CDLL(lib_path)
+        return _loaded[name]

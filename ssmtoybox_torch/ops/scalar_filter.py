@@ -1,0 +1,351 @@
+"""Fused whole-record scalar sigma-point filter: CUDA kernel, launcher, plain twin.
+
+Counterpart of the JAX package's ``ops/ddfilter.py`` with its Pallas kernel
+``ops/ddscan_pallas.py::pallas_scalar_filter``.  On a TPU that kernel exists
+to beat the per-step dispatch floor of ``lax.scan``; an eager PyTorch filter
+on the card has the same floor (about 70 small device operations a step), so the
+port runs the whole record of every trajectory inside one launch of a CUDA
+kernel (``csrc/scalar_filter.cu``), one thread per trajectory, in native
+float64 (the card needs no double-double arithmetic).
+
+Supported: the UNGM transition and measurement models, additive noise, and
+for each of the two transforms either a classical 1-D sigma-point rule with
+diagonal covariance weights or a 1-D BQ rule, with at most ``MAX_PTS``
+points.  :func:`supports` says whether a configuration qualifies.
+
+:func:`scalar_filter` is the launch wrapper.  For a CPU tensor it runs the
+plain PyTorch twin :func:`_scalar_filter_plain`; for a CUDA tensor it launches
+the kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
+"""
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..bq.transforms import BQTransform
+from ..mtran import SigmaPointTransform
+from ..ssmod import UNGMMeasurement, UNGMTransition
+from . import _build
+
+__all__ = ["LAUNCHES", "MAX_PTS", "Rule", "ScalarFilterParams", "lower_transform",
+           "supports", "prepare", "ungm_consts", "scalar_filter", "scalar_filter_moments",
+           "scalar_filter_batch", "build"]
+
+#: kernel launches made by :func:`scalar_filter` in this process
+LAUNCHES = 0
+
+#: most sigma points a rule may have (``SF_MAX_PTS`` in the step header)
+MAX_PTS = 3
+
+#: ``--fmad=false``: no multiply-add contraction, so the kernel rounds after
+#: every operation exactly like the twin's separate elementwise ops; with
+#: contraction the UNGM map grew the last-bit differences to 3.4e-8 within
+#: 20 steps on some of 4096 records (measured on an H100)
+_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+# ---------------------------------------------------------------------------
+# lowering a configuration to kernel constants
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Rule:
+    """A 1-D quadrature rule as kernel constants.  ``kind`` 0: classical
+    (``wc`` diagonal covariance weights); 1: BQ (dense ``Wc``, cross weights
+    ``wcc``, expected model variance ``emv``)."""
+
+    kind: int
+    xi: tuple
+    wm: tuple
+    wc: tuple = ()
+    Wc: tuple = ()
+    wcc: tuple = ()
+    emv: float = 0.0
+
+    @property
+    def n(self) -> int:
+        return len(self.xi)
+
+
+@dataclass(frozen=True)
+class ScalarFilterParams:
+    """Everything the kernel takes besides the data streams."""
+
+    dyn: Rule
+    obs: Rule
+    m0: float
+    P0: float
+    gqg: float
+    r: float
+
+
+class _CRule(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int), ("n", ctypes.c_int),
+                ("xi", ctypes.c_double * MAX_PTS), ("wm", ctypes.c_double * MAX_PTS),
+                ("wc", ctypes.c_double * MAX_PTS),
+                ("Wc", ctypes.c_double * (MAX_PTS * MAX_PTS)),
+                ("wcc", ctypes.c_double * MAX_PTS), ("emv", ctypes.c_double)]
+
+
+class _CParams(ctypes.Structure):
+    _fields_ = [("dyn", _CRule), ("obs", _CRule), ("m0", ctypes.c_double),
+                ("P0", ctypes.c_double), ("gqg", ctypes.c_double), ("r", ctypes.c_double)]
+
+
+def _c_rule(rule: Rule) -> _CRule:
+    c = _CRule(kind=rule.kind, n=rule.n, emv=rule.emv)
+    for name in ("xi", "wm", "wc", "wcc"):
+        vals = getattr(rule, name)
+        getattr(c, name)[:len(vals)] = vals
+    for i in range(rule.n if rule.Wc else 0):
+        c.Wc[i * MAX_PTS:i * MAX_PTS + rule.n] = rule.Wc[i]
+    return c
+
+
+def _c_params(p: ScalarFilterParams) -> _CParams:
+    return _CParams(dyn=_c_rule(p.dyn), obs=_c_rule(p.obs), m0=p.m0, P0=p.P0,
+                    gqg=p.gqg, r=p.r)
+
+
+def _floats(t) -> tuple:
+    return tuple(float(v) for v in np.asarray(t.cpu() if isinstance(t, torch.Tensor) else t,
+                                              np.float64).ravel())
+
+
+def lower_transform(tf) -> Rule:
+    """The kernel's constants for a 1-D transform; ``ValueError`` if the
+    kernel cannot run it."""
+    if isinstance(tf, SigmaPointTransform):
+        if tf.wc_diag is None:
+            raise ValueError("the fused scalar filter needs diagonal classical weights")
+        if tf.unit_sp.shape[0] != 1:
+            raise ValueError("the fused scalar filter needs a 1-D rule")
+        rule = Rule(kind=0, xi=_floats(tf.unit_sp), wm=_floats(tf.wm), wc=_floats(tf.wc_diag))
+    elif isinstance(tf, BQTransform):
+        if tf.points.shape[0] != 1 or tf.dim_out != 1:
+            raise ValueError("the fused scalar filter needs a 1-D rule")
+        Wc = tf.Wc.detach().cpu().numpy()
+        rule = Rule(kind=1, xi=_floats(tf.points), wm=_floats(tf.wm),
+                    Wc=tuple(tuple(float(v) for v in row) for row in Wc),
+                    wcc=_floats(tf.Wcc), emv=float(tf.model_var))
+    else:
+        raise ValueError(f"unsupported transform for the fused scalar filter: {type(tf)!r}")
+    if rule.n > MAX_PTS:
+        raise ValueError(f"the fused scalar filter takes at most {MAX_PTS} points; "
+                         f"got {rule.n}")
+    return rule
+
+
+def _check(mod_dyn, mod_obs):
+    if mod_dyn.dim_state != 1 or mod_obs.dim_out != 1:
+        raise ValueError("the fused scalar filter requires dim_state == dim_out == 1")
+    if not (mod_dyn.noise_additive and mod_obs.noise_additive):
+        raise ValueError("the fused scalar filter requires additive noise")
+    if type(mod_dyn) is not UNGMTransition or type(mod_obs) is not UNGMMeasurement:
+        raise ValueError("the fused scalar filter implements the UNGM models only; got "
+                         f"{type(mod_dyn).__name__} and {type(mod_obs).__name__}")
+
+
+def supports(mod_dyn, mod_obs, tf_dyn, tf_obs) -> bool:
+    """True if the fused kernel can run this configuration."""
+    try:
+        prepare(mod_dyn, mod_obs, tf_dyn, tf_obs)
+    except ValueError:
+        return False
+    return True
+
+
+def _scalar(t) -> float:
+    return float(torch.as_tensor(t).reshape(()))
+
+
+def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None) -> ScalarFilterParams:
+    """Lower a configuration to :class:`ScalarFilterParams`; ``ValueError``
+    names the piece the kernel cannot run."""
+    _check(mod_dyn, mod_obs)
+    m0, P0 = mod_dyn.init_rv.get_stats()
+    g = _scalar(mod_dyn.noise_gain)
+    return ScalarFilterParams(
+        dyn=lower_transform(tf_dyn), obs=lower_transform(tf_obs),
+        m0=_scalar(m0 if init_mean is None else init_mean),
+        P0=_scalar(P0 if init_cov is None else init_cov),
+        gqg=g * _scalar(mod_dyn.noise_rv.get_stats()[1]) * g,
+        r=_scalar(mod_obs.noise_rv.get_stats()[1]))
+
+
+def ungm_consts(n_steps: int) -> np.ndarray:
+    """UNGM's time-dependent term per step: measurement ``k`` (1-based) uses
+    the dynamics at time ``k - 1``, so ``c[k] = 8 cos(1.2 k)`` for the
+    0-based step index."""
+    return 8.0 * np.cos(1.2 * np.arange(n_steps, dtype=np.float64))
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch twin
+# ---------------------------------------------------------------------------
+
+def _moments_plain(rule: Rule, L, fs):
+    m = 0.0
+    for i in range(rule.n):
+        m = m + rule.wm[i] * fs[i]
+    v = c = 0.0
+    if rule.kind == 0:
+        for i in range(rule.n):
+            d = fs[i] - m
+            v = v + rule.wc[i] * (d * d)
+            c = c + rule.wc[i] * ((L * rule.xi[i]) * d)
+    else:
+        q = s = 0.0
+        for i in range(rule.n):
+            row = 0.0
+            for j in range(rule.n):
+                row = row + rule.Wc[i][j] * fs[j]
+            q = q + fs[i] * row
+            s = s + rule.wcc[i] * fs[i]
+        v = q - m * m + rule.emv
+        c = s * L
+    return m, v, c
+
+
+def _scalar_filter_plain(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
+    """The kernel's computation as batched torch ops over the B trajectories
+    and a Python loop over the N steps; same arguments and results as
+    :func:`scalar_filter`."""
+    N, B = y.shape
+    out = torch.empty((5, N, B), dtype=y.dtype, device=y.device)
+    m = torch.full((B,), params.m0, dtype=y.dtype, device=y.device)
+    P = torch.full((B,), params.P0, dtype=y.dtype, device=y.device)
+    dyn, obs = params.dyn, params.obs
+    for k in range(N):
+        L = torch.sqrt(P)
+        fs = []
+        for i in range(dyn.n):
+            x = m + L * dyn.xi[i]
+            fs.append(0.5 * x + 25.0 * (x / (1.0 + x * x)) + c[k])
+        m_pr, Pf, xx = _moments_plain(dyn, L, fs)
+        P_pr = Pf + params.gqg
+        L2 = torch.sqrt(P_pr)
+        hs = []
+        for i in range(obs.n):
+            x = m_pr + L2 * obs.xi[i]
+            hs.append(0.05 * (x * x))
+        y_pr, S0, C = _moments_plain(obs, L2, hs)
+        S = S0 + params.r
+        K = C / S
+        m = m_pr + K * (y[k] - y_pr)
+        P = P_pr - (K * K) * S
+        out[0, k], out[1, k], out[2, k], out[3, k], out[4, k] = m, P, m_pr, P_pr, xx
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/scalar_filter.cu`` for sm_90a with nvcc (once) and bind it."""
+    lib = _build.load("scalar_filter", ["scalar_filter.cu"], [_build.find_nvcc()] + _NVCC_FLAGS)
+    lib.sf_launch.restype = ctypes.c_int
+    lib.sf_launch.argtypes = ([ctypes.POINTER(_CParams)] + [ctypes.c_void_p] * 2
+                              + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+    lib.sf_error_string.restype = ctypes.c_char_p
+    lib.sf_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _host_shim() -> ctypes.CDLL:
+    """The step header built for the host with g++ (tests only)."""
+    lib = _build.load("scalar_filter_host", ["scalar_filter_host.cpp"],
+                      ["g++", "-O2", "-shared", "-fPIC"])
+    lib.sf_host_run.restype = None
+    lib.sf_host_run.argtypes = ([ctypes.POINTER(_CParams)] + [ctypes.c_void_p] * 2
+                                + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
+    return lib
+
+
+def _check_streams(y: torch.Tensor, c: torch.Tensor):
+    if y.dtype != torch.float64 or c.dtype != torch.float64:
+        raise TypeError(f"the scalar filter runs in float64; got {y.dtype} and {c.dtype}")
+    if y.ndim != 2 or c.shape != (y.shape[0],):
+        raise ValueError(f"y must be (N, B) and c (N,); got {tuple(y.shape)} and "
+                         f"{tuple(c.shape)}")
+    if y.device != c.device:
+        raise ValueError(f"y and c on different devices: {y.device} and {c.device}")
+    if not (y.is_contiguous() and c.is_contiguous()):
+        raise ValueError("y and c must be contiguous")
+    if y.shape[1] >= 2 ** 31:
+        raise ValueError(f"at most 2**31 - 1 trajectories; got {y.shape[1]}")
+
+
+def _host_shim_run(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
+    """Run the step header compiled for the host on CPU tensors."""
+    _check_streams(y, c)
+    if y.device.type != "cpu":
+        raise ValueError(f"the host build takes CPU tensors; got {y.device}")
+    N, B = y.shape
+    out = torch.empty((5, N, B), dtype=torch.float64)
+    p = _c_params(params)
+    _host_shim().sf_host_run(ctypes.byref(p), y.data_ptr(), c.data_ptr(), B, N,
+                             *(o.data_ptr() for o in out))
+    return tuple(out)
+
+
+def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
+    """Filter B scalar records in one kernel launch.
+
+    ``y`` (N, B) float64 measurements, time-major and contiguous; ``c`` (N,)
+    per-step dynamics constants (:func:`ungm_consts`).  Returns the five
+    (N, B) streams ``(m_fi, P_fi, m_pr, P_pr, xx)``: filtered mean and
+    variance, predicted mean and variance, and the dynamics transform's
+    cross-covariance.  A CPU tensor runs the plain twin; a CUDA tensor
+    launches the kernel on the current stream, without synchronising.
+    """
+    global LAUNCHES
+    _check_streams(y, c)
+    if y.device.type == "cpu":
+        return _scalar_filter_plain(params, y, c)
+    if y.device.type != "cuda":
+        raise ValueError(f"the scalar filter runs on CPU or CUDA tensors; got {y.device}")
+    lib = build()
+    N, B = y.shape
+    out = torch.empty((5, N, B), dtype=torch.float64, device=y.device)
+    if y.numel() == 0:
+        return tuple(out)
+    p = _c_params(params)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    rc = lib.sf_launch(ctypes.byref(p), y.data_ptr(), c.data_ptr(), B, N,
+                       y.device.index or 0, *(o.data_ptr() for o in out), stream)
+    if rc != 0:
+        raise RuntimeError(f"scalar filter kernel launch failed: "
+                           f"{lib.sf_error_string(rc).decode()} (cudaError {rc})")
+    LAUNCHES += 1
+    return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# model-level entry points
+# ---------------------------------------------------------------------------
+
+def scalar_filter_moments(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
+                          init_mean=None, init_cov=None):
+    """The five (N, B) moment streams of :func:`scalar_filter` for a batch of
+    records ``data_batch`` (B, 1, N) or (B, N), on the data's device."""
+    ys = data_batch[:, 0, :] if data_batch.ndim == 3 else data_batch
+    params = prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
+    y = ys.to(torch.float64).T.contiguous()
+    c = torch.as_tensor(ungm_consts(y.shape[0]), device=y.device)
+    return scalar_filter(params, y, c)
+
+
+def scalar_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch):
+    """Filtered means of a batch of scalar records.
+
+    ``data_batch`` (B, 1, N) or (B, N) float64; returns (B, 1, N), the JAX
+    contract of ``ops.ddfilter.scalar_filter_batch``.
+    """
+    m_fi = scalar_filter_moments(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch)[0]
+    return m_fi.T[:, None, :]

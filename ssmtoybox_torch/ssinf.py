@@ -1,0 +1,288 @@
+"""Gaussian filters and smoothers (counterpart of :mod:`ssmtoybox_tpu.ssinf`).
+
+The JAX package runs each trajectory's recursion as one ``lax.scan`` and
+batches trajectories with ``vmap``.  Here the batch is a leading dimension
+written out and the recursion is a Python loop over time, whose body is a few
+dozen batched operations on the card; for scalar UNGM configurations
+``engine="dd"`` runs the whole record in one CUDA kernel instead
+(:mod:`ssmtoybox_torch.ops.scalar_filter`).
+
+Layouts are the JAX package's: one trajectory has data (dim_y, N) and
+moments ``fi_mean`` (D, N), ``fi_cov`` (D, D, N); a batch has data
+(M, dim_y, N), ``fi_mean`` (M, D, N) and ``fi_cov`` (M, D, D, N).
+Measurement ``k`` (1-based) is processed with the dynamics at time ``k - 1``.
+
+Parity quirk kept from the reference: :func:`gaussian_smoother` with
+``rts_full=False`` smooths indices ``0..N-3`` only and seeds the first update
+with the filtered estimate of step ``N`` against the predictive moments of
+step ``N - 1``.
+"""
+from __future__ import annotations
+
+import warnings
+from dataclasses import dataclass
+
+import torch
+
+from .bq.transforms import GaussianProcessTransform
+from .mtran import UnscentedTransform
+from .ops import scalar_filter as _sf
+from .utils.arrays import f64
+from .utils.linalg import pd_solve_small
+
+__all__ = [
+    "FilterResult", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
+    "StateSpaceInference", "GaussianInference", "UnscentedKalman",
+    "GaussianProcessKalman",
+]
+
+#: the ROADMAP item that brings ``engine="dd"`` to states of dimension 2-8
+_DD_VECTOR_ITEM = ("ROADMAP queue 1, item 8, 'Fused filter kernel for D <= 8' (the "
+                   "counterpart of the JAX package's ops/ddvec.py)")
+
+
+@dataclass
+class FilterResult:
+    """Stacked forward-pass moments, time last: filtered and predictive
+    moments plus the dynamics cross-covariance the RTS pass consumes."""
+
+    fi_mean: torch.Tensor
+    fi_cov: torch.Tensor
+    pr_mean: torch.Tensor
+    pr_cov: torch.Tensor
+    pr_xx_cov: torch.Tensor
+
+
+def _gaussian_time_update(mod_dyn, mod_obs, tf_dyn, tf_obs, m, P, time):
+    """One Gaussian time update for a batch ``m`` (M, D), ``P`` (M, D, D).
+
+    Returns predicted state moments, predicted measurement moments and the
+    cross-covariances trimmed to the state.
+    """
+    if not (mod_dyn.noise_additive and mod_obs.noise_additive):
+        raise NotImplementedError("non-additive noise is not ported yet "
+                                  "(ROADMAP queue 1, item 10)")
+    G = mod_dyn.noise_gain
+    x_mean_pr, x_cov_pr, xx_cov = tf_dyn.apply(mod_dyn.dyn_eval, m, P, time)
+    x_cov_pr = x_cov_pr + G @ mod_dyn.noise_rv.get_stats()[1] @ G.T
+    y_mean_pr, y_cov_pr, xy_cov = tf_obs.apply(mod_obs.meas_eval, x_mean_pr, x_cov_pr, time)
+    y_cov_pr = y_cov_pr + mod_obs.noise_rv.get_stats()[1]
+    d = mod_dyn.dim_state
+    return x_mean_pr, x_cov_pr, xx_cov[..., :d], y_mean_pr, y_cov_pr, xy_cov[..., :d]
+
+
+def _kalman_update(x_mean_pr, x_cov_pr, y_mean_pr, y_cov_pr, xy_cov, y):
+    """Gaussian measurement update with the Cholesky-solved gain."""
+    gain = pd_solve_small(y_cov_pr, xy_cov).mT
+    x_mean_fi = x_mean_pr + (gain @ (y - y_mean_pr)[..., None])[..., 0]
+    x_cov_fi = x_cov_pr - gain @ y_cov_pr @ gain.mT
+    return x_mean_fi, x_cov_fi
+
+
+def _smoothing_update(m_fi, P_fi, m_sm_next, P_sm_next, m_pr_next, P_pr_next, xx_cov_next):
+    """RTS smoothing update."""
+    gain = pd_solve_small(P_pr_next, xx_cov_next).mT
+    m_sm = m_fi + (gain @ (m_sm_next - m_pr_next)[..., None])[..., 0]
+    P_sm = P_fi + gain @ (P_sm_next - P_pr_next) @ gain.mT
+    return m_sm, P_sm
+
+
+def _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov) -> FilterResult:
+    M, _, N = data.shape
+    m0, P0 = mod_dyn.init_rv.get_stats()
+    D = mod_dyn.dim_state
+    m = f64(m0 if init_mean is None else init_mean, data.device).expand(M, D)
+    P = f64(P0 if init_cov is None else init_cov, data.device).expand(M, D, D)
+    outs = []
+    for k in range(1, N + 1):
+        m_pr, P_pr, xx, y_pr, S, xy = _gaussian_time_update(
+            mod_dyn, mod_obs, tf_dyn, tf_obs, m, P, k - 1)
+        m, P = _kalman_update(m_pr, P_pr, y_pr, S, xy, data[..., k - 1])
+        outs.append((m, P, m_pr, P_pr, xx))
+    fi_m, fi_P, pr_m, pr_P, pr_xx = (torch.stack(s, dim=-1) for s in zip(*outs))
+    # one host check after the loop: a Cholesky that failed inside it left NaN
+    # (utils.linalg.chol_small), as the JAX package does
+    bad = int((~torch.isfinite(fi_P)).flatten(1).any(dim=1).sum())
+    if bad:
+        warnings.warn(f"{bad} of {M} trajectories lost positive definiteness; "
+                      "their moments are NaN from that step on", RuntimeWarning)
+    return FilterResult(fi_mean=fi_m, fi_cov=fi_P, pr_mean=pr_m, pr_cov=pr_P, pr_xx_cov=pr_xx)
+
+
+def _filter_fused(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov) -> FilterResult:
+    m_fi, P_fi, m_pr, P_pr, xx = _sf.scalar_filter_moments(
+        mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov)
+    vec, mat = (lambda s: s.T[:, None, :]), (lambda s: s.T[:, None, None, :])
+    return FilterResult(fi_mean=vec(m_fi), fi_cov=mat(P_fi), pr_mean=vec(m_pr),
+                        pr_cov=mat(P_pr), pr_xx_cov=mat(xx))
+
+
+def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
+                          init_mean=None, init_cov=None, engine: str = "f64") -> FilterResult:
+    """Forward pass over a batch of measurement trajectories (M, dim_y, N).
+
+    ``engine`` keeps the JAX package's names:
+
+    - ``"f64"`` (default): the batched eager recursion in float64.
+    - ``"dd"``: on the card, the fused whole-record CUDA kernel in native
+      float64 (the JAX package's double-double engine is not needed there);
+      on CPU tensors, the kernel's plain PyTorch twin.  Scalar UNGM
+      configurations only; anything else raises ``ValueError``.
+    - ``"auto"``: ``"dd"`` when the configuration supports it, else ``"f64"``.
+    """
+    if engine not in ("f64", "dd", "auto"):
+        raise ValueError(f"engine must be 'f64', 'dd' or 'auto'; got {engine!r}")
+    if engine != "f64":
+        try:
+            _sf.prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
+        except ValueError as e:
+            if engine == "dd":
+                if mod_dyn.dim_state > 1:
+                    raise ValueError(
+                        f"engine='dd' runs scalar states only; dim_state="
+                        f"{mod_dyn.dim_state} needs {_DD_VECTOR_ITEM}") from e
+                raise ValueError(f"engine='dd' cannot run this configuration: {e}") from e
+            engine = "f64"
+        else:
+            engine = "dd"
+    data = f64(data_batch, mod_dyn.device)
+    run = _filter_fused if engine == "dd" else _filter_f64
+    return run(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov)
+
+
+def gaussian_filter(mod_dyn, mod_obs, tf_dyn, tf_obs, data,
+                    init_mean=None, init_cov=None) -> FilterResult:
+    """Forward pass of one trajectory ``data`` (dim_y, N): the batch path on a
+    batch of one."""
+    res = gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs,
+                                f64(data, mod_dyn.device)[None], init_mean, init_cov)
+    return FilterResult(*(getattr(res, f)[0] for f in res.__dataclass_fields__))
+
+
+def gaussian_smoother(result: FilterResult, rts_full: bool = False):
+    """RTS backward pass over stacked forward moments, any leading batch dims.
+
+    With ``rts_full=False`` (default) the reference's indexing is reproduced:
+    entries ``N-2`` and ``N-1`` (0-based) keep their filtered values and the
+    first update pairs ``fi[N-1]`` with the predictive moments of ``N-2``.
+    ``rts_full=True`` smooths every step from the last filtered estimate.
+    Returns ``(sm_mean, sm_cov)`` in the layout of ``fi_mean``/``fi_cov``.
+    """
+    fi_m, fi_P, pr_m, pr_P, pr_xx = (
+        torch.movedim(getattr(result, f), -1, 0)
+        for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov"))
+    n = fi_m.shape[0]
+    n_sm = max(n - 1 if rts_full else n - 2, 0)
+    m_next, P_next = fi_m[-1], fi_P[-1]
+    sm = []
+    for k in range(n_sm - 1, -1, -1):
+        m_next, P_next = _smoothing_update(fi_m[k], fi_P[k], m_next, P_next,
+                                           pr_m[k + 1], pr_P[k + 1], pr_xx[k + 1])
+        sm.append((m_next, P_next))
+    sm_m, sm_P = fi_m, fi_P
+    if sm:
+        sm = sm[::-1]
+        sm_m = torch.cat([torch.stack([s[0] for s in sm]), fi_m[n_sm:]])
+        sm_P = torch.cat([torch.stack([s[1] for s in sm]), fi_P[n_sm:]])
+    return torch.movedim(sm_m, 0, -1), torch.movedim(sm_P, 0, -1)
+
+
+# ---------------------------------------------------------------------------
+# Class API mirroring the reference
+# ---------------------------------------------------------------------------
+
+class StateSpaceInference:
+    """Stateful wrapper with the reference's API surface (``forward_pass``,
+    ``backward_pass``, ``reset``); it caches the stacked moments between the
+    passes."""
+
+    def __init__(self, mod_dyn, mod_obs, tf_dyn, tf_obs):
+        self.mod_dyn = mod_dyn
+        self.mod_obs = mod_obs
+        self.tf_dyn = tf_dyn
+        self.tf_obs = tf_obs
+        self.reset()
+
+    def get_flag(self, key):
+        return self.flags[key]
+
+    def set_flag(self, key, value):
+        self.flags[key] = value
+
+    def _check_batch(self, data_batch) -> torch.Tensor:
+        data_batch = f64(data_batch, self.mod_dyn.device)
+        if data_batch.ndim != 3 or data_batch.shape[1] != self.mod_obs.dim_out:
+            raise ValueError(
+                f"data_batch must be (num_traj, dim_y={self.mod_obs.dim_out}, "
+                f"num_steps); got {tuple(data_batch.shape)}. For a single trajectory "
+                "use forward_pass((dim_y, N)).")
+        return data_batch
+
+    def forward_pass(self, data):
+        data = f64(data, self.mod_dyn.device)
+        if data.ndim != 2 or data.shape[0] != self.mod_obs.dim_out:
+            raise ValueError(
+                f"data must be (dim_y={self.mod_obs.dim_out}, num_steps); got "
+                f"{tuple(data.shape)}. For a batch of trajectories use "
+                "forward_pass_batch((M, dim_y, N)).")
+        self._result = self._run_forward(data)
+        self.fi_mean, self.fi_cov = self._result.fi_mean, self._result.fi_cov
+        self.set_flag("filtered", True)
+        return self.fi_mean, self.fi_cov
+
+    def backward_pass(self, rts_full: bool = False):
+        if not self.get_flag("filtered"):
+            raise RuntimeError("forward_pass must run before backward_pass")
+        self.sm_mean, self.sm_cov = self._run_backward(self._result, rts_full)
+        self.set_flag("smoothed", True)
+        return self.sm_mean, self.sm_cov
+
+    def reset(self):
+        self._result = None
+        self.fi_mean = self.fi_cov = None
+        self.sm_mean = self.sm_cov = None
+        self.flags = {"filtered": False, "smoothed": False}
+
+    def _run_forward(self, data):  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def _run_backward(self, result, rts_full):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class GaussianInference(StateSpaceInference):
+    """Gaussian filter and RTS smoother."""
+
+    def _run_forward(self, data):
+        return gaussian_filter(self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs, data)
+
+    def _run_backward(self, result, rts_full):
+        return gaussian_smoother(result, rts_full=rts_full)
+
+    def forward_pass_batch(self, data_batch, engine: str = "f64") -> FilterResult:
+        """Filter a whole (M, dim_y, N) batch; ``engine`` as in
+        :func:`gaussian_filter_batch`."""
+        return gaussian_filter_batch(self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs,
+                                     self._check_batch(data_batch), engine=engine)
+
+
+class UnscentedKalman(GaussianInference):
+    """Unscented Kalman filter."""
+
+    def __init__(self, dyn, obs, kappa=None, alpha: float = 1.0, beta: float = 2.0):
+        super().__init__(dyn, obs,
+                         UnscentedTransform(dyn.dim_in, kappa, alpha, beta, device=dyn.device),
+                         UnscentedTransform(obs.dim_in, kappa, alpha, beta, device=dyn.device))
+
+
+class GaussianProcessKalman(GaussianInference):
+    """Gaussian-process quadrature Kalman filter (GPQKF)."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, kernel: str = "rbf",
+                 points: str = "ut", point_hyp=None):
+        super().__init__(
+            dyn, obs,
+            GaussianProcessTransform(dyn.dim_in, dyn.dim_state, kern_par_dyn, kernel,
+                                     points, point_hyp, device=dyn.device),
+            GaussianProcessTransform(obs.dim_in, obs.dim_out, kern_par_obs, kernel,
+                                     points, point_hyp, device=dyn.device))
