@@ -1,17 +1,20 @@
-"""BQ kernels and their Gaussian expectations (counterpart of
-:mod:`ssmtoybox_tpu.bq.kernels`, RBF kernel only).
+"""BQ kernels and their expectations (counterpart of
+:mod:`ssmtoybox_tpu.bq.kernels`, RBF kernels).
 
 Points ``x`` are (D, N) float64 tensors; ``par`` is the (1, D+1) parameter
-row ``[s, l_1..l_D]``.  Expectations are w.r.t. ``N(0, I)`` and closed-form.
+row ``[s, l_1..l_D]``.  :class:`RBFGauss` takes expectations w.r.t.
+``N(0, I)`` in closed form; :class:`RBFStudent` w.r.t. the standard Student
+density ``St(0, I, dof)`` by Monte Carlo.
 """
 from __future__ import annotations
 
 import torch
 
+from ..utils import rand
 from ..utils.arrays import f64
 from ..utils.linalg import maha, pd_solve, symmetrize
 
-__all__ = ["RBFGauss", "get_kernel"]
+__all__ = ["RBFGauss", "RBFStudent", "get_kernel"]
 
 
 def _unpack_rbf(par):
@@ -36,6 +39,7 @@ class RBFGauss:
         return self.par if par is None else torch.atleast_2d(f64(par, self.par.device))
 
     def eval(self, par, x1, x2=None, diag=False, scaling=True):
+        """Gram of the columns of ``x1`` (..., D, N1) and ``x2`` (D, N2)."""
         x2 = x1 if x2 is None else x2
         alpha, ell = _unpack_rbf(par)
         log_a2 = 2.0 * torch.log(alpha) if scaling else 0.0
@@ -43,8 +47,8 @@ class RBFGauss:
         s2 = x2 / ell[:, None]
         if diag:
             dx = s1 - s2
-            return torch.exp(log_a2 - 0.5 * torch.sum(dx * dx, dim=0))
-        return torch.exp(log_a2 - 0.5 * maha(s1.T, s2.T))
+            return torch.exp(log_a2 - 0.5 * torch.sum(dx * dx, dim=-2))
+        return torch.exp(log_a2 - 0.5 * maha(s1.mT, s2.mT))
 
     def eval_inv_dot(self, par, x, b=None, scaling=True):
         """``(K + jitter I)^-1 b`` via Cholesky, symmetrized when ``b`` is
@@ -105,9 +109,180 @@ class RBFGauss:
         return self.exp_x_kx(par, x), self.exp_x_xkx(par, x), self.exp_x_kxkx(par, par, x)
 
 
+#: elements of the largest intermediate a Monte-Carlo scan makes at once
+_GROUP_ELEMS = 1 << 24
+
+
+class RBFStudent(RBFGauss):
+    """RBF kernel with expectations w.r.t. ``St(0, I, dof)`` by Monte Carlo.
+
+    Two paths, as in the JAX package:
+
+    - the scan path: float64 sample batches, ``num_batches`` of
+      ``num_samples // num_batches`` samples drawn from a generator seeded
+      with ``seed`` (several batches at once, bounded in memory), folded into
+      running sums.  :meth:`projected_weight_stats` (the BQ weights) always
+      takes it;
+    - the fused path (:mod:`ssmtoybox_torch.ops.student_mc`): one float32
+      sample stream in chunks, reduced by the CUDA kernels, differentiable
+      through their backward kernels.  :meth:`exp_x_qRQ` and
+      :meth:`exp_xy_kxy` take it when :meth:`_kernel_on` says so.
+
+    ``use_kernel`` is the JAX package's ``use_pallas``: ``True`` takes the
+    fused path when the kernel's tensors lie on a CUDA card (the scan path
+    elsewhere), ``"force"`` takes it everywhere (through the plain versions
+    on the CPU), ``False`` never.
+    """
+
+    def __init__(self, dim: int, par, jitter: float = 1e-8, dof: float = 4.0,
+                 num_samples: int = int(2e6), num_batches: int = 50, seed: int = 0,
+                 use_kernel=True, device=None):
+        super().__init__(dim, par, jitter, device)
+        if use_kernel not in (True, False, "force"):
+            raise ValueError(f"use_kernel={use_kernel!r}; expected True, False or 'force'")
+        self.dof = float(dof)
+        self.num_samples = int(num_samples)
+        self.num_batches = int(num_batches)
+        self.seed = int(seed)
+        self.use_kernel = use_kernel
+
+    def _kernel_on(self) -> bool:
+        """The fused path: forced, or permitted and on a CUDA card."""
+        if self.use_kernel == "force":
+            return True
+        return bool(self.use_kernel) and self.par.device.type == "cuda"
+
+    def _generator(self) -> torch.Generator:
+        return torch.Generator(device=self.par.device).manual_seed(self.seed)
+
+    # -- the scan path ----------------------------------------------------------
+    def _batches(self, num_batches: int, batch_size: int, per_sample: int):
+        """Sample batches as (G, D, batch_size) float64 stacks of G batches,
+        G chosen so that a fold's (G, batch_size, per_sample) intermediate
+        stays under ``_GROUP_ELEMS`` elements."""
+        gen = self._generator()
+        kw = dict(dtype=torch.float64, device=self.par.device)
+        mean, eye = torch.zeros(self.dim, **kw), torch.eye(self.dim, **kw)
+        group = max(1, _GROUP_ELEMS // (batch_size * per_sample))
+        for b0 in range(0, num_batches, group):
+            g = min(group, num_batches - b0)
+            yield rand.multivariate_t(gen, mean, eye, self.dof, (g, batch_size)).mT
+
+    def _mc_scan(self, fold, init, num_batches=None, per_sample: int = 1):
+        """Accumulate ``fold(batches, acc)`` over the sample batches and divide
+        by the number of samples drawn, ``num_batches * (num_samples //
+        num_batches)``."""
+        num_batches = self.num_batches if num_batches is None else num_batches
+        batch_size = self.num_samples // num_batches
+        if batch_size < 1:
+            raise ValueError(
+                f"num_samples={self.num_samples} gives an empty batch with "
+                f"num_batches={num_batches}; raise num_samples or lower num_batches")
+        acc = init
+        for xs in self._batches(num_batches, batch_size, per_sample):
+            acc = fold(xs, acc)
+        n = num_batches * batch_size
+        return tuple(a / n for a in acc) if isinstance(acc, tuple) else acc / n
+
+    def exp_x_kx(self, par, x, scaling=False):
+        return self._mc_scan(
+            lambda xs, acc: acc + self.eval(par, xs, x, scaling=scaling).sum((0, 1)),
+            x.new_zeros(x.shape[-1]), per_sample=x.shape[-1])
+
+    def exp_x_xkx(self, par, x, scaling=False):
+        return self._mc_scan(
+            lambda xs, acc: acc + (xs @ self.eval(par, xs, x, scaling=scaling)).sum(0),
+            x.new_zeros(x.shape), per_sample=x.shape[-1])
+
+    def exp_x_kxkx(self, par_0, par_1, x, scaling=False):
+        """``Q[i, j] = E[k_par0(x, x_i) k_par1(x, x_j)]``: the closed-form
+        orientation of :class:`RBFGauss`, so ``Q(p1, p0) == Q(p0, p1)^T``
+        (the reference accumulates the transpose; the JAX package fixed it)."""
+        def fold(xs, acc):
+            k0 = self.eval(par_0, xs, x, scaling=scaling)
+            k1 = self.eval(par_1, xs, x, scaling=scaling)
+            return acc + (k0.mT @ k1).sum(0)
+
+        n = x.shape[-1]
+        return self._mc_scan(fold, x.new_zeros((n, n)), per_sample=n)
+
+    def exp_x_kxx(self, par):
+        return torch.atleast_2d(par)[0, 0] ** 2
+
+    def projected_weight_stats(self, par, x, iK):
+        """Monte-Carlo BQ weight statistics accumulated in WEIGHT space.
+
+        With ``g_s = iK k_s`` per sample: ``wm = E[g]``, ``Wc = E[g g^T]``,
+        ``Wcc = E[x g^T]`` and ``tr(Q iK) = E[k^T g]``, plus the raw ``q`` and
+        ``Q`` from the same samples.  The composed ``iK Q iK`` would amplify
+        any unstructured accumulation error by ``1/lambda_min(K)^2`` (~1e16
+        on the FUSION-2017 Student-study parameters) and diverge every TPQ
+        filter; these sums carry errors relative to the weights themselves.
+
+        Returns ``(q, wm, Wc, Wcc, tr_QiK, Q)``.
+        """
+        def fold(xs, acc):
+            k = self.eval(par, xs, x, scaling=False)        # (G, B, N)
+            g = k @ iK
+            q, wm, Wc, Wcc, tr, Q = acc
+            return (q + k.sum((0, 1)), wm + g.sum((0, 1)), Wc + (g.mT @ g).sum(0),
+                    Wcc + (xs @ g).sum(0), tr + torch.sum(k * g), Q + (k.mT @ k).sum(0))
+
+        d, n = x.shape
+        z = x.new_zeros
+        return self._mc_scan(fold, (z(n), z(n), z((n, n)), z((d, n)), z(()), z((n, n))),
+                             per_sample=n)
+
+    # -- the fused path ---------------------------------------------------------
+    def _fused_samples(self, par, chunk: int):
+        """The fused path's float32 sample stream, ``(samples, chunk)``."""
+        from ..ops.student_mc import chunking
+        chunk, _, total = chunking(self.num_samples, chunk)
+        kw = dict(dtype=torch.float32, device=par.device)
+        samples = rand.multivariate_t(self._generator(), torch.zeros(self.dim, **kw),
+                                      torch.eye(self.dim, **kw), self.dof, (total,))
+        return samples, chunk
+
+    def exp_x_qRQ(self, par, x):
+        """``(q, R, Q)`` from one sample stream: on the fused path one Gram
+        evaluation per chunk and three reductions in the ``qrq`` kernel
+        (differentiable through ``qrq_bwd``); otherwise the three scans.
+        Raw expectations, not weight-grade on ill-conditioned parameters:
+        the BQ weights use :meth:`projected_weight_stats`."""
+        if not self._kernel_on():
+            return super().exp_x_qRQ(par, x)
+        from ..ops import student_mc
+        samples, chunk = self._fused_samples(par, student_mc.QRQ_CHUNK)
+        return student_mc.student_qrq(par, x, samples, chunk)
+
+    def exp_xy_kxy(self, par):
+        """``E[k(x, y)]`` over independent Student draws: the off-diagonal
+        pairs of each chunk (fused path) or batch (scan path), so the
+        estimate divides by the pair count (the reference's ``B``-fold
+        overestimate is fixed, as in the JAX package)."""
+        scale2 = torch.atleast_2d(par)[0, 0] ** 2
+        if self._kernel_on():
+            from ..ops import student_mc
+            samples, chunk = self._fused_samples(par, student_mc.KXY_CHUNK)
+            return scale2 * student_mc.student_kxy(par, samples, chunk)
+        # batches of >= 2 samples (pairs need two)
+        nb = min(10000, max(1, self.num_samples // 2))
+
+        def fold(xs, acc):
+            K = self.eval(par, xs, xs)                      # (G, B, B)
+            b = K.shape[-1]
+            off = K.sum((1, 2)) - torch.diagonal(K, dim1=-2, dim2=-1).sum(-1)
+            return acc + torch.sum(off / (b - 1))
+
+        return self._mc_scan(fold, self.par.new_zeros(()), num_batches=nb,
+                             per_sample=self.num_samples // nb)
+
+
 def get_kernel(dim: int, kernel: str, par, **kwargs) -> RBFGauss:
-    """String-keyed kernel factory.  Only ``"rbf"`` is ported so far
-    (ROADMAP, queue 1, item 14)."""
-    if kernel.lower() == "rbf":
+    """String-keyed kernel factory: ``"rbf"`` or ``"rbf-student"``."""
+    kernel = kernel.lower()
+    if kernel == "rbf":
         return RBFGauss(dim, par, **kwargs)
-    raise ValueError(f"Kernel '{kernel}' not supported. Supported: rbf.")
+    if kernel == "rbf-student":
+        return RBFStudent(dim, par, **kwargs)
+    raise ValueError(f"Kernel '{kernel}' not supported. Supported: rbf, rbf-student.")

@@ -1,5 +1,5 @@
 """Bayesian-quadrature moment transforms (counterpart of
-:mod:`ssmtoybox_tpu.bq.transforms`, GP quadrature only).
+:mod:`ssmtoybox_tpu.bq.transforms`: GP and Student-t-process quadrature).
 
 A BQ transform is a sigma-point transform whose weights come from a GP model
 of the integrand.  Its covariance is the UNCENTERED quadrature
@@ -16,9 +16,9 @@ import torch
 from ..mtran import MomentTransform, apply_f_columns
 from ..utils.arrays import f64
 from ..utils.linalg import chol_small
-from .models import GaussianProcessModel
+from .models import GaussianProcessModel, StudentTProcessModel, tp_scale
 
-__all__ = ["BQTransform", "GaussianProcessTransform"]
+__all__ = ["BQTransform", "GaussianProcessTransform", "StudentTProcessTransform"]
 
 
 class BQTransform(MomentTransform):
@@ -30,13 +30,14 @@ class BQTransform(MomentTransform):
     """
 
     def __init__(self, points, wm, Wc, Wcc, model_var, dim_out: int = 1, iK=None,
-                 device=None):
+                 integral_var=None, device=None):
         self.points = f64(points, device)
         self.wm = f64(wm, device)
         self.Wc = f64(Wc, device)
         self.Wcc = f64(Wcc, device)
         self.model_var = f64(model_var, device).reshape(())
         self.iK = None if iK is None else f64(iK, device)
+        self.integral_var = None if integral_var is None else f64(integral_var, device)
         self.dim_out = int(dim_out)
         self._emv = self.model_var * torch.eye(self.dim_out, dtype=torch.float64,
                                                device=self.points.device)
@@ -49,18 +50,67 @@ class BQTransform(MomentTransform):
         L = chol_small(cov)
         fx = apply_f_columns(f, mean[..., None] + L @ self.points, time)   # (M, E, N)
         mean_f = fx @ self.wm
-        cov_f = fx @ self.Wc @ fx.mT - mean_f[..., :, None] * mean_f[..., None, :] + self._emv
+        cov_f = (fx @ self.Wc @ fx.mT - mean_f[..., :, None] * mean_f[..., None, :]
+                 + self._model_variance(fx))
         return mean_f, cov_f, fx @ self.Wcc.mT @ L.mT
+
+    def _model_variance(self, fx):
+        """The GPQ inflation ``model_var * I``."""
+        return self._emv
 
 
 class GaussianProcessTransform(BQTransform):
-    """GPQ moment transform: weights from a :class:`GaussianProcessModel`."""
+    """GPQ moment transform: weights from a :class:`GaussianProcessModel`;
+    ``kern_kwargs`` reach the kernel (e.g. an ``RBFStudent``'s Monte-Carlo
+    settings ``num_samples``, ``num_batches``, ``seed``, ``dof``,
+    ``use_kernel``)."""
 
     def __init__(self, dim_in: int, dim_out: int, kern_par, kern_str: str = "rbf",
-                 point_str: str = "ut", point_par=None, device=None):
+                 point_str: str = "ut", point_par=None, device=None, **kern_kwargs):
         self.model = GaussianProcessModel(dim_in, kern_par, kern_str, point_str,
-                                          point_par, device=device)
+                                          point_par, device=device, **kern_kwargs)
         w = self.model.bq_weights()
-        self.integral_var = w.integral_var
         super().__init__(self.model.points, w.wm, w.Wc, w.Wcc, w.model_var,
-                         dim_out=dim_out, iK=w.iK, device=device)
+                         dim_out=dim_out, iK=w.iK, integral_var=w.integral_var,
+                         device=device)
+
+
+class StudentTProcessTransform(BQTransform):
+    """TPQ moment transform: GP weights from a :class:`StudentTProcessModel`
+    and the data-dependent model variance
+    ``tp_scale(nu, iK, f) * model_var * I_out`` (for ``dim_out=1`` the whole
+    (E, E) scale matrix, as in the JAX package and the reference).
+
+    ``compat_drop_nu=True`` (default) reproduces the reference, where the
+    transform's ``nu`` never reaches the model, which keeps ``nu = 4``.
+    ``mc_opts`` reach the kernel (``num_samples``, ``num_batches``, ``seed``,
+    ``dof``, ``use_kernel``); the point-set ``dof`` shapes the points only.
+    :meth:`from_weights` builds the transform from precomputed arrays.
+    """
+
+    def __init__(self, dim_in: int, dim_out: int, kern_par, kern_str: str = "rbf",
+                 point_str: str = "ut", point_par=None, nu: float = 3.0,
+                 compat_drop_nu: bool = True, mc_opts=None, device=None):
+        self.model = StudentTProcessModel(dim_in, kern_par, kern_str, point_str, point_par,
+                                          nu=4.0 if compat_drop_nu else nu, device=device,
+                                          **dict(mc_opts or {}))
+        w = self.model.bq_weights()
+        super().__init__(self.model.points, w.wm, w.Wc, w.Wcc, w.model_var,
+                         dim_out=dim_out, iK=w.iK, integral_var=w.integral_var,
+                         device=device)
+        self.nu = self.model.nu
+
+    @classmethod
+    def from_weights(cls, points, wm, Wc, Wcc, model_var, iK, nu: float, dim_out: int = 1,
+                     integral_var=None, device=None) -> "StudentTProcessTransform":
+        tf = cls.__new__(cls)
+        BQTransform.__init__(tf, points, wm, Wc, Wcc, model_var, dim_out=dim_out, iK=iK,
+                             integral_var=integral_var, device=device)
+        tf.model = None
+        tf.nu = float(nu)
+        return tf
+
+    def _model_variance(self, fx):
+        scale = tp_scale(self.nu, self.iK, fx)                          # (M, E, E)
+        return scale * self.model_var * torch.eye(self.dim_out, dtype=fx.dtype,
+                                                  device=fx.device)

@@ -1,25 +1,32 @@
-"""Load transforms and models from NumPy arrays.
+"""Load transforms, kernels and models from NumPy arrays.
 
 The bridge from the JAX package (or any other source) to the port: a caller
 pulls a JAX object's arrays with ``np.asarray`` into a dict, and the port
 builds the same object from them, on the device it names.  The port also
-computes its own weights; the two agree to rounding.
+computes its own weights; for closed-form rules the two agree to rounding,
+for Monte-Carlo weights (``rbf-student``) carrying the JAX weights across is
+what makes the two packages filter with the same numbers.
 """
 from __future__ import annotations
 
-from .bq.transforms import BQTransform
-from .mtran import SigmaPointTransform
-from .ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition, TransitionModel,
-                    UNGMMeasurement, UNGMTransition)
-from .utils.rv import GaussRV
+import numpy as np
 
-__all__ = ["transform_from_numpy", "model_from_numpy"]
+from .bq.kernels import RBFStudent
+from .bq.transforms import BQTransform, StudentTProcessTransform
+from .mtran import SigmaPointTransform
+from .ssmod import (ConstantVelocity, Radar2DMeasurement, ReentryVehicle2DTransition,
+                    TransitionModel, UNGMMeasurement, UNGMTransition)
+from .utils.rv import GaussianMixtureRV, GaussRV, StudentRV
+
+__all__ = ["transform_from_numpy", "kernel_from_numpy", "rv_from_numpy", "model_from_numpy"]
 
 MODELS = {cls.__name__: cls for cls in (UNGMTransition, ReentryVehicle2DTransition,
-                                         UNGMMeasurement, Radar2DMeasurement)}
+                                         ConstantVelocity, UNGMMeasurement,
+                                         Radar2DMeasurement)}
 
 #: optional constructor fields carried across per model class
 _FIELDS = {"ReentryVehicle2DTransition": ("dt", "R0", "H0", "Gm0", "b0"),
+           "ConstantVelocity": ("dt",),
            "Radar2DMeasurement": ("radar_loc",)}
 
 
@@ -28,23 +35,59 @@ def transform_from_numpy(d: dict, device=None):
 
     - sigma-point rule: ``unit_sp``, ``wm`` and ``wc_diag`` or ``Wc_dense``;
     - GP quadrature: ``points``, ``wm``, ``Wc``, ``Wcc``, ``model_var``,
-      optionally ``iK`` and ``dim_out`` (default 1).
+      optionally ``iK``, ``integral_var`` and ``dim_out`` (default 1);
+    - TP quadrature: the GP keys with ``iK``, plus ``nu`` (and optionally
+      ``num_pts``, checked against the points).
     """
     if "Wcc" in d:
-        return BQTransform(d["points"], d["wm"], d["Wc"], d["Wcc"], d["model_var"],
-                           dim_out=int(d.get("dim_out", 1)), iK=d.get("iK"), device=device)
+        kw = dict(dim_out=int(d.get("dim_out", 1)), integral_var=d.get("integral_var"),
+                  device=device)
+        if "nu" not in d:
+            return BQTransform(d["points"], d["wm"], d["Wc"], d["Wcc"], d["model_var"],
+                               iK=d.get("iK"), **kw)
+        if "num_pts" in d and int(d["num_pts"]) != d["points"].shape[-1]:
+            raise ValueError(f"num_pts={int(d['num_pts'])} but {d['points'].shape[-1]} points")
+        return StudentTProcessTransform.from_weights(d["points"], d["wm"], d["Wc"], d["Wcc"],
+                                                     d["model_var"], d["iK"], float(d["nu"]),
+                                                     **kw)
     if "unit_sp" in d:
         return SigmaPointTransform(d["unit_sp"], d["wm"], wc_diag=d.get("wc_diag"),
                                    Wc_dense=d.get("Wc_dense"), device=device)
     raise ValueError(f"cannot tell the transform from the keys {sorted(d)}")
 
 
+def kernel_from_numpy(d: dict, device=None) -> RBFStudent:
+    """An :class:`RBFStudent` from the JAX kernel's settings: ``par``, ``dof``,
+    ``num_samples``, ``num_batches``, ``seed`` and ``use_pallas`` (which
+    becomes ``use_kernel``); ``dim`` defaults to the parameter width - 1."""
+    par = d["par"]
+    dim = int(d.get("dim", par.shape[-1] - 1))
+    return RBFStudent(dim, par, dof=float(d.get("dof", 4.0)),
+                      num_samples=int(d.get("num_samples", int(2e6))),
+                      num_batches=int(d.get("num_batches", 50)), seed=int(d.get("seed", 0)),
+                      use_kernel=d.get("use_pallas", True), device=device)
+
+
+def rv_from_numpy(d: dict, device=None):
+    """A random variable from its arrays: ``mean``, ``scale``, ``dof`` for a
+    :class:`StudentRV`; ``means``, ``covs``, ``alphas`` for a
+    :class:`GaussianMixtureRV`; else ``mean``, ``cov`` for a :class:`GaussRV`."""
+    if "means" in d:
+        means = np.asarray(d["means"])
+        return GaussianMixtureRV(means.shape[-1], means, d["covs"], d["alphas"], device=device)
+    dim = np.atleast_1d(d["mean"]).shape[-1]
+    if "scale" in d:
+        return StudentRV(dim, d["mean"], d["scale"], float(d["dof"]), device=device)
+    return GaussRV(dim, d["mean"], d["cov"], device=device)
+
+
 def model_from_numpy(kind: str, d: dict, device=None):
     """A model of class ``kind`` (e.g. ``"UNGMTransition"``) from its arrays.
 
-    Transition models take ``init_mean``, ``init_cov``, ``noise_mean``,
-    ``noise_cov`` and optionally ``noise_gain``; measurement models take
-    ``noise_mean``, ``noise_cov``, ``dim_state`` and optionally
+    The RVs come as dicts for :func:`rv_from_numpy` under ``init_rv`` and
+    ``noise_rv``, or as the Gaussian keys ``init_mean``, ``init_cov``,
+    ``noise_mean``, ``noise_cov``.  Transition models take ``noise_gain``
+    optionally; measurement models take ``dim_state`` and optionally
     ``state_index``.  Model fields such as ``dt`` or ``radar_loc`` are passed
     on where the class has them.
     """
@@ -52,8 +95,13 @@ def model_from_numpy(kind: str, d: dict, device=None):
         raise ValueError(f"unknown model {kind!r}; ported: {sorted(MODELS)}")
     cls = MODELS[kind]
     fields = {k: d[k] for k in _FIELDS.get(kind, ()) if k in d}
-    noise_rv = GaussRV(cls.dim_noise, d["noise_mean"], d["noise_cov"], device=device)
+
+    def rv(name, dim):
+        if f"{name}_rv" in d:
+            return rv_from_numpy(d[f"{name}_rv"], device)
+        return GaussRV(dim, d[f"{name}_mean"], d[f"{name}_cov"], device=device)
+
+    noise_rv = rv("noise", cls.dim_noise)
     if issubclass(cls, TransitionModel):
-        init_rv = GaussRV(cls.dim_state, d["init_mean"], d["init_cov"], device=device)
-        return cls(init_rv, noise_rv, d.get("noise_gain"), **fields)
+        return cls(rv("init", cls.dim_state), noise_rv, d.get("noise_gain"), **fields)
     return cls(noise_rv, int(d["dim_state"]), d.get("state_index"), **fields)

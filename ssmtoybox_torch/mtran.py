@@ -25,6 +25,7 @@ __all__ = [
     "SphericalRadialTransform",
     "UnscentedTransform",
     "GaussHermiteTransform",
+    "FullySymmetricStudentTransform",
     "apply_f_columns",
 ]
 
@@ -103,3 +104,11 @@ class GaussHermiteTransform(SigmaPointTransform):
     def __init__(self, dim: int, degree: int = 3, device=None):
         w = pts.gh_weights(dim, degree)
         super().__init__(pts.gh_points(dim, degree), w, wc_diag=w, device=device)
+
+
+class FullySymmetricStudentTransform(SigmaPointTransform):
+    """McNamee-Stenger fully-symmetric rule for Student inputs, degree 3 or 5."""
+
+    def __init__(self, dim: int, degree: int = 3, kappa=None, dof: float = 4.0, device=None):
+        w = pts.fs_weights(dim, degree, kappa, dof)
+        super().__init__(pts.fs_points(dim, degree, kappa, dof), w, wc_diag=w, device=device)

@@ -1,7 +1,10 @@
 """Hand-written CUDA kernels of the port, each with its plain PyTorch twin.
 
 - :mod:`.scalar_filter` — the whole-record scalar filter kernel.
+- :mod:`.student_mc` — the RBF-Student Monte-Carlo expectations and their
+  gradients (four kernels).
 """
 from .scalar_filter import scalar_filter_batch, supports
+from .student_mc import student_kxy, student_qrq
 
-__all__ = ["scalar_filter_batch", "supports"]
+__all__ = ["scalar_filter_batch", "supports", "student_qrq", "student_kxy"]

@@ -21,6 +21,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
 
 _lock = threading.Lock()
+_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 
 #: compiler output of each library built by this process, by name
@@ -42,8 +43,11 @@ def find_nvcc() -> str:
 
 def load(name: str, sources: list[str], cmd: list[str]) -> ctypes.CDLL:
     """Compile ``sources`` (file names in ``csrc``) with ``cmd`` once and load
-    the library; raises ``RuntimeError`` with the compiler's output on failure."""
+    the library; raises ``RuntimeError`` with the compiler's output on failure.
+    Different libraries build concurrently when called from several threads."""
     with _lock:
+        lock = _locks.setdefault(name, threading.Lock())
+    with lock:
         if name in _loaded:
             return _loaded[name]
         paths = [os.path.join(CSRC, s) for s in sources]

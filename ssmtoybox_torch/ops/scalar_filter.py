@@ -25,7 +25,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..bq.transforms import BQTransform
+from ..bq.transforms import BQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
 from ..ssmod import UNGMMeasurement, UNGMTransition
 from . import _build
@@ -125,6 +125,8 @@ def lower_transform(tf) -> Rule:
         if tf.unit_sp.shape[0] != 1:
             raise ValueError("the fused scalar filter needs a 1-D rule")
         rule = Rule(kind=0, xi=_floats(tf.unit_sp), wm=_floats(tf.wm), wc=_floats(tf.wc_diag))
+    elif isinstance(tf, StudentTProcessTransform):
+        raise ValueError("the fused scalar filter has no data-dependent (TPQ) model variance")
     elif isinstance(tf, BQTransform):
         if tf.points.shape[0] != 1 or tf.dim_out != 1:
             raise ValueError("the fused scalar filter needs a 1-D rule")
@@ -167,7 +169,7 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None) -> 
     """Lower a configuration to :class:`ScalarFilterParams`; ``ValueError``
     names the piece the kernel cannot run."""
     _check(mod_dyn, mod_obs)
-    m0, P0 = mod_dyn.init_rv.get_stats()
+    m0, P0 = mod_dyn.init_rv.get_stats()[:2]
     g = _scalar(mod_dyn.noise_gain)
     return ScalarFilterParams(
         dyn=lower_transform(tf_dyn), obs=lower_transform(tf_obs),

@@ -1,9 +1,10 @@
 """Unit sigma-point sets and quadrature weights (NumPy float64).
 
-Vendored from :mod:`ssmtoybox_tpu.points` (spherical-radial, unscented and
-Gauss-Hermite rules plus the string-keyed factory) so that the port never
-imports the JAX package.  The constructors are host-side NumPy: a transform
-turns their output into ``torch.float64`` tensors once, at construction.
+Vendored from :mod:`ssmtoybox_tpu.points` (spherical-radial, unscented,
+Gauss-Hermite and fully-symmetric Student rules plus the string-keyed
+factory) so that the port never imports the JAX package.  The constructors
+are host-side NumPy: a transform turns their output into ``torch.float64``
+tensors once, at construction.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ __all__ = [
     "sr_points", "sr_weights",
     "ut_points", "ut_weights",
     "gh_points", "gh_weights",
+    "symmetric_set", "fs_points", "fs_weights",
     "get_points",
 ]
 
@@ -79,13 +81,83 @@ def gh_weights(dim: int, degree: int = 3) -> np.ndarray:
     return np.prod(_cartesian([w] * dim), axis=1)
 
 
+# -- fully-symmetric (McNamee-Stenger) for Student-t inputs --------------------
+
+_FS_SUPPORTED_DEGREES = (3, 5)
+
+
+def _fs_defaults(dim, degree, kappa, dof):
+    if degree not in _FS_SUPPORTED_DEGREES:
+        degree = 3
+    kappa = np.max([3.0 - dim, 0.0]) if kappa is None else kappa
+    dof = np.max((dof, degree))  # dof > 2p for degree 2p+1
+    return degree, kappa, dof
+
+
+def symmetric_set(dim: int, gen) -> np.ndarray:
+    """Fully-symmetric point set from a generator: all sign and position
+    permutations of the generator entries, in the reference's column order."""
+    nzeros = np.zeros((dim, 1))
+    if len(gen) == 0:
+        return nzeros
+    gen = np.asarray(gen, dtype=float)
+    eps = np.spacing(1.0)
+    cols = []
+    uind = np.arange(dim)
+    for i in range(dim):
+        u = nzeros.copy()
+        u[i] = gen[0]
+        if len(gen) > 1:
+            if np.abs(gen[0] - gen[1]) < eps:
+                V = symmetric_set(dim - i - 1, gen[1:])
+                for j in range(V.shape[1]):
+                    uu = u.copy()
+                    uu[i + 1:, 0] = V[:, j]
+                    cols.extend([uu, -uu])
+            else:
+                V = symmetric_set(dim - 1, gen[1:])
+                for j in range(V.shape[1]):
+                    uu = u.copy()
+                    uu[uind != i, 0] = V[:, j]
+                    cols.extend([uu, -uu])
+        else:
+            cols.extend([u, -u])
+    return np.hstack(cols) if cols else np.empty((dim, 0))
+
+
+def fs_points(dim: int, degree: int = 3, kappa=None, dof: float = 4.0) -> np.ndarray:
+    """Fully-symmetric unit points for Student-t densities, degree 3 or 5."""
+    degree, kappa, dof = _fs_defaults(dim, degree, kappa, dof)
+    I2 = dof / (dof - 2.0)
+    if degree == 3:
+        u = np.sqrt(I2 * (dim + kappa))
+        return u * np.hstack((np.zeros((dim, 1)), np.eye(dim), -np.eye(dim)))
+    I4 = 3.0 * dof ** 2 / ((dof - 2.0) * (dof - 4.0))
+    u = np.sqrt(I4 / I2)
+    return np.hstack((symmetric_set(dim, []), symmetric_set(dim, [u]),
+                      symmetric_set(dim, [u, u])))
+
+
+def fs_weights(dim: int, degree: int = 3, kappa=None, dof: float = 4.0) -> np.ndarray:
+    """Fully-symmetric rule weights, degree 3 or 5."""
+    degree, kappa, dof = _fs_defaults(dim, degree, kappa, dof)
+    if degree == 3:
+        w = 1.0 / (2.0 * (dim + kappa)) * np.ones(2 * dim + 1)
+        w[0] = kappa / (dim + kappa)
+        return w
+    I2 = dof / (dof - 2.0)
+    I22 = dof ** 2 / ((dof - 2.0) * (dof - 4.0))
+    I4 = 3.0 * I22
+    A0 = 1.0 - dim * (I2 / I4) ** 2 * (I4 - 0.5 * (dim - 1) * I22)
+    A1 = 0.5 * (I2 / I4) ** 2 * (I4 - (dim - 1) * I22)
+    A11 = 0.25 * (I2 / I4) ** 2 * I22
+    return np.hstack((A0, A1 * np.ones(2 * dim), A11 * np.ones(2 * dim * (dim - 1))))
+
+
 # -- string-keyed factory -----------------------------------------------------
 
 def get_points(dim: int, points: str, point_par: dict | None = None) -> np.ndarray:
-    """Point-set factory keyed by the reference's string acronyms.
-
-    The fully-symmetric Student rule (``"fs"``) is not ported yet (ROADMAP,
-    queue 1, item 12)."""
+    """Point-set factory keyed by the reference's string acronyms."""
     points = points.lower()
     point_par = dict(point_par or {})
     if points == "sr":
@@ -95,4 +167,6 @@ def get_points(dim: int, points: str, point_par: dict | None = None) -> np.ndarr
         return ut_points(dim, **point_par)
     if points == "gh":
         return gh_points(dim, **point_par)
-    raise ValueError(f"Points '{points}' not supported. Supported: sr, ut, gh.")
+    if points == "fs":
+        return fs_points(dim, **point_par)
+    raise ValueError(f"Points '{points}' not supported. Supported: sr, ut, gh, fs.")

@@ -1,4 +1,5 @@
-"""Gaussian filters and smoothers (counterpart of :mod:`ssmtoybox_tpu.ssinf`).
+"""Gaussian and Student-t filters and smoothers (counterpart of
+:mod:`ssmtoybox_tpu.ssinf`).
 
 The JAX package runs each trajectory's recursion as one ``lax.scan`` and
 batches trajectories with ``vmap``.  Here the batch is a leading dimension
@@ -15,7 +16,9 @@ Measurement ``k`` (1-based) is processed with the dynamics at time ``k - 1``.
 Parity quirk kept from the reference: :func:`gaussian_smoother` with
 ``rts_full=False`` smooths indices ``0..N-3`` only and seeds the first update
 with the filtered estimate of step ``N`` against the predictive moments of
-step ``N - 1``.
+step ``N - 1``.  :func:`studentian_filter_batch` keeps the quirks the JAX
+package keeps: the scale-derived matrix stored as the covariance, the
+cross-covariance trimmed by ``dim_in`` and the ``dof <= 2`` reset.
 """
 from __future__ import annotations
 
@@ -24,16 +27,19 @@ from dataclasses import dataclass
 
 import torch
 
-from .bq.transforms import GaussianProcessTransform
-from .mtran import UnscentedTransform
+from .bq.transforms import GaussianProcessTransform, StudentTProcessTransform
+from .mtran import FullySymmetricStudentTransform, UnscentedTransform
 from .ops import scalar_filter as _sf
 from .utils.arrays import f64
-from .utils.linalg import pd_solve_small
+from .utils.linalg import chol_small, pd_solve_small, tri_solve_small
 
 __all__ = [
     "FilterResult", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
+    "StudentFilterResult", "studentian_filter", "studentian_filter_batch",
+    "studentian_smoother",
     "StateSpaceInference", "GaussianInference", "UnscentedKalman",
-    "GaussianProcessKalman",
+    "GaussianProcessKalman", "StudentProcessKalman",
+    "StudentianInference", "FullySymmetricStudent", "GPQStudent", "StudentProcessStudent",
 ]
 
 #: the ROADMAP item that brings ``engine="dd"`` to states of dimension 2-8
@@ -51,6 +57,21 @@ class FilterResult:
     pr_mean: torch.Tensor
     pr_cov: torch.Tensor
     pr_xx_cov: torch.Tensor
+
+
+@dataclass
+class StudentFilterResult:
+    """Stacked Student forward-pass moments, time last: filtered mean, the
+    (pseudo-)covariance, the scale matrix and the degrees of freedom, plus the
+    predictive scale-matrix moments :func:`studentian_smoother` consumes."""
+
+    fi_mean: torch.Tensor
+    fi_cov: torch.Tensor
+    fi_smat: torch.Tensor
+    dof_fi: torch.Tensor
+    pr_mean: torch.Tensor
+    pr_smat: torch.Tensor
+    pr_xx_smat: torch.Tensor
 
 
 def _gaussian_time_update(mod_dyn, mod_obs, tf_dyn, tf_obs, m, P, time):
@@ -89,7 +110,7 @@ def _smoothing_update(m_fi, P_fi, m_sm_next, P_sm_next, m_pr_next, P_pr_next, xx
 
 def _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov) -> FilterResult:
     M, _, N = data.shape
-    m0, P0 = mod_dyn.init_rv.get_stats()
+    m0, P0 = mod_dyn.init_rv.get_stats()[:2]
     D = mod_dyn.dim_state
     m = f64(m0 if init_mean is None else init_mean, data.device).expand(M, D)
     P = f64(P0 if init_cov is None else init_cov, data.device).expand(M, D, D)
@@ -168,9 +189,14 @@ def gaussian_smoother(result: FilterResult, rts_full: bool = False):
     ``rts_full=True`` smooths every step from the last filtered estimate.
     Returns ``(sm_mean, sm_cov)`` in the layout of ``fi_mean``/``fi_cov``.
     """
-    fi_m, fi_P, pr_m, pr_P, pr_xx = (
-        torch.movedim(getattr(result, f), -1, 0)
-        for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov"))
+    return _rts(*(getattr(result, f) for f in
+                  ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")),
+                rts_full=rts_full)
+
+
+def _rts(*moments, rts_full: bool):
+    """The RTS recursion over stacked moments (time last)."""
+    fi_m, fi_P, pr_m, pr_P, pr_xx = (torch.movedim(t, -1, 0) for t in moments)
     n = fi_m.shape[0]
     n_sm = max(n - 1 if rts_full else n - 2, 0)
     m_next, P_next = fi_m[-1], fi_P[-1]
@@ -185,6 +211,84 @@ def gaussian_smoother(result: FilterResult, rts_full: bool = False):
         sm_m = torch.cat([torch.stack([s[0] for s in sm]), fi_m[n_sm:]])
         sm_P = torch.cat([torch.stack([s[1] for s in sm]), fi_P[n_sm:]])
     return torch.movedim(sm_m, 0, -1), torch.movedim(sm_P, 0, -1)
+
+
+def studentian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
+                            dof: float = 4.0, fixed_dof: bool = True) -> StudentFilterResult:
+    """Student-t forward pass over a batch of measurement trajectories
+    (M, dim_y, N), additive noise.
+
+    The transforms act on scale matrices.  With ``fixed_dof`` the predictive
+    scale uses ``min(dof_fi, q_dof, r_dof)``, else the filter's ``dof``
+    (``dof <= 2`` becomes 4).  Layouts as :class:`FilterResult`; ``dof_fi``
+    is (M, N).
+    """
+    if not (mod_dyn.noise_additive and mod_obs.noise_additive):
+        raise NotImplementedError("non-additive noise is not ported yet "
+                                  "(ROADMAP queue 1, item 10)")
+    if dof <= 2.0:
+        dof = 4.0
+    data = f64(data_batch, mod_dyn.device)
+    M, _, N = data.shape
+    x0_mean, x0_smat, x0_dof = mod_dyn.init_rv.get_stats()
+    _, q_cov, q_dof = mod_dyn.noise_rv.get_stats()
+    _, r_cov, r_dof = mod_obs.noise_rv.get_stats()
+    G = mod_dyn.noise_gain
+    init_scale = (dof - 2.0) / dof
+    r_smat = init_scale * r_cov
+    GSGt = G @ (init_scale * q_cov) @ G.T
+    D, E = mod_dyn.dim_state, mod_obs.dim_out
+    m = x0_mean.expand(M, D)
+    smat = (init_scale * x0_smat).expand(M, D, D)
+    dof_fi = float(x0_dof)
+    outs = []
+    for k in range(1, N + 1):
+        if fixed_dof:
+            dof_pr = min(dof_fi, q_dof, r_dof)
+            scale = (dof_pr - 2.0) / dof_pr
+        else:
+            scale = (dof - 2.0) / dof
+        x_mean_pr, x_cov_pr, xx_cov = tf_dyn.apply(mod_dyn.dyn_eval, m, smat, k - 1)
+        x_smat_pr = scale * x_cov_pr + GSGt
+        xx_smat = scale * xx_cov[..., :D]
+        y_mean_pr, y_cov_pr, xy_cov = tf_obs.apply(mod_obs.meas_eval, x_mean_pr, x_smat_pr,
+                                                   k - 1)
+        y_smat_pr = scale * y_cov_pr + r_smat
+        xy_smat = (scale * xy_cov)[..., :mod_dyn.dim_in]
+        # measurement update
+        gain = pd_solve_small(y_smat_pr, xy_smat).mT
+        dy = data[..., k - 1] - y_mean_pr
+        m = x_mean_pr + (gain @ dy[..., None])[..., 0]
+        # the scale-derived matrix stored as the covariance (reference FIXME)
+        P = x_smat_pr - gain @ y_smat_pr @ gain.mT
+        delta = tri_solve_small(chol_small(y_smat_pr), dy)
+        smat = ((dof + torch.sum(delta * delta, -1)) / (dof + E))[:, None, None] * P
+        dof_fi = dof_fi + E
+        outs.append((m, P, smat, x_mean_pr, x_smat_pr, xx_smat))
+    fi_m, fi_P, fi_S, pr_m, pr_S, pr_xx = (torch.stack(s, dim=-1) for s in zip(*outs))
+    dofs = x0_dof + E * torch.arange(1, N + 1, dtype=torch.float64, device=data.device)
+    return StudentFilterResult(fi_mean=fi_m, fi_cov=fi_P, fi_smat=fi_S,
+                               dof_fi=dofs.expand(M, N), pr_mean=pr_m, pr_smat=pr_S,
+                               pr_xx_smat=pr_xx)
+
+
+def studentian_filter(mod_dyn, mod_obs, tf_dyn, tf_obs, data,
+                      dof: float = 4.0, fixed_dof: bool = True) -> StudentFilterResult:
+    """Student-t forward pass of one trajectory ``data`` (dim_y, N): the
+    batch path on a batch of one."""
+    res = studentian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs,
+                                  f64(data, mod_dyn.device)[None], dof, fixed_dof)
+    return StudentFilterResult(*(getattr(res, f)[0] for f in res.__dataclass_fields__))
+
+
+def studentian_smoother(result: StudentFilterResult, rts_full: bool = False):
+    """RTS backward pass on the SCALE matrices (Piche, Sarkka & Hartikainen
+    2012), any leading batch dims; ``rts_full`` as in
+    :func:`gaussian_smoother`.  Returns ``(sm_mean, sm_smat)``; the moment
+    covariance of a smoothed marginal is ``dof/(dof - 2) sm_smat`` with the
+    terminal ``dof_fi``."""
+    return _rts(result.fi_mean, result.fi_smat, result.pr_mean, result.pr_smat,
+                result.pr_xx_smat, rts_full=rts_full)
 
 
 # ---------------------------------------------------------------------------
@@ -286,3 +390,96 @@ class GaussianProcessKalman(GaussianInference):
                                      points, point_hyp, device=dyn.device),
             GaussianProcessTransform(obs.dim_in, obs.dim_out, kern_par_obs, kernel,
                                      points, point_hyp, device=dyn.device))
+
+
+class StudentProcessKalman(GaussianInference):
+    """TPQ Kalman filter: Student-t-process quadrature transforms (with
+    ``dim_out=1``, as in the reference) in the Gaussian filter."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, kernel: str = "rbf",
+                 points: str = "ut", point_hyp=None, nu: float = 3.0):
+        super().__init__(
+            dyn, obs,
+            StudentTProcessTransform(dyn.dim_in, 1, kern_par_dyn, kernel, points, point_hyp,
+                                     nu=nu, device=dyn.device),
+            StudentTProcessTransform(obs.dim_in, 1, kern_par_obs, kernel, points, point_hyp,
+                                     nu=nu, device=dyn.device))
+
+
+class StudentianInference(StateSpaceInference):
+    """Student-t filter and scale-matrix RTS smoother; ``sm_cov`` holds the
+    smoothed scale matrices."""
+
+    def __init__(self, mod_dyn, mod_obs, tf_dyn, tf_obs, dof: float = 4.0,
+                 fixed_dof: bool = True):
+        super().__init__(mod_dyn, mod_obs, tf_dyn, tf_obs)
+        self.dof = 4.0 if dof <= 2.0 else float(dof)
+        self.fixed_dof = bool(fixed_dof)
+
+    def _run_forward(self, data):
+        return studentian_filter(self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs, data,
+                                 self.dof, self.fixed_dof)
+
+    def _run_backward(self, result, rts_full):
+        return studentian_smoother(result, rts_full=rts_full)
+
+    def forward_pass_batch(self, data_batch) -> StudentFilterResult:
+        """Filter a whole (M, dim_y, N) batch."""
+        return studentian_filter_batch(self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs,
+                                       self._check_batch(data_batch), self.dof,
+                                       self.fixed_dof)
+
+
+class FullySymmetricStudent(StudentianInference):
+    """Fully-symmetric Student filter (FSQ)."""
+
+    def __init__(self, dyn, obs, degree: int = 3, kappa=None, dof: float = 4.0,
+                 fixed_dof: bool = True):
+        dyn_dof = min(dyn.init_rv.dof, dyn.noise_rv.dof)
+        obs_dof = min(dyn_dof, obs.noise_rv.dof)
+        super().__init__(
+            dyn, obs,
+            FullySymmetricStudentTransform(dyn.dim_in, degree, kappa, dyn_dof, device=dyn.device),
+            FullySymmetricStudentTransform(obs.dim_in, degree, kappa, obs_dof, device=dyn.device),
+            dof, fixed_dof)
+
+
+class GPQStudent(StudentianInference):
+    """Student filter with GPQ transforms on fully-symmetric points and the
+    Student-weighted RBF kernel (GPQSF).  The noise dofs shape the points
+    only; ``mc_opts`` reach the kernel."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, point_hyp=None,
+                 dof: float = 4.0, fixed_dof: bool = True, mc_opts=None):
+        point_hyp = dict(point_hyp or {})
+        mc_opts = dict(mc_opts or {})
+        super().__init__(
+            dyn, obs,
+            GaussianProcessTransform(dyn.dim_in, 1, kern_par_dyn, "rbf-student", "fs",
+                                     dict(point_hyp, dof=dyn.noise_rv.dof), device=dyn.device,
+                                     **mc_opts),
+            GaussianProcessTransform(obs.dim_in, 1, kern_par_obs, "rbf-student", "fs",
+                                     dict(point_hyp, dof=obs.noise_rv.dof), device=dyn.device,
+                                     **mc_opts),
+            dof, fixed_dof)
+
+
+class StudentProcessStudent(StudentianInference):
+    """TPQSF: Student-t-process quadrature Student filter on fully-symmetric
+    points.  ``compat_drop_nu`` as in :class:`StudentTProcessTransform`."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, point_par=None,
+                 dof: float = 4.0, fixed_dof: bool = True, dof_tp: float = 4.0,
+                 compat_drop_nu: bool = True, mc_opts=None):
+        point_par = dict(point_par or {})
+        super().__init__(
+            dyn, obs,
+            StudentTProcessTransform(dyn.dim_in, 1, kern_par_dyn, "rbf-student", "fs",
+                                     dict(point_par, dof=dyn.noise_rv.dof), nu=dof_tp,
+                                     compat_drop_nu=compat_drop_nu, mc_opts=mc_opts,
+                                     device=dyn.device),
+            StudentTProcessTransform(obs.dim_in, 1, kern_par_obs, "rbf-student", "fs",
+                                     dict(point_par, dof=obs.noise_rv.dof), nu=dof_tp,
+                                     compat_drop_nu=compat_drop_nu, mc_opts=mc_opts,
+                                     device=dyn.device),
+            dof, fixed_dof)

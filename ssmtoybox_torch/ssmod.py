@@ -1,7 +1,9 @@
 """State-space models and simulators (counterpart of :mod:`ssmtoybox_tpu.ssmod`).
 
-The main-path models only: the univariate nonlinear growth model (UNGM) and
-the 2-D reentry vehicle with its range-bearing radar, additive noise.  Model
+The univariate nonlinear growth model (UNGM), the 2-D reentry vehicle and
+the constant-velocity target with the range-bearing radar, additive noise.
+Noise and initial-state RVs may be Gaussian, Student-t or Gaussian mixtures
+(anything with ``sample`` and ``get_stats``).  Model
 functions take states of shape (..., D) and broadcast over the leading
 dimensions, which replaces the JAX package's per-state functions under
 ``vmap``.  Simulators draw from an explicit ``torch.Generator`` that lives on
@@ -15,11 +17,10 @@ import numpy as np
 import torch
 
 from .utils.arrays import f64
-from .utils.rv import GaussRV
 
 __all__ = [
     "TransitionModel", "MeasurementModel",
-    "UNGMTransition", "ReentryVehicle2DTransition",
+    "UNGMTransition", "ReentryVehicle2DTransition", "ConstantVelocity",
     "UNGMMeasurement", "Radar2DMeasurement",
 ]
 
@@ -43,7 +44,7 @@ class TransitionModel:
     dim_noise = 0
     noise_additive = True
 
-    def __init__(self, init_rv: GaussRV, noise_rv: GaussRV, noise_gain=None):
+    def __init__(self, init_rv, noise_rv, noise_gain=None):
         self.init_rv = init_rv
         self.noise_rv = noise_rv
         self.noise_gain = (torch.eye(self.dim_state, self.dim_noise, dtype=torch.float64,
@@ -121,6 +122,26 @@ class ReentryVehicle2DTransition(TransitionModel):
         ], dim=-1)
 
 
+class ConstantVelocity(TransitionModel):
+    """Constant-velocity target in the plane, state ``[p_x, v_x, p_y, v_y]``;
+    noise gain ``[[dt^2/2, 0], [dt, 0], [0, dt^2/2], [0, dt]]`` by default."""
+
+    dim_state = 4
+    dim_noise = 2
+
+    def __init__(self, init_rv, noise_rv, noise_gain=None, dt: float = 0.1):
+        if noise_gain is None:
+            noise_gain = np.array([[dt ** 2 / 2, 0.0], [dt, 0.0],
+                                   [0.0, dt ** 2 / 2], [0.0, dt]])
+        super().__init__(init_rv, noise_rv, noise_gain)
+        self.dt = dt
+
+    def dyn_fcn(self, x, q, time):
+        x0, x1, x2, x3 = x.unbind(-1)
+        dt = self.dt
+        return torch.stack([x0 + dt * x1, x1, x2 + dt * x3, x3], dim=-1) + q @ self.noise_gain.T
+
+
 # ---------------------------------------------------------------------------
 # Measurement models
 # ---------------------------------------------------------------------------
@@ -133,7 +154,7 @@ class MeasurementModel:
     dim_noise = 0
     noise_additive = True
 
-    def __init__(self, noise_rv: GaussRV, dim_state: int, state_index=None):
+    def __init__(self, noise_rv, dim_state: int, state_index=None):
         self.noise_rv = noise_rv
         self.dim_state = int(dim_state)
         self.state_index = (None if state_index is None else

@@ -1,4 +1,4 @@
 """Utilities: random variables, samplers, small linear algebra, metrics."""
-from .rv import GaussRV
+from .rv import GaussianMixtureRV, GaussRV, StudentRV
 
-__all__ = ["GaussRV"]
+__all__ = ["GaussRV", "StudentRV", "GaussianMixtureRV"]

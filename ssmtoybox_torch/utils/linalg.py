@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["maha", "symmetrize", "chol_small", "safe_cholesky", "pd_solve",
-           "pd_solve_small", "pd_logdet", "small_mm3"]
+           "pd_solve_small", "tri_solve_small", "pd_logdet", "small_mm3"]
 
 
 def maha(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor | None = None) -> torch.Tensor:
@@ -67,6 +67,13 @@ def pd_solve(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Ten
 
 #: the JAX package's name for its unrolled small-dim solve; here the same call
 pd_solve_small = pd_solve
+
+
+def tri_solve_small(L: torch.Tensor, b: torch.Tensor, lower: bool = True) -> torch.Tensor:
+    """Triangular solve ``L x = b`` with ``b`` (..., D) or (..., D, K)."""
+    vec = b.ndim == L.ndim - 1
+    out = torch.linalg.solve_triangular(L, b[..., None] if vec else b, upper=not lower)
+    return out[..., 0] if vec else out
 
 
 def pd_logdet(A: torch.Tensor) -> torch.Tensor:

@@ -15,7 +15,7 @@ import torch
 from .linalg import pd_logdet, pd_solve
 
 __all__ = ["squared_error", "mse_matrix", "log_cred_ratio", "neg_log_likelihood",
-           "rmse", "nci", "nll_mean"]
+           "rmse", "nci", "inclination", "nll_mean"]
 
 
 def squared_error(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -66,6 +66,12 @@ def _lcr_series(x, m, P, MSE):
 def nci(x, m, P, MSE) -> torch.Tensor:
     """Non-credibility index: time-average of the absolute log-cred ratio."""
     return torch.mean(torch.abs(_lcr_series(x, m, P, MSE)))
+
+
+def inclination(x, m, P, MSE) -> torch.Tensor:
+    """Inclination indicator (INC): time-average of the log-cred ratio; above
+    zero the filter is optimistic, below pessimistic."""
+    return torch.mean(_lcr_series(x, m, P, MSE))
 
 
 def nll_mean(x, m, P) -> torch.Tensor:

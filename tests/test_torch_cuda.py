@@ -65,3 +65,100 @@ def test_fused_engine_matches_eager_f64_on_the_card(card, name):
     for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov"):
         torch.testing.assert_close(getattr(fused, f), getattr(eager, f), atol=1e-9, rtol=1e-9,
                                    msg=f)
+
+
+# ---------------------------------------------------------------------------
+# the RBF-Student Monte-Carlo kernels (ops/student_mc.py, csrc/student_mc.cu)
+# float32 with float64 cross-chunk sums on both sides: values at 1e-5
+# relative, gradients at rtol 1e-4 / atol 1e-5
+# ---------------------------------------------------------------------------
+
+def _student_case(card, d, n, total, seed):
+    rng = np.random.default_rng(seed)
+    samples = torch.as_tensor(rng.standard_t(4.0, size=(total, d)).astype(np.float32),
+                              device=card)
+    x = torch.as_tensor(rng.normal(0.0, 1.5, size=(d, n)), device=card)
+    par = torch.as_tensor(np.concatenate([[1.3], rng.uniform(0.7, 2.0, d)])[None], device=card)
+    return samples, x, par
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+# (D, N, chunk): the CV glint study's shape, and ragged tiles at the limits
+STUDENT_SHAPES = [(4, 9, 4096), (3, 7, 300), (8, 128, 1024), (1, 1, 8)]
+
+
+@pytest.mark.parametrize("d,n,chunk", STUDENT_SHAPES)
+def test_student_qrq_kernels_match_plain(card, d, n, chunk):
+    from ssmtoybox_torch.ops import student_mc as smc
+    samples, x, par = _student_case(card, d, n, 6 * chunk, seed=d + n)
+    before = dict(smc.LAUNCHES)
+    p, xx = par.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    out = smc.student_qrq(p, xx, samples, chunk)
+    p2, xx2 = par.clone().requires_grad_(True), x.clone().requires_grad_(True)
+    ref = smc.student_qrq_plain(p2, xx2, samples, chunk)
+    for a, b in zip(out, ref):
+        assert _rel(a.detach(), b.detach()) < 1e-5
+    w = [torch.randn(t.shape, generator=torch.Generator(device=card).manual_seed(i),
+                     dtype=torch.float64, device=card) for i, t in enumerate(ref)]
+    g = torch.autograd.grad(sum(torch.sum(wi * o) for wi, o in zip(w, out)), (p, xx))
+    g_ref = torch.autograd.grad(sum(torch.sum(wi * o) for wi, o in zip(w, ref)), (p2, xx2))
+    for a, b in zip(g, g_ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    assert float(g[0][0, 0]) == 0.0
+    assert smc.LAUNCHES["qrq"] == before["qrq"] + 1
+    assert smc.LAUNCHES["qrq_bwd"] == before["qrq_bwd"] + 1
+
+
+@pytest.mark.parametrize("d,chunk", [(4, 1024), (3, 300), (8, 1024), (1, 8)])
+def test_student_kxy_kernels_match_plain(card, d, chunk):
+    from ssmtoybox_torch.ops import student_mc as smc
+    samples, _, par = _student_case(card, d, 1, 5 * chunk, seed=40 + d)
+    before = dict(smc.LAUNCHES)
+    p, p2 = par.clone().requires_grad_(True), par.clone().requires_grad_(True)
+    v, v_ref = smc.student_kxy(p, samples, chunk), smc.student_kxy_plain(p2, samples, chunk)
+    assert abs(float(v) - float(v_ref)) / abs(float(v_ref)) < 1e-5
+    (g,), (g_ref,) = torch.autograd.grad(v, p), torch.autograd.grad(v_ref, p2)
+    torch.testing.assert_close(g, g_ref, rtol=1e-4, atol=1e-5)
+    assert smc.LAUNCHES["kxy"] == before["kxy"] + 1
+    assert smc.LAUNCHES["kxy_bwd"] == before["kxy_bwd"] + 1
+
+
+def test_student_kernels_refuse_shapes_beyond_their_limits(card):
+    from ssmtoybox_torch.ops import student_mc as smc
+    before = dict(smc.LAUNCHES)
+    xs = torch.zeros((2048, 9), device=card)
+    with pytest.raises(ValueError, match="D <= 8"):
+        smc.qrq_sums(torch.ones(9, device=card), xs, torch.zeros((5, 9), device=card), 1024)
+    with pytest.raises(ValueError, match="N <= 128"):
+        smc.qrq_sums(torch.ones(2, device=card), xs[:, :2].contiguous(),
+                     torch.zeros((129, 2), device=card), 1024)
+    with pytest.raises(ValueError, match="2..1024"):
+        smc.kxy_chunk_sums(torch.ones(2, device=card), xs[:, :2].contiguous(), 2048)
+    assert smc.LAUNCHES == before
+
+
+@pytest.mark.parametrize("use_kernel,launched", [(True, True), (False, False)])
+def test_rbf_student_dispatch_on_the_card(card, use_kernel, launched):
+    """``use_kernel=True`` takes the fused kernels for tensors on the card,
+    ``False`` the float64 scan path; both estimate the same expectations."""
+    from ssmtoybox_torch.bq.kernels import RBFStudent
+    from ssmtoybox_torch.ops import student_mc as smc
+    from ssmtoybox_torch.points import fs_points
+    kern = RBFStudent(2, [[1.0, 1.5, 2.0]], num_samples=200_000, use_kernel=use_kernel,
+                      device=card)
+    x = torch.as_tensor(fs_points(2, 3, 0.0, 4.0), device=card)
+    before = dict(smc.LAUNCHES)
+    q, _, Q = kern.exp_x_qRQ(kern.par, x)
+    kxy = kern.exp_xy_kxy(kern.par)
+    assert (smc.LAUNCHES["qrq"] > before["qrq"]) == launched
+    assert (smc.LAUNCHES["kxy"] > before["kxy"]) == launched
+    ref = RBFStudent(2, [[1.0, 1.5, 2.0]], num_samples=200_000, use_kernel=False, device="cpu")
+    x_cpu = x.cpu()
+    # two Monte-Carlo estimates from different streams: 2e5 samples agree to ~1e-2
+    torch.testing.assert_close(q.cpu(), ref.exp_x_kx(ref.par, x_cpu), rtol=2e-2, atol=2e-3)
+    torch.testing.assert_close(Q.cpu(), ref.exp_x_kxkx(ref.par, ref.par, x_cpu), rtol=2e-2,
+                               atol=2e-3)
+    torch.testing.assert_close(kxy.cpu(), ref.exp_xy_kxy(ref.par), rtol=2e-2, atol=2e-3)

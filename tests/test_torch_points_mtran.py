@@ -62,7 +62,7 @@ def test_point_sets_match_goldens(goldens):
 
 def test_unported_point_set_raises():
     with pytest.raises(ValueError, match="not supported"):
-        pts.get_points(2, "fs")
+        pts.get_points(2, "mc")
 
 
 def _polar2cartesian_torch(x, time):
