@@ -7,8 +7,10 @@ Needs one CUDA card and ``nvcc`` (PATH, $CUDA_HOME or /usr/local/cuda); it
 fails at once without them.  Phases, each fatal on failure:
 
 1. set-up: print the card's name and power limit, build the CUDA sources
-   ``ssmtoybox_torch/csrc/scalar_filter.cu`` and ``student_mc.cu`` for
-   sm_90a (one nvcc each, at once) and print their ptxas lines;
+   ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu`` and
+   ``vandermonde.cu`` for sm_90a (one nvcc each, at once) and print their
+   ptxas lines; the UNGM UKF lane is built with no device argument and
+   must lie on the card, the port's default device;
 2. the scalar filter kernel vs its plain PyTorch twin, both on the card, for
    the UKF and the GPQ rule: one step at B=4096 (pointwise 1e-13), 20 steps
    at B=4096 (pointwise 1e-9), and study RMSE at B=10,000 x 500 steps
@@ -30,9 +32,38 @@ fails at once without them.  Phases, each fatal on failure:
    trajectories x 100 steps simulated on the card, TPQSF, GPQSF and FSQ built
    on the card (weights from 2e6 samples), filter and smoother of each, RMSE,
    INC and the diverged share, with the launch counts of the four kernels;
-   then the timings of the weights, filters and smoothers.
+   then the timings of the weights, filters and smoothers;
+9. the Vandermonde kernel (``csrc/vandermonde.cu``) against its plain
+   version on the card, bit-equal, at the BSQ weight shapes (D = 1 with N =
+   3, 5, 7; D = 5 with N = Q = 11), the verifiers' batch (D = 5, 100,000
+   samples) and a wide shape (D = 5, 1,000,000 samples, Q = 21); the scalar
+   filter kernel at 7 points (GH-7, BSQ-GH7) against its twin, bit-equal;
+10. BSQ goldens on the card: ``ungm.npz`` ``bsqkf`` (f64 and dd, filter and
+    smoother) and ``ghkf5`` (dd) at 1e-8, ``reentry.npz`` ``bsqkf`` at
+    1e-7 / 1e-6, ``transforms.npz`` ``bs_gh_*`` and ``bs_uni_*`` at 1e-8;
+11. the BSQ UNGM study (``experiments/bsq_ungm.py``) on the main path's
+    10,000 x 500 data: the nine lanes (UT, GH-5, GH-7, each classical, GPQ
+    and BSQ) through the kernel, the smoother, RMSE / NCI / NLL and the
+    diverged share; the BSQ lanes also through eager f64 (study RMSE within
+    1e-3); it fails on fewer than 6 Vandermonde launches while the filters
+    are built or 9 scalar filter launches, more than 1% non-finite runs, or
+    a BSQ-GH NCI not below the classical GH one;
+12. the BSQ reentry tracking study (``experiments/bsq_tracking.py``): truth
+    by Euler-Maruyama at dt 0.05 for 200 s, 10,000 trajectories, 2,000
+    filter steps; BSQKF with three EMV overrides and the UKF; fails unless
+    RMSE orders bsqkf < bsqkf_2e-6 < ukf;
+13. the Monte-Carlo verifiers (10 x 100,000 samples) on the tracking
+    dynamics rule: ``mc_exp_x_kxpx`` against the closed form at atol 5e-3,
+    10 and 11 Vandermonde launches;
+14. timings: the Vandermonde kernel and its plain version at each shape, the
+    BSQ transform builds, every UNGM lane (dd, eager f64, smoother), every
+    tracking lane, the scalar filter kernel at 3 and 7 points.
 
-The line before the last two is a JSON object describing each kernel; the
+Every kernel's entry in the ``kernels`` line carries its launches on the
+paths driven above (each path run with the counts set to 0 first), its
+error against its plain version, its time, its plain version's, and its
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over the card's peak rate for their type.  The line before the last two is a JSON object describing each kernel; the
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -104,16 +135,62 @@ PAR_OBS = [[0.005, 10.0, 100.0, 10.0, 100.0]]
 GOLDEN_SEED = 0
 
 
+#: the card's peak rates, for each kernel's bound (NVIDIA H100 SXM data sheet:
+#: 3.35 TB/s HBM3, 67 TFLOP/s float32 and 33.5 TFLOP/s float64 outside the
+#: tensor cores; exp and the other special functions at 16 results a clock on
+#: each of the 132 SMs, at the 1.98 GHz boost clock)
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+F64_OPS_S = 33.5e12
+SFU_OPS_S = 132 * 16 * 1.98e9
+
+
+def bound(n_bytes, *ops):
+    """``(bound_ms, bound_by)``: the larger of the bytes over the memory rate
+    and the operations over their peak rate, ``ops`` as ``(count, rate)``
+    pairs of operation types that run on separate units (the slowest type
+    bounds them)."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max((count / rate for count, rate in ops), default=0.0)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def device_ms(torch, fn, kernel, reps=10):
+    """Mean device time, in ms a call of ``fn``, of the device activities
+    whose name contains ``kernel``, from ``torch.profiler`` over ``reps``
+    calls after one warm-up; ``(ms, profile)``, ms None (and the names of
+    the device activities seen logged) if none matched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    total = sum(e.time_range.elapsed_us() for e in on_card if kernel in e.name)
+    if not total:
+        log(f"  (profile of {kernel}: device activities seen: "
+            f"{sorted({e.name[:80] for e in on_card}) or 'none'})")
+    return (total / reps / 1e3 if total else None), prof
+
+
+def fmt_ms(ms) -> str:
+    return "not measured (no device time in the profile)" if ms is None else f"{ms:.4f} ms"
+
+
 def rel_err(a, b) -> float:
     """``max |a - b| / max |b|``."""
     return float((a - b).abs().max() / b.abs().max())
 
 
-def study_scores(torch, x_true, fi_mean, fi_cov):
-    """Per-run RMSE, INC and NLL as the JAX package's study harness computes
-    them (experiments/common.py): the per-step MSE matrix is taken over the
-    runs whose RMSE is finite.  ``x_true``/``fi_mean`` (M, D, N), ``fi_cov``
-    (M, D, D, N)."""
+def study_scores(torch, x_true, fi_mean, fi_cov, chunk=1000):
+    """Per-run RMSE, INC, NLL and NCI as the JAX package's study harness
+    computes them (experiments/common.py): the per-step MSE matrix is taken
+    over the runs whose RMSE is finite.  ``x_true``/``fi_mean`` (M, D, N),
+    ``fi_cov`` (M, D, D, N); the credibility scores go ``chunk`` runs at a
+    time, which bounds the batched solves on long records."""
     from ssmtoybox_torch.utils.metrics import log_cred_ratio, neg_log_likelihood
     err = fi_mean - x_true
     rmse = torch.sqrt(torch.mean(torch.sum(err ** 2, 1), -1))
@@ -124,8 +201,13 @@ def study_scores(torch, x_true, fi_mean, fi_cov):
            + 1e-12 * torch.eye(D, dtype=err.dtype, device=err.device))
     x, m = x_true.permute(0, 2, 1), fi_mean.permute(0, 2, 1)
     P = fi_cov.permute(0, 3, 1, 2)
-    lcr = log_cred_ratio(x, m, P, MSE.expand(M, N, D, D))
-    return rmse, lcr.mean(1), neg_log_likelihood(x, m, P).mean(1)
+    lcr, nll = [], []
+    for i in range(0, M, chunk):
+        s = slice(i, i + chunk)
+        lcr.append(log_cred_ratio(x[s], m[s], P[s], MSE.expand(x[s].shape[0], N, D, D)))
+        nll.append(neg_log_likelihood(x[s], m[s], P[s]))
+    lcr, nll = torch.cat(lcr), torch.cat(nll)
+    return rmse, lcr.mean(1), nll.mean(1), lcr.abs().mean(1)
 
 
 def student_slice(torch, np, dev):
@@ -212,6 +294,9 @@ def student_slice(torch, np, dev):
         ms[name] = cuda_ms(torch, kern)[0], cuda_ms(torch, plain)[0]
         log(f"{name}: kernel {ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms "
             f"(wrapper sums, f64; kernel vs plain relative {rel_err(a, b):.2e})")
+    for name, (kern, _) in timed.items():
+        dev_ms, _ = device_ms(torch, kern, f"student_{name}_kernel")
+        log(f"{name}: device time {fmt_ms(dev_ms)} a launch (torch.profiler, 10 launches)")
     del s_q, s_k
 
     # ---- 7. Student goldens on the card ----------------------------------
@@ -308,7 +393,7 @@ def student_slice(torch, np, dev):
     for name, (res, (sm, sS)) in results.items():
         if tuple(res.fi_mean.shape) != tuple(xs.shape) or tuple(sS.shape) != (MC, 4, 4, CV_STEPS):
             fail(f"{name}: shapes {tuple(res.fi_mean.shape)}, {tuple(sS.shape)}")
-        rmse_r, inc_r, nll_r = study_scores(torch, xs, res.fi_mean, res.fi_cov)
+        rmse_r, inc_r, nll_r, _ = study_scores(torch, xs, res.fi_mean, res.fi_cov)
         ok = torch.isfinite(rmse_r) & torch.isfinite(inc_r) & torch.isfinite(nll_r)
         bad = 1.0 - float(ok.double().mean())
         inc[name] = float(inc_r[ok].mean())
@@ -332,12 +417,372 @@ def student_slice(torch, np, dev):
         log(f"{name}: filter {f_ms[0]:.1f} ms (min {f_ms[1]:.1f}), smoother {s_ms[0]:.1f} ms "
             f"(min {s_ms[1]:.1f})")
 
+    # bounds at these shapes: the f32 samples are read once; per sample, a
+    # Gram row of n exps (special-function unit) and the f32 flops of the
+    # row, q, R and the symmetric half of Q (the backward adds W = gq + x gR
+    # + k (gQ + gQ^T) and its three reductions); kxy needs the exps of the
+    # distinct pairs of each chunk, 3D flops each (5D with the gradient)
+    pairs = (tot_k // c_k) * c_k * (c_k - 1) / 2
+    row = n * (3 * d + 1)
+    bounds = {
+        "qrq": bound(tot_q * d * 4, (tot_q * n, SFU_OPS_S),
+                     (tot_q * (row + n + 2 * d * n + n * (n + 1)), F32_OPS_S)),
+        "qrq_bwd": bound(tot_q * d * 4, (tot_q * n, SFU_OPS_S),
+                         (tot_q * (row + n * (2 * d + 2 * n) + n + 2 * d * n), F32_OPS_S)),
+        "kxy": bound(tot_k * d * 4, (pairs, SFU_OPS_S), (pairs * 3 * d, F32_OPS_S)),
+        "kxy_bwd": bound(tot_k * d * 4, (pairs, SFU_OPS_S), (pairs * 5 * d, F32_OPS_S)),
+    }
     replaces = {"qrq": 73, "qrq_bwd": 199, "kxy": 325, "kxy_bwd": 406}
     return [{"name": f"student_{name}", "route": "cuda",
              "source": "ssmtoybox_torch/csrc/student_mc.cu",
              "replaces": f"ssmtoybox_tpu/ops/pallas_ops.py:{line}", "launches": counts[name],
-             "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1]}
+             "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
+             "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
             for name, line in replaces.items()]
+
+
+#: the BSQ UNGM study (experiments/bsq_ungm.py:42-65): kernel parameters and
+#: multi-indices of the UT, GH-5 and GH-7 rules
+PAR_UT, PAR_GH5, PAR_GH7 = [[3.0, 0.3]], [[5.0, 0.6]], [[3.0, 0.4]]
+#: the BSQ reentry tracking study (experiments/bsq_tracking.py:40-84)
+TRACK_DUR, TRACK_TAU, TRACK_DT = 200.0, 0.05, 0.1
+TRACK_M0_TRUE = [6500.0, 350.0, -1.8, -6.8, 0.7]
+TRACK_M0_MIS = [6500.0, 350.0, -1.1, -6.1, 0.7]
+TRACK_PAR_DYN = [[1.0, 1, 1, 1, 1, 1]]
+TRACK_PAR_OBS = [[1.0, 0.9, 0.9, 1e4, 1e4, 1e4]]
+#: the Vandermonde kernel's Monte-Carlo verifier batch, and a wide shape
+VDM_VERIFY_N, VDM_WIDE_N = 100_000, 1_000_000
+
+
+def event_ms(torch, fn):
+    """Time of one call of ``fn`` on the card in ms, CUDA events, no warm-up
+    (the caller has run it once); returns ``(ms, result)``."""
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), out
+
+
+def sf_bound(params, n_steps, batch):
+    """Bound of the scalar filter kernel on ``n_steps`` x ``batch``: it reads
+    y and c and writes five streams; a step costs ~10 f64 operations a point
+    for the dynamics, 4 for the measurement, 10 a point for a classical
+    rule's moments or 2 n^2 + 6 n for a BQ rule's, and ~12 for the update."""
+    def moments(rule):
+        return 10 * rule.n if rule.kind == 0 else 2 * rule.n ** 2 + 6 * rule.n
+    per_step = 10 * params.dyn.n + 4 * params.obs.n + moments(params.dyn) + moments(params.obs) + 12
+    return bound(6 * n_steps * batch * 8 + n_steps * 8, (n_steps * batch * per_step, F64_OPS_S))
+
+
+def vdm_bound(mul, n):
+    """Bound of the Vandermonde kernel: x in, the (N, Q) matrix out, and the
+    kernel's f64 multiplies (the exponents, plus one a dimension a column)."""
+    d, q = mul.shape
+    return bound(d * n * 8 + d * q * 4 + n * q * 8, (n * (int(mul.sum()) + d * q), F64_OPS_S))
+
+
+def bsq_slice(torch, np, dev, xs, ys):
+    """Phases 9-14: the Bayes-Sard quadrature path and the Vandermonde
+    kernel.  ``xs``/``ys`` are the main path's UNGM study data (10,000 x 500,
+    the set-up of ``experiments/bsq_ungm.py``).  Returns the Vandermonde
+    kernel's entry of the ``kernels`` line and the scalar filter kernel's
+    launches and 7-point figures on this path."""
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.bq.models import BayesSardModel, _exp_x_kxpx
+    from ssmtoybox_torch.ops import scalar_filter as sf, vandermonde as vdm
+    from ssmtoybox_torch.ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition,
+                                       UNGMMeasurement, UNGMTransition)
+    from ssmtoybox_torch.utils import GaussRV
+    from ssmtoybox_torch.utils.combin import total_degree_multi_index
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    mul_ut5 = np.hstack((np.zeros((5, 1), int), np.eye(5, dtype=int), 2 * np.eye(5, dtype=int)))
+
+    # ---- 9. the Vandermonde kernel vs its plain version; kernel 1 at 7 points
+    shapes = {"D1_N3": (np.array([[0, 1, 2]]), 3), "D1_N5": (np.atleast_2d(np.arange(5)), 5),
+              "D1_N7": (np.atleast_2d(np.arange(7)), 7), "D5_N11": (mul_ut5, 11),
+              "D5_verifier": (mul_ut5, VDM_VERIFY_N),
+              "D5_wide": (total_degree_multi_index(5, 2), VDM_WIDE_N)}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    vdm_err, vdm_ms, vdm_in = 0.0, {}, {}
+    for tag, (mul, n) in shapes.items():
+        x = torch.randn((mul.shape[0], n), generator=gen, **f64)
+        got, ref = vdm.vandermonde(mul, x), vdm.vandermonde_plain(mul, x)
+        torch.cuda.synchronize()
+        err = float((got - ref).abs().max())
+        vdm_err = max(vdm_err, err)
+        if not torch.equal(got, ref):
+            fail(f"Vandermonde kernel vs plain at {tag} (D={mul.shape[0]}, N={n}, "
+                 f"Q={mul.shape[1]}): max |diff| {err:.3e}, expected bit-equality")
+        vdm_in[tag] = (mul, x)
+        log(f"Vandermonde kernel == plain to the bit at {tag} (D={mul.shape[0]}, N={n}, "
+            f"Q={mul.shape[1]}, {n * mul.shape[1] * 8 / 1e6:.1f} MB out)")
+    dyn_g7 = UNGMTransition(GaussRV(1, cov=5.0, device=dev), GaussRV(1, cov=10.0, device=dev))
+    obs_g7 = UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=1)
+    y_tm = ys[:, 0, :].T.contiguous()
+    c = torch.as_tensor(sf.ungm_consts(y_tm.shape[0]), device=dev)
+    rules7 = {"GH-7": stt.GaussHermiteKalman(dyn_g7, obs_g7, deg=7),
+              "BSQ-GH7": stt.BayesSardKalman(dyn_g7, obs_g7, np.array(PAR_GH7),
+                                             np.array(PAR_GH7),
+                                             mulind_dyn=np.atleast_2d(np.arange(7)),
+                                             mulind_obs=np.atleast_2d(np.arange(7)),
+                                             points="gh", point_hyp={"degree": 7})}
+    for name, alg in rules7.items():
+        params = sf.prepare(dyn_g7, obs_g7, alg.tf_dyn, alg.tf_obs)
+        for n_steps in (1, 20):
+            yy = y_tm[:n_steps, :COMPARE_B].contiguous()
+            cc = c[:n_steps].contiguous()
+            got, ref = sf.scalar_filter(params, yy, cc), sf._scalar_filter_plain(params, yy, cc)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                fail(f"scalar filter kernel vs twin at 7 points ({name}, N={n_steps}): "
+                     f"max |diff| {max(float((a - b).abs().max()) for a, b in zip(got, ref)):.3e}")
+        log(f"scalar filter kernel == twin to the bit at 7 points ({name}, N=1 and 20, "
+            f"B={COMPARE_B})")
+
+    # ---- 10. BSQ goldens on the card --------------------------------------
+    g = np.load(os.path.join(HERE, "tests", "goldens", "ungm.npz"))
+    dyn_g = UNGMTransition(GaussRV(1, cov=1.0, device=dev), GaussRV(1, cov=10.0, device=dev))
+    obs_g = UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=1)
+    batch_g = torch.as_tensor(np.moveaxis(g["y"], -1, 0), device=dev)
+    mi = np.array([[0, 1, 2]])
+    bsq_g = stt.BayesSardKalman(dyn_g, obs_g, np.array(PAR_UT), np.array(PAR_UT),
+                                mulind_dyn=mi, mulind_obs=mi)
+    checks = [("bsqkf", bsq_g, engine, ("fm", "fP", "sm", "sP")) for engine in ("f64", "dd")]
+    checks.append(("ghkf5", stt.GaussHermiteKalman(dyn_g, obs_g, deg=5), "dd", ("fm", "fP")))
+    for name, alg, engine, keys in checks:
+        res = alg.forward_pass_batch(batch_g, engine=engine)
+        sm, sP = stt.gaussian_smoother(res)
+        got = {"fm": res.fi_mean[0], "fP": res.fi_cov[0], "sm": sm[0], "sP": sP[0]}
+        for key in keys:
+            if not np.allclose(got[key].cpu().numpy(), g[f"{name}_{key}"], atol=1e-8, rtol=1e-8):
+                fail(f"golden ungm {name}_{key} ({engine}) off by "
+                     f"{np.abs(got[key].cpu().numpy() - g[f'{name}_{key}']).max():.3e}")
+    g = np.load(os.path.join(HERE, "tests", "goldens", "reentry.npz"))
+    dyn_r = ReentryVehicle2DTransition(
+        GaussRV(5, mean=np.array([6500.4, 349.14, -1.8093, -6.7967, 0.6932]),
+                cov=np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0]), device=dev),
+        GaussRV(3, cov=np.diag([2.4064e-5, 2.4064e-5, 1e-6]), device=dev), dt=0.05)
+    obs_r = Radar2DMeasurement(GaussRV(2, cov=np.diag([1e-3, 1e-5]), device=dev), dim_state=5,
+                               state_index=[0, 1], radar_loc=np.array([6374.0, 0.0]))
+    bsq_r = stt.BayesSardKalman(dyn_r, obs_r, np.array(TRACK_PAR_DYN), np.array(TRACK_PAR_OBS),
+                                mulind_dyn=mul_ut5, mulind_obs=mul_ut5)
+    fm, fP = bsq_r.forward_pass(torch.as_tensor(g["y"][..., 0], device=dev))
+    for got, key in ((fm, "bsqkf_fm"), (fP, "bsqkf_fP")):
+        if not np.allclose(got.cpu().numpy(), g[key], atol=1e-7, rtol=1e-6):
+            fail(f"golden reentry {key} off by {np.abs(got.cpu().numpy() - g[key]).max():.3e}")
+    g = np.load(os.path.join(HERE, "tests", "goldens", "transforms.npz"))
+    for branch, model in (
+            ("gh", BayesSardModel(2, g["kern_par"], 2, "gh", {"degree": 3}, device=dev)),
+            ("uni", BayesSardModel(2, g["kern_par"], g["bs_uni_mulind"], "ut", device=dev))):
+        w = model.bq_weights()
+        for key, got in (("wm", w.wm), ("wc", w.Wc), ("wcc", w.Wcc), ("emv", w.model_var),
+                         ("ivar", w.integral_var)):
+            ref = g.get(f"bs_{branch}_{key}")
+            if ref is not None and not np.allclose(np.atleast_1d(got.cpu().numpy()), ref,
+                                                   atol=1e-8, rtol=1e-8):
+                fail(f"golden transforms bs_{branch}_{key} off by "
+                     f"{np.abs(np.atleast_1d(got.cpu().numpy()) - ref).max():.3e}")
+    log("BSQ goldens on the card: ungm bsqkf (f64 and dd, filter and smoother, 1e-8), ghkf5 "
+        "(dd), reentry bsqkf (1e-7/1e-6), transforms bs_gh_*/bs_uni_* (1e-8) ok")
+
+    # ---- 11. the BSQ UNGM study, 10,000 x 500 -----------------------------
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=dev), GaussRV(1, cov=10.0, device=dev))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=1)
+    gh = lambda deg: {"degree": deg}  # noqa: E731
+    mgh = lambda deg: np.atleast_2d(np.arange(deg))  # noqa: E731
+    par_ut, par_gh5, par_gh7 = np.array(PAR_UT), np.array(PAR_GH5), np.array(PAR_GH7)
+    makers = {
+        "UT": lambda: stt.UnscentedKalman(dyn, obs, alpha=1.0, beta=0.0),
+        "GH-5": lambda: stt.GaussHermiteKalman(dyn, obs, deg=5),
+        "GH-7": lambda: stt.GaussHermiteKalman(dyn, obs, deg=7),
+        "GPQ-UT": lambda: stt.GaussianProcessKalman(dyn, obs, par_ut, par_ut, points="ut"),
+        "GPQ-GH5": lambda: stt.GaussianProcessKalman(dyn, obs, par_gh5, par_gh5, points="gh",
+                                                     point_hyp=gh(5)),
+        "GPQ-GH7": lambda: stt.GaussianProcessKalman(dyn, obs, par_gh7, par_gh7, points="gh",
+                                                     point_hyp=gh(7)),
+        "BSQ-UT": lambda: stt.BayesSardKalman(dyn, obs, par_ut, par_ut, mulind_dyn=mi,
+                                              mulind_obs=mi, points="ut"),
+        "BSQ-GH5": lambda: stt.BayesSardKalman(dyn, obs, par_gh5, par_gh5, mulind_dyn=mgh(5),
+                                               mulind_obs=mgh(5), points="gh", point_hyp=gh(5)),
+        "BSQ-GH7": lambda: stt.BayesSardKalman(dyn, obs, par_gh7, par_gh7, mulind_dyn=mgh(7),
+                                               mulind_obs=mgh(7), points="gh", point_hyp=gh(7)),
+    }
+    torch.cuda.synchronize()
+    sf.LAUNCHES = vdm.LAUNCHES = 0
+    algs = {name: make() for name, make in makers.items()}
+    torch.cuda.synchronize()
+    vdm_builds = vdm.LAUNCHES
+    scores, rmse_f64 = {}, {}
+    for name, alg in algs.items():
+        res = alg.forward_pass_batch(ys, engine="dd")
+        sm, sP = stt.gaussian_smoother(res)
+        scores[name] = (study_scores(torch, xs, res.fi_mean, res.fi_cov),
+                        study_scores(torch, xs, sm, sP))
+        if name.startswith("BSQ"):
+            r64 = alg.forward_pass_batch(ys, engine="f64")
+            rmse_f64[name] = study_scores(torch, xs, r64.fi_mean, r64.fi_cov)[0]
+    torch.cuda.synchronize()
+    ungm_launches = {"vandermonde": vdm.LAUNCHES, "scalar_filter": sf.LAUNCHES}
+    log(f"BSQ UNGM path launches: {ungm_launches} (Vandermonde {vdm_builds} while the nine "
+        f"filters were built)")
+    if vdm_builds < 6:
+        fail(f"the Vandermonde kernel ran {vdm_builds} times while the 3 BSQ filters were built")
+    if sf.LAUNCHES < 9:
+        fail(f"the scalar filter kernel ran {sf.LAUNCHES} times for the 9 UNGM lanes")
+    nci = {}
+    for name, ((rf, incf, nllf, ncif), (rs, incs, nlls, ncis)) in scores.items():
+        ok = (torch.isfinite(rf) & torch.isfinite(incf) & torch.isfinite(nllf)
+              & torch.isfinite(rs) & torch.isfinite(ncis) & torch.isfinite(nlls))
+        bad = 1.0 - float(ok.double().mean())
+        nci[name] = float(ncif[ok].mean())
+        log(f"UNGM {name} ({MC}x{UNGM_STEPS}, dd): filtered RMSE {float(rf[ok].mean()):.4f}, "
+            f"NCI {nci[name]:.4f}, NLL {float(nllf[ok].mean()):.4f}; smoothed RMSE "
+            f"{float(rs[ok].mean()):.4f}, NCI {float(ncis[ok].mean()):.4f}, NLL "
+            f"{float(nlls[ok].mean()):.4f}; diverged {bad:.4%}")
+        if bad > 0.01:
+            fail(f"UNGM {name}: {bad:.2%} of the runs are not finite (limit 1%)")
+    for deg in ("5", "7"):
+        if not nci[f"BSQ-GH{deg}"] < nci[f"GH-{deg}"]:
+            fail(f"NCI of BSQ-GH{deg} ({nci[f'BSQ-GH{deg}']:.3f}) is not below GH-{deg}'s "
+                 f"({nci[f'GH-{deg}']:.3f})")
+    for name, r64 in rmse_f64.items():
+        r_dd = scores[name][0][0]
+        a, b = float(r_dd[torch.isfinite(r_dd)].mean()), float(r64[torch.isfinite(r64)].mean())
+        log(f"UNGM {name}: study RMSE dd {a:.6f} vs eager f64 {b:.6f}, relative "
+            f"{abs(a - b) / b:.2e} (limit 1e-3)")
+        if not abs(a - b) / b < 1e-3:
+            fail(f"UNGM {name}: study RMSE through dd and f64 differ by {abs(a - b) / b:.3e}")
+
+    # ---- 12. the BSQ tracking study, 10,000 x 2,000 -----------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    sys_dyn = ReentryVehicle2DTransition(
+        GaussRV(5, mean=TRACK_M0_TRUE, cov=np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1e-12]), device=dev),
+        GaussRV(3, cov=np.diag([2.4e-5, 2.4e-5, 1e-12]), device=dev), dt=TRACK_TAU)
+    obs_t = Radar2DMeasurement(GaussRV(2, cov=np.diag([1e-6, 0.17e-6]), device=dev),
+                               dim_state=5, radar_loc=np.array([6374.0, 0.0]))
+    t0 = time.perf_counter()
+    x_t = sys_dyn.simulate_continuous(gen, duration=TRACK_DUR, dt=TRACK_TAU, mc_sims=MC)
+    y_t = obs_t.simulate_measurements(gen, x_t)
+    xs_t = x_t[:, ::2].permute(2, 0, 1).contiguous()
+    ys_t = y_t[:, ::2].permute(2, 0, 1).contiguous()
+    del x_t, y_t
+    torch.cuda.synchronize()
+    log(f"tracking truth: Euler-Maruyama {int(TRACK_DUR / TRACK_TAU)} steps x {MC} on the "
+        f"card, sub-sampled to {xs_t.shape[-1]} filter steps, {time.perf_counter() - t0:.1f} s")
+    dyn_t = ReentryVehicle2DTransition(
+        GaussRV(5, mean=TRACK_M0_MIS, cov=np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0]), device=dev),
+        GaussRV(3, cov=np.diag([2.4e-5, 2.4e-5, 1e-6]), device=dev), dt=TRACK_DT)
+    overrides = {"bsqkf": np.diag([2e-4] * 5), "bsqkf_2e-6": 2e-6 * np.eye(5),
+                 "bsqkf_2e-7": 2e-7 * np.eye(5)}
+    sf.LAUNCHES = vdm.LAUNCHES = 0
+    t_algs, t_build = {}, {}
+    for name, mv in overrides.items():
+        t0 = time.perf_counter()
+        alg = stt.BayesSardKalman(dyn_t, obs_t, np.array(TRACK_PAR_DYN), np.array(TRACK_PAR_OBS),
+                                  mulind_dyn=mul_ut5, mulind_obs=mul_ut5, points="ut")
+        alg.tf_dyn = alg.tf_dyn.replace(model_var=mv)
+        alg.tf_obs = alg.tf_obs.replace(model_var=np.zeros((2, 2)))
+        torch.cuda.synchronize()
+        t_build[name] = time.perf_counter() - t0
+        t_algs[name] = alg
+    t_algs["ukf"] = stt.UnscentedKalman(dyn_t, obs_t, beta=0.0)
+    track_ms, track = {}, {}
+    for name, alg in t_algs.items():
+        track_ms[name], res = event_ms(torch, lambda: alg.forward_pass_batch(ys_t))
+        rmse_r, inc_r, nll_r, _ = study_scores(torch, xs_t, res.fi_mean, res.fi_cov)
+        del res
+        ok = torch.isfinite(rmse_r) & torch.isfinite(inc_r) & torch.isfinite(nll_r)
+        bad = 1.0 - float(ok.double().mean())
+        track[name] = float(rmse_r[ok].mean())
+        log(f"tracking {name} ({MC}x{xs_t.shape[-1]}, eager f64): RMSE {track[name]:.4f}, INC "
+            f"{float(inc_r[ok].mean()):.4f}, diverged {bad:.4%}, first filter "
+            f"{track_ms[name]:.1f} ms")
+        if bad > 0.01:
+            fail(f"tracking {name}: {bad:.2%} of the runs are not finite (limit 1%)")
+    torch.cuda.synchronize()
+    track_launches = vdm.LAUNCHES
+    log(f"BSQ tracking path launches: Vandermonde {track_launches}")
+    if track_launches < 6:
+        fail(f"the Vandermonde kernel ran {track_launches} times for the 3 BSQ tracking filters")
+    if not track["bsqkf"] < track["bsqkf_2e-6"] < track["ukf"]:
+        fail(f"tracking RMSE does not order bsqkf < bsqkf_2e-6 < ukf: {track}")
+
+    # ---- 13. the Monte-Carlo verifiers on the tracking dynamics rule ------
+    model = BayesSardModel(5, np.array(TRACK_PAR_DYN), mul_ut5, "ut",
+                           compat_kxpx_ell_squared=False, device=dev)
+    vdm.LAUNCHES = 0
+    vgen = torch.Generator(device=dev).manual_seed(SEED)
+    mc = model.mc_exp_x_kxpx(vgen)
+    closed = _exp_x_kxpx(model._ell(model.kernel.par), model.mulind, model.points)
+    n_kxpx = vdm.LAUNCHES
+    cov = model.mc_exp_x_cov(vgen)
+    torch.cuda.synchronize()
+    n_cov = vdm.LAUNCHES - n_kxpx
+    err_mc = float((mc - closed).abs().max())
+    log(f"mc_exp_x_kxpx (10 x 100,000) vs closed form: max |diff| {err_mc:.2e} (atol 5e-3); "
+        f"mc_exp_x_cov diagonal {[round(float(v), 6) for v in torch.diagonal(cov)]}; "
+        f"Vandermonde launches {n_kxpx} and {n_cov}")
+    if not err_mc < 5e-3:
+        fail(f"mc_exp_x_kxpx differs from the closed form by {err_mc:.3e}")
+    if (n_kxpx, n_cov) != (10, 11):
+        fail(f"the verifiers launched the Vandermonde kernel {n_kxpx} and {n_cov} times; "
+             "expected 10 and 11")
+
+    # ---- 14. timings (after the counts were read) -------------------------
+    for tag, (mul, x) in vdm_in.items():
+        k_ms = cuda_ms(torch, lambda: vdm.vandermonde(mul, x))
+        p_ms = cuda_ms(torch, lambda: vdm.vandermonde_plain(mul, x))
+        b_ms, b_by = vdm_bound(mul, x.shape[1])
+        vdm_ms[tag] = (k_ms[0], p_ms[0], b_ms, b_by)
+        log(f"vandermonde {tag}: kernel {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}), plain "
+            f"{p_ms[0]:.4f} ms (min {p_ms[1]:.4f}), bound {b_ms:.4f} ms ({b_by})")
+    for name in ("BSQ-UT", "BSQ-GH5", "BSQ-GH7"):
+        t0 = time.perf_counter()
+        makers[name]()
+        torch.cuda.synchronize()
+        log(f"{name}: both BSQ transforms built in {(time.perf_counter() - t0) * 1e3:.1f} ms")
+    for name, ms in t_build.items():
+        log(f"tracking {name}: both 5-D BSQ transforms built (and the EMV replaced) in "
+            f"{ms * 1e3:.1f} ms (timed once, in the study's set-up)")
+    for name, alg in algs.items():
+        t = {"dd": cuda_ms(torch, lambda: alg.forward_pass_batch(ys, engine="dd")),
+             "f64": cuda_ms(torch, lambda: alg.forward_pass_batch(ys, engine="f64"), reps=3)}
+        res = alg.forward_pass_batch(ys, engine="dd")
+        t["smoother"] = cuda_ms(torch, lambda: stt.gaussian_smoother(res), reps=3)
+        log(f"UNGM {name}: " + ", ".join(f"{k} {v[0]:.2f} ms (min {v[1]:.2f})"
+                                        for k, v in t.items()))
+    for name, alg in t_algs.items():
+        ms, res = event_ms(torch, lambda: alg.forward_pass_batch(ys_t))
+        del res
+        log(f"tracking {name}: filter {ms:.1f} ms (second run; first {track_ms[name]:.1f} ms)")
+    sf_ms = {}
+    for name, alg in (("UT (3 points)", algs["UT"]), ("GH-7 (7 points)", algs["GH-7"]),
+                      ("BSQ-GH7 (7 points)", algs["BSQ-GH7"])):
+        params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+        k = cuda_ms(torch, lambda: sf.scalar_filter(params, y_tm, c))
+        b_ms, b_by = sf_bound(params, *y_tm.shape)
+        sf_ms[name] = (k[0], b_ms, b_by)
+        dev_ms, _ = device_ms(torch, lambda: sf.scalar_filter(params, y_tm, c),
+                              "scalar_filter_kernel")
+        log(f"scalar_filter {name} {MC}x{UNGM_STEPS}: kernel {k[0]:.3f} ms (min {k[1]:.3f}), "
+            f"device {fmt_ms(dev_ms)}, bound {b_ms:.4f} ms ({b_by})")
+    for tag, (mul, x) in vdm_in.items():
+        dev_ms, prof = device_ms(torch, lambda: vdm.vandermonde(mul, x), "vandermonde_kernel")
+        vdm_ms[tag] += (dev_ms,)
+        log(f"vandermonde {tag}: device {fmt_ms(dev_ms)} a launch")
+        if tag == "D5_N11":
+            log("host side of the Vandermonde wrapper at D5_N11 (torch.profiler, 10 calls):\n"
+                + prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=8))
+
+    k_ms, p_ms, b_ms, b_by, _ = vdm_ms["D5_verifier"]
+    entry = {"name": "vandermonde", "route": "cuda", "source": "ssmtoybox_torch/csrc/vandermonde.cu",
+             "replaces": "ssmtoybox_tpu/ops/pallas_ops.py:470",
+             "launches": ungm_launches["vandermonde"] + track_launches, "max_abs_err": vdm_err,
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    return entry, ungm_launches["scalar_filter"]
 
 
 def main():
@@ -355,7 +800,7 @@ def main():
     sys.path.insert(0, HERE)
 
     import ssmtoybox_torch as stt
-    from ssmtoybox_torch.ops import _build, scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import _build, scalar_filter as sf, student_mc as smc, vandermonde as vdm
     from ssmtoybox_torch.ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition,
                                        UNGMMeasurement, UNGMTransition)
     from ssmtoybox_torch.utils import GaussRV
@@ -369,24 +814,34 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        for build in [pool.submit(sf.build), pool.submit(smc.build)]:
+    with ThreadPoolExecutor(3) as pool:
+        for build in [pool.submit(sf.build), pool.submit(smc.build), pool.submit(vdm.build)]:
             build.result()
-    log(f"built scalar_filter.cu and student_mc.cu for sm_90a in "
+    log(f"built scalar_filter.cu, student_mc.cu and vandermonde.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s")
-    for name in ("scalar_filter", "student_mc"):
+    for name in ("scalar_filter", "student_mc", "vandermonde"):
         for line in _build.BUILD_LOGS.get(name, "").splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 log(f"  ptxas {name}: {line.strip()}")
 
     # ---- the study's models and data, simulated on the card ---------------
+    # the UNGM models and the UKF lane are built with no device argument: the
+    # port's default device is the card
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=dev), GaussRV(1, cov=10.0, device=dev))
-    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=1)
+    dyn = UNGMTransition(GaussRV(1, cov=5.0), GaussRV(1, cov=10.0))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0), dim_state=1)
     x = dyn.simulate_discrete(gen, steps=UNGM_STEPS, mc_sims=MC)
     y = obs.simulate_measurements(gen, x)
     xs, ys = x.permute(2, 0, 1), y.permute(2, 0, 1)                # (M, D, N)
     ukf = stt.UnscentedKalman(dyn, obs)
+    on_card = {"init mean": dyn.init_rv.mean, "noise gain": dyn.noise_gain,
+               "measurement noise": obs.noise_rv.cov, "UT points": ukf.tf_dyn.unit_sp,
+               "UT weights": ukf.tf_obs.wm, "trajectories": x}
+    off = [k for k, t in on_card.items() if t.device.type != "cuda"]
+    if off:
+        fail(f"built with no device argument, these lie off the card: {off}")
+    log(f"default device: the UNGM UKF lane built with no device argument lies on "
+        f"{stt.default_device()} ({len(on_card)} tensors checked)")
     gpq = stt.GaussianProcessKalman(dyn, obs, np.array([[1.0, 3.0]]), np.array([[1.0, 3.0]]),
                                     points="ut")
     dyn_re = ReentryVehicle2DTransition(
@@ -499,11 +954,14 @@ def main():
         log(f"{lane}: " + ", ".join(f"{k} {v[0]:.2f} ms (min {v[1]:.2f})" for k, v in t.items()))
 
     student = student_slice(torch, np, dev)
+    vdm_entry, bsq_sf_launches = bsq_slice(torch, np, dev, xs, ys)
 
+    b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{
         "name": "scalar_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
-        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", "launches": launches,
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms}] + student}
+        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", "launches": launches + bsq_sf_launches,
+        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": None}] + student + [vdm_entry]}
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,23 +1,26 @@
 """ssmtoybox_torch — the PyTorch and CUDA port of ssmtoybox_tpu.
 
 Nonlinear sigma-point and Bayesian-quadrature Kalman and Student-t filtering
-in float64, batched over Monte-Carlo trajectories on an NVIDIA GPU (or the
-CPU).  The JAX package ``ssmtoybox_tpu`` is the reference each part is held
+in float64, batched over Monte-Carlo trajectories on an NVIDIA GPU.  The
+port runs on the CUDA card by default; ``set_device("cpu")`` runs it on the
+CPU.  The JAX package ``ssmtoybox_tpu`` is the reference each part is held
 against; this package never imports it, nor JAX.
 """
 from . import bq, mtran, ops, points, ssinf, ssmod, utils
-from .ssinf import (FilterResult, FullySymmetricStudent, GaussianInference,
-                    GaussianProcessKalman, GPQStudent, StateSpaceInference,
-                    StudentFilterResult, StudentianInference, StudentProcessKalman,
-                    StudentProcessStudent, UnscentedKalman, gaussian_filter,
-                    gaussian_filter_batch, gaussian_smoother, studentian_filter,
-                    studentian_filter_batch, studentian_smoother)
+from .ssinf import (BayesSardKalman, CubatureKalman, FilterResult, FullySymmetricStudent,
+                    GaussHermiteKalman, GaussianInference, GaussianProcessKalman, GPQStudent,
+                    StateSpaceInference, StudentFilterResult, StudentianInference,
+                    StudentProcessKalman, StudentProcessStudent, UnscentedKalman,
+                    gaussian_filter, gaussian_filter_batch, gaussian_smoother,
+                    studentian_filter, studentian_filter_batch, studentian_smoother)
+from .utils.arrays import default_device, set_device
 
 __all__ = [
     "bq", "mtran", "ops", "points", "ssinf", "ssmod", "utils",
+    "default_device", "set_device",
     "FilterResult", "GaussianInference", "GaussianProcessKalman",
-    "StateSpaceInference", "UnscentedKalman", "gaussian_filter",
-    "gaussian_filter_batch", "gaussian_smoother",
+    "StateSpaceInference", "UnscentedKalman", "GaussHermiteKalman", "CubatureKalman",
+    "BayesSardKalman", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
     "StudentFilterResult", "StudentianInference", "FullySymmetricStudent", "GPQStudent",
     "StudentProcessStudent", "StudentProcessKalman", "studentian_filter",
     "studentian_filter_batch", "studentian_smoother",

@@ -11,22 +11,29 @@ computed once, at construction, in float64.  Batch convention as in
 """
 from __future__ import annotations
 
+import copy
+
+import numpy as np
 import torch
 
 from ..mtran import MomentTransform, apply_f_columns
 from ..utils.arrays import f64
 from ..utils.linalg import chol_small
-from .models import GaussianProcessModel, StudentTProcessModel, tp_scale
+from .models import BayesSardModel, GaussianProcessModel, StudentTProcessModel, tp_scale
 
-__all__ = ["BQTransform", "GaussianProcessTransform", "StudentTProcessTransform"]
+__all__ = ["BQTransform", "GaussianProcessTransform", "BayesSardTransform",
+           "StudentTProcessTransform"]
 
 
 class BQTransform(MomentTransform):
     """BQ transform from precomputed weights.
 
     ``points`` (D, N) unit points, ``wm`` (N,), ``Wc`` (N, N), ``Wcc`` (D, N),
-    ``model_var`` the scalar expected model variance; ``dim_out`` sizes the
-    variance inflation ``model_var * I``.
+    ``model_var`` the expected model variance: a scalar, or an (E, E) matrix
+    (an override, as the BSQ tracking study sets).  The variance inflation is
+    ``model_var * I_{dim_out}`` ELEMENTWISE, as in the JAX package: a matrix
+    keeps its diagonal only.  :meth:`replace` returns a copy with fields
+    replaced and the inflation recomputed.
     """
 
     def __init__(self, points, wm, Wc, Wcc, model_var, dim_out: int = 1, iK=None,
@@ -35,12 +42,26 @@ class BQTransform(MomentTransform):
         self.wm = f64(wm, device)
         self.Wc = f64(Wc, device)
         self.Wcc = f64(Wcc, device)
-        self.model_var = f64(model_var, device).reshape(())
+        mv = f64(model_var, device)
+        self.model_var = mv.reshape(()) if mv.numel() == 1 and mv.ndim <= 1 else mv
         self.iK = None if iK is None else f64(iK, device)
         self.integral_var = None if integral_var is None else f64(integral_var, device)
         self.dim_out = int(dim_out)
         self._emv = self.model_var * torch.eye(self.dim_out, dtype=torch.float64,
                                                device=self.points.device)
+
+    def replace(self, **fields) -> "BQTransform":
+        """A copy with ``fields`` (``model_var``, ``wm``, ...) replaced, the
+        inflation ``model_var * I`` recomputed: the JAX package's
+        ``tf.replace(model_var=...)``.  The copy shares the other tensors."""
+        kw = {k: getattr(self, k) for k in ("points", "wm", "Wc", "Wcc", "model_var", "iK",
+                                            "integral_var", "dim_out")}
+        unknown = set(fields) - set(kw)
+        if unknown:
+            raise ValueError(f"cannot replace {sorted(unknown)}")
+        tf = copy.copy(self)
+        BQTransform.__init__(tf, **{**kw, **fields}, device=self.device)
+        return tf
 
     @property
     def device(self) -> torch.device:
@@ -73,6 +94,36 @@ class GaussianProcessTransform(BQTransform):
         super().__init__(self.model.points, w.wm, w.Wc, w.Wcc, w.model_var,
                          dim_out=dim_out, iK=w.iK, integral_var=w.integral_var,
                          device=device)
+
+
+class BayesSardTransform(BQTransform):
+    """BSQ moment transform: weights from a :class:`BayesSardModel` (RBF
+    kernel, polynomial prior mean of multi-index ``multi_ind``)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kern_par, multi_ind=2,
+                 point_str: str = "ut", point_par=None, compat_kxpx_ell_squared: bool = True,
+                 device=None):
+        self.model = BayesSardModel(dim_in, kern_par, multi_ind, point_str, point_par,
+                                    compat_kxpx_ell_squared, device=device)
+        w = self.model.bq_weights()
+        super().__init__(self.model.points, w.wm, w.Wc, w.Wcc, w.model_var,
+                         dim_out=dim_out, iK=w.iK, integral_var=w.integral_var,
+                         device=device)
+
+    @classmethod
+    def from_weights(cls, points, wm, Wc, Wcc, model_var, mulind, dim_out: int = 1, iK=None,
+                     integral_var=None, compat_kxpx_ell_squared: bool = True,
+                     device=None) -> "BayesSardTransform":
+        """The transform from precomputed weights (e.g. the JAX transform's
+        arrays), without a model: ``mulind`` and the compat flag are kept as
+        attributes for reference."""
+        tf = cls.__new__(cls)
+        BQTransform.__init__(tf, points, wm, Wc, Wcc, model_var, dim_out=dim_out, iK=iK,
+                             integral_var=integral_var, device=device)
+        tf.model = None
+        tf.mulind = np.atleast_2d(np.asarray(mulind, dtype=np.int64))
+        tf.compat_kxpx_ell_squared = bool(compat_kxpx_ell_squared)
+        return tf
 
 
 class StudentTProcessTransform(BQTransform):

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from .bq.kernels import RBFStudent
-from .bq.transforms import BQTransform, StudentTProcessTransform
+from .bq.transforms import BayesSardTransform, BQTransform, StudentTProcessTransform
 from .mtran import SigmaPointTransform
 from .ssmod import (ConstantVelocity, Radar2DMeasurement, ReentryVehicle2DTransition,
                     TransitionModel, UNGMMeasurement, UNGMTransition)
@@ -37,11 +37,19 @@ def transform_from_numpy(d: dict, device=None):
     - GP quadrature: ``points``, ``wm``, ``Wc``, ``Wcc``, ``model_var``,
       optionally ``iK``, ``integral_var`` and ``dim_out`` (default 1);
     - TP quadrature: the GP keys with ``iK``, plus ``nu`` (and optionally
-      ``num_pts``, checked against the points).
+      ``num_pts``, checked against the points);
+    - BS quadrature: the GP keys plus ``mulind`` and optionally
+      ``compat_kxpx_ell_squared`` (default True).  ``model_var`` may be a
+      matrix (an override).
     """
     if "Wcc" in d:
         kw = dict(dim_out=int(d.get("dim_out", 1)), integral_var=d.get("integral_var"),
                   device=device)
+        if "mulind" in d:
+            return BayesSardTransform.from_weights(
+                d["points"], d["wm"], d["Wc"], d["Wcc"], d["model_var"], d["mulind"],
+                iK=d.get("iK"),
+                compat_kxpx_ell_squared=bool(d.get("compat_kxpx_ell_squared", True)), **kw)
         if "nu" not in d:
             return BQTransform(d["points"], d["wm"], d["Wc"], d["Wcc"], d["model_var"],
                                iK=d.get("iK"), **kw)

@@ -26,7 +26,10 @@
 #define SF_UNROLL
 #endif
 
-#define SF_MAX_PTS 3
+// Most points of a rule: 7-point Gauss-Hermite and BSQ-GH7 rules fit.  The
+// parameters (two rules) travel by value, 1,600 bytes of the 4 KB a kernel's
+// parameters may take.
+#define SF_MAX_PTS 8
 
 // A 1-D quadrature rule.  kind 0: classical, centered moments with diagonal
 // covariance weights wc.  kind 1: Bayesian quadrature, uncentered moments

@@ -3,6 +3,7 @@
 - :mod:`.scalar_filter` — the whole-record scalar filter kernel.
 - :mod:`.student_mc` — the RBF-Student Monte-Carlo expectations and their
   gradients (four kernels).
+- :mod:`.vandermonde` — the Vandermonde matrix of multivariate monomials.
 """
 from .scalar_filter import scalar_filter_batch, supports
 from .student_mc import student_kxy, student_qrq

@@ -37,8 +37,11 @@ __all__ = ["LAUNCHES", "MAX_PTS", "Rule", "ScalarFilterParams", "lower_transform
 #: kernel launches made by :func:`scalar_filter` in this process
 LAUNCHES = 0
 
-#: most sigma points a rule may have (``SF_MAX_PTS`` in the step header)
-MAX_PTS = 3
+#: most sigma points a rule may have (``SF_MAX_PTS`` in the step header):
+#: enough for the 7-point Gauss-Hermite and BSQ-GH7 rules; the parameter
+#: struct, passed by value, is then 1,600 bytes, under the 4 KB limit of a
+#: kernel's parameters
+MAX_PTS = 8
 
 #: ``--fmad=false``: no multiply-add contraction, so the kernel rounds after
 #: every operation exactly like the twin's separate elementwise ops; with
@@ -131,9 +134,11 @@ def lower_transform(tf) -> Rule:
         if tf.points.shape[0] != 1 or tf.dim_out != 1:
             raise ValueError("the fused scalar filter needs a 1-D rule")
         Wc = tf.Wc.detach().cpu().numpy()
+        if tf._emv.numel() != 1:
+            raise ValueError("the fused scalar filter needs a scalar model variance")
         rule = Rule(kind=1, xi=_floats(tf.points), wm=_floats(tf.wm),
                     Wc=tuple(tuple(float(v) for v in row) for row in Wc),
-                    wcc=_floats(tf.Wcc), emv=float(tf.model_var))
+                    wcc=_floats(tf.Wcc), emv=float(tf._emv.reshape(())))
     else:
         raise ValueError(f"unsupported transform for the fused scalar filter: {type(tf)!r}")
     if rule.n > MAX_PTS:

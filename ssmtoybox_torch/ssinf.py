@@ -27,8 +27,10 @@ from dataclasses import dataclass
 
 import torch
 
-from .bq.transforms import GaussianProcessTransform, StudentTProcessTransform
-from .mtran import FullySymmetricStudentTransform, UnscentedTransform
+from .bq.transforms import (BayesSardTransform, GaussianProcessTransform,
+                            StudentTProcessTransform)
+from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
+                    SphericalRadialTransform, UnscentedTransform)
 from .ops import scalar_filter as _sf
 from .utils.arrays import f64
 from .utils.linalg import chol_small, pd_solve_small, tri_solve_small
@@ -37,8 +39,8 @@ __all__ = [
     "FilterResult", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
     "StudentFilterResult", "studentian_filter", "studentian_filter_batch",
     "studentian_smoother",
-    "StateSpaceInference", "GaussianInference", "UnscentedKalman",
-    "GaussianProcessKalman", "StudentProcessKalman",
+    "StateSpaceInference", "GaussianInference", "UnscentedKalman", "CubatureKalman",
+    "GaussHermiteKalman", "GaussianProcessKalman", "BayesSardKalman", "StudentProcessKalman",
     "StudentianInference", "FullySymmetricStudent", "GPQStudent", "StudentProcessStudent",
 ]
 
@@ -379,6 +381,22 @@ class UnscentedKalman(GaussianInference):
                          UnscentedTransform(obs.dim_in, kappa, alpha, beta, device=dyn.device))
 
 
+class CubatureKalman(GaussianInference):
+    """Cubature Kalman filter (spherical-radial rule)."""
+
+    def __init__(self, dyn, obs):
+        super().__init__(dyn, obs, SphericalRadialTransform(dyn.dim_in, device=dyn.device),
+                         SphericalRadialTransform(obs.dim_in, device=dyn.device))
+
+
+class GaussHermiteKalman(GaussianInference):
+    """Gauss-Hermite Kalman filter, ``deg`` points a dimension."""
+
+    def __init__(self, dyn, obs, deg: int = 3):
+        super().__init__(dyn, obs, GaussHermiteTransform(dyn.dim_in, deg, device=dyn.device),
+                         GaussHermiteTransform(obs.dim_in, deg, device=dyn.device))
+
+
 class GaussianProcessKalman(GaussianInference):
     """Gaussian-process quadrature Kalman filter (GPQKF)."""
 
@@ -390,6 +408,22 @@ class GaussianProcessKalman(GaussianInference):
                                      points, point_hyp, device=dyn.device),
             GaussianProcessTransform(obs.dim_in, obs.dim_out, kern_par_obs, kernel,
                                      points, point_hyp, device=dyn.device))
+
+
+class BayesSardKalman(GaussianInference):
+    """Bayes-Sard quadrature Kalman filter (BSQKF): RBF kernel with a
+    polynomial prior mean of multi-index ``mulind_dyn`` / ``mulind_obs`` (or
+    an int total degree).  On the 1-D UNGM models ``engine="dd"`` runs its
+    rules in the fused scalar filter kernel."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, mulind_dyn=2, mulind_obs=2,
+                 points: str = "ut", point_hyp=None):
+        super().__init__(
+            dyn, obs,
+            BayesSardTransform(dyn.dim_in, dyn.dim_state, kern_par_dyn, mulind_dyn, points,
+                               point_hyp, device=dyn.device),
+            BayesSardTransform(obs.dim_in, obs.dim_out, kern_par_obs, mulind_obs, points,
+                               point_hyp, device=dyn.device))
 
 
 class StudentProcessKalman(GaussianInference):

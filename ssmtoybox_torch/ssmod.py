@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .utils.arrays import f64
+from .utils.ode import ode_euler
 
 __all__ = [
     "TransitionModel", "MeasurementModel",
@@ -63,6 +64,11 @@ class TransitionModel:
     def dyn_fcn(self, x, q, time):  # pragma: no cover - interface
         raise NotImplementedError
 
+    def dyn_fcn_cont(self, x, q, time):
+        """The continuous-time dynamics ``dx/dt = f(x, q, t)``; models without
+        one raise."""
+        raise NotImplementedError(f"{type(self).__name__} has no continuous-time dynamics")
+
     def dyn_eval(self, x, time):
         """The dynamics at zero noise, the function a filter transforms."""
         return self.dyn_fcn(x, x.new_zeros(x.shape[:-1] + (self.dim_noise,)), time)
@@ -75,6 +81,27 @@ class TransitionModel:
         xs = [x]
         for k in range(steps - 1):
             x = self.dyn_fcn(x, q[:, k].T, k)
+            xs.append(x)
+        return torch.stack(xs).permute(2, 0, 1)
+
+    def simulate_continuous(self, gen: torch.Generator, duration: float, dt: float = 0.1,
+                            mc_sims: int = 1):
+        """Euler-Maruyama trajectories of the continuous-time dynamics,
+        (dim_state, steps, mc_sims) with ``steps = floor(duration / dt)``;
+        the initial condition is dropped, as in the reference.  The noise is
+        scaled by ``sqrt(dt) / dt`` so that ``V[dt q_k] = dt Q``."""
+        steps = int(np.floor(duration / dt))
+        x0 = self.init_rv.sample(gen, (mc_sims,)).T                # (M, D)
+        q = (math.sqrt(dt) / dt) * self.noise_rv.sample(gen, (steps + 1, mc_sims))
+        return self.euler_maruyama(x0, q[:, :steps], dt)
+
+    def euler_maruyama(self, x0: torch.Tensor, q: torch.Tensor, dt: float) -> torch.Tensor:
+        """The integration of :meth:`simulate_continuous` from initial states
+        ``x0`` (M, D) with scaled noise ``q`` (Dq, steps, M): step ``k`` is
+        ``x + dt f(x, q_k, k)``.  Returns (dim_state, steps, M)."""
+        x, xs = x0, []
+        for k in range(q.shape[1]):
+            x = ode_euler(self.dyn_fcn_cont, x, q[:, k].T, k, dt)
             xs.append(x)
         return torch.stack(xs).permute(2, 0, 1)
 
@@ -104,7 +131,7 @@ class ReentryVehicle2DTransition(TransitionModel):
         super().__init__(init_rv, noise_rv, noise_gain)
         self.dt, self.R0, self.H0, self.Gm0, self.b0 = dt, R0, H0, Gm0, b0
 
-    def dyn_fcn(self, x, q, time):
+    def _drag_gravity(self, x):
         x0, x1, x2, x3, x4 = x.unbind(-1)
         R = torch.sqrt(x0 ** 2 + x1 ** 2)
         V = torch.sqrt(x2 ** 2 + x3 ** 2)
@@ -112,6 +139,17 @@ class ReentryVehicle2DTransition(TransitionModel):
         # the JAX package writes it
         D = self.b0 * torch.exp(x4 + (self.R0 - R) / self.H0) * V
         G = -self.Gm0 / R ** 3
+        return D, G
+
+    def dyn_fcn_cont(self, x, q, time):
+        x0, x1, x2, x3, _ = x.unbind(-1)
+        D, G = self._drag_gravity(x)
+        return torch.stack([x2, x3, D * x2 + G * x0 + q[..., 0], D * x3 + G * x1 + q[..., 1],
+                            q[..., 2]], dim=-1)
+
+    def dyn_fcn(self, x, q, time):
+        x0, x1, x2, x3, x4 = x.unbind(-1)
+        D, G = self._drag_gravity(x)
         dt = self.dt
         return torch.stack([
             x0 + dt * x2,

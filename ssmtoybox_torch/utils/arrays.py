@@ -1,15 +1,53 @@
-"""Conversion of array-likes to the port's float64 tensors."""
+"""The port's device default and the conversion of array-likes to its
+float64 tensors.
+
+Every constructor of the port takes ``device=None``, which names
+:func:`default_device`: the CUDA card, unless :func:`set_device` has named
+another device.  Without a card and without ``set_device("cpu")`` it raises
+instead of running on the CPU unnoticed.
+"""
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-__all__ = ["f64"]
+__all__ = ["f64", "default_device", "resolve_device", "set_device"]
+
+#: the device ``set_device`` named; None means the CUDA card
+_device: torch.device | None = None
+
+
+def set_device(dev) -> None:
+    """Make ``dev`` (``"cpu"``, ``"cuda:1"``, a ``torch.device``) the device
+    that ``device=None`` names from now on; ``None`` restores the default,
+    the CUDA card."""
+    global _device
+    _device = None if dev is None else torch.device(dev)
+
+
+def default_device() -> torch.device:
+    """The device named by ``device=None``: the one :func:`set_device` named,
+    else the CUDA card; ``RuntimeError`` if there is no card and none was
+    named."""
+    if _device is not None:
+        return _device
+    if not torch.cuda.is_available():
+        raise RuntimeError("ssmtoybox_torch runs on the CUDA card by default and "
+                           "torch.cuda.is_available() is false; call "
+                           "ssmtoybox_torch.set_device('cpu') to run on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``, :func:`default_device` for None."""
+    return default_device() if device is None else torch.device(device)
 
 
 def f64(a, device=None) -> torch.Tensor:
     """``a`` as a float64 tensor on ``device``; a tensor stays on its own
-    device when ``device`` is None, anything else is copied from NumPy."""
+    device when ``device`` is None, anything else is copied from NumPy to
+    :func:`resolve_device` of ``device``."""
     if isinstance(a, torch.Tensor):
         return a.to(dtype=torch.float64, device=device)
-    return torch.tensor(np.asarray(a, dtype=np.float64), dtype=torch.float64, device=device)
+    return torch.tensor(np.ascontiguousarray(a, dtype=np.float64), dtype=torch.float64,
+                        device=resolve_device(device))

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["maha", "symmetrize", "chol_small", "safe_cholesky", "pd_solve",
-           "pd_solve_small", "tri_solve_small", "pd_logdet", "small_mm3"]
+           "pd_solve_small", "tri_solve_small", "pd_logdet", "small_mm3", "gen_solve"]
 
 
 def maha(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor | None = None) -> torch.Tensor:
@@ -85,3 +85,11 @@ def pd_logdet(A: torch.Tensor) -> torch.Tensor:
 def small_mm3(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ w @ b``."""
     return a @ w @ b
+
+
+def gen_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """Solve ``A X = B`` for a general (non-symmetric) square ``A``, ``B``
+    (..., D) or (..., D, K), with ``torch.linalg.solve`` (LU with partial
+    pivoting).  The JAX package writes this solve as a Gauss-Jordan loop only
+    because the TPU has no float64 LU; the card has one."""
+    return torch.linalg.solve(A, B)

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 
 from . import rand
-from .arrays import f64
+from .arrays import f64, resolve_device
 
 __all__ = ["GaussRV", "StudentRV", "GaussianMixtureRV"]
 
@@ -25,6 +25,7 @@ class GaussRV:
     """Gaussian random variable holding float64 ``mean`` (D,) and ``cov`` (D, D)."""
 
     def __init__(self, dim: int, mean=None, cov=None, device=None):
+        device = resolve_device(device)
         kw = dict(dtype=torch.float64, device=device)
         self.mean = (torch.zeros(dim, **kw) if mean is None
                      else torch.atleast_1d(f64(mean, device)))
@@ -55,6 +56,7 @@ class StudentRV:
     covariance, which the filters consume as it is (reference parity)."""
 
     def __init__(self, dim: int, mean=None, scale=None, dof: float = 3.0, device=None):
+        device = resolve_device(device)
         kw = dict(dtype=torch.float64, device=device)
         self.mean = (torch.zeros(dim, **kw) if mean is None
                      else torch.atleast_1d(f64(mean, device)))

@@ -15,6 +15,17 @@ from ssmtoybox_tpu.bq.models import GaussianProcessModel as JGPModel
 from ssmtoybox_tpu.bq.transforms import GaussianProcessTransform as JGPTransform
 from ssmtoybox_torch import convert
 from ssmtoybox_torch.bq import GaussianProcessModel, GaussianProcessTransform, RBFGauss
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 PARITY = 1e-8
 JAX_TOL = 1e-10

@@ -162,3 +162,112 @@ def test_rbf_student_dispatch_on_the_card(card, use_kernel, launched):
     torch.testing.assert_close(Q.cpu(), ref.exp_x_kxkx(ref.par, ref.par, x_cpu), rtol=2e-2,
                                atol=2e-3)
     torch.testing.assert_close(kxy.cpu(), ref.exp_xy_kxy(ref.par), rtol=2e-2, atol=2e-3)
+
+
+# ---------------------------------------------------------------------------
+# the device default, rules of up to 8 points, and the Vandermonde kernel
+# (ops/vandermonde.py, csrc/vandermonde.cu): bit-equal to its plain version
+# ---------------------------------------------------------------------------
+
+def test_the_card_is_the_default_device(card):
+    """Built with no ``device`` argument anywhere, a UKF lives and filters on
+    the card."""
+    stt.set_device(None)
+    dyn = UNGMTransition(GaussRV(1, cov=5.0), GaussRV(1, cov=10.0))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0), dim_state=1)
+    ukf = stt.UnscentedKalman(dyn, obs)
+    assert ukf.tf_dyn.wm.device.type == "cuda" and dyn.noise_gain.device.type == "cuda"
+    res = ukf.forward_pass_batch(np.zeros((3, 1, 5)), engine="dd")
+    assert res.fi_mean.device.type == "cuda" and res.fi_cov.device.type == "cuda"
+
+
+WIDE_RULES = {
+    "gh5": lambda d, o: stt.GaussHermiteKalman(d, o, deg=5),
+    "gh7": lambda d, o: stt.GaussHermiteKalman(d, o, deg=7),
+    "bsq_gh7": lambda d, o: stt.BayesSardKalman(
+        d, o, np.array([[3.0, 0.4]]), np.array([[3.0, 0.4]]),
+        mulind_dyn=np.atleast_2d(np.arange(7)), mulind_obs=np.atleast_2d(np.arange(7)),
+        points="gh", point_hyp={"degree": 7}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WIDE_RULES))
+def test_kernel_matches_twin_at_5_and_7_points(card, name):
+    """The scalar filter kernel with 5- and 7-point rules equals its twin on
+    the card to the bit, for one step and for 20."""
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=card), GaussRV(1, cov=10.0, device=card))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)
+    alg = WIDE_RULES[name](dyn, obs)
+    params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    rng = np.random.default_rng(5)
+    y = torch.as_tensor(rng.normal(2.0, 4.0, size=(20, 4096)), device=card)
+    c = torch.as_tensor(sf.ungm_consts(20), device=card)
+    for n_steps in (1, 20):
+        yy, cc = y[:n_steps].contiguous(), c[:n_steps].contiguous()
+        before = sf.LAUNCHES
+        got = sf.scalar_filter(params, yy, cc)
+        assert sf.LAUNCHES == before + 1
+        for s, a, b in zip(STREAMS, got, sf._scalar_filter_plain(params, yy, cc)):
+            assert torch.equal(a, b), s
+
+
+MUL_UT5 = np.hstack((np.zeros((5, 1), int), np.eye(5, dtype=int), 2 * np.eye(5, dtype=int)))
+# (D, N, multi-index): the weight shapes of the BSQ studies, the verifiers'
+# sample batch, a ragged total-degree basis and high exponents
+VDM_SHAPES = {
+    "ut1": (1, 3, np.array([[0, 1, 2]])),
+    "gh7": (1, 7, np.atleast_2d(np.arange(7))),
+    "ut5": (5, 11, MUL_UT5),
+    "verifier": (5, 100_000, MUL_UT5),
+    "td3_4": (3, 1001, None),
+    "high": (2, 300, np.array([[9, 0, 3, 1], [2, 5, 0, 1]])),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VDM_SHAPES))
+def test_vandermonde_kernel_matches_plain(card, name):
+    from ssmtoybox_torch.ops import vandermonde as vdm
+    from ssmtoybox_torch.utils.combin import total_degree_multi_index
+    d, n, mul = VDM_SHAPES[name]
+    mul = total_degree_multi_index(3, 4) if mul is None else mul
+    x = torch.as_tensor(np.random.default_rng(n).normal(0.0, 1.7, size=(d, n)), device=card)
+    before = vdm.LAUNCHES
+    got = vdm.vandermonde(mul, x)
+    assert vdm.LAUNCHES == before + 1
+    want = vdm.vandermonde_plain(vdm._multi_index(mul, d), x)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and tuple(got.shape) == (n, mul.shape[1])
+    assert torch.equal(got, want)
+
+
+def test_vandermonde_kernel_refuses_what_it_does_not_take(card):
+    from ssmtoybox_torch.ops import vandermonde as vdm
+    before = vdm.LAUNCHES
+    x = torch.zeros((2, 8), dtype=torch.float64, device=card)
+    with pytest.raises(ValueError, match="negative"):
+        vdm.vandermonde([[1, -1], [0, 1]], x)
+    with pytest.raises(ValueError, match="contiguous"):
+        vdm.vandermonde([[1, 2], [0, 1]], torch.zeros((8, 2), dtype=torch.float64,
+                                                      device=card).T)
+    with pytest.raises(ValueError, match="float64"):
+        vdm.vandermonde([[1], [0]], x.float())
+    with pytest.raises(ValueError, match="D <= 32"):
+        vdm.vandermonde(np.ones((33, 1), int), torch.zeros((33, 2), dtype=torch.float64,
+                                                          device=card))
+    assert vdm.LAUNCHES == before
+
+
+def test_bsq_weights_on_the_card_launch_the_kernel(card):
+    """A BSQ transform built on the card launches the Vandermonde kernel and
+    gives the CPU's weights (1e-12 relative; only the Cholesky and LU
+    libraries differ)."""
+    from ssmtoybox_torch.bq import BayesSardTransform
+    from ssmtoybox_torch.ops import vandermonde as vdm
+    par = np.array([[1.0, 1, 1, 1, 1, 1]])
+    before = vdm.LAUNCHES
+    tf = BayesSardTransform(5, 5, par, MUL_UT5, "ut", device=card)
+    assert vdm.LAUNCHES >= before + 1
+    ref = BayesSardTransform(5, 5, par, MUL_UT5, "ut", device="cpu")
+    for key in ("wm", "Wc", "Wcc", "model_var"):
+        a, b = getattr(tf, key).cpu(), getattr(ref, key)
+        assert float((a - b).abs().max()) <= 1e-12 * max(float(b.abs().max()), 1e-300), key

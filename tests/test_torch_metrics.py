@@ -9,6 +9,17 @@ import jax.numpy as jnp
 
 from ssmtoybox_tpu.utils import metrics as JM
 from ssmtoybox_torch.utils import metrics as M
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 PARITY = 1e-8
 JAX_TOL = 1e-12

@@ -15,6 +15,17 @@ import jax.numpy as jnp
 from ssmtoybox_tpu import mtran as jmtran
 from ssmtoybox_tpu import points as jpts
 from ssmtoybox_torch import mtran, points as pts
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 PARITY = 1e-8
 JAX_TOL = 1e-12

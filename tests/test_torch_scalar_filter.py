@@ -35,6 +35,17 @@ from ssmtoybox_torch.ops import scalar_filter as sf
 from ssmtoybox_torch.ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition,
                                    UNGMMeasurement, UNGMTransition)
 from ssmtoybox_torch.utils import GaussRV
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 KERN_PAR = np.array([[1.0, 3.0]])
 STREAMS = ("m_fi", "P_fi", "m_pr", "P_pr", "xx")
@@ -155,8 +166,10 @@ def test_supports():
         alg = ALGS[name][0](dyn, obs)
         assert sf.supports(dyn, obs, alg.tf_dyn, alg.tf_obs)
     ukf = stt.UnscentedKalman(dyn, obs)
-    gh5 = GaussHermiteTransform(1, degree=5)
-    assert not sf.supports(dyn, obs, gh5, gh5)                        # 5 points > 3
+    gh7 = GaussHermiteTransform(1, degree=7)
+    assert sf.supports(dyn, obs, gh7, gh7)                            # 7 points <= 8
+    gh9 = GaussHermiteTransform(1, degree=9)
+    assert not sf.supports(dyn, obs, gh9, ukf.tf_obs)                 # 9 points > 8
     dense = SigmaPointTransform(ukf.tf_dyn.unit_sp, ukf.tf_dyn.wm, Wc_dense=ukf.tf_dyn.Wc)
     assert not sf.supports(dyn, obs, dense, ukf.tf_obs)               # dense classical
     re = ReentryVehicle2DTransition(GaussRV(5), GaussRV(3))
@@ -200,3 +213,82 @@ def test_no_module_of_the_port_imports_jax():
             offenders += [f"{path}: {n}" for n in names if n.split(".")[0] in banned]
     assert len(files) > 10
     assert not offenders, offenders
+
+
+# ---------------------------------------------------------------------------
+# rules of up to 8 points: Gauss-Hermite and the BSQ and GPQ rules on GH points
+# ---------------------------------------------------------------------------
+
+GH5_PAR, GH7_PAR = np.array([[5.0, 0.6]]), np.array([[3.0, 0.4]])
+WIDE = {
+    "gh7": lambda d, o: stt.GaussHermiteKalman(d, o, deg=7),
+    "gpq_gh7": lambda d, o: stt.GaussianProcessKalman(d, o, GH7_PAR, GH7_PAR, points="gh",
+                                                      point_hyp={"degree": 7}),
+    "bsq_gh5": lambda d, o: stt.BayesSardKalman(d, o, GH5_PAR, GH5_PAR,
+                                                mulind_dyn=np.atleast_2d(np.arange(5)),
+                                                mulind_obs=np.atleast_2d(np.arange(5)),
+                                                points="gh", point_hyp={"degree": 5}),
+    "bsq_gh7": lambda d, o: stt.BayesSardKalman(d, o, GH7_PAR, GH7_PAR,
+                                                mulind_dyn=np.atleast_2d(np.arange(7)),
+                                                mulind_obs=np.atleast_2d(np.arange(7)),
+                                                points="gh", point_hyp={"degree": 7}),
+}
+
+
+def _golden_models():
+    """The UNGM system of ``tests/goldens/ungm.npz`` (initial variance 1)."""
+    return (UNGMTransition(GaussRV(1, cov=1.0), GaussRV(1, cov=10.0)),
+            UNGMMeasurement(GaussRV(1, cov=1.0), dim_state=1))
+
+
+def test_gh5_through_the_fused_engine_matches_golden(goldens):
+    """Gauss-Hermite, 5 points, through ``engine="dd"`` (the kernel's twin
+    on the CPU) on ``ungm.npz``'s ``ghkf5``, 1e-8.  Refused for its 5 points
+    while the kernel took at most 3."""
+    g = goldens["ungm"]
+    dyn, obs = _golden_models()
+    gh5 = GaussHermiteTransform(1, degree=5)
+    res = stt.gaussian_filter_batch(dyn, obs, gh5, gh5, np.moveaxis(g["y"], -1, 0), engine="dd")
+    np.testing.assert_allclose(res.fi_mean[0].numpy(), g["ghkf5_fm"], atol=1e-8, rtol=1e-8)
+    np.testing.assert_allclose(res.fi_cov[0].numpy(), g["ghkf5_fP"], atol=1e-8, rtol=1e-8)
+
+
+def test_bsqkf_through_the_fused_engine_matches_golden(goldens):
+    """The BSQ UT filter and its smoother through ``engine="dd"`` on
+    ``ungm.npz``'s ``bsqkf``, 1e-8."""
+    g = goldens["ungm"]
+    par, mi = np.array([[3.0, 0.3]]), np.array([[0, 1, 2]])
+    alg = stt.BayesSardKalman(*_golden_models(), par, par, mulind_dyn=mi, mulind_obs=mi)
+    res = alg.forward_pass_batch(np.moveaxis(g["y"], -1, 0), engine="dd")
+    sm, sP = stt.gaussian_smoother(res)
+    for got, key in ((res.fi_mean[0], "fm"), (res.fi_cov[0], "fP"), (sm[0], "sm"),
+                     (sP[0], "sP")):
+        np.testing.assert_allclose(got.numpy(), g[f"bsqkf_{key}"], atol=1e-8, rtol=1e-8,
+                                   err_msg=key)
+
+
+@pytest.mark.parametrize("name", sorted(WIDE))
+def test_wide_rules_fused_match_eager_f64(records, name):
+    """7- and 5-point rules through ``engine="dd"`` against the port's eager
+    float64 path, every moment stream over the first 20 steps, 1e-9."""
+    alg = WIDE[name](*_models())
+    assert sf.supports(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    ys = records["ys"][..., :20]
+    fused, eager = alg.forward_pass_batch(ys, engine="dd"), alg.forward_pass_batch(ys)
+    for f in FIELDS:
+        np.testing.assert_allclose(getattr(fused, f).numpy(), getattr(eager, f).numpy(),
+                                   atol=1e-9, rtol=1e-9, err_msg=f)
+
+
+@pytest.mark.parametrize("name", ["gh7", "bsq_gh7"])
+def test_step_header_on_host_matches_twin_at_7_points(name):
+    """The step header built with g++ == the twin for 7-point rules, 1e-12."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the step header cannot be built for the host")
+    alg = WIDE[name](*_models())
+    params = sf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    assert params.dyn.n == params.obs.n == 7
+    y, c = _streams(5, 30, 64)
+    for s, a, b in zip(STREAMS, sf._host_shim_run(params, y, c),
+                       sf._scalar_filter_plain(params, y, c)):
+        torch.testing.assert_close(a, b, atol=1e-12, rtol=1e-12, msg=s)

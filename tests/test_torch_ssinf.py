@@ -22,6 +22,17 @@ from ssmtoybox_tpu.utils import GaussRV as JGaussRV
 import ssmtoybox_torch as stt
 from ssmtoybox_torch import ssmod
 from ssmtoybox_torch.utils import GaussRV
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 PARITY = 1e-8
 JAX_TOL = 1e-9
@@ -211,10 +222,10 @@ def test_dd_engine_on_vector_state_names_the_roadmap_item(shared_batch):
 def test_dd_engine_rejects_an_unsupported_scalar_rule():
     dyn, obs = _ungm()
     from ssmtoybox_torch.mtran import GaussHermiteTransform
-    alg = stt.GaussianInference(dyn, obs, GaussHermiteTransform(1, degree=5),
-                                GaussHermiteTransform(1, degree=5))
+    alg = stt.GaussianInference(dyn, obs, GaussHermiteTransform(1, degree=9),
+                                GaussHermiteTransform(1, degree=9))
     ys = np.zeros((2, 1, 4))
-    with pytest.raises(ValueError, match="at most 3 points"):
+    with pytest.raises(ValueError, match="at most 8 points"):
         alg.forward_pass_batch(ys, engine="dd")
     auto = alg.forward_pass_batch(ys, engine="auto")
     torch.testing.assert_close(auto.fi_mean, alg.forward_pass_batch(ys).fi_mean)

@@ -17,6 +17,17 @@ from ssmtoybox_tpu import ssmod as jssmod
 from ssmtoybox_tpu.utils import GaussRV as JGaussRV
 from ssmtoybox_torch import convert, ssmod
 from ssmtoybox_torch.utils import GaussRV
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 REENTRY_MEAN = np.array([6500.4, 349.14, -1.8093, -6.7967, 0.6932])
 REENTRY_COV = np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0])

@@ -26,6 +26,17 @@ from ssmtoybox_torch.bq import (GaussianProcessModel, RBFStudent, StudentTProces
                                 StudentTProcessTransform)
 from ssmtoybox_torch.bq.kernels import get_kernel
 from ssmtoybox_torch.ops import student_mc as smc
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 JAX_TOL = 1e-10
 MC = dict(dof=4.0, num_samples=3000, num_batches=6, seed=3)

@@ -24,6 +24,17 @@ from ssmtoybox_torch import points as pts
 from ssmtoybox_torch.mtran import FullySymmetricStudentTransform
 from ssmtoybox_torch.ops import student_mc as smc
 from ssmtoybox_torch.utils import GaussianMixtureRV, StudentRV, rand
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 F32_REL = 1e-5
 GRAD_RTOL, GRAD_ATOL = 1e-4, 1e-5

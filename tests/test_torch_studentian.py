@@ -32,6 +32,17 @@ import ssmtoybox_torch as stt
 from ssmtoybox_torch import convert, ssmod
 from ssmtoybox_torch.utils import GaussianMixtureRV, GaussRV, StudentRV
 from ssmtoybox_torch.utils import metrics
+from ssmtoybox_torch import set_device
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
 
 PARITY = 1e-8
 JAX_TOL = 1e-9
