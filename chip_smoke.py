@@ -24,7 +24,10 @@ fails at once without them.  Phases, each fatal on failure:
    same samples, at the CV radar glint study's shapes (D = 4, the 9 points of
    the TPQSF dynamics rule, 2e6 samples): q, R, Q and E[k(x, y)] within 1e-5
    relative, the backward kernels' gradients against autograd through the
-   plain versions at rtol 1e-4 / atol 1e-5; their timings;
+   plain versions at rtol 1e-4 / atol 1e-5; the two pairwise kernels twice on
+   one input, equal to the bit; their timings, the host time of one
+   ``kxy_chunk_sums`` call part by part, and the SM clock before and after
+   the profiled launches;
 7. Student goldens on the card: FSQ on ``ungm_student.npz`` (1e-8) and the
    TP weights at 2e6 samples on ``tpq_cv_weights.npz`` (the tolerances and
    eigenvalue check of ``tests/test_parity.py``);
@@ -57,7 +60,10 @@ fails at once without them.  Phases, each fatal on failure:
     10 and 11 Vandermonde launches;
 14. timings: the Vandermonde kernel and its plain version at each shape, the
     BSQ transform builds, every UNGM lane (dd, eager f64, smoother), every
-    tracking lane, the scalar filter kernel at 3 and 7 points.
+    tracking lane, the scalar filter kernel at 3 and 7 points; for the
+    scalar filter and Vandermonde kernels also raw launches through the
+    libraries' C entry points between CUDA events, which do not depend on
+    what the profiler records.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -67,6 +73,7 @@ operations over the card's peak rate for their type.  The line before the last t
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import ctypes
 import json
 import os
 import subprocess
@@ -156,24 +163,74 @@ def bound(n_bytes, *ops):
 
 
 def device_ms(torch, fn, kernel, reps=10):
-    """Mean device time, in ms a call of ``fn``, of the device activities
-    whose name contains ``kernel``, from ``torch.profiler`` over ``reps``
-    calls after one warm-up; ``(ms, profile)``, ms None (and the names of
-    the device activities seen logged) if none matched."""
+    """Mean device time, in ms, of the device activities whose name contains
+    ``kernel``, from ``torch.profiler`` over ``reps`` calls of ``fn`` (one
+    launch each) after one warm-up, profiled again, up to three times, if no
+    such activity was recorded; ``(ms, profile)``, ms None (and the names of
+    the device activities seen logged) if none matched.  The profiler drops
+    records of short kernels (1 to 5 of 10 were kept where raw launches
+    between CUDA events gave the same time a record), so the mean is over
+    the records found, and a profile that lost some says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    total = sum(e.time_range.elapsed_us() for e in on_card if kernel in e.name)
-    if not total:
+    for _ in range(3):      # a profile now and then comes back without device records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        found = [e.time_range.elapsed_us() for e in on_card if kernel in e.name]
+        if found:
+            break
+    if not found:
         log(f"  (profile of {kernel}: device activities seen: "
             f"{sorted({e.name[:80] for e in on_card}) or 'none'})")
-    return (total / reps / 1e3 if total else None), prof
+    elif len(found) != reps:
+        log(f"  (profile of {kernel}: {len(found)} device records for {reps} launches)")
+    return (sum(found) / len(found) / 1e3 if found else None), prof
+
+
+def raw_ms(torch, launch, reps=20) -> float:
+    """Time of one kernel launch in ms: ``reps`` calls of ``launch``, which
+    goes straight to a library's C entry point (no wrapper, ~10 us of host
+    time a call) and returns its CUDA error code, between two CUDA events
+    after one warm-up.  It reads the device time where that is well above
+    the host's 10 us, whatever the profiler records."""
+    def checked():
+        rc = launch()
+        if rc != 0:
+            fail(f"a raw kernel launch returned cudaError {rc}")
+    checked()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        checked()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def clocks_line() -> str:
+    """The card's current and maximum SM clock, as nvidia-smi gives them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "not read"
+
+
+def host_us(torch, fn, reps=200) -> float:
+    """Host time of one call of ``fn`` in microseconds: ``reps`` calls on the
+    host clock between two synchronisations (the enqueue, not the kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / reps * 1e6
 
 
 def fmt_ms(ms) -> str:
@@ -288,15 +345,42 @@ def student_slice(torch, np, dev):
         "kxy_bwd": (lambda: smc.kxy_bwd_sums(inv_l, s_k, c_k),
                     lambda: smc._kxy_bwd_partials_plain(inv_l, s_k, c_k).double().sum(0)),
     }
+    for name in ("kxy", "kxy_bwd"):
+        a, b = timed[name][0](), timed[name][0]()
+        torch.cuda.synchronize()
+        if not (torch.equal(a, b) and bool(torch.isfinite(a).all())):
+            fail(f"{name}: two launches on the same input differ by "
+                 f"{float((a - b).abs().max()):.3e}; expected equal bits")
+    log(f"kxy and kxy_bwd: two launches on the same input give equal bits "
+        f"({tot_k // c_k} chunks of {c_k}, D={d})")
     ms = {}
     for name, (kern, plain) in timed.items():
         a, b = kern(), plain()
         ms[name] = cuda_ms(torch, kern)[0], cuda_ms(torch, plain)[0]
         log(f"{name}: kernel {ms[name][0]:.3f} ms, plain {ms[name][1]:.3f} ms "
             f"(wrapper sums, f64; kernel vs plain relative {rel_err(a, b):.2e})")
+    n_chunks = tot_k // c_k
+    out_k = torch.empty((n_chunks,), **f32)
+    lib = smc.build()
+    kxy_args = (inv_l.data_ptr(), s_k.data_ptr(), n_chunks, c_k, d, out_k.data_ptr())
+    parts = {
+        "_check": lambda: smc._check(inv_l, s_k, c_k, pairwise=True),
+        "build() (the bound library)": smc.build,
+        "torch.empty": lambda: torch.empty((n_chunks,), **f32),
+        "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "_run (stream, ctypes, cudaSetDevice, launch)": lambda: smc._run(
+            lib, "smc_kxy_launch", "kxy", dev, kxy_args),
+        "out.double()": out_k.double,
+        "the whole call": timed["kxy"][0],
+    }
+    log("host time of one kxy_chunk_sums call, part by part (host clock, 200 calls each, "
+        "no synchronisation inside): "
+        + ", ".join(f"{k_} {host_us(torch, fn):.1f} us" for k_, fn in parts.items()))
+    log(f"SM clock before the profiled launches (current, max): {clocks_line()}")
     for name, (kern, _) in timed.items():
         dev_ms, _ = device_ms(torch, kern, f"student_{name}_kernel")
         log(f"{name}: device time {fmt_ms(dev_ms)} a launch (torch.profiler, 10 launches)")
+    log(f"SM clock after the profiled launches (current, max): {clocks_line()}")
     del s_q, s_k
 
     # ---- 7. Student goldens on the card ----------------------------------
@@ -404,7 +488,7 @@ def student_slice(torch, np, dev):
         log(f"CV glint {name} ({MC}x{CV_STEPS}): RMSE {float(rmse_r[ok].mean()):.4f}, "
             f"INC {inc[name]:.4f}, NLL {float(nll_r[ok].mean()):.4f}, diverged {bad:.4%}, "
             f"smoother RMSE median {float(r_sm.median()):.4g} ({blown:.2%} of runs above 10x "
-            f"their filter RMSE), weights built in {build_s[name]:.2f} s")
+            f"their filter RMSE), weights built in {build_s[name] * 1e3:.1f} ms")
         if bad > 0.01:
             fail(f"{name}: {bad:.2%} of the trajectories are not finite (limit 1%)")
     for name in ("TPQSF", "GPQSF"):
@@ -759,6 +843,10 @@ def bsq_slice(torch, np, dev, xs, ys):
         del res
         log(f"tracking {name}: filter {ms:.1f} ms (second run; first {track_ms[name]:.1f} ms)")
     sf_ms = {}
+    lib_sf, lib_vdm = sf.build(), vdm.build()
+    out_sf = torch.empty((5,) + tuple(y_tm.shape), **f64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    log(f"SM clock before the scalar filter's profiled launches (current, max): {clocks_line()}")
     for name, alg in (("UT (3 points)", algs["UT"]), ("GH-7 (7 points)", algs["GH-7"]),
                       ("BSQ-GH7 (7 points)", algs["BSQ-GH7"])):
         params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
@@ -767,12 +855,24 @@ def bsq_slice(torch, np, dev, xs, ys):
         sf_ms[name] = (k[0], b_ms, b_by)
         dev_ms, _ = device_ms(torch, lambda: sf.scalar_filter(params, y_tm, c),
                               "scalar_filter_kernel")
+        p_c = sf._c_params(params)
+        raw = raw_ms(torch, lambda: lib_sf.sf_launch(
+            ctypes.byref(p_c), y_tm.data_ptr(), c.data_ptr(), y_tm.shape[1], y_tm.shape[0],
+            dev.index or 0, *(o.data_ptr() for o in out_sf), stream))
         log(f"scalar_filter {name} {MC}x{UNGM_STEPS}: kernel {k[0]:.3f} ms (min {k[1]:.3f}), "
-            f"device {fmt_ms(dev_ms)}, bound {b_ms:.4f} ms ({b_by})")
+            f"device {fmt_ms(dev_ms)}, raw launches {raw:.4f} ms a launch (CUDA events around "
+            f"20), bound {b_ms:.4f} ms ({b_by})")
+    log(f"SM clock after the scalar filter's profiled launches (current, max): {clocks_line()}")
     for tag, (mul, x) in vdm_in.items():
         dev_ms, prof = device_ms(torch, lambda: vdm.vandermonde(mul, x), "vandermonde_kernel")
         vdm_ms[tag] += (dev_ms,)
-        log(f"vandermonde {tag}: device {fmt_ms(dev_ms)} a launch")
+        e = torch.as_tensor(vdm._multi_index(mul, x.shape[0]), dtype=torch.int32).to(dev)
+        out_v = torch.empty((x.shape[1], e.shape[1]), **f64)
+        raw = raw_ms(torch, lambda: lib_vdm.vdm_launch(
+            x.data_ptr(), e.data_ptr(), x.shape[0], x.shape[1], e.shape[1], dev.index or 0,
+            out_v.data_ptr(), stream))
+        log(f"vandermonde {tag}: device {fmt_ms(dev_ms)} a launch, raw launches {raw:.4f} ms "
+            f"a launch (CUDA events around 20; the host needs ~0.01 ms to make one)")
         if tag == "D5_N11":
             log("host side of the Vandermonde wrapper at D5_N11 (torch.profiler, 10 calls):\n"
                 + prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=8))

@@ -1,9 +1,10 @@
 // Host build of the RBF-Student Monte-Carlo math (student_mc_rows.cuh), for
 // testing the kernels' per-element arithmetic on a machine without a GPU.
-// Each function walks the chunks, tiles and rows in the kernels' order, one
-// after another, and writes the same per-block partials in the same layouts
-// (the pairwise kernels sum a tile's rows as a tree; here they are summed in
-// order).
+// Each function walks the chunks and tiles in the kernels' order, one after
+// another, and writes the same per-block partials in the same layouts.  The
+// pairwise functions run the kernels' threads one after another through the
+// header's tile walk and add their sums in the kernels' order (a shuffle tree
+// inside each warp, then the warps in turn).
 #include <vector>
 
 #include "student_mc_rows.cuh"
@@ -74,29 +75,56 @@ extern "C" void smc_host_qrq_bwd(const float* inv_l, const float* xs, const floa
   }
 }
 
-// out: (num_chunks, tiles) for the forward, (num_chunks, tiles, D) with bwd != 0.
+namespace {
+
+template <int D, bool BWD>
+void host_kxy(const float* inv_l, const float* xs, int num_chunks, int chunk, float* out) {
+  constexpr int NA = BWD ? D : 1;
+  constexpr int kWarps = SMC_KXY_THREADS / 32;
+  float scale[D];
+  for (int d = 0; d < D; ++d) scale[d] = inv_l[d] * SMC_KXY_SCALE;
+  std::vector<float> s(smc_kxy_padded(chunk) * 4 * SMC_KXY_PLANES(D));
+  std::vector<float> part(SMC_KXY_THREADS * NA);
+  for (int c = 0; c < num_chunks; ++c) {
+    smc_kxy_stage<D>(xs + static_cast<long>(c) * chunk * D, scale, chunk, s.data(), 0, 1);
+    for (int tid = 0; tid < SMC_KXY_THREADS; ++tid)
+      smc_kxy_thread<D, BWD>(s.data(), chunk, tid, part.data() + tid * NA);
+    for (int a = 0; a < NA; ++a) {
+      float half = 0.f;
+      for (int w = 0; w < kWarps; ++w) {
+        float lane[32];
+        for (int l = 0; l < 32; ++l) lane[l] = part[(w * 32 + l) * NA + a];
+        for (int off = 16; off > 0; off >>= 1)
+          for (int l = 0; l < off; ++l) lane[l] += lane[l + off];
+        half += lane[0];
+      }
+      out[static_cast<long>(c) * NA + a] = smc_kxy_finish<BWD>(half, chunk, scale[a]);
+    }
+  }
+}
+
+template <int D>
+void host_kxy_d(const float* inv_l, const float* xs, int num_chunks, int chunk, int bwd,
+                float* out) {
+  if (bwd)
+    host_kxy<D, true>(inv_l, xs, num_chunks, chunk, out);
+  else
+    host_kxy<D, false>(inv_l, xs, num_chunks, chunk, out);
+}
+
+}  // namespace
+
+// out: (num_chunks,) for the forward, (num_chunks, D) with bwd != 0.
 extern "C" void smc_host_kxy(const float* inv_l, const float* xs, int num_chunks, int chunk,
                              int D, int bwd, float* out) {
-  const int tiles = (chunk + SMC_ROWS - 1) / SMC_ROWS;
-  std::vector<float> s(chunk * D), s2(chunk);
-  float kx[SMC_MAX_D];
-  for (int c = 0; c < num_chunks; ++c) {
-    const float* xc = xs + static_cast<long>(c) * chunk * D;
-    for (int r = 0; r < chunk; ++r) s2[r] = smc_scale(xc + r * D, inv_l, D, s.data() + r * D);
-    for (int tile = 0; tile < tiles; ++tile) {
-      float* oc = out + (static_cast<long>(c) * tiles + tile) * (bwd ? D : 1);
-      for (int d = 0; d < (bwd ? D : 1); ++d) oc[d] = 0.f;
-      for (int r = tile * SMC_ROWS; r < chunk && r < (tile + 1) * SMC_ROWS; ++r) {
-        const float rs = smc_kxy_row(r, chunk, D, s.data(), s2.data(), xc, bwd ? kx : nullptr);
-        if (!bwd) {
-          oc[0] += rs;
-          continue;
-        }
-        for (int d = 0; d < D; ++d) {
-          const float x = xc[r * D + d];
-          oc[d] += x * x * rs - x * kx[d];
-        }
-      }
-    }
+  switch (D) {
+    case 1: return host_kxy_d<1>(inv_l, xs, num_chunks, chunk, bwd, out);
+    case 2: return host_kxy_d<2>(inv_l, xs, num_chunks, chunk, bwd, out);
+    case 3: return host_kxy_d<3>(inv_l, xs, num_chunks, chunk, bwd, out);
+    case 4: return host_kxy_d<4>(inv_l, xs, num_chunks, chunk, bwd, out);
+    case 5: return host_kxy_d<5>(inv_l, xs, num_chunks, chunk, bwd, out);
+    case 6: return host_kxy_d<6>(inv_l, xs, num_chunks, chunk, bwd, out);
+    case 7: return host_kxy_d<7>(inv_l, xs, num_chunks, chunk, bwd, out);
+    case 8: return host_kxy_d<8>(inv_l, xs, num_chunks, chunk, bwd, out);
   }
 }

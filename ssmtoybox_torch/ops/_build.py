@@ -44,7 +44,11 @@ def find_nvcc() -> str:
 def load(name: str, sources: list[str], cmd: list[str]) -> ctypes.CDLL:
     """Compile ``sources`` (file names in ``csrc``) with ``cmd`` once and load
     the library; raises ``RuntimeError`` with the compiler's output on failure.
-    Different libraries build concurrently when called from several threads."""
+    Different libraries build concurrently when called from several threads;
+    a library already loaded is returned without taking a lock."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
     with _lock:
         lock = _locks.setdefault(name, threading.Lock())
     with lock:

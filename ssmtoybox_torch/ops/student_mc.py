@@ -51,8 +51,6 @@ QRQ_CHUNK = 4096
 KXY_CHUNK = 1024
 #: largest chunk of the pairwise kernels (SMC_KXY_MAX_CHUNK)
 KXY_MAX_CHUNK = 1024
-#: rows of a pairwise block (SMC_ROWS)
-_ROWS = 128
 
 #: elements of the largest intermediate a plain version makes at once
 _PLAIN_ELEMS = 1 << 25
@@ -134,9 +132,21 @@ def _kxy_bwd_partials_plain(inv_l, xs, chunk):
 # the kernels
 # ---------------------------------------------------------------------------
 
+_LIB = None
+
+
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/student_mc.cu`` for sm_90a with nvcc (once) and bind it."""
-    lib = _build.load("student_mc", ["student_mc.cu"], [_build.find_nvcc()] + _NVCC_FLAGS)
+    """Compile ``csrc/student_mc.cu`` for sm_90a with nvcc (once) and bind it;
+    later calls return the bound library."""
+    global _LIB
+    if _LIB is None:
+        _LIB = _bind(_build.load("student_mc", ["student_mc.cu"],
+                                 [_build.find_nvcc()] + _NVCC_FLAGS))
+    return _LIB
+
+
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launchers' argument types on a built library."""
     p, i = ctypes.c_void_p, ctypes.c_int
     for name, args in (("smc_qrq_launch", [p] * 3 + [i] * 5 + [p] * 2),
                        ("smc_qrq_bwd_launch", [p] * 6 + [i] * 5 + [p] * 2),
@@ -240,28 +250,31 @@ def qrq_bwd_sums(inv_l, xs, xp, gq, gR, gQ2, chunk: int) -> torch.Tensor:
 
 def kxy_chunk_sums(inv_l, xs, chunk: int) -> torch.Tensor:
     """float64 (num_chunks,): the sum of every chunk's sample-sample Gram,
-    diagonal included."""
+    diagonal included.  The kernel sums the pairs ``r < c`` of a chunk in one
+    block, doubles them and adds the diagonal as the exact ``chunk``."""
     _check(inv_l, xs, chunk, pairwise=True)
     if xs.device.type == "cpu":
         return _kxy_partials_plain(inv_l, xs, chunk).double()
     C, D = xs.shape[0] // chunk, xs.shape[1]
-    out = torch.empty((C, -(-chunk // _ROWS)), dtype=torch.float32, device=xs.device)
+    out = torch.empty((C,), dtype=torch.float32, device=xs.device)
     _run(build(), "smc_kxy_launch", "kxy", xs.device,
          (inv_l.data_ptr(), xs.data_ptr(), C, chunk, D, out.data_ptr()))
-    return out.double().sum(1)
+    return out.double()
 
 
 def kxy_bwd_sums(inv_l, xs, chunk: int) -> torch.Tensor:
-    """float64 (D,): ``sum_s x_sd^2 rowsum_s - x_d^T k x_d`` summed over the
-    chunks, half the TPU kernel's ``t_d``."""
+    """float64 (D,): ``sum_{r<c} k_rc (x_rd - x_cd)^2`` over the pairs of
+    every chunk, half the TPU kernel's ``t_d``.  The kernel sums the pairs
+    themselves; the plain version takes the expanded form
+    ``sum_s x_sd^2 rowsum_s - x_d^T k x_d``."""
     _check(inv_l, xs, chunk, pairwise=True)
     if xs.device.type == "cpu":
         return _kxy_bwd_partials_plain(inv_l, xs, chunk).double().sum(0)
     C, D = xs.shape[0] // chunk, xs.shape[1]
-    out = torch.empty((C, -(-chunk // _ROWS), D), dtype=torch.float32, device=xs.device)
+    out = torch.empty((C, D), dtype=torch.float32, device=xs.device)
     _run(build(), "smc_kxy_bwd_launch", "kxy_bwd", xs.device,
          (inv_l.data_ptr(), xs.data_ptr(), C, chunk, D, out.data_ptr()))
-    return out.double().sum((0, 1))
+    return out.double().sum(0)
 
 
 # ---------------------------------------------------------------------------

@@ -112,7 +112,11 @@ def test_student_qrq_kernels_match_plain(card, d, n, chunk):
     assert smc.LAUNCHES["qrq_bwd"] == before["qrq_bwd"] + 1
 
 
-@pytest.mark.parametrize("d,chunk", [(4, 1024), (3, 300), (8, 1024), (1, 8)])
+# (D, chunk): the study's shape, ragged and tiny chunks, one and two planes
+KXY_SHAPES = [(4, 1024), (3, 300), (8, 1024), (1, 8), (2, 2), (5, 1000), (8, 64)]
+
+
+@pytest.mark.parametrize("d,chunk", KXY_SHAPES)
 def test_student_kxy_kernels_match_plain(card, d, chunk):
     from ssmtoybox_torch.ops import student_mc as smc
     samples, _, par = _student_case(card, d, 1, 5 * chunk, seed=40 + d)
@@ -124,6 +128,19 @@ def test_student_kxy_kernels_match_plain(card, d, chunk):
     torch.testing.assert_close(g, g_ref, rtol=1e-4, atol=1e-5)
     assert smc.LAUNCHES["kxy"] == before["kxy"] + 1
     assert smc.LAUNCHES["kxy_bwd"] == before["kxy_bwd"] + 1
+
+
+@pytest.mark.parametrize("d,chunk", [(4, 1024), (5, 1000), (8, 64)])
+def test_student_kxy_kernels_repeat_to_the_bit(card, d, chunk):
+    """No atomics and a fixed order of summation: two launches on the same
+    input give the same bits, per chunk."""
+    from ssmtoybox_torch.ops import student_mc as smc
+    samples, _, par = _student_case(card, d, 1, 7 * chunk, seed=60 + d)
+    _, inv_l, _ = smc._kernel_args(par)
+    for fn in (smc.kxy_chunk_sums, smc.kxy_bwd_sums):
+        a, b = fn(inv_l, samples, chunk), fn(inv_l, samples, chunk)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all()), fn.__name__
 
 
 def test_student_kernels_refuse_shapes_beyond_their_limits(card):

@@ -8,6 +8,7 @@ values hold at 1e-5 relative and gradients at rtol 1e-4 / atol 1e-5 (the
 tolerances of ``tests/test_pallas_ops.py``); point sets are exact formulas
 (1e-12); sampler checks are Kolmogorov-Smirnov tests at p > 1e-3.
 """
+import re
 import shutil
 
 import numpy as np
@@ -185,7 +186,7 @@ def test_header_on_host_matches_plain_versions():
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the header cannot be built for the host")
     lib = smc._host_shim()
-    d, n, chunk, chunks = 3, 7, 300, 3          # a ragged last tile of 64 and of 128 rows
+    d, n, chunk, chunks = 3, 7, 300, 3          # a ragged last tile of 64 samples
     samples, x, par = _fused_case(d, n, chunk, chunks, seed=21)
     xs = torch.as_tensor(samples)
     inv_l = (1.0 / torch.as_tensor(par[0, 1:]).float()).contiguous()
@@ -202,20 +203,69 @@ def test_header_on_host_matches_plain_versions():
     lib.smc_host_qrq_bwd(inv_l.data_ptr(), xs.data_ptr(), xp.data_ptr(), gq.data_ptr(),
                          gR.data_ptr(), gQ2.data_ptr(), chunks, chunk, n, d, out.data_ptr())
     assert _rel(out, smc._qrq_bwd_partials_plain(inv_l, xs, xp, gq, gR, gQ2, chunk)) < F32_REL
-    tiles = -(-chunk // 128)
-    out = torch.empty((chunks, tiles))
-    lib.smc_host_kxy(inv_l.data_ptr(), xs.data_ptr(), chunks, chunk, d, 0, out.data_ptr())
-    assert _rel(out.sum(1), smc._kxy_partials_plain(inv_l, xs, chunk)) < F32_REL
-    out = torch.empty((chunks, tiles, d))
-    lib.smc_host_kxy(inv_l.data_ptr(), xs.data_ptr(), chunks, chunk, d, 1, out.data_ptr())
-    assert _rel(out.sum(1), smc._kxy_bwd_partials_plain(inv_l, xs, chunk)) < F32_REL
+    fwd, bwd = _host_kxy(lib, inv_l, xs, chunk)
+    assert _rel(fwd, smc._kxy_partials_plain(inv_l, xs, chunk)) < F32_REL
+    assert _rel(bwd, smc._kxy_bwd_partials_plain(inv_l, xs, chunk)) < F32_REL
+
+
+def _host_kxy(lib, inv_l, xs, chunk):
+    """Per-chunk results of the pairwise kernels' tile walk on the host:
+    the Gram sums (chunks,) and the gradient partials (chunks, D)."""
+    chunks, d = xs.shape[0] // chunk, xs.shape[1]
+    fwd, bwd = torch.empty((chunks,)), torch.empty((chunks, d))
+    lib.smc_host_kxy(inv_l.data_ptr(), xs.data_ptr(), chunks, chunk, d, 0, fwd.data_ptr())
+    lib.smc_host_kxy(inv_l.data_ptr(), xs.data_ptr(), chunks, chunk, d, 1, bwd.data_ptr())
+    return fwd, bwd
+
+
+def _pairwise_case(d, chunk, chunks=3):
+    samples, _, par = _fused_case(d, 1, chunk, chunks, seed=50 + 10 * d + chunk % 7)
+    return torch.as_tensor(samples), (1.0 / torch.as_tensor(par[0, 1:]).float()).contiguous()
+
+
+# chunks of a whole number of 64-sample tiles (1024), with a ragged last tile
+# (300), below one tile (8) and of one pair (2); one and two planes of four
+# components, full (4, 8) and partly filled (1, 3)
+@pytest.mark.parametrize("chunk", [2, 8, 300, 1024])
+@pytest.mark.parametrize("d", [1, 3, 4, 8])
+def test_header_pairwise_walk_matches_plain(d, chunk):
+    """The pairwise kernels' walk over the symmetric half of a chunk's Gram
+    (masks on the diagonal and the ragged end, the diagonal added as the
+    exact chunk size, the gradient from the pairs' differences) against the
+    plain versions, which evaluate the whole Gram in the expanded form."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the header cannot be built for the host")
+    xs, inv_l = _pairwise_case(d, chunk)
+    fwd, bwd = _host_kxy(smc._host_shim(), inv_l, xs, chunk)
+    assert _rel(fwd, smc._kxy_partials_plain(inv_l, xs, chunk)) < F32_REL
+    assert _rel(bwd, smc._kxy_bwd_partials_plain(inv_l, xs, chunk)) < F32_REL
+
+
+@pytest.mark.parametrize("d,chunk", [(4, 300), (8, 1024)])
+def test_header_pairwise_walk_matches_float64(d, chunk):
+    """The same walk against the definition evaluated in float64: the Gram
+    sum with its diagonal, and sum_{r<c} k_rc (x_rd - x_cd)^2."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the header cannot be built for the host")
+    xs, inv_l = _pairwise_case(d, chunk)
+    fwd, bwd = _host_kxy(smc._host_shim(), inv_l, xs, chunk)
+    x3 = xs.double().reshape(-1, chunk, d)
+    diff = x3[:, :, None, :] - x3[:, None, :, :]                     # (chunks, C, C, D)
+    k = torch.exp(-0.5 * torch.sum((diff * inv_l.double()) ** 2, -1))
+    assert _rel(fwd.double(), k.sum((1, 2))) < F32_REL
+    assert _rel(bwd.double(), 0.5 * torch.einsum("nrc,nrcd->nd", k, diff ** 2)) < F32_REL
 
 
 def test_header_limits_match_the_module():
     src = open(smc._build.CSRC + "/student_mc_rows.cuh").read()
     for macro, value in (("SMC_MAX_D", smc.MAX_D), ("SMC_MAX_N", smc.MAX_N),
-                         ("SMC_KXY_MAX_CHUNK", smc.KXY_MAX_CHUNK), ("SMC_ROWS", smc._ROWS)):
+                         ("SMC_KXY_MAX_CHUNK", smc.KXY_MAX_CHUNK)):
         assert f"#define {macro} {value} " in src, macro
+    # the pairwise block: a square grid of threads, a square micro-tile each,
+    # and a largest chunk of whole tiles (so a padded chunk never exceeds it)
+    m = {k: int(v) for k, v in re.findall(r"#define SMC_KXY_(\w+) (\d+) ", src)}
+    assert m["THREADS"] == m["GRID"] ** 2 and m["TILE"] == m["GRID"] * m["MICRO"]
+    assert m["MAX_CHUNK"] % m["TILE"] == 0 and m["THREADS"] % 32 == 0
 
 
 # ---------------------------------------------------------------------------
