@@ -5,68 +5,250 @@
 // launch in double-double f32 pairs.  Here the card has native f64, so the
 // step (scalar_filter_step.cuh) is plain f64 arithmetic.
 //
-// Design: one thread per trajectory.  The state (m, P) stays in registers and
-// the thread loops over all N steps, so the record costs one launch instead of
-// the ~30 small launches per step of an eager PyTorch filter.  Measurements
-// come time-major, y[k * B + b], so at step k neighbouring threads read
-// neighbouring addresses (the counterpart of the TPU kernel's (T, N, S, LANE)
-// retile); the five output streams are written time-major the same way.
+// What bounds it on this card: not bytes (240 MB at 10,000 x 500, 0.07 ms) and
+// not the f64 rate, but the dependency chain of one trajectory.  A step is
+// sqrt -> points -> divide -> moments -> sqrt -> points -> moments -> divide,
+// every link waiting for the one before, 500 times over, and the f64 square
+// root and divide are software sequences of some twenty dependent
+// instructions each.  10,000 trajectories, one a thread, are 313 warps on 528
+// warp schedulers: every warp alone on its scheduler, the launch as long as
+// one thread's chain.
+//
+// Design: a shorter chain a trajectory, and more warps to fill its gaps.
+// - The rule's shape is a template argument (kinds of both rules, N slots):
+//   every point loop is N straight-line iterations with no predicate, and a
+//   classical rule carries no BQ branch.  The launcher picks the smallest of
+//   the instantiated slot counts (3, 5, 7, 8) that holds both rules; the
+//   wrapper pads a shorter rule with zero weights, which add nothing, so
+//   every shape of 1..8 points and either kind runs, bit-equal to the twin.
+// - A trajectory takes G lanes of one warp (SF_LANES).  A lane evaluates the
+//   model functions at its own slots (its own f64 divide) and, for a BQ rule,
+//   its own rows of Wc f; two 32-bit shuffles a double gather the values.
+//   All sums then run in every lane in the twin's sequential order, so the
+//   lanes agree to the bit and nothing depends on G.  No lane leaves early
+//   (the shuffles need the whole warp): a lane past the last trajectory works
+//   on a copy of the last one and stores nothing.
+// - A lane keeps its slots' points and rows of Wc in registers for the whole
+//   record, read once from the parameters (constant bank); y and c of step
+//   k + 1 are loaded before the arithmetic of step k.
+// - Measurements are read through two strides, so a caller's trajectory-major
+//   (B, N) batch needs no transposed copy; the five output streams are
+//   time-major, out[k * B + b], so neighbouring trajectories store to
+//   neighbouring addresses.
 //
 // It is built with --fmad=false (ops/scalar_filter.py): every operation rounds
 // on its own, as in the plain PyTorch twin, so kernel and twin agree to the
 // last bit instead of drifting apart under the chaotic UNGM map.
 //
-// What bounds it on this card: each thread runs a latency-bound sequential
-// chain of f64 operations, with an f64 divide and two f64 square roots per
-// step.  10,000 trajectories make only ~79 blocks of 128 threads for 132 SMs,
-// so most of the card's f64 units idle.  Making the kernel fast (more
-// independent work per SM, overlapping the chains) is left for later work.
+// Build settings, for tools/sf_variants.py (the shipped build sets none):
+//   SF_LANES=1|2|4|8    lanes a trajectory at every slot count
+//   SF_THREADS=32|64|128|256   threads a block
+//   SF_SPREAD_STORES=1  lanes 0..3 (0..4 of 8) store one stream each
+//   SF_RUNTIME_SHAPE=1  the step with run-time shapes, one thread a trajectory
 #include <cuda_runtime.h>
 
 #include "scalar_filter_step.cuh"
+#ifdef SF_RUNTIME_SHAPE
+#include "scalar_filter_step_rt.cuh"
+#endif
+
+// 64 threads a block: 10,000 trajectories of 2 lanes are 313 blocks, 2 or 3 an
+// SM; blocks of 256 leave some SMs with twice the warps of others (+20%).
+#ifndef SF_THREADS
+#define SF_THREADS 64
+#endif
+#ifndef SF_SPREAD_STORES
+#define SF_SPREAD_STORES 0
+#endif
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = SF_THREADS;
+static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps a block");
 
+// Lanes a trajectory.  Measured at 10,000 x 500 on an H100 (tools/sf_variants.py):
+// two lanes are the fastest split of every classical rule and of a 5-point BQ
+// rule; the rows of a 7- or 8-point BQ rule pay for four, and a 3-point BQ
+// rule is fastest in one thread (its two gathers a rule cost more than three
+// divides side by side save).  Eight lanes lose everywhere: every lane
+// repeats the sums, and four times the warps then queue for the f64 pipe.
+constexpr int lanes_of(int kind_dyn, int kind_obs, int n_slots) {
+#ifdef SF_LANES
+  return SF_LANES;
+#else
+  if ((kind_dyn | kind_obs) == 0) return 2;
+  return n_slots >= 7 ? 4 : n_slots <= 3 ? 1 : 2;
+#endif
+}
+
+struct Streams {
+  double *m_fi, *P_fi, *m_pr, *P_pr, *xx;
+};
+
+template <int KD, int KO, int N, int G>
 __global__ void __launch_bounds__(kThreads)
-scalar_filter_kernel(const SfParams p, const double* __restrict__ y,
-                     const double* __restrict__ c, int B, int N,
-                     double* __restrict__ m_fi, double* __restrict__ P_fi,
-                     double* __restrict__ m_pr, double* __restrict__ P_pr,
-                     double* __restrict__ xx) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
+scalar_filter_kernel(const __grid_constant__ SfParams p, const double* __restrict__ y,
+                     long long y_step, long long y_traj, const double* __restrict__ c,
+                     int B, int n_steps, const Streams out) {
+  static_assert(G == 1 || G == 2 || G == 4 || G == 8, "lanes divide a warp");
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  const int lane = static_cast<int>(threadIdx.x) % G;
+  const long long traj = t / G;
+  const bool live = traj < B;
+  const int b = live ? static_cast<int>(traj) : B - 1;
+
+  SfStepper<KD, KO, N, G> filter;
+  filter.load(p, lane);
+  const double* yb = y + b * y_traj;
+#if SF_SPREAD_STORES
+  // lane j < 4 stores stream j; the fifth goes to lane 4 of 8, or to lane 0
+  double* const mine = (lane == 0 ? out.m_fi : lane == 1 ? out.P_fi : lane == 2 ? out.m_pr
+                        : lane == 3 ? out.P_pr : out.xx) + b;
+  const bool stores = live && lane < (G >= 8 ? 5 : G);
+#endif
+
   double m = p.m0, P = p.P0;
-  for (int k = 0; k < N; ++k) {
-    const size_t o = static_cast<size_t>(k) * B + b;
-    const SfStep s = sf_step(p, m, P, y[o], __ldg(c + k));
-    m_pr[o] = s.m_pr;
-    P_pr[o] = s.P_pr;
-    xx[o] = s.xx;
-    m_fi[o] = s.m_fi;
-    P_fi[o] = s.P_fi;
+  double y_next = yb[0], c_next = __ldg(c);
+  for (int k = 0; k < n_steps; ++k) {
+    const double y_k = y_next, c_k = c_next;
+    if (k + 1 < n_steps) {
+      y_next = yb[(k + 1) * y_step];
+      c_next = __ldg(c + k + 1);
+    }
+    const SfStep s = filter.step(p, m, P, y_k, c_k);
+    const size_t row = static_cast<size_t>(k) * B;
+#if SF_SPREAD_STORES
+    if (G >= 4) {
+      const double v = lane == 0 ? s.m_fi : lane == 1 ? s.P_fi : lane == 2 ? s.m_pr
+                       : lane == 3 ? s.P_pr : s.xx;
+      if (stores) mine[row] = v;
+      if (G == 4 && live && lane == 0) out.xx[row + b] = s.xx;
+    } else
+#endif
+    if (live && lane == 0) {
+      out.m_pr[row + b] = s.m_pr;
+      out.P_pr[row + b] = s.P_pr;
+      out.xx[row + b] = s.xx;
+      out.m_fi[row + b] = s.m_fi;
+      out.P_fi[row + b] = s.P_fi;
+    }
     m = s.m_fi;
     P = s.P_fi;
   }
 }
 
+#ifdef SF_RUNTIME_SHAPE
+__global__ void __launch_bounds__(kThreads)
+scalar_filter_rt_kernel(const __grid_constant__ SfParams p, const double* __restrict__ y,
+                        long long y_step, long long y_traj, const double* __restrict__ c,
+                        int B, int n_steps, const Streams out) {
+  const int b = blockIdx.x * kThreads + threadIdx.x;
+  if (b >= B) return;
+  double m = p.m0, P = p.P0;
+  for (int k = 0; k < n_steps; ++k) {
+    const size_t o = static_cast<size_t>(k) * B + b;
+    const SfStep s = sf_step_rt(p, m, P, y[k * y_step + b * y_traj], __ldg(c + k));
+    out.m_pr[o] = s.m_pr;
+    out.P_pr[o] = s.P_pr;
+    out.xx[o] = s.xx;
+    out.m_fi[o] = s.m_fi;
+    out.P_fi[o] = s.P_fi;
+    m = s.m_fi;
+    P = s.P_fi;
+  }
+}
+#endif
+
+// Dependent-issue latencies, for the chain floor of a step: one warp runs
+// `iters` rounds of 16 dependent operations of each type (so that the loop's
+// own branch does not count) and reads the SM's clock around them.
+// out[0..4]: clocks an add, a multiply, a divide, a square root (with the add
+// that feeds it back) and a double moved by two shuffles.
+#define SF_TIME_CHAIN(SLOT, INIT, OP)                                  \
+  {                                                                    \
+    double x = INIT;                                                   \
+    const long long t0 = clock64();                                    \
+    _Pragma("unroll 1") for (int i = 0; i < iters; ++i) {              \
+      _Pragma("unroll") for (int u = 0; u < 16; ++u) x = OP;           \
+    }                                                                  \
+    const long long t1 = clock64();                                    \
+    keep += x;                                                         \
+    if (threadIdx.x == 0) out[SLOT] = static_cast<double>(t1 - t0) / (16.0 * iters); \
+  }
+
+__global__ void sf_latency_kernel(double a, int iters, double* __restrict__ out) {
+  double keep = 0.0;
+  SF_TIME_CHAIN(0, a, x + a)
+  SF_TIME_CHAIN(1, 1.0, x * a)
+  SF_TIME_CHAIN(2, a, a / x)
+  SF_TIME_CHAIN(3, a, sqrt(x) + a)
+  SF_TIME_CHAIN(4, a + threadIdx.x, sf_from_lane<8>(x, (threadIdx.x + 1) & 7))
+  if (threadIdx.x == 0) out[5] = keep;
+}
+
+template <int KD, int KO, int N>
+void launch(const SfParams& p, const double* y, long long y_step, long long y_traj,
+            const double* c, int B, int n_steps, const Streams& out, cudaStream_t stream) {
+#ifdef SF_RUNTIME_SHAPE
+  scalar_filter_rt_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
+      p, y, y_step, y_traj, c, B, n_steps, out);
+#else
+  constexpr int G = lanes_of(KD, KO, N);
+  const long long threads = static_cast<long long>(B) * G;
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  scalar_filter_kernel<KD, KO, N, G><<<blocks, kThreads, 0, stream>>>(
+      p, y, y_step, y_traj, c, B, n_steps, out);
+#endif
+}
+
 }  // namespace
 
-// Launch on `stream` of card `device` without synchronising.  y is (N, B)
-// time-major, c is (N,), the five outputs are (N, B).  Returns the CUDA error
-// of selecting the device or, after the launch, cudaGetLastError().
-extern "C" int sf_launch(const SfParams* params, const double* y, const double* c,
-                         int B, int N, int device, double* m_fi, double* P_fi,
-                         double* m_pr, double* P_pr, double* xx, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
+// Launch on `stream` of card `device` without synchronising.  Measurement k
+// of trajectory b is y[k * y_step + b * y_traj], c is (n_steps,), the five
+// outputs are (n_steps, B) row-major.  params->dyn and params->obs hold zeros
+// past their n points.  Returns the CUDA error of selecting the device or,
+// after the launch, cudaGetLastError(); cudaErrorInvalidValue for a shape
+// that no instantiation takes.
+extern "C" int sf_launch(const SfParams* params, const double* y, long long y_step,
+                         long long y_traj, const double* c, int B, int n_steps, int device,
+                         double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
+                         void* stream) {
+  if (B <= 0 || n_steps <= 0) return 0;
+  const SfRule &d = params->dyn, &o = params->obs;
+  if (d.n < 1 || d.n > SF_MAX_PTS || o.n < 1 || o.n > SF_MAX_PTS || (d.kind | o.kind) >> 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' card explicitly
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
-  const int blocks = (B + kThreads - 1) / kThreads;
-  scalar_filter_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      *params, y, c, B, N, m_fi, P_fi, m_pr, P_pr, xx);
+  const Streams out = {m_fi, P_fi, m_pr, P_pr, xx};
+  const int slots = sf_slots(d.n, o.n);
+#define SF_LAUNCH_IF(KD, KO, N)                                                          \
+  if (d.kind == KD && o.kind == KO && slots == N)                                        \
+    launch<KD, KO, N>(*params, y, y_step, y_traj, c, B, n_steps, out,                    \
+                      static_cast<cudaStream_t>(stream));
+  SF_SHAPES(SF_LAUNCH_IF)
+#undef SF_LAUNCH_IF
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Lanes a trajectory and threads a block of this build for rules of kinds
+// kind_dyn, kind_obs at `slots` slots (1 lane for the run-time-shape build).
+extern "C" void sf_geometry(int kind_dyn, int kind_obs, int slots, int* lanes, int* threads) {
+#ifdef SF_RUNTIME_SHAPE
+  *lanes = 1;
+#else
+  *lanes = lanes_of(kind_dyn, kind_obs, slots);
+#endif
+  *threads = kThreads;
+}
+
+// Clocks of a dependent add, multiply, divide, square root (and add) and
+// two-shuffle move of a double into out[0..4] (device memory, 6 doubles).
+extern "C" int sf_latency(int device, int iters, double* out, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  sf_latency_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(1.0000001, iters, out);
   return static_cast<int>(cudaGetLastError());
 }
 

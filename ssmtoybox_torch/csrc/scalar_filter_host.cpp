@@ -1,16 +1,23 @@
 // Host build of the scalar filter step (scalar_filter_step.cuh), for testing
-// the kernel's per-thread arithmetic on a machine without a GPU.  Runs the same
-// loop as the CUDA kernel, one trajectory after another; same layouts.
+// the kernel's arithmetic on a machine without a GPU.  It picks the template
+// instantiation as the CUDA launcher does (kinds of both rules, the smallest
+// slot count that holds them) and runs it with one lane a trajectory, one
+// trajectory after another; same layouts and the same order of every sum.
 #include "scalar_filter_step.cuh"
 
-extern "C" void sf_host_run(const SfParams* params, const double* y, const double* c,
-                            int B, int N, double* m_fi, double* P_fi, double* m_pr,
-                            double* P_pr, double* xx) {
+namespace {
+
+template <int KD, int KO, int N>
+void run(const SfParams& p, const double* y, long long y_step, long long y_traj,
+         const double* c, int B, int n_steps, double* m_fi, double* P_fi, double* m_pr,
+         double* P_pr, double* xx) {
+  SfStepper<KD, KO, N, 1> filter;
+  filter.load(p, 0);
   for (int b = 0; b < B; ++b) {
-    double m = params->m0, P = params->P0;
-    for (int k = 0; k < N; ++k) {
-      const long o = static_cast<long>(k) * B + b;
-      const SfStep s = sf_step(*params, m, P, y[o], c[k]);
+    double m = p.m0, P = p.P0;
+    for (int k = 0; k < n_steps; ++k) {
+      const long long o = static_cast<long long>(k) * B + b;
+      const SfStep s = filter.step(p, m, P, y[k * y_step + b * y_traj], c[k]);
       m_pr[o] = s.m_pr;
       P_pr[o] = s.P_pr;
       xx[o] = s.xx;
@@ -20,4 +27,24 @@ extern "C" void sf_host_run(const SfParams* params, const double* y, const doubl
       P = s.P_fi;
     }
   }
+}
+
+}  // namespace
+
+// Returns the slot count of the instantiation that ran, 0 if none takes the
+// shape.
+extern "C" int sf_host_run(const SfParams* params, const double* y, long long y_step,
+                           long long y_traj, const double* c, int B, int n_steps,
+                           double* m_fi, double* P_fi, double* m_pr, double* P_pr,
+                           double* xx) {
+  const SfRule &d = params->dyn, &o = params->obs;
+  if (d.n < 1 || d.n > SF_MAX_PTS || o.n < 1 || o.n > SF_MAX_PTS || (d.kind | o.kind) >> 1)
+    return 0;
+  const int slots = sf_slots(d.n, o.n);
+#define SF_RUN_IF(KD, KO, N)                                                             \
+  if (d.kind == KD && o.kind == KO && slots == N)                                        \
+    run<KD, KO, N>(*params, y, y_step, y_traj, c, B, n_steps, m_fi, P_fi, m_pr, P_pr, xx);
+  SF_SHAPES(SF_RUN_IF)
+#undef SF_RUN_IF
+  return slots;
 }

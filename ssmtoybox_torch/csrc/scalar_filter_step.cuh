@@ -1,9 +1,11 @@
 // One step of the scalar sigma-point filter for the univariate nonlinear
-// growth model (UNGM), in native float64.
+// growth model (UNGM), in native float64, with the rule's shape known at
+// compile time and the work of one trajectory spread over G lanes.
 //
 // Shared by the CUDA kernel (scalar_filter.cu) and a host shim
-// (scalar_filter_host.cpp) that g++ builds so the CPU tests can hold this
-// exact code against the PyTorch twin in ssmtoybox_torch/ops/scalar_filter.py.
+// (scalar_filter_host.cpp) that g++ builds with G = 1, so the CPU tests can
+// hold this exact code against the PyTorch twin in
+// ssmtoybox_torch/ops/scalar_filter.py.
 //
 // Step (the JAX package's ops/ddfilter.py::_prepare, in f64 instead of
 // double-double):
@@ -14,6 +16,19 @@
 //   update        K = C / S, m_fi = m_pr + K (y - y_pr), P_fi = P_pr - K^2 S
 // with f(x; c) = 0.5 x + 25 x / (1 + x^2) + c, c_k = 8 cos(1.2 (k - 1)),
 // and h(x) = 0.05 x^2.
+//
+// Shape.  SfStepper<KD, KO, N, G>: KD / KO the kind of the dynamics and the
+// measurement rule, N the slots of both rules (a rule of fewer points is
+// padded with zero weights, which add nothing), G the lanes of a trajectory.
+// Every loop over points has N straight-line iterations.
+//
+// Lanes.  Slot s belongs to lane s % G as its (s / G)-th.  A lane evaluates
+// the model functions (the f64 divide of the dynamics) at its own slots and,
+// for a BQ rule, its own rows of Wc f; the values are then gathered, so that
+// every lane holds all N.  Every sum runs in every lane, over the gathered
+// values, in the order of the twin: sequentially from point 0.  The lanes of a
+// trajectory so hold the same state to the bit, kernel and twin agree to the
+// bit whatever G is, and only the long sequences (divides, rows) are split.
 #pragma once
 
 #include <math.h>
@@ -33,8 +48,8 @@
 
 // A 1-D quadrature rule.  kind 0: classical, centered moments with diagonal
 // covariance weights wc.  kind 1: Bayesian quadrature, uncentered moments
-// with the dense weights Wc (row-major n x n), cross weights wcc and the
-// expected model variance emv.
+// with the dense weights Wc (row-major, rows SF_MAX_PTS apart), cross weights
+// wcc and the expected model variance emv.  Entries past n are zero.
 struct SfRule {
   int kind;
   int n;
@@ -59,73 +74,144 @@ struct SfStep {
   double m_pr, P_pr, xx, m_fi, P_fi;
 };
 
+// The slot counts that are instantiated, for each pair of kinds: the rules of
+// the studies (3, 5, 7 points) and the widest (8).  A configuration runs at
+// the smallest count that holds both of its rules.
+#define SF_SHAPES_OF(F, KD, KO) F(KD, KO, 3) F(KD, KO, 5) F(KD, KO, 7) F(KD, KO, 8)
+#define SF_SHAPES(F) SF_SHAPES_OF(F, 0, 0) SF_SHAPES_OF(F, 0, 1) SF_SHAPES_OF(F, 1, 0) \
+                     SF_SHAPES_OF(F, 1, 1)
+
+inline int sf_slots(int n_dyn, int n_obs) {
+  const int n = n_dyn > n_obs ? n_dyn : n_obs;
+  return n <= 3 ? 3 : n <= 5 ? 5 : n <= 7 ? 7 : SF_MAX_PTS;
+}
+
 SF_HD double sf_ungm_dyn(double x, double c) {
   return 0.5 * x + 25.0 * (x / (1.0 + x * x)) + c;
 }
 
 SF_HD double sf_ungm_obs(double x) { return 0.05 * (x * x); }
 
-// Moments of the n function values fs at points m + L xi_i under rule R:
-// mean mu, variance var and cross-covariance cross with the input.
-SF_HD void sf_moments(const SfRule& R, double L, const double* fs,
-                      double* mu, double* var, double* cross) {
-  double m = 0.0;
-  SF_UNROLL
-  for (int i = 0; i < SF_MAX_PTS; ++i)
-    if (i < R.n) m += R.wm[i] * fs[i];
-  double v = 0.0, c = 0.0;
-  if (R.kind == 0) {
+// v of lane src of the G lanes this thread's trajectory has (G consecutive
+// lanes of a warp, every lane of the warp calling).
+template <int G>
+SF_HD double sf_from_lane(double v, int src) {
+  if constexpr (G == 1) {
+    return v;
+  } else {
+#ifdef __CUDA_ARCH__
+    const int lo = __shfl_sync(0xffffffffu, __double2loint(v), src, G);
+    const int hi = __shfl_sync(0xffffffffu, __double2hiint(v), src, G);
+    return __hiloint2double(hi, lo);
+#else
+    return v;  // the host build has one lane
+#endif
+  }
+}
+
+// What one lane keeps of a rule for the whole record: the unit points of its
+// own slots and, for a BQ rule, its own rows of Wc.
+template <int KIND, int N, int G>
+struct SfLaneRule {
+  static constexpr int PPL = (N + G - 1) / G;  // slots a lane
+  double xi[PPL];
+  double row[KIND == 1 ? PPL : 1][KIND == 1 ? N : 1];
+
+  SF_HD void load(const SfRule& R, int lane) {
     SF_UNROLL
-    for (int i = 0; i < SF_MAX_PTS; ++i) {
-      if (i < R.n) {
+    for (int k = 0; k < PPL; ++k) {
+      const int s = k * G + lane;
+      xi[k] = s < N ? R.xi[s] : 0.0;
+      if constexpr (KIND == 1) {
+        SF_UNROLL
+        for (int j = 0; j < N; ++j) row[k][j] = s < N ? R.Wc[s * SF_MAX_PTS + j] : 0.0;
+      }
+    }
+  }
+
+  // all[s] for every slot s from the lanes' own values
+  SF_HD void gather(const double (&own)[PPL], double (&all)[N]) const {
+    SF_UNROLL
+    for (int s = 0; s < N; ++s) all[s] = sf_from_lane<G>(own[s / G], s % G);
+  }
+
+  // Moments of the function values at the points m + L xi_s under rule R,
+  // from this lane's values f: mean mu, variance var and cross-covariance
+  // cross with the input.
+  SF_HD void moments(const SfRule& R, double L, const double (&f)[PPL], double* mu,
+                     double* var, double* cross) const {
+    double fs[N];
+    gather(f, fs);
+    double m = 0.0;
+    SF_UNROLL
+    for (int i = 0; i < N; ++i) m += R.wm[i] * fs[i];
+    double v = 0.0, c = 0.0;
+    if constexpr (KIND == 0) {
+      SF_UNROLL
+      for (int i = 0; i < N; ++i) {
         const double d = fs[i] - m;
         v += R.wc[i] * (d * d);
         c += R.wc[i] * ((L * R.xi[i]) * d);
       }
-    }
-  } else {
-    double q = 0.0, s = 0.0;
-    SF_UNROLL
-    for (int i = 0; i < SF_MAX_PTS; ++i) {
-      if (i < R.n) {
-        double row = 0.0;
+    } else {
+      double q_own[PPL], qs[N];
+      SF_UNROLL
+      for (int k = 0; k < PPL; ++k) {
+        double r = 0.0;
         SF_UNROLL
-        for (int j = 0; j < SF_MAX_PTS; ++j)
-          if (j < R.n) row += R.Wc[i * SF_MAX_PTS + j] * fs[j];
-        q += fs[i] * row;
+        for (int j = 0; j < N; ++j) r += row[k][j] * fs[j];
+        q_own[k] = f[k] * r;
+      }
+      gather(q_own, qs);
+      double q = 0.0, s = 0.0;
+      SF_UNROLL
+      for (int i = 0; i < N; ++i) {
+        q += qs[i];
         s += R.wcc[i] * fs[i];
       }
+      v = q - m * m + R.emv;
+      c = s * L;
     }
-    v = q - m * m + R.emv;
-    c = s * L;
+    *mu = m;
+    *var = v;
+    *cross = c;
   }
-  *mu = m;
-  *var = v;
-  *cross = c;
-}
+};
 
-// One filter step from the filtered state (m, P) of the previous step, with
-// measurement y and the dynamics constant c of this step.
-SF_HD SfStep sf_step(const SfParams& p, double m, double P, double y, double c) {
-  SfStep s;
-  double fs[SF_MAX_PTS] = {};
-  const double L = sqrt(P);
-  SF_UNROLL
-  for (int i = 0; i < SF_MAX_PTS; ++i)
-    if (i < p.dyn.n) fs[i] = sf_ungm_dyn(m + L * p.dyn.xi[i], c);
-  double Pf;
-  sf_moments(p.dyn, L, fs, &s.m_pr, &Pf, &s.xx);
-  s.P_pr = Pf + p.gqg;
+// One lane's view of a filter: load() once, then step() for every
+// measurement.  Every lane of a trajectory returns the same SfStep.
+template <int KD, int KO, int N, int G>
+struct SfStepper {
+  SfLaneRule<KD, N, G> dyn;
+  SfLaneRule<KO, N, G> obs;
+  static constexpr int PPL = SfLaneRule<KD, N, G>::PPL;
 
-  const double L2 = sqrt(s.P_pr);
-  SF_UNROLL
-  for (int i = 0; i < SF_MAX_PTS; ++i)
-    if (i < p.obs.n) fs[i] = sf_ungm_obs(s.m_pr + L2 * p.obs.xi[i]);
-  double y_pr, S0, C;
-  sf_moments(p.obs, L2, fs, &y_pr, &S0, &C);
-  const double S = S0 + p.r;
-  const double K = C / S;
-  s.m_fi = s.m_pr + K * (y - y_pr);
-  s.P_fi = s.P_pr - (K * K) * S;
-  return s;
-}
+  SF_HD void load(const SfParams& p, int lane) {
+    dyn.load(p.dyn, lane);
+    obs.load(p.obs, lane);
+  }
+
+  // One filter step from the filtered state (m, P) of the previous step, with
+  // measurement y and the dynamics constant c of this step.
+  SF_HD SfStep step(const SfParams& p, double m, double P, double y, double c) const {
+    SfStep s;
+    double f[PPL];
+    const double L = sqrt(P);
+    SF_UNROLL
+    for (int k = 0; k < PPL; ++k) f[k] = sf_ungm_dyn(m + L * dyn.xi[k], c);
+    double Pf;
+    dyn.moments(p.dyn, L, f, &s.m_pr, &Pf, &s.xx);
+    s.P_pr = Pf + p.gqg;
+
+    const double L2 = sqrt(s.P_pr);
+    SF_UNROLL
+    for (int k = 0; k < PPL; ++k) f[k] = sf_ungm_obs(s.m_pr + L2 * obs.xi[k]);
+    double y_pr, S0, C;
+    obs.moments(p.obs, L2, f, &y_pr, &S0, &C);
+    const double S = S0 + p.r;
+    const double K = C / S;
+    s.m_fi = s.m_pr + K * (y - y_pr);
+    s.P_fi = s.P_pr - (K * K) * S;
+    return s;
+  }
+};

@@ -6,6 +6,10 @@ sources, every header of ``csrc`` and the compiler command, so an edited
 source never loads a stale build.  Compiling goes to a process-unique
 temporary file that is renamed into place, so concurrent processes never load
 a half-written library.
+
+:func:`bound` is what a launch wrapper calls: a library is found, built,
+loaded and given its argument types once a process, and every later call is
+one dictionary look-up.
 """
 from __future__ import annotations
 
@@ -23,6 +27,14 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kerne
 _lock = threading.Lock()
 _locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[str, ctypes.CDLL] = {}
+
+#: what every CUDA source of the package is compiled with
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+#: what the host builds of the kernels' headers (tests only) are compiled with:
+#: no multiply-add contraction, as in the plain PyTorch versions
+HOST_CMD = ["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 
 #: compiler output of each library built by this process, by name
 BUILD_LOGS: dict[str, str] = {}
@@ -72,3 +84,20 @@ def load(name: str, sources: list[str], cmd: list[str]) -> ctypes.CDLL:
             os.replace(tmp, lib_path)
         _loaded[name] = ctypes.CDLL(lib_path)
         return _loaded[name]
+
+
+def bound(name: str, sources: list[str], bind, flags=(), host: bool = False) -> ctypes.CDLL:
+    """The library ``name`` with its argument types declared by ``bind(lib)``.
+
+    The first call compiles ``sources`` (with nvcc, :data:`NVCC_FLAGS` and
+    ``flags``; with :data:`HOST_CMD` and ``flags`` if ``host``), loads the
+    library and binds it; every later call returns it from a dictionary,
+    without a lock, a search for the compiler or a second binding.
+    """
+    lib = _bound.get(name)
+    if lib is None:
+        cmd = HOST_CMD + list(flags) if host else [find_nvcc()] + NVCC_FLAGS + list(flags)
+        lib = load(name, sources, cmd)
+        bind(lib)
+        _bound[name] = lib
+    return lib

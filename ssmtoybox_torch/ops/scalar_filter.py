@@ -5,8 +5,12 @@ Counterpart of the JAX package's ``ops/ddfilter.py`` with its Pallas kernel
 to beat the per-step dispatch floor of ``lax.scan``; an eager PyTorch filter
 on the card has the same floor (about 70 small device operations a step), so the
 port runs the whole record of every trajectory inside one launch of a CUDA
-kernel (``csrc/scalar_filter.cu``), one thread per trajectory, in native
-float64 (the card needs no double-double arithmetic).
+kernel (``csrc/scalar_filter.cu``) in native float64 (the card needs no
+double-double arithmetic).  The kernel is bound by the dependency chain of one
+trajectory, so the rule's shape is a template argument (the kinds of both
+rules and 3, 5, 7 or 8 slots) and a trajectory is spread over a few lanes of
+a warp, one or two sigma points a lane; every sum still runs in the order of
+the twin, so kernel and twin agree to the bit.
 
 Supported: the UNGM transition and measurement models, additive noise, and
 for each of the two transforms either a classical 1-D sigma-point rule with
@@ -16,10 +20,19 @@ points.  :func:`supports` says whether a configuration qualifies.
 :func:`scalar_filter` is the launch wrapper.  For a CPU tensor it runs the
 plain PyTorch twin :func:`_scalar_filter_plain`; for a CUDA tensor it launches
 the kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
+
+Nothing is built, lowered or copied per call: the library is bound once a
+process, a transform's :class:`Rule` and a model's noise constants are kept
+on the object they were read from (and read again if its tensors were
+replaced), the parameter struct is cached by :class:`ScalarFilterParams` and
+the UNGM constants by length and device.  A transform's or a model's tensors
+are taken as fixed once built: change one through ``replace()`` or a new
+object, not in place.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -32,7 +45,8 @@ from . import _build
 
 __all__ = ["LAUNCHES", "MAX_PTS", "Rule", "ScalarFilterParams", "lower_transform",
            "supports", "prepare", "ungm_consts", "scalar_filter", "scalar_filter_moments",
-           "scalar_filter_batch", "build"]
+           "scalar_filter_batch", "build", "slots", "SLOTS", "dependent_latencies",
+           "chain_floor_clocks"]
 
 #: kernel launches made by :func:`scalar_filter` in this process
 LAUNCHES = 0
@@ -40,15 +54,16 @@ LAUNCHES = 0
 #: most sigma points a rule may have (``SF_MAX_PTS`` in the step header):
 #: enough for the 7-point Gauss-Hermite and BSQ-GH7 rules; the parameter
 #: struct, passed by value, is then 1,600 bytes, under the 4 KB limit of a
-#: kernel's parameters
+#: kernel's parameters.  The kernel is instantiated at ``SLOTS`` points; a
+#: rule runs at the smallest of them that holds it, padded with zero weights
 MAX_PTS = 8
+SLOTS = (3, 5, 7, 8)
 
 #: ``--fmad=false``: no multiply-add contraction, so the kernel rounds after
 #: every operation exactly like the twin's separate elementwise ops; with
 #: contraction the UNGM map grew the last-bit differences to 3.4e-8 within
 #: 20 steps on some of 4096 records (measured on an H100)
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "--fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_NVCC_FLAGS = ["--fmad=false"]
 
 
 # ---------------------------------------------------------------------------
@@ -109,7 +124,10 @@ def _c_rule(rule: Rule) -> _CRule:
     return c
 
 
+@functools.lru_cache(maxsize=64)
 def _c_params(p: ScalarFilterParams) -> _CParams:
+    """The kernel's parameter struct, zero past each rule's points; built
+    once for a given ``p``."""
     return _CParams(dyn=_c_rule(p.dyn), obs=_c_rule(p.obs), m0=p.m0, P0=p.P0,
                     gqg=p.gqg, r=p.r)
 
@@ -119,9 +137,33 @@ def _floats(t) -> tuple:
                                               np.float64).ravel())
 
 
+def _memo(obj, slot: str, sources: tuple, make):
+    """``make()``, kept on ``obj`` for as long as ``sources`` are the very
+    objects it was made from (a copy of ``obj`` whose tensors were replaced
+    carries the entry along but not the sources, and is lowered anew)."""
+    hit = obj.__dict__.get(slot)
+    if hit is not None and len(hit[0]) == len(sources) and all(
+            a is b for a, b in zip(hit[0], sources)):
+        return hit[1]
+    value = make()
+    obj.__dict__[slot] = (sources, value)
+    return value
+
+
 def lower_transform(tf) -> Rule:
     """The kernel's constants for a 1-D transform; ``ValueError`` if the
-    kernel cannot run it."""
+    kernel cannot run it.  The weights are read from the transform's device
+    once and kept on the transform."""
+    if isinstance(tf, SigmaPointTransform):
+        sources = (tf.unit_sp, tf.wm, tf.wc_diag)
+    elif isinstance(tf, BQTransform):
+        sources = (tf.points, tf.wm, tf.Wc, tf.Wcc, tf._emv)
+    else:
+        raise ValueError(f"unsupported transform for the fused scalar filter: {type(tf)!r}")
+    return _memo(tf, "_scalar_filter_rule", sources, lambda: _lower(tf))
+
+
+def _lower(tf) -> Rule:
     if isinstance(tf, SigmaPointTransform):
         if tf.wc_diag is None:
             raise ValueError("the fused scalar filter needs diagonal classical weights")
@@ -139,8 +181,6 @@ def lower_transform(tf) -> Rule:
         rule = Rule(kind=1, xi=_floats(tf.points), wm=_floats(tf.wm),
                     Wc=tuple(tuple(float(v) for v in row) for row in Wc),
                     wcc=_floats(tf.Wcc), emv=float(tf._emv.reshape(())))
-    else:
-        raise ValueError(f"unsupported transform for the fused scalar filter: {type(tf)!r}")
     if rule.n > MAX_PTS:
         raise ValueError(f"the fused scalar filter takes at most {MAX_PTS} points; "
                          f"got {rule.n}")
@@ -174,14 +214,21 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None) -> 
     """Lower a configuration to :class:`ScalarFilterParams`; ``ValueError``
     names the piece the kernel cannot run."""
     _check(mod_dyn, mod_obs)
-    m0, P0 = mod_dyn.init_rv.get_stats()[:2]
-    g = _scalar(mod_dyn.noise_gain)
+
+    (m0_t, P0_t), q_t = mod_dyn.init_rv.get_stats()[:2], mod_dyn.noise_rv.get_stats()[1]
+    r_t = mod_obs.noise_rv.get_stats()[1]
+
+    def dyn_consts():
+        g = _scalar(mod_dyn.noise_gain)
+        return _scalar(m0_t), _scalar(P0_t), g * _scalar(q_t) * g
+
+    m0, P0, gqg = _memo(mod_dyn, "_scalar_filter_consts", (m0_t, P0_t, q_t, mod_dyn.noise_gain),
+                        dyn_consts)
+    r = _memo(mod_obs, "_scalar_filter_consts", (r_t,), lambda: _scalar(r_t))
     return ScalarFilterParams(
         dyn=lower_transform(tf_dyn), obs=lower_transform(tf_obs),
-        m0=_scalar(m0 if init_mean is None else init_mean),
-        P0=_scalar(P0 if init_cov is None else init_cov),
-        gqg=g * _scalar(mod_dyn.noise_rv.get_stats()[1]) * g,
-        r=_scalar(mod_obs.noise_rv.get_stats()[1]))
+        m0=m0 if init_mean is None else _scalar(init_mean),
+        P0=P0 if init_cov is None else _scalar(init_cov), gqg=gqg, r=r)
 
 
 def ungm_consts(n_steps: int) -> np.ndarray:
@@ -189,6 +236,12 @@ def ungm_consts(n_steps: int) -> np.ndarray:
     the dynamics at time ``k - 1``, so ``c[k] = 8 cos(1.2 k)`` for the
     0-based step index."""
     return 8.0 * np.cos(1.2 * np.arange(n_steps, dtype=np.float64))
+
+
+@functools.lru_cache(maxsize=32)
+def _ungm_consts_on(n_steps: int, device: torch.device) -> torch.Tensor:
+    """:func:`ungm_consts` as a tensor on ``device``, copied there once."""
+    return torch.as_tensor(ungm_consts(n_steps), device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -218,24 +271,28 @@ def _moments_plain(rule: Rule, L, fs):
     return m, v, c
 
 
-def _scalar_filter_plain(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
+def _scalar_filter_plain(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor,
+                         sqrt=torch.sqrt):
     """The kernel's computation as batched torch ops over the B trajectories
     and a Python loop over the N steps; same arguments and results as
-    :func:`scalar_filter`."""
+    :func:`scalar_filter`.  ``sqrt``: the square root to take (PyTorch's
+    vectorised CPU one is an ulp off on some inputs, unlike the card's and a
+    C compiler's, so a test that wants equal bits on the CPU passes a
+    correctly rounded one)."""
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=y.dtype, device=y.device)
     m = torch.full((B,), params.m0, dtype=y.dtype, device=y.device)
     P = torch.full((B,), params.P0, dtype=y.dtype, device=y.device)
     dyn, obs = params.dyn, params.obs
     for k in range(N):
-        L = torch.sqrt(P)
+        L = sqrt(P)
         fs = []
         for i in range(dyn.n):
             x = m + L * dyn.xi[i]
             fs.append(0.5 * x + 25.0 * (x / (1.0 + x * x)) + c[k])
         m_pr, Pf, xx = _moments_plain(dyn, L, fs)
         P_pr = Pf + params.gqg
-        L2 = torch.sqrt(P_pr)
+        L2 = sqrt(P_pr)
         hs = []
         for i in range(obs.n):
             x = m_pr + L2 * obs.xi[i]
@@ -253,25 +310,45 @@ def _scalar_filter_plain(params: ScalarFilterParams, y: torch.Tensor, c: torch.T
 # the kernel
 # ---------------------------------------------------------------------------
 
-def build() -> ctypes.CDLL:
-    """Compile ``csrc/scalar_filter.cu`` for sm_90a with nvcc (once) and bind it."""
-    lib = _build.load("scalar_filter", ["scalar_filter.cu"], [_build.find_nvcc()] + _NVCC_FLAGS)
+_STREAMS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int]
+
+
+def _bind(lib: ctypes.CDLL):
+    """Declare the argument types of the library's entry points."""
     lib.sf_launch.restype = ctypes.c_int
-    lib.sf_launch.argtypes = ([ctypes.POINTER(_CParams)] + [ctypes.c_void_p] * 2
-                              + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+    lib.sf_launch.argtypes = ([ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_int]
+                              + [ctypes.c_void_p] * 6)
+    lib.sf_geometry.restype = None
+    lib.sf_geometry.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.sf_latency.restype = ctypes.c_int
+    lib.sf_latency.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.sf_error_string.restype = ctypes.c_char_p
     lib.sf_error_string.argtypes = [ctypes.c_int]
     return lib
 
 
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/scalar_filter.cu`` for sm_90a with nvcc (once) and bind
+    it; later calls return the bound library."""
+    return _build.bound("scalar_filter", ["scalar_filter.cu"], _bind, _NVCC_FLAGS)
+
+
+def _bind_host(lib: ctypes.CDLL):
+    lib.sf_host_run.restype = ctypes.c_int
+    lib.sf_host_run.argtypes = [ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_void_p] * 5
+
+
 def _host_shim() -> ctypes.CDLL:
     """The step header built for the host with g++ (tests only)."""
-    lib = _build.load("scalar_filter_host", ["scalar_filter_host.cpp"],
-                      ["g++", "-O2", "-shared", "-fPIC"])
-    lib.sf_host_run.restype = None
-    lib.sf_host_run.argtypes = ([ctypes.POINTER(_CParams)] + [ctypes.c_void_p] * 2
-                                + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 5)
-    return lib
+    return _build.bound("scalar_filter_host", ["scalar_filter_host.cpp"], _bind_host,
+                        host=True)
+
+
+def slots(params: ScalarFilterParams) -> int:
+    """Points of the instantiation that runs ``params``: the smallest of
+    :data:`SLOTS` that holds both rules (``sf_slots`` in the step header)."""
+    return next(n for n in SLOTS if n >= max(params.dyn.n, params.obs.n))
 
 
 def _check_streams(y: torch.Tensor, c: torch.Tensor):
@@ -282,30 +359,37 @@ def _check_streams(y: torch.Tensor, c: torch.Tensor):
                          f"{tuple(c.shape)}")
     if y.device != c.device:
         raise ValueError(f"y and c on different devices: {y.device} and {c.device}")
-    if not (y.is_contiguous() and c.is_contiguous()):
-        raise ValueError("y and c must be contiguous")
+    if not ((y.is_contiguous() or y.T.is_contiguous()) and c.is_contiguous()):
+        raise ValueError("y must be contiguous, or the transpose of a contiguous (B, N) "
+                         "tensor, and c contiguous")
     if y.shape[1] >= 2 ** 31:
         raise ValueError(f"at most 2**31 - 1 trajectories; got {y.shape[1]}")
 
 
 def _host_shim_run(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
-    """Run the step header compiled for the host on CPU tensors."""
+    """Run the step header compiled for the host on CPU tensors; the five
+    streams, after checking that the instantiation of :func:`slots` ran."""
     _check_streams(y, c)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=torch.float64)
-    p = _c_params(params)
-    _host_shim().sf_host_run(ctypes.byref(p), y.data_ptr(), c.data_ptr(), B, N,
-                             *(o.data_ptr() for o in out))
+    ran = _host_shim().sf_host_run(ctypes.byref(_c_params(params)), y.data_ptr(), y.stride(0),
+                                   y.stride(1), c.data_ptr(), B, N,
+                                   *(o.data_ptr() for o in out))
+    if ran != slots(params):
+        raise RuntimeError(f"the host build ran the {ran}-slot step for rules of "
+                           f"{params.dyn.n} and {params.obs.n} points")
     return tuple(out)
 
 
 def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     """Filter B scalar records in one kernel launch.
 
-    ``y`` (N, B) float64 measurements, time-major and contiguous; ``c`` (N,)
-    per-step dynamics constants (:func:`ungm_consts`).  Returns the five
+    ``y`` (N, B) float64 measurements, time-major: contiguous, or the
+    transpose of a contiguous trajectory-major (B, N) tensor (the kernel
+    reads it through its strides, no copy is made); ``c`` (N,) per-step
+    dynamics constants (:func:`ungm_consts`).  Returns the five contiguous
     (N, B) streams ``(m_fi, P_fi, m_pr, P_pr, xx)``: filtered mean and
     variance, predicted mean and variance, and the dynamics transform's
     cross-covariance.  A CPU tensor runs the plain twin; a CUDA tensor
@@ -322,10 +406,11 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     out = torch.empty((5, N, B), dtype=torch.float64, device=y.device)
     if y.numel() == 0:
         return tuple(out)
-    p = _c_params(params)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    rc = lib.sf_launch(ctypes.byref(p), y.data_ptr(), c.data_ptr(), B, N,
-                       y.device.index or 0, *(o.data_ptr() for o in out), stream)
+    first, size = out.data_ptr(), N * B * 8
+    rc = lib.sf_launch(ctypes.byref(_c_params(params)), y.data_ptr(), y.stride(0), y.stride(1),
+                       c.data_ptr(), B, N, y.device.index or 0,
+                       *(first + i * size for i in range(5)),
+                       torch.cuda.current_stream(y.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"scalar filter kernel launch failed: "
                            f"{lib.sf_error_string(rc).decode()} (cudaError {rc})")
@@ -334,18 +419,56 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
 
 
 # ---------------------------------------------------------------------------
+# the chain floor of the kernel (measurement helpers)
+# ---------------------------------------------------------------------------
+
+def dependent_latencies(device: torch.device, iters: int = 512, lib=None) -> dict:
+    """Clocks from one dependent float64 operation to the next on the card
+    ``device``, measured by the library's ``sf_latency`` kernel (one warp,
+    ``16 * iters`` operations of each type between two reads of the SM's
+    clock): ``add``, ``mul``, ``div``, ``sqrt`` (the add that feeds it back
+    taken off) and ``shfl`` (a double moved by two shuffles)."""
+    lib = build() if lib is None else lib
+    out = torch.zeros(6, dtype=torch.float64, device=device)
+    rc = lib.sf_latency(device.index or 0, iters, out.data_ptr(),
+                        torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"sf_latency launch failed: {lib.sf_error_string(rc).decode()}")
+    add, mul, div, root, shfl = (float(v) for v in out[:5].cpu())
+    return {"add": add, "mul": mul, "div": div, "sqrt": root - add, "shfl": shfl}
+
+
+def chain_floor_clocks(lat: dict, params: ScalarFilterParams) -> float:
+    """Clocks of the critical path of one filter step, whatever the number of
+    lanes: the operations that each wait for the one before.  Two square
+    roots and two divides (the dynamics' and the gain's); for each rule the
+    point (2), the mean (``n`` adds after a multiply) and the variance (3
+    operations to its first term, ``n`` adds; a BQ rule's row sum and
+    quadratic form are as long); the dynamics (5 around its divide) and the
+    measurement function (2); the noise terms (2) and the update (3):
+    ``2 (n_dyn + n_obs) + 24`` adds and multiplies; and a gather for each rule
+    (two for a BQ rule) where a trajectory has more than one lane."""
+    plain = 0.5 * (lat["add"] + lat["mul"])
+    gathers = sum(1 + rule.kind for rule in (params.dyn, params.obs))
+    return (2.0 * lat["sqrt"] + 2.0 * lat["div"]
+            + (2 * (params.dyn.n + params.obs.n) + 24) * plain + gathers * lat["shfl"])
+
+
+# ---------------------------------------------------------------------------
 # model-level entry points
 # ---------------------------------------------------------------------------
 
 def scalar_filter_moments(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
-                          init_mean=None, init_cov=None):
+                          init_mean=None, init_cov=None, params=None):
     """The five (N, B) moment streams of :func:`scalar_filter` for a batch of
-    records ``data_batch`` (B, 1, N) or (B, N), on the data's device."""
+    records ``data_batch`` (B, 1, N) or (B, N), on the data's device.
+    ``params``: the configuration already lowered by :func:`prepare`."""
     ys = data_batch[:, 0, :] if data_batch.ndim == 3 else data_batch
-    params = prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
-    y = ys.to(torch.float64).T.contiguous()
-    c = torch.as_tensor(ungm_consts(y.shape[0]), device=y.device)
-    return scalar_filter(params, y, c)
+    if params is None:
+        params = prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
+    ys = ys.to(torch.float64)
+    y = ys.T if ys.is_contiguous() else ys.T.contiguous()
+    return scalar_filter(params, y, _ungm_consts_on(y.shape[0], y.device))
 
 
 def scalar_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch):

@@ -55,8 +55,7 @@ KXY_MAX_CHUNK = 1024
 #: elements of the largest intermediate a plain version makes at once
 _PLAIN_ELEMS = 1 << 25
 
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_NVCC_FLAGS = _build.NVCC_FLAGS
 
 
 def chunking(num_samples: int, chunk: int):
@@ -132,17 +131,10 @@ def _kxy_bwd_partials_plain(inv_l, xs, chunk):
 # the kernels
 # ---------------------------------------------------------------------------
 
-_LIB = None
-
-
 def build() -> ctypes.CDLL:
     """Compile ``csrc/student_mc.cu`` for sm_90a with nvcc (once) and bind it;
     later calls return the bound library."""
-    global _LIB
-    if _LIB is None:
-        _LIB = _bind(_build.load("student_mc", ["student_mc.cu"],
-                                 [_build.find_nvcc()] + _NVCC_FLAGS))
-    return _LIB
+    return _build.bound("student_mc", ["student_mc.cu"], _bind)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -161,8 +153,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _host_shim() -> ctypes.CDLL:
     """The per-element header built for the host with g++ (tests only)."""
-    lib = _build.load("student_mc_host", ["student_mc_host.cpp"],
-                      ["g++", "-O2", "-shared", "-fPIC"])
+    return _build.bound("student_mc_host", ["student_mc_host.cpp"], _bind_host, host=True)
+
+
+def _bind_host(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.smc_host_qrq.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.smc_host_qrq_bwd.argtypes = [p] * 6 + [i] * 4 + [p]

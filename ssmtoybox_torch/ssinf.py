@@ -132,9 +132,9 @@ def _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov) -> 
     return FilterResult(fi_mean=fi_m, fi_cov=fi_P, pr_mean=pr_m, pr_cov=pr_P, pr_xx_cov=pr_xx)
 
 
-def _filter_fused(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov) -> FilterResult:
+def _filter_fused(mod_dyn, mod_obs, tf_dyn, tf_obs, data, params) -> FilterResult:
     m_fi, P_fi, m_pr, P_pr, xx = _sf.scalar_filter_moments(
-        mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov)
+        mod_dyn, mod_obs, tf_dyn, tf_obs, data, params=params)
     vec, mat = (lambda s: s.T[:, None, :]), (lambda s: s.T[:, None, None, :])
     return FilterResult(fi_mean=vec(m_fi), fi_cov=mat(P_fi), pr_mean=vec(m_pr),
                         pr_cov=mat(P_pr), pr_xx_cov=mat(xx))
@@ -157,7 +157,7 @@ def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
         raise ValueError(f"engine must be 'f64', 'dd' or 'auto'; got {engine!r}")
     if engine != "f64":
         try:
-            _sf.prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
+            params = _sf.prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
         except ValueError as e:
             if engine == "dd":
                 if mod_dyn.dim_state > 1:
@@ -169,8 +169,9 @@ def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
         else:
             engine = "dd"
     data = f64(data_batch, mod_dyn.device)
-    run = _filter_fused if engine == "dd" else _filter_f64
-    return run(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov)
+    if engine == "dd":
+        return _filter_fused(mod_dyn, mod_obs, tf_dyn, tf_obs, data, params)
+    return _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov)
 
 
 def gaussian_filter(mod_dyn, mod_obs, tf_dyn, tf_obs, data,

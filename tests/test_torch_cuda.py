@@ -228,6 +228,76 @@ def test_kernel_matches_twin_at_5_and_7_points(card, name):
             assert torch.equal(a, b), s
 
 
+def _rule_pairs(device):
+    """Filters whose rules give every instantiation of the kernel: classical
+    and BQ rules of 3, 5 and 7 points, and rules that run padded (4, 8)."""
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=device), GaussRV(1, cov=10.0, device=device))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=device), dim_state=1)
+
+    def bsq(par, deg):
+        mi = np.atleast_2d(np.arange(deg))
+        return stt.BayesSardKalman(dyn, obs, np.array(par), np.array(par), mulind_dyn=mi,
+                                   mulind_obs=mi, points="gh", point_hyp={"degree": deg})
+
+    return dyn, obs, {
+        "ut": lambda: stt.UnscentedKalman(dyn, obs),
+        "gh4": lambda: stt.GaussHermiteKalman(dyn, obs, deg=4),
+        "gh5": lambda: stt.GaussHermiteKalman(dyn, obs, deg=5),
+        "gh7": lambda: stt.GaussHermiteKalman(dyn, obs, deg=7),
+        "gh8": lambda: stt.GaussHermiteKalman(dyn, obs, deg=8),
+        "gpq_ut": lambda: stt.GaussianProcessKalman(dyn, obs, KERN_PAR, KERN_PAR),
+        "bsq_gh5": lambda: bsq([[5.0, 0.6]], 5), "bsq_gh7": lambda: bsq([[3.0, 0.4]], 7),
+        "gpq_gh8": lambda: stt.GaussianProcessKalman(
+            dyn, obs, np.array([[3.0, 0.4]]), np.array([[3.0, 0.4]]), points="gh",
+            point_hyp={"degree": 8})}
+
+
+# (dynamics rule of, measurement rule of, slots of the instantiation)
+RULE_PAIRS = [("ut", "ut", 3), ("gpq_ut", "gpq_ut", 3), ("gh5", "gh5", 5), ("bsq_gh5", "bsq_gh5", 5),
+              ("gh7", "gh7", 7), ("bsq_gh7", "bsq_gh7", 7), ("bsq_gh5", "ut", 5),
+              ("gh7", "gpq_ut", 7), ("gh4", "gh4", 5), ("gh5", "gh8", 8), ("gpq_gh8", "gpq_gh8", 8)]
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097, 10_000])
+@pytest.mark.parametrize("a,b,n_slots", RULE_PAIRS)
+def test_kernel_matches_twin_at_every_instantiation(card, a, b, n_slots, batch):
+    """Every instantiation the launcher can pick, at batch sizes that leave
+    the last warp and the last block ragged: the kernel equals its twin to
+    the bit, a second launch equals the first, and trajectory-major
+    measurements (read through their strides) give the same bits."""
+    dyn, obs, makers = _rule_pairs(card)
+    params = sf.prepare(dyn, obs, makers[a]().tf_dyn, makers[b]().tf_obs)
+    assert sf.slots(params) == n_slots
+    rng = np.random.default_rng(batch)
+    y = torch.as_tensor(rng.normal(2.0, 4.0, size=(30, batch)), device=card)
+    c = torch.as_tensor(sf.ungm_consts(30), device=card)
+    before = sf.LAUNCHES
+    got = sf.scalar_filter(params, y, c)
+    assert sf.LAUNCHES == before + 1
+    again = sf.scalar_filter(params, y, c)
+    by_traj = sf.scalar_filter(params, y.T.contiguous().T, c)
+    torch.cuda.synchronize()
+    for s, g, r, g2, g3 in zip(STREAMS, got, sf._scalar_filter_plain(params, y, c), again, by_traj):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), s
+        assert torch.equal(g, g2) and torch.equal(g, g3), s
+
+
+def test_a_replaced_transform_filters_with_its_own_rule_on_the_card(card):
+    """The rule kept on a transform is not served to its ``replace()``d copy,
+    and a lane seen before reads nothing more from the card to be lowered."""
+    dyn, obs, makers = _rule_pairs(card)
+    alg = makers["bsq_gh5"]()
+    ys = torch.as_tensor(np.random.default_rng(3).normal(size=(64, 1, 10)), device=card)
+    a = alg.forward_pass_batch(ys, engine="dd")
+    rule = sf.lower_transform(alg.tf_dyn)
+    alg.tf_dyn = alg.tf_dyn.replace(model_var=float(alg.tf_dyn.model_var) + 0.5)
+    b = alg.forward_pass_batch(ys, engine="dd")
+    assert sf.lower_transform(alg.tf_dyn) is not rule
+    torch.testing.assert_close(b.pr_cov[..., 0] - a.pr_cov[..., 0],
+                               torch.full((64, 1, 1), 0.5, dtype=torch.float64, device=card))
+
+
 MUL_UT5 = np.hstack((np.zeros((5, 1), int), np.eye(5, dtype=int), 2 * np.eye(5, dtype=int)))
 # (D, N, multi-index): the weight shapes of the BSQ studies, the verifiers'
 # sample batch, a ragged total-degree basis and high exponents
@@ -238,6 +308,18 @@ VDM_SHAPES = {
     "verifier": (5, 100_000, MUL_UT5),
     "td3_4": (3, 1001, None),
     "high": (2, 300, np.array([[9, 0, 3, 1], [2, 5, 0, 1]])),
+    # the edges of a tile of 128 points, two column tiles, coordinates not in
+    # registers, and multi-indices too large to travel by value (staged)
+    "n1": (5, 1, MUL_UT5),
+    "tile_short": (5, 127, MUL_UT5),
+    "tile": (5, 128, MUL_UT5),
+    "tile_over": (5, 129, MUL_UT5),
+    "q40": (1, 1000, np.atleast_2d(np.arange(40) % 6)),
+    "q33": (1, 257, np.atleast_2d(np.arange(33) % 4)),
+    "even_q": (2, 5000, np.array([[0, 1, 2, 3], [3, 2, 1, 0]])),
+    "d9": (9, 777, np.vstack((np.eye(9, dtype=int), [[2, 0, 1, 0, 3, 0, 0, 1, 2]])).T),
+    "staged": (2, 10_001, np.arange(2 * 90).reshape(2, 90) % 5),
+    "staged_big": (2, 300, np.ones((2, 6000), int)),
 }
 
 
@@ -255,6 +337,13 @@ def test_vandermonde_kernel_matches_plain(card, name):
     torch.cuda.synchronize()
     assert got.device.type == "cuda" and tuple(got.shape) == (n, mul.shape[1])
     assert torch.equal(got, want)
+    # a small multi-index travels by value, nothing of it lies on the card;
+    # a large one was copied there once, and a second call copies nothing
+    copies = vdm._index(mul, d).on_card
+    assert bool(copies) == (mul.size > vdm.VALUE_INTS)
+    staged = copies.get(x.device)
+    assert torch.equal(vdm.vandermonde(mul.copy(), x), want)
+    assert vdm._index(mul, d).on_card.get(x.device) is staged
 
 
 def test_vandermonde_kernel_refuses_what_it_does_not_take(card):

@@ -10,9 +10,13 @@ On the CPU its wrapper runs the plain PyTorch twin, which is held against:
   over the first 20 steps and 1e-8 over all 100 (both float64, different
   summation order, which the UNGM map amplifies).
 
-The CUDA step header, compiled for the host with g++, is held against the
-twin at 1e-12 (same operations in the same order). The kernel itself runs
-only on the card: ``tests/test_torch_cuda.py``.
+The CUDA step header, compiled for the host with g++, equals the twin to the
+bit (same operations in the same order) at every instantiation the launcher
+can pick: both kinds at 3, 5 and 7 points, mixed kinds, and shapes that run
+padded (4 and 8 points, 5 with 3).  The lanes of the kernel itself run only on
+the card: ``tests/test_torch_cuda.py``.  The wrapper's caches (a transform's
+rule, the parameter struct, the UNGM constants) are held to serve every
+object its own result.
 """
 import ast
 import shutil
@@ -114,17 +118,65 @@ def _streams(seed, n_steps, batch):
     return y, torch.as_tensor(sf.ungm_consts(n_steps))
 
 
-@pytest.mark.parametrize("name", sorted(ALGS))
+def _twin_ieee(params, y, c):
+    """The twin with a correctly rounded square root (numpy's), as the card
+    and g++ take it: PyTorch's vectorised CPU ``sqrt`` is an ulp off on some
+    inputs, which the UNGM map grows to ~1e-11 within 30 steps."""
+    return sf._scalar_filter_plain(params, y, c,
+                                   sqrt=lambda t: torch.from_numpy(np.sqrt(t.numpy())))
+
+
+def _shape_cases():
+    """Every instantiation of the step (kinds of the dynamics and the
+    measurement rule, slots): ``name -> (dyn rule from, obs rule from, kinds,
+    slots)``, the rules taken from the filters of ``ALGS``, ``WIDE`` and
+    ``PADDED`` below."""
+    same = {"ukf": (0, 3), "gpqkf": (1, 3), "gh5": (0, 5), "bsq_gh5": (1, 5), "gh7": (0, 7),
+            "bsq_gh7": (1, 7), "gpq_gh7": (1, 7), "gh4": (0, 5), "gh8": (0, 8),
+            "gpq_gh8": (1, 8), "gh2": (0, 3)}
+    cases = {name: (name, name, (kind, kind), n) for name, (kind, n) in same.items()}
+    cases["bsq_gh5_then_ukf"] = ("bsq_gh5", "ukf", (1, 0), 5)        # mixed kinds and points
+    cases["gh7_then_gpqkf"] = ("gh7", "gpqkf", (0, 1), 7)
+    cases["gh5_then_gh8"] = ("gh5", "gh8", (0, 0), 8)
+    return cases
+
+
+def _shape_params(case):
+    from_dyn, from_obs, kinds, n_slots = _shape_cases()[case]
+    makers = {**{k: v[0] for k, v in ALGS.items()}, **WIDE, **PADDED}
+    dyn, obs = _models()
+    params = sf.prepare(dyn, obs, makers[from_dyn](dyn, obs).tf_dyn,
+                        makers[from_obs](dyn, obs).tf_obs)
+    assert (params.dyn.kind, params.obs.kind) == kinds and sf.slots(params) == n_slots
+    return params
+
+
+@pytest.mark.parametrize("name", sorted(_shape_cases()))
 def test_step_header_on_host_matches_twin(name):
-    """``csrc/scalar_filter_step.cuh`` built with g++ == the twin, 1e-12."""
+    """``csrc/scalar_filter_step.cuh`` built with g++ == the twin, to the bit,
+    at the instantiation the launcher picks for the shape; time-major and
+    trajectory-major measurements alike."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the step header cannot be built for the host")
-    alg = ALGS[name][0](*_models())
-    params = sf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    params = _shape_params(name)
     y, c = _streams(0, 30, 64)
-    for s, a, b in zip(STREAMS, sf._host_shim_run(params, y, c),
-                       sf._scalar_filter_plain(params, y, c)):
-        torch.testing.assert_close(a, b, atol=1e-12, rtol=1e-12, msg=s)
+    want = _twin_ieee(params, y, c)
+    by_traj = y.T.contiguous().T                      # the same values, strides (1, N)
+    assert not by_traj.is_contiguous()
+    for got in (sf._host_shim_run(params, y, c), sf._host_shim_run(params, by_traj, c)):
+        for s, a, b in zip(STREAMS, got, want):
+            assert bool(torch.isfinite(b).all()), s
+            assert torch.equal(a, b), f"{s}: {float((a - b).abs().max()):.3e}"
+
+
+@pytest.mark.parametrize("batch", [1, 7])
+def test_step_header_on_host_takes_any_batch(batch):
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the step header cannot be built for the host")
+    params = _shape_params("bsq_gh5_then_ukf")
+    y, c = _streams(batch, 12, batch)
+    for a, b in zip(sf._host_shim_run(params, y, c), _twin_ieee(params, y, c)):
+        assert torch.equal(a, b)
 
 
 def test_wrapper_on_cpu_runs_the_twin_and_counts_no_launch():
@@ -144,7 +196,7 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(TypeError, match="float64"):
         sf.scalar_filter(params, y.float(), c)
     with pytest.raises(ValueError, match="contiguous"):
-        sf.scalar_filter(params, torch.as_tensor(np.zeros((3, 4))).T, c)
+        sf.scalar_filter(params, torch.as_tensor(np.zeros((4, 6)))[:, ::2], c)
     with pytest.raises(ValueError, match=r"\(N, B\)"):
         sf.scalar_filter(params, y, c[:2])
     with pytest.raises(ValueError, match="CPU or CUDA"):
@@ -158,6 +210,76 @@ def test_batch_entry_point_takes_both_layouts():
     b = sf.scalar_filter_batch(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs, y[:, None])
     assert tuple(a.shape) == (5, 1, 9)
     torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+def test_wrapper_takes_trajectory_major_measurements():
+    """The transpose of a contiguous (B, N) batch goes in as it is and gives
+    the bits of its time-major copy."""
+    alg = ALGS["gpqkf"][0](*_models())
+    params = sf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    y, c = _streams(4, 9, 5)
+    view = y.T.contiguous().T
+    for a, b in zip(sf.scalar_filter(params, view, c), sf.scalar_filter(params, y, c)):
+        assert torch.equal(a, b) and a.is_contiguous()
+
+
+def test_a_replaced_transform_gets_its_own_rule():
+    """A transform's lowered rule is kept on it; ``replace()`` copies the
+    object, and the copy must be lowered from its own weights."""
+    alg = WIDE["bsq_gh5"](*_models())
+    tf = alg.tf_dyn
+    rule = sf.lower_transform(tf)
+    assert sf.lower_transform(tf) is rule                              # kept
+    tf2 = tf.replace(model_var=float(tf.model_var) + 0.5)
+    rule2 = sf.lower_transform(tf2)
+    assert rule2.emv == pytest.approx(rule.emv + 0.5) and rule2.Wc == rule.Wc
+    tf3 = tf.replace(wm=torch.flip(tf.wm, (0,)))
+    assert sf.lower_transform(tf3).wm == rule.wm[::-1]
+    assert sf.lower_transform(tf) is rule and sf.lower_transform(tf2) is rule2
+    # and a filter built on the copy filters with the copy's variance
+    ys = np.random.default_rng(8).normal(size=(3, 1, 6))
+    a = stt.gaussian_filter_batch(alg.mod_dyn, alg.mod_obs, tf, alg.tf_obs, ys, engine="dd")
+    b = stt.gaussian_filter_batch(alg.mod_dyn, alg.mod_obs, tf2, alg.tf_obs, ys, engine="dd")
+    torch.testing.assert_close(b.pr_cov[..., 0] - a.pr_cov[..., 0],
+                               torch.full((3, 1, 1), 0.5, dtype=torch.float64))
+
+
+def test_the_fused_engine_lowers_a_configuration_once(monkeypatch):
+    """``engine="dd"`` lowers each transform on the first call only, and once
+    a call reads the models' constants from where the first call left them."""
+    alg = WIDE["gh7"](*_models())
+    calls = []
+    lower = sf._lower
+    monkeypatch.setattr(sf, "_lower", lambda tf: calls.append(tf) or lower(tf))
+    ys = np.random.default_rng(9).normal(size=(2, 1, 5))
+    first = alg.forward_pass_batch(ys, engine="dd")
+    assert len(calls) == 2                                             # dyn and obs
+    scalars = []
+    monkeypatch.setattr(sf, "_scalar", lambda t: scalars.append(t) or 0.0)
+    second = alg.forward_pass_batch(ys, engine="dd")
+    assert len(calls) == 2 and not scalars
+    assert torch.equal(first.fi_mean, second.fi_mean)
+    # a new initial state is read, and is not served the models' own
+    third = alg.forward_pass_batch(ys, engine="auto")
+    assert torch.equal(first.fi_cov, third.fi_cov)
+    monkeypatch.undo()
+    moved = stt.gaussian_filter_batch(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs, ys,
+                                      init_mean=torch.tensor([3.0]), engine="dd")
+    assert float((moved.pr_mean[..., 0] - first.pr_mean[..., 0]).abs().min()) > 0.1
+    again = alg.forward_pass_batch(ys, engine="dd")
+    assert torch.equal(first.fi_mean, again.fi_mean)
+
+
+def test_every_parameter_set_gets_its_own_struct():
+    p1, p2 = _shape_params("ukf"), _shape_params("gh5")
+    c1, c2 = sf._c_params(p1), sf._c_params(p2)
+    assert sf._c_params(p1) is c1 and c2 is not c1
+    assert (c1.dyn.n, c2.dyn.n) == (3, 5) and list(c2.dyn.xi[:5]) == list(p2.dyn.xi)
+    assert list(c1.dyn.xi[3:]) == [0.0] * 5 and list(c1.obs.Wc) == [0.0] * 64   # zero padding
+    other = sf.ScalarFilterParams(p1.dyn, p1.obs, p1.m0 + 1.0, p1.P0, p1.gqg, p1.r)
+    assert sf._c_params(other).m0 == p1.m0 + 1.0 and sf._c_params(p1).m0 == p1.m0
+    a, b = sf._ungm_consts_on(4, torch.device("cpu")), sf._ungm_consts_on(5, torch.device("cpu"))
+    assert a.shape == (4,) and b.shape == (5,) and sf._ungm_consts_on(4, a.device) is a
 
 
 def test_supports():
@@ -235,6 +357,17 @@ WIDE = {
 }
 
 
+#: rules that run padded: 4 points at 5 slots, 2 at 3, 8 at 8
+PADDED = {
+    "gh2": lambda d, o: stt.GaussHermiteKalman(d, o, deg=2),
+    "gh4": lambda d, o: stt.GaussHermiteKalman(d, o, deg=4),
+    "gh5": lambda d, o: stt.GaussHermiteKalman(d, o, deg=5),
+    "gh8": lambda d, o: stt.GaussHermiteKalman(d, o, deg=8),
+    "gpq_gh8": lambda d, o: stt.GaussianProcessKalman(d, o, GH7_PAR, GH7_PAR, points="gh",
+                                                      point_hyp={"degree": 8}),
+}
+
+
 def _golden_models():
     """The UNGM system of ``tests/goldens/ungm.npz`` (initial variance 1)."""
     return (UNGMTransition(GaussRV(1, cov=1.0), GaussRV(1, cov=10.0)),
@@ -282,13 +415,12 @@ def test_wide_rules_fused_match_eager_f64(records, name):
 
 @pytest.mark.parametrize("name", ["gh7", "bsq_gh7"])
 def test_step_header_on_host_matches_twin_at_7_points(name):
-    """The step header built with g++ == the twin for 7-point rules, 1e-12."""
+    """The step header built with g++ == the twin for 7-point rules, to the bit."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the step header cannot be built for the host")
     alg = WIDE[name](*_models())
     params = sf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
     assert params.dyn.n == params.obs.n == 7
     y, c = _streams(5, 30, 64)
-    for s, a, b in zip(STREAMS, sf._host_shim_run(params, y, c),
-                       sf._scalar_filter_plain(params, y, c)):
-        torch.testing.assert_close(a, b, atol=1e-12, rtol=1e-12, msg=s)
+    for s, a, b in zip(STREAMS, sf._host_shim_run(params, y, c), _twin_ieee(params, y, c)):
+        torch.testing.assert_close(a, b, atol=0, rtol=0, msg=s)

@@ -10,9 +10,11 @@ On the CPU the wrapper runs the kernel's plain PyTorch version, held against:
   interpret mode at rtol 1e-6 (``tests/test_pallas_ops.py``'s): that kernel
   computes in float32.
 
-The CUDA entry header, compiled for the host with g++, equals the plain
-version to the bit (same products in the same order).  The kernel itself
-runs only on the card: ``tests/test_torch_cuda.py``.
+The CUDA point header, compiled for the host with g++, equals the plain
+version to the bit (same products in the same order), with the coordinates
+in registers (D <= 8) and read again a column (D = 9).  The kernel itself
+runs only on the card: ``tests/test_torch_cuda.py``.  The wrapper's cache of
+validated multi-indices is held to serve every multi-index its own matrix.
 """
 import shutil
 
@@ -45,6 +47,8 @@ CASES = {
     "ut5": MUL_UT5,
     "td3_4": jcombin.total_degree_multi_index(3, 4),
     "high": np.array([[9, 0, 3, 1], [2, 5, 0, 1]]),
+    "d9": np.vstack((np.eye(9, dtype=int), [[2, 0, 1, 0, 3, 0, 0, 1, 2]])).T,
+    "wide40": np.atleast_2d(np.arange(40) % 6),
 }
 
 
@@ -92,8 +96,9 @@ def test_plain_matches_jax_pallas_kernel(case):
 
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_entry_header_on_host_matches_plain(case):
-    """``csrc/vandermonde_cols.cuh`` built with g++ == the plain version, to
-    the bit, with zeros, negatives and large values among the points."""
+    """``csrc/vandermonde_cols.cuh`` (the per-point routine) built with g++ ==
+    the plain version, to the bit, with zeros, negatives and large values
+    among the points."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the entry header cannot be built for the host")
     mul = CASES[case]
@@ -115,6 +120,30 @@ def test_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch():
     assert torch.equal(vdm.vandermonde([[0]], torch.zeros((1, 2), dtype=torch.float64)),
                        torch.ones((2, 1), dtype=torch.float64))
     assert tuple(vdm.vandermonde(MUL_UT5, torch.zeros((5, 0), dtype=torch.float64)).shape) == (0, 11)
+
+
+def test_every_multi_index_gets_its_own_matrix():
+    """The cache of validated multi-indices is keyed by content: a second
+    multi-index of the same shape and a changed array get their own result,
+    and what was refused once is refused again."""
+    x = torch.as_tensor(_points(2, 6, seed=5))
+    a, b = np.array([[1, 0, 2], [0, 1, 1]]), np.array([[0, 2, 1], [1, 1, 0]])
+    va, vb = vdm.vandermonde(a, x), vdm.vandermonde(b, x)
+    assert torch.equal(va, vdm.vandermonde_plain(a, x))
+    assert torch.equal(vb, vdm.vandermonde_plain(b, x)) and not torch.equal(va, vb)
+    assert vdm._index(a, 2) is vdm._index(a.copy(), 2)                 # one entry a content
+    assert vdm._index(a, 2) is vdm._index(a.tolist(), 2)
+    a[0, 0] = 3                                                        # changed in place
+    assert torch.equal(vdm.vandermonde(a, x), vdm.vandermonde_plain(a, x))
+    assert float(vdm.vandermonde(a, x)[0, 0]) == float(x[0, 0]) ** 3
+    for _ in range(2):
+        with pytest.raises(ValueError, match="negative"):
+            vdm.vandermonde([[1, -1], [0, 2]], x)
+    before = len(vdm._INDICES)
+    for k in range(vdm._CACHE_SIZE + 3):                               # bounded
+        vdm.vandermonde([[k], [1]], x)
+    assert len(vdm._INDICES) <= vdm._CACHE_SIZE and before <= vdm._CACHE_SIZE
+    assert vdm._index(b, 2).e32.dtype == np.int32 and vdm._index(b, 2).e32.flags.c_contiguous
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take():
