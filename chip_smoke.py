@@ -7,8 +7,9 @@ Needs one CUDA card and ``nvcc`` (PATH, $CUDA_HOME or /usr/local/cuda); it
 fails at once without them.  Phases, each fatal on failure:
 
 1. set-up: print the card's name and power limit, build the CUDA sources
-   ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu`` and
-   ``vandermonde.cu`` for sm_90a (one nvcc each, at once) and print their
+   ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
+   ``student_qrq.cu`` and ``vandermonde.cu`` for sm_90a (one nvcc each, at
+   once; the two Student-MC sources make one library) and print their
    ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
 2. the scalar filter kernel vs its plain PyTorch twin, both on the card, for
@@ -29,10 +30,12 @@ fails at once without them.  Phases, each fatal on failure:
    same samples, at the CV radar glint study's shapes (D = 4, the 9 points of
    the TPQSF dynamics rule, 2e6 samples): q, R, Q and E[k(x, y)] within 1e-5
    relative, the backward kernels' gradients against autograd through the
-   plain versions at rtol 1e-4 / atol 1e-5; the two pairwise kernels twice on
-   one input, equal to the bit; their timings, the host time of one
-   ``kxy_chunk_sums`` call part by part, and the SM clock before and after
-   the profiled launches;
+   plain versions at rtol 1e-4 / atol 1e-5; all four kernels twice on one
+   input, equal to the bit; their timings, the host time of one
+   ``kxy_chunk_sums`` call part by part, the SM clock before and after the
+   profiled launches, and raw launches of each (behind ``torch.cuda._sleep``);
+   the q/R/Q kernels also at N = 33 (D = 4) and N = 128 (D = 8), against
+   their plain versions and timed beside their bounds;
 7. Student goldens on the card: FSQ on ``ungm_student.npz`` (1e-8) and the
    TP weights at 2e6 samples on ``tpq_cv_weights.npz`` (the tolerances and
    eigenvalue check of ``tests/test_parity.py``);
@@ -177,6 +180,19 @@ def bound(n_bytes, *ops):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
+def qrq_bounds(tot, d, n):
+    """``bound`` of ``qrq`` and ``qrq_bwd`` at ``tot`` f32 samples of D = d
+    and n points: the samples are read once; per sample, a Gram row of n exps
+    (special-function unit) and the f32 flops of the row, q, R and the
+    symmetric half of Q (the backward adds W = gq + x gR + k (gQ + gQ^T) and
+    its three reductions)."""
+    row = n * (3 * d + 1)
+    return (bound(tot * d * 4, (tot * n, SFU_OPS_S),
+                  (tot * (row + n + 2 * d * n + n * (n + 1)), F32_OPS_S)),
+            bound(tot * d * 4, (tot * n, SFU_OPS_S),
+                  (tot * (row + n * (2 * d + 2 * n) + n + 2 * d * n), F32_OPS_S)))
+
+
 def device_ms(torch, fn, kernel, reps=10):
     """Mean device time, in ms, of the device activities whose name contains
     ``kernel``, from ``torch.profiler`` over ``reps`` calls of ``fn`` (one
@@ -209,10 +225,12 @@ def device_ms(torch, fn, kernel, reps=10):
 
 def raw_ms(torch, launch, reps=20) -> float:
     """Time of one kernel launch in ms: ``reps`` calls of ``launch``, which
-    goes straight to a library's C entry point (no wrapper, ~10 us of host
+    goes straight to a library's C entry point (no wrapper, 10-30 us of host
     time a call) and returns its CUDA error code, between two CUDA events
-    after one warm-up.  It reads the device time where that is well above
-    the host's 10 us, whatever the profiler records."""
+    after one warm-up.  ``torch.cuda._sleep`` is queued ahead of the first
+    event, long enough for the host to queue every launch before the card
+    reaches it, so the time is the card's even for kernels shorter than the
+    host's launch, whatever the profiler records."""
     def checked():
         rc = launch()
         if rc != 0:
@@ -220,6 +238,7 @@ def raw_ms(torch, launch, reps=20) -> float:
     checked()
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000 * reps)          # ~50 us of the card's time a launch
     start.record()
     for _ in range(reps):
         checked()
@@ -360,14 +379,14 @@ def student_slice(torch, np, dev):
         "kxy_bwd": (lambda: smc.kxy_bwd_sums(inv_l, s_k, c_k),
                     lambda: smc._kxy_bwd_partials_plain(inv_l, s_k, c_k).double().sum(0)),
     }
-    for name in ("kxy", "kxy_bwd"):
+    for name in timed:
         a, b = timed[name][0](), timed[name][0]()
         torch.cuda.synchronize()
         if not (torch.equal(a, b) and bool(torch.isfinite(a).all())):
             fail(f"{name}: two launches on the same input differ by "
                  f"{float((a - b).abs().max()):.3e}; expected equal bits")
-    log(f"kxy and kxy_bwd: two launches on the same input give equal bits "
-        f"({tot_k // c_k} chunks of {c_k}, D={d})")
+    log(f"qrq, qrq_bwd, kxy and kxy_bwd: two launches on the same input give equal bits "
+        f"({tot_q // c_q} chunks of {c_q}, N={n}; {tot_k // c_k} chunks of {c_k}; D={d})")
     ms = {}
     for name, (kern, plain) in timed.items():
         a, b = kern(), plain()
@@ -396,6 +415,58 @@ def student_slice(torch, np, dev):
         dev_ms, _ = device_ms(torch, kern, f"student_{name}_kernel")
         log(f"{name}: device time {fmt_ms(dev_ms)} a launch (torch.profiler, 10 launches)")
     log(f"SM clock after the profiled launches (current, max): {clocks_line()}")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n_q = tot_q // c_q
+    out_q, out_b = torch.empty((n_q, n + d * n + n * n), **f32), torch.empty((n_q, n + d * n + d),
+                                                                              **f32)
+    out_kb = torch.empty((n_chunks, d), **f32)
+    raw = {
+        "qrq": lambda: lib.smc_qrq_launch(inv_l.data_ptr(), s_q.data_ptr(), xp.data_ptr(), n_q,
+                                          c_q, n, d, dev.index or 0, out_q.data_ptr(), stream),
+        "qrq_bwd": lambda: lib.smc_qrq_bwd_launch(
+            inv_l.data_ptr(), s_q.data_ptr(), xp.data_ptr(), gq.data_ptr(), gR.data_ptr(),
+            gQ2.data_ptr(), n_q, c_q, n, d, dev.index or 0, out_b.data_ptr(), stream),
+        "kxy": lambda: lib.smc_kxy_launch(*kxy_args[:-1], dev.index or 0, kxy_args[-1], stream),
+        "kxy_bwd": lambda: lib.smc_kxy_bwd_launch(*kxy_args[:-1], dev.index or 0,
+                                                  out_kb.data_ptr(), stream),
+    }
+    b_q = dict(zip(("qrq", "qrq_bwd"), qrq_bounds(tot_q, d, n)))
+    goal = {"qrq": 0.030, "qrq_bwd": 0.040}
+    for name, launch in raw.items():
+        log(f"{name}: raw launches {raw_ms(torch, launch):.4f} ms a launch (CUDA events around "
+            f"20 calls of the C entry point behind torch.cuda._sleep)"
+            + (f", bound {b_q[name][0]:.4f} ms ({b_q[name][1]}), goal {goal[name]} ms"
+               if name in b_q else ""))
+    # the q/R/Q kernels at the FS degree-5 rule (N = 33) and on the large
+    # path's widest shape (D = 8, N = 128), each beside its bound
+    for dd, nn in ((4, 33), (8, 128)):
+        s_w = rand.multivariate_t(gen, torch.zeros(dd, **f32), torch.eye(dd, **f32), 4.0,
+                                  (tot_q,))
+        il_w = torch.linspace(0.5, 1.4, dd, **f32)
+        xp_w = torch.randn((nn, dd), generator=wgen, **f32)
+        g_w = [torch.randn(sh, generator=wgen, **f32) for sh in ((nn,), (dd, nn), (nn, nn))]
+        g_w[2] = (g_w[2] + g_w[2].T).contiguous()
+        o_f = torch.empty((n_q, nn + dd * nn + nn * nn), **f32)
+        o_b = torch.empty((n_q, nn + dd * nn + dd), **f32)
+        for tag, out_w, launch, ref in (
+                ("qrq", o_f, lambda: lib.smc_qrq_launch(
+                    il_w.data_ptr(), s_w.data_ptr(), xp_w.data_ptr(), n_q, c_q, nn, dd,
+                    dev.index or 0, o_f.data_ptr(), stream),
+                 lambda: smc._qrq_partials_plain(il_w, s_w, xp_w, c_q)),
+                ("qrq_bwd", o_b, lambda: lib.smc_qrq_bwd_launch(
+                    il_w.data_ptr(), s_w.data_ptr(), xp_w.data_ptr(), *(t.data_ptr() for t in g_w),
+                    n_q, c_q, nn, dd, dev.index or 0, o_b.data_ptr(), stream),
+                 lambda: smc._qrq_bwd_partials_plain(il_w, s_w, xp_w, *g_w, c_q))):
+            if launch() != 0:
+                fail(f"{tag} at D={dd}, N={nn}: the launch failed")
+            rel = rel_err(out_w.double(), ref().double())
+            if not rel < 1e-5:
+                fail(f"{tag} at D={dd}, N={nn}: kernel vs plain relative {rel:.3e} exceeds 1e-5")
+            b_w = qrq_bounds(tot_q, dd, nn)[tag == "qrq_bwd"]
+            log(f"{tag} at D={dd}, N={nn} ({n_q} x {c_q}): raw launches {raw_ms(torch, launch):.4f} "
+                f"ms a launch, bound {b_w[0]:.4f} ms ({b_w[1]}), kernel vs plain relative "
+                f"{rel:.2e} (limit 1e-5)")
+        del s_w
     del s_q, s_k
 
     # ---- 7. Student goldens on the card ----------------------------------
@@ -516,24 +587,20 @@ def student_slice(torch, np, dev):
         log(f"{name}: filter {f_ms[0]:.1f} ms (min {f_ms[1]:.1f}), smoother {s_ms[0]:.1f} ms "
             f"(min {s_ms[1]:.1f})")
 
-    # bounds at these shapes: the f32 samples are read once; per sample, a
-    # Gram row of n exps (special-function unit) and the f32 flops of the
-    # row, q, R and the symmetric half of Q (the backward adds W = gq + x gR
-    # + k (gQ + gQ^T) and its three reductions); kxy needs the exps of the
+    # bounds at these shapes (qrq_bounds); kxy needs the exps of the
     # distinct pairs of each chunk, 3D flops each (5D with the gradient)
     pairs = (tot_k // c_k) * c_k * (c_k - 1) / 2
-    row = n * (3 * d + 1)
+    b_qrq, b_qrq_bwd = qrq_bounds(tot_q, d, n)
     bounds = {
-        "qrq": bound(tot_q * d * 4, (tot_q * n, SFU_OPS_S),
-                     (tot_q * (row + n + 2 * d * n + n * (n + 1)), F32_OPS_S)),
-        "qrq_bwd": bound(tot_q * d * 4, (tot_q * n, SFU_OPS_S),
-                         (tot_q * (row + n * (2 * d + 2 * n) + n + 2 * d * n), F32_OPS_S)),
+        "qrq": b_qrq,
+        "qrq_bwd": b_qrq_bwd,
         "kxy": bound(tot_k * d * 4, (pairs, SFU_OPS_S), (pairs * 3 * d, F32_OPS_S)),
         "kxy_bwd": bound(tot_k * d * 4, (pairs, SFU_OPS_S), (pairs * 5 * d, F32_OPS_S)),
     }
     replaces = {"qrq": 73, "qrq_bwd": 199, "kxy": 325, "kxy_bwd": 406}
     return [{"name": f"student_{name}", "route": "cuda",
-             "source": "ssmtoybox_torch/csrc/student_mc.cu",
+             "source": "ssmtoybox_torch/csrc/" + ("student_qrq.cu" if "qrq" in name
+                                                   else "student_mc.cu"),
              "replaces": f"ssmtoybox_tpu/ops/pallas_ops.py:{line}", "launches": counts[name],
              "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
@@ -1076,8 +1143,8 @@ def main():
     with ThreadPoolExecutor(3) as pool:
         for build in [pool.submit(sf.build), pool.submit(smc.build), pool.submit(vdm.build)]:
             build.result()
-    log(f"built scalar_filter.cu, student_mc.cu and vandermonde.cu for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu and vandermonde.cu for sm_90a "
+        f"in {time.perf_counter() - t0:.1f} s")
     for name in ("scalar_filter", "student_mc", "vandermonde"):
         text = _build.BUILD_LOGS.get(name, "")
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]

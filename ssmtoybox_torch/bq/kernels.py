@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..utils import rand
-from ..utils.arrays import f64
+from ..utils.arrays import f64, resolve_device
 from ..utils.linalg import maha, pd_solve, symmetrize
 
 __all__ = ["RBFGauss", "RBFStudent", "get_kernel"]
@@ -28,7 +28,7 @@ class RBFGauss:
     ``Lam = diag(l^2)``."""
 
     def __init__(self, dim: int, par, jitter: float = 1e-8, device=None):
-        self.par = torch.atleast_2d(f64(par, device))
+        self.par = torch.atleast_2d(f64(par, resolve_device(device)))
         if self.par.shape[-1] != dim + 1:
             raise ValueError(f"RBF parameters must be [s, l_1..l_{dim}]; got shape "
                              f"{tuple(self.par.shape)}")

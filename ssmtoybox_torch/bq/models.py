@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..points import get_points
-from ..utils.arrays import f64
+from ..utils.arrays import f64, resolve_device
 from ..utils.combin import total_degree_multi_index, vandermonde
 from ..utils.linalg import gen_solve, pd_solve, symmetrize
 from .kernels import get_kernel
@@ -44,6 +44,7 @@ class GaussianProcessModel:
 
     def __init__(self, dim: int, kern_par, kern_str: str = "rbf", point_str: str = "ut",
                  point_par=None, device=None, **kern_kwargs):
+        device = resolve_device(device)
         self.kernel = get_kernel(dim, kern_str, kern_par, device=device, **kern_kwargs)
         self.points = f64(get_points(dim, point_str, point_par), device)
         self.dim_in = dim

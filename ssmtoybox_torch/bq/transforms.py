@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..mtran import MomentTransform, apply_f_columns
-from ..utils.arrays import f64
+from ..utils.arrays import f64, resolve_device
 from ..utils.linalg import chol_small
 from .models import BayesSardModel, GaussianProcessModel, StudentTProcessModel, tp_scale
 
@@ -38,6 +38,7 @@ class BQTransform(MomentTransform):
 
     def __init__(self, points, wm, Wc, Wcc, model_var, dim_out: int = 1, iK=None,
                  integral_var=None, device=None):
+        device = resolve_device(device)
         self.points = f64(points, device)
         self.wm = f64(wm, device)
         self.Wc = f64(Wc, device)

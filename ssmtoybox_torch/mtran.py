@@ -16,7 +16,7 @@ from typing import Callable
 import torch
 
 from . import points as pts
-from .utils.arrays import f64
+from .utils.arrays import f64, resolve_device
 from .utils.linalg import chol_small
 
 __all__ = [
@@ -55,6 +55,7 @@ class SigmaPointTransform(MomentTransform):
         if (wc_diag is None) == (Wc_dense is None):
             raise ValueError("SigmaPointTransform needs exactly one of wc_diag "
                              "(classical diagonal rule) or Wc_dense (general rule)")
+        device = resolve_device(device)
         self.unit_sp = f64(unit_sp, device)          # (D, N)
         self.wm = f64(wm, device)                    # (N,)
         self.wc_diag = None if wc_diag is None else f64(wc_diag, device)

@@ -3,7 +3,8 @@
 Sources live in ``ssmtoybox_torch/csrc``.  A library is compiled on first use
 into ``build/kernels/`` beside the package, under a name that hashes the
 sources, every header of ``csrc`` and the compiler command, so an edited
-source never loads a stale build.  Compiling goes to a process-unique
+source never loads a stale build; the sources of one library compile at
+once, a compiler each.  Compiling goes to a process-unique
 temporary file that is renamed into place, so concurrent processes never load
 a half-written library.
 
@@ -20,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build", "kernels")
@@ -75,15 +77,34 @@ def load(name: str, sources: list[str], cmd: list[str]) -> ctypes.CDLL:
         if not os.path.exists(lib_path):
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{lib_path}.{os.getpid()}.tmp"
-            proc = subprocess.run(cmd + [f"-I{CSRC}", "-o", tmp] + paths,
-                                  capture_output=True, text=True)
-            BUILD_LOGS[name] = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            ok, BUILD_LOGS[name] = _compile(cmd, paths, tmp)
+            if not ok:
                 raise RuntimeError(f"building {name} failed ({' '.join(cmd)}):\n"
                                    f"{BUILD_LOGS[name]}")
             os.replace(tmp, lib_path)
         _loaded[name] = ctypes.CDLL(lib_path)
         return _loaded[name]
+
+
+def _compile(cmd: list[str], paths: list[str], out: str) -> tuple[bool, str]:
+    """Build the shared library ``out`` from ``paths`` with ``cmd``: the
+    sources are compiled to objects at once, one compiler each, and linked.
+    Returns whether it worked and the compilers' output."""
+    run = lambda args: subprocess.run(args, capture_output=True, text=True)  # noqa: E731
+    objs = [f"{out}.{i}.o" for i in range(len(paths))]
+    compile_cmd = [a for a in cmd if a != "-shared"] + ["-c", f"-I{CSRC}"]
+    with ThreadPoolExecutor(len(paths)) as pool:
+        procs = list(pool.map(lambda po: run(compile_cmd + ["-o", po[1], po[0]]),
+                              zip(paths, objs)))
+    ok = all(p.returncode == 0 for p in procs)
+    log = "".join(p.stdout + p.stderr for p in procs)
+    if ok:
+        link = run([cmd[0], "-shared", "-o", out] + objs)
+        ok, log = link.returncode == 0, log + link.stdout + link.stderr
+    for o in objs:
+        if os.path.exists(o):
+            os.remove(o)
+    return ok, log
 
 
 def bound(name: str, sources: list[str], bind, flags=(), host: bool = False) -> ctypes.CDLL:

@@ -139,14 +139,22 @@ def _floats(t) -> tuple:
 
 def _memo(obj, slot: str, sources: tuple, make):
     """``make()``, kept on ``obj`` for as long as ``sources`` are the very
-    objects it was made from (a copy of ``obj`` whose tensors were replaced
-    carries the entry along but not the sources, and is lowered anew)."""
+    objects it was made from, none edited in place since (a tensor's
+    ``_version`` counts its in-place edits; a copy of ``obj`` whose tensors
+    were replaced carries the entry along but not the sources, and is lowered
+    anew).  Inference tensors count no edits, so what is made from one is not
+    kept.  A hit reads nothing from the card."""
+    tensors = [s for s in sources if isinstance(s, torch.Tensor)]
+    if any(t.is_inference() for t in tensors):
+        obj.__dict__.pop(slot, None)
+        return make()
+    stamps = tuple(t._version for t in tensors)
     hit = obj.__dict__.get(slot)
-    if hit is not None and len(hit[0]) == len(sources) and all(
+    if hit is not None and hit[1] == stamps and len(hit[0]) == len(sources) and all(
             a is b for a, b in zip(hit[0], sources)):
-        return hit[1]
+        return hit[2]
     value = make()
-    obj.__dict__[slot] = (sources, value)
+    obj.__dict__[slot] = (sources, stamps, value)
     return value
 
 

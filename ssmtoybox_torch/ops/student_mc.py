@@ -2,8 +2,9 @@
 CUDA kernels, launchers, plain versions and autograd.
 
 Counterpart of the RBF-Student part of the JAX package's
-``ops/pallas_ops.py``: four TPU kernels become four CUDA kernels in
-``csrc/student_mc.cu`` (per-element math in ``csrc/student_mc_rows.cuh``):
+``ops/pallas_ops.py``: four TPU kernels become CUDA kernels in
+``csrc/student_qrq.cu`` (q/R/Q) and ``csrc/student_mc.cu`` (pairwise), one
+library, with the math in ``csrc/student_mc_rows.cuh``:
 
 - ``qrq``     (``_student_exp_kernel``): per-chunk sums of ``q[n] = sum_s k[s, n]``,
   ``R[d, n] = sum_s x[s, d] k[s, n]`` and ``Q[n, m] = sum_s k[s, n] k[s, m]``;
@@ -132,9 +133,10 @@ def _kxy_bwd_partials_plain(inv_l, xs, chunk):
 # ---------------------------------------------------------------------------
 
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/student_mc.cu`` for sm_90a with nvcc (once) and bind it;
-    later calls return the bound library."""
-    return _build.bound("student_mc", ["student_mc.cu"], _bind)
+    """Compile ``csrc/student_mc.cu`` and ``csrc/student_qrq.cu`` for sm_90a
+    with nvcc (once, the two at once) into one library and bind it; later
+    calls return the bound library."""
+    return _build.bound("student_mc", ["student_mc.cu", "student_qrq.cu"], _bind)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -160,6 +162,8 @@ def _bind_host(lib: ctypes.CDLL):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.smc_host_qrq.argtypes = [p] * 3 + [i] * 4 + [p]
     lib.smc_host_qrq_bwd.argtypes = [p] * 6 + [i] * 4 + [p]
+    lib.smc_host_qrq_bucket.argtypes = [i]
+    lib.smc_host_qrq_bucket.restype = ctypes.c_int
     lib.smc_host_kxy.argtypes = [p] * 2 + [i] * 4 + [p]
     for f in (lib.smc_host_qrq, lib.smc_host_qrq_bwd, lib.smc_host_kxy):
         f.restype = None

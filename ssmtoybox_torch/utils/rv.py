@@ -86,6 +86,7 @@ class GaussianMixtureRV:
     covariance."""
 
     def __init__(self, dim: int, means, covs, alphas, device=None):
+        device = resolve_device(device)
         self.means = torch.stack([f64(m, device).reshape(-1).expand(dim) for m in means])
         self.covs = torch.stack([torch.atleast_2d(f64(c, device)) for c in covs])
         self.alphas = f64(alphas, device)

@@ -30,7 +30,10 @@ from ssmtoybox_torch.bq.models import BayesSardModel
 from ssmtoybox_torch.bq.transforms import BayesSardTransform
 from ssmtoybox_torch.ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition,
                                    UNGMMeasurement, UNGMTransition)
-from ssmtoybox_torch.utils import GaussRV
+from ssmtoybox_torch.bq.kernels import RBFGauss, RBFStudent
+from ssmtoybox_torch.bq.transforms import BQTransform
+from ssmtoybox_torch.mtran import SigmaPointTransform
+from ssmtoybox_torch.utils import GaussianMixtureRV, GaussRV, StudentRV
 from ssmtoybox_torch.utils.arrays import default_device, f64
 
 
@@ -111,6 +114,43 @@ def test_the_card_is_the_default_and_tensors_keep_their_device(monkeypatch):
         assert default_device() == torch.device("cpu")
     finally:
         set_device("cpu")
+
+
+def _cpu(*shape):
+    return torch.ones(shape, dtype=torch.float64)
+
+
+#: constructors handed CPU tensors with ``device=None``, and a member each
+#: that must land on the default device
+BUILT_FROM_CPU_TENSORS = {
+    "GaussianMixtureRV": (lambda: GaussianMixtureRV(1, [_cpu(1), _cpu(1)], [_cpu(1, 1)] * 2,
+                                                    torch.tensor([0.5, 0.5])), "means"),
+    "SigmaPointTransform": (lambda: SigmaPointTransform(_cpu(1, 3), _cpu(3), wc_diag=_cpu(3)),
+                            "wm"),
+    "BQTransform": (lambda: BQTransform(_cpu(1, 3), _cpu(3), torch.eye(3, dtype=torch.float64),
+                                        _cpu(1, 3), 1.0), "Wcc"),
+    "RBFGauss": (lambda: RBFGauss(1, _cpu(1, 2)), "par"),
+    "RBFStudent": (lambda: RBFStudent(1, _cpu(1, 2)), "par"),
+    "GaussRV": (lambda: GaussRV(1, _cpu(1), _cpu(1, 1)), "cov"),
+    "StudentRV": (lambda: StudentRV(1, _cpu(1), _cpu(1, 1)), "scale"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(BUILT_FROM_CPU_TENSORS))
+def test_device_none_moves_cpu_tensors_to_the_default_device(name):
+    """``device=None`` names the default device for tensor arguments too: CPU
+    tensors handed to a constructor land where ``set_device`` points (here
+    ``meta``), beside the members made from nothing."""
+    make, member = BUILT_FROM_CPU_TENSORS[name]
+    try:
+        set_device("meta")
+        obj = make()
+    finally:
+        set_device("cpu")
+    assert getattr(obj, member).device.type == "meta"
+    if name == "BQTransform":
+        assert obj._emv.device.type == "meta"
+        assert obj.replace(model_var=2.0).Wc.device.type == "meta"   # the copy stays there
 
 
 # ---------------------------------------------------------------------------

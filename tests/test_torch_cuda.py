@@ -86,8 +86,11 @@ def _rel(a, b):
     return float((a - b).abs().max() / b.abs().max())
 
 
-# (D, N, chunk): the CV glint study's shape, and ragged tiles at the limits
-STUDENT_SHAPES = [(4, 9, 4096), (3, 7, 300), (8, 128, 1024), (1, 1, 8)]
+# (D, N, chunk): the CV glint study's shape, ragged tiles at the limits, the
+# FS degree-5 rule at D = 4 (N = 33) and the large path's shapes just past
+# the small one (D = 5, N = 11) and with points not a multiple of 4 (N = 81)
+STUDENT_SHAPES = [(4, 9, 4096), (3, 7, 300), (8, 128, 1024), (1, 1, 8), (4, 33, 4096),
+                  (5, 11, 1000), (2, 81, 300)]
 
 
 @pytest.mark.parametrize("d,n,chunk", STUDENT_SHAPES)
@@ -143,6 +146,23 @@ def test_student_kxy_kernels_repeat_to_the_bit(card, d, chunk):
         assert torch.equal(a, b) and bool(torch.isfinite(a).all()), fn.__name__
 
 
+@pytest.mark.parametrize("d,n,chunk", [(4, 9, 4096), (4, 33, 4096), (8, 128, 1024), (3, 7, 300)])
+def test_student_qrq_kernels_repeat_to_the_bit(card, d, n, chunk):
+    """No atomics and a fixed order of summation: two launches of the q/R/Q
+    kernels (small and large path) on the same input give the same bits."""
+    from ssmtoybox_torch.ops import student_mc as smc
+    samples, x, par = _student_case(card, d, n, 5 * chunk, seed=80 + d + n)
+    _, inv_l, xp = smc._kernel_args(par, x)
+    gq, gR, gQ = (torch.randn(s, generator=torch.Generator(device=card).manual_seed(d),
+                              device=card) for s in ((n,), (d, n), (n, n)))
+    gQ2 = (gQ + gQ.T).contiguous()
+    for fn in (lambda: smc.qrq_sums(inv_l, samples, xp, chunk),
+               lambda: smc.qrq_bwd_sums(inv_l, samples, xp, gq, gR, gQ2, chunk)):
+        a, b = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(a, b) and bool(torch.isfinite(a).all())
+
+
 def test_student_kernels_refuse_shapes_beyond_their_limits(card):
     from ssmtoybox_torch.ops import student_mc as smc
     before = dict(smc.LAUNCHES)
@@ -196,6 +216,26 @@ def test_the_card_is_the_default_device(card):
     assert ukf.tf_dyn.wm.device.type == "cuda" and dyn.noise_gain.device.type == "cuda"
     res = ukf.forward_pass_batch(np.zeros((3, 1, 5)), engine="dd")
     assert res.fi_mean.device.type == "cuda" and res.fi_cov.device.type == "cuda"
+
+
+def test_device_none_moves_cpu_tensors_to_the_card(card):
+    """CPU tensors handed to a constructor with no ``device`` land on the
+    card, beside the members made from nothing."""
+    from ssmtoybox_torch.bq import BQTransform
+    from ssmtoybox_torch.bq.kernels import RBFStudent
+    from ssmtoybox_torch.mtran import SigmaPointTransform
+    from ssmtoybox_torch.utils import GaussianMixtureRV
+    stt.set_device(None)
+    one = lambda *shape: torch.ones(shape, dtype=torch.float64)   # noqa: E731
+    built = {
+        "GaussianMixtureRV": GaussianMixtureRV(1, [one(1), one(1)], [one(1, 1)] * 2,
+                                               torch.tensor([0.5, 0.5])).means,
+        "SigmaPointTransform": SigmaPointTransform(one(1, 3), one(3), wc_diag=one(3)).wm,
+        "BQTransform": BQTransform(one(1, 3), one(3), torch.eye(3, dtype=torch.float64),
+                                   one(1, 3), 1.0).Wcc,
+        "RBFStudent": RBFStudent(1, one(1, 2)).par,
+    }
+    assert {k: t.device.type for k, t in built.items()} == {k: "cuda" for k in built}
 
 
 WIDE_RULES = {

@@ -270,6 +270,38 @@ def test_the_fused_engine_lowers_a_configuration_once(monkeypatch):
     assert torch.equal(first.fi_mean, again.fi_mean)
 
 
+@pytest.mark.parametrize("inference", [False, True])
+@pytest.mark.parametrize("name", ["ukf", "bsq_gh5"])
+def test_an_edited_transform_is_lowered_anew(monkeypatch, name, inference):
+    """A transform's rule is kept for as long as its weights are not edited
+    in place: after ``tf.wm.mul_(...)`` (classical) or ``tf.Wc[...] = ...``
+    (BQ) the fused engine lowers it again and agrees with the eager float64
+    path, within ``test_wide_rules_fused_match_eager_f64``'s 1e-9 over 20
+    steps; without an edit the rule is not lowered again.  A transform built
+    under ``torch.inference_mode`` has weights that count no edits, and its
+    rule is lowered at every call."""
+    with torch.inference_mode(inference):
+        alg = {**{k: v[0] for k, v in ALGS.items()}, **WIDE}[name](*_models())
+        calls = []
+        lower = sf._lower
+        monkeypatch.setattr(sf, "_lower", lambda tf: calls.append(tf) or lower(tf))
+        ys = np.random.default_rng(10).normal(0.0, 3.0, size=(4, 1, 20))
+        before = alg.forward_pass_batch(ys, engine="dd")
+        alg.forward_pass_batch(ys, engine="dd")
+        assert len(calls) == (4 if inference else 2)                   # kept: dyn and obs
+        if name == "ukf":
+            alg.tf_dyn.wm.mul_(1.01)
+        else:
+            alg.tf_dyn.Wc[0, 0] = alg.tf_dyn.Wc[0, 0] * 1.01
+        fused, eager = alg.forward_pass_batch(ys, engine="dd"), alg.forward_pass_batch(ys)
+        if not inference:
+            assert len(calls) == 3 and calls[-1] is alg.tf_dyn         # the edited one only
+        assert float((fused.fi_mean - before.fi_mean).abs().max()) > 1e-6
+        for f in FIELDS:
+            np.testing.assert_allclose(getattr(fused, f).numpy(), getattr(eager, f).numpy(),
+                                       atol=1e-9, rtol=1e-9, err_msg=f)
+
+
 def test_every_parameter_set_gets_its_own_struct():
     p1, p2 = _shape_params("ukf"), _shape_params("gh5")
     c1, c2 = sf._c_params(p1), sf._c_params(p2)

@@ -208,6 +208,57 @@ def test_header_on_host_matches_plain_versions():
     assert _rel(bwd, smc._kxy_bwd_partials_plain(inv_l, xs, chunk)) < F32_REL
 
 
+def _qrq_case(d, n, chunk, chunks):
+    samples, x, par = _fused_case(d, n, chunk, chunks, seed=70 + 10 * d + n)
+    xs = torch.as_tensor(samples)
+    inv_l = (1.0 / torch.as_tensor(par[0, 1:]).float()).contiguous()
+    xp = torch.as_tensor(x.T).float().contiguous()
+    rng = np.random.default_rng(d + n)
+    gq, gR, gQ = (torch.as_tensor(rng.normal(size=s)).float() for s in ((n,), (d, n), (n, n)))
+    return inv_l, xs, xp, gq, gR, (gQ + gQ.T).contiguous()
+
+
+# (D, N, chunk, chunks): the study's shape (one chunk of 4,096, the small
+# path's bucket at D = 4), a ragged chunk on the small path (300 samples: two
+# rounds of 128 threads and a part), fewer points than the bucket (masked),
+# the first large shape at D = 4, several large-path tiles and a ragged one
+# (1,000 samples in tiles of 384), the FS degree-5 rule (N = 33), points not a
+# multiple of 4 (N = 81), the widest shape, and (1, 1)
+@pytest.mark.parametrize("d,n,chunk,chunks", [(4, 9, 4096, 1), (3, 7, 300, 3), (4, 5, 300, 2),
+                                              (4, 10, 300, 2), (5, 11, 1000, 1),
+                                              (4, 33, 1024, 1), (2, 81, 300, 1),
+                                              (8, 128, 256, 1), (1, 1, 8, 3)])
+def test_header_qrq_walk_matches_plain(d, n, chunk, chunks):
+    """The q/R/Q kernels' walk (student_mc_host.cpp replays both paths with
+    g++: the small path's threads, masked bucket points, shuffle trees and
+    warps in order; the large path's double-buffered tiles, masked padded
+    points and samples, micro-tiles and groups) against the plain versions,
+    forward and backward, 1e-5."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the header cannot be built for the host")
+    lib = smc._host_shim()
+    inv_l, xs, xp, gq, gR, gQ2 = _qrq_case(d, n, chunk, chunks)
+    out = torch.full((chunks, n + d * n + n * n), float("nan"))
+    lib.smc_host_qrq(inv_l.data_ptr(), xs.data_ptr(), xp.data_ptr(), chunks, chunk, n, d,
+                     out.data_ptr())
+    assert _rel(out, smc._qrq_partials_plain(inv_l, xs, xp, chunk)) < F32_REL
+    out = torch.full((chunks, n + d * n + d), float("nan"))
+    lib.smc_host_qrq_bwd(inv_l.data_ptr(), xs.data_ptr(), xp.data_ptr(), gq.data_ptr(),
+                         gR.data_ptr(), gQ2.data_ptr(), chunks, chunk, n, d, out.data_ptr())
+    assert _rel(out, smc._qrq_bwd_partials_plain(inv_l, xs, xp, gq, gR, gQ2, chunk)) < F32_REL
+
+
+def test_header_qrq_crossover():
+    """The small path's point bucket at D is the largest N <= 2 D + 1 (the UT
+    and degree-3 FS rules) whose forward keeps at most 132 sums a thread;
+    every larger N up to 128 runs on the large path."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the header cannot be built for the host")
+    lib = smc._host_shim()
+    buckets = {d: lib.smc_host_qrq_bucket(d) for d in range(1, smc.MAX_D + 1)}
+    assert buckets == {1: 3, 2: 5, 3: 7, 4: 9, 5: 11, 6: 10, 7: 9, 8: 9}
+
+
 def _host_kxy(lib, inv_l, xs, chunk):
     """Per-chunk results of the pairwise kernels' tile walk on the host:
     the Gram sums (chunks,) and the gradient partials (chunks, D)."""

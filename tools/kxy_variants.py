@@ -4,7 +4,8 @@ several compile-time settings and time them on one CUDA card.
 
     python3 tools/kxy_variants.py [--dims 4,8] [--reps 20] NAME[:MACRO=VALUE,...] ...
 
-Every variant is one nvcc build of ``student_mc.cu`` with its macros added as
+Every variant is one build of ``student_mc.cu`` (with ``student_qrq.cu``, its
+library's other source) with its macros added as
 ``-D`` flags: ``SMC_KXY_MIN_BLOCKS_FWD`` / ``SMC_KXY_MIN_BLOCKS_BWD`` (blocks
 an SM the register budget of the forward / backward kernel must allow at
 D <= 4; ``student_mc.cu``).  ``default`` with no macro is the build the
@@ -52,7 +53,8 @@ def main():
     for spec in args.variants:
         name, _, macros = spec.partition(":")
         flags = [f"-D{m}" for m in macros.split(",") if m]
-        libs[name] = smc._bind(_build.load(f"student_mc_{name}", ["student_mc.cu"],
+        libs[name] = smc._bind(_build.load(f"student_mc_{name}",
+                                           ["student_mc.cu", "student_qrq.cu"],
                                            [_build.find_nvcc()] + smc._NVCC_FLAGS + flags))
         lines = _build.BUILD_LOGS.get(f"student_mc_{name}", "").splitlines()
         for i, line in enumerate(lines):
