@@ -8,9 +8,9 @@ fails at once without them.  Phases, each fatal on failure:
 
 1. set-up: print the card's name and power limit, build the CUDA sources
    ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
-   ``student_qrq.cu`` and ``vandermonde.cu`` for sm_90a (one nvcc each, at
-   once; the two Student-MC sources make one library) and print their
-   ptxas lines; the UNGM UKF lane is built with no device argument and
+   ``student_qrq.cu``, ``vandermonde.cu`` and ``vector_filter.cu`` for sm_90a
+   (one nvcc each, at once; the two Student-MC sources make one library) and
+   print their ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
 2. the scalar filter kernel vs its plain PyTorch twin, both on the card, for
    the UKF and the GPQ rule: one step at B=4096 (pointwise 1e-13), 20 steps
@@ -23,8 +23,9 @@ fails at once without them.  Phases, each fatal on failure:
    read through their strides;
 3. the port against the repo's golden references (tests/goldens) on the card;
 4. the Gaussian main path at the study sizes: 10,000 trajectories in
-   float64, UNGM UKF and GPQKF through the kernel (``engine="dd"``), reentry
-   UKF through the eager batched path, then the RTS smoother and RMSE;
+   float64, UNGM UKF and GPQKF through the scalar filter kernel and reentry
+   UKF through the vector filter kernel (``engine="dd"``), then the RTS
+   smoother and RMSE;
 5. timings with CUDA events after a warm-up;
 6. the four RBF-Student Monte-Carlo kernels vs their plain versions on the
    same samples, at the CV radar glint study's shapes (D = 4, the 9 points of
@@ -65,8 +66,13 @@ fails at once without them.  Phases, each fatal on failure:
     a BSQ-GH NCI not below the classical GH one;
 12. the BSQ reentry tracking study (``experiments/bsq_tracking.py``): truth
     by Euler-Maruyama at dt 0.05 for 200 s, 10,000 trajectories, 2,000
-    filter steps; BSQKF with three EMV overrides and the UKF; fails unless
-    RMSE orders bsqkf < bsqkf_2e-6 < ukf;
+    filter steps; BSQKF with three EMV overrides and the UKF, each through
+    ``engine="auto"`` (the UKF runs in the vector filter kernel, the BSQ
+    lanes' matrix overrides send them to the eager path) and the UKF also
+    eagerly; fails unless the engines are those, the UKF lane's kernel
+    result equals the plain version run on the same 10,000 x 2,000 input to
+    the bit (all five streams), the UKF's RMSE is the eager lane's to the
+    digits printed and RMSE orders bsqkf < bsqkf_2e-6 < ukf;
 13. the Monte-Carlo verifiers (10 x 100,000 samples) on the tracking
     dynamics rule: ``mc_exp_x_kxpx`` against the closed form at atol 5e-3,
     10 and 11 Vandermonde launches;
@@ -80,7 +86,26 @@ fails at once without them.  Phases, each fatal on failure:
     call and lane beside its raw launch, the transposed copy the lane no
     longer makes, the two verifiers' 21 calls, and the chain floor of the
     scalar filter kernel (the dependent-issue latencies of the card times the
-    operations on the critical path of a step) beside its bound.
+    operations on the critical path of a step) beside its bound; the vector
+    filter kernel on the tracking UKF lane (raw launches, bound, chain floor);
+15. the vector filter kernel (``csrc/vector_filter.cu``) against its plain
+    version, both on the card, to the bit, 20 steps, all five streams: the
+    reentry + radar system under UKF, CKF, GH-3 (243 points), GPQ-UT and
+    BSQ-UT, the CV radar system under UKF and BSQ-UT, and mixed kinds (all
+    eight instantiations), at B = 1, 7, 4,097 and 10,000; two launches on one
+    input equal to the bit;
+16. the reentry bench lane (10,000 x 100, the main path's run) through the
+    kernel against the eager f64 lane: each stream's max |diff| within the
+    JAX package's dd-vs-f64 tolerances (1e-6 on means, 1e-7 on covariances),
+    filter and smoother RMSE within 1e-6 relative, one launch a call;
+17. ``tests/goldens/reentry.npz`` ``ukf`` and ``bsqkf`` through
+    ``engine="dd"`` on the card (1e-7 / 1e-6);
+18. the main path's kernel result on the bench lane against the plain
+    version at its full 10,000 x 100, to the bit, all five streams; then
+    timings: raw launches of the vector filter kernel on the bench lane under
+    each rule beside its bound and chain floor (the card's dependent-issue
+    latencies, exp and atan2 included), the wrapper call, the plain version
+    and the lane through both engines.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -704,11 +729,12 @@ def bsq_slice(torch, np, dev, xs, ys):
     """Phases 9-14: the Bayes-Sard quadrature path and the Vandermonde
     kernel.  ``xs``/``ys`` are the main path's UNGM study data (10,000 x 500,
     the set-up of ``experiments/bsq_ungm.py``).  Returns the Vandermonde
-    kernel's entry of the ``kernels`` line and the scalar filter kernel's
-    launches and 7-point figures on this path."""
+    kernel's entry of the ``kernels`` line, the scalar filter kernel's
+    launches on this path, and the vector filter kernel's launches and max
+    |diff| from its plain version on the tracking UKF lane."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.bq.models import BayesSardModel, _exp_x_kxpx
-    from ssmtoybox_torch.ops import scalar_filter as sf, vandermonde as vdm
+    from ssmtoybox_torch.ops import scalar_filter as sf, vandermonde as vdm, vector_filter as vf
     from ssmtoybox_torch.ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition,
                                        UNGMMeasurement, UNGMTransition)
     from ssmtoybox_torch.utils import GaussRV
@@ -917,7 +943,7 @@ def bsq_slice(torch, np, dev, xs, ys):
         GaussRV(3, cov=np.diag([2.4e-5, 2.4e-5, 1e-6]), device=dev), dt=TRACK_DT)
     overrides = {"bsqkf": np.diag([2e-4] * 5), "bsqkf_2e-6": 2e-6 * np.eye(5),
                  "bsqkf_2e-7": 2e-7 * np.eye(5)}
-    sf.LAUNCHES = vdm.LAUNCHES = 0
+    sf.LAUNCHES = vdm.LAUNCHES = vf.LAUNCHES = 0
     t_algs, t_build = {}, {}
     for name, mv in overrides.items():
         t0 = time.perf_counter()
@@ -929,24 +955,51 @@ def bsq_slice(torch, np, dev, xs, ys):
         t_build[name] = time.perf_counter() - t0
         t_algs[name] = alg
     t_algs["ukf"] = stt.UnscentedKalman(dyn_t, obs_t, beta=0.0)
-    track_ms, track = {}, {}
-    for name, alg in t_algs.items():
-        track_ms[name], res = event_ms(torch, lambda: alg.forward_pass_batch(ys_t))
+    # every lane through engine="auto": the UKF runs in the vector filter
+    # kernel; the BSQ lanes' matrix EMV overrides send them to the eager path,
+    # as the JAX package's engine="auto" does; the UKF also eagerly
+    track_ms, track, engine_of, track_err = {}, {}, {}, 0.0
+    lanes_t = [(name, "auto") for name in t_algs] + [("ukf", "f64")]
+    for name, engine in lanes_t:
+        alg, before = t_algs[name], vf.LAUNCHES
+        ms, res = event_ms(torch, lambda: alg.forward_pass_batch(ys_t, engine=engine))
+        ran = "dd" if vf.LAUNCHES > before else "f64"
+        key = name if engine == "auto" else f"{name}_f64"
+        engine_of[key], track_ms[key] = ran, ms
         rmse_r, inc_r, nll_r, _ = study_scores(torch, xs_t, res.fi_mean, res.fi_cov)
+        if ran == "dd":
+            # the kernel's result on this path against its plain version, at full shape
+            t0 = time.perf_counter()
+            plain = vf._vector_filter_plain(vf.prepare(dyn_t, obs_t, alg.tf_dyn, alg.tf_obs),
+                                            ys_t)
+            torch.cuda.synchronize()
+            t_plain = time.perf_counter() - t0
+            track_err = vf_against_plain(torch, res, plain, f"tracking {name} {tuple(ys_t.shape)}")
+            del plain
+            log(f"tracking {name} {MC}x{ys_t.shape[-1]}: the kernel's result == plain version to "
+                f"the bit, all five streams (plain version {t_plain:.1f} s)")
         del res
         ok = torch.isfinite(rmse_r) & torch.isfinite(inc_r) & torch.isfinite(nll_r)
         bad = 1.0 - float(ok.double().mean())
-        track[name] = float(rmse_r[ok].mean())
-        log(f"tracking {name} ({MC}x{xs_t.shape[-1]}, eager f64): RMSE {track[name]:.4f}, INC "
-            f"{float(inc_r[ok].mean()):.4f}, diverged {bad:.4%}, first filter "
-            f"{track_ms[name]:.1f} ms")
+        track[key] = float(rmse_r[ok].mean())
+        log(f"tracking {name} ({MC}x{xs_t.shape[-1]}, engine={engine!r} ran {ran}): RMSE "
+            f"{track[key]:.4f}, INC {float(inc_r[ok].mean()):.4f}, diverged {bad:.4%}, first "
+            f"filter {ms:.1f} ms")
         if bad > 0.01:
             fail(f"tracking {name}: {bad:.2%} of the runs are not finite (limit 1%)")
     torch.cuda.synchronize()
-    track_launches = vdm.LAUNCHES
-    log(f"BSQ tracking path launches: Vandermonde {track_launches}")
+    track_launches, track_vf = vdm.LAUNCHES, vf.LAUNCHES
+    log(f"BSQ tracking path launches: Vandermonde {track_launches}, vector filter {track_vf}; "
+        f"engines {engine_of}")
     if track_launches < 6:
         fail(f"the Vandermonde kernel ran {track_launches} times for the 3 BSQ tracking filters")
+    if engine_of != {"bsqkf": "f64", "bsqkf_2e-6": "f64", "bsqkf_2e-7": "f64", "ukf": "dd",
+                     "ukf_f64": "f64"} or track_vf != 1:
+        fail(f"tracking lanes ran on the engines {engine_of} with {track_vf} vector filter "
+             "launches; expected the UKF alone through the kernel, once")
+    if f"{track['ukf']:.4f}" != f"{track['ukf_f64']:.4f}":
+        fail(f"tracking UKF RMSE through the kernel {track['ukf']:.4f} differs from the eager "
+             f"lane's {track['ukf_f64']:.4f}")
     if not track["bsqkf"] < track["bsqkf_2e-6"] < track["ukf"]:
         fail(f"tracking RMSE does not order bsqkf < bsqkf_2e-6 < ukf: {track}")
 
@@ -1000,10 +1053,20 @@ def bsq_slice(torch, np, dev, xs, ys):
         t["smoother"] = cuda_ms(torch, lambda: stt.gaussian_smoother(res), reps=2)
         log(f"UNGM {name}: " + ", ".join(f"{k} {v[0]:.2f} ms (min {v[1]:.2f})"
                                         for k, v in t.items()))
-    for name, alg in t_algs.items():
-        ms, res = event_ms(torch, lambda: alg.forward_pass_batch(ys_t))
+    for name, engine in lanes_t:
+        alg, key = t_algs[name], name if engine == "auto" else f"{name}_f64"
+        ms, res = event_ms(torch, lambda: alg.forward_pass_batch(ys_t, engine=engine))
         del res
-        log(f"tracking {name}: filter {ms:.1f} ms (second run; first {track_ms[name]:.1f} ms)")
+        log(f"tracking {name} ({engine_of[key]}): filter {ms:.1f} ms (second run; first "
+            f"{track_ms[key]:.1f} ms)")
+    p_t = vf.prepare(dyn_t, obs_t, t_algs["ukf"].tf_dyn, t_algs["ukf"].tf_obs)
+    raw_t = raw_ms(torch, vf_raw(torch, vf, p_t, ys_t, dev), reps=5)
+    b_t = vf_bound(p_t, ys_t.shape[-1], MC)
+    floor_t = vf.chain_floor_clocks(sf.dependent_latencies(dev), p_t)
+    log(f"vector_filter tracking UKF {MC}x{ys_t.shape[-1]}: raw launches {raw_t:.3f} ms a "
+        f"launch (CUDA events around 5 behind torch.cuda._sleep), bound {b_t[0]:.3f} ms "
+        f"({b_t[1]}), chain floor {floor_t:.0f} clocks a step = "
+        f"{floor_t * ys_t.shape[-1] / (float(clocks_line().split()[0]) * 1e3):.3f} ms")
     lib_sf, lib_vdm = sf.build(), vdm.build()
     out_sf = torch.empty((5,) + tuple(y_tm.shape), **f64)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -1108,7 +1171,236 @@ def bsq_slice(torch, np, dev, xs, ys):
              "replaces": "ssmtoybox_tpu/ops/pallas_ops.py:470",
              "launches": ungm_launches["vandermonde"] + track_launches, "max_abs_err": vdm_err,
              "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    return entry, ungm_launches["scalar_filter"]
+    return entry, ungm_launches["scalar_filter"], track_vf, track_err
+
+
+#: the vector filter kernel's checks: 20 steps at these batch sizes; GPQ
+#: lengthscales long enough that the reentry filter stays positive definite,
+#: and a BSQ rule for the CV radar system (its BQ instantiations)
+VF_STEPS = 20
+VF_BATCHES = (1, 7, 4097, MC)
+VF_GPQ_DYN, VF_GPQ_OBS = [[1.0, 10, 10, 10, 10, 10]], [[1.0, 10, 10, 1e4, 1e4, 1e4]]
+VF_CV_BSQ = [[1.0, 100.0, 100.0, 100.0, 100.0]]
+#: the ceilings of the reentry lane's dd-vs-f64 comparison: the JAX package's
+#: own (tests/test_ddvec.py:109-134), means and covariances
+VF_MEAN_ATOL, VF_COV_ATOL = 1e-6, 1e-7
+
+
+def vf_bound(params, n_steps, batch):
+    """Bound of the vector filter kernel on ``n_steps`` x ``batch``: it reads y
+    and writes the five streams (2 D + 3 D^2 doubles a step); its f64
+    operations counted a point (``L xi`` once, though the kernel makes it
+    again for a classical rule's second pass; the mean, the model at ~30 for
+    reentry, 4 for CV, 8 for the radar, the moment sums) and a step (the
+    three Cholesky factors, the gain and the update), a square root, exp,
+    atan2 or divide as one."""
+    D, E = params.dim_state, params.dim_out
+
+    def per_point(rule, eo, model):
+        ops = D * (D + 1) + D + model + 2 * eo
+        if rule.kind == 0:
+            return ops + eo + 3 * eo * (eo + 1) // 2 + 3 * eo * D
+        return ops + 2 * rule.n * eo + eo * (eo + 1) + 2 * eo * D
+
+    def chol(n):
+        return n * (n + 1) * (n + 2) // 3
+
+    per_step = (2 * chol(D) + chol(E) + 2 * D * D + 4 * D * E * E + 2 * D * D * E
+                + params.dyn.n * per_point(params.dyn, D, 30 if params.dyn_model == 0 else 4)
+                + params.obs.n * per_point(params.obs, E, 8))
+    n_bytes = batch * n_steps * (E + 2 * D + 3 * D * D) * 8
+    return bound(n_bytes, (batch * n_steps * per_step, F64_OPS_S))
+
+
+def same_bits(torch, a, b) -> bool:
+    """Equal values, NaN where the other has NaN."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def vf_against_plain(torch, res, plain, what, chunk=200):
+    """Hold a ``FilterResult`` of the vector filter kernel against the plain
+    version's five time-major streams of the same input: equal bits, NaN
+    where the plain version has NaN, compared ``chunk`` steps at a time to
+    keep the temporaries small.  Fails otherwise; returns the max |diff|."""
+    err = 0.0
+    for f, ref in zip(("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov"), plain):
+        got = getattr(res, f)
+        got = got.permute(2, 1, 0) if got.ndim == 3 else got.permute(3, 1, 2, 0)  # time-major
+        for k in range(0, ref.shape[0], chunk):
+            g_, r_ = got[k:k + chunk], ref[k:k + chunk]
+            diff = float((g_ - r_).nan_to_num().abs().max())
+            err = max(err, diff)
+            if not same_bits(torch, g_, r_):
+                fail(f"{what}: {f} of the kernel differs from the plain version from step {k} "
+                     f"on, max |diff| {diff:.3e}; expected equal bits")
+    return err
+
+
+def vf_raw(torch, vf, params, y, dev):
+    """A launch of the vector filter kernel straight through its C entry
+    point, into buffers made once; for ``raw_ms``."""
+    lib = vf.build()
+    B, _, T = y.shape
+    out = vf._empty_streams(params.dim_state, T, B, dev)
+    scratch = vf._scratch(params, B, dev)
+    c_params = vf._c_params(params, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        return lib.vf_launch(ctypes.byref(c_params), y.data_ptr(), *y.stride(), B, T,
+                             dev.index or 0, *(o.data_ptr() for o in out), scratch.data_ptr(),
+                             stream)
+    return launch
+
+
+def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
+    """Phases 15-18: the vector filter kernel against its plain version at
+    every instantiation, the reentry bench lane through it (``fused_re``, the
+    main path's result) against the eager lane, the reentry goldens through
+    ``engine="dd"``, and the timings.  Returns the kernel's figures for the
+    ``kernels`` line."""
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.ops import scalar_filter as sf, vector_filter as vf
+    from ssmtoybox_torch.ssmod import ConstantVelocity, Radar2DMeasurement
+    from ssmtoybox_torch.utils import GaussRV
+    from ssmtoybox_torch.utils.metrics import rmse
+
+    dyn_re, obs_re = ukf_re.mod_dyn, ukf_re.mod_obs
+    mul = lambda d: np.hstack((np.zeros((d, 1), int), np.eye(d, dtype=int),  # noqa: E731
+                               2 * np.eye(d, dtype=int)))
+    dyn_cv = ConstantVelocity(GaussRV(4, mean=M0_TRUE, cov=np.diag(P0), device=dev),
+                              GaussRV(2, cov=np.diag(Q), device=dev), dt=DT)
+    obs_cv = Radar2DMeasurement(GaussRV(2, cov=np.diag(R0), device=dev), dim_state=4,
+                                state_index=SIDX)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    ys_cv = obs_cv.simulate_measurements(
+        gen, dyn_cv.simulate_discrete(gen, steps=VF_STEPS, mc_sims=MC)).permute(2, 0, 1)
+    re = {"UKF": ukf_re, "CKF": stt.CubatureKalman(dyn_re, obs_re),
+          "GH-3": stt.GaussHermiteKalman(dyn_re, obs_re, deg=3),
+          "GPQ-UT": stt.GaussianProcessKalman(dyn_re, obs_re, np.array(VF_GPQ_DYN),
+                                              np.array(VF_GPQ_OBS)),
+          "BSQ-UT": stt.BayesSardKalman(dyn_re, obs_re, np.array(TRACK_PAR_DYN),
+                                        np.array(TRACK_PAR_OBS), mul(5), mul(5))}
+    cv = {"UKF": stt.UnscentedKalman(dyn_cv, obs_cv),
+          "BSQ-UT": stt.BayesSardKalman(dyn_cv, obs_cv, np.array(VF_CV_BSQ), np.array(VF_CV_BSQ),
+                                        mul(4), mul(4))}
+    systems = {"reentry": (re, ys_re), "CV": (cv, ys_cv)}
+    # (system, dynamics rule of, measurement rule of): the study rules, and
+    # mixed kinds, so that all eight instantiations run
+    pairs = ([("reentry", a, a) for a in re]
+             + [("reentry", "UKF", "BSQ-UT"), ("reentry", "BSQ-UT", "UKF")]
+             + [("CV", a, b) for a in cv for b in cv])
+
+    # ---- 15. the kernel vs its plain version, both on the card ---------------
+    err, seen, params_of = 0.0, set(), {}
+    for system, a, b in pairs:
+        algs, ys_s = systems[system]
+        alg_a = algs[a]
+        params = vf.prepare(alg_a.mod_dyn, alg_a.mod_obs, alg_a.tf_dyn, algs[b].tf_obs)
+        params_of[system, a, b] = params
+        seen.add((params.dyn_model, params.dyn.kind, params.obs.kind))
+        for batch in VF_BATCHES:
+            yy = ys_s[:batch, :, :VF_STEPS]
+            got, ref = vf.vector_filter(params, yy), vf._vector_filter_plain(params, yy)
+            torch.cuda.synchronize()
+            diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(got, ref))
+            err = max(err, diff)
+            lost = 1.0 - float(torch.isfinite(got[1]).flatten(0, 2).all(0).double().mean())
+            if not (all(same_bits(torch, g_, r_) for g_, r_ in zip(got, ref)) and lost <= 0.01):
+                fail(f"vector filter kernel vs plain, {system} {a}/{b}, B={batch}, "
+                     f"N={VF_STEPS}: max |diff| {diff:.3e}, {lost:.2%} of the trajectories not "
+                     "finite; expected equal bits (NaN where the plain version has NaN) and at "
+                     "most 1% not finite")
+        again = vf.vector_filter(params, yy)
+        torch.cuda.synchronize()
+        if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
+            fail(f"vector filter kernel, {system} {a}/{b}: a second launch differs from the first")
+    log(f"vector filter kernel == plain to the bit at {len(pairs)} rule pairs ({len(seen)} "
+        f"instantiations (dynamics, kinds): {sorted(seen)}), B = {VF_BATCHES}, N = {VF_STEPS}, "
+        f"all five streams; two launches equal to the bit")
+
+    # ---- 16. the reentry bench lane: dd against f64 --------------------------
+    before = vf.LAUNCHES
+    fused = ukf_re.forward_pass_batch(ys_re, engine="dd")
+    torch.cuda.synchronize()
+    if vf.LAUNCHES != before + 1:
+        fail(f"a reentry filter call launched the vector filter kernel {vf.LAUNCHES - before} "
+             "times; expected 1")
+    if not all(torch.equal(getattr(fused, f), getattr(fused_re, f))
+               for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")):
+        fail("the reentry lane through the kernel differs from the main path's run of it")
+    eager = ukf_re.forward_pass_batch(ys_re, engine="f64")
+    M, D, N = xs_re.shape
+    diffs = {f: float((getattr(fused, f) - getattr(eager, f)).abs().max())
+             for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")}
+    log(f"reentry lane ({M}x{N}) dd vs eager f64, max |diff| (the tightest atol that holds): "
+        + ", ".join(f"{f} {v:.3e}" for f, v in diffs.items())
+        + f" (ceilings {VF_MEAN_ATOL} on means, {VF_COV_ATOL} on covariances)")
+    for f, v in diffs.items():
+        if not v <= (VF_MEAN_ATOL if f.endswith("mean") else VF_COV_ATOL):
+            fail(f"reentry lane dd vs f64: {f} differs by {v:.3e}")
+    x_t = xs_re.permute(1, 2, 0)
+    scores = {}
+    for tag, res in (("dd", fused), ("f64", eager)):
+        sm, sP = stt.gaussian_smoother(res)
+        if not (bool(torch.isfinite(sm).all()) and bool(torch.isfinite(sP).all())):
+            fail(f"reentry lane: the smoother on the {tag} result is not finite")
+        scores[tag] = (float(rmse(x_t, res.fi_mean.permute(1, 2, 0))),
+                       float(rmse(x_t, sm.permute(1, 2, 0))))
+    for i, what in enumerate(("filter", "smoother")):
+        a, b = scores["dd"][i], scores["f64"][i]
+        log(f"reentry lane {what} RMSE: dd {a:.9f}, f64 {b:.9f}, relative {abs(a - b) / b:.2e} "
+            f"(limit 1e-6)")
+        if not abs(a - b) / b <= 1e-6:
+            fail(f"reentry lane {what} RMSE of dd and f64 differ by {abs(a - b) / b:.3e}")
+    del eager
+
+    # ---- 17. reentry goldens through engine="dd" on the card -----------------
+    g = np.load(os.path.join(HERE, "tests", "goldens", "reentry.npz"))
+    y_g = torch.as_tensor(np.moveaxis(g["y"], -1, 0), device=dev)
+    for name, alg in (("ukf", ukf_re), ("bsqkf", re["BSQ-UT"])):
+        before = vf.LAUNCHES
+        res = alg.forward_pass_batch(y_g, engine="dd")
+        for got, key in ((res.fi_mean[0], f"{name}_fm"), (res.fi_cov[0], f"{name}_fP")):
+            if not np.allclose(got.cpu().numpy(), g[key], atol=1e-7, rtol=1e-6):
+                fail(f"golden reentry {key} through engine='dd' off by "
+                     f"{np.abs(got.cpu().numpy() - g[key]).max():.3e}")
+        if vf.LAUNCHES != before + 1:
+            fail(f"golden reentry {name}: the vector filter kernel did not run")
+    log("reentry goldens through engine='dd' on the card: ukf, bsqkf (1e-7/1e-6) ok")
+
+    # ---- 18. the plain version on the main path's input; timings --------------
+    params = params_of["reentry", "UKF", "UKF"]
+    plain = vf._vector_filter_plain(params, ys_re)
+    torch.cuda.synchronize()
+    err = max(err, vf_against_plain(torch, fused_re, plain, f"reentry lane {M}x{N}"))
+    del plain
+    log(f"reentry lane {M}x{N}: the main path's kernel result == plain version to the bit, "
+        "all five streams")
+    k_ms = cuda_ms(torch, lambda: vf.vector_filter(params, ys_re))
+    p_ms = event_ms(torch, lambda: vf._vector_filter_plain(params, ys_re))[0]
+    lane = {e: cuda_ms(torch, lambda: ukf_re.forward_pass_batch(ys_re, engine=e), reps=3)
+            for e in ("dd", "f64")}
+    lat = sf.dependent_latencies(dev)
+    mhz = float(clocks_line().split()[0])
+    log("dependent-issue latency of the card in clocks (one warp): "
+        + ", ".join(f"{op} {clocks:.1f}" for op, clocks in lat.items()))
+    for name in re:
+        p_n = params_of["reentry", name, name]
+        raw = raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev))
+        b_ms, b_by = vf_bound(p_n, N, M)
+        floor = vf.chain_floor_clocks(lat, p_n)
+        log(f"vector_filter reentry {name} ({p_n.dyn.n} points) {M}x{N}: raw launches "
+            f"{raw:.4f} ms a launch (CUDA events around 20 behind torch.cuda._sleep), bound "
+            f"{b_ms:.4f} ms ({b_by}), chain floor {floor:.0f} clocks a step = "
+            f"{floor * N / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz")
+    log(f"vector_filter reentry UKF {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}), "
+        f"plain version {p_ms:.1f} ms (one call after one warm-up); lane forward_pass_batch engine='dd' {lane['dd'][0]:.3f} "
+        f"ms (min {lane['dd'][1]:.3f}), engine='f64' {lane['f64'][0]:.1f} ms (min "
+        f"{lane['f64'][1]:.1f})")
+    b_ms, b_by = vf_bound(params, N, M)
+    return {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None}
 
 
 def main():
@@ -1127,6 +1419,7 @@ def main():
 
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import _build, scalar_filter as sf, student_mc as smc, vandermonde as vdm
+    from ssmtoybox_torch.ops import vector_filter as vf
     from ssmtoybox_torch.ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition,
                                        UNGMMeasurement, UNGMTransition)
     from ssmtoybox_torch.utils import GaussRV
@@ -1140,12 +1433,12 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = t_start = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        for build in [pool.submit(sf.build), pool.submit(smc.build), pool.submit(vdm.build)]:
+    with ThreadPoolExecutor(4) as pool:
+        for build in [pool.submit(lib.build) for lib in (sf, smc, vdm, vf)]:
             build.result()
-    log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu and vandermonde.cu for sm_90a "
-        f"in {time.perf_counter() - t0:.1f} s")
-    for name in ("scalar_filter", "student_mc", "vandermonde"):
+    log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu, vandermonde.cu and "
+        f"vector_filter.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
+    for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):
         text = _build.BUILD_LOGS.get(name, "")
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
         spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", text)]
@@ -1154,7 +1447,7 @@ def main():
         log(f"  ptxas {name}: {len(regs)} kernels, {min(regs, default=0)}-{max(regs, default=0)} "
             f"registers, {sum(spills)} bytes of spill stores in all"
             + "".join(f"; {n_} in {fn}" for fn, n_ in spilled))
-        if name == "student_mc":
+        if name in ("student_mc", "vector_filter"):
             for line in text.splitlines():
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     log(f"  ptxas {name}: {line.strip()}")
@@ -1191,7 +1484,7 @@ def main():
     xs_re, ys_re = x_re.permute(2, 0, 1), y_re.permute(2, 0, 1)
     ukf_re = stt.UnscentedKalman(dyn_re, obs_re)
     lanes = {"ungm_ukf": (ukf, xs, ys, "dd"), "ungm_gpqkf": (gpq, xs, ys, "dd"),
-             "reentry_ukf": (ukf_re, xs_re, ys_re, "f64")}
+             "reentry_ukf": (ukf_re, xs_re, ys_re, "dd")}
     torch.cuda.synchronize()
 
     # ---- 2. kernel vs plain twin, both on the card --------------------------
@@ -1251,16 +1544,19 @@ def main():
     log("goldens on the card: ungm UKF/GPQKF (dd and f64, 1e-8), reentry UKF (1e-7/1e-6) ok")
 
     # ---- 4. the main path -------------------------------------------------
-    sf.LAUNCHES = 0
+    sf.LAUNCHES = vf.LAUNCHES = 0
     results = {}
     for lane, (alg, x_true, data, engine) in lanes.items():
         res = alg.forward_pass_batch(data, engine=engine)
         sm_m, sm_P = stt.gaussian_smoother(res)
         results[lane] = (res, sm_m, sm_P, x_true)
     torch.cuda.synchronize()
-    launches = sf.LAUNCHES
+    launches, vf_launches = sf.LAUNCHES, vf.LAUNCHES
     if launches < 2:
         fail(f"the UNGM lanes launched the scalar filter kernel {launches} times; expected 2")
+    if vf_launches != 1:
+        fail(f"the reentry lane launched the vector filter kernel {vf_launches} times; "
+             "expected 1")
     for lane, (res, sm_m, sm_P, x_true) in results.items():
         M, D, N = x_true.shape
         if tuple(res.fi_mean.shape) != (M, D, N) or tuple(sm_P.shape) != (M, D, D, N):
@@ -1274,7 +1570,8 @@ def main():
         if not r_sm < r_fi:
             fail(f"{lane}: smoother RMSE {r_sm} not below filter RMSE {r_fi}")
         log(f"{lane} ({lanes[lane][3]}, {M}x{N}): RMSE filter {r_fi:.6f}, smoother {r_sm:.6f}")
-    log(f"main path: scalar filter kernel launches {launches}")
+    log(f"main path: scalar filter kernel launches {launches}, vector filter kernel launches "
+        f"{vf_launches}")
 
     # ---- 5. timings (after the counts were read) --------------------------
     params = sf.prepare(dyn, obs, ukf.tf_dyn, ukf.tf_obs)
@@ -1290,15 +1587,20 @@ def main():
         t["smoother"] = cuda_ms(torch, lambda: stt.gaussian_smoother(res), reps=3)
         log(f"{lane}: " + ", ".join(f"{k} {v[0]:.2f} ms (min {v[1]:.2f})" for k, v in t.items()))
 
+    vf_main = vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, results["reentry_ukf"][0])
     student = student_slice(torch, np, dev)
-    vdm_entry, bsq_sf_launches = bsq_slice(torch, np, dev, xs, ys)
+    vdm_entry, bsq_sf_launches, vf_track, vf_track_err = bsq_slice(torch, np, dev, xs, ys)
+    vf_main["max_abs_err"] = max(vf_main["max_abs_err"], vf_track_err)
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{
         "name": "scalar_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
         "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", "launches": launches + bsq_sf_launches,
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}] + student + [vdm_entry]}
+        "library_ms": None}] + student + [vdm_entry, {
+        "name": "vector_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/vector_filter.cu",
+        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", "launches": vf_launches + vf_track,
+        **vf_main}]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)

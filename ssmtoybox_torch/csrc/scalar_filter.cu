@@ -162,8 +162,10 @@ scalar_filter_rt_kernel(const __grid_constant__ SfParams p, const double* __rest
 // Dependent-issue latencies, for the chain floor of a step: one warp runs
 // `iters` rounds of 16 dependent operations of each type (so that the loop's
 // own branch does not count) and reads the SM's clock around them.
-// out[0..4]: clocks an add, a multiply, a divide, a square root (with the add
-// that feeds it back) and a double moved by two shuffles.
+// out[0..6]: clocks an add, a multiply, a divide, a square root (with the add
+// that feeds it back), a double moved by two shuffles, an exp (with the
+// multiply that feeds it back) and an atan2; the last two are the vector
+// filter's transcendentals.
 #define SF_TIME_CHAIN(SLOT, INIT, OP)                                  \
   {                                                                    \
     double x = INIT;                                                   \
@@ -183,7 +185,10 @@ __global__ void sf_latency_kernel(double a, int iters, double* __restrict__ out)
   SF_TIME_CHAIN(2, a, a / x)
   SF_TIME_CHAIN(3, a, sqrt(x) + a)
   SF_TIME_CHAIN(4, a + threadIdx.x, sf_from_lane<8>(x, (threadIdx.x + 1) & 7))
-  if (threadIdx.x == 0) out[5] = keep;
+  const double c = 0.3 * a;  // exp(x) c and atan2(x, c) settle at 0.49 and 1.35
+  SF_TIME_CHAIN(5, c, exp(x) * c)
+  SF_TIME_CHAIN(6, c, atan2(x, c))
+  if (threadIdx.x == 0) out[7] = keep;
 }
 
 template <int KD, int KO, int N>
@@ -243,8 +248,9 @@ extern "C" void sf_geometry(int kind_dyn, int kind_obs, int slots, int* lanes, i
   *threads = kThreads;
 }
 
-// Clocks of a dependent add, multiply, divide, square root (and add) and
-// two-shuffle move of a double into out[0..4] (device memory, 6 doubles).
+// Clocks of a dependent add, multiply, divide, square root (and add),
+// two-shuffle move of a double, exp (and multiply) and atan2 into out[0..6]
+// (device memory, 8 doubles).
 extern "C" int sf_latency(int device, int iters, double* out, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);

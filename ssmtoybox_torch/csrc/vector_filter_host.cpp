@@ -1,0 +1,46 @@
+// Host build of the vector filter step (vector_filter_step.cuh), for testing
+// the kernel's arithmetic on a machine without a GPU.  It picks the template
+// instantiation as the CUDA launcher does (the model pair, then the kinds of
+// both rules) and runs the trajectories one after another, with the kernel's
+// layouts: time-major outputs and a scratch buffer interleaved by trajectory.
+#include "vector_filter_step.cuh"
+
+namespace {
+
+template <int D, int E, int DYN, int OBS, int KD, int KO>
+void run(const VfParams& p, const double* y, long long y_b, long long y_e, long long y_k, int B,
+         int n_steps, double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
+         double* scratch) {
+  for (int b = 0; b < B; ++b)
+    vf_record<D, E, DYN, OBS, KD, KO>(p, y + b * y_b, y_e, y_k, n_steps, scratch + b, B,
+                                      m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b, B);
+}
+
+}  // namespace
+
+// Returns the state dimension of the instantiation that ran, 0 if none takes
+// the configuration.
+extern "C" int vf_host_run(const VfParams* params, const double* y, long long y_b,
+                           long long y_e, long long y_k, int B, int n_steps, double* m_fi,
+                           double* P_fi, double* m_pr, double* P_pr, double* xx,
+                           double* scratch) {
+  const VfParams& p = *params;
+  if (p.dyn.n < 1 || p.obs.n < 1 || (p.dyn.kind | p.obs.kind) >> 1) return 0;
+  int ran = 0;
+#define VF_KINDS(D, E, DYN, OBS, KD, KO)                                                  \
+  if (p.dyn.kind == KD && p.obs.kind == KO) {                                             \
+    run<D, E, DYN, OBS, KD, KO>(p, y, y_b, y_e, y_k, B, n_steps, m_fi, P_fi, m_pr, P_pr,  \
+                                xx, scratch);                                             \
+    ran = D;                                                                              \
+  }
+#define VF_RUN_IF(D, E, DYN, OBS)                                                         \
+  if (!ran && p.dyn_model == DYN && p.obs_model == OBS && p.dim_state == D &&             \
+      p.dim_out == E) {                                                                   \
+    VF_KINDS(D, E, DYN, OBS, 0, 0) VF_KINDS(D, E, DYN, OBS, 0, 1)                         \
+    VF_KINDS(D, E, DYN, OBS, 1, 0) VF_KINDS(D, E, DYN, OBS, 1, 1)                         \
+  }
+  VF_MODELS(VF_RUN_IF)
+#undef VF_RUN_IF
+#undef VF_KINDS
+  return ran;
+}

@@ -435,15 +435,18 @@ def dependent_latencies(device: torch.device, iters: int = 512, lib=None) -> dic
     ``device``, measured by the library's ``sf_latency`` kernel (one warp,
     ``16 * iters`` operations of each type between two reads of the SM's
     clock): ``add``, ``mul``, ``div``, ``sqrt`` (the add that feeds it back
-    taken off) and ``shfl`` (a double moved by two shuffles)."""
+    taken off), ``shfl`` (a double moved by two shuffles), and the vector
+    filter's ``exp`` (the multiply that feeds it back taken off) and
+    ``atan2``."""
     lib = build() if lib is None else lib
-    out = torch.zeros(6, dtype=torch.float64, device=device)
+    out = torch.zeros(8, dtype=torch.float64, device=device)
     rc = lib.sf_latency(device.index or 0, iters, out.data_ptr(),
                         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sf_latency launch failed: {lib.sf_error_string(rc).decode()}")
-    add, mul, div, root, shfl = (float(v) for v in out[:5].cpu())
-    return {"add": add, "mul": mul, "div": div, "sqrt": root - add, "shfl": shfl}
+    add, mul, div, root, shfl, exp_mul, atan2 = (float(v) for v in out[:7].cpu())
+    return {"add": add, "mul": mul, "div": div, "sqrt": root - add, "shfl": shfl,
+            "exp": exp_mul - mul, "atan2": atan2}
 
 
 def chain_floor_clocks(lat: dict, params: ScalarFilterParams) -> float:

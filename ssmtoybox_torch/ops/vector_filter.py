@@ -1,0 +1,576 @@
+"""Fused whole-record Gaussian filter for states of dimension 2-8: CUDA kernel,
+launcher, plain version.
+
+Counterpart of the JAX package's ``ops/ddvec.py`` (``dd_filter_batch``, the
+``engine="dd"`` path for D <= 8), which runs the filter step as a
+``lax.scan`` of double-double f32-pair arithmetic in jnp because the TPU has
+no f64 unit.  The card has native float64, so the port runs the whole record
+of every trajectory inside one launch of a CUDA kernel
+(``csrc/vector_filter.cu``, the step in ``csrc/vector_filter_step.cuh``) in
+plain f64, one thread a trajectory, and returns all five moment streams that
+the RTS smoother reads.
+
+Supported, as ``ddvec.dd_check`` admits them among the models the port has:
+``dim_state <= 8``, additive noise on both models, the dynamics
+``ReentryVehicle2DTransition`` or ``ConstantVelocity`` with the measurement
+``Radar2DMeasurement`` (any ``state_index``), and for each transform either a
+classical sigma-point rule with diagonal covariance weights or a BQ rule with
+a scalar model variance.  :func:`check` raises ``ValueError`` with the reason
+a configuration is refused; :func:`supports` answers with a bool.
+
+:func:`vector_filter` is the launch wrapper.  For a CPU tensor it runs the
+plain PyTorch version :func:`_vector_filter_plain`; for a CUDA tensor it
+launches the kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
+
+As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
+lowered before: a transform's :class:`VecRule` and a model's constants are kept
+on the object they were read from (through ``scalar_filter._memo``, which
+notices in-place edits), a rule's constants are copied to a card once, and
+the parameter struct is cached by :class:`VectorFilterParams`.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass, field
+from types import SimpleNamespace
+
+import numpy as np
+import torch
+
+from ..bq.transforms import BQTransform, StudentTProcessTransform
+from ..mtran import SigmaPointTransform
+from ..ssmod import ConstantVelocity, Radar2DMeasurement, ReentryVehicle2DTransition
+from . import _build
+from .scalar_filter import _floats, _memo
+
+__all__ = ["LAUNCHES", "VecRule", "VectorFilterParams", "lower_transform", "check", "supports",
+           "prepare", "vector_filter", "build", "chain_floor_clocks", "TORCH_FNS"]
+
+#: kernel launches made by :func:`vector_filter` in this process
+LAUNCHES = 0
+
+#: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
+#: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
+_MAX_DIM = 8
+
+#: no multiply-add contraction, as the scalar filter kernel is built: every
+#: operation rounds on its own, like the plain version's separate operations
+_NVCC_FLAGS = ["--fmad=false"]
+
+#: the models with a kernel form: class -> (id in the step header, constants)
+_DYN_MODELS = {
+    ReentryVehicle2DTransition: (0, lambda m: (m.dt, m.R0, m.H0, m.Gm0, m.b0)),
+    ConstantVelocity: (1, lambda m: (m.dt,)),
+}
+_OBS_MODELS = {Radar2DMeasurement: 0}
+
+
+# ---------------------------------------------------------------------------
+# lowering a configuration to kernel constants
+# ---------------------------------------------------------------------------
+
+@dataclass(eq=False)
+class VecRule:
+    """A quadrature rule of ``dim_in`` inputs as kernel constants.  ``kind``
+    0: classical (``wc`` diagonal covariance weights); 1: BQ (dense ``Wc``
+    (n, n), cross weights ``Wcc`` (dim_in, n), expected model variance
+    ``emv``).  ``xi`` (dim_in, n) are the unit points.  Compared and hashed
+    by identity: a transform keeps its rule."""
+
+    kind: int
+    xi: np.ndarray
+    wm: np.ndarray
+    wc: np.ndarray | None = None
+    Wc: np.ndarray | None = None
+    Wcc: np.ndarray | None = None
+    emv: float = 0.0
+    _on: dict = field(default_factory=dict, repr=False)
+
+    @property
+    def n(self) -> int:
+        return self.xi.shape[1]
+
+    def packed(self, device: torch.device) -> torch.Tensor:
+        """The constants as one float64 tensor on ``device``, ``xi | wm | wc``
+        or ``xi | wm | Wc | Wcc`` (row-major), copied there once."""
+        t = self._on.get(device)
+        if t is None:
+            parts = [self.xi, self.wm] + ([self.wc] if self.kind == 0 else [self.Wc, self.Wcc])
+            t = torch.as_tensor(np.concatenate([np.ravel(a) for a in parts]), device=device)
+            self._on[device] = t
+        return t
+
+
+def lower_transform(tf, dim_in: int) -> VecRule:
+    """The kernel's constants for a transform of ``dim_in`` inputs;
+    ``ValueError`` with the reasons of ``ddvec._lower_transform_vec`` if the
+    kernel cannot run it.  The weights are read from the transform's device
+    once and kept on the transform."""
+    if isinstance(tf, SigmaPointTransform):
+        sources = (tf.unit_sp, tf.wm, tf.wc_diag)
+    elif isinstance(tf, BQTransform):
+        sources = (tf.points, tf.wm, tf.Wc, tf.Wcc, tf.model_var)
+    else:
+        raise ValueError(f"unsupported transform for the fused vector filter: {type(tf)!r}")
+    return _memo(tf, f"_vector_filter_rule_{dim_in}", sources, lambda: _lower(tf, dim_in))
+
+
+def _host(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu(), np.float64)
+
+
+def _lower(tf, dim_in: int) -> VecRule:
+    if isinstance(tf, SigmaPointTransform):
+        if tf.wc_diag is None:
+            raise ValueError("the fused vector filter needs diagonal classical weights "
+                             "(wc_diag); dense-Wc classical rules are not supported")
+        xi = _host(tf.unit_sp)
+        if xi.shape[0] != dim_in:
+            raise ValueError(f"transform dimension {xi.shape[0]} != expected {dim_in} "
+                             "(non-additive augmentation is not supported)")
+        return VecRule(kind=0, xi=xi, wm=_host(tf.wm), wc=_host(tf.wc_diag))
+    if isinstance(tf, StudentTProcessTransform):
+        raise ValueError("the fused vector filter has no data-dependent (TPQ) model variance")
+    xi = _host(tf.points)
+    if xi.shape[0] != dim_in:
+        raise ValueError(f"transform dimension {xi.shape[0]} != expected {dim_in}")
+    if tf.model_var.numel() != 1:
+        raise ValueError("the fused vector filter needs a scalar model variance; got "
+                         f"one of shape {tuple(tf.model_var.shape)}")
+    return VecRule(kind=1, xi=xi, wm=_host(tf.wm), Wc=_host(tf.Wc), Wcc=_host(tf.Wcc),
+                   emv=float(tf.model_var.reshape(())))
+
+
+def check(mod_dyn, mod_obs, tf_dyn, tf_obs):
+    """Raise ``ValueError`` with the reason the fused vector filter cannot run
+    this configuration (in the order of ``ddvec.dd_check``); return None when
+    it can."""
+    D = mod_dyn.dim_state
+    if D > _MAX_DIM:
+        raise ValueError(f"the fused vector filter takes dim_state <= {_MAX_DIM}; got {D}")
+    if not (mod_dyn.noise_additive and mod_obs.noise_additive):
+        raise ValueError("the fused vector filter requires additive process and "
+                         "measurement noise")
+    for model, table in ((mod_dyn, _DYN_MODELS), (mod_obs, _OBS_MODELS)):
+        if type(model) not in table:
+            raise ValueError(f"the fused vector filter has no kernel form of "
+                             f"{type(model).__name__} (the models of ROADMAP queue 1, item "
+                             "10 join it as they are ported)")
+    lower_transform(tf_dyn, D)
+    lower_transform(tf_obs, D)
+
+
+def supports(mod_dyn, mod_obs, tf_dyn, tf_obs) -> bool:
+    """True if the fused vector filter can run this configuration: the
+    answer of ``ddvec.dd_supports`` on the models the port has."""
+    try:
+        check(mod_dyn, mod_obs, tf_dyn, tf_obs)
+    except ValueError:
+        return False
+    return True
+
+
+@dataclass(frozen=True)
+class VectorFilterParams:
+    """Everything the kernel takes besides the measurements; matrices as
+    row-major tuples.  Hashable: the parameter struct is cached by it."""
+
+    dyn: VecRule
+    obs: VecRule
+    dyn_model: int
+    obs_model: int
+    dim_state: int
+    dim_out: int
+    dyn_c: tuple
+    obs_c: tuple
+    obs_idx: tuple
+    m0: tuple
+    P0: tuple
+    gqg: tuple
+    r: tuple
+
+
+def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
+            ) -> VectorFilterParams:
+    """Lower a configuration to :class:`VectorFilterParams` (``ddvec._prepare``):
+    the two rules, the models' constants, the initial moments (or
+    ``init_mean`` / ``init_cov``), ``G Q G^T`` and ``R``.  ``ValueError``
+    names the piece the kernel cannot run."""
+    check(mod_dyn, mod_obs, tf_dyn, tf_obs)
+    D, E = mod_dyn.dim_state, mod_obs.dim_out
+    dyn_id, dyn_c = _DYN_MODELS[type(mod_dyn)]
+    (m0_t, P0_t), q_t = mod_dyn.init_rv.get_stats()[:2], mod_dyn.noise_rv.get_stats()[1]
+    r_t = mod_obs.noise_rv.get_stats()[1]
+
+    def dyn_consts():
+        G = np.atleast_2d(_host(mod_dyn.noise_gain))
+        GQG = G @ np.atleast_2d(_host(q_t)) @ G.T
+        return _floats(m0_t.reshape(D)), _floats(P0_t.reshape(D, D)), _floats(GQG.reshape(D, D))
+
+    m0, P0, gqg = _memo(mod_dyn, "_vector_filter_consts", (m0_t, P0_t, q_t, mod_dyn.noise_gain),
+                        dyn_consts)
+    r, loc = _memo(mod_obs, "_vector_filter_consts", (r_t, mod_obs.radar_loc),
+                   lambda: (_floats(r_t.reshape(E, E)), _floats(mod_obs.radar_loc[:2])))
+    idx = mod_obs.state_index if mod_obs.state_index is not None else (0, 1)
+    if len(idx) < 2 or max(idx) >= D:
+        raise ValueError(f"state_index {idx} does not pick two components of a state of "
+                         f"dimension {D}")
+    if init_mean is not None:
+        m0 = _floats(np.reshape(_floats(init_mean), D))
+    if init_cov is not None:
+        P0 = _floats(np.reshape(_floats(init_cov), (D, D)))
+    return VectorFilterParams(
+        dyn=lower_transform(tf_dyn, D), obs=lower_transform(tf_obs, D),
+        dyn_model=dyn_id, obs_model=_OBS_MODELS[type(mod_obs)], dim_state=D, dim_out=E,
+        dyn_c=tuple(float(c) for c in dyn_c(mod_dyn)), obs_c=loc,
+        obs_idx=tuple(int(i) for i in idx[:2]), m0=m0, P0=P0, gqg=gqg, r=r)
+
+
+# ---------------------------------------------------------------------------
+# the plain PyTorch version
+# ---------------------------------------------------------------------------
+
+#: the transcendentals of the plain version, PyTorch's: on the card these are
+#: CUDA's libm, as in the kernel.  A host build of the step header calls the C
+#: library's, which PyTorch's vectorised CPU ``exp``, ``sqrt`` and ``atan2``
+#: may be an ulp off; ``_vector_filter_plain`` takes others through ``fns``.
+TORCH_FNS = SimpleNamespace(sqrt=torch.sqrt, exp=torch.exp, atan2=torch.atan2)
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` as a 0-dim tensor beside ``like``: a division by it rounds once
+    (PyTorch divides a CUDA tensor by a Python number as a multiplication by
+    its reciprocal, and ``number / tensor`` as ``tensor.reciprocal() *
+    number``)."""
+    return torch.tensor(v, dtype=torch.float64, device=like.device)
+
+
+def _dyn_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor:
+    """The dynamics at zero noise on states ``x`` (..., D), as the step header
+    evaluates them."""
+    if params.dyn_model == 1:
+        (dt,) = params.dyn_c
+        x0, x1, x2, x3 = x.unbind(-1)
+        return torch.stack([x0 + dt * x1, x1, x2 + dt * x3, x3], dim=-1)
+    dt, R0, H0, Gm0, b0 = params.dyn_c
+    x0, x1, x2, x3, x4 = x.unbind(-1)
+    R = fns.sqrt(x0 * x0 + x1 * x1)
+    V = fns.sqrt(x2 * x2 + x3 * x3)
+    drag = (b0 * fns.exp(x4 + torch.div(R0 - R, _const(H0, x)))) * V
+    grav = torch.div(_const(-Gm0, x), (R * R) * R)
+    return torch.stack([x0 + dt * x2, x1 + dt * x3, x2 + dt * (drag * x2 + grav * x0),
+                        x3 + dt * (drag * x3 + grav * x1), x4], dim=-1)
+
+
+def _obs_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor:
+    """Range and bearing of states ``x`` (..., D) from the radar."""
+    dx = x[..., params.obs_idx[0]] - params.obs_c[0]
+    dy = x[..., params.obs_idx[1]] - params.obs_c[1]
+    return torch.stack([fns.sqrt(dx * dx + dy * dy), fns.atan2(dy, dx)], dim=-1)
+
+
+def _chol_plain(A: torch.Tensor, sqrt) -> torch.Tensor:
+    """Lower Cholesky factor of the lower triangle of each (n, n) matrix of
+    ``A`` (B, n, n), the step header's recurrence; NaN where it fails."""
+    n = A.shape[-1]
+    L = torch.zeros_like(A)
+    for i in range(n):
+        for j in range(i + 1):
+            s = A[:, i, j]
+            for k in range(j):
+                s = s - L[:, i, k] * L[:, j, k]
+            L[:, i, j] = sqrt(s) if i == j else s / L[:, j, j]
+    return L
+
+
+def _mirror(S: torch.Tensor) -> torch.Tensor:
+    """``S`` with its upper triangle copied from the lower one."""
+    n = S.shape[-1]
+    iu = torch.triu_indices(n, n, 1, device=S.device)
+    S[:, iu[0], iu[1]] = S[:, iu[1], iu[0]]
+    return S
+
+
+def _moments_plain(rule: VecRule, m: torch.Tensor, L: torch.Tensor, f):
+    """``(mu, cov, cross)`` of ``f`` over ``rule`` at the Gaussians (m, L L^T)
+    of a batch, ``m`` (B, D), ``L`` (B, D, D); every sum in the step header's
+    order, over the points one at a time."""
+    dev, (B, D) = m.device, m.shape
+    xi = torch.as_tensor(rule.xi, device=dev)
+    n = rule.n
+    dx = torch.zeros((n, B, D), dtype=m.dtype, device=dev)
+    for k in range(D):
+        dx[:, :, k:] = dx[:, :, k:] + L[:, k:, k][None] * xi[k][:, None, None]
+    fx = f(m[None] + dx)                                                # (n, B, EO)
+    mu = torch.zeros_like(fx[0])
+    for j in range(n):
+        mu = mu + float(rule.wm[j]) * fx[j]
+    if rule.kind == 0:
+        cov = torch.zeros(fx.shape[1:] + fx.shape[-1:], dtype=m.dtype, device=dev)
+        cross = torch.zeros(fx.shape[1:] + (D,), dtype=m.dtype, device=dev)
+        for j in range(n):
+            d, w = fx[j] - mu, float(rule.wc[j])
+            cov = cov + w * (d[:, :, None] * d[:, None, :])
+            cross = cross + w * (d[:, :, None] * dx[j][:, None, :])
+        return mu, _mirror(cov), cross
+    Wc, Wcc = torch.as_tensor(rule.Wc, device=dev), torch.as_tensor(rule.Wcc, device=dev)
+    g = torch.zeros_like(fx)                                            # g_i = sum_j Wc_ij f_j
+    for j in range(n):
+        g = g + Wc[:, j][:, None, None] * fx[j][None]
+    q = torch.zeros(fx.shape[1:] + fx.shape[-1:], dtype=m.dtype, device=dev)
+    h = torch.zeros(fx.shape[1:] + (D,), dtype=m.dtype, device=dev)   # h[e][a]
+    for i in range(n):
+        q = q + fx[i][:, :, None] * g[i][:, None, :]
+        h = h + Wcc[:, i][None, None, :] * fx[i][:, :, None]
+    cov = q - mu[:, :, None] * mu[:, None, :]
+    cov.diagonal(dim1=1, dim2=2).add_(rule.emv)
+    cross = torch.zeros_like(h)
+    for a in range(D):
+        cross[:, :, a:] = cross[:, :, a:] + h[:, :, a:a + 1] * L[:, a:, a][:, None, :]
+    return mu, _mirror(cov), cross
+
+
+def _empty_streams(D: int, T: int, B: int, device) -> tuple:
+    """The five time-major output streams, views of one buffer: ``m_fi``,
+    ``m_pr`` (T, D, B) and ``P_fi``, ``P_pr``, ``xx`` (T, D, D, B), in the
+    order ``(m_fi, P_fi, m_pr, P_pr, xx)``."""
+    v, M = T * D * B, T * D * D * B
+    buf = torch.empty(2 * v + 3 * M, dtype=torch.float64, device=device)
+    m_fi, m_pr, P_fi, P_pr, xx = buf.split([v, v, M, M, M])
+    vec, mat = (T, D, B), (T, D, D, B)
+    return m_fi.view(vec), P_fi.view(mat), m_pr.view(vec), P_pr.view(mat), xx.view(mat)
+
+
+def _vector_filter_plain(params: VectorFilterParams, y: torch.Tensor, fns=TORCH_FNS):
+    """The kernel's computation as batched torch operations over the B
+    trajectories and a Python loop over the T steps; same arguments and
+    results as :func:`vector_filter`.  ``fns``: the transcendentals to take,
+    ``sqrt``, ``exp`` and ``atan2`` (:data:`TORCH_FNS` by default)."""
+    B, E, T = y.shape
+    D, dev = params.dim_state, y.device
+    out = _empty_streams(D, T, B, dev)
+    m = torch.tensor(params.m0, dtype=torch.float64, device=dev).expand(B, D)
+    P = torch.tensor(params.P0, dtype=torch.float64, device=dev).reshape(D, D).expand(B, D, D)
+    gqg = torch.tensor(params.gqg, dtype=torch.float64, device=dev).reshape(D, D)
+    r = torch.tensor(params.r, dtype=torch.float64, device=dev).reshape(E, E)
+    for k in range(T):
+        m_pr, Pf, xx = _moments_plain(params.dyn, m, _chol_plain(P, fns.sqrt),
+                                      lambda x: _dyn_plain(params, x, fns))
+        P_pr = Pf + gqg
+        y_pr, S, C = _moments_plain(params.obs, m_pr, _chol_plain(P_pr, fns.sqrt),
+                                    lambda x: _obs_plain(params, x, fns))
+        S = S + r
+        Ls = _chol_plain(S, fns.sqrt)
+        z = torch.empty_like(C)                                          # (B, E, D)
+        for i in range(E):
+            s = C[:, i]
+            for k2 in range(i):
+                s = s - Ls[:, i, k2, None] * z[:, k2]
+            z[:, i] = s / Ls[:, i, i, None]
+        K = torch.empty_like(C)                                          # K^T: (B, E, D)
+        for i in range(E - 1, -1, -1):
+            s = z[:, i]
+            for k2 in range(i + 1, E):
+                s = s - Ls[:, k2, i, None] * K[:, k2]
+            K[:, i] = s / Ls[:, i, i, None]
+        dy = y[:, :, k] - y_pr
+        m_fi = m_pr
+        for e in range(E):
+            m_fi = m_fi + K[:, e] * dy[:, e, None]
+        Tm = torch.zeros_like(K)                                         # (K S)^T: (B, E, D)
+        for e2 in range(E):
+            Tm = Tm + K[:, e2][:, None, :] * S[:, e2][:, :, None]
+        acc = torch.zeros_like(P_pr)
+        for e in range(E):
+            acc = acc + Tm[:, e][:, :, None] * K[:, e][:, None, :]
+        P_fi = torch.tril(P_pr - acc)
+        P_fi = _mirror(P_fi)
+        for o, v in zip(out, (m_fi, P_fi, m_pr, P_pr, xx)):
+            o[k] = v.movedim(0, -1)
+        m, P = m_fi, P_fi
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+class _CRule(ctypes.Structure):
+    _fields_ = [("kind", ctypes.c_int), ("n", ctypes.c_int), ("xi", ctypes.c_void_p),
+                ("wm", ctypes.c_void_p), ("wc", ctypes.c_void_p), ("Wc", ctypes.c_void_p),
+                ("Wcc", ctypes.c_void_p), ("emv", ctypes.c_double)]
+
+
+class _CParams(ctypes.Structure):
+    _fields_ = [("dyn", _CRule), ("obs", _CRule), ("dyn_model", ctypes.c_int),
+                ("obs_model", ctypes.c_int), ("dim_state", ctypes.c_int),
+                ("dim_out", ctypes.c_int), ("dyn_c", ctypes.c_double * 5),
+                ("obs_c", ctypes.c_double * 2), ("obs_idx", ctypes.c_int * 2),
+                ("m0", ctypes.c_double * _MAX_DIM),
+                ("P0", ctypes.c_double * (_MAX_DIM * _MAX_DIM)),
+                ("gqg", ctypes.c_double * (_MAX_DIM * _MAX_DIM)),
+                ("r", ctypes.c_double * (_MAX_DIM * _MAX_DIM))]
+
+
+def _c_rule(rule: VecRule, dim_in: int, device: torch.device) -> _CRule:
+    base, n = rule.packed(device).data_ptr(), rule.n
+    xi, wm = base, base + 8 * dim_in * n
+    after = wm + 8 * n
+    if rule.kind == 0:
+        return _CRule(kind=0, n=n, xi=xi, wm=wm, wc=after)
+    return _CRule(kind=1, n=n, xi=xi, wm=wm, Wc=after, Wcc=after + 8 * n * n, emv=rule.emv)
+
+
+def _square(vals: tuple, n: int, into):
+    for i in range(n):
+        into[i * _MAX_DIM:i * _MAX_DIM + n] = vals[i * n:(i + 1) * n]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_params(p: VectorFilterParams, device: torch.device) -> _CParams:
+    """The kernel's parameter struct for the rules' constants on ``device``,
+    built once for a given ``(p, device)``."""
+    D, E = p.dim_state, p.dim_out
+    c = _CParams(dyn=_c_rule(p.dyn, D, device), obs=_c_rule(p.obs, D, device),
+                 dyn_model=p.dyn_model, obs_model=p.obs_model, dim_state=D, dim_out=E)
+    c.dyn_c[:len(p.dyn_c)] = p.dyn_c
+    c.obs_c[:len(p.obs_c)] = p.obs_c
+    c.obs_idx[:len(p.obs_idx)] = p.obs_idx
+    c.m0[:D] = p.m0
+    _square(p.P0, D, c.P0)
+    _square(p.gqg, D, c.gqg)
+    _square(p.r, E, c.r)
+    return c
+
+
+_STREAMS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2)
+
+
+def _bind(lib: ctypes.CDLL):
+    """Declare the argument types of the library's entry points."""
+    lib.vf_launch.restype = ctypes.c_int
+    lib.vf_launch.argtypes = ([ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_int]
+                              + [ctypes.c_void_p] * 7)
+    lib.vf_error_string.restype = ctypes.c_char_p
+    lib.vf_error_string.argtypes = [ctypes.c_int]
+
+
+def build() -> ctypes.CDLL:
+    """Compile ``csrc/vector_filter.cu`` for sm_90a with nvcc (once) and bind
+    it; later calls return the bound library."""
+    return _build.bound("vector_filter", ["vector_filter.cu"], _bind, _NVCC_FLAGS)
+
+
+def _bind_host(lib: ctypes.CDLL):
+    lib.vf_host_run.restype = ctypes.c_int
+    lib.vf_host_run.argtypes = [ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_void_p] * 6
+
+
+def _host_shim() -> ctypes.CDLL:
+    """The step header built for the host with g++ (tests only)."""
+    return _build.bound("vector_filter_host", ["vector_filter_host.cpp"], _bind_host,
+                        host=True)
+
+
+def _check_streams(params: VectorFilterParams, y: torch.Tensor):
+    if y.dtype != torch.float64:
+        raise TypeError(f"the vector filter runs in float64; got {y.dtype}")
+    if y.ndim != 3 or y.shape[1] != params.dim_out:
+        raise ValueError(f"y must be (B, {params.dim_out}, T); got {tuple(y.shape)}")
+    if y.shape[0] >= 2 ** 31 or y.shape[2] >= 2 ** 31:
+        raise ValueError(f"at most 2**31 - 1 trajectories and steps; got {tuple(y.shape)}")
+
+
+def _scratch(params: VectorFilterParams, B: int, device) -> torch.Tensor:
+    """The function values of every point of a transform, interleaved by
+    trajectory."""
+    n = max(params.dyn.n * params.dim_state, params.obs.n * params.dim_out)
+    return torch.empty(n * B, dtype=torch.float64, device=device)
+
+
+def _host_shim_run(params: VectorFilterParams, y: torch.Tensor):
+    """Run the step header compiled for the host on a CPU tensor; the five
+    streams of :func:`vector_filter`, after checking that an instantiation
+    of the configuration's dimensions ran."""
+    _check_streams(params, y)
+    if y.device.type != "cpu":
+        raise ValueError(f"the host build takes CPU tensors; got {y.device}")
+    B, _, T = y.shape
+    out = _empty_streams(params.dim_state, T, B, "cpu")
+    scratch = _scratch(params, B, "cpu")
+    ran = _host_shim().vf_host_run(ctypes.byref(_c_params(params, torch.device("cpu"))),
+                                   y.data_ptr(), *y.stride(), B, T,
+                                   *(o.data_ptr() for o in out), scratch.data_ptr())
+    if ran != params.dim_state:
+        raise RuntimeError(f"the host build ran the D={ran} step for D={params.dim_state}")
+    return out
+
+
+def vector_filter(params: VectorFilterParams, y: torch.Tensor):
+    """Filter B records of a vector state in one kernel launch.
+
+    ``y`` (B, E, T) float64 measurements, any strides (the kernel reads it
+    through them, no copy is made).  Returns the five time-major streams
+    ``(m_fi, P_fi, m_pr, P_pr, xx)``: filtered mean (T, D, B) and covariance
+    (T, D, D, B), predicted mean and covariance, and the dynamics
+    transform's cross-covariance (T, D, D, B).  A CPU tensor runs the plain
+    version; a CUDA tensor launches the kernel on the current stream,
+    without synchronising.
+    """
+    global LAUNCHES
+    _check_streams(params, y)
+    if y.device.type == "cpu":
+        return _vector_filter_plain(params, y)
+    if y.device.type != "cuda":
+        raise ValueError(f"the vector filter runs on CPU or CUDA tensors; got {y.device}")
+    lib = build()
+    B, _, T = y.shape
+    out = _empty_streams(params.dim_state, T, B, y.device)
+    if y.numel() == 0:
+        return out
+    scratch = _scratch(params, B, y.device)
+    rc = lib.vf_launch(ctypes.byref(_c_params(params, y.device)), y.data_ptr(), *y.stride(),
+                       B, T, y.device.index or 0, *(o.data_ptr() for o in out),
+                       scratch.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"vector filter kernel launch failed: "
+                           f"{lib.vf_error_string(rc).decode()} (cudaError {rc})")
+    LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the chain floor of the kernel (measurement helpers)
+# ---------------------------------------------------------------------------
+
+def chain_floor_clocks(lat: dict, params: VectorFilterParams) -> float:
+    """Clocks of the critical path of one filter step with every independent
+    operation overlapped: what one thread a trajectory cannot go below.
+    ``lat``: ``scalar_filter.dependent_latencies`` of the card.
+
+    Per D x D Cholesky, D square roots and D - 1 divides, each column waiting
+    on the one before, with ~2 (D - 1) adds and multiplies to each diagonal;
+    per transform one point (``D`` adds after a multiply for ``L xi``, one for
+    ``m +``), the model (reentry: a square root, a divide and an exp between
+    11 adds and multiplies; CV: 2; radar: 3 and the longer of a square root and
+    an atan2), the mean (``n`` adds) and the moments (classical: 3 to the first
+    term and ``n`` adds; BQ: the row sum, ``n`` adds, then ``n`` adds of the
+    quadratic form and 2); the noise terms (2), the E x E Cholesky, the gain
+    (2 E divides, 2 E adds) and the update (E + 3 adds and multiplies)."""
+    plain = 0.5 * (lat["add"] + lat["mul"])
+    D, E = params.dim_state, params.dim_out
+
+    def chol(n):
+        return n * lat["sqrt"] + (n - 1) * lat["div"] + 2 * (n - 1) * plain
+
+    def moments(rule):
+        return (rule.n + (3 + rule.n if rule.kind == 0 else 2 * rule.n + 2)) * plain
+
+    dyn = (lat["sqrt"] + lat["div"] + lat["exp"] + 11 * plain if params.dyn_model == 0
+           else 2 * plain)
+    obs = 3 * plain + max(lat["sqrt"], lat["atan2"])
+    point = (D + 2) * plain
+    return (chol(D) + point + dyn + moments(params.dyn) + plain
+            + chol(D) + point + obs + moments(params.obs) + plain
+            + chol(E) + 2 * E * (lat["div"] + plain) + (E + 3) * plain)

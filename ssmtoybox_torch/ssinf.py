@@ -4,9 +4,10 @@
 The JAX package runs each trajectory's recursion as one ``lax.scan`` and
 batches trajectories with ``vmap``.  Here the batch is a leading dimension
 written out and the recursion is a Python loop over time, whose body is a few
-dozen batched operations on the card; for scalar UNGM configurations
-``engine="dd"`` runs the whole record in one CUDA kernel instead
-(:mod:`ssmtoybox_torch.ops.scalar_filter`).
+dozen batched operations on the card; ``engine="dd"`` runs the whole record
+in one CUDA kernel instead, for scalar UNGM configurations
+(:mod:`ssmtoybox_torch.ops.scalar_filter`) and for the reentry and
+constant-velocity models with the radar (:mod:`ssmtoybox_torch.ops.vector_filter`).
 
 Layouts are the JAX package's: one trajectory has data (dim_y, N) and
 moments ``fi_mean`` (D, N), ``fi_cov`` (D, D, N); a batch has data
@@ -32,6 +33,7 @@ from .bq.transforms import (BayesSardTransform, GaussianProcessTransform,
 from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
                     SphericalRadialTransform, UnscentedTransform)
 from .ops import scalar_filter as _sf
+from .ops import vector_filter as _vf
 from .utils.arrays import f64
 from .utils.linalg import chol_small, pd_solve_small, tri_solve_small
 
@@ -43,11 +45,6 @@ __all__ = [
     "GaussHermiteKalman", "GaussianProcessKalman", "BayesSardKalman", "StudentProcessKalman",
     "StudentianInference", "FullySymmetricStudent", "GPQStudent", "StudentProcessStudent",
 ]
-
-#: the ROADMAP item that brings ``engine="dd"`` to states of dimension 2-8
-_DD_VECTOR_ITEM = ("ROADMAP queue 1, item 8, 'Fused filter kernel for D <= 8' (the "
-                   "counterpart of the JAX package's ops/ddvec.py)")
-
 
 @dataclass
 class FilterResult:
@@ -140,6 +137,13 @@ def _filter_fused(mod_dyn, mod_obs, tf_dyn, tf_obs, data, params) -> FilterResul
                         pr_cov=mat(P_pr), pr_xx_cov=mat(xx))
 
 
+def _filter_fused_vector(data, params) -> FilterResult:
+    m_fi, P_fi, m_pr, P_pr, xx = _vf.vector_filter(params, data)
+    vec, mat = (lambda s: s.permute(2, 1, 0)), (lambda s: s.permute(3, 1, 2, 0))
+    return FilterResult(fi_mean=vec(m_fi), fi_cov=mat(P_fi), pr_mean=vec(m_pr),
+                        pr_cov=mat(P_pr), pr_xx_cov=mat(xx))
+
+
 def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
                           init_mean=None, init_cov=None, engine: str = "f64") -> FilterResult:
     """Forward pass over a batch of measurement trajectories (M, dim_y, N).
@@ -147,31 +151,33 @@ def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
     ``engine`` keeps the JAX package's names:
 
     - ``"f64"`` (default): the batched eager recursion in float64.
-    - ``"dd"``: on the card, the fused whole-record CUDA kernel in native
+    - ``"dd"``: on the card, a fused whole-record CUDA kernel in native
       float64 (the JAX package's double-double engine is not needed there);
-      on CPU tensors, the kernel's plain PyTorch twin.  Scalar UNGM
-      configurations only; anything else raises ``ValueError``.
+      on CPU tensors, the kernel's plain PyTorch version.  Scalar states run
+      through :mod:`.ops.scalar_filter` (the UNGM models), states of dimension
+      2-8 through :mod:`.ops.vector_filter` (reentry and constant velocity
+      with the radar); anything either refuses raises ``ValueError`` naming
+      the reason.
     - ``"auto"``: ``"dd"`` when the configuration supports it, else ``"f64"``.
+
+    The fused results are views in the layout above of time-major streams.
     """
     if engine not in ("f64", "dd", "auto"):
         raise ValueError(f"engine must be 'f64', 'dd' or 'auto'; got {engine!r}")
+    params = None
     if engine != "f64":
+        lowering = _sf if mod_dyn.dim_state == 1 else _vf
         try:
-            params = _sf.prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
+            params = lowering.prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
         except ValueError as e:
             if engine == "dd":
-                if mod_dyn.dim_state > 1:
-                    raise ValueError(
-                        f"engine='dd' runs scalar states only; dim_state="
-                        f"{mod_dyn.dim_state} needs {_DD_VECTOR_ITEM}") from e
                 raise ValueError(f"engine='dd' cannot run this configuration: {e}") from e
-            engine = "f64"
-        else:
-            engine = "dd"
     data = f64(data_batch, mod_dyn.device)
-    if engine == "dd":
+    if params is None:
+        return _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov)
+    if mod_dyn.dim_state == 1:
         return _filter_fused(mod_dyn, mod_obs, tf_dyn, tf_obs, data, params)
-    return _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov)
+    return _filter_fused_vector(data, params)
 
 
 def gaussian_filter(mod_dyn, mod_obs, tf_dyn, tf_obs, data,
@@ -414,8 +420,8 @@ class GaussianProcessKalman(GaussianInference):
 class BayesSardKalman(GaussianInference):
     """Bayes-Sard quadrature Kalman filter (BSQKF): RBF kernel with a
     polynomial prior mean of multi-index ``mulind_dyn`` / ``mulind_obs`` (or
-    an int total degree).  On the 1-D UNGM models ``engine="dd"`` runs its
-    rules in the fused scalar filter kernel."""
+    an int total degree).  With a scalar model variance, ``engine="dd"`` runs
+    its rules in the fused scalar or vector filter kernel."""
 
     def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, mulind_dyn=2, mulind_obs=2,
                  points: str = "ut", point_hyp=None):

@@ -417,3 +417,81 @@ def test_bsq_weights_on_the_card_launch_the_kernel(card):
     for key in ("wm", "Wc", "Wcc", "model_var"):
         a, b = getattr(tf, key).cpu(), getattr(ref, key)
         assert float((a - b).abs().max()) <= 1e-12 * max(float(b.abs().max()), 1e-300), key
+
+
+# ---------------------------------------------------------------------------
+# the vector filter kernel (ops/vector_filter.py, csrc/vector_filter.cu):
+# bit-equal to its plain version, both on the card
+# ---------------------------------------------------------------------------
+
+def _vector_systems(device):
+    """The reentry + radar system of ``bench.py`` and the CV radar system,
+    each with a classical and a BQ filter, so that every instantiation of the
+    launcher (model pair x kinds of both rules) runs."""
+    from ssmtoybox_torch.ssmod import ConstantVelocity, Radar2DMeasurement, ReentryVehicle2DTransition
+    re_dyn = ReentryVehicle2DTransition(
+        GaussRV(5, mean=[6500.4, 349.14, -1.8093, -6.7967, 0.6932],
+                cov=np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0]), device=device),
+        GaussRV(3, cov=np.diag([2.4064e-5, 2.4064e-5, 1e-6]), device=device), dt=0.05)
+    re_obs = Radar2DMeasurement(GaussRV(2, cov=np.diag([1e-3, 1e-5]), device=device),
+                                dim_state=5, state_index=[0, 1], radar_loc=[6374.0, 0.0])
+    cv_dyn = ConstantVelocity(GaussRV(4, mean=[10000.0, 300.0, 1000.0, -40.0],
+                                      cov=np.diag([100.0, 25.0, 100.0, 25.0]), device=device),
+                              GaussRV(2, cov=np.diag([50.0, 5.0]), device=device), dt=0.5)
+    cv_obs = Radar2DMeasurement(GaussRV(2, cov=np.diag([50.0, 0.4e-6]), device=device),
+                                dim_state=4, state_index=[0, 2])
+    mul4 = np.hstack((np.zeros((4, 1), int), np.eye(4, dtype=int), 2 * np.eye(4, dtype=int)))
+    cv_par = np.array([[1.0, 100.0, 100.0, 100.0, 100.0]])
+    return {
+        "reentry": (re_dyn, re_obs, stt.UnscentedKalman(re_dyn, re_obs),
+                    stt.BayesSardKalman(re_dyn, re_obs, np.array([[1.0, 1, 1, 1, 1, 1]]),
+                                        np.array([[1.0, 0.9, 0.9, 1e4, 1e4, 1e4]]), MUL_UT5,
+                                        MUL_UT5)),
+        "cv": (cv_dyn, cv_obs, stt.UnscentedKalman(cv_dyn, cv_obs),
+               stt.BayesSardKalman(cv_dyn, cv_obs, cv_par, cv_par, mul4, mul4)),
+    }
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097, 10_000])
+@pytest.mark.parametrize("kinds", [(0, 0), (0, 1), (1, 0), (1, 1)])
+@pytest.mark.parametrize("system", ["reentry", "cv"])
+def test_vector_kernel_matches_plain_at_every_instantiation(card, system, kinds, batch):
+    """Every instantiation the launcher can pick, at batch sizes that leave
+    the last warp and the last block ragged: the kernel equals its plain
+    version to the bit over 20 steps, all five streams, and a second launch
+    equals the first; time-major measurements are read through their strides."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs, classical, bq = _vector_systems(card)[system]
+    rules = (classical, bq)
+    params = vf.prepare(dyn, obs, rules[kinds[0]].tf_dyn, rules[kinds[1]].tf_obs)
+    assert (params.dyn.kind, params.obs.kind) == kinds
+    gen = torch.Generator(device=card).manual_seed(batch)
+    x = dyn.simulate_discrete(gen, steps=20, mc_sims=batch)
+    y = obs.simulate_measurements(gen, x).permute(2, 0, 1)       # (B, 2, 20), strided
+    before = vf.LAUNCHES
+    got = vf.vector_filter(params, y)
+    assert vf.LAUNCHES == before + 1
+    again = vf.vector_filter(params, y.contiguous())
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s
+
+
+def test_the_card_is_the_default_device_of_the_vector_engine(card):
+    """A reentry UKF built with no ``device`` argument filters through the
+    vector kernel on the card."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    from ssmtoybox_torch.ssmod import Radar2DMeasurement, ReentryVehicle2DTransition
+    stt.set_device(None)
+    dyn = ReentryVehicle2DTransition(GaussRV(5, mean=[6500.4, 349.14, -1.8093, -6.7967, 0.6932],
+                                             cov=np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0])),
+                                     GaussRV(3, cov=np.diag([2.4064e-5, 2.4064e-5, 1e-6])))
+    obs = Radar2DMeasurement(GaussRV(2, cov=np.diag([1e-3, 1e-5])), dim_state=5,
+                             state_index=[0, 1], radar_loc=[6374.0, 0.0])
+    before = vf.LAUNCHES
+    res = stt.UnscentedKalman(dyn, obs).forward_pass_batch(
+        np.tile([[[371.0], [1.22]]], (3, 1, 5)), engine="dd")
+    assert vf.LAUNCHES == before + 1
+    assert res.fi_mean.device.type == "cuda" and res.fi_cov.shape == (3, 5, 5, 5)

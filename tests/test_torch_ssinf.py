@@ -207,16 +207,30 @@ def test_single_trajectory_equals_batch_member(shared_batch):
 # ---------------------------------------------------------------------------
 
 def test_auto_engine_falls_back_to_f64_for_vector_states(shared_batch):
+    """``engine="auto"`` runs a vector-state configuration that the fused
+    kernel refuses (a classical rule with dense covariance weights) through
+    the eager f64 path, to the bit; the UKF it takes runs through the
+    kernel's plain version, within 1e-10 of the eager path."""
+    from ssmtoybox_torch.mtran import SigmaPointTransform
     ys, _, _, alg = shared_batch["reentry_ukf"]
-    auto, f64 = alg.forward_pass_batch(ys, engine="auto"), alg.forward_pass_batch(ys)
+    dense = SigmaPointTransform(alg.tf_dyn.unit_sp, alg.tf_dyn.wm, Wc_dense=alg.tf_dyn.Wc)
+    refused = stt.GaussianInference(alg.mod_dyn, alg.mod_obs, dense, alg.tf_obs)
+    auto, f64 = refused.forward_pass_batch(ys, engine="auto"), refused.forward_pass_batch(ys)
     for f in FIELDS:
         torch.testing.assert_close(getattr(auto, f), getattr(f64, f), atol=0, rtol=0)
+    fused, f64 = alg.forward_pass_batch(ys, engine="auto"), alg.forward_pass_batch(ys)
+    for f in FIELDS:
+        torch.testing.assert_close(getattr(fused, f), getattr(f64, f), atol=1e-10, rtol=1e-10)
 
 
 def test_dd_engine_on_vector_state_names_the_roadmap_item(shared_batch):
+    """A vector-state model pair that the fused kernel has no form of (the
+    reentry dynamics with the UNGM measurement) is refused by
+    ``engine="dd"``, naming the ROADMAP item that brings the other models."""
     ys, _, _, alg = shared_batch["reentry_ukf"]
-    with pytest.raises(ValueError, match="ROADMAP queue 1"):
-        alg.forward_pass_batch(ys, engine="dd")
+    obs = ssmod.UNGMMeasurement(GaussRV(1, cov=1.0), dim_state=5, state_index=[0])
+    with pytest.raises(ValueError, match="ROADMAP queue 1, item 10"):
+        stt.UnscentedKalman(alg.mod_dyn, obs).forward_pass_batch(ys[:, :1], engine="dd")
 
 
 def test_dd_engine_rejects_an_unsupported_scalar_rule():

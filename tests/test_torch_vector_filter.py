@@ -1,0 +1,377 @@
+"""The fused vector filter (``ssmtoybox_torch/ops/vector_filter.py``): the
+port's ``engine="dd"`` for states of dimension 2-8.
+
+On the CPU its wrapper runs the plain PyTorch version, which is held against:
+
+- the JAX package's float64 ``gaussian_filter_batch`` on reentry + radar
+  under the UKF and BSQ-UT rules, all five moment streams, at the
+  tolerances of ``tests/test_parity.py`` (atol = rtol = 1e-8);
+- the port's eager float64 filter under UKF, CKF, Gauss-Hermite of degree 3
+  (243 points), GPQ-UT and BSQ-UT on reentry + radar and the UKF on
+  constant velocity + radar, all five streams and the RTS smoother on both:
+  classical rules at 1e-10, BQ rules at 1e-8 (the BQ covariance is the
+  reference's uncentred quadratic form, sum f_i Wc_ij f_j - mu mu^T, over
+  function values of ~6.4e3: any two summation orders differ by ~3e-9 in
+  covariances of magnitude ~1);
+- ``goldens/reentry.npz`` (``ukf``, ``bsqkf``) at ``test_parity.py``'s 1e-7 /
+  1e-6.
+
+The CUDA step header, compiled for the host with g++, equals the plain
+version to the bit when both take the C library's ``sqrt``, ``exp`` and
+``atan2`` (``LIBM_FNS`` below): PyTorch's vectorised CPU versions
+are an ulp off some of their values, which the BQ quadratic form grows to
+~1e-7 of the covariance.  :func:`vector_filter.supports` gives the answers
+of the JAX package's ``ddvec.dd_supports`` on a table of configurations.
+
+Measurements come from a numpy seed: 8 trajectories of 20 steps simulated
+through the port's model functions with numpy noise.
+"""
+import math
+import shutil
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import ssmtoybox_tpu as st
+from ssmtoybox_tpu import ssmod as jssmod
+from ssmtoybox_tpu.ops.ddvec import dd_supports
+from ssmtoybox_tpu.utils import GaussRV as JGaussRV
+import ssmtoybox_torch as stt
+from ssmtoybox_torch import set_device, ssmod
+from ssmtoybox_torch.mtran import SigmaPointTransform
+from ssmtoybox_torch.ops import vector_filter as vf
+from ssmtoybox_torch.utils import GaussRV
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _port_on_cpu():
+    """The port runs on the card unless told otherwise; these tests run it
+    on the CPU."""
+    set_device("cpu")
+    yield
+    set_device(None)
+
+
+def _libm(fn):
+    def apply(*ts):
+        flat = [t.reshape(-1).tolist() for t in ts]
+        out = torch.tensor([fn(*v) for v in zip(*flat)], dtype=torch.float64)
+        return out.reshape(ts[0].shape)
+    return apply
+
+
+#: the C library's transcendentals through ``math``, one value at a time, for
+#: the plain version's ``fns``: what a g++ build of the step header calls
+LIBM_FNS = SimpleNamespace(
+    sqrt=_libm(lambda v: math.sqrt(v) if v >= 0.0 or v != v else math.nan),
+    exp=_libm(lambda v: math.exp(v) if v < 709.0 or v != v else math.inf),
+    atan2=_libm(math.atan2))
+
+FIELDS = ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")
+STREAMS = ("m_fi", "P_fi", "m_pr", "P_pr", "xx")
+B, T = 8, 20
+
+#: reentry + radar (bench.py:109-115) and the CV radar system (goldens/cv_radar)
+RE_M0 = np.array([6500.4, 349.14, -1.8093, -6.7967, 0.6932])
+RE_P0 = np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0])
+RE_Q = np.diag([2.4064e-5, 2.4064e-5, 1e-6])
+RE_R = np.diag([1e-3, 1e-5])
+RADAR = np.array([6374.0, 0.0])
+CV_M0 = np.array([10000.0, 300.0, 1000.0, -40.0])
+CV_P0 = np.diag([100.0, 25.0, 100.0, 25.0])
+CV_Q, CV_R = np.diag([50.0, 5.0]), np.diag([50.0, 0.4e-6])
+#: kernel parameters: BSQ of the tracking study (bsq_tracking.py:62-63);
+#: GPQ lengthscales long enough that the reentry filter stays positive definite
+BSQ_DYN, BSQ_OBS = np.array([[1.0, 1, 1, 1, 1, 1]]), np.array([[1.0, 0.9, 0.9, 1e4, 1e4, 1e4]])
+GPQ_DYN, GPQ_OBS = np.array([[1.0, 10, 10, 10, 10, 10]]), np.array([[1.0, 10, 10, 1e4, 1e4, 1e4]])
+MUL_UT = np.hstack((np.zeros((5, 1), int), np.eye(5, dtype=int), 2 * np.eye(5, dtype=int)))
+
+
+def _reentry():
+    return (ssmod.ReentryVehicle2DTransition(GaussRV(5, mean=RE_M0, cov=RE_P0), GaussRV(3, cov=RE_Q),
+                                             dt=0.05),
+            ssmod.Radar2DMeasurement(GaussRV(2, cov=RE_R), dim_state=5, state_index=[0, 1],
+                                     radar_loc=RADAR))
+
+
+def _reentry_jax():
+    return (jssmod.ReentryVehicle2DTransition.create(
+                JGaussRV.create(5, mean=RE_M0, cov=RE_P0), JGaussRV.create(3, cov=RE_Q), dt=0.05),
+            jssmod.Radar2DMeasurement.create(JGaussRV.create(2, cov=RE_R), dim_state=5,
+                                             state_index=[0, 1], radar_loc=RADAR))
+
+
+def _cv():
+    return (ssmod.ConstantVelocity(GaussRV(4, mean=CV_M0, cov=CV_P0), GaussRV(2, cov=CV_Q), dt=0.5),
+            ssmod.Radar2DMeasurement(GaussRV(2, cov=CV_R), dim_state=4, state_index=[0, 2]))
+
+
+def _cv_jax():
+    return (jssmod.ConstantVelocity.create(JGaussRV.create(4, mean=CV_M0, cov=CV_P0),
+                                           JGaussRV.create(2, cov=CV_Q), dt=0.5),
+            jssmod.Radar2DMeasurement.create(JGaussRV.create(2, cov=CV_R), dim_state=4,
+                                             state_index=[0, 2]))
+
+
+def _bsq_override(alg):
+    """The EMV override of ``experiments/bsq_tracking.py:76-84``: a matrix."""
+    alg.tf_dyn = alg.tf_dyn.replace(model_var=np.diag([2e-4] * 5))
+    alg.tf_obs = alg.tf_obs.replace(model_var=np.zeros((2, 2)))
+    return alg
+
+
+def _bsq_override_jax(alg):
+    alg.tf_dyn = alg.tf_dyn.replace(model_var=jnp.asarray(np.diag([2e-4] * 5)))
+    alg.tf_obs = alg.tf_obs.replace(model_var=jnp.asarray(np.zeros((2, 2))))
+    return alg
+
+
+#: name -> (system, port filter, JAX filter, admitted by the fused engine)
+CONFIGS = {
+    "ukf": ("reentry", lambda d, o: stt.UnscentedKalman(d, o),
+            lambda d, o: st.UnscentedKalman(d, o), True),
+    "ckf": ("reentry", lambda d, o: stt.CubatureKalman(d, o),
+            lambda d, o: st.CubatureKalman(d, o), True),
+    "gh3": ("reentry", lambda d, o: stt.GaussHermiteKalman(d, o, deg=3),
+            lambda d, o: st.GaussHermiteKalman(d, o, deg=3), True),
+    "gpq_ut": ("reentry", lambda d, o: stt.GaussianProcessKalman(d, o, GPQ_DYN, GPQ_OBS),
+               lambda d, o: st.GaussianProcessKalman(d, o, GPQ_DYN, GPQ_OBS, points="ut"), True),
+    "bsq_ut": ("reentry", lambda d, o: stt.BayesSardKalman(d, o, BSQ_DYN, BSQ_OBS, MUL_UT, MUL_UT),
+               lambda d, o: st.BayesSardKalman(d, o, BSQ_DYN, BSQ_OBS, mulind_dyn=MUL_UT,
+                                               mulind_obs=MUL_UT, points="ut"), True),
+    "cv_ukf": ("cv", lambda d, o: stt.UnscentedKalman(d, o),
+               lambda d, o: st.UnscentedKalman(d, o), True),
+    "tpq": ("reentry", lambda d, o: stt.StudentProcessKalman(d, o, GPQ_DYN, GPQ_OBS),
+            lambda d, o: st.StudentProcessKalman(d, o, GPQ_DYN, GPQ_OBS, points="ut"), False),
+    "bsq_matrix_emv": ("reentry", lambda d, o: _bsq_override(CONFIGS["bsq_ut"][1](d, o)),
+                       lambda d, o: _bsq_override_jax(CONFIGS["bsq_ut"][2](d, o)), False),
+}
+ADMITTED = sorted(k for k, v in CONFIGS.items() if v[3])
+SYSTEMS = {"reentry": (_reentry, _reentry_jax), "cv": (_cv, _cv_jax)}
+
+
+def _port(name):
+    dyn, obs = SYSTEMS[CONFIGS[name][0]][0]()
+    return CONFIGS[name][1](dyn, obs)
+
+
+def _simulate(system, seed=0):
+    """(B, 2, T) measurements of B trajectories simulated with numpy noise
+    through the port's model functions (truth from step 0, measurement k of
+    the state at step k)."""
+    dyn, obs = SYSTEMS[system][0]()
+    rng = np.random.default_rng(seed)
+    m0, P0 = (t.numpy() for t in dyn.init_rv.get_stats()[:2])
+    Q, R = dyn.noise_rv.get_stats()[1].numpy(), obs.noise_rv.get_stats()[1].numpy()
+    x = torch.as_tensor(rng.multivariate_normal(m0, P0, size=B))
+    ys = []
+    for k in range(T):
+        x = dyn.dyn_fcn(x, torch.as_tensor(rng.multivariate_normal(np.zeros(len(Q)), Q, size=B)), k)
+        r = torch.as_tensor(rng.multivariate_normal(np.zeros(2), R, size=B))
+        ys.append(obs.meas_fcn(obs._select(x), r, k + 1))
+    return torch.stack(ys, dim=-1)
+
+
+@pytest.fixture(scope="module")
+def data():
+    return {s: _simulate(s) for s in SYSTEMS}
+
+
+@pytest.fixture(scope="module")
+def jax_results(data):
+    """The JAX package's float64 filter, one call a configuration."""
+    out = {}
+    for name in ("ukf", "bsq_ut"):
+        dyn, obs = _reentry_jax()
+        alg = CONFIGS[name][2](dyn, obs)
+        out[name] = st.gaussian_filter_batch(dyn, obs, alg.tf_dyn, alg.tf_obs,
+                                             jnp.asarray(data["reentry"].numpy()))
+    return out
+
+
+def _close(got, want, tol, what):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), atol=tol, rtol=tol, err_msg=what)
+
+
+@pytest.mark.parametrize("name", ["ukf", "bsq_ut"])
+def test_plain_matches_jax_f64(data, jax_results, name):
+    res = _port(name).forward_pass_batch(data["reentry"], engine="dd")
+    for f in FIELDS:
+        _close(getattr(res, f).numpy(), getattr(jax_results[name], f), 1e-8, f)
+
+
+@pytest.mark.parametrize("name", ADMITTED)
+def test_plain_matches_eager_f64(data, name):
+    """Every stream and the RTS smoother of both at 1e-10 (classical) and 1e-8
+    (BQ; module docstring)."""
+    alg = _port(name)
+    ys = data[CONFIGS[name][0]]
+    fused, eager = alg.forward_pass_batch(ys, engine="dd"), alg.forward_pass_batch(ys)
+    tol = 1e-8 if name.startswith(("gpq", "bsq")) else 1e-10
+    for f in FIELDS:
+        assert bool(torch.isfinite(getattr(eager, f)).all()), f
+        _close(getattr(fused, f), getattr(eager, f), tol, f)
+    for a, b, what in zip(stt.gaussian_smoother(fused), stt.gaussian_smoother(eager),
+                          ("smoothed mean", "smoothed cov")):
+        _close(a, b, tol, what)
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8])
+@pytest.mark.parametrize("name", ADMITTED)
+def test_step_header_on_host_matches_plain(data, name, batch):
+    """``csrc/vector_filter_step.cuh`` built with g++ == the plain version with
+    the C library's transcendentals, to the bit, at the instantiation of the
+    configuration; measurements read through their strides."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the step header cannot be built for the host")
+    alg = _port(name)
+    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    ys = data[CONFIGS[name][0]][:batch]
+    time_major = ys.permute(2, 1, 0).contiguous().permute(2, 1, 0)    # strides (1, B, 2 B)
+    want = vf._vector_filter_plain(params, ys, LIBM_FNS)
+    for y in (ys, time_major):
+        for s, a, b in zip(STREAMS, vf._host_shim_run(params, y), want):
+            assert bool(torch.isfinite(b).all()), s
+            assert torch.equal(a, b), f"{s}: {float((a - b).abs().max()):.3e}"
+
+
+@pytest.mark.parametrize("name", ["ukf", "bsqkf"])
+def test_reentry_golden_through_the_fused_engine(goldens, name):
+    g = goldens["reentry"]
+    dyn, obs = _reentry()
+    alg = (stt.UnscentedKalman(dyn, obs) if name == "ukf"
+           else stt.BayesSardKalman(dyn, obs, BSQ_DYN, BSQ_OBS, MUL_UT, MUL_UT))
+    res = alg.forward_pass_batch(np.moveaxis(g["y"], -1, 0), engine="dd")
+    np.testing.assert_allclose(res.fi_mean[0].numpy(), g[f"{name}_fm"], atol=1e-7, rtol=1e-6)
+    np.testing.assert_allclose(res.fi_cov[0].numpy(), g[f"{name}_fP"], atol=1e-7, rtol=1e-6)
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_supports_matches_jax_dd_supports(name):
+    system, make, make_jax, admitted = CONFIGS[name]
+    dyn, obs = SYSTEMS[system][0]()
+    jdyn, jobs = SYSTEMS[system][1]()
+    alg, jalg = make(dyn, obs), make_jax(jdyn, jobs)
+    assert dd_supports(jdyn, jobs, jalg.tf_dyn, jalg.tf_obs) == admitted
+    assert vf.supports(dyn, obs, alg.tf_dyn, alg.tf_obs) == admitted
+
+
+@pytest.mark.parametrize("name,reason", [("tpq", "TPQ"), ("bsq_matrix_emv", "scalar model variance")])
+def test_refused_configurations_route_to_f64(data, name, reason):
+    """``engine="auto"`` sends what the kernel refuses to the eager path (the
+    same moments to the bit); ``engine="dd"`` raises naming the reason."""
+    alg = _port(name)
+    ys = data["reentry"][:2, :, :4]
+    auto, eager = alg.forward_pass_batch(ys, engine="auto"), alg.forward_pass_batch(ys)
+    for f in FIELDS:
+        assert torch.equal(getattr(auto, f), getattr(eager, f)), f
+    with pytest.raises(ValueError, match=reason):
+        alg.forward_pass_batch(ys, engine="dd")
+
+
+def test_dense_classical_rules_and_other_models_are_refused():
+    dyn, obs = _reentry()
+    ukf = stt.UnscentedKalman(dyn, obs)
+    dense = SigmaPointTransform(ukf.tf_dyn.unit_sp, ukf.tf_dyn.wm, Wc_dense=ukf.tf_dyn.Wc)
+    with pytest.raises(ValueError, match="diagonal classical weights"):
+        vf.check(dyn, obs, dense, ukf.tf_obs)
+    with pytest.raises(ValueError, match="transform dimension 4 != expected 5"):
+        vf.check(dyn, obs, stt.UnscentedKalman(*_cv()).tf_dyn, ukf.tf_obs)
+    ungm = ssmod.UNGMMeasurement(GaussRV(1), dim_state=5, state_index=[0])
+    with pytest.raises(ValueError, match="no kernel form of UNGMMeasurement"):
+        vf.check(dyn, ungm, ukf.tf_dyn, ukf.tf_obs)
+
+
+def test_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch(data):
+    alg = _port("ukf")
+    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    before = vf.LAUNCHES
+    for a, b in zip(vf.vector_filter(params, data["reentry"]),
+                    vf._vector_filter_plain(params, data["reentry"])):
+        assert torch.equal(a, b)
+    assert vf.LAUNCHES == before
+
+
+def test_wrapper_checks_its_inputs(data):
+    alg = _port("ukf")
+    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    ys = data["reentry"]
+    with pytest.raises(TypeError, match="float64"):
+        vf.vector_filter(params, ys.float())
+    with pytest.raises(ValueError, match=r"\(B, 2, T\)"):
+        vf.vector_filter(params, ys[:, :1])
+    with pytest.raises(ValueError, match=r"\(B, 2, T\)"):
+        vf.vector_filter(params, ys[0])
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        vf.vector_filter(params, ys.to("meta"))
+
+
+def test_layouts_and_the_initial_state(data):
+    """Views in the JAX layout (B, D, T) and (B, D, D, T) of time-major
+    streams; ``init_mean`` / ``init_cov`` replace the model's initial
+    moments."""
+    alg = _port("ukf")
+    ys = data["reentry"]
+    res = alg.forward_pass_batch(ys, engine="dd")
+    assert res.fi_mean.shape == (B, 5, T) and res.pr_xx_cov.shape == (B, 5, 5, T)
+    assert res.fi_cov.stride()[0] == 1                          # trajectories adjacent
+    m0 = torch.as_tensor(RE_M0 + np.array([0.01, 0.0, 0.0, 0.0, 0.0]))
+    moved = stt.gaussian_filter_batch(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs, ys,
+                                      init_mean=m0, init_cov=2.0 * RE_P0, engine="dd")
+    eager = stt.gaussian_filter_batch(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs, ys,
+                                      init_mean=m0, init_cov=2.0 * RE_P0)
+    assert float((moved.pr_mean[..., 0] - res.pr_mean[..., 0]).abs().max()) > 1e-3
+    for f in FIELDS:
+        _close(getattr(moved, f), getattr(eager, f), 1e-10, f)
+
+
+def test_a_failed_cholesky_fills_the_trajectory_with_nan(data):
+    """A covariance that is not positive definite gives NaN from that step
+    on, as ``chol_small`` does, without raising; the other trajectories are
+    untouched."""
+    alg = _port("ukf")
+    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs,
+                        init_cov=-np.eye(5))
+    m_fi = vf.vector_filter(params, data["reentry"][:2])[0]
+    assert bool(torch.isnan(m_fi).all())
+    good = vf.vector_filter(vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs),
+                            data["reentry"][:2])[0]
+    assert bool(torch.isfinite(good).all())
+
+
+@pytest.mark.parametrize("name", ["ukf", "bsq_ut"])
+def test_an_edited_transform_is_lowered_anew(data, name):
+    """A transform's rule is kept on it until its weights are edited in
+    place; then the fused engine lowers it again and agrees with the eager
+    path."""
+    alg = _port(name)
+    ys = data["reentry"]
+    rule = vf.lower_transform(alg.tf_dyn, 5)
+    before = alg.forward_pass_batch(ys, engine="dd")
+    assert vf.lower_transform(alg.tf_dyn, 5) is rule
+    (alg.tf_dyn.wm if name == "ukf" else alg.tf_dyn.Wcc).mul_(1.001)
+    assert vf.lower_transform(alg.tf_dyn, 5) is not rule
+    fused, eager = alg.forward_pass_batch(ys, engine="dd"), alg.forward_pass_batch(ys)
+    assert float((fused.pr_xx_cov - before.pr_xx_cov).abs().max()) > 1e-9
+    for f in FIELDS:
+        _close(getattr(fused, f), getattr(eager, f), 1e-8, f)
+
+
+def test_parameter_struct_matches_the_header():
+    """The ctypes mirror of ``VfRule``/``VfParams`` has the header's fields
+    and model ids."""
+    src = open(vf._build.CSRC + "/vector_filter_step.cuh").read()
+    for struct, mirror in (("VfRule", vf._CRule), ("VfParams", vf._CParams)):
+        body = src.split(f"struct {struct} {{")[1].split("};")[0]
+        for name, _ in mirror._fields_:
+            assert f" {name};" in body or f" {name}[" in body, (struct, name)
+    assert f"#define VF_MAX_DIM {vf._MAX_DIM}" in src
+    for cls, (model_id, _) in vf._DYN_MODELS.items():
+        token = {"ReentryVehicle2DTransition": "REENTRY", "ConstantVelocity": "CV"}[cls.__name__]
+        assert f"#define VF_DYN_{token} {model_id}" in src
+    assert f"#define VF_OBS_RADAR {vf._OBS_MODELS[ssmod.Radar2DMeasurement]}" in src
