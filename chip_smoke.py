@@ -8,8 +8,9 @@ fails at once without them.  Phases, each fatal on failure:
 
 1. set-up: print the card's name and power limit, build the CUDA sources
    ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
-   ``student_qrq.cu``, ``vandermonde.cu`` and ``vector_filter.cu`` for sm_90a
-   (one nvcc each, at once; the two Student-MC sources make one library) and
+   ``student_qrq.cu``, ``vandermonde.cu``, ``vector_filter.cu`` and
+   ``vector_filter_shaped.cu`` for sm_90a (one nvcc each, at once; the two
+   Student-MC sources make one library, the two vector filter sources another) and
    print their ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
 2. the scalar filter kernel vs its plain PyTorch twin, both on the card, for
@@ -24,7 +25,8 @@ fails at once without them.  Phases, each fatal on failure:
 3. the port against the repo's golden references (tests/goldens) on the card;
 4. the Gaussian main path at the study sizes: 10,000 trajectories in
    float64, UNGM UKF and GPQKF through the scalar filter kernel and reentry
-   UKF through the vector filter kernel (``engine="dd"``), then the RTS
+   UKF through the shaped vector filter kernel (``engine="dd"``, one launch of
+   ``vector_filter_shaped``, none of the first version), then the RTS
    smoother and RMSE;
 5. timings with CUDA events after a warm-up;
 6. the four RBF-Student Monte-Carlo kernels vs their plain versions on the
@@ -67,7 +69,7 @@ fails at once without them.  Phases, each fatal on failure:
 12. the BSQ reentry tracking study (``experiments/bsq_tracking.py``): truth
     by Euler-Maruyama at dt 0.05 for 200 s, 10,000 trajectories, 2,000
     filter steps; BSQKF with three EMV overrides and the UKF, each through
-    ``engine="auto"`` (the UKF runs in the vector filter kernel, the BSQ
+    ``engine="auto"`` (the UKF runs in the shaped vector filter kernel, the BSQ
     lanes' matrix overrides send them to the eager path) and the UKF also
     eagerly; fails unless the engines are those, the UKF lane's kernel
     result equals the plain version run on the same 10,000 x 2,000 input to
@@ -86,26 +88,34 @@ fails at once without them.  Phases, each fatal on failure:
     call and lane beside its raw launch, the transposed copy the lane no
     longer makes, the two verifiers' 21 calls, and the chain floor of the
     scalar filter kernel (the dependent-issue latencies of the card times the
-    operations on the critical path of a step) beside its bound; the vector
-    filter kernel on the tracking UKF lane (raw launches, bound, chain floor);
-15. the vector filter kernel (``csrc/vector_filter.cu``) against its plain
-    version, both on the card, to the bit, 20 steps, all five streams: the
-    reentry + radar system under UKF, CKF, GH-3 (243 points), GPQ-UT and
-    BSQ-UT, the CV radar system under UKF and BSQ-UT, and mixed kinds (all
-    eight instantiations), at B = 1, 7, 4,097 and 10,000; two launches on one
-    input equal to the bit;
+    operations on the critical path of a step) beside its bound; the shaped
+    vector filter kernel on the tracking UKF lane (raw launches, the first
+    version's on the same input, bound, chain floor);
+15. both vector filter kernels against their plain version, both on the
+    card, to the bit, 20 steps, all five streams: the reentry + radar system
+    under UKF and CKF (the shaped kernel, ``csrc/vector_filter_shaped.cu``),
+    GH-3 (243 points), GPQ-UT and BSQ-UT (the first version,
+    ``csrc/vector_filter.cu``), the CV radar system under UKF, CKF and BSQ-UT,
+    and mixed kinds and point counts (all eight instantiations of the first
+    version, all four of the shaped kernel), at B = 1, 7, 31, 4,097 and
+    10,000, each launch counted on the kernel ``kernel_of`` names; two
+    launches on one input equal to the bit;
 16. the reentry bench lane (10,000 x 100, the main path's run) through the
-    kernel against the eager f64 lane: each stream's max |diff| within the
-    JAX package's dd-vs-f64 tolerances (1e-6 on means, 1e-7 on covariances),
-    filter and smoother RMSE within 1e-6 relative, one launch a call;
+    shaped kernel against the eager f64 lane: each stream's max |diff| within
+    the JAX package's dd-vs-f64 tolerances (1e-6 on means, 1e-7 on
+    covariances), filter and smoother RMSE within 1e-6 relative, one launch a
+    call; then the first version's path: the same data under BSQ-UT through
+    ``engine="dd"`` (its launches counted from 0), against its plain version
+    to the bit, RMSE finite;
 17. ``tests/goldens/reentry.npz`` ``ukf`` and ``bsqkf`` through
     ``engine="dd"`` on the card (1e-7 / 1e-6);
 18. the main path's kernel result on the bench lane against the plain
     version at its full 10,000 x 100, to the bit, all five streams; then
-    timings: raw launches of the vector filter kernel on the bench lane under
-    each rule beside its bound and chain floor (the card's dependent-issue
-    latencies, exp and atan2 included), the wrapper call, the plain version
-    and the lane through both engines.
+    timings: raw launches on the bench lane under each rule beside its bound
+    and chain floor (the card's dependent-issue latencies, exp and atan2
+    included), for UKF and CKF the first-version kernel on the same input in
+    turns with the shaped one, the wrapper calls of both kernels, their plain
+    versions and the lane through both engines.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -943,7 +953,7 @@ def bsq_slice(torch, np, dev, xs, ys):
         GaussRV(3, cov=np.diag([2.4e-5, 2.4e-5, 1e-6]), device=dev), dt=TRACK_DT)
     overrides = {"bsqkf": np.diag([2e-4] * 5), "bsqkf_2e-6": 2e-6 * np.eye(5),
                  "bsqkf_2e-7": 2e-7 * np.eye(5)}
-    sf.LAUNCHES = vdm.LAUNCHES = vf.LAUNCHES = 0
+    sf.LAUNCHES = vdm.LAUNCHES = vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
     t_algs, t_build = {}, {}
     for name, mv in overrides.items():
         t0 = time.perf_counter()
@@ -988,15 +998,16 @@ def bsq_slice(torch, np, dev, xs, ys):
         if bad > 0.01:
             fail(f"tracking {name}: {bad:.2%} of the runs are not finite (limit 1%)")
     torch.cuda.synchronize()
-    track_launches, track_vf = vdm.LAUNCHES, vf.LAUNCHES
-    log(f"BSQ tracking path launches: Vandermonde {track_launches}, vector filter {track_vf}; "
-        f"engines {engine_of}")
+    track_launches, track_vf, track_vfs = vdm.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    log(f"BSQ tracking path launches: Vandermonde {track_launches}, vector filter {track_vf} "
+        f"({track_vfs} of them the shaped kernel); engines {engine_of}")
     if track_launches < 6:
         fail(f"the Vandermonde kernel ran {track_launches} times for the 3 BSQ tracking filters")
     if engine_of != {"bsqkf": "f64", "bsqkf_2e-6": "f64", "bsqkf_2e-7": "f64", "ukf": "dd",
-                     "ukf_f64": "f64"} or track_vf != 1:
+                     "ukf_f64": "f64"} or (track_vf, track_vfs) != (1, 1):
         fail(f"tracking lanes ran on the engines {engine_of} with {track_vf} vector filter "
-             "launches; expected the UKF alone through the kernel, once")
+             f"launches ({track_vfs} of the shaped kernel); expected the UKF alone through the "
+             "shaped kernel, once")
     if f"{track['ukf']:.4f}" != f"{track['ukf_f64']:.4f}":
         fail(f"tracking UKF RMSE through the kernel {track['ukf']:.4f} differs from the eager "
              f"lane's {track['ukf_f64']:.4f}")
@@ -1061,10 +1072,12 @@ def bsq_slice(torch, np, dev, xs, ys):
             f"{track_ms[key]:.1f} ms)")
     p_t = vf.prepare(dyn_t, obs_t, t_algs["ukf"].tf_dyn, t_algs["ukf"].tf_obs)
     raw_t = raw_ms(torch, vf_raw(torch, vf, p_t, ys_t, dev), reps=5)
+    raw_first = raw_ms(torch, vf_raw(torch, vf, p_t, ys_t, dev, "vector_filter"), reps=5)
     b_t = vf_bound(p_t, ys_t.shape[-1], MC)
     floor_t = vf.chain_floor_clocks(sf.dependent_latencies(dev), p_t)
-    log(f"vector_filter tracking UKF {MC}x{ys_t.shape[-1]}: raw launches {raw_t:.3f} ms a "
-        f"launch (CUDA events around 5 behind torch.cuda._sleep), bound {b_t[0]:.3f} ms "
+    log(f"vector_filter_shaped tracking UKF {MC}x{ys_t.shape[-1]}: raw launches {raw_t:.3f} ms "
+        f"a launch (CUDA events around 5 behind torch.cuda._sleep; the first-version kernel on the "
+        f"same input {raw_first:.3f} ms), bound {b_t[0]:.3f} ms "
         f"({b_t[1]}), chain floor {floor_t:.0f} clocks a step = "
         f"{floor_t * ys_t.shape[-1] / (float(clocks_line().split()[0]) * 1e3):.3f} ms")
     lib_sf, lib_vdm = sf.build(), vdm.build()
@@ -1171,14 +1184,14 @@ def bsq_slice(torch, np, dev, xs, ys):
              "replaces": "ssmtoybox_tpu/ops/pallas_ops.py:470",
              "launches": ungm_launches["vandermonde"] + track_launches, "max_abs_err": vdm_err,
              "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    return entry, ungm_launches["scalar_filter"], track_vf, track_err
+    return entry, ungm_launches["scalar_filter"], track_vfs, track_err
 
 
 #: the vector filter kernel's checks: 20 steps at these batch sizes; GPQ
 #: lengthscales long enough that the reentry filter stays positive definite,
 #: and a BSQ rule for the CV radar system (its BQ instantiations)
 VF_STEPS = 20
-VF_BATCHES = (1, 7, 4097, MC)
+VF_BATCHES = (1, 7, 31, 4097, MC)
 VF_GPQ_DYN, VF_GPQ_OBS = [[1.0, 10, 10, 10, 10, 10]], [[1.0, 10, 10, 1e4, 1e4, 1e4]]
 VF_CV_BSQ = [[1.0, 100.0, 100.0, 100.0, 100.0]]
 #: the ceilings of the reentry lane's dd-vs-f64 comparison: the JAX package's
@@ -1236,15 +1249,21 @@ def vf_against_plain(torch, res, plain, what, chunk=200):
     return err
 
 
-def vf_raw(torch, vf, params, y, dev):
-    """A launch of the vector filter kernel straight through its C entry
-    point, into buffers made once; for ``raw_ms``."""
+def vf_raw(torch, vf, params, y, dev, kernel=None):
+    """A launch of a vector filter kernel straight through its C entry point,
+    into buffers made once; for ``raw_ms``.  ``kernel``: ``"vector_filter"``
+    (the first version, which takes every configuration) or
+    ``"vector_filter_shaped"``; by default the one the wrapper picks."""
     lib = vf.build()
     B, _, T = y.shape
     out = vf._empty_streams(params.dim_state, T, B, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if (kernel or vf.kernel_of(params)) == "vector_filter_shaped":
+        c_shaped = vf._c_shaped_params(params, dev)
+        return lambda: lib.vfs_launch(ctypes.byref(c_shaped), y.data_ptr(), *y.stride(), B, T,
+                                      dev.index or 0, *(o.data_ptr() for o in out), stream)
     scratch = vf._scratch(params, B, dev)
     c_params = vf._c_params(params, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
 
     def launch():
         return lib.vf_launch(ctypes.byref(c_params), y.data_ptr(), *y.stride(), B, T,
@@ -1254,11 +1273,12 @@ def vf_raw(torch, vf, params, y, dev):
 
 
 def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
-    """Phases 15-18: the vector filter kernel against its plain version at
-    every instantiation, the reentry bench lane through it (``fused_re``, the
-    main path's result) against the eager lane, the reentry goldens through
-    ``engine="dd"``, and the timings.  Returns the kernel's figures for the
-    ``kernels`` line."""
+    """Phases 15-18: both vector filter kernels against their plain version at
+    every instantiation, the reentry bench lane through the shaped kernel
+    (``fused_re``, the main path's result) against the eager lane, the same
+    data under BSQ-UT through the first version (its path), the reentry
+    goldens through ``engine="dd"``, and the timings.  Returns the figures of
+    the shaped kernel and of the first version for the ``kernels`` line."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import scalar_filter as sf, vector_filter as vf
     from ssmtoybox_torch.ssmod import ConstantVelocity, Radar2DMeasurement
@@ -1281,51 +1301,58 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
                                               np.array(VF_GPQ_OBS)),
           "BSQ-UT": stt.BayesSardKalman(dyn_re, obs_re, np.array(TRACK_PAR_DYN),
                                         np.array(TRACK_PAR_OBS), mul(5), mul(5))}
-    cv = {"UKF": stt.UnscentedKalman(dyn_cv, obs_cv),
+    cv = {"UKF": stt.UnscentedKalman(dyn_cv, obs_cv), "CKF": stt.CubatureKalman(dyn_cv, obs_cv),
           "BSQ-UT": stt.BayesSardKalman(dyn_cv, obs_cv, np.array(VF_CV_BSQ), np.array(VF_CV_BSQ),
                                         mul(4), mul(4))}
     systems = {"reentry": (re, ys_re), "CV": (cv, ys_cv)}
     # (system, dynamics rule of, measurement rule of): the study rules, and
-    # mixed kinds, so that all eight instantiations run
+    # mixed kinds and point counts, so that all eight instantiations of the
+    # first version and all four of the shaped kernel run
     pairs = ([("reentry", a, a) for a in re]
              + [("reentry", "UKF", "BSQ-UT"), ("reentry", "BSQ-UT", "UKF")]
              + [("CV", a, b) for a in cv for b in cv])
 
-    # ---- 15. the kernel vs its plain version, both on the card ---------------
-    err, seen, params_of = 0.0, set(), {}
+    # ---- 15. the kernels vs their plain version, both on the card -----------
+    err, seen, params_of = {"vector_filter": 0.0, "vector_filter_shaped": 0.0}, set(), {}
     for system, a, b in pairs:
         algs, ys_s = systems[system]
         alg_a = algs[a]
         params = vf.prepare(alg_a.mod_dyn, alg_a.mod_obs, alg_a.tf_dyn, algs[b].tf_obs)
         params_of[system, a, b] = params
-        seen.add((params.dyn_model, params.dyn.kind, params.obs.kind))
+        kernel = vf.kernel_of(params)
+        seen.add((kernel, params.dyn_model, params.dyn.kind, params.obs.kind,
+                  params.dyn.n if kernel == "vector_filter_shaped" else "any"))
         for batch in VF_BATCHES:
             yy = ys_s[:batch, :, :VF_STEPS]
+            shaped_before = vf.SHAPED_LAUNCHES
             got, ref = vf.vector_filter(params, yy), vf._vector_filter_plain(params, yy)
             torch.cuda.synchronize()
+            if vf.SHAPED_LAUNCHES - shaped_before != (kernel == "vector_filter_shaped"):
+                fail(f"{system} {a}/{b}: the shaped kernel ran "
+                     f"{vf.SHAPED_LAUNCHES - shaped_before} times; {kernel} was to run")
             diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(got, ref))
-            err = max(err, diff)
+            err[kernel] = max(err[kernel], diff)
             lost = 1.0 - float(torch.isfinite(got[1]).flatten(0, 2).all(0).double().mean())
             if not (all(same_bits(torch, g_, r_) for g_, r_ in zip(got, ref)) and lost <= 0.01):
-                fail(f"vector filter kernel vs plain, {system} {a}/{b}, B={batch}, "
+                fail(f"{kernel} kernel vs plain, {system} {a}/{b}, B={batch}, "
                      f"N={VF_STEPS}: max |diff| {diff:.3e}, {lost:.2%} of the trajectories not "
                      "finite; expected equal bits (NaN where the plain version has NaN) and at "
                      "most 1% not finite")
         again = vf.vector_filter(params, yy)
         torch.cuda.synchronize()
         if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
-            fail(f"vector filter kernel, {system} {a}/{b}: a second launch differs from the first")
-    log(f"vector filter kernel == plain to the bit at {len(pairs)} rule pairs ({len(seen)} "
-        f"instantiations (dynamics, kinds): {sorted(seen)}), B = {VF_BATCHES}, N = {VF_STEPS}, "
-        f"all five streams; two launches equal to the bit")
+            fail(f"{kernel} kernel, {system} {a}/{b}: a second launch differs from the first")
+    log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs ({len(seen)} "
+        f"instantiations (kernel, dynamics, kinds, N): {sorted(seen, key=str)}), B = "
+        f"{VF_BATCHES}, N = {VF_STEPS}, all five streams; two launches equal to the bit")
 
     # ---- 16. the reentry bench lane: dd against f64 --------------------------
-    before = vf.LAUNCHES
+    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
     fused = ukf_re.forward_pass_batch(ys_re, engine="dd")
     torch.cuda.synchronize()
-    if vf.LAUNCHES != before + 1:
-        fail(f"a reentry filter call launched the vector filter kernel {vf.LAUNCHES - before} "
-             "times; expected 1")
+    if (vf.LAUNCHES - before, vf.SHAPED_LAUNCHES - shaped_before) != (1, 1):
+        fail(f"a reentry UKF filter call launched {vf.LAUNCHES - before} vector filter kernels, "
+             f"{vf.SHAPED_LAUNCHES - shaped_before} of them the shaped kernel; expected 1 and 1")
     if not all(torch.equal(getattr(fused, f), getattr(fused_re, f))
                for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")):
         fail("the reentry lane through the kernel differs from the main path's run of it")
@@ -1355,6 +1382,31 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             fail(f"reentry lane {what} RMSE of dd and f64 differ by {abs(a - b) / b:.3e}")
     del eager
 
+    # ---- 16b. the first version's path: the bench lane under BSQ-UT ----------
+    bsq_re = re["BSQ-UT"]
+    vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
+    res_bsq = bsq_re.forward_pass_batch(ys_re, engine="dd")
+    torch.cuda.synchronize()
+    first_launches = vf.LAUNCHES - vf.SHAPED_LAUNCHES
+    if (vf.LAUNCHES, vf.SHAPED_LAUNCHES) != (1, 0):
+        fail(f"the reentry BSQ-UT lane launched {vf.LAUNCHES} vector filter kernels, "
+             f"{vf.SHAPED_LAUNCHES} of them the shaped kernel; expected the first version, once")
+    p_bsq = params_of["reentry", "BSQ-UT", "BSQ-UT"]
+    plain = vf._vector_filter_plain(p_bsq, ys_re)
+    torch.cuda.synchronize()
+    err["vector_filter"] = max(err["vector_filter"], vf_against_plain(
+        torch, res_bsq, plain, f"reentry BSQ-UT lane {M}x{N}"))
+    del plain
+    sm, _ = stt.gaussian_smoother(res_bsq)
+    r_bsq = (float(rmse(x_t, res_bsq.fi_mean.permute(1, 2, 0))),
+             float(rmse(x_t, sm.permute(1, 2, 0))))
+    if not all(map(np.isfinite, r_bsq)):
+        fail(f"reentry BSQ-UT lane: RMSE {r_bsq} not finite")
+    log(f"reentry BSQ-UT lane ({M}x{N}) through the first-version kernel (1 launch): == plain "
+        f"version to the bit, all five streams; RMSE filter {r_bsq[0]:.9f}, smoother "
+        f"{r_bsq[1]:.9f}")
+    del res_bsq, sm
+
     # ---- 17. reentry goldens through engine="dd" on the card -----------------
     g = np.load(os.path.join(HERE, "tests", "goldens", "reentry.npz"))
     y_g = torch.as_tensor(np.moveaxis(g["y"], -1, 0), device=dev)
@@ -1373,7 +1425,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     params = params_of["reentry", "UKF", "UKF"]
     plain = vf._vector_filter_plain(params, ys_re)
     torch.cuda.synchronize()
-    err = max(err, vf_against_plain(torch, fused_re, plain, f"reentry lane {M}x{N}"))
+    err["vector_filter_shaped"] = max(err["vector_filter_shaped"], vf_against_plain(
+        torch, fused_re, plain, f"reentry lane {M}x{N}"))
     del plain
     log(f"reentry lane {M}x{N}: the main path's kernel result == plain version to the bit, "
         "all five streams")
@@ -1387,20 +1440,39 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         + ", ".join(f"{op} {clocks:.1f}" for op, clocks in lat.items()))
     for name in re:
         p_n = params_of["reentry", name, name]
+        kernel = vf.kernel_of(p_n)
         raw = raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev))
         b_ms, b_by = vf_bound(p_n, N, M)
         floor = vf.chain_floor_clocks(lat, p_n)
-        log(f"vector_filter reentry {name} ({p_n.dyn.n} points) {M}x{N}: raw launches "
+        log(f"{kernel} reentry {name} ({p_n.dyn.n} points) {M}x{N}: raw launches "
             f"{raw:.4f} ms a launch (CUDA events around 20 behind torch.cuda._sleep), bound "
             f"{b_ms:.4f} ms ({b_by}), chain floor {floor:.0f} clocks a step = "
             f"{floor * N / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz")
-    log(f"vector_filter reentry UKF {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}), "
-        f"plain version {p_ms:.1f} ms (one call after one warm-up); lane forward_pass_batch engine='dd' {lane['dd'][0]:.3f} "
+        if kernel == "vector_filter_shaped":
+            # the first version on the same input, in turns with the shaped kernel
+            first = [raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev, "vector_filter"))]
+            again = raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev))
+            first.append(raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev, "vector_filter")))
+            log(f"  the first-version kernel on the same input: raw launches "
+                f"{first[0]:.4f} / {first[1]:.4f} ms (shaped kernel again {again:.4f} ms; "
+                f"first / shaped {min(first) / min(raw, again):.2f}x)")
+    log(f"vector_filter_shaped reentry UKF {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min "
+        f"{k_ms[1]:.4f}), plain version {p_ms:.1f} ms (one call after one warm-up); lane "
+        f"forward_pass_batch engine='dd' {lane['dd'][0]:.3f} "
         f"ms (min {lane['dd'][1]:.3f}), engine='f64' {lane['f64'][0]:.1f} ms (min "
         f"{lane['f64'][1]:.1f})")
     b_ms, b_by = vf_bound(params, N, M)
-    return {"max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None}
+    shaped_entry = {"max_abs_err": err["vector_filter_shaped"], "ms": k_ms[0], "plain_ms": p_ms,
+                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    k_first = cuda_ms(torch, lambda: vf.vector_filter(p_bsq, ys_re))
+    p_first = event_ms(torch, lambda: vf._vector_filter_plain(p_bsq, ys_re))[0]
+    b_ms, b_by = vf_bound(p_bsq, N, M)
+    log(f"vector_filter reentry BSQ-UT {M}x{N}: wrapper call {k_first[0]:.4f} ms (min "
+        f"{k_first[1]:.4f}), plain version {p_first:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
+    first_entry = {"launches": first_launches, "max_abs_err": err["vector_filter"],
+                   "ms": k_first[0], "plain_ms": p_first, "bound_ms": b_ms, "bound_by": b_by,
+                   "library_ms": None}
+    return shaped_entry, first_entry
 
 
 def main():
@@ -1437,7 +1509,8 @@ def main():
         for build in [pool.submit(lib.build) for lib in (sf, smc, vdm, vf)]:
             build.result()
     log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu, vandermonde.cu and "
-        f"vector_filter.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
+        f"vector_filter.cu + vector_filter_shaped.cu for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):
         text = _build.BUILD_LOGS.get(name, "")
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
@@ -1544,19 +1617,19 @@ def main():
     log("goldens on the card: ungm UKF/GPQKF (dd and f64, 1e-8), reentry UKF (1e-7/1e-6) ok")
 
     # ---- 4. the main path -------------------------------------------------
-    sf.LAUNCHES = vf.LAUNCHES = 0
+    sf.LAUNCHES = vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
     results = {}
     for lane, (alg, x_true, data, engine) in lanes.items():
         res = alg.forward_pass_batch(data, engine=engine)
         sm_m, sm_P = stt.gaussian_smoother(res)
         results[lane] = (res, sm_m, sm_P, x_true)
     torch.cuda.synchronize()
-    launches, vf_launches = sf.LAUNCHES, vf.LAUNCHES
+    launches, vf_launches, vfs_launches = sf.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES
     if launches < 2:
         fail(f"the UNGM lanes launched the scalar filter kernel {launches} times; expected 2")
-    if vf_launches != 1:
-        fail(f"the reentry lane launched the vector filter kernel {vf_launches} times; "
-             "expected 1")
+    if (vf_launches, vfs_launches) != (1, 1):
+        fail(f"the reentry lane launched {vf_launches} vector filter kernels, {vfs_launches} of "
+             "them the shaped kernel; expected the shaped kernel, once")
     for lane, (res, sm_m, sm_P, x_true) in results.items():
         M, D, N = x_true.shape
         if tuple(res.fi_mean.shape) != (M, D, N) or tuple(sm_P.shape) != (M, D, D, N):
@@ -1570,8 +1643,9 @@ def main():
         if not r_sm < r_fi:
             fail(f"{lane}: smoother RMSE {r_sm} not below filter RMSE {r_fi}")
         log(f"{lane} ({lanes[lane][3]}, {M}x{N}): RMSE filter {r_fi:.6f}, smoother {r_sm:.6f}")
-    log(f"main path: scalar filter kernel launches {launches}, vector filter kernel launches "
-        f"{vf_launches}")
+    log(f"main path: scalar filter kernel launches {launches}, vector filter shaped kernel "
+        f"launches {vfs_launches}, first-version vector filter kernel launches "
+        f"{vf_launches - vfs_launches}")
 
     # ---- 5. timings (after the counts were read) --------------------------
     params = sf.prepare(dyn, obs, ukf.tf_dyn, ukf.tf_obs)
@@ -1587,7 +1661,8 @@ def main():
         t["smoother"] = cuda_ms(torch, lambda: stt.gaussian_smoother(res), reps=3)
         log(f"{lane}: " + ", ".join(f"{k} {v[0]:.2f} ms (min {v[1]:.2f})" for k, v in t.items()))
 
-    vf_main = vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, results["reentry_ukf"][0])
+    vf_main, vf_first = vector_slice(torch, np, dev, ukf_re, xs_re, ys_re,
+                                     results["reentry_ukf"][0])
     student = student_slice(torch, np, dev)
     vdm_entry, bsq_sf_launches, vf_track, vf_track_err = bsq_slice(torch, np, dev, xs, ys)
     vf_main["max_abs_err"] = max(vf_main["max_abs_err"], vf_track_err)
@@ -1599,7 +1674,10 @@ def main():
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}] + student + [vdm_entry, {
         "name": "vector_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/vector_filter.cu",
-        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", "launches": vf_launches + vf_track,
+        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **vf_first}, {
+        "name": "vector_filter_shaped", "route": "cuda",
+        "source": "ssmtoybox_torch/csrc/vector_filter_shaped.cu",
+        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", "launches": vfs_launches + vf_track,
         **vf_main}]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps(kernels), flush=True)

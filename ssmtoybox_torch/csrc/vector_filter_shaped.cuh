@@ -1,0 +1,247 @@
+// One step of the Gaussian sigma-point filter for small vector states with
+// additive noise, in native float64, one trajectory a thread, for classical
+// rules at the UT and CKF point counts (N = 2 D + 1 or 2 D on both
+// transforms), with N known at compile time.
+//
+// Shared by the CUDA kernel (vector_filter_shaped.cu) and the host shim
+// (vector_filter_host.cpp), which g++ builds, so that the CPU tests hold this
+// exact code against the plain PyTorch version in
+// ssmtoybox_torch/ops/vector_filter.py.  The step is that of
+// vector_filter_step.cuh, whose models, Cholesky factor and parameter struct
+// it reuses; every sum runs in the plain version's order, from 0.0 upwards,
+// so that both agree to the bit where their exp, sqrt and atan2 agree.
+//
+// What differs from the first version's step (vector_filter_step.cuh):
+// - N and the model pair are template arguments, so the point loops have
+//   N iterations known to the compiler, and nothing is read at run time to
+//   decide the shape;
+// - the rules' constants travel by value in the parameters and are read at
+//   offsets the compiler knows (the constant bank), not through pointers;
+// - each point's value f_j and offset dx_j = L xi_j are computed once and
+//   kept on chip for the sums: in registers where the point loops are
+//   unrolled, in the thread's own local memory (L1) where they stay loops;
+//   nothing goes through a scratch buffer in device memory.
+//
+// Unrolled or not.  A transform through the reentry dynamics keeps its point
+// loops as loops: the model (two square roots, two divides and an exp, each
+// with its slow path) unrolled 10 or 11 times made a kernel of 9,000-16,000
+// instructions, past what the SM's instruction cache holds, and it ran at
+// 2.4-3.0 ms on the bench lane against 1.6 ms as loops (PERF.md, section 6).  The
+// radar and the constant-velocity model are short and unroll.
+#pragma once
+
+#include "vector_filter_step.cuh"
+
+// Largest state of a registered model pair (reentry), and its UT point count.
+#define VFS_MAX_DIM 5
+#define VFS_MAX_PTS 11
+
+// A classical rule by value: unit points (dim_in, n), rows VFS_MAX_PTS apart,
+// mean and diagonal covariance weights.  616 bytes.
+struct VfsRule {
+  double xi[VFS_MAX_DIM * VFS_MAX_PTS];
+  double wm[VFS_MAX_PTS];
+  double wc[VFS_MAX_PTS];
+};
+
+// The kernel's parameters: the first version's (models, initial moments,
+// G Q G^T, R; of its rule fields only the kinds and point counts, which the
+// launcher checks) and both rules by value, 3,024 bytes of the 4 KB a
+// kernel's parameters may take.
+struct VfsParams {
+  VfParams base;
+  VfsRule dyn;
+  VfsRule obs;
+};
+
+// Whether the point loops of the dynamics transform stay loops (above).
+template <int DYN>
+constexpr bool vfs_rolled = DYN == VF_DYN_REENTRY;
+
+#define VFS_PRAGMA(x) _Pragma(#x)
+
+// Moments of f over rule R at the Gaussian (m, L L^T): mean mu, covariance cov
+// (full, mirrored from the lower triangle) and cross-covariance cross[e][d] of
+// the output e with the input d.  ROLL: the point loops stay loops.
+template <int D, int EO, int N, bool ROLL, class F>
+VF_HD void vfs_moments(const VfsRule& R, const double (&m)[D], const double (&L)[D][D],
+                       const F& f, double (&mu)[EO], double (&cov)[EO][EO],
+                       double (&cross)[EO][D]) {
+  [[maybe_unused]] constexpr int U = ROLL ? 1 : N;  // unroll factor of the point loops
+  double v[N][EO + D];             // point j: its values, then its offset
+  VFS_PRAGMA(unroll (U))
+  for (int j = 0; j < N; ++j) {
+    double x[D], fx[EO];
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      double acc = 0.0;
+#pragma unroll
+      for (int c = 0; c <= a; ++c) acc = acc + L[a][c] * R.xi[c * VFS_MAX_PTS + j];
+      v[j][EO + a] = acc;
+      x[a] = m[a] + acc;
+    }
+    f(x, fx);
+#pragma unroll
+    for (int e = 0; e < EO; ++e) v[j][e] = fx[e];
+  }
+#pragma unroll
+  for (int e = 0; e < EO; ++e) mu[e] = 0.0;
+  VFS_PRAGMA(unroll (U))
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < EO; ++e) mu[e] = mu[e] + R.wm[j] * v[j][e];
+  }
+#pragma unroll
+  for (int a = 0; a < EO; ++a) {
+#pragma unroll
+    for (int b = 0; b < EO; ++b) cov[a][b] = 0.0;
+#pragma unroll
+    for (int c = 0; c < D; ++c) cross[a][c] = 0.0;
+  }
+  VFS_PRAGMA(unroll (U))
+  for (int j = 0; j < N; ++j) {
+    double d[EO];
+#pragma unroll
+    for (int e = 0; e < EO; ++e) d[e] = v[j][e] - mu[e];
+    const double w = R.wc[j];
+#pragma unroll
+    for (int a = 0; a < EO; ++a) {
+#pragma unroll
+      for (int b = 0; b <= a; ++b) cov[a][b] = cov[a][b] + w * (d[a] * d[b]);
+#pragma unroll
+      for (int c = 0; c < D; ++c) cross[a][c] = cross[a][c] + w * (d[a] * v[j][EO + c]);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < EO; ++a) {
+#pragma unroll
+    for (int b = a + 1; b < EO; ++b) cov[a][b] = cov[b][a];
+  }
+}
+
+// One filter step from the filtered state (m, P) of the previous step (only
+// the lower triangle of P is read), measurement y; writes the five streams
+// through `out` and leaves this step's filtered state in (m, P).  vf_step's
+// arithmetic, with vfs_moments for vf_moments.
+template <int D, int E, int DYN, int OBS, int N>
+VF_HD void vfs_step(const VfsParams& p, double (&m)[D], double (&P)[D][D], const double (&y)[E],
+                    const VfOut& out) {
+  static_assert(VfDyn<DYN>::D == D && VfObs<OBS>::E == E, "model dimensions");
+  static_assert(D <= VFS_MAX_DIM && N <= VFS_MAX_PTS, "rule shape");
+  const VfParams& q = p.base;
+  double L[D][D], m_pr[D], P_pr[D][D];
+  {
+    double Pf[D][D], xx[D][D];
+    vf_chol(P, L);
+    vfs_moments<D, D, N, vfs_rolled<DYN>>(p.dyn, m, L, VfDynFn<D, DYN>{q}, m_pr, Pf, xx);
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      out.m_pr[a * out.cs] = m_pr[a];
+#pragma unroll
+      for (int b = 0; b < D; ++b) {
+        P_pr[a][b] = Pf[a][b] + q.gqg[a * VF_MAX_DIM + b];
+        out.P_pr[(a * D + b) * out.cs] = P_pr[a][b];
+        out.xx[(a * D + b) * out.cs] = xx[a][b];
+      }
+    }
+  }
+  double y_pr[E], S[E][E], C[E][D];
+  vf_chol(P_pr, L);
+  vfs_moments<D, E, N, false>(p.obs, m_pr, L, VfObsFn<D, OBS>{q}, y_pr, S, C);
+#pragma unroll
+  for (int a = 0; a < E; ++a) {
+#pragma unroll
+    for (int b = 0; b < E; ++b) S[a][b] = S[a][b] + q.r[a * VF_MAX_DIM + b];
+  }
+  double Ls[E][E], K[D][E];
+  vf_chol(S, Ls);
+  // K[d] = S^-1 C[:, d]: forward, then backward substitution
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    double z[E];
+#pragma unroll
+    for (int i = 0; i < E; ++i) {
+      double s = C[i][d];
+#pragma unroll
+      for (int k = 0; k < i; ++k) s = s - Ls[i][k] * z[k];
+      z[i] = s / Ls[i][i];
+    }
+#pragma unroll
+    for (int i = E - 1; i >= 0; --i) {
+      double s = z[i];
+#pragma unroll
+      for (int k = i + 1; k < E; ++k) s = s - Ls[k][i] * K[d][k];
+      K[d][i] = s / Ls[i][i];
+    }
+  }
+  double T[D][E];
+#pragma unroll
+  for (int d = 0; d < D; ++d) {
+    double acc = m_pr[d];
+#pragma unroll
+    for (int e = 0; e < E; ++e) acc = acc + K[d][e] * (y[e] - y_pr[e]);
+    m[d] = acc;
+    out.m_fi[d * out.cs] = acc;
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      double t = 0.0;
+#pragma unroll
+      for (int e2 = 0; e2 < E; ++e2) t = t + K[d][e2] * S[e2][e];
+      T[d][e] = t;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+#pragma unroll
+    for (int b = 0; b <= a; ++b) {
+      double acc = 0.0;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc = acc + T[a][e] * K[b][e];
+      P[a][b] = P_pr[a][b] - acc;
+      P[b][a] = P[a][b];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+#pragma unroll
+    for (int b = 0; b < D; ++b) out.P_fi[(a * D + b) * out.cs] = P[a][b];
+  }
+}
+
+// A whole record of one trajectory: T steps from the initial moments,
+// measurement e of step k at y[e * y_e + k * y_k], the streams of step k at
+// out_*[k * (components) * cs], components cs apart (vf_record's layout); the
+// measurement of step k + 1 is loaded before the arithmetic of step k.
+template <int D, int E, int DYN, int OBS, int N>
+VF_HD void vfs_record(const VfsParams& p, const double* y, long long y_e, long long y_k, int T,
+                      double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
+                      long long cs) {
+  double m[D], P[D][D];
+#pragma unroll
+  for (int a = 0; a < D; ++a) {
+    m[a] = p.base.m0[a];
+#pragma unroll
+    for (int b = 0; b < D; ++b) P[a][b] = p.base.P0[a * VF_MAX_DIM + b];
+  }
+  double y_next[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e) y_next[e] = y[e * y_e];
+#pragma unroll 1
+  for (int k = 0; k < T; ++k) {
+    double yk[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      yk[e] = y_next[e];
+      if (k + 1 < T) y_next[e] = y[e * y_e + (k + 1) * y_k];
+    }
+    const long long v = static_cast<long long>(k) * D * cs, M = v * D;
+    const VfOut out = {m_fi + v, P_fi + M, m_pr + v, P_pr + M, xx + M, cs};
+    vfs_step<D, E, DYN, OBS, N>(p, m, P, yk, out);
+  }
+}
+
+// The instantiations: both rule point counts of each registered model pair.
+#define VFS_SHAPES_OF(F, D, E, DYN, OBS) F(D, E, DYN, OBS, 2 * (D) + 1) F(D, E, DYN, OBS, 2 * (D))
+#define VFS_SHAPES(F)                                                              \
+  VFS_SHAPES_OF(F, 5, 2, VF_DYN_REENTRY, VF_OBS_RADAR)                             \
+  VFS_SHAPES_OF(F, 4, 2, VF_DYN_CV, VF_OBS_RADAR)

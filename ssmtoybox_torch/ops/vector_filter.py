@@ -5,10 +5,17 @@ Counterpart of the JAX package's ``ops/ddvec.py`` (``dd_filter_batch``, the
 ``engine="dd"`` path for D <= 8), which runs the filter step as a
 ``lax.scan`` of double-double f32-pair arithmetic in jnp because the TPU has
 no f64 unit.  The card has native float64, so the port runs the whole record
-of every trajectory inside one launch of a CUDA kernel
-(``csrc/vector_filter.cu``, the step in ``csrc/vector_filter_step.cuh``) in
-plain f64, one thread a trajectory, and returns all five moment streams that
-the RTS smoother reads.
+of every trajectory inside one launch of a CUDA kernel in plain f64 and
+returns all five moment streams that the RTS smoother reads.  Two kernels,
+one library, picked by the rules' shape (:func:`kernel_of`):
+
+- ``vector_filter_shaped`` (``csrc/vector_filter_shaped.cu``, the step in
+  ``csrc/vector_filter_shaped.cuh``): both rules classical with N = 2 D + 1 or
+  2 D points (UKF, CKF), N a template argument;
+- ``vector_filter`` (``csrc/vector_filter.cu``, the step in
+  ``csrc/vector_filter_step.cuh``), the first version: every other
+  configuration (Gauss-Hermite, GPQ and BSQ rules, mixed kinds or point
+  counts), one thread a trajectory, N at run time.
 
 Supported, as ``ddvec.dd_check`` admits them among the models the port has:
 ``dim_state <= 8``, additive noise on both models, the dynamics
@@ -20,7 +27,9 @@ a configuration is refused; :func:`supports` answers with a bool.
 
 :func:`vector_filter` is the launch wrapper.  For a CPU tensor it runs the
 plain PyTorch version :func:`_vector_filter_plain`; for a CUDA tensor it
-launches the kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
+launches the kernel of :func:`kernel_of` or raises.  Each launch adds one to
+:data:`LAUNCHES`; a launch of the shaped kernel also to
+:data:`SHAPED_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
@@ -44,15 +53,21 @@ from ..ssmod import ConstantVelocity, Radar2DMeasurement, ReentryVehicle2DTransi
 from . import _build
 from .scalar_filter import _floats, _memo
 
-__all__ = ["LAUNCHES", "VecRule", "VectorFilterParams", "lower_transform", "check", "supports",
-           "prepare", "vector_filter", "build", "chain_floor_clocks", "TORCH_FNS"]
+__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "VecRule", "VectorFilterParams", "lower_transform",
+           "check", "supports", "prepare", "kernel_of", "vector_filter", "build",
+           "chain_floor_clocks", "TORCH_FNS"]
 
-#: kernel launches made by :func:`vector_filter` in this process
+#: kernel launches made by :func:`vector_filter` in this process, both kernels
 LAUNCHES = 0
+#: the launches of the shaped kernel among them
+SHAPED_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
 _MAX_DIM = 8
+#: ``VFS_MAX_DIM`` and ``VFS_MAX_PTS`` of the shaped kernel's header: the
+#: largest state of a model pair with a kernel form and its UT point count
+_SHAPED_MAX_DIM, _SHAPED_MAX_PTS = 5, 11
 
 #: no multiply-add contraction, as the scalar filter kernel is built: every
 #: operation rounds on its own, like the plain version's separate operations
@@ -225,6 +240,16 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
         dyn_model=dyn_id, obs_model=_OBS_MODELS[type(mod_obs)], dim_state=D, dim_out=E,
         dyn_c=tuple(float(c) for c in dyn_c(mod_dyn)), obs_c=loc,
         obs_idx=tuple(int(i) for i in idx[:2]), m0=m0, P0=P0, gqg=gqg, r=r)
+
+
+def kernel_of(params: VectorFilterParams) -> str:
+    """The kernel that runs ``params``: ``"vector_filter_shaped"`` when both
+    rules are classical with the same point count N = 2 D + 1 or 2 D (the UT
+    and CKF counts), else ``"vector_filter"``, the first version."""
+    D, dyn, obs = params.dim_state, params.dyn, params.obs
+    if dyn.kind == obs.kind == 0 and dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
+        return "vector_filter_shaped"
+    return "vector_filter"
 
 
 # ---------------------------------------------------------------------------
@@ -444,6 +469,37 @@ def _c_params(p: VectorFilterParams, device: torch.device) -> _CParams:
     return c
 
 
+class _CShapedRule(ctypes.Structure):
+    _fields_ = [("xi", ctypes.c_double * (_SHAPED_MAX_DIM * _SHAPED_MAX_PTS)),
+                ("wm", ctypes.c_double * _SHAPED_MAX_PTS),
+                ("wc", ctypes.c_double * _SHAPED_MAX_PTS)]
+
+
+class _CShapedParams(ctypes.Structure):
+    _fields_ = [("base", _CParams), ("dyn", _CShapedRule), ("obs", _CShapedRule)]
+
+
+def _c_shaped_rule(rule: VecRule) -> _CShapedRule:
+    if rule.kind != 0 or rule.n > _SHAPED_MAX_PTS or rule.xi.shape[0] > _SHAPED_MAX_DIM:
+        raise ValueError(f"the shaped kernel takes classical rules of up to {_SHAPED_MAX_PTS} "
+                         f"points in up to {_SHAPED_MAX_DIM} dimensions; got kind {rule.kind}, "
+                         f"{rule.xi.shape}")
+    c = _CShapedRule()
+    for d, row in enumerate(rule.xi):
+        c.xi[d * _SHAPED_MAX_PTS:d * _SHAPED_MAX_PTS + rule.n] = row.tolist()
+    c.wm[:rule.n] = rule.wm.tolist()
+    c.wc[:rule.n] = rule.wc.tolist()
+    return c
+
+
+@functools.lru_cache(maxsize=64)
+def _c_shaped_params(p: VectorFilterParams, device: torch.device) -> _CShapedParams:
+    """The shaped kernel's parameter struct (both rules by value), built once
+    for a given ``(p, device)``."""
+    return _CShapedParams(base=_c_params(p, device), dyn=_c_shaped_rule(p.dyn),
+                          obs=_c_shaped_rule(p.obs))
+
+
 _STREAMS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2)
 
 
@@ -454,17 +510,27 @@ def _bind(lib: ctypes.CDLL):
                               + [ctypes.c_void_p] * 7)
     lib.vf_error_string.restype = ctypes.c_char_p
     lib.vf_error_string.argtypes = [ctypes.c_int]
+    lib.vfs_launch.restype = ctypes.c_int
+    lib.vfs_launch.argtypes = ([ctypes.POINTER(_CShapedParams)] + _STREAMS + [ctypes.c_int]
+                               + [ctypes.c_void_p] * 6)
+
+
+#: the sources of the library: the first-version kernel and the shaped kernel
+SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/vector_filter.cu`` for sm_90a with nvcc (once) and bind
+    """Compile ``csrc/vector_filter.cu`` and ``csrc/vector_filter_shaped.cu``
+    for sm_90a with nvcc (once, a compiler each, into one library) and bind
     it; later calls return the bound library."""
-    return _build.bound("vector_filter", ["vector_filter.cu"], _bind, _NVCC_FLAGS)
+    return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
 
 
 def _bind_host(lib: ctypes.CDLL):
     lib.vf_host_run.restype = ctypes.c_int
     lib.vf_host_run.argtypes = [ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_void_p] * 6
+    lib.vfs_host_run.restype = ctypes.c_int
+    lib.vfs_host_run.argtypes = [ctypes.POINTER(_CShapedParams)] + _STREAMS + [ctypes.c_void_p] * 5
 
 
 def _host_shim() -> ctypes.CDLL:
@@ -489,19 +555,24 @@ def _scratch(params: VectorFilterParams, B: int, device) -> torch.Tensor:
     return torch.empty(n * B, dtype=torch.float64, device=device)
 
 
-def _host_shim_run(params: VectorFilterParams, y: torch.Tensor):
-    """Run the step header compiled for the host on a CPU tensor; the five
-    streams of :func:`vector_filter`, after checking that an instantiation
-    of the configuration's dimensions ran."""
+def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, shaped: bool = False):
+    """Run a step header compiled for the host on a CPU tensor, the first
+    version's or (``shaped``) the shaped kernel's; the five streams of
+    :func:`vector_filter`, after checking that an instantiation of the
+    configuration's dimensions ran."""
     _check_streams(params, y)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
     B, _, T = y.shape
     out = _empty_streams(params.dim_state, T, B, "cpu")
-    scratch = _scratch(params, B, "cpu")
-    ran = _host_shim().vf_host_run(ctypes.byref(_c_params(params, torch.device("cpu"))),
-                                   y.data_ptr(), *y.stride(), B, T,
-                                   *(o.data_ptr() for o in out), scratch.data_ptr())
+    cpu, lib = torch.device("cpu"), _host_shim()
+    if shaped:
+        ran = lib.vfs_host_run(ctypes.byref(_c_shaped_params(params, cpu)), y.data_ptr(),
+                               *y.stride(), B, T, *(o.data_ptr() for o in out))
+    else:
+        scratch = _scratch(params, B, "cpu")
+        ran = lib.vf_host_run(ctypes.byref(_c_params(params, cpu)), y.data_ptr(), *y.stride(),
+                              B, T, *(o.data_ptr() for o in out), scratch.data_ptr())
     if ran != params.dim_state:
         raise RuntimeError(f"the host build ran the D={ran} step for D={params.dim_state}")
     return out
@@ -515,10 +586,10 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     ``(m_fi, P_fi, m_pr, P_pr, xx)``: filtered mean (T, D, B) and covariance
     (T, D, D, B), predicted mean and covariance, and the dynamics
     transform's cross-covariance (T, D, D, B).  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel on the current stream,
-    without synchronising.
+    version; a CUDA tensor launches the kernel of :func:`kernel_of` on the
+    current stream, without synchronising, or raises.
     """
-    global LAUNCHES
+    global LAUNCHES, SHAPED_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
@@ -529,14 +600,21 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     out = _empty_streams(params.dim_state, T, B, y.device)
     if y.numel() == 0:
         return out
-    scratch = _scratch(params, B, y.device)
-    rc = lib.vf_launch(ctypes.byref(_c_params(params, y.device)), y.data_ptr(), *y.stride(),
-                       B, T, y.device.index or 0, *(o.data_ptr() for o in out),
-                       scratch.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
+    kernel, stream = kernel_of(params), torch.cuda.current_stream(y.device).cuda_stream
+    if kernel == "vector_filter_shaped":
+        rc = lib.vfs_launch(ctypes.byref(_c_shaped_params(params, y.device)), y.data_ptr(),
+                            *y.stride(), B, T, y.device.index or 0,
+                            *(o.data_ptr() for o in out), stream)
+    else:
+        scratch = _scratch(params, B, y.device)
+        rc = lib.vf_launch(ctypes.byref(_c_params(params, y.device)), y.data_ptr(), *y.stride(),
+                           B, T, y.device.index or 0, *(o.data_ptr() for o in out),
+                           scratch.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"vector filter kernel launch failed: "
+        raise RuntimeError(f"{kernel} kernel launch failed: "
                            f"{lib.vf_error_string(rc).decode()} (cudaError {rc})")
     LAUNCHES += 1
+    SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped")
     return out
 
 

@@ -495,3 +495,92 @@ def test_the_card_is_the_default_device_of_the_vector_engine(card):
         np.tile([[[371.0], [1.22]]], (3, 1, 5)), engine="dd")
     assert vf.LAUNCHES == before + 1
     assert res.fi_mean.device.type == "cuda" and res.fi_cov.shape == (3, 5, 5, 5)
+
+
+# ---------------------------------------------------------------------------
+# the shaped kernel (csrc/vector_filter_shaped.cu): the UT and CKF shapes of
+# both model pairs, bit-equal to the plain version; the first version keeps
+# every other configuration
+# ---------------------------------------------------------------------------
+
+def _vector_case(card, system, rule, batch, steps=20):
+    """Parameters of ``system`` under the named rule (both transforms, or
+    ``"DYN/OBS"`` for a mixed pair) and ``batch`` simulated records."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs, classical, bq = _vector_systems(card)[system]
+    algs = {"UKF": classical, "CKF": stt.CubatureKalman(dyn, obs), "BSQ-UT": bq}
+    if system == "reentry":
+        algs["GH-3"] = stt.GaussHermiteKalman(dyn, obs, deg=3)
+    a, _, b = rule.partition("/")
+    params = vf.prepare(dyn, obs, algs[a].tf_dyn, algs[b or a].tf_obs)
+    gen = torch.Generator(device=card).manual_seed(batch)
+    x = dyn.simulate_discrete(gen, steps=steps, mc_sims=batch)
+    return params, obs.simulate_measurements(gen, x).permute(2, 0, 1)
+
+
+def _same_bits(a, b):
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+@pytest.mark.parametrize("batch", [1, 7, 31, 4097, 10_000])
+@pytest.mark.parametrize("rule", ["UKF", "CKF"])
+@pytest.mark.parametrize("system", ["reentry", "cv"])
+def test_vector_shaped_kernel_matches_plain(card, system, rule, batch):
+    """The four shapes of the shaped kernel at batch sizes that leave the last
+    warp and block ragged: equal to the plain version to the bit over 20
+    steps, all five streams; a second launch equal to the first; both
+    counters move by one."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    params, y = _vector_case(card, system, rule, batch)
+    assert vf.kernel_of(params) == "vector_filter_shaped"
+    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES, vf.SHAPED_LAUNCHES) == (before + 1, shaped_before + 1)
+    again = vf.vector_filter(params, y.contiguous())
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s
+
+
+@pytest.mark.parametrize("rule", ["GH-3", "BSQ-UT", "UKF/BSQ-UT", "BSQ-UT/UKF", "UKF/CKF"])
+def test_vector_first_version_keeps_the_other_shapes(card, rule):
+    """Gauss-Hermite, BQ rules, mixed kinds and mixed point counts launch the
+    first-version kernel, equal to the plain version to the bit."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    params, y = _vector_case(card, "reentry", rule, 257)
+    assert vf.kernel_of(params) == "vector_filter"
+    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES, vf.SHAPED_LAUNCHES) == (before + 1, shaped_before)
+    torch.cuda.synchronize()
+    for s, g, r in zip(STREAMS, got, vf._vector_filter_plain(params, y)):
+        assert _same_bits(g, r), f"{s}: {float((g - r).nan_to_num().abs().max()):.3e}"
+
+
+def test_a_failed_shaped_launch_raises(card, monkeypatch):
+    """A configuration the shaped kernel's launcher refuses (mixed point
+    counts, routed to it by force) raises, counts nothing and falls back to
+    nothing."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    params, y = _vector_case(card, "reentry", "UKF/CKF", 7)
+    monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter_shaped")
+    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    with pytest.raises(RuntimeError, match="vector_filter_shaped kernel launch failed"):
+        vf.vector_filter(params, y)
+    assert (vf.LAUNCHES, vf.SHAPED_LAUNCHES) == (before, shaped_before)
+
+
+def test_the_shaped_kernel_fills_a_failed_trajectory_with_nan(card):
+    """A covariance that is not positive definite gives NaN in every stream
+    from that step on, as in the plain version."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs, ukf, _ = _vector_systems(card)["reentry"]
+    params = vf.prepare(dyn, obs, ukf.tf_dyn, ukf.tf_obs, init_cov=-np.eye(5))
+    _, y = _vector_case(card, "reentry", "UKF", 33)
+    got = vf.vector_filter(params, y)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(got[0]).all())
+    for s, g, r in zip(STREAMS, got, vf._vector_filter_plain(params, y)):
+        assert _same_bits(g, r), s

@@ -16,16 +16,19 @@ On the CPU its wrapper runs the plain PyTorch version, which is held against:
 - ``goldens/reentry.npz`` (``ukf``, ``bsqkf``) at ``test_parity.py``'s 1e-7 /
   1e-6.
 
-The CUDA step header, compiled for the host with g++, equals the plain
-version to the bit when both take the C library's ``sqrt``, ``exp`` and
+Both CUDA step headers (the first version's and the shaped kernel's),
+compiled for the host with g++, equal the plain version to the bit when both take the C library's ``sqrt``, ``exp`` and
 ``atan2`` (``LIBM_FNS`` below): PyTorch's vectorised CPU versions
 are an ulp off some of their values, which the BQ quadratic form grows to
 ~1e-7 of the covariance.  :func:`vector_filter.supports` gives the answers
-of the JAX package's ``ddvec.dd_supports`` on a table of configurations.
+of the JAX package's ``ddvec.dd_supports`` on a table of configurations, and
+:func:`vector_filter.kernel_of` sends the UT and CKF shapes to the shaped
+kernel and every other configuration to the first version.
 
 Measurements come from a numpy seed: 8 trajectories of 20 steps simulated
 through the port's model functions with numpy noise.
 """
+import ctypes
 import math
 import shutil
 from types import SimpleNamespace
@@ -146,6 +149,8 @@ CONFIGS = {
                                                mulind_obs=MUL_UT, points="ut"), True),
     "cv_ukf": ("cv", lambda d, o: stt.UnscentedKalman(d, o),
                lambda d, o: st.UnscentedKalman(d, o), True),
+    "cv_ckf": ("cv", lambda d, o: stt.CubatureKalman(d, o),
+               lambda d, o: st.CubatureKalman(d, o), True),
     "tpq": ("reentry", lambda d, o: stt.StudentProcessKalman(d, o, GPQ_DYN, GPQ_OBS),
             lambda d, o: st.StudentProcessKalman(d, o, GPQ_DYN, GPQ_OBS, points="ut"), False),
     "bsq_matrix_emv": ("reentry", lambda d, o: _bsq_override(CONFIGS["bsq_ut"][1](d, o)),
@@ -160,19 +165,20 @@ def _port(name):
     return CONFIGS[name][1](dyn, obs)
 
 
-def _simulate(system, seed=0):
-    """(B, 2, T) measurements of B trajectories simulated with numpy noise
-    through the port's model functions (truth from step 0, measurement k of
-    the state at step k)."""
+def _simulate(system, seed=0, batch=B):
+    """(batch, 2, T) measurements of ``batch`` trajectories simulated with
+    numpy noise through the port's model functions (truth from step 0,
+    measurement k of the state at step k)."""
     dyn, obs = SYSTEMS[system][0]()
     rng = np.random.default_rng(seed)
     m0, P0 = (t.numpy() for t in dyn.init_rv.get_stats()[:2])
     Q, R = dyn.noise_rv.get_stats()[1].numpy(), obs.noise_rv.get_stats()[1].numpy()
-    x = torch.as_tensor(rng.multivariate_normal(m0, P0, size=B))
+    x = torch.as_tensor(rng.multivariate_normal(m0, P0, size=batch))
     ys = []
     for k in range(T):
-        x = dyn.dyn_fcn(x, torch.as_tensor(rng.multivariate_normal(np.zeros(len(Q)), Q, size=B)), k)
-        r = torch.as_tensor(rng.multivariate_normal(np.zeros(2), R, size=B))
+        x = dyn.dyn_fcn(x, torch.as_tensor(rng.multivariate_normal(np.zeros(len(Q)), Q,
+                                                                   size=batch)), k)
+        r = torch.as_tensor(rng.multivariate_normal(np.zeros(2), R, size=batch))
         ys.append(obs.meas_fcn(obs._select(x), r, k + 1))
     return torch.stack(ys, dim=-1)
 
@@ -238,6 +244,71 @@ def test_step_header_on_host_matches_plain(data, name, batch):
         for s, a, b in zip(STREAMS, vf._host_shim_run(params, y), want):
             assert bool(torch.isfinite(b).all()), s
             assert torch.equal(a, b), f"{s}: {float((a - b).abs().max()):.3e}"
+
+
+@pytest.fixture(scope="module")
+def data33():
+    return {s: _simulate(s, seed=1, batch=33) for s in SYSTEMS}
+
+
+@pytest.mark.parametrize("batch", [1, 7, 33])
+@pytest.mark.parametrize("name", ["ukf", "ckf", "cv_ukf", "cv_ckf"])
+def test_shaped_header_on_host_matches_plain(data33, name, batch):
+    """``csrc/vector_filter_shaped.cuh`` built with g++ == the plain version
+    with the C library's transcendentals, to the bit, all five streams, at the UT and CKF shapes of both model
+    pairs; measurements read through their strides."""
+    if shutil.which("g++") is None:
+        pytest.skip("g++ is not installed: the step header cannot be built for the host")
+    alg = _port(name)
+    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.kernel_of(params) == "vector_filter_shaped"
+    ys = data33[CONFIGS[name][0]][:batch]
+    time_major = ys.permute(2, 1, 0).contiguous().permute(2, 1, 0)
+    want = vf._vector_filter_plain(params, ys, LIBM_FNS)
+    for y in (ys, time_major):
+        for s, a, b in zip(STREAMS, vf._host_shim_run(params, y, shaped=True), want):
+            assert bool(torch.isfinite(b).all()), s
+            assert torch.equal(a, b), f"{s}: {float((a - b).abs().max()):.3e}"
+
+
+def _mixed(dyn_of, obs_of):
+    """A filter with the dynamics rule of config ``dyn_of`` and the
+    measurement rule of ``obs_of`` (same system)."""
+    alg, other = _port(dyn_of), _port(obs_of)
+    alg.tf_obs = other.tf_obs
+    return alg
+
+
+#: configuration -> the kernel that runs it: the UT and CKF shapes of both model
+#: pairs take the shaped kernel; Gauss-Hermite, BQ rules, mixed kinds and mixed
+#: point counts the first version
+ROUTES = {"ukf": "vector_filter_shaped", "ckf": "vector_filter_shaped",
+          "cv_ukf": "vector_filter_shaped", "cv_ckf": "vector_filter_shaped",
+          "gh3": "vector_filter", "gpq_ut": "vector_filter", "bsq_ut": "vector_filter",
+          "ukf/bsq_ut": "vector_filter", "bsq_ut/ukf": "vector_filter",
+          "ukf/ckf": "vector_filter", "cv_ckf/cv_ukf": "vector_filter"}
+
+
+@pytest.mark.parametrize("name", sorted(ROUTES))
+def test_kernel_of_routes_by_shape(name):
+    alg = _mixed(*name.split("/")) if "/" in name else _port(name)
+    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.kernel_of(params) == ROUTES[name]
+
+
+def test_shaped_host_build_refuses_other_shapes(data):
+    """The shaped header's host entry runs no instantiation for mixed point
+    counts, and a rule that does not fit its parameter struct is refused
+    before any call."""
+    alg = _mixed("ukf", "ckf")
+    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    with pytest.raises(RuntimeError, match="ran the D=0 step"):
+        vf._host_shim_run(params, data["reentry"][:1], shaped=True)
+    for name in ("gh3", "bsq_ut"):
+        alg = _port(name)
+        params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+        with pytest.raises(ValueError, match="shaped kernel takes classical rules"):
+            vf._host_shim_run(params, data["reentry"][:1], shaped=True)
 
 
 @pytest.mark.parametrize("name", ["ukf", "bsqkf"])
@@ -375,3 +446,16 @@ def test_parameter_struct_matches_the_header():
         token = {"ReentryVehicle2DTransition": "REENTRY", "ConstantVelocity": "CV"}[cls.__name__]
         assert f"#define VF_DYN_{token} {model_id}" in src
     assert f"#define VF_OBS_RADAR {vf._OBS_MODELS[ssmod.Radar2DMeasurement]}" in src
+
+
+def test_shaped_parameter_struct_matches_the_header():
+    """The ctypes mirror of ``VfsRule``/``VfsParams`` has the shaped header's
+    fields and sizes."""
+    src = open(vf._build.CSRC + "/vector_filter_shaped.cuh").read()
+    for struct, mirror in (("VfsRule", vf._CShapedRule), ("VfsParams", vf._CShapedParams)):
+        body = src.split(f"struct {struct} {{")[1].split("};")[0]
+        for name, _ in mirror._fields_:
+            assert f" {name};" in body or f" {name}[" in body, (struct, name)
+    assert f"#define VFS_MAX_DIM {vf._SHAPED_MAX_DIM}" in src
+    assert f"#define VFS_MAX_PTS {vf._SHAPED_MAX_PTS}" in src
+    assert ctypes.sizeof(vf._CShapedParams) == 3024 and "3,024 bytes" in src
