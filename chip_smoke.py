@@ -115,7 +115,20 @@ fails at once without them.  Phases, each fatal on failure:
     and chain floor (the card's dependent-issue latencies, exp and atan2
     included), for UKF and CKF the first-version kernel on the same input in
     turns with the shaped one, the wrapper calls of both kernels, their plain
-    versions and the lane through both engines.
+    versions and the lane through both engines;
+19. "zoo": the rest of the model zoo at 10,000 trajectories simulated on the
+    card from the seed: the pendulum under UKF (shaped kernel) and GPQKF
+    (first version), the falling body under UKF and the coordinated turn
+    with four bearings under CKF (shaped kernel), 100 steps, each through
+    ``engine="dd"`` (one launch of the kernel ``kernel_of`` names), every
+    stream of its first 200 trajectories equal to the plain version's to
+    the bit, its filter RMSE the eager lane's within 1e-6 relative, at most
+    1% of its runs not finite, filter and smoother RMSE printed and raw
+    launches of its instantiation beside its bound and chain floor; UNGM
+    with non-additive noise (500 steps) and the constant turn-rate model
+    with the radar under UKF through ``engine="auto"``, which runs them
+    eagerly (no kernel may launch), timed with CUDA events, filter and
+    smoother RMSE printed.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -1199,14 +1212,21 @@ VF_CV_BSQ = [[1.0, 100.0, 100.0, 100.0, 100.0]]
 VF_MEAN_ATOL, VF_COV_ATOL = 1e-6, 1e-7
 
 
+#: f64 operations of each model's function, by model id (a square root, exp,
+#: sine, cosine, atan2 or divide as one): reentry ~30, CV 4, the pendulum 5,
+#: the falling body 9, the coordinated turn ~24 (its selects included); the
+#: radar 8, the sine measurement 1, the range 4, four bearings 12
+VF_DYN_OPS = {0: 30, 1: 4, 2: 5, 3: 9, 4: 24}
+VF_OBS_OPS = {0: 8, 1: 1, 2: 4, 3: 12}
+
+
 def vf_bound(params, n_steps, batch):
     """Bound of the vector filter kernel on ``n_steps`` x ``batch``: it reads y
     and writes the five streams (2 D + 3 D^2 doubles a step); its f64
     operations counted a point (``L xi`` once, though the kernel makes it
-    again for a classical rule's second pass; the mean, the model at ~30 for
-    reentry, 4 for CV, 8 for the radar, the moment sums) and a step (the
-    three Cholesky factors, the gain and the update), a square root, exp,
-    atan2 or divide as one."""
+    again for a classical rule's second pass; the mean, the model
+    (:data:`VF_DYN_OPS`, :data:`VF_OBS_OPS`), the moment sums) and a step (the
+    three Cholesky factors, the gain and the update)."""
     D, E = params.dim_state, params.dim_out
 
     def per_point(rule, eo, model):
@@ -1219,8 +1239,8 @@ def vf_bound(params, n_steps, batch):
         return n * (n + 1) * (n + 2) // 3
 
     per_step = (2 * chol(D) + chol(E) + 2 * D * D + 4 * D * E * E + 2 * D * D * E
-                + params.dyn.n * per_point(params.dyn, D, 30 if params.dyn_model == 0 else 4)
-                + params.obs.n * per_point(params.obs, E, 8))
+                + params.dyn.n * per_point(params.dyn, D, VF_DYN_OPS[params.dyn_model])
+                + params.obs.n * per_point(params.obs, E, VF_OBS_OPS[params.obs_model]))
     n_bytes = batch * n_steps * (E + 2 * D + 3 * D * D) * 8
     return bound(n_bytes, (batch * n_steps * per_step, F64_OPS_S))
 
@@ -1475,6 +1495,171 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     return shaped_entry, first_entry
 
 
+#: the "zoo" phase: the rest of the model zoo on the card, at MC trajectories
+ZOO_STEPS, ZOO_UNGM_STEPS = 100, 500
+#: the fused lanes' comparison with the plain version: the first trajectories
+ZOO_PLAIN_B = 200
+#: the sensors of the CT + bearings configuration (tests/test_ddvec.py:280-289)
+ZOO_SENSORS = [[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0]]
+
+
+def zoo_systems(np, dev):
+    """(dynamics, measurement) of the zoo phase's five systems: the pendulum,
+    the falling body with its range and the coordinated turn with four
+    bearings of ``tests/test_ddvec.py:262-289``; UNGM with non-additive noise
+    and the constant turn-rate model with the radar of the goldens
+    (``tests/test_parity.py:92-96``, ``:166-185``)."""
+    from ssmtoybox_torch import ssmod
+    from ssmtoybox_torch.utils import GaussRV
+    dt = 0.01
+    q_pend = 0.1 * np.array([[dt ** 3 / 3, dt ** 2 / 2], [dt ** 2 / 2, dt]])
+    return {
+        "pendulum": (ssmod.Pendulum2DTransition(
+                         GaussRV(2, mean=[1.5, 0.0], cov=0.01 * np.eye(2), device=dev),
+                         GaussRV(2, cov=q_pend, device=dev), dt=dt),
+                     ssmod.Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=dev), dim_state=2)),
+        "falling body": (ssmod.ReentryVehicle1DTransition(
+                             GaussRV(3, mean=[90.0, 6.0, 1.5], cov=0.09 * np.eye(3), device=dev),
+                             GaussRV(3, cov=1e-8 * np.eye(3), device=dev), dt=0.1),
+                         ssmod.RangeMeasurement(GaussRV(1, cov=0.03, device=dev), dim_state=3)),
+        "CT + 4 bearings": (ssmod.CoordinatedTurnTransition(
+                                GaussRV(5, mean=[100.0, 10.0, 100.0, 5.0, 0.06],
+                                        cov=np.diag([10.0, 1.0, 10.0, 1.0, 1e-3]), device=dev),
+                                GaussRV(5, cov=np.diag([0.1, 0.1, 0.1, 0.1, 1e-5]), device=dev),
+                                dt=0.1),
+                            ssmod.BearingMeasurement(GaussRV(4, cov=1e-3 * np.eye(4), device=dev),
+                                                     dim_state=5, state_index=[0, 2],
+                                                     sensor_pos=ZOO_SENSORS)),
+        "UNGM-NA": (ssmod.UNGMNATransition(GaussRV(1, mean=1.0, cov=1.0, device=dev),
+                                           GaussRV(1, cov=10.0, device=dev)),
+                    ssmod.UNGMNAMeasurement(GaussRV(1, cov=0.01, device=dev), dim_state=1)),
+        "CTRS + radar": (ssmod.ConstantTurnRateSpeed(
+                             GaussRV(5, mean=[10.0, 0.0, 5.0, 0.5, 0.1], cov=0.1 * np.eye(5),
+                                     device=dev),
+                             GaussRV(2, cov=np.diag([0.1, 0.1 * np.pi]), device=dev), dt=0.05,
+                             compat_heading=True),
+                         ssmod.Radar2DMeasurement(GaussRV(2, cov=np.diag([0.3, 0.03]), device=dev),
+                                                  dim_state=5, state_index=[0, 1])),
+    }
+
+
+def zoo_slice(torch, np, dev):
+    """Phase 19, "zoo": the rest of the model zoo at MC trajectories simulated
+    on the card from the seed.  Fused lanes (``engine="dd"``): the pendulum
+    under UKF (the shaped kernel) and GPQKF (RBF ``[[1, 2, 2]]``,
+    spherical-radial points: the first version), the falling body under UKF
+    and the CT + 4 bearings system under CKF (both the shaped kernel).  Each
+    launches the kernel ``kernel_of`` names, once; every stream of its first
+    ``ZOO_PLAIN_B`` trajectories equals the plain version's to the bit; its
+    filter RMSE is the eager f64 lane's within 1e-6 relative; at most 1% of
+    its runs are not finite; filter and smoother RMSE are printed, and raw
+    launches of its instantiation beside ``vf_bound`` and the chain floor.
+    Eager lanes (``engine="auto"``, non-additive noise, so no kernel):
+    UKF on UNGM-NA (500 steps) and on CTRS + radar, launching no kernel,
+    timed with CUDA events, filter and smoother RMSE printed.  Returns the
+    launches of the first version and of the shaped kernel on this path (the
+    counts set to 0 before it) and the largest |diff| of each against its
+    plain version."""
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.ops import scalar_filter as sf, vector_filter as vf
+    from ssmtoybox_torch.utils.metrics import rmse
+
+    systems = zoo_systems(np, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    data = {}
+    for name, (dyn, obs) in systems.items():
+        steps = ZOO_UNGM_STEPS if name == "UNGM-NA" else ZOO_STEPS
+        x = dyn.simulate_discrete(gen, steps=steps, mc_sims=MC)
+        data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
+    pend = systems["pendulum"]
+    gpq_par = np.array([[1.0, 2.0, 2.0]])
+    fused = [("pendulum", "UKF", stt.UnscentedKalman(*pend)),
+             ("pendulum", "GPQKF", stt.GaussianProcessKalman(*pend, gpq_par, gpq_par, points="sr")),
+             ("falling body", "UKF", stt.UnscentedKalman(*systems["falling body"])),
+             ("CT + 4 bearings", "CKF", stt.CubatureKalman(*systems["CT + 4 bearings"]))]
+    eager = [("UNGM-NA", "UKF", stt.UnscentedKalman(*systems["UNGM-NA"])),
+             ("CTRS + radar", "UKF", stt.UnscentedKalman(*systems["CTRS + radar"]))]
+    torch.cuda.synchronize()
+
+    def scores(x_true, res):
+        sm, _ = stt.gaussian_smoother(res)
+        x_t = x_true.permute(1, 2, 0)
+        ok = torch.isfinite(res.fi_mean).flatten(1).all(1)
+        return (float(rmse(x_t, res.fi_mean.permute(1, 2, 0))),
+                float(rmse(x_t, sm.permute(1, 2, 0))), 1.0 - float(ok.double().mean()))
+
+    # ---- the path: every lane once, the counts from 0 -------------------------
+    vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
+    sf_before = sf.LAUNCHES
+    results = {}
+    for system, rule, alg in fused:
+        before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+        results[system, rule] = alg.forward_pass_batch(data[system][1], engine="dd")
+        params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+        shaped = vf.kernel_of(params) == "vector_filter_shaped"
+        if (vf.LAUNCHES - before, vf.SHAPED_LAUNCHES - shaped_before) != (1, int(shaped)):
+            fail(f"zoo {system} {rule}: {vf.LAUNCHES - before} vector filter launches, "
+                 f"{vf.SHAPED_LAUNCHES - shaped_before} of the shaped kernel; expected one of "
+                 f"{vf.kernel_of(params)}")
+    launches = {"vector_filter": vf.LAUNCHES - vf.SHAPED_LAUNCHES,
+                "vector_filter_shaped": vf.SHAPED_LAUNCHES}
+    eager_ms = {}
+    for system, rule, alg in eager:
+        before = (sf.LAUNCHES, vf.LAUNCHES)
+        eager_ms[system], results[system, rule] = event_ms(
+            torch, lambda: alg.forward_pass_batch(data[system][1], engine="auto"))
+        if (sf.LAUNCHES, vf.LAUNCHES) != before:
+            fail(f"zoo {system} {rule} (non-additive, engine='auto'): a kernel was launched")
+    torch.cuda.synchronize()
+    if sf.LAUNCHES != sf_before:
+        fail("the zoo phase launched the scalar filter kernel")
+    log(f"zoo path ({MC} trajectories): vector filter launches, first version "
+        f"{launches['vector_filter']}, shaped kernel {launches['vector_filter_shaped']}; the "
+        "non-additive lanes launched none")
+
+    # ---- the fused lanes: plain version, eager lane, scores, times ------------
+    err = {"vector_filter": 0.0, "vector_filter_shaped": 0.0}
+    lat, mhz = sf.dependent_latencies(dev), float(clocks_line().split()[0])
+    for system, rule, alg in fused:
+        x_true, ys = data[system]
+        res = results[system, rule]
+        params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+        kernel = vf.kernel_of(params)
+        plain = vf._vector_filter_plain(params, ys[:ZOO_PLAIN_B])
+        head = stt.FilterResult(*(getattr(res, f)[:ZOO_PLAIN_B] for f in
+                                  ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")))
+        err[kernel] = max(err[kernel], vf_against_plain(
+            torch, head, plain, f"zoo {system} {rule}, first {ZOO_PLAIN_B} trajectories"))
+        del plain, head
+        ref = alg.forward_pass_batch(ys, engine="f64")
+        (r_fi, r_sm, lost), (e_fi, e_sm, e_lost) = scores(x_true, res), scores(x_true, ref)
+        rel = abs(r_fi - e_fi) / e_fi
+        log(f"zoo {system} {rule} ({MC}x{ys.shape[-1]}, {kernel}): == plain version to the bit "
+            f"on {ZOO_PLAIN_B} trajectories, all five streams; RMSE filter {r_fi:.9f}, smoother "
+            f"{r_sm:.9f} (eager f64: {e_fi:.9f}, {e_sm:.9f}; filter relative {rel:.2e}, limit "
+            f"1e-6); not finite {lost:.2%} (eager {e_lost:.2%}, limit 1%)")
+        if not (rel <= 1e-6 and lost <= 0.01):
+            fail(f"zoo {system} {rule}: filter RMSE of dd and f64 differ by {rel:.3e} relative, "
+                 f"or {lost:.2%} of the runs are not finite")
+        del ref
+        raw = raw_ms(torch, vf_raw(torch, vf, params, ys, dev))
+        b_ms, b_by = vf_bound(params, ys.shape[-1], MC)
+        floor = vf.chain_floor_clocks(lat, params)
+        log(f"  {kernel} <D={params.dim_state}, E={params.dim_out}, N={params.dyn.n}> raw "
+            f"launches {raw:.4f} ms a launch (CUDA events around 20 behind torch.cuda._sleep), "
+            f"bound {b_ms:.4f} ms ({b_by}), chain floor {floor:.0f} clocks a step = "
+            f"{floor * ys.shape[-1] / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz")
+
+    # ---- the eager lanes ---------------------------------------------------------
+    for system, rule, alg in eager:
+        x_true, ys = data[system]
+        r_fi, r_sm, lost = scores(x_true, results[system, rule])
+        log(f"zoo {system} {rule} ({MC}x{ys.shape[-1]}, engine='auto' -> eager f64, no kernel): "
+            f"{eager_ms[system]:.1f} ms (CUDA events, one call); RMSE filter {r_fi:.6f}, "
+            f"smoother {r_sm:.6f}; not finite {lost:.2%}")
+    return launches, err
+
+
 def main():
     import numpy as np
     import torch
@@ -1505,12 +1690,19 @@ def main():
 
     # ---- 1. build ---------------------------------------------------------
     t0 = t_start = time.perf_counter()
+
+    def timed_build(lib):
+        lib.build()
+        return time.perf_counter() - t0
+
     with ThreadPoolExecutor(4) as pool:
-        for build in [pool.submit(lib.build) for lib in (sf, smc, vdm, vf)]:
-            build.result()
+        took = {lib.__name__.split(".")[-1]: pool.submit(timed_build, lib)
+                for lib in (sf, smc, vdm, vf)}
+        took = {name: build.result() for name, build in took.items()}
     log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu, vandermonde.cu and "
         f"vector_filter.cu + vector_filter_shaped.cu for sm_90a in "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"{time.perf_counter() - t0:.1f} s (each library done after: "
+        + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):
         text = _build.BUILD_LOGS.get(name, "")
         regs = [int(m) for m in re.findall(r"Used (\d+) registers", text)]
@@ -1666,6 +1858,10 @@ def main():
     student = student_slice(torch, np, dev)
     vdm_entry, bsq_sf_launches, vf_track, vf_track_err = bsq_slice(torch, np, dev, xs, ys)
     vf_main["max_abs_err"] = max(vf_main["max_abs_err"], vf_track_err)
+    zoo_launches, zoo_err = zoo_slice(torch, np, dev)
+    vf_first["launches"] += zoo_launches["vector_filter"]
+    vf_first["max_abs_err"] = max(vf_first["max_abs_err"], zoo_err["vector_filter"])
+    vf_main["max_abs_err"] = max(vf_main["max_abs_err"], zoo_err["vector_filter_shaped"])
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{
@@ -1677,7 +1873,8 @@ def main():
         "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **vf_first}, {
         "name": "vector_filter_shaped", "route": "cuda",
         "source": "ssmtoybox_torch/csrc/vector_filter_shaped.cu",
-        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", "launches": vfs_launches + vf_track,
+        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514",
+        "launches": vfs_launches + vf_track + zoo_launches["vector_filter_shaped"],
         **vf_main}]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps(kernels), flush=True)

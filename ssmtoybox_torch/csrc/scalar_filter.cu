@@ -164,8 +164,8 @@ scalar_filter_rt_kernel(const __grid_constant__ SfParams p, const double* __rest
 // own branch does not count) and reads the SM's clock around them.
 // out[0..6]: clocks an add, a multiply, a divide, a square root (with the add
 // that feeds it back), a double moved by two shuffles, an exp (with the
-// multiply that feeds it back) and an atan2; the last two are the vector
-// filter's transcendentals.
+// multiply that feeds it back), an atan2 and a sine (with the add that feeds
+// it back); the last three are the vector filter's transcendentals.
 #define SF_TIME_CHAIN(SLOT, INIT, OP)                                  \
   {                                                                    \
     double x = INIT;                                                   \
@@ -185,10 +185,12 @@ __global__ void sf_latency_kernel(double a, int iters, double* __restrict__ out)
   SF_TIME_CHAIN(2, a, a / x)
   SF_TIME_CHAIN(3, a, sqrt(x) + a)
   SF_TIME_CHAIN(4, a + threadIdx.x, sf_from_lane<8>(x, (threadIdx.x + 1) & 7))
-  const double c = 0.3 * a;  // exp(x) c and atan2(x, c) settle at 0.49 and 1.35
+  // exp(x) c, atan2(x, c) and sin(x) + c settle at 0.49, 1.35 and 1.24
+  const double c = 0.3 * a;
   SF_TIME_CHAIN(5, c, exp(x) * c)
   SF_TIME_CHAIN(6, c, atan2(x, c))
-  if (threadIdx.x == 0) out[7] = keep;
+  SF_TIME_CHAIN(7, c, sin(x) + c)
+  if (threadIdx.x == 0) out[8] = keep;
 }
 
 template <int KD, int KO, int N>

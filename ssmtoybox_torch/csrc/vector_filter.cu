@@ -1,7 +1,8 @@
 // Whole-record Gaussian sigma-point filter for small vector states on Hopper
 // (sm_90a), native float64: the reentry and constant-velocity models with the
-// range-bearing radar, classical (UKF, CKF, Gauss-Hermite) and BQ (GPQ, BSQ)
-// rules with a scalar model variance.
+// range-bearing radar, the pendulum, the falling body with its range and the
+// coordinated turn with four bearings, classical (UKF, CKF, Gauss-Hermite)
+// and BQ (GPQ, BSQ) rules with a scalar model variance.
 //
 // Replaces ssmtoybox_tpu/ops/ddvec.py:514 dd_filter_batch, the JAX package's
 // engine="dd" for D <= 8: a lax.scan of double-double f32-pair arithmetic in

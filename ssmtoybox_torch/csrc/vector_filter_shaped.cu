@@ -1,8 +1,9 @@
 // Whole-record Gaussian sigma-point filter for small vector states on Hopper
 // (sm_90a), native float64, for the configurations of the main path: the
-// reentry and constant-velocity models with the range-bearing radar under
-// classical rules at the UT and CKF point counts (N = 2 D + 1 or 2 D on both
-// transforms), N a template argument.  Every other configuration of the fused
+// reentry and constant-velocity models with the range-bearing radar, and the
+// pendulum, the falling body with its range and the coordinated turn with
+// four bearings, under classical rules at the UT and CKF point counts (N =
+// 2 D + 1 or 2 D on both transforms), N a template argument.  Every other configuration of the fused
 // vector filter (Gauss-Hermite, GPQ and BSQ rules, mixed kinds or counts)
 // runs in the first-version kernel of vector_filter.cu, built into the same
 // library.
@@ -21,7 +22,8 @@
 // Design (vector_filter_shaped.cuh): one thread a trajectory, as the first
 // version; the rules' shape and constants at compile time; every point's
 // value and offset computed once and kept on chip (registers, or L1 where the
-// reentry model's loop stays a loop to fit the instruction cache), no
+// reentry, coordinated-turn or bearing loops stay loops to fit the instruction
+// cache), no
 // scratch buffer in device memory; time-major streams, neighbouring
 // trajectories at neighbouring addresses.  Splitting a trajectory over 2, 4
 // or 8 lanes of a warp (the points split, the sums split by entry and

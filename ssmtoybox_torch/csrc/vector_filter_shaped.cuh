@@ -27,12 +27,18 @@
 // with its slow path) unrolled 10 or 11 times made a kernel of 9,000-16,000
 // instructions, past what the SM's instruction cache holds, and it ran at
 // 2.4-3.0 ms on the bench lane against 1.6 ms as loops (PERF.md, section 6).  The
-// radar and the constant-velocity model are short and unroll.
+// radar and the constant-velocity model are short and unroll.  The
+// coordinated turn (a sine, a cosine and two divides) and the four bearings
+// (four atan2, each with a divide) stay loops for the same reason: unrolled,
+// that kernel was 13,900-15,200 instructions, as loops 4,300 (PERF.md); the
+// pendulum (one sine), the falling body (one exp), its range (one square
+// root) and the pendulum's sine measurement unroll at their 4-7 points.
 #pragma once
 
 #include "vector_filter_step.cuh"
 
-// Largest state of a registered model pair (reentry), and its UT point count.
+// Largest state of a registered model pair (reentry, coordinated turn), and
+// its UT point count.
 #define VFS_MAX_DIM 5
 #define VFS_MAX_PTS 11
 
@@ -46,7 +52,7 @@ struct VfsRule {
 
 // The kernel's parameters: the first version's (models, initial moments,
 // G Q G^T, R; of its rule fields only the kinds and point counts, which the
-// launcher checks) and both rules by value, 3,024 bytes of the 4 KB a
+// launcher checks) and both rules by value, 3,072 bytes of the 4 KB a
 // kernel's parameters may take.
 struct VfsParams {
   VfParams base;
@@ -54,9 +60,12 @@ struct VfsParams {
   VfsRule obs;
 };
 
-// Whether the point loops of the dynamics transform stay loops (above).
+// Whether the point loops of the dynamics and of the measurement transform
+// stay loops (above).
 template <int DYN>
-constexpr bool vfs_rolled = DYN == VF_DYN_REENTRY;
+constexpr bool vfs_rolled = DYN == VF_DYN_REENTRY || DYN == VF_DYN_CT;
+template <int OBS>
+constexpr bool vfs_rolled_obs = OBS == VF_OBS_BEARING;
 
 #define VFS_PRAGMA(x) _Pragma(#x)
 
@@ -147,7 +156,7 @@ VF_HD void vfs_step(const VfsParams& p, double (&m)[D], double (&P)[D][D], const
   }
   double y_pr[E], S[E][E], C[E][D];
   vf_chol(P_pr, L);
-  vfs_moments<D, E, N, false>(p.obs, m_pr, L, VfObsFn<D, OBS>{q}, y_pr, S, C);
+  vfs_moments<D, E, N, vfs_rolled_obs<OBS>>(p.obs, m_pr, L, VfObsFn<D, OBS>{q}, y_pr, S, C);
 #pragma unroll
   for (int a = 0; a < E; ++a) {
 #pragma unroll
@@ -244,4 +253,7 @@ VF_HD void vfs_record(const VfsParams& p, const double* y, long long y_e, long l
 #define VFS_SHAPES_OF(F, D, E, DYN, OBS) F(D, E, DYN, OBS, 2 * (D) + 1) F(D, E, DYN, OBS, 2 * (D))
 #define VFS_SHAPES(F)                                                              \
   VFS_SHAPES_OF(F, 5, 2, VF_DYN_REENTRY, VF_OBS_RADAR)                             \
-  VFS_SHAPES_OF(F, 4, 2, VF_DYN_CV, VF_OBS_RADAR)
+  VFS_SHAPES_OF(F, 4, 2, VF_DYN_CV, VF_OBS_RADAR)                                  \
+  VFS_SHAPES_OF(F, 2, 1, VF_DYN_PENDULUM, VF_OBS_PENDULUM_SIN)                     \
+  VFS_SHAPES_OF(F, 3, 1, VF_DYN_REENTRY1D, VF_OBS_RANGE)                           \
+  VFS_SHAPES_OF(F, 5, 4, VF_DYN_CT, VF_OBS_BEARING)

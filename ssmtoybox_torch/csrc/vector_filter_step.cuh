@@ -1,13 +1,15 @@
 // One step of the Gaussian sigma-point filter for small vector states
 // (2 <= D <= 8) with additive noise, in native float64, one trajectory a
-// thread.
+// thread.  Model pairs: reentry (2-D) and constant velocity with the radar,
+// the pendulum with its sine measurement, the falling body (1-D reentry)
+// with its range, the coordinated turn with four bearings.
 //
 // Shared by the CUDA kernel (vector_filter.cu) and a host shim
 // (vector_filter_host.cpp) that g++ builds, so that the CPU tests hold this
 // exact code against the plain PyTorch version in
 // ssmtoybox_torch/ops/vector_filter.py.  Every sum runs in the plain
 // version's order, from 0.0 upwards, so that the two agree to the bit where
-// their exp, sqrt and atan2 agree.
+// their exp, sqrt, sin, cos and atan2 agree.
 //
 // Step (the JAX package's ops/ddvec.py::_prepare.step_math and the port's
 // eager ssinf._gaussian_time_update / _kalman_update, in f64):
@@ -55,9 +57,19 @@
 #define VF_MAX_DIM 8
 
 // Models with a kernel form (ids shared with ops/vector_filter.py).
-#define VF_DYN_REENTRY 0  // ReentryVehicle2DTransition: dyn_c = dt, R0, H0, Gm0, b0
-#define VF_DYN_CV 1       // ConstantVelocity: dyn_c = dt
-#define VF_OBS_RADAR 0    // Radar2DMeasurement: obs_c = radar x, y; obs_idx = state_index
+#define VF_DYN_REENTRY 0    // ReentryVehicle2DTransition: dyn_c = dt, R0, H0, Gm0, b0
+#define VF_DYN_CV 1         // ConstantVelocity: dyn_c = dt
+#define VF_DYN_PENDULUM 2   // Pendulum2DTransition: dyn_c = dt, g dt
+#define VF_DYN_REENTRY1D 3  // ReentryVehicle1DTransition: dyn_c = dt, -Gamma
+#define VF_DYN_CT 4         // CoordinatedTurnTransition: dyn_c = dt
+// obs_idx: the state components the measurement reads (its state_index)
+#define VF_OBS_RADAR 0         // Radar2DMeasurement: obs_c = radar x, y
+#define VF_OBS_PENDULUM_SIN 1  // Pendulum2DMeasurement: no constants
+#define VF_OBS_RANGE 2         // RangeMeasurement: obs_c = sx^2, sy
+#define VF_OBS_BEARING 3       // BearingMeasurement, 4 sensors: obs_c = x, y of each
+
+// Largest number of measurement constants (4 bearing sensors' positions).
+#define VF_MAX_OBS_C 8
 
 // A quadrature rule, its constants in memory the step reads (device memory
 // for the kernel).  kind 0: classical, diagonal covariance weights wc.  kind 1:
@@ -74,7 +86,7 @@ struct VfRule {
   double emv;         // kind 1
 };
 
-// Everything the kernel takes besides the data: by value, 1,792 bytes of
+// Everything the kernel takes besides the data: by value, 1,840 bytes of
 // the 4 KB a kernel's parameters may take.  Matrices row-major, VF_MAX_DIM
 // apart.
 struct VfParams {
@@ -85,7 +97,7 @@ struct VfParams {
   int dim_state;
   int dim_out;
   double dyn_c[5];
-  double obs_c[2];
+  double obs_c[VF_MAX_OBS_C];
   int obs_idx[2];
   double m0[VF_MAX_DIM];
   double P0[VF_MAX_DIM * VF_MAX_DIM];
@@ -150,6 +162,54 @@ struct VfDyn<VF_DYN_CV> {
   }
 };
 
+// Pendulum, state [angle, angular rate] (ssmod.Pendulum2DTransition).
+template <>
+struct VfDyn<VF_DYN_PENDULUM> {
+  static constexpr int D = 2;
+  VF_HD static void eval(const double* c, const double (&x)[2], double (&f)[2]) {
+    const double dt = c[0], gdt = c[1];
+    f[0] = x[0] + x[1] * dt;
+    f[1] = x[1] - gdt * sin(x[0]);
+  }
+};
+
+// Falling body, state [altitude, velocity, ballistic coefficient]
+// (ssmod.ReentryVehicle1DTransition), the products in the model's order.
+template <>
+struct VfDyn<VF_DYN_REENTRY1D> {
+  static constexpr int D = 3;
+  VF_HD static void eval(const double* c, const double (&x)[3], double (&f)[3]) {
+    const double dt = c[0], neg_gamma = c[1];
+    f[0] = x[0] - dt * x[1];
+    f[1] = x[1] - ((dt * exp(neg_gamma * x[0])) * (x[1] * x[1])) * x[2];
+    f[2] = x[2];
+  }
+};
+
+// Coordinated turn, state [p_x, v_x, p_y, v_y, turn rate]
+// (ssmod.CoordinatedTurnTransition): below a turn rate of 1e-30 the
+// straight-line limit is selected and the divisions see 1e-30, the select of
+// both packages.  sin and cos are called apart, as the plain version calls
+// torch.sin and torch.cos (a sincos() need not give their bits).
+template <>
+struct VfDyn<VF_DYN_CT> {
+  static constexpr int D = 5;
+  VF_HD static void eval(const double* c, const double (&x)[5], double (&f)[5]) {
+    const double dt = c[0], om = x[4];
+    const bool straight = fabs(om) < 1e-30;
+    const double om_safe = straight ? 1e-30 : om;
+    const double a = sin(om * dt);
+    const double b = cos(om * dt);
+    const double cc = straight ? dt : a / om_safe;
+    const double d = straight ? 0.0 : (1.0 - b) / om_safe;
+    f[0] = (x[0] + cc * x[1]) - d * x[3];
+    f[1] = b * x[1] - a * x[3];
+    f[2] = (x[2] + d * x[1]) + cc * x[3];
+    f[3] = a * x[1] + b * x[3];
+    f[4] = x[4];
+  }
+};
+
 template <int OBS>
 struct VfObs;
 
@@ -164,6 +224,41 @@ struct VfObs<VF_OBS_RADAR> {
     const double dy = vf_pick(x, p.obs_idx[1]) - p.obs_c[1];
     h[0] = sqrt(dx * dx + dy * dy);
     h[1] = atan2(dy, dx);
+  }
+};
+
+// The sine of the angle (state component obs_idx[0]).
+template <>
+struct VfObs<VF_OBS_PENDULUM_SIN> {
+  static constexpr int E = 1;
+  template <int D>
+  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[1]) {
+    h[0] = sin(vf_pick(x, p.obs_idx[0]));
+  }
+};
+
+// Range to the falling body (state component obs_idx[0]) from a radar sx
+// away at height sy: sqrt(sx^2 + (x - sy)^2), sx^2 given.
+template <>
+struct VfObs<VF_OBS_RANGE> {
+  static constexpr int E = 1;
+  template <int D>
+  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[1]) {
+    const double d = vf_pick(x, p.obs_idx[0]) - p.obs_c[1];
+    h[0] = sqrt(p.obs_c[0] + d * d);
+  }
+};
+
+// Bearings of (obs_idx[0], obs_idx[1]) from four sensors at (obs_c[2 s],
+// obs_c[2 s + 1]).
+template <>
+struct VfObs<VF_OBS_BEARING> {
+  static constexpr int E = 4;
+  template <int D>
+  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[4]) {
+    const double px = vf_pick(x, p.obs_idx[0]), py = vf_pick(x, p.obs_idx[1]);
+#pragma unroll
+    for (int s = 0; s < 4; ++s) h[s] = atan2(py - p.obs_c[2 * s + 1], px - p.obs_c[2 * s]);
   }
 };
 
@@ -443,4 +538,7 @@ VF_HD void vf_record(const VfParams& p, const double* y, long long y_e, long lon
 
 // The instantiations: (D, E, dynamics, measurement) for each registered model
 // pair, each with the four pairs of rule kinds.
-#define VF_MODELS(F) F(5, 2, VF_DYN_REENTRY, VF_OBS_RADAR) F(4, 2, VF_DYN_CV, VF_OBS_RADAR)
+#define VF_MODELS(F)                                                                    \
+  F(5, 2, VF_DYN_REENTRY, VF_OBS_RADAR) F(4, 2, VF_DYN_CV, VF_OBS_RADAR)                \
+  F(2, 1, VF_DYN_PENDULUM, VF_OBS_PENDULUM_SIN) F(3, 1, VF_DYN_REENTRY1D, VF_OBS_RANGE) \
+  F(5, 4, VF_DYN_CT, VF_OBS_BEARING)

@@ -436,17 +436,17 @@ def dependent_latencies(device: torch.device, iters: int = 512, lib=None) -> dic
     ``16 * iters`` operations of each type between two reads of the SM's
     clock): ``add``, ``mul``, ``div``, ``sqrt`` (the add that feeds it back
     taken off), ``shfl`` (a double moved by two shuffles), and the vector
-    filter's ``exp`` (the multiply that feeds it back taken off) and
-    ``atan2``."""
+    filter's ``exp`` (the multiply that feeds it back taken off), ``atan2``
+    and ``sin`` (the add that feeds it back taken off)."""
     lib = build() if lib is None else lib
-    out = torch.zeros(8, dtype=torch.float64, device=device)
+    out = torch.zeros(9, dtype=torch.float64, device=device)
     rc = lib.sf_latency(device.index or 0, iters, out.data_ptr(),
                         torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"sf_latency launch failed: {lib.sf_error_string(rc).decode()}")
-    add, mul, div, root, shfl, exp_mul, atan2 = (float(v) for v in out[:7].cpu())
+    add, mul, div, root, shfl, exp_mul, atan2, sin_add = (float(v) for v in out[:8].cpu())
     return {"add": add, "mul": mul, "div": div, "sqrt": root - add, "shfl": shfl,
-            "exp": exp_mul - mul, "atan2": atan2}
+            "exp": exp_mul - mul, "atan2": atan2, "sin": sin_add - add}
 
 
 def chain_floor_clocks(lat: dict, params: ScalarFilterParams) -> float:

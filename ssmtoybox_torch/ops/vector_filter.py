@@ -17,13 +17,19 @@ one library, picked by the rules' shape (:func:`kernel_of`):
   configuration (Gauss-Hermite, GPQ and BSQ rules, mixed kinds or point
   counts), one thread a trajectory, N at run time.
 
-Supported, as ``ddvec.dd_check`` admits them among the models the port has:
-``dim_state <= 8``, additive noise on both models, the dynamics
-``ReentryVehicle2DTransition`` or ``ConstantVelocity`` with the measurement
-``Radar2DMeasurement`` (any ``state_index``), and for each transform either a
-classical sigma-point rule with diagonal covariance weights or a BQ rule with
-a scalar model variance.  :func:`check` raises ``ValueError`` with the reason
-a configuration is refused; :func:`supports` answers with a bool.
+Supported, as ``ddvec.dd_check`` admits them, for the model pairs with a
+kernel form: ``dim_state <= 8``, additive noise on both models, one of the
+pairs ``ReentryVehicle2DTransition`` or ``ConstantVelocity`` with
+``Radar2DMeasurement``, ``Pendulum2DTransition`` with
+``Pendulum2DMeasurement``, ``ReentryVehicle1DTransition`` with
+``RangeMeasurement`` and ``CoordinatedTurnTransition`` with a
+``BearingMeasurement`` of four sensors (any ``state_index`` that picks the
+components the measurement reads), and for each transform either a classical
+sigma-point rule with diagonal covariance weights or a BQ rule with a scalar
+model variance.  The JAX package's dd engine runs any pair of its registered
+models and any number of bearing sensors; the port instantiates the pairs
+above.  :func:`check` raises ``ValueError`` with the reason a configuration
+is refused; :func:`supports` answers with a bool.
 
 :func:`vector_filter` is the launch wrapper.  For a CPU tensor it runs the
 plain PyTorch version :func:`_vector_filter_plain`; for a CUDA tensor it
@@ -49,7 +55,9 @@ import torch
 
 from ..bq.transforms import BQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
-from ..ssmod import ConstantVelocity, Radar2DMeasurement, ReentryVehicle2DTransition
+from ..ssmod import (BearingMeasurement, ConstantVelocity, CoordinatedTurnTransition,
+                     Pendulum2DMeasurement, Pendulum2DTransition, Radar2DMeasurement,
+                     RangeMeasurement, ReentryVehicle1DTransition, ReentryVehicle2DTransition)
 from . import _build
 from .scalar_filter import _floats, _memo
 
@@ -73,12 +81,34 @@ _SHAPED_MAX_DIM, _SHAPED_MAX_PTS = 5, 11
 #: operation rounds on its own, like the plain version's separate operations
 _NVCC_FLAGS = ["--fmad=false"]
 
-#: the models with a kernel form: class -> (id in the step header, constants)
+#: the models with a kernel form: class -> (id in the step header, constants);
+#: a measurement's constants are a tensor on its device or a tuple of floats
 _DYN_MODELS = {
     ReentryVehicle2DTransition: (0, lambda m: (m.dt, m.R0, m.H0, m.Gm0, m.b0)),
     ConstantVelocity: (1, lambda m: (m.dt,)),
+    Pendulum2DTransition: (2, lambda m: (m.dt, m.g * m.dt)),
+    ReentryVehicle1DTransition: (3, lambda m: (m.dt, -m.Gamma)),
+    CoordinatedTurnTransition: (4, lambda m: (m.dt,)),
 }
-_OBS_MODELS = {Radar2DMeasurement: 0}
+_OBS_MODELS = {
+    Radar2DMeasurement: (0, lambda m: m.radar_loc),
+    Pendulum2DMeasurement: (1, lambda m: ()),
+    RangeMeasurement: (2, lambda m: (m.sx ** 2, m.sy)),
+    BearingMeasurement: (3, lambda m: m.sensor_pos),
+}
+#: the instantiated pairs of model ids: ``VF_MODELS`` of the step header
+_PAIRS = {(0, 0), (1, 0), (2, 1), (3, 2), (4, 3)}
+#: the bearing sensors of the instantiated bearing measurement
+_BEARING_SENSORS = 4
+#: ``VF_MAX_OBS_C``: room for the measurement's constants (4 sensors' x, y)
+_MAX_OBS_C = 8
+
+
+def _lookup(table: dict, model):
+    """``table``'s entry for ``model``'s class or its nearest base (a
+    ``BearingMeasurement`` is of a subclass per sensor count), as
+    ``ddvec._vec_registry_lookup`` finds it; None if there is none."""
+    return next((table[t] for t in type(model).__mro__ if t in table), None)
 
 
 # ---------------------------------------------------------------------------
@@ -167,11 +197,19 @@ def check(mod_dyn, mod_obs, tf_dyn, tf_obs):
     if not (mod_dyn.noise_additive and mod_obs.noise_additive):
         raise ValueError("the fused vector filter requires additive process and "
                          "measurement noise")
+    # the JAX package's dd engine runs what the next three refuse (ROADMAP
+    # queue 3 lists the difference)
     for model, table in ((mod_dyn, _DYN_MODELS), (mod_obs, _OBS_MODELS)):
-        if type(model) not in table:
+        if _lookup(table, model) is None:
             raise ValueError(f"the fused vector filter has no kernel form of "
-                             f"{type(model).__name__} (the models of ROADMAP queue 1, item "
-                             "10 join it as they are ported)")
+                             f"{type(model).__name__} (ROADMAP queue 3)")
+    if (_lookup(_DYN_MODELS, mod_dyn)[0], _lookup(_OBS_MODELS, mod_obs)[0]) not in _PAIRS:
+        raise ValueError(f"the fused vector filter has no instantiation of the model pair "
+                         f"{type(mod_dyn).__name__} + {type(mod_obs).__name__} "
+                         "(ROADMAP queue 3)")
+    if isinstance(mod_obs, BearingMeasurement) and mod_obs.dim_out != _BEARING_SENSORS:
+        raise ValueError(f"the fused vector filter is instantiated for {_BEARING_SENSORS} "
+                         f"bearing sensors; got {mod_obs.dim_out} (ROADMAP queue 3)")
     lower_transform(tf_dyn, D)
     lower_transform(tf_obs, D)
 
@@ -214,7 +252,8 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
     names the piece the kernel cannot run."""
     check(mod_dyn, mod_obs, tf_dyn, tf_obs)
     D, E = mod_dyn.dim_state, mod_obs.dim_out
-    dyn_id, dyn_c = _DYN_MODELS[type(mod_dyn)]
+    dyn_id, dyn_c = _lookup(_DYN_MODELS, mod_dyn)
+    obs_id, obs_src = _lookup(_OBS_MODELS, mod_obs)
     (m0_t, P0_t), q_t = mod_dyn.init_rv.get_stats()[:2], mod_dyn.noise_rv.get_stats()[1]
     r_t = mod_obs.noise_rv.get_stats()[1]
 
@@ -225,21 +264,24 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
 
     m0, P0, gqg = _memo(mod_dyn, "_vector_filter_consts", (m0_t, P0_t, q_t, mod_dyn.noise_gain),
                         dyn_consts)
-    r, loc = _memo(mod_obs, "_vector_filter_consts", (r_t, mod_obs.radar_loc),
-                   lambda: (_floats(r_t.reshape(E, E)), _floats(mod_obs.radar_loc[:2])))
-    idx = mod_obs.state_index if mod_obs.state_index is not None else (0, 1)
-    if len(idx) < 2 or max(idx) >= D:
-        raise ValueError(f"state_index {idx} does not pick two components of a state of "
-                         f"dimension {D}")
+    r = _memo(mod_obs, "_vector_filter_r", (r_t,), lambda: _floats(r_t.reshape(E, E)))
+    c_src = obs_src(mod_obs)
+    obs_c = (_memo(mod_obs, "_vector_filter_c", (c_src,), lambda: _floats(c_src))
+             if isinstance(c_src, torch.Tensor) else _floats(c_src))
+    sub = mod_obs.dim_substate
+    idx = mod_obs.state_index if mod_obs.state_index is not None else tuple(range(sub))
+    if len(idx) < sub or max(idx[:sub]) >= D:
+        raise ValueError(f"state_index {idx} does not pick the {sub} component(s) "
+                         f"{type(mod_obs).__name__} reads from a state of dimension {D}")
     if init_mean is not None:
         m0 = _floats(np.reshape(_floats(init_mean), D))
     if init_cov is not None:
         P0 = _floats(np.reshape(_floats(init_cov), (D, D)))
     return VectorFilterParams(
         dyn=lower_transform(tf_dyn, D), obs=lower_transform(tf_obs, D),
-        dyn_model=dyn_id, obs_model=_OBS_MODELS[type(mod_obs)], dim_state=D, dim_out=E,
-        dyn_c=tuple(float(c) for c in dyn_c(mod_dyn)), obs_c=loc,
-        obs_idx=tuple(int(i) for i in idx[:2]), m0=m0, P0=P0, gqg=gqg, r=r)
+        dyn_model=dyn_id, obs_model=obs_id, dim_state=D, dim_out=E,
+        dyn_c=tuple(float(c) for c in dyn_c(mod_dyn)), obs_c=obs_c,
+        obs_idx=tuple(int(i) for i in idx[:sub]), m0=m0, P0=P0, gqg=gqg, r=r)
 
 
 def kernel_of(params: VectorFilterParams) -> str:
@@ -258,9 +300,11 @@ def kernel_of(params: VectorFilterParams) -> str:
 
 #: the transcendentals of the plain version, PyTorch's: on the card these are
 #: CUDA's libm, as in the kernel.  A host build of the step header calls the C
-#: library's, which PyTorch's vectorised CPU ``exp``, ``sqrt`` and ``atan2``
-#: may be an ulp off; ``_vector_filter_plain`` takes others through ``fns``.
-TORCH_FNS = SimpleNamespace(sqrt=torch.sqrt, exp=torch.exp, atan2=torch.atan2)
+#: library's, which PyTorch's vectorised CPU ``exp``, ``sqrt``, ``sin``,
+#: ``cos`` and ``atan2`` may be an ulp off; ``_vector_filter_plain`` takes
+#: others through ``fns``.
+TORCH_FNS = SimpleNamespace(sqrt=torch.sqrt, exp=torch.exp, sin=torch.sin, cos=torch.cos,
+                            atan2=torch.atan2)
 
 
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -274,11 +318,27 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
 def _dyn_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor:
     """The dynamics at zero noise on states ``x`` (..., D), as the step header
     evaluates them."""
+    c = params.dyn_c
     if params.dyn_model == 1:
-        (dt,) = params.dyn_c
         x0, x1, x2, x3 = x.unbind(-1)
-        return torch.stack([x0 + dt * x1, x1, x2 + dt * x3, x3], dim=-1)
-    dt, R0, H0, Gm0, b0 = params.dyn_c
+        return torch.stack([x0 + c[0] * x1, x1, x2 + c[0] * x3, x3], dim=-1)
+    if params.dyn_model == 2:
+        x0, x1 = x.unbind(-1)
+        return torch.stack([x0 + x1 * c[0], x1 - c[1] * fns.sin(x0)], dim=-1)
+    if params.dyn_model == 3:
+        x0, x1, x2 = x.unbind(-1)
+        return torch.stack([x0 - c[0] * x1,
+                            x1 - ((c[0] * fns.exp(c[1] * x0)) * (x1 * x1)) * x2, x2], dim=-1)
+    if params.dyn_model == 4:
+        x0, x1, x2, x3, om = x.unbind(-1)
+        straight = om.abs() < 1e-30
+        om_safe = torch.where(straight, 1e-30, om)
+        a, b = fns.sin(om * c[0]), fns.cos(om * c[0])
+        cc = torch.where(straight, c[0], a / om_safe)
+        d = torch.where(straight, 0.0, (1.0 - b) / om_safe)
+        return torch.stack([x0 + cc * x1 - d * x3, b * x1 - a * x3, x2 + d * x1 + cc * x3,
+                            a * x1 + b * x3, om], dim=-1)
+    dt, R0, H0, Gm0, b0 = c
     x0, x1, x2, x3, x4 = x.unbind(-1)
     R = fns.sqrt(x0 * x0 + x1 * x1)
     V = fns.sqrt(x2 * x2 + x3 * x3)
@@ -289,9 +349,19 @@ def _dyn_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor
 
 
 def _obs_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor:
-    """Range and bearing of states ``x`` (..., D) from the radar."""
-    dx = x[..., params.obs_idx[0]] - params.obs_c[0]
-    dy = x[..., params.obs_idx[1]] - params.obs_c[1]
+    """The measurement at zero noise of states ``x`` (..., D), as the step
+    header evaluates it."""
+    c, first = params.obs_c, x[..., params.obs_idx[0]]
+    if params.obs_model == 1:
+        return fns.sin(first)[..., None]
+    if params.obs_model == 2:
+        d = first - c[1]
+        return fns.sqrt(c[0] + d * d)[..., None]
+    second = x[..., params.obs_idx[1]]
+    if params.obs_model == 3:
+        return torch.stack([fns.atan2(second - c[2 * s + 1], first - c[2 * s])
+                            for s in range(len(c) // 2)], dim=-1)
+    dx, dy = first - c[0], second - c[1]
     return torch.stack([fns.sqrt(dx * dx + dy * dy), fns.atan2(dy, dx)], dim=-1)
 
 
@@ -371,7 +441,8 @@ def _vector_filter_plain(params: VectorFilterParams, y: torch.Tensor, fns=TORCH_
     """The kernel's computation as batched torch operations over the B
     trajectories and a Python loop over the T steps; same arguments and
     results as :func:`vector_filter`.  ``fns``: the transcendentals to take,
-    ``sqrt``, ``exp`` and ``atan2`` (:data:`TORCH_FNS` by default)."""
+    ``sqrt``, ``exp``, ``sin``, ``cos`` and ``atan2`` (:data:`TORCH_FNS` by
+    default)."""
     B, E, T = y.shape
     D, dev = params.dim_state, y.device
     out = _empty_streams(D, T, B, dev)
@@ -431,7 +502,7 @@ class _CParams(ctypes.Structure):
     _fields_ = [("dyn", _CRule), ("obs", _CRule), ("dyn_model", ctypes.c_int),
                 ("obs_model", ctypes.c_int), ("dim_state", ctypes.c_int),
                 ("dim_out", ctypes.c_int), ("dyn_c", ctypes.c_double * 5),
-                ("obs_c", ctypes.c_double * 2), ("obs_idx", ctypes.c_int * 2),
+                ("obs_c", ctypes.c_double * _MAX_OBS_C), ("obs_idx", ctypes.c_int * 2),
                 ("m0", ctypes.c_double * _MAX_DIM),
                 ("P0", ctypes.c_double * (_MAX_DIM * _MAX_DIM)),
                 ("gqg", ctypes.c_double * (_MAX_DIM * _MAX_DIM)),
@@ -630,12 +701,11 @@ def chain_floor_clocks(lat: dict, params: VectorFilterParams) -> float:
     Per D x D Cholesky, D square roots and D - 1 divides, each column waiting
     on the one before, with ~2 (D - 1) adds and multiplies to each diagonal;
     per transform one point (``D`` adds after a multiply for ``L xi``, one for
-    ``m +``), the model (reentry: a square root, a divide and an exp between
-    11 adds and multiplies; CV: 2; radar: 3 and the longer of a square root and
-    an atan2), the mean (``n`` adds) and the moments (classical: 3 to the first
-    term and ``n`` adds; BQ: the row sum, ``n`` adds, then ``n`` adds of the
-    quadratic form and 2); the noise terms (2), the E x E Cholesky, the gain
-    (2 E divides, 2 E adds) and the update (E + 3 adds and multiplies)."""
+    ``m +``), the model (:data:`_DYN_CHAIN`, :data:`_OBS_CHAIN`), the mean
+    (``n`` adds) and the moments (classical: 3 to the first term and ``n``
+    adds; BQ: the row sum, ``n`` adds, then ``n`` adds of the quadratic form
+    and 2); the noise terms (2), the E x E Cholesky, the gain (2 E divides, 2
+    E adds) and the update (E + 3 adds and multiplies)."""
     plain = 0.5 * (lat["add"] + lat["mul"])
     D, E = params.dim_state, params.dim_out
 
@@ -645,10 +715,23 @@ def chain_floor_clocks(lat: dict, params: VectorFilterParams) -> float:
     def moments(rule):
         return (rule.n + (3 + rule.n if rule.kind == 0 else 2 * rule.n + 2)) * plain
 
-    dyn = (lat["sqrt"] + lat["div"] + lat["exp"] + 11 * plain if params.dyn_model == 0
-           else 2 * plain)
-    obs = 3 * plain + max(lat["sqrt"], lat["atan2"])
+    def model(chain):
+        return sum((plain if op == "plain" else lat[op]) * k for op, k in chain.items())
+
     point = (D + 2) * plain
-    return (chol(D) + point + dyn + moments(params.dyn) + plain
-            + chol(D) + point + obs + moments(params.obs) + plain
-            + chol(E) + 2 * E * (lat["div"] + plain) + (E + 3) * plain)
+    return (chol(D) + point + model(_DYN_CHAIN[params.dyn_model]) + moments(params.dyn) + plain
+            + chol(D) + point + model(_OBS_CHAIN[params.obs_model]) + moments(params.obs)
+            + plain + chol(E) + 2 * E * (lat["div"] + plain) + (E + 3) * plain)
+
+
+#: the longest chain of dependent operations through each model's function,
+#: by model id: reentry, a square root, a divide and an exp between 11 adds
+#: and multiplies; CV, 2; the pendulum, a sine and 2; the falling body, an exp
+#: and 4; the coordinated turn, a sine, a divide and 4; the radar, 3 and the
+#: longer of its square root and atan2 (the atan2); the sine measurement, a
+#: sine; the range, a square root and 3; the bearings, an atan2 and 1
+_DYN_CHAIN = {0: {"sqrt": 1, "div": 1, "exp": 1, "plain": 11}, 1: {"plain": 2},
+              2: {"sin": 1, "plain": 2}, 3: {"exp": 1, "plain": 4},
+              4: {"sin": 1, "div": 1, "plain": 4}}
+_OBS_CHAIN = {0: {"atan2": 1, "plain": 3}, 1: {"sin": 1}, 2: {"sqrt": 1, "plain": 3},
+              3: {"atan2": 1, "plain": 1}}

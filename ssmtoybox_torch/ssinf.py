@@ -6,20 +6,29 @@ batches trajectories with ``vmap``.  Here the batch is a leading dimension
 written out and the recursion is a Python loop over time, whose body is a few
 dozen batched operations on the card; ``engine="dd"`` runs the whole record
 in one CUDA kernel instead, for scalar UNGM configurations
-(:mod:`ssmtoybox_torch.ops.scalar_filter`) and for the reentry and
-constant-velocity models with the radar (:mod:`ssmtoybox_torch.ops.vector_filter`).
+(:mod:`ssmtoybox_torch.ops.scalar_filter`) and for the model pairs of
+:mod:`ssmtoybox_torch.ops.vector_filter` (reentry and constant velocity with
+the radar, the pendulum, the falling body with its range, the coordinated
+turn with four bearings).
 
 Layouts are the JAX package's: one trajectory has data (dim_y, N) and
 moments ``fi_mean`` (D, N), ``fi_cov`` (D, D, N); a batch has data
 (M, dim_y, N), ``fi_mean`` (M, D, N) and ``fi_cov`` (M, D, D, N).
 Measurement ``k`` (1-based) is processed with the dynamics at time ``k - 1``.
 
+Non-additive noise is augmented as in the JAX package: a model whose noise
+enters its function is transformed at ``[m, noise mean]`` with the covariance
+``block_diag(P, noise cov)``, and the cross-covariances are trimmed to the
+state; the additive ``G Q G^T`` and ``R`` terms are added only where the noise
+is additive.
+
 Parity quirk kept from the reference: :func:`gaussian_smoother` with
 ``rts_full=False`` smooths indices ``0..N-3`` only and seeds the first update
 with the filtered estimate of step ``N`` against the predictive moments of
 step ``N - 1``.  :func:`studentian_filter_batch` keeps the quirks the JAX
 package keeps: the scale-derived matrix stored as the covariance, the
-cross-covariance trimmed by ``dim_in`` and the ``dof <= 2`` reset.
+measurement cross-covariance trimmed by the dynamics' ``dim_in`` and the
+``dof <= 2`` reset.
 """
 from __future__ import annotations
 
@@ -35,7 +44,7 @@ from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
 from .ops import scalar_filter as _sf
 from .ops import vector_filter as _vf
 from .utils.arrays import f64
-from .utils.linalg import chol_small, pd_solve_small, tri_solve_small
+from .utils.linalg import block_diag, chol_small, pd_solve_small, tri_solve_small
 
 __all__ = [
     "FilterResult", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
@@ -73,20 +82,32 @@ class StudentFilterResult:
     pr_xx_smat: torch.Tensor
 
 
+def _augment(m, P, noise_mean, noise_cov):
+    """The moments of ``[x, noise]`` for a batch ``m`` (M, D), ``P`` (M, D, D)
+    and independent noise."""
+    return (torch.cat([m, noise_mean.expand(m.shape[:-1] + noise_mean.shape)], dim=-1),
+            block_diag(P, noise_cov))
+
+
 def _gaussian_time_update(mod_dyn, mod_obs, tf_dyn, tf_obs, m, P, time):
-    """One Gaussian time update for a batch ``m`` (M, D), ``P`` (M, D, D).
+    """One Gaussian time update for a batch ``m`` (M, D), ``P`` (M, D, D),
+    non-additive noise augmented (module docstring).
 
     Returns predicted state moments, predicted measurement moments and the
     cross-covariances trimmed to the state.
     """
-    if not (mod_dyn.noise_additive and mod_obs.noise_additive):
-        raise NotImplementedError("non-additive noise is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
-    G = mod_dyn.noise_gain
-    x_mean_pr, x_cov_pr, xx_cov = tf_dyn.apply(mod_dyn.dyn_eval, m, P, time)
-    x_cov_pr = x_cov_pr + G @ mod_dyn.noise_rv.get_stats()[1] @ G.T
-    y_mean_pr, y_cov_pr, xy_cov = tf_obs.apply(mod_obs.meas_eval, x_mean_pr, x_cov_pr, time)
-    y_cov_pr = y_cov_pr + mod_obs.noise_rv.get_stats()[1]
+    q_mean, q_cov = mod_dyn.noise_rv.get_stats()[:2]
+    r_mean, r_cov = mod_obs.noise_rv.get_stats()[:2]
+    mean, cov = (m, P) if mod_dyn.noise_additive else _augment(m, P, q_mean, q_cov)
+    x_mean_pr, x_cov_pr, xx_cov = tf_dyn.apply(mod_dyn.dyn_eval, mean, cov, time)
+    if mod_dyn.noise_additive:
+        G = mod_dyn.noise_gain
+        x_cov_pr = x_cov_pr + G @ q_cov @ G.T
+    mean, cov = ((x_mean_pr, x_cov_pr) if mod_obs.noise_additive
+                 else _augment(x_mean_pr, x_cov_pr, r_mean, r_cov))
+    y_mean_pr, y_cov_pr, xy_cov = tf_obs.apply(mod_obs.meas_eval, mean, cov, time)
+    if mod_obs.noise_additive:
+        y_cov_pr = y_cov_pr + r_cov
     d = mod_dyn.dim_state
     return x_mean_pr, x_cov_pr, xx_cov[..., :d], y_mean_pr, y_cov_pr, xy_cov[..., :d]
 
@@ -155,9 +176,9 @@ def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
       float64 (the JAX package's double-double engine is not needed there);
       on CPU tensors, the kernel's plain PyTorch version.  Scalar states run
       through :mod:`.ops.scalar_filter` (the UNGM models), states of dimension
-      2-8 through :mod:`.ops.vector_filter` (reentry and constant velocity
-      with the radar); anything either refuses raises ``ValueError`` naming
-      the reason.
+      2-8 through :mod:`.ops.vector_filter` (its model pairs, additive
+      noise); anything either refuses raises ``ValueError`` naming the
+      reason.
     - ``"auto"``: ``"dd"`` when the configuration supports it, else ``"f64"``.
 
     The fused results are views in the layout above of time-major streams.
@@ -225,27 +246,34 @@ def _rts(*moments, rts_full: bool):
 def studentian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
                             dof: float = 4.0, fixed_dof: bool = True) -> StudentFilterResult:
     """Student-t forward pass over a batch of measurement trajectories
-    (M, dim_y, N), additive noise.
+    (M, dim_y, N).
 
-    The transforms act on scale matrices.  With ``fixed_dof`` the predictive
-    scale uses ``min(dof_fi, q_dof, r_dof)``, else the filter's ``dof``
-    (``dof <= 2`` becomes 4).  Layouts as :class:`FilterResult`; ``dof_fi``
-    is (M, N).
+    The transforms act on scale matrices; non-additive noise is augmented
+    with its scale matrix.  With ``fixed_dof`` the predictive scale uses
+    ``min(dof_fi, q_dof, r_dof)``, else the filter's ``dof`` (``dof <= 2``
+    becomes 4).  Layouts as :class:`FilterResult`; ``dof_fi`` is (M, N).
+
+    The measurement cross-covariance is trimmed to the dynamics' ``dim_in``,
+    as the JAX package does after the reference; with non-additive noise on
+    both models that keeps noise columns in the gain, where the JAX package
+    fails, so that case raises ``ValueError``.
     """
-    if not (mod_dyn.noise_additive and mod_obs.noise_additive):
-        raise NotImplementedError("non-additive noise is not ported yet "
-                                  "(ROADMAP queue 1, item 10)")
+    if not (mod_dyn.noise_additive or mod_obs.noise_additive):
+        raise ValueError("the Student filter trims the measurement cross-covariance to the "
+                         "dynamics' dim_in, as the JAX package does: with non-additive noise "
+                         "on both models the gain keeps noise rows; one of the two models "
+                         "must have additive noise")
     if dof <= 2.0:
         dof = 4.0
     data = f64(data_batch, mod_dyn.device)
     M, _, N = data.shape
     x0_mean, x0_smat, x0_dof = mod_dyn.init_rv.get_stats()
-    _, q_cov, q_dof = mod_dyn.noise_rv.get_stats()
-    _, r_cov, r_dof = mod_obs.noise_rv.get_stats()
+    q_mean, q_cov, q_dof = mod_dyn.noise_rv.get_stats()
+    r_mean, r_cov, r_dof = mod_obs.noise_rv.get_stats()
     G = mod_dyn.noise_gain
     init_scale = (dof - 2.0) / dof
-    r_smat = init_scale * r_cov
-    GSGt = G @ (init_scale * q_cov) @ G.T
+    q_smat, r_smat = init_scale * q_cov, init_scale * r_cov
+    GSGt = G @ q_smat @ G.T
     D, E = mod_dyn.dim_state, mod_obs.dim_out
     m = x0_mean.expand(M, D)
     smat = (init_scale * x0_smat).expand(M, D, D)
@@ -257,12 +285,19 @@ def studentian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
             scale = (dof_pr - 2.0) / dof_pr
         else:
             scale = (dof - 2.0) / dof
-        x_mean_pr, x_cov_pr, xx_cov = tf_dyn.apply(mod_dyn.dyn_eval, m, smat, k - 1)
-        x_smat_pr = scale * x_cov_pr + GSGt
+        mean, sm = ((m, smat) if mod_dyn.noise_additive
+                    else _augment(m, smat, q_mean, q_smat))
+        x_mean_pr, x_cov_pr, xx_cov = tf_dyn.apply(mod_dyn.dyn_eval, mean, sm, k - 1)
+        x_smat_pr = scale * x_cov_pr
+        if mod_dyn.noise_additive:
+            x_smat_pr = x_smat_pr + GSGt
         xx_smat = scale * xx_cov[..., :D]
-        y_mean_pr, y_cov_pr, xy_cov = tf_obs.apply(mod_obs.meas_eval, x_mean_pr, x_smat_pr,
-                                                   k - 1)
-        y_smat_pr = scale * y_cov_pr + r_smat
+        mean, sm = ((x_mean_pr, x_smat_pr) if mod_obs.noise_additive
+                    else _augment(x_mean_pr, x_smat_pr, r_mean, r_smat))
+        y_mean_pr, y_cov_pr, xy_cov = tf_obs.apply(mod_obs.meas_eval, mean, sm, k - 1)
+        y_smat_pr = scale * y_cov_pr
+        if mod_obs.noise_additive:
+            y_smat_pr = y_smat_pr + r_smat
         xy_smat = (scale * xy_cov)[..., :mod_dyn.dim_in]
         # measurement update
         gain = pd_solve_small(y_smat_pr, xy_smat).mT

@@ -1,16 +1,25 @@
 """State-space models and simulators (counterpart of :mod:`ssmtoybox_tpu.ssmod`).
 
-The univariate nonlinear growth model (UNGM), the 2-D reentry vehicle and
-the constant-velocity target with the range-bearing radar, additive noise.
-Noise and initial-state RVs may be Gaussian, Student-t or Gaussian mixtures
-(anything with ``sample`` and ``get_stats``).  Model
-functions take states of shape (..., D) and broadcast over the leading
-dimensions, which replaces the JAX package's per-state functions under
-``vmap``.  Simulators draw from an explicit ``torch.Generator`` that lives on
-the models' device.
+The JAX package's model zoo: the univariate nonlinear growth model (UNGM)
+with additive and non-additive noise, the pendulum, the 1-D and 2-D reentry
+vehicles, the coordinated-turn and constant turn-rate-and-speed targets and
+the constant-velocity target; measured by the UNGM, pendulum, range,
+bearings-only and range-bearing radar models.  Noise and initial-state RVs
+may be Gaussian, Student-t or Gaussian mixtures (anything with ``sample`` and
+``get_stats``).  Model functions take states of shape (..., D) and broadcast
+over the leading dimensions, which replaces the JAX package's per-state
+functions under ``vmap``.  Simulators draw from an explicit
+``torch.Generator`` that lives on the models' device.
+
+A model with ``noise_additive = False`` takes its noise inside the function:
+``dyn_eval`` / ``meas_eval`` read the augmented input ``[x, q]`` and split
+it, as the JAX package does, and the filters augment the moments to match.
+``dyn_fcn_dx`` / ``meas_fcn_dx`` are Jacobians by ``torch.func.jacfwd``; a
+non-additive model's include the noise columns.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -21,13 +30,30 @@ from .utils.ode import ode_euler
 
 __all__ = [
     "TransitionModel", "MeasurementModel",
-    "UNGMTransition", "ReentryVehicle2DTransition", "ConstantVelocity",
-    "UNGMMeasurement", "Radar2DMeasurement",
+    "UNGMTransition", "UNGMNATransition", "Pendulum2DTransition",
+    "ReentryVehicle1DTransition", "ReentryVehicle2DTransition",
+    "CoordinatedTurnTransition", "ConstantTurnRateSpeed", "ConstantVelocity",
+    "UNGMMeasurement", "UNGMNAMeasurement", "Pendulum2DMeasurement",
+    "RangeMeasurement", "BearingMeasurement", "Radar2DMeasurement",
 ]
+
+#: turn rates below this take the straight-line limit in the turning models
+#: (the JAX package's select, kept so that both take the same branch)
+_TINY = 1e-30
 
 
 def _cos(t):
     return torch.cos(t) if isinstance(t, torch.Tensor) else math.cos(t)
+
+
+def _jacobian(f, args, argnums):
+    """Jacobian of ``f(*args)`` (one vector in, one out) with respect to the
+    arguments ``argnums``, side by side, at every row of ``args`` (each
+    (..., K_i), leading dimensions broadcast): (..., E, sum of their K_i)."""
+    lead = torch.broadcast_shapes(*(a.shape[:-1] for a in args))
+    flat = [a.expand(lead + a.shape[-1:]).reshape(-1, a.shape[-1]) for a in args]
+    jac = torch.cat(torch.func.vmap(torch.func.jacfwd(f, argnums=argnums))(*flat), dim=-1)
+    return jac.reshape(lead + jac.shape[-2:])
 
 
 # ---------------------------------------------------------------------------
@@ -35,10 +61,10 @@ def _cos(t):
 # ---------------------------------------------------------------------------
 
 class TransitionModel:
-    """Base transition model, additive noise.
+    """Base transition model.
 
-    Subclasses set the class attributes ``dim_state`` and ``dim_noise`` and
-    implement ``dyn_fcn(x, q, time)``.
+    Subclasses set the class attributes ``dim_state``, ``dim_noise`` and
+    ``noise_additive`` and implement ``dyn_fcn(x, q, time)``.
     """
 
     dim_state = 0
@@ -54,8 +80,9 @@ class TransitionModel:
 
     @property
     def dim_in(self) -> int:
-        """Input dim of the dynamics function (additive noise: the state dim)."""
-        return self.dim_state
+        """Input dim of the dynamics function: the state's, with the noise's
+        added for non-additive noise."""
+        return self.dim_state if self.noise_additive else self.dim_state + self.dim_noise
 
     @property
     def device(self) -> torch.device:
@@ -69,9 +96,19 @@ class TransitionModel:
         one raise."""
         raise NotImplementedError(f"{type(self).__name__} has no continuous-time dynamics")
 
+    def dyn_fcn_dx(self, x, q, time):
+        """Jacobian of ``dyn_fcn`` at states ``x`` (..., D) and noise ``q``
+        (..., Dq): (..., D, D); a non-additive model's is taken with respect
+        to ``[x, q]``, (..., D, D + Dq), as the JAX package's."""
+        argnums = (0,) if self.noise_additive else (0, 1)
+        return _jacobian(lambda v, w: self.dyn_fcn(v, w, time), (x, q), argnums)
+
     def dyn_eval(self, x, time):
-        """The dynamics at zero noise, the function a filter transforms."""
-        return self.dyn_fcn(x, x.new_zeros(x.shape[:-1] + (self.dim_noise,)), time)
+        """The function a filter transforms: the dynamics at zero noise, or,
+        for non-additive noise, of the augmented input ``x = [state, q]``."""
+        if self.noise_additive:
+            return self.dyn_fcn(x, x.new_zeros(x.shape[:-1] + (self.dim_noise,)), time)
+        return self.dyn_fcn(x[..., :self.dim_state], x[..., -self.dim_noise:], time)
 
     def simulate_discrete(self, gen: torch.Generator, steps: int, mc_sims: int = 1):
         """Discrete-time trajectories, (dim_state, steps, mc_sims); ``x[:, 0]``
@@ -114,6 +151,61 @@ class UNGMTransition(TransitionModel):
 
     def dyn_fcn(self, x, q, time):
         return 0.5 * x + 25.0 * (x / (1.0 + x ** 2)) + 8.0 * _cos(1.2 * time) + q
+
+
+class UNGMNATransition(TransitionModel):
+    """UNGM with non-additive noise, ``0.5x + 25x/(1+x^2) + 8 q cos(1.2t)``."""
+
+    dim_state = 1
+    dim_noise = 1
+    noise_additive = False
+
+    def dyn_fcn(self, x, q, time):
+        return 0.5 * x + 25.0 * (x / (1.0 + x ** 2)) + 8.0 * q * _cos(1.2 * time)
+
+
+class Pendulum2DTransition(TransitionModel):
+    """Pendulum (Sarkka, example 5.1), state ``[angle, angular rate]``."""
+
+    dim_state = 2
+    dim_noise = 2
+
+    def __init__(self, init_rv, noise_rv, noise_gain=None, dt: float = 0.01, g: float = 9.81):
+        super().__init__(init_rv, noise_rv, noise_gain)
+        self.dt, self.g = dt, g
+
+    def dyn_fcn(self, x, q, time):
+        x0, x1 = x.unbind(-1)
+        return torch.stack([x0 + x1 * self.dt,
+                            x1 - self.g * self.dt * torch.sin(x0)], dim=-1) + q
+
+
+class ReentryVehicle1DTransition(TransitionModel):
+    """1-D reentry vehicle (Julier & Uhlmann 1996), state ``[altitude,
+    velocity, ballistic coefficient]``."""
+
+    dim_state = 3
+    dim_noise = 3
+
+    def __init__(self, init_rv, noise_rv, noise_gain=None, dt: float = 0.1,
+                 Gamma: float = 1.0 / 6.096):
+        super().__init__(init_rv, noise_rv, noise_gain)
+        self.dt, self.Gamma = dt, Gamma
+
+    def dyn_fcn(self, x, q, time):
+        x0, x1, x2 = x.unbind(-1)
+        q0, q1, q2 = q.unbind(-1)
+        return torch.stack([
+            x0 - self.dt * x1 + q0,
+            x1 - self.dt * torch.exp(-self.Gamma * x0) * x1 ** 2 * x2 + q1,
+            x2 + q2,
+        ], dim=-1)
+
+    def dyn_fcn_cont(self, x, q, time):
+        x0, x1, x2 = x.unbind(-1)
+        q0, q1, q2 = q.unbind(-1)
+        return torch.stack([-x1 + q0, -torch.exp(-self.Gamma * x0) * x1 ** 2 * x2 + q1, q2],
+                           dim=-1)
 
 
 class ReentryVehicle2DTransition(TransitionModel):
@@ -160,6 +252,75 @@ class ReentryVehicle2DTransition(TransitionModel):
         ], dim=-1)
 
 
+class CoordinatedTurnTransition(TransitionModel):
+    """Coordinated turn with unknown turn rate, state ``[p_x, v_x, p_y, v_y,
+    turn rate]``.  Below a turn rate of 1e-30 the straight-line limit
+    (``c -> dt``, ``d -> 0``) is selected and the divisions see 1e-30, as in
+    the JAX package, so that any input gives finite values."""
+
+    dim_state = 5
+    dim_noise = 5
+
+    def __init__(self, init_rv, noise_rv, noise_gain=None, dt: float = 0.1):
+        super().__init__(init_rv, noise_rv, noise_gain)
+        self.dt = dt
+
+    def dyn_fcn(self, x, q, time):
+        x0, x1, x2, x3, om = x.unbind(-1)
+        straight = om.abs() < _TINY
+        om_safe = torch.where(straight, _TINY, om)
+        a = torch.sin(om * self.dt)
+        b = torch.cos(om * self.dt)
+        c = torch.where(straight, self.dt, a / om_safe)
+        d = torch.where(straight, 0.0, (1.0 - b) / om_safe)
+        return torch.stack([x0 + c * x1 - d * x3, b * x1 - a * x3, x2 + d * x1 + c * x3,
+                            a * x1 + b * x3, om], dim=-1) + q
+
+
+class ConstantTurnRateSpeed(TransitionModel):
+    """Constant turn rate and speed, non-additive noise, state ``[p_x, p_y,
+    speed, heading, yaw rate]``; the straight-line branch below a yaw rate of
+    1e-30 is a select.
+
+    ``compat_heading``: the reference's code increments the heading by ``dt
+    * heading``, against its own docstring and continuous dynamics; the
+    default is the documented model (``heading += dt * yaw rate``), and
+    ``compat_heading=True`` gives the reference's (its goldens need it), as
+    in the JAX package."""
+
+    dim_state = 5
+    dim_noise = 2
+    noise_additive = False
+
+    def __init__(self, init_rv, noise_rv, noise_gain=None, dt: float = 0.05,
+                 compat_heading: bool = False):
+        super().__init__(init_rv, noise_rv, noise_gain)
+        self.dt, self.compat_heading = dt, compat_heading
+
+    def dyn_fcn(self, x, q, time):
+        dt = self.dt
+        _, _, speed, heading, omega = x.unbind(-1)
+        q0, q1 = q.unbind(-1)
+        straight = omega.abs() < _TINY
+        c = speed / torch.where(straight, _TINY, omega)
+        heading_rate = heading if self.compat_heading else omega
+        tail = [dt * q0, dt * heading_rate + 0.5 * dt ** 2 * q1, dt * q1]
+        f_turn = torch.stack([
+            c * (torch.sin(heading + omega * dt) - torch.sin(heading))
+            + 0.5 * dt ** 2 * torch.cos(heading) * q0,
+            c * (-torch.cos(heading + omega * dt) + torch.cos(heading))
+            + 0.5 * dt ** 2 * torch.sin(heading) * q0] + tail, dim=-1)
+        f_straight = torch.stack([dt * speed * torch.cos(heading),
+                                  dt * speed * torch.sin(heading)] + tail, dim=-1)
+        return x + torch.where(straight[..., None], f_straight, f_turn)
+
+    def dyn_fcn_cont(self, x, q, time):
+        _, _, speed, heading, omega = x.unbind(-1)
+        zero = torch.zeros_like(speed)
+        return torch.stack([speed * torch.cos(heading), speed * torch.sin(heading), zero, omega,
+                            zero], dim=-1)
+
+
 class ConstantVelocity(TransitionModel):
     """Constant-velocity target in the plane, state ``[p_x, v_x, p_y, v_y]``;
     noise gain ``[[dt^2/2, 0], [dt, 0], [0, dt^2/2], [0, dt]]`` by default."""
@@ -185,9 +346,11 @@ class ConstantVelocity(TransitionModel):
 # ---------------------------------------------------------------------------
 
 class MeasurementModel:
-    """Base measurement model, additive noise; ``state_index`` selects the
-    sub-state the measurement function sees."""
+    """Base measurement model; ``state_index`` selects the sub-state the
+    measurement function sees (for non-additive noise: the entries of the
+    augmented ``[state, noise]``, ``dim_substate + dim_noise`` of them)."""
 
+    dim_substate = 0
     dim_out = 0
     dim_noise = 0
     noise_additive = True
@@ -197,10 +360,20 @@ class MeasurementModel:
         self.dim_state = int(dim_state)
         self.state_index = (None if state_index is None else
                             tuple(int(i) for i in np.asarray(state_index).ravel()))
+        if (self.state_index is not None and not self.noise_additive
+                and len(self.state_index) != self.dim_substate + self.dim_noise):
+            # without the check the gather would drop the noise and reuse a
+            # state entry in its place
+            raise ValueError(
+                f"non-additive measurement models gather the AUGMENTED [state; noise] "
+                f"vector, so state_index must select dim_substate + dim_noise = "
+                f"{self.dim_substate + self.dim_noise} entries; got {len(self.state_index)}")
 
     @property
     def dim_in(self) -> int:
-        return self.dim_state
+        """Input dim of the measurement function: the state's, with the
+        noise's added for non-additive noise."""
+        return self.dim_state if self.noise_additive else self.dim_state + self.dim_noise
 
     @property
     def device(self) -> torch.device:
@@ -212,10 +385,20 @@ class MeasurementModel:
     def _select(self, x):
         return x if self.state_index is None else x[..., list(self.state_index)]
 
+    def meas_fcn_dx(self, x, r, time):
+        """Jacobian of ``meas_fcn`` at sub-states ``x`` (..., dim_substate) and
+        noise ``r`` (..., Dr); a non-additive model's is taken with respect to
+        ``[x, r]``, as the JAX package's."""
+        argnums = (0,) if self.noise_additive else (0, 1)
+        return _jacobian(lambda v, w: self.meas_fcn(v, w, time), (x, r), argnums)
+
     def meas_eval(self, x, time):
-        """Sub-state selection, then the measurement at zero noise."""
+        """Sub-state selection, then the measurement at zero noise, or, for
+        non-additive noise, of the selected augmented input ``[state, r]``."""
         x = self._select(x)
-        return self.meas_fcn(x, x.new_zeros(x.shape[:-1] + (self.dim_noise,)), time)
+        if self.noise_additive:
+            return self.meas_fcn(x, x.new_zeros(x.shape[:-1] + (self.dim_noise,)), time)
+        return self.meas_fcn(x[..., :self.dim_substate], x[..., -self.dim_noise:], time)
 
     def simulate_measurements(self, gen: torch.Generator, x: torch.Tensor):
         """Measurements of ``x`` (dim_state, steps, mc_sims), shaped
@@ -230,6 +413,7 @@ class MeasurementModel:
 class UNGMMeasurement(MeasurementModel):
     """``z = 0.05 x^2 + r``."""
 
+    dim_substate = 1
     dim_out = 1
     dim_noise = 1
 
@@ -237,9 +421,84 @@ class UNGMMeasurement(MeasurementModel):
         return 0.05 * x ** 2 + r
 
 
+class UNGMNAMeasurement(MeasurementModel):
+    """``z = 0.05 r x^2``, non-additive."""
+
+    dim_substate = 1
+    dim_out = 1
+    dim_noise = 1
+    noise_additive = False
+
+    def meas_fcn(self, x, r, time):
+        return 0.05 * r * x ** 2
+
+
+class Pendulum2DMeasurement(MeasurementModel):
+    """``z = sin(angle) + r``."""
+
+    dim_substate = 1
+    dim_out = 1
+    dim_noise = 1
+
+    def meas_fcn(self, x, r, time):
+        return torch.sin(x[..., :1]) + r
+
+
+class RangeMeasurement(MeasurementModel):
+    """Range to a vertically falling body from a radar at horizontal
+    distance ``sx`` and height ``sy``."""
+
+    dim_substate = 1
+    dim_out = 1
+    dim_noise = 1
+
+    def __init__(self, noise_rv, dim_state: int, state_index=None, sx: float = 30.0,
+                 sy: float = 30.0):
+        super().__init__(noise_rv, dim_state, state_index)
+        self.sx, self.sy = sx, sy
+
+    def meas_fcn(self, x, r, time):
+        return torch.sqrt(self.sx ** 2 + (x[..., 0] - self.sy) ** 2)[..., None] + r
+
+
+@functools.lru_cache(maxsize=None)
+def _bearing_class(base, num_sensors: int):
+    """The :class:`BearingMeasurement` subclass of ``num_sensors`` sensors,
+    one per count (as the JAX package keeps it), whose ``dim_out`` and
+    ``dim_noise`` are the count."""
+    return type(f"BearingMeasurement{num_sensors}", (base,),
+                {"dim_out": num_sensors, "dim_noise": num_sensors})
+
+
+class BearingMeasurement(MeasurementModel):
+    """Bearings of the target from S sensors at ``sensor_pos`` (S, 2), one
+    ``atan2`` each; by default four sensors at the unit vectors ``(1, 0),
+    (0, 1), (-1, 0), (0, -1)``.  An instance is of the subclass of its sensor
+    count, ``BearingMeasurement<S>``, whose ``dim_out`` and ``dim_noise`` are
+    S."""
+
+    dim_substate = 2
+
+    def __new__(cls, noise_rv, dim_state: int, state_index=None, sensor_pos=None):
+        count = 4 if sensor_pos is None else len(sensor_pos)
+        return super().__new__(cls if cls.dim_out == count else _bearing_class(cls, count))
+
+    def __init__(self, noise_rv, dim_state: int, state_index=None, sensor_pos=None):
+        super().__init__(noise_rv, dim_state, state_index)
+        if sensor_pos is None:
+            sensor_pos = np.vstack((np.eye(2), -np.eye(2)))
+        self.sensor_pos = f64(sensor_pos, noise_rv.device).reshape(self.dim_out, 2)
+
+    def meas_fcn(self, x, r, time):
+        dx = x[..., :1] - self.sensor_pos[:, 0]
+        dy = x[..., 1:2] - self.sensor_pos[:, 1]
+        return torch.atan2(dy, dx) + r
+
+
 class Radar2DMeasurement(MeasurementModel):
     """Range and bearing from a radar at ``radar_loc``."""
 
+    dim_substate = 2
     dim_out = 2
     dim_noise = 2
 

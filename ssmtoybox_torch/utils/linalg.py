@@ -15,7 +15,8 @@ from __future__ import annotations
 import torch
 
 __all__ = ["maha", "symmetrize", "chol_small", "safe_cholesky", "pd_solve",
-           "pd_solve_small", "tri_solve_small", "pd_logdet", "small_mm3", "gen_solve"]
+           "pd_solve_small", "tri_solve_small", "pd_logdet", "small_mm3", "gen_solve",
+           "block_diag"]
 
 
 def maha(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor | None = None) -> torch.Tensor:
@@ -74,6 +75,17 @@ def tri_solve_small(L: torch.Tensor, b: torch.Tensor, lower: bool = True) -> tor
     vec = b.ndim == L.ndim - 1
     out = torch.linalg.solve_triangular(L, b[..., None] if vec else b, upper=not lower)
     return out[..., 0] if vec else out
+
+
+def block_diag(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``[[a, 0], [0, b]]`` of ``a`` (..., n, n) and ``b`` (..., k, k), the
+    leading dimensions broadcast."""
+    lead = torch.broadcast_shapes(a.shape[:-2], b.shape[:-2])
+    n, k = a.shape[-1], b.shape[-1]
+    out = a.new_zeros(lead + (n + k, n + k))
+    out[..., :n, :n] = a
+    out[..., n:, n:] = b
+    return out
 
 
 def pd_logdet(A: torch.Tensor) -> torch.Tensor:

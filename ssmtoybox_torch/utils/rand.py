@@ -15,7 +15,8 @@ import math
 
 import torch
 
-__all__ = ["multivariate_normal", "standard_gamma", "multivariate_t", "gauss_mixture"]
+__all__ = ["multivariate_normal", "standard_gamma", "multivariate_t", "gauss_mixture",
+           "bigauss_mixture"]
 
 
 def multivariate_normal(gen: torch.Generator, mean: torch.Tensor, cov: torch.Tensor,
@@ -90,3 +91,20 @@ def gauss_mixture(gen: torch.Generator, means: torch.Tensor, covs: torch.Tensor,
                     device=means.device)
     chols = torch.linalg.cholesky(covs)
     return means[ci] + (chols[ci] @ z[..., None])[..., 0], ci
+
+
+def bigauss_mixture(gen: torch.Generator, m0, c0, m1, c1, alpha: float,
+                    shape=()) -> torch.Tensor:
+    """Two-component Gaussian-mixture samples of shape ``(*shape, dim)``:
+    component 0, ``N(m0, c0)``, with probability ``alpha``, else ``N(m1,
+    c1)``.  Both components are drawn for every sample and one is kept, as
+    the reference and the JAX package do."""
+    shape, dev = tuple(shape), gen.device
+
+    def f64(v):
+        return torch.as_tensor(v, dtype=torch.float64, device=dev)
+
+    pick0 = torch.rand(shape, generator=gen, dtype=torch.float64, device=dev) < alpha
+    n0 = multivariate_normal(gen, torch.atleast_1d(f64(m0)), torch.atleast_2d(f64(c0)), shape)
+    n1 = multivariate_normal(gen, torch.atleast_1d(f64(m1)), torch.atleast_2d(f64(c1)), shape)
+    return torch.where(pick0[..., None], n0, n1)

@@ -584,3 +584,89 @@ def test_the_shaped_kernel_fills_a_failed_trajectory_with_nan(card):
     assert bool(torch.isnan(got[0]).all())
     for s, g, r in zip(STREAMS, got, vf._vector_filter_plain(params, y)):
         assert _same_bits(g, r), s
+
+
+# ---------------------------------------------------------------------------
+# the zoo's model pairs in both vector filter kernels: the pendulum, the
+# falling body with its range and the coordinated turn with four bearings
+# ---------------------------------------------------------------------------
+
+def _zoo_systems(device):
+    """(dynamics, measurement) of the configurations of
+    ``tests/test_ddvec.py:262-289``."""
+    from ssmtoybox_torch.ssmod import (BearingMeasurement, CoordinatedTurnTransition,
+                                       Pendulum2DMeasurement, Pendulum2DTransition,
+                                       RangeMeasurement, ReentryVehicle1DTransition)
+    dt = 0.01
+    q = 0.1 * np.array([[dt ** 3 / 3, dt ** 2 / 2], [dt ** 2 / 2, dt]])
+    sensors = np.array([[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0]])
+    return {
+        "pendulum": (Pendulum2DTransition(GaussRV(2, mean=[1.5, 0.0], cov=0.01 * np.eye(2),
+                                                  device=device),
+                                          GaussRV(2, cov=q, device=device), dt=dt),
+                     Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=device), dim_state=2)),
+        "falling_body": (ReentryVehicle1DTransition(
+                             GaussRV(3, mean=[90.0, 6.0, 1.5], cov=0.09 * np.eye(3), device=device),
+                             GaussRV(3, cov=1e-8 * np.eye(3), device=device), dt=0.1),
+                         RangeMeasurement(GaussRV(1, cov=0.03, device=device), dim_state=3)),
+        "ct_bearing": (CoordinatedTurnTransition(
+                           GaussRV(5, mean=[100.0, 10.0, 100.0, 5.0, 0.06],
+                                   cov=np.diag([10.0, 1.0, 10.0, 1.0, 1e-3]), device=device),
+                           GaussRV(5, cov=np.diag([0.1, 0.1, 0.1, 0.1, 1e-5]), device=device),
+                           dt=0.1),
+                       BearingMeasurement(GaussRV(4, cov=1e-3 * np.eye(4), device=device),
+                                          dim_state=5, state_index=[0, 2], sensor_pos=sensors)),
+    }
+
+
+def _zoo_records(card, dyn, obs, batch):
+    gen = torch.Generator(device=card).manual_seed(batch)
+    x = dyn.simulate_discrete(gen, steps=20, mc_sims=batch)
+    return obs.simulate_measurements(gen, x).permute(2, 0, 1)              # strided
+
+
+@pytest.mark.parametrize("batch", [1, 7, 31, 257])
+@pytest.mark.parametrize("kernel", ["vector_filter_shaped", "vector_filter"])
+@pytest.mark.parametrize("rule", ["UKF", "CKF"])
+@pytest.mark.parametrize("system", ["pendulum", "falling_body", "ct_bearing"])
+def test_zoo_pairs_match_plain_in_both_vector_kernels(card, monkeypatch, system, rule, kernel,
+                                                      batch):
+    """Each new model pair under UKF and CKF rules, in the shaped kernel and
+    (sent there by force) the first version: equal to the plain version to
+    the bit over 20 steps, all five streams, a second launch equal to the
+    first, the launch counted on the kernel that ran."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs = _zoo_systems(card)[system]
+    alg = (stt.UnscentedKalman if rule == "UKF" else stt.CubatureKalman)(dyn, obs)
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.kernel_of(params) == "vector_filter_shaped"
+    monkeypatch.setattr(vf, "kernel_of", lambda p: kernel)
+    y = _zoo_records(card, dyn, obs, batch)
+    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before, vf.SHAPED_LAUNCHES - shaped_before) == (
+        1, int(kernel == "vector_filter_shaped"))
+    again = vf.vector_filter(params, y.contiguous())
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s
+
+
+def test_zoo_bq_rule_runs_in_the_first_version(card):
+    """The pendulum's GPQ filter of the goldens (spherical-radial points)
+    launches the first version, equal to the plain version to the bit."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs = _zoo_systems(card)["pendulum"]
+    par = np.array([[1.0, 2.0, 2.0]])
+    gpq = stt.GaussianProcessKalman(dyn, obs, par, par, points="sr")
+    params = vf.prepare(dyn, obs, gpq.tf_dyn, gpq.tf_obs)
+    assert vf.kernel_of(params) == "vector_filter"
+    y = _zoo_records(card, dyn, obs, 257)
+    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES, vf.SHAPED_LAUNCHES) == (before + 1, shaped_before)
+    torch.cuda.synchronize()
+    for s, g, r in zip(STREAMS, got, vf._vector_filter_plain(params, y)):
+        assert _same_bits(g, r), f"{s}: {float((g - r).nan_to_num().abs().max()):.3e}"

@@ -225,11 +225,12 @@ def test_auto_engine_falls_back_to_f64_for_vector_states(shared_batch):
 
 def test_dd_engine_on_vector_state_names_the_roadmap_item(shared_batch):
     """A vector-state model pair that the fused kernel has no form of (the
-    reentry dynamics with the UNGM measurement) is refused by
-    ``engine="dd"``, naming the ROADMAP item that brings the other models."""
+    reentry dynamics with the UNGM measurement, which the JAX package's dd
+    engine runs) is refused by ``engine="dd"``, naming the ROADMAP entry
+    that lists the difference."""
     ys, _, _, alg = shared_batch["reentry_ukf"]
     obs = ssmod.UNGMMeasurement(GaussRV(1, cov=1.0), dim_state=5, state_index=[0])
-    with pytest.raises(ValueError, match="ROADMAP queue 1, item 10"):
+    with pytest.raises(ValueError, match=r"no kernel form of UNGMMeasurement \(ROADMAP queue 3\)"):
         stt.UnscentedKalman(alg.mod_dyn, obs).forward_pass_batch(ys[:, :1], engine="dd")
 
 

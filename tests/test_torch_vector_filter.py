@@ -14,14 +14,21 @@ On the CPU its wrapper runs the plain PyTorch version, which is held against:
   function values of ~6.4e3: any two summation orders differ by ~3e-9 in
   covariances of magnitude ~1);
 - ``goldens/reentry.npz`` (``ukf``, ``bsqkf``) at ``test_parity.py``'s 1e-7 /
-  1e-6.
+  1e-6;
+- on the pendulum, the falling body with its range and the coordinated turn
+  with four bearings (``tests/test_ddvec.py:262-289``): the JAX package's
+  float64 filter at ``1e-9 x scale`` as ``test_ddvec.py:308-329`` holds its dd
+  engine, and the port's eager filter as above.
 
 Both CUDA step headers (the first version's and the shaped kernel's),
-compiled for the host with g++, equal the plain version to the bit when both take the C library's ``sqrt``, ``exp`` and
+compiled for the host with g++, equal the plain version to the bit when
+both take the C library's ``sqrt``, ``exp``, ``sin``, ``cos`` and
 ``atan2`` (``LIBM_FNS`` below): PyTorch's vectorised CPU versions
 are an ulp off some of their values, which the BQ quadratic form grows to
 ~1e-7 of the covariance.  :func:`vector_filter.supports` gives the answers
-of the JAX package's ``ddvec.dd_supports`` on a table of configurations, and
+of the JAX package's ``ddvec.dd_supports`` on a table of configurations
+(except the model pairs and bearing counts that the JAX package's dd engine
+runs and the port instantiates no kernel for, ``JAX_ONLY``), and
 :func:`vector_filter.kernel_of` sends the UT and CKF shapes to the shaped
 kernel and every other configuration to the first version.
 
@@ -30,6 +37,7 @@ through the port's model functions with numpy noise.
 """
 import ctypes
 import math
+import re
 import shutil
 from types import SimpleNamespace
 
@@ -73,7 +81,7 @@ def _libm(fn):
 LIBM_FNS = SimpleNamespace(
     sqrt=_libm(lambda v: math.sqrt(v) if v >= 0.0 or v != v else math.nan),
     exp=_libm(lambda v: math.exp(v) if v < 709.0 or v != v else math.inf),
-    atan2=_libm(math.atan2))
+    sin=_libm(math.sin), cos=_libm(math.cos), atan2=_libm(math.atan2))
 
 FIELDS = ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")
 STREAMS = ("m_fi", "P_fi", "m_pr", "P_pr", "xx")
@@ -121,6 +129,59 @@ def _cv_jax():
                                              state_index=[0, 2]))
 
 
+PEND_DT = 0.01
+PEND_Q = 0.1 * np.array([[PEND_DT ** 3 / 3, PEND_DT ** 2 / 2], [PEND_DT ** 2 / 2, PEND_DT]])
+CT_M0, CT_P0 = np.array([100.0, 10.0, 100.0, 5.0, 0.06]), np.diag([10.0, 1.0, 10.0, 1.0, 1e-3])
+CT_Q = np.diag([0.1, 0.1, 0.1, 0.1, 1e-5])
+SENSORS = np.array([[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0]])
+GPQ_PEND = np.array([[1.0, 2.0, 2.0]])
+
+
+def _zoo(pkg, rv):
+    """The systems of ``tests/test_ddvec.py:262-289`` and two the fused
+    engines refuse, in the port (``pkg`` its ``ssmod``, ``rv`` its
+    ``GaussRV``) or the JAX package (``jssmod``, ``JGaussRV.create``)."""
+    def new(cls):
+        return getattr(pkg, cls) if pkg is ssmod else getattr(pkg, cls).create
+
+    def ct():
+        return new("CoordinatedTurnTransition")(rv(5, CT_M0, CT_P0), rv(5, None, CT_Q), dt=0.1)
+
+    def bearings(n):
+        return new("BearingMeasurement")(rv(n, None, 1e-3 * np.eye(n)), dim_state=5,
+                                         state_index=[0, 2], sensor_pos=SENSORS[:n])
+
+    return {
+        "pendulum": lambda: (new("Pendulum2DTransition")(rv(2, np.array([1.5, 0.0]),
+                                                            0.01 * np.eye(2)),
+                                                         rv(2, None, PEND_Q), dt=PEND_DT),
+                             new("Pendulum2DMeasurement")(rv(1, None, 0.1 * np.eye(1)),
+                                                          dim_state=2)),
+        "falling_body": lambda: (new("ReentryVehicle1DTransition")(
+                                     rv(3, np.array([90.0, 6.0, 1.5]), 0.09 * np.eye(3)),
+                                     rv(3, None, 1e-8 * np.eye(3)), dt=0.1),
+                                 new("RangeMeasurement")(rv(1, None, 0.03 * np.eye(1)),
+                                                         dim_state=3)),
+        "ct_bearing": lambda: (ct(), bearings(4)),
+        "ct_bearing3": lambda: (ct(), bearings(3)),
+        "ct_radar": lambda: (ct(), new("Radar2DMeasurement")(rv(2, None, np.diag([1.0, 1e-4])),
+                                                             dim_state=5, state_index=[0, 2])),
+        "ungm_na": lambda: (new("UNGMNATransition")(rv(1, np.ones(1), np.eye(1)),
+                                                    rv(1, None, 10.0 * np.eye(1))),
+                            new("UNGMNAMeasurement")(rv(1, None, 0.01 * np.eye(1)), dim_state=1)),
+        "ctrs": lambda: (new("ConstantTurnRateSpeed")(rv(5, np.array([10.0, 0.0, 5.0, 0.5, 0.1]),
+                                                         0.1 * np.eye(5)),
+                                                      rv(2, None, np.diag([0.1, 0.1 * np.pi])),
+                                                      dt=0.05, compat_heading=True),
+                         new("Radar2DMeasurement")(rv(2, None, np.diag([0.3, 0.03])), dim_state=5,
+                                                   state_index=[0, 1])),
+    }
+
+
+ZOO = _zoo(ssmod, lambda d, m, c: GaussRV(d, mean=m, cov=c))
+ZOO_JAX = _zoo(jssmod, lambda d, m, c: JGaussRV.create(d, mean=m, cov=c))
+
+
 def _bsq_override(alg):
     """The EMV override of ``experiments/bsq_tracking.py:76-84``: a matrix."""
     alg.tf_dyn = alg.tf_dyn.replace(model_var=np.diag([2e-4] * 5))
@@ -155,9 +216,33 @@ CONFIGS = {
             lambda d, o: st.StudentProcessKalman(d, o, GPQ_DYN, GPQ_OBS, points="ut"), False),
     "bsq_matrix_emv": ("reentry", lambda d, o: _bsq_override(CONFIGS["bsq_ut"][1](d, o)),
                        lambda d, o: _bsq_override_jax(CONFIGS["bsq_ut"][2](d, o)), False),
+    "pend_ukf": ("pendulum", lambda d, o: stt.UnscentedKalman(d, o),
+                 lambda d, o: st.UnscentedKalman(d, o), True),
+    "pend_gpq": ("pendulum", lambda d, o: stt.GaussianProcessKalman(d, o, GPQ_PEND, GPQ_PEND,
+                                                                    points="sr"),
+                 lambda d, o: st.GaussianProcessKalman(d, o, GPQ_PEND, GPQ_PEND, points="sr"),
+                 True),
+    "fall_ukf": ("falling_body", lambda d, o: stt.UnscentedKalman(d, o),
+                 lambda d, o: st.UnscentedKalman(d, o), True),
+    "ct_ckf": ("ct_bearing", lambda d, o: stt.CubatureKalman(d, o),
+               lambda d, o: st.CubatureKalman(d, o), True),
+    "ct_ukf": ("ct_bearing", lambda d, o: stt.UnscentedKalman(d, o),
+               lambda d, o: st.UnscentedKalman(d, o), True),
+    "ct_bearing3": ("ct_bearing3", lambda d, o: stt.CubatureKalman(d, o),
+                    lambda d, o: st.CubatureKalman(d, o), False),
+    "ct_radar": ("ct_radar", lambda d, o: stt.UnscentedKalman(d, o),
+                 lambda d, o: st.UnscentedKalman(d, o), False),
+    "ungm_na": ("ungm_na", lambda d, o: stt.UnscentedKalman(d, o),
+                lambda d, o: st.UnscentedKalman(d, o), False),
+    "ctrs": ("ctrs", lambda d, o: stt.UnscentedKalman(d, o),
+             lambda d, o: st.UnscentedKalman(d, o), False),
 }
 ADMITTED = sorted(k for k, v in CONFIGS.items() if v[3])
-SYSTEMS = {"reentry": (_reentry, _reentry_jax), "cv": (_cv, _cv_jax)}
+#: refused by the port's fused engine, run by the JAX package's dd engine: a
+#: model pair without an instantiation, a bearing count other than four
+JAX_ONLY = {"ct_bearing3", "ct_radar"}
+SYSTEMS = {"reentry": (_reentry, _reentry_jax), "cv": (_cv, _cv_jax),
+           **{name: (ZOO[name], ZOO_JAX[name]) for name in ZOO}}
 
 
 def _port(name):
@@ -166,7 +251,7 @@ def _port(name):
 
 
 def _simulate(system, seed=0, batch=B):
-    """(batch, 2, T) measurements of ``batch`` trajectories simulated with
+    """(batch, E, T) measurements of ``batch`` trajectories simulated with
     numpy noise through the port's model functions (truth from step 0,
     measurement k of the state at step k)."""
     dyn, obs = SYSTEMS[system][0]()
@@ -178,7 +263,7 @@ def _simulate(system, seed=0, batch=B):
     for k in range(T):
         x = dyn.dyn_fcn(x, torch.as_tensor(rng.multivariate_normal(np.zeros(len(Q)), Q,
                                                                    size=batch)), k)
-        r = torch.as_tensor(rng.multivariate_normal(np.zeros(2), R, size=batch))
+        r = torch.as_tensor(rng.multivariate_normal(np.zeros(len(R)), R, size=batch))
         ys.append(obs.meas_fcn(obs._select(x), r, k + 1))
     return torch.stack(ys, dim=-1)
 
@@ -209,6 +294,23 @@ def test_plain_matches_jax_f64(data, jax_results, name):
     res = _port(name).forward_pass_batch(data["reentry"], engine="dd")
     for f in FIELDS:
         _close(getattr(res, f).numpy(), getattr(jax_results[name], f), 1e-8, f)
+
+
+@pytest.mark.parametrize("name", ["pend_ukf", "fall_ukf", "ct_ckf"])
+def test_new_pairs_plain_matches_jax_f64(data, name):
+    """The plain version on the three new model pairs against the JAX
+    package's float64 filter, means and covariances at ``1e-9 x scale``
+    (``test_ddvec.py:308-329``'s tolerance for its dd engine)."""
+    system, _, make_jax, _ = CONFIGS[name]
+    jdyn, jobs = SYSTEMS[system][1]()
+    jalg = make_jax(jdyn, jobs)
+    ref = jax.jit(lambda b: st.gaussian_filter_batch(jdyn, jobs, jalg.tf_dyn, jalg.tf_obs, b))(
+        jnp.asarray(data[system].numpy()))
+    res = _port(name).forward_pass_batch(data[system], engine="dd")
+    scale = float(np.max(np.abs(np.asarray(ref.fi_mean)))) + 1.0
+    for f in ("fi_mean", "fi_cov"):
+        np.testing.assert_allclose(getattr(res, f).numpy(), np.asarray(getattr(ref, f)), rtol=0,
+                                   atol=1e-9 * scale, err_msg=f)
 
 
 @pytest.mark.parametrize("name", ADMITTED)
@@ -252,11 +354,13 @@ def data33():
 
 
 @pytest.mark.parametrize("batch", [1, 7, 33])
-@pytest.mark.parametrize("name", ["ukf", "ckf", "cv_ukf", "cv_ckf"])
+@pytest.mark.parametrize("name", ["ukf", "ckf", "cv_ukf", "cv_ckf", "pend_ukf", "fall_ukf",
+                                  "ct_ckf", "ct_ukf"])
 def test_shaped_header_on_host_matches_plain(data33, name, batch):
     """``csrc/vector_filter_shaped.cuh`` built with g++ == the plain version
-    with the C library's transcendentals, to the bit, all five streams, at the UT and CKF shapes of both model
-    pairs; measurements read through their strides."""
+    with the C library's transcendentals, to the bit, all five streams, at
+    the UT and CKF shapes of every model pair; measurements read through
+    their strides."""
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the step header cannot be built for the host")
     alg = _port(name)
@@ -284,6 +388,9 @@ def _mixed(dyn_of, obs_of):
 #: point counts the first version
 ROUTES = {"ukf": "vector_filter_shaped", "ckf": "vector_filter_shaped",
           "cv_ukf": "vector_filter_shaped", "cv_ckf": "vector_filter_shaped",
+          "pend_ukf": "vector_filter_shaped", "fall_ukf": "vector_filter_shaped",
+          "ct_ckf": "vector_filter_shaped", "ct_ukf": "vector_filter_shaped",
+          "pend_gpq": "vector_filter",
           "gh3": "vector_filter", "gpq_ut": "vector_filter", "bsq_ut": "vector_filter",
           "ukf/bsq_ut": "vector_filter", "bsq_ut/ukf": "vector_filter",
           "ukf/ckf": "vector_filter", "cv_ckf/cv_ukf": "vector_filter"}
@@ -328,20 +435,25 @@ def test_supports_matches_jax_dd_supports(name):
     dyn, obs = SYSTEMS[system][0]()
     jdyn, jobs = SYSTEMS[system][1]()
     alg, jalg = make(dyn, obs), make_jax(jdyn, jobs)
-    assert dd_supports(jdyn, jobs, jalg.tf_dyn, jalg.tf_obs) == admitted
+    assert dd_supports(jdyn, jobs, jalg.tf_dyn, jalg.tf_obs) == (admitted or name in JAX_ONLY)
     assert vf.supports(dyn, obs, alg.tf_dyn, alg.tf_obs) == admitted
 
 
-@pytest.mark.parametrize("name,reason", [("tpq", "TPQ"), ("bsq_matrix_emv", "scalar model variance")])
+@pytest.mark.parametrize("name,reason", [
+    ("tpq", "TPQ"), ("bsq_matrix_emv", "scalar model variance"),
+    ("ungm_na", "additive noise"), ("ctrs", "additive process and measurement noise"),
+    ("ct_radar", "no instantiation of the model pair CoordinatedTurnTransition \\+ "
+                 "Radar2DMeasurement"),
+    ("ct_bearing3", "instantiated for 4 bearing sensors; got 3")])
 def test_refused_configurations_route_to_f64(data, name, reason):
-    """``engine="auto"`` sends what the kernel refuses to the eager path (the
+    """``engine="auto"`` sends what the kernels refuse to the eager path (the
     same moments to the bit); ``engine="dd"`` raises naming the reason."""
     alg = _port(name)
-    ys = data["reentry"][:2, :, :4]
+    ys = data[CONFIGS[name][0]][:2, :, :4]
     auto, eager = alg.forward_pass_batch(ys, engine="auto"), alg.forward_pass_batch(ys)
     for f in FIELDS:
         assert torch.equal(getattr(auto, f), getattr(eager, f)), f
-    with pytest.raises(ValueError, match=reason):
+    with pytest.raises(ValueError, match="engine='dd' cannot run this configuration: .*" + reason):
         alg.forward_pass_batch(ys, engine="dd")
 
 
@@ -442,10 +554,20 @@ def test_parameter_struct_matches_the_header():
         for name, _ in mirror._fields_:
             assert f" {name};" in body or f" {name}[" in body, (struct, name)
     assert f"#define VF_MAX_DIM {vf._MAX_DIM}" in src
-    for cls, (model_id, _) in vf._DYN_MODELS.items():
-        token = {"ReentryVehicle2DTransition": "REENTRY", "ConstantVelocity": "CV"}[cls.__name__]
-        assert f"#define VF_DYN_{token} {model_id}" in src
-    assert f"#define VF_OBS_RADAR {vf._OBS_MODELS[ssmod.Radar2DMeasurement]}" in src
+    assert f"#define VF_MAX_OBS_C {vf._MAX_OBS_C}" in src
+    tokens = {"ReentryVehicle2DTransition": "DYN_REENTRY", "ConstantVelocity": "DYN_CV",
+              "Pendulum2DTransition": "DYN_PENDULUM", "ReentryVehicle1DTransition": "DYN_REENTRY1D",
+              "CoordinatedTurnTransition": "DYN_CT", "Radar2DMeasurement": "OBS_RADAR",
+              "Pendulum2DMeasurement": "OBS_PENDULUM_SIN", "RangeMeasurement": "OBS_RANGE",
+              "BearingMeasurement": "OBS_BEARING"}
+    for cls, (model_id, _) in {**vf._DYN_MODELS, **vf._OBS_MODELS}.items():
+        assert f"#define VF_{tokens[cls.__name__]} {model_id}" in src
+    # the pairs of VF_MODELS are the instantiated pairs of model ids
+    ids = {f"VF_{tokens[cls.__name__]}": model_id
+           for table in (vf._DYN_MODELS, vf._OBS_MODELS) for cls, (model_id, _) in table.items()}
+    models = src.split("#define VF_MODELS(F)")[1]
+    pairs = {(ids[d], ids[o]) for d, o in re.findall(r"F\(\d+, \d+, (VF_\w+), (VF_\w+)\)", models)}
+    assert pairs == vf._PAIRS
 
 
 def test_shaped_parameter_struct_matches_the_header():
@@ -458,4 +580,6 @@ def test_shaped_parameter_struct_matches_the_header():
             assert f" {name};" in body or f" {name}[" in body, (struct, name)
     assert f"#define VFS_MAX_DIM {vf._SHAPED_MAX_DIM}" in src
     assert f"#define VFS_MAX_PTS {vf._SHAPED_MAX_PTS}" in src
-    assert ctypes.sizeof(vf._CShapedParams) == 3024 and "3,024 bytes" in src
+    assert ctypes.sizeof(vf._CShapedParams) == 3072 and "3,072 bytes" in src
+    assert "1,840 bytes" in open(vf._build.CSRC + "/vector_filter_step.cuh").read()
+    assert ctypes.sizeof(vf._CParams) == 1840
