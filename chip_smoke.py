@@ -128,7 +128,21 @@ fails at once without them.  Phases, each fatal on failure:
     with non-additive noise (500 steps) and the constant turn-rate model
     with the radar under UKF through ``engine="auto"``, which runs them
     eagerly (no kernel may launch), timed with CUDA events, filter and
-    smoother RMSE printed.
+    smoother RMSE printed;
+20. "classical": the filters that no kernel takes, eagerly, 10,000 x 100:
+    the hybrid demo's UNGM system (the main path's data) under the EKF, the
+    EKF-GPQD and the GPQ+D Kalman filter; the reentry bench lane's data
+    under the EKF and the truncated UKF and CKF; the truncated GHKF-3 on
+    non-additive UNGM dynamics; the extended Student filter on phase 8's CV
+    glint data.  Each ``engine="dd"`` must raise, ``"auto"`` must give the
+    bits of ``"f64"``, at most 1% of the runs may be non-finite, and the
+    first 200 trajectories must match the same filter on the CPU within
+    1e-9 of each stream's largest entry; filter and smoother times (CUDA
+    events), RMSE, NCI and NLL printed.  Then the two transform studies at
+    10,000 input means (polar to cartesian through the linearization,
+    MC-1000, UT and truncated UT at dimensions 2-8; GPQ against GPQ+D on
+    ``sin(x) + x^2 / 2``): SKL from Monte-Carlo truth and each transform's
+    time, the GPQ+D weights' build time.  No launch counter may move.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -138,6 +152,7 @@ operations over the card's peak rate for their type.  The line before the last t
 line before the last is the card's name and power limit; the last line is
 ``{"ok": true, "device": {...}}``.
 """
+import copy
 import ctypes
 import json
 import os
@@ -351,7 +366,8 @@ def study_scores(torch, x_true, fi_mean, fi_cov, chunk=1000):
 
 def student_slice(torch, np, dev):
     """Phases 6-8: the Student-t BQ path and its four kernels.  Returns the
-    kernels' entries of the ``kernels`` line."""
+    kernels' entries of the ``kernels`` line, and the CV glint study's
+    Student models and data ``(dyn, obs, x, y)``, (M, D, N) each."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.bq import StudentTProcessTransform
     from ssmtoybox_torch.ops import student_mc as smc
@@ -646,13 +662,13 @@ def student_slice(torch, np, dev):
         "kxy_bwd": bound(tot_k * d * 4, (pairs, SFU_OPS_S), (pairs * 5 * d, F32_OPS_S)),
     }
     replaces = {"qrq": 73, "qrq_bwd": 199, "kxy": 325, "kxy_bwd": 406}
-    return [{"name": f"student_{name}", "route": "cuda",
+    return ([{"name": f"student_{name}", "route": "cuda",
              "source": "ssmtoybox_torch/csrc/" + ("student_qrq.cu" if "qrq" in name
                                                    else "student_mc.cu"),
              "replaces": f"ssmtoybox_tpu/ops/pallas_ops.py:{line}", "launches": counts[name],
              "max_abs_err": err[name], "ms": ms[name][0], "plain_ms": ms[name][1],
              "bound_ms": bounds[name][0], "bound_by": bounds[name][1], "library_ms": None}
-            for name, line in replaces.items()]
+             for name, line in replaces.items()], (dyn_s, obs_s, xs, ys))
 
 
 #: the BSQ UNGM study (experiments/bsq_ungm.py:42-65): kernel parameters and
@@ -1660,6 +1676,230 @@ def zoo_slice(torch, np, dev):
     return launches, err
 
 
+#: the classical phase: steps a lane, trajectories held against the CPU,
+#: Monte-Carlo points of the transform studies' truth
+CLASSICAL_STEPS = 100
+CLASSICAL_CPU_B = 200
+TRUTH_POINTS = 100_000
+#: the hybrid demo's RBF parameters (experiments/gpqd_demo.py:57-66) and the
+#: transform study's (experiments/gpqd_demo.py:38-55)
+GPQD_RBF = [[1.0, 3.0]]
+GPQD_DEMO_RBF = [[1.0, 1.5]]
+
+
+def on_cpu(torch, obj):
+    """A copy of a filter, model, random variable or transform of the port
+    with each of its tensors copied to the CPU: the same numbers, weights
+    included (the GPQ+D Gram of the demo has a condition number of 3.5e5;
+    weights built apart would differ by its rounding, as the JAX package's
+    and the port's do by 1e-7 of ``Wc``'s largest entry)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.cpu()
+    if type(obj).__module__.startswith("ssmtoybox_torch"):
+        out = copy.copy(obj)
+        out.__dict__.update({k: on_cpu(torch, v) for k, v in vars(obj).items()})
+        return out
+    return obj
+
+
+def streams_err(torch, got, want) -> float:
+    """The largest of ``max |got - want| / max |want|`` over the streams of
+    two filter results; inf where their non-finite entries differ."""
+    worst = 0.0
+    for f in got.__dataclass_fields__:
+        a, b = getattr(got, f).cpu(), getattr(want, f)
+        ok = torch.isfinite(b)
+        if not torch.equal(torch.isfinite(a), ok):
+            return float("inf")
+        if bool(ok.any()):
+            worst = max(worst, float((a - b)[ok].abs().max() / b[ok].abs().max()))
+    return worst
+
+
+def truth_moments(torch, mtran, f, means, cov, chunk=500):
+    """Moments of ``f`` under ``N(means, cov)`` by Monte Carlo on
+    ``TRUTH_POINTS`` points, ``chunk`` means at a time."""
+    mc = mtran.MonteCarloTransform.create(means.shape[-1], n=TRUTH_POINTS, seed=SEED + 7,
+                                          device=means.device)
+    parts = [mc.apply(f, means[i:i + chunk], cov[i:i + chunk], 0)[:2]
+             for i in range(0, means.shape[0], chunk)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def classical_slice(torch, np, dev, ungm, reentry, glint):
+    """Phase 20, "classical": the moment transforms and the filters that no
+    fused kernel takes, at MC trajectories on the card.
+
+    Lanes, CLASSICAL_STEPS steps each: (a) the hybrid demo's system (UNGM,
+    init cov 5, Q 10, R 1; the main path's data) under the EKF, the EKF-GPQD
+    (RBF ``[[1, 3]]``) and the GPQ+D Kalman filter (``[[1, 3]]``, UT
+    points); (b) the reentry bench lane's data under the EKF, the truncated
+    UKF and CKF, and the truncated GHKF-3 on non-additive UNGM dynamics
+    (``tests/test_ssmod_ssinf.py:299-311``, simulated here); (c) the extended
+    Student filter on the CV glint study's data of phase 8.  Each lane: the
+    filter through ``engine="auto"`` (the Student filter has no engine),
+    then ``"f64"`` timed with CUDA events, which must give the same bits;
+    ``engine="dd"`` must raise ``ValueError``; the RTS smoother, timed;
+    RMSE / NCI / NLL; at most 1% of the runs not finite; the first
+    ``CLASSICAL_CPU_B`` trajectories against the same filter on the CPU
+    (its tensors copied there) within 1e-9 of each stream's largest entry.
+
+    (d) The two transform studies at MC input means around theirs: polar to
+    cartesian (``experiments/polar2cartesian_mt.py:44-87``) through the
+    linearization, MC-1000 and the truncated UT at dimensions 2, 3, 5 and
+    8 beside the UT, and GPQ against GPQ+D on ``sin(x) + x^2 / 2``
+    (``experiments/gpqd_demo.py:38-55``): the symmetrized KL divergence from
+    Monte-Carlo truth on ``TRUTH_POINTS`` points, and each transform's time.
+
+    No kernel may launch in the phase: every launch counter is read before
+    and after."""
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch import mtran, ssmod
+    from ssmtoybox_torch.bq import GaussianProcessDerTransform, GaussianProcessTransform
+    from ssmtoybox_torch.ops import scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
+    from ssmtoybox_torch.utils import GaussRV
+    from ssmtoybox_torch.utils.metrics import symmetrized_kl_divergence
+
+    def counters():
+        return (sf.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES, vdm.LAUNCHES,
+                tuple(smc.LAUNCHES.values()))
+
+    before = counters()
+    n = CLASSICAL_STEPS
+    dyn_u, obs_u, xs_u, ys_u = ungm
+    xs_u, ys_u = xs_u[..., :n].contiguous(), ys_u[..., :n].contiguous()
+    dyn_re, obs_re, xs_re, ys_re = reentry
+    dyn_cv, obs_cv, xs_cv, ys_cv = glint
+    dyn_na = ssmod.UNGMNATransition(GaussRV(1, mean=1.0, cov=1.0, device=dev),
+                                    GaussRV(1, cov=1.0, device=dev))
+    obs_na = ssmod.UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=1)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x_na = dyn_na.simulate_discrete(gen, steps=n, mc_sims=MC)
+    xs_na, ys_na = x_na.permute(2, 0, 1), obs_na.simulate_measurements(gen, x_na).permute(2, 0, 1)
+
+    rbf = np.array(GPQD_RBF)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpqd_kf = stt.GaussianProcessDerKalman(dyn_u, obs_u, rbf, rbf)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    lanes = [
+        ("UNGM", "EKF", stt.ExtendedKalman(dyn_u, obs_u), xs_u, ys_u),
+        ("UNGM", "EKF-GPQD", stt.ExtendedKalmanGPQD(dyn_u, obs_u, rbf, rbf), xs_u, ys_u),
+        ("UNGM", "GPQ+D KF", gpqd_kf, xs_u, ys_u),
+        ("reentry", "EKF", stt.ExtendedKalman(dyn_re, obs_re), xs_re, ys_re),
+        ("reentry", "TUKF", stt.TruncatedUnscentedKalman(dyn_re, obs_re), xs_re, ys_re),
+        ("reentry", "TCKF", stt.TruncatedCubatureKalman(dyn_re, obs_re), xs_re, ys_re),
+        ("UNGM-NA dynamics", "TGHKF-3", stt.TruncatedGaussHermiteKalman(dyn_na, obs_na, 3),
+         xs_na, ys_na),
+        ("CV glint", "extended Student", stt.ExtendedStudent(dyn_cv, obs_cv, dof=4.0), xs_cv,
+         ys_cv),
+    ]
+    log(f"classical: GPQ+D Kalman filter built on the card in {build_ms:.1f} ms (two "
+        "transforms, RBF [[1, 3]], UT points, derivatives at all 3)")
+    for system, rule, alg, x_true, ys in lanes:
+        what = f"classical {system} {rule} ({MC}x{ys.shape[-1]})"
+        student = isinstance(alg, stt.StudentianInference)
+        if student:
+            res = alg.forward_pass_batch(ys)
+            f_ms, _ = event_ms(torch, lambda: alg.forward_pass_batch(ys))
+            smoother = stt.studentian_smoother
+        else:
+            try:
+                alg.forward_pass_batch(ys[:7], engine="dd")
+            except ValueError as e:
+                reason = str(e).split(": ", 1)[-1]
+            else:
+                fail(f"{what}: engine='dd' ran a configuration no kernel takes")
+            res = alg.forward_pass_batch(ys, engine="auto")
+            f_ms, ref = event_ms(torch, lambda: alg.forward_pass_batch(ys, engine="f64"))
+            if not all(torch.equal(getattr(res, f), getattr(ref, f))
+                       for f in res.__dataclass_fields__):
+                fail(f"{what}: engine='auto' and engine='f64' differ")
+            del ref
+            smoother = stt.gaussian_smoother
+        sm, _ = smoother(res)
+        s_ms, (sm, _) = event_ms(torch, lambda: smoother(res))
+        rmse_r, inc_r, nll_r, nci_r = study_scores(torch, x_true, res.fi_mean, res.fi_cov)
+        ok = torch.isfinite(rmse_r) & torch.isfinite(nci_r) & torch.isfinite(nll_r)
+        lost = 1.0 - float(ok.double().mean())
+        r_sm = torch.sqrt(torch.mean(torch.sum((sm - x_true) ** 2, 1), -1))[ok]
+        cpu = on_cpu(torch, alg).forward_pass_batch(ys[:CLASSICAL_CPU_B].cpu())
+        head = type(res)(*(getattr(res, f)[:CLASSICAL_CPU_B] for f in res.__dataclass_fields__))
+        err = streams_err(torch, head, cpu)
+        del head, cpu
+        log(f"{what}: filter {f_ms:.1f} ms, smoother {s_ms:.1f} ms (CUDA events, one call "
+            f"after a warm-up); RMSE filter {float(rmse_r[ok].mean()):.6f}, smoother "
+            f"{float(r_sm.mean()):.6f}, NCI {float(nci_r[ok].mean()):.4f}, NLL "
+            f"{float(nll_r[ok].mean()):.4f}; not finite {lost:.2%} (limit 1%); first "
+            f"{CLASSICAL_CPU_B} trajectories vs the CPU {err:.2e} of each stream's largest "
+            "entry (limit 1e-9)"
+            + ("" if student else f"; 'auto' == 'f64' to the bit; 'dd' refused: {reason}"))
+        if lost > 0.01:
+            fail(f"{what}: {lost:.2%} of the runs are not finite (limit 1%)")
+        if not err <= 1e-9:
+            fail(f"{what}: the card's streams are {err:.3e} off the CPU's (limit 1e-9)")
+        del res, sm
+
+    # ---- (d) the transform studies at MC means ---------------------------------
+    f64 = dict(dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+
+    def p2c(x, time):
+        return x[..., :1] * torch.stack([torch.cos(x[..., 1]), torch.sin(x[..., 1])], dim=-1)
+
+    means = (torch.tensor([1.0, np.pi / 6], **f64)
+             + torch.randn(MC, 2, generator=gen, **f64) * torch.tensor([0.05, 0.1], **f64))
+    cov = torch.diag(torch.tensor([0.05 ** 2, (np.pi / 10) ** 2], **f64)).expand(MC, 2, 2)
+    m_mc, c_mc = truth_moments(torch, mtran, p2c, means, cov)
+
+    def study(name, tf, mean, cov_in, f=p2c, truth=(m_mc, c_mc)):
+        ms = cuda_ms(torch, lambda: tf.apply(f, mean, cov_in, 0), reps=3)[0]
+        mf, cf, _ = tf.apply(f, mean, cov_in, 0)
+        skl = symmetrized_kl_divergence(truth[0], truth[1], mf, cf)
+        err = torch.linalg.vector_norm(mf - truth[0], dim=-1)
+        if not (bool(torch.isfinite(skl).all()) and bool(torch.isfinite(err).all())):
+            fail(f"classical transform {name}: non-finite moments or divergence")
+        return (f"{name} {ms:.2f} ms, mean error {float(err.mean()):.3e}, "
+                f"SKL {float(skl.mean()):.4e}")
+
+    rows = [study("linearization", mtran.LinearizationTransform(2, device=dev), means, cov),
+            study("MC-1000", mtran.MonteCarloTransform.create(2, n=1000, seed=1, device=dev),
+                  means, cov)]
+    for d in (2, 3, 5, 8):
+        m_d = torch.cat([means, torch.zeros(MC, d - 2, **f64)], dim=-1)
+        c_d = torch.block_diag(cov[0], torch.eye(d - 2, **f64)).expand(MC, d, d)
+        rows.append(study(f"UT dim {d}", mtran.UnscentedTransform(d, device=dev), m_d, c_d))
+        rows.append(study(f"TUT dim {d}", mtran.TruncatedUnscentedTransform(d, 2, device=dev),
+                          m_d, c_d))
+    log(f"classical polar2cartesian ({MC} input means, truth from {TRUTH_POINTS} MC points; "
+        "ms = CUDA events, median of 3): " + "; ".join(rows))
+
+    def sin_quad(x, time):
+        return torch.sin(x) + 0.5 * x ** 2
+
+    means1 = 0.5 + 0.3 * torch.randn(MC, 1, generator=gen, **f64)
+    cov1 = torch.full((MC, 1, 1), 0.8, **f64)
+    truth1 = truth_moments(torch, mtran, sin_quad, means1, cov1)
+    kpar = np.array(GPQD_DEMO_RBF)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpqd_tf = GaussianProcessDerTransform(1, 1, kpar, "ut", device=dev)
+    torch.cuda.synchronize()
+    gpqd_ms = (time.perf_counter() - t0) * 1e3
+    rows = [study(name, tf, means1, cov1, sin_quad, truth1) for name, tf in (
+        ("GPQ", GaussianProcessTransform(1, 1, kpar, "rbf", "ut", device=dev)),
+        ("GPQ+D", gpqd_tf))]
+    log(f"classical GPQ vs GPQ+D on sin(x) + x^2/2 ({MC} input means; GPQ+D weights built in "
+        f"{gpqd_ms:.1f} ms): " + "; ".join(rows))
+
+    torch.cuda.synchronize()
+    if counters() != before:
+        fail(f"the classical phase launched a kernel: counters {before} -> {counters()}")
+    log(f"classical phase: no kernel launched (counters unchanged); card: {card_line()}")
+
+
 def main():
     import numpy as np
     import torch
@@ -1855,13 +2095,14 @@ def main():
 
     vf_main, vf_first = vector_slice(torch, np, dev, ukf_re, xs_re, ys_re,
                                      results["reentry_ukf"][0])
-    student = student_slice(torch, np, dev)
+    student, glint = student_slice(torch, np, dev)
     vdm_entry, bsq_sf_launches, vf_track, vf_track_err = bsq_slice(torch, np, dev, xs, ys)
     vf_main["max_abs_err"] = max(vf_main["max_abs_err"], vf_track_err)
     zoo_launches, zoo_err = zoo_slice(torch, np, dev)
     vf_first["launches"] += zoo_launches["vector_filter"]
     vf_first["max_abs_err"] = max(vf_first["max_abs_err"], zoo_err["vector_filter"])
     vf_main["max_abs_err"] = max(vf_main["max_abs_err"], zoo_err["vector_filter_shaped"])
+    classical_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{

@@ -7,10 +7,12 @@ CPU.  The JAX package ``ssmtoybox_tpu`` is the reference each part is held
 against; this package never imports it, nor JAX.
 """
 from . import bq, mtran, ops, points, ssinf, ssmod, utils
-from .ssinf import (BayesSardKalman, CubatureKalman, FilterResult, FullySymmetricStudent,
-                    GaussHermiteKalman, GaussianInference, GaussianProcessKalman, GPQStudent,
-                    StateSpaceInference, StudentFilterResult, StudentianInference,
-                    StudentProcessKalman, StudentProcessStudent, UnscentedKalman,
+from .ssinf import (BayesSardKalman, CubatureKalman, ExtendedKalman, ExtendedKalmanGPQD,
+                    ExtendedStudent, FilterResult, FullySymmetricStudent, GaussHermiteKalman,
+                    GaussianInference, GaussianProcessDerKalman, GaussianProcessKalman,
+                    GPQStudent, StateSpaceInference, StudentFilterResult, StudentianInference,
+                    StudentProcessKalman, StudentProcessStudent, TruncatedCubatureKalman,
+                    TruncatedGaussHermiteKalman, TruncatedUnscentedKalman, UnscentedKalman,
                     gaussian_filter, gaussian_filter_batch, gaussian_smoother,
                     studentian_filter, studentian_filter_batch, studentian_smoother)
 from .utils.arrays import default_device, set_device
@@ -20,8 +22,10 @@ __all__ = [
     "default_device", "set_device",
     "FilterResult", "GaussianInference", "GaussianProcessKalman",
     "StateSpaceInference", "UnscentedKalman", "GaussHermiteKalman", "CubatureKalman",
-    "BayesSardKalman", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
+    "BayesSardKalman", "ExtendedKalman", "TruncatedUnscentedKalman", "TruncatedCubatureKalman",
+    "TruncatedGaussHermiteKalman", "GaussianProcessDerKalman", "ExtendedKalmanGPQD",
+    "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
     "StudentFilterResult", "StudentianInference", "FullySymmetricStudent", "GPQStudent",
-    "StudentProcessStudent", "StudentProcessKalman", "studentian_filter",
+    "StudentProcessStudent", "StudentProcessKalman", "ExtendedStudent", "studentian_filter",
     "studentian_filter_batch", "studentian_smoother",
 ]

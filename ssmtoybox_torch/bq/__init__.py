@@ -1,4 +1,6 @@
-"""Bayesian quadrature: kernels, integrand models and BQ moment transforms."""
+"""Bayesian quadrature: kernels, integrand models and BQ moment transforms,
+GPQ with derivative observations included."""
+from .gpqd import GaussianProcessDerModel, GaussianProcessDerTransform, RBFGaussDer
 from .kernels import RBFGauss, RBFStudent
 from .models import BayesSardModel, GaussianProcessModel, StudentTProcessModel
 from .transforms import (BayesSardTransform, BQTransform, GaussianProcessTransform,
@@ -6,4 +8,5 @@ from .transforms import (BayesSardTransform, BQTransform, GaussianProcessTransfo
 
 __all__ = ["RBFGauss", "RBFStudent", "GaussianProcessModel", "BayesSardModel",
            "StudentTProcessModel", "BQTransform", "GaussianProcessTransform",
-           "BayesSardTransform", "StudentTProcessTransform"]
+           "BayesSardTransform", "StudentTProcessTransform", "RBFGaussDer",
+           "GaussianProcessDerModel", "GaussianProcessDerTransform"]

@@ -70,11 +70,16 @@ class BQTransform(MomentTransform):
 
     def apply(self, f, mean, cov, time):
         L = chol_small(cov)
-        fx = apply_f_columns(f, mean[..., None] + L @ self.points, time)   # (M, E, N)
+        fx = self._fcn_eval(f, mean[..., None] + L @ self.points, time)     # (M, E, N)
         mean_f = fx @ self.wm
         cov_f = (fx @ self.Wc @ fx.mT - mean_f[..., :, None] * mean_f[..., None, :]
                  + self._model_variance(fx))
         return mean_f, cov_f, fx @ self.Wcc.mT @ L.mT
+
+    def _fcn_eval(self, f, x, time):
+        """The integrand's values at the points ``x`` (M, D, N), one column a
+        weight: (M, E, N).  GPQ+D appends its Jacobian columns."""
+        return apply_f_columns(f, x, time)
 
     def _model_variance(self, fx):
         """The GPQ inflation ``model_var * I``."""

@@ -11,22 +11,29 @@ from __future__ import annotations
 
 import numpy as np
 
+from . import ssmod
+from .bq.gpqd import GaussianProcessDerTransform
 from .bq.kernels import RBFStudent
 from .bq.transforms import BayesSardTransform, BQTransform, StudentTProcessTransform
-from .mtran import SigmaPointTransform
-from .ssmod import (ConstantVelocity, Radar2DMeasurement, ReentryVehicle2DTransition,
-                    TransitionModel, UNGMMeasurement, UNGMTransition)
+from .mtran import (LinearizationTransform, MonteCarloTransform, SigmaPointTransform,
+                    TaylorGPQDTransform, TruncatedSigmaPointTransform)
+from .ssmod import TransitionModel
 from .utils.rv import GaussianMixtureRV, GaussRV, StudentRV
 
 __all__ = ["transform_from_numpy", "kernel_from_numpy", "rv_from_numpy", "model_from_numpy"]
 
-MODELS = {cls.__name__: cls for cls in (UNGMTransition, ReentryVehicle2DTransition,
-                                         ConstantVelocity, UNGMMeasurement,
-                                         Radar2DMeasurement)}
+MODELS = {name: getattr(ssmod, name) for name in ssmod.__all__
+          if name not in ("TransitionModel", "MeasurementModel")}
 
 #: optional constructor fields carried across per model class
-_FIELDS = {"ReentryVehicle2DTransition": ("dt", "R0", "H0", "Gm0", "b0"),
+_FIELDS = {"Pendulum2DTransition": ("dt", "g"),
+           "ReentryVehicle1DTransition": ("dt", "Gamma"),
+           "ReentryVehicle2DTransition": ("dt", "R0", "H0", "Gm0", "b0"),
+           "CoordinatedTurnTransition": ("dt",),
+           "ConstantTurnRateSpeed": ("dt", "compat_heading"),
            "ConstantVelocity": ("dt",),
+           "RangeMeasurement": ("sx", "sy"),
+           "BearingMeasurement": ("sensor_pos",),
            "Radar2DMeasurement": ("radar_loc",)}
 
 
@@ -40,8 +47,25 @@ def transform_from_numpy(d: dict, device=None):
       ``num_pts``, checked against the points);
     - BS quadrature: the GP keys plus ``mulind`` and optionally
       ``compat_kxpx_ell_squared`` (default True).  ``model_var`` may be a
-      matrix (an override).
+      matrix (an override);
+    - GPQ+D: the GP keys plus ``which_der``, the derivative points;
+    - truncated sigma-point rule: ``unit_sp_eff``, ``wm``, ``Wc``,
+      ``unit_sp``, ``Wcc`` and ``dim_eff``;
+    - Monte Carlo: ``unit_sp`` and the scalars ``wm``, ``wc``;
+    - single-point GPQ+D (Taylor): ``alpha``, ``ell`` and ``dim``;
+    - linearization: ``dim`` alone.
+
+    The more specific key sets are tested first: a truncated or Monte-Carlo
+    dict has ``unit_sp`` too.
     """
+    if "which_der" in d:
+        return GaussianProcessDerTransform.from_weights(
+            d["points"], d["wm"], d["Wc"], d["Wcc"], d["model_var"], d["which_der"],
+            dim_out=int(d.get("dim_out", 1)), iK=d.get("iK"),
+            integral_var=d.get("integral_var"), device=device)
+    if "Wcc" in d and "dim_eff" in d:
+        return TruncatedSigmaPointTransform(d["unit_sp_eff"], d["wm"], d["Wc"], d["unit_sp"],
+                                            d["Wcc"], int(d["dim_eff"]), device=device)
     if "Wcc" in d:
         kw = dict(dim_out=int(d.get("dim_out", 1)), integral_var=d.get("integral_var"),
                   device=device)
@@ -58,9 +82,16 @@ def transform_from_numpy(d: dict, device=None):
         return StudentTProcessTransform.from_weights(d["points"], d["wm"], d["Wc"], d["Wcc"],
                                                      d["model_var"], d["iK"], float(d["nu"]),
                                                      **kw)
+    if "unit_sp" in d and "wc" in d:
+        return MonteCarloTransform(d["unit_sp"], float(d["wm"]), float(d["wc"]), device=device)
     if "unit_sp" in d:
         return SigmaPointTransform(d["unit_sp"], d["wm"], wc_diag=d.get("wc_diag"),
                                    Wc_dense=d.get("Wc_dense"), device=device)
+    if "ell" in d:
+        ker_par = np.concatenate([np.ravel(d["alpha"]), np.ravel(d["ell"])])[None]
+        return TaylorGPQDTransform(int(d["dim"]), ker_par, device=device)
+    if set(d) == {"dim"}:
+        return LinearizationTransform(int(d["dim"]), device=device)
     raise ValueError(f"cannot tell the transform from the keys {sorted(d)}")
 
 

@@ -38,6 +38,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..bq.gpqd import GaussianProcessDerTransform
 from ..bq.transforms import BQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
 from ..ssmod import UNGMMeasurement, UNGMTransition
@@ -180,6 +181,9 @@ def _lower(tf) -> Rule:
         rule = Rule(kind=0, xi=_floats(tf.unit_sp), wm=_floats(tf.wm), wc=_floats(tf.wc_diag))
     elif isinstance(tf, StudentTProcessTransform):
         raise ValueError("the fused scalar filter has no data-dependent (TPQ) model variance")
+    elif isinstance(tf, GaussianProcessDerTransform):
+        raise ValueError("GPQ+D derivative observations have no kernel form in the fused "
+                         "scalar filter")
     elif isinstance(tf, BQTransform):
         if tf.points.shape[0] != 1 or tf.dim_out != 1:
             raise ValueError("the fused scalar filter needs a 1-D rule")

@@ -53,6 +53,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ..bq.gpqd import GaussianProcessDerTransform
 from ..bq.transforms import BQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
 from ..ssmod import (BearingMeasurement, ConstantVelocity, CoordinatedTurnTransition,
@@ -177,6 +178,9 @@ def _lower(tf, dim_in: int) -> VecRule:
         return VecRule(kind=0, xi=xi, wm=_host(tf.wm), wc=_host(tf.wc_diag))
     if isinstance(tf, StudentTProcessTransform):
         raise ValueError("the fused vector filter has no data-dependent (TPQ) model variance")
+    if isinstance(tf, GaussianProcessDerTransform):
+        raise ValueError("GPQ+D derivative observations have no kernel form in the fused "
+                         "vector filter")
     xi = _host(tf.points)
     if xi.shape[0] != dim_in:
         raise ValueError(f"transform dimension {xi.shape[0]} != expected {dim_in}")

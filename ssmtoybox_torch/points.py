@@ -1,10 +1,10 @@
 """Unit sigma-point sets and quadrature weights (NumPy float64).
 
 Vendored from :mod:`ssmtoybox_tpu.points` (spherical-radial, unscented,
-Gauss-Hermite and fully-symmetric Student rules plus the string-keyed
-factory) so that the port never imports the JAX package.  The constructors
-are host-side NumPy: a transform turns their output into ``torch.float64``
-tensors once, at construction.
+Gauss-Hermite and fully-symmetric Student rules, the seeded Monte-Carlo
+points, and the string-keyed factory) so that the port never imports the
+JAX package.  The constructors are host-side NumPy: a transform turns their
+output into ``torch.float64`` tensors once, at construction.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ __all__ = [
     "ut_points", "ut_weights",
     "gh_points", "gh_weights",
     "symmetric_set", "fs_points", "fs_weights",
+    "mc_points", "mc_weights",
     "get_points",
 ]
 
@@ -152,6 +153,20 @@ def fs_weights(dim: int, degree: int = 3, kappa=None, dof: float = 4.0) -> np.nd
     A1 = 0.5 * (I2 / I4) ** 2 * (I4 - (dim - 1) * I22)
     A11 = 0.25 * (I2 / I4) ** 2 * I22
     return np.hstack((A0, A1 * np.ones(2 * dim), A11 * np.ones(2 * dim * (dim - 1))))
+
+
+# -- Monte Carlo ---------------------------------------------------------------
+
+def mc_points(dim: int, n: int, seed: int = 0) -> np.ndarray:
+    """(dim, n) standard normal unit points for the Monte-Carlo transform,
+    drawn from NumPy's ``default_rng(seed)``: the JAX package's very points."""
+    rng = np.random.default_rng(seed)
+    return rng.multivariate_normal(np.zeros(dim), np.eye(dim), size=int(n)).T
+
+
+def mc_weights(n: int):
+    """``(1/n, 1/(n-1))``: the mean and covariance weights of ``n`` points."""
+    return 1.0 / n, 1.0 / (n - 1)
 
 
 # -- string-keyed factory -----------------------------------------------------

@@ -37,10 +37,13 @@ from dataclasses import dataclass
 
 import torch
 
+from .bq.gpqd import GaussianProcessDerTransform
 from .bq.transforms import (BayesSardTransform, GaussianProcessTransform,
                             StudentTProcessTransform)
 from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
-                    SphericalRadialTransform, UnscentedTransform)
+                    LinearizationTransform, SphericalRadialTransform, TaylorGPQDTransform,
+                    TruncatedGaussHermiteTransform, TruncatedSphericalRadialTransform,
+                    TruncatedUnscentedTransform, UnscentedTransform)
 from .ops import scalar_filter as _sf
 from .ops import vector_filter as _vf
 from .utils.arrays import f64
@@ -50,9 +53,12 @@ __all__ = [
     "FilterResult", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
     "StudentFilterResult", "studentian_filter", "studentian_filter_batch",
     "studentian_smoother",
-    "StateSpaceInference", "GaussianInference", "UnscentedKalman", "CubatureKalman",
-    "GaussHermiteKalman", "GaussianProcessKalman", "BayesSardKalman", "StudentProcessKalman",
-    "StudentianInference", "FullySymmetricStudent", "GPQStudent", "StudentProcessStudent",
+    "StateSpaceInference", "GaussianInference", "ExtendedKalman", "UnscentedKalman",
+    "CubatureKalman", "GaussHermiteKalman", "GaussianProcessKalman", "BayesSardKalman",
+    "StudentProcessKalman", "TruncatedUnscentedKalman", "TruncatedCubatureKalman",
+    "TruncatedGaussHermiteKalman", "GaussianProcessDerKalman", "ExtendedKalmanGPQD",
+    "StudentianInference", "FullySymmetricStudent", "ExtendedStudent", "GPQStudent",
+    "StudentProcessStudent",
 ]
 
 @dataclass
@@ -414,6 +420,15 @@ class GaussianInference(StateSpaceInference):
                                      self._check_batch(data_batch), engine=engine)
 
 
+class ExtendedKalman(GaussianInference):
+    """Extended Kalman filter: linearization by the Jacobians of the
+    functions the filter transforms."""
+
+    def __init__(self, dyn, obs):
+        super().__init__(dyn, obs, LinearizationTransform(dyn.dim_in, device=dyn.device),
+                         LinearizationTransform(obs.dim_in, device=dyn.device))
+
+
 class UnscentedKalman(GaussianInference):
     """Unscented Kalman filter."""
 
@@ -482,6 +497,59 @@ class StudentProcessKalman(GaussianInference):
                                      nu=nu, device=dyn.device))
 
 
+class TruncatedUnscentedKalman(GaussianInference):
+    """UKF whose measurement rule is truncated to the measurement's input
+    (``obs.dim_in`` of ``obs.dim_state`` dimensions)."""
+
+    def __init__(self, dyn, obs, kappa=None, alpha: float = 1.0, beta: float = 2.0):
+        super().__init__(
+            dyn, obs, UnscentedTransform(dyn.dim_in, kappa, alpha, beta, device=dyn.device),
+            TruncatedUnscentedTransform(obs.dim_state, obs.dim_in, kappa, alpha, beta,
+                                        device=dyn.device))
+
+
+class TruncatedCubatureKalman(GaussianInference):
+    """CKF whose measurement rule is truncated to the measurement's input."""
+
+    def __init__(self, dyn, obs):
+        super().__init__(dyn, obs, SphericalRadialTransform(dyn.dim_in, device=dyn.device),
+                         TruncatedSphericalRadialTransform(obs.dim_state, obs.dim_in,
+                                                           device=dyn.device))
+
+
+class TruncatedGaussHermiteKalman(GaussianInference):
+    """GHKF whose measurement rule is truncated to the measurement's input:
+    ``obs.dim_in``, as the JAX package fixes the reference's ``dyn.dim_in``."""
+
+    def __init__(self, dyn, obs, degree: int = 3):
+        super().__init__(dyn, obs, GaussHermiteTransform(dyn.dim_in, degree, device=dyn.device),
+                         TruncatedGaussHermiteTransform(obs.dim_state, obs.dim_in, degree,
+                                                        device=dyn.device))
+
+
+class GaussianProcessDerKalman(GaussianInference):
+    """GPQ+D Kalman filter: GP quadrature observing the integrand's values and
+    its Jacobians at the points ``which_der`` (RBF kernel)."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, points: str = "ut",
+                 point_hyp=None, which_der=None):
+        super().__init__(
+            dyn, obs,
+            GaussianProcessDerTransform(dyn.dim_in, dyn.dim_state, kern_par_dyn, points,
+                                        point_hyp, which_der, device=dyn.device),
+            GaussianProcessDerTransform(obs.dim_in, obs.dim_out, kern_par_obs, points,
+                                        point_hyp, which_der, device=dyn.device))
+
+
+class ExtendedKalmanGPQD(GaussianInference):
+    """EKF through single-point GPQ+D (:class:`TaylorGPQDTransform`); the
+    measurement transform takes ``obs.dim_state``, as in the JAX package."""
+
+    def __init__(self, dyn, obs, rbf_par_dyn, rbf_par_obs):
+        super().__init__(dyn, obs, TaylorGPQDTransform(dyn.dim_in, rbf_par_dyn, device=dyn.device),
+                         TaylorGPQDTransform(obs.dim_state, rbf_par_obs, device=dyn.device))
+
+
 class StudentianInference(StateSpaceInference):
     """Student-t filter and scale-matrix RTS smoother; ``sm_cov`` holds the
     smoothed scale matrices."""
@@ -518,6 +586,15 @@ class FullySymmetricStudent(StudentianInference):
             FullySymmetricStudentTransform(dyn.dim_in, degree, kappa, dyn_dof, device=dyn.device),
             FullySymmetricStudentTransform(obs.dim_in, degree, kappa, obs_dof, device=dyn.device),
             dof, fixed_dof)
+
+
+class ExtendedStudent(StudentianInference):
+    """Student filter by linearization (the EKF's transforms on scale
+    matrices)."""
+
+    def __init__(self, dyn, obs, dof: float = 4.0, fixed_dof: bool = True):
+        super().__init__(dyn, obs, LinearizationTransform(dyn.dim_in, device=dyn.device),
+                         LinearizationTransform(obs.dim_in, device=dyn.device), dof, fixed_dof)
 
 
 class GPQStudent(StudentianInference):

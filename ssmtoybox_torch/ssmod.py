@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .utils.arrays import f64
+from .utils.autodiff import jacobian
 from .utils.ode import ode_euler
 
 __all__ = [
@@ -44,16 +45,6 @@ _TINY = 1e-30
 
 def _cos(t):
     return torch.cos(t) if isinstance(t, torch.Tensor) else math.cos(t)
-
-
-def _jacobian(f, args, argnums):
-    """Jacobian of ``f(*args)`` (one vector in, one out) with respect to the
-    arguments ``argnums``, side by side, at every row of ``args`` (each
-    (..., K_i), leading dimensions broadcast): (..., E, sum of their K_i)."""
-    lead = torch.broadcast_shapes(*(a.shape[:-1] for a in args))
-    flat = [a.expand(lead + a.shape[-1:]).reshape(-1, a.shape[-1]) for a in args]
-    jac = torch.cat(torch.func.vmap(torch.func.jacfwd(f, argnums=argnums))(*flat), dim=-1)
-    return jac.reshape(lead + jac.shape[-2:])
 
 
 # ---------------------------------------------------------------------------
@@ -101,7 +92,7 @@ class TransitionModel:
         (..., Dq): (..., D, D); a non-additive model's is taken with respect
         to ``[x, q]``, (..., D, D + Dq), as the JAX package's."""
         argnums = (0,) if self.noise_additive else (0, 1)
-        return _jacobian(lambda v, w: self.dyn_fcn(v, w, time), (x, q), argnums)
+        return jacobian(lambda v, w: self.dyn_fcn(v, w, time), (x, q), argnums)
 
     def dyn_eval(self, x, time):
         """The function a filter transforms: the dynamics at zero noise, or,
@@ -390,7 +381,7 @@ class MeasurementModel:
         noise ``r`` (..., Dr); a non-additive model's is taken with respect to
         ``[x, r]``, as the JAX package's."""
         argnums = (0,) if self.noise_additive else (0, 1)
-        return _jacobian(lambda v, w: self.meas_fcn(v, w, time), (x, r), argnums)
+        return jacobian(lambda v, w: self.meas_fcn(v, w, time), (x, r), argnums)
 
     def meas_eval(self, x, time):
         """Sub-state selection, then the measurement at zero noise, or, for

@@ -15,7 +15,8 @@ import torch
 from .linalg import pd_logdet, pd_solve
 
 __all__ = ["squared_error", "mse_matrix", "log_cred_ratio", "neg_log_likelihood",
-           "rmse", "nci", "inclination", "nll_mean"]
+           "kl_divergence", "symmetrized_kl_divergence", "rmse", "nci", "inclination",
+           "nll_mean"]
 
 
 def squared_error(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -48,6 +49,31 @@ def neg_log_likelihood(x, m, P) -> torch.Tensor:
     dx = x - m
     d = x.shape[-1]
     return 0.5 * (pd_logdet(P) + _quad(P, dx) + d * math.log(2.0 * math.pi))
+
+
+def kl_divergence(mean_0, cov_0, mean_1, cov_1, compat_flipped_logdet: bool = True):
+    """KL divergence of ``N(mean_0, cov_0)`` from ``N(mean_1, cov_1)``, over
+    leading dimensions (means (..., D), covariances (..., D, D)).
+
+    ``compat_flipped_logdet=True`` (default) keeps the NumPy reference's
+    log-determinant term ``log(det_0 / det_1)``, whose sign is wrong, as the
+    JAX package does for its goldens: the value can be negative.  ``False``
+    gives the true divergence.  :func:`symmetrized_kl_divergence` does not
+    depend on it: the two terms cancel.
+    """
+    k = mean_0.shape[-1]
+    dmu = mean_0 - mean_1
+    trace = torch.diagonal(pd_solve(cov_1, cov_0), dim1=-2, dim2=-1).sum(-1)
+    logdets = pd_logdet(cov_0) - pd_logdet(cov_1)
+    if not compat_flipped_logdet:
+        logdets = -logdets
+    return 0.5 * (trace + _quad(cov_1, dmu) + logdets - k)
+
+
+def symmetrized_kl_divergence(mean_0, cov_0, mean_1, cov_1):
+    """``(KL(0 || 1) + KL(1 || 0)) / 2``."""
+    return 0.5 * (kl_divergence(mean_0, cov_0, mean_1, cov_1)
+                  + kl_divergence(mean_1, cov_1, mean_0, cov_0))
 
 
 def rmse(x: torch.Tensor, m: torch.Tensor, axis=None) -> torch.Tensor:

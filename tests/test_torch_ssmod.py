@@ -172,4 +172,4 @@ def test_model_carried_from_jax(name, kind):
 
 def test_unknown_model_kind_raises():
     with pytest.raises(ValueError, match="unknown model"):
-        convert.model_from_numpy("Pendulum2DTransition", {})
+        convert.model_from_numpy("NoSuchTransition", {})
