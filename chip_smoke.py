@@ -142,7 +142,21 @@ fails at once without them.  Phases, each fatal on failure:
     10,000 input means (polar to cartesian through the linearization,
     MC-1000, UT and truncated UT at dimensions 2-8; GPQ against GPQ+D on
     ``sin(x) + x^2 / 2``): SKL from Monte-Carlo truth and each transform's
-    time, the GPQ+D weights' build time.  No launch counter may move.
+    time, the GPQ+D weights' build time.  No launch counter may move;
+21. "bq_rest": GPQKF with the RQ kernel under ``engine="auto"`` on the
+    main path's UNGM (scalar filter kernel) and reentry (first-version
+    vector filter kernel) data, one launch each, bit-equal to the plain
+    versions and held to ``"f64"``; per-call kernel parameters (theta) of
+    the GPQKF and the BSQKF on UNGM (10,000 x 100): the construction
+    parameters' bits, a filter built at another theta's bits, the gradient
+    of the batch-mean NLL with respect to log theta against the CPU, the
+    BSQ lane's Vandermonde launches; the IPLF on CV + precise radar
+    (10,000 x 60: one iteration is the UKF, five have a lower RMSE); the
+    MO-GPQKF on UNGM against the GPQKF, the MO-TP Student filter on the
+    Student UNGM system (at most 1% non-finite) and on phase 8's CV glint
+    data (non-finite share reported), each against the CPU, no launch
+    counter moving; ``GaussianProcessModel.optimize`` on the card against
+    the CPU.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -1900,6 +1914,359 @@ def classical_slice(torch, np, dev, ungm, reentry, glint):
     log(f"classical phase: no kernel launched (counters unchanged); card: {card_line()}")
 
 
+#: phase 21, "bq_rest".  The RQ kernel's approximate Gaussian expectations
+#: give a negative expected model variance at the GPQ lanes' length-scales,
+#: and on reentry (l = 10) every run loses positive definiteness at alpha =
+#: 1e3 and none at 1e4 (``tools/bq_rest_probes.py``): the lanes take l = 1 on
+#: UNGM and alpha = 1e4 on reentry
+RQ_UNGM = [[1.0, 2.0, 1.0]]
+RQ_REENTRY = [[1.0, 1e4, 10.0, 10.0, 10.0, 10.0, 10.0]]
+#: the per-call theta lanes: construction parameters and another theta.  The
+#: gradient of the UNGM NLL is ill-conditioned in theta: a relative change
+#: of 1e-15 in theta moves it by 4.9e-9 of its largest entry over 10 steps
+#: and by 3.5e-6 over 100 (``tools/bq_rest_probes.py``, CPU), and the card's
+#: 100-step gradient was 7.7e-3 off the CPU's: the card is held to the CPU
+#: over GRAD_STEPS steps
+THETA_STEPS, GRAD_STEPS = 100, 10
+THETA_GPQ, THETA_GPQ_2 = [[1.0, 3.0]], [[1.3, 2.5]]
+THETA_BSQ, THETA_BSQ_2 = [[3.0, 0.3]], [[2.0, 0.5]]
+#: the IPLF setting of tests/test_ssmod_ssinf.py:511-530 (CV, poor prior,
+#: precise radar)
+IPLF_STEPS = 60
+#: the UNGM prefix on which the fused and the eager engines are held
+#: pointwise: the UNGM map grows rounding differences with the steps
+#: (``tools/bq_rest_probes.py``, CPU, 200 runs of GPQ-RQ: 2.3e-10 of the
+#: largest entry at 50 steps, 1.7e-9 at 500)
+UNGM_PREFIX = 50
+OPT_POINTS = 50
+
+
+def bq_rest_slice(torch, np, dev, ungm, reentry, glint):
+    """Phase 21, "bq_rest": the RQ kernel, per-call kernel parameters, the
+    IPLF, the multi-output filters and GP optimization at MC trajectories on
+    the card.  Returns the launches of the fused kernels in the lanes' first
+    runs, ``{"scalar_filter", "vector_filter", "vandermonde"}``.
+
+    (a) GPQKF with the RQ kernel under ``engine="auto"``: UNGM (the main
+    path's 10,000 x 500 data) through the scalar filter kernel and reentry
+    (10,000 x 100) through the first-version vector filter kernel, one launch
+    each; each kernel's result equals its plain version on the same input to
+    the bit, all five streams; against ``"f64"`` on the first
+    ``CLASSICAL_CPU_B`` runs within 1e-9 of each stream's largest entry
+    (UNGM over its first ``UNGM_PREFIX`` steps, whose filtered estimates read
+    only those steps' data; the whole study's RMSE within 1e-3 relative).
+
+    (b) Per-call kernel parameters on UNGM (10,000 x ``THETA_STEPS``) for the
+    GPQKF (RBF) and the BSQKF: ``gaussian_filter`` with theta equal to the
+    construction parameters gives the construction-time bits, with another
+    theta the bits of a filter built at it; the gradient of the batch-mean
+    NLL of the truth with respect to log theta (both transforms) against the
+    same on the CPU (the filter's tensors copied there) over
+    the first ``GRAD_STEPS`` steps within 1e-7 (the whole record's reported);
+    the BSQ lane's Vandermonde launches are counted.
+
+    (c) The IPLF on CV + precise radar (10,000 x ``IPLF_STEPS``): one
+    iteration is the UKF within 1e-11, five iterations have a lower RMSE.
+
+    (d) Multi-output filters: MO-GPQKF on UNGM (10,000 x 500) against the
+    GPQKF's ``"f64"`` result (the first step within 1e-9 of each stream's
+    largest entry, the study RMSE within 1e-6 relative; the weights agree to
+    2.7e-14 and the UNGM map grows that to 2.2e-7 in 50 steps,
+    ``tools/bq_rest_probes.py``); the MO-TP
+    Student filter on the 1-D Student UNGM system of
+    ``tests/test_ssmod_ssinf.py:341-362`` (10,000 x 100, 2e6 samples) with at
+    most 1% of the runs not finite and its first ``CLASSICAL_CPU_B`` runs
+    within 1e-9 of the CPU's, and on phase 8's CV glint data with its kernel
+    parameters, where every run diverges on the composed weights (PERF.md):
+    its non-finite share and its difference from the CPU reported.
+    The MO-GPQKF's ``"dd"`` raises and ``"auto"`` gives ``"f64"``'s bits;
+    none of the MO lanes launches a kernel.
+
+    (e) ``GaussianProcessModel.optimize`` of a 1-D GP on the UNGM dynamics at
+    ``OPT_POINTS`` points: NLML before and after, the optimum's NLML within
+    1e-6 relative of the same call on the CPU.  The noiseless data drive the
+    Gram to a condition number of ~5e16 at the optimum, BFGS stops on
+    precision loss, and a 1e-14 change of the data moves the optimum by
+    2.8e-4 in log parameters (``tools/bq_rest_probes.py``, CPU): where it
+    lies is reported.
+    """
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch import ssmod
+    from ssmtoybox_torch.bq import GaussianProcessModel
+    from ssmtoybox_torch.ops import scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
+    from ssmtoybox_torch.utils import GaussRV, StudentRV
+
+    def counters():
+        return (sf.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES, vdm.LAUNCHES,
+                tuple(smc.LAUNCHES.values()))
+
+    def rmse(x_true, res):
+        r = torch.sqrt(torch.mean(torch.sum((res.fi_mean - x_true) ** 2, 1), -1))
+        return float(r[torch.isfinite(r)].mean()), 1.0 - float(torch.isfinite(r).double().mean())
+
+    def head(res, n=CLASSICAL_CPU_B, steps=None):
+        return type(res)(*(getattr(res, f)[:n, ..., :steps] for f in res.__dataclass_fields__))
+
+    t_phase = time.perf_counter()
+    dyn_u, obs_u, xs_u, ys_u = ungm
+    dyn_re, obs_re, xs_re, ys_re = reentry
+    dyn_cv, obs_cv, xs_cv, ys_cv = glint
+    B = CLASSICAL_CPU_B
+    launches = {"scalar_filter": 0, "vector_filter": 0, "vandermonde": 0}
+
+    # ---- (a) GPQKF with the RQ kernel through the fused engines ------------
+    rq_u = stt.GaussianProcessKalman(dyn_u, obs_u, np.array(RQ_UNGM), np.array(RQ_UNGM),
+                                     kernel="rq")
+    rq_re = stt.GaussianProcessKalman(dyn_re, obs_re, np.array(RQ_REENTRY),
+                                      np.array(RQ_REENTRY), kernel="rq")
+    torch.cuda.synchronize()
+    for lane, alg, x_true, ys, lib, key in (
+            ("UNGM", rq_u, xs_u, ys_u, sf, "scalar_filter"),
+            ("reentry", rq_re, xs_re, ys_re, vf, "vector_filter")):
+        what = f"bq_rest GPQKF-RQ {lane} ({MC}x{ys.shape[-1]})"
+        n0, shaped0 = lib.LAUNCHES, vf.SHAPED_LAUNCHES
+        res = alg.forward_pass_batch(ys, engine="auto")
+        torch.cuda.synchronize()
+        n = lib.LAUNCHES - n0
+        if n != 1 or vf.SHAPED_LAUNCHES != shaped0:
+            fail(f"{what}: engine='auto' launched {key} {n} times (shaped vector filter "
+                 f"{vf.SHAPED_LAUNCHES - shaped0}); expected {key} once")
+        launches[key] += n
+        if lib is sf:
+            params = sf.prepare(dyn_u, obs_u, alg.tf_dyn, alg.tf_obs)
+            y_tm = ys[:, 0, :].T.contiguous()
+            c = torch.as_tensor(sf.ungm_consts(ys.shape[-1]), device=dev)
+            plain = sf._scalar_filter_plain(params, y_tm, c)
+            got = (res.fi_mean[:, 0].T, res.fi_cov[:, 0, 0].T, res.pr_mean[:, 0].T,
+                   res.pr_cov[:, 0, 0].T, res.pr_xx_cov[:, 0, 0].T)
+            if not all(same_bits(torch, a, b) for a, b in zip(got, plain)):
+                fail(f"{what}: the kernel's streams differ from the plain version's")
+            steps = UNGM_PREFIX
+        else:
+            params = vf.prepare(dyn_re, obs_re, alg.tf_dyn, alg.tf_obs)
+            if vf.kernel_of(params) != "vector_filter":
+                fail(f"{what}: runs {vf.kernel_of(params)}, expected the first version")
+            plain = vf._vector_filter_plain(params, ys)
+            vf_against_plain(torch, res, plain, what)
+            steps = None
+        ref = alg.forward_pass_batch(ys[:B, :, :steps], engine="f64")
+        err = streams_err(torch, head(res, B, steps), ref.__class__(
+            *(getattr(ref, f).cpu() for f in ref.__dataclass_fields__)))
+        f_ms, _ = event_ms(torch, lambda: alg.forward_pass_batch(ys, engine="auto"))
+        e_ms, full = event_ms(torch, lambda: alg.forward_pass_batch(ys, engine="f64"))
+        (r_k, lost), (r_e, _) = rmse(x_true, res), rmse(x_true, full)
+        log(f"{what}: {key} kernel once, == its plain version to the bit (5 streams); vs "
+            f"'f64' on the first {B} runs" + (f" x {steps} steps" if steps else "")
+            + f" {err:.2e} of each stream's largest entry (limit 1e-9); RMSE kernel "
+            f"{r_k:.6f}, eager {r_e:.6f} (relative {abs(r_k - r_e) / r_e:.2e}, limit 1e-3), "
+            f"not finite {lost:.2%}; 'auto' {f_ms:.1f} ms, 'f64' {e_ms:.1f} ms (CUDA events)")
+        if not err <= 1e-9:
+            fail(f"{what}: 'auto' is {err:.3e} off 'f64' (limit 1e-9)")
+        if not abs(r_k - r_e) / r_e < 1e-3 or lost > 0.01:
+            fail(f"{what}: RMSE {r_k} vs eager {r_e}, {lost:.2%} not finite")
+        del res, ref, full, plain
+
+    # ---- (b) per-call kernel parameters -----------------------------------
+    xs_t, ys_t = xs_u[..., :THETA_STEPS].contiguous(), ys_u[..., :THETA_STEPS].contiguous()
+    f64 = dict(dtype=torch.float64, device=dev)
+    for lane, make, par, par_2 in (
+            ("GPQKF", lambda p, q: stt.GaussianProcessKalman(dyn_u, obs_u, p, q),
+             THETA_GPQ, THETA_GPQ_2),
+            ("BSQKF", lambda p, q: stt.BayesSardKalman(dyn_u, obs_u, p, q),
+             THETA_BSQ, THETA_BSQ_2)):
+        what = f"bq_rest theta {lane} ({MC}x{THETA_STEPS})"
+        alg = make(np.array(par), np.array(par))
+        base = stt.gaussian_filter(dyn_u, obs_u, alg.tf_dyn, alg.tf_obs, ys_t)
+        n0 = vdm.LAUNCHES
+        same = stt.gaussian_filter(dyn_u, obs_u, alg.tf_dyn, alg.tf_obs, ys_t,
+                                   theta_dyn=torch.tensor(par, **f64),
+                                   theta_obs=torch.tensor(par, **f64))
+        torch.cuda.synchronize()
+        n_vdm = vdm.LAUNCHES - n0
+        launches["vandermonde"] += n_vdm
+        other = stt.gaussian_filter(dyn_u, obs_u, alg.tf_dyn, alg.tf_obs, ys_t,
+                                    theta_dyn=torch.tensor(par_2, **f64),
+                                    theta_obs=torch.tensor(par_2, **f64))
+        built = make(np.array(par_2), np.array(par_2)).forward_pass_batch(ys_t, engine="f64")
+        for f in base.__dataclass_fields__:
+            if not torch.equal(getattr(same, f), getattr(base, f)):
+                fail(f"{what}: theta = the construction parameters changed {f}")
+            if not torch.equal(getattr(other, f), getattr(built, f)):
+                fail(f"{what}: theta = {par_2} differs from a filter built at it in {f}")
+
+        def grad(tf_dyn, tf_obs, dyn, obs, ys, xs, device):
+            lt = torch.log(torch.tensor(par_2, dtype=torch.float64, device=device))
+            lt_d, lt_o = lt.clone().requires_grad_(True), lt.clone().requires_grad_(True)
+            res = stt.gaussian_filter(dyn, obs, tf_dyn, tf_obs, ys, theta_dyn=lt_d.exp(),
+                                      theta_obs=lt_o.exp())
+            var = res.fi_cov[:, 0]
+            nll = 0.5 * torch.mean((res.fi_mean - xs) ** 2 / var + torch.log(2 * np.pi * var))
+            return (nll.detach(),) + torch.autograd.grad(nll, (lt_d, lt_o))
+
+        g_ms, (nll, *g_card) = event_ms(torch, lambda: grad(
+            alg.tf_dyn, alg.tf_obs, dyn_u, obs_u, ys_t, xs_t, dev))
+        cpu = on_cpu(torch, alg)
+        g_err = {}
+        for n in (GRAD_STEPS, THETA_STEPS):
+            card = g_card if n == THETA_STEPS else grad(
+                alg.tf_dyn, alg.tf_obs, dyn_u, obs_u, ys_t[..., :n], xs_t[..., :n], dev)[1:]
+            _, *g_cpu = grad(cpu.tf_dyn, cpu.tf_obs, cpu.mod_dyn, cpu.mod_obs,
+                             ys_t[..., :n].cpu(), xs_t[..., :n].cpu(), "cpu")
+            g_err[n] = max(rel_err(a.cpu(), b) for a, b in zip(card, g_cpu))
+        t_ms, _ = event_ms(torch, lambda: stt.gaussian_filter(
+            dyn_u, obs_u, alg.tf_dyn, alg.tf_obs, ys_t, theta_dyn=torch.tensor(par_2, **f64),
+            theta_obs=torch.tensor(par_2, **f64)))
+        b_ms, _ = event_ms(torch, lambda: stt.gaussian_filter(dyn_u, obs_u, alg.tf_dyn,
+                                                              alg.tf_obs, ys_t))
+        log(f"{what}: theta = construction parameters gives the construction-time bits, theta "
+            f"= {par_2} the bits of a filter built at it; batch-mean NLL {nll.item():.6f}, "
+            f"d/d log theta dyn {g_card[0].cpu().numpy().round(6).tolist()}, obs "
+            f"{g_card[1].cpu().numpy().round(6).tolist()}; card vs CPU, relative: the gradient "
+            f"over the first {GRAD_STEPS} steps {g_err[GRAD_STEPS]:.2e} (limit 1e-7), over "
+            f"all {THETA_STEPS} {g_err[THETA_STEPS]:.2e} (reported); Vandermonde launches "
+            f"{n_vdm}; filter with theta {t_ms:.1f} ms, without {b_ms:.1f} ms, filter + "
+            f"gradient {g_ms:.1f} ms (CUDA events)")
+        if not g_err[GRAD_STEPS] <= 1e-7:
+            fail(f"{what}: the card's gradient over {GRAD_STEPS} steps is "
+                 f"{g_err[GRAD_STEPS]:.3e} off the CPU's (limit 1e-7)")
+        if lane == "BSQKF" and n_vdm < 2:
+            fail(f"{what}: {n_vdm} Vandermonde launches re-deriving the weights; expected 2")
+        del base, same, other, built
+
+    before = counters()
+    # ---- (c) the IPLF on CV + precise radar ---------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    x0 = GaussRV(4, mean=np.array([100., 2., 100., -1.]),
+                 cov=np.diag([400.0, 25.0, 400.0, 25.0]), device=dev)
+    dyn_i = ssmod.ConstantVelocity(x0, GaussRV(2, cov=0.1 * np.eye(2), device=dev), dt=0.5)
+    obs_i = ssmod.Radar2DMeasurement(GaussRV(2, cov=np.diag([1.0, 1e-4]), device=dev),
+                                     dim_state=4, state_index=[0, 2])
+    x_i = dyn_i.simulate_discrete(gen, steps=IPLF_STEPS, mc_sims=MC)
+    xs_i, ys_i = x_i.permute(2, 0, 1), obs_i.simulate_measurements(gen, x_i).permute(2, 0, 1)
+    what = f"bq_rest IPLF CV + precise radar ({MC}x{IPLF_STEPS})"
+    ukf = stt.UnscentedKalman(dyn_i, obs_i).forward_pass_batch(ys_i, engine="f64")
+    rows = []
+    for it in (1, 5):
+        alg = stt.IteratedPosteriorLinearizationKalman(dyn_i, obs_i, iterations=it)
+        i_ms, res = event_ms(torch, lambda: alg.forward_pass_batch(ys_i))
+        s_ms, (sm, _) = event_ms(torch, lambda: stt.gaussian_smoother(res))
+        (r, lost), r_sm = rmse(xs_i, res), float(
+            torch.sqrt(torch.mean(torch.sum((sm - xs_i) ** 2, 1), -1)).nanmean())
+        rows.append((it, r, lost, r_sm, i_ms, s_ms))
+        if it == 1:
+            err1 = streams_err(torch, res, ukf.__class__(
+                *(getattr(ukf, f).cpu() for f in ukf.__dataclass_fields__)))
+    r_ukf = rmse(xs_i, ukf)[0]
+    log(f"{what}: one iteration vs the UKF {err1:.2e} of each stream's largest entry (limit "
+        f"1e-11); UKF RMSE {r_ukf:.6f}; " + "; ".join(
+            f"{it} iteration(s): RMSE filter {r:.6f}, smoother {r_sm:.6f}, not finite "
+            f"{lost:.2%}, filter {i_ms:.1f} ms, smoother {s_ms:.1f} ms" for
+            it, r, lost, r_sm, i_ms, s_ms in rows))
+    if not err1 <= 1e-11:
+        fail(f"{what}: one iteration is {err1:.3e} off the UKF (limit 1e-11)")
+    if not rows[1][1] < rows[0][1] or rows[1][2] > 0.01:
+        fail(f"{what}: five iterations' RMSE {rows[1][1]} not below one's {rows[0][1]}, or "
+             f"{rows[1][2]:.2%} not finite")
+    del ukf, res, sm
+
+    # ---- (d) multi-output filters ------------------------------------------
+    kpar = np.array(THETA_GPQ)
+    what = f"bq_rest MO-GPQKF UNGM ({MC}x{ys_u.shape[-1]})"
+    mo = stt.MultiOutputGaussianProcessKalman(dyn_u, obs_u, kpar, kpar)
+    try:
+        mo.forward_pass_batch(ys_u[:7], engine="dd")
+    except ValueError as e:
+        reason = str(e).split(": ", 1)[-1]
+    else:
+        fail(f"{what}: engine='dd' ran a multi-output transform")
+    res = mo.forward_pass_batch(ys_u, engine="auto")
+    m_ms, ref = event_ms(torch, lambda: mo.forward_pass_batch(ys_u, engine="f64"))
+    if not all(torch.equal(getattr(res, f), getattr(ref, f)) for f in res.__dataclass_fields__):
+        fail(f"{what}: engine='auto' and engine='f64' differ")
+    g_ms, gpq = event_ms(torch, lambda: stt.GaussianProcessKalman(
+        dyn_u, obs_u, kpar, kpar).forward_pass_batch(ys_u, engine="f64"))
+    err1, err = (streams_err(torch, head(res, MC, n), gpq.__class__(
+        *(getattr(head(gpq, MC, n), f).cpu() for f in gpq.__dataclass_fields__)))
+        for n in (1, UNGM_PREFIX))
+    (r_mo, lost), (r_so, _) = rmse(xs_u, res), rmse(xs_u, gpq)
+    log(f"{what}: 'dd' refused: {reason}; 'auto' == 'f64' to the bit; vs the GPQKF: first "
+        f"step {err1:.2e} of each stream's largest entry (limit 1e-9), first {UNGM_PREFIX} "
+        f"steps {err:.2e} (reported: the UNGM map grows the weights' rounding), RMSE "
+        f"{r_mo:.6f} vs {r_so:.6f} (relative {abs(r_mo - r_so) / r_so:.2e}, limit 1e-6), not "
+        f"finite {lost:.2%}; MO-GPQKF {m_ms:.1f} ms, GPQKF {g_ms:.1f} ms (CUDA events)")
+    if not err1 <= 1e-9 or not abs(r_mo - r_so) / r_so < 1e-6:
+        fail(f"{what}: {err1:.3e} off the GPQKF at the first step, RMSE relative "
+             f"{abs(r_mo - r_so) / r_so:.3e}")
+    del res, ref, gpq
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    dyn_st = ssmod.UNGMTransition(StudentRV(1, dof=4.0, device=dev),
+                                  StudentRV(1, scale=10.0, dof=4.0, device=dev))
+    obs_st = ssmod.UNGMMeasurement(StudentRV(1, scale=0.01, dof=4.0, device=dev), dim_state=1)
+    x_st = dyn_st.simulate_discrete(gen, steps=CV_STEPS, mc_sims=MC)
+    xs_st, ys_st = x_st.permute(2, 0, 1), obs_st.simulate_measurements(gen, x_st).permute(2, 0, 1)
+    mo_lanes = (
+        ("Student UNGM", (dyn_st, obs_st, np.array([[1.0, 1.0]]), np.array([[1.0, 1.0]])),
+         {}, xs_st, ys_st, True),
+        ("CV glint", (dyn_cv, obs_cv, np.tile(PAR_DYN, (4, 1)), np.tile(PAR_OBS, (2, 1))),
+         {"point_par": {"kappa": 0.0}}, xs_cv, ys_cv, False))
+    for system, args, kw, x_true, ys, gated in mo_lanes:
+        what = f"bq_rest MO-TP Student filter {system} ({MC}x{ys.shape[-1]})"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        alg = stt.MultiOutputStudentProcessStudent(*args, dof=4.0, dof_tp=4.0,
+                                                   mc_opts={"num_samples": STUDENT_MC}, **kw)
+        torch.cuda.synchronize()
+        build_ms = (time.perf_counter() - t0) * 1e3
+        f_ms, res = event_ms(torch, lambda: alg.forward_pass_batch(ys))
+        r, lost = rmse(x_true, res) if bool(torch.isfinite(res.fi_mean).any()) else (
+            float("nan"), 1.0)
+        cpu = on_cpu(torch, alg).forward_pass_batch(ys[:B].cpu())
+        err = streams_err(torch, head(res), cpu)
+        log(f"{what}: weights built in {build_ms:.1f} ms ({STUDENT_MC} samples), filter "
+            f"{f_ms:.1f} ms (CUDA events); RMSE {r:.6f}, not finite {lost:.2%}; first {B} "
+            f"runs vs the CPU {err:.2e} of each stream's largest entry "
+            + ("(limits 1% and 1e-9)" if gated else
+               "(reported: every run diverges on the composed MO weights, PERF.md)"))
+        if gated and (lost > 0.01 or not err <= 1e-9):
+            fail(f"{what}: {lost:.2%} of the runs not finite (limit 1%), the card's streams "
+                 f"{err:.3e} off the CPU's (limit 1e-9)")
+        del res, cpu
+    torch.cuda.synchronize()
+    if counters() != before:
+        fail(f"the IPLF and MO lanes launched a kernel: counters {before} -> {counters()}")
+
+    # ---- (e) GP hyper-parameter optimization --------------------------------
+    gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+    x_obs = 20.0 * torch.rand(1, OPT_POINTS, generator=gen, **f64) - 10.0
+    y_obs = dyn_u.dyn_eval(x_obs.T, 0)                                    # (N, 1)
+    lp0 = np.log([10.0, 2.0])
+    out = {}
+    for device in (dev, "cpu"):
+        gp = GaussianProcessModel(1, [[1.0, 1.0]], "rbf", "ut", device=device)
+        jit = 1e-8 * torch.eye(OPT_POINTS, dtype=torch.float64, device=device)
+        nlml0 = float(gp.neg_log_marginal_likelihood(torch.as_tensor(lp0, device=device),
+                                                     y_obs.to(device), x_obs.to(device), jit))
+        t0 = time.perf_counter()
+        opt = gp.optimize(lp0, y_obs, x_obs)
+        out[str(device)] = (opt, nlml0, (time.perf_counter() - t0) * 1e3)
+    (opt, nlml0, o_ms), (opt_c, _, o_ms_c) = out[str(dev)], out["cpu"]
+    d_fun = abs(opt.fun - opt_c.fun) / abs(opt_c.fun)
+    d_x = float(np.abs(opt.x - opt_c.x).max())
+    log(f"bq_rest GP optimize (UNGM dynamics at {OPT_POINTS} points, BFGS): NLML {nlml0:.6f} "
+        f"-> {opt.fun:.9f} in {opt.nit} iterations ({o_ms:.0f} ms on the card, {o_ms_c:.0f} "
+        f"ms on the CPU, host clock; SciPy: {opt.message}); card vs CPU: the optimum's NLML "
+        f"{d_fun:.2e} relative (limit 1e-6), log parameters {opt.x.round(6).tolist()} vs "
+        f"{opt_c.x.round(6).tolist()}, {d_x:.2e} apart (reported: the Gram at the optimum "
+        "is near singular, PERF.md)")
+    if not (opt.fun < nlml0 and d_fun <= 1e-6):
+        fail(f"bq_rest GP optimize: NLML {nlml0} -> {opt.fun}, card vs CPU {d_fun:.3e}")
+    log(f"bq_rest phase: launches {launches}, {time.perf_counter() - t_phase:.1f} s in all; "
+        f"card: {card_line()}")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -2103,11 +2470,16 @@ def main():
     vf_first["max_abs_err"] = max(vf_first["max_abs_err"], zoo_err["vector_filter"])
     vf_main["max_abs_err"] = max(vf_main["max_abs_err"], zoo_err["vector_filter_shaped"])
     classical_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
+    rest = bq_rest_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re),
+                         glint)
+    vdm_entry["launches"] += rest["vandermonde"]
+    vf_first["launches"] += rest["vector_filter"]
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{
         "name": "scalar_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
-        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", "launches": launches + bsq_sf_launches,
+        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37",
+        "launches": launches + bsq_sf_launches + rest["scalar_filter"],
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}] + student + [vdm_entry, {
         "name": "vector_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/vector_filter.cu",

@@ -10,11 +10,14 @@ from . import bq, mtran, ops, points, ssinf, ssmod, utils
 from .ssinf import (BayesSardKalman, CubatureKalman, ExtendedKalman, ExtendedKalmanGPQD,
                     ExtendedStudent, FilterResult, FullySymmetricStudent, GaussHermiteKalman,
                     GaussianInference, GaussianProcessDerKalman, GaussianProcessKalman,
-                    GPQStudent, StateSpaceInference, StudentFilterResult, StudentianInference,
+                    GPQStudent, IteratedPosteriorLinearizationKalman,
+                    MultiOutputGaussianProcessKalman, MultiOutputStudentProcessStudent,
+                    StateSpaceInference, StudentFilterResult, StudentianInference,
                     StudentProcessKalman, StudentProcessStudent, TruncatedCubatureKalman,
                     TruncatedGaussHermiteKalman, TruncatedUnscentedKalman, UnscentedKalman,
                     gaussian_filter, gaussian_filter_batch, gaussian_smoother,
-                    studentian_filter, studentian_filter_batch, studentian_smoother)
+                    iterated_gaussian_filter, slr_affine, studentian_filter,
+                    studentian_filter_batch, studentian_smoother)
 from .utils.arrays import default_device, set_device
 
 __all__ = [
@@ -28,4 +31,6 @@ __all__ = [
     "StudentFilterResult", "StudentianInference", "FullySymmetricStudent", "GPQStudent",
     "StudentProcessStudent", "StudentProcessKalman", "ExtendedStudent", "studentian_filter",
     "studentian_filter_batch", "studentian_smoother",
+    "IteratedPosteriorLinearizationKalman", "iterated_gaussian_filter", "slr_affine",
+    "MultiOutputGaussianProcessKalman", "MultiOutputStudentProcessStudent",
 ]

@@ -173,8 +173,9 @@ class GaussianProcessDerModel(GaussianProcessModel):
                 f"{len(self.which_der) * x_obs.shape[0]} Jacobian entries; got {y.shape[0]}")
         return kx @ iK @ y, kxx - torch.einsum("im,mn,in->i", kx, iK, kx)
 
-    def bq_weights(self, par=None) -> BQWeights:
-        """The joint function-and-derivative BQ weights."""
+    def bq_weights(self, par=None, with_integral_var: bool = True) -> BQWeights:
+        """The joint function-and-derivative BQ weights;
+        ``with_integral_var=False`` skips the integral variance."""
         par = self.kernel.get_parameters(par)
         x, wd, k = self.points, self.which_der, self.kernel
         iK = k.eval_inv_dot(par, x, scaling=False, which_der=wd)
@@ -186,7 +187,8 @@ class GaussianProcessDerModel(GaussianProcessModel):
         R_t = torch.cat([R, k.exp_x_xdkx(par, x, which_der=wd)], dim=1)
         return BQWeights(wm=q_t @ iK, Wc=symmetrize(iK @ Q_t @ iK), Wcc=R_t @ iK,
                          model_var=k.exp_x_kxx(par) * (1.0 - torch.trace(Q_t @ iK)),
-                         integral_var=k.exp_xy_kxy(par) - q_t @ iK @ q_t,
+                         integral_var=(k.exp_xy_kxy(par) - q_t @ iK @ q_t
+                                       if with_integral_var else None),
                          q=q_t, Q=Q_t, iK=iK)
 
     def exp_model_variance(self, par=None, weights=None) -> torch.Tensor:

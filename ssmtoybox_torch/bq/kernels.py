@@ -1,10 +1,12 @@
 """BQ kernels and their expectations (counterpart of
-:mod:`ssmtoybox_tpu.bq.kernels`, RBF kernels).
+:mod:`ssmtoybox_tpu.bq.kernels`).
 
-Points ``x`` are (D, N) float64 tensors; ``par`` is the (1, D+1) parameter
-row ``[s, l_1..l_D]``.  :class:`RBFGauss` takes expectations w.r.t.
+Points ``x`` are (D, N) float64 tensors; ``par`` holds one parameter row per
+output, ``[s, l_1..l_D]`` for the RBF kernels and ``[s, alpha, l_1..l_D]``
+for :class:`RQ`.  :class:`RBFGauss` and :class:`RQ` take expectations w.r.t.
 ``N(0, I)`` in closed form; :class:`RBFStudent` w.r.t. the standard Student
-density ``St(0, I, dof)`` by Monte Carlo.
+density ``St(0, I, dof)`` by Monte Carlo.  Nothing here detaches: every
+expectation is differentiable in ``par`` by autograd.
 """
 from __future__ import annotations
 
@@ -12,9 +14,59 @@ import torch
 
 from ..utils import rand
 from ..utils.arrays import f64, resolve_device
-from ..utils.linalg import maha, pd_solve, symmetrize
+from ..utils.linalg import chol_small, maha, pd_solve, symmetrize
 
-__all__ = ["RBFGauss", "RBFStudent", "get_kernel"]
+__all__ = ["Kernel", "RBFGauss", "RBFStudent", "RQ", "get_kernel"]
+
+
+class Kernel:
+    """Kernel base: the parameter rows ``par`` (E, num_par), one per output,
+    and the Gram solves.  ``jitter`` stabilises the Gram's inverse."""
+
+    #: the parameter row's width beyond the D length-scales
+    num_extra = 1
+
+    def __init__(self, dim: int, par, jitter: float = 1e-8, device=None):
+        self.par = torch.atleast_2d(f64(par, resolve_device(device)))
+        if self.par.shape[-1] != dim + self.num_extra:
+            raise ValueError(f"{type(self).__name__} parameters must be {dim + self.num_extra} "
+                             f"wide for dimension {dim}; got shape {tuple(self.par.shape)}")
+        self.dim = dim
+        self.jitter = jitter
+
+    def get_parameters(self, par=None) -> torch.Tensor:
+        """The construction-time parameters, or ``par`` as (E, num_par)."""
+        return self.par if par is None else torch.atleast_2d(f64(par, self.par.device))
+
+    @property
+    def scale(self) -> torch.Tensor:
+        """Each output's kernel scale ``s``, (E,)."""
+        return self.par[:, 0]
+
+    def _jittered(self, par, x, scaling):
+        K = self.eval(par, x, scaling=scaling)
+        return K + self.jitter * torch.eye(x.shape[-1], dtype=K.dtype, device=K.device)
+
+    def eval_inv_dot(self, par, x, b=None, scaling=True):
+        """``(K + jitter I)^-1 b`` via Cholesky, symmetrized when ``b`` is
+        the identity."""
+        A = self._jittered(par, x, scaling)
+        if b is None:
+            return symmetrize(pd_solve(A, torch.eye(A.shape[-1], dtype=A.dtype,
+                                                    device=A.device)))
+        return pd_solve(A, b)
+
+    def eval_chol(self, par, x, scaling=True):
+        """Lower Cholesky factor of the jittered Gram, NaN where it fails (as
+        the JAX package's ``cholesky``)."""
+        return chol_small(self._jittered(par, x, scaling))
+
+    def exp_x_qRQ(self, par, x):
+        """``(q, R, Q)`` for the BQ weights."""
+        return self.exp_x_kx(par, x), self.exp_x_xkx(par, x), self.exp_x_kxkx(par, par, x)
+
+    def der_par(self, par_0, x):  # pragma: no cover - interface
+        raise NotImplementedError
 
 
 def _unpack_rbf(par):
@@ -23,20 +75,9 @@ def _unpack_rbf(par):
     return par[0], par[1:]
 
 
-class RBFGauss:
+class RBFGauss(Kernel):
     """RBF kernel ``k(x, x') = s^2 exp(-0.5 (x - x')^T Lam^-1 (x - x'))`` with
     ``Lam = diag(l^2)``."""
-
-    def __init__(self, dim: int, par, jitter: float = 1e-8, device=None):
-        self.par = torch.atleast_2d(f64(par, resolve_device(device)))
-        if self.par.shape[-1] != dim + 1:
-            raise ValueError(f"RBF parameters must be [s, l_1..l_{dim}]; got shape "
-                             f"{tuple(self.par.shape)}")
-        self.dim = dim
-        self.jitter = jitter
-
-    def get_parameters(self, par=None) -> torch.Tensor:
-        return self.par if par is None else torch.atleast_2d(f64(par, self.par.device))
 
     def eval(self, par, x1, x2=None, diag=False, scaling=True):
         """Gram of the columns of ``x1`` (..., D, N1) and ``x2`` (D, N2)."""
@@ -49,16 +90,6 @@ class RBFGauss:
             dx = s1 - s2
             return torch.exp(log_a2 - 0.5 * torch.sum(dx * dx, dim=-2))
         return torch.exp(log_a2 - 0.5 * maha(s1.mT, s2.mT))
-
-    def eval_inv_dot(self, par, x, b=None, scaling=True):
-        """``(K + jitter I)^-1 b`` via Cholesky, symmetrized when ``b`` is
-        the identity."""
-        K = self.eval(par, x, scaling=scaling)
-        eye = torch.eye(x.shape[-1], dtype=K.dtype, device=K.device)
-        A = K + self.jitter * eye
-        if b is None:
-            return symmetrize(pd_solve(A, eye))
-        return pd_solve(A, b)
 
     def exp_x_kx(self, par, x, scaling=False):
         """Kernel mean map ``E_x[k(x, x_i)]``."""
@@ -104,9 +135,17 @@ class RBFGauss:
         alpha, ell = _unpack_rbf(par)
         return alpha ** 2 * torch.prod(2.0 * ell ** -2 + 1.0) ** -0.5
 
-    def exp_x_qRQ(self, par, x):
-        """``(q, R, Q)`` for the BQ weights."""
-        return self.exp_x_kx(par, x), self.exp_x_xkx(par, x), self.exp_x_kxkx(par, par, x)
+    def der_par(self, par_0, x):
+        """dK/dpar stacked as (N, N, 1 + D): d/ds, then d/d(log l_d) for the
+        length-scales, as the JAX package and the reference return them (for
+        a log-parameterized optimizer).  Autograd of the NLML is the
+        preferred gradient."""
+        par_0 = par_0.reshape(-1)
+        alpha, ell = par_0[0], par_0[1:]
+        K = self.eval(par_0, x)
+        dx2 = (x[:, None, :] - x[:, :, None]) ** 2
+        d_el = dx2 * (ell ** -2)[:, None, None] * K[None]
+        return torch.cat([(2.0 * K / alpha)[..., None], d_el.movedim(0, -1)], dim=-1)
 
 
 #: elements of the largest intermediate a Monte-Carlo scan makes at once
@@ -278,11 +317,83 @@ class RBFStudent(RBFGauss):
                              per_sample=self.num_samples // nb)
 
 
-def get_kernel(dim: int, kernel: str, par, **kwargs) -> RBFGauss:
-    """String-keyed kernel factory: ``"rbf"`` or ``"rbf-student"``."""
+def _unpack_rq(par):
+    """``[s, alpha, l_1..l_D] -> (s, alpha, lengthscales)``."""
+    par = par.reshape(-1)
+    return par[0], par[1], par[2:]
+
+
+class RQ(Kernel):
+    """Rational-quadratic kernel
+    ``k(x, x') = s^2 (1 + (x - x')^T Lam^-1 (x - x') / (2 alpha))^-alpha``
+    with approximate Gaussian expectations; parameters ``[s, alpha, l_1..l_D]``.
+    """
+
+    num_extra = 2
+
+    def eval(self, par, x1, x2=None, diag=False, scaling=True):
+        """Gram of the columns of ``x1`` (..., D, N1) and ``x2`` (D, N2)."""
+        x2 = x1 if x2 is None else x2
+        s, alpha, ell = _unpack_rq(par)
+        s2_ = s ** 2 if scaling else 1.0
+        s1 = x1 / ell[:, None]
+        s2 = x2 / ell[:, None]
+        if diag:
+            dx = s1 - s2
+            return s2_ * (1.0 + torch.sum(dx * dx, dim=-2) / (2.0 * alpha)) ** (-alpha)
+        return s2_ * (1.0 + maha(s1.mT, s2.mT) / (2.0 * alpha)) ** (-alpha)
+
+    def exp_x_kx(self, par, x, scaling=False):
+        s, alpha, ell = _unpack_rq(par)
+        s2 = s ** 2 if scaling else 1.0
+        lam = ell ** 2
+        c = s2 * torch.prod(1.0 / lam + 1.0) ** -0.5
+        xl = x / (lam + 1.0)[:, None]
+        return c * (1.0 + torch.sum(x * xl, dim=0) / (2.0 * alpha)) ** (-alpha)
+
+    def exp_x_xkx(self, par, x):
+        _, _, ell = _unpack_rq(par)
+        mu_q = x / (ell ** 2 + 1.0)[:, None]
+        return self.exp_x_kx(par, x)[None, :] * mu_q
+
+    def exp_x_kxkx(self, par_0, par_1, x, scaling=False):
+        """``E_x[k(x, x_i) k(x, x_j)]`` with the JAX package's sign fix: the
+        completed square enters NEGATIVELY, ``n = xi_i + xi_j - z^T R^-1 z``
+        (the reference adds it and misses the alpha -> inf RBF limit)."""
+        s, alpha, ell = _unpack_rq(par_0)
+        s_1, _, ell_1 = _unpack_rq(par_1)
+        scale = s ** 2 * s_1 ** 2 if scaling else 1.0
+        inv_lam = ell ** -2
+        inv_lam_1 = ell_1 ** -2
+        xi = x / ell[:, None]
+        xi = torch.sum(xi * xi, dim=0)
+        xi_1 = x / ell_1[:, None]
+        xi_1 = torch.sum(xi_1 * xi_1, dim=0)
+        x_0 = inv_lam[:, None] * x
+        x_1 = inv_lam_1[:, None] * x
+        r = inv_lam + inv_lam_1 + 1.0
+        n = (xi[:, None] + xi_1[None, :]) - maha(x_0.T, -x_1.T, V=torch.diag(1.0 / r))
+        return scale * torch.prod(r) ** -0.5 * (1.0 + n / (2.0 * alpha)) ** (-alpha)
+
+    def exp_x_kxx(self, par):
+        return par.reshape(-1)[0] ** 2
+
+    def exp_xy_kxy(self, par):
+        s, _, ell = _unpack_rq(par)
+        return s ** 2 * torch.prod(2.0 * ell ** -2 + 1.0) ** -0.5
+
+    def der_par(self, par_0, x):
+        raise NotImplementedError("RQ.der_par is not implemented, as in the JAX package "
+                                  "and the reference")
+
+
+def get_kernel(dim: int, kernel: str, par, **kwargs) -> Kernel:
+    """String-keyed kernel factory: ``"rbf"``, ``"rbf-student"`` or ``"rq"``."""
     kernel = kernel.lower()
     if kernel == "rbf":
         return RBFGauss(dim, par, **kwargs)
     if kernel == "rbf-student":
         return RBFStudent(dim, par, **kwargs)
-    raise ValueError(f"Kernel '{kernel}' not supported. Supported: rbf, rbf-student.")
+    if kernel == "rq":
+        return RQ(dim, par, **kwargs)
+    raise ValueError(f"Kernel '{kernel}' not supported. Supported: rbf, rbf-student, rq.")

@@ -1,14 +1,17 @@
-"""BQ integrand models (counterpart of :mod:`ssmtoybox_tpu.bq.models`:
-the Gaussian-process, Bayes-Sard and Student-t-process models).
+"""BQ integrand models (counterpart of :mod:`ssmtoybox_tpu.bq.models`): the
+Gaussian-process, Bayes-Sard, Student-t-process and multi-output models.
 
 A model ties a kernel to a unit point set and produces the Bayesian-quadrature
 weights ``wm = q K^-1``, ``Wc = K^-1 Q K^-1``, ``Wcc = R K^-1`` plus the
 expected model variance and the integral variance.  Monte-Carlo kernels
-(:class:`~ssmtoybox_torch.bq.kernels.RBFStudent`) accumulate the weights in
-weight space instead (``projected_weight_stats``).
+(:class:`~ssmtoybox_torch.bq.kernels.RBFStudent`) accumulate the single-output
+weights in weight space instead (``projected_weight_stats``).  The negative
+log marginal likelihoods are plain tensor functions, so autograd gives their
+gradients; :meth:`Model.optimize` drives them with SciPy's BFGS.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 from math import factorial
 
@@ -18,29 +21,44 @@ import torch
 from ..points import get_points
 from ..utils.arrays import f64, resolve_device
 from ..utils.combin import total_degree_multi_index, vandermonde
-from ..utils.linalg import gen_solve, pd_solve, symmetrize
+from ..utils.linalg import chol_small, gen_solve, pd_solve, symmetrize
 from .kernels import get_kernel
 
-__all__ = ["BQWeights", "GaussianProcessModel", "BayesSardModel", "StudentTProcessModel",
-           "tp_scale"]
+__all__ = ["BQWeights", "Model", "GaussianProcessModel", "BayesSardModel",
+           "StudentTProcessModel", "tp_scale", "MOWeights", "mo_gp_emv", "mo_tp_emv",
+           "MultiOutputModel", "GaussianProcessMO", "StudentTProcessMO"]
 
 
 @dataclass(frozen=True)
 class BQWeights:
-    """Everything ``bq_weights`` produces."""
+    """Everything ``bq_weights`` produces; ``integral_var`` is None when it
+    was not asked for."""
 
     wm: torch.Tensor
     Wc: torch.Tensor
     Wcc: torch.Tensor
     model_var: torch.Tensor
-    integral_var: torch.Tensor
+    integral_var: torch.Tensor | None
     q: torch.Tensor
     Q: torch.Tensor
     iK: torch.Tensor
 
 
-class GaussianProcessModel:
-    """GP regression model of the integrand."""
+def _host(t) -> np.ndarray:
+    return np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+
+
+def _gp_nlml_terms(kernel, log_par, fcn_obs, x_obs, jitter):
+    """The Cholesky factor's log-diagonal sum and ``a = K^-1 y`` of the
+    jittered Gram at ``exp(log_par)``, for the NLMLs."""
+    K = kernel.eval(torch.exp(log_par), x_obs) + jitter
+    L = chol_small(K)
+    a = torch.cholesky_solve(fcn_obs.reshape(L.shape[-1], -1), L).reshape(fcn_obs.shape)
+    return torch.sum(torch.log(torch.diagonal(L))), a
+
+
+class Model:
+    """Integrand model base: a kernel and a unit point set."""
 
     def __init__(self, dim: int, kern_par, kern_str: str = "rbf", point_str: str = "ut",
                  point_par=None, device=None, **kern_kwargs):
@@ -51,9 +69,63 @@ class GaussianProcessModel:
         self.num_pts = self.points.shape[1]
         self.str_pts = point_str
 
-    def bq_weights(self, par=None) -> BQWeights:
+    def predict(self, test_data, fcn_obs, x_obs=None, par=None):  # pragma: no cover
+        raise NotImplementedError
+
+    def neg_log_marginal_likelihood(self, log_par, fcn_obs, x_obs, jitter):  # pragma: no cover
+        raise NotImplementedError
+
+    def plot_model(self, test_data, fcn_obs, par=None, fcn_true=None, in_dim=0):
+        """Plot of the model's predictive mean and two standard deviations
+        over ``test_data`` with the observations at the points; the figure is
+        returned, never shown.  matplotlib is imported here, on first use."""
+        import matplotlib
+        matplotlib.use("Agg", force=False)
+        import matplotlib.pyplot as plt
+
+        fcn_obs = np.squeeze(_host(fcn_obs))
+        mean, var = self.predict(test_data, fcn_obs, par=par)
+        mean, std = _host(mean), np.sqrt(_host(var))
+        xplot = np.squeeze(_host(test_data)[in_dim, :])
+        fig, ax = plt.subplots()
+        ax.fill_between(xplot, mean - 2 * std, mean + 2 * std, color="0.1", alpha=0.15)
+        ax.plot(xplot, mean, color="k", lw=2)
+        ax.plot(_host(self.points)[in_dim, :], fcn_obs, "ko", ms=8)
+        if fcn_true is not None:
+            ax.plot(xplot, np.squeeze(_host(fcn_true)), lw=2, ls="--", color="tomato")
+        ax.set_title(f"{type(self).__name__} model of the integrand")
+        return fig
+
+    def optimize(self, log_par_0, fcn_obs, x_obs, method="BFGS", **kwargs):
+        """Minimize the NLML over the log-parameters: SciPy's ``minimize``
+        (BFGS by default) on the value and autograd gradient of
+        :meth:`neg_log_marginal_likelihood`, evaluated on the model's device
+        with ``1e-8 I`` jitter.  Returns SciPy's ``OptimizeResult``."""
+        from scipy.optimize import minimize
+
+        dev = self.points.device
+        x_obs = f64(x_obs, dev)
+        fcn_obs = f64(fcn_obs, dev)
+        jitter = 1e-8 * torch.eye(x_obs.shape[1], dtype=torch.float64, device=dev)
+
+        def obj(lp):
+            lp = torch.tensor(lp, dtype=torch.float64, device=dev, requires_grad=True)
+            v = self.neg_log_marginal_likelihood(lp, fcn_obs, x_obs, jitter)
+            (g,) = torch.autograd.grad(v, lp)
+            return float(v.detach()), g.cpu().numpy().astype(float)
+
+        return minimize(obj, np.asarray(log_par_0, dtype=float).reshape(-1), method=method,
+                        jac=True, **kwargs)
+
+
+class GaussianProcessModel(Model):
+    """GP regression model of the integrand."""
+
+    def bq_weights(self, par=None, with_integral_var: bool = True) -> BQWeights:
         """The BQ weight formulas, with the kernel's ``scaling=False`` Gram;
-        through ``projected_weight_stats`` where the kernel has it."""
+        through ``projected_weight_stats`` where the kernel has it.
+        ``with_integral_var=False`` skips the integral variance (for an
+        ``RBFStudent``, one ``E[k(x, y)]`` sweep)."""
         par = self.kernel.get_parameters(par)
         x = self.points
         iK = self.kernel.eval_inv_dot(par, x, scaling=False)
@@ -61,19 +133,40 @@ class GaussianProcessModel:
             q, wm, Wc, Wcc, tr_QiK, Q = self.kernel.projected_weight_stats(par, x, iK)
             return BQWeights(wm=wm, Wc=symmetrize(Wc), Wcc=Wcc,
                              model_var=self.kernel.exp_x_kxx(par) * (1.0 - tr_QiK),
-                             integral_var=self.kernel.exp_xy_kxy(par) - q @ wm,
+                             integral_var=(self.kernel.exp_xy_kxy(par) - q @ wm
+                                           if with_integral_var else None),
                              q=q, Q=Q, iK=iK)
         q, R, Q = self.kernel.exp_x_qRQ(par, x)
         model_var = self.kernel.exp_x_kxx(par) * (1.0 - torch.trace(Q @ iK))
-        integral_var = self.kernel.exp_xy_kxy(par) - q @ iK @ q
+        integral_var = (self.kernel.exp_xy_kxy(par) - q @ iK @ q
+                        if with_integral_var else None)
         return BQWeights(wm=q @ iK, Wc=symmetrize(iK @ Q @ iK), Wcc=R @ iK,
                          model_var=model_var, integral_var=integral_var,
                          q=q, Q=Q, iK=iK)
 
-    def exp_model_variance(self, par=None) -> torch.Tensor:
+    def predict(self, test_data, fcn_obs, x_obs=None, par=None):
+        """GP predictive mean and variance at the columns of ``test_data``
+        (D, M) given ``fcn_obs`` at ``x_obs`` (D, N, default the points);
+        scaled Gram."""
+        dev = self.points.device
+        x_obs = self.points if x_obs is None else f64(x_obs, dev)
+        test_data = f64(test_data, dev)
+        par = self.kernel.get_parameters(par)
+        iK = self.kernel.eval_inv_dot(par, x_obs)
+        kx = self.kernel.eval(par, test_data, x_obs)
+        kxx = self.kernel.eval(par, test_data, test_data, diag=True)
+        fo = torch.atleast_2d(f64(fcn_obs, dev)).mT
+        mean = torch.squeeze(kx @ iK @ fo.reshape(x_obs.shape[1], -1))
+        var = torch.squeeze(kxx - torch.einsum("im,mn,in->i", kx, iK, kx))
+        return mean, var
+
+    def exp_model_variance(self, par=None, weights: BQWeights | None = None) -> torch.Tensor:
         """``s^2 (1 - tr(Q K^-1))``; the Gram here is scaled, as in the JAX
         package and the reference.  Monte-Carlo kernels accumulate
-        ``tr(Q K^-1)`` in projected form."""
+        ``tr(Q K^-1)`` in projected form.  ``weights`` (a :meth:`bq_weights`
+        result) short-cuts the computation to its ``model_var``."""
+        if weights is not None:
+            return weights.model_var
         par = self.kernel.get_parameters(par)
         iK = self.kernel.eval_inv_dot(par, self.points)
         if hasattr(self.kernel, "projected_weight_stats"):
@@ -82,8 +175,11 @@ class GaussianProcessModel:
         _, _, Q = self.kernel.exp_x_qRQ(par, self.points)
         return self.kernel.exp_x_kxx(par) * (1.0 - torch.trace(Q @ iK))
 
-    def integral_variance(self, par=None) -> torch.Tensor:
-        """``E[k(x, y)] - q^T K^-1 q`` with the unscaled Gram."""
+    def integral_variance(self, par=None, weights: BQWeights | None = None) -> torch.Tensor:
+        """``E[k(x, y)] - q^T K^-1 q`` with the unscaled Gram; ``weights``
+        short-cuts it to their ``integral_var``."""
+        if weights is not None:
+            return weights.integral_var
         par = self.kernel.get_parameters(par)
         iK = self.kernel.eval_inv_dot(par, self.points, scaling=False)
         if hasattr(self.kernel, "projected_weight_stats"):
@@ -91,6 +187,15 @@ class GaussianProcessModel:
             return self.kernel.exp_xy_kxy(par) - q @ wm
         q, _, _ = self.kernel.exp_x_qRQ(par, self.points)
         return self.kernel.exp_xy_kxy(par) - q @ iK @ q
+
+    def neg_log_marginal_likelihood(self, log_par, fcn_obs, x_obs, jitter):
+        """The GP NLML summed over the outputs, ``fcn_obs`` (N, E), at
+        ``exp(log_par)``, the Gram plus ``jitter`` (a matrix)."""
+        num_data, num_out = fcn_obs.shape
+        half_logdet, a = _gp_nlml_terms(self.kernel, log_par, fcn_obs, x_obs, jitter)
+        y_dot_a = torch.sum(fcn_obs * a)
+        return (num_out * half_logdet
+                + 0.5 * (y_dot_a + num_out * num_data * math.log(2.0 * math.pi)))
 
 
 # ---------------------------------------------------------------------------
@@ -214,10 +319,11 @@ class BayesSardModel(GaussianProcessModel):
     def _const(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float64, device=self.points.device)
 
-    def bq_weights(self, par=None, multi_ind=None) -> BQWeights:
+    def bq_weights(self, par=None, multi_ind=None, with_integral_var: bool = True) -> BQWeights:
         """BSQ weights, unisolvent and general branches.  ``V^T K^-1 V`` gets
         ``1e-8 I`` here (and not in :meth:`exp_model_variance` or
-        :meth:`integral_variance`), as in the JAX package."""
+        :meth:`integral_variance`), as in the JAX package.
+        ``with_integral_var=False`` skips the integral variance."""
         par = self.kernel.get_parameters(par)
         x = self.points
         mi = self._mi(multi_ind)
@@ -235,7 +341,7 @@ class BayesSardModel(GaussianProcessModel):
         px, xpx, pxpx = (self._const(f(mi)) for f in (_exp_x_px, _exp_x_xpx, _exp_x_pxpx))
         kxpx = _exp_x_kxpx(self._ell(par), mi, x)
         q = self.kernel.exp_x_kx(par, x)
-        kxy = self.kernel.exp_xy_kxy(par)
+        kxy = self.kernel.exp_xy_kxy(par) if with_integral_var else None
         kscale2 = par.reshape(-1)[0] ** 2
         Q = self.kernel.exp_x_kxkx(par, par, x)
         if num_basis == self.num_pts:
@@ -245,7 +351,8 @@ class BayesSardModel(GaussianProcessModel):
             w_cc = xpx @ iV
             model_var = kscale2 * (1.0 - torch.trace(kxpx.T @ iV.T + kxpx @ iV
                                                      - pxpx @ iViKV))
-            integral_var = kxy - q @ iV.T @ px - px @ iV @ q + px @ iViKV @ px
+            integral_var = (kxy - q @ iV.T @ px - px @ iV @ q + px @ iViKV @ px
+                            if with_integral_var else None)
         else:
             R = self.kernel.exp_x_xkx(par, x)
             Z = V.T @ iK
@@ -257,7 +364,7 @@ class BayesSardModel(GaussianProcessModel):
             w_c = iK @ (Q - A @ B @ A.T) @ iK
             w_cc = (R - D @ A.T) @ iK
             model_var = kscale2 * (1.0 - torch.trace(Q @ iK) + torch.trace(B @ iViKV))
-            integral_var = kxy - q @ iK @ q + b @ iViKV @ b
+            integral_var = kxy - q @ iK @ q + b @ iViKV @ b if with_integral_var else None
         return BQWeights(wm=w_m, Wc=symmetrize(w_c), Wcc=w_cc, model_var=model_var,
                          integral_var=integral_var, q=q, Q=Q, iK=iK)
 
@@ -358,6 +465,10 @@ def tp_scale(nu: float, iK: torch.Tensor, fcn_evals: torch.Tensor) -> torch.Tens
     return (nu - 2.0 + fe @ iK @ fe.mT) / (nu - 2.0 + iK.shape[-1])
 
 
+def _gammaln(v: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.special.gammaln(torch.tensor(v, dtype=torch.float64, device=like.device))
+
+
 class StudentTProcessModel(GaussianProcessModel):
     """Student-t-process model of the integrand: the GP weights, with the
     model and integral variances rescaled by :func:`tp_scale`; ``nu < 2``
@@ -368,6 +479,17 @@ class StudentTProcessModel(GaussianProcessModel):
         super().__init__(dim, kern_par, kern_str, point_str, point_par, device=device,
                          **kern_kwargs)
         self.nu = 3.0 if nu < 2.0 else float(nu)
+
+    def predict(self, test_data, fcn_obs, x_obs=None, par=None, nu=None):
+        """The GP prediction, its variance rescaled by
+        ``(nu - 2 + f K^-1 f) / (nu - 2 + N)`` (scaled Gram)."""
+        nu = self.nu if nu is None else nu
+        par = self.kernel.get_parameters(par)
+        mean, var = super().predict(test_data, fcn_obs, x_obs, par)
+        x_obs = self.points if x_obs is None else f64(x_obs, self.points.device)
+        iK = self.kernel.eval_inv_dot(par, x_obs)
+        fo = f64(fcn_obs, self.points.device).reshape(-1)
+        return mean, (nu - 2.0 + fo @ iK @ fo) / (nu - 2.0 + self.num_pts) * var
 
     def tp_scale(self, iK, fcn_evals) -> torch.Tensor:
         return tp_scale(self.nu, iK, fcn_evals)
@@ -393,3 +515,166 @@ class StudentTProcessModel(GaussianProcessModel):
             gp_ivar = super().integral_variance(par)
         fo = f64(fcn_obs, self.points.device).reshape(-1)
         return (self.nu - 2.0 + fo @ iK @ fo) / (self.nu - 2.0 + self.num_pts) * gp_ivar
+
+    def neg_log_marginal_likelihood(self, log_par, fcn_obs, x_obs, jitter):
+        """The TP NLML of ``fcn_obs`` (N, E): ``log1p(y K^-1 y / (nu - 2))``
+        per output and ``-gammaln((nu + N) / 2) + gammaln(nu / 2)``, as in
+        the JAX package (the multi-output model's term differs on purpose)."""
+        num_data, num_out = fcn_obs.shape
+        nu = self.nu
+        half_logdet, a = _gp_nlml_terms(self.kernel, log_par, fcn_obs, x_obs, jitter)
+        y_dot_a = torch.sum(fcn_obs * a, dim=0)                          # (E,)
+        const = (0.5 * num_data * math.log((nu - 2.0) * math.pi)
+                 - _gammaln((nu + num_data) / 2.0, a) + _gammaln(nu / 2.0, a))
+        log_sum = 0.5 * (nu + num_data) * torch.sum(torch.log1p(y_dot_a / (nu - 2.0)))
+        return log_sum + num_out * (half_logdet + const)
+
+
+# ---------------------------------------------------------------------------
+# Multi-output models (EXPERIMENTAL in the reference)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MOWeights:
+    """Multi-output BQ weights: ``wm`` (N, E), ``Wc`` (N, N, E, E), ``Wcc``
+    (D, N, E), ``q`` (N, E), ``Q`` (N, N, E, E), ``R`` (D, N, E) and ``iK``
+    (N, N, E)."""
+
+    wm: torch.Tensor
+    Wc: torch.Tensor
+    Wcc: torch.Tensor
+    q: torch.Tensor
+    Q: torch.Tensor
+    R: torch.Tensor
+    iK: torch.Tensor
+
+
+def mo_gp_emv(scale, Q, iK) -> torch.Tensor:
+    """Per-output MO-GP expected model variance ``s_e^2 (1 - tr(Q_ee iK_e))``,
+    (E,)."""
+    return scale ** 2 * (1.0 - torch.einsum("nmee,mne->e", Q, iK))
+
+
+def mo_tp_emv(scale, nu: float, num_pts: int, Q, iK, fcn_obs) -> torch.Tensor:
+    """Per-output MO-TP expected model variance: the GP one rescaled by the
+    data-dependent Student factor of ``fcn_obs`` (..., E, N); (..., E)."""
+    fe = torch.atleast_2d(fcn_obs)
+    quad = torch.einsum("...en,nme,...em->...e", fe, iK, fe)
+    s = (nu - 2.0 + quad) / (nu - 2.0 + num_pts)
+    return scale ** 2 * s * (1.0 - torch.einsum("nmee,mne->e", Q, iK))
+
+
+class MultiOutputModel(Model):
+    """One kernel-parameter row per output.
+
+    ``compat_mirror_wc=True`` (default) keeps the reference's fill of the
+    upper output triangle of ``Wc`` by the lower one WITHOUT transposing the
+    point axes, before the final symmetrization, as the JAX package does;
+    ``False`` computes every block ``iK_e Q_ef iK_f``.
+    """
+
+    def __init__(self, dim_in: int, dim_out: int, kern_par, kern_str: str = "rbf",
+                 point_str: str = "ut", point_par=None, compat_mirror_wc: bool = True,
+                 device=None, **kern_kwargs):
+        super().__init__(dim_in, kern_par, kern_str, point_str, point_par, device=device,
+                         **kern_kwargs)
+        self.dim_out = int(dim_out)
+        self.compat_mirror_wc = bool(compat_mirror_wc)
+
+    def bq_weights(self, par=None) -> MOWeights:
+        """The tensor-valued weights ``Wc[..., e, f] = iK_e Q_ef iK_f``,
+        symmetrized across the point and output axes.  Only the lower-triangle
+        blocks of ``Q`` are computed; the upper ones are their point-axis
+        transposes (``Q[e, f][i, j] = E[k_e(x, x_i) k_f(x, x_j)]``), which for
+        an ``rbf-student`` kernel saves a Monte-Carlo sweep a block."""
+        par = self.kernel.get_parameters(par)
+        x = self.points
+        k = self.kernel
+        q = torch.stack([k.exp_x_kx(p, x) for p in par])                     # (E, N)
+        R = torch.stack([k.exp_x_xkx(p, x) for p in par])                    # (E, D, N)
+        iK = torch.stack([k.eval_inv_dot(p, x, scaling=False) for p in par])  # (E, N, N)
+        il, jl = np.tril_indices(self.dim_out)
+        Q_low = torch.stack([k.exp_x_kxkx(par[i], par[j], x) for i, j in zip(il, jl)])
+        n = x.shape[-1]
+        Q = Q_low.new_zeros((self.dim_out, self.dim_out, n, n))
+        Q[il, jl] = Q_low
+        Q[jl, il] = Q_low.mT                                                 # (E, E, N, N)
+        w_m = torch.einsum("en,enm->me", q, iK)
+        w_c = torch.einsum("eni,efij,fjm->nmef", iK, Q, iK)
+        if self.compat_mirror_wc:
+            e = torch.arange(self.dim_out, device=x.device)
+            w_c = torch.where((e[:, None] >= e[None, :])[None, None], w_c, w_c.transpose(2, 3))
+        w_c = 0.5 * (w_c + w_c.transpose(0, 1).transpose(2, 3))
+        w_cc = torch.einsum("edi,ein->dne", R, iK)
+        return MOWeights(wm=w_m, Wc=w_c, Wcc=w_cc, q=q.movedim(0, -1),
+                         Q=Q.movedim((0, 1), (-2, -1)), R=R.movedim(0, -1),
+                         iK=iK.movedim(0, -1))
+
+    def optimize(self, log_par_0, fcn_obs, x_obs, method="BFGS", **kwargs):
+        """:meth:`Model.optimize` of each output's NLML term on its own row
+        of ``log_par_0`` and ``fcn_obs`` (E, N); returns the (E, num_par)
+        optimum and the SciPy results."""
+        log_par_0 = np.atleast_2d(np.asarray(log_par_0, dtype=float))
+        fcn_obs = f64(fcn_obs, self.points.device)
+        results = [super(MultiOutputModel, self).optimize(log_par_0[d], fcn_obs[d, :, None],
+                                                          x_obs, method=method, **kwargs)
+                   for d in range(self.dim_out)]
+        return np.vstack([r.x for r in results]), results
+
+    def predict(self, *args, **kwargs):
+        raise NotImplementedError("multi-output predict is not implemented, as in the JAX "
+                                  "package and the reference")
+
+
+class GaussianProcessMO(MultiOutputModel):
+    """Multi-output GP model."""
+
+    def exp_model_variance(self, weights: MOWeights, fcn_obs=None) -> torch.Tensor:
+        """Per-output EMV, (E,)."""
+        return mo_gp_emv(self.kernel.scale, weights.Q, weights.iK)
+
+    def integral_variance(self, fcn_obs=None, par=None) -> torch.Tensor:
+        """Per-output integral variance, (E,)."""
+        par = self.kernel.get_parameters(par)
+        x, k = self.points, self.kernel
+        out = []
+        for p in par:
+            q = k.exp_x_kx(p, x)
+            out.append(k.exp_xy_kxy(p) - q @ k.eval_inv_dot(p, x, scaling=False) @ q)
+        return torch.stack(out)
+
+    def neg_log_marginal_likelihood(self, log_par, fcn_obs, x_obs, jitter):
+        """One output's NLML term, ``fcn_obs`` (N,) or (N, 1)."""
+        half_logdet, a = _gp_nlml_terms(self.kernel, log_par, fcn_obs, x_obs, jitter)
+        return half_logdet + 0.5 * (torch.sum(fcn_obs * a)
+                                    + x_obs.shape[1] * math.log(2.0 * math.pi))
+
+
+class StudentTProcessMO(MultiOutputModel):
+    """Multi-output Student-t process model (``nu`` default 3, kept as given)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kern_par, kern_str: str = "rbf",
+                 point_str: str = "ut", point_par=None, nu: float = 3.0, device=None,
+                 **kern_kwargs):
+        super().__init__(dim_in, dim_out, kern_par, kern_str, point_str, point_par,
+                         device=device, **kern_kwargs)
+        self.nu = float(nu)
+
+    def exp_model_variance(self, weights: MOWeights, fcn_obs) -> torch.Tensor:
+        """Data-scaled per-output EMV of ``fcn_obs`` (..., E, N), (..., E)."""
+        return mo_tp_emv(self.kernel.scale, self.nu, self.num_pts, weights.Q, weights.iK,
+                         f64(fcn_obs, self.points.device))
+
+    def integral_variance(self, fcn_obs=None, par=None):
+        """None: unimplemented, as in the JAX package and the reference."""
+        return None
+
+    def neg_log_marginal_likelihood(self, log_par, fcn_obs, x_obs, jitter):
+        """One output's Student NLML term: ``log1p(y K^-1 y)`` and
+        ``+gammaln(nu / 2 + N) - gammaln(nu / 2)``, as in the JAX package
+        (not the single-output model's term)."""
+        num_data, nu = x_obs.shape[1], self.nu
+        half_logdet, a = _gp_nlml_terms(self.kernel, log_par, fcn_obs, x_obs, jitter)
+        const = (0.5 * num_data * math.log((nu - 2.0) * math.pi)
+                 + _gammaln(0.5 * nu + num_data, a) - _gammaln(0.5 * nu, a))
+        return 0.5 * (nu + num_data) * torch.log1p(torch.sum(fcn_obs * a)) + half_logdet + const

@@ -1,12 +1,16 @@
 """Bayesian-quadrature moment transforms (counterpart of
-:mod:`ssmtoybox_tpu.bq.transforms`: GP and Student-t-process quadrature).
+:mod:`ssmtoybox_tpu.bq.transforms`: GP, Bayes-Sard and Student-t-process
+quadrature, single- and multi-output).
 
 A BQ transform is a sigma-point transform whose weights come from a GP model
 of the integrand.  Its covariance is the UNCENTERED quadrature
 ``fx Wc fx^T - mu mu^T`` inflated by the expected model variance, and its
 cross-covariance is ``fx Wcc^T L^T`` — not the centered classical formulas.
 Weights depend only on the kernel parameters and the unit points, so they are
-computed once, at construction, in float64.  Batch convention as in
+computed once, at construction, in float64.  ``apply(..., kern_par=...)``
+derives them from other kernel parameters for that call instead, and
+:meth:`BQTransform.with_kern_par` once for many calls (the filters' per-call
+``theta``); both stay differentiable in ``kern_par``.  Batch convention as in
 :mod:`ssmtoybox_torch.mtran`.
 """
 from __future__ import annotations
@@ -19,10 +23,22 @@ import torch
 from ..mtran import MomentTransform, apply_f_columns
 from ..utils.arrays import f64, resolve_device
 from ..utils.linalg import chol_small
-from .models import BayesSardModel, GaussianProcessModel, StudentTProcessModel, tp_scale
+from .models import (BayesSardModel, GaussianProcessModel, GaussianProcessMO,
+                     StudentTProcessModel, StudentTProcessMO, mo_gp_emv, mo_tp_emv, tp_scale)
 
 __all__ = ["BQTransform", "GaussianProcessTransform", "BayesSardTransform",
-           "StudentTProcessTransform"]
+           "StudentTProcessTransform", "MultiOutputBQTransform",
+           "MultiOutputGaussianProcessTransform", "MultiOutputStudentTProcessTransform"]
+
+
+def _model_of(tf):
+    """The transform's model, ``ValueError`` for one built from weights."""
+    model = getattr(tf, "model", None)
+    if model is None:
+        raise ValueError(f"this {type(tf).__name__} was built from precomputed weights and "
+                         "has no model to derive weights from kern_par; build it from its "
+                         "kernel parameters instead")
+    return model
 
 
 class BQTransform(MomentTransform):
@@ -68,7 +84,35 @@ class BQTransform(MomentTransform):
     def device(self) -> torch.device:
         return self.points.device
 
-    def apply(self, f, mean, cov, time):
+    def weights(self, par, *args):
+        """``(wm, Wc, Wcc)`` derived from kernel parameters ``par``."""
+        w = _model_of(self).bq_weights(par, *args)
+        return w.wm, w.Wc, w.Wcc
+
+    def _weight_bundle(self, kern_par):
+        """``(wm, Wc, Wcc, model_var, iK)``: the stored weights, or those of
+        ``kern_par`` (no integral variance)."""
+        if kern_par is None:
+            return self.wm, self.Wc, self.Wcc, self.model_var, self.iK
+        w = _model_of(self).bq_weights(kern_par, with_integral_var=False)
+        return w.wm, w.Wc, w.Wcc, w.model_var, w.iK
+
+    def with_kern_par(self, kern_par) -> "BQTransform":
+        """A copy that applies with the weights of ``kern_par``, derived once
+        (``self`` for None).  Differentiable in ``kern_par``; the copy shares
+        the model and the points."""
+        if kern_par is None:
+            return self
+        tf = copy.copy(self)
+        tf.wm, tf.Wc, tf.Wcc, tf.model_var, tf.iK = self._weight_bundle(kern_par)
+        tf.integral_var = None
+        tf._emv = tf.model_var * torch.eye(self.dim_out, dtype=torch.float64,
+                                           device=self.points.device)
+        return tf
+
+    def apply(self, f, mean, cov, time, kern_par=None):
+        if kern_par is not None:
+            return self.with_kern_par(kern_par).apply(f, mean, cov, time)
         L = chol_small(cov)
         fx = self._fcn_eval(f, mean[..., None] + L @ self.points, time)     # (M, E, N)
         mean_f = fx @ self.wm
@@ -121,8 +165,8 @@ class BayesSardTransform(BQTransform):
                      integral_var=None, compat_kxpx_ell_squared: bool = True,
                      device=None) -> "BayesSardTransform":
         """The transform from precomputed weights (e.g. the JAX transform's
-        arrays), without a model: ``mulind`` and the compat flag are kept as
-        attributes for reference."""
+        arrays), without a model (so ``kern_par`` raises): ``mulind`` and the
+        compat flag are kept as attributes for reference."""
         tf = cls.__new__(cls)
         BQTransform.__init__(tf, points, wm, Wc, Wcc, model_var, dim_out=dim_out, iK=iK,
                              integral_var=integral_var, device=device)
@@ -171,3 +215,113 @@ class StudentTProcessTransform(BQTransform):
         scale = tp_scale(self.nu, self.iK, fx)                          # (M, E, E)
         return scale * self.model_var * torch.eye(self.dim_out, dtype=fx.dtype,
                                                   device=fx.device)
+
+
+# ---------------------------------------------------------------------------
+# Multi-output transforms (EXPERIMENTAL in the reference)
+# ---------------------------------------------------------------------------
+
+class MultiOutputBQTransform(MomentTransform):
+    """Multi-output BQ transform: one kernel-parameter row per output, weight
+    tensors ``wm`` (N, E), ``Wc`` (N, N, E, E), ``Wcc`` (D, N, E), with ``Q``
+    (N, N, E, E) and ``iK`` (N, N, E) for the per-output expected model
+    variance, which is added to every row of the covariance (NumPy's
+    broadcast of ``tcov - outer + emv``, as in the JAX package).  A
+    :class:`~ssmtoybox_torch.mtran.MomentTransform`, not a
+    :class:`BQTransform`.
+
+    The model variance takes the construction-time kernel scales ``scale``
+    (E,) also under ``kern_par``, as the JAX package does.
+    """
+
+    def _init(self, model, points, wm, Wc, Wcc, Q, iK, scale, dim_out, device):
+        device = resolve_device(device)
+        self.model = model
+        self.points, self.wm, self.Wc, self.Wcc, self.Q, self.iK, self.scale = (
+            f64(a, device) for a in (points, wm, Wc, Wcc, Q, iK, scale))
+        self.dim_out = int(dim_out)
+
+    def _from_model(self, model, dim_out, device):
+        w = model.bq_weights()
+        self._init(model, model.points, w.wm, w.Wc, w.Wcc, w.Q, w.iK, model.kernel.scale,
+                   dim_out, device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.points.device
+
+    def weights(self, par):
+        """``(wm, Wc, Wcc)`` derived from kernel parameters ``par``."""
+        w = _model_of(self).bq_weights(par)
+        return w.wm, w.Wc, w.Wcc
+
+    def with_kern_par(self, kern_par) -> "MultiOutputBQTransform":
+        """A copy that applies with the weights of ``kern_par``, derived once
+        (``self`` for None)."""
+        if kern_par is None:
+            return self
+        w = _model_of(self).bq_weights(kern_par)
+        tf = copy.copy(self)
+        tf.wm, tf.Wc, tf.Wcc, tf.Q, tf.iK = w.wm, w.Wc, w.Wcc, w.Q, w.iK
+        return tf
+
+    def apply(self, f, mean, cov, time, kern_par=None):
+        if kern_par is not None:
+            return self.with_kern_par(kern_par).apply(f, mean, cov, time)
+        L = chol_small(cov)
+        fx = apply_f_columns(f, mean[..., None] + L @ self.points, time)     # (M, E, N)
+        mean_f = torch.einsum("...en,ne->...e", fx, self.wm)
+        cov_q = torch.einsum("...ei,ijed,...dj->...ed", fx, self.Wc, fx)
+        cov_f = (cov_q - mean_f[..., :, None] * mean_f[..., None, :]
+                 + self._emv(fx)[..., None, :])
+        # "jd": against the factor's TRANSPOSE, like the single-output path
+        cov_fx = torch.einsum("...en,dne,...jd->...ej", fx, self.Wcc, L)
+        return mean_f, cov_f, cov_fx
+
+    def _emv(self, fx):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class MultiOutputGaussianProcessTransform(MultiOutputBQTransform):
+    """MO-GPQ transform: weights from a :class:`GaussianProcessMO`."""
+
+    def __init__(self, dim_in: int, dim_out: int, kern_par, kern_str: str = "rbf",
+                 point_str: str = "ut", point_par=None, device=None):
+        self._from_model(GaussianProcessMO(dim_in, dim_out, kern_par, kern_str, point_str,
+                                           point_par, device=device), dim_out, device)
+
+    @classmethod
+    def from_weights(cls, points, wm, Wc, Wcc, Q, iK, scale, device=None):
+        """The transform from precomputed weights, without a model."""
+        tf = cls.__new__(cls)
+        tf._init(None, points, wm, Wc, Wcc, Q, iK, scale, np.shape(wm)[-1], device)
+        return tf
+
+    def _emv(self, fx):
+        return mo_gp_emv(self.scale, self.Q, self.iK)
+
+
+class MultiOutputStudentTProcessTransform(MultiOutputBQTransform):
+    """MO-TPQ transform: weights from a :class:`StudentTProcessMO`;
+    ``mc_opts`` reach an ``rbf-student`` kernel as in
+    :class:`StudentTProcessTransform` (the point-set ``dof`` shapes the
+    points only)."""
+
+    def __init__(self, dim_in: int, dim_out: int, kern_par, kern_str: str = "rbf",
+                 point_str: str = "ut", point_par=None, nu: float = 3.0, mc_opts=None,
+                 device=None):
+        model = StudentTProcessMO(dim_in, dim_out, kern_par, kern_str, point_str, point_par,
+                                  nu=nu, device=device, **dict(mc_opts or {}))
+        self._from_model(model, dim_out, device)
+        self.nu, self.num_pts = model.nu, model.num_pts
+
+    @classmethod
+    def from_weights(cls, points, wm, Wc, Wcc, Q, iK, scale, nu: float, device=None):
+        """The transform from precomputed weights, without a model."""
+        tf = cls.__new__(cls)
+        tf._init(None, points, wm, Wc, Wcc, Q, iK, scale, np.shape(wm)[-1], device)
+        tf.nu, tf.num_pts = float(nu), tf.points.shape[-1]
+        return tf
+
+    def _emv(self, fx):
+        return mo_tp_emv(self.scale, self.nu, self.num_pts, self.Q, self.iK, fx)

@@ -14,7 +14,8 @@ import numpy as np
 from . import ssmod
 from .bq.gpqd import GaussianProcessDerTransform
 from .bq.kernels import RBFStudent
-from .bq.transforms import BayesSardTransform, BQTransform, StudentTProcessTransform
+from .bq.transforms import (BayesSardTransform, BQTransform, MultiOutputGaussianProcessTransform,
+                            MultiOutputStudentTProcessTransform, StudentTProcessTransform)
 from .mtran import (LinearizationTransform, MonteCarloTransform, SigmaPointTransform,
                     TaylorGPQDTransform, TruncatedSigmaPointTransform)
 from .ssmod import TransitionModel
@@ -49,6 +50,10 @@ def transform_from_numpy(d: dict, device=None):
       ``compat_kxpx_ell_squared`` (default True).  ``model_var`` may be a
       matrix (an override);
     - GPQ+D: the GP keys plus ``which_der``, the derivative points;
+    - multi-output GP quadrature: ``points``, ``wm`` (N, E), ``Wc``
+      (N, N, E, E), ``Wcc`` (D, N, E), ``Q`` (N, N, E, E), ``iK`` (N, N, E)
+      and ``scale`` (E,), the kernel scales; multi-output TP quadrature adds
+      ``nu`` (and optionally ``num_pts``, checked against the points);
     - truncated sigma-point rule: ``unit_sp_eff``, ``wm``, ``Wc``,
       ``unit_sp``, ``Wcc`` and ``dim_eff``;
     - Monte Carlo: ``unit_sp`` and the scalars ``wm``, ``wc``;
@@ -58,6 +63,13 @@ def transform_from_numpy(d: dict, device=None):
     The more specific key sets are tested first: a truncated or Monte-Carlo
     dict has ``unit_sp`` too.
     """
+    if "Q" in d and "scale" in d:
+        args = (d["points"], d["wm"], d["Wc"], d["Wcc"], d["Q"], d["iK"], d["scale"])
+        if "nu" not in d:
+            return MultiOutputGaussianProcessTransform.from_weights(*args, device=device)
+        _check_num_pts(d)
+        return MultiOutputStudentTProcessTransform.from_weights(*args, float(d["nu"]),
+                                                                device=device)
     if "which_der" in d:
         return GaussianProcessDerTransform.from_weights(
             d["points"], d["wm"], d["Wc"], d["Wcc"], d["model_var"], d["which_der"],
@@ -77,8 +89,7 @@ def transform_from_numpy(d: dict, device=None):
         if "nu" not in d:
             return BQTransform(d["points"], d["wm"], d["Wc"], d["Wcc"], d["model_var"],
                                iK=d.get("iK"), **kw)
-        if "num_pts" in d and int(d["num_pts"]) != d["points"].shape[-1]:
-            raise ValueError(f"num_pts={int(d['num_pts'])} but {d['points'].shape[-1]} points")
+        _check_num_pts(d)
         return StudentTProcessTransform.from_weights(d["points"], d["wm"], d["Wc"], d["Wcc"],
                                                      d["model_var"], d["iK"], float(d["nu"]),
                                                      **kw)
@@ -93,6 +104,11 @@ def transform_from_numpy(d: dict, device=None):
     if set(d) == {"dim"}:
         return LinearizationTransform(int(d["dim"]), device=device)
     raise ValueError(f"cannot tell the transform from the keys {sorted(d)}")
+
+
+def _check_num_pts(d: dict):
+    if "num_pts" in d and int(d["num_pts"]) != np.shape(d["points"])[-1]:
+        raise ValueError(f"num_pts={int(d['num_pts'])} but {np.shape(d['points'])[-1]} points")
 
 
 def kernel_from_numpy(d: dict, device=None) -> RBFStudent:

@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..bq.gpqd import GaussianProcessDerTransform
-from ..bq.transforms import BQTransform, StudentTProcessTransform
+from ..bq.transforms import BQTransform, MultiOutputBQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
 from ..ssmod import UNGMMeasurement, UNGMTransition
 from . import _build
@@ -167,6 +167,8 @@ def lower_transform(tf) -> Rule:
         sources = (tf.unit_sp, tf.wm, tf.wc_diag)
     elif isinstance(tf, BQTransform):
         sources = (tf.points, tf.wm, tf.Wc, tf.Wcc, tf._emv)
+    elif isinstance(tf, MultiOutputBQTransform):
+        sources = (tf.points, tf.wm)
     else:
         raise ValueError(f"unsupported transform for the fused scalar filter: {type(tf)!r}")
     return _memo(tf, "_scalar_filter_rule", sources, lambda: _lower(tf))
@@ -184,6 +186,9 @@ def _lower(tf) -> Rule:
     elif isinstance(tf, GaussianProcessDerTransform):
         raise ValueError("GPQ+D derivative observations have no kernel form in the fused "
                          "scalar filter")
+    elif isinstance(tf, MultiOutputBQTransform):
+        raise ValueError(f"multi-output BQ transforms ({type(tf).__name__}) have per-output "
+                         "weight tensors with no kernel form in the fused scalar filter")
     elif isinstance(tf, BQTransform):
         if tf.points.shape[0] != 1 or tf.dim_out != 1:
             raise ValueError("the fused scalar filter needs a 1-D rule")

@@ -54,7 +54,7 @@ import numpy as np
 import torch
 
 from ..bq.gpqd import GaussianProcessDerTransform
-from ..bq.transforms import BQTransform, StudentTProcessTransform
+from ..bq.transforms import BQTransform, MultiOutputBQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
 from ..ssmod import (BearingMeasurement, ConstantVelocity, CoordinatedTurnTransition,
                      Pendulum2DMeasurement, Pendulum2DTransition, Radar2DMeasurement,
@@ -157,6 +157,8 @@ def lower_transform(tf, dim_in: int) -> VecRule:
         sources = (tf.unit_sp, tf.wm, tf.wc_diag)
     elif isinstance(tf, BQTransform):
         sources = (tf.points, tf.wm, tf.Wc, tf.Wcc, tf.model_var)
+    elif isinstance(tf, MultiOutputBQTransform):
+        sources = (tf.points, tf.wm)
     else:
         raise ValueError(f"unsupported transform for the fused vector filter: {type(tf)!r}")
     return _memo(tf, f"_vector_filter_rule_{dim_in}", sources, lambda: _lower(tf, dim_in))
@@ -181,6 +183,9 @@ def _lower(tf, dim_in: int) -> VecRule:
     if isinstance(tf, GaussianProcessDerTransform):
         raise ValueError("GPQ+D derivative observations have no kernel form in the fused "
                          "vector filter")
+    if isinstance(tf, MultiOutputBQTransform):
+        raise ValueError(f"multi-output BQ transforms ({type(tf).__name__}) have per-output "
+                         "weight tensors with no kernel form in the fused vector filter")
     xi = _host(tf.points)
     if xi.shape[0] != dim_in:
         raise ValueError(f"transform dimension {xi.shape[0]} != expected {dim_in}")

@@ -22,6 +22,14 @@ enters its function is transformed at ``[m, noise mean]`` with the covariance
 state; the additive ``G Q G^T`` and ``R`` terms are added only where the noise
 is additive.
 
+The BQ transforms take per-call kernel parameters: ``theta_dyn`` /
+``theta_obs`` of :func:`gaussian_filter` and :func:`iterated_gaussian_filter`
+derive the weights once per call (the JAX package re-derives them inside its
+scan body, every step, to the same values), and the filter's moments are
+differentiable in them.  :func:`iterated_gaussian_filter` refines each
+measurement update by statistical linear regression (:func:`slr_affine`)
+about the current posterior.
+
 Parity quirk kept from the reference: :func:`gaussian_smoother` with
 ``rts_full=False`` smooths indices ``0..N-3`` only and seeds the first update
 with the filtered estimate of step ``N`` against the predictive moments of
@@ -39,7 +47,8 @@ import torch
 
 from .bq.gpqd import GaussianProcessDerTransform
 from .bq.transforms import (BayesSardTransform, GaussianProcessTransform,
-                            StudentTProcessTransform)
+                            MultiOutputGaussianProcessTransform,
+                            MultiOutputStudentTProcessTransform, StudentTProcessTransform)
 from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
                     LinearizationTransform, SphericalRadialTransform, TaylorGPQDTransform,
                     TruncatedGaussHermiteTransform, TruncatedSphericalRadialTransform,
@@ -47,10 +56,12 @@ from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
 from .ops import scalar_filter as _sf
 from .ops import vector_filter as _vf
 from .utils.arrays import f64
-from .utils.linalg import block_diag, chol_small, pd_solve_small, tri_solve_small
+from .utils.linalg import block_diag, chol_small, pd_solve_small, symmetrize, tri_solve_small
 
 __all__ = [
     "FilterResult", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
+    "slr_affine", "iterated_gaussian_filter", "IteratedPosteriorLinearizationKalman",
+    "MultiOutputGaussianProcessKalman", "MultiOutputStudentProcessStudent",
     "StudentFilterResult", "studentian_filter", "studentian_filter_batch",
     "studentian_smoother",
     "StateSpaceInference", "GaussianInference", "ExtendedKalman", "UnscentedKalman",
@@ -134,7 +145,57 @@ def _smoothing_update(m_fi, P_fi, m_sm_next, P_sm_next, m_pr_next, P_pr_next, xx
     return m_sm, P_sm
 
 
-def _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov) -> FilterResult:
+def _with_theta(tf, theta):
+    """``tf`` applying with the weights of the kernel parameters ``theta``,
+    derived once (``tf`` itself for None)."""
+    if theta is None:
+        return tf
+    if not hasattr(tf, "with_kern_par"):
+        raise ValueError(f"kernel parameters given for a {type(tf).__name__}, which has "
+                         "none: only the BQ transforms take theta")
+    return tf.with_kern_par(theta)
+
+
+def slr_affine(tf, f, mean, cov, time, theta=None):
+    """Statistical linear regression of ``f`` about ``N(mean, cov)`` through
+    the transform ``tf``, for a batch ``mean`` (M, D), ``cov`` (M, D, D):
+    ``(A, b, Omega)`` with ``f(x) ~ A x + b + e``, ``e ~ N(0, Omega)``;
+    ``A = C P^-1``, ``b = mu - A m``, ``Omega = S - A P A^T``."""
+    mu, S, C = _with_theta(tf, theta).apply(f, mean, cov, time)
+    A = pd_solve_small(cov, C.mT).mT                                    # (M, E, D)
+    b = mu - (A @ mean[..., None])[..., 0]
+    return A, b, symmetrize(S - A @ cov @ A.mT)
+
+
+def _slr_obs(mod_obs, tf_obs, m, P, time):
+    """The measurement's SLR about ``N(m, P)`` with its noise: ``(H, c,
+    R_eff)``; non-additive noise regressed jointly, then folded in."""
+    r_mean, r_cov = mod_obs.noise_rv.get_stats()[:2]
+    if mod_obs.noise_additive:
+        H, c, Om = slr_affine(tf_obs, mod_obs.meas_eval, m, P, time)
+        return H, c, Om + r_cov
+    A, c, Om = slr_affine(tf_obs, mod_obs.meas_eval, *_augment(m, P, r_mean, r_cov), time)
+    d = m.shape[-1]
+    H, Ar = A[..., :d], A[..., d:]
+    return H, c + Ar @ r_mean, Om + Ar @ r_cov @ Ar.mT
+
+
+def _relinearized_update(mod_obs, tf_obs, m_pr, P_pr, m, P, y, time):
+    """One IPLF refinement: the Kalman update of the predictive ``(m_pr,
+    P_pr)`` with the measurement linearized about the posterior ``(m, P)``."""
+    H, c, R_eff = _slr_obs(mod_obs, tf_obs, m, P, time)
+    S = symmetrize(H @ P_pr @ H.mT + R_eff)
+    K = pd_solve_small(S, H @ P_pr).mT
+    m_new = m_pr + (K @ (y - c - (H @ m_pr[..., None])[..., 0])[..., None])[..., 0]
+    return m_new, symmetrize(P_pr - K @ S @ K.mT)
+
+
+def _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov,
+                theta_dyn=None, theta_obs=None, iterations: int = 1) -> FilterResult:
+    """The eager recursion over a batch ``data`` (M, dim_y, N): with
+    ``theta_*`` the BQ transforms' weights are derived from them once, before
+    the time loop; ``iterations - 1`` IPLF refinements follow each update."""
+    tf_dyn, tf_obs = _with_theta(tf_dyn, theta_dyn), _with_theta(tf_obs, theta_obs)
     M, _, N = data.shape
     m0, P0 = mod_dyn.init_rv.get_stats()[:2]
     D = mod_dyn.dim_state
@@ -144,7 +205,10 @@ def _filter_f64(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov) -> 
     for k in range(1, N + 1):
         m_pr, P_pr, xx, y_pr, S, xy = _gaussian_time_update(
             mod_dyn, mod_obs, tf_dyn, tf_obs, m, P, k - 1)
-        m, P = _kalman_update(m_pr, P_pr, y_pr, S, xy, data[..., k - 1])
+        y = data[..., k - 1]
+        m, P = _kalman_update(m_pr, P_pr, y_pr, S, xy, y)
+        for _ in range(iterations - 1):
+            m, P = _relinearized_update(mod_obs, tf_obs, m_pr, P_pr, m, P, y, k - 1)
         outs.append((m, P, m_pr, P_pr, xx))
     fi_m, fi_P, pr_m, pr_P, pr_xx = (torch.stack(s, dim=-1) for s in zip(*outs))
     # one host check after the loop: a Cholesky that failed inside it left NaN
@@ -207,13 +271,40 @@ def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
     return _filter_fused_vector(data, params)
 
 
-def gaussian_filter(mod_dyn, mod_obs, tf_dyn, tf_obs, data,
-                    init_mean=None, init_cov=None) -> FilterResult:
-    """Forward pass of one trajectory ``data`` (dim_y, N): the batch path on a
-    batch of one."""
-    res = gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs,
-                                f64(data, mod_dyn.device)[None], init_mean, init_cov)
+def _eager(mod_dyn, data, run) -> FilterResult:
+    """``run`` on ``data`` as a batch: (dim_y, N) is a batch of one whose
+    result loses the batch dimension again, (M, dim_y, N) stays a batch."""
+    data = f64(data, mod_dyn.device)
+    if data.ndim == 3:
+        return run(data)
+    res = run(data[None])
     return FilterResult(*(getattr(res, f)[0] for f in res.__dataclass_fields__))
+
+
+def gaussian_filter(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean=None, init_cov=None,
+                    theta_dyn=None, theta_obs=None) -> FilterResult:
+    """Eager float64 forward pass of one trajectory ``data`` (dim_y, N), or
+    of a batch (M, dim_y, N).  ``theta_dyn`` / ``theta_obs`` give the BQ
+    transforms kernel parameters for this call (weights derived once, the
+    moments differentiable in them); other transforms raise with a theta."""
+    return _eager(mod_dyn, data, lambda d: _filter_f64(
+        mod_dyn, mod_obs, tf_dyn, tf_obs, d, init_mean, init_cov, theta_dyn, theta_obs))
+
+
+def iterated_gaussian_filter(mod_dyn, mod_obs, tf_dyn, tf_obs, data, iterations: int = 5,
+                             init_mean=None, init_cov=None, theta_dyn=None,
+                             theta_obs=None) -> FilterResult:
+    """The iterated posterior-linearization filter (IPLF; Garcia-Fernandez et
+    al., IEEE TSP 2015) of ``data`` (dim_y, N) or a batch (M, dim_y, N): each
+    measurement update is repeated ``iterations - 1`` times with the
+    measurement's SLR through ``tf_obs`` about the current posterior.
+    ``iterations=1`` is the standard filter; the predictive moments are the
+    standard ones, so :func:`gaussian_smoother` applies."""
+    if iterations < 1:
+        raise ValueError(f"iterations must be >= 1; got {iterations}")
+    return _eager(mod_dyn, data, lambda d: _filter_f64(
+        mod_dyn, mod_obs, tf_dyn, tf_obs, d, init_mean, init_cov, theta_dyn, theta_obs,
+        iterations=int(iterations)))
 
 
 def gaussian_smoother(result: FilterResult, rts_full: bool = False):
@@ -420,6 +511,42 @@ class GaussianInference(StateSpaceInference):
                                      self._check_batch(data_batch), engine=engine)
 
 
+class IteratedPosteriorLinearizationKalman(GaussianInference):
+    """The IPLF with a classical sigma-point rule (``points`` ``"sr"``,
+    ``"ut"``, ``"gh"`` or ``"fs"``, hyperparameters ``point_hyp``) and
+    ``iterations`` linearizations of each measurement update; it runs
+    eagerly (no engine)."""
+
+    SUPPORTED_POINTS = ("sr", "ut", "gh", "fs")
+
+    def __init__(self, dyn, obs, points: str = "ut", point_hyp=None, iterations: int = 5):
+        hyp = dict(point_hyp or {})
+        dev = dyn.device
+        make = {"sr": lambda d: SphericalRadialTransform(d, device=dev),
+                "ut": lambda d: UnscentedTransform(d, **hyp, device=dev),
+                "gh": lambda d: GaussHermiteTransform(d, **hyp, device=dev),
+                "fs": lambda d: FullySymmetricStudentTransform(d, **hyp, device=dev)}
+        if points not in make:
+            raise ValueError(f"unsupported point set {points!r}; choose from "
+                             f"{self.SUPPORTED_POINTS}")
+        if points == "sr" and hyp:
+            raise ValueError("the spherical-radial rule takes no hyperparameters; got "
+                             f"point_hyp={hyp}: drop it or pick points in ('ut', 'gh', 'fs')")
+        if iterations < 1:
+            raise ValueError(f"iterations must be >= 1; got {iterations}")
+        super().__init__(dyn, obs, make[points](dyn.dim_in), make[points](obs.dim_in))
+        self.iterations = int(iterations)
+
+    def _run_forward(self, data):
+        return iterated_gaussian_filter(self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs,
+                                        data, self.iterations)
+
+    def forward_pass_batch(self, data_batch) -> FilterResult:
+        """Filter a whole (M, dim_y, N) batch."""
+        return iterated_gaussian_filter(self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs,
+                                        self._check_batch(data_batch), self.iterations)
+
+
 class ExtendedKalman(GaussianInference):
     """Extended Kalman filter: linearization by the Jacobians of the
     functions the filter transforms."""
@@ -550,6 +677,22 @@ class ExtendedKalmanGPQD(GaussianInference):
                          TaylorGPQDTransform(obs.dim_state, rbf_par_obs, device=dyn.device))
 
 
+class MultiOutputGaussianProcessKalman(GaussianInference):
+    """GPQ Kalman filter with multi-output GP transforms, one kernel
+    parameter row per output (EXPERIMENTAL in the reference: it may lose
+    positive definiteness).  It runs eagerly: the fused engines refuse
+    multi-output transforms."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, kernel: str = "rbf",
+                 points: str = "ut", point_hyp=None):
+        super().__init__(
+            dyn, obs,
+            MultiOutputGaussianProcessTransform(dyn.dim_in, dyn.dim_state, kern_par_dyn, kernel,
+                                                points, point_hyp, device=dyn.device),
+            MultiOutputGaussianProcessTransform(obs.dim_in, obs.dim_out, kern_par_obs, kernel,
+                                                points, point_hyp, device=dyn.device))
+
+
 class StudentianInference(StateSpaceInference):
     """Student-t filter and scale-matrix RTS smoother; ``sm_cov`` holds the
     smoothed scale matrices."""
@@ -635,4 +778,25 @@ class StudentProcessStudent(StudentianInference):
                                      dict(point_par, dof=obs.noise_rv.dof), nu=dof_tp,
                                      compat_drop_nu=compat_drop_nu, mc_opts=mc_opts,
                                      device=dyn.device),
+            dof, fixed_dof)
+
+
+class MultiOutputStudentProcessStudent(StudentianInference):
+    """TPQ Student filter with multi-output TP transforms on fully-symmetric
+    points and the Student-weighted RBF kernel; each noise's ``dof`` shapes
+    its transform's points only, ``mc_opts`` reach the kernels."""
+
+    def __init__(self, dyn, obs, kern_par_dyn, kern_par_obs, point_par=None,
+                 dof: float = 4.0, fixed_dof: bool = True, dof_tp: float = 4.0, mc_opts=None):
+        point_par = dict(point_par or {})
+        super().__init__(
+            dyn, obs,
+            MultiOutputStudentTProcessTransform(
+                dyn.dim_in, dyn.dim_state, kern_par_dyn, "rbf-student", "fs",
+                dict(point_par, dof=dyn.noise_rv.dof), nu=dof_tp, mc_opts=mc_opts,
+                device=dyn.device),
+            MultiOutputStudentTProcessTransform(
+                obs.dim_in, obs.dim_out, kern_par_obs, "rbf-student", "fs",
+                dict(point_par, dof=obs.noise_rv.dof), nu=dof_tp, mc_opts=mc_opts,
+                device=dyn.device),
             dof, fixed_dof)

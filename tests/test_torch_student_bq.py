@@ -162,7 +162,7 @@ def test_kernel_dispatch():
     with pytest.raises(ValueError, match="empty batch"):
         RBFStudent(2, PAR, num_samples=3, num_batches=6).exp_x_kx(torch.as_tensor(PAR), x)
     with pytest.raises(ValueError, match="rbf-student"):
-        get_kernel(2, "rq", PAR)
+        get_kernel(2, "matern", PAR)
 
 
 def test_fused_qrq_grad_flows_through_the_kernel_class():
