@@ -6,11 +6,12 @@ port runs on the CUDA card by default; ``set_device("cpu")`` runs it on the
 CPU.  The JAX package ``ssmtoybox_tpu`` is the reference each part is held
 against; this package never imports it, nor JAX.
 """
-from . import bq, mtran, ops, points, ssinf, ssmod, utils
+from . import bq, mtran, online, ops, points, ssinf, ssmod, utils
 from .ssinf import (BayesSardKalman, CubatureKalman, ExtendedKalman, ExtendedKalmanGPQD,
                     ExtendedStudent, FilterResult, FullySymmetricStudent, GaussHermiteKalman,
                     GaussianInference, GaussianProcessDerKalman, GaussianProcessKalman,
-                    GPQStudent, IteratedPosteriorLinearizationKalman,
+                    GPQStudent, IteratedPosteriorLinearizationKalman, MarginalInference,
+                    MarginalizedGaussianProcessKalman,
                     MultiOutputGaussianProcessKalman, MultiOutputStudentProcessStudent,
                     StateSpaceInference, StudentFilterResult, StudentianInference,
                     StudentProcessKalman, StudentProcessStudent, TruncatedCubatureKalman,
@@ -21,7 +22,7 @@ from .ssinf import (BayesSardKalman, CubatureKalman, ExtendedKalman, ExtendedKal
 from .utils.arrays import default_device, set_device
 
 __all__ = [
-    "bq", "mtran", "ops", "points", "ssinf", "ssmod", "utils",
+    "bq", "mtran", "online", "ops", "points", "ssinf", "ssmod", "utils",
     "default_device", "set_device",
     "FilterResult", "GaussianInference", "GaussianProcessKalman",
     "StateSpaceInference", "UnscentedKalman", "GaussHermiteKalman", "CubatureKalman",
@@ -33,4 +34,5 @@ __all__ = [
     "studentian_filter_batch", "studentian_smoother",
     "IteratedPosteriorLinearizationKalman", "iterated_gaussian_filter", "slr_affine",
     "MultiOutputGaussianProcessKalman", "MultiOutputStudentProcessStudent",
+    "MarginalInference", "MarginalizedGaussianProcessKalman",
 ]

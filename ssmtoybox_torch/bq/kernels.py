@@ -14,7 +14,7 @@ import torch
 
 from ..utils import rand
 from ..utils.arrays import f64, resolve_device
-from ..utils.linalg import chol_small, maha, pd_solve, symmetrize
+from ..utils.linalg import chol_small, maha, pd_inv, pd_solve
 
 __all__ = ["Kernel", "RBFGauss", "RBFStudent", "RQ", "get_kernel"]
 
@@ -35,8 +35,13 @@ class Kernel:
         self.jitter = jitter
 
     def get_parameters(self, par=None) -> torch.Tensor:
-        """The construction-time parameters, or ``par`` as (E, num_par)."""
-        return self.par if par is None else torch.atleast_2d(f64(par, self.par.device))
+        """The construction-time parameters, or ``par`` as (E, num_par) in
+        the dtype of the construction-time ones (float64, or float32 in a
+        copy cast for a float32 search)."""
+        if par is None:
+            return self.par
+        par = par if isinstance(par, torch.Tensor) else f64(par, self.par.device)
+        return torch.atleast_2d(par.to(self.par))
 
     @property
     def scale(self) -> torch.Tensor:
@@ -51,10 +56,7 @@ class Kernel:
         """``(K + jitter I)^-1 b`` via Cholesky, symmetrized when ``b`` is
         the identity."""
         A = self._jittered(par, x, scaling)
-        if b is None:
-            return symmetrize(pd_solve(A, torch.eye(A.shape[-1], dtype=A.dtype,
-                                                    device=A.device)))
-        return pd_solve(A, b)
+        return pd_inv(A) if b is None else pd_solve(A, b)
 
     def eval_chol(self, par, x, scaling=True):
         """Lower Cholesky factor of the jittered Gram, NaN where it fails (as
@@ -67,6 +69,16 @@ class Kernel:
 
     def der_par(self, par_0, x):  # pragma: no cover - interface
         raise NotImplementedError
+
+
+def _prod(v: torch.Tensor) -> torch.Tensor:
+    """``torch.prod(v)`` of a vector of positive entries, its bits, with the
+    derivatives of ``exp(sum(log v))``: ``torch.prod``'s backward looks for
+    zeros with ``nonzero``, which waits for the card, and the marginalized
+    filter differentiates these expectations twice inside its time loop.
+    The surrogate's value is subtracted from itself, so it adds exactly 0."""
+    s = torch.exp(torch.sum(torch.log(v)))
+    return torch.prod(v.detach()) + (s - s.detach())
 
 
 def _unpack_rbf(par):
@@ -96,7 +108,7 @@ class RBFGauss(Kernel):
         alpha, ell = _unpack_rbf(par)
         a2 = alpha ** 2 if scaling else 1.0
         lam = ell ** 2
-        c = a2 * torch.prod(1.0 / lam + 1.0) ** -0.5
+        c = a2 * _prod(1.0 / lam + 1.0) ** -0.5
         xl = x / (lam + 1.0)[:, None]
         return c * torch.exp(-0.5 * torch.sum(x * xl, dim=0))
 
@@ -125,7 +137,7 @@ class RBFGauss(Kernel):
         r = inv_lam + inv_lam_1 + 1.0                                  # diag of R^-1
 
         n = (xi[:, None] + xi_1[None, :]) + 0.5 * maha(x_0.T, -x_1.T, V=torch.diag(1.0 / r))
-        return torch.prod(r) ** -0.5 * torch.exp(n)
+        return _prod(r) ** -0.5 * torch.exp(n)
 
     def exp_x_kxx(self, par):
         alpha, _ = _unpack_rbf(par)
@@ -133,7 +145,7 @@ class RBFGauss(Kernel):
 
     def exp_xy_kxy(self, par):
         alpha, ell = _unpack_rbf(par)
-        return alpha ** 2 * torch.prod(2.0 * ell ** -2 + 1.0) ** -0.5
+        return alpha ** 2 * _prod(2.0 * ell ** -2 + 1.0) ** -0.5
 
     def der_par(self, par_0, x):
         """dK/dpar stacked as (N, N, 1 + D): d/ds, then d/d(log l_d) for the
@@ -347,7 +359,7 @@ class RQ(Kernel):
         s, alpha, ell = _unpack_rq(par)
         s2 = s ** 2 if scaling else 1.0
         lam = ell ** 2
-        c = s2 * torch.prod(1.0 / lam + 1.0) ** -0.5
+        c = s2 * _prod(1.0 / lam + 1.0) ** -0.5
         xl = x / (lam + 1.0)[:, None]
         return c * (1.0 + torch.sum(x * xl, dim=0) / (2.0 * alpha)) ** (-alpha)
 
@@ -373,14 +385,14 @@ class RQ(Kernel):
         x_1 = inv_lam_1[:, None] * x
         r = inv_lam + inv_lam_1 + 1.0
         n = (xi[:, None] + xi_1[None, :]) - maha(x_0.T, -x_1.T, V=torch.diag(1.0 / r))
-        return scale * torch.prod(r) ** -0.5 * (1.0 + n / (2.0 * alpha)) ** (-alpha)
+        return scale * _prod(r) ** -0.5 * (1.0 + n / (2.0 * alpha)) ** (-alpha)
 
     def exp_x_kxx(self, par):
         return par.reshape(-1)[0] ** 2
 
     def exp_xy_kxy(self, par):
         s, _, ell = _unpack_rq(par)
-        return s ** 2 * torch.prod(2.0 * ell ** -2 + 1.0) ** -0.5
+        return s ** 2 * _prod(2.0 * ell ** -2 + 1.0) ** -0.5
 
     def der_par(self, par_0, x):
         raise NotImplementedError("RQ.der_par is not implemented, as in the JAX package "

@@ -10,8 +10,10 @@ Weights depend only on the kernel parameters and the unit points, so they are
 computed once, at construction, in float64.  ``apply(..., kern_par=...)``
 derives them from other kernel parameters for that call instead, and
 :meth:`BQTransform.with_kern_par` once for many calls (the filters' per-call
-``theta``); both stay differentiable in ``kern_par``.  Batch convention as in
-:mod:`ssmtoybox_torch.mtran`.
+``theta``); both stay differentiable in ``kern_par``.
+:meth:`BQTransform.with_kern_par_batch` derives a set of weights for each
+member of a batch (the marginalized filter's parameter nodes).  Batch
+convention as in :mod:`ssmtoybox_torch.mtran`.
 """
 from __future__ import annotations
 
@@ -106,8 +108,28 @@ class BQTransform(MomentTransform):
         tf = copy.copy(self)
         tf.wm, tf.Wc, tf.Wcc, tf.model_var, tf.iK = self._weight_bundle(kern_par)
         tf.integral_var = None
-        tf._emv = tf.model_var * torch.eye(self.dim_out, dtype=torch.float64,
+        tf._emv = tf.model_var * torch.eye(self.dim_out, dtype=tf.model_var.dtype,
                                            device=self.points.device)
+        return tf
+
+    def with_kern_par_batch(self, kern_par) -> "BQTransform":
+        """A copy that applies with other weights for each member of a batch:
+        ``kern_par`` (B, num_par) holds one kernel parameter row a member,
+        and ``apply`` then takes a batch of B moments.  The weights of all B
+        rows are derived at once (``torch.func.vmap`` of the model's
+        ``bq_weights``, differentiable in ``kern_par``): ``wm`` (B, N), ``Wc``
+        (B, N, N), ``Wcc`` (B, D, N), ``model_var`` (B, 1, 1)."""
+        model = _model_of(self)
+
+        def one(par):
+            w = model.bq_weights(par, with_integral_var=False)
+            return w.wm, w.Wc, w.Wcc, w.model_var, w.iK
+
+        tf = copy.copy(self)
+        tf.wm, tf.Wc, tf.Wcc, mv, tf.iK = torch.func.vmap(one)(kern_par)
+        tf.model_var = mv.reshape(-1, 1, 1)
+        tf.integral_var = None
+        tf._emv = tf.model_var * torch.eye(self.dim_out, dtype=mv.dtype, device=mv.device)
         return tf
 
     def apply(self, f, mean, cov, time, kern_par=None):
@@ -115,7 +137,7 @@ class BQTransform(MomentTransform):
             return self.with_kern_par(kern_par).apply(f, mean, cov, time)
         L = chol_small(cov)
         fx = self._fcn_eval(f, mean[..., None] + L @ self.points, time)     # (M, E, N)
-        mean_f = fx @ self.wm
+        mean_f = fx @ self.wm if self.wm.ndim == 1 else (fx @ self.wm[..., None])[..., 0]
         cov_f = (fx @ self.Wc @ fx.mT - mean_f[..., :, None] * mean_f[..., None, :]
                  + self._model_variance(fx))
         return mean_f, cov_f, fx @ self.Wcc.mT @ L.mT

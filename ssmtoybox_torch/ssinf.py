@@ -40,6 +40,7 @@ measurement cross-covariance trimmed by the dynamics' ``dim_in`` and the
 """
 from __future__ import annotations
 
+import math
 import warnings
 from dataclasses import dataclass
 
@@ -55,8 +56,9 @@ from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
                     TruncatedUnscentedTransform, UnscentedTransform)
 from .ops import scalar_filter as _sf
 from .ops import vector_filter as _vf
-from .utils.arrays import f64
-from .utils.linalg import block_diag, chol_small, pd_solve_small, symmetrize, tri_solve_small
+from .utils.arrays import f64, map_tensors
+from .utils.linalg import (block_diag, chol_small, gen_solve, pd_logdet, pd_solve_small,
+                           symmetrize, tri_solve_small)
 
 __all__ = [
     "FilterResult", "gaussian_filter", "gaussian_filter_batch", "gaussian_smoother",
@@ -69,7 +71,8 @@ __all__ = [
     "StudentProcessKalman", "TruncatedUnscentedKalman", "TruncatedCubatureKalman",
     "TruncatedGaussHermiteKalman", "GaussianProcessDerKalman", "ExtendedKalmanGPQD",
     "StudentianInference", "FullySymmetricStudent", "ExtendedStudent", "GPQStudent",
-    "StudentProcessStudent",
+    "StudentProcessStudent", "marginal_filter_batch", "MarginalInference",
+    "MarginalizedGaussianProcessKalman",
 ]
 
 @dataclass
@@ -800,3 +803,316 @@ class MultiOutputStudentProcessStudent(StudentianInference):
                 dict(point_par, dof=obs.noise_rv.dof), nu=dof_tp, mc_opts=mc_opts,
                 device=dyn.device),
             dof, fixed_dof)
+
+
+# ---------------------------------------------------------------------------
+# Marginalized-parameter inference
+# ---------------------------------------------------------------------------
+
+def _marginal_time_update(mod_dyn, mod_obs, tf_dyn, tf_obs, theta, m, P, time, dyn_dim: int):
+    """The time update of a batch ``m`` (B, D), ``P`` (B, D, D) through BQ
+    transforms whose weights come from each member's own log kernel
+    parameters ``theta`` (B, num_par): ``exp(theta[:, :dyn_dim])`` for the
+    dynamics, the rest for the measurement."""
+    return _gaussian_time_update(mod_dyn, mod_obs,
+                                 tf_dyn.with_kern_par_batch(torch.exp(theta[:, :dyn_dim])),
+                                 tf_obs.with_kern_par_batch(torch.exp(theta[:, dyn_dim:])),
+                                 m, P, time)
+
+
+def _quad_form(A, x):
+    """``x^T A^-1 x`` of a batch of positive-definite ``A`` (B, n, n) and
+    vectors ``x`` (B, n)."""
+    return torch.sum(x * pd_solve_small(A, x[..., None])[..., 0], dim=-1)
+
+
+def _grad_hess(fn, theta):
+    """Gradient (B, P) and Hessian (B, P, P) of each member's objective,
+    ``fn(theta)`` (B,) of ``theta`` (B, P): the gradient of the sum keeps its
+    graph, and one batched backward pass through it (``is_grads_batched``, a
+    tangent a parameter) gives every member's Hessian rows; members do not
+    mix, so nothing (B P)^2 is formed."""
+    with torch.enable_grad():
+        th = theta.detach().requires_grad_(True)
+        (g,) = torch.autograd.grad(fn(th).sum(), th, create_graph=True)
+        n = th.shape[-1]
+        tangents = torch.eye(n, dtype=th.dtype, device=th.device)[:, None, :].expand(
+            n, th.shape[0], n)
+        (H,) = torch.autograd.grad(g, th, grad_outputs=tangents, is_grads_batched=True)
+    return g.detach(), H.movedim(0, -2)
+
+
+def marginal_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch, par_mean0, par_cov0,
+                          newton_iters: int = 15, damping: float = 1e-3, inner_dtype=None):
+    """Gaussian filter of a batch (M, dim_y, N) with the BQ transforms' log
+    kernel parameters marginalized, each trajectory with its own parameter
+    posterior: the safeguarded damped-Newton Laplace search of
+    :meth:`MarginalInference.forward_pass_compiled`.
+
+    Each step ``k`` (1-based): the default-parameter time update at ``k - 1``
+    is stored for the smoother; ``newton_iters`` Newton steps on the negative
+    log posterior (no constants) from the previous posterior mean, each with
+    the exact Hessian, damped by ``damping I``, its length capped at 3, boxed
+    to ``[-6, 6]`` and accepted only if the objective stays finite and does
+    not increase, else a gradient step of length 0.1, else none; the Laplace
+    covariance ``sym((H + damping I)^-1) + jitter I``, the previous one kept
+    where it is not positive definite; a Kalman update at each of the 2 P
+    spherical-radial nodes of the parameter posterior, with the transforms at
+    time ``k``, in float64; the nodes' moments collapsed with equal weights
+    (``sum w_p P_p``, symmetrized), the previous state kept where that is not
+    finite or not positive definite.  Every accept or keep choice is a
+    ``torch.where``: nothing reads the card's values back to the host.
+
+    ``inner_dtype="float32"`` runs the search (objective, gradient, Hessian,
+    node placement) in float32 on float32 copies of the models and
+    transforms, with a jitter of 1e-6 (1e-8 in float64); the state moments,
+    the node updates and the collapse stay float64.
+
+    Returns the :class:`FilterResult` and the last step's parameter
+    posterior ``(mean (M, P), cov (M, P, P), neg_log_post (M,))`` in the
+    search's dtype.
+    """
+    data = f64(data_batch, mod_dyn.device)
+    M, _, N = data.shape
+    dev = data.device
+    idt = torch.float64 if inner_dtype is None else getattr(torch, str(inner_dtype))
+    n_par = int(par_mean0.shape[-1])
+    n_pts = 2 * n_par
+    dyn_dim = mod_dyn.dim_in + 1
+    # the spherical-radial rule (points.sr_points / sr_weights), made on the
+    # device: nothing in this function copies from the host once data is there
+    eye64 = torch.eye(n_par, dtype=torch.float64, device=dev)
+    upts = (math.sqrt(n_par) * torch.cat([eye64, -eye64], dim=1)).to(idt)
+    wts = torch.full((n_pts,), 1.0 / n_pts, dtype=torch.float64, device=dev)
+    if idt == torch.float64:
+        mod_dyn_i, mod_obs_i, tf_dyn_i, tf_obs_i = mod_dyn, mod_obs, tf_dyn, tf_obs
+    else:
+        mod_dyn_i, mod_obs_i, tf_dyn_i, tf_obs_i = map_tensors(
+            (mod_dyn, mod_obs, tf_dyn, tf_obs),
+            lambda t: t.to(idt) if t.is_floating_point() else t)
+    eye = torch.eye(n_par, dtype=idt, device=dev).expand(M, n_par, n_par)
+    jitter = (1e-8 if idt == torch.float64 else 1e-6) * eye
+    m0, P0 = mod_dyn.init_rv.get_stats()[:2]
+    D = mod_dyn.dim_state
+    m, P = m0.expand(M, D), P0.expand(M, D, D)
+    pm = f64(par_mean0, dev).to(idt).expand(M, n_par)
+    pc = f64(par_cov0, dev).to(idt).expand(M, n_par, n_par)
+    outs = []
+    for k in range(1, N + 1):
+        m_pr_d, P_pr_d, xx_d, _, _, _ = _gaussian_time_update(
+            mod_dyn, mod_obs, tf_dyn, tf_obs, m, P, k - 1)
+        y64 = data[..., k - 1]
+        y, m_i, P_i = y64.to(idt), m.to(idt), P.to(idt)
+
+        def neg_log_post(theta, y=y, m_i=m_i, P_i=P_i, k=k, pm=pm, pc=pc):
+            # theta (r M, P): r candidates a trajectory, stacked
+            tile = lambda t: t.repeat((theta.shape[0] // M,) + (1,) * (t.ndim - 1))
+            _, _, _, y_pr, S, _ = _marginal_time_update(
+                mod_dyn_i, mod_obs_i, tf_dyn_i, tf_obs_i, theta, tile(m_i), tile(P_i), k,
+                dyn_dim)
+            return 0.5 * (pd_logdet(S) + _quad_form(S, tile(y) - y_pr)
+                          + _quad_form(tile(pc), theta - tile(pm)))
+
+        theta, f_cur = pm, neg_log_post(pm)
+        for _ in range(newton_iters):
+            g, H = _grad_hess(neg_log_post, theta)
+            delta = gen_solve(H + damping * eye, g)
+            nrm = torch.linalg.vector_norm(delta, dim=-1, keepdim=True)
+            delta = delta * torch.clamp(3.0 / (nrm + 1e-12), max=1.0)
+            cand = torch.clamp(theta - delta, -6.0, 6.0)
+            g_nrm = torch.linalg.vector_norm(g, dim=-1, keepdim=True)
+            grad_step = torch.clamp(theta - 0.1 * g / (g_nrm + 1e-12), -6.0, 6.0)
+            f_cand, f_grad = neg_log_post(torch.cat([cand, grad_step])).split(M)
+            ok = torch.isfinite(f_cand) & (f_cand <= f_cur)
+            ok_grad = torch.isfinite(f_grad) & (f_grad <= f_cur)
+            theta = torch.where(ok[:, None], cand,
+                                torch.where(ok_grad[:, None], grad_step, theta))
+            f_cur = torch.where(ok, f_cand, torch.where(ok_grad, f_grad, f_cur))
+        _, H = _grad_hess(neg_log_post, theta)
+        pc_cand = symmetrize(gen_solve(H + damping * eye, eye)) + jitter
+        L_cand = chol_small(pc_cand)
+        pd_ok = torch.isfinite(L_cand).flatten(1).all(dim=1)[:, None, None]
+        pc = torch.where(pd_ok, pc_cand, pc)
+        L_pc = torch.where(pd_ok, L_cand, chol_small(pc))
+        pm = theta
+
+        # one Kalman update a node, all M x 2P of them as one batch, in float64
+        nodes = (theta[:, :, None] + L_pc @ upts).to(torch.float64).mT.reshape(-1, n_par)
+        rep = lambda t: t[:, None].expand((M, n_pts) + t.shape[1:]).reshape(
+            (M * n_pts,) + t.shape[1:])
+        m_pr, P_pr, _, y_pr, S, xy = _marginal_time_update(
+            mod_dyn, mod_obs, tf_dyn, tf_obs, nodes, rep(m), rep(P), k, dyn_dim)
+        means, covs = _kalman_update(m_pr, P_pr, y_pr, S, xy, rep(y64))
+        m_new = torch.einsum("bpi,p->bi", means.reshape(M, n_pts, D), wts)
+        P_new = symmetrize(torch.einsum("bpij,p->bij", covs.reshape(M, n_pts, D, D), wts))
+        state_ok = (torch.isfinite(m_new).all(dim=-1)
+                    & torch.isfinite(chol_small(P_new)).flatten(1).all(dim=1))
+        m = torch.where(state_ok[:, None], m_new, m)
+        P = torch.where(state_ok[:, None, None], P_new, P)
+        outs.append((m, P, m_pr_d, P_pr_d, xx_d))
+    fi_m, fi_P, pr_m, pr_P, pr_xx = (torch.stack(s, dim=-1) for s in zip(*outs))
+    res = FilterResult(fi_mean=fi_m, fi_cov=fi_P, pr_mean=pr_m, pr_cov=pr_P, pr_xx_cov=pr_xx)
+    return res, (pm, pc, f_cur)
+
+
+class MarginalInference(GaussianInference):
+    """Gaussian filter whose BQ transforms' log kernel parameters are
+    marginalized: each measurement update approximates the parameters'
+    posterior by Laplace's method and collapses the Gaussian mixture of the
+    Kalman updates at its spherical-radial nodes.
+
+    ``forward_pass`` is the reference's form: SciPy's BFGS on the negative
+    log posterior (value and gradient by autograd, one host round trip an
+    evaluation), log parameters clipped to ``[-8, 8]`` inside the likelihood
+    with a quadratic penalty outside, the Laplace covariance BFGS's inverse
+    Hessian plus ``1e-8 I``; where BFGS ends on a non-finite value the
+    previous posterior is kept.  ``forward_pass_compiled`` and
+    ``forward_pass_batch`` run the damped-Newton search of
+    :func:`marginal_filter_batch` with ``newton_iters``, ``damping`` and
+    ``inner_dtype`` (attributes, overridable per call).  The smoother
+    (``backward_pass``) uses the default-parameter predictive moments stored
+    before each update.  The prior over the ``dim_in + 1`` dynamics and
+    ``dim_state + 1`` measurement log parameters is ``N(par_mean, par_cov)``,
+    zeros and the identity by default.
+    """
+
+    def __init__(self, dyn, obs, tf_dyn, tf_obs, par_mean=None, par_cov=None):
+        from .points import sr_points, sr_weights
+
+        dev = dyn.device
+        self.param_dyn_dim = dyn.dim_in + 1
+        self.param_obs_dim = obs.dim_state + 1
+        self.param_dim = self.param_dyn_dim + self.param_obs_dim
+        kw = dict(dtype=torch.float64, device=dev)
+        self.param_prior_mean = (torch.zeros(self.param_dim, **kw) if par_mean is None
+                                 else f64(par_mean, dev))
+        self.param_prior_cov = (torch.eye(self.param_dim, **kw) if par_cov is None
+                                else f64(par_cov, dev))
+        self.param_jitter = 1e-8 * torch.eye(self.param_dim, **kw)
+        self.param_upts = f64(sr_points(self.param_dim), dev)
+        self.param_wts = f64(sr_weights(self.param_dim), dev)
+        self.param_pts_num = self.param_upts.shape[1]
+        self.newton_iters = 15
+        self.damping = 1e-3
+        #: precision of the damped-Newton search: None (float64) or "float32"
+        self.inner_dtype = None
+        super().__init__(dyn, obs, tf_dyn, tf_obs)
+
+    def reset(self):
+        super().reset()
+        self.param_mean = self.param_prior_mean
+        self.param_cov = self.param_prior_cov
+
+    def _predict_meas(self, theta, m, P, k):
+        """The time update of a batch of states given log parameters
+        ``theta`` (B, P), clipped to ``[-8, 8]`` (beyond, ``exp`` overflows
+        the kernel expectations)."""
+        return _marginal_time_update(self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs,
+                                     torch.clamp(theta, -8.0, 8.0), m, P, k,
+                                     self.param_dyn_dim)
+
+    def _neg_log_post(self, theta, y, m, P, k, pm, pc):
+        """Negative log posterior of the log parameters ``theta`` (P,) given
+        the measurement ``y`` and the state ``N(m, P)``, with the Gaussian
+        normalisers and the box penalty ``0.5 |theta - clip(theta)|^2``."""
+        _, _, _, y_pr, S, _ = self._predict_meas(theta[None], m[None], P[None], k)
+        log2pi = math.log(2.0 * math.pi)
+        loglik = -0.5 * (pd_logdet(S[0]) + _quad_form(S, y[None] - y_pr)[0]
+                         + y.shape[0] * log2pi)
+        logprior = -0.5 * (pd_logdet(pc) + _quad_form(pc[None], (theta - pm)[None])[0]
+                           + theta.shape[0] * log2pi)
+        box = 0.5 * torch.sum((theta - torch.clamp(theta, -8.0, 8.0)) ** 2)
+        return -(loglik + logprior) + box
+
+    def _laplace_step(self, y, m, P, k):
+        """BFGS Laplace approximation of the parameter posterior; keeps the
+        previous one where BFGS ends on a non-finite point, value or inverse
+        Hessian."""
+        import numpy as np
+        from scipy.optimize import minimize
+
+        pm, pc = self.param_mean, self.param_cov
+        dev = pm.device
+
+        def obj(theta):
+            th = torch.tensor(theta, dtype=torch.float64, device=dev, requires_grad=True)
+            with torch.enable_grad():
+                v = self._neg_log_post(th, y, m, P, k, pm, pc)
+                (g,) = torch.autograd.grad(v, th)
+            return float(v.detach()), g.cpu().numpy().astype(float)
+
+        res = minimize(obj, pm.cpu().numpy().astype(float), method="BFGS", jac=True)
+        x = np.asarray(res.x, dtype=float)
+        hinv = np.asarray(res.hess_inv, dtype=float)
+        if np.isfinite(x).all() and np.isfinite(res.fun) and np.isfinite(hinv).all():
+            self.param_mean = torch.clamp(f64(x, dev), -8.0, 8.0)
+            self.param_cov = f64(hinv, dev) + self.param_jitter
+
+    def _run_forward(self, data):
+        n_pts = self.param_pts_num
+        m, P = (t[None] for t in self.mod_dyn.init_rv.get_stats()[:2])
+        outs = []
+        with torch.no_grad():
+            for k in range(1, data.shape[-1] + 1):
+                y = data[:, k - 1]
+                # default-parameter predictive moments at k - 1, for the smoother
+                m_pr_d, P_pr_d, xx_d, _, _, _ = _gaussian_time_update(
+                    self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs, m, P, k - 1)
+                # the marginalized update evaluates both transforms at time k
+                self._laplace_step(y, m[0], P[0], k)
+                theta_pts = self.param_mean[:, None] + chol_small(self.param_cov) @ self.param_upts
+                m_pr, P_pr, _, y_pr, S, xy = self._predict_meas(
+                    theta_pts.T, m.expand(n_pts, -1), P.expand(n_pts, -1, -1), k)
+                means, covs = _kalman_update(m_pr, P_pr, y_pr, S, xy, y)
+                m = torch.einsum("pi,p->i", means, self.param_wts)[None]
+                P = torch.einsum("pij,p->ij", covs, self.param_wts)[None]
+                outs.append((m[0], P[0], m_pr_d[0], P_pr_d[0], xx_d[0]))
+        fi_m, fi_P, pr_m, pr_P, pr_xx = (torch.stack(s, dim=-1) for s in zip(*outs))
+        return FilterResult(fi_mean=fi_m, fi_cov=fi_P, pr_mean=pr_m, pr_cov=pr_P,
+                            pr_xx_cov=pr_xx)
+
+    def _newton(self, data, newton_iters, damping, inner_dtype) -> FilterResult:
+        with torch.no_grad():
+            res, _ = marginal_filter_batch(
+                self.mod_dyn, self.mod_obs, self.tf_dyn, self.tf_obs, data,
+                self.param_prior_mean, self.param_prior_cov,
+                self.newton_iters if newton_iters is None else int(newton_iters),
+                self.damping if damping is None else float(damping),
+                self.inner_dtype if inner_dtype is None else inner_dtype)
+        return res
+
+    def forward_pass_compiled(self, data, newton_iters=None, damping=None, inner_dtype=None):
+        """The whole record ``data`` (dim_y, N) through the damped-Newton
+        search of :func:`marginal_filter_batch`, from the prior; returns
+        ``(fi_mean, fi_cov)`` and keeps the result for the smoother."""
+        data = f64(data, self.mod_dyn.device)
+        res = self._newton(data[None], newton_iters, damping, inner_dtype)
+        self._result = FilterResult(*(getattr(res, f)[0] for f in res.__dataclass_fields__))
+        self.fi_mean, self.fi_cov = self._result.fi_mean, self._result.fi_cov
+        self.set_flag("filtered", True)
+        return self.fi_mean, self.fi_cov
+
+    def forward_pass_batch(self, data_batch, newton_iters=None, damping=None,
+                           inner_dtype=None) -> FilterResult:
+        """Marginalized filtering of a batch (M, dim_y, N), each trajectory
+        with its own parameter posterior (the damped-Newton search); not the
+        inherited fixed-parameter batch path."""
+        self._result = self._newton(self._check_batch(data_batch), newton_iters, damping,
+                                    inner_dtype)
+        return self._result
+
+
+class MarginalizedGaussianProcessKalman(MarginalInference):
+    """GPQ Kalman filter with marginalized kernel parameters: GPQ transforms
+    built at unit kernel parameters, ``kernel`` on the ``points`` rule."""
+
+    def __init__(self, dyn, obs, kernel: str = "rbf", points: str = "ut", point_hyp=None,
+                 par_mean=None, par_cov=None):
+        import numpy as np
+        super().__init__(
+            dyn, obs,
+            GaussianProcessTransform(dyn.dim_in, 1, np.ones((1, dyn.dim_in + 1)), kernel, points,
+                                     point_hyp, device=dyn.device),
+            GaussianProcessTransform(obs.dim_state, 1, np.ones((1, obs.dim_state + 1)), kernel,
+                                     points, point_hyp, device=dyn.device),
+            par_mean, par_cov)

@@ -8,10 +8,12 @@ instead of running on the CPU unnoticed.
 """
 from __future__ import annotations
 
+import copy
+
 import numpy as np
 import torch
 
-__all__ = ["f64", "default_device", "resolve_device", "set_device"]
+__all__ = ["f64", "default_device", "resolve_device", "set_device", "map_tensors"]
 
 #: the device ``set_device`` named; None means the CUDA card
 _device: torch.device | None = None
@@ -51,3 +53,21 @@ def f64(a, device=None) -> torch.Tensor:
         return a.to(dtype=torch.float64, device=device)
     return torch.tensor(np.ascontiguousarray(a, dtype=np.float64), dtype=torch.float64,
                         device=resolve_device(device))
+
+
+def map_tensors(obj, fn):
+    """``obj`` with ``fn`` applied to each of its tensors: a tensor maps to
+    ``fn(tensor)``; a list, tuple or dict, and an object of this package (a
+    model, random variable, kernel, transform or filter), to a shallow copy
+    whose members are mapped in turn; anything else is kept as it is."""
+    if isinstance(obj, torch.Tensor):
+        return fn(obj)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(map_tensors(v, fn) for v in obj)
+    if isinstance(obj, dict):
+        return {k: map_tensors(v, fn) for k, v in obj.items()}
+    if type(obj).__module__.startswith("ssmtoybox_torch") and hasattr(obj, "__dict__"):
+        out = copy.copy(obj)
+        out.__dict__.update({k: map_tensors(v, fn) for k, v in vars(obj).items()})
+        return out
+    return obj

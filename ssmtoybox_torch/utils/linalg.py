@@ -1,7 +1,7 @@
 """Small batched linear algebra on ``torch.linalg``.
 
-Counterpart of :mod:`ssmtoybox_tpu.utils.linalg`, reduced to what the
-filtering main path calls.  The JAX package unrolls tiny Cholesky factors
+Counterpart of :mod:`ssmtoybox_tpu.utils.linalg`, without its unrolled
+small-matrix kernels.  The JAX package unrolls tiny Cholesky factors
 and products into scalar recurrences to dodge the TPU's emulated float64;
 the card has native float64, so the port calls the batched library routines.
 
@@ -14,9 +14,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["maha", "symmetrize", "chol_small", "safe_cholesky", "pd_solve",
-           "pd_solve_small", "tri_solve_small", "pd_logdet", "small_mm3", "gen_solve",
-           "block_diag"]
+__all__ = ["maha", "symmetrize", "chol_small", "safe_cholesky", "mat_sqrt", "pd_solve",
+           "pd_solve_small", "pd_inv", "tri_solve_small", "pd_logdet", "small_mm3",
+           "gen_solve", "gen_inv", "block_diag", "ellipse_points"]
 
 
 def maha(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor | None = None) -> torch.Tensor:
@@ -59,6 +59,12 @@ def safe_cholesky(a: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     return torch.where((info == 0)[..., None, None], L, fallback)
 
 
+def mat_sqrt(a: torch.Tensor) -> torch.Tensor:
+    """Matrix square root: the Cholesky factor where ``a`` is positive
+    definite, the eigh fallback of :func:`safe_cholesky` elsewhere."""
+    return safe_cholesky(a)
+
+
 def pd_solve(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:
     """Solve ``A x = b`` for symmetric positive-definite ``A`` via Cholesky."""
     if jitter:
@@ -68,6 +74,13 @@ def pd_solve(A: torch.Tensor, b: torch.Tensor, jitter: float = 0.0) -> torch.Ten
 
 #: the JAX package's name for its unrolled small-dim solve; here the same call
 pd_solve_small = pd_solve
+
+
+def pd_inv(A: torch.Tensor, jitter: float = 0.0, do_symmetrize: bool = True) -> torch.Tensor:
+    """Inverse of a symmetric positive-definite ``A``: a Cholesky solve
+    against the identity, then symmetrized (unless ``do_symmetrize=False``)."""
+    iA = pd_solve(A, torch.eye(A.shape[-1], dtype=A.dtype, device=A.device), jitter=jitter)
+    return symmetrize(iA) if do_symmetrize else iA
 
 
 def tri_solve_small(L: torch.Tensor, b: torch.Tensor, lower: bool = True) -> torch.Tensor:
@@ -101,7 +114,23 @@ def small_mm3(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor
 
 def gen_solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     """Solve ``A X = B`` for a general (non-symmetric) square ``A``, ``B``
-    (..., D) or (..., D, K), with ``torch.linalg.solve`` (LU with partial
-    pivoting).  The JAX package writes this solve as a Gauss-Jordan loop only
+    (..., D) or (..., D, K), with ``torch.linalg.solve_ex`` (LU with partial
+    pivoting): a singular ``A`` gives inf or NaN, as the JAX package's
+    Gauss-Jordan loop does, instead of an error that would read the LU's
+    status back to the host.  The JAX package writes this solve as a loop only
     because the TPU has no float64 LU; the card has one."""
-    return torch.linalg.solve(A, B)
+    return torch.linalg.solve_ex(A, B)[0]
+
+
+def gen_inv(A: torch.Tensor) -> torch.Tensor:
+    """Inverse of a general square ``A`` by :func:`gen_solve`."""
+    return gen_solve(A, torch.eye(A.shape[-1], dtype=A.dtype, device=A.device))
+
+
+def ellipse_points(pos: torch.Tensor, mat: torch.Tensor, num: int = 50) -> torch.Tensor:
+    """``num`` points (2, num) on the one-sigma ellipse of the 2-D Gaussian
+    ``N(pos, mat)``."""
+    w, v = torch.linalg.eigh(mat)
+    theta = torch.linspace(0.0, 2.0 * torch.pi, num, dtype=mat.dtype, device=mat.device)
+    t = torch.stack((torch.cos(theta), torch.sin(theta)))
+    return pos[:, None] + v @ (torch.sqrt(torch.clamp(w, min=0.0))[:, None] * t)
