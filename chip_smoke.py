@@ -166,7 +166,15 @@ fails at once without them.  Phases, each fatal on failure:
     the SciPy-BFGS path on ``marginal_ungm.npz``; the streaming UKF on
     10,000 targets equal to the batch filter (1e-12), its per-step latency
     at batch 1 and 10,000, the fixed-lag smoother against the offline RTS,
-    a checkpoint round trip and resume; no launch counter may move.
+    a checkpoint round trip and resume; no launch counter may move;
+23. "sqrt": the square-root filters and smoothers on the main path's data
+    (10,000 runs): SR-UKF on UNGM and reentry in float64 and float32
+    against the full-covariance filter, the square-root GPQ filter and
+    smoother on UNGM and SR-FSQ with the square-root Student smoother on
+    the CV glint data in float32, the streaming square-root filter at batch
+    1 and 10,000 and the fixed-lag smoother against the offline ones, 200
+    runs of each float64 lane against the CPU, a step of each SR-UKF lane
+    under the profiler; no launch counter may move (``sqrt_slice``).
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -2562,6 +2570,280 @@ def marginal_online_slice(torch, np, dev, ungm):
         f"{card_line()}")
 
 
+#: the square-root phase: runs held against the CPU, the streaming lanes;
+#: the UNGM prefix held pointwise (PERF.md: the map grows rounding
+#: differences of 1e-16 to 1e-8 in some of 10,000 runs by step 50)
+SQRT_CPU_B = 200
+SQRT_UNGM_PREFIX = 20
+#: the float32 reentry lane's means against its float64 lane, relative to
+#: the largest entry: the JAX package's bound (tests/test_sqrt.py:157-170)
+SQRT_F32_REENTRY_TOL = 1e-2
+SQRT_ONLINE_STEPS = 100
+SQRT_LAG = 5
+SQRT_CUTS = (5, 50, 100)
+
+
+def sqrt_slice(torch, np, dev, ungm, reentry, glint):
+    """Phase 23, "sqrt": the square-root filters and smoothers
+    (``ssmtoybox_torch/sqrt.py``) on the main path's data, eager; no kernel
+    may launch.
+
+    Lanes, 10,000 runs each: SR-UKF on UNGM (500 steps) and on reentry (100
+    steps, ``tools/bench_sqrt.py``'s grid) in float64 and float32; the
+    square-root GPQ filter (RBF ``[[1, 3]]``, UT points) and its RTS
+    smoother on UNGM in float32 (float64 filter as its reference); SR-FSQ
+    (``experiments/tpq_constant_velocity.py:137-138``) and the square-root
+    Student smoother on phase 8's CV glint data in float32 (float64 filter
+    as the reference).  Gates: each float64 SR-UKF lane against the eager
+    full-covariance float64 filter within 1e-8 of each stream's largest
+    entry (UNGM on its first ``SQRT_UNGM_PREFIX`` steps, the chaotic map
+    growing rounding differences later, the gap at 50 steps printed;
+    reentry over the whole record) and its RMSE equal to 1e-6; each float32
+    lane's RMSE within 1% of its float64 square-root lane, but reentry's
+    means within ``SQRT_F32_REENTRY_TOL`` of its float64 lane's largest
+    entry and its RMSE gap printed (float32 moves the reentry RMSE by 2-4%,
+    in the JAX package too: ``tests/test_torch_sqrt.py``); every factor
+    diagonal of a lane's finite runs positive, at most 1% of its runs
+    non-finite; each smoother's RMSE below its filter's.
+    ``make_online_sqrt_filter`` at batch 1 and 10,000 over
+    ``SQRT_ONLINE_STEPS`` steps, its final state equal to the offline
+    filter's (1e-12); ``make_fixed_lag_sqrt_smoother`` (lag ``SQRT_LAG``,
+    10,000 targets) at steps ``SQRT_CUTS`` against the offline smoother of
+    the record cut there (1e-12).  The first ``SQRT_CPU_B`` runs of every
+    float64 lane against the same function on the CPU (models and
+    transforms copied there) within 1e-9 of each stream's largest entry.
+    Times: each lane by CUDA events after its checked run; one step of the
+    SR-UKF lanes under ``torch.profiler``; one ``tria`` and one batched
+    triangular solve at the reentry step's shapes, with the device kernels
+    they launch.
+    """
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch import sqrt as tsq
+    from ssmtoybox_torch.ops import scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
+    from ssmtoybox_torch.utils.linalg import tri_solve_small, tria
+    from ssmtoybox_torch.utils.metrics import rmse
+
+    def counters():
+        return (sf.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES, vdm.LAUNCHES,
+                tuple(smc.LAUNCHES.values()))
+
+    def outer(S):
+        return torch.einsum("...ijn,...kjn->...ikn", S, S)
+
+    def run_rmse(x_true, m):
+        """Study RMSE over the finite runs, and the share not finite."""
+        ok = torch.isfinite(m).flatten(1).all(1)
+        r = float(rmse(x_true[ok].permute(1, 2, 0), m[ok].permute(1, 2, 0)))
+        return r, 1.0 - float(ok.double().mean())
+
+    def diag_ok(S, m):
+        ok = torch.isfinite(m).flatten(1).all(1)
+        return bool((torch.diagonal(S[ok], dim1=1, dim2=2) > 0).all())
+
+    def head(res, n, steps=None):
+        return type(res)(*(getattr(res, f)[:n, ..., :steps].cpu()
+                           for f in res.__dataclass_fields__))
+
+    def moments(res):
+        """``(result, mean, factor)`` of a filter's or a smoother's output."""
+        if isinstance(res, tuple):
+            return res
+        return res, res.fi_mean, res.fi_sqrt if hasattr(res, "fi_sqrt") else res.fi_smat_sqrt
+
+    t_phase = time.perf_counter()
+    before = counters()
+    dyn, obs, xs, ys = ungm
+    dyn_re, obs_re, xs_re, ys_re = reentry
+    dyn_cv, obs_cv, xs_cv, ys_cv = glint
+    f32 = torch.float32
+    ukf = stt.UnscentedKalman(dyn, obs)
+    ukf_re = stt.UnscentedKalman(dyn_re, obs_re)
+    gpq = stt.GaussianProcessKalman(dyn, obs, np.array([[1.0, 3.0]]), np.array([[1.0, 3.0]]))
+    fsq = stt.FullySymmetricStudent(dyn_cv, obs_cv, degree=3, kappa=0.0, dof=4.0)
+    systems = {"UNGM": (dyn, obs, xs, ys), "reentry": (dyn_re, obs_re, xs_re, ys_re),
+               "CV glint": (dyn_cv, obs_cv, xs_cv, ys_cv)}
+    # name -> (system, transforms' owner, factory, dtype, reference lane)
+    lanes = {
+        "SR-UKF UNGM f64": ("UNGM", ukf, tsq.make_sqrt_filter, None, None),
+        "SR-UKF UNGM f32": ("UNGM", ukf, tsq.make_sqrt_filter, f32, "SR-UKF UNGM f64"),
+        "SR-UKF reentry f64": ("reentry", ukf_re, tsq.make_sqrt_filter, None, None),
+        "SR-UKF reentry f32": ("reentry", ukf_re, tsq.make_sqrt_filter, f32,
+                               "SR-UKF reentry f64"),
+        "SR-GPQ UNGM f64": ("UNGM", gpq, tsq.make_sqrt_filter, None, None),
+        "SR-GPQ UNGM f32": ("UNGM", gpq, tsq.make_sqrt_filter, f32, "SR-GPQ UNGM f64"),
+        "SR-GPQ RTS UNGM f32": ("UNGM", gpq, tsq.make_sqrt_smoother, f32, "SR-GPQ UNGM f32"),
+        "SR-FSQ CV glint f64": ("CV glint", fsq, tsq.make_sqrt_studentian_filter, None, None),
+        "SR-FSQ CV glint f32": ("CV glint", fsq, tsq.make_sqrt_studentian_filter, f32,
+                                "SR-FSQ CV glint f64"),
+        "SR-FSQ RTS CV glint f32": ("CV glint", fsq, tsq.make_sqrt_studentian_smoother, f32,
+                                    "SR-FSQ CV glint f32"),
+    }
+    fns, out, ms, scores, steps_of = {}, {}, {}, {}, {}
+    for name, (system, alg, factory, dtype, _) in lanes.items():
+        d, o, x_true, y = systems[system]
+        fns[name] = factory(d, o, alg.tf_dyn, alg.tf_obs, dtype=dtype)
+        res, m, S = moments(fns[name](y))                           # the checked run
+        torch.cuda.synchronize()
+        ms[name], _ = event_ms(torch, lambda: fns[name](y))
+        out[name], steps_of[name] = res, y.shape[-1]
+        scores[name] = run_rmse(x_true, m) + (diag_ok(S, m),)
+    full = {}
+    for name, system, alg in (("UKF UNGM f64 (full covariance)", "UNGM", ukf),
+                              ("UKF reentry f64 (full covariance)", "reentry", ukf_re)):
+        d, o, x_true, y = systems[system]
+        full[name] = stt.gaussian_filter_batch(d, o, alg.tf_dyn, alg.tf_obs, y, engine="f64")
+        torch.cuda.synchronize()
+        ms[name], _ = event_ms(torch, lambda: stt.gaussian_filter_batch(
+            d, o, alg.tf_dyn, alg.tf_obs, y, engine="f64"))
+        scores[name], steps_of[name] = run_rmse(x_true, full[name].fi_mean) + (True,), y.shape[-1]
+    for name, (r, lost, pos) in scores.items():
+        log(f"sqrt {name} ({MC}x{steps_of[name]}): {ms[name]:.1f} ms (CUDA events, one call; "
+            f"{ms[name] / steps_of[name]:.2f} ms a step), RMSE {r:.6f}, not finite {lost:.2%}, "
+            f"factor diagonals positive {pos}")
+
+    # float64 factor form against the full-covariance filter
+    def gaps(res, fr, steps):
+        return {"fi_mean": rel_err(res.fi_mean[..., :steps], fr.fi_mean[..., :steps]),
+                "fi_cov": rel_err(outer(res.fi_sqrt[..., :steps]), fr.fi_cov[..., :steps]),
+                "pr_mean": rel_err(res.pr_mean[..., :steps], fr.pr_mean[..., :steps]),
+                "pr_cov": rel_err(outer(res.pr_sqrt[..., :steps]), fr.pr_cov[..., :steps])}
+
+    for name, ref, steps in (("SR-UKF UNGM f64", "UKF UNGM f64 (full covariance)",
+                              SQRT_UNGM_PREFIX),
+                             ("SR-UKF reentry f64", "UKF reentry f64 (full covariance)", None)):
+        errs = gaps(out[name], full[ref], steps)
+        r_rel = abs(scores[name][0] - scores[ref][0]) / scores[ref][0]
+        later = (f"; first 50 steps {max(gaps(out[name], full[ref], 50).values()):.2e}"
+                 if steps else "")
+        log(f"sqrt {name} vs {ref}" + (f", first {steps} steps" if steps else ", whole record")
+            + ": " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+            + f" of each stream's largest entry (limit 1e-8){later}; RMSE relative {r_rel:.2e} "
+            "(limit 1e-6)")
+        if not (max(errs.values()) <= 1e-8 and r_rel <= 1e-6):
+            fail(f"sqrt {name}: off the full-covariance filter ({errs}, RMSE {r_rel:.3e})")
+    for name, (system, _, _, dtype, ref) in lanes.items():
+        r, lost, pos = scores[name]
+        if dtype == f32 and "RTS" not in name:
+            rel = abs(r - scores[ref][0]) / scores[ref][0]
+            if system == "reentry":
+                pw = rel_err(out[name].fi_mean.double(), out[ref].fi_mean)
+                log(f"sqrt {name}: means {pw:.2e} of its float64 lane's largest entry (limit "
+                    f"{SQRT_F32_REENTRY_TOL}); RMSE {rel:.3%} off the float64 lane's")
+                if not pw <= SQRT_F32_REENTRY_TOL:
+                    fail(f"sqrt {name}: means {pw:.3e} off the float64 lane")
+                continue
+            log(f"sqrt {name}: RMSE {rel:.3%} off its float64 lane (limit 1%)")
+            if not rel <= 0.01:
+                fail(f"sqrt {name}: RMSE {r} is {rel:.2%} off the float64 lane's")
+        if "RTS" in name and not r < scores[ref][0]:
+            fail(f"sqrt {name}: smoother RMSE {r} not below the filter's {scores[ref][0]}")
+        if lost > 0.01 or not pos:
+            fail(f"sqrt {name}: {lost:.2%} of the runs not finite (limit 1%) or a factor "
+                 f"diagonal not positive ({pos})")
+
+    # card against CPU, float64 lanes, first SQRT_CPU_B runs
+    B = SQRT_CPU_B
+    for name, (system, alg, factory, dtype, _) in lanes.items():
+        if dtype is not None:
+            continue
+        d, o, _, y = systems[system]
+        steps = SQRT_UNGM_PREFIX if system == "UNGM" else None
+        cpu_fn = factory(on_cpu(torch, d), on_cpu(torch, o), on_cpu(torch, alg.tf_dyn),
+                         on_cpu(torch, alg.tf_obs))
+        cpu = cpu_fn(y[:B, :, :50 if steps else None].cpu())
+        err = streams_err(torch, head(out[name], B, steps), head(cpu, B, steps))
+        later = (f"; first 50 steps {streams_err(torch, head(out[name], B, 50), cpu):.2e}"
+                 if steps else "")
+        log(f"sqrt {name}: first {B} runs" + (f", {steps} steps," if steps else "")
+            + f" vs the CPU {err:.2e} of each stream's largest entry (limit 1e-9){later}")
+        if not err <= 1e-9:
+            fail(f"sqrt {name}: {err:.3e} off the CPU")
+
+    # streaming: online filter and fixed-lag smoother
+    tf_d, tf_o = ukf.tf_dyn, ukf.tf_obs
+    y_on = ys[..., :SQRT_ONLINE_STEPS]
+    off = fns["SR-UKF UNGM f64"](y_on)
+
+    def stream(batch, targets):
+        init, step = tsq.make_online_sqrt_filter(dyn, obs, tf_d, tf_o, batch=batch)
+        state = init(batch_size=targets) if batch else init()
+        for k in range(SQRT_ONLINE_STEPS):
+            state, _ = step(state, y_on[:targets, :, k] if batch else y_on[0, :, k])
+        return state
+
+    for label, batch, targets in (("batch 1", False, 1), (f"batch {MC}", True, MC)):
+        stream(batch, targets)
+        torch.cuda.synchronize()
+        t_ms, state = event_ms(torch, lambda: stream(batch, targets))
+        got_m, got_S = ((state.mean, state.sqrt) if batch
+                        else (state.mean[None], state.sqrt[None]))
+        err = max(rel_err(got_m, off.fi_mean[:targets, :, -1]),
+                  rel_err(got_S, off.fi_sqrt[:targets, :, :, -1]))
+        log(f"sqrt online SR-UKF, {label}: final state vs the offline filter {err:.2e} (limit "
+            f"1e-12); {t_ms / SQRT_ONLINE_STEPS * 1e3:.1f} us a step (CUDA events over "
+            f"{SQRT_ONLINE_STEPS} steps)")
+        if not err <= 1e-12:
+            fail(f"sqrt online SR-UKF, {label}: {err:.3e} off the offline filter")
+    init, step = tsq.make_fixed_lag_sqrt_smoother(dyn, obs, tf_d, tf_o, lag=SQRT_LAG, batch=True)
+    state = init(batch_size=MC)
+    emitted = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k in range(1, SQRT_ONLINE_STEPS + 1):
+        state, _, (sm_m, sm_S) = step(state, y_on[..., k - 1])
+        if k in SQRT_CUTS:
+            emitted[k] = (sm_m.clone(), sm_S.clone())
+    torch.cuda.synchronize()
+    fl_us = (time.perf_counter() - t0) / SQRT_ONLINE_STEPS * 1e6
+    smooth = tsq.make_sqrt_smoother(dyn, obs, tf_d, tf_o)
+    fl_err = 0.0
+    for k, (sm_m, sm_S) in emitted.items():
+        _, m_all, S_all = smooth(y_on[..., :k])
+        fl_err = max(fl_err, rel_err(sm_m, m_all[..., k - SQRT_LAG]),
+                     rel_err(sm_S, S_all[..., k - SQRT_LAG]))
+    log(f"sqrt fixed-lag SR-UKF smoother (lag {SQRT_LAG}, {MC} targets): output at steps "
+        f"{SQRT_CUTS} vs the offline smoother of the record cut there {fl_err:.2e} (limit "
+        f"1e-12); {fl_us:.1f} us a step (host clock)")
+    if not fl_err <= 1e-12:
+        fail(f"sqrt fixed-lag smoother: {fl_err:.3e} off the offline smoother")
+
+    # where a step's time goes
+    for name in ("SR-UKF UNGM f64", "SR-UKF reentry f64", "SR-UKF reentry f32"):
+        y = systems[lanes[name][0]][3]
+        wall, busy, n_dev, top = profile_split(torch, lambda: fns[name](y[..., :1]))
+        log(f"sqrt {name}: one step under torch.profiler: wall {wall:.2f} ms, device busy "
+            f"{busy:.2f} ms ({busy / wall:.1%}), {n_dev} device activities; top: "
+            + "; ".join(f"{k} {v:.3f} ms in {n}" for k, v, n in top))
+    def kernels_of(fn, top):
+        """The device kernels of one call, profiled again (up to three times)
+        where the profiler kept no device record."""
+        for _ in range(3):
+            ranked = profile_split(torch, fn, top=top)[3]
+            if ranked:
+                return "; ".join(f"{k} {v:.3f} ms in {n}" for k, v, n in ranked)
+        return "none recorded"
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for dtype in (torch.float64, f32):
+        cols = torch.randn(MC, 5, 14, generator=gen, device=dev, dtype=dtype)
+        L = tria(cols)
+        rhs = torch.randn(MC, 2, 5, generator=gen, device=dev, dtype=dtype)
+        S_yy = tria(torch.randn(MC, 2, 13, generator=gen, device=dev, dtype=dtype))
+        q_ms = cuda_ms(torch, lambda: tria(cols))
+        s_ms = cuda_ms(torch, lambda: tri_solve_small(S_yy, rhs))
+        log(f"sqrt tria of {MC} x (5 x 14), {dtype}: {q_ms[0]:.3f} ms (min {q_ms[1]:.3f}; "
+            f"kernels: {kernels_of(lambda: tria(cols), 6)}); solve_triangular of {MC} x (2 x 2) "
+            f"against (2 x 5): {s_ms[0]:.3f} ms (min {s_ms[1]:.3f}; kernels: "
+            f"{kernels_of(lambda: tri_solve_small(S_yy, rhs), 3)}); diagonal positive "
+            f"{bool((torch.diagonal(L, dim1=1, dim2=2) > 0).all())}")
+
+    torch.cuda.synchronize()
+    if counters() != before:
+        fail(f"the square-root lanes launched a kernel: counters {before} -> {counters()}")
+    log(f"sqrt phase: {time.perf_counter() - t_phase:.1f} s in all; card: {card_line()}")
+
+
 def main():
     import numpy as np
     import torch
@@ -2770,6 +3052,7 @@ def main():
     vdm_entry["launches"] += rest["vandermonde"]
     vf_first["launches"] += rest["vector_filter"]
     marginal_online_slice(torch, np, dev, (dyn, obs, xs, ys))
+    sqrt_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{

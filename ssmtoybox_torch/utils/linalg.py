@@ -12,11 +12,12 @@ LAPACK-backed ``cholesky`` does, instead of raising inside a time loop.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 __all__ = ["maha", "symmetrize", "chol_small", "safe_cholesky", "mat_sqrt", "pd_solve",
            "pd_solve_small", "pd_inv", "tri_solve_small", "pd_logdet", "small_mm3",
-           "gen_solve", "gen_inv", "block_diag", "ellipse_points"]
+           "gen_solve", "gen_inv", "block_diag", "ellipse_points", "tria", "cholupdate_small"]
 
 
 def maha(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor | None = None) -> torch.Tensor:
@@ -134,3 +135,49 @@ def ellipse_points(pos: torch.Tensor, mat: torch.Tensor, num: int = 50) -> torch
     theta = torch.linspace(0.0, 2.0 * torch.pi, num, dtype=mat.dtype, device=mat.device)
     t = torch.stack((torch.cos(theta), torch.sin(theta)))
     return pos[:, None] + v @ (torch.sqrt(torch.clamp(w, min=0.0))[:, None] * t)
+
+
+def tria(cols: torch.Tensor) -> torch.Tensor:
+    """Lower factor of ``cols @ cols^T`` with a non-negative diagonal, from a
+    QR of ``cols^T``: ``cols`` (..., D, M) with M >= D gives (..., D, D).
+
+    The square-root filters' factorization: it never forms the covariance,
+    so it does not square the conditioning.  The rows of R are flipped to a
+    positive diagonal as the JAX package does (a zero diagonal entry counts
+    as positive).  On the card a batch of small matrices goes to cuBLAS's
+    batched ``geqrf``.
+    """
+    r = torch.linalg.qr(cols.mT, mode="r")[1]
+    sgn = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
+    sgn = torch.where(sgn == 0, torch.ones_like(sgn), sgn)
+    return (r * sgn[..., :, None]).mT
+
+
+def cholupdate_small(L: torch.Tensor, v: torch.Tensor, w) -> torch.Tensor:
+    """Rank-1 update or downdate: the lower factor of ``L L^T + w v v^T``.
+
+    ``L`` (..., D, D), ``v`` (..., D); ``w`` a number or a tensor over the
+    leading dimensions, of either sign.  The JAX package's hyperbolic
+    rotation recurrence, one column of ``L`` at a time (D steps of batched
+    elementwise operations, each element computed as there); ``w = 0``
+    returns ``L``'s bits.  A number ``w`` is rounded to ``L``'s dtype on the
+    host, so that no tensor is copied to the card.
+    """
+    d = L.shape[-1]
+    if isinstance(w, torch.Tensor):
+        w = w.to(L.dtype)
+        sgn, root = torch.sign(w), torch.sqrt(torch.abs(w))
+        u = root[..., None] * v
+    else:
+        w = np.asarray(w, dtype=np.float32 if L.dtype == torch.float32 else np.float64)
+        sgn, root = float(np.sign(w)), float(np.sqrt(np.abs(w)))
+        u = root * v
+    cols = []
+    for k in range(d):                  # u holds the entries k.. of the rotated vector
+        Lkk, uk, u_rest = L[..., k, k], u[..., 0], u[..., 1:]
+        r = torch.sqrt(Lkk * Lkk + sgn * uk * uk)
+        c, s = r / Lkk, uk / Lkk
+        below = (L[..., k + 1:, k] + (sgn * s)[..., None] * u_rest) / c[..., None]
+        u = c[..., None] * u_rest - s[..., None] * below
+        cols.append(torch.cat([L.new_zeros(L.shape[:-2] + (k,)), r[..., None], below], dim=-1))
+    return torch.stack(cols, dim=-1)
