@@ -174,7 +174,16 @@ fails at once without them.  Phases, each fatal on failure:
     the CV glint data in float32, the streaming square-root filter at batch
     1 and 10,000 and the fixed-lag smoother against the offline ones, 200
     runs of each float64 lane against the CPU, a step of each SR-UKF lane
-    under the profiler; no launch counter may move (``sqrt_slice``).
+    under the profiler; no launch counter may move (``sqrt_slice``);
+24. "parallel": the time-parallel filters and smoothers on one long
+    pendulum record (``tools/bench_iplf.py``'s widths, simulated on the card,
+    100,000 steps): IPLS(2) with the observer init against the sequential
+    UKF + RTS smoother at 2,000 steps, the float32 square-root IPLS(2)
+    against float64 at 10,000 and 50,000 steps, the block observer at
+    100,000 steps, the card against the CPU on a 500-step prefix; the linear
+    and square-root affine scans at 10^4-10^6 steps (blocked and
+    unblocked); the batched NLML fit of the UNGM GP model; no launch counter
+    may move (``parallel_slice``).
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -2844,6 +2853,298 @@ def sqrt_slice(torch, np, dev, ungm, reentry, glint):
     log(f"sqrt phase: {time.perf_counter() - t_phase:.1f} s in all; card: {card_line()}")
 
 
+#: phase 24, the time-parallel smoothers (tools/bench_iplf.py's pendulum:
+#: dt 0.01, its Q, prior N([1.5, 0], 0.01 I), sin measurement R = 0.1, UT,
+#: IPLS(2)); the records are prefixes of one simulated trajectory
+PAR_DT = 0.01
+PAR_ITERS = 2
+PAR_SHORT, PAR_LONG, PAR_BLOCK = 10_000, 50_000, 100_000
+#: the sequential UKF + RTS reference and the IPLS(2) held to it run on the
+#: first PAR_SEQ steps: the eager reference takes ~2 ms a step on the card,
+#: 21 s at PAR_SHORT steps
+PAR_SEQ = 2_000
+PAR_CPU_PREFIX = 500
+PAR_RMSE_FACTOR = 1.05
+PAR_BLOCK_RMSE = 0.2        # tests/test_iplf.py's bound of a 10,000-step run in its basin
+PAR_LINEAR = (10_000, 100_000, 1_000_000)
+PAR_SCAN_BLOCK = 65_536
+PAR_FIT_SETS, PAR_FIT_STEPS, PAR_FIT_CPU_STEPS = 10_000, 200, 20
+
+
+def parallel_slice(torch, np, dev):
+    """Phase 24, "parallel": the time-parallel filters and smoothers
+    (``ssmtoybox_torch/parallel/``) on one long record; eager, no kernel may
+    launch.
+
+    The pendulum of ``tools/bench_iplf.py`` simulated on the card from the
+    seed for ``PAR_BLOCK`` steps, measured by ``sin`` (R = 0.1) and by the
+    angle itself (``tests/test_iplf.py``'s ``AngleMeasurement``); UT
+    transforms, IPLS(2), the record's prefixes.  Gates: IPLS(2) with the
+    observer init in float64 within ``PAR_RMSE_FACTOR`` of the smoothed RMSE
+    of the sequential UKF + RTS smoother on the same record of ``PAR_SEQ``
+    steps (the eager reference cut from ``PAR_SHORT`` steps for time);
+    ``sqrt=True`` in float32 within 5% of the float64 run's smoothed RMSE at
+    ``PAR_SHORT`` steps (its own observer) and ``PAR_LONG`` steps (from the
+    float64 observer's trajectory: one observer of ``PAR_LONG`` steps, not
+    two); ``"block-observer"`` on the angle record at ``PAR_BLOCK`` steps,
+    finite, smoothed RMSE under ``PAR_BLOCK_RMSE`` and below the filter's;
+    on a ``PAR_CPU_PREFIX``-step prefix the card against the CPU within 1e-9
+    of each stream's largest entry, and ``init="observer"`` equal to the run
+    from its trajectory passed as ``init`` (the path of the timed runs).  The linear scans on a
+    random stable affine model (D = 4, E = 2, seeded) at ``PAR_LINEAR``
+    steps: the affine filter and smoother against their square-root forms
+    within 1e-8 of each stream's largest entry, and at the last length the
+    square-root scans by blocks of ``PAR_SCAN_BLOCK`` equal to the unblocked
+    ones to 1e-12.  The fit: ``fit_kernel_params`` on the UNGM GPQKF's GP
+    model (RBF ``[[1, 3]]``, UT points) over ``PAR_FIT_SETS``
+    function-observation sets along simulated UNGM trajectories,
+    ``PAR_FIT_STEPS`` Adam steps, the loss falling, the first
+    ``PAR_FIT_CPU_STEPS`` against the CPU within 1e-9.  Times: each run once
+    after its checked run (CUDA events), the initial trajectory apart from
+    the iterations, one IPLS iteration under ``torch.profiler``, the peak
+    memory of the linear scans.
+    """
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch import mtran, parallel as par
+    from ssmtoybox_torch.bq.models import GaussianProcessModel
+    from ssmtoybox_torch.ops import scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
+    from ssmtoybox_torch.parallel import iplf
+    from ssmtoybox_torch.ssmod import (MeasurementModel, Pendulum2DMeasurement,
+                                       Pendulum2DTransition, UNGMTransition)
+    from ssmtoybox_torch.utils import GaussRV
+
+    def counters():
+        return (sf.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES, vdm.LAUNCHES,
+                tuple(smc.LAUNCHES.values()))
+
+    class AngleMeasurement(MeasurementModel):
+        """The angle itself: a unimodal measurement, block-observer territory."""
+        dim_substate, dim_out, dim_noise = 2, 1, 1
+
+        def meas_fcn(self, x, r, time):
+            return x[..., :1] + r
+
+    def rmse(x_true, m):
+        return float(torch.sqrt(torch.mean((m.double() - x_true) ** 2)))
+
+    t_phase = time.perf_counter()
+    before = counters()
+
+    def plog(msg):
+        """``log`` with the seconds since the phase began in front."""
+        log(f"[{time.perf_counter() - t_phase:6.1f} s] {msg}")
+
+    f32 = torch.float32
+    q = 0.1 * np.array([[PAR_DT ** 3 / 3, PAR_DT ** 2 / 2], [PAR_DT ** 2 / 2, PAR_DT]])
+    dyn = Pendulum2DTransition(GaussRV(2, mean=[1.5, 0.0], cov=0.01 * np.eye(2), device=dev),
+                               GaussRV(2, cov=q, device=dev), dt=PAR_DT)
+    obs = Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=dev), dim_state=2)
+    obs_angle = AngleMeasurement(GaussRV(1, cov=0.1, device=dev), dim_state=2)
+    ut = mtran.UnscentedTransform(2, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    t0 = time.perf_counter()
+    x = dyn.simulate_discrete(gen, steps=PAR_BLOCK, mc_sims=1)[..., 0]  # (2, N)
+    # both measurements of the whole record in one call each (additive noise)
+    y_sin, y_ang = (o.meas_eval(x.T, 0).T + o.noise_rv.sample(gen, (PAR_BLOCK,))
+                    for o in (obs, obs_angle))
+    torch.cuda.synchronize()
+    plog(f"parallel: pendulum simulated on the card, {PAR_BLOCK} steps, both measurements, "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # the sequential UKF + RTS reference (eager) and IPLS(2) on the same record
+    t0 = time.perf_counter()
+    seq = stt.gaussian_filter_batch(dyn, obs, ut, ut, y_sin[None, :, :PAR_SEQ], engine="f64")
+    seq_sm, _ = stt.gaussian_smoother(seq, rts_full=True)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    ipls = par.iterated_parallel_smoother(dyn, obs, ut, ut, y_sin[:, :PAR_SEQ],
+                                          iterations=PAR_ITERS)
+    r_seq, r_ipls = rmse(x[:, :PAR_SEQ], seq_sm[0]), rmse(x[:, :PAR_SEQ], ipls.sm_mean)
+    plog(f"parallel: sequential UKF + RTS (eager f64), {PAR_SEQ} steps: {seq_s:.2f} s (host "
+         f"clock, one call), filter RMSE {rmse(x[:, :PAR_SEQ], seq.fi_mean[0]):.6f}, smoother "
+         f"RMSE {r_seq:.6f}; IPLS(2) f64 (init 'observer') on the same record: smoother RMSE "
+         f"{r_ipls:.6f} (limit x{PAR_RMSE_FACTOR})")
+    if not r_ipls <= PAR_RMSE_FACTOR * r_seq:
+        fail(f"parallel IPLS(2): smoother RMSE {r_ipls} above {PAR_RMSE_FACTOR} x {r_seq}")
+
+    def run(y, n, dtype, sqrt, obs_, init):
+        """One checked IPLS(2) configuration: the initial trajectory timed
+        alone (an array ``init`` is taken as it is; the block observer at
+        the defaults, blocks of 2,048 steps and 512 of warm-up), the
+        smoother from it checked, then timed."""
+        prob = iplf._Problem(dyn, obs_, ut, ut, y[:, :n], dtype=dtype)
+        init_ms, traj = event_ms(torch, lambda: iplf._initial_trajectory(prob, init))
+        call = lambda: par.iterated_parallel_smoother(
+            dyn, obs_, ut, ut, y[:, :n], iterations=PAR_ITERS, init=traj, sqrt=sqrt,
+            dtype=dtype, chol_jitter=0.0 if dtype is None else 1e-7)
+        res = call()
+        torch.cuda.synchronize()
+        scan_ms, _ = event_ms(torch, call)
+        return res, traj, init_ms, scan_ms
+
+    out = {}
+    for name, y, n, dtype, sqrt, obs_, init in (
+            ("IPLS(2) f64", y_sin, PAR_SHORT, None, False, obs, "observer"),
+            ("SR-IPLS(2) f32", y_sin, PAR_SHORT, f32, True, obs, "observer"),
+            ("IPLS(2) f64", y_sin, PAR_LONG, None, False, obs, "observer"),
+            # from the float64 observer's trajectory: the observer is a host-bound
+            # loop (~1 ms a step), and a second one of PAR_LONG steps would double
+            # the phase
+            ("SR-IPLS(2) f32", y_sin, PAR_LONG, f32, True, obs, "float64 observer"),
+            ("IPLS(2) f64 angle", y_ang, PAR_BLOCK, None, False, obs_angle, "block-observer")):
+        given = init == "float64 observer"
+        res, traj, init_ms, scan_ms = run(
+            y, n, dtype, sqrt, obs_, out["IPLS(2) f64", n][1].to(dtype) if given else init)
+        out[name, n] = (res, traj)
+        fin = all(bool(torch.isfinite(getattr(res, f)).all()) for f in res.__dataclass_fields__)
+        r_fi, r_sm = rmse(x[:, :n], res.fi_mean), rmse(x[:, :n], res.sm_mean)
+        depth = n if init == "observer" else 2048 + 512
+        plog(f"parallel {name}, {n} steps, init {init!r}: "
+            + ("" if given else f"init {init_ms:.1f} ms ({init_ms / depth * 1e3:.1f} us a "
+                                f"sequential step of {depth}), ")
+            + f"{PAR_ITERS} iterations {scan_ms:.1f} ms (CUDA events, one call after the "
+            f"checked one), in all {init_ms + scan_ms:.1f} ms; RMSE filter {r_fi:.6f}, smoother "
+            f"{r_sm:.6f}, finite {fin}")
+        if not fin:
+            fail(f"parallel {name}, {n} steps: not finite")
+    if not (r_sm < r_fi and r_sm < PAR_BLOCK_RMSE):
+        fail(f"parallel block-observer run: smoother RMSE {r_sm} (filter {r_fi}, limit "
+             f"{PAR_BLOCK_RMSE})")
+
+    for n in (PAR_SHORT, PAR_LONG):
+        r32 = rmse(x[:, :n], out["SR-IPLS(2) f32", n][0].sm_mean)
+        r64 = rmse(x[:, :n], out["IPLS(2) f64", n][0].sm_mean)
+        plog(f"parallel SR-IPLS(2) f32 vs IPLS(2) f64, {n} steps: smoother RMSE {r32:.6f} vs "
+            f"{r64:.6f} ({abs(r32 - r64) / r64:.3%} off; limit 5%)")
+        if not abs(r32 - r64) <= 0.05 * r64:
+            fail(f"parallel SR-IPLS(2) f32 at {n} steps: RMSE {r32} more than 5% off {r64}")
+
+    # the card against the CPU on a prefix
+    y_pre = y_sin[:, :PAR_CPU_PREFIX]
+    card = par.iterated_parallel_smoother(dyn, obs, ut, ut, y_pre, iterations=PAR_ITERS)
+    cpu = par.iterated_parallel_smoother(on_cpu(torch, dyn), on_cpu(torch, obs),
+                                         on_cpu(torch, ut), on_cpu(torch, ut), y_pre.cpu(),
+                                         iterations=PAR_ITERS)
+    err = streams_err(torch, card, cpu)
+    traj = iplf._initial_trajectory(iplf._Problem(dyn, obs, ut, ut, y_pre), "observer")
+    from_traj = par.iterated_parallel_smoother(dyn, obs, ut, ut, y_pre, iterations=PAR_ITERS,
+                                               init=traj)
+    same = all(torch.equal(getattr(card, f), getattr(from_traj, f))
+               for f in card.__dataclass_fields__)
+    plog(f"parallel IPLS(2) f64, {PAR_CPU_PREFIX} steps: card vs CPU {err:.2e} of each "
+        f"stream's largest entry (limit 1e-9); init='observer' equal to the run from its "
+        f"trajectory passed as init (the timed runs' path): {same}")
+    if not err <= 1e-9:
+        fail(f"parallel IPLS(2): card {err:.3e} off the CPU")
+    if not same:
+        fail("parallel IPLS(2): init='observer' differs from its trajectory passed as init")
+
+    # where one iteration's time goes
+    traj = out["IPLS(2) f64", PAR_SHORT][1]
+    wall, busy, n_dev, top = profile_split(torch, lambda: par.iterated_parallel_smoother(
+        dyn, obs, ut, ut, y_sin[:, :PAR_SHORT], iterations=1, init=traj))
+    plog(f"parallel IPLS(1) f64, {PAR_SHORT} steps, under torch.profiler: wall {wall:.1f} ms, "
+        f"device busy {busy:.2f} ms ({busy / wall:.1%}), {n_dev} device activities; top: "
+        + "; ".join(f"{k} {v:.3f} ms in {n_}" for k, v, n_ in top))
+
+    # the linear scans on a random stable affine model
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    d, e = 4, 2
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev, dtype=torch.float64)
+
+    def pd(*lead, k):
+        a = rnd(*lead, k, k)
+        return a @ a.mT + 0.5 * torch.eye(k, dtype=torch.float64, device=dev)
+
+    n_max = PAR_LINEAR[-1]
+    torch.cuda.reset_peak_memory_stats()
+    # spectral norm at most 0.9 (a Frobenius-normed draw; a batched QR with its
+    # Q took a minute at 10^6 matrices on the card)
+    A = rnd(n_max, d, d)
+    Fs = 0.9 * A / torch.linalg.matrix_norm(A)[..., None, None]
+    bs, Qs, Hs = 0.1 * rnd(n_max, d), 0.2 * pd(n_max, k=d), rnd(n_max, e, d)
+    cs, Rs, ys = 0.1 * rnd(n_max, e), 0.5 * pd(n_max, k=e), rnd(e, n_max)
+    m0, P0 = rnd(d), pd(k=d)
+    SQs, SRs, S0 = (torch.linalg.cholesky(a) for a in (Qs, Rs, P0))
+
+    def outer(S):
+        return torch.einsum("ijn,kjn->ikn", S, S)
+
+    for n in PAR_LINEAR:
+        a = (Fs[:n], bs[:n], Qs[:n], Hs[:n], cs[:n], Rs[:n], m0, P0, ys[:, :n])
+        s_a = (Fs[:n], bs[:n], SQs[:n], Hs[:n], cs[:n], SRs[:n], m0, S0, ys[:, :n])
+        fm, fP = par.parallel_affine_filter(*a)
+        sm, sP = par.parallel_affine_smoother(Fs[:n], bs[:n], Qs[:n], fm, fP)
+        qm, qS = par.parallel_affine_sqrt_filter(*s_a)
+        rm, rS = par.parallel_affine_sqrt_smoother(Fs[:n], bs[:n], SQs[:n], qm, qS)
+        torch.cuda.synchronize()
+        t = {"filter": event_ms(torch, lambda: par.parallel_affine_filter(*a))[0],
+             "smoother": event_ms(torch, lambda: par.parallel_affine_smoother(
+                 Fs[:n], bs[:n], Qs[:n], fm, fP))[0],
+             "sqrt filter": event_ms(torch, lambda: par.parallel_affine_sqrt_filter(*s_a))[0],
+             "sqrt smoother": event_ms(torch, lambda: par.parallel_affine_sqrt_smoother(
+                 Fs[:n], bs[:n], SQs[:n], qm, qS))[0]}
+        errs = {"fi_mean": rel_err(qm, fm), "fi_cov": rel_err(outer(qS), fP),
+                "sm_mean": rel_err(rm, sm), "sm_cov": rel_err(outer(rS), sP)}
+        plog(f"parallel linear scans, D={d}, E={e}, {n} steps: "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in t.items())
+            + " (CUDA events, one call after the checked one); square-root vs full: "
+            + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (limit 1e-8)")
+        if not max(errs.values()) <= 1e-8:
+            fail(f"parallel linear scans at {n} steps: square-root forms off the full ({errs})")
+    bm, bS = par.parallel_affine_sqrt_filter(*s_a, scan_block_len=PAR_SCAN_BLOCK)
+    bsm, bsS = par.parallel_affine_sqrt_smoother(Fs, bs, SQs, bm, bS,
+                                                 scan_block_len=PAR_SCAN_BLOCK)
+    torch.cuda.synchronize()
+    tb = {"sqrt filter": event_ms(torch, lambda: par.parallel_affine_sqrt_filter(
+        *s_a, scan_block_len=PAR_SCAN_BLOCK))[0],
+          "sqrt smoother": event_ms(torch, lambda: par.parallel_affine_sqrt_smoother(
+              Fs, bs, SQs, bm, bS, scan_block_len=PAR_SCAN_BLOCK))[0]}
+    errs = {"fi_mean": rel_err(bm, qm), "fi_sqrt": rel_err(bS, qS), "sm_mean": rel_err(bsm, rm),
+            "sm_sqrt": rel_err(bsS, rS)}
+    plog(f"parallel linear square-root scans by blocks of {PAR_SCAN_BLOCK}, {n_max} steps: "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in tb.items()) + "; vs unblocked "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()) + " (limit 1e-12); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    if not max(errs.values()) <= 1e-12:
+        fail(f"parallel blocked scans off the unblocked ones ({errs})")
+    del Fs, bs, Qs, Hs, cs, Rs, ys, SQs, SRs
+
+    # the batched NLML fit of the UNGM GPQKF's GP model
+    u_dyn = UNGMTransition(GaussRV(1, cov=5.0, device=dev), GaussRV(1, cov=10.0, device=dev))
+    steps = 100
+    xu = u_dyn.simulate_discrete(gen, steps=steps, mc_sims=PAR_FIT_SETS // steps)  # (1, N, M)
+    gp = GaussianProcessModel(1, np.array([[1.0, 3.0]]), "rbf", "ut", device=dev)
+    states = xu[0].T.reshape(-1, 1, 1)                                             # (B, 1, 1)
+    times = torch.arange(steps, dtype=torch.float64, device=dev).repeat(PAR_FIT_SETS // steps)
+    fo = u_dyn.dyn_eval(states + gp.points.T, times[:, None, None])                # (B, 3, 1)
+    lp, losses = par.fit_kernel_params(gp, np.zeros(2), fo, gp.points,
+                                       num_steps=PAR_FIT_STEPS)
+    torch.cuda.synchronize()
+    fit_ms, _ = event_ms(torch, lambda: par.fit_kernel_params(gp, np.zeros(2), fo, gp.points,
+                                                              num_steps=PAR_FIT_STEPS))
+    lp_cpu, losses_cpu = par.fit_kernel_params(on_cpu(torch, gp), np.zeros(2), fo.cpu(),
+                                               gp.points.cpu(), num_steps=PAR_FIT_CPU_STEPS)
+    cpu_err = max(rel_err(losses[:PAR_FIT_CPU_STEPS].cpu(), losses_cpu),
+                  float((lp_cpu - par.fit_kernel_params(
+                      gp, np.zeros(2), fo, gp.points,
+                      num_steps=PAR_FIT_CPU_STEPS)[0].cpu()).abs().max()))
+    plog(f"parallel fit: {PAR_FIT_SETS} sets, {PAR_FIT_STEPS} Adam steps in {fit_ms:.1f} ms "
+        f"({fit_ms / PAR_FIT_STEPS:.2f} ms a step, CUDA events); loss {float(losses[0]):.6f} -> "
+        f"{float(losses[-1]):.6f}, log-parameters {lp.tolist()}; first {PAR_FIT_CPU_STEPS} "
+        f"steps vs the CPU {cpu_err:.2e} (limit 1e-9)")
+    if not (float(losses[-1]) < float(losses[0]) and bool(torch.isfinite(lp).all())):
+        fail(f"parallel fit: the loss did not fall ({float(losses[0])} -> {float(losses[-1])})")
+    if not cpu_err <= 1e-9:
+        fail(f"parallel fit: {cpu_err:.3e} off the CPU")
+
+    torch.cuda.synchronize()
+    if counters() != before:
+        fail(f"the time-parallel path launched a kernel: counters {before} -> {counters()}")
+    plog(f"parallel phase: {time.perf_counter() - t_phase:.1f} s in all; card: {card_line()}")
+
+
 def main():
     import numpy as np
     import torch
@@ -3053,6 +3354,7 @@ def main():
     vf_first["launches"] += rest["vector_filter"]
     marginal_online_slice(torch, np, dev, (dyn, obs, xs, ys))
     sqrt_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
+    parallel_slice(torch, np, dev)
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{

@@ -6,7 +6,7 @@ port runs on the CUDA card by default; ``set_device("cpu")`` runs it on the
 CPU.  The JAX package ``ssmtoybox_tpu`` is the reference each part is held
 against; this package never imports it, nor JAX.
 """
-from . import bq, mtran, online, ops, points, sqrt, ssinf, ssmod, utils
+from . import bq, mtran, online, ops, parallel, points, sqrt, ssinf, ssmod, utils
 from .mtran import (FullySymmetricStudentTransform, GaussHermiteTransform,
                     LinearizationTransform, MonteCarloTransform, SigmaPointTransform,
                     SphericalRadialTransform, TaylorGPQDTransform, UnscentedTransform)
@@ -33,7 +33,7 @@ from .utils.arrays import default_device, set_device
 from .utils.rv import GaussianMixtureRV, GaussRV, StudentRV
 
 __all__ = [
-    "bq", "mtran", "online", "ops", "points", "sqrt", "ssinf", "ssmod", "utils",
+    "bq", "mtran", "online", "ops", "parallel", "points", "sqrt", "ssinf", "ssmod", "utils",
     "default_device", "set_device", "GaussRV", "StudentRV", "GaussianMixtureRV",
     "LinearizationTransform", "MonteCarloTransform", "SigmaPointTransform",
     "SphericalRadialTransform", "UnscentedTransform", "GaussHermiteTransform",

@@ -15,7 +15,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["maha", "symmetrize", "chol_small", "safe_cholesky", "mat_sqrt", "pd_solve",
+__all__ = ["maha", "symmetrize", "chol_small", "chol_small_psd", "safe_cholesky", "mat_sqrt",
+           "pd_solve",
            "pd_solve_small", "pd_inv", "tri_solve_small", "pd_logdet", "small_mm3",
            "gen_solve", "gen_inv", "block_diag", "ellipse_points", "tria", "cholupdate_small"]
 
@@ -44,6 +45,48 @@ def chol_small(a: torch.Tensor) -> torch.Tensor:
     """
     L, info = torch.linalg.cholesky_ex(a)
     return torch.where((info == 0)[..., None, None], L, torch.nan)
+
+
+#: the JAX package's limit of its unrolled Cholesky recurrences; above it
+#: :func:`chol_small_psd` takes the library factor instead
+SMALL_DIM_MAX = 9
+
+
+def chol_small_psd(a: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of a positive SEMI-definite ``a`` (..., D, D),
+    clamped where a plain factorisation would fail.
+
+    Rank-deficient inputs are routine in the square-root scans: the SLR
+    residual of a linear model is exactly zero, and ``G Q G^T`` through a thin
+    gain has rank below D.  Each pivot is clamped at zero, and the column of a
+    pivot under ``sqrt(max_diag * eps) * D`` is zeroed (the resolution at
+    which a pivot is told apart from elimination round-off), so ``L L^T`` may
+    differ from ``a`` by ``~D sqrt(eps)`` of its scale.  The JAX package's
+    recurrence, written over the batch: Python loops over the entries only.
+    Above :data:`SMALL_DIM_MAX` it is :func:`tria` of :func:`safe_cholesky`,
+    as there.
+    """
+    d = a.shape[-1]
+    if d > SMALL_DIM_MAX:
+        return tria(safe_cholesky(a))
+    fi = torch.finfo(a.dtype)
+    diag = torch.diagonal(a, dim1=-2, dim2=-1)
+    scale = torch.clamp(diag.max(dim=-1).values, min=fi.tiny)
+    tol = torch.sqrt(scale * fi.eps) * d
+    col = [[None] * d for _ in range(d)]
+    for i in range(d):
+        for j in range(i + 1):
+            s = a[..., i, j]
+            for k in range(j):
+                s = s - col[i][k] * col[j][k]
+            if i == j:
+                col[i][j] = torch.sqrt(torch.clamp(s, min=0.0))
+            else:
+                ok = col[j][j] > tol
+                col[i][j] = torch.where(ok, s / torch.where(ok, col[j][j], 1.0), 0.0)
+    zero = torch.zeros_like(a[..., 0, 0])
+    return torch.stack([torch.stack([col[i][j] if j <= i else zero for j in range(d)], dim=-1)
+                        for i in range(d)], dim=-2)
 
 
 def safe_cholesky(a: torch.Tensor, jitter: float = 0.0) -> torch.Tensor:

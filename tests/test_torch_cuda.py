@@ -670,3 +670,45 @@ def test_zoo_bq_rule_runs_in_the_first_version(card):
     torch.cuda.synchronize()
     for s, g, r in zip(STREAMS, got, vf._vector_filter_plain(params, y)):
         assert _same_bits(g, r), f"{s}: {float((g - r).nan_to_num().abs().max()):.3e}"
+
+
+def test_parallel_smoother_outputs_lie_on_the_card(card):
+    """``iterated_parallel_smoother`` on models built with no device
+    argument (the card) and a measurement record on the card: every output
+    on the card, float32 in square-root mode, finite."""
+    from ssmtoybox_torch.parallel import iterated_parallel_smoother
+    from ssmtoybox_torch.ssmod import Pendulum2DMeasurement, Pendulum2DTransition
+    dt = 0.01
+    q = 0.1 * np.array([[dt ** 3 / 3, dt ** 2 / 2], [dt ** 2 / 2, dt]])
+    dyn = Pendulum2DTransition(GaussRV(2, mean=[1.5, 0.0], cov=0.01 * np.eye(2)),
+                               GaussRV(2, cov=q), dt=dt)
+    obs = Pendulum2DMeasurement(GaussRV(1, cov=0.1), dim_state=2)
+    gen = torch.Generator(device=card).manual_seed(0)
+    y = obs.simulate_measurements(gen, dyn.simulate_discrete(gen, steps=300))[..., 0]
+    ut = stt.UnscentedTransform(2)
+    for kw in (dict(), dict(sqrt=True, dtype=torch.float32, chol_jitter=1e-7)):
+        res = iterated_parallel_smoother(dyn, obs, ut, ut, y, iterations=2, **kw)
+        for f in ("fi_mean", "fi_cov", "sm_mean", "sm_cov"):
+            t = getattr(res, f)
+            assert t.device.type == "cuda", f
+            assert t.dtype == kw.get("dtype", torch.float64), f
+            assert bool(torch.isfinite(t).all()), f
+
+
+def test_parallel_scans_and_fit_lie_on_the_card(card):
+    """The linear scans on arrays (they go to the default device, the card)
+    and the batched NLML fit on a GP model built with no device argument."""
+    from ssmtoybox_torch.bq.models import GaussianProcessModel
+    from ssmtoybox_torch.parallel import (fit_kernel_params, parallel_linear_sqrt_filter,
+                                          parallel_linear_sqrt_smoother)
+    rng = np.random.default_rng(0)
+    F, SQ = np.array([[1.0, 0.5], [0.0, 1.0]]), 0.1 * np.eye(2)
+    fm, fS = parallel_linear_sqrt_filter(F, SQ, np.eye(2)[:1], np.eye(1), np.zeros(2), np.eye(2),
+                                         rng.standard_normal((1, 100)), scan_block_len=32)
+    sm, sS = parallel_linear_sqrt_smoother(F, SQ, fm, fS)
+    assert all(t.device.type == "cuda" for t in (fm, fS, sm, sS))
+    gp = GaussianProcessModel(1, KERN_PAR, "rbf", "ut")
+    fo = torch.sin(gp.points.T + torch.linspace(0.0, 1.0, 64, device=card)[:, None, None])
+    lp, losses = fit_kernel_params(gp, np.zeros(2), fo, gp.points, num_steps=5)
+    assert lp.device.type == "cuda" and losses.device.type == "cuda"
+    assert float(losses[-1]) < float(losses[0])
