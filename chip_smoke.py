@@ -183,7 +183,16 @@ fails at once without them.  Phases, each fatal on failure:
     100,000 steps, the card against the CPU on a 500-step prefix; the linear
     and square-root affine scans at 10^4-10^6 steps (blocked and
     unblocked); the batched NLML fit of the UNGM GP model; no launch counter
-    may move (``parallel_slice``).
+    may move (``parallel_slice``);
+25. "mesh": the multi-rank half of ``parallel/`` on the one card, through
+    an NCCL world of one rank and 2-4 ranks as threads with gloo groups:
+    ``filter_mc_sharded`` and ``mc_metrics_sharded`` on the main path's UNGM
+    UKF data, ``filter_bank_sharded`` of four GPQ-UT transforms, the sharded
+    affine filters and smoothers at 10^6 and 10^6 + 3 steps, the iterated
+    smoother on a mesh, the fit on a mesh, each against its unsharded call;
+    the iterated extended smoother (``LinearizationTransform``) on a UNGM
+    record against the EKF + RTS smoother; no launch counter may move
+    (``mesh_slice``).
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -2869,6 +2878,31 @@ PAR_BLOCK_RMSE = 0.2        # tests/test_iplf.py's bound of a 10,000-step run in
 PAR_LINEAR = (10_000, 100_000, 1_000_000)
 PAR_SCAN_BLOCK = 65_536
 PAR_FIT_SETS, PAR_FIT_STEPS, PAR_FIT_CPU_STEPS = 10_000, 200, 20
+PAR_AFFINE_DIMS = (4, 2)
+
+
+def random_affine(torch, gen, n):
+    """Phase 24's random stable time-varying affine model of ``n`` steps
+    (D, E = ``PAR_AFFINE_DIMS``) drawn from ``gen`` on its device: the
+    full-covariance scans' arguments ``(Fs, bs, Qs, Hs, cs, Rs, m0, P0,
+    ys)`` and the square-root ones' (the covariances as Cholesky factors)."""
+    d, e = PAR_AFFINE_DIMS
+    dev = gen.device
+    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev, dtype=torch.float64)
+
+    def pd(*lead, k):
+        a = rnd(*lead, k, k)
+        return a @ a.mT + 0.5 * torch.eye(k, dtype=torch.float64, device=dev)
+
+    # spectral norm at most 0.9 (a Frobenius-normed draw; a batched QR with its
+    # Q took a minute at 10^6 matrices on the card)
+    A = rnd(n, d, d)
+    Fs = 0.9 * A / torch.linalg.matrix_norm(A)[..., None, None]
+    bs, Qs, Hs = 0.1 * rnd(n, d), 0.2 * pd(n, k=d), rnd(n, e, d)
+    cs, Rs, ys = 0.1 * rnd(n, e), 0.5 * pd(n, k=e), rnd(e, n)
+    m0, P0 = rnd(d), pd(k=d)
+    SQs, SRs, S0 = (torch.linalg.cholesky(a) for a in (Qs, Rs, P0))
+    return (Fs, bs, Qs, Hs, cs, Rs, m0, P0, ys), (Fs, bs, SQs, Hs, cs, SRs, m0, S0, ys)
 
 
 def parallel_slice(torch, np, dev):
@@ -3050,23 +3084,11 @@ def parallel_slice(torch, np, dev):
 
     # the linear scans on a random stable affine model
     gen = torch.Generator(device=dev).manual_seed(SEED + 24)
-    d, e = 4, 2
-    rnd = lambda *shape: torch.randn(*shape, generator=gen, device=dev, dtype=torch.float64)
-
-    def pd(*lead, k):
-        a = rnd(*lead, k, k)
-        return a @ a.mT + 0.5 * torch.eye(k, dtype=torch.float64, device=dev)
-
+    d, e = PAR_AFFINE_DIMS
     n_max = PAR_LINEAR[-1]
     torch.cuda.reset_peak_memory_stats()
-    # spectral norm at most 0.9 (a Frobenius-normed draw; a batched QR with its
-    # Q took a minute at 10^6 matrices on the card)
-    A = rnd(n_max, d, d)
-    Fs = 0.9 * A / torch.linalg.matrix_norm(A)[..., None, None]
-    bs, Qs, Hs = 0.1 * rnd(n_max, d), 0.2 * pd(n_max, k=d), rnd(n_max, e, d)
-    cs, Rs, ys = 0.1 * rnd(n_max, e), 0.5 * pd(n_max, k=e), rnd(e, n_max)
-    m0, P0 = rnd(d), pd(k=d)
-    SQs, SRs, S0 = (torch.linalg.cholesky(a) for a in (Qs, Rs, P0))
+    (Fs, bs, Qs, Hs, cs, Rs, m0, P0, ys), (_, _, SQs, _, _, SRs, _, S0, _) = random_affine(
+        torch, gen, n_max)
 
     def outer(S):
         return torch.einsum("ijn,kjn->ikn", S, S)
@@ -3143,6 +3165,360 @@ def parallel_slice(torch, np, dev):
     if counters() != before:
         fail(f"the time-parallel path launched a kernel: counters {before} -> {counters()}")
     plog(f"parallel phase: {time.perf_counter() - t_phase:.1f} s in all; card: {card_line()}")
+    return {"pendulum": (dyn, obs, ut, y_sin[:, :PAR_SHORT], out["IPLS(2) f64", PAR_SHORT][1]),
+            "fit": (gp, fo)}
+
+
+#: phase 25, "mesh": the multi-rank half of parallel/ on the one card, ranks
+#: as threads sharing it (gloo) beside a real NCCL world of one rank
+MESH_TIMEOUT = 300.0
+MESH_AFFINE = (1_000_000, 1_000_003)
+MESH_BANK_SCALES = (0.5, 1.0, 2.0, 4.0)
+#: the bank runs on the study's first steps: eight eager filters a rank
+#: issue their launches under one interpreter lock (22.9 s at 500 steps)
+MESH_BANK_STEPS = 100
+MESH_FIT_STEPS = 20
+MESH_LIN_STEPS = 2_000
+MESH_LIN_FACTOR = 1.05
+
+
+def free_port() -> int:
+    """A TCP port on the loopback that nothing listens on now."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def mesh_slice(torch, np, dev, ungm, shared):
+    """Phase 25, "mesh": the multi-rank half of ``parallel/`` (the sharded
+    time scans, the Monte-Carlo meshes, the fit on a mesh) on the one card;
+    eager, no kernel may launch.
+
+    Two setups of ranks: the default process group initialised here as an
+    NCCL world of one rank (``tcp://127.0.0.1:<free port>``), destroyed at
+    the end; and 2-4 ranks as threads sharing the card, each with its own
+    gloo group over one ``HashStore`` (NCCL refuses two ranks on one device;
+    the ``Mesh`` stages a CUDA tensor through the host for gloo and counts
+    those bytes).  Every thread joins within ``MESH_TIMEOUT`` s; a timeout or
+    an exception in any rank fails the run.  Gates, relative to each
+    stream's largest entry, every rank's result checked:
+    ``filter_mc_sharded`` on the main path's UNGM UKF data (10,000 x 500,
+    float64) at dp = 1 (NCCL), 2 and 3 (threads; 10,000 rows pad to 10,002)
+    within 1e-12 of the unsharded ``gaussian_filter_batch``, and
+    ``mc_metrics_sharded`` within 1e-12 of the study RMSE;
+    ``filter_bank_sharded`` of four GPQ-UT transforms (RBF ``[[1, 3 s]]``, s
+    in ``MESH_BANK_SCALES``) on the study's first ``MESH_BANK_STEPS`` steps
+    at (dp, fb) = (1, 1) (NCCL) and (2, 2) (threads), each member within
+    1e-12 of its own unsharded run on the same rows (at dp = 2 the two row
+    blocks filtered apart: the eager GPQ filter's rows depend on the batch's
+    size by rounding on the card, and UNGM grows it; the gap is printed); phase
+    24's random affine model at ``MESH_AFFINE`` steps (the second pads 3
+    identities on 2 and 4 ranks, 1 on 2), the full and square-root filters
+    and smoothers at t = 1 (NCCL), 2 and 4 (threads) within 1e-10 of the
+    unsharded scans; ``iterated_parallel_smoother(iterations=2, mesh=)`` on
+    phase 24's 10,000-step pendulum record from its float64 observer
+    trajectory, both ``sqrt`` settings, t = 1 and 4, within 1e-9;
+    ``fit_kernel_params(mesh=)`` on phase 24's 10,000 function-observation
+    sets, ``MESH_FIT_STEPS`` steps at dp = 1 and 3 (zero-weight padding)
+    within 1e-9; ``LinearizationTransform`` through the iterated smoother
+    (IPLS(2) from the EKF's filtered means) on a ``MESH_LIN_STEPS``-step UNGM
+    record, finite, smoothed RMSE within ``MESH_LIN_FACTOR`` of the
+    sequential EKF + RTS smoother's on the same record.  Times: CUDA events
+    around each sharded call (the thread ranks' work included: every thread
+    issues on the legacy default stream) beside the unsharded call, with
+    the collectives and bytes of a call (``Mesh.stats``).
+    """
+    import torch.distributed as dist
+
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch import mtran, parallel as par
+    from ssmtoybox_torch.bq.transforms import GaussianProcessTransform
+    from ssmtoybox_torch.ops import scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
+    from ssmtoybox_torch.parallel.mesh import Mesh, thread_ranks
+
+    def counters():
+        return (sf.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES, vdm.LAUNCHES,
+                tuple(smc.LAUNCHES.values()))
+
+    t_phase = time.perf_counter()
+    before = counters()
+
+    def plog(msg):
+        """``log`` with the seconds since the phase began in front."""
+        log(f"[{time.perf_counter() - t_phase:6.1f} s] {msg}")
+
+    def stats_line(stats):
+        return (f"{stats['all_gather']} all_gather + {stats['all_reduce']} all_reduce, "
+                f"{stats['bytes'] / 2 ** 20:.2f} MiB sent a rank, "
+                f"{stats['host_bytes'] / 2 ** 20:.2f} MiB through the host")
+
+    def ranked(mesh, fn):
+        """``(fn(mesh), this call's collectives)``."""
+        torch.cuda.set_device(dev)          # a thread rank's first call has no context
+        start = dict(mesh.stats)
+        out = fn(mesh)
+        return out, {k: v - start[k] for k, v in mesh.stats.items()}
+
+    def sharded(label, size, make, fn):
+        """``fn`` on every rank of a mesh: the NCCL world of one for
+        ``size == 1``, else ``size`` thread ranks with gloo groups; timed
+        with CUDA events; returns the ranks' results."""
+        torch.cuda.synchronize()
+        try:
+            if size == 1:
+                ms, outs = event_ms(torch, lambda: [ranked(make(None), fn)])
+            else:
+                ms, outs = event_ms(torch, lambda: thread_ranks(
+                    lambda g: ranked(make(g), fn), size, timeout=MESH_TIMEOUT))
+        except Exception as e:  # noqa: BLE001 - any rank's failure is fatal
+            fail(f"mesh {label} on {size} rank(s): {type(e).__name__}: {e}")
+        return ms, [o for o, _ in outs], outs[-1][1]
+
+    def streams(got, want, names):
+        return max(rel_err(getattr(got, n), getattr(want, n)) for n in names)
+
+    # the NCCL world of one rank
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    t0 = time.perf_counter()
+    try:
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}",
+                                world_size=1, rank=0)
+        probe = Mesh({"t": 1})
+        probe.all_reduce(torch.ones(1, device=dev))
+        torch.cuda.synchronize()
+    except Exception as e:  # noqa: BLE001 - a world that does not start is fatal
+        fail(f"mesh: the NCCL world of one rank did not initialise: {type(e).__name__}: {e}")
+    if probe.backend != "nccl":
+        fail(f"mesh: the default group runs {probe.backend}, not nccl")
+    plog(f"mesh: NCCL world of one rank up in {time.perf_counter() - t0:.2f} s (the first "
+         f"collective included); {probe!r}")
+    try:
+        # ---- Monte-Carlo studies ------------------------------------------
+        dyn, obs, xs, ys = ungm
+        ukf = stt.UnscentedKalman(dyn, obs)
+        td, to = ukf.tf_dyn, ukf.tf_obs
+        names = ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")
+        torch.cuda.synchronize()
+        ref_ms, ref = event_ms(torch, lambda: stt.gaussian_filter_batch(dyn, obs, td, to, ys))
+        study = torch.sqrt(torch.mean(torch.sum((xs - ref.fi_mean) ** 2, dim=1), dim=1)).mean()
+        plog(f"mesh MC: unsharded gaussian_filter_batch (f64), {tuple(ys.shape)}: "
+             f"{ref_ms:.1f} ms; study RMSE {float(study):.6f}")
+
+        def mc(mesh):
+            out = par.filter_mc_sharded(dyn, obs, td, to, ys, mesh)
+            return out, par.mc_metrics_sharded(xs, out, mesh)
+
+        for size in (1, 2, 3):
+            ms, outs, st = sharded("filter_mc_sharded", size,
+                                   lambda g, k=size: par.make_mesh(dp=k, group=g), mc)
+            err = max(streams(o, ref, names) for o, _ in outs)
+            rerr = max(float(abs(r - study) / study) for _, r in outs)
+            plog(f"mesh MC: filter_mc_sharded + mc_metrics_sharded, dp={size} "
+                 f"({'NCCL' if size == 1 else 'threads, gloo'}): {ms:.1f} ms (unsharded "
+                 f"{ref_ms:.1f}); streams {err:.2e}, RMSE {rerr:.2e} off (limits 1e-12); "
+                 f"a call: {stats_line(st)}")
+            if not (err <= 1e-12 and rerr <= 1e-12):
+                fail(f"mesh MC dp={size}: streams {err:.3e}, RMSE {rerr:.3e} off the unsharded")
+        del outs
+
+        bank = [GaussianProcessTransform(1, 1, np.array([[1.0, 3.0 * sc]]), point_str="ut",
+                                         device=dev) for sc in MESH_BANK_SCALES]
+        yb = ys[..., :MESH_BANK_STEPS]
+        filt = lambda rows: [stt.gaussian_filter_batch(dyn, obs, t, t, rows) for t in bank]
+        torch.cuda.synchronize()
+        bank_ms, refs = event_ms(torch, lambda: filt(yb))
+        # the eager GPQ filter's rows depend on the batch's size by rounding on
+        # the card (batched cuBLAS / MAGMA calls), which UNGM grows: the members
+        # are held to unsharded runs of the same row blocks, and the gap of
+        # those blocks to the whole batch is printed
+        half = -(-yb.shape[0] // 2)            # the rows of dp = 2's first rank
+        blocks = [filt(yb[:half]), filt(yb[half:])]
+        gap = max(rel_err(getattr(b[k], n), getattr(refs[k], n)[sl])
+                  for b, sl in zip(blocks, (slice(0, half), slice(half, None)))
+                  for k in range(len(bank)) for n in names)
+        plog(f"mesh bank: K={len(bank)} GPQ-UT members unsharded, {tuple(yb.shape)} (the study "
+             f"cut to {MESH_BANK_STEPS} steps): {bank_ms:.1f} ms; the two halves of the batch "
+             f"filtered apart are {gap:.2e} off the whole batch's rows")
+        for (dp, fb) in ((1, 1), (2, 2)):
+            ms, outs, st = sharded("filter_bank_sharded", dp * fb,
+                                   lambda g, a=dp, b=fb: par.make_mesh(dp=a, fb=b, group=g),
+                                   lambda mesh: par.filter_bank_sharded(dyn, obs, bank, bank,
+                                                                        yb, mesh))
+            want = (lambda k, n: getattr(refs[k], n)) if dp == 1 else (
+                lambda k, n: torch.cat([getattr(b[k], n) for b in blocks]))
+            err = max(rel_err(getattr(o, n)[k], want(k, n))
+                      for o in outs for k in range(len(bank)) for n in names)
+            whole = max(rel_err(getattr(o, n)[k], getattr(refs[k], n))
+                        for o in outs for k in range(len(bank)) for n in names)
+            plog(f"mesh bank: filter_bank_sharded, (dp, fb)=({dp}, {fb}) "
+                 f"({'NCCL' if dp * fb == 1 else 'threads, gloo'}): {ms:.1f} ms (unsharded, "
+                 f"member by member, {bank_ms:.1f}); members {err:.2e} off their unsharded runs "
+                 f"of the same row blocks (limit 1e-12), {whole:.2e} off the whole batch's; a "
+                 f"call: {stats_line(st)}")
+            if not err <= 1e-12:
+                fail(f"mesh bank ({dp}, {fb}): {err:.3e} off the unsharded members")
+        del outs, refs, blocks, ref
+
+        # ---- the time axis ------------------------------------------------
+        gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+        full_all, sqrt_all = random_affine(torch, gen, max(MESH_AFFINE))
+
+        def cut(args, n):
+            """The first ``n`` steps of a model: the six per-step arrays and
+            the record, the prior as it is."""
+            return tuple(a[:n] for a in args[:6]) + args[6:8] + (args[8][:, :n],)
+
+        def passes(n, mesh=None):
+            full, sqr = cut(full_all, n), cut(sqrt_all, n)
+            Fs, bs, Qs, SQs = full[0], full[1], full[2], sqr[2]
+            if mesh is None:
+                fm, fP = par.parallel_affine_filter(*full)
+                qm, qS = par.parallel_affine_sqrt_filter(*sqr)
+                return ((fm, fP) + par.parallel_affine_smoother(Fs, bs, Qs, fm, fP) + (qm, qS)
+                        + par.parallel_affine_sqrt_smoother(Fs, bs, SQs, qm, qS))
+            fm, fP = par.sharded_parallel_affine_filter(*full, mesh)
+            qm, qS = par.sharded_parallel_affine_sqrt_filter(*sqr, mesh)
+            return ((fm, fP) + par.sharded_parallel_affine_smoother(Fs, bs, Qs, fm, fP, mesh)
+                    + (qm, qS) + par.sharded_parallel_affine_sqrt_smoother(Fs, bs, SQs, qm, qS,
+                                                                           mesh))
+
+        for n in MESH_AFFINE:
+            passes(n)
+            torch.cuda.synchronize()
+            ref_ms, want = event_ms(torch, lambda: passes(n))
+            for size in (1, 2, 4):
+                ms, outs, st = sharded("affine scans", size,
+                                       lambda g, k=size: Mesh({"t": k}, g),
+                                       lambda mesh: passes(n, mesh))
+                err = max(rel_err(g_, w_) for o in outs for g_, w_ in zip(o, want))
+                plog(f"mesh time axis: filter, smoother and their square-root forms, {n} steps, "
+                     f"t={size} ({'NCCL' if size == 1 else 'threads, gloo'}): {ms:.1f} ms "
+                     f"(unsharded {ref_ms:.1f}); {err:.2e} off (limit 1e-10); the four calls: "
+                     f"{stats_line(st)}")
+                if not err <= 1e-10:
+                    fail(f"mesh time axis, {n} steps, t={size}: {err:.3e} off the unsharded")
+            del outs, want
+        del full_all, sqrt_all
+
+        p_dyn, p_obs, ut, y_p, traj = shared["pendulum"]
+        fields = ("fi_mean", "fi_cov", "sm_mean", "sm_cov")
+        for sq in (False, True):
+            run = lambda mesh=None: par.iterated_parallel_smoother(
+                p_dyn, p_obs, ut, ut, y_p, iterations=PAR_ITERS, init=traj, sqrt=sq, mesh=mesh)
+            torch.cuda.synchronize()
+            ref_ms, want = event_ms(torch, run)
+            for size in (1, 4):
+                ms, outs, st = sharded("iterated smoother", size,
+                                       lambda g, k=size: Mesh({"t": k}, g), run)
+                err = max(streams(o, want, fields) for o in outs)
+                plog(f"mesh IPLS({PAR_ITERS}) {'square-root ' if sq else ''}f64, pendulum "
+                     f"{y_p.shape[-1]} steps from the observer's trajectory, t={size}: {ms:.1f} "
+                     f"ms (unsharded {ref_ms:.1f}); {err:.2e} off (limit 1e-9); a call: "
+                     f"{stats_line(st)}")
+                if not err <= 1e-9:
+                    fail(f"mesh IPLS sqrt={sq}, t={size}: {err:.3e} off the unsharded")
+
+        gp, fo = shared["fit"]
+        fit = lambda mesh=None: par.fit_kernel_params(gp, np.zeros(2), fo, gp.points,
+                                                      num_steps=MESH_FIT_STEPS, mesh=mesh)
+        torch.cuda.synchronize()
+        ref_ms, (lp0, l0) = event_ms(torch, fit)
+        for size in (1, 3):
+            ms, outs, st = sharded("fit", size, lambda g, k=size: par.make_mesh(dp=k, group=g),
+                                   fit)
+            err = max(max(rel_err(lp, lp0), rel_err(l, l0)) for lp, l in outs)
+            plog(f"mesh fit: fit_kernel_params, {fo.shape[0]} sets, {MESH_FIT_STEPS} Adam steps, "
+                 f"dp={size}: {ms:.1f} ms (unsharded {ref_ms:.1f}); {err:.2e} off (limit 1e-9); "
+                 f"a call: {stats_line(st)}")
+            if not err <= 1e-9:
+                fail(f"mesh fit dp={size}: {err:.3e} off the unsharded fit")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- the linearizing transforms in the time-parallel smoother ---------
+    dyn, obs = ungm[:2]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    x = dyn.simulate_discrete(gen, steps=MESH_LIN_STEPS, mc_sims=1)
+    y = obs.simulate_measurements(gen, x)
+    xt = x[:, :, 0]
+    lin = mtran.LinearizationTransform(1, device=dev)
+    rmse = lambda m: float(torch.sqrt(torch.mean((m - xt) ** 2)))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ekf = stt.gaussian_filter_batch(dyn, obs, lin, lin, y.permute(2, 0, 1))
+    eks, _ = stt.gaussian_smoother(ekf, rts_full=True)
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    init = torch.cat([dyn.init_rv.mean[None], ekf.fi_mean[0].T])
+    run = lambda: par.iterated_parallel_smoother(dyn, obs, lin, lin, y[:, :, 0],
+                                                 iterations=PAR_ITERS, init=init)
+    run()
+    torch.cuda.synchronize()
+    ipls_ms, res = event_ms(torch, run)
+    fin = all(bool(torch.isfinite(getattr(res, f)).all()) for f in res.__dataclass_fields__)
+    r_eks, r_ipls = rmse(eks[0]), rmse(res.sm_mean)
+    plog(f"mesh linearizing: EKF + RTS (eager f64), UNGM {MESH_LIN_STEPS} steps: {seq_s:.2f} s "
+         f"(host clock), filter RMSE {rmse(ekf.fi_mean[0]):.6f}, smoother RMSE {r_eks:.6f}; "
+         f"IPLS({PAR_ITERS}) with LinearizationTransform from the EKF's means: {ipls_ms:.1f} ms, "
+         f"filter RMSE {rmse(res.fi_mean):.6f}, smoother RMSE {r_ipls:.6f} (limit "
+         f"x{MESH_LIN_FACTOR}), finite {fin}")
+    if not (fin and r_ipls <= MESH_LIN_FACTOR * r_eks):
+        fail(f"mesh linearizing IPLS: finite {fin}, smoother RMSE {r_ipls} against the EKS's "
+             f"{r_eks}")
+
+    torch.cuda.synchronize()
+    if counters() != before:
+        fail(f"the mesh path launched a kernel: counters {before} -> {counters()}")
+    plog(f"mesh phase: {time.perf_counter() - t_phase:.1f} s in all; card: {card_line()}")
+
+
+def mesh_alone():
+    """Phase 25 alone, without the kernels' builds and the other phases:
+    ``python3 -c "import chip_smoke; chip_smoke.mesh_alone()"``.  The main
+    path's UNGM data and a ``PAR_SHORT``-step pendulum record with its
+    float64 observer trajectory and the fit's function-observation sets,
+    simulated as phases 4 and 24 simulate theirs (the pendulum's
+    measurements drawn after its ``PAR_SHORT`` states, not 100,000)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from ssmtoybox_torch import mtran, parallel as par
+    from ssmtoybox_torch.bq.models import GaussianProcessModel
+    from ssmtoybox_torch.parallel import iplf
+    from ssmtoybox_torch.ssmod import (Pendulum2DMeasurement, Pendulum2DTransition,
+                                       UNGMMeasurement, UNGMTransition)
+    from ssmtoybox_torch.utils import GaussRV
+
+    if not torch.cuda.is_available():
+        fail("mesh_alone: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"card: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=dev), GaussRV(1, cov=10.0, device=dev))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=1)
+    x = dyn.simulate_discrete(gen, steps=UNGM_STEPS, mc_sims=MC)
+    xs, ys = x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1)
+    q = 0.1 * np.array([[PAR_DT ** 3 / 3, PAR_DT ** 2 / 2], [PAR_DT ** 2 / 2, PAR_DT]])
+    p_dyn = Pendulum2DTransition(GaussRV(2, mean=[1.5, 0.0], cov=0.01 * np.eye(2), device=dev),
+                                 GaussRV(2, cov=q, device=dev), dt=PAR_DT)
+    p_obs = Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=dev), dim_state=2)
+    ut = mtran.UnscentedTransform(2, device=dev)
+    p_x = p_dyn.simulate_discrete(gen, steps=PAR_SHORT, mc_sims=1)[..., 0]
+    y_p = p_obs.meas_eval(p_x.T, 0).T + p_obs.noise_rv.sample(gen, (PAR_SHORT,))
+    traj = iplf._initial_trajectory(iplf._Problem(p_dyn, p_obs, ut, ut, y_p), "observer")
+    steps = 100
+    xu = dyn.simulate_discrete(gen, steps=steps, mc_sims=PAR_FIT_SETS // steps)
+    gp = GaussianProcessModel(1, np.array([[1.0, 3.0]]), "rbf", "ut", device=dev)
+    times = torch.arange(steps, dtype=torch.float64, device=dev).repeat(PAR_FIT_SETS // steps)
+    fo = dyn.dyn_eval(xu[0].T.reshape(-1, 1, 1) + gp.points.T, times[:, None, None])
+    par.fit_kernel_params(gp, np.zeros(2), fo, gp.points, num_steps=2)   # as phase 24 warms it
+    mesh_slice(torch, np, dev, (dyn, obs, xs, ys),
+               {"pendulum": (p_dyn, p_obs, ut, y_p, traj), "fit": (gp, fo)})
 
 
 def main():
@@ -3354,7 +3730,8 @@ def main():
     vf_first["launches"] += rest["vector_filter"]
     marginal_online_slice(torch, np, dev, (dyn, obs, xs, ys))
     sqrt_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
-    parallel_slice(torch, np, dev)
+    shared = parallel_slice(torch, np, dev)
+    mesh_slice(torch, np, dev, (dyn, obs, xs, ys), shared)
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{

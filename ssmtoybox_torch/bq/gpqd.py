@@ -19,7 +19,7 @@ import torch
 
 from ..points import get_points
 from ..utils.arrays import f64, resolve_device
-from ..utils.autodiff import jacobian
+from ..utils.autodiff import jacobian_in_time
 from ..utils.linalg import pd_solve, symmetrize
 from .kernels import RBFGauss, _unpack_rbf
 from .models import BQWeights, GaussianProcessModel
@@ -231,5 +231,5 @@ class GaussianProcessDerTransform(BQTransform):
     def _fcn_eval(self, f, x, time):
         fx = super()._fcn_eval(f, x, time)                               # (M, E, N)
         xd = x[..., list(self.which_der)].mT                             # (M, Nd, D)
-        jac = jacobian(lambda v: f(v, time), (xd,))                      # (M, Nd, E, D)
+        jac = jacobian_in_time(f, xd, time)                              # (M, Nd, E, D)
         return torch.cat([fx, jac.movedim(-3, -2).flatten(-2)], dim=-1)

@@ -23,7 +23,7 @@ import torch
 
 from . import points as pts
 from .utils.arrays import f64, resolve_device
-from .utils.autodiff import jacobian
+from .utils.autodiff import jacobian_in_time
 from .utils.linalg import chol_small, pd_logdet, pd_solve
 
 __all__ = [
@@ -57,8 +57,12 @@ class MomentTransform:
 
 
 def _value_and_jacobian(f, mean, time):
-    """``f(mean)`` (M, E) and its Jacobian (M, E, D) at each row of ``mean``."""
-    return f(mean, time), jacobian(lambda v: f(v, time), (mean,))
+    """``f(mean)`` (M, E) and its Jacobian (M, E, D) at each row of ``mean``.
+    A tensor ``time`` broadcasts against point sets (M, n, D): its point axis
+    is dropped to meet the rows."""
+    if isinstance(time, torch.Tensor) and time.ndim >= 2:
+        time = time.squeeze(-2)
+    return f(mean, time), jacobian_in_time(f, mean, time)
 
 
 class LinearizationTransform(MomentTransform):

@@ -19,9 +19,9 @@ filter and RTS smoother.
 Each step's SLR sees its own time: the transforms evaluate the model on
 (N, points, D) states with ``time`` a float64 tensor (N, 1, 1), so a
 time-varying model must broadcast its time against its state argument (...,
-D), as the UNGM models do.  The linearizing transforms take a Jacobian row
-by row with the time closed over, where a per-step time would not
-broadcast: they are refused.
+D), as the UNGM models do.  The linearizing transforms
+(``LinearizationTransform``, ``TaylorGPQDTransform``, GPQ+D) take each row's
+Jacobian at that row's time.
 
 The first linearization trajectory (``init``) is the JAX package's; the
 observer modes are sequential loops over time, the measurement's value and
@@ -35,19 +35,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..bq.gpqd import GaussianProcessDerTransform
-from ..mtran import LinearizationTransform, TaylorGPQDTransform
 from ..ssinf import _augment, _with_theta, slr_affine
 from ..utils.linalg import chol_small_psd, pd_solve_small, symmetrize, tria
 from .common import ieee, mv
+from .shardtime import (sharded_parallel_affine_filter, sharded_parallel_affine_smoother,
+                        sharded_parallel_affine_sqrt_filter, sharded_parallel_affine_sqrt_smoother)
 from .sqrttime import _gain, _joint, parallel_affine_sqrt_filter, parallel_affine_sqrt_smoother
 from .timescan import parallel_affine_filter, parallel_affine_smoother
 
 __all__ = ["slr_affine", "parallel_affine_filter", "parallel_affine_smoother",
            "IteratedSmootherResult", "iterated_parallel_smoother"]
-
-#: transforms that differentiate the model row by row, the time closed over
-_JACOBIAN_TRANSFORMS = (LinearizationTransform, TaylorGPQDTransform, GaussianProcessDerTransform)
 
 
 @dataclass
@@ -78,14 +75,6 @@ def _solve_pd(S: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return pd_solve_small(S, B)
 
 
-def _check_transform(tf, which: str):
-    if isinstance(tf, _JACOBIAN_TRANSFORMS):
-        raise ValueError(
-            f"iterated_parallel_smoother cannot take a {type(tf).__name__} as {which}: it "
-            "takes its Jacobian row by row with the time closed over, where the smoother "
-            "gives every step its own time; use a sigma-point, Monte-Carlo or BQ transform")
-
-
 class _Problem:
     """The models, transforms and record of one smoother call, cast once:
     the prior, the noise moments and the data in ``dtype`` on the models'
@@ -94,8 +83,6 @@ class _Problem:
 
     def __init__(self, mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean=None, init_cov=None,
                  theta_dyn=None, theta_obs=None, dtype=None):
-        _check_transform(tf_dyn, "tf_dyn")
-        _check_transform(tf_obs, "tf_obs")
         self.mod_dyn, self.mod_obs = mod_dyn, mod_obs
         self.tf_dyn, self.tf_obs = _with_theta(tf_dyn, theta_dyn), _with_theta(tf_obs, theta_obs)
         m0, P0 = mod_dyn.init_rv.get_stats()[:2]
@@ -246,7 +233,7 @@ def iterated_parallel_smoother(mod_dyn, mod_obs, tf_dyn, tf_obs, data, iteration
                                init="observer", block_len: int = 2048, warmup: int = 512,
                                sqrt: bool = False, dtype=None, chol_jitter: float = 0.0,
                                scan_block_len: int | None = None,
-                               mesh=None) -> IteratedSmootherResult:
+                               mesh=None, mesh_axis: str = "t") -> IteratedSmootherResult:
     """Iterated posterior-linearization smoother with a time-parallel core.
 
     ``data`` (dim_y, N).  Each iteration linearizes both models about the
@@ -287,18 +274,24 @@ def iterated_parallel_smoother(mod_dyn, mod_obs, tf_dyn, tf_obs, data, iteration
     (weights derived once a call).  Returned covariances are full (``S
     S^T`` in square-root mode).
 
-    ``mesh`` (the scans sharded over several cards) is not ported yet.
+    ``mesh`` (a :class:`~ssmtoybox_torch.parallel.mesh.Mesh` with the axis
+    ``mesh_axis``) runs every affine filter and smoother pass through the
+    sharded scans of :mod:`~ssmtoybox_torch.parallel.shardtime`, in both
+    forms: each rank scans its chunk of the record, two ``all_gather`` calls a
+    pass.  The SLR of each iteration stays one batched call over the whole
+    record on every rank (each rank needs the whole smoothed trajectory for
+    the next linearization, which the sharded passes return).  Results equal
+    the unsharded smoother's to rounding.  Mutually exclusive with
+    ``scan_block_len``: the chunks already bound the temporaries.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "iterated_parallel_smoother(mesh=...): the multi-card scans (the JAX package's "
-            "parallel/shardtime.py and parallel/mesh.py) are not ported yet; ROADMAP.md "
-            "queue 1, item 19b")
     if iterations < 1:
         raise ValueError(f"iterations must be >= 1; got {iterations}")
     if scan_block_len is not None and not sqrt:
         raise ValueError("scan_block_len (the scan by blocks) is only wired into the "
                          "square-root scans: pass sqrt=True with it, or drop it")
+    if mesh is not None and scan_block_len is not None:
+        raise ValueError("mesh and scan_block_len are mutually exclusive: the sharded scans "
+                         "already bound the temporaries to N / n_dev steps a rank")
     p = _Problem(mod_dyn, mod_obs, tf_dyn, tf_obs, data, init_mean, init_cov, theta_dyn,
                  theta_obs, dtype)
     dim, dtype, dev, times, m0, P0 = p.dim, p.dtype, p.device, p.times, p.m0, p.P0
@@ -334,10 +327,16 @@ def iterated_parallel_smoother(mod_dyn, mod_obs, tf_dyn, tf_obs, data, iteration
         if sqrt:
             Fs, bds, SQs = sqrt_dyn(lin_m[:-1], lin_P[:-1], times)
             Hs, cs, SRs = sqrt_obs(lin_m[1:], lin_P[1:], times)
-            fi_m, fi_S = parallel_affine_sqrt_filter(Fs, bds, SQs, Hs, cs, SRs, m0, S0, p.data,
-                                                     scan_block_len=scan_block_len)
-            sm_m, sm_S = parallel_affine_sqrt_smoother(Fs, bds, SQs, fi_m, fi_S,
-                                                       scan_block_len=scan_block_len)
+            if mesh is not None:
+                fi_m, fi_S = sharded_parallel_affine_sqrt_filter(Fs, bds, SQs, Hs, cs, SRs, m0, S0,
+                                                                 p.data, mesh, mesh_axis)
+                sm_m, sm_S = sharded_parallel_affine_sqrt_smoother(Fs, bds, SQs, fi_m, fi_S,
+                                                                   mesh, mesh_axis)
+            else:
+                fi_m, fi_S = parallel_affine_sqrt_filter(Fs, bds, SQs, Hs, cs, SRs, m0, S0,
+                                                         p.data, scan_block_len=scan_block_len)
+                sm_m, sm_S = parallel_affine_sqrt_smoother(Fs, bds, SQs, fi_m, fi_S,
+                                                           scan_block_len=scan_block_len)
             sm_P = torch.einsum("ijn,kjn->ikn", sm_S, sm_S)
             # the step-0 refresh in factor form (one joint QR, as the RTS
             # element): a subtractive downdate here would be the one step of
@@ -350,8 +349,14 @@ def iterated_parallel_smoother(mod_dyn, mod_obs, tf_dyn, tf_obs, data, iteration
         else:
             Fs, bds, Qs = p.full_dyn(lin_m[:-1], lin_P[:-1], times)
             Hs, cs, Rs = p.full_obs(lin_m[1:], lin_P[1:], times)
-            fi_m, fi_cov = parallel_affine_filter(Fs, bds, Qs, Hs, cs, Rs, m0, P0, p.data)
-            sm_m, sm_P = parallel_affine_smoother(Fs, bds, Qs, fi_m, fi_cov)
+            if mesh is not None:
+                fi_m, fi_cov = sharded_parallel_affine_filter(Fs, bds, Qs, Hs, cs, Rs, m0, P0,
+                                                              p.data, mesh, mesh_axis)
+                sm_m, sm_P = sharded_parallel_affine_smoother(Fs, bds, Qs, fi_m, fi_cov, mesh,
+                                                              mesh_axis)
+            else:
+                fi_m, fi_cov = parallel_affine_filter(Fs, bds, Qs, Hs, cs, Rs, m0, P0, p.data)
+                sm_m, sm_P = parallel_affine_smoother(Fs, bds, Qs, fi_m, fi_cov)
             # smooth the prior-time state to refresh the step-0 linearization
             Pp1 = symmetrize(Fs[0] @ P0 @ Fs[0].T + Qs[0])
             G0 = pd_solve_small(Pp1, Fs[0] @ P0).T

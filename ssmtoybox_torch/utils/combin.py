@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["n_sum_k", "n_sum_k_complete", "total_degree_multi_index", "vandermonde"]
+__all__ = ["n_sum_k", "n_sum_k_complete", "total_degree_multi_index", "vandermonde",
+           "vandermonde_np"]
 
 
 def n_sum_k(n: int, k: int) -> np.ndarray:
@@ -68,3 +69,9 @@ def vandermonde(mul_ind, x: torch.Tensor) -> torch.Tensor:
     """
     from ..ops.vandermonde import vandermonde as _vandermonde
     return _vandermonde(mul_ind, x)
+
+
+def vandermonde_np(mul_ind: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """NumPy twin of :func:`vandermonde` on the host: (N, Q) from ``x`` (D,
+    N) and the (D, Q) multi-index."""
+    return np.prod(x.T[:, None, :] ** mul_ind.T[None, :, :], axis=-1)

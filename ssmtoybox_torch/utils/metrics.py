@@ -15,8 +15,8 @@ import torch
 from .linalg import pd_logdet, pd_solve
 
 __all__ = ["squared_error", "mse_matrix", "log_cred_ratio", "neg_log_likelihood",
-           "kl_divergence", "symmetrized_kl_divergence", "rmse", "nci", "inclination",
-           "nll_mean"]
+           "kl_divergence", "symmetrized_kl_divergence", "bootstrap_var", "rmse", "nci",
+           "inclination", "nll_mean", "print_table"]
 
 
 def squared_error(x: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -76,6 +76,17 @@ def symmetrized_kl_divergence(mean_0, cov_0, mean_1, cov_1):
                   + kl_divergence(mean_1, cov_1, mean_0, cov_0))
 
 
+def bootstrap_var(generator: torch.Generator, data: torch.Tensor,
+                  samples: int = 1000) -> torch.Tensor:
+    """Bootstrap variance of the sample mean of ``data`` (flattened):
+    ``samples`` resamples with replacement drawn from ``generator`` on the
+    data's device, the population variance of their means."""
+    data = data.reshape(-1)
+    n = data.shape[0]
+    idx = torch.randint(0, n, (samples, n), generator=generator, device=data.device)
+    return torch.var(torch.mean(data[idx], dim=1), correction=0)
+
+
 def rmse(x: torch.Tensor, m: torch.Tensor, axis=None) -> torch.Tensor:
     """Root-mean-square error: the state dimension (axis 0) is summed, then
     the root of the mean over ``axis`` of the remaining array is taken
@@ -103,3 +114,18 @@ def inclination(x, m, P, MSE) -> torch.Tensor:
 def nll_mean(x, m, P) -> torch.Tensor:
     """Time-averaged Gaussian NLL for (D, N) trajectories."""
     return torch.mean(neg_log_likelihood(x.T, m.T, torch.movedim(P, -1, 0)))
+
+
+def print_table(data, row_labels=None, col_labels=None, latex=False):
+    """Print a results table (a pandas ``DataFrame`` of ``data``, LaTeX too
+    with ``latex=True``) and return the frame; pandas is imported here."""
+    import numpy as np
+    import pandas as pd
+
+    if isinstance(data, torch.Tensor):
+        data = data.detach().cpu().numpy()
+    df = pd.DataFrame(np.asarray(data), index=row_labels, columns=col_labels)
+    print(df)
+    if latex:
+        print(df.to_latex())
+    return df

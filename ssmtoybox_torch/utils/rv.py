@@ -12,7 +12,7 @@ import torch
 from . import rand
 from .arrays import f64, resolve_device
 
-__all__ = ["GaussRV", "StudentRV", "GaussianMixtureRV"]
+__all__ = ["RandomVariable", "GaussRV", "StudentRV", "GaussianMixtureRV"]
 
 
 def _as_tuple(size):
@@ -21,7 +21,18 @@ def _as_tuple(size):
     return tuple(size)
 
 
-class GaussRV:
+class RandomVariable:
+    """Base of the random variables: ``sample(gen, size)`` draws (dim,
+    *size) from a ``torch.Generator``, ``get_stats()`` gives the moments."""
+
+    def sample(self, gen: torch.Generator, size) -> torch.Tensor:  # pragma: no cover - interface
+        raise NotImplementedError
+
+    def get_stats(self):  # pragma: no cover - interface
+        raise NotImplementedError
+
+
+class GaussRV(RandomVariable):
     """Gaussian random variable holding float64 ``mean`` (D,) and ``cov`` (D, D)."""
 
     def __init__(self, dim: int, mean=None, cov=None, device=None):
@@ -48,7 +59,7 @@ class GaussRV:
         return self.mean, self.cov
 
 
-class StudentRV:
+class StudentRV(RandomVariable):
     """Student-t random variable: ``mean`` (D,), ``scale`` matrix (D, D) and
     degrees of freedom ``dof``; ``dof <= 2`` becomes 3, as in the reference.
 
@@ -80,7 +91,7 @@ class StudentRV:
         return self.mean, self.scale, self.dof
 
 
-class GaussianMixtureRV:
+class GaussianMixtureRV(RandomVariable):
     """Gaussian mixture: ``means`` (C, D), ``covs`` (C, D, D), weights
     ``alphas`` (C,); ``get_stats()`` gives the moment-matched mean and
     covariance."""

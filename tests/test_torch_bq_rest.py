@@ -34,9 +34,13 @@ from ssmtoybox_torch.bq.gpqd import GaussianProcessDerTransform
 @pytest.fixture(autouse=True, scope="module")
 def _port_on_cpu():
     """The port runs on the card unless told otherwise; these tests run it
-    on the CPU."""
+    on the CPU, on one intra-op thread (the suite runs several workers at
+    once)."""
     set_device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     set_device(None)
 
 

@@ -18,7 +18,7 @@ from ssmtoybox_tpu.bq.models import GaussianProcessModel as JGPModel
 from ssmtoybox_tpu.parallel import fit as jfit
 from ssmtoybox_torch import set_device, ssmod
 from ssmtoybox_torch.bq.models import GaussianProcessModel
-from ssmtoybox_torch.parallel import fit_kernel_params, make_fit_step, nlml_loss
+from ssmtoybox_torch.parallel import fit_kernel_params, make_fit_step, make_mesh, nlml_loss
 from ssmtoybox_torch.utils import GaussRV
 
 TOL = 1e-10
@@ -28,9 +28,13 @@ ADAM_TOL = 1e-9
 @pytest.fixture(autouse=True, scope="module")
 def _port_on_cpu():
     """The port runs on the card unless told otherwise; these tests run it
-    on the CPU."""
+    on the CPU, on one intra-op thread (the suite runs several workers at
+    once)."""
     set_device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     set_device(None)
 
 
@@ -108,7 +112,12 @@ def test_fit_step_updates_the_optimizer_parameter(problem):
     assert float(nlml_loss(gp, lp.detach(), fo, gp.points)) < float(before)
 
 
-def test_a_mesh_is_not_ported_yet(problem):
+def test_a_mesh_of_one_rank_fits_as_without_one(problem):
+    """A mesh of one rank (no process group): the weighted sums and the one
+    ``all_reduce`` a step give the unsharded fit to rounding."""
     gp, _, fo = problem
-    with pytest.raises(NotImplementedError, match="mesh"):
-        fit_kernel_params(gp, np.zeros(2), fo, gp.points, num_steps=1, mesh="a mesh")
+    want_lp, want_losses = fit_kernel_params(gp, np.zeros(2), fo, gp.points, num_steps=20)
+    lp, losses = fit_kernel_params(gp, np.zeros(2), fo, gp.points, num_steps=20,
+                                   mesh=make_mesh())
+    _close(losses, want_losses, ADAM_TOL, "losses")
+    _close(lp, want_lp, ADAM_TOL, "log-parameters")

@@ -21,13 +21,14 @@ import jax.numpy as jnp
 
 from ssmtoybox_tpu import mtran as jmtran
 from ssmtoybox_tpu import ssmod as jssmod
+from ssmtoybox_tpu.bq.gpqd import GaussianProcessDerTransform as JGPQD
 from ssmtoybox_tpu.bq.transforms import GaussianProcessTransform as JGPT
 from ssmtoybox_tpu.parallel import iterated_parallel_smoother as jips
 from ssmtoybox_tpu.utils import GaussRV as JGaussRV
 import ssmtoybox_torch as stt
-from ssmtoybox_torch import mtran, ssmod
+from ssmtoybox_torch import convert, mtran, ssmod
 from ssmtoybox_torch.bq.transforms import GaussianProcessTransform
-from ssmtoybox_torch.parallel import IteratedSmootherResult, iterated_parallel_smoother
+from ssmtoybox_torch.parallel import IteratedSmootherResult, iterated_parallel_smoother, make_mesh
 from ssmtoybox_torch.utils import GaussRV
 from ssmtoybox_torch import set_device
 
@@ -43,9 +44,13 @@ FIELDS = ("fi_mean", "fi_cov", "sm_mean", "sm_cov")
 @pytest.fixture(autouse=True, scope="module")
 def _port_on_cpu():
     """The port runs on the card unless told otherwise; these tests run it
-    on the CPU."""
+    on the CPU, on one intra-op thread (the suite runs several workers at
+    once)."""
     set_device("cpu")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     yield
+    torch.set_num_threads(threads)
     set_device(None)
 
 
@@ -225,15 +230,77 @@ def test_kernel_parameters_of_the_bq_transforms():
     (dict(init=np.zeros((5, 2))), ValueError),
     (dict(scan_block_len=16), ValueError),
     (dict(iterations=0), ValueError),
-    (dict(mesh="a mesh"), NotImplementedError),
-    (dict(linearize=True), ValueError),
+    (dict(mesh="world of one", scan_block_len=16, sqrt=True), ValueError),
 ])
 def test_refused_arguments(bad, error):
     dyn, obs, _, _ = _pendulum()
     y = torch.from_numpy(_record(dyn, obs, 8, 1))
     kw = dict(bad)
-    tf = (mtran.LinearizationTransform(2) if kw.pop("linearize", False)
-          else mtran.UnscentedTransform(2))
+    if kw.get("mesh") == "world of one":
+        kw["mesh"] = make_mesh()
+    tf = mtran.UnscentedTransform(2)
     kw.setdefault("iterations", 1)
     with pytest.raises(error):
         iterated_parallel_smoother(dyn, obs, tf, tf, y, **kw)
+
+
+#: the linearizing transforms on the UNGM models, whose dynamics depend on
+#: the time: each row's Jacobian is taken at its own step's time.  GPQ+D takes
+#: the JAX transform's weights (the Gram is ill-conditioned: weights built by
+#: each package differ by ~1e-6); Taylor-GPQ+D in square-root form (its full
+#: form gives NaN on this record in both packages)
+LINEARIZING = {
+    "linearization": (False, lambda: (jmtran.LinearizationTransform.create(1),) * 2),
+    "linearization, sqrt": (True, lambda: (jmtran.LinearizationTransform.create(1),) * 2),
+    "taylor-gpqd, sqrt": (True, lambda: (jmtran.TaylorGPQDTransform.create(1, TAYLOR_PAR),) * 2),
+    "gpqd": (False, lambda: (JGPQD.create(1, 1, np.array([[1.0, 3.0]]), point_str="ut"),) * 2),
+}
+TAYLOR_PAR = np.array([[1.0, 1.0]])
+LIN_STEPS = 20
+
+
+def _port_transform(jtf):
+    if isinstance(jtf, jmtran.LinearizationTransform):
+        return mtran.LinearizationTransform(1)
+    if isinstance(jtf, jmtran.TaylorGPQDTransform):
+        return mtran.TaylorGPQDTransform(1, TAYLOR_PAR)
+    keys = ("wm", "Wc", "Wcc", "model_var", "iK", "integral_var")
+    return convert.transform_from_numpy(
+        {**{k: np.asarray(getattr(jtf, k)) for k in keys}, "dim_out": jtf.dim_out,
+         "points": np.asarray(jtf.model.points), "which_der": np.asarray(jtf.model.which_der)})
+
+
+@functools.lru_cache(maxsize=None)
+def _linearizing_runs():
+    """The UNGM record, the linearization trajectory (the truth plus
+    noise) and the JAX package's IPLS(3) of every case of
+    :data:`LINEARIZING`, from one ``jax.jit`` compile."""
+    dyn = ssmod.UNGMTransition(GaussRV(1, cov=5.0), GaussRV(1, cov=10.0))
+    obs = ssmod.UNGMMeasurement(GaussRV(1, cov=1.0), dim_state=1)
+    jdyn = jssmod.UNGMTransition.create(JGaussRV.create(1, cov=5.0), JGaussRV.create(1, cov=10.0))
+    jobs = jssmod.UNGMMeasurement.create(JGaussRV.create(1, cov=1.0), dim_state=1)
+    gen = torch.Generator().manual_seed(3)
+    x = dyn.simulate_discrete(gen, steps=LIN_STEPS, mc_sims=1)
+    y = obs.simulate_measurements(gen, x)[..., 0].numpy()
+    traj = (np.concatenate([[0.0], x[0, :, 0].numpy()])
+            + np.random.default_rng(0).normal(size=LIN_STEPS + 1))[:, None]
+    tfs = {name: make() for name, (_, make) in LINEARIZING.items()}
+
+    @jax.jit
+    def run(yy, tr):
+        return {name: jips(jdyn, jobs, *tfs[name], yy, iterations=3, init=tr, sqrt=sq)
+                for name, (sq, _) in LINEARIZING.items()}
+
+    return (dyn, obs, y, traj, tfs), run(jnp.asarray(y), jnp.asarray(traj))
+
+
+@pytest.mark.parametrize("name", list(LINEARIZING))
+def test_linearizing_transforms_match_jax(name):
+    """``LinearizationTransform`` (the parallel iterated extended smoother),
+    Taylor-GPQ+D and GPQ+D in both models on a time-varying record."""
+    (dyn, obs, y, traj, tfs), want = _linearizing_runs()
+    tf = _port_transform(tfs[name][0])
+    got = iterated_parallel_smoother(dyn, obs, tf, tf, torch.from_numpy(y), iterations=3,
+                                     init=torch.from_numpy(traj), sqrt=LINEARIZING[name][0])
+    for f in FIELDS:
+        _close(getattr(got, f), getattr(want[name], f), BQ_TOL, f"{name} {f}")
