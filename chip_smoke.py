@@ -192,7 +192,20 @@ fails at once without them.  Phases, each fatal on failure:
     smoother on a mesh, the fit on a mesh, each against its unsharded call;
     the iterated extended smoother (``LinearizationTransform``) on a UNGM
     record against the EKF + RTS smoother; no launch counter may move
-    (``mesh_slice``).
+    (``mesh_slice``);
+26. "studies": the nine study modules of ``ssmtoybox_torch/experiments``
+    through their ``main([...])`` on the card (``STUDY_RUNS``): the UNGM
+    classical-vs-GPQ study at 10,000 x 500 through the scalar filter kernel
+    (every lane ``dd``) and at its published 100 x 500 in float64, the BSQ
+    UNGM filter and smoother study, reentry GPQ tracking through
+    ``engine="auto"`` (both vector filter kernels), BSQ tracking, the two
+    Student-t glint studies (2e6-sample weights), the GPQ+D demo (200 runs,
+    raised from 50 for its gate), the marginalized study cut to
+    ``MARGINAL_STEPS`` steps with the float64 and
+    the float32 search, and the transform studies; each study's tables,
+    wall time and launches, at most 1% lost runs a row, and the conclusion
+    ``experiments/RESULTS.md`` draws from it (``STUDY_GATES``), its margin
+    in standard errors (``studies_slice``).
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -389,28 +402,14 @@ def rel_err(a, b) -> float:
 
 
 def study_scores(torch, x_true, fi_mean, fi_cov, chunk=1000):
-    """Per-run RMSE, INC, NLL and NCI as the JAX package's study harness
-    computes them (experiments/common.py): the per-step MSE matrix is taken
-    over the runs whose RMSE is finite.  ``x_true``/``fi_mean`` (M, D, N),
-    ``fi_cov`` (M, D, D, N); the credibility scores go ``chunk`` runs at a
-    time, which bounds the batched solves on long records."""
-    from ssmtoybox_torch.utils.metrics import log_cred_ratio, neg_log_likelihood
-    err = fi_mean - x_true
-    rmse = torch.sqrt(torch.mean(torch.sum(err ** 2, 1), -1))
-    finite = torch.isfinite(rmse)
-    err_ok = torch.where(finite[:, None, None], err, 0.0)
-    M, D, N = err.shape
-    MSE = (torch.einsum("mdn,men->nde", err_ok, err_ok) / finite.sum().clamp(min=1)
-           + 1e-12 * torch.eye(D, dtype=err.dtype, device=err.device))
-    x, m = x_true.permute(0, 2, 1), fi_mean.permute(0, 2, 1)
-    P = fi_cov.permute(0, 3, 1, 2)
-    lcr, nll = [], []
-    for i in range(0, M, chunk):
-        s = slice(i, i + chunk)
-        lcr.append(log_cred_ratio(x[s], m[s], P[s], MSE.expand(x[s].shape[0], N, D, D)))
-        nll.append(neg_log_likelihood(x[s], m[s], P[s]))
-    lcr, nll = torch.cat(lcr), torch.cat(nll)
-    return rmse, lcr.mean(1), nll.mean(1), lcr.abs().mean(1)
+    """Per-run RMSE, INC, NLL and NCI of the port's study harness
+    (``ssmtoybox_torch.experiments.common.study_scores``: the per-step MSE
+    matrix over the runs whose RMSE is finite, the credibility scores
+    ``chunk`` runs at a time).  ``x_true`` / ``fi_mean`` (M, D, N), ``fi_cov``
+    (M, D, D, N)."""
+    from ssmtoybox_torch.experiments.common import study_scores as scores
+    s = scores(x_true.permute(1, 2, 0), fi_mean, fi_cov, chunk)
+    return s["rmse"], s["inc"], s["nll"], s["nci"]
 
 
 def student_slice(torch, np, dev):
@@ -3521,6 +3520,162 @@ def mesh_alone():
                {"pendulum": (p_dyn, p_obs, ut, y_p, traj), "fit": (gp, fo)})
 
 
+#: phase 26, "studies": each module of ``ssmtoybox_torch/experiments`` run
+#: through its ``main`` on the card, with these flags beside ``--device cuda``.
+#: The UNGM classical-vs-GPQ study runs twice: at the main path's width
+#: through the scalar filter kernel, and at its published size in float64.
+#: The marginalized study is cut to ``MARGINAL_STEPS`` steps, as phase 22
+#: cuts it (its Newton search is launch-bound, 1.5-2.2 s a step).  The GPQ+D
+#: demo runs 200 trajectories, not its published 50: there its gate (the
+#: EKF-GPQD's NLL below the EKF's, whose NLL runs into the thousands on a
+#: few runs) stood 2.0 standard errors clear (PERF.md, PR 17).
+STUDY_RUNS = (
+    ("icinco_ungm", ("--mc", str(MC), "--engine", "dd")),
+    ("icinco_ungm", ()),
+    ("bsq_ungm", ()),
+    ("gpq_tracking", ("--engine", "auto")),
+    ("bsq_tracking", ()),
+    ("tpq_ungm", ()),
+    ("tpq_constant_velocity", ()),
+    ("gpqd_demo", ("--mc", "200")),
+    ("marginal_ungm", ("--steps", str(MARGINAL_STEPS), "--inner", "f64")),
+    ("marginal_ungm", ("--steps", str(MARGINAL_STEPS), "--inner", "f32")),
+    ("polar2cartesian_mt", ()),
+)
+#: the conclusion experiments/RESULTS.md draws from each study, as gates:
+#: (table title's start, (row, column) that must lie below (row, column))
+STUDY_GATES = {
+    "icinco_ungm": [("UNGM, ", ("GPQKF-GH7", c), ("UKF", c)) for c in ("nci", "nll")],
+    "bsq_ungm": [("UNGM filtered", (f"BSQ-GH{d}", "nci"), (f"GH-{d}", "nci")) for d in (5, 7)],
+    "tpq_ungm": [("UNGM glint", ("TPQSF-3", c), ("UKF", c)) for c in ("rmse", "inc")],
+    "tpq_constant_velocity": [("CV radar", (r, "inc"), (o, "inc"))
+                              for r in ("TPQSF(nu=4)", "GPQSF") for o in ("UKF", "FSQ")],
+    "bsq_tracking": [("Reentry tracking", ("bsqkf", "rmse"), ("bsqkf_2e-6", "rmse")),
+                     ("Reentry tracking", ("bsqkf_2e-6", "rmse"), ("ukf", "rmse"))],
+    "gpqd_demo": [("EKF vs", ("EKF-GPQD", "nll"), ("EKF", "nll"))],
+    "marginal_ungm": [("UNGM marginalized", ("MGPQKF", c), ("GPQKF-fix", c))
+                      for c in ("nci", "nll")],
+    "polar2cartesian_mt": [("truncated UT", ("dim=8", "TUT_skl"), ("dim=8", "UT_skl"))],
+}
+#: the largest share of a gated table's runs that may diverge, a row
+STUDY_DIVERGED = 0.01
+
+
+def studies_slice(torch, np, dev):
+    """Phase 26, "studies": every study of ``ssmtoybox_torch/experiments``
+    through its ``main([...])`` on the card (``STUDY_RUNS``), each with its
+    tables printed, its wall time and the kernel launches it caused (the
+    counts set to 0 first).  Gates, each fatal: at most ``STUDY_DIVERGED`` of
+    the runs diverged in any row of a table that has a ``diverged`` column;
+    each conclusion of ``STUDY_GATES``, its margin printed in standard
+    errors where the table has them; ``icinco_ungm --engine dd`` runs every
+    lane in the scalar filter kernel (engine ``dd``, at least 7 launches);
+    ``gpq_tracking --engine auto`` launches both vector filter kernels; the
+    BSQ studies and ``polar2cartesian_mt`` the Vandermonde kernel; the TPQ
+    studies the pairwise Student-MC kernel.  Returns the launches of the
+    phase a kernel entry of the ``kernels`` line."""
+    import importlib
+
+    from ssmtoybox_torch.ops import scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
+
+    def zero():
+        sf.LAUNCHES = vdm.LAUNCHES = vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
+        for k in smc.LAUNCHES:
+            smc.LAUNCHES[k] = 0
+
+    def counts():
+        return {"scalar_filter": sf.LAUNCHES, "vandermonde": vdm.LAUNCHES,
+                "vector_filter": vf.LAUNCHES - vf.SHAPED_LAUNCHES,
+                "vector_filter_shaped": vf.SHAPED_LAUNCHES,
+                **{f"student_{k}": v for k, v in smc.LAUNCHES.items()}}
+
+    def cell(tables, prefix, row, col):
+        (title,) = [t for t in tables if t.startswith(prefix)]
+        return tables[title][row], title
+
+    t_phase = time.perf_counter()
+    total, walls = {}, {}
+    for name, flags in STUDY_RUNS:
+        mod = importlib.import_module(f"ssmtoybox_torch.experiments.{name}")
+        argv = [*flags, "--device", "cuda"]
+        runs = mod.parse(argv).__dict__.get("mc")
+        log(f"---- study {name} {' '.join(flags)}")
+        torch.cuda.synchronize()
+        zero()
+        t0 = time.perf_counter()
+        tables = mod.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = counts()
+        walls[f"{name} {' '.join(flags)}".strip()] = wall
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        log(f"study {name} {' '.join(flags)}: {wall:.1f} s wall on the card, launches "
+            + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+        # every table whose rows count diverged runs
+        for title, rows in tables.items():
+            for row, vals in rows.items():
+                if "diverged" in vals and runs and vals["diverged"] > STUDY_DIVERGED * runs:
+                    fail(f"study {name}, {title}: {row} lost {vals['diverged']} of {runs} runs "
+                         f"(limit {STUDY_DIVERGED:.0%})")
+        for prefix, (row_a, col_a), (row_b, col_b) in STUDY_GATES.get(name, ()):
+            (a, title), (b, _) = cell(tables, prefix, row_a, col_a), cell(tables, prefix, row_b,
+                                                                          col_b)
+            lo, hi = a[col_a], b[col_b]
+            se = [r.get(f"{c}_2std") for r, c in ((a, col_a), (b, col_b))]
+            margin = ""
+            if None not in se:
+                z = (hi - lo) / max(float(np.hypot(se[0] / 2, se[1] / 2)), 1e-300)
+                margin = f", {z:.1f} standard errors apart"
+            log(f"  gate {title}: {row_a} {col_a} {lo:.4f} < {row_b} {col_b} {hi:.4f}{margin}")
+            if not lo < hi:
+                fail(f"study {name}: {row_a} {col_a} {lo:.4f} is not below {row_b} {col_b} "
+                     f"{hi:.4f} ({title})")
+        if name == "icinco_ungm" and "dd" in flags:
+            (rows,) = tables.values()
+            engines = {row: vals["engine"] for row, vals in rows.items()}
+            if set(engines.values()) != {"dd"} or got["scalar_filter"] < 7:
+                fail(f"icinco_ungm --engine dd: engines {engines}, scalar filter launches "
+                     f"{got['scalar_filter']} (expected dd on every lane, at least 7)")
+        need = {"gpq_tracking": ("vector_filter", "vector_filter_shaped"),
+                "bsq_ungm": ("vandermonde",), "bsq_tracking": ("vandermonde",),
+                "polar2cartesian_mt": ("vandermonde",), "tpq_ungm": ("student_kxy",),
+                "tpq_constant_velocity": ("student_kxy",)}.get(name, ())
+        for k in need:
+            if got[k] < 1:
+                fail(f"study {name}: the {k} kernel was not launched")
+    log(f"studies phase: {time.perf_counter() - t_phase:.1f} s in all ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in walls.items()) + f"); launches {total}; "
+        f"card: {card_line()}")
+    return total
+
+
+def studies_alone():
+    """Phase 26 alone, the kernels built first (each study module's
+    ``main`` on the card): ``python3 -c "import chip_smoke;
+    chip_smoke.studies_alone()"``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from ssmtoybox_torch.ops import scalar_filter as sf, student_mc as smc
+    from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
+
+    if not torch.cuda.is_available():
+        fail("studies_alone: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"card: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(4) as pool:
+        for build in [pool.submit(lib.build) for lib in (sf, smc, vdm, vf)]:
+            build.result()
+    log(f"built the four kernel libraries in {time.perf_counter() - t0:.1f} s")
+    studies_slice(torch, np, dev)
+
+
 def main():
     import numpy as np
     import torch
@@ -3732,12 +3887,17 @@ def main():
     sqrt_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
     shared = parallel_slice(torch, np, dev)
     mesh_slice(torch, np, dev, (dyn, obs, xs, ys), shared)
+    studies = studies_slice(torch, np, dev)
+    for entry in student:
+        entry["launches"] += studies[entry["name"]]
+    vdm_entry["launches"] += studies["vandermonde"]
+    vf_first["launches"] += studies["vector_filter"]
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{
         "name": "scalar_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
         "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37",
-        "launches": launches + bsq_sf_launches + rest["scalar_filter"],
+        "launches": launches + bsq_sf_launches + rest["scalar_filter"] + studies["scalar_filter"],
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
         "library_ms": None}] + student + [vdm_entry, {
         "name": "vector_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/vector_filter.cu",
@@ -3745,7 +3905,8 @@ def main():
         "name": "vector_filter_shaped", "route": "cuda",
         "source": "ssmtoybox_torch/csrc/vector_filter_shaped.cu",
         "replaces": "ssmtoybox_tpu/ops/ddvec.py:514",
-        "launches": vfs_launches + vf_track + zoo_launches["vector_filter_shaped"],
+        "launches": (vfs_launches + vf_track + zoo_launches["vector_filter_shaped"]
+                     + studies["vector_filter_shaped"]),
         **vf_main}]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps(kernels), flush=True)

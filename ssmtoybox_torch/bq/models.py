@@ -140,8 +140,19 @@ class GaussianProcessModel(Model):
         model_var = self.kernel.exp_x_kxx(par) * (1.0 - torch.trace(Q @ iK))
         integral_var = (self.kernel.exp_xy_kxy(par) - q @ iK @ q
                         if with_integral_var else None)
-        return BQWeights(wm=q @ iK, Wc=symmetrize(iK @ Q @ iK), Wcc=R @ iK,
-                         model_var=model_var, integral_var=integral_var,
+        # Wc = K^-1 Q K^-1 as wm wm^T + K^-1 (Q - q q^T) K^-1, equal in exact
+        # arithmetic: the centred form keeps 1^T Wc 1 - (1^T wm)^2, the
+        # variance a filter gives a constant integrand, accurate where the
+        # Gram matrix is ill-conditioned (the reentry GPQ rule, length-scale
+        # 25 on the UT points, cond(K) = 1.9e6: the direct product gets it
+        # wrong by more than its size, negative on the card, and the
+        # filter's covariance of a position near 6,400 loses positive
+        # definiteness)
+        wm = q @ iK
+        outer = wm[..., :, None] * wm[..., None, :]
+        return BQWeights(wm=wm, Wc=symmetrize(outer + iK @ (Q - q[..., :, None] * q[..., None, :])
+                                              @ iK),
+                         Wcc=R @ iK, model_var=model_var, integral_var=integral_var,
                          q=q, Q=Q, iK=iK)
 
     def predict(self, test_data, fcn_obs, x_obs=None, par=None):

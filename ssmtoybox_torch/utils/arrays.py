@@ -18,6 +18,11 @@ __all__ = ["f64", "default_device", "resolve_device", "set_device", "map_tensors
 #: the device ``set_device`` named; None means the CUDA card
 _device: torch.device | None = None
 
+#: the error of asking for the card where there is none
+NO_CARD = ("ssmtoybox_torch runs on the CUDA card by default and "
+           "torch.cuda.is_available() is false; call "
+           "ssmtoybox_torch.set_device('cpu') to run on the CPU")
+
 
 def set_device(dev) -> None:
     """Make ``dev`` (``"cpu"``, ``"cuda:1"``, a ``torch.device``) the device
@@ -34,9 +39,7 @@ def default_device() -> torch.device:
     if _device is not None:
         return _device
     if not torch.cuda.is_available():
-        raise RuntimeError("ssmtoybox_torch runs on the CUDA card by default and "
-                           "torch.cuda.is_available() is false; call "
-                           "ssmtoybox_torch.set_device('cpu') to run on the CPU")
+        raise RuntimeError(NO_CARD)
     return torch.device("cuda")
 
 
