@@ -8,10 +8,11 @@ fails at once without them.  Phases, each fatal on failure:
 
 1. set-up: print the card's name and power limit, build the CUDA sources
    ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
-   ``student_qrq.cu``, ``vandermonde.cu``, ``vector_filter.cu`` and
-   ``vector_filter_shaped.cu`` for sm_90a (one nvcc each, at once; the two
-   Student-MC sources make one library, the two vector filter sources another) and
-   print their ptxas lines; the UNGM UKF lane is built with no device argument and
+   ``student_qrq.cu``, ``vandermonde.cu``, ``vector_filter.cu``,
+   ``vector_filter_shaped.cu`` and ``vector_filter_shaped_bq.cu`` for sm_90a
+   (one nvcc each, at once; the two Student-MC sources make one library, the
+   three vector filter sources another), print each library's build time and
+   their ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
 2. the scalar filter kernel vs its plain PyTorch twin, both on the card, for
    the UKF and the GPQ rule: one step at B=4096 (pointwise 1e-13), 20 steps
@@ -91,34 +92,44 @@ fails at once without them.  Phases, each fatal on failure:
     operations on the critical path of a step) beside its bound; the shaped
     vector filter kernel on the tracking UKF lane (raw launches, the first
     version's on the same input, bound, chain floor);
-15. both vector filter kernels against their plain version, both on the
-    card, to the bit, 20 steps, all five streams: the reentry + radar system
-    under UKF and CKF (the shaped kernel, ``csrc/vector_filter_shaped.cu``),
-    GH-3 (243 points), GPQ-UT and BSQ-UT (the first version,
-    ``csrc/vector_filter.cu``), the CV radar system under UKF, CKF and BSQ-UT,
-    and mixed kinds and point counts (all eight instantiations of the first
-    version, all four of the shaped kernel), at B = 1, 7, 31, 4,097 and
-    10,000, each launch counted on the kernel ``kernel_of`` names; two
-    launches on one input equal to the bit;
+15. the three vector filter kernels against their plain version, both on
+    the card, to the bit, 20 steps, all five streams, at every instantiation
+    of the three sources: the five model pairs (reentry and CV with the
+    radar, the pendulum, the falling body with its range, CT with four
+    bearings) under UKF, CKF, a BQ rule at the UT count (GPQ-UT; BSQ-UT too
+    on reentry, on CV instead) and GPQ with spherical-radial points, every
+    rule on both transforms and the mixed kinds of both counts (on CV every
+    pair of its four rules), GH-3 on reentry: the classical shaped kernel
+    (``csrc/vector_filter_shaped.cu``, 10 instantiations), the kernel of the
+    BQ shapes (``csrc/vector_filter_shaped_bq.cu``, 30) and, at every pair
+    (sent there by force where another kernel takes it), the first version
+    (``csrc/vector_filter.cu``, 20), at B = 1, 7, 31, 4,097 and 10,000, each
+    wrapper launch counted on the kernel ``kernel_of`` names, each batch
+    against the plain version's run on all 10,000 (elementwise across
+    trajectories: the same bits for a prefix); it fails if an instantiation
+    ran no configuration; two launches on one input equal to the bit;
 16. the reentry bench lane (10,000 x 100, the main path's run) through the
     shaped kernel against the eager f64 lane: each stream's max |diff| within
     the JAX package's dd-vs-f64 tolerances (1e-6 on means, 1e-7 on
     covariances), filter and smoother RMSE within 1e-6 relative, one launch a
-    call; then the first version's path: the same data under BSQ-UT through
-    ``engine="dd"`` (its launches counted from 0), against its plain version
-    to the bit, RMSE finite;
-17. ``tests/goldens/reentry.npz`` ``ukf`` and ``bsqkf`` through
-    ``engine="dd"`` on the card (1e-7 / 1e-6);
+    call; then the other kernels' paths, their launches counted from 0: the
+    same data under BSQ-UT (the kernel of the BQ shapes) and under GH-3 (the
+    first version) through ``engine="dd"``, each against its plain version at
+    the full shape to the bit, RMSE finite;
+17. ``tests/goldens/reentry.npz`` ``ukf`` (the shaped kernel) and ``bsqkf``
+    (the BQ shapes) through ``engine="dd"`` on the card (1e-7 / 1e-6);
 18. the main path's kernel result on the bench lane against the plain
     version at its full 10,000 x 100, to the bit, all five streams; then
     timings: raw launches on the bench lane under each rule beside its bound
     and chain floor (the card's dependent-issue latencies, exp and atan2
-    included), for UKF and CKF the first-version kernel on the same input in
-    turns with the shaped one, the wrapper calls of both kernels, their plain
-    versions and the lane through both engines;
+    included), for every rule that a shaped kernel takes the first-version
+    kernel on the same input in turns with it, for GPQ-UT, BSQ-UT and GPQ-SR
+    the registers, local memory and f64 issue floor (from the SASS) of both
+    kernels' instantiations; the wrapper calls of the three kernels beside
+    their plain versions, and the lane through both engines;
 19. "zoo": the rest of the model zoo at 10,000 trajectories simulated on the
     card from the seed: the pendulum under UKF (shaped kernel) and GPQKF
-    (first version), the falling body under UKF and the coordinated turn
+    (BQ shapes), the falling body under UKF and the coordinated turn
     with four bearings under CKF (shaped kernel), 100 steps, each through
     ``engine="dd"`` (one launch of the kernel ``kernel_of`` names), every
     stream of its first 200 trajectories equal to the plain version's to
@@ -144,8 +155,8 @@ fails at once without them.  Phases, each fatal on failure:
     ``sin(x) + x^2 / 2``): SKL from Monte-Carlo truth and each transform's
     time, the GPQ+D weights' build time.  No launch counter may move;
 21. "bq_rest": GPQKF with the RQ kernel under ``engine="auto"`` on the
-    main path's UNGM (scalar filter kernel) and reentry (first-version
-    vector filter kernel) data, one launch each, bit-equal to the plain
+    main path's UNGM (scalar filter kernel) and reentry (the vector filter
+    kernel of the BQ shapes) data, one launch each, bit-equal to the plain
     versions and held to ``"f64"``; per-call kernel parameters (theta) of
     the GPQKF and the BSQKF on UNGM (10,000 x 100): the construction
     parameters' bits, a filter built at another theta's bits, the gradient
@@ -179,7 +190,7 @@ fails at once without them.  Phases, each fatal on failure:
     pendulum record (``tools/bench_iplf.py``'s widths, simulated on the card,
     100,000 steps): IPLS(2) with the observer init against the sequential
     UKF + RTS smoother at 2,000 steps, the float32 square-root IPLS(2)
-    against float64 at 10,000 and 50,000 steps, the block observer at
+    against float64 at 10,000 and 20,000 steps, the block observer at
     100,000 steps, the card against the CPU on a 500-step prefix; the linear
     and square-root affine scans at 10^4-10^6 steps (blocked and
     unblocked); the batched NLML fit of the UNGM GP model; no launch counter
@@ -198,7 +209,7 @@ fails at once without them.  Phases, each fatal on failure:
     classical-vs-GPQ study at 10,000 x 500 through the scalar filter kernel
     (every lane ``dd``) and at its published 100 x 500 in float64, the BSQ
     UNGM filter and smoother study, reentry GPQ tracking through
-    ``engine="auto"`` (both vector filter kernels), BSQ tracking, the two
+    ``engine="auto"`` (both shaped vector filter kernels), BSQ tracking, the two
     Student-t glint studies (2e6-sample weights), the GPQ+D demo (200 runs,
     raised from 50 for its gate), the marginalized study cut to
     ``MARGINAL_STEPS`` steps with the float64 and
@@ -1030,7 +1041,8 @@ def bsq_slice(torch, np, dev, xs, ys):
         GaussRV(3, cov=np.diag([2.4e-5, 2.4e-5, 1e-6]), device=dev), dt=TRACK_DT)
     overrides = {"bsqkf": np.diag([2e-4] * 5), "bsqkf_2e-6": 2e-6 * np.eye(5),
                  "bsqkf_2e-7": 2e-7 * np.eye(5)}
-    sf.LAUNCHES = vdm.LAUNCHES = vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
+    sf.LAUNCHES = vdm.LAUNCHES = 0
+    vf_zero(vf)
     t_algs, t_build = {}, {}
     for name, mv in overrides.items():
         t0 = time.perf_counter()
@@ -1335,108 +1347,288 @@ def vf_against_plain(torch, res, plain, what, chunk=200):
 
 def vf_raw(torch, vf, params, y, dev, kernel=None):
     """A launch of a vector filter kernel straight through its C entry point,
-    into buffers made once; for ``raw_ms``.  ``kernel``: ``"vector_filter"``
-    (the first version, which takes every configuration) or
-    ``"vector_filter_shaped"``; by default the one the wrapper picks."""
+    into buffers made once (``launch.out``, the five streams); for
+    ``raw_ms``.  ``kernel``: ``"vector_filter"`` (the first version, which
+    takes every configuration), ``"vector_filter_shaped"`` or
+    ``"vector_filter_shaped_bq"``; by default the one the wrapper picks."""
     lib = vf.build()
     B, _, T = y.shape
+    kernel = kernel or vf.kernel_of(params)
     out = vf._empty_streams(params.dim_state, T, B, dev)
+    c = vf._c_struct(kernel, params, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if (kernel or vf.kernel_of(params)) == "vector_filter_shaped":
-        c_shaped = vf._c_shaped_params(params, dev)
-        return lambda: lib.vfs_launch(ctypes.byref(c_shaped), y.data_ptr(), *y.stride(), B, T,
-                                      dev.index or 0, *(o.data_ptr() for o in out), stream)
-    scratch = vf._scratch(params, B, dev)
-    c_params = vf._c_params(params, dev)
+    args = (ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, dev.index or 0,
+            *(o.data_ptr() for o in out))
+    if kernel == "vector_filter_shaped":
+        def launch():
+            return lib.vfs_launch(*args, stream)
+    elif kernel == "vector_filter_shaped_bq":
+        def launch():
+            return lib.vfs_bq_launch(*args, stream)
+    else:
+        scratch = vf._scratch(params, B, dev)
 
-    def launch():
-        return lib.vf_launch(ctypes.byref(c_params), y.data_ptr(), *y.stride(), B, T,
-                             dev.index or 0, *(o.data_ptr() for o in out), scratch.data_ptr(),
-                             stream)
+        def launch():
+            return lib.vf_launch(*args, scratch.data_ptr(), stream)
+    launch.out = out
     return launch
 
 
+#: the vector filter kernels' entries of the ``kernels`` line, by name
+VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq")
+
+
+def vf_counts(vf):
+    """The launches of each vector filter kernel since the counts were last
+    set to 0."""
+    return {"vector_filter": vf.LAUNCHES - vf.SHAPED_LAUNCHES - vf.BQ_SHAPED_LAUNCHES,
+            "vector_filter_shaped": vf.SHAPED_LAUNCHES,
+            "vector_filter_shaped_bq": vf.BQ_SHAPED_LAUNCHES}
+
+
+def vf_zero(vf):
+    vf.LAUNCHES = vf.SHAPED_LAUNCHES = vf.BQ_SHAPED_LAUNCHES = 0
+
+
+#: phase 15's GPQ kernel parameters of the zoo's pairs and of the CV radar
+#: system (length-scales of a well-conditioned Gram matrix on the unit points)
+VF_GPQ_ZOO = {"pendulum": [[1.0, 2.0, 2.0]], "falling body": [[1.0, 3.0, 3.0, 3.0]],
+              "CT + 4 bearings": [[1.0, 3.0, 3.0, 3.0, 3.0, 3.0]],
+              "CV": [[1.0, 3.0, 3.0, 3.0, 3.0]]}
+
+
+def vf_rule_pairs(stt, np, systems):
+    """Phase 15's filters and rule pairs.  ``systems``: name -> (dynamics,
+    measurement) of the five model pairs with a kernel form.  Each system
+    gets the UKF, the CKF, a BQ rule at N = 2 D + 1 (GPQ-UT; on reentry
+    also BSQ-UT, the tracking study's, and GH-3; BSQ-UT on CV) and GPQ with
+    spherical-radial points (N = 2 D).  Returns ``{system: {rule: filter}}``
+    and the pairs ``(system, dynamics rule of, measurement rule of)``: every
+    rule on both transforms, and the mixed kinds of both counts (on CV every
+    pair of its four rules, mixed counts too), so that every instantiation
+    of the three sources runs."""
+    def mul(d):
+        return np.hstack((np.zeros((d, 1), int), np.eye(d, dtype=int), 2 * np.eye(d, dtype=int)))
+
+    algs = {}
+    for name, (dyn, obs) in systems.items():
+        a = {"UKF": stt.UnscentedKalman(dyn, obs), "CKF": stt.CubatureKalman(dyn, obs)}
+        if name == "reentry":
+            gpq = (np.array(VF_GPQ_DYN), np.array(VF_GPQ_OBS))
+            a["GH-3"] = stt.GaussHermiteKalman(dyn, obs, deg=3)
+            a["GPQ-UT"] = stt.GaussianProcessKalman(dyn, obs, *gpq)
+            a["BSQ-UT"] = stt.BayesSardKalman(dyn, obs, np.array(TRACK_PAR_DYN),
+                                              np.array(TRACK_PAR_OBS), mul(5), mul(5))
+        else:
+            gpq = (np.array(VF_GPQ_ZOO[name]),) * 2
+            if name == "CV":
+                a["BSQ-UT"] = stt.BayesSardKalman(dyn, obs, np.array(VF_CV_BSQ),
+                                                  np.array(VF_CV_BSQ), mul(4), mul(4))
+            else:
+                a["GPQ-UT"] = stt.GaussianProcessKalman(dyn, obs, *gpq)
+        a["GPQ-SR"] = stt.GaussianProcessKalman(dyn, obs, *gpq, points="sr")
+        algs[name] = a
+    pairs = []
+    for name, a in algs.items():
+        if name == "CV":
+            pairs += [(name, r, s) for r in a for s in a]
+            continue
+        bq_ut = "BSQ-UT" if "BSQ-UT" in a else "GPQ-UT"
+        pairs += [(name, r, r) for r in a]
+        pairs += [(name, "UKF", bq_ut), (name, bq_ut, "UKF"), (name, "CKF", "GPQ-SR"),
+                  (name, "GPQ-SR", "CKF")]
+    return algs, pairs
+
+
+def vf_instantiation(kernel, params):
+    """The template arguments of the instantiation of ``kernel`` that runs
+    ``params``: (D, dynamics, kinds of both rules, N; N "any" for the first
+    version)."""
+    return (kernel, params.dim_state, params.dyn_model, params.dyn.kind, params.obs.kind,
+            "any" if kernel == "vector_filter" else params.dyn.n)
+
+
+def vf_all_instantiations(vf):
+    """Every instantiation of the three sources, as ``vf_instantiation``
+    names them: the first version's 4 kinds of each model pair (20), the
+    classical shaped kernel's 2 point counts (10), the BQ shapes' 3 kinds x 2
+    counts (30)."""
+    dims = {0: 5, 1: 4, 2: 2, 3: 3, 4: 5}
+    out = set()
+    for dyn, D in dims.items():
+        for kd in (0, 1):
+            for ko in (0, 1):
+                out.add(("vector_filter", D, dyn, kd, ko, "any"))
+                for n in (2 * D + 1, 2 * D):
+                    k = "vector_filter_shaped" if kd == ko == 0 else "vector_filter_shaped_bq"
+                    out.add((k, D, dyn, kd, ko, n))
+    return out
+
+
+def ptxas_of(log_text, kernel_fn):
+    """``(registers, stack frame bytes, spill store bytes)`` that ptxas
+    reported for the entry function whose mangled name contains
+    ``kernel_fn``; Nones if it is not in the log."""
+    lines = log_text.splitlines()
+    for i, line in enumerate(lines):
+        if "Compiling entry function" in line and kernel_fn in line:
+            near = " ".join(lines[i + 1:i + 4])
+            regs = re.search(r"Used (\d+) registers", near)
+            frame = re.search(r"(\d+) bytes stack frame", near)
+            spill = re.search(r"(\d+) bytes spill stores", near)
+            return tuple(int(m.group(1)) if m else None for m in (regs, frame, spill))
+    return None, None, None
+
+
+#: f64 opcodes of Hopper's SASS (the double-precision pipe and its MUFU seeds),
+#: and the f64 warp instructions each SM issues a clock
+SASS_F64 = ("DADD", "DMUL", "DFMA", "DSETP", "DMNMX", "MUFU.RCP64H", "MUFU.RSQ64H")
+SASS_F64_A_CLOCK = 2
+
+
+_SASS = {}
+
+
+def sass_listing(lib_path, kernel_fn):
+    """``(address, opcode, branch target or None)`` of every instruction of
+    the kernel whose mangled name contains ``kernel_fn``, from ``cuobjdump
+    -sass`` of the library (run once a library); None where cuobjdump is
+    missing."""
+    from ssmtoybox_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    if lib_path not in _SASS:
+        _SASS[lib_path] = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                                         text=True, timeout=300).stdout
+    listing, inside = [], False
+    for line in _SASS[lib_path].splitlines():
+        if "Function :" in line:
+            inside = kernel_fn in line
+        elif inside:
+            m = re.match(r"\s+/\*([0-9a-f]{4,6})\*/\s+(?:@!?U?P\d\s+)?([A-Z0-9_.]+)([^;]*);", line)
+            if m:
+                tgt = re.search(r"0x([0-9a-f]+)\s*$", m.group(3)) if "BRA" in m.group(2) else None
+                listing.append((int(m.group(1), 16), m.group(2),
+                                int(tgt.group(1), 16) if tgt else None))
+    return listing
+
+
+def sass_f64_a_step(listing, n_points):
+    """The f64 instructions one filter step issues, from the SASS: those
+    inside the widest backward branch (the step loop), each counted
+    ``n_points`` times for every loop nested in the step loop that holds it
+    (the point loops, and the first version's N x N quadratic form, nested
+    twice); the slow paths of divide and square root, outside the step
+    loop, are not counted."""
+    loops = sorted(((tgt, addr) for addr, _, tgt in listing if tgt is not None and tgt < addr),
+                   key=lambda r: r[0] - r[1])
+    if not loops:
+        return 0
+    (lo, hi), inner = loops[0], loops[1:]
+    count = 0
+    for addr, op, _ in listing:
+        if lo <= addr <= hi and op.startswith(SASS_F64):
+            count += n_points ** sum(a <= addr <= b for a, b in inner)
+    return count
+
+
 def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
-    """Phases 15-18: both vector filter kernels against their plain version at
-    every instantiation, the reentry bench lane through the shaped kernel
-    (``fused_re``, the main path's result) against the eager lane, the same
-    data under BSQ-UT through the first version (its path), the reentry
-    goldens through ``engine="dd"``, and the timings.  Returns the figures of
-    the shaped kernel and of the first version for the ``kernels`` line."""
+    """Phases 15-18: the three vector filter kernels against their plain
+    version at every instantiation, the reentry bench lane through the
+    shaped kernel (``fused_re``, the main path's result) against the eager
+    lane, the same data under BSQ-UT through the kernel of the BQ shapes
+    and under GH-3 through the first version (their paths), the reentry
+    goldens through ``engine="dd"``, and the timings.  Returns the figures
+    of the three kernels for the ``kernels`` line, by name."""
     import ssmtoybox_torch as stt
-    from ssmtoybox_torch.ops import scalar_filter as sf, vector_filter as vf
+    from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
     from ssmtoybox_torch.ssmod import ConstantVelocity, Radar2DMeasurement
     from ssmtoybox_torch.utils import GaussRV
     from ssmtoybox_torch.utils.metrics import rmse
 
     dyn_re, obs_re = ukf_re.mod_dyn, ukf_re.mod_obs
-    mul = lambda d: np.hstack((np.zeros((d, 1), int), np.eye(d, dtype=int),  # noqa: E731
-                               2 * np.eye(d, dtype=int)))
     dyn_cv = ConstantVelocity(GaussRV(4, mean=M0_TRUE, cov=np.diag(P0), device=dev),
                               GaussRV(2, cov=np.diag(Q), device=dev), dt=DT)
     obs_cv = Radar2DMeasurement(GaussRV(2, cov=np.diag(R0), device=dev), dim_state=4,
                                 state_index=SIDX)
+    zoo = zoo_systems(np, dev)
+    systems = {"reentry": (dyn_re, obs_re), "CV": (dyn_cv, obs_cv),
+               **{k: zoo[k] for k in ("pendulum", "falling body", "CT + 4 bearings")}}
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
-    ys_cv = obs_cv.simulate_measurements(
-        gen, dyn_cv.simulate_discrete(gen, steps=VF_STEPS, mc_sims=MC)).permute(2, 0, 1)
-    re = {"UKF": ukf_re, "CKF": stt.CubatureKalman(dyn_re, obs_re),
-          "GH-3": stt.GaussHermiteKalman(dyn_re, obs_re, deg=3),
-          "GPQ-UT": stt.GaussianProcessKalman(dyn_re, obs_re, np.array(VF_GPQ_DYN),
-                                              np.array(VF_GPQ_OBS)),
-          "BSQ-UT": stt.BayesSardKalman(dyn_re, obs_re, np.array(TRACK_PAR_DYN),
-                                        np.array(TRACK_PAR_OBS), mul(5), mul(5))}
-    cv = {"UKF": stt.UnscentedKalman(dyn_cv, obs_cv), "CKF": stt.CubatureKalman(dyn_cv, obs_cv),
-          "BSQ-UT": stt.BayesSardKalman(dyn_cv, obs_cv, np.array(VF_CV_BSQ), np.array(VF_CV_BSQ),
-                                        mul(4), mul(4))}
-    systems = {"reentry": (re, ys_re), "CV": (cv, ys_cv)}
-    # (system, dynamics rule of, measurement rule of): the study rules, and
-    # mixed kinds and point counts, so that all eight instantiations of the
-    # first version and all four of the shaped kernel run
-    pairs = ([("reentry", a, a) for a in re]
-             + [("reentry", "UKF", "BSQ-UT"), ("reentry", "BSQ-UT", "UKF")]
-             + [("CV", a, b) for a in cv for b in cv])
+    ys_of = {"reentry": ys_re}
+    for name, (dyn, obs) in systems.items():
+        if name != "reentry":
+            ys_of[name] = obs.simulate_measurements(
+                gen, dyn.simulate_discrete(gen, steps=VF_STEPS, mc_sims=MC)).permute(2, 0, 1)
+    algs, pairs = vf_rule_pairs(stt, np, systems)
+    re = algs["reentry"]
 
     # ---- 15. the kernels vs their plain version, both on the card -----------
-    err, seen, params_of = {"vector_filter": 0.0, "vector_filter_shaped": 0.0}, set(), {}
+    err = dict.fromkeys(VF_KERNELS, 0.0)
+    seen, params_of = set(), {}
+    t15 = time.perf_counter()
     for system, a, b in pairs:
-        algs, ys_s = systems[system]
-        alg_a = algs[a]
-        params = vf.prepare(alg_a.mod_dyn, alg_a.mod_obs, alg_a.tf_dyn, algs[b].tf_obs)
+        params = vf.prepare(algs[system][a].mod_dyn, algs[system][a].mod_obs,
+                            algs[system][a].tf_dyn, algs[system][b].tf_obs)
         params_of[system, a, b] = params
         kernel = vf.kernel_of(params)
-        seen.add((kernel, params.dyn_model, params.dyn.kind, params.obs.kind,
-                  params.dyn.n if kernel == "vector_filter_shaped" else "any"))
+        seen.add(vf_instantiation(kernel, params))
+        if kernel != "vector_filter":
+            seen.add(vf_instantiation("vector_filter", params))
+        # the plain version once, on the whole batch: on the card its operations
+        # are elementwise across trajectories, one code for every element, so a
+        # batch's first b trajectories have the bits it gives for b alone (not
+        # on the CPU, whose vectorised transcendentals differ from their scalar
+        # tails)
+        ref_all = vf._vector_filter_plain(params, ys_of[system][:, :, :VF_STEPS])
         for batch in VF_BATCHES:
-            yy = ys_s[:batch, :, :VF_STEPS]
-            shaped_before = vf.SHAPED_LAUNCHES
-            got, ref = vf.vector_filter(params, yy), vf._vector_filter_plain(params, yy)
+            yy = ys_of[system][:batch, :, :VF_STEPS]
+            ref = tuple(r[..., :batch] for r in ref_all)
+            before = vf_counts(vf)
+            got = vf.vector_filter(params, yy)
+            first = None
+            if kernel != "vector_filter":     # the first version on the same input, by force
+                launch = vf_raw(torch, vf, params, yy, dev, "vector_filter")
+                if launch() != 0:
+                    fail(f"{system} {a}/{b}: the first version's launch failed")
+                first = launch.out
             torch.cuda.synchronize()
-            if vf.SHAPED_LAUNCHES - shaped_before != (kernel == "vector_filter_shaped"):
-                fail(f"{system} {a}/{b}: the shaped kernel ran "
-                     f"{vf.SHAPED_LAUNCHES - shaped_before} times; {kernel} was to run")
-            diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(got, ref))
-            err[kernel] = max(err[kernel], diff)
-            lost = 1.0 - float(torch.isfinite(got[1]).flatten(0, 2).all(0).double().mean())
-            if not (all(same_bits(torch, g_, r_) for g_, r_ in zip(got, ref)) and lost <= 0.01):
-                fail(f"{kernel} kernel vs plain, {system} {a}/{b}, B={batch}, "
-                     f"N={VF_STEPS}: max |diff| {diff:.3e}, {lost:.2%} of the trajectories not "
-                     "finite; expected equal bits (NaN where the plain version has NaN) and at "
-                     "most 1% not finite")
+            moved = {k: v - before[k] for k, v in vf_counts(vf).items()}
+            if moved != {k: int(k == kernel) for k in VF_KERNELS}:
+                fail(f"{system} {a}/{b}: the wrapper's launches {moved}; {kernel} was to run once")
+            for k, out in ((kernel, got), ("vector_filter", first)):
+                if out is None:
+                    continue
+                diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(out, ref))
+                err[k] = max(err[k], diff)
+                lost = 1.0 - float(torch.isfinite(out[1]).flatten(0, 2).all(0).double().mean())
+                if not (all(same_bits(torch, g_, r_) for g_, r_ in zip(out, ref))
+                        and lost <= 0.01):
+                    fail(f"{k} kernel vs plain, {system} {a}/{b}, B={batch}, N={VF_STEPS}: max "
+                         f"|diff| {diff:.3e}, {lost:.2%} of the trajectories not finite; "
+                         "expected equal bits (NaN where the plain version has NaN) and at most "
+                         "1% not finite")
         again = vf.vector_filter(params, yy)
         torch.cuda.synchronize()
         if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
             fail(f"{kernel} kernel, {system} {a}/{b}: a second launch differs from the first")
-    log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs ({len(seen)} "
-        f"instantiations (kernel, dynamics, kinds, N): {sorted(seen, key=str)}), B = "
-        f"{VF_BATCHES}, N = {VF_STEPS}, all five streams; two launches equal to the bit")
+    missing = vf_all_instantiations(vf) - seen
+    if missing:
+        fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
+    split = {k: sum(s[0] == k for s in seen) for k in VF_KERNELS}
+    log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs: "
+        f"every instantiation of the three sources ({split}; the first version at every pair, "
+        f"by force where another kernel takes it), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
+        f"streams; two launches equal to the bit; {time.perf_counter() - t15:.1f} s")
 
     # ---- 16. the reentry bench lane: dd against f64 --------------------------
-    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    before = vf_counts(vf)
     fused = ukf_re.forward_pass_batch(ys_re, engine="dd")
     torch.cuda.synchronize()
-    if (vf.LAUNCHES - before, vf.SHAPED_LAUNCHES - shaped_before) != (1, 1):
-        fail(f"a reentry UKF filter call launched {vf.LAUNCHES - before} vector filter kernels, "
-             f"{vf.SHAPED_LAUNCHES - shaped_before} of them the shaped kernel; expected 1 and 1")
+    moved = {k: v - before[k] for k, v in vf_counts(vf).items()}
+    if moved != {"vector_filter": 0, "vector_filter_shaped": 1, "vector_filter_shaped_bq": 0}:
+        fail(f"a reentry UKF filter call launched {moved}; expected the shaped kernel once")
     if not all(torch.equal(getattr(fused, f), getattr(fused_re, f))
                for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")):
         fail("the reentry lane through the kernel differs from the main path's run of it")
@@ -1466,62 +1658,84 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             fail(f"reentry lane {what} RMSE of dd and f64 differ by {abs(a - b) / b:.3e}")
     del eager
 
-    # ---- 16b. the first version's path: the bench lane under BSQ-UT ----------
-    bsq_re = re["BSQ-UT"]
-    vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
-    res_bsq = bsq_re.forward_pass_batch(ys_re, engine="dd")
-    torch.cuda.synchronize()
-    first_launches = vf.LAUNCHES - vf.SHAPED_LAUNCHES
-    if (vf.LAUNCHES, vf.SHAPED_LAUNCHES) != (1, 0):
-        fail(f"the reentry BSQ-UT lane launched {vf.LAUNCHES} vector filter kernels, "
-             f"{vf.SHAPED_LAUNCHES} of them the shaped kernel; expected the first version, once")
-    p_bsq = params_of["reentry", "BSQ-UT", "BSQ-UT"]
-    plain = vf._vector_filter_plain(p_bsq, ys_re)
-    torch.cuda.synchronize()
-    err["vector_filter"] = max(err["vector_filter"], vf_against_plain(
-        torch, res_bsq, plain, f"reentry BSQ-UT lane {M}x{N}"))
-    del plain
-    sm, _ = stt.gaussian_smoother(res_bsq)
-    r_bsq = (float(rmse(x_t, res_bsq.fi_mean.permute(1, 2, 0))),
-             float(rmse(x_t, sm.permute(1, 2, 0))))
-    if not all(map(np.isfinite, r_bsq)):
-        fail(f"reentry BSQ-UT lane: RMSE {r_bsq} not finite")
-    log(f"reentry BSQ-UT lane ({M}x{N}) through the first-version kernel (1 launch): == plain "
-        f"version to the bit, all five streams; RMSE filter {r_bsq[0]:.9f}, smoother "
-        f"{r_bsq[1]:.9f}")
-    del res_bsq, sm
+    # ---- 16b. the other kernels' paths: the bench lane under BSQ-UT, GH-3 ------
+    launches, plain_ms = {}, {}
+    for rule, kernel in (("BSQ-UT", "vector_filter_shaped_bq"), ("GH-3", "vector_filter")):
+        vf_zero(vf)
+        res = re[rule].forward_pass_batch(ys_re, engine="dd")
+        torch.cuda.synchronize()
+        moved = vf_counts(vf)
+        if moved != {k: int(k == kernel) for k in VF_KERNELS}:
+            fail(f"the reentry {rule} lane launched {moved}; expected {kernel} once")
+        launches[kernel] = 1
+        p_rule = params_of["reentry", rule, rule]
+        plain_ms[kernel], plain = event_ms(torch, lambda: vf._vector_filter_plain(p_rule, ys_re))
+        err[kernel] = max(err[kernel], vf_against_plain(
+            torch, res, plain, f"reentry {rule} lane {M}x{N}"))
+        del plain
+        sm, _ = stt.gaussian_smoother(res)
+        r_rule = (float(rmse(x_t, res.fi_mean.permute(1, 2, 0))),
+                  float(rmse(x_t, sm.permute(1, 2, 0))))
+        if not all(map(np.isfinite, r_rule)):
+            fail(f"reentry {rule} lane: RMSE {r_rule} not finite")
+        log(f"reentry {rule} lane ({M}x{N}) through {kernel} (1 launch): == plain version to "
+            f"the bit, all five streams (plain version {plain_ms[kernel]:.1f} ms, one call); "
+            f"RMSE filter {r_rule[0]:.9f}, smoother {r_rule[1]:.9f}")
+        del res, sm
 
     # ---- 17. reentry goldens through engine="dd" on the card -----------------
     g = np.load(os.path.join(HERE, "tests", "goldens", "reentry.npz"))
     y_g = torch.as_tensor(np.moveaxis(g["y"], -1, 0), device=dev)
-    for name, alg in (("ukf", ukf_re), ("bsqkf", re["BSQ-UT"])):
-        before = vf.LAUNCHES
+    for name, alg, kernel in (("ukf", ukf_re, "vector_filter_shaped"),
+                              ("bsqkf", re["BSQ-UT"], "vector_filter_shaped_bq")):
+        before = vf_counts(vf)
         res = alg.forward_pass_batch(y_g, engine="dd")
         for got, key in ((res.fi_mean[0], f"{name}_fm"), (res.fi_cov[0], f"{name}_fP")):
             if not np.allclose(got.cpu().numpy(), g[key], atol=1e-7, rtol=1e-6):
                 fail(f"golden reentry {key} through engine='dd' off by "
                      f"{np.abs(got.cpu().numpy() - g[key]).max():.3e}")
-        if vf.LAUNCHES != before + 1:
-            fail(f"golden reentry {name}: the vector filter kernel did not run")
-    log("reentry goldens through engine='dd' on the card: ukf, bsqkf (1e-7/1e-6) ok")
+        if vf_counts(vf)[kernel] != before[kernel] + 1:
+            fail(f"golden reentry {name}: the {kernel} kernel did not run")
+    log("reentry goldens through engine='dd' on the card: ukf (shaped kernel), bsqkf (BQ "
+        "shapes) (1e-7/1e-6) ok")
 
     # ---- 18. the plain version on the main path's input; timings --------------
     params = params_of["reentry", "UKF", "UKF"]
-    plain = vf._vector_filter_plain(params, ys_re)
+    plain_ms["vector_filter_shaped"], plain = event_ms(
+        torch, lambda: vf._vector_filter_plain(params, ys_re))
     torch.cuda.synchronize()
     err["vector_filter_shaped"] = max(err["vector_filter_shaped"], vf_against_plain(
         torch, fused_re, plain, f"reentry lane {M}x{N}"))
     del plain
     log(f"reentry lane {M}x{N}: the main path's kernel result == plain version to the bit, "
         "all five streams")
-    k_ms = cuda_ms(torch, lambda: vf.vector_filter(params, ys_re))
-    p_ms = event_ms(torch, lambda: vf._vector_filter_plain(params, ys_re))[0]
     lane = {e: cuda_ms(torch, lambda: ukf_re.forward_pass_batch(ys_re, engine=e), reps=3)
             for e in ("dd", "f64")}
     lat = sf.dependent_latencies(dev)
     mhz = float(clocks_line().split()[0])
     log("dependent-issue latency of the card in clocks (one warp): "
         + ", ".join(f"{op} {clocks:.1f}" for op, clocks in lat.items()))
+    lib_path, build_log = vf.build()._name, _build.BUILD_LOGS.get("vector_filter", "")
+
+    def code_of(kernel, p):
+        """ptxas registers / local memory and the f64 issue floor from the SASS
+        of ``kernel``'s instantiation for ``p``, as one line."""
+        targs = [p.dim_state, p.dim_out, p.dyn_model, p.obs_model]
+        if kernel != "vector_filter":
+            targs.append(p.dyn.n)
+        if kernel != "vector_filter_shaped":
+            targs += [p.dyn.kind, p.obs.kind]
+        fn = f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs) + "E"
+        regs, frame, spill = ptxas_of(build_log, fn)
+        listing = sass_listing(lib_path, fn)
+        if not listing:
+            return f"{regs} registers, {frame} bytes of local memory (stack frame); SASS not read"
+        per_step = sass_f64_a_step(listing, p.dyn.n)
+        floor_ms = per_step * M / 32 / (132 * SASS_F64_A_CLOCK) * N / (mhz * 1e3)
+        return (f"{regs} registers, {frame} bytes of local memory (stack frame), {spill} bytes "
+                f"spilled; SASS {len(listing)} instructions, {per_step} f64 a step, f64 issue "
+                f"floor {floor_ms:.4f} ms")
+
     for name in re:
         p_n = params_of["reentry", name, name]
         kernel = vf.kernel_of(p_n)
@@ -1532,31 +1746,34 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             f"{raw:.4f} ms a launch (CUDA events around 20 behind torch.cuda._sleep), bound "
             f"{b_ms:.4f} ms ({b_by}), chain floor {floor:.0f} clocks a step = "
             f"{floor * N / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz")
-        if kernel == "vector_filter_shaped":
+        if kernel != "vector_filter":
             # the first version on the same input, in turns with the shaped kernel
             first = [raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev, "vector_filter"))]
             again = raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev))
             first.append(raw_ms(torch, vf_raw(torch, vf, p_n, ys_re, dev, "vector_filter")))
             log(f"  the first-version kernel on the same input: raw launches "
-                f"{first[0]:.4f} / {first[1]:.4f} ms (shaped kernel again {again:.4f} ms; "
-                f"first / shaped {min(first) / min(raw, again):.2f}x)")
-    log(f"vector_filter_shaped reentry UKF {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min "
-        f"{k_ms[1]:.4f}), plain version {p_ms:.1f} ms (one call after one warm-up); lane "
-        f"forward_pass_batch engine='dd' {lane['dd'][0]:.3f} "
-        f"ms (min {lane['dd'][1]:.3f}), engine='f64' {lane['f64'][0]:.1f} ms (min "
-        f"{lane['f64'][1]:.1f})")
-    b_ms, b_by = vf_bound(params, N, M)
-    shaped_entry = {"max_abs_err": err["vector_filter_shaped"], "ms": k_ms[0], "plain_ms": p_ms,
-                   "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
-    k_first = cuda_ms(torch, lambda: vf.vector_filter(p_bsq, ys_re))
-    p_first = event_ms(torch, lambda: vf._vector_filter_plain(p_bsq, ys_re))[0]
-    b_ms, b_by = vf_bound(p_bsq, N, M)
-    log(f"vector_filter reentry BSQ-UT {M}x{N}: wrapper call {k_first[0]:.4f} ms (min "
-        f"{k_first[1]:.4f}), plain version {p_first:.1f} ms, bound {b_ms:.4f} ms ({b_by})")
-    first_entry = {"launches": first_launches, "max_abs_err": err["vector_filter"],
-                   "ms": k_first[0], "plain_ms": p_first, "bound_ms": b_ms, "bound_by": b_by,
-                   "library_ms": None}
-    return shaped_entry, first_entry
+                f"{first[0]:.4f} / {first[1]:.4f} ms ({kernel} again {again:.4f} ms; "
+                f"first / {kernel} {min(first) / min(raw, again):.2f}x)")
+        if kernel == "vector_filter_shaped_bq":
+            log(f"  {kernel}: {code_of(kernel, p_n)}")
+            log(f"  vector_filter: {code_of('vector_filter', p_n)}")
+    log(f"vector_filter_shaped reentry UKF {M}x{N}: plain version "
+        f"{plain_ms['vector_filter_shaped']:.1f} ms (one call); lane forward_pass_batch "
+        f"engine='dd' {lane['dd'][0]:.3f} ms (min {lane['dd'][1]:.3f}), engine='f64' "
+        f"{lane['f64'][0]:.1f} ms (min {lane['f64'][1]:.1f})")
+    entries = {}
+    for kernel, rule in (("vector_filter_shaped", "UKF"), ("vector_filter_shaped_bq", "BSQ-UT"),
+                         ("vector_filter", "GH-3")):
+        p_k = params_of["reentry", rule, rule]
+        k_ms = cuda_ms(torch, lambda: vf.vector_filter(p_k, ys_re))
+        b_ms, b_by = vf_bound(p_k, N, M)
+        log(f"{kernel} reentry {rule} {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min "
+            f"{k_ms[1]:.4f}), plain version {plain_ms[kernel]:.1f} ms, bound {b_ms:.4f} ms "
+            f"({b_by})")
+        entries[kernel] = {"launches": launches.get(kernel, 0), "max_abs_err": err[kernel],
+                           "ms": k_ms[0], "plain_ms": plain_ms[kernel], "bound_ms": b_ms,
+                           "bound_by": b_by, "library_ms": None}
+    return entries
 
 
 #: the "zoo" phase: the rest of the model zoo on the card, at MC trajectories
@@ -1611,9 +1828,10 @@ def zoo_slice(torch, np, dev):
     """Phase 19, "zoo": the rest of the model zoo at MC trajectories simulated
     on the card from the seed.  Fused lanes (``engine="dd"``): the pendulum
     under UKF (the shaped kernel) and GPQKF (RBF ``[[1, 2, 2]]``,
-    spherical-radial points: the first version), the falling body under UKF
-    and the CT + 4 bearings system under CKF (both the shaped kernel).  Each
-    launches the kernel ``kernel_of`` names, once; every stream of its first
+    spherical-radial points: the kernel of the BQ shapes), the falling body
+    under UKF and the CT + 4 bearings system under CKF (both the shaped
+    kernel).  Each launches the kernel ``kernel_of`` names, once; every
+    stream of its first
     ``ZOO_PLAIN_B`` trajectories equals the plain version's to the bit; its
     filter RMSE is the eager f64 lane's within 1e-6 relative; at most 1% of
     its runs are not finite; filter and smoother RMSE are printed, and raw
@@ -1621,9 +1839,8 @@ def zoo_slice(torch, np, dev):
     Eager lanes (``engine="auto"``, non-additive noise, so no kernel):
     UKF on UNGM-NA (500 steps) and on CTRS + radar, launching no kernel,
     timed with CUDA events, filter and smoother RMSE printed.  Returns the
-    launches of the first version and of the shaped kernel on this path (the
-    counts set to 0 before it) and the largest |diff| of each against its
-    plain version."""
+    launches of each vector filter kernel on this path (the counts set to 0
+    before it) and the largest |diff| of each against its plain version."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import scalar_filter as sf, vector_filter as vf
     from ssmtoybox_torch.utils.metrics import rmse
@@ -1653,20 +1870,18 @@ def zoo_slice(torch, np, dev):
                 float(rmse(x_t, sm.permute(1, 2, 0))), 1.0 - float(ok.double().mean()))
 
     # ---- the path: every lane once, the counts from 0 -------------------------
-    vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
+    vf_zero(vf)
     sf_before = sf.LAUNCHES
     results = {}
     for system, rule, alg in fused:
-        before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+        before = vf_counts(vf)
         results[system, rule] = alg.forward_pass_batch(data[system][1], engine="dd")
         params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
-        shaped = vf.kernel_of(params) == "vector_filter_shaped"
-        if (vf.LAUNCHES - before, vf.SHAPED_LAUNCHES - shaped_before) != (1, int(shaped)):
-            fail(f"zoo {system} {rule}: {vf.LAUNCHES - before} vector filter launches, "
-                 f"{vf.SHAPED_LAUNCHES - shaped_before} of the shaped kernel; expected one of "
+        moved = {k: v - before[k] for k, v in vf_counts(vf).items()}
+        if moved != {k: int(k == vf.kernel_of(params)) for k in VF_KERNELS}:
+            fail(f"zoo {system} {rule}: vector filter launches {moved}; expected one of "
                  f"{vf.kernel_of(params)}")
-    launches = {"vector_filter": vf.LAUNCHES - vf.SHAPED_LAUNCHES,
-                "vector_filter_shaped": vf.SHAPED_LAUNCHES}
+    launches = vf_counts(vf)
     eager_ms = {}
     for system, rule, alg in eager:
         before = (sf.LAUNCHES, vf.LAUNCHES)
@@ -1677,12 +1892,11 @@ def zoo_slice(torch, np, dev):
     torch.cuda.synchronize()
     if sf.LAUNCHES != sf_before:
         fail("the zoo phase launched the scalar filter kernel")
-    log(f"zoo path ({MC} trajectories): vector filter launches, first version "
-        f"{launches['vector_filter']}, shaped kernel {launches['vector_filter_shaped']}; the "
-        "non-additive lanes launched none")
+    log(f"zoo path ({MC} trajectories): vector filter launches {launches}; the non-additive "
+        "lanes launched none")
 
     # ---- the fused lanes: plain version, eager lane, scores, times ------------
-    err = {"vector_filter": 0.0, "vector_filter_shaped": 0.0}
+    err = dict.fromkeys(VF_KERNELS, 0.0)
     lat, mhz = sf.dependent_latencies(dev), float(clocks_line().split()[0])
     for system, rule, alg in fused:
         x_true, ys = data[system]
@@ -1974,11 +2188,11 @@ def bq_rest_slice(torch, np, dev, ungm, reentry, glint):
     """Phase 21, "bq_rest": the RQ kernel, per-call kernel parameters, the
     IPLF, the multi-output filters and GP optimization at MC trajectories on
     the card.  Returns the launches of the fused kernels in the lanes' first
-    runs, ``{"scalar_filter", "vector_filter", "vandermonde"}``.
+    runs, ``{"scalar_filter", "vector_filter_shaped_bq", "vandermonde"}``.
 
     (a) GPQKF with the RQ kernel under ``engine="auto"``: UNGM (the main
     path's 10,000 x 500 data) through the scalar filter kernel and reentry
-    (10,000 x 100) through the first-version vector filter kernel, one launch
+    (10,000 x 100) through the vector filter kernel of the BQ shapes, one launch
     each; each kernel's result equals its plain version on the same input to
     the bit, all five streams; against ``"f64"`` on the first
     ``CLASSICAL_CPU_B`` runs within 1e-9 of each stream's largest entry
@@ -2042,7 +2256,7 @@ def bq_rest_slice(torch, np, dev, ungm, reentry, glint):
     dyn_re, obs_re, xs_re, ys_re = reentry
     dyn_cv, obs_cv, xs_cv, ys_cv = glint
     B = CLASSICAL_CPU_B
-    launches = {"scalar_filter": 0, "vector_filter": 0, "vandermonde": 0}
+    launches = {"scalar_filter": 0, "vector_filter_shaped_bq": 0, "vandermonde": 0}
 
     # ---- (a) GPQKF with the RQ kernel through the fused engines ------------
     rq_u = stt.GaussianProcessKalman(dyn_u, obs_u, np.array(RQ_UNGM), np.array(RQ_UNGM),
@@ -2052,15 +2266,18 @@ def bq_rest_slice(torch, np, dev, ungm, reentry, glint):
     torch.cuda.synchronize()
     for lane, alg, x_true, ys, lib, key in (
             ("UNGM", rq_u, xs_u, ys_u, sf, "scalar_filter"),
-            ("reentry", rq_re, xs_re, ys_re, vf, "vector_filter")):
+            ("reentry", rq_re, xs_re, ys_re, vf, "vector_filter_shaped_bq")):
         what = f"bq_rest GPQKF-RQ {lane} ({MC}x{ys.shape[-1]})"
-        n0, shaped0 = lib.LAUNCHES, vf.SHAPED_LAUNCHES
+        n0, vf0 = lib.LAUNCHES, vf_counts(vf)
         res = alg.forward_pass_batch(ys, engine="auto")
         torch.cuda.synchronize()
         n = lib.LAUNCHES - n0
-        if n != 1 or vf.SHAPED_LAUNCHES != shaped0:
-            fail(f"{what}: engine='auto' launched {key} {n} times (shaped vector filter "
-                 f"{vf.SHAPED_LAUNCHES - shaped0}); expected {key} once")
+        vf_moved = {k: v - vf0[k] for k, v in vf_counts(vf).items()}
+        if lib is vf:
+            n = vf_moved[key]
+        if n != 1 or sum(vf_moved.values()) != int(lib is vf):
+            fail(f"{what}: engine='auto' launched {key} {n} times (vector filter kernels "
+                 f"{vf_moved}); expected {key} once")
         launches[key] += n
         if lib is sf:
             params = sf.prepare(dyn_u, obs_u, alg.tf_dyn, alg.tf_obs)
@@ -2074,8 +2291,8 @@ def bq_rest_slice(torch, np, dev, ungm, reentry, glint):
             steps = UNGM_PREFIX
         else:
             params = vf.prepare(dyn_re, obs_re, alg.tf_dyn, alg.tf_obs)
-            if vf.kernel_of(params) != "vector_filter":
-                fail(f"{what}: runs {vf.kernel_of(params)}, expected the first version")
+            if vf.kernel_of(params) != "vector_filter_shaped_bq":
+                fail(f"{what}: runs {vf.kernel_of(params)}, expected the BQ shapes")
             plain = vf._vector_filter_plain(params, ys)
             vf_against_plain(torch, res, plain, what)
             steps = None
@@ -2866,7 +3083,9 @@ def sqrt_slice(torch, np, dev, ungm, reentry, glint):
 #: IPLS(2)); the records are prefixes of one simulated trajectory
 PAR_DT = 0.01
 PAR_ITERS = 2
-PAR_SHORT, PAR_LONG, PAR_BLOCK = 10_000, 50_000, 100_000
+#: PAR_LONG's float64 observer is a host-bound loop of ~1-1.5 ms a step: at
+#: 20,000 steps it keeps the script well inside its 1,200 s limit
+PAR_SHORT, PAR_LONG, PAR_BLOCK = 10_000, 20_000, 100_000
 #: the sequential UKF + RTS reference and the IPLS(2) held to it run on the
 #: first PAR_SEQ steps: the eager reference takes ~2 ms a step on the card,
 #: 21 s at PAR_SHORT steps
@@ -3570,7 +3789,8 @@ def studies_slice(torch, np, dev):
     each conclusion of ``STUDY_GATES``, its margin printed in standard
     errors where the table has them; ``icinco_ungm --engine dd`` runs every
     lane in the scalar filter kernel (engine ``dd``, at least 7 launches);
-    ``gpq_tracking --engine auto`` launches both vector filter kernels; the
+    ``gpq_tracking --engine auto`` launches both shaped vector filter kernels
+    (the UKF the classical one, the GPQKF the BQ shapes); the
     BSQ studies and ``polar2cartesian_mt`` the Vandermonde kernel; the TPQ
     studies the pairwise Student-MC kernel.  Returns the launches of the
     phase a kernel entry of the ``kernels`` line."""
@@ -3580,14 +3800,13 @@ def studies_slice(torch, np, dev):
     from ssmtoybox_torch.ops import vandermonde as vdm, vector_filter as vf
 
     def zero():
-        sf.LAUNCHES = vdm.LAUNCHES = vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
+        sf.LAUNCHES = vdm.LAUNCHES = 0
+        vf_zero(vf)
         for k in smc.LAUNCHES:
             smc.LAUNCHES[k] = 0
 
     def counts():
-        return {"scalar_filter": sf.LAUNCHES, "vandermonde": vdm.LAUNCHES,
-                "vector_filter": vf.LAUNCHES - vf.SHAPED_LAUNCHES,
-                "vector_filter_shaped": vf.SHAPED_LAUNCHES,
+        return {"scalar_filter": sf.LAUNCHES, "vandermonde": vdm.LAUNCHES, **vf_counts(vf),
                 **{f"student_{k}": v for k, v in smc.LAUNCHES.items()}}
 
     def cell(tables, prefix, row, col):
@@ -3638,7 +3857,7 @@ def studies_slice(torch, np, dev):
             if set(engines.values()) != {"dd"} or got["scalar_filter"] < 7:
                 fail(f"icinco_ungm --engine dd: engines {engines}, scalar filter launches "
                      f"{got['scalar_filter']} (expected dd on every lane, at least 7)")
-        need = {"gpq_tracking": ("vector_filter", "vector_filter_shaped"),
+        need = {"gpq_tracking": ("vector_filter_shaped", "vector_filter_shaped_bq"),
                 "bsq_ungm": ("vandermonde",), "bsq_tracking": ("vandermonde",),
                 "polar2cartesian_mt": ("vandermonde",), "tpq_ungm": ("student_kxy",),
                 "tpq_constant_velocity": ("student_kxy",)}.get(name, ())
@@ -3676,6 +3895,59 @@ def studies_alone():
     studies_slice(torch, np, dev)
 
 
+def reentry_system(np, dev):
+    """The reentry + radar system of ``bench.py``'s lane (``bench.py:109-115``)
+    on ``dev``: (dynamics, measurement)."""
+    from ssmtoybox_torch.ssmod import Radar2DMeasurement, ReentryVehicle2DTransition
+    from ssmtoybox_torch.utils import GaussRV
+    dyn = ReentryVehicle2DTransition(
+        GaussRV(5, mean=np.array([6500.4, 349.14, -1.8093, -6.7967, 0.6932]),
+                cov=np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0]), device=dev),
+        GaussRV(3, cov=np.diag([2.4064e-5, 2.4064e-5, 1e-6]), device=dev), dt=0.05)
+    obs = Radar2DMeasurement(GaussRV(2, cov=np.diag([1e-3, 1e-5]), device=dev),
+                             dim_state=5, state_index=[0, 1], radar_loc=np.array([6374.0, 0.0]))
+    return dyn, obs
+
+
+def vector_alone():
+    """Phases 15-19 alone (the vector filter kernels' checks, paths and
+    timings, then the zoo), the library built first and its build time and
+    ptxas lines printed: ``python3 -c "import chip_smoke;
+    chip_smoke.vector_alone()"``.  The reentry bench lane is simulated here
+    from the seed (not after the UNGM data, as in ``main``)."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.ops import _build, vector_filter as vf
+
+    if not torch.cuda.is_available():
+        fail("vector_alone: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"card: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    vf.build()
+    log(f"built vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu for "
+        f"sm_90a in {time.perf_counter() - t0:.1f} s")
+    for line in _build.BUILD_LOGS.get("vector_filter", "").splitlines():
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas vector_filter: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dyn_re, obs_re = reentry_system(np, dev)
+    x_re = dyn_re.simulate_discrete(gen, steps=REENTRY_STEPS, mc_sims=MC)
+    xs_re, ys_re = x_re.permute(2, 0, 1), obs_re.simulate_measurements(gen, x_re).permute(2, 0, 1)
+    ukf_re = stt.UnscentedKalman(dyn_re, obs_re)
+    fused = ukf_re.forward_pass_batch(ys_re, engine="dd")
+    torch.cuda.synchronize()
+    entries = vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused)
+    launches, err = zoo_slice(torch, np, dev)
+    log(f"vector_alone: entries {json.dumps(entries)}; zoo launches {launches}, errors {err}; "
+        f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+
+
 def main():
     import numpy as np
     import torch
@@ -3693,8 +3965,7 @@ def main():
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import _build, scalar_filter as sf, student_mc as smc, vandermonde as vdm
     from ssmtoybox_torch.ops import vector_filter as vf
-    from ssmtoybox_torch.ssmod import (Radar2DMeasurement, ReentryVehicle2DTransition,
-                                       UNGMMeasurement, UNGMTransition)
+    from ssmtoybox_torch.ssmod import UNGMMeasurement, UNGMTransition
     from ssmtoybox_torch.utils import GaussRV
     from ssmtoybox_torch.utils.metrics import rmse
 
@@ -3716,7 +3987,7 @@ def main():
                 for lib in (sf, smc, vdm, vf)}
         took = {name: build.result() for name, build in took.items()}
     log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu, vandermonde.cu and "
-        f"vector_filter.cu + vector_filter_shaped.cu for sm_90a in "
+        f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
         + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):
@@ -3753,13 +4024,7 @@ def main():
         f"{stt.default_device()} ({len(on_card)} tensors checked)")
     gpq = stt.GaussianProcessKalman(dyn, obs, np.array([[1.0, 3.0]]), np.array([[1.0, 3.0]]),
                                     points="ut")
-    dyn_re = ReentryVehicle2DTransition(
-        GaussRV(5, mean=np.array([6500.4, 349.14, -1.8093, -6.7967, 0.6932]),
-                cov=np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0]), device=dev),
-        GaussRV(3, cov=np.diag([2.4064e-5, 2.4064e-5, 1e-6]), device=dev), dt=0.05)
-    obs_re = Radar2DMeasurement(GaussRV(2, cov=np.diag([1e-3, 1e-5]), device=dev),
-                                dim_state=5, state_index=[0, 1],
-                                radar_loc=np.array([6374.0, 0.0]))
+    dyn_re, obs_re = reentry_system(np, dev)
     x_re = dyn_re.simulate_discrete(gen, steps=REENTRY_STEPS, mc_sims=MC)
     y_re = obs_re.simulate_measurements(gen, x_re)
     xs_re, ys_re = x_re.permute(2, 0, 1), y_re.permute(2, 0, 1)
@@ -3825,19 +4090,20 @@ def main():
     log("goldens on the card: ungm UKF/GPQKF (dd and f64, 1e-8), reentry UKF (1e-7/1e-6) ok")
 
     # ---- 4. the main path -------------------------------------------------
-    sf.LAUNCHES = vf.LAUNCHES = vf.SHAPED_LAUNCHES = 0
+    sf.LAUNCHES = 0
+    vf_zero(vf)
     results = {}
     for lane, (alg, x_true, data, engine) in lanes.items():
         res = alg.forward_pass_batch(data, engine=engine)
         sm_m, sm_P = stt.gaussian_smoother(res)
         results[lane] = (res, sm_m, sm_P, x_true)
     torch.cuda.synchronize()
-    launches, vf_launches, vfs_launches = sf.LAUNCHES, vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    launches, main_vf = sf.LAUNCHES, vf_counts(vf)
     if launches < 2:
         fail(f"the UNGM lanes launched the scalar filter kernel {launches} times; expected 2")
-    if (vf_launches, vfs_launches) != (1, 1):
-        fail(f"the reentry lane launched {vf_launches} vector filter kernels, {vfs_launches} of "
-             "them the shaped kernel; expected the shaped kernel, once")
+    if main_vf != {"vector_filter": 0, "vector_filter_shaped": 1, "vector_filter_shaped_bq": 0}:
+        fail(f"the reentry lane launched the vector filter kernels {main_vf}; expected the "
+             "shaped kernel, once")
     for lane, (res, sm_m, sm_P, x_true) in results.items():
         M, D, N = x_true.shape
         if tuple(res.fi_mean.shape) != (M, D, N) or tuple(sm_P.shape) != (M, D, D, N):
@@ -3851,9 +4117,8 @@ def main():
         if not r_sm < r_fi:
             fail(f"{lane}: smoother RMSE {r_sm} not below filter RMSE {r_fi}")
         log(f"{lane} ({lanes[lane][3]}, {M}x{N}): RMSE filter {r_fi:.6f}, smoother {r_sm:.6f}")
-    log(f"main path: scalar filter kernel launches {launches}, vector filter shaped kernel "
-        f"launches {vfs_launches}, first-version vector filter kernel launches "
-        f"{vf_launches - vfs_launches}")
+    log(f"main path: scalar filter kernel launches {launches}, vector filter kernel launches "
+        f"{main_vf}")
 
     # ---- 5. timings (after the counts were read) --------------------------
     params = sf.prepare(dyn, obs, ukf.tf_dyn, ukf.tf_obs)
@@ -3869,20 +4134,22 @@ def main():
         t["smoother"] = cuda_ms(torch, lambda: stt.gaussian_smoother(res), reps=3)
         log(f"{lane}: " + ", ".join(f"{k} {v[0]:.2f} ms (min {v[1]:.2f})" for k, v in t.items()))
 
-    vf_main, vf_first = vector_slice(torch, np, dev, ukf_re, xs_re, ys_re,
-                                     results["reentry_ukf"][0])
+    vf_entries = vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, results["reentry_ukf"][0])
+    vf_entries["vector_filter_shaped"]["launches"] += main_vf["vector_filter_shaped"]
     student, glint = student_slice(torch, np, dev)
     vdm_entry, bsq_sf_launches, vf_track, vf_track_err = bsq_slice(torch, np, dev, xs, ys)
-    vf_main["max_abs_err"] = max(vf_main["max_abs_err"], vf_track_err)
+    shaped = vf_entries["vector_filter_shaped"]
+    shaped["launches"] += vf_track
+    shaped["max_abs_err"] = max(shaped["max_abs_err"], vf_track_err)
     zoo_launches, zoo_err = zoo_slice(torch, np, dev)
-    vf_first["launches"] += zoo_launches["vector_filter"]
-    vf_first["max_abs_err"] = max(vf_first["max_abs_err"], zoo_err["vector_filter"])
-    vf_main["max_abs_err"] = max(vf_main["max_abs_err"], zoo_err["vector_filter_shaped"])
+    for k, entry in vf_entries.items():
+        entry["launches"] += zoo_launches[k]
+        entry["max_abs_err"] = max(entry["max_abs_err"], zoo_err[k])
     classical_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
     rest = bq_rest_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re),
                          glint)
     vdm_entry["launches"] += rest["vandermonde"]
-    vf_first["launches"] += rest["vector_filter"]
+    vf_entries["vector_filter_shaped_bq"]["launches"] += rest["vector_filter_shaped_bq"]
     marginal_online_slice(torch, np, dev, (dyn, obs, xs, ys))
     sqrt_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
     shared = parallel_slice(torch, np, dev)
@@ -3891,7 +4158,8 @@ def main():
     for entry in student:
         entry["launches"] += studies[entry["name"]]
     vdm_entry["launches"] += studies["vandermonde"]
-    vf_first["launches"] += studies["vector_filter"]
+    for k, entry in vf_entries.items():
+        entry["launches"] += studies[k]
 
     b_ms, b_by = sf_bound(params, *y_tm.shape)
     kernels = {"kernels": [{
@@ -3899,15 +4167,9 @@ def main():
         "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37",
         "launches": launches + bsq_sf_launches + rest["scalar_filter"] + studies["scalar_filter"],
         "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}] + student + [vdm_entry, {
-        "name": "vector_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/vector_filter.cu",
-        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **vf_first}, {
-        "name": "vector_filter_shaped", "route": "cuda",
-        "source": "ssmtoybox_torch/csrc/vector_filter_shaped.cu",
-        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514",
-        "launches": (vfs_launches + vf_track + zoo_launches["vector_filter_shaped"]
-                     + studies["vector_filter_shaped"]),
-        **vf_main}]}
+        "library_ms": None}] + student + [vdm_entry] + [{
+        "name": k, "route": "cuda", "source": f"ssmtoybox_torch/csrc/{k}.cu",
+        "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **entry} for k, entry in vf_entries.items()]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps(kernels), flush=True)
     print(card_line(), flush=True)

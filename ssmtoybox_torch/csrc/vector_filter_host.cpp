@@ -1,9 +1,10 @@
 // Host builds of the vector filter steps (vector_filter_step.cuh and
-// vector_filter_shaped.cuh, which includes it), for testing
-// the kernel's arithmetic on a machine without a GPU.  It picks the template
-// instantiation as the CUDA launcher does (the model pair, then the kinds of
-// both rules) and runs the trajectories one after another, with the kernel's
-// layouts: time-major outputs and a scratch buffer interleaved by trajectory.
+// vector_filter_shaped.cuh, which includes it), for testing the kernels'
+// arithmetic on a machine without a GPU.  Each entry picks the template
+// instantiation as its CUDA launcher does (the model pair, then the kinds and
+// point count of both rules) and runs the trajectories one after another,
+// with the kernel's layouts: time-major outputs and, for the first version, a
+// scratch buffer interleaved by trajectory.
 #include "vector_filter_shaped.cuh"
 
 namespace {
@@ -65,5 +66,29 @@ extern "C" int vfs_host_run(const VfsParams* params, const double* y, long long 
   }
   VFS_SHAPES(VFS_RUN_IF)
 #undef VFS_RUN_IF
+  return ran;
+}
+
+// The same for the step of the kernel of the BQ shapes
+// (vector_filter_shaped_bq.cu): N = 2 D + 1 or 2 D points on both rules, a
+// BQ rule on one transform or both.  Returns the state dimension of the
+// instantiation that ran, 0 if none takes the configuration.
+extern "C" int vfs_bq_host_run(const VfsBqParams* params, const double* y, long long y_b,
+                               long long y_e, long long y_k, int B, int n_steps, double* m_fi,
+                               double* P_fi, double* m_pr, double* P_pr, double* xx) {
+  const VfParams& q = params->base;
+  if (q.dyn.n != q.obs.n) return 0;
+  int ran = 0;
+#define VFS_BQ_RUN_IF(D, E, DYN, OBS, N, KD, KO)                                          \
+  if (!ran && q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D &&              \
+      q.dim_out == E && q.dyn.n == N && q.dyn.kind == KD && q.obs.kind == KO) {            \
+    for (int b = 0; b < B; ++b)                                                            \
+      vfs_record<D, E, DYN, OBS, N, KD, KO>(*params, y + b * y_b, y_e, y_k, n_steps,       \
+                                            m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b, \
+                                            B);                                            \
+    ran = D;                                                                               \
+  }
+  VFS_BQ_SHAPES(VFS_BQ_RUN_IF)
+#undef VFS_BQ_RUN_IF
   return ran;
 }

@@ -1,10 +1,11 @@
 // One step of the Gaussian sigma-point filter for small vector states with
-// additive noise, in native float64, one trajectory a thread, for classical
-// rules at the UT and CKF point counts (N = 2 D + 1 or 2 D on both
-// transforms), with N known at compile time.
+// additive noise, in native float64, one trajectory a thread, for rules at
+// the UT and CKF point counts (N = 2 D + 1 or 2 D on both transforms), with N
+// and each transform's kind (classical or BQ) known at compile time.
 //
-// Shared by the CUDA kernel (vector_filter_shaped.cu) and the host shim
-// (vector_filter_host.cpp), which g++ builds, so that the CPU tests hold this
+// Shared by the CUDA kernels (vector_filter_shaped.cu: both rules classical;
+// vector_filter_shaped_bq.cu: a BQ rule on either transform or both) and the
+// host shim (vector_filter_host.cpp), which g++ builds, so that the CPU tests hold this
 // exact code against the plain PyTorch version in
 // ssmtoybox_torch/ops/vector_filter.py.  The step is that of
 // vector_filter_step.cuh, whose models, Cholesky factor and parameter struct
@@ -12,15 +13,20 @@
 // so that both agree to the bit where their exp, sqrt and atan2 agree.
 //
 // What differs from the first version's step (vector_filter_step.cuh):
-// - N and the model pair are template arguments, so the point loops have
-//   N iterations known to the compiler, and nothing is read at run time to
-//   decide the shape;
+// - N, the model pair and the rules' kinds are template arguments, so the
+//   point loops have N iterations known to the compiler, and nothing is read
+//   at run time to decide the shape;
 // - the rules' constants travel by value in the parameters and are read at
 //   offsets the compiler knows (the constant bank), not through pointers;
 // - each point's value f_j and offset dx_j = L xi_j are computed once and
 //   kept on chip for the sums: in registers where the point loops are
 //   unrolled, in the thread's own local memory (L1) where they stay loops;
-//   nothing goes through a scratch buffer in device memory.
+//   nothing goes through a scratch buffer in device memory;
+// - a BQ rule's quadratic form sum_i f_i (sum_j Wc_ij f_j)^T takes its row
+//   sum g_i one i at a time, EO accumulators, the j loop unrolled over the
+//   values kept on chip and the constant row of Wc; the first version reads
+//   both from device memory (N^2 EO scratch loads and N^2 weight loads a
+//   transform).
 //
 // Unrolled or not.  A transform through the reentry dynamics keeps its point
 // loops as loops: the model (two square roots, two divides and an exp, each
@@ -59,6 +65,34 @@ struct VfsParams {
   VfsRule dyn;
   VfsRule obs;
 };
+
+// A rule by value of either kind, for the kernel of the BQ shapes: the
+// classical fields (xi and wm of both kinds, wc of a classical rule, zero in
+// a BQ one), then a BQ rule's dense weights Wc (n, n) and cross weights Wcc
+// (dim_in, n), rows VFS_MAX_PTS apart, and its expected model variance.  Wc
+// is kept whole, not as a triangle: the port's GPQ weights (wm wm^T + K^-1
+// (Q - q q^T) K^-1) are not symmetric to the bit.  2,032 bytes.
+struct VfsBqRule {
+  VfsRule c;
+  double Wc[VFS_MAX_PTS * VFS_MAX_PTS];
+  double Wcc[VFS_MAX_DIM * VFS_MAX_PTS];
+  double emv;
+};
+
+// The parameters of the kernel of the BQ shapes: 5,904 bytes.  Past the 4 KB
+// that a kernel's parameters could take before CUDA 12.1; from 12.1 on, sm_70
+// and later take up to 32,764 bytes of them, which still live in the constant
+// bank: every thread reads the same address, and the constant cache
+// broadcasts it.  The launch's other arguments take 80 bytes.
+struct VfsBqParams {
+  VfParams base;
+  VfsBqRule dyn;
+  VfsBqRule obs;
+};
+static_assert(sizeof(VfsBqRule) == 2032 && sizeof(VfsBqParams) == 5904,
+              "the layout the ctypes mirror (ops/vector_filter.py) expects");
+static_assert(sizeof(VfsBqParams) + 128 <= 32764,
+              "a kernel's parameters take at most 32,764 bytes (CUDA 12.1 and later)");
 
 // Whether the point loops of the dynamics and of the measurement transform
 // stay loops (above).
@@ -128,12 +162,131 @@ VF_HD void vfs_moments(const VfsRule& R, const double (&m)[D], const double (&L)
   }
 }
 
+// Moments of f over the BQ rule R at the Gaussian (m, L L^T), every sum in
+// the order of the plain version's BQ branch (ops/vector_filter.py,
+// _moments_plain) and of vf_moments, from 0.0 upwards: mu = sum_j wm_j f_j;
+// for each i, g_i = sum_j Wc_ij f_j, then q += f_i g_i^T on the lower
+// triangle; h = sum_i Wcc[:, i] f_i; cov = q - mu mu^T + emv I (mirrored),
+// cross = h L^T.  Only the values f_j stay on chip: the cross-covariance
+// needs no offsets.  ROLL: the point loops stay loops; the j loop of g_i,
+// which calls no model, is unrolled either way (as a loop it ran slower).
+template <int D, int EO, int N, bool ROLL, class F>
+VF_HD void vfs_bq_moments(const VfsBqRule& R, const double (&m)[D], const double (&L)[D][D],
+                          const F& f, double (&mu)[EO], double (&cov)[EO][EO],
+                          double (&cross)[EO][D]) {
+  [[maybe_unused]] constexpr int U = ROLL ? 1 : N;  // unroll factor of the point loops
+  double v[N][EO];                 // point j: its values
+  VFS_PRAGMA(unroll (U))
+  for (int j = 0; j < N; ++j) {
+    double x[D], fx[EO];
+#pragma unroll
+    for (int a = 0; a < D; ++a) {
+      double acc = 0.0;
+#pragma unroll
+      for (int c = 0; c <= a; ++c) acc = acc + L[a][c] * R.c.xi[c * VFS_MAX_PTS + j];
+      x[a] = m[a] + acc;
+    }
+    f(x, fx);
+#pragma unroll
+    for (int e = 0; e < EO; ++e) v[j][e] = fx[e];
+  }
+#pragma unroll
+  for (int e = 0; e < EO; ++e) mu[e] = 0.0;
+  VFS_PRAGMA(unroll (U))
+  for (int j = 0; j < N; ++j) {
+#pragma unroll
+    for (int e = 0; e < EO; ++e) mu[e] = mu[e] + R.c.wm[j] * v[j][e];
+  }
+  double h[EO][D];
+#pragma unroll
+  for (int a = 0; a < EO; ++a) {
+#pragma unroll
+    for (int b = 0; b < EO; ++b) cov[a][b] = 0.0;
+#pragma unroll
+    for (int c = 0; c < D; ++c) h[a][c] = 0.0;
+  }
+  VFS_PRAGMA(unroll (U))
+  for (int i = 0; i < N; ++i) {
+    double g[EO];
+#pragma unroll
+    for (int e = 0; e < EO; ++e) g[e] = 0.0;
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const double w = R.Wc[i * VFS_MAX_PTS + j];
+#pragma unroll
+      for (int e = 0; e < EO; ++e) g[e] = g[e] + w * v[j][e];
+    }
+#pragma unroll
+    for (int a = 0; a < EO; ++a) {
+#pragma unroll
+      for (int b = 0; b <= a; ++b) cov[a][b] = cov[a][b] + v[i][a] * g[b];
+    }
+  }
+  // h in a pass of its own: its EO x D sums beside the quadratic form's
+  // overflowed the registers of the reentry transform (255, 112 bytes spilled)
+  VFS_PRAGMA(unroll (U))
+  for (int i = 0; i < N; ++i) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      const double w = R.Wcc[c * VFS_MAX_PTS + i];
+#pragma unroll
+      for (int e = 0; e < EO; ++e) h[e][c] = h[e][c] + w * v[i][e];
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < EO; ++a) {
+#pragma unroll
+    for (int b = 0; b <= a; ++b) cov[a][b] = cov[a][b] - mu[a] * mu[b];
+    cov[a][a] = cov[a][a] + R.emv;
+  }
+  // cross = h L^T, from 0.0 upwards over the lower triangle of L
+#pragma unroll
+  for (int e = 0; e < EO; ++e) {
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      double acc = 0.0;
+#pragma unroll
+      for (int a = 0; a <= c; ++a) acc = acc + h[e][a] * L[c][a];
+      cross[e][c] = acc;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < EO; ++a) {
+#pragma unroll
+    for (int b = a + 1; b < EO; ++b) cov[a][b] = cov[b][a];
+  }
+}
+
+// The moments of a transform whose rule has kind KIND (0 classical, 1 BQ):
+// a VfsRule holds a classical rule, a VfsBqRule either kind.
+template <int KIND, int D, int EO, int N, bool ROLL, class F>
+VF_HD void vfs_transform(const VfsRule& R, const double (&m)[D], const double (&L)[D][D],
+                         const F& f, double (&mu)[EO], double (&cov)[EO][EO],
+                         double (&cross)[EO][D]) {
+  static_assert(KIND == 0, "a VfsRule holds a classical rule");
+  vfs_moments<D, EO, N, ROLL>(R, m, L, f, mu, cov, cross);
+}
+
+template <int KIND, int D, int EO, int N, bool ROLL, class F>
+VF_HD void vfs_transform(const VfsBqRule& R, const double (&m)[D], const double (&L)[D][D],
+                         const F& f, double (&mu)[EO], double (&cov)[EO][EO],
+                         double (&cross)[EO][D]) {
+  static_assert(KIND == 0 || KIND == 1, "rule kind");
+  if constexpr (KIND == 0) {
+    vfs_moments<D, EO, N, ROLL>(R.c, m, L, f, mu, cov, cross);
+  } else {
+    vfs_bq_moments<D, EO, N, ROLL>(R, m, L, f, mu, cov, cross);
+  }
+}
+
 // One filter step from the filtered state (m, P) of the previous step (only
 // the lower triangle of P is read), measurement y; writes the five streams
 // through `out` and leaves this step's filtered state in (m, P).  vf_step's
-// arithmetic, with vfs_moments for vf_moments.
-template <int D, int E, int DYN, int OBS, int N>
-VF_HD void vfs_step(const VfsParams& p, double (&m)[D], double (&P)[D][D], const double (&y)[E],
+// arithmetic, with vfs_transform for vf_moments.  KD, KO: the kinds of the
+// dynamics and measurement rules; P: VfsParams (both classical) or
+// VfsBqParams.
+template <int D, int E, int DYN, int OBS, int N, int KD = 0, int KO = 0, class Params>
+VF_HD void vfs_step(const Params& p, double (&m)[D], double (&P)[D][D], const double (&y)[E],
                     const VfOut& out) {
   static_assert(VfDyn<DYN>::D == D && VfObs<OBS>::E == E, "model dimensions");
   static_assert(D <= VFS_MAX_DIM && N <= VFS_MAX_PTS, "rule shape");
@@ -142,7 +295,7 @@ VF_HD void vfs_step(const VfsParams& p, double (&m)[D], double (&P)[D][D], const
   {
     double Pf[D][D], xx[D][D];
     vf_chol(P, L);
-    vfs_moments<D, D, N, vfs_rolled<DYN>>(p.dyn, m, L, VfDynFn<D, DYN>{q}, m_pr, Pf, xx);
+    vfs_transform<KD, D, D, N, vfs_rolled<DYN>>(p.dyn, m, L, VfDynFn<D, DYN>{q}, m_pr, Pf, xx);
 #pragma unroll
     for (int a = 0; a < D; ++a) {
       out.m_pr[a * out.cs] = m_pr[a];
@@ -156,7 +309,8 @@ VF_HD void vfs_step(const VfsParams& p, double (&m)[D], double (&P)[D][D], const
   }
   double y_pr[E], S[E][E], C[E][D];
   vf_chol(P_pr, L);
-  vfs_moments<D, E, N, vfs_rolled_obs<OBS>>(p.obs, m_pr, L, VfObsFn<D, OBS>{q}, y_pr, S, C);
+  vfs_transform<KO, D, E, N, vfs_rolled_obs<OBS>>(p.obs, m_pr, L, VfObsFn<D, OBS>{q}, y_pr, S,
+                                                  C);
 #pragma unroll
   for (int a = 0; a < E; ++a) {
 #pragma unroll
@@ -221,8 +375,8 @@ VF_HD void vfs_step(const VfsParams& p, double (&m)[D], double (&P)[D][D], const
 // measurement e of step k at y[e * y_e + k * y_k], the streams of step k at
 // out_*[k * (components) * cs], components cs apart (vf_record's layout); the
 // measurement of step k + 1 is loaded before the arithmetic of step k.
-template <int D, int E, int DYN, int OBS, int N>
-VF_HD void vfs_record(const VfsParams& p, const double* y, long long y_e, long long y_k, int T,
+template <int D, int E, int DYN, int OBS, int N, int KD = 0, int KO = 0, class Params>
+VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long y_k, int T,
                       double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
                       long long cs) {
   double m[D], P[D][D];
@@ -245,15 +399,30 @@ VF_HD void vfs_record(const VfsParams& p, const double* y, long long y_e, long l
     }
     const long long v = static_cast<long long>(k) * D * cs, M = v * D;
     const VfOut out = {m_fi + v, P_fi + M, m_pr + v, P_pr + M, xx + M, cs};
-    vfs_step<D, E, DYN, OBS, N>(p, m, P, yk, out);
+    vfs_step<D, E, DYN, OBS, N, KD, KO>(p, m, P, yk, out);
   }
 }
 
-// The instantiations: both rule point counts of each registered model pair.
+// The model pairs with a kernel form, (D, E, dynamics, measurement), each
+// given to X with F.
+#define VFS_PAIRS(X, F)                                     \
+  X(F, 5, 2, VF_DYN_REENTRY, VF_OBS_RADAR)                  \
+  X(F, 4, 2, VF_DYN_CV, VF_OBS_RADAR)                       \
+  X(F, 2, 1, VF_DYN_PENDULUM, VF_OBS_PENDULUM_SIN)          \
+  X(F, 3, 1, VF_DYN_REENTRY1D, VF_OBS_RANGE)                \
+  X(F, 5, 4, VF_DYN_CT, VF_OBS_BEARING)
+
+// The instantiations of the classical kernel: both rule point counts of each
+// model pair, F(D, E, DYN, OBS, N).
 #define VFS_SHAPES_OF(F, D, E, DYN, OBS) F(D, E, DYN, OBS, 2 * (D) + 1) F(D, E, DYN, OBS, 2 * (D))
-#define VFS_SHAPES(F)                                                              \
-  VFS_SHAPES_OF(F, 5, 2, VF_DYN_REENTRY, VF_OBS_RADAR)                             \
-  VFS_SHAPES_OF(F, 4, 2, VF_DYN_CV, VF_OBS_RADAR)                                  \
-  VFS_SHAPES_OF(F, 2, 1, VF_DYN_PENDULUM, VF_OBS_PENDULUM_SIN)                     \
-  VFS_SHAPES_OF(F, 3, 1, VF_DYN_REENTRY1D, VF_OBS_RANGE)                           \
-  VFS_SHAPES_OF(F, 5, 4, VF_DYN_CT, VF_OBS_BEARING)
+#define VFS_SHAPES(F) VFS_PAIRS(VFS_SHAPES_OF, F)
+
+// The instantiations of the kernel of the BQ shapes: both point counts of
+// each model pair, each with the kinds (BQ, BQ), (classical, BQ) and (BQ,
+// classical) of the dynamics and measurement rules, F(D, E, DYN, OBS, N, KD,
+// KO): 30.
+#define VFS_BQ_KINDS_OF(F, D, E, DYN, OBS, N) \
+  F(D, E, DYN, OBS, N, 1, 1) F(D, E, DYN, OBS, N, 0, 1) F(D, E, DYN, OBS, N, 1, 0)
+#define VFS_BQ_SHAPES_OF(F, D, E, DYN, OBS) \
+  VFS_BQ_KINDS_OF(F, D, E, DYN, OBS, 2 * (D) + 1) VFS_BQ_KINDS_OF(F, D, E, DYN, OBS, 2 * (D))
+#define VFS_BQ_SHAPES(F) VFS_PAIRS(VFS_BQ_SHAPES_OF, F)

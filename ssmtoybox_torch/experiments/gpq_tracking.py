@@ -7,8 +7,8 @@ Usage: python -m ssmtoybox_torch.experiments.gpq_tracking [--dur 200] [--mc 20]
            [--seed 0] [--engine f64|dd|auto] [--device cuda|cpu]
 
 Under ``--engine dd`` / ``auto`` the UKF runs in the shaped vector filter
-kernel (``csrc/vector_filter_shaped.cu``) and the GPQKF in the first
-version (``csrc/vector_filter.cu``).
+kernel (``csrc/vector_filter_shaped.cu``) and the GPQKF in the kernel of the
+BQ shapes (``csrc/vector_filter_shaped_bq.cu``).
 """
 from types import SimpleNamespace
 

@@ -6,16 +6,21 @@ Counterpart of the JAX package's ``ops/ddvec.py`` (``dd_filter_batch``, the
 ``lax.scan`` of double-double f32-pair arithmetic in jnp because the TPU has
 no f64 unit.  The card has native float64, so the port runs the whole record
 of every trajectory inside one launch of a CUDA kernel in plain f64 and
-returns all five moment streams that the RTS smoother reads.  Two kernels,
+returns all five moment streams that the RTS smoother reads.  Three kernels,
 one library, picked by the rules' shape (:func:`kernel_of`):
 
 - ``vector_filter_shaped`` (``csrc/vector_filter_shaped.cu``, the step in
-  ``csrc/vector_filter_shaped.cuh``): both rules classical with N = 2 D + 1 or
-  2 D points (UKF, CKF), N a template argument;
+  ``csrc/vector_filter_shaped.cuh``): both rules classical with the same
+  N = 2 D + 1 or 2 D points (UKF, CKF), N a template argument, the rules by
+  value;
+- ``vector_filter_shaped_bq`` (``csrc/vector_filter_shaped_bq.cu``, the same
+  step header): the same point counts with a BQ rule (GPQ, BSQ) on either
+  transform or both, N and both kinds template arguments, the rules (dense
+  ``Wc`` included) by value;
 - ``vector_filter`` (``csrc/vector_filter.cu``, the step in
   ``csrc/vector_filter_step.cuh``), the first version: every other
-  configuration (Gauss-Hermite, GPQ and BSQ rules, mixed kinds or point
-  counts), one thread a trajectory, N at run time.
+  configuration (Gauss-Hermite rules, mixed point counts), one thread a
+  trajectory, N at run time.
 
 Supported, as ``ddvec.dd_check`` admits them, for the model pairs with a
 kernel form: ``dim_state <= 8``, additive noise on both models, one of the
@@ -34,8 +39,9 @@ is refused; :func:`supports` answers with a bool.
 :func:`vector_filter` is the launch wrapper.  For a CPU tensor it runs the
 plain PyTorch version :func:`_vector_filter_plain`; for a CUDA tensor it
 launches the kernel of :func:`kernel_of` or raises.  Each launch adds one to
-:data:`LAUNCHES`; a launch of the shaped kernel also to
-:data:`SHAPED_LAUNCHES`.
+:data:`LAUNCHES`; a launch of the classical shaped kernel also to
+:data:`SHAPED_LAUNCHES`, one of the kernel of the BQ shapes to
+:data:`BQ_SHAPED_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
@@ -62,14 +68,16 @@ from ..ssmod import (BearingMeasurement, ConstantVelocity, CoordinatedTurnTransi
 from . import _build
 from .scalar_filter import _floats, _memo
 
-__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "VecRule", "VectorFilterParams", "lower_transform",
-           "check", "supports", "prepare", "kernel_of", "vector_filter", "build",
+__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "VecRule", "VectorFilterParams",
+           "lower_transform", "check", "supports", "prepare", "kernel_of", "vector_filter", "build",
            "chain_floor_clocks", "TORCH_FNS"]
 
-#: kernel launches made by :func:`vector_filter` in this process, both kernels
+#: kernel launches made by :func:`vector_filter` in this process, all three kernels
 LAUNCHES = 0
-#: the launches of the shaped kernel among them
+#: the launches of the classical shaped kernel among them
 SHAPED_LAUNCHES = 0
+#: the launches of the kernel of the BQ shapes among them
+BQ_SHAPED_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
@@ -294,12 +302,14 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
 
 
 def kernel_of(params: VectorFilterParams) -> str:
-    """The kernel that runs ``params``: ``"vector_filter_shaped"`` when both
-    rules are classical with the same point count N = 2 D + 1 or 2 D (the UT
-    and CKF counts), else ``"vector_filter"``, the first version."""
+    """The kernel that runs ``params``.  Both rules with the same point count
+    N = 2 D + 1 or 2 D (the UT and CKF counts): ``"vector_filter_shaped"``
+    when both are classical, else ``"vector_filter_shaped_bq"``.  Any other
+    count (Gauss-Hermite) or mixed counts: ``"vector_filter"``, the first
+    version."""
     D, dyn, obs = params.dim_state, params.dyn, params.obs
-    if dyn.kind == obs.kind == 0 and dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
-        return "vector_filter_shaped"
+    if dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
+        return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
     return "vector_filter"
 
 
@@ -559,14 +569,27 @@ class _CShapedParams(ctypes.Structure):
     _fields_ = [("base", _CParams), ("dyn", _CShapedRule), ("obs", _CShapedRule)]
 
 
+def _rows(a: np.ndarray, into):
+    """The rows of ``a`` into ``into``, ``_SHAPED_MAX_PTS`` apart."""
+    for d, row in enumerate(a):
+        into[d * _SHAPED_MAX_PTS:d * _SHAPED_MAX_PTS + len(row)] = row.tolist()
+
+
+def _fits_shaped(rule: VecRule, kinds: tuple, takes: str):
+    """``ValueError`` (``takes``: what the struct takes) unless ``rule`` is of
+    one of ``kinds`` and fits the shaped structs (``VFS_MAX_PTS`` points,
+    ``VFS_MAX_DIM`` inputs)."""
+    if rule.kind not in kinds or rule.n > _SHAPED_MAX_PTS or rule.xi.shape[0] > _SHAPED_MAX_DIM:
+        raise ValueError(f"{takes} of up to {_SHAPED_MAX_PTS} points in up to {_SHAPED_MAX_DIM} "
+                         f"dimensions; got kind {rule.kind}, {rule.xi.shape}")
+
+
 def _c_shaped_rule(rule: VecRule) -> _CShapedRule:
-    if rule.kind != 0 or rule.n > _SHAPED_MAX_PTS or rule.xi.shape[0] > _SHAPED_MAX_DIM:
-        raise ValueError(f"the shaped kernel takes classical rules of up to {_SHAPED_MAX_PTS} "
-                         f"points in up to {_SHAPED_MAX_DIM} dimensions; got kind {rule.kind}, "
-                         f"{rule.xi.shape}")
+    """A classical rule by value; ``ValueError`` for a rule the struct
+    cannot hold."""
+    _fits_shaped(rule, (0,), "the shaped kernel takes classical rules")
     c = _CShapedRule()
-    for d, row in enumerate(rule.xi):
-        c.xi[d * _SHAPED_MAX_PTS:d * _SHAPED_MAX_PTS + rule.n] = row.tolist()
+    _rows(rule.xi, c.xi)
     c.wm[:rule.n] = rule.wm.tolist()
     c.wc[:rule.n] = rule.wc.tolist()
     return c
@@ -578,6 +601,52 @@ def _c_shaped_params(p: VectorFilterParams, device: torch.device) -> _CShapedPar
     for a given ``(p, device)``."""
     return _CShapedParams(base=_c_params(p, device), dyn=_c_shaped_rule(p.dyn),
                           obs=_c_shaped_rule(p.obs))
+
+
+class _CShapedBqRule(ctypes.Structure):
+    _fields_ = [("c", _CShapedRule), ("Wc", ctypes.c_double * (_SHAPED_MAX_PTS * _SHAPED_MAX_PTS)),
+                ("Wcc", ctypes.c_double * (_SHAPED_MAX_DIM * _SHAPED_MAX_PTS)),
+                ("emv", ctypes.c_double)]
+
+
+class _CShapedBqParams(ctypes.Structure):
+    _fields_ = [("base", _CParams), ("dyn", _CShapedBqRule), ("obs", _CShapedBqRule)]
+
+
+def _c_shaped_bq_rule(rule: VecRule) -> _CShapedBqRule:
+    """A rule of either kind by value for the kernel of the BQ shapes (a
+    classical rule's ``wc``, a BQ rule's ``Wc`` (whole: the port's GPQ
+    weights are not symmetric to the bit), ``Wcc`` and ``emv``);
+    ``ValueError`` for a rule the struct cannot hold."""
+    _fits_shaped(rule, (0, 1), "the kernel of the BQ shapes takes classical and BQ rules")
+    c = _CShapedBqRule()
+    _rows(rule.xi, c.c.xi)
+    c.c.wm[:rule.n] = rule.wm.tolist()
+    if rule.kind == 0:
+        c.c.wc[:rule.n] = rule.wc.tolist()
+    else:
+        _rows(rule.Wc, c.Wc)
+        _rows(rule.Wcc, c.Wcc)
+        c.emv = rule.emv
+    return c
+
+
+@functools.lru_cache(maxsize=64)
+def _c_shaped_bq_params(p: VectorFilterParams, device: torch.device) -> _CShapedBqParams:
+    """The parameter struct of the kernel of the BQ shapes (both rules by
+    value), built once for a given ``(p, device)``."""
+    return _CShapedBqParams(base=_c_params(p, device), dyn=_c_shaped_bq_rule(p.dyn),
+                            obs=_c_shaped_bq_rule(p.obs))
+
+
+def _c_struct(kernel: str, params: VectorFilterParams, device: torch.device):
+    """The parameter struct of ``kernel`` for ``params`` on ``device``;
+    ``ValueError`` for a rule that the shaped structs cannot hold."""
+    if kernel == "vector_filter_shaped":
+        return _c_shaped_params(params, device)
+    if kernel == "vector_filter_shaped_bq":
+        return _c_shaped_bq_params(params, device)
+    return _c_params(params, device)
 
 
 _STREAMS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2)
@@ -593,16 +662,20 @@ def _bind(lib: ctypes.CDLL):
     lib.vfs_launch.restype = ctypes.c_int
     lib.vfs_launch.argtypes = ([ctypes.POINTER(_CShapedParams)] + _STREAMS + [ctypes.c_int]
                                + [ctypes.c_void_p] * 6)
+    lib.vfs_bq_launch.restype = ctypes.c_int
+    lib.vfs_bq_launch.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS + [ctypes.c_int]
+                                  + [ctypes.c_void_p] * 6)
 
 
-#: the sources of the library: the first-version kernel and the shaped kernel
-SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu"]
+#: the sources of the library: the first-version kernel, the classical shaped
+#: kernel and the kernel of the BQ shapes
+SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/vector_filter.cu`` and ``csrc/vector_filter_shaped.cu``
-    for sm_90a with nvcc (once, a compiler each, into one library) and bind
-    it; later calls return the bound library."""
+    """Compile the three sources of :data:`SOURCES` for sm_90a with nvcc
+    (once, a compiler each, at once, into one library) and bind it; later
+    calls return the bound library."""
     return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
 
 
@@ -611,6 +684,9 @@ def _bind_host(lib: ctypes.CDLL):
     lib.vf_host_run.argtypes = [ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_void_p] * 6
     lib.vfs_host_run.restype = ctypes.c_int
     lib.vfs_host_run.argtypes = [ctypes.POINTER(_CShapedParams)] + _STREAMS + [ctypes.c_void_p] * 5
+    lib.vfs_bq_host_run.restype = ctypes.c_int
+    lib.vfs_bq_host_run.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS
+                                    + [ctypes.c_void_p] * 5)
 
 
 def _host_shim() -> ctypes.CDLL:
@@ -635,24 +711,30 @@ def _scratch(params: VectorFilterParams, B: int, device) -> torch.Tensor:
     return torch.empty(n * B, dtype=torch.float64, device=device)
 
 
-def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, shaped: bool = False):
-    """Run a step header compiled for the host on a CPU tensor, the first
-    version's or (``shaped``) the shaped kernel's; the five streams of
-    :func:`vector_filter`, after checking that an instantiation of the
-    configuration's dimensions ran."""
+def _host_shim_run(params: VectorFilterParams, y: torch.Tensor,
+                   kernel: str = "vector_filter"):
+    """Run the step of ``kernel`` (``"vector_filter"``,
+    ``"vector_filter_shaped"`` or ``"vector_filter_shaped_bq"``) compiled for
+    the host on a CPU tensor; the five streams of :func:`vector_filter`,
+    after checking that an instantiation of the configuration's dimensions
+    ran."""
     _check_streams(params, y)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
     B, _, T = y.shape
     out = _empty_streams(params.dim_state, T, B, "cpu")
-    cpu, lib = torch.device("cpu"), _host_shim()
-    if shaped:
-        ran = lib.vfs_host_run(ctypes.byref(_c_shaped_params(params, cpu)), y.data_ptr(),
-                               *y.stride(), B, T, *(o.data_ptr() for o in out))
+    c = _c_struct(kernel, params, torch.device("cpu"))     # refuses before anything is built
+    lib = _host_shim()
+    if kernel == "vector_filter_shaped":
+        ran = lib.vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                               *(o.data_ptr() for o in out))
+    elif kernel == "vector_filter_shaped_bq":
+        ran = lib.vfs_bq_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                  *(o.data_ptr() for o in out))
     else:
         scratch = _scratch(params, B, "cpu")
-        ran = lib.vf_host_run(ctypes.byref(_c_params(params, cpu)), y.data_ptr(), *y.stride(),
-                              B, T, *(o.data_ptr() for o in out), scratch.data_ptr())
+        ran = lib.vf_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                              *(o.data_ptr() for o in out), scratch.data_ptr())
     if ran != params.dim_state:
         raise RuntimeError(f"the host build ran the D={ran} step for D={params.dim_state}")
     return out
@@ -669,32 +751,34 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     version; a CUDA tensor launches the kernel of :func:`kernel_of` on the
     current stream, without synchronising, or raises.
     """
-    global LAUNCHES, SHAPED_LAUNCHES
+    global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
     if y.device.type != "cuda":
         raise ValueError(f"the vector filter runs on CPU or CUDA tensors; got {y.device}")
+    kernel = kernel_of(params)
+    c = _c_struct(kernel, params, y.device)               # refuses before anything is built
     lib = build()
     B, _, T = y.shape
     out = _empty_streams(params.dim_state, T, B, y.device)
     if y.numel() == 0:
         return out
-    kernel, stream = kernel_of(params), torch.cuda.current_stream(y.device).cuda_stream
+    args = (ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, y.device.index or 0,
+            *(o.data_ptr() for o in out))
+    stream = torch.cuda.current_stream(y.device).cuda_stream
     if kernel == "vector_filter_shaped":
-        rc = lib.vfs_launch(ctypes.byref(_c_shaped_params(params, y.device)), y.data_ptr(),
-                            *y.stride(), B, T, y.device.index or 0,
-                            *(o.data_ptr() for o in out), stream)
+        rc = lib.vfs_launch(*args, stream)
+    elif kernel == "vector_filter_shaped_bq":
+        rc = lib.vfs_bq_launch(*args, stream)
     else:
-        scratch = _scratch(params, B, y.device)
-        rc = lib.vf_launch(ctypes.byref(_c_params(params, y.device)), y.data_ptr(), *y.stride(),
-                           B, T, y.device.index or 0, *(o.data_ptr() for o in out),
-                           scratch.data_ptr(), stream)
+        rc = lib.vf_launch(*args, _scratch(params, B, y.device).data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: "
                            f"{lib.vf_error_string(rc).decode()} (cudaError {rc})")
     LAUNCHES += 1
     SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped")
+    BQ_SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped_bq")
     return out
 
 

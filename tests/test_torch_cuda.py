@@ -511,6 +511,9 @@ def _vector_case(card, system, rule, batch, steps=20):
     algs = {"UKF": classical, "CKF": stt.CubatureKalman(dyn, obs), "BSQ-UT": bq}
     if system == "reentry":
         algs["GH-3"] = stt.GaussHermiteKalman(dyn, obs, deg=3)
+        for points in ("ut", "sr"):
+            algs[f"GPQ-{points.upper()}"] = stt.GaussianProcessKalman(dyn, obs, GPQ_RE_DYN,
+                                                                     GPQ_RE_OBS, points=points)
     a, _, b = rule.partition("/")
     params = vf.prepare(dyn, obs, algs[a].tf_dyn, algs[b or a].tf_obs)
     gen = torch.Generator(device=card).manual_seed(batch)
@@ -544,19 +547,94 @@ def test_vector_shaped_kernel_matches_plain(card, system, rule, batch):
         assert torch.equal(g, g2), s
 
 
+#: reentry GPQ kernel parameters (``chip_smoke.VF_GPQ_DYN`` / ``VF_GPQ_OBS``)
+GPQ_RE_DYN = np.array([[1.0, 10, 10, 10, 10, 10]])
+GPQ_RE_OBS = np.array([[1.0, 10, 10, 1e4, 1e4, 1e4]])
+#: reentry rule -> the kernel ``kernel_of`` names: GH-3 and mixed point counts
+#: the first version, BQ rules and mixed kinds at one UT count the BQ shapes
+FIRST_OR_BQ = {"GH-3": "vector_filter", "UKF/CKF": "vector_filter",
+               "BSQ-UT": "vector_filter_shaped_bq", "UKF/BSQ-UT": "vector_filter_shaped_bq",
+               "BSQ-UT/UKF": "vector_filter_shaped_bq"}
+
+
+def _launch_counts(vf):
+    return vf.LAUNCHES, vf.SHAPED_LAUNCHES, vf.BQ_SHAPED_LAUNCHES
+
+
 @pytest.mark.parametrize("rule", ["GH-3", "BSQ-UT", "UKF/BSQ-UT", "BSQ-UT/UKF", "UKF/CKF"])
-def test_vector_first_version_keeps_the_other_shapes(card, rule):
-    """Gauss-Hermite, BQ rules, mixed kinds and mixed point counts launch the
-    first-version kernel, equal to the plain version to the bit."""
+def test_vector_first_version_keeps_the_other_shapes(card, monkeypatch, rule):
+    """Gauss-Hermite and mixed point counts launch the first-version kernel;
+    BQ rules and mixed kinds at one UT count the kernel of the BQ shapes;
+    each equal to the plain version to the bit, counted on the kernel that
+    ran.  Sent there by force, the first version still runs the BQ rules to
+    the bit."""
     from ssmtoybox_torch.ops import vector_filter as vf
     params, y = _vector_case(card, "reentry", rule, 257)
-    assert vf.kernel_of(params) == "vector_filter"
-    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    kernel = FIRST_OR_BQ[rule]
+    assert vf.kernel_of(params) == kernel
+    plain = vf._vector_filter_plain(params, y)
+    before = _launch_counts(vf)
     got = vf.vector_filter(params, y)
-    assert (vf.LAUNCHES, vf.SHAPED_LAUNCHES) == (before + 1, shaped_before)
+    assert _launch_counts(vf) == (before[0] + 1, before[1],
+                                  before[2] + int(kernel == "vector_filter_shaped_bq"))
+    monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter")
+    first = vf.vector_filter(params, y)
     torch.cuda.synchronize()
-    for s, g, r in zip(STREAMS, got, vf._vector_filter_plain(params, y)):
+    for s, g, f, r in zip(STREAMS, got, first, plain):
         assert _same_bits(g, r), f"{s}: {float((g - r).nan_to_num().abs().max()):.3e}"
+        assert _same_bits(f, r), f"first version, {s}"
+
+
+#: (system, rule) of the BQ shapes: every model pair under a GPQ or BSQ rule at
+#: N = 2 D + 1 or 2 D, and the mixed kinds of both counts
+BQ_SHAPES = [("reentry", "GPQ-UT"), ("reentry", "BSQ-UT"), ("reentry", "GPQ-SR"),
+             ("reentry", "UKF/BSQ-UT"), ("reentry", "BSQ-UT/UKF"), ("reentry", "CKF/GPQ-SR"),
+             ("reentry", "GPQ-SR/CKF"), ("cv", "BSQ-UT"), ("cv", "UKF/BSQ-UT"),
+             ("pendulum", "GPQ-SR"), ("falling_body", "GPQ-UT"), ("ct_bearing", "GPQ-UT")]
+#: GPQ kernel parameters of the zoo's pairs (``tests/test_torch_vector_filter_bq.py``)
+GPQ_ZOO = {"pendulum": np.array([[1.0, 2.0, 2.0]]),
+           "falling_body": np.array([[1.0, 3.0, 3.0, 3.0]]),
+           "ct_bearing": np.array([[1.0, 3.0, 3.0, 3.0, 3.0, 3.0]])}
+
+
+@pytest.mark.parametrize("system,rule", BQ_SHAPES)
+def test_vector_bq_shapes_match_plain(card, system, rule):
+    """The kernel of the BQ shapes at B = 257 (the last warp and block
+    ragged): equal to the plain version to the bit over 20 steps, all five
+    streams, a second launch equal to the first, counted once on
+    ``BQ_SHAPED_LAUNCHES``."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    if system in GPQ_ZOO:
+        dyn, obs = _zoo_systems(card)[system]
+        par = GPQ_ZOO[system]
+        gpq = stt.GaussianProcessKalman(dyn, obs, par, par, points=rule[-2:].lower())
+        params = vf.prepare(dyn, obs, gpq.tf_dyn, gpq.tf_obs)
+        y = _zoo_records(card, dyn, obs, 257)
+    else:
+        params, y = _vector_case(card, system, rule, 257)
+    assert vf.kernel_of(params) == "vector_filter_shaped_bq"
+    before = _launch_counts(vf)
+    got = vf.vector_filter(params, y)
+    assert _launch_counts(vf) == (before[0] + 1, before[1], before[2] + 1)
+    again = vf.vector_filter(params, y.contiguous())
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s
+
+
+def test_a_failed_bq_shaped_launch_raises(card, monkeypatch):
+    """Mixed point counts sent to the kernel of the BQ shapes by force: its
+    launcher refuses them, the wrapper raises, counts nothing and falls back
+    to nothing."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    params, y = _vector_case(card, "reentry", "BSQ-UT/CKF", 7)
+    monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter_shaped_bq")
+    before = _launch_counts(vf)
+    with pytest.raises(RuntimeError, match="vector_filter_shaped_bq kernel launch failed"):
+        vf.vector_filter(params, y)
+    assert _launch_counts(vf) == before
 
 
 def test_a_failed_shaped_launch_raises(card, monkeypatch):
@@ -654,22 +732,28 @@ def test_zoo_pairs_match_plain_in_both_vector_kernels(card, monkeypatch, system,
         assert torch.equal(g, g2), s
 
 
-def test_zoo_bq_rule_runs_in_the_first_version(card):
-    """The pendulum's GPQ filter of the goldens (spherical-radial points)
-    launches the first version, equal to the plain version to the bit."""
+def test_zoo_bq_rule_runs_in_the_first_version(card, monkeypatch):
+    """The pendulum's GPQ filter of the goldens (spherical-radial points, N =
+    2 D) launches the kernel of the BQ shapes, and, sent there by force, the
+    first version; both equal to the plain version to the bit."""
     from ssmtoybox_torch.ops import vector_filter as vf
     dyn, obs = _zoo_systems(card)["pendulum"]
     par = np.array([[1.0, 2.0, 2.0]])
     gpq = stt.GaussianProcessKalman(dyn, obs, par, par, points="sr")
     params = vf.prepare(dyn, obs, gpq.tf_dyn, gpq.tf_obs)
-    assert vf.kernel_of(params) == "vector_filter"
+    assert vf.kernel_of(params) == "vector_filter_shaped_bq"
     y = _zoo_records(card, dyn, obs, 257)
-    before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
+    plain = vf._vector_filter_plain(params, y)
+    before = _launch_counts(vf)
     got = vf.vector_filter(params, y)
-    assert (vf.LAUNCHES, vf.SHAPED_LAUNCHES) == (before + 1, shaped_before)
+    assert _launch_counts(vf) == (before[0] + 1, before[1], before[2] + 1)
+    monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter")
+    first = vf.vector_filter(params, y)
+    assert _launch_counts(vf) == (before[0] + 2, before[1], before[2] + 1)
     torch.cuda.synchronize()
-    for s, g, r in zip(STREAMS, got, vf._vector_filter_plain(params, y)):
+    for s, g, f, r in zip(STREAMS, got, first, plain):
         assert _same_bits(g, r), f"{s}: {float((g - r).nan_to_num().abs().max()):.3e}"
+        assert _same_bits(f, r), f"first version, {s}"
 
 
 def test_parallel_smoother_outputs_lie_on_the_card(card):

@@ -20,7 +20,7 @@ On the CPU its wrapper runs the plain PyTorch version, which is held against:
   float64 filter at ``1e-9 x scale`` as ``test_ddvec.py:308-329`` holds its dd
   engine, and the port's eager filter as above.
 
-Both CUDA step headers (the first version's and the shaped kernel's),
+Both CUDA step headers (the first version's and the shaped kernels'),
 compiled for the host with g++, equal the plain version to the bit when
 both take the C library's ``sqrt``, ``exp``, ``sin``, ``cos`` and
 ``atan2`` (``LIBM_FNS`` below): PyTorch's vectorised CPU versions
@@ -30,7 +30,10 @@ of the JAX package's ``ddvec.dd_supports`` on a table of configurations
 (except the model pairs and bearing counts that the JAX package's dd engine
 runs and the port instantiates no kernel for, ``JAX_ONLY``), and
 :func:`vector_filter.kernel_of` sends the UT and CKF shapes to the shaped
-kernel and every other configuration to the first version.
+kernels (classical rules to ``vector_filter_shaped``, a BQ rule on either
+transform to ``vector_filter_shaped_bq``, whose host build
+``tests/test_torch_vector_filter_bq.py`` holds) and Gauss-Hermite and mixed
+point counts to the first version.
 
 Measurements come from a numpy seed: 8 trajectories of 20 steps simulated
 through the port's model functions with numpy noise.
@@ -374,7 +377,8 @@ def test_shaped_header_on_host_matches_plain(data33, name, batch):
     time_major = ys.permute(2, 1, 0).contiguous().permute(2, 1, 0)
     want = vf._vector_filter_plain(params, ys, LIBM_FNS)
     for y in (ys, time_major):
-        for s, a, b in zip(STREAMS, vf._host_shim_run(params, y, shaped=True), want):
+        for s, a, b in zip(STREAMS, vf._host_shim_run(params, y, kernel="vector_filter_shaped"),
+                           want):
             assert bool(torch.isfinite(b).all()), s
             assert torch.equal(a, b), f"{s}: {float((a - b).abs().max()):.3e}"
 
@@ -387,16 +391,18 @@ def _mixed(dyn_of, obs_of):
     return alg
 
 
-#: configuration -> the kernel that runs it: the UT and CKF shapes of both model
-#: pairs take the shaped kernel; Gauss-Hermite, BQ rules, mixed kinds and mixed
-#: point counts the first version
+#: configuration -> the kernel that runs it: the UT and CKF shapes of every model
+#: pair take the shaped kernels, classical rules the classical one, GPQ, BSQ and
+#: mixed kinds the kernel of the BQ shapes; Gauss-Hermite and mixed point counts
+#: the first version
 ROUTES = {"ukf": "vector_filter_shaped", "ckf": "vector_filter_shaped",
           "cv_ukf": "vector_filter_shaped", "cv_ckf": "vector_filter_shaped",
           "pend_ukf": "vector_filter_shaped", "fall_ukf": "vector_filter_shaped",
           "ct_ckf": "vector_filter_shaped", "ct_ukf": "vector_filter_shaped",
-          "pend_gpq": "vector_filter",
-          "gh3": "vector_filter", "gpq_ut": "vector_filter", "bsq_ut": "vector_filter",
-          "ukf/bsq_ut": "vector_filter", "bsq_ut/ukf": "vector_filter",
+          "pend_gpq": "vector_filter_shaped_bq",
+          "gh3": "vector_filter", "gpq_ut": "vector_filter_shaped_bq",
+          "bsq_ut": "vector_filter_shaped_bq",
+          "ukf/bsq_ut": "vector_filter_shaped_bq", "bsq_ut/ukf": "vector_filter_shaped_bq",
           "ukf/ckf": "vector_filter", "cv_ckf/cv_ukf": "vector_filter"}
 
 
@@ -408,18 +414,24 @@ def test_kernel_of_routes_by_shape(name):
 
 
 def test_shaped_host_build_refuses_other_shapes(data):
-    """The shaped header's host entry runs no instantiation for mixed point
-    counts, and a rule that does not fit its parameter struct is refused
-    before any call."""
-    alg = _mixed("ukf", "ckf")
-    params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
-    with pytest.raises(RuntimeError, match="ran the D=0 step"):
-        vf._host_shim_run(params, data["reentry"][:1], shaped=True)
-    for name in ("gh3", "bsq_ut"):
+    """The shaped header's host entries run no instantiation for mixed point
+    counts (the classical one for UKF / CKF, the BQ one for BSQ-UT / CKF),
+    and a rule that does not fit the parameter struct (GH-3's 243 points; a
+    BQ rule in the classical struct) is refused before any call."""
+    for pair, kernel in ((("ukf", "ckf"), "vector_filter_shaped"),
+                         (("bsq_ut", "ckf"), "vector_filter_shaped_bq")):
+        alg = _mixed(*pair)
+        params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+        with pytest.raises(RuntimeError, match="ran the D=0 step"):
+            vf._host_shim_run(params, data["reentry"][:1], kernel=kernel)
+    for name, kernel, what in (("gh3", "vector_filter_shaped", "shaped kernel takes classical"),
+                               ("gh3", "vector_filter_shaped_bq", "BQ shapes takes classical "
+                                                                  "and BQ rules of up to 11"),
+                               ("bsq_ut", "vector_filter_shaped", "shaped kernel takes classical")):
         alg = _port(name)
         params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
-        with pytest.raises(ValueError, match="shaped kernel takes classical rules"):
-            vf._host_shim_run(params, data["reentry"][:1], shaped=True)
+        with pytest.raises(ValueError, match=what):
+            vf._host_shim_run(params, data["reentry"][:1], kernel=kernel)
 
 
 @pytest.mark.parametrize("name", ["ukf", "bsqkf"])
