@@ -9,9 +9,10 @@ fails at once without them.  Phases, each fatal on failure:
 1. set-up: print the card's name and power limit, build the CUDA sources
    ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
    ``student_qrq.cu``, ``vandermonde.cu``, ``vector_filter.cu``,
-   ``vector_filter_shaped.cu`` and ``vector_filter_shaped_bq.cu`` for sm_90a
-   (one nvcc each, at once; the two Student-MC sources make one library, the
-   three vector filter sources another), print each library's build time and
+   ``vector_filter_shaped.cu``, ``vector_filter_shaped_bq.cu`` and
+   ``vector_filter_general.cu`` for sm_90a (one nvcc each, at once; the two
+   Student-MC sources make one library, the four vector filter sources
+   another), print each library's build time and
    their ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
 2. the scalar filter kernel vs its plain PyTorch twin, both on the card, for
@@ -20,9 +21,10 @@ fails at once without them.  Phases, each fatal on failure:
    (relative 1e-3; the UNGM map decorrelates single trajectories); then the
    kernel against its twin to the bit through every instantiation its
    launcher can pick (classical and BQ rules of 3, 5 and 7 points, a mixed
-   pair, 4- and 8-point rules that run padded) at B = 1, 7, 4,097 and
-   10,000, two launches on one input, and trajectory-major measurements
-   read through their strides;
+   pair, 4- and 8-point rules that run padded; the general form's GH-9,
+   GH-15, GPQ-GH15 and mixed rules) at B = 1, 7, 4,097 and 10,000, two
+   launches on one input, and trajectory-major measurements read through
+   their strides;
 3. the port against the repo's golden references (tests/goldens) on the card;
 4. the Gaussian main path at the study sizes: 10,000 trajectories in
    float64, UNGM UKF and GPQKF through the scalar filter kernel and reentry
@@ -106,8 +108,13 @@ fails at once without them.  Phases, each fatal on failure:
     (``csrc/vector_filter.cu``, 20), at B = 1, 7, 31, 4,097 and 10,000, each
     wrapper launch counted on the kernel ``kernel_of`` names, each batch
     against the plain version's run on all 10,000 (elementwise across
-    trajectories: the same bits for a prefix); it fails if an instantiation
-    ran no configuration; two launches on one input equal to the bit;
+    trajectories: the same bits for a prefix); the general kernel
+    (``csrc/vector_filter_general.cu``, 12 instantiations: D = 2-5 x a bound
+    of 2, 4 or 8 on E) on ``VF_GENERAL_CASES``, the pairs only it takes,
+    every instantiation and every pair of rule kinds, at the same batch sizes
+    through the wrapper, and by force on the UKF of the five other pairs; it
+    fails if an instantiation ran no configuration; two launches on one input
+    equal to the bit;
 16. the reentry bench lane (10,000 x 100, the main path's run) through the
     shaped kernel against the eager f64 lane: each stream's max |diff| within
     the JAX package's dd-vs-f64 tolerances (1e-6 on means, 1e-7 on
@@ -216,7 +223,22 @@ fails at once without them.  Phases, each fatal on failure:
     the float32 search, and the transform studies; each study's tables,
     wall time and launches, at most 1% lost runs a row, and the conclusion
     ``experiments/RESULTS.md`` draws from it (``STUDY_GATES``), its margin
-    in standard errors (``studies_slice``).
+    in standard errors (``studies_slice``);
+27. "dd pairs": what only the general forms take, at full width
+    (``dd_pairs_slice``): CT + radar under UKF and CKF and CT with 2, 3 and
+    8 bearings under CKF, 10,000 x 100 simulated on the card, through the
+    general vector kernel; UNGM under GH-9, GH-15 and GPQ on GH-15 points on
+    the main path's 10,000 x 500 data, through the scalar kernel's general
+    form; each lane once with the counts from 0 (5 and 3 launches, nothing
+    else), its first 200 trajectories (all 10,000 on CT + radar UKF) equal
+    to the plain version to the bit, its filter RMSE within 1e-6 (vector) or
+    1e-3 (UNGM) relative of the eager f64 lane's, at most 1% non-finite; raw
+    launches, wrapper, plain and bound, the libraries' build times; the
+    general form's range and sine measurements of the UNGM state against the
+    plain version to the bit at B = 1, 7, 4,097 and 10,000; raw launches of
+    the general kernel by force beside the first version and the shaped
+    kernel on the reentry bench lane's UKF, in turns.  To run the general
+    forms' checks alone: ``chip_smoke.dd_pairs_alone()``.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -733,6 +755,8 @@ def student_slice(torch, np, dev):
 #: the BSQ UNGM study (experiments/bsq_ungm.py:42-65): kernel parameters and
 #: multi-indices of the UT, GH-5 and GH-7 rules
 PAR_UT, PAR_GH5, PAR_GH7 = [[3.0, 0.3]], [[5.0, 0.6]], [[3.0, 0.4]]
+#: the GPQ kernel parameters of the UNGM lanes (the main path's GPQKF's)
+UNGM_GPQ_PAR = [[1.0, 3.0]]
 #: the BSQ reentry tracking study (experiments/bsq_tracking.py:40-84)
 TRACK_DUR, TRACK_TAU, TRACK_DT = 200.0, 0.05, 0.1
 TRACK_M0_TRUE = [6500.0, 350.0, -1.8, -6.8, 0.7]
@@ -776,15 +800,20 @@ def scalar_filter_shapes(torch, np, dev, dyn, obs, y_tm, c, n_steps=40):
                                                 points="ut"),
             "bsq_gh5": bsq(PAR_GH5, 5), "bsq_gh7": bsq(PAR_GH7, 7),
             "gh4": stt.GaussHermiteKalman(dyn, obs, deg=4),
-            "gh8": stt.GaussHermiteKalman(dyn, obs, deg=8), "gpq_gh8": gpq(PAR_GH7, 8)}
+            "gh8": stt.GaussHermiteKalman(dyn, obs, deg=8), "gpq_gh8": gpq(PAR_GH7, 8),
+            "gh9": stt.GaussHermiteKalman(dyn, obs, deg=9),
+            "gh15": stt.GaussHermiteKalman(dyn, obs, deg=15), "gpq_gh15": gpq(UNGM_GPQ_PAR, 15)}
     # (dynamics rule of, measurement rule of): the six study shapes, a mixed
-    # pair each way, and rules outside the table (4 points padded to 5 slots,
-    # 5 with 8, 8 points of either kind)
-    pairs = [(a, a) for a in algs] + [("bsq_gh5", "ut"), ("gh7", "gpq_ut"), ("gh5", "gh8")]
+    # pair each way, rules outside the table (4 points padded to 5 slots, 5
+    # with 8, 8 points of either kind), and the general form's rules (9 and
+    # 15 points, GPQ on 15, mixed with 3-point rules of either kind)
+    pairs = [(a, a) for a in algs] + [("bsq_gh5", "ut"), ("gh7", "gpq_ut"), ("gh5", "gh8"),
+                                      ("gh15", "gpq_ut"), ("gpq_gh15", "ut")]
     seen = set()
     for a, b in pairs:
         params = sf.prepare(dyn, obs, algs[a].tf_dyn, algs[b].tf_obs)
-        seen.add((params.dyn.kind, params.obs.kind, sf.slots(params)))
+        seen.add((params.dyn.kind, params.obs.kind, sf.slots(params))
+                 if sf.form_of(params) == "shaped" else ("general",))
         for batch in (1, 7, 4097, y_tm.shape[1]):
             yy, cc = y_tm[:n_steps, :batch].contiguous(), c[:n_steps].contiguous()
             got, ref = sf.scalar_filter(params, yy, cc), sf._scalar_filter_plain(params, yy, cc)
@@ -801,7 +830,8 @@ def scalar_filter_shapes(torch, np, dev, dyn, obs, y_tm, c, n_steps=40):
             if not all(torch.equal(g_, o_) for g_, o_ in zip(got, other)):
                 fail(f"scalar filter kernel, rules {a}/{b}: {what} differs from the first")
     log(f"scalar filter kernel == twin to the bit at {len(pairs)} rule pairs "
-        f"({len(seen)} instantiations (kinds, slots): {sorted(seen)}), B = 1, 7, 4097, "
+        f"({len(seen)} instantiations ((kinds, slots) and the general form): "
+        f"{sorted(seen, key=str)}), B = 1, 7, 4097, "
         f"{y_tm.shape[1]}, N = {n_steps}; two launches and trajectory-major y equal to the bit")
 
 
@@ -1293,7 +1323,9 @@ VF_MEAN_ATOL, VF_COV_ATOL = 1e-6, 1e-7
 #: the falling body 9, the coordinated turn ~24 (its selects included); the
 #: radar 8, the sine measurement 1, the range 4, four bearings 12
 VF_DYN_OPS = {0: 30, 1: 4, 2: 5, 3: 9, 4: 24}
-VF_OBS_OPS = {0: 8, 1: 1, 2: 4, 3: 12}
+VF_OBS_OPS = {0: 8, 1: 1, 2: 4, 4: 3}
+#: f64 operations of a bearing, a sensor (the measurement's E)
+VF_BEARING_OPS = 3
 
 
 def vf_bound(params, n_steps, batch):
@@ -1314,9 +1346,10 @@ def vf_bound(params, n_steps, batch):
     def chol(n):
         return n * (n + 1) * (n + 2) // 3
 
+    obs_ops = VF_BEARING_OPS * E if params.obs_model == 3 else VF_OBS_OPS[params.obs_model]
     per_step = (2 * chol(D) + chol(E) + 2 * D * D + 4 * D * E * E + 2 * D * D * E
                 + params.dyn.n * per_point(params.dyn, D, VF_DYN_OPS[params.dyn_model])
-                + params.obs.n * per_point(params.obs, E, VF_OBS_OPS[params.obs_model]))
+                + params.obs.n * per_point(params.obs, E, obs_ops))
     n_bytes = batch * n_steps * (E + 2 * D + 3 * D * D) * 8
     return bound(n_bytes, (batch * n_steps * per_step, F64_OPS_S))
 
@@ -1349,8 +1382,10 @@ def vf_raw(torch, vf, params, y, dev, kernel=None):
     """A launch of a vector filter kernel straight through its C entry point,
     into buffers made once (``launch.out``, the five streams); for
     ``raw_ms``.  ``kernel``: ``"vector_filter"`` (the first version, which
-    takes every configuration), ``"vector_filter_shaped"`` or
-    ``"vector_filter_shaped_bq"``; by default the one the wrapper picks."""
+    takes every configuration of its five model pairs),
+    ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"`` or
+    ``"vector_filter_general"`` (every configuration); by default the one the
+    wrapper picks."""
     lib = vf.build()
     B, _, T = y.shape
     kernel = kernel or vf.kernel_of(params)
@@ -1367,27 +1402,37 @@ def vf_raw(torch, vf, params, y, dev, kernel=None):
             return lib.vfs_bq_launch(*args, stream)
     else:
         scratch = vf._scratch(params, B, dev)
+        entry = lib.vfg_launch if kernel == "vector_filter_general" else lib.vf_launch
 
         def launch():
-            return lib.vf_launch(*args, scratch.data_ptr(), stream)
+            return entry(*args, scratch.data_ptr(), stream)
     launch.out = out
     return launch
 
 
 #: the vector filter kernels' entries of the ``kernels`` line, by name
-VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq")
+VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq",
+              "vector_filter_general")
 
 
 def vf_counts(vf):
     """The launches of each vector filter kernel since the counts were last
     set to 0."""
-    return {"vector_filter": vf.LAUNCHES - vf.SHAPED_LAUNCHES - vf.BQ_SHAPED_LAUNCHES,
+    return {"vector_filter": (vf.LAUNCHES - vf.SHAPED_LAUNCHES - vf.BQ_SHAPED_LAUNCHES
+                              - vf.GENERAL_LAUNCHES),
             "vector_filter_shaped": vf.SHAPED_LAUNCHES,
-            "vector_filter_shaped_bq": vf.BQ_SHAPED_LAUNCHES}
+            "vector_filter_shaped_bq": vf.BQ_SHAPED_LAUNCHES,
+            "vector_filter_general": vf.GENERAL_LAUNCHES}
 
 
 def vf_zero(vf):
-    vf.LAUNCHES = vf.SHAPED_LAUNCHES = vf.BQ_SHAPED_LAUNCHES = 0
+    vf.LAUNCHES = vf.SHAPED_LAUNCHES = vf.BQ_SHAPED_LAUNCHES = vf.GENERAL_LAUNCHES = 0
+
+
+def only(kernel, n=1):
+    """The launch counts of ``vf_counts`` where ``kernel`` ran ``n`` times and
+    no other vector filter kernel ran."""
+    return {k: n * int(k == kernel) for k in VF_KERNELS}
 
 
 #: phase 15's GPQ kernel parameters of the zoo's pairs and of the CV radar
@@ -1443,18 +1488,21 @@ def vf_rule_pairs(stt, np, systems):
 def vf_instantiation(kernel, params):
     """The template arguments of the instantiation of ``kernel`` that runs
     ``params``: (D, dynamics, kinds of both rules, N; N "any" for the first
-    version)."""
+    version); for the general kernel (D, the bound on E)."""
+    if kernel == "vector_filter_general":
+        E = params.dim_out
+        return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8)
     return (kernel, params.dim_state, params.dyn_model, params.dyn.kind, params.obs.kind,
             "any" if kernel == "vector_filter" else params.dyn.n)
 
 
 def vf_all_instantiations(vf):
-    """Every instantiation of the three sources, as ``vf_instantiation``
+    """Every instantiation of the four sources, as ``vf_instantiation``
     names them: the first version's 4 kinds of each model pair (20), the
     classical shaped kernel's 2 point counts (10), the BQ shapes' 3 kinds x 2
-    counts (30)."""
+    counts (30), the general kernel's state dimensions x bounds on E (12)."""
     dims = {0: 5, 1: 4, 2: 2, 3: 3, 4: 5}
-    out = set()
+    out = {("vector_filter_general", D, eb) for D in (2, 3, 4, 5) for eb in (2, 4, 8)}
     for dyn, D in dims.items():
         for kd in (0, 1):
             for ko in (0, 1):
@@ -1534,8 +1582,9 @@ def sass_f64_a_step(listing, n_points):
 
 
 def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
-    """Phases 15-18: the three vector filter kernels against their plain
-    version at every instantiation, the reentry bench lane through the
+    """Phases 15-18: the four vector filter kernels against their plain
+    version at every instantiation (the general kernel through
+    ``vf_general_checks``), the reentry bench lane through the
     shaped kernel (``fused_re``, the main path's result) against the eager
     lane, the same data under BSQ-UT through the kernel of the BQ shapes
     and under GH-3 through the first version (their paths), the reentry
@@ -1613,13 +1662,20 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         torch.cuda.synchronize()
         if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
             fail(f"{kernel} kernel, {system} {a}/{b}: a second launch differs from the first")
+    g_seen, g_err, g_cases = vf_general_checks(torch, np, dev, [
+        (f"{system} {a}", params_of[system, a, a], ys_of[system][:, :, :VF_STEPS])
+        for system, a in (("reentry", "UKF"), ("CV", "UKF"), ("pendulum", "UKF"),
+                          ("falling body", "UKF"), ("CT + 4 bearings", "UKF"))])
+    seen |= g_seen
+    err["vector_filter_general"] = g_err
     missing = vf_all_instantiations(vf) - seen
     if missing:
         fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
     split = {k: sum(s[0] == k for s in seen) for k in VF_KERNELS}
-    log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs: "
-        f"every instantiation of the three sources ({split}; the first version at every pair, "
-        f"by force where another kernel takes it), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
+    log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs "
+        f"and {g_cases} configurations of other pairs: every instantiation of the four sources "
+        f"({split}; the first version at every pair of its five, the general kernel at the five "
+        f"by force, where other kernels take them), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
         f"streams; two launches equal to the bit; {time.perf_counter() - t15:.1f} s")
 
     # ---- 16. the reentry bench lane: dd against f64 --------------------------
@@ -1627,7 +1683,7 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     fused = ukf_re.forward_pass_batch(ys_re, engine="dd")
     torch.cuda.synchronize()
     moved = {k: v - before[k] for k, v in vf_counts(vf).items()}
-    if moved != {"vector_filter": 0, "vector_filter_shaped": 1, "vector_filter_shaped_bq": 0}:
+    if moved != only("vector_filter_shaped"):
         fail(f"a reentry UKF filter call launched {moved}; expected the shaped kernel once")
     if not all(torch.equal(getattr(fused, f), getattr(fused_re, f))
                for f in ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")):
@@ -1773,7 +1829,159 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         entries[kernel] = {"launches": launches.get(kernel, 0), "max_abs_err": err[kernel],
                            "ms": k_ms[0], "plain_ms": plain_ms[kernel], "bound_ms": b_ms,
                            "bound_by": b_by, "library_ms": None}
+    # the general kernel's phase-15 figures; phase 27 times it on its own path
+    entries["vector_filter_general"] = {"launches": 0, "max_abs_err": err["vector_filter_general"]}
     return entries
+
+
+#: eight bearing sensors: the zoo's four (``ZOO_SENSORS``) and four more between them
+GEN_SENSORS = [[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0], [100.0, 0.0],
+               [0.0, 100.0], [200.0, 100.0], [100.0, 200.0]]
+
+
+def general_systems(np, dev):
+    """(dynamics, measurement) of the model pairs that only the general vector
+    filter kernel takes, by name: the zoo's and ``bench.py``'s transitions
+    (``zoo_systems``, ``reentry_system``; constant velocity of the CV glint
+    study) with the radar (noise diag(1, 1e-4), the CT radar of
+    ``tests/test_torch_vector_filter.py:146-180``), the sine, the range, the
+    UNGM measurement of state component 0, and bearings from 1-8 sensors
+    (``GEN_SENSORS``; on the pendulum scaled to its angle and rate)."""
+    from ssmtoybox_torch import ssmod
+    from ssmtoybox_torch.utils import GaussRV
+    zoo = zoo_systems(np, dev)
+    dyns = {"pendulum": zoo["pendulum"][0], "falling body": zoo["falling body"][0],
+            "CT": zoo["CT + 4 bearings"][0], "reentry": reentry_system(np, dev)[0],
+            "CV": ssmod.ConstantVelocity(GaussRV(4, mean=M0_TRUE, cov=np.diag(P0), device=dev),
+                                         GaussRV(2, cov=np.diag(Q), device=dev), dt=DT)}
+
+    def pos(D):
+        return [0, 2] if D >= 4 else [0, 1]
+
+    def sensors(name):
+        grid = np.array(GEN_SENSORS)
+        return grid / 100.0 - 1.0 if name == "pendulum" else grid
+
+    def obs(name, kind):
+        D = dyns[name].dim_state
+        if kind == "radar":
+            return ssmod.Radar2DMeasurement(GaussRV(2, cov=np.diag([1.0, 1e-4]), device=dev),
+                                            dim_state=D, state_index=pos(D),
+                                            radar_loc=np.array([-5.0, -5.0]))
+        if kind == "sine":
+            return ssmod.Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=dev), dim_state=D)
+        if kind == "range":
+            return ssmod.RangeMeasurement(GaussRV(1, cov=0.03, device=dev), dim_state=D)
+        if kind == "UNGM":
+            return ssmod.UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=D,
+                                         state_index=[0])
+        S = int(kind.split()[0])
+        return ssmod.BearingMeasurement(GaussRV(S, cov=1e-3 * np.eye(S), device=dev),
+                                        dim_state=D, state_index=pos(D),
+                                        sensor_pos=sensors(name)[:S])
+
+    pairs = [("pendulum", "radar"), ("pendulum", "UNGM"), ("pendulum", "3 bearings"),
+             ("pendulum", "8 bearings"), ("falling body", "sine"), ("falling body", "4 bearings"),
+             ("falling body", "6 bearings"), ("CV", "2 bearings"), ("CV", "3 bearings"),
+             ("CV", "8 bearings"), ("CT", "radar"), ("CT", "2 bearings"), ("CT", "3 bearings"),
+             ("CT", "8 bearings"), ("reentry", "range"), ("reentry", "UNGM")]
+    return {f"{d} + {o}": (dyns[d], obs(d, o)) for d, o in pairs}
+
+
+#: phase 15's rules on the pairs of the general kernel: (pair, dynamics rule,
+#: measurement rule), every instantiation (D, bound on E) and every pair of
+#: rule kinds
+VF_GENERAL_CASES = [
+    ("pendulum + radar", "UKF", "UKF"), ("pendulum + radar", "GPQ-UT", "GPQ-UT"),
+    ("pendulum + UNGM", "CKF", "CKF"), ("pendulum + 3 bearings", "UKF", "UKF"),
+    ("pendulum + 8 bearings", "CKF", "CKF"), ("falling body + sine", "UKF", "UKF"),
+    ("falling body + sine", "GPQ-UT", "UKF"), ("falling body + 4 bearings", "CKF", "CKF"),
+    ("falling body + 6 bearings", "UKF", "UKF"), ("CV + 2 bearings", "UKF", "UKF"),
+    ("CV + 3 bearings", "CKF", "CKF"), ("CV + 8 bearings", "CKF", "CKF"),
+    ("CT + radar", "UKF", "UKF"), ("CT + radar", "GH-3", "GH-3"),
+    ("CT + 3 bearings", "CKF", "CKF"), ("CT + 8 bearings", "CKF", "CKF"),
+    ("CT + 8 bearings", "UKF", "GPQ-UT"), ("reentry + range", "UKF", "UKF"),
+    ("reentry + UNGM", "CKF", "CKF")]
+
+
+def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule):
+    """A Gaussian filter of ``dyn`` and ``obs`` with the named rules (UKF,
+    CKF, GH-3 or GPQ-UT with the length-scales of ``VF_GPQ_ZOO``'s kind:
+    3 on every input)."""
+    D = dyn.dim_state
+    par = np.array([[1.0] + [3.0] * D])
+
+    def rule(name, model):
+        alg = {"UKF": lambda: stt.UnscentedKalman(dyn, obs),
+               "CKF": lambda: stt.CubatureKalman(dyn, obs),
+               "GH-3": lambda: stt.GaussHermiteKalman(dyn, obs, deg=3),
+               "GPQ-UT": lambda: stt.GaussianProcessKalman(dyn, obs, par, par)}[name]()
+        return alg.tf_dyn if model == "dyn" else alg.tf_obs
+
+    return stt.GaussianInference(dyn, obs, rule(dyn_rule, "dyn"), rule(obs_rule, "obs"))
+
+
+def vf_general_checks(torch, np, dev, forced):
+    """Phase 15, the general vector filter kernel: ``VF_GENERAL_CASES``
+    simulated on the card from the seed (MC trajectories, ``VF_STEPS``
+    steps), each through the wrapper (one launch of the general kernel and
+    no other) at B = ``VF_BATCHES`` against the plain version's run on all MC
+    (its prefix), to the bit, NaN where it has NaN, at most 1% not finite;
+    two launches equal to the bit; then the general kernel by force on
+    ``forced``, ``(name, params, y)`` of the pairs the other kernels take,
+    at MC.  Returns the instantiations seen, the largest |diff| and the count
+    of configurations."""
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.ops import vector_filter as vf
+
+    systems = general_systems(np, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    seen, err, data = set(), 0.0, {}
+    for name, dyn_rule, obs_rule in VF_GENERAL_CASES:
+        dyn, obs = systems[name]
+        if name not in data:
+            x = dyn.simulate_discrete(gen, steps=VF_STEPS, mc_sims=MC)
+            data[name] = obs.simulate_measurements(gen, x).permute(2, 0, 1)
+        alg = general_filter(stt, np, dyn, obs, dyn_rule, obs_rule)
+        params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+        what = f"{name} {dyn_rule}/{obs_rule}"
+        if vf.kernel_of(params) != "vector_filter_general":
+            fail(f"{what}: kernel_of names {vf.kernel_of(params)}, not the general kernel")
+        seen.add(vf_instantiation("vector_filter_general", params))
+        ref_all = vf._vector_filter_plain(params, data[name])
+        for batch in VF_BATCHES:
+            yy = data[name][:batch]
+            before = vf_counts(vf)
+            got = vf.vector_filter(params, yy)
+            torch.cuda.synchronize()
+            moved = {k: v - before[k] for k, v in vf_counts(vf).items()}
+            if moved != only("vector_filter_general"):
+                fail(f"{what}: the wrapper's launches {moved}; the general kernel was to run once")
+            ref = tuple(r[..., :batch] for r in ref_all)
+            diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(got, ref))
+            err = max(err, diff)
+            lost = 1.0 - float(torch.isfinite(got[1]).flatten(0, 2).all(0).double().mean())
+            if not (all(same_bits(torch, g_, r_) for g_, r_ in zip(got, ref)) and lost <= 0.01):
+                fail(f"vector_filter_general kernel vs plain, {what}, B={batch}, N={VF_STEPS}: "
+                     f"max |diff| {diff:.3e}, {lost:.2%} of the trajectories not finite; "
+                     "expected equal bits and at most 1% not finite")
+        again = vf.vector_filter(params, yy)
+        torch.cuda.synchronize()
+        if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
+            fail(f"vector_filter_general kernel, {what}: a second launch differs from the first")
+    for name, params, y in forced:
+        launch = vf_raw(torch, vf, params, y, dev, "vector_filter_general")
+        if launch() != 0:
+            fail(f"{name}: the general kernel's launch by force failed")
+        ref = vf._vector_filter_plain(params, y)
+        torch.cuda.synchronize()
+        diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(launch.out, ref))
+        err = max(err, diff)
+        if not all(same_bits(torch, g_, r_) for g_, r_ in zip(launch.out, ref)):
+            fail(f"vector_filter_general kernel by force on {name} (B={y.shape[0]}): max |diff| "
+                 f"{diff:.3e}; expected equal bits")
+        seen.add(vf_instantiation("vector_filter_general", params))
+    return seen, err, len(VF_GENERAL_CASES) + len(forced)
 
 
 #: the "zoo" phase: the rest of the model zoo on the card, at MC trajectories
@@ -1936,6 +2144,208 @@ def zoo_slice(torch, np, dev):
             f"{eager_ms[system]:.1f} ms (CUDA events, one call); RMSE filter {r_fi:.6f}, "
             f"smoother {r_sm:.6f}; not finite {lost:.2%}")
     return launches, err
+
+
+#: phase 27: the trajectories each lane holds against its plain version (all
+#: of them on the lane the ``kernels`` line times), the steps of the
+#: measurement-kind checks of the scalar kernel's general form
+DD_PLAIN_B, DD_SHAPE_STEPS = 200, 40
+
+
+def sf_raw(torch, sf, params, y, c, dev):
+    """A launch of the scalar filter kernel's general form straight through
+    its C entry point, into buffers made once (``launch.out``); for
+    ``raw_ms``."""
+    lib = sf.build()
+    N, B = y.shape
+    out = torch.empty((5, N, B), dtype=torch.float64, device=dev)
+    cg, scratch = sf._c_general_params(params, dev), sf._scratch(params, B, dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def launch():
+        return lib.sfg_launch(ctypes.byref(cg), y.data_ptr(), y.stride(0), y.stride(1),
+                              c.data_ptr(), B, N, dev.index or 0,
+                              *(out[i].data_ptr() for i in range(5)), scratch.data_ptr(), stream)
+    launch.out = out
+    return launch
+
+
+def finite_rmse(torch, x_true, m):
+    """RMSE over the runs whose filtered means are all finite, and the share
+    of runs that are not; ``x_true`` and ``m`` (M, D, N)."""
+    ok = torch.isfinite(m).flatten(1).all(1)
+    return float(((m[ok] - x_true[ok]) ** 2).mean().sqrt()), 1.0 - float(ok.double().mean())
+
+
+def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
+    """Phase 27, "dd pairs": the configurations that only the general forms
+    take, at full width on the card.  The vector lanes (the general vector
+    filter kernel): CT + radar under UKF and CKF and CT with 2, 3 and 8
+    bearings under CKF (``general_systems``), 10,000 trajectories x 100
+    steps simulated from the seed.  The UNGM lanes (the scalar filter
+    kernel's general form): GH-9, GH-15 and GPQ on GH-15 points
+    (``UNGM_GPQ_PAR``) on phase 4's data, 10,000 x 500.  Each lane once
+    through ``engine="dd"`` with the counts set to 0 (one launch of the
+    general kernel or form, none of another); every stream of its first
+    ``DD_PLAIN_B`` trajectories (all of them on CT + radar UKF) equal to its
+    plain version's to the bit; filter RMSE against the eager f64 lane within
+    1e-6 relative (vector) or 1e-3 (UNGM), at most 1% of the runs not
+    finite; filter and smoother RMSE; raw launches behind ``_sleep``, the
+    wrapper's and the plain version's time, the bound (``vf_bound`` /
+    ``sf_bound``) and, for the vector lanes, the chain floor.  Then the
+    general form's range and sine measurements of the UNGM state against the
+    plain version to the bit at B = 1, 7, 4,097 and 10,000.  ``built``: the
+    libraries' build times.  ``bench``: ``(params, ys)`` of the reentry bench
+    lane's UKF, on which the general kernel by force, the first version by
+    force and the shaped kernel are timed in turns (raw launches).  Returns
+    the entry of ``vector_filter_general``
+    for the ``kernels`` line, the scalar general form's launches and its
+    largest |diff| against the plain version."""
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.ops import scalar_filter as sf, vector_filter as vf
+    from ssmtoybox_torch.ssmod import Pendulum2DMeasurement, RangeMeasurement
+    from ssmtoybox_torch.utils import GaussRV
+
+    t27 = time.perf_counter()
+    dyn_u, obs_u, xs_u, ys_u = ungm
+    systems = general_systems(np, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    data = {}
+    vec_lanes = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"),
+                 ("CT + 3 bearings", "CKF"), ("CT + 8 bearings", "CKF")]
+    for name in dict.fromkeys(n for n, _ in vec_lanes):
+        dyn, obs = systems[name]
+        x = dyn.simulate_discrete(gen, steps=ZOO_STEPS, mc_sims=MC)
+        data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
+    algs = {(n, r): general_filter(stt, np, *systems[n], r, r) for n, r in vec_lanes}
+    par = np.array(UNGM_GPQ_PAR)
+    for rule, alg in (("GH-9", stt.GaussHermiteKalman(dyn_u, obs_u, deg=9)),
+                      ("GH-15", stt.GaussHermiteKalman(dyn_u, obs_u, deg=15)),
+                      ("GPQ-GH15", stt.GaussianProcessKalman(dyn_u, obs_u, par, par, points="gh",
+                                                             point_hyp={"degree": 15}))):
+        algs["UNGM", rule] = alg
+    data["UNGM"] = (xs_u, ys_u)
+    torch.cuda.synchronize()
+
+    # ---- the path: every lane once, the counts from 0 -------------------------
+    sf.LAUNCHES = sf.GENERAL_LAUNCHES = 0
+    vf_zero(vf)
+    results = {}
+    for (name, rule), alg in algs.items():
+        results[name, rule] = alg.forward_pass_batch(data[name][1], engine="dd")
+    torch.cuda.synchronize()
+    vf_launches, sf_launches = vf_counts(vf), (sf.LAUNCHES, sf.GENERAL_LAUNCHES)
+    if vf_launches != only("vector_filter_general", len(vec_lanes)) or sf_launches != (3, 3):
+        fail(f"dd pairs path: vector filter launches {vf_launches}, scalar filter launches "
+             f"(all, general form) {sf_launches}; expected {len(vec_lanes)} of the general "
+             "vector kernel and 3 of the scalar general form, nothing else")
+    log(f"dd pairs path: vector filter launches {vf_launches}; scalar filter launches "
+        f"{sf_launches[0]}, all of the general form")
+
+    # ---- each lane: plain version, eager lane, scores, times -----------------------
+    err = {"vector_filter_general": 0.0, "scalar_filter": 0.0}
+    lat, mhz = sf.dependent_latencies(dev), float(clocks_line().split()[0])
+    entry = None
+    for (name, rule), alg in algs.items():
+        x_true, ys = data[name]
+        res = results[name, rule]
+        M, _, N = ys.shape
+        scalar = name == "UNGM"
+        kernel = "scalar_filter" if scalar else "vector_filter_general"
+        head_b = MC if (name, rule) == vec_lanes[0] else DD_PLAIN_B
+        if scalar:
+            params = sf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+            y_tm = ys[:, 0, :].T.contiguous()
+            c = torch.as_tensor(sf.ungm_consts(N), device=dev)
+            p_ms, plain = event_ms(torch, lambda: sf._scalar_filter_plain(
+                params, y_tm[:, :head_b].contiguous(), c))
+            got = (res.fi_mean[:head_b, 0].T, res.fi_cov[:head_b, 0, 0].T,
+                   res.pr_mean[:head_b, 0].T, res.pr_cov[:head_b, 0, 0].T,
+                   res.pr_xx_cov[:head_b, 0, 0].T)
+            diff = max(float((a - b).nan_to_num().abs().max()) for a, b in zip(got, plain))
+            if not all(same_bits(torch, a, b) for a, b in zip(got, plain)):
+                fail(f"dd pairs UNGM {rule}: the kernel's streams differ from the plain "
+                     f"version's on {head_b} trajectories, max |diff| {diff:.3e}")
+            err[kernel] = max(err[kernel], diff)
+        else:
+            params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+            p_ms, plain = event_ms(torch, lambda: vf._vector_filter_plain(params, ys[:head_b]))
+            head = stt.FilterResult(*(getattr(res, f)[:head_b] for f in
+                                      ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")))
+            err[kernel] = max(err[kernel], vf_against_plain(
+                torch, head, plain, f"dd pairs {name} {rule}, first {head_b} trajectories"))
+        del plain
+        ref = alg.forward_pass_batch(ys, engine="f64")
+        (r_fi, lost), (e_fi, e_lost) = (finite_rmse(torch, x_true, res.fi_mean),
+                                        finite_rmse(torch, x_true, ref.fi_mean))
+        r_sm = finite_rmse(torch, x_true, stt.gaussian_smoother(res)[0])[0]
+        rel, limit = abs(r_fi - e_fi) / e_fi, 1e-3 if scalar else 1e-6
+        log(f"dd pairs {name} {rule} ({M}x{N}, {kernel}{' general form' if scalar else ''}): "
+            f"== plain version to the bit on {head_b} trajectories, all five streams; RMSE "
+            f"filter {r_fi:.9f}, smoother {r_sm:.9f} (eager f64: filter {e_fi:.9f}; relative "
+            f"{rel:.2e}, limit {limit}); not finite {lost:.2%} (eager {e_lost:.2%}, limit 1%)")
+        if not (rel <= limit and lost <= 0.01):
+            fail(f"dd pairs {name} {rule}: filter RMSE of dd and f64 differ by {rel:.3e} "
+                 f"relative, or {lost:.2%} of the runs are not finite")
+        del ref
+        if scalar:
+            raw = raw_ms(torch, sf_raw(torch, sf, params, y_tm, c, dev))
+            k_ms = cuda_ms(torch, lambda: sf.scalar_filter(params, y_tm, c))
+            b_ms, b_by = sf_bound(params, N, M)
+            floor = ""
+        else:
+            raw = raw_ms(torch, vf_raw(torch, vf, params, ys, dev))
+            k_ms = cuda_ms(torch, lambda: vf.vector_filter(params, ys))
+            b_ms, b_by = vf_bound(params, N, M)
+            fl = vf.chain_floor_clocks(lat, params)
+            floor = (f", chain floor {fl:.0f} clocks a step = {fl * N / (mhz * 1e3):.4f} ms at "
+                     f"{mhz:.0f} MHz")
+        log(f"  {kernel} <D={params.dim_state if not scalar else 1}, E={ys.shape[1]}, "
+            f"N={params.dyn.n}/{params.obs.n}> raw launches {raw:.4f} ms a launch (CUDA events "
+            f"around 20 behind torch.cuda._sleep); wrapper call {k_ms[0]:.4f} ms (min "
+            f"{k_ms[1]:.4f}); plain version {p_ms:.1f} ms on {head_b} trajectories; bound "
+            f"{b_ms:.4f} ms ({b_by}){floor}")
+        if (name, rule) == vec_lanes[0]:
+            entry = {"launches": vf_launches["vector_filter_general"], "ms": k_ms[0],
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # ---- the scalar general form's sine and range measurements ------------------------
+    x_u = xs_u.permute(1, 2, 0)                                         # (1, N, M)
+    for obs in (RangeMeasurement(GaussRV(1, cov=0.03, device=dev), dim_state=1),
+                Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=dev), dim_state=1)):
+        y_m = obs.simulate_measurements(gen, x_u[:, :DD_SHAPE_STEPS])[0].contiguous()
+        c = torch.as_tensor(sf.ungm_consts(DD_SHAPE_STEPS), device=dev)
+        for rule, alg in (("UKF", stt.UnscentedKalman(dyn_u, obs)),
+                          ("GH-15", stt.GaussHermiteKalman(dyn_u, obs, deg=15))):
+            params = sf.prepare(dyn_u, obs, alg.tf_dyn, alg.tf_obs)
+            if sf.form_of(params) != "general":
+                fail(f"{type(obs).__name__} {rule}: form {sf.form_of(params)}, not general")
+            ref_all = sf._scalar_filter_plain(params, y_m, c)
+            for batch in (1, 7, 4097, MC):
+                got = sf.scalar_filter(params, y_m[:, :batch].contiguous(), c)
+                torch.cuda.synchronize()
+                ref = tuple(r[:, :batch] for r in ref_all)
+                diff = max(float((a - b).nan_to_num().abs().max()) for a, b in zip(got, ref))
+                err["scalar_filter"] = max(err["scalar_filter"], diff)
+                if not all(same_bits(torch, a, b) for a, b in zip(got, ref)):
+                    fail(f"scalar general form, {type(obs).__name__} {rule}, B={batch}: max "
+                         f"|diff| {diff:.3e}; expected equal bits")
+    log(f"scalar general form == plain to the bit with the range and sine measurements of the "
+        f"UNGM state (UKF, GH-15), B = 1, 7, 4097, {MC}, N = {DD_SHAPE_STEPS}")
+    if bench is not None:
+        p_re, y_re = bench
+        turns = {}
+        for kernel in ("vector_filter_shaped", "vector_filter_general", "vector_filter",
+                       "vector_filter_general", "vector_filter_shaped"):
+            turns.setdefault(kernel, []).append(
+                raw_ms(torch, vf_raw(torch, vf, p_re, y_re, dev, kernel)))
+        log(f"reentry bench lane UKF {y_re.shape[0]}x{y_re.shape[-1]}, raw launches in turns: "
+            + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+                        for k, v in turns.items()))
+    entry["max_abs_err"] = err["vector_filter_general"]
+    log(f"dd pairs phase: {time.perf_counter() - t27:.1f} s; libraries built in "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()) + f"; card: {card_line()}")
+    return entry, sf_launches[1], err["scalar_filter"]
 
 
 #: the classical phase: steps a lane, trajectories held against the CPU,
@@ -3930,8 +4340,8 @@ def vector_alone():
     log(f"card: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     vf.build()
-    log(f"built vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu for "
-        f"sm_90a in {time.perf_counter() - t0:.1f} s")
+    log(f"built vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
+        f"vector_filter_general.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
     for line in _build.BUILD_LOGS.get("vector_filter", "").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  ptxas vector_filter: {line.strip()}")
@@ -3946,6 +4356,68 @@ def vector_alone():
     launches, err = zoo_slice(torch, np, dev)
     log(f"vector_alone: entries {json.dumps(entries)}; zoo launches {launches}, errors {err}; "
         f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
+
+
+def dd_pairs_alone():
+    """The checks of the general forms alone: both libraries built (their
+    times printed), the scalar kernel against its plain version at every
+    instantiation of phase 2 (the general form's rules included) on the main
+    path's UNGM data, phase 15's general vector kernel checks
+    (``vf_general_checks``, the five pairs of the other kernels by force) and
+    phase 27 (``dd_pairs_slice``): ``python3 -c "import chip_smoke;
+    chip_smoke.dd_pairs_alone()"``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
+    from ssmtoybox_torch.ssmod import UNGMMeasurement, UNGMTransition
+    from ssmtoybox_torch.utils import GaussRV
+
+    if not torch.cuda.is_available():
+        fail("dd_pairs_alone: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"card: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        took = {lib.__name__.split(".")[-1]: pool.submit(
+            lambda m: (m.build(), time.perf_counter() - t0)[1], lib) for lib in (sf, vf)}
+        took = {name: f.result() for name, f in took.items()}
+    log(f"built scalar_filter.cu and the four vector filter sources in "
+        f"{time.perf_counter() - t0:.1f} s ({took})")
+    for line in _build.BUILD_LOGS.get("vector_filter", "").splitlines():
+        if "general" in line or "registers" in line or "spill" in line:
+            log(f"  ptxas vector_filter: {line.strip()}")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=dev), GaussRV(1, cov=10.0, device=dev))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=dev), dim_state=1)
+    x = dyn.simulate_discrete(gen, steps=UNGM_STEPS, mc_sims=MC)
+    xs, ys = x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1)
+    y_tm = ys[:, 0, :].T.contiguous()
+    scalar_filter_shapes(torch, np, dev, dyn, obs, y_tm,
+                         torch.as_tensor(sf.ungm_consts(UNGM_STEPS), device=dev))
+    forced = []
+    systems = {"reentry": reentry_system(np, dev), **zoo_systems(np, dev)}
+    for name in ("reentry", "pendulum", "falling body", "CT + 4 bearings"):
+        d, o = systems[name]
+        ukf = stt.UnscentedKalman(d, o)
+        yy = o.simulate_measurements(gen, d.simulate_discrete(gen, steps=VF_STEPS, mc_sims=MC))
+        forced.append((f"{name} UKF", vf.prepare(d, o, ukf.tf_dyn, ukf.tf_obs),
+                       yy.permute(2, 0, 1)))
+    seen, err, n = vf_general_checks(torch, np, dev, forced)
+    log(f"general vector kernel == plain to the bit at {n} configurations, instantiations "
+        f"{sorted(seen)}, max |diff| {err:.3e}")
+    d_re, o_re = systems["reentry"]
+    x_re = d_re.simulate_discrete(gen, steps=REENTRY_STEPS, mc_sims=MC)
+    y_re = o_re.simulate_measurements(gen, x_re).permute(2, 0, 1)
+    entry, sf_general, sf_err = dd_pairs_slice(torch, np, dev, (dyn, obs, xs, ys), took,
+                                               bench=(forced[0][1], y_re))
+    log(f"dd_pairs_alone: general entry {json.dumps(entry)}; scalar general launches "
+        f"{sf_general}, max |diff| {sf_err:.3e}; {time.perf_counter() - t0:.1f} s; card: "
+        f"{card_line()}")
 
 
 def main():
@@ -3987,7 +4459,8 @@ def main():
                 for lib in (sf, smc, vdm, vf)}
         took = {name: build.result() for name, build in took.items()}
     log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu, vandermonde.cu and "
-        f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu for sm_90a in "
+        f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
+        f"vector_filter_general.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
         + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):
@@ -4101,7 +4574,7 @@ def main():
     launches, main_vf = sf.LAUNCHES, vf_counts(vf)
     if launches < 2:
         fail(f"the UNGM lanes launched the scalar filter kernel {launches} times; expected 2")
-    if main_vf != {"vector_filter": 0, "vector_filter_shaped": 1, "vector_filter_shaped_bq": 0}:
+    if main_vf != only("vector_filter_shaped"):
         fail(f"the reentry lane launched the vector filter kernels {main_vf}; expected the "
              "shaped kernel, once")
     for lane, (res, sm_m, sm_P, x_true) in results.items():
@@ -4145,6 +4618,13 @@ def main():
     for k, entry in vf_entries.items():
         entry["launches"] += zoo_launches[k]
         entry["max_abs_err"] = max(entry["max_abs_err"], zoo_err[k])
+    p_bench = vf.prepare(dyn_re, obs_re, ukf_re.tf_dyn, ukf_re.tf_obs)
+    general, dd_sf_launches, dd_sf_err = dd_pairs_slice(torch, np, dev, (dyn, obs, xs, ys), took,
+                                                        bench=(p_bench, ys_re))
+    checked = vf_entries.pop("vector_filter_general")
+    general["launches"] += checked["launches"]
+    general["max_abs_err"] = max(general["max_abs_err"], checked["max_abs_err"])
+    vf_entries["vector_filter_general"] = general
     classical_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
     rest = bq_rest_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re),
                          glint)
@@ -4165,9 +4645,10 @@ def main():
     kernels = {"kernels": [{
         "name": "scalar_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
         "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37",
-        "launches": launches + bsq_sf_launches + rest["scalar_filter"] + studies["scalar_filter"],
-        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": None}] + student + [vdm_entry] + [{
+        "launches": (launches + bsq_sf_launches + rest["scalar_filter"] + studies["scalar_filter"]
+                     + dd_sf_launches),
+        "max_abs_err": max(max_err, dd_sf_err), "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None}] + student + [vdm_entry] + [{
         "name": k, "route": "cuda", "source": f"ssmtoybox_torch/csrc/{k}.cu",
         "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **entry} for k, entry in vf_entries.items()]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")

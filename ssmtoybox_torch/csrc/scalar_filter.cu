@@ -36,6 +36,17 @@
 //   time-major, out[k * B + b], so neighbouring trajectories store to
 //   neighbouring addresses.
 //
+// The general form (scalar_filter_general_kernel, step in
+// scalar_filter_step_general.cuh) takes what the shaped instantiations do not:
+// rules of any point count (GH-9 and up, GPQ and BSQ on those points) and the
+// sine and range measurements of a 1-D state.  One thread a trajectory; the
+// point count, both kinds and the measurement are read at run time (the same
+// in every thread of a launch, so no branch diverges); the rules are read
+// from device memory and the function values go through a scratch buffer
+// interleaved by trajectory.  ops/scalar_filter.py sends a configuration to
+// the shaped instantiations whenever they take it (UNGM measurement, at most
+// SF_MAX_PTS points), so the main path keeps its kernel.
+//
 // It is built with --fmad=false (ops/scalar_filter.py): every operation rounds
 // on its own, as in the plain PyTorch twin, so kernel and twin agree to the
 // last bit instead of drifting apart under the chaotic UNGM map.
@@ -48,6 +59,7 @@
 #include <cuda_runtime.h>
 
 #include "scalar_filter_step.cuh"
+#include "scalar_filter_step_general.cuh"
 #ifdef SF_RUNTIME_SHAPE
 #include "scalar_filter_step_rt.cuh"
 #endif
@@ -132,6 +144,28 @@ scalar_filter_kernel(const __grid_constant__ SfParams p, const double* __restric
       out.m_fi[row + b] = s.m_fi;
       out.P_fi[row + b] = s.P_fi;
     }
+    m = s.m_fi;
+    P = s.P_fi;
+  }
+}
+
+// The general form: one thread a trajectory, any rule, any 1-D measurement.
+__global__ void __launch_bounds__(kThreads)
+scalar_filter_general_kernel(const __grid_constant__ SfgParams p, const double* __restrict__ y,
+                             long long y_step, long long y_traj, const double* __restrict__ c,
+                             int B, int n_steps, const Streams out, double* __restrict__ scratch) {
+  const long long b = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (b >= B) return;
+  const double* yb = y + b * y_traj;
+  double m = p.m0, P = p.P0;
+  for (int k = 0; k < n_steps; ++k) {
+    const SfStep s = sfg_step(p, m, P, yb[k * y_step], __ldg(c + k), scratch + b, B);
+    const size_t o = static_cast<size_t>(k) * B + b;
+    out.m_pr[o] = s.m_pr;
+    out.P_pr[o] = s.P_pr;
+    out.xx[o] = s.xx;
+    out.m_fi[o] = s.m_fi;
+    out.P_fi[o] = s.P_fi;
     m = s.m_fi;
     P = s.P_fi;
   }
@@ -236,6 +270,31 @@ extern "C" int sf_launch(const SfParams* params, const double* y, long long y_st
                       static_cast<cudaStream_t>(stream));
   SF_SHAPES(SF_LAUNCH_IF)
 #undef SF_LAUNCH_IF
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Launch the general form on `stream` of card `device` without synchronising:
+// the layouts of sf_launch, and scratch of max(n_dyn, n_obs) * B doubles.
+// params->dyn and params->obs point to their constants in device memory.
+// Returns the CUDA error of selecting the device or, after the launch,
+// cudaGetLastError(); cudaErrorInvalidValue for a rule kind, point count or
+// measurement that the form does not take.
+extern "C" int sfg_launch(const SfgParams* params, const double* y, long long y_step,
+                          long long y_traj, const double* c, int B, int n_steps, int device,
+                          double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
+                          double* scratch, void* stream) {
+  if (B <= 0 || n_steps <= 0) return 0;
+  const SfgParams& p = *params;
+  if (p.dyn.n < 1 || p.obs.n < 1 || (p.dyn.kind | p.obs.kind) >> 1 || p.obs_model < 0 ||
+      p.obs_model > SF_OBS_RANGE)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const Streams out = {m_fi, P_fi, m_pr, P_pr, xx};
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(B) + kThreads - 1) /
+                                                kThreads);
+  scalar_filter_general_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      p, y, y_step, y_traj, c, B, n_steps, out, scratch);
   return static_cast<int>(cudaGetLastError());
 }
 

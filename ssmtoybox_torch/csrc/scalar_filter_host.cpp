@@ -1,9 +1,10 @@
-// Host build of the scalar filter step (scalar_filter_step.cuh), for testing
+// Host build of the scalar filter steps (scalar_filter_step.cuh and the general
+// form's scalar_filter_step_general.cuh, which includes it), for testing
 // the kernel's arithmetic on a machine without a GPU.  It picks the template
 // instantiation as the CUDA launcher does (kinds of both rules, the smallest
 // slot count that holds them) and runs it with one lane a trajectory, one
 // trajectory after another; same layouts and the same order of every sum.
-#include "scalar_filter_step.cuh"
+#include "scalar_filter_step_general.cuh"
 
 namespace {
 
@@ -47,4 +48,33 @@ extern "C" int sf_host_run(const SfParams* params, const double* y, long long y_
   SF_SHAPES(SF_RUN_IF)
 #undef SF_RUN_IF
   return slots;
+}
+
+// The general form (scalar_filter_step_general.cuh): any rule, any 1-D
+// measurement, the trajectories one after another with the kernel's layouts
+// (scratch of max(n_dyn, n_obs) * B doubles, interleaved by trajectory).
+// Returns 1, or 0 for a configuration the form does not take.
+extern "C" int sfg_host_run(const SfgParams* params, const double* y, long long y_step,
+                            long long y_traj, const double* c, int B, int n_steps,
+                            double* m_fi, double* P_fi, double* m_pr, double* P_pr,
+                            double* xx, double* scratch) {
+  const SfgParams& p = *params;
+  if (p.dyn.n < 1 || p.obs.n < 1 || (p.dyn.kind | p.obs.kind) >> 1 || p.obs_model < 0 ||
+      p.obs_model > SF_OBS_RANGE)
+    return 0;
+  for (int b = 0; b < B; ++b) {
+    double m = p.m0, P = p.P0;
+    for (int k = 0; k < n_steps; ++k) {
+      const long long o = static_cast<long long>(k) * B + b;
+      const SfStep s = sfg_step(p, m, P, y[k * y_step + b * y_traj], c[k], scratch + b, B);
+      m_pr[o] = s.m_pr;
+      P_pr[o] = s.P_pr;
+      xx[o] = s.xx;
+      m_fi[o] = s.m_fi;
+      P_fi[o] = s.P_fi;
+      m = s.m_fi;
+      P = s.P_fi;
+    }
+  }
+  return 1;
 }

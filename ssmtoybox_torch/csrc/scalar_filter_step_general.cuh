@@ -1,0 +1,146 @@
+// The scalar filter step of every 1-D rule and every 1-D measurement, in
+// native float64, one thread a trajectory: the general form of the scalar
+// filter kernel (scalar_filter.cu, scalar_filter_general_kernel), for what the
+// shaped step (scalar_filter_step.cuh) does not take: rules of more than
+// SF_MAX_PTS points (Gauss-Hermite of degree 9 and up, GPQ and BSQ on those
+// points) and the sine and range measurements of a 1-D state.
+//
+// Shared by the CUDA kernel and the host shim (scalar_filter_host.cpp), so
+// that the CPU tests hold this exact code against the plain PyTorch version in
+// ssmtoybox_torch/ops/scalar_filter.py (_scalar_filter_plain).
+//
+// The rule's point count n, both kinds and the measurement are read at run
+// time; they are the same in every thread of a launch, so their branches do
+// not diverge.  The rules' constants live in device memory and are read
+// through SFG_LDG (the read-only path on the card; the same address in every
+// lane of a warp), as the first-version vector filter reads its rules: a BQ
+// rule's dense Wc is n^2 doubles, which no by-value struct holds for any n.
+// The n function values of a transform go to a scratch buffer, value i of a
+// trajectory at scratch[i * ss] (the kernel interleaves the trajectories,
+// ss = B), written in the mean pass and read back for the centred classical
+// sums or the BQ quadratic form.  Every sum runs in the plain version's order
+// (_moments_plain), from 0.0 upwards, so that kernel, host build and plain
+// version agree to the bit.
+#pragma once
+
+#include "scalar_filter_step.cuh"
+
+#ifdef __CUDA_ARCH__
+#define SFG_LDG(p) __ldg(p)
+#else
+#define SFG_LDG(p) (*(p))
+#endif
+
+// Measurement models of a 1-D state (ids shared with ops/scalar_filter.py).
+#define SF_OBS_UNGM 0   // UNGMMeasurement: 0.05 x^2
+#define SF_OBS_SIN 1    // Pendulum2DMeasurement of a 1-D state: sin(x)
+#define SF_OBS_RANGE 2  // RangeMeasurement: sqrt(sx^2 + (x - sy)^2), obs_c = sx^2, sy
+
+// A 1-D quadrature rule, its constants in memory the step reads (device
+// memory for the kernel).  kind 0: classical, diagonal covariance weights wc.
+// kind 1: BQ, dense weights Wc (n x n, row-major), cross weights wcc and the
+// expected model variance emv.
+struct SfgRule {
+  int kind;
+  int n;
+  const double* xi;   // (n,) unit sigma points
+  const double* wm;   // (n,)
+  const double* wc;   // (n,), kind 0
+  const double* Wc;   // (n, n), kind 1
+  const double* wcc;  // (n,), kind 1
+  double emv;         // kind 1
+};
+
+// Everything the general form takes besides the data streams: 168 bytes.
+struct SfgParams {
+  SfgRule dyn;
+  SfgRule obs;
+  int obs_model;    // SF_OBS_*
+  double obs_c[2];  // the measurement's constants (the range's sx^2, sy)
+  double m0;        // initial mean
+  double P0;        // initial variance
+  double gqg;       // G Q G, additive process-noise variance
+  double r;         // additive measurement-noise variance
+};
+static_assert(sizeof(SfgRule) == 56 && sizeof(SfgParams) == 168,
+              "SfgRule and SfgParams are mirrored by ctypes in ops/scalar_filter.py");
+
+// The UNGM dynamics at the step's constant c.
+struct SfgDyn {
+  double c;
+  SF_HD double operator()(double x) const { return sf_ungm_dyn(x, c); }
+};
+
+// The measurement of p, its model read at run time.
+struct SfgObs {
+  int model;
+  double c0, c1;
+  SF_HD double operator()(double x) const {
+    if (model == SF_OBS_SIN) return sin(x);
+    if (model == SF_OBS_RANGE) {
+      const double d = x - c1;
+      return sqrt(c0 + d * d);
+    }
+    return sf_ungm_obs(x);
+  }
+};
+
+// Moments of f at the points m + L xi_i under rule R: mean mu, variance var
+// and cross-covariance cross with the input.
+template <class F>
+SF_HD void sfg_moments(const SfgRule& R, double m_in, double L, const F& f, double* scratch,
+                       long long ss, double* mu, double* var, double* cross) {
+  const int n = R.n;
+  double m = 0.0;
+  for (int i = 0; i < n; ++i) {
+    const double v = f(m_in + L * SFG_LDG(R.xi + i));
+    scratch[i * ss] = v;
+    m += SFG_LDG(R.wm + i) * v;
+  }
+  double v = 0.0, c = 0.0;
+  if (R.kind == 0) {
+    for (int i = 0; i < n; ++i) {
+      const double w = SFG_LDG(R.wc + i);
+      const double d = scratch[i * ss] - m;
+      v += w * (d * d);
+      c += w * ((L * SFG_LDG(R.xi + i)) * d);
+    }
+  } else {
+    double q = 0.0, s = 0.0;
+    for (int i = 0; i < n; ++i) {
+      double row = 0.0;
+      for (int j = 0; j < n; ++j)
+        row += SFG_LDG(R.Wc + static_cast<long long>(i) * n + j) * scratch[j * ss];
+      const double fi = scratch[i * ss];
+      q += fi * row;
+      s += SFG_LDG(R.wcc + i) * fi;
+    }
+    v = q - m * m + R.emv;
+    c = s * L;
+  }
+  *mu = m;
+  *var = v;
+  *cross = c;
+}
+
+// One filter step from the filtered state (m, P) of the previous step, with
+// measurement y and the dynamics constant c of this step; the function values
+// go through scratch (this trajectory's slot 0, slots ss apart).
+SF_HD SfStep sfg_step(const SfgParams& p, double m, double P, double y, double c,
+                      double* scratch, long long ss) {
+  SfStep s;
+  const double L = sqrt(P);
+  double Pf;
+  sfg_moments(p.dyn, m, L, SfgDyn{c}, scratch, ss, &s.m_pr, &Pf, &s.xx);
+  s.P_pr = Pf + p.gqg;
+
+  const double L2 = sqrt(s.P_pr);
+  double y_pr, S0, C;
+  sfg_moments(p.obs, s.m_pr, L2, SfgObs{p.obs_model, p.obs_c[0], p.obs_c[1]}, scratch, ss,
+              &y_pr, &S0, &C);
+  const double S = S0 + p.r;
+  const double K = C / S;
+  s.m_fi = s.m_pr + K * (y - y_pr);
+  s.P_fi = s.P_pr - (K * K) * S;
+  return s;
+}

@@ -1,10 +1,12 @@
-// Host builds of the vector filter steps (vector_filter_step.cuh and
-// vector_filter_shaped.cuh, which includes it), for testing the kernels'
+// Host builds of the vector filter steps (vector_filter_step.cuh, and
+// vector_filter_shaped.cuh and vector_filter_general.cuh, which include it),
+// for testing the kernels'
 // arithmetic on a machine without a GPU.  Each entry picks the template
 // instantiation as its CUDA launcher does (the model pair, then the kinds and
 // point count of both rules) and runs the trajectories one after another,
 // with the kernel's layouts: time-major outputs and, for the first version, a
 // scratch buffer interleaved by trajectory.
+#include "vector_filter_general.cuh"
 #include "vector_filter_shaped.cuh"
 
 namespace {
@@ -90,5 +92,29 @@ extern "C" int vfs_bq_host_run(const VfsBqParams* params, const double* y, long 
   }
   VFS_BQ_SHAPES(VFS_BQ_RUN_IF)
 #undef VFS_BQ_RUN_IF
+  return ran;
+}
+
+// The same for the step of the general kernel (vector_filter_general.cuh):
+// every model pair, E outputs run at the bound EB that holds them.  Returns
+// the state dimension of the instantiation that ran, 0 if the general step
+// does not take the configuration.
+extern "C" int vfg_host_run(const VfParams* params, const double* y, long long y_b,
+                            long long y_e, long long y_k, int B, int n_steps, double* m_fi,
+                            double* P_fi, double* m_pr, double* P_pr, double* xx,
+                            double* scratch) {
+  const VfParams& p = *params;
+  if (!vfg_takes(p)) return 0;
+  const int eb = vfg_bound(p.dim_out);
+  int ran = 0;
+#define VFG_RUN_IF(D, EB)                                                                  \
+  if (p.dim_state == D && eb == EB) {                                                      \
+    for (int b = 0; b < B; ++b)                                                            \
+      vfg_record<D, EB>(p, y + b * y_b, y_e, y_k, n_steps, scratch + b, B, m_fi + b,       \
+                        P_fi + b, m_pr + b, P_pr + b, xx + b, B);                          \
+    ran = D;                                                                               \
+  }
+  VFG_SHAPES(VFG_RUN_IF)
+#undef VFG_RUN_IF
   return ran;
 }

@@ -58,7 +58,7 @@ struct VfsRule {
 
 // The kernel's parameters: the first version's (models, initial moments,
 // G Q G^T, R; of its rule fields only the kinds and point counts, which the
-// launcher checks) and both rules by value, 3,072 bytes of the 4 KB a
+// launcher checks) and both rules by value, 3,136 bytes of the 4 KB a
 // kernel's parameters may take.
 struct VfsParams {
   VfParams base;
@@ -79,7 +79,7 @@ struct VfsBqRule {
   double emv;
 };
 
-// The parameters of the kernel of the BQ shapes: 5,904 bytes.  Past the 4 KB
+// The parameters of the kernel of the BQ shapes: 5,968 bytes.  Past the 4 KB
 // that a kernel's parameters could take before CUDA 12.1; from 12.1 on, sm_70
 // and later take up to 32,764 bytes of them, which still live in the constant
 // bank: every thread reads the same address, and the constant cache
@@ -89,7 +89,7 @@ struct VfsBqParams {
   VfsBqRule dyn;
   VfsBqRule obs;
 };
-static_assert(sizeof(VfsBqRule) == 2032 && sizeof(VfsBqParams) == 5904,
+static_assert(sizeof(VfsBqRule) == 2032 && sizeof(VfsBqParams) == 5968,
               "the layout the ctypes mirror (ops/vector_filter.py) expects");
 static_assert(sizeof(VfsBqParams) + 128 <= 32764,
               "a kernel's parameters take at most 32,764 bytes (CUDA 12.1 and later)");

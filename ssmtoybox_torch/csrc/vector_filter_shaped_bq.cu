@@ -24,7 +24,7 @@
 // Wc, here stays on chip: the values in registers (or the thread's L1-cached
 // local memory where the point loops stay loops), the weights by value in the
 // kernel's parameters, in the constant bank, every thread reading the same
-// address.  Both rules by value are 4,064 bytes, so the parameters (5,904
+// address.  Both rules by value are 4,064 bytes, so the parameters (5,968
 // bytes) pass the 4 KB that kernels could take before CUDA 12.1; the
 // header's static_assert holds them to 12.1's 32,764.
 //

@@ -2,7 +2,11 @@
 // (2 <= D <= 8) with additive noise, in native float64, one trajectory a
 // thread.  Model pairs: reentry (2-D) and constant velocity with the radar,
 // the pendulum with its sine measurement, the falling body (1-D reentry)
-// with its range, the coordinated turn with four bearings.
+// with its range, the coordinated turn with four bearings.  The model forms
+// here are shared by every vector kernel; the general kernel
+// (vector_filter_general.cuh) also takes the UNGM measurement of a state
+// component (VfObs<VF_OBS_UNGM>) and bearings from any 1-8 sensors
+// (vf_bearings), with any transition of the table.
 //
 // Shared by the CUDA kernel (vector_filter.cu) and a host shim
 // (vector_filter_host.cpp) that g++ builds, so that the CPU tests hold this
@@ -66,10 +70,12 @@
 #define VF_OBS_RADAR 0         // Radar2DMeasurement: obs_c = radar x, y
 #define VF_OBS_PENDULUM_SIN 1  // Pendulum2DMeasurement: no constants
 #define VF_OBS_RANGE 2         // RangeMeasurement: obs_c = sx^2, sy
-#define VF_OBS_BEARING 3       // BearingMeasurement, 4 sensors: obs_c = x, y of each
+#define VF_OBS_BEARING 3       // BearingMeasurement, S sensors: obs_c = x, y of each
+#define VF_OBS_UNGM 4          // UNGMMeasurement of component obs_idx[0]: no constants
 
-// Largest number of measurement constants (4 bearing sensors' positions).
-#define VF_MAX_OBS_C 8
+// Largest number of measurement constants: 8 bearing sensors' positions, as
+// many sensors as R (VF_MAX_DIM x VF_MAX_DIM) has outputs.
+#define VF_MAX_OBS_C 16
 
 // A quadrature rule, its constants in memory the step reads (device memory
 // for the kernel).  kind 0: classical, diagonal covariance weights wc.  kind 1:
@@ -86,7 +92,7 @@ struct VfRule {
   double emv;         // kind 1
 };
 
-// Everything the kernel takes besides the data: by value, 1,840 bytes of
+// Everything the kernel takes besides the data: by value, 1,904 bytes of
 // the 4 KB a kernel's parameters may take.  Matrices row-major, VF_MAX_DIM
 // apart.
 struct VfParams {
@@ -104,6 +110,8 @@ struct VfParams {
   double gqg[VF_MAX_DIM * VF_MAX_DIM];  // G Q G^T
   double r[VF_MAX_DIM * VF_MAX_DIM];    // R
 };
+static_assert(sizeof(VfRule) == 56 && sizeof(VfParams) == 1904,
+              "the layout the ctypes mirror (ops/vector_filter.py) expects");
 
 // Where one step of one trajectory writes its five streams: each pointer at
 // component 0 of this step and trajectory, components `cs` apart.
@@ -261,6 +269,28 @@ struct VfObs<VF_OBS_BEARING> {
     for (int s = 0; s < 4; ++s) h[s] = atan2(py - p.obs_c[2 * s + 1], px - p.obs_c[2 * s]);
   }
 };
+
+// The UNGM measurement 0.05 x^2 of the state component obs_idx[0].
+template <>
+struct VfObs<VF_OBS_UNGM> {
+  static constexpr int E = 1;
+  template <int D>
+  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[1]) {
+    const double v = vf_pick(x, p.obs_idx[0]);
+    h[0] = 0.05 * (v * v);
+  }
+};
+
+// Bearings of (obs_idx[0], obs_idx[1]) from the first S <= SB sensors at
+// (obs_c[2 s], obs_c[2 s + 1]), S read at run time: the bearing form of the
+// general kernel.  Entries of h from S on are not written.
+template <int D, int SB>
+VF_HD void vf_bearings(const VfParams& p, const double (&x)[D], int S, double (&h)[SB]) {
+  const double px = vf_pick(x, p.obs_idx[0]), py = vf_pick(x, p.obs_idx[1]);
+#pragma unroll
+  for (int s = 0; s < SB; ++s)
+    if (s < S) h[s] = atan2(py - p.obs_c[2 * s + 1], px - p.obs_c[2 * s]);
+}
 
 template <int D, int DYN>
 struct VfDynFn {

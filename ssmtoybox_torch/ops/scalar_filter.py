@@ -6,20 +6,33 @@ to beat the per-step dispatch floor of ``lax.scan``; an eager PyTorch filter
 on the card has the same floor (about 70 small device operations a step), so the
 port runs the whole record of every trajectory inside one launch of a CUDA
 kernel (``csrc/scalar_filter.cu``) in native float64 (the card needs no
-double-double arithmetic).  The kernel is bound by the dependency chain of one
-trajectory, so the rule's shape is a template argument (the kinds of both
-rules and 3, 5, 7 or 8 slots) and a trajectory is spread over a few lanes of
-a warp, one or two sigma points a lane; every sum still runs in the order of
-the twin, so kernel and twin agree to the bit.
+double-double arithmetic).  The kernel has two forms (:func:`form_of`):
 
-Supported: the UNGM transition and measurement models, additive noise, and
-for each of the two transforms either a classical 1-D sigma-point rule with
-diagonal covariance weights or a 1-D BQ rule, with at most ``MAX_PTS``
-points.  :func:`supports` says whether a configuration qualifies.
+- ``"shaped"``: the UNGM measurement and rules of at most ``MAX_PTS`` points.
+  The kernel is bound by the dependency chain of one trajectory, so the
+  rule's shape is a template argument (the kinds of both rules and 3, 5, 7
+  or 8 slots) and a trajectory is spread over a few lanes of a warp, one or
+  two sigma points a lane.  The main path's UNGM lanes run here.
+- ``"general"``: everything else the lowering admits, rules of any point
+  count (Gauss-Hermite of degree 9 and up, GPQ and BSQ on those points) and
+  the sine and range measurements, one thread a trajectory, the point count,
+  kinds and measurement read at run time, the rules from device memory
+  (``csrc/scalar_filter_step_general.cuh``).
+
+In both, every sum runs in the order of the twin, so kernel and twin agree
+to the bit.
+
+Supported, as the JAX package's ``ops.ddvec.dd_check`` admits a 1-D state:
+the UNGM transition with the UNGM, sine (``Pendulum2DMeasurement``) or range
+(``RangeMeasurement``) measurement of the state, additive noise, and for
+each of the two transforms either a classical 1-D sigma-point rule with
+diagonal covariance weights or a 1-D BQ rule with a scalar model variance,
+of any point count.  :func:`supports` says whether a configuration qualifies.
 
 :func:`scalar_filter` is the launch wrapper.  For a CPU tensor it runs the
 plain PyTorch twin :func:`_scalar_filter_plain`; for a CUDA tensor it launches
-the kernel or raises.  Each launch adds one to :data:`LAUNCHES`.
+the kernel or raises.  Each launch adds one to :data:`LAUNCHES`; a launch of
+the general form also to :data:`GENERAL_LAUNCHES`.
 
 Nothing is built, lowered or copied per call: the library is bound once a
 process, a transform's :class:`Rule` and a model's noise constants are kept
@@ -41,24 +54,35 @@ import torch
 from ..bq.gpqd import GaussianProcessDerTransform
 from ..bq.transforms import BQTransform, MultiOutputBQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
-from ..ssmod import UNGMMeasurement, UNGMTransition
+from ..ssmod import Pendulum2DMeasurement, RangeMeasurement, UNGMMeasurement, UNGMTransition
 from . import _build
 
-__all__ = ["LAUNCHES", "MAX_PTS", "Rule", "ScalarFilterParams", "lower_transform",
-           "supports", "prepare", "ungm_consts", "scalar_filter", "scalar_filter_moments",
-           "scalar_filter_batch", "build", "slots", "SLOTS", "dependent_latencies",
+__all__ = ["LAUNCHES", "GENERAL_LAUNCHES", "MAX_PTS", "form_of", "Rule", "ScalarFilterParams",
+           "lower_transform", "supports", "prepare", "ungm_consts", "scalar_filter",
+           "scalar_filter_moments", "scalar_filter_batch", "build", "slots", "SLOTS", "dependent_latencies",
            "chain_floor_clocks"]
 
-#: kernel launches made by :func:`scalar_filter` in this process
+#: kernel launches made by :func:`scalar_filter` in this process, both forms
 LAUNCHES = 0
+#: the launches of the general form among them
+GENERAL_LAUNCHES = 0
 
-#: most sigma points a rule may have (``SF_MAX_PTS`` in the step header):
-#: enough for the 7-point Gauss-Hermite and BSQ-GH7 rules; the parameter
-#: struct, passed by value, is then 1,600 bytes, under the 4 KB limit of a
-#: kernel's parameters.  The kernel is instantiated at ``SLOTS`` points; a
-#: rule runs at the smallest of them that holds it, padded with zero weights
+#: most sigma points a rule of the shaped form may have (``SF_MAX_PTS`` in the
+#: step header): enough for the 7-point Gauss-Hermite and BSQ-GH7 rules; the
+#: parameter struct, passed by value, is then 1,600 bytes, under the 4 KB
+#: limit of a kernel's parameters.  The shaped form is instantiated at
+#: ``SLOTS`` points; a rule runs at the smallest of them that holds it, padded
+#: with zero weights.  Larger rules run in the general form
 MAX_PTS = 8
 SLOTS = (3, 5, 7, 8)
+
+#: the measurements of a 1-D state with a kernel form: class -> (id in
+#: ``scalar_filter_step_general.cuh``, constants); the shaped form takes id 0
+_OBS_MODELS = {
+    UNGMMeasurement: (0, lambda m: ()),
+    Pendulum2DMeasurement: (1, lambda m: ()),
+    RangeMeasurement: (2, lambda m: (float(m.sx) ** 2, float(m.sy))),
+}
 
 #: ``--fmad=false``: no multiply-add contraction, so the kernel rounds after
 #: every operation exactly like the twin's separate elementwise ops; with
@@ -100,6 +124,9 @@ class ScalarFilterParams:
     P0: float
     gqg: float
     r: float
+    #: the measurement's id in ``_OBS_MODELS`` and its constants
+    obs_model: int = 0
+    obs_c: tuple = ()
 
 
 class _CRule(ctypes.Structure):
@@ -127,8 +154,13 @@ def _c_rule(rule: Rule) -> _CRule:
 
 @functools.lru_cache(maxsize=64)
 def _c_params(p: ScalarFilterParams) -> _CParams:
-    """The kernel's parameter struct, zero past each rule's points; built
-    once for a given ``p``."""
+    """The shaped form's parameter struct, zero past each rule's points;
+    built once for a given ``p``; ``ValueError`` for a configuration that
+    the shaped form does not take."""
+    if form_of(p) != "shaped":
+        raise ValueError(f"the shaped scalar filter takes the UNGM measurement and rules of at "
+                         f"most {MAX_PTS} points; got measurement {p.obs_model}, rules of "
+                         f"{p.dyn.n} and {p.obs.n} points")
     return _CParams(dyn=_c_rule(p.dyn), obs=_c_rule(p.obs), m0=p.m0, P0=p.P0,
                     gqg=p.gqg, r=p.r)
 
@@ -198,10 +230,14 @@ def _lower(tf) -> Rule:
         rule = Rule(kind=1, xi=_floats(tf.points), wm=_floats(tf.wm),
                     Wc=tuple(tuple(float(v) for v in row) for row in Wc),
                     wcc=_floats(tf.Wcc), emv=float(tf._emv.reshape(())))
-    if rule.n > MAX_PTS:
-        raise ValueError(f"the fused scalar filter takes at most {MAX_PTS} points; "
-                         f"got {rule.n}")
     return rule
+
+
+def _lookup(table: dict, model):
+    """``table``'s entry for ``model``'s class or its nearest base (a
+    ``BearingMeasurement`` is of a subclass per sensor count), as
+    ``ddvec._vec_registry_lookup`` finds it; None if there is none."""
+    return next((table[t] for t in type(model).__mro__ if t in table), None)
 
 
 def _check(mod_dyn, mod_obs):
@@ -209,9 +245,14 @@ def _check(mod_dyn, mod_obs):
         raise ValueError("the fused scalar filter requires dim_state == dim_out == 1")
     if not (mod_dyn.noise_additive and mod_obs.noise_additive):
         raise ValueError("the fused scalar filter requires additive noise")
-    if type(mod_dyn) is not UNGMTransition or type(mod_obs) is not UNGMMeasurement:
-        raise ValueError("the fused scalar filter implements the UNGM models only; got "
+    if type(mod_dyn) is not UNGMTransition or _lookup(_OBS_MODELS, mod_obs) is None:
+        raise ValueError("the fused scalar filter implements the UNGM transition with the "
+                         "UNGM, sine and range measurements; got "
                          f"{type(mod_dyn).__name__} and {type(mod_obs).__name__}")
+    idx = mod_obs.state_index
+    if idx is not None and (len(idx) < 1 or idx[0] != 0):
+        raise ValueError(f"state_index {idx} does not pick the component "
+                         f"{type(mod_obs).__name__} reads from a state of dimension 1")
 
 
 def supports(mod_dyn, mod_obs, tf_dyn, tf_obs) -> bool:
@@ -242,10 +283,21 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None) -> 
     m0, P0, gqg = _memo(mod_dyn, "_scalar_filter_consts", (m0_t, P0_t, q_t, mod_dyn.noise_gain),
                         dyn_consts)
     r = _memo(mod_obs, "_scalar_filter_consts", (r_t,), lambda: _scalar(r_t))
+    obs_model, obs_c = _lookup(_OBS_MODELS, mod_obs)
     return ScalarFilterParams(
         dyn=lower_transform(tf_dyn), obs=lower_transform(tf_obs),
         m0=m0 if init_mean is None else _scalar(init_mean),
-        P0=P0 if init_cov is None else _scalar(init_cov), gqg=gqg, r=r)
+        P0=P0 if init_cov is None else _scalar(init_cov), gqg=gqg, r=r,
+        obs_model=obs_model, obs_c=obs_c(mod_obs))
+
+
+def form_of(params: ScalarFilterParams) -> str:
+    """The form of the kernel that runs ``params``: ``"shaped"`` for the UNGM
+    measurement with rules of at most :data:`MAX_PTS` points, else
+    ``"general"``."""
+    if params.obs_model == 0 and max(params.dyn.n, params.obs.n) <= MAX_PTS:
+        return "shaped"
+    return "general"
 
 
 def ungm_consts(n_steps: int) -> np.ndarray:
@@ -288,14 +340,25 @@ def _moments_plain(rule: Rule, L, fs):
     return m, v, c
 
 
+def _obs_plain(params: ScalarFilterParams, x, sqrt, sin):
+    """The measurement of ``params`` at the points ``x``, as the kernel
+    evaluates it."""
+    if params.obs_model == 1:
+        return sin(x)
+    if params.obs_model == 2:
+        d = x - params.obs_c[1]
+        return sqrt(params.obs_c[0] + d * d)
+    return 0.05 * (x * x)
+
+
 def _scalar_filter_plain(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor,
-                         sqrt=torch.sqrt):
+                         sqrt=torch.sqrt, sin=torch.sin):
     """The kernel's computation as batched torch ops over the B trajectories
     and a Python loop over the N steps; same arguments and results as
-    :func:`scalar_filter`.  ``sqrt``: the square root to take (PyTorch's
-    vectorised CPU one is an ulp off on some inputs, unlike the card's and a
-    C compiler's, so a test that wants equal bits on the CPU passes a
-    correctly rounded one)."""
+    :func:`scalar_filter`, for both forms.  ``sqrt``, ``sin``: the square
+    root and sine to take (PyTorch's vectorised CPU ones are an ulp off on
+    some inputs, unlike the card's and a C compiler's, so a test that wants
+    equal bits on the CPU passes the C library's)."""
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=y.dtype, device=y.device)
     m = torch.full((B,), params.m0, dtype=y.dtype, device=y.device)
@@ -313,7 +376,7 @@ def _scalar_filter_plain(params: ScalarFilterParams, y: torch.Tensor, c: torch.T
         hs = []
         for i in range(obs.n):
             x = m_pr + L2 * obs.xi[i]
-            hs.append(0.05 * (x * x))
+            hs.append(_obs_plain(params, x, sqrt, sin))
         y_pr, S0, C = _moments_plain(obs, L2, hs)
         S = S0 + params.r
         K = C / S
@@ -331,6 +394,50 @@ _STREAMS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void
             ctypes.c_int, ctypes.c_int]
 
 
+class _CGRule(ctypes.Structure):
+    """``SfgRule``: a rule of the general form, its constants in memory."""
+    _fields_ = [("kind", ctypes.c_int), ("n", ctypes.c_int), ("xi", ctypes.c_void_p),
+                ("wm", ctypes.c_void_p), ("wc", ctypes.c_void_p), ("Wc", ctypes.c_void_p),
+                ("wcc", ctypes.c_void_p), ("emv", ctypes.c_double)]
+
+
+class _CGParams(ctypes.Structure):
+    """``SfgParams``: the general form's parameters."""
+    _fields_ = [("dyn", _CGRule), ("obs", _CGRule), ("obs_model", ctypes.c_int),
+                ("obs_c", ctypes.c_double * 2), ("m0", ctypes.c_double),
+                ("P0", ctypes.c_double), ("gqg", ctypes.c_double), ("r", ctypes.c_double)]
+
+
+def _packed(rule: Rule, device) -> torch.Tensor:
+    """A rule's constants as one float64 tensor on ``device``: ``xi | wm |
+    wc`` or ``xi | wm | Wc | wcc`` (``Wc`` row-major)."""
+    vals = rule.xi + rule.wm + (rule.wc if rule.kind == 0 else
+                                tuple(v for row in rule.Wc for v in row) + rule.wcc)
+    return torch.tensor(vals, dtype=torch.float64, device=device)
+
+
+def _c_grule(rule: Rule, packed: torch.Tensor) -> _CGRule:
+    n, base = rule.n, packed.data_ptr()
+    after = base + 16 * n
+    if rule.kind == 0:
+        return _CGRule(kind=0, n=n, xi=base, wm=base + 8 * n, wc=after)
+    return _CGRule(kind=1, n=n, xi=base, wm=base + 8 * n, Wc=after, wcc=after + 8 * n * n,
+                   emv=rule.emv)
+
+
+@functools.lru_cache(maxsize=64)
+def _c_general_params(p: ScalarFilterParams, device: torch.device) -> _CGParams:
+    """The general form's parameter struct with both rules' constants copied
+    to ``device`` (kept alive on the struct), built once for a given ``(p,
+    device)``."""
+    keep = (_packed(p.dyn, device), _packed(p.obs, device))
+    c = _CGParams(dyn=_c_grule(p.dyn, keep[0]), obs=_c_grule(p.obs, keep[1]),
+                  obs_model=p.obs_model, m0=p.m0, P0=p.P0, gqg=p.gqg, r=p.r)
+    c.obs_c[:len(p.obs_c)] = p.obs_c
+    c.keep = keep
+    return c
+
+
 def _bind(lib: ctypes.CDLL):
     """Declare the argument types of the library's entry points."""
     lib.sf_launch.restype = ctypes.c_int
@@ -342,6 +449,9 @@ def _bind(lib: ctypes.CDLL):
     lib.sf_latency.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
     lib.sf_error_string.restype = ctypes.c_char_p
     lib.sf_error_string.argtypes = [ctypes.c_int]
+    lib.sfg_launch.restype = ctypes.c_int
+    lib.sfg_launch.argtypes = ([ctypes.POINTER(_CGParams)] + _STREAMS + [ctypes.c_int]
+                               + [ctypes.c_void_p] * 7)
     return lib
 
 
@@ -354,6 +464,8 @@ def build() -> ctypes.CDLL:
 def _bind_host(lib: ctypes.CDLL):
     lib.sf_host_run.restype = ctypes.c_int
     lib.sf_host_run.argtypes = [ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_void_p] * 5
+    lib.sfg_host_run.restype = ctypes.c_int
+    lib.sfg_host_run.argtypes = [ctypes.POINTER(_CGParams)] + _STREAMS + [ctypes.c_void_p] * 6
 
 
 def _host_shim() -> ctypes.CDLL:
@@ -383,14 +495,28 @@ def _check_streams(y: torch.Tensor, c: torch.Tensor):
         raise ValueError(f"at most 2**31 - 1 trajectories; got {y.shape[1]}")
 
 
+def _scratch(params: ScalarFilterParams, B: int, device) -> torch.Tensor:
+    """The general form's function values of every point, interleaved by
+    trajectory."""
+    return torch.empty(max(params.dyn.n, params.obs.n) * B, dtype=torch.float64, device=device)
+
+
 def _host_shim_run(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
-    """Run the step header compiled for the host on CPU tensors; the five
-    streams, after checking that the instantiation of :func:`slots` ran."""
+    """Run the step header of :func:`form_of`'s form compiled for the host
+    on CPU tensors; the five streams, after checking that the instantiation
+    of :func:`slots` (or the general form) ran."""
     _check_streams(y, c)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=torch.float64)
+    if form_of(params) == "general":
+        cg, scratch = _c_general_params(params, torch.device("cpu")), _scratch(params, B, "cpu")
+        if _host_shim().sfg_host_run(ctypes.byref(cg), y.data_ptr(), y.stride(0), y.stride(1),
+                                     c.data_ptr(), B, N, *(o.data_ptr() for o in out),
+                                     scratch.data_ptr()) != 1:
+            raise RuntimeError("the host build of the general form refused the configuration")
+        return tuple(out)
     ran = _host_shim().sf_host_run(ctypes.byref(_c_params(params)), y.data_ptr(), y.stride(0),
                                    y.stride(1), c.data_ptr(), B, N,
                                    *(o.data_ptr() for o in out))
@@ -410,28 +536,36 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     (N, B) streams ``(m_fi, P_fi, m_pr, P_pr, xx)``: filtered mean and
     variance, predicted mean and variance, and the dynamics transform's
     cross-covariance.  A CPU tensor runs the plain twin; a CUDA tensor
-    launches the kernel on the current stream, without synchronising.
+    launches the kernel's form of :func:`form_of` on the current stream,
+    without synchronising, or raises.
     """
-    global LAUNCHES
+    global LAUNCHES, GENERAL_LAUNCHES
     _check_streams(y, c)
     if y.device.type == "cpu":
         return _scalar_filter_plain(params, y, c)
     if y.device.type != "cuda":
         raise ValueError(f"the scalar filter runs on CPU or CUDA tensors; got {y.device}")
+    general = form_of(params) == "general"
     lib = build()
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=torch.float64, device=y.device)
     if y.numel() == 0:
         return tuple(out)
     first, size = out.data_ptr(), N * B * 8
-    rc = lib.sf_launch(ctypes.byref(_c_params(params)), y.data_ptr(), y.stride(0), y.stride(1),
-                       c.data_ptr(), B, N, y.device.index or 0,
-                       *(first + i * size for i in range(5)),
-                       torch.cuda.current_stream(y.device).cuda_stream)
+    args = (y.data_ptr(), y.stride(0), y.stride(1), c.data_ptr(), B, N, y.device.index or 0,
+            *(first + i * size for i in range(5)))
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    if general:
+        scratch = _scratch(params, B, y.device)
+        rc = lib.sfg_launch(ctypes.byref(_c_general_params(params, y.device)), *args,
+                            scratch.data_ptr(), stream)
+    else:
+        rc = lib.sf_launch(ctypes.byref(_c_params(params)), *args, stream)
     if rc != 0:
-        raise RuntimeError(f"scalar filter kernel launch failed: "
+        raise RuntimeError(f"scalar filter kernel ({form_of(params)} form) launch failed: "
                            f"{lib.sf_error_string(rc).decode()} (cudaError {rc})")
     LAUNCHES += 1
+    GENERAL_LAUNCHES += int(general)
     return tuple(out)
 
 

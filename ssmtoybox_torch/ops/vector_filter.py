@@ -6,8 +6,8 @@ Counterpart of the JAX package's ``ops/ddvec.py`` (``dd_filter_batch``, the
 ``lax.scan`` of double-double f32-pair arithmetic in jnp because the TPU has
 no f64 unit.  The card has native float64, so the port runs the whole record
 of every trajectory inside one launch of a CUDA kernel in plain f64 and
-returns all five moment streams that the RTS smoother reads.  Three kernels,
-one library, picked by the rules' shape (:func:`kernel_of`):
+returns all five moment streams that the RTS smoother reads.  Four kernels,
+one library, picked by the model pair and the rules' shape (:func:`kernel_of`):
 
 - ``vector_filter_shaped`` (``csrc/vector_filter_shaped.cu``, the step in
   ``csrc/vector_filter_shaped.cuh``): both rules classical with the same
@@ -19,29 +19,37 @@ one library, picked by the rules' shape (:func:`kernel_of`):
   ``Wc`` included) by value;
 - ``vector_filter`` (``csrc/vector_filter.cu``, the step in
   ``csrc/vector_filter_step.cuh``), the first version: every other
-  configuration (Gauss-Hermite rules, mixed point counts), one thread a
-  trajectory, N at run time.
+  configuration of those pairs (Gauss-Hermite rules, mixed point counts),
+  one thread a trajectory, N at run time;
+- ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the step in
+  ``csrc/vector_filter_general.cuh``): every other model pair, one thread a
+  trajectory, D and a bound on E template arguments, the models, E, the
+  kinds and N at run time.
 
-Supported, as ``ddvec.dd_check`` admits them, for the model pairs with a
-kernel form: ``dim_state <= 8``, additive noise on both models, one of the
-pairs ``ReentryVehicle2DTransition`` or ``ConstantVelocity`` with
-``Radar2DMeasurement``, ``Pendulum2DTransition`` with
-``Pendulum2DMeasurement``, ``ReentryVehicle1DTransition`` with
+The first three take the five pairs ``ReentryVehicle2DTransition`` or
+``ConstantVelocity`` with ``Radar2DMeasurement``, ``Pendulum2DTransition``
+with ``Pendulum2DMeasurement``, ``ReentryVehicle1DTransition`` with
 ``RangeMeasurement`` and ``CoordinatedTurnTransition`` with a
-``BearingMeasurement`` of four sensors (any ``state_index`` that picks the
-components the measurement reads), and for each transform either a classical
-sigma-point rule with diagonal covariance weights or a BQ rule with a scalar
-model variance.  The JAX package's dd engine runs any pair of its registered
-models and any number of bearing sensors; the port instantiates the pairs
-above.  :func:`check` raises ``ValueError`` with the reason a configuration
-is refused; :func:`supports` answers with a bool.
+``BearingMeasurement`` of four sensors.
+
+Supported, as ``ddvec.dd_check`` admits them: ``dim_state <= 8``, additive
+noise on both models, any transition of the table (the five above) with any
+measurement of it (the radar, the sine, the range, bearings from 1 to 8
+sensors, and ``UNGMMeasurement`` of a state component), any ``state_index``
+that picks the components the measurement reads, and for each transform
+either a classical sigma-point rule with diagonal covariance weights or a BQ
+rule with a scalar model variance.  The JAX package's dd engine also takes
+more than 8 bearing sensors; the kernels' parameters hold R up to 8 x 8, so
+the port refuses those.  :func:`check` raises ``ValueError`` with the reason a
+configuration is refused; :func:`supports` answers with a bool.
 
 :func:`vector_filter` is the launch wrapper.  For a CPU tensor it runs the
 plain PyTorch version :func:`_vector_filter_plain`; for a CUDA tensor it
 launches the kernel of :func:`kernel_of` or raises.  Each launch adds one to
 :data:`LAUNCHES`; a launch of the classical shaped kernel also to
 :data:`SHAPED_LAUNCHES`, one of the kernel of the BQ shapes to
-:data:`BQ_SHAPED_LAUNCHES`.
+:data:`BQ_SHAPED_LAUNCHES`, one of the general kernel to
+:data:`GENERAL_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
@@ -64,20 +72,23 @@ from ..bq.transforms import BQTransform, MultiOutputBQTransform, StudentTProcess
 from ..mtran import SigmaPointTransform
 from ..ssmod import (BearingMeasurement, ConstantVelocity, CoordinatedTurnTransition,
                      Pendulum2DMeasurement, Pendulum2DTransition, Radar2DMeasurement,
-                     RangeMeasurement, ReentryVehicle1DTransition, ReentryVehicle2DTransition)
+                     RangeMeasurement, ReentryVehicle1DTransition, ReentryVehicle2DTransition,
+                     UNGMMeasurement)
 from . import _build
-from .scalar_filter import _floats, _memo
+from .scalar_filter import _floats, _lookup, _memo
 
-__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "VecRule", "VectorFilterParams",
-           "lower_transform", "check", "supports", "prepare", "kernel_of", "vector_filter", "build",
-           "chain_floor_clocks", "TORCH_FNS"]
+__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "GENERAL_LAUNCHES", "VecRule",
+           "VectorFilterParams", "lower_transform", "check", "supports", "prepare", "kernel_of",
+           "vector_filter", "build", "chain_floor_clocks", "TORCH_FNS"]
 
-#: kernel launches made by :func:`vector_filter` in this process, all three kernels
+#: kernel launches made by :func:`vector_filter` in this process, all four kernels
 LAUNCHES = 0
 #: the launches of the classical shaped kernel among them
 SHAPED_LAUNCHES = 0
 #: the launches of the kernel of the BQ shapes among them
 BQ_SHAPED_LAUNCHES = 0
+#: the launches of the general kernel among them
+GENERAL_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
@@ -104,20 +115,16 @@ _OBS_MODELS = {
     Pendulum2DMeasurement: (1, lambda m: ()),
     RangeMeasurement: (2, lambda m: (m.sx ** 2, m.sy)),
     BearingMeasurement: (3, lambda m: m.sensor_pos),
+    UNGMMeasurement: (4, lambda m: ()),
 }
-#: the instantiated pairs of model ids: ``VF_MODELS`` of the step header
+#: the pairs of model ids that the first version and the shaped kernels
+#: instantiate: ``VF_MODELS`` of the step header; every other pair runs in the
+#: general kernel
 _PAIRS = {(0, 0), (1, 0), (2, 1), (3, 2), (4, 3)}
-#: the bearing sensors of the instantiated bearing measurement
+#: the bearing sensors of their bearing measurement
 _BEARING_SENSORS = 4
-#: ``VF_MAX_OBS_C``: room for the measurement's constants (4 sensors' x, y)
-_MAX_OBS_C = 8
-
-
-def _lookup(table: dict, model):
-    """``table``'s entry for ``model``'s class or its nearest base (a
-    ``BearingMeasurement`` is of a subclass per sensor count), as
-    ``ddvec._vec_registry_lookup`` finds it; None if there is none."""
-    return next((table[t] for t in type(model).__mro__ if t in table), None)
+#: ``VF_MAX_OBS_C``: room for the measurement's constants (8 sensors' x, y)
+_MAX_OBS_C = 16
 
 
 # ---------------------------------------------------------------------------
@@ -214,19 +221,15 @@ def check(mod_dyn, mod_obs, tf_dyn, tf_obs):
     if not (mod_dyn.noise_additive and mod_obs.noise_additive):
         raise ValueError("the fused vector filter requires additive process and "
                          "measurement noise")
-    # the JAX package's dd engine runs what the next three refuse (ROADMAP
-    # queue 3 lists the difference)
     for model, table in ((mod_dyn, _DYN_MODELS), (mod_obs, _OBS_MODELS)):
         if _lookup(table, model) is None:
             raise ValueError(f"the fused vector filter has no kernel form of "
-                             f"{type(model).__name__} (ROADMAP queue 3)")
-    if (_lookup(_DYN_MODELS, mod_dyn)[0], _lookup(_OBS_MODELS, mod_obs)[0]) not in _PAIRS:
-        raise ValueError(f"the fused vector filter has no instantiation of the model pair "
-                         f"{type(mod_dyn).__name__} + {type(mod_obs).__name__} "
-                         "(ROADMAP queue 3)")
-    if isinstance(mod_obs, BearingMeasurement) and mod_obs.dim_out != _BEARING_SENSORS:
-        raise ValueError(f"the fused vector filter is instantiated for {_BEARING_SENSORS} "
-                         f"bearing sensors; got {mod_obs.dim_out} (ROADMAP queue 3)")
+                             f"{type(model).__name__}")
+    if mod_obs.dim_out > _MAX_DIM:
+        # the JAX package's dd engine takes them; ROADMAP queue 3 lists the difference
+        raise ValueError(f"the fused vector filter takes at most {_MAX_DIM} bearing sensors "
+                         f"(its parameters hold R up to {_MAX_DIM} x {_MAX_DIM}); got "
+                         f"{mod_obs.dim_out}")
     lower_transform(tf_dyn, D)
     lower_transform(tf_obs, D)
 
@@ -301,13 +304,24 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
         obs_idx=tuple(int(i) for i in idx[:sub]), m0=m0, P0=P0, gqg=gqg, r=r)
 
 
+def _instantiated(params: VectorFilterParams) -> bool:
+    """Whether the first version and the shaped kernels have an
+    instantiation of ``params``' model pair (``_PAIRS``, bearings from
+    ``_BEARING_SENSORS`` sensors)."""
+    return ((params.dyn_model, params.obs_model) in _PAIRS
+            and (params.obs_model != 3 or params.dim_out == _BEARING_SENSORS))
+
+
 def kernel_of(params: VectorFilterParams) -> str:
-    """The kernel that runs ``params``.  Both rules with the same point count
-    N = 2 D + 1 or 2 D (the UT and CKF counts): ``"vector_filter_shaped"``
-    when both are classical, else ``"vector_filter_shaped_bq"``.  Any other
-    count (Gauss-Hermite) or mixed counts: ``"vector_filter"``, the first
-    version."""
+    """The kernel that runs ``params``.  A model pair that the first version
+    and the shaped kernels do not instantiate: ``"vector_filter_general"``.
+    Else both rules with the same point count N = 2 D + 1 or 2 D (the UT and
+    CKF counts): ``"vector_filter_shaped"`` when both are classical, else
+    ``"vector_filter_shaped_bq"``.  Any other count (Gauss-Hermite) or mixed
+    counts: ``"vector_filter"``, the first version."""
     D, dyn, obs = params.dim_state, params.dyn, params.obs
+    if not _instantiated(params):
+        return "vector_filter_general"
     if dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
         return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
     return "vector_filter"
@@ -373,6 +387,8 @@ def _obs_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor
     c, first = params.obs_c, x[..., params.obs_idx[0]]
     if params.obs_model == 1:
         return fns.sin(first)[..., None]
+    if params.obs_model == 4:
+        return (0.05 * (first * first))[..., None]
     if params.obs_model == 2:
         d = first - c[1]
         return fns.sqrt(c[0] + d * d)[..., None]
@@ -665,15 +681,18 @@ def _bind(lib: ctypes.CDLL):
     lib.vfs_bq_launch.restype = ctypes.c_int
     lib.vfs_bq_launch.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS + [ctypes.c_int]
                                   + [ctypes.c_void_p] * 6)
+    lib.vfg_launch.restype = ctypes.c_int
+    lib.vfg_launch.argtypes = lib.vf_launch.argtypes
 
 
 #: the sources of the library: the first-version kernel, the classical shaped
-#: kernel and the kernel of the BQ shapes
-SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu"]
+#: kernel, the kernel of the BQ shapes and the general kernel
+SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu",
+           "vector_filter_general.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile the three sources of :data:`SOURCES` for sm_90a with nvcc
+    """Compile the four sources of :data:`SOURCES` for sm_90a with nvcc
     (once, a compiler each, at once, into one library) and bind it; later
     calls return the bound library."""
     return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
@@ -687,6 +706,8 @@ def _bind_host(lib: ctypes.CDLL):
     lib.vfs_bq_host_run.restype = ctypes.c_int
     lib.vfs_bq_host_run.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS
                                     + [ctypes.c_void_p] * 5)
+    lib.vfg_host_run.restype = ctypes.c_int
+    lib.vfg_host_run.argtypes = lib.vf_host_run.argtypes
 
 
 def _host_shim() -> ctypes.CDLL:
@@ -711,16 +732,19 @@ def _scratch(params: VectorFilterParams, B: int, device) -> torch.Tensor:
     return torch.empty(n * B, dtype=torch.float64, device=device)
 
 
-def _host_shim_run(params: VectorFilterParams, y: torch.Tensor,
-                   kernel: str = "vector_filter"):
+def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | None = None):
     """Run the step of ``kernel`` (``"vector_filter"``,
-    ``"vector_filter_shaped"`` or ``"vector_filter_shaped_bq"``) compiled for
-    the host on a CPU tensor; the five streams of :func:`vector_filter`,
+    ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"`` or
+    ``"vector_filter_general"``; by default the first version where it has
+    an instantiation of the model pair, else the general kernel) compiled
+    for the host on a CPU tensor; the five streams of :func:`vector_filter`,
     after checking that an instantiation of the configuration's dimensions
     ran."""
     _check_streams(params, y)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
+    if kernel is None:
+        kernel = "vector_filter" if _instantiated(params) else "vector_filter_general"
     B, _, T = y.shape
     out = _empty_streams(params.dim_state, T, B, "cpu")
     c = _c_struct(kernel, params, torch.device("cpu"))     # refuses before anything is built
@@ -733,8 +757,9 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor,
                                   *(o.data_ptr() for o in out))
     else:
         scratch = _scratch(params, B, "cpu")
-        ran = lib.vf_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
-                              *(o.data_ptr() for o in out), scratch.data_ptr())
+        run = lib.vfg_host_run if kernel == "vector_filter_general" else lib.vf_host_run
+        ran = run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                  *(o.data_ptr() for o in out), scratch.data_ptr())
     if ran != params.dim_state:
         raise RuntimeError(f"the host build ran the D={ran} step for D={params.dim_state}")
     return out
@@ -751,7 +776,7 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     version; a CUDA tensor launches the kernel of :func:`kernel_of` on the
     current stream, without synchronising, or raises.
     """
-    global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES
+    global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, GENERAL_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
@@ -772,13 +797,16 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     elif kernel == "vector_filter_shaped_bq":
         rc = lib.vfs_bq_launch(*args, stream)
     else:
-        rc = lib.vf_launch(*args, _scratch(params, B, y.device).data_ptr(), stream)
+        scratch = _scratch(params, B, y.device)
+        launch = lib.vfg_launch if kernel == "vector_filter_general" else lib.vf_launch
+        rc = launch(*args, scratch.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{kernel} kernel launch failed: "
                            f"{lib.vf_error_string(rc).decode()} (cudaError {rc})")
     LAUNCHES += 1
     SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped")
     BQ_SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped_bq")
+    GENERAL_LAUNCHES += int(kernel == "vector_filter_general")
     return out
 
 
@@ -822,9 +850,10 @@ def chain_floor_clocks(lat: dict, params: VectorFilterParams) -> float:
 #: and multiplies; CV, 2; the pendulum, a sine and 2; the falling body, an exp
 #: and 4; the coordinated turn, a sine, a divide and 4; the radar, 3 and the
 #: longer of its square root and atan2 (the atan2); the sine measurement, a
-#: sine; the range, a square root and 3; the bearings, an atan2 and 1
+#: sine; the range, a square root and 3; the bearings, an atan2 and 1; the
+#: UNGM measurement, 2
 _DYN_CHAIN = {0: {"sqrt": 1, "div": 1, "exp": 1, "plain": 11}, 1: {"plain": 2},
               2: {"sin": 1, "plain": 2}, 3: {"exp": 1, "plain": 4},
               4: {"sin": 1, "div": 1, "plain": 4}}
 _OBS_CHAIN = {0: {"atan2": 1, "plain": 3}, 1: {"sin": 1}, 2: {"sqrt": 1, "plain": 3},
-              3: {"atan2": 1, "plain": 1}}
+              3: {"atan2": 1, "plain": 1}, 4: {"plain": 2}}

@@ -248,10 +248,14 @@ def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
     - ``"dd"``: on the card, a fused whole-record CUDA kernel in native
       float64 (the JAX package's double-double engine is not needed there);
       on CPU tensors, the kernel's plain PyTorch version.  Scalar states run
-      through :mod:`.ops.scalar_filter` (the UNGM models), states of dimension
-      2-8 through :mod:`.ops.vector_filter` (its model pairs, additive
-      noise); anything either refuses raises ``ValueError`` naming the
-      reason.
+      through :mod:`.ops.scalar_filter` (the UNGM transition with the UNGM,
+      sine or range measurement, rules of any point count), states of
+      dimension 2-8 through :mod:`.ops.vector_filter` (every transition of
+      its table with every measurement of it, bearings from up to 8 sensors);
+      both take additive noise and classical rules with diagonal weights or
+      BQ rules with a scalar model variance, what the JAX package's dd engine
+      takes but bearings from more than 8 sensors; anything either refuses
+      raises ``ValueError`` naming the reason.
     - ``"auto"``: ``"dd"`` when the configuration supports it, else ``"f64"``.
 
     The fused results are views in the layout above of time-major streams.

@@ -796,3 +796,95 @@ def test_parallel_scans_and_fit_lie_on_the_card(card):
     lp, losses = fit_kernel_params(gp, np.zeros(2), fo, gp.points, num_steps=5)
     assert lp.device.type == "cuda" and losses.device.type == "cuda"
     assert float(losses[-1]) < float(losses[0])
+
+
+def _general_systems(device):
+    """Model pairs that only the general vector kernel takes."""
+    from ssmtoybox_torch.ssmod import (BearingMeasurement, CoordinatedTurnTransition,
+                                       Pendulum2DTransition, Radar2DMeasurement,
+                                       ReentryVehicle1DTransition)
+    sensors = [[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0], [100.0, 0.0],
+               [0.0, 100.0]]
+
+    def ct():
+        return CoordinatedTurnTransition(
+            GaussRV(5, mean=[100.0, 10.0, 100.0, 5.0, 0.06],
+                    cov=np.diag([10.0, 1.0, 10.0, 1.0, 1e-3]), device=device),
+            GaussRV(5, cov=np.diag([0.1, 0.1, 0.1, 0.1, 1e-5]), device=device), dt=0.1)
+
+    dt = 0.01
+    q = 0.1 * np.array([[dt ** 3 / 3, dt ** 2 / 2], [dt ** 2 / 2, dt]])
+    return {
+        "ct_radar": (ct(), Radar2DMeasurement(GaussRV(2, cov=np.diag([1.0, 1e-4]), device=device),
+                                              dim_state=5, state_index=[0, 2])),
+        "ct_bearing3": (ct(), BearingMeasurement(GaussRV(3, cov=1e-3 * np.eye(3), device=device),
+                                                 dim_state=5, state_index=[0, 2],
+                                                 sensor_pos=sensors[:3])),
+        "pendulum_ungm": (Pendulum2DTransition(GaussRV(2, mean=[1.5, 0.0], cov=0.01 * np.eye(2),
+                                                       device=device),
+                                               GaussRV(2, cov=q, device=device), dt=dt),
+                          UNGMMeasurement(GaussRV(1, cov=0.1, device=device), dim_state=2,
+                                          state_index=[0])),
+        "falling_body_bearing6": (ReentryVehicle1DTransition(
+                                      GaussRV(3, mean=[90.0, 6.0, 1.5], cov=0.09 * np.eye(3),
+                                              device=device),
+                                      GaussRV(3, cov=1e-8 * np.eye(3), device=device), dt=0.1),
+                                  BearingMeasurement(GaussRV(6, cov=1e-3 * np.eye(6),
+                                                             device=device),
+                                                     dim_state=3, sensor_pos=sensors)),
+    }
+
+
+@pytest.mark.parametrize("batch", [1, 7, 257])
+@pytest.mark.parametrize("rule", ["UKF", "CKF"])
+@pytest.mark.parametrize("system", ["ct_radar", "ct_bearing3", "pendulum_ungm",
+                                    "falling_body_bearing6"])
+def test_general_vector_kernel_matches_plain(card, system, rule, batch):
+    """A pair that only the general vector kernel takes: one launch of it,
+    counted on it, equal to the plain version to the bit over 20 steps, a
+    second launch equal to the first."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs = _general_systems(card)[system]
+    alg = (stt.UnscentedKalman if rule == "UKF" else stt.CubatureKalman)(dyn, obs)
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.kernel_of(params) == "vector_filter_general"
+    y = _zoo_records(card, dyn, obs, batch)
+    before, general_before = vf.LAUNCHES, vf.GENERAL_LAUNCHES
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before, vf.GENERAL_LAUNCHES - general_before) == (1, 1)
+    again = vf.vector_filter(params, y.contiguous())
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s
+
+
+@pytest.mark.parametrize("rule", ["gh9", "gh15", "gpq_gh15", "range_ukf", "sine_ukf"])
+def test_general_scalar_form_matches_plain(card, rule):
+    """The scalar kernel's general form (rules of more than 8 points, the
+    range and sine measurements): one launch, counted as a general one,
+    equal to the plain version to the bit over 40 steps."""
+    from ssmtoybox_torch.ssmod import Pendulum2DMeasurement, RangeMeasurement
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=card), GaussRV(1, cov=10.0, device=card))
+    obs = {"range_ukf": RangeMeasurement(GaussRV(1, cov=0.03, device=card), dim_state=1),
+           "sine_ukf": Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=card), dim_state=1)}.get(
+        rule, UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1))
+    alg = {"gh9": lambda: stt.GaussHermiteKalman(dyn, obs, deg=9),
+           "gh15": lambda: stt.GaussHermiteKalman(dyn, obs, deg=15),
+           "gpq_gh15": lambda: stt.GaussianProcessKalman(dyn, obs, KERN_PAR, KERN_PAR, points="gh",
+                                                         point_hyp={"degree": 15})}.get(
+        rule, lambda: stt.UnscentedKalman(dyn, obs))()
+    params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert sf.form_of(params) == "general"
+    gen = torch.Generator(device=card).manual_seed(7)
+    x = dyn.simulate_discrete(gen, steps=40, mc_sims=4097)
+    y = obs.simulate_measurements(gen, x)[0].contiguous()
+    c = torch.as_tensor(sf.ungm_consts(40), device=card)
+    before = (sf.LAUNCHES, sf.GENERAL_LAUNCHES)
+    got = sf.scalar_filter(params, y, c)
+    assert (sf.LAUNCHES - before[0], sf.GENERAL_LAUNCHES - before[1]) == (1, 1)
+    torch.cuda.synchronize()
+    for s, g, r in zip(STREAMS, got, sf._scalar_filter_plain(params, y, c)):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"

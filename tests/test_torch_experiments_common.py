@@ -173,15 +173,16 @@ def test_dd_check_raises_with_the_reason(capsys):
     _, b = port_study("icinco_ungm", TINY["icinco_ungm"])
     ukf = b.algs["UKF"]
     dd_check(ukf.mod_dyn, ukf.mod_obs, ukf.tf_dyn, ukf.tf_obs)
-    gh9 = ssinf.GaussHermiteKalman(b.dyn, b.obs, deg=9)
-    with pytest.raises(ValueError, match="at most 8 points"):
-        dd_check(gh9.mod_dyn, gh9.mod_obs, gh9.tf_dyn, gh9.tf_obs)
+    par = np.array([[1.0, 3.0]])
+    tpq = ssinf.StudentProcessKalman(b.dyn, b.obs, par, par)
+    with pytest.raises(ValueError, match="TPQ"):
+        dd_check(tpq.mod_dyn, tpq.mod_obs, tpq.tf_dyn, tpq.tf_obs)
     x = b.dyn.simulate_discrete(torch.Generator().manual_seed(0), steps=5, mc_sims=3)
     y = b.obs.simulate_measurements(torch.Generator().manual_seed(1), x)
-    rows, _ = common.run_filter_bank({"GH-9": gh9, "UKF": ukf}, y, x, verbose=False,
+    rows, _ = common.run_filter_bank({"TPQKF": tpq, "UKF": ukf}, y, x, verbose=False,
                                      warmup=False, engine="dd")
-    assert {n: r["engine"] for n, r in rows.items()} == {"GH-9": "f64", "UKF": "dd"}
-    assert "GH-9: engine='dd' unsupported (" in capsys.readouterr().err
+    assert {n: r["engine"] for n, r in rows.items()} == {"TPQKF": "f64", "UKF": "dd"}
+    assert "TPQKF: engine='dd' unsupported (" in capsys.readouterr().err
 
 
 def test_studies_need_no_pandas(monkeypatch, capsys):

@@ -327,7 +327,9 @@ def test_supports():
     gh7 = GaussHermiteTransform(1, degree=7)
     assert sf.supports(dyn, obs, gh7, gh7)                            # 7 points <= 8
     gh9 = GaussHermiteTransform(1, degree=9)
-    assert not sf.supports(dyn, obs, gh9, ukf.tf_obs)                 # 9 points > 8
+    assert sf.supports(dyn, obs, gh9, ukf.tf_obs)                     # 9 points: the general form
+    tpq = stt.StudentProcessKalman(dyn, obs, KERN_PAR, KERN_PAR)
+    assert not sf.supports(dyn, obs, tpq.tf_dyn, ukf.tf_obs)          # TPQ
     dense = SigmaPointTransform(ukf.tf_dyn.unit_sp, ukf.tf_dyn.wm, Wc_dense=ukf.tf_dyn.Wc)
     assert not sf.supports(dyn, obs, dense, ukf.tf_obs)               # dense classical
     re = ReentryVehicle2DTransition(GaussRV(5), GaussRV(3))

@@ -228,23 +228,32 @@ def test_auto_engine_falls_back_to_f64_for_vector_states(shared_batch):
 
 
 def test_dd_engine_on_vector_state_names_the_roadmap_item(shared_batch):
-    """A vector-state model pair that the fused kernel has no form of (the
-    reentry dynamics with the UNGM measurement, which the JAX package's dd
-    engine runs) is refused by ``engine="dd"``, naming the ROADMAP entry
-    that lists the difference."""
+    """The one vector-state measurement that the JAX package's dd engine runs
+    and the fused kernels refuse, bearings from more than 8 sensors (ROADMAP
+    queue 3 lists the difference), is refused by ``engine="dd"`` naming the
+    reason."""
     ys, _, _, alg = shared_batch["reentry_ukf"]
-    obs = ssmod.UNGMMeasurement(GaussRV(1, cov=1.0), dim_state=5, state_index=[0])
-    with pytest.raises(ValueError, match=r"no kernel form of UNGMMeasurement \(ROADMAP queue 3\)"):
-        stt.UnscentedKalman(alg.mod_dyn, obs).forward_pass_batch(ys[:, :1], engine="dd")
+    sensors = np.stack([np.linspace(6000.0, 6800.0, 9), np.linspace(-400.0, 400.0, 9)], axis=1)
+    obs = ssmod.BearingMeasurement(GaussRV(9, cov=1e-3 * np.eye(9)), dim_state=5,
+                                   state_index=[0, 1], sensor_pos=sensors)
+    nine = np.repeat(np.asarray(ys)[:, :1], 9, axis=1)
+    with pytest.raises(ValueError, match=r"at most 8 bearing sensors \(its parameters hold R "
+                                         r"up to 8 x 8\); got 9"):
+        stt.UnscentedKalman(alg.mod_dyn, obs).forward_pass_batch(nine, engine="dd")
 
 
 def test_dd_engine_rejects_an_unsupported_scalar_rule():
+    """A 1-D rule that no fused kernel takes, dense classical covariance
+    weights (GH-9, which the scalar kernel's general form runs since it took
+    rules of any point count, was this case before), is refused by
+    ``engine="dd"``; ``engine="auto"`` runs it in float64."""
     dyn, obs = _ungm()
-    from ssmtoybox_torch.mtran import GaussHermiteTransform
-    alg = stt.GaussianInference(dyn, obs, GaussHermiteTransform(1, degree=9),
-                                GaussHermiteTransform(1, degree=9))
+    from ssmtoybox_torch.mtran import GaussHermiteTransform, SigmaPointTransform
+    gh9 = GaussHermiteTransform(1, degree=9)
+    dense = SigmaPointTransform(gh9.unit_sp, gh9.wm, Wc_dense=gh9.Wc)
+    alg = stt.GaussianInference(dyn, obs, dense, dense)
     ys = np.zeros((2, 1, 4))
-    with pytest.raises(ValueError, match="at most 8 points"):
+    with pytest.raises(ValueError, match="diagonal classical weights"):
         alg.forward_pass_batch(ys, engine="dd")
     auto = alg.forward_pass_batch(ys, engine="auto")
     torch.testing.assert_close(auto.fi_mean, alg.forward_pass_batch(ys).fi_mean)

@@ -27,13 +27,15 @@ both take the C library's ``sqrt``, ``exp``, ``sin``, ``cos`` and
 are an ulp off some of their values, which the BQ quadratic form grows to
 ~1e-7 of the covariance.  :func:`vector_filter.supports` gives the answers
 of the JAX package's ``ddvec.dd_supports`` on a table of configurations
-(except the model pairs and bearing counts that the JAX package's dd engine
-runs and the port instantiates no kernel for, ``JAX_ONLY``), and
+(except bearings from more than 8 sensors, which the JAX package's dd
+engine runs and the port's kernels have no room for, ``JAX_ONLY``), and
 :func:`vector_filter.kernel_of` sends the UT and CKF shapes to the shaped
 kernels (classical rules to ``vector_filter_shaped``, a BQ rule on either
 transform to ``vector_filter_shaped_bq``, whose host build
-``tests/test_torch_vector_filter_bq.py`` holds) and Gauss-Hermite and mixed
-point counts to the first version.
+``tests/test_torch_vector_filter_bq.py`` holds), Gauss-Hermite and mixed
+point counts to the first version, and the model pairs those three do not
+instantiate (CT + radar, CT + 3 bearings) to the general kernel, whose host
+build ``tests/test_torch_dd_pairs.py`` holds on more pairs.
 
 Measurements come from a numpy seed: 8 trajectories of 20 steps simulated
 through the port's model functions with numpy noise.
@@ -142,6 +144,7 @@ CT_M0, CT_P0 = np.array([100.0, 10.0, 100.0, 5.0, 0.06]), np.diag([10.0, 1.0, 10
 CT_Q = np.diag([0.1, 0.1, 0.1, 0.1, 1e-5])
 SENSORS = np.array([[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0]])
 GPQ_PEND = np.array([[1.0, 2.0, 2.0]])
+GPQ_CT = np.array([[1.0, 3.0, 3.0, 3.0, 3.0, 3.0]])
 
 
 def _zoo(pkg, rv):
@@ -171,6 +174,9 @@ def _zoo(pkg, rv):
                                                          dim_state=3)),
         "ct_bearing": lambda: (ct(), bearings(4)),
         "ct_bearing3": lambda: (ct(), bearings(3)),
+        "ct_bearing9": lambda: (ct(), new("BearingMeasurement")(
+            rv(9, None, 1e-3 * np.eye(9)), dim_state=5, state_index=[0, 2],
+            sensor_pos=np.vstack((SENSORS, SENSORS + 50.0, [[300.0, 300.0]])))),
         "ct_radar": lambda: (ct(), new("Radar2DMeasurement")(rv(2, None, np.diag([1.0, 1e-4])),
                                                              dim_state=5, state_index=[0, 2])),
         "ungm_na": lambda: (new("UNGMNATransition")(rv(1, np.ones(1), np.eye(1)),
@@ -236,18 +242,23 @@ CONFIGS = {
     "ct_ukf": ("ct_bearing", lambda d, o: stt.UnscentedKalman(d, o),
                lambda d, o: st.UnscentedKalman(d, o), True),
     "ct_bearing3": ("ct_bearing3", lambda d, o: stt.CubatureKalman(d, o),
-                    lambda d, o: st.CubatureKalman(d, o), False),
+                    lambda d, o: st.CubatureKalman(d, o), True),
     "ct_radar": ("ct_radar", lambda d, o: stt.UnscentedKalman(d, o),
-                 lambda d, o: st.UnscentedKalman(d, o), False),
+                 lambda d, o: st.UnscentedKalman(d, o), True),
+    "ct_bearing9": ("ct_bearing9", lambda d, o: stt.CubatureKalman(d, o),
+                    lambda d, o: st.CubatureKalman(d, o), False),
+    "ct_tpq": ("ct_radar", lambda d, o: stt.StudentProcessKalman(d, o, GPQ_CT, GPQ_CT),
+               lambda d, o: st.StudentProcessKalman(d, o, GPQ_CT, GPQ_CT, points="ut"), False),
     "ungm_na": ("ungm_na", lambda d, o: stt.UnscentedKalman(d, o),
                 lambda d, o: st.UnscentedKalman(d, o), False),
     "ctrs": ("ctrs", lambda d, o: stt.UnscentedKalman(d, o),
              lambda d, o: st.UnscentedKalman(d, o), False),
 }
 ADMITTED = sorted(k for k, v in CONFIGS.items() if v[3])
-#: refused by the port's fused engine, run by the JAX package's dd engine: a
-#: model pair without an instantiation, a bearing count other than four
-JAX_ONLY = {"ct_bearing3", "ct_radar"}
+#: refused by the port's fused engine, run by the JAX package's dd engine:
+#: bearings from more than 8 sensors (R is at most 8 x 8 in the kernels'
+#: parameters)
+JAX_ONLY = {"ct_bearing9"}
 SYSTEMS = {"reentry": (_reentry, _reentry_jax), "cv": (_cv, _cv_jax),
            **{name: (ZOO[name], ZOO_JAX[name]) for name in ZOO}}
 
@@ -458,9 +469,8 @@ def test_supports_matches_jax_dd_supports(name):
 @pytest.mark.parametrize("name,reason", [
     ("tpq", "TPQ"), ("bsq_matrix_emv", "scalar model variance"),
     ("ungm_na", "additive noise"), ("ctrs", "additive process and measurement noise"),
-    ("ct_radar", "no instantiation of the model pair CoordinatedTurnTransition \\+ "
-                 "Radar2DMeasurement"),
-    ("ct_bearing3", "instantiated for 4 bearing sensors; got 3")])
+    ("ct_tpq", "TPQ"),
+    ("ct_bearing9", "at most 8 bearing sensors \\(its parameters hold R up to 8 x 8\\); got 9")])
 def test_refused_configurations_route_to_f64(data, name, reason):
     """``engine="auto"`` sends what the kernels refuse to the eager path (the
     same moments to the bit); ``engine="dd"`` raises naming the reason."""
@@ -481,9 +491,16 @@ def test_dense_classical_rules_and_other_models_are_refused():
         vf.check(dyn, obs, dense, ukf.tf_obs)
     with pytest.raises(ValueError, match="transform dimension 4 != expected 5"):
         vf.check(dyn, obs, stt.UnscentedKalman(*_cv()).tf_dyn, ukf.tf_obs)
-    ungm = ssmod.UNGMMeasurement(GaussRV(1), dim_state=5, state_index=[0])
-    with pytest.raises(ValueError, match="no kernel form of UNGMMeasurement"):
-        vf.check(dyn, ungm, ukf.tf_dyn, ukf.tf_obs)
+    class Drift5D(ssmod.TransitionModel):
+        """A model of the user's own, which no kernel has a form of."""
+        dim_state, dim_noise = 5, 5
+
+        def dyn_fcn(self, x, q, time):
+            return x + q
+
+    drift = Drift5D(GaussRV(5), GaussRV(5))
+    with pytest.raises(ValueError, match="no kernel form of Drift5D"):
+        vf.check(drift, obs, ukf.tf_dyn, ukf.tf_obs)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_and_counts_no_launch(data):
@@ -575,7 +592,7 @@ def test_parameter_struct_matches_the_header():
               "Pendulum2DTransition": "DYN_PENDULUM", "ReentryVehicle1DTransition": "DYN_REENTRY1D",
               "CoordinatedTurnTransition": "DYN_CT", "Radar2DMeasurement": "OBS_RADAR",
               "Pendulum2DMeasurement": "OBS_PENDULUM_SIN", "RangeMeasurement": "OBS_RANGE",
-              "BearingMeasurement": "OBS_BEARING"}
+              "BearingMeasurement": "OBS_BEARING", "UNGMMeasurement": "OBS_UNGM"}
     for cls, (model_id, _) in {**vf._DYN_MODELS, **vf._OBS_MODELS}.items():
         assert f"#define VF_{tokens[cls.__name__]} {model_id}" in src
     # the pairs of VF_MODELS are the instantiated pairs of model ids
@@ -596,6 +613,6 @@ def test_shaped_parameter_struct_matches_the_header():
             assert f" {name};" in body or f" {name}[" in body, (struct, name)
     assert f"#define VFS_MAX_DIM {vf._SHAPED_MAX_DIM}" in src
     assert f"#define VFS_MAX_PTS {vf._SHAPED_MAX_PTS}" in src
-    assert ctypes.sizeof(vf._CShapedParams) == 3072 and "3,072 bytes" in src
-    assert "1,840 bytes" in open(vf._build.CSRC + "/vector_filter_step.cuh").read()
-    assert ctypes.sizeof(vf._CParams) == 1840
+    assert ctypes.sizeof(vf._CShapedParams) == 3136 and "3,136 bytes" in src
+    assert "1,904 bytes" in open(vf._build.CSRC + "/vector_filter_step.cuh").read()
+    assert ctypes.sizeof(vf._CParams) == 1904

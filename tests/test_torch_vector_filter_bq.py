@@ -171,7 +171,7 @@ def test_kernel_of_sends_bq_rules_at_the_shaped_counts_to_the_bq_shapes(name, ke
 
 def test_bq_parameter_struct_matches_the_header():
     """The ctypes mirror of ``VfsBqRule`` / ``VfsBqParams`` has the header's
-    fields, in order, and its sizes (2,032 and 5,904 bytes), within the
+    fields, in order, and its sizes (2,032 and 5,968 bytes), within the
     32,764 bytes that a kernel's parameters may take from CUDA 12.1 on (the
     launch's other arguments: 80 bytes)."""
     src = open(vf._build.CSRC + "/vector_filter_shaped.cuh").read()
@@ -181,8 +181,8 @@ def test_bq_parameter_struct_matches_the_header():
               for name, ctype in mirror._fields_]
         assert at == sorted(at), struct
     assert ctypes.sizeof(vf._CShapedBqRule) == 2032 and "2,032 bytes" in src
-    assert ctypes.sizeof(vf._CShapedBqParams) == 5904 and "5,904 bytes" in src
-    assert "sizeof(VfsBqRule) == 2032 && sizeof(VfsBqParams) == 5904" in src
+    assert ctypes.sizeof(vf._CShapedBqParams) == 5968 and "5,968 bytes" in src
+    assert "sizeof(VfsBqRule) == 2032 && sizeof(VfsBqParams) == 5968" in src
     assert ctypes.sizeof(vf._CShapedBqParams) + 128 <= PARAM_LIMIT
     assert f"+ 128 <= {PARAM_LIMIT}" in src
     cu = open(vf._build.CSRC + "/vector_filter_shaped_bq.cu").read()
