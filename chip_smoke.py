@@ -109,8 +109,9 @@ fails at once without them.  Phases, each fatal on failure:
     wrapper launch counted on the kernel ``kernel_of`` names, each batch
     against the plain version's run on all 10,000 (elementwise across
     trajectories: the same bits for a prefix); the general kernel
-    (``csrc/vector_filter_general.cu``, 12 instantiations: D = 2-5 x a bound
-    of 2, 4 or 8 on E) on ``VF_GENERAL_CASES``, the pairs only it takes,
+    (``csrc/vector_filter_general.cu``, 16 instantiations: D = 2-5 x a bound
+    of 2, 4 or 8 on E, or the wide form of bearings from 9-12 sensors) on
+    ``VF_GENERAL_CASES``, the pairs only it takes,
     every instantiation and every pair of rule kinds, at the same batch sizes
     through the wrapper, and by force on the UKF of the five other pairs; it
     fails if an instantiation ran no configuration; two launches on one input
@@ -238,7 +239,24 @@ fails at once without them.  Phases, each fatal on failure:
     plain version to the bit at B = 1, 7, 4,097 and 10,000; raw launches of
     the general kernel by force beside the first version and the shaped
     kernel on the reentry bench lane's UKF, in turns.  To run the general
-    forms' checks alone: ``chip_smoke.dd_pairs_alone()``.
+    forms' checks alone: ``chip_smoke.dd_pairs_alone()``;
+28. "registry": models of a user's own registered in the port's fused
+    kernels, and bearings from more than 8 sensors (``registry_slice``):
+    the libraries of the registered forms built from generated headers
+    (``vector_filter_registered.cu``, ``scalar_filter_registered.cu``, at
+    once, their times and ptxas registers and spills printed); a 1-D
+    transition with a per-step stream and a 1-D measurement (the scalar
+    kernel's registered form, 10,000 x 500), a 2-D one with a stream and a
+    2-output measurement, an 8-D one with the radar and a copy of the
+    table's pendulum with the radar (the registered vector kernel), CT with
+    9 and 16 bearings under CKF (the general kernel's wide form), 10,000 x
+    100; each lane once with the counts from 0 (3 registered, 2 general, 1
+    scalar launch, nothing else), equal to its plain version to the bit (all
+    10,000 trajectories on the 2-D lane, the first 200 elsewhere), its filter
+    RMSE within 1e-6 (1e-3 on the 1-D lane) relative of the eager lane's;
+    raw launches, wrapper, plain and bound; the pendulum copy equal to the
+    table's pendulum in the general kernel to the bit and timed in turns
+    with it.  Alone: ``chip_smoke.registry_alone()``.
 
 Every kernel's entry in the ``kernels`` line carries its launches on the
 paths driven above (each path run with the counts set to 0 first), its
@@ -250,6 +268,7 @@ line before the last is the card's name and power limit; the last line is
 """
 import ctypes
 import json
+import math
 import os
 import re
 import subprocess
@@ -837,13 +856,18 @@ def scalar_filter_shapes(torch, np, dev, dyn, obs, y_tm, c, n_steps=40):
 
 def sf_bound(params, n_steps, batch):
     """Bound of the scalar filter kernel on ``n_steps`` x ``batch``: it reads
-    y and c and writes five streams; a step costs ~10 f64 operations a point
-    for the dynamics, 4 for the measurement, 10 a point for a classical
-    rule's moments or 2 n^2 + 6 n for a BQ rule's, and ~12 for the update."""
+    y and c (a registered transition's n_s streams) and writes five streams;
+    a step costs ~10 f64 operations a point for the dynamics, 4 for the
+    measurement (a registered form's ``form_ops`` and 2 for its point), 10 a
+    point for a classical rule's moments or 2 n^2 + 6 n for a BQ rule's, and
+    ~12 for the update."""
     def moments(rule):
         return 10 * rule.n if rule.kind == 0 else 2 * rule.n ** 2 + 6 * rule.n
-    per_step = 10 * params.dyn.n + 4 * params.obs.n + moments(params.dyn) + moments(params.obs) + 12
-    return bound(6 * n_steps * batch * 8 + n_steps * 8, (n_steps * batch * per_step, F64_OPS_S))
+    dyn = 10 if params.dyn_form is None else form_ops(params.dyn_form) + 2
+    obs = 4 if params.obs_form is None else form_ops(params.obs_form) + 2
+    per_step = dyn * params.dyn.n + obs * params.obs.n + moments(params.dyn) + moments(params.obs) + 12
+    return bound(6 * n_steps * batch * 8 + n_steps * params.n_s * 8,
+                 (n_steps * batch * per_step, F64_OPS_S))
 
 
 def vdm_bound(mul, n):
@@ -1328,13 +1352,21 @@ VF_OBS_OPS = {0: 8, 1: 1, 2: 4, 4: 3}
 VF_BEARING_OPS = 3
 
 
+def form_ops(form) -> int:
+    """f64 operations of a registered model's statements: each arithmetic
+    operator and each call of a math function once."""
+    return (len(re.findall(r"[-+*/]", form.source))
+            + len(re.findall(r"\b(?:sqrt|exp|log|sin|cos|tan|atan2|pow)\s*\(", form.source)))
+
+
 def vf_bound(params, n_steps, batch):
     """Bound of the vector filter kernel on ``n_steps`` x ``batch``: it reads y
-    and writes the five streams (2 D + 3 D^2 doubles a step); its f64
-    operations counted a point (``L xi`` once, though the kernel makes it
-    again for a classical rule's second pass; the mean, the model
-    (:data:`VF_DYN_OPS`, :data:`VF_OBS_OPS`), the moment sums) and a step (the
-    three Cholesky factors, the gain and the update)."""
+    (and a registered transition's streams) and writes the five streams (2 D
+    + 3 D^2 doubles a step); its f64 operations counted a point (``L xi``
+    once, though the kernel makes it again for a classical rule's second
+    pass; the mean, the model (:data:`VF_DYN_OPS`, :data:`VF_OBS_OPS`, a
+    registered form's ``form_ops``), the moment sums) and a step (the three
+    Cholesky factors, the gain and the update)."""
     D, E = params.dim_state, params.dim_out
 
     def per_point(rule, eo, model):
@@ -1346,11 +1378,16 @@ def vf_bound(params, n_steps, batch):
     def chol(n):
         return n * (n + 1) * (n + 2) // 3
 
-    obs_ops = VF_BEARING_OPS * E if params.obs_model == 3 else VF_OBS_OPS[params.obs_model]
+    if params.obs_form is not None:
+        obs_ops = form_ops(params.obs_form)
+    else:
+        obs_ops = VF_BEARING_OPS * E if params.obs_model == 3 else VF_OBS_OPS[params.obs_model]
+    dyn_ops = (form_ops(params.dyn_form) if params.dyn_form is not None
+               else VF_DYN_OPS[params.dyn_model])
     per_step = (2 * chol(D) + chol(E) + 2 * D * D + 4 * D * E * E + 2 * D * D * E
-                + params.dyn.n * per_point(params.dyn, D, VF_DYN_OPS[params.dyn_model])
+                + params.dyn.n * per_point(params.dyn, D, dyn_ops)
                 + params.obs.n * per_point(params.obs, E, obs_ops))
-    n_bytes = batch * n_steps * (E + 2 * D + 3 * D * D) * 8
+    n_bytes = (batch * n_steps * (E + 2 * D + 3 * D * D) + n_steps * params.n_s) * 8
     return bound(n_bytes, (batch * n_steps * per_step, F64_OPS_S))
 
 
@@ -1383,9 +1420,10 @@ def vf_raw(torch, vf, params, y, dev, kernel=None):
     into buffers made once (``launch.out``, the five streams); for
     ``raw_ms``.  ``kernel``: ``"vector_filter"`` (the first version, which
     takes every configuration of its five model pairs),
-    ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"`` or
-    ``"vector_filter_general"`` (every configuration); by default the one the
-    wrapper picks."""
+    ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"``,
+    ``"vector_filter_general"`` (every configuration of the table's models)
+    or ``"vector_filter_registered"`` (a registered model); by default the
+    one the wrapper picks."""
     lib = vf.build()
     B, _, T = y.shape
     kernel = kernel or vf.kernel_of(params)
@@ -1394,7 +1432,15 @@ def vf_raw(torch, vf, params, y, dev, kernel=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, dev.index or 0,
             *(o.data_ptr() for o in out))
-    if kernel == "vector_filter_shaped":
+    if kernel == "vector_filter_registered":
+        lib_r, pair = vf._registered(params, host=False)
+        s, scratch = vf._streams_on(params, T, dev), vf._scratch(params, B, dev)
+
+        def launch():
+            return lib_r.vfr_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
+                                    s.data_ptr(), params.n_s, B, T, dev.index or 0,
+                                    *(o.data_ptr() for o in out), scratch.data_ptr(), stream)
+    elif kernel == "vector_filter_shaped":
         def launch():
             return lib.vfs_launch(*args, stream)
     elif kernel == "vector_filter_shaped_bq":
@@ -1412,21 +1458,23 @@ def vf_raw(torch, vf, params, y, dev, kernel=None):
 
 #: the vector filter kernels' entries of the ``kernels`` line, by name
 VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq",
-              "vector_filter_general")
+              "vector_filter_general", "vector_filter_registered")
 
 
 def vf_counts(vf):
     """The launches of each vector filter kernel since the counts were last
     set to 0."""
     return {"vector_filter": (vf.LAUNCHES - vf.SHAPED_LAUNCHES - vf.BQ_SHAPED_LAUNCHES
-                              - vf.GENERAL_LAUNCHES),
+                              - vf.GENERAL_LAUNCHES - vf.REGISTERED_LAUNCHES),
             "vector_filter_shaped": vf.SHAPED_LAUNCHES,
             "vector_filter_shaped_bq": vf.BQ_SHAPED_LAUNCHES,
-            "vector_filter_general": vf.GENERAL_LAUNCHES}
+            "vector_filter_general": vf.GENERAL_LAUNCHES,
+            "vector_filter_registered": vf.REGISTERED_LAUNCHES}
 
 
 def vf_zero(vf):
     vf.LAUNCHES = vf.SHAPED_LAUNCHES = vf.BQ_SHAPED_LAUNCHES = vf.GENERAL_LAUNCHES = 0
+    vf.REGISTERED_LAUNCHES = 0
 
 
 def only(kernel, n=1):
@@ -1488,10 +1536,11 @@ def vf_rule_pairs(stt, np, systems):
 def vf_instantiation(kernel, params):
     """The template arguments of the instantiation of ``kernel`` that runs
     ``params``: (D, dynamics, kinds of both rules, N; N "any" for the first
-    version); for the general kernel (D, the bound on E)."""
+    version); for the general kernel (D, the bound on E, 0 for the wide
+    form)."""
     if kernel == "vector_filter_general":
         E = params.dim_out
-        return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8)
+        return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0)
     return (kernel, params.dim_state, params.dyn_model, params.dyn.kind, params.obs.kind,
             "any" if kernel == "vector_filter" else params.dyn.n)
 
@@ -1500,9 +1549,10 @@ def vf_all_instantiations(vf):
     """Every instantiation of the four sources, as ``vf_instantiation``
     names them: the first version's 4 kinds of each model pair (20), the
     classical shaped kernel's 2 point counts (10), the BQ shapes' 3 kinds x 2
-    counts (30), the general kernel's state dimensions x bounds on E (12)."""
+    counts (30), the general kernel's state dimensions x bounds on E (16,
+    the wide form's four among them)."""
     dims = {0: 5, 1: 4, 2: 2, 3: 3, 4: 5}
-    out = {("vector_filter_general", D, eb) for D in (2, 3, 4, 5) for eb in (2, 4, 8)}
+    out = {("vector_filter_general", D, eb) for D in (2, 3, 4, 5) for eb in (2, 4, 8, 0)}
     for dyn, D in dims.items():
         for kd in (0, 1):
             for ko in (0, 1):
@@ -1834,9 +1884,11 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     return entries
 
 
-#: eight bearing sensors: the zoo's four (``ZOO_SENSORS``) and four more between them
+#: twelve bearing sensors: the zoo's four (``ZOO_SENSORS``), four more between
+#: them and four beyond them
 GEN_SENSORS = [[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0], [100.0, 0.0],
-               [0.0, 100.0], [200.0, 100.0], [100.0, 200.0]]
+               [0.0, 100.0], [200.0, 100.0], [100.0, 200.0], [300.0, 0.0], [0.0, 300.0],
+               [300.0, 300.0], [300.0, 100.0]]
 
 
 def general_systems(np, dev):
@@ -1845,7 +1897,7 @@ def general_systems(np, dev):
     (``zoo_systems``, ``reentry_system``; constant velocity of the CV glint
     study) with the radar (noise diag(1, 1e-4), the CT radar of
     ``tests/test_torch_vector_filter.py:146-180``), the sine, the range, the
-    UNGM measurement of state component 0, and bearings from 1-8 sensors
+    UNGM measurement of state component 0, and bearings from 1-12 sensors
     (``GEN_SENSORS``; on the pendulum scaled to its angle and rate)."""
     from ssmtoybox_torch import ssmod
     from ssmtoybox_torch.utils import GaussRV
@@ -1884,13 +1936,15 @@ def general_systems(np, dev):
              ("pendulum", "8 bearings"), ("falling body", "sine"), ("falling body", "4 bearings"),
              ("falling body", "6 bearings"), ("CV", "2 bearings"), ("CV", "3 bearings"),
              ("CV", "8 bearings"), ("CT", "radar"), ("CT", "2 bearings"), ("CT", "3 bearings"),
-             ("CT", "8 bearings"), ("reentry", "range"), ("reentry", "UNGM")]
+             ("CT", "8 bearings"), ("reentry", "range"), ("reentry", "UNGM"),
+             ("pendulum", "9 bearings"), ("falling body", "10 bearings"), ("CV", "12 bearings"),
+             ("CT", "9 bearings")]
     return {f"{d} + {o}": (dyns[d], obs(d, o)) for d, o in pairs}
 
 
 #: phase 15's rules on the pairs of the general kernel: (pair, dynamics rule,
-#: measurement rule), every instantiation (D, bound on E) and every pair of
-#: rule kinds
+#: measurement rule), every instantiation (D, bound on E, the wide form of
+#: more than 8 outputs) and every pair of rule kinds
 VF_GENERAL_CASES = [
     ("pendulum + radar", "UKF", "UKF"), ("pendulum + radar", "GPQ-UT", "GPQ-UT"),
     ("pendulum + UNGM", "CKF", "CKF"), ("pendulum + 3 bearings", "UKF", "UKF"),
@@ -1901,7 +1955,9 @@ VF_GENERAL_CASES = [
     ("CT + radar", "UKF", "UKF"), ("CT + radar", "GH-3", "GH-3"),
     ("CT + 3 bearings", "CKF", "CKF"), ("CT + 8 bearings", "CKF", "CKF"),
     ("CT + 8 bearings", "UKF", "GPQ-UT"), ("reentry + range", "UKF", "UKF"),
-    ("reentry + UNGM", "CKF", "CKF")]
+    ("reentry + UNGM", "CKF", "CKF"), ("pendulum + 9 bearings", "UKF", "UKF"),
+    ("falling body + 10 bearings", "CKF", "GPQ-UT"), ("CV + 12 bearings", "GPQ-UT", "GPQ-UT"),
+    ("CT + 9 bearings", "CKF", "CKF")]
 
 
 def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule):
@@ -2153,19 +2209,29 @@ DD_PLAIN_B, DD_SHAPE_STEPS = 200, 40
 
 
 def sf_raw(torch, sf, params, y, c, dev):
-    """A launch of the scalar filter kernel's general form straight through
-    its C entry point, into buffers made once (``launch.out``); for
-    ``raw_ms``."""
-    lib = sf.build()
+    """A launch of the scalar filter kernel's general form (or its
+    registered form, for a registered model) straight through its C entry
+    point, into buffers made once (``launch.out``); for ``raw_ms``."""
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=torch.float64, device=dev)
-    cg, scratch = sf._c_general_params(params, dev), sf._scratch(params, B, dev)
+    scratch = sf._scratch(params, B, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = [out[i].data_ptr() for i in range(5)]
+    if sf.form_of(params) == "registered":
+        lib, pair = sf._registered(params, host=False)
+        cr = sf._c_registered_params(params, dev)
 
-    def launch():
-        return lib.sfg_launch(ctypes.byref(cg), y.data_ptr(), y.stride(0), y.stride(1),
-                              c.data_ptr(), B, N, dev.index or 0,
-                              *(out[i].data_ptr() for i in range(5)), scratch.data_ptr(), stream)
+        def launch():
+            return lib.sfr_launch(pair, ctypes.byref(cr), y.data_ptr(), y.stride(0), y.stride(1),
+                                  c.data_ptr(), params.n_s, B, N, dev.index or 0, *outs,
+                                  scratch.data_ptr(), stream)
+    else:
+        lib, cg = sf.build(), sf._c_general_params(params, dev)
+
+        def launch():
+            return lib.sfg_launch(ctypes.byref(cg), y.data_ptr(), y.stride(0), y.stride(1),
+                                  c.data_ptr(), B, N, dev.index or 0, *outs, scratch.data_ptr(),
+                                  stream)
     launch.out = out
     return launch
 
@@ -2346,6 +2412,376 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     log(f"dd pairs phase: {time.perf_counter() - t27:.1f} s; libraries built in "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()) + f"; card: {card_line()}")
     return entry, sf_launches[1], err["scalar_filter"]
+
+
+#: phase 28: the vector lanes' steps, the scalar lane's, and the bearing
+#: sensors of the wide lanes (16 on a circle about the turning target's start)
+REG_STEPS, REG_SCALAR_STEPS = 100, 500
+REG_SENSORS = [[100.0 + 150.0 * math.cos(0.2 + 2 * math.pi * i / 16),
+                100.0 + 150.0 * math.sin(0.2 + 2 * math.pi * i / 16)] for i in range(16)]
+
+
+def registry_systems(np, dev):
+    """Phase 28's systems, by lane name: (dynamics, measurement) on ``dev``.
+    Models of a user's own, each registered in the port with a
+    :class:`ssmtoybox_torch.ops.KernelForm` (C++ statements, constants and
+    the plain PyTorch version, the statements in the plain version's order):
+
+    - ``growth``: ``a x + b x / (1 + x^2) + 2 cos(0.7 t)``, its cosine a
+      per-step stream, with ``x + 0.5 sin(x)``, both through the scalar
+      registry (``register_dyn_dd`` / ``register_obs_dd``): the scalar filter
+      kernel's registered form;
+    - ``driven pendulum + mix``: ``[x0 + dt x1, x1 - w dt sin(x0) + dt u_t]``,
+      ``u_t = 0.5 sin(0.1 t)`` a per-step stream, with the two outputs
+      ``[b^2 + 0.5 a, sin(a) + 0.2 b]`` of the components (b, a) its
+      ``state_index`` (1, 0) picks (``register_dyn_dd_vec`` /
+      ``register_obs_dd_vec``);
+    - ``chain 8-D + radar``: four coupled pendulums (8 states) with the
+      table's radar of components 0 and 2;
+    - ``pendulum copy + radar``: a subclass of ``Pendulum2DTransition``
+      registered with the statements of ``VfDyn<VF_DYN_PENDULUM>``, with the
+      radar; ``pendulum + radar`` is the same system with the table's
+      pendulum (the general kernel);
+    - ``CT + 9 bearings`` and ``CT + 16 bearings``: the zoo's coordinated turn
+      with bearings from ``REG_SENSORS`` (the general kernel's wide form).
+
+    A registration replaces an earlier one of its class, so calling this
+    again is harmless."""
+    import torch
+    from ssmtoybox_torch import ssmod
+    from ssmtoybox_torch.ops import (KernelForm, register_dyn_dd, register_dyn_dd_vec,
+                                     register_obs_dd, register_obs_dd_vec)
+    from ssmtoybox_torch.utils import GaussRV
+
+    class Growth1D(ssmod.TransitionModel):
+        dim_state, dim_noise = 1, 1
+        A, B = 0.5, 5.0
+
+        def dyn_fcn(self, x, q, time):
+            return self.A * x + self.B * (x / (1.0 + x * x)) + 2.0 * math.cos(0.7 * time) + q
+
+    class Sat1D(ssmod.MeasurementModel):
+        dim_substate, dim_out, dim_noise = 1, 1, 1
+
+        def meas_fcn(self, x, r, time):
+            return 1.0 * x + 0.5 * torch.sin(x) + r
+
+    class DrivenPendulum(ssmod.TransitionModel):
+        dim_state, dim_noise = 2, 2
+        DT, W = 0.05, 4.0
+
+        def dyn_fcn(self, x, q, time):
+            x0, x1 = x.unbind(-1)
+            u = 0.5 * math.sin(0.1 * time)
+            return torch.stack([x0 + self.DT * x1,
+                                x1 - (self.W * self.DT) * torch.sin(x0) + self.DT * u], -1) + q
+
+    class Mix2(ssmod.MeasurementModel):
+        dim_substate, dim_out, dim_noise = 2, 2, 2
+
+        def meas_fcn(self, x, r, time):
+            a, b = x[..., 0], x[..., 1]
+            return torch.stack([a * a + 0.5 * b, torch.sin(b) + 0.2 * a], -1) + r
+
+    class Chain8D(ssmod.TransitionModel):
+        dim_state, dim_noise = 8, 8
+        DT, W, K = 0.05, 2.0, 0.5
+
+        def dyn_fcn(self, x, q, time):
+            p, v = x[..., 0::2], x[..., 1::2]
+            nxt = torch.roll(p, -1, dims=-1)
+            f = torch.stack([p + self.DT * v,
+                             v - self.DT * (self.W * torch.sin(p) - self.K * (nxt - p))], -1)
+            return f.reshape(x.shape) + q
+
+    class PendulumCopy(ssmod.Pendulum2DTransition):
+        pass
+
+    register_dyn_dd(Growth1D, lambda m, n: 2.0 * np.cos(0.7 * np.arange(n)), KernelForm(
+        "f[0] = c[0] * x[0] + c[1] * (x[0] / (1.0 + x[0] * x[0])) + s[0];",
+        (Growth1D.A, Growth1D.B), lambda x, c, s, fns: c[0] * x + c[1] * (x / (1.0 + x * x)) + s[0]))
+    register_obs_dd(Sat1D, KernelForm("h[0] = c[0] * x[0] + c[1] * sin(x[0]);", (1.0, 0.5),
+                                      lambda x, c, fns: c[0] * x + c[1] * fns.sin(x)))
+
+    def driven(model, n_steps):
+        def plain(x, c, s, fns):
+            x0, x1 = x.unbind(-1)
+            return torch.stack([x0 + c[0] * x1, x1 - c[1] * fns.sin(x0) + c[0] * s[0]], -1)
+        return [0.5 * np.sin(0.1 * np.arange(n_steps))], KernelForm(
+            "f[0] = x[0] + c[0] * x[1];\nf[1] = x[1] - c[1] * sin(x[0]) + c[0] * s[0];",
+            (model.DT, model.W * model.DT), plain)
+
+    def mix(model):
+        i, j = model.state_index
+
+        def plain(x, c, fns):
+            a, b = x[..., i], x[..., j]
+            return torch.stack([a * a + c[0] * b, fns.sin(b) + c[1] * a], -1)
+        return KernelForm(f"h[0] = x[{i}] * x[{i}] + c[0] * x[{j}];\n"
+                          f"h[1] = sin(x[{j}]) + c[1] * x[{i}];", (0.5, 0.2), plain)
+
+    def chain(model, n_steps):
+        lines = []
+        for i in range(4):
+            p, v, nxt = 2 * i, 2 * i + 1, 2 * ((i + 1) % 4)
+            lines += [f"f[{p}] = x[{p}] + c[0] * x[{v}];",
+                      f"f[{v}] = x[{v}] - c[0] * (c[1] * sin(x[{p}]) - c[2] * (x[{nxt}] - x[{p}]));"]
+
+        def plain(x, c, s, fns):
+            p, v = x[..., 0::2], x[..., 1::2]
+            nxt = torch.roll(p, -1, dims=-1)
+            f = torch.stack([p + c[0] * v, v - c[0] * (c[1] * fns.sin(p) - c[2] * (nxt - p))], -1)
+            return f.reshape(x.shape)
+        return [], KernelForm("\n".join(lines), (model.DT, model.W, model.K), plain)
+
+    def pendulum(model, n_steps):
+        def plain(x, c, s, fns):
+            x0, x1 = x.unbind(-1)
+            return torch.stack([x0 + x1 * c[0], x1 - c[1] * fns.sin(x0)], -1)
+        return [], KernelForm("f[0] = x[0] + x[1] * c[0];\nf[1] = x[1] - c[1] * sin(x[0]);",
+                              (model.dt, model.g * model.dt), plain)
+
+    register_dyn_dd_vec(DrivenPendulum, driven)
+    register_obs_dd_vec(Mix2, mix)
+    register_dyn_dd_vec(Chain8D, chain)
+    register_dyn_dd_vec(PendulumCopy, pendulum)
+
+    def rv(d, mean, cov):
+        return GaussRV(d, mean=mean, cov=cov, device=dev)
+
+    def radar(D, loc):
+        return ssmod.Radar2DMeasurement(rv(2, None, np.diag([0.01, 1e-3])), dim_state=D,
+                                        state_index=[0, 2] if D >= 4 else [0, 1],
+                                        radar_loc=np.array(loc))
+
+    def pend(cls):
+        return cls(rv(2, np.array([1.5, 0.0]), 0.01 * np.eye(2)), rv(2, None, 1e-4 * np.eye(2)),
+                   dt=0.01)
+
+    ct = zoo_systems(np, dev)["CT + 4 bearings"][0]
+
+    def bearings(S):
+        return ssmod.BearingMeasurement(rv(S, None, 1e-3 * np.eye(S)), dim_state=5,
+                                        state_index=[0, 2], sensor_pos=REG_SENSORS[:S])
+
+    return {
+        "growth": (Growth1D(rv(1, np.zeros(1), np.eye(1)), rv(1, None, np.eye(1))),
+                   Sat1D(rv(1, None, 0.1 * np.eye(1)), dim_state=1)),
+        "driven pendulum + mix": (DrivenPendulum(rv(2, np.array([1.0, 0.0]), 0.1 * np.eye(2)),
+                                                 rv(2, None, 1e-3 * np.eye(2))),
+                                  Mix2(rv(2, None, 0.05 * np.eye(2)), dim_state=2,
+                                       state_index=[1, 0])),
+        "chain 8-D + radar": (Chain8D(rv(8, np.tile([0.5, 0.0], 4), 0.05 * np.eye(8)),
+                                      rv(8, None, 1e-4 * np.eye(8))), radar(8, [-3.0, -3.0])),
+        "pendulum copy + radar": (pend(PendulumCopy), radar(2, [-2.0, -2.0])),
+        "pendulum + radar": (pend(ssmod.Pendulum2DTransition), radar(2, [-2.0, -2.0])),
+        "CT + 9 bearings": (ct, bearings(9)),
+        "CT + 16 bearings": (ct, bearings(16)),
+    }
+
+
+#: phase 28's lanes: (system, rule, kernel, steps); the first vector lane is
+#: held against its plain version on all of its trajectories
+REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
+             ("driven pendulum + mix", "UKF", "vector_filter_registered", REG_STEPS),
+             ("chain 8-D + radar", "CKF", "vector_filter_registered", REG_STEPS),
+             ("pendulum copy + radar", "UKF", "vector_filter_registered", REG_STEPS),
+             ("CT + 9 bearings", "CKF", "vector_filter_general", REG_STEPS),
+             ("CT + 16 bearings", "CKF", "vector_filter_general", REG_STEPS)]
+
+
+def registry_slice(torch, np, dev):
+    """Phase 28, "registry": models of a user's own registered in the port's
+    fused kernels, and bearings from more than 8 sensors, at full width
+    (``REG_LANES``, systems of ``registry_systems``, 10,000 trajectories
+    simulated from the seed, ``REG_STEPS`` steps, ``REG_SCALAR_STEPS`` on the
+    1-D lane).  First the libraries of the registered forms are built, the
+    vector lanes' and the scalar lane's at once (their build times and each
+    instantiation's ptxas registers and spills printed).  Then every lane
+    once through ``engine="dd"`` with the counts set to 0: three launches of
+    the registered vector kernel, two of the general kernel, one of the
+    scalar kernel's registered form, nothing else.  Each lane: every stream
+    of its first ``DD_PLAIN_B`` trajectories (all on the 2-D lane) equal to
+    its plain version's to the bit; filter RMSE within 1e-6 relative (1e-3 on
+    the 1-D lane) of the eager f64 lane's, at most 1% not finite; raw
+    launches, the wrapper's and the plain version's time, the bound
+    (``vf_bound`` / ``sf_bound``).  The pendulum copy's streams equal the
+    table pendulum's in the general kernel on the same data, to the bit, and
+    the two are timed in turns (raw launches).  Returns the entry of
+    ``vector_filter_registered`` for the ``kernels`` line and the scalar
+    kernel's launches and largest |diff| on this phase."""
+    import ssmtoybox_torch as stt
+    from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
+
+    t28 = time.perf_counter()
+    systems = registry_systems(np, dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    algs, data, params = {}, {}, {}
+    for name, rule, _, steps in REG_LANES + [("pendulum + radar", "UKF", None, REG_STEPS)]:
+        dyn, obs = systems[name]
+        algs[name] = (stt.UnscentedKalman if rule == "UKF" else stt.CubatureKalman)(dyn, obs)
+        lowering = sf if dyn.dim_state == 1 else vf
+        params[name] = lowering.prepare(dyn, obs, algs[name].tf_dyn, algs[name].tf_obs)
+        if name != "pendulum + radar":
+            x = dyn.simulate_discrete(gen, steps=steps, mc_sims=MC)
+            data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
+    data["pendulum + radar"] = data["pendulum copy + radar"]
+    torch.cuda.synchronize()
+
+    # ---- the registered forms' libraries, built at once -------------------------
+    t0 = time.perf_counter()
+    vec = [params[n] for n, _, k, _ in REG_LANES if k == "vector_filter_registered"]
+
+    def timed(build, configs):
+        return build(configs), time.perf_counter() - t0
+    with ThreadPoolExecutor(2) as pool:
+        v_job = pool.submit(timed, vf.build_registered, vec)
+        s_job = pool.submit(timed, sf.build_registered, [params["growth"]])
+        (v_name, v_s), (s_name, s_s) = v_job.result(), s_job.result()
+    log(f"registry: built vector_filter_registered.cu ({len(vec)} configurations) in {v_s:.1f} s "
+        f"and scalar_filter_registered.cu (1) in {s_s:.1f} s, at once, from generated headers")
+    ptxas = {}
+    for name, _, kernel, _ in REG_LANES:
+        p = params[name]
+        if kernel == "scalar_filter":
+            text, fn = _build.BUILD_LOGS.get(s_name, ""), f"SfrPair{sf._registered(p, False)[1]}E"
+        elif kernel == "vector_filter_registered":
+            text, fn = _build.BUILD_LOGS.get(v_name, ""), f"VfrPair{vf._registered(p, False)[1]}E"
+        else:
+            text, fn = _build.BUILD_LOGS.get("vector_filter", ""), (
+                f"vector_filter_general_kernelILi{p.dim_state}ELi0E")
+        ptxas[name] = ptxas_of(text, fn)
+        log(f"  ptxas {name}: {ptxas[name][0]} registers, {ptxas[name][1]} bytes stack frame, "
+            f"{ptxas[name][2]} bytes spill stores ({fn})")
+
+    # ---- the path: every lane once, the counts from 0 ----------------------------
+    sf.LAUNCHES = sf.GENERAL_LAUNCHES = sf.REGISTERED_LAUNCHES = 0
+    vf_zero(vf)
+    results = {}
+    for name, _, _, _ in REG_LANES:
+        results[name] = algs[name].forward_pass_batch(data[name][1], engine="dd")
+    torch.cuda.synchronize()
+    vf_launches = vf_counts(vf)
+    sf_launches = (sf.LAUNCHES, sf.GENERAL_LAUNCHES, sf.REGISTERED_LAUNCHES)
+    want = {k: {"vector_filter_registered": 3, "vector_filter_general": 2}.get(k, 0)
+            for k in VF_KERNELS}
+    if vf_launches != want or sf_launches != (1, 0, 1):
+        fail(f"registry path: vector filter launches {vf_launches}, scalar filter launches (all, "
+             f"general, registered) {sf_launches}; expected {want} and (1, 0, 1)")
+    log(f"registry path: vector filter launches {vf_launches}; scalar filter launches "
+        f"{sf_launches[0]}, of the registered form")
+
+    # ---- each lane: plain version, eager lane, scores, times -------------------------
+    err = {"vector_filter_registered": 0.0, "vector_filter_general": 0.0, "scalar_filter": 0.0}
+    entry = None
+    for name, rule, kernel, steps in REG_LANES:
+        x_true, ys = data[name]
+        res, p = results[name], params[name]
+        M, E, N = ys.shape
+        scalar = kernel == "scalar_filter"
+        head_b = MC if name == "driven pendulum + mix" else DD_PLAIN_B
+        if scalar:
+            y_tm = ys[:, 0, :].T.contiguous()
+            c = sf.step_consts(p, N, dev)
+            p_ms, plain = event_ms(torch, lambda: sf._scalar_filter_plain(
+                p, y_tm[:, :head_b].contiguous(), c))
+            got = (res.fi_mean[:head_b, 0].T, res.fi_cov[:head_b, 0, 0].T,
+                   res.pr_mean[:head_b, 0].T, res.pr_cov[:head_b, 0, 0].T,
+                   res.pr_xx_cov[:head_b, 0, 0].T)
+            diff = max(float((a - b).nan_to_num().abs().max()) for a, b in zip(got, plain))
+            if not all(same_bits(torch, a, b) for a, b in zip(got, plain)):
+                fail(f"registry {name} {rule}: the kernel's streams differ from the plain "
+                     f"version's on {head_b} trajectories, max |diff| {diff:.3e}")
+            err[kernel] = max(err[kernel], diff)
+        else:
+            p_ms, plain = event_ms(torch, lambda: vf._vector_filter_plain(p, ys[:head_b]))
+            head = stt.FilterResult(*(getattr(res, f)[:head_b] for f in
+                                      ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")))
+            err[kernel] = max(err[kernel], vf_against_plain(
+                torch, head, plain, f"registry {name} {rule}, first {head_b} trajectories"))
+        del plain
+        ref = algs[name].forward_pass_batch(ys, engine="f64")
+        (r_fi, lost), (e_fi, e_lost) = (finite_rmse(torch, x_true, res.fi_mean),
+                                        finite_rmse(torch, x_true, ref.fi_mean))
+        r_sm = finite_rmse(torch, x_true, stt.gaussian_smoother(res)[0])[0]
+        rel, limit = abs(r_fi - e_fi) / e_fi, 1e-3 if scalar else 1e-6
+        log(f"registry {name} {rule} ({M}x{N}, {kernel}"
+            f"{' registered form' if scalar else ''}): == plain version to the bit on {head_b} "
+            f"trajectories, all five streams; RMSE filter {r_fi:.9f}, smoother {r_sm:.9f} (eager "
+            f"f64: filter {e_fi:.9f}; relative {rel:.2e}, limit {limit}); not finite "
+            f"{lost:.2%} (eager {e_lost:.2%}, limit 1%)")
+        if not (rel <= limit and lost <= 0.01):
+            fail(f"registry {name}: filter RMSE of dd and f64 differ by {rel:.3e} relative, or "
+                 f"{lost:.2%} of the runs are not finite")
+        del ref
+        if scalar:
+            raw = raw_ms(torch, sf_raw(torch, sf, p, y_tm, c, dev))
+            k_ms = cuda_ms(torch, lambda: sf.scalar_filter(p, y_tm, c))
+            b_ms, b_by = sf_bound(p, N, M)
+        else:
+            raw = raw_ms(torch, vf_raw(torch, vf, p, ys, dev))
+            k_ms = cuda_ms(torch, lambda: vf.vector_filter(p, ys))
+            b_ms, b_by = vf_bound(p, N, M)
+        regs, frame, spill = ptxas[name]
+        log(f"  {kernel} <D={p.dim_state if not scalar else 1}, E={E}, N={p.dyn.n}/{p.obs.n}> "
+            f"raw launches {raw:.4f} ms a launch (CUDA events around 20 behind "
+            f"torch.cuda._sleep); wrapper call {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}); plain "
+            f"version {p_ms:.1f} ms on {head_b} trajectories; bound {b_ms:.4f} ms ({b_by}); "
+            f"{regs} registers, {spill} bytes spilled")
+        if name == "driven pendulum + mix":
+            entry = {"launches": vf_launches["vector_filter_registered"], "ms": k_ms[0],
+                     "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
+    # ---- the pendulum copy against the table's pendulum in the general kernel ----------
+    p_copy, p_table = params["pendulum copy + radar"], params["pendulum + radar"]
+    ys = data["pendulum copy + radar"][1]
+    if vf.kernel_of(p_table) != "vector_filter_general":
+        fail(f"the table's pendulum with the radar runs in {vf.kernel_of(p_table)}")
+    copy_run, table_run = vf_raw(torch, vf, p_copy, ys, dev), vf_raw(torch, vf, p_table, ys, dev)
+    turns = {"registered copy": [], "table (general)": []}
+    for who in ("registered copy", "table (general)", "table (general)", "registered copy"):
+        turns[who].append(raw_ms(torch, copy_run if who == "registered copy" else table_run))
+    torch.cuda.synchronize()
+    diff = max(float((a - b).nan_to_num().abs().max())
+               for a, b in zip(copy_run.out, table_run.out))
+    if not all(same_bits(torch, a, b) for a, b in zip(copy_run.out, table_run.out)):
+        fail(f"the registered pendulum copy differs from the table's pendulum in the general "
+             f"kernel on {ys.shape[0]} trajectories, max |diff| {diff:.3e}; expected equal bits")
+    log(f"registered pendulum copy == the table's pendulum in the general kernel to the bit, "
+        f"{ys.shape[0]}x{ys.shape[-1]}, all five streams; raw launches in turns: "
+        + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms" for k, v in turns.items()))
+    entry["max_abs_err"] = err["vector_filter_registered"]
+    log(f"registry phase: {time.perf_counter() - t28:.1f} s; card: {card_line()}")
+    return entry, sf_launches[2], err["scalar_filter"], vf_launches["vector_filter_general"], \
+        err["vector_filter_general"]
+
+
+def registry_alone():
+    """Phase 28 alone: the scalar and vector filter libraries built first (at
+    once, their times printed), then ``registry_slice``: ``python3 -c
+    "import chip_smoke; chip_smoke.registry_alone()"``."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from ssmtoybox_torch.ops import scalar_filter as sf, vector_filter as vf
+
+    if not torch.cuda.is_available():
+        fail("registry_alone: no CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    log(f"card: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(2) as pool:
+        for job in [pool.submit(lib.build) for lib in (sf, vf)]:
+            job.result()
+    log(f"built scalar_filter.cu and the four vector filter sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    entry, sf_reg, sf_err, general, g_err = registry_slice(torch, np, dev)
+    log(f"registry_alone: registered entry {json.dumps(entry)}; scalar registered launches "
+        f"{sf_reg}, max |diff| {sf_err:.3e}; general launches {general}, max |diff| "
+        f"{g_err:.3e}; {time.perf_counter() - t0:.1f} s; card: {card_line()}")
 
 
 #: the classical phase: steps a lane, trajectories held against the CPU,
@@ -4625,6 +5061,11 @@ def main():
     general["launches"] += checked["launches"]
     general["max_abs_err"] = max(general["max_abs_err"], checked["max_abs_err"])
     vf_entries["vector_filter_general"] = general
+    registered, reg_sf_launches, reg_sf_err, reg_general, reg_general_err = registry_slice(
+        torch, np, dev)
+    general["launches"] += reg_general
+    general["max_abs_err"] = max(general["max_abs_err"], reg_general_err)
+    vf_entries["vector_filter_registered"] = registered
     classical_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re), glint)
     rest = bq_rest_slice(torch, np, dev, (dyn, obs, xs, ys), (dyn_re, obs_re, xs_re, ys_re),
                          glint)
@@ -4646,8 +5087,9 @@ def main():
         "name": "scalar_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
         "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37",
         "launches": (launches + bsq_sf_launches + rest["scalar_filter"] + studies["scalar_filter"]
-                     + dd_sf_launches),
-        "max_abs_err": max(max_err, dd_sf_err), "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     + dd_sf_launches + reg_sf_launches),
+        "max_abs_err": max(max_err, dd_sf_err, reg_sf_err), "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None}] + student + [vdm_entry] + [{
         "name": k, "route": "cuda", "source": f"ssmtoybox_torch/csrc/{k}.cu",
         "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **entry} for k, entry in vf_entries.items()]}

@@ -43,7 +43,9 @@
 // point count, both kinds and the measurement are read at run time (the same
 // in every thread of a launch, so no branch diverges); the rules are read
 // from device memory and the function values go through a scratch buffer
-// interleaved by trajectory.  ops/scalar_filter.py sends a configuration to
+// interleaved by trajectory.  Its step takes the models as functors
+// (sfg_record): scalar_filter_registered.cu runs it on models registered at
+// run time.  ops/scalar_filter.py sends a configuration to
 // the shaped instantiations whenever they take it (UNGM measurement, at most
 // SF_MAX_PTS points), so the main path keeps its kernel.
 //
@@ -156,19 +158,8 @@ scalar_filter_general_kernel(const __grid_constant__ SfgParams p, const double* 
                              int B, int n_steps, const Streams out, double* __restrict__ scratch) {
   const long long b = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (b >= B) return;
-  const double* yb = y + b * y_traj;
-  double m = p.m0, P = p.P0;
-  for (int k = 0; k < n_steps; ++k) {
-    const SfStep s = sfg_step(p, m, P, yb[k * y_step], __ldg(c + k), scratch + b, B);
-    const size_t o = static_cast<size_t>(k) * B + b;
-    out.m_pr[o] = s.m_pr;
-    out.P_pr[o] = s.P_pr;
-    out.xx[o] = s.xx;
-    out.m_fi[o] = s.m_fi;
-    out.P_fi[o] = s.P_fi;
-    m = s.m_fi;
-    P = s.P_fi;
-  }
+  sfg_record<SfgZoo>(p, p, y + b * y_traj, y_step, c, 1, n_steps, scratch + b, B, out.m_fi + b,
+                     out.P_fi + b, out.m_pr + b, out.P_pr + b, out.xx + b);
 }
 
 #ifdef SF_RUNTIME_SHAPE
@@ -285,8 +276,7 @@ extern "C" int sfg_launch(const SfgParams* params, const double* y, long long y_
                           double* scratch, void* stream) {
   if (B <= 0 || n_steps <= 0) return 0;
   const SfgParams& p = *params;
-  if (p.dyn.n < 1 || p.obs.n < 1 || (p.dyn.kind | p.obs.kind) >> 1 || p.obs_model < 0 ||
-      p.obs_model > SF_OBS_RANGE)
+  if (!sfg_rules_ok(p) || p.obs_model < 0 || p.obs_model > SF_OBS_RANGE)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);

@@ -4,7 +4,39 @@
 // instantiation as the CUDA launcher does (kinds of both rules, the smallest
 // slot count that holds them) and runs it with one lane a trajectory, one
 // trajectory after another; same layouts and the same order of every sum.
+//
+// Built with -DSFR_REGISTERED beside a generated sfr_forms.cuh
+// (ops/scalar_filter.py, build_registered), it holds only sfr_host_run, the
+// general form on the registered models, as scalar_filter_registered.cu
+// launches it.
 #include "scalar_filter_step_general.cuh"
+
+#ifdef SFR_REGISTERED
+#include "sfr_forms.cuh"
+
+// Configuration `pair` of SFR_PAIRS on the trajectories one after another,
+// with sfr_launch's layouts.  Returns 1, or 0 if `pair` is not one of the
+// library's or the rules cannot run.
+extern "C" int sfr_host_run(int pair, const SfrParams* params, const double* y, long long y_step,
+                            long long y_traj, const double* s, int n_s, int B, int n_steps,
+                            double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
+                            double* scratch) {
+  const SfrParams& p = *params;
+  if (!sfg_rules_ok(p.base)) return 0;
+  int ran = 0;
+#define SFR_RUN_IF(I, MODEL)                                                               \
+  if (pair == I) {                                                                         \
+    for (int b = 0; b < B; ++b)                                                            \
+      sfg_record<MODEL>(p, p.base, y + b * y_traj, y_step, s, n_s, n_steps, scratch + b, B, \
+                        m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b);                   \
+    ran = 1;                                                                               \
+  }
+  SFR_PAIRS(SFR_RUN_IF)
+#undef SFR_RUN_IF
+  return ran;
+}
+
+#else
 
 namespace {
 
@@ -59,22 +91,10 @@ extern "C" int sfg_host_run(const SfgParams* params, const double* y, long long 
                             double* m_fi, double* P_fi, double* m_pr, double* P_pr,
                             double* xx, double* scratch) {
   const SfgParams& p = *params;
-  if (p.dyn.n < 1 || p.obs.n < 1 || (p.dyn.kind | p.obs.kind) >> 1 || p.obs_model < 0 ||
-      p.obs_model > SF_OBS_RANGE)
-    return 0;
-  for (int b = 0; b < B; ++b) {
-    double m = p.m0, P = p.P0;
-    for (int k = 0; k < n_steps; ++k) {
-      const long long o = static_cast<long long>(k) * B + b;
-      const SfStep s = sfg_step(p, m, P, y[k * y_step + b * y_traj], c[k], scratch + b, B);
-      m_pr[o] = s.m_pr;
-      P_pr[o] = s.P_pr;
-      xx[o] = s.xx;
-      m_fi[o] = s.m_fi;
-      P_fi[o] = s.P_fi;
-      m = s.m_fi;
-      P = s.P_fi;
-    }
-  }
+  if (!sfg_rules_ok(p) || p.obs_model < 0 || p.obs_model > SF_OBS_RANGE) return 0;
+  for (int b = 0; b < B; ++b)
+    sfg_record<SfgZoo>(p, p, y + b * y_traj, y_step, c, 1, n_steps, scratch + b, B, m_fi + b,
+                       P_fi + b, m_pr + b, P_pr + b, xx + b);
   return 1;
 }
+#endif

@@ -3,7 +3,16 @@
 // filter kernel (scalar_filter.cu, scalar_filter_general_kernel), for what the
 // shaped step (scalar_filter_step.cuh) does not take: rules of more than
 // SF_MAX_PTS points (Gauss-Hermite of degree 9 and up, GPQ and BSQ on those
-// points) and the sine and range measurements of a 1-D state.
+// points), the sine and range measurements of a 1-D state, and (the same
+// step on other functors, scalar_filter_registered.cu) models registered at
+// run time.
+//
+// Models.  sfg_record takes the transition and measurement from a model
+// policy: Model::dyn(p, s) the transition of a step whose per-step stream
+// values are s[0 .. n_s), Model::obs(p) the measurement.  SfgZoo is the UNGM
+// transition (one stream, its 8 cos(1.2 k)) with the measurement of
+// obs_model; a registered model's policy is generated from its C++
+// statements (ops/scalar_filter.py, build_registered).
 //
 // Shared by the CUDA kernel and the host shim (scalar_filter_host.cpp), so
 // that the CPU tests hold this exact code against the plain PyTorch version in
@@ -124,23 +133,79 @@ SF_HD void sfg_moments(const SfgRule& R, double m_in, double L, const F& f, doub
 }
 
 // One filter step from the filtered state (m, P) of the previous step, with
-// measurement y and the dynamics constant c of this step; the function values
+// measurement y, the transition f and the measurement h; the function values
 // go through scratch (this trajectory's slot 0, slots ss apart).
-SF_HD SfStep sfg_step(const SfgParams& p, double m, double P, double y, double c,
-                      double* scratch, long long ss) {
+template <class Dyn, class Obs>
+SF_HD SfStep sfg_step_with(const SfgParams& p, double m, double P, double y, const Dyn& f,
+                           const Obs& h, double* scratch, long long ss) {
   SfStep s;
   const double L = sqrt(P);
   double Pf;
-  sfg_moments(p.dyn, m, L, SfgDyn{c}, scratch, ss, &s.m_pr, &Pf, &s.xx);
+  sfg_moments(p.dyn, m, L, f, scratch, ss, &s.m_pr, &Pf, &s.xx);
   s.P_pr = Pf + p.gqg;
 
   const double L2 = sqrt(s.P_pr);
   double y_pr, S0, C;
-  sfg_moments(p.obs, s.m_pr, L2, SfgObs{p.obs_model, p.obs_c[0], p.obs_c[1]}, scratch, ss,
-              &y_pr, &S0, &C);
+  sfg_moments(p.obs, s.m_pr, L2, h, scratch, ss, &y_pr, &S0, &C);
   const double S = S0 + p.r;
   const double K = C / S;
   s.m_fi = s.m_pr + K * (y - y_pr);
   s.P_fi = s.P_pr - (K * K) * S;
   return s;
+}
+
+// One filter step of the UNGM transition with the dynamics constant c of
+// this step and the measurement of p.
+SF_HD SfStep sfg_step(const SfgParams& p, double m, double P, double y, double c,
+                      double* scratch, long long ss) {
+  return sfg_step_with(p, m, P, y, SfgDyn{c}, SfgObs{p.obs_model, p.obs_c[0], p.obs_c[1]},
+                       scratch, ss);
+}
+
+// The model policy of the kernel's own models: the UNGM transition at its
+// step's constant s[0], the measurement of obs_model.
+struct SfgZoo {
+  SF_HD static SfgDyn dyn(const SfgParams&, const double* s) { return {SFG_LDG(s)}; }
+  SF_HD static SfgObs obs(const SfgParams& p) { return {p.obs_model, p.obs_c[0], p.obs_c[1]}; }
+};
+
+// The general form's parameters for models registered at run time: the
+// rules, noise and initial moments of base (whose obs_model and obs_c are
+// read only by a measurement of the kernel's own), and the constants of a
+// registered transition and measurement in device memory.  184 bytes.
+struct SfrParams {
+  SfgParams base;
+  const double* dyn_c;
+  const double* obs_c;
+};
+static_assert(sizeof(SfrParams) == 184, "SfrParams is mirrored by ctypes in ops/scalar_filter.py");
+
+// A whole record of one trajectory: n_steps steps from the initial moments
+// of q, measurement k at y[k * y_step], the n_s stream values of step k at
+// s[k * n_s], the models of Model made from p; output k of this trajectory
+// at out_*[k * ss] (time-major, ss = B), its scratch slots ss apart.
+template <class Model, class P>
+SF_HD void sfg_record(const P& p, const SfgParams& q, const double* y, long long y_step,
+                      const double* s, int n_s, int n_steps, double* scratch, long long ss,
+                      double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx) {
+  double m = q.m0, Pv = q.P0;
+  for (int k = 0; k < n_steps; ++k) {
+    const SfStep st = sfg_step_with(q, m, Pv, y[k * y_step],
+                                    Model::dyn(p, s + static_cast<long long>(k) * n_s),
+                                    Model::obs(p), scratch, ss);
+    const long long o = static_cast<long long>(k) * ss;
+    m_pr[o] = st.m_pr;
+    P_pr[o] = st.P_pr;
+    xx[o] = st.xx;
+    m_fi[o] = st.m_fi;
+    P_fi[o] = st.P_fi;
+    m = st.m_fi;
+    Pv = st.P_fi;
+  }
+}
+
+// Whether the general form's rules can run: kinds 0 or 1, at least one point
+// each.
+SF_HD bool sfg_rules_ok(const SfgParams& p) {
+  return p.dyn.n >= 1 && p.obs.n >= 1 && ((p.dyn.kind | p.obs.kind) >> 1) == 0;
 }

@@ -1,0 +1,66 @@
+// The general vector filter kernel (vector_filter_general.cuh) instantiated on
+// models registered at run time, for Hopper (sm_90a), native float64.
+//
+// Replaces, with the other vector filter kernels, the JAX package's
+// ssmtoybox_tpu/ops/ddvec.py:514 dd_filter_batch for the models a user
+// registers there (register_dyn_dd_vec / register_obs_dd_vec, ddvec.py:65-81,
+// and the scalar registry's 1-D forms adapted, ddvec.py:252-297): the JAX
+// package runs such a model inside its fused dd scan, the port inside this
+// kernel.
+//
+// The header vfr_forms.cuh is generated by ops/vector_filter.py
+// (build_registered) from the registered forms' C++ statements, into a
+// directory of build/kernels, and names the instantiations:
+//   VFR_PAIRS(F)  F(index, D, EB, Model) for each configuration the library
+//                 was built for: D (1-8) and EB (2, 4, 8; 0 for the wide
+//                 form) as in vector_filter_general.cu, Model the policy whose
+//                 functors evaluate the configuration's transition and
+//                 measurement (a registered form's statements, or the table's
+//                 model through VfgDynFn / VfgObsFn).
+// Only the configurations the caller asked for are instantiated.
+//
+// What bounds it, and its design: those of vector_filter_general.cu, one
+// thread a trajectory; a registered transition reads its constants from
+// device memory (VfgParams::dyn_c) and this step's values of its per-step
+// streams from s[k * n_s] (the streams time-major, (T, n_s)).  Built with
+// --fmad=false like the other vector filter kernels, so that a form whose
+// statements perform the plain version's operations in its order agrees with
+// it to the bit.
+#include <cuda_runtime.h>
+
+#include "vector_filter_general.cuh"
+#include "vfr_forms.cuh"
+
+// Launch configuration `pair` (an index of VFR_PAIRS) on `stream` of card
+// `device` without synchronising: the layouts of vfg_launch, and the
+// transition's stream values of step k at s[k * n_s].  Returns the CUDA error
+// of selecting the device or, after the launch, cudaGetLastError();
+// cudaErrorInvalidValue if `pair` is not one of the library's or its D and
+// bound on E are not those of the parameters, or the rules cannot run.
+extern "C" int vfr_launch(int pair, const VfgParams* params, const double* y, long long y_b,
+                          long long y_e, long long y_k, const double* s, int n_s, int B,
+                          int n_steps, int device, double* m_fi, double* P_fi, double* m_pr,
+                          double* P_pr, double* xx, double* scratch, void* stream) {
+  if (B <= 0 || n_steps <= 0) return 0;
+  const VfgParams& p = *params;
+  if (!vfg_rules_ok(p.base)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const VfgStreams out = {m_fi, P_fi, m_pr, P_pr, xx};
+  const int eb = vfg_bound(p.base.dim_out);
+  bool ran = false;
+#define VFR_LAUNCH_IF(I, D, EB, MODEL)                                                     \
+  if (pair == I && p.base.dim_state == D && eb == EB) {                                    \
+    vfg_launch_as<D, EB, MODEL>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, scratch,     \
+                                static_cast<cudaStream_t>(stream));                        \
+    ran = true;                                                                            \
+  }
+  VFR_PAIRS(VFR_LAUNCH_IF)
+#undef VFR_LAUNCH_IF
+  if (!ran) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* vfr_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

@@ -5,8 +5,9 @@
 // with its range, the coordinated turn with four bearings.  The model forms
 // here are shared by every vector kernel; the general kernel
 // (vector_filter_general.cuh) also takes the UNGM measurement of a state
-// component (VfObs<VF_OBS_UNGM>) and bearings from any 1-8 sensors
-// (vf_bearings), with any transition of the table.
+// component (VfObs<VF_OBS_UNGM>) and bearings from any number of sensors
+// (vf_bearings), with any transition of the table, and the registered
+// kernel (vector_filter_registered.cu) a user's own model forms.
 //
 // Shared by the CUDA kernel (vector_filter.cu) and a host shim
 // (vector_filter_host.cpp) that g++ builds, so that the CPU tests hold this
@@ -73,8 +74,10 @@
 #define VF_OBS_BEARING 3       // BearingMeasurement, S sensors: obs_c = x, y of each
 #define VF_OBS_UNGM 4          // UNGMMeasurement of component obs_idx[0]: no constants
 
-// Largest number of measurement constants: 8 bearing sensors' positions, as
-// many sensors as R (VF_MAX_DIM x VF_MAX_DIM) has outputs.
+// Largest number of measurement constants the struct holds: 8 bearing
+// sensors' positions, as many sensors as R (VF_MAX_DIM x VF_MAX_DIM) has
+// outputs.  The general kernels read the measurement's constants and R from
+// device memory instead (VfgParams), for any number of outputs.
 #define VF_MAX_OBS_C 16
 
 // A quadrature rule, its constants in memory the step reads (device memory
@@ -221,75 +224,86 @@ struct VfDyn<VF_DYN_CT> {
 template <int OBS>
 struct VfObs;
 
-// Range and bearing from a radar at (obs_c[0], obs_c[1]) of the state
-// components obs_idx[0], obs_idx[1].
+// Each measurement reads its constants through c (the parameter struct's
+// obs_c, or a copy in device memory for the general kernels) and the state
+// components idx (obs_idx), and writes its outputs to h[0 .. E) (a register
+// array, or a strided column of the general kernels' scratch buffer).
+
+// Range and bearing from a radar at (c[0], c[1]) of the state components
+// idx[0], idx[1].
 template <>
 struct VfObs<VF_OBS_RADAR> {
   static constexpr int E = 2;
-  template <int D>
-  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[2]) {
-    const double dx = vf_pick(x, p.obs_idx[0]) - p.obs_c[0];
-    const double dy = vf_pick(x, p.obs_idx[1]) - p.obs_c[1];
+  template <int D, class C, class H>
+  VF_HD static void eval(const C& c, const int (&idx)[2], const double (&x)[D], H&& h) {
+    const double dx = vf_pick(x, idx[0]) - c[0];
+    const double dy = vf_pick(x, idx[1]) - c[1];
     h[0] = sqrt(dx * dx + dy * dy);
     h[1] = atan2(dy, dx);
   }
 };
 
-// The sine of the angle (state component obs_idx[0]).
+// The sine of the angle (state component idx[0]).
 template <>
 struct VfObs<VF_OBS_PENDULUM_SIN> {
   static constexpr int E = 1;
-  template <int D>
-  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[1]) {
-    h[0] = sin(vf_pick(x, p.obs_idx[0]));
+  template <int D, class C, class H>
+  VF_HD static void eval(const C&, const int (&idx)[2], const double (&x)[D], H&& h) {
+    h[0] = sin(vf_pick(x, idx[0]));
   }
 };
 
-// Range to the falling body (state component obs_idx[0]) from a radar sx
-// away at height sy: sqrt(sx^2 + (x - sy)^2), sx^2 given.
+// Range to the falling body (state component idx[0]) from a radar sx away at
+// height sy: sqrt(sx^2 + (x - sy)^2), c = sx^2, sy.
 template <>
 struct VfObs<VF_OBS_RANGE> {
   static constexpr int E = 1;
-  template <int D>
-  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[1]) {
-    const double d = vf_pick(x, p.obs_idx[0]) - p.obs_c[1];
-    h[0] = sqrt(p.obs_c[0] + d * d);
+  template <int D, class C, class H>
+  VF_HD static void eval(const C& c, const int (&idx)[2], const double (&x)[D], H&& h) {
+    const double d = vf_pick(x, idx[0]) - c[1];
+    h[0] = sqrt(c[0] + d * d);
   }
 };
 
-// Bearings of (obs_idx[0], obs_idx[1]) from four sensors at (obs_c[2 s],
-// obs_c[2 s + 1]).
+// Bearings of (idx[0], idx[1]) from four sensors at (c[2 s], c[2 s + 1]).
 template <>
 struct VfObs<VF_OBS_BEARING> {
   static constexpr int E = 4;
-  template <int D>
-  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[4]) {
-    const double px = vf_pick(x, p.obs_idx[0]), py = vf_pick(x, p.obs_idx[1]);
+  template <int D, class C, class H>
+  VF_HD static void eval(const C& c, const int (&idx)[2], const double (&x)[D], H&& h) {
+    const double px = vf_pick(x, idx[0]), py = vf_pick(x, idx[1]);
 #pragma unroll
-    for (int s = 0; s < 4; ++s) h[s] = atan2(py - p.obs_c[2 * s + 1], px - p.obs_c[2 * s]);
+    for (int s = 0; s < 4; ++s) h[s] = atan2(py - c[2 * s + 1], px - c[2 * s]);
   }
 };
 
-// The UNGM measurement 0.05 x^2 of the state component obs_idx[0].
+// The UNGM measurement 0.05 x^2 of the state component idx[0].
 template <>
 struct VfObs<VF_OBS_UNGM> {
   static constexpr int E = 1;
-  template <int D>
-  VF_HD static void eval(const VfParams& p, const double (&x)[D], double (&h)[1]) {
-    const double v = vf_pick(x, p.obs_idx[0]);
+  template <int D, class C, class H>
+  VF_HD static void eval(const C&, const int (&idx)[2], const double (&x)[D], H&& h) {
+    const double v = vf_pick(x, idx[0]);
     h[0] = 0.05 * (v * v);
   }
 };
 
-// Bearings of (obs_idx[0], obs_idx[1]) from the first S <= SB sensors at
-// (obs_c[2 s], obs_c[2 s + 1]), S read at run time: the bearing form of the
-// general kernel.  Entries of h from S on are not written.
-template <int D, int SB>
-VF_HD void vf_bearings(const VfParams& p, const double (&x)[D], int S, double (&h)[SB]) {
-  const double px = vf_pick(x, p.obs_idx[0]), py = vf_pick(x, p.obs_idx[1]);
+// Bearings of (idx[0], idx[1]) from the first S sensors at (c[2 s],
+// c[2 s + 1]), S read at run time: the bearing form of the general kernel.
+// SB > 0: a register array h of SB entries, SB predicated iterations (static
+// indices); SB == 0: any S, one iteration a sensor (h a scratch column).
+// Entries of h from S on are not written.
+template <int SB, int D, class C, class H>
+VF_HD void vf_bearings(const C& c, const int (&idx)[2], const double (&x)[D], int S, H&& h) {
+  const double px = vf_pick(x, idx[0]), py = vf_pick(x, idx[1]);
+  if constexpr (SB > 0) {
 #pragma unroll
-  for (int s = 0; s < SB; ++s)
-    if (s < S) h[s] = atan2(py - p.obs_c[2 * s + 1], px - p.obs_c[2 * s]);
+    for (int s = 0; s < SB; ++s)
+      if (s < S) h[s] = atan2(py - c[2 * s + 1], px - c[2 * s]);
+  } else {
+#pragma unroll 1
+    for (int s = 0; s < S; ++s) h[s] = atan2(py - c[2 * s + 1], px - c[2 * s]);
+  }
 }
 
 template <int D, int DYN>
@@ -304,7 +318,7 @@ template <int D, int OBS>
 struct VfObsFn {
   const VfParams& p;
   VF_HD void operator()(const double (&x)[D], double (&h)[VfObs<OBS>::E]) const {
-    VfObs<OBS>::template eval<D>(p, x, h);
+    VfObs<OBS>::template eval<D>(p.obs_c, p.obs_idx, x, h);
   }
 };
 

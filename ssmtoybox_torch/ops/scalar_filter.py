@@ -13,26 +13,39 @@ double-double arithmetic).  The kernel has two forms (:func:`form_of`):
   rule's shape is a template argument (the kinds of both rules and 3, 5, 7
   or 8 slots) and a trajectory is spread over a few lanes of a warp, one or
   two sigma points a lane.  The main path's UNGM lanes run here.
-- ``"general"``: everything else the lowering admits, rules of any point
-  count (Gauss-Hermite of degree 9 and up, GPQ and BSQ on those points) and
-  the sine and range measurements, one thread a trajectory, the point count,
-  kinds and measurement read at run time, the rules from device memory
-  (``csrc/scalar_filter_step_general.cuh``).
+- ``"general"``: everything else the lowering admits of the kernel's own
+  models, rules of any point count (Gauss-Hermite of degree 9 and up, GPQ
+  and BSQ on those points) and the sine and range measurements, one thread a
+  trajectory, the point count, kinds and measurement read at run time, the
+  rules from device memory (``csrc/scalar_filter_step_general.cuh``).
+- ``"registered"``: the general form's step on models registered at run
+  time (:func:`register_dyn_dd`, :func:`register_obs_dd`, and 1-D forms of
+  ``vector_filter.register_dyn_dd_vec`` / ``register_obs_dd_vec``), as the
+  JAX package's Pallas kernel takes the step of whatever model is registered
+  (``ops/ddfilter.py:222-253``): ``csrc/scalar_filter_registered.cu``,
+  built at first use from a header generated from their
+  :class:`~.forms.KernelForm` s (:func:`build_registered`), the transition's
+  per-step streams in place of the UNGM constants.
 
-In both, every sum runs in the order of the twin, so kernel and twin agree
-to the bit.
+In all three, every sum runs in the order of the twin, so kernel and twin
+agree to the bit.
 
-Supported, as the JAX package's ``ops.ddvec.dd_check`` admits a 1-D state:
-the UNGM transition with the UNGM, sine (``Pendulum2DMeasurement``) or range
-(``RangeMeasurement``) measurement of the state, additive noise, and for
+Supported, as the JAX package's ``ops.ddvec.dd_check`` admits a 1-D state
+under the same registrations: a transition with a kernel form (the UNGM
+transition, or a registered one) with a measurement with one (the UNGM,
+sine (``Pendulum2DMeasurement``) or range (``RangeMeasurement``)
+measurement of the state, or a registered one), additive noise, and for
 each of the two transforms either a classical 1-D sigma-point rule with
 diagonal covariance weights or a 1-D BQ rule with a scalar model variance,
-of any point count.  :func:`supports` says whether a configuration qualifies.
+of any point count.  The scalar registry is looked up by exact type, as
+``ddfilter`` looks it up: a subclass of a registered class has no form of
+its own.  :func:`supports` says whether a configuration qualifies.
 
 :func:`scalar_filter` is the launch wrapper.  For a CPU tensor it runs the
 plain PyTorch twin :func:`_scalar_filter_plain`; for a CUDA tensor it launches
 the kernel or raises.  Each launch adds one to :data:`LAUNCHES`; a launch of
-the general form also to :data:`GENERAL_LAUNCHES`.
+the general form also to :data:`GENERAL_LAUNCHES`, one of the registered form
+to :data:`REGISTERED_LAUNCHES`.
 
 Nothing is built, lowered or copied per call: the library is bound once a
 process, a transform's :class:`Rule` and a model's noise constants are kept
@@ -46,7 +59,8 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -54,18 +68,22 @@ import torch
 from ..bq.gpqd import GaussianProcessDerTransform
 from ..bq.transforms import BQTransform, MultiOutputBQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
-from ..ssmod import Pendulum2DMeasurement, RangeMeasurement, UNGMMeasurement, UNGMTransition
-from . import _build
+from ..ssmod import Pendulum2DMeasurement, RangeMeasurement, UNGMMeasurement
+from . import _build, forms
+from .forms import TORCH_FNS, KernelForm, Registered, find_dyn, find_obs
 
-__all__ = ["LAUNCHES", "GENERAL_LAUNCHES", "MAX_PTS", "form_of", "Rule", "ScalarFilterParams",
-           "lower_transform", "supports", "prepare", "ungm_consts", "scalar_filter",
-           "scalar_filter_moments", "scalar_filter_batch", "build", "slots", "SLOTS", "dependent_latencies",
-           "chain_floor_clocks"]
+__all__ = ["LAUNCHES", "GENERAL_LAUNCHES", "REGISTERED_LAUNCHES", "MAX_PTS", "form_of", "Rule",
+           "ScalarFilterParams", "register_dyn_dd", "register_obs_dd", "lower_transform",
+           "supports", "prepare", "ungm_consts", "scalar_filter", "scalar_filter_moments",
+           "scalar_filter_batch", "build", "build_registered", "slots", "SLOTS",
+           "dependent_latencies", "chain_floor_clocks"]
 
-#: kernel launches made by :func:`scalar_filter` in this process, both forms
+#: kernel launches made by :func:`scalar_filter` in this process, all forms
 LAUNCHES = 0
 #: the launches of the general form among them
 GENERAL_LAUNCHES = 0
+#: the launches of the registered form among them
+REGISTERED_LAUNCHES = 0
 
 #: most sigma points a rule of the shaped form may have (``SF_MAX_PTS`` in the
 #: step header): enough for the 7-point Gauss-Hermite and BSQ-GH7 rules; the
@@ -76,7 +94,7 @@ GENERAL_LAUNCHES = 0
 MAX_PTS = 8
 SLOTS = (3, 5, 7, 8)
 
-#: the measurements of a 1-D state with a kernel form: class -> (id in
+#: the kernel's own measurements of a 1-D state: class -> (id in
 #: ``scalar_filter_step_general.cuh``, constants); the shaped form takes id 0
 _OBS_MODELS = {
     UNGMMeasurement: (0, lambda m: ()),
@@ -124,9 +142,39 @@ class ScalarFilterParams:
     P0: float
     gqg: float
     r: float
-    #: the measurement's id in ``_OBS_MODELS`` and its constants
+    #: the measurement's id in ``_OBS_MODELS`` (-1 for a registered form) and
+    #: its constants
     obs_model: int = 0
     obs_c: tuple = ()
+    #: registered models' forms (None: the kernel's own UNGM transition or
+    #: measurement), a registered transition's constants
+    dyn_form: KernelForm | None = None
+    obs_form: KernelForm | None = None
+    dyn_c: tuple = ()
+    #: a registered transition's per-step streams, ``streams(n_steps)`` (n_steps,
+    #: n_s); the UNGM transition's is :func:`ungm_consts`
+    n_s: int = 1
+    streams: object = field(default=None, compare=False)
+    _on: dict = field(default_factory=dict, compare=False, repr=False)
+
+
+def register_dyn_dd(model_cls, step_consts, form):
+    """Register a 1-D transition model for ``engine="dd"``
+    (``ddfilter.register_dyn_dd``): ``step_consts(model, n_steps)`` its
+    per-step constant stream, (n_steps,) float64 (step k reads value k as
+    ``s[0]``); ``form`` its :class:`~.forms.KernelForm`, or a function of
+    the model giving one.  Looked up by exact type; registering a class again
+    replaces its entry."""
+    forms.DYN_DD[model_cls] = (step_consts, form)
+
+
+def register_obs_dd(model_cls, form):
+    """Register a measurement model of one output (``ddfilter.
+    register_obs_dd``): its :class:`~.forms.KernelForm`, which reads the one
+    component ``x[0]`` (the state component its ``state_index`` picks, on a
+    vector state too), or a function of the model giving one.  Looked up by
+    exact type."""
+    forms.OBS_DD[model_cls] = form
 
 
 class _CRule(ctypes.Structure):
@@ -233,26 +281,27 @@ def _lower(tf) -> Rule:
     return rule
 
 
-def _lookup(table: dict, model):
-    """``table``'s entry for ``model``'s class or its nearest base (a
-    ``BearingMeasurement`` is of a subclass per sensor count), as
-    ``ddvec._vec_registry_lookup`` finds it; None if there is none."""
-    return next((table[t] for t in type(model).__mro__ if t in table), None)
-
-
 def _check(mod_dyn, mod_obs):
+    """The forms of both models (:func:`~.forms.find_dyn`,
+    :func:`~.forms.find_obs`: a registered one, ``"ungm"`` or a measurement
+    of ``_OBS_MODELS``); ``ValueError`` with the reason the kernel cannot
+    run them."""
     if mod_dyn.dim_state != 1 or mod_obs.dim_out != 1:
         raise ValueError("the fused scalar filter requires dim_state == dim_out == 1")
     if not (mod_dyn.noise_additive and mod_obs.noise_additive):
         raise ValueError("the fused scalar filter requires additive noise")
-    if type(mod_dyn) is not UNGMTransition or _lookup(_OBS_MODELS, mod_obs) is None:
-        raise ValueError("the fused scalar filter implements the UNGM transition with the "
-                         "UNGM, sine and range measurements; got "
-                         f"{type(mod_dyn).__name__} and {type(mod_obs).__name__}")
+    dyn, obs = find_dyn(mod_dyn, {}), find_obs(mod_obs, _OBS_MODELS)
+    if dyn is None or obs is None:
+        raise ValueError("the fused scalar filter has no kernel form of "
+                         f"{type(mod_dyn if dyn is None else mod_obs).__name__} (it runs the "
+                         "UNGM transition, the UNGM, sine and range measurements and the models "
+                         "registered with register_dyn_dd / register_obs_dd or their vector "
+                         "counterparts)")
     idx = mod_obs.state_index
     if idx is not None and (len(idx) < 1 or idx[0] != 0):
         raise ValueError(f"state_index {idx} does not pick the component "
                          f"{type(mod_obs).__name__} reads from a state of dimension 1")
+    return dyn, obs
 
 
 def supports(mod_dyn, mod_obs, tf_dyn, tf_obs) -> bool:
@@ -270,8 +319,9 @@ def _scalar(t) -> float:
 
 def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None) -> ScalarFilterParams:
     """Lower a configuration to :class:`ScalarFilterParams`; ``ValueError``
-    names the piece the kernel cannot run."""
-    _check(mod_dyn, mod_obs)
+    names the piece the kernel cannot run.  The models' forms are looked up
+    again at every call, so a registration made since takes effect."""
+    dyn, obs = _check(mod_dyn, mod_obs)
 
     (m0_t, P0_t), q_t = mod_dyn.init_rv.get_stats()[:2], mod_dyn.noise_rv.get_stats()[1]
     r_t = mod_obs.noise_rv.get_stats()[1]
@@ -283,18 +333,28 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None) -> 
     m0, P0, gqg = _memo(mod_dyn, "_scalar_filter_consts", (m0_t, P0_t, q_t, mod_dyn.noise_gain),
                         dyn_consts)
     r = _memo(mod_obs, "_scalar_filter_consts", (r_t,), lambda: _scalar(r_t))
-    obs_model, obs_c = _lookup(_OBS_MODELS, mod_obs)
+    if isinstance(obs, Registered):
+        obs_model, obs_c = -1, obs.form.consts
+    else:
+        obs_model, consts = obs if obs != "ungm" else _OBS_MODELS[UNGMMeasurement]
+        obs_c = consts(mod_obs)
+    reg = dyn if isinstance(dyn, Registered) else None
     return ScalarFilterParams(
         dyn=lower_transform(tf_dyn), obs=lower_transform(tf_obs),
         m0=m0 if init_mean is None else _scalar(init_mean),
         P0=P0 if init_cov is None else _scalar(init_cov), gqg=gqg, r=r,
-        obs_model=obs_model, obs_c=obs_c(mod_obs))
+        obs_model=obs_model, obs_c=obs_c,
+        dyn_form=reg and reg.form, obs_form=obs.form if isinstance(obs, Registered) else None,
+        dyn_c=reg.form.consts if reg else (), n_s=reg.n_s if reg else 1,
+        streams=reg and reg.streams)
 
 
 def form_of(params: ScalarFilterParams) -> str:
-    """The form of the kernel that runs ``params``: ``"shaped"`` for the UNGM
-    measurement with rules of at most :data:`MAX_PTS` points, else
-    ``"general"``."""
+    """The form of the kernel that runs ``params``: ``"registered"`` for a
+    registered model on either side, ``"shaped"`` for the UNGM measurement
+    with rules of at most :data:`MAX_PTS` points, else ``"general"``."""
+    if params.dyn_form is not None or params.obs_form is not None:
+        return "registered"
     if params.obs_model == 0 and max(params.dyn.n, params.obs.n) <= MAX_PTS:
         return "shaped"
     return "general"
@@ -311,6 +371,16 @@ def ungm_consts(n_steps: int) -> np.ndarray:
 def _ungm_consts_on(n_steps: int, device: torch.device) -> torch.Tensor:
     """:func:`ungm_consts` as a tensor on ``device``, copied there once."""
     return torch.as_tensor(ungm_consts(n_steps), device=device)
+
+
+def step_consts(params: ScalarFilterParams, n_steps: int, device) -> torch.Tensor:
+    """The per-step constants :func:`scalar_filter` takes for ``params``: the
+    UNGM transition's :func:`ungm_consts` (n_steps,), or a registered
+    transition's streams (n_steps, n_s), on ``device``."""
+    if params.dyn_form is None:
+        return _ungm_consts_on(n_steps, torch.device(device))
+    return forms.on_device(params._on, f"streams_{n_steps}", device,
+                           lambda: params.streams(n_steps))
 
 
 # ---------------------------------------------------------------------------
@@ -352,31 +422,41 @@ def _obs_plain(params: ScalarFilterParams, x, sqrt, sin):
 
 
 def _scalar_filter_plain(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor,
-                         sqrt=torch.sqrt, sin=torch.sin):
+                         sqrt=torch.sqrt, sin=torch.sin, fns=None):
     """The kernel's computation as batched torch ops over the B trajectories
     and a Python loop over the N steps; same arguments and results as
-    :func:`scalar_filter`, for both forms.  ``sqrt``, ``sin``: the square
-    root and sine to take (PyTorch's vectorised CPU ones are an ulp off on
-    some inputs, unlike the card's and a C compiler's, so a test that wants
-    equal bits on the CPU passes the C library's)."""
+    :func:`scalar_filter`, for every form (a registered model through its
+    form's ``plain``).  ``sqrt``, ``sin``: the square root and sine to take
+    (PyTorch's vectorised CPU ones are an ulp off on some inputs, unlike the
+    card's and a C compiler's, so a test that wants equal bits on the CPU
+    passes the C library's); ``fns``: the transcendentals a registered form
+    takes (:data:`~.forms.TORCH_FNS` with ``sqrt`` and ``sin`` by default)."""
     N, B = y.shape
+    fns = fns or SimpleNamespace(**{**vars(TORCH_FNS), "sqrt": sqrt, "sin": sin})
     out = torch.empty((5, N, B), dtype=y.dtype, device=y.device)
     m = torch.full((B,), params.m0, dtype=y.dtype, device=y.device)
     P = torch.full((B,), params.P0, dtype=y.dtype, device=y.device)
     dyn, obs = params.dyn, params.obs
+    dyn_form, obs_form = params.dyn_form, params.obs_form
+    if dyn_form is not None:
+        dyn_c = forms.on_device(params._on, "dyn_c", y.device, lambda: params.dyn_c)
+    if obs_form is not None:
+        obs_c = forms.on_device(params._on, "obs_c", y.device, lambda: params.obs_c)
     for k in range(N):
         L = sqrt(P)
         fs = []
         for i in range(dyn.n):
             x = m + L * dyn.xi[i]
-            fs.append(0.5 * x + 25.0 * (x / (1.0 + x * x)) + c[k])
+            fs.append(0.5 * x + 25.0 * (x / (1.0 + x * x)) + c[k] if dyn_form is None else
+                      dyn_form.plain(x[:, None], dyn_c, c[k], fns)[:, 0])
         m_pr, Pf, xx = _moments_plain(dyn, L, fs)
         P_pr = Pf + params.gqg
         L2 = sqrt(P_pr)
         hs = []
         for i in range(obs.n):
             x = m_pr + L2 * obs.xi[i]
-            hs.append(_obs_plain(params, x, sqrt, sin))
+            hs.append(_obs_plain(params, x, sqrt, sin) if obs_form is None else
+                      obs_form.plain(x[:, None], obs_c, fns)[:, 0])
         y_pr, S0, C = _moments_plain(obs, L2, hs)
         S = S0 + params.r
         K = C / S
@@ -433,7 +513,26 @@ def _c_general_params(p: ScalarFilterParams, device: torch.device) -> _CGParams:
     keep = (_packed(p.dyn, device), _packed(p.obs, device))
     c = _CGParams(dyn=_c_grule(p.dyn, keep[0]), obs=_c_grule(p.obs, keep[1]),
                   obs_model=p.obs_model, m0=p.m0, P0=p.P0, gqg=p.gqg, r=p.r)
-    c.obs_c[:len(p.obs_c)] = p.obs_c
+    if p.obs_form is None:
+        c.obs_c[:len(p.obs_c)] = p.obs_c
+    c.keep = keep
+    return c
+
+
+class _CRParams(ctypes.Structure):
+    """``SfrParams``: the registered form's parameters."""
+    _fields_ = [("base", _CGParams), ("dyn_c", ctypes.c_void_p), ("obs_c", ctypes.c_void_p)]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_registered_params(p: ScalarFilterParams, device: torch.device) -> _CRParams:
+    """The registered form's parameter struct: :func:`_c_general_params` and
+    the registered models' constants copied to ``device`` (kept alive on the
+    struct); built once for a given ``(p, device)``."""
+    keep = tuple(torch.tensor(v or (0.0,), dtype=torch.float64, device=device)
+                 for v in (p.dyn_c, p.obs_c if p.obs_form is not None else ()))
+    c = _CRParams(base=_c_general_params(p, device), dyn_c=keep[0].data_ptr(),
+                  obs_c=keep[1].data_ptr())
     c.keep = keep
     return c
 
@@ -474,18 +573,115 @@ def _host_shim() -> ctypes.CDLL:
                         host=True)
 
 
+# ---------------------------------------------------------------------------
+# the registered form: a library generated from the registered forms
+# ---------------------------------------------------------------------------
+
+#: the configurations of the registered libraries built in this process:
+#: ``(host, policy)`` -> (library, index in its ``SFR_PAIRS``)
+_REGISTERED: dict = {}
+#: the arguments of ``sfr_launch`` / ``sfr_host_run`` from ``y`` to ``n_steps``
+_R_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p] + [
+    ctypes.c_int] * 3
+
+
+def _model_policy(params: ScalarFilterParams, name: str) -> str:
+    """The C++ model policy of ``params``' configuration (see
+    ``csrc/scalar_filter_registered.cu``): each registered form's statements
+    as a functor of one value, the kernel's own models through ``SfgDyn`` /
+    ``SfgObs``."""
+    if params.dyn_form is None:
+        dyn = ("  SF_HD static SfgDyn dyn(const SfrParams&, const double* s) "
+               "{ return {SFG_LDG(s)}; }")
+    else:
+        dyn = ("  struct Dyn {\n    const double* c;\n    const double* s;\n"
+               "    SF_HD double operator()(double x0) const {\n"
+               "      const double x[1] = {x0};\n      double f[1];\n"
+               f"{forms.c_block(params.dyn_form.source)}\n      return f[0];\n    }}\n  }};\n"
+               "  SF_HD static Dyn dyn(const SfrParams& p, const double* s) "
+               "{ return {p.dyn_c, s}; }")
+    if params.obs_form is None:
+        obs = "  SF_HD static SfgObs obs(const SfrParams& p) { return SfgZoo::obs(p.base); }"
+    else:
+        obs = ("  struct Obs {\n    const double* c;\n"
+               "    SF_HD double operator()(double x0) const {\n"
+               "      const double x[1] = {x0};\n      double h[1];\n"
+               f"{forms.c_block(params.obs_form.source)}\n      return h[0];\n    }}\n  }};\n"
+               "  SF_HD static Obs obs(const SfrParams& p) { return {p.obs_c}; }")
+    return f"struct {name} {{\n{dyn}\n{obs}\n}};\n"
+
+
+def _registered_header(policies: list) -> str:
+    """``sfr_forms.cuh`` for the model policies ``policies``."""
+    parts = ["// Generated by ssmtoybox_torch/ops/scalar_filter.py (build_registered): the",
+             "// model policies of the registered configurations.", "#pragma once", ""]
+    for i, policy in enumerate(policies):
+        parts.append(policy.replace("struct SfrPair {", f"struct SfrPair{i} {{", 1))
+    pairs = " ".join(f"F({i}, SfrPair{i})" for i in range(len(policies)))
+    return "\n".join(parts) + f"\n#define SFR_PAIRS(F) {pairs}\n"
+
+
+def _bind_registered(lib: ctypes.CDLL):
+    lib.sfr_launch.restype = ctypes.c_int
+    lib.sfr_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CRParams)] + _R_ARGS
+                               + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+    lib.sfr_error_string.restype = ctypes.c_char_p
+    lib.sfr_error_string.argtypes = [ctypes.c_int]
+
+
+def _bind_registered_host(lib: ctypes.CDLL):
+    lib.sfr_host_run.restype = ctypes.c_int
+    lib.sfr_host_run.argtypes = ([ctypes.c_int, ctypes.POINTER(_CRParams)] + _R_ARGS
+                                 + [ctypes.c_void_p] * 6)
+
+
+def build_registered(configs, host: bool = False) -> str:
+    """Build one library of the registered form for the configurations
+    ``configs`` (:class:`ScalarFilterParams` with a registered model) with
+    nvcc for sm_90a (with g++, the host build ``sfr_host_run`` of
+    ``csrc/scalar_filter_host.cpp``, if ``host``): a header of their model
+    policies is generated and only they are instantiated; their launches go
+    to it from then on.  A configuration's first launch builds a library for
+    it alone if none holds it.  Returns the library's name (its compiler
+    output is ``_build.BUILD_LOGS[name]``); a failed build raises
+    ``RuntimeError`` with the compiler's output."""
+    policies = list(dict.fromkeys(_model_policy(p, "SfrPair") for p in configs
+                                  if form_of(p) == "registered"))
+    if not policies:
+        raise ValueError("no configuration with a registered model to build")
+    if host:
+        return forms.build_generated(
+            _REGISTERED, policies, _registered_header(policies),
+            name="scalar_filter_registered_host", source="scalar_filter_host.cpp",
+            file="sfr_forms.cuh", bind=_bind_registered_host, flags=["-DSFR_REGISTERED"],
+            host=True)
+    return forms.build_generated(
+        _REGISTERED, policies, _registered_header(policies), name="scalar_filter_registered",
+        source="scalar_filter_registered.cu", file="sfr_forms.cuh", bind=_bind_registered,
+        flags=_NVCC_FLAGS, host=False)
+
+
+def _registered(params: ScalarFilterParams, host: bool) -> tuple:
+    """(library, index) of ``params``' configuration, built at first use."""
+    key = host, _model_policy(params, "SfrPair")
+    if key not in _REGISTERED:
+        build_registered([params], host)
+    return _REGISTERED[key]
+
+
 def slots(params: ScalarFilterParams) -> int:
     """Points of the instantiation that runs ``params``: the smallest of
     :data:`SLOTS` that holds both rules (``sf_slots`` in the step header)."""
     return next(n for n in SLOTS if n >= max(params.dyn.n, params.obs.n))
 
 
-def _check_streams(y: torch.Tensor, c: torch.Tensor):
+def _check_streams(y: torch.Tensor, c: torch.Tensor, params: ScalarFilterParams | None = None):
     if y.dtype != torch.float64 or c.dtype != torch.float64:
         raise TypeError(f"the scalar filter runs in float64; got {y.dtype} and {c.dtype}")
-    if y.ndim != 2 or c.shape != (y.shape[0],):
-        raise ValueError(f"y must be (N, B) and c (N,); got {tuple(y.shape)} and "
-                         f"{tuple(c.shape)}")
+    want = (y.shape[0],) if params is None or params.dyn_form is None else (y.shape[0], params.n_s)
+    if y.ndim != 2 or c.shape != want:
+        raise ValueError(f"y must be (N, B) and c {'(N,)' if len(want) == 1 else '(N, n_s)'}; "
+                         f"got {tuple(y.shape)} and {tuple(c.shape)}")
     if y.device != c.device:
         raise ValueError(f"y and c on different devices: {y.device} and {c.device}")
     if not ((y.is_contiguous() or y.T.is_contiguous()) and c.is_contiguous()):
@@ -504,12 +700,21 @@ def _scratch(params: ScalarFilterParams, B: int, device) -> torch.Tensor:
 def _host_shim_run(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     """Run the step header of :func:`form_of`'s form compiled for the host
     on CPU tensors; the five streams, after checking that the instantiation
-    of :func:`slots` (or the general form) ran."""
-    _check_streams(y, c)
+    of :func:`slots` (or the general or registered form) ran."""
+    _check_streams(y, c, params)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=torch.float64)
+    if form_of(params) == "registered":
+        cpu = torch.device("cpu")
+        cr, scratch = _c_registered_params(params, cpu), _scratch(params, B, "cpu")
+        lib, pair = _registered(params, host=True)
+        if lib.sfr_host_run(pair, ctypes.byref(cr), y.data_ptr(), y.stride(0), y.stride(1),
+                            c.data_ptr(), params.n_s, B, N, *(o.data_ptr() for o in out),
+                            scratch.data_ptr()) != 1:
+            raise RuntimeError("the host build of the registered form refused the configuration")
+        return tuple(out)
     if form_of(params) == "general":
         cg, scratch = _c_general_params(params, torch.device("cpu")), _scratch(params, B, "cpu")
         if _host_shim().sfg_host_run(ctypes.byref(cg), y.data_ptr(), y.stride(0), y.stride(1),
@@ -531,22 +736,24 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
 
     ``y`` (N, B) float64 measurements, time-major: contiguous, or the
     transpose of a contiguous trajectory-major (B, N) tensor (the kernel
-    reads it through its strides, no copy is made); ``c`` (N,) per-step
-    dynamics constants (:func:`ungm_consts`).  Returns the five contiguous
+    reads it through its strides, no copy is made); ``c`` the per-step
+    dynamics constants (:func:`step_consts`: (N,) :func:`ungm_consts`, or a
+    registered transition's (N, n_s) streams).  Returns the five contiguous
     (N, B) streams ``(m_fi, P_fi, m_pr, P_pr, xx)``: filtered mean and
     variance, predicted mean and variance, and the dynamics transform's
     cross-covariance.  A CPU tensor runs the plain twin; a CUDA tensor
     launches the kernel's form of :func:`form_of` on the current stream,
     without synchronising, or raises.
     """
-    global LAUNCHES, GENERAL_LAUNCHES
-    _check_streams(y, c)
+    global LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES
+    _check_streams(y, c, params)
     if y.device.type == "cpu":
         return _scalar_filter_plain(params, y, c)
     if y.device.type != "cuda":
         raise ValueError(f"the scalar filter runs on CPU or CUDA tensors; got {y.device}")
-    general = form_of(params) == "general"
-    lib = build()
+    form = form_of(params)
+    general, registered = form == "general", form == "registered"
+    lib, pair = _registered(params, host=False) if registered else (build(), None)
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=torch.float64, device=y.device)
     if y.numel() == 0:
@@ -555,17 +762,23 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     args = (y.data_ptr(), y.stride(0), y.stride(1), c.data_ptr(), B, N, y.device.index or 0,
             *(first + i * size for i in range(5)))
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    if general:
+    if registered:
+        scratch = _scratch(params, B, y.device)
+        rc = lib.sfr_launch(pair, ctypes.byref(_c_registered_params(params, y.device)),
+                            *args[:4], params.n_s, *args[4:], scratch.data_ptr(), stream)
+    elif general:
         scratch = _scratch(params, B, y.device)
         rc = lib.sfg_launch(ctypes.byref(_c_general_params(params, y.device)), *args,
                             scratch.data_ptr(), stream)
     else:
         rc = lib.sf_launch(ctypes.byref(_c_params(params)), *args, stream)
     if rc != 0:
-        raise RuntimeError(f"scalar filter kernel ({form_of(params)} form) launch failed: "
-                           f"{lib.sf_error_string(rc).decode()} (cudaError {rc})")
+        text = (lib.sfr_error_string if registered else lib.sf_error_string)(rc).decode()
+        raise RuntimeError(f"scalar filter kernel ({form} form) launch failed: {text} "
+                           f"(cudaError {rc})")
     LAUNCHES += 1
     GENERAL_LAUNCHES += int(general)
+    REGISTERED_LAUNCHES += int(registered)
     return tuple(out)
 
 
@@ -622,7 +835,7 @@ def scalar_filter_moments(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
         params = prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean, init_cov)
     ys = ys.to(torch.float64)
     y = ys.T if ys.is_contiguous() else ys.T.contiguous()
-    return scalar_filter(params, y, _ungm_consts_on(y.shape[0], y.device))
+    return scalar_filter(params, y, step_consts(params, y.shape[0], y.device))
 
 
 def scalar_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch):

@@ -6,8 +6,8 @@ Counterpart of the JAX package's ``ops/ddvec.py`` (``dd_filter_batch``, the
 ``lax.scan`` of double-double f32-pair arithmetic in jnp because the TPU has
 no f64 unit.  The card has native float64, so the port runs the whole record
 of every trajectory inside one launch of a CUDA kernel in plain f64 and
-returns all five moment streams that the RTS smoother reads.  Four kernels,
-one library, picked by the model pair and the rules' shape (:func:`kernel_of`):
+returns all five moment streams that the RTS smoother reads.  Five kernels,
+picked by the model pair and the rules' shape (:func:`kernel_of`):
 
 - ``vector_filter_shaped`` (``csrc/vector_filter_shaped.cu``, the step in
   ``csrc/vector_filter_shaped.cuh``): both rules classical with the same
@@ -22,47 +22,60 @@ one library, picked by the model pair and the rules' shape (:func:`kernel_of`):
   configuration of those pairs (Gauss-Hermite rules, mixed point counts),
   one thread a trajectory, N at run time;
 - ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the step in
-  ``csrc/vector_filter_general.cuh``): every other model pair, one thread a
-  trajectory, D and a bound on E template arguments, the models, E, the
-  kinds and N at run time.
+  ``csrc/vector_filter_general.cuh``): every other pair of the table's
+  models, one thread a trajectory, D and a bound on E template arguments
+  (the wide form, E-sized arrays in the scratch buffer, above E = 8), the
+  models, E, the kinds and N at run time;
+- ``vector_filter_registered`` (``csrc/vector_filter_registered.cu``): the
+  general kernel instantiated on models registered at run time
+  (:func:`register_dyn_dd_vec`, :func:`register_obs_dd_vec`, and 1-D
+  measurement forms of ``scalar_filter.register_obs_dd``), built at first
+  use from a header generated from their :class:`~.forms.KernelForm` s
+  (:func:`build_registered`).
 
-The first three take the five pairs ``ReentryVehicle2DTransition`` or
-``ConstantVelocity`` with ``Radar2DMeasurement``, ``Pendulum2DTransition``
-with ``Pendulum2DMeasurement``, ``ReentryVehicle1DTransition`` with
+The first four take the table's models; the first three only the five
+pairs ``ReentryVehicle2DTransition`` or ``ConstantVelocity`` with
+``Radar2DMeasurement``, ``Pendulum2DTransition`` with
+``Pendulum2DMeasurement``, ``ReentryVehicle1DTransition`` with
 ``RangeMeasurement`` and ``CoordinatedTurnTransition`` with a
 ``BearingMeasurement`` of four sensors.
 
-Supported, as ``ddvec.dd_check`` admits them: ``dim_state <= 8``, additive
-noise on both models, any transition of the table (the five above) with any
-measurement of it (the radar, the sine, the range, bearings from 1 to 8
-sensors, and ``UNGMMeasurement`` of a state component), any ``state_index``
-that picks the components the measurement reads, and for each transform
-either a classical sigma-point rule with diagonal covariance weights or a BQ
-rule with a scalar model variance.  The JAX package's dd engine also takes
-more than 8 bearing sensors; the kernels' parameters hold R up to 8 x 8, so
-the port refuses those.  :func:`check` raises ``ValueError`` with the reason a
-configuration is refused; :func:`supports` answers with a bool.
+Supported, as ``ddvec.dd_check`` admits them under the same registrations:
+``2 <= dim_state <= 8``, additive noise on both models, any transition with
+a kernel form (the table's five, or a registered one) with any measurement
+with a kernel form (the radar, the sine, the range, bearings from any number
+of sensors, ``UNGMMeasurement`` of a state component, or a registered one),
+any ``state_index`` that picks the components a table's measurement reads,
+and for each transform either a classical sigma-point rule with diagonal
+covariance weights or a BQ rule with a scalar model variance.  A model's
+form is looked up as the JAX package looks its evaluator up
+(:func:`~.forms.find_dyn`, :func:`~.forms.find_obs`).  :func:`check` raises
+``ValueError`` with the reason a configuration is refused; :func:`supports`
+answers with a bool.
 
 :func:`vector_filter` is the launch wrapper.  For a CPU tensor it runs the
-plain PyTorch version :func:`_vector_filter_plain`; for a CUDA tensor it
-launches the kernel of :func:`kernel_of` or raises.  Each launch adds one to
-:data:`LAUNCHES`; a launch of the classical shaped kernel also to
-:data:`SHAPED_LAUNCHES`, one of the kernel of the BQ shapes to
-:data:`BQ_SHAPED_LAUNCHES`, one of the general kernel to
-:data:`GENERAL_LAUNCHES`.
+plain PyTorch version :func:`_vector_filter_plain` (a registered form's
+``plain``); for a CUDA tensor it launches the kernel of :func:`kernel_of` or
+raises (a registered configuration whose library does not build raises with
+the compiler's output).  Each launch adds one to :data:`LAUNCHES`; a launch
+of the classical shaped kernel also to :data:`SHAPED_LAUNCHES`, one of the
+kernel of the BQ shapes to :data:`BQ_SHAPED_LAUNCHES`, one of the general
+kernel to :data:`GENERAL_LAUNCHES`, one of the registered kernel to
+:data:`REGISTERED_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
 on the object they were read from (through ``scalar_filter._memo``, which
 notices in-place edits), a rule's constants are copied to a card once, and
-the parameter struct is cached by :class:`VectorFilterParams`.
+the parameter struct is cached by :class:`VectorFilterParams`.  A model's
+form is looked up again at every :func:`prepare`, so a registration made
+since takes effect.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 from dataclasses import dataclass, field
-from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -74,14 +87,16 @@ from ..ssmod import (BearingMeasurement, ConstantVelocity, CoordinatedTurnTransi
                      Pendulum2DMeasurement, Pendulum2DTransition, Radar2DMeasurement,
                      RangeMeasurement, ReentryVehicle1DTransition, ReentryVehicle2DTransition,
                      UNGMMeasurement)
-from . import _build
-from .scalar_filter import _floats, _lookup, _memo
+from . import _build, forms
+from .forms import TORCH_FNS, KernelForm, Registered, find_dyn, find_obs
+from .scalar_filter import _floats, _memo
 
-__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "GENERAL_LAUNCHES", "VecRule",
-           "VectorFilterParams", "lower_transform", "check", "supports", "prepare", "kernel_of",
-           "vector_filter", "build", "chain_floor_clocks", "TORCH_FNS"]
+__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "GENERAL_LAUNCHES",
+           "REGISTERED_LAUNCHES", "VecRule", "VectorFilterParams", "register_dyn_dd_vec",
+           "register_obs_dd_vec", "lower_transform", "check", "supports", "prepare", "kernel_of",
+           "vector_filter", "build", "build_registered", "chain_floor_clocks", "TORCH_FNS"]
 
-#: kernel launches made by :func:`vector_filter` in this process, all four kernels
+#: kernel launches made by :func:`vector_filter` in this process, all five kernels
 LAUNCHES = 0
 #: the launches of the classical shaped kernel among them
 SHAPED_LAUNCHES = 0
@@ -89,6 +104,8 @@ SHAPED_LAUNCHES = 0
 BQ_SHAPED_LAUNCHES = 0
 #: the launches of the general kernel among them
 GENERAL_LAUNCHES = 0
+#: the launches of the registered kernel among them
+REGISTERED_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
@@ -101,8 +118,10 @@ _SHAPED_MAX_DIM, _SHAPED_MAX_PTS = 5, 11
 #: operation rounds on its own, like the plain version's separate operations
 _NVCC_FLAGS = ["--fmad=false"]
 
-#: the models with a kernel form: class -> (id in the step header, constants);
-#: a measurement's constants are a tensor on its device or a tuple of floats
+#: the table's models, the kernels' own: class -> (id in the step header,
+#: constants); a measurement's constants are a tensor on its device or a
+#: tuple of floats.  ``UNGMMeasurement`` is found by exact type, as the JAX
+#: package's scalar registry holds it (:func:`~.forms.find_obs`)
 _DYN_MODELS = {
     ReentryVehicle2DTransition: (0, lambda m: (m.dt, m.R0, m.H0, m.Gm0, m.b0)),
     ConstantVelocity: (1, lambda m: (m.dt,)),
@@ -123,8 +142,29 @@ _OBS_MODELS = {
 _PAIRS = {(0, 0), (1, 0), (2, 1), (3, 2), (4, 3)}
 #: the bearing sensors of their bearing measurement
 _BEARING_SENSORS = 4
-#: ``VF_MAX_OBS_C``: room for the measurement's constants (8 sensors' x, y)
+#: ``VF_MAX_OBS_C``: room for the measurement's constants in the parameter
+#: struct (8 sensors' x, y); the general kernels read them from device memory
 _MAX_OBS_C = 16
+
+
+def register_dyn_dd_vec(model_cls, lower):
+    """Register a transition model for ``engine="dd"`` (``ddvec.
+    register_dyn_dd_vec``): ``lower(model, n_steps) -> (streams, form)``,
+    ``streams`` a list of (n_steps,) float64 arrays of per-step constants
+    (step k reads value k of each), ``form`` the transition's
+    :class:`~.forms.KernelForm`.  Found through the MRO, a class's own
+    registration before its bases'; registering a class again replaces its
+    entry.  2-8-D states run in the registered vector kernel, 1-D ones in the
+    scalar filter kernel's registered form."""
+    forms.DYN_DD_VEC[model_cls] = lower
+
+
+def register_obs_dd_vec(model_cls, lower):
+    """Register a measurement model (``ddvec.register_obs_dd_vec``):
+    ``lower(model) -> form``, a :class:`~.forms.KernelForm` that reads the
+    whole state and gathers the components it measures itself.  Found
+    through the MRO."""
+    forms.OBS_DD_VEC[model_cls] = lower
 
 
 # ---------------------------------------------------------------------------
@@ -211,6 +251,19 @@ def _lower(tf, dim_in: int) -> VecRule:
                    emv=float(tf.model_var.reshape(())))
 
 
+def _forms(mod_dyn, mod_obs):
+    """The kernel forms of both models (:func:`~.forms.find_dyn`,
+    :func:`~.forms.find_obs`); ``ValueError`` naming a model without one."""
+    found = find_dyn(mod_dyn, _DYN_MODELS), find_obs(mod_obs, _OBS_MODELS)
+    for model, form in zip((mod_dyn, mod_obs), found):
+        if form is None:
+            raise ValueError(f"the fused vector filter has no kernel form of "
+                             f"{type(model).__name__} (register one: register_dyn_dd_vec / "
+                             "register_obs_dd_vec, or scalar_filter.register_dyn_dd / "
+                             "register_obs_dd)")
+    return found
+
+
 def check(mod_dyn, mod_obs, tf_dyn, tf_obs):
     """Raise ``ValueError`` with the reason the fused vector filter cannot run
     this configuration (in the order of ``ddvec.dd_check``); return None when
@@ -221,22 +274,18 @@ def check(mod_dyn, mod_obs, tf_dyn, tf_obs):
     if not (mod_dyn.noise_additive and mod_obs.noise_additive):
         raise ValueError("the fused vector filter requires additive process and "
                          "measurement noise")
-    for model, table in ((mod_dyn, _DYN_MODELS), (mod_obs, _OBS_MODELS)):
-        if _lookup(table, model) is None:
-            raise ValueError(f"the fused vector filter has no kernel form of "
-                             f"{type(model).__name__}")
-    if mod_obs.dim_out > _MAX_DIM:
-        # the JAX package's dd engine takes them; ROADMAP queue 3 lists the difference
-        raise ValueError(f"the fused vector filter takes at most {_MAX_DIM} bearing sensors "
-                         f"(its parameters hold R up to {_MAX_DIM} x {_MAX_DIM}); got "
-                         f"{mod_obs.dim_out}")
+    dyn, _ = _forms(mod_dyn, mod_obs)
+    if D < 2 or dyn == "ungm":
+        raise ValueError(f"the fused vector filter takes dim_state >= 2; got {D} (1-D states "
+                         "run in the scalar filter kernel, ops.scalar_filter)")
     lower_transform(tf_dyn, D)
     lower_transform(tf_obs, D)
 
 
 def supports(mod_dyn, mod_obs, tf_dyn, tf_obs) -> bool:
     """True if the fused vector filter can run this configuration: the
-    answer of ``ddvec.dd_supports`` on the models the port has."""
+    answer of ``ddvec.dd_supports`` on states of 2-8 dimensions, under the
+    same registrations."""
     try:
         check(mod_dyn, mod_obs, tf_dyn, tf_obs)
     except ValueError:
@@ -247,7 +296,11 @@ def supports(mod_dyn, mod_obs, tf_dyn, tf_obs) -> bool:
 @dataclass(frozen=True)
 class VectorFilterParams:
     """Everything the kernel takes besides the measurements; matrices as
-    row-major tuples.  Hashable: the parameter struct is cached by it."""
+    row-major tuples.  Hashable: the parameter struct is cached by it.  A
+    registered model's form stands in ``dyn_form`` / ``obs_form`` (its model
+    id then -1, its constants in ``dyn_c`` / ``obs_c``); ``obs_index``: the
+    state component a scalar-registry form reads; ``streams(n_steps)``: a
+    registered transition's ``n_s`` per-step streams, (n_steps, n_s)."""
 
     dyn: VecRule
     obs: VecRule
@@ -262,18 +315,23 @@ class VectorFilterParams:
     P0: tuple
     gqg: tuple
     r: tuple
+    dyn_form: KernelForm | None = None
+    obs_form: KernelForm | None = None
+    obs_index: int | None = None
+    n_s: int = 0
+    streams: object = field(default=None, compare=False)
+    _on: dict = field(default_factory=dict, compare=False, repr=False)
 
 
 def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
             ) -> VectorFilterParams:
     """Lower a configuration to :class:`VectorFilterParams` (``ddvec._prepare``):
-    the two rules, the models' constants, the initial moments (or
+    the two rules, the models' forms and constants, the initial moments (or
     ``init_mean`` / ``init_cov``), ``G Q G^T`` and ``R``.  ``ValueError``
     names the piece the kernel cannot run."""
     check(mod_dyn, mod_obs, tf_dyn, tf_obs)
     D, E = mod_dyn.dim_state, mod_obs.dim_out
-    dyn_id, dyn_c = _lookup(_DYN_MODELS, mod_dyn)
-    obs_id, obs_src = _lookup(_OBS_MODELS, mod_obs)
+    dyn, obs = _forms(mod_dyn, mod_obs)
     (m0_t, P0_t), q_t = mod_dyn.init_rv.get_stats()[:2], mod_dyn.noise_rv.get_stats()[1]
     r_t = mod_obs.noise_rv.get_stats()[1]
 
@@ -285,23 +343,36 @@ def prepare(mod_dyn, mod_obs, tf_dyn, tf_obs, init_mean=None, init_cov=None
     m0, P0, gqg = _memo(mod_dyn, "_vector_filter_consts", (m0_t, P0_t, q_t, mod_dyn.noise_gain),
                         dyn_consts)
     r = _memo(mod_obs, "_vector_filter_r", (r_t,), lambda: _floats(r_t.reshape(E, E)))
-    c_src = obs_src(mod_obs)
-    obs_c = (_memo(mod_obs, "_vector_filter_c", (c_src,), lambda: _floats(c_src))
-             if isinstance(c_src, torch.Tensor) else _floats(c_src))
-    sub = mod_obs.dim_substate
-    idx = mod_obs.state_index if mod_obs.state_index is not None else tuple(range(sub))
-    if len(idx) < sub or max(idx[:sub]) >= D:
-        raise ValueError(f"state_index {idx} does not pick the {sub} component(s) "
-                         f"{type(mod_obs).__name__} reads from a state of dimension {D}")
+    if isinstance(dyn, Registered):
+        dyn_id, dyn_c = -1, dyn.form.consts
+    else:
+        dyn_id, dyn_c = dyn[0], tuple(float(c) for c in dyn[1](mod_dyn))
+    idx = (0, 0)
+    if isinstance(obs, Registered):
+        obs_id, obs_c = -1, obs.form.consts
+    else:
+        obs_id, obs_src = obs if obs != "ungm" else _OBS_MODELS[UNGMMeasurement]
+        c_src = obs_src(mod_obs)
+        obs_c = (_memo(mod_obs, "_vector_filter_c", (c_src,), lambda: _floats(c_src))
+                 if isinstance(c_src, torch.Tensor) else _floats(c_src))
+        sub = mod_obs.dim_substate
+        idx = mod_obs.state_index if mod_obs.state_index is not None else tuple(range(sub))
+        if len(idx) < sub or max(idx[:sub]) >= D:
+            raise ValueError(f"state_index {idx} does not pick the {sub} component(s) "
+                             f"{type(mod_obs).__name__} reads from a state of dimension {D}")
+        idx = tuple(int(i) for i in idx[:sub])
     if init_mean is not None:
         m0 = _floats(np.reshape(_floats(init_mean), D))
     if init_cov is not None:
         P0 = _floats(np.reshape(_floats(init_cov), (D, D)))
+    reg_dyn, reg_obs = (f if isinstance(f, Registered) else None for f in (dyn, obs))
     return VectorFilterParams(
         dyn=lower_transform(tf_dyn, D), obs=lower_transform(tf_obs, D),
-        dyn_model=dyn_id, obs_model=obs_id, dim_state=D, dim_out=E,
-        dyn_c=tuple(float(c) for c in dyn_c(mod_dyn)), obs_c=obs_c,
-        obs_idx=tuple(int(i) for i in idx[:sub]), m0=m0, P0=P0, gqg=gqg, r=r)
+        dyn_model=dyn_id, obs_model=obs_id, dim_state=D, dim_out=E, dyn_c=dyn_c, obs_c=obs_c,
+        obs_idx=idx, m0=m0, P0=P0, gqg=gqg, r=r,
+        dyn_form=reg_dyn and reg_dyn.form, obs_form=reg_obs and reg_obs.form,
+        obs_index=reg_obs and reg_obs.index, n_s=reg_dyn.n_s if reg_dyn else 0,
+        streams=reg_dyn and reg_dyn.streams)
 
 
 def _instantiated(params: VectorFilterParams) -> bool:
@@ -312,14 +383,21 @@ def _instantiated(params: VectorFilterParams) -> bool:
             and (params.obs_model != 3 or params.dim_out == _BEARING_SENSORS))
 
 
+def _registered_pair(params: VectorFilterParams) -> bool:
+    return params.dyn_form is not None or params.obs_form is not None
+
+
 def kernel_of(params: VectorFilterParams) -> str:
-    """The kernel that runs ``params``.  A model pair that the first version
-    and the shaped kernels do not instantiate: ``"vector_filter_general"``.
+    """The kernel that runs ``params``.  A registered model on either side:
+    ``"vector_filter_registered"``.  A model pair that the first version and
+    the shaped kernels do not instantiate: ``"vector_filter_general"``.
     Else both rules with the same point count N = 2 D + 1 or 2 D (the UT and
     CKF counts): ``"vector_filter_shaped"`` when both are classical, else
     ``"vector_filter_shaped_bq"``.  Any other count (Gauss-Hermite) or mixed
     counts: ``"vector_filter"``, the first version."""
     D, dyn, obs = params.dim_state, params.dyn, params.obs
+    if _registered_pair(params):
+        return "vector_filter_registered"
     if not _instantiated(params):
         return "vector_filter_general"
     if dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
@@ -331,15 +409,6 @@ def kernel_of(params: VectorFilterParams) -> str:
 # the plain PyTorch version
 # ---------------------------------------------------------------------------
 
-#: the transcendentals of the plain version, PyTorch's: on the card these are
-#: CUDA's libm, as in the kernel.  A host build of the step header calls the C
-#: library's, which PyTorch's vectorised CPU ``exp``, ``sqrt``, ``sin``,
-#: ``cos`` and ``atan2`` may be an ulp off; ``_vector_filter_plain`` takes
-#: others through ``fns``.
-TORCH_FNS = SimpleNamespace(sqrt=torch.sqrt, exp=torch.exp, sin=torch.sin, cos=torch.cos,
-                            atan2=torch.atan2)
-
-
 def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     """``v`` as a 0-dim tensor beside ``like``: a division by it rounds once
     (PyTorch divides a CUDA tensor by a Python number as a multiplication by
@@ -348,10 +417,20 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float64, device=like.device)
 
 
-def _dyn_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor:
+def _streams_on(params: VectorFilterParams, T: int, device) -> torch.Tensor:
+    """A registered transition's per-step streams of a T-step record,
+    (T, n_s), on ``device``."""
+    return forms.on_device(params._on, f"streams_{T}", device, lambda: params.streams(T))
+
+
+def _dyn_plain(params: VectorFilterParams, x: torch.Tensor, fns, s=None) -> torch.Tensor:
     """The dynamics at zero noise on states ``x`` (..., D), as the step header
-    evaluates them."""
+    evaluates them; ``s``: a registered transition's stream values of this
+    step."""
     c = params.dyn_c
+    if params.dyn_form is not None:
+        return params.dyn_form.plain(x, forms.on_device(params._on, "dyn_c", x.device, lambda: c),
+                                     s, fns)
     if params.dyn_model == 1:
         x0, x1, x2, x3 = x.unbind(-1)
         return torch.stack([x0 + c[0] * x1, x1, x2 + c[0] * x3, x3], dim=-1)
@@ -385,6 +464,11 @@ def _obs_plain(params: VectorFilterParams, x: torch.Tensor, fns) -> torch.Tensor
     """The measurement at zero noise of states ``x`` (..., D), as the step
     header evaluates it."""
     c, first = params.obs_c, x[..., params.obs_idx[0]]
+    if params.obs_form is not None:
+        if params.obs_index is not None:
+            x = x[..., params.obs_index:params.obs_index + 1]
+        return params.obs_form.plain(x, forms.on_device(params._on, "obs_c", x.device, lambda: c),
+                                     fns)
     if params.obs_model == 1:
         return fns.sin(first)[..., None]
     if params.obs_model == 4:
@@ -475,7 +559,8 @@ def _empty_streams(D: int, T: int, B: int, device) -> tuple:
 def _vector_filter_plain(params: VectorFilterParams, y: torch.Tensor, fns=TORCH_FNS):
     """The kernel's computation as batched torch operations over the B
     trajectories and a Python loop over the T steps; same arguments and
-    results as :func:`vector_filter`.  ``fns``: the transcendentals to take,
+    results as :func:`vector_filter`, for every kernel (a registered model
+    through its form's ``plain``).  ``fns``: the transcendentals to take,
     ``sqrt``, ``exp``, ``sin``, ``cos`` and ``atan2`` (:data:`TORCH_FNS` by
     default)."""
     B, E, T = y.shape
@@ -485,9 +570,11 @@ def _vector_filter_plain(params: VectorFilterParams, y: torch.Tensor, fns=TORCH_
     P = torch.tensor(params.P0, dtype=torch.float64, device=dev).reshape(D, D).expand(B, D, D)
     gqg = torch.tensor(params.gqg, dtype=torch.float64, device=dev).reshape(D, D)
     r = torch.tensor(params.r, dtype=torch.float64, device=dev).reshape(E, E)
+    streams = _streams_on(params, T, dev) if params.dyn_form is not None else None
     for k in range(T):
+        s = None if streams is None else streams[k]
         m_pr, Pf, xx = _moments_plain(params.dyn, m, _chol_plain(P, fns.sqrt),
-                                      lambda x: _dyn_plain(params, x, fns))
+                                      lambda x: _dyn_plain(params, x, fns, s))
         P_pr = Pf + gqg
         y_pr, S, C = _moments_plain(params.obs, m_pr, _chol_plain(P_pr, fns.sqrt),
                                     lambda x: _obs_plain(params, x, fns))
@@ -561,17 +648,41 @@ def _square(vals: tuple, n: int, into):
 @functools.lru_cache(maxsize=64)
 def _c_params(p: VectorFilterParams, device: torch.device) -> _CParams:
     """The kernel's parameter struct for the rules' constants on ``device``,
-    built once for a given ``(p, device)``."""
+    built once for a given ``(p, device)``.  The measurement's constants and
+    R stand in it where they fit (the general kernels read them from device
+    memory, :func:`_c_general`), a table transition's constants always."""
     D, E = p.dim_state, p.dim_out
     c = _CParams(dyn=_c_rule(p.dyn, D, device), obs=_c_rule(p.obs, D, device),
                  dyn_model=p.dyn_model, obs_model=p.obs_model, dim_state=D, dim_out=E)
-    c.dyn_c[:len(p.dyn_c)] = p.dyn_c
-    c.obs_c[:len(p.obs_c)] = p.obs_c
+    if p.dyn_form is None:
+        c.dyn_c[:len(p.dyn_c)] = p.dyn_c
+    if p.obs_form is None and len(p.obs_c) <= _MAX_OBS_C and E <= _MAX_DIM:
+        c.obs_c[:len(p.obs_c)] = p.obs_c
+        _square(p.r, E, c.r)
     c.obs_idx[:len(p.obs_idx)] = p.obs_idx
     c.m0[:D] = p.m0
     _square(p.P0, D, c.P0)
     _square(p.gqg, D, c.gqg)
-    _square(p.r, E, c.r)
+    return c
+
+
+class _CGParams(ctypes.Structure):
+    """``VfgParams``: the general kernels' parameters."""
+    _fields_ = [("base", _CParams), ("obs_c", ctypes.c_void_p), ("r", ctypes.c_void_p),
+                ("dyn_c", ctypes.c_void_p)]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_general(p: VectorFilterParams, device: torch.device) -> _CGParams:
+    """The general kernels' parameter struct: :func:`_c_params` and the
+    measurement's constants, R and a registered transition's constants
+    copied to ``device`` (kept alive on the struct); built once for a given
+    ``(p, device)``."""
+    keep = tuple(torch.tensor(v or (0.0,), dtype=torch.float64, device=device)
+                 for v in (p.obs_c, p.r, p.dyn_c if p.dyn_form is not None else ()))
+    c = _CGParams(base=_c_params(p, device), obs_c=keep[0].data_ptr(), r=keep[1].data_ptr(),
+                  dyn_c=keep[2].data_ptr())
+    c.keep = keep
     return c
 
 
@@ -662,6 +773,8 @@ def _c_struct(kernel: str, params: VectorFilterParams, device: torch.device):
         return _c_shaped_params(params, device)
     if kernel == "vector_filter_shaped_bq":
         return _c_shaped_bq_params(params, device)
+    if kernel in ("vector_filter_general", "vector_filter_registered"):
+        return _c_general(params, device)
     return _c_params(params, device)
 
 
@@ -682,7 +795,7 @@ def _bind(lib: ctypes.CDLL):
     lib.vfs_bq_launch.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS + [ctypes.c_int]
                                   + [ctypes.c_void_p] * 6)
     lib.vfg_launch.restype = ctypes.c_int
-    lib.vfg_launch.argtypes = lib.vf_launch.argtypes
+    lib.vfg_launch.argtypes = [ctypes.POINTER(_CGParams)] + lib.vf_launch.argtypes[1:]
 
 
 #: the sources of the library: the first-version kernel, the classical shaped
@@ -707,13 +820,119 @@ def _bind_host(lib: ctypes.CDLL):
     lib.vfs_bq_host_run.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS
                                     + [ctypes.c_void_p] * 5)
     lib.vfg_host_run.restype = ctypes.c_int
-    lib.vfg_host_run.argtypes = lib.vf_host_run.argtypes
+    lib.vfg_host_run.argtypes = [ctypes.POINTER(_CGParams)] + lib.vf_host_run.argtypes[1:]
 
 
 def _host_shim() -> ctypes.CDLL:
     """The step header built for the host with g++ (tests only)."""
     return _build.bound("vector_filter_host", ["vector_filter_host.cpp"], _bind_host,
                         host=True)
+
+
+# ---------------------------------------------------------------------------
+# the registered kernel: a library generated from the registered forms
+# ---------------------------------------------------------------------------
+
+#: the configurations of the registered libraries built in this process:
+#: ``(host, key)`` -> (library, index in its ``VFR_PAIRS``)
+_REGISTERED: dict = {}
+#: the arguments of ``vfr_launch`` / ``vfr_host_run`` from ``y`` on
+_R_ARGS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3)
+
+
+def _bound_of(E: int) -> int:
+    """``vfg_bound``: the bound EB on E of the step that runs E outputs, 0
+    (the wide form) above 8."""
+    return 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0
+
+
+def _model_policy(params: VectorFilterParams, name: str) -> str:
+    """The C++ model policy of ``params``' configuration (see
+    ``csrc/vector_filter_registered.cu``): each registered form's statements
+    as a functor, the table's models through ``VfgDynFn`` / ``VfgObsFn``."""
+    D, EB = params.dim_state, _bound_of(params.dim_out)
+    if params.dyn_form is None:
+        dyn = (f"  VF_HD static VfgDynFn<{D}> dyn(const VfgParams& p, const double*) "
+               "{ return {p.base}; }")
+    else:
+        dyn = (f"  struct Dyn {{\n    const double* c;\n    const double* s;\n"
+               f"    VF_HD void operator()(const double (&x)[{D}], double (&f)[{D}]) const {{\n"
+               f"{forms.c_block(params.dyn_form.source)}\n    }}\n  }};\n"
+               "  VF_HD static Dyn dyn(const VfgParams& p, const double* s) "
+               "{ return {p.dyn_c, s}; }")
+    if params.obs_form is None:
+        obs = (f"  VF_HD static VfgObsFn<{D}, {EB}> obs(const VfgParams& p) {{ return {{p}}; }}")
+    else:
+        arg, gather = "x", ""
+        if params.obs_index is not None:
+            arg, gather = "x_state", f"    const double x[1] = {{x_state[{params.obs_index}]}};\n"
+        obs = (f"  struct Obs {{\n    const double* c;\n    template <class H>\n"
+               f"    VF_HD void operator()(const double (&{arg})[{D}], H&& h) const {{\n"
+               f"{gather}{forms.c_block(params.obs_form.source)}\n    }}\n  }};\n"
+               "  VF_HD static Obs obs(const VfgParams& p) { return {p.obs_c}; }")
+    return f"struct {name} {{\n{dyn}\n{obs}\n}};\n"
+
+
+def _key(params: VectorFilterParams) -> tuple:
+    """What the registered library instantiates for ``params``: D, the bound
+    on E and the model policy."""
+    return params.dim_state, _bound_of(params.dim_out), _model_policy(params, "VfrPair")
+
+
+def _registered_header(keys: list) -> str:
+    """``vfr_forms.cuh`` for the configurations ``keys``."""
+    parts = ["// Generated by ssmtoybox_torch/ops/vector_filter.py (build_registered): the",
+             "// model policies of the registered configurations.", "#pragma once", ""]
+    for i, (_, _, policy) in enumerate(keys):
+        parts.append(policy.replace("struct VfrPair {", f"struct VfrPair{i} {{", 1))
+    pairs = " ".join(f"F({i}, {D}, {EB}, VfrPair{i})" for i, (D, EB, _) in enumerate(keys))
+    return "\n".join(parts) + f"\n#define VFR_PAIRS(F) {pairs}\n"
+
+
+def _bind_registered(lib: ctypes.CDLL):
+    lib.vfr_launch.restype = ctypes.c_int
+    lib.vfr_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CGParams)] + _R_ARGS
+                               + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+    lib.vfr_error_string.restype = ctypes.c_char_p
+    lib.vfr_error_string.argtypes = [ctypes.c_int]
+
+
+def _bind_registered_host(lib: ctypes.CDLL):
+    lib.vfr_host_run.restype = ctypes.c_int
+    lib.vfr_host_run.argtypes = ([ctypes.c_int, ctypes.POINTER(_CGParams)] + _R_ARGS
+                                 + [ctypes.c_void_p] * 6)
+
+
+def build_registered(configs, host: bool = False) -> str:
+    """Build one library of the registered kernel for the configurations
+    ``configs`` (:class:`VectorFilterParams` with a registered model) with
+    nvcc for sm_90a (with g++, the host build ``vfr_host_run`` of
+    ``csrc/vector_filter_host.cpp``, if ``host``): a header of their model
+    policies is generated, only their instantiations are compiled, and
+    their launches go to it from then on.  A configuration's first launch
+    builds a library for it alone if none holds it.  Returns the library's
+    name (its compiler output is ``_build.BUILD_LOGS[name]``); a failed build
+    raises ``RuntimeError`` with the compiler's output."""
+    keys = list(dict.fromkeys(_key(p) for p in configs if _registered_pair(p)))
+    if not keys:
+        raise ValueError("no configuration with a registered model to build")
+    if host:
+        return forms.build_generated(
+            _REGISTERED, keys, _registered_header(keys), name="vector_filter_registered_host",
+            source="vector_filter_host.cpp", file="vfr_forms.cuh", bind=_bind_registered_host,
+            flags=["-DVFR_REGISTERED"], host=True)
+    return forms.build_generated(
+        _REGISTERED, keys, _registered_header(keys), name="vector_filter_registered",
+        source="vector_filter_registered.cu", file="vfr_forms.cuh", bind=_bind_registered,
+        flags=_NVCC_FLAGS, host=False)
+
+
+def _registered(params: VectorFilterParams, host: bool) -> tuple:
+    """(library, index) of ``params``' configuration, built at first use."""
+    key = _key(params)
+    if (host, key) not in _REGISTERED:
+        build_registered([params], host)
+    return _REGISTERED[host, key]
 
 
 def _check_streams(params: VectorFilterParams, y: torch.Tensor):
@@ -727,36 +946,48 @@ def _check_streams(params: VectorFilterParams, y: torch.Tensor):
 
 def _scratch(params: VectorFilterParams, B: int, device) -> torch.Tensor:
     """The function values of every point of a transform, interleaved by
-    trajectory."""
-    n = max(params.dyn.n * params.dim_state, params.obs.n * params.dim_out)
+    trajectory, and for more than 8 measurement outputs the wide form's
+    E-sized arrays after them (``vfg_values`` and ``vfg_step_wide``)."""
+    D, E = params.dim_state, params.dim_out
+    n = max(params.dyn.n * D, params.obs.n * E)
+    if E > _MAX_DIM:
+        n += 2 * E + 2 * E * E + 4 * D * E
     return torch.empty(n * B, dtype=torch.float64, device=device)
 
 
 def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | None = None):
     """Run the step of ``kernel`` (``"vector_filter"``,
-    ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"`` or
-    ``"vector_filter_general"``; by default the first version where it has
-    an instantiation of the model pair, else the general kernel) compiled
-    for the host on a CPU tensor; the five streams of :func:`vector_filter`,
-    after checking that an instantiation of the configuration's dimensions
-    ran."""
+    ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"``,
+    ``"vector_filter_general"`` or ``"vector_filter_registered"``; by default
+    the first version where it has an instantiation of the model pair, the
+    registered kernel for a registered model, else the general kernel)
+    compiled for the host on a CPU tensor; the five streams of
+    :func:`vector_filter`, after checking that an instantiation of the
+    configuration's dimensions ran."""
     _check_streams(params, y)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
     if kernel is None:
-        kernel = "vector_filter" if _instantiated(params) else "vector_filter_general"
+        kernel = ("vector_filter_registered" if _registered_pair(params) else
+                  "vector_filter" if _instantiated(params) else "vector_filter_general")
     B, _, T = y.shape
     out = _empty_streams(params.dim_state, T, B, "cpu")
-    c = _c_struct(kernel, params, torch.device("cpu"))     # refuses before anything is built
-    lib = _host_shim()
-    if kernel == "vector_filter_shaped":
-        ran = lib.vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
-                               *(o.data_ptr() for o in out))
+    cpu = torch.device("cpu")
+    c = _c_struct(kernel, params, cpu)                     # refuses before anything is built
+    if kernel == "vector_filter_registered":
+        lib, pair = _registered(params, host=True)
+        s, scratch = _streams_on(params, T, cpu), _scratch(params, B, cpu)
+        ran = lib.vfr_host_run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
+                               params.n_s, B, T, *(o.data_ptr() for o in out),
+                               scratch.data_ptr())
+    elif kernel == "vector_filter_shaped":
+        ran = _host_shim().vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                        *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_shaped_bq":
-        ran = lib.vfs_bq_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
-                                  *(o.data_ptr() for o in out))
+        ran = _host_shim().vfs_bq_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                           *(o.data_ptr() for o in out))
     else:
-        scratch = _scratch(params, B, "cpu")
+        lib, scratch = _host_shim(), _scratch(params, B, cpu)
         run = lib.vfg_host_run if kernel == "vector_filter_general" else lib.vf_host_run
         ran = run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                   *(o.data_ptr() for o in out), scratch.data_ptr())
@@ -776,7 +1007,7 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     version; a CUDA tensor launches the kernel of :func:`kernel_of` on the
     current stream, without synchronising, or raises.
     """
-    global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, GENERAL_LAUNCHES
+    global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
@@ -784,7 +1015,8 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
         raise ValueError(f"the vector filter runs on CPU or CUDA tensors; got {y.device}")
     kernel = kernel_of(params)
     c = _c_struct(kernel, params, y.device)               # refuses before anything is built
-    lib = build()
+    registered = kernel == "vector_filter_registered"
+    lib, pair = _registered(params, host=False) if registered else (build(), None)
     B, _, T = y.shape
     out = _empty_streams(params.dim_state, T, B, y.device)
     if y.numel() == 0:
@@ -792,7 +1024,12 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     args = (ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, y.device.index or 0,
             *(o.data_ptr() for o in out))
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    if kernel == "vector_filter_shaped":
+    if registered:
+        s, scratch = _streams_on(params, T, y.device), _scratch(params, B, y.device)
+        rc = lib.vfr_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
+                            params.n_s, B, T, y.device.index or 0, *(o.data_ptr() for o in out),
+                            scratch.data_ptr(), stream)
+    elif kernel == "vector_filter_shaped":
         rc = lib.vfs_launch(*args, stream)
     elif kernel == "vector_filter_shaped_bq":
         rc = lib.vfs_bq_launch(*args, stream)
@@ -801,12 +1038,13 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
         launch = lib.vfg_launch if kernel == "vector_filter_general" else lib.vf_launch
         rc = launch(*args, scratch.data_ptr(), stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: "
-                           f"{lib.vf_error_string(rc).decode()} (cudaError {rc})")
+        text = (lib.vfr_error_string if registered else lib.vf_error_string)(rc).decode()
+        raise RuntimeError(f"{kernel} kernel launch failed: {text} (cudaError {rc})")
     LAUNCHES += 1
     SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped")
     BQ_SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped_bq")
     GENERAL_LAUNCHES += int(kernel == "vector_filter_general")
+    REGISTERED_LAUNCHES += int(registered)
     return out
 
 

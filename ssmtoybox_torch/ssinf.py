@@ -251,11 +251,14 @@ def gaussian_filter_batch(mod_dyn, mod_obs, tf_dyn, tf_obs, data_batch,
       through :mod:`.ops.scalar_filter` (the UNGM transition with the UNGM,
       sine or range measurement, rules of any point count), states of
       dimension 2-8 through :mod:`.ops.vector_filter` (every transition of
-      its table with every measurement of it, bearings from up to 8 sensors);
-      both take additive noise and classical rules with diagonal weights or
-      BQ rules with a scalar model variance, what the JAX package's dd engine
-      takes but bearings from more than 8 sensors; anything either refuses
-      raises ``ValueError`` naming the reason.
+      its table with every measurement of it, bearings from any number of
+      sensors); models registered with ``ops.register_dyn_dd_vec`` /
+      ``register_obs_dd_vec`` / ``register_dyn_dd`` / ``register_obs_dd``
+      run in the same kernels (1-D in the scalar one, 2-8-D in the vector
+      one).  Both take additive noise and classical rules with diagonal
+      weights or BQ rules with a scalar model variance, what the JAX
+      package's dd engine takes under the same registrations; anything
+      either refuses raises ``ValueError`` naming the reason.
     - ``"auto"``: ``"dd"`` when the configuration supports it, else ``"f64"``.
 
     The fused results are views in the layout above of time-major streams.

@@ -888,3 +888,189 @@ def test_general_scalar_form_matches_plain(card, rule):
     for s, g, r in zip(STREAMS, got, sf._scalar_filter_plain(params, y, c)):
         assert bool(torch.isfinite(g).all()), s
         assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+
+
+@pytest.mark.parametrize("sensors", [9, 16])
+def test_general_vector_kernel_takes_any_bearing_count(card, sensors):
+    """CT with bearings from more than 8 sensors: the general kernel's wide
+    form, one launch counted on it, equal to the plain version to the bit
+    over 20 steps, a second launch equal to the first."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    from ssmtoybox_torch.ssmod import BearingMeasurement
+    dyn = _general_systems(card)["ct_radar"][0]
+    pos = [[100.0 + 150.0 * np.cos(0.2 + 2 * np.pi * i / 16),
+            100.0 + 150.0 * np.sin(0.2 + 2 * np.pi * i / 16)] for i in range(sensors)]
+    obs = BearingMeasurement(GaussRV(sensors, cov=1e-3 * np.eye(sensors), device=card),
+                             dim_state=5, state_index=[0, 2], sensor_pos=pos)
+    alg = stt.CubatureKalman(dyn, obs)
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.kernel_of(params) == "vector_filter_general"
+    y = _zoo_records(card, dyn, obs, 257)
+    before = (vf.LAUNCHES, vf.GENERAL_LAUNCHES)
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before[0], vf.GENERAL_LAUNCHES - before[1]) == (1, 1)
+    again = vf.vector_filter(params, y)
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s
+
+
+# ---------------------------------------------------------------------------
+# models registered at run time (ops.register_*): the registered vector
+# kernel (csrc/vector_filter_registered.cu) and the scalar kernel's
+# registered form (csrc/scalar_filter_registered.cu), built from headers
+# generated from the forms
+# ---------------------------------------------------------------------------
+
+class _Driven(stt.ssmod.TransitionModel):
+    """A driven pendulum: ``[x0 + dt x1, x1 - w dt sin(x0) + dt u_t]``."""
+    dim_state, dim_noise = 2, 2
+    DT, W = 0.05, 4.0
+
+    def dyn_fcn(self, x, q, time):
+        x0, x1 = x.unbind(-1)
+        u = 0.5 * float(np.sin(0.1 * time))
+        return torch.stack([x0 + self.DT * x1,
+                            x1 - (self.W * self.DT) * torch.sin(x0) + self.DT * u], -1) + q
+
+
+class _Growth(stt.ssmod.TransitionModel):
+    """``0.5 x + 5 x / (1 + x^2) + 2 cos(0.7 t)``."""
+    dim_state, dim_noise = 1, 1
+
+    def dyn_fcn(self, x, q, time):
+        return 0.5 * x + 5.0 * (x / (1.0 + x * x)) + 2.0 * float(np.cos(0.7 * time)) + q
+
+
+class _PendulumCopy(stt.ssmod.Pendulum2DTransition):
+    pass
+
+
+def _driven_lower(model, n_steps):
+    from ssmtoybox_torch.ops import KernelForm
+
+    def plain(x, c, s, fns):
+        x0, x1 = x.unbind(-1)
+        return torch.stack([x0 + c[0] * x1, x1 - c[1] * fns.sin(x0) + c[0] * s[0]], -1)
+    return [0.5 * np.sin(0.1 * np.arange(n_steps))], KernelForm(
+        "f[0] = x[0] + c[0] * x[1];\nf[1] = x[1] - c[1] * sin(x[0]) + c[0] * s[0];",
+        (model.DT, model.W * model.DT), plain)
+
+
+def _pendulum_lower(model, n_steps):
+    from ssmtoybox_torch.ops import KernelForm
+
+    def plain(x, c, s, fns):
+        x0, x1 = x.unbind(-1)
+        return torch.stack([x0 + x1 * c[0], x1 - c[1] * fns.sin(x0)], -1)
+    return [], KernelForm("f[0] = x[0] + x[1] * c[0];\nf[1] = x[1] - c[1] * sin(x[0]);",
+                          (model.dt, model.g * model.dt), plain)
+
+
+@pytest.fixture
+def registered():
+    """The models above registered in the port, unregistered afterwards."""
+    from ssmtoybox_torch.ops import (KernelForm, forms, register_dyn_dd, register_dyn_dd_vec)
+    register_dyn_dd_vec(_Driven, _driven_lower)
+    register_dyn_dd_vec(_PendulumCopy, _pendulum_lower)
+    register_dyn_dd(_Growth, lambda m, n: 2.0 * np.cos(0.7 * np.arange(n)), KernelForm(
+        "f[0] = 0.5 * x[0] + 5.0 * (x[0] / (1.0 + x[0] * x[0])) + s[0];", (),
+        lambda x, c, s, fns: 0.5 * x + 5.0 * (x / (1.0 + x * x)) + s[0]))
+    yield
+    for reg, cls in ((forms.DYN_DD_VEC, _Driven), (forms.DYN_DD_VEC, _PendulumCopy),
+                     (forms.DYN_DD, _Growth)):
+        reg.pop(cls, None)
+
+
+def _radar(card, D):
+    from ssmtoybox_torch.ssmod import Radar2DMeasurement
+    return Radar2DMeasurement(GaussRV(2, cov=np.diag([0.01, 1e-3]), device=card), dim_state=D,
+                              state_index=[0, 1], radar_loc=np.array([-2.0, -2.0]))
+
+
+@pytest.mark.parametrize("rule", ["UKF", "GH-3"])
+def test_registered_vector_kernel_matches_plain(card, registered, rule):
+    """A registered transition with a per-step stream and the table's radar
+    through ``engine="dd"``: one launch of the registered kernel, equal to
+    the plain version to the bit over 20 steps."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn = _Driven(GaussRV(2, mean=[1.0, 0.0], cov=0.1 * np.eye(2), device=card),
+                  GaussRV(2, cov=1e-3 * np.eye(2), device=card))
+    obs = _radar(card, 2)
+    alg = (stt.UnscentedKalman(dyn, obs) if rule == "UKF"
+           else stt.GaussHermiteKalman(dyn, obs, deg=3))
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.kernel_of(params) == "vector_filter_registered"
+    y = _zoo_records(card, dyn, obs, 4097)
+    before = (vf.LAUNCHES, vf.REGISTERED_LAUNCHES)
+    res = alg.forward_pass_batch(y, engine="dd")
+    assert (vf.LAUNCHES - before[0], vf.REGISTERED_LAUNCHES - before[1]) == (1, 1)
+    torch.cuda.synchronize()
+    plain = vf._vector_filter_plain(params, y)
+    for f, r in zip(("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov"), plain):
+        g = getattr(res, f)
+        g = g.permute(2, 1, 0) if g.ndim == 3 else g.permute(3, 1, 2, 0)
+        assert bool(torch.isfinite(g).all()), f
+        assert torch.equal(g, r), f"{f}: {float((g - r).abs().max()):.3e}"
+
+
+def test_registered_pendulum_copy_equals_the_tables_pendulum(card, registered):
+    """The pendulum registered with the statements of the table's form runs
+    in the registered kernel and gives the general kernel's bits."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    from ssmtoybox_torch.ssmod import Pendulum2DTransition
+    out = []
+    for cls in (_PendulumCopy, Pendulum2DTransition):
+        dyn = cls(GaussRV(2, mean=[1.5, 0.0], cov=0.01 * np.eye(2), device=card),
+                  GaussRV(2, cov=1e-4 * np.eye(2), device=card), dt=0.01)
+        alg = stt.UnscentedKalman(dyn, _radar(card, 2))
+        params = vf.prepare(dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+        if not out:
+            y = _zoo_records(card, dyn, alg.mod_obs, 1000)
+        out.append((vf.kernel_of(params), vf.vector_filter(params, y)))
+    torch.cuda.synchronize()
+    assert [k for k, _ in out] == ["vector_filter_registered", "vector_filter_general"]
+    for s, a, b in zip(STREAMS, out[0][1], out[1][1]):
+        assert torch.equal(a, b), s
+
+
+def test_registered_scalar_form_matches_plain(card, registered):
+    """A 1-D transition of the scalar registry with the UNGM measurement: the
+    scalar kernel's registered form, one launch counted on it, equal to the
+    plain version to the bit over 40 steps."""
+    dyn = _Growth(GaussRV(1, cov=1.0, device=card), GaussRV(1, cov=1.0, device=card))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)
+    alg = stt.UnscentedKalman(dyn, obs)
+    params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert sf.form_of(params) == "registered"
+    gen = torch.Generator(device=card).manual_seed(8)
+    x = dyn.simulate_discrete(gen, steps=40, mc_sims=4097)
+    y = obs.simulate_measurements(gen, x)[0].contiguous()
+    c = sf.step_consts(params, 40, card)
+    before = (sf.LAUNCHES, sf.REGISTERED_LAUNCHES)
+    got = sf.scalar_filter(params, y, c)
+    assert (sf.LAUNCHES - before[0], sf.REGISTERED_LAUNCHES - before[1]) == (1, 1)
+    torch.cuda.synchronize()
+    for s, g, r in zip(STREAMS, got, sf._scalar_filter_plain(params, y, c)):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+
+
+def test_a_registered_form_that_does_not_build_raises(card, registered):
+    """A form whose statements do not compile: ``engine="auto"`` still takes
+    the fused route (admission decides it, not the build) and raises with
+    the compiler's output; nothing falls back to the eager filter."""
+    from ssmtoybox_torch.ops import KernelForm, register_dyn_dd_vec
+
+    def broken(model, n_steps):
+        streams, form = _driven_lower(model, n_steps)
+        return streams, KernelForm("f[0] = x[0] +;", (), form.plain)
+    register_dyn_dd_vec(_Driven, broken)
+    dyn = _Driven(GaussRV(2, mean=[1.0, 0.0], cov=0.1 * np.eye(2), device=card),
+                  GaussRV(2, cov=1e-3 * np.eye(2), device=card))
+    alg = stt.UnscentedKalman(dyn, _radar(card, 2))
+    y = torch.zeros((3, 2, 5), dtype=torch.float64, device=card)
+    with pytest.raises(RuntimeError, match="building vector_filter_registered.*failed"):
+        alg.forward_pass_batch(y, engine="auto")

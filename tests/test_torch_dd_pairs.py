@@ -9,14 +9,13 @@ and the general form of the scalar filter kernel
   component, the radar, bearings from 1, 2, 3, 4, 6, 8 and 9 sensors) under
   the UKF, and CKF, GH-3 and GPQ rules on a few of them, and the 1-D GH-9,
   GH-15, GH-31 and GPQ/BSQ-GH9 rules, ``ops.dd_check`` admits what
-  ``ssmtoybox_tpu.ops.ddvec.dd_supports`` admits, except bearings from more
-  than 8 sensors, which it refuses with the reason (the kernels' parameters
-  hold R up to 8 x 8); an admitted configuration runs through ``engine="dd"``
-  in the kernel :func:`vector_filter.kernel_of` / :func:`scalar_filter.form_of`
-  names: the five pairs of the first version and the shaped kernels keep
-  them, every other pair goes to the general kernel, and a 1-D configuration
-  leaves the shaped scalar form only for the sine or range measurement or
-  more than 8 points.
+  ``ssmtoybox_tpu.ops.ddvec.dd_supports`` admits (bearings from 9 sensors
+  included: the general kernel's wide form); an admitted configuration runs
+  through ``engine="dd"`` in the kernel :func:`vector_filter.kernel_of` /
+  :func:`scalar_filter.form_of` names: the five pairs of the first version
+  and the shaped kernels keep them, every other pair goes to the general
+  kernel, and a 1-D configuration leaves the shaped scalar form only for the
+  sine or range measurement or more than 8 points.
 - Against the JAX package's float64 filter: CT + radar (UKF), CT + 3 bearings
   (CKF) and UNGM under GH-15, all five moment streams at 1e-10 (classical
   rules) and 1e-8 (BQ), the tolerances of ``tests/test_torch_vector_filter.py``.
@@ -220,20 +219,13 @@ INSTANTIATED = {("reentry", "radar"), ("cv", "radar"), ("pendulum", "sine"),
 @pytest.mark.parametrize("case", PAIRS + OTHER_RULES, ids=_case_id)
 def test_admission_matches_jax_dd_supports(case):
     """``ops.dd_check`` admits what ``dd_supports`` admits (bearings from 9
-    sensors refused with the reason); an admitted configuration runs through
-    ``engine="dd"`` on the kernel that the routing names."""
+    sensors included, in the general kernel); an admitted configuration runs
+    through ``engine="dd"`` on the kernel that the routing names."""
     alg, jalg = _filter(case), _filter(case, jax_side=True)
     assert dd_supports(jalg.mod_dyn, jalg.mod_obs, jalg.tf_dyn, jalg.tf_obs)
     dyn, obs, rule = case
     E = alg.mod_obs.dim_out
     ys = torch.zeros((1, E, 2), dtype=torch.float64)
-    if obs == "b9":
-        with pytest.raises(ValueError, match="at most 8 bearing sensors"):
-            dd_check(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
-        with pytest.raises(ValueError, match="engine='dd' cannot run this configuration: "
-                                             ".*at most 8 bearing sensors"):
-            alg.forward_pass_batch(ys, engine="dd")
-        return
     dd_check(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
     res = alg.forward_pass_batch(ys, engine="dd")
     D = DYNS[dyn][0]

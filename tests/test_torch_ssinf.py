@@ -228,18 +228,21 @@ def test_auto_engine_falls_back_to_f64_for_vector_states(shared_batch):
 
 
 def test_dd_engine_on_vector_state_names_the_roadmap_item(shared_batch):
-    """The one vector-state measurement that the JAX package's dd engine runs
-    and the fused kernels refuse, bearings from more than 8 sensors (ROADMAP
-    queue 3 lists the difference), is refused by ``engine="dd"`` naming the
-    reason."""
-    ys, _, _, alg = shared_batch["reentry_ukf"]
+    """Bearings from more than 8 sensors, the one vector-state measurement
+    that the fused kernels refused while ROADMAP queue 3 listed the
+    difference, run through ``engine="dd"`` (the general kernel's wide form,
+    its plain version here) and give the eager float64 filter's moments
+    within 1e-10."""
+    _, _, _, alg = shared_batch["reentry_ukf"]
     sensors = np.stack([np.linspace(6000.0, 6800.0, 9), np.linspace(-400.0, 400.0, 9)], axis=1)
     obs = ssmod.BearingMeasurement(GaussRV(9, cov=1e-3 * np.eye(9)), dim_state=5,
                                    state_index=[0, 1], sensor_pos=sensors)
-    nine = np.repeat(np.asarray(ys)[:, :1], 9, axis=1)
-    with pytest.raises(ValueError, match=r"at most 8 bearing sensors \(its parameters hold R "
-                                         r"up to 8 x 8\); got 9"):
-        stt.UnscentedKalman(alg.mod_dyn, obs).forward_pass_batch(nine, engine="dd")
+    _, nine = _simulate(alg.mod_dyn, obs, np.random.default_rng(9), steps=20, mc=4)
+    ukf = stt.UnscentedKalman(alg.mod_dyn, obs)
+    fused, f64 = ukf.forward_pass_batch(nine, engine="dd"), ukf.forward_pass_batch(nine)
+    for f in FIELDS:
+        assert bool(torch.isfinite(getattr(fused, f)).all()), f
+        torch.testing.assert_close(getattr(fused, f), getattr(f64, f), atol=1e-10, rtol=1e-10)
 
 
 def test_dd_engine_rejects_an_unsupported_scalar_rule():

@@ -27,8 +27,8 @@ both take the C library's ``sqrt``, ``exp``, ``sin``, ``cos`` and
 are an ulp off some of their values, which the BQ quadratic form grows to
 ~1e-7 of the covariance.  :func:`vector_filter.supports` gives the answers
 of the JAX package's ``ddvec.dd_supports`` on a table of configurations
-(except bearings from more than 8 sensors, which the JAX package's dd
-engine runs and the port's kernels have no room for, ``JAX_ONLY``), and
+(``JAX_ONLY``, the configurations only the JAX package's dd engine runs, is
+empty), and
 :func:`vector_filter.kernel_of` sends the UT and CKF shapes to the shaped
 kernels (classical rules to ``vector_filter_shaped``, a BQ rule on either
 transform to ``vector_filter_shaped_bq``, whose host build
@@ -147,8 +147,24 @@ GPQ_PEND = np.array([[1.0, 2.0, 2.0]])
 GPQ_CT = np.array([[1.0, 3.0, 3.0, 3.0, 3.0, 3.0]])
 
 
+class _Drift(ssmod.TransitionModel):
+    """A transition of the user's own that no registry has a form of."""
+    dim_state, dim_noise = 5, 5
+
+    def dyn_fcn(self, x, q, time):
+        return x + q
+
+
+class _JDrift(jssmod.TransitionModel):
+    """:class:`_Drift` in the JAX package."""
+    dim_state, dim_noise = 5, 5
+
+    def dyn_fcn(self, x, q, time):
+        return x + q
+
+
 def _zoo(pkg, rv):
-    """The systems of ``tests/test_ddvec.py:262-289`` and two the fused
+    """The systems of ``tests/test_ddvec.py:262-289`` and three the fused
     engines refuse, in the port (``pkg`` its ``ssmod``, ``rv`` its
     ``GaussRV``) or the JAX package (``jssmod``, ``JGaussRV.create``)."""
     def new(cls):
@@ -182,6 +198,10 @@ def _zoo(pkg, rv):
         "ungm_na": lambda: (new("UNGMNATransition")(rv(1, np.ones(1), np.eye(1)),
                                                     rv(1, None, 10.0 * np.eye(1))),
                             new("UNGMNAMeasurement")(rv(1, None, 0.01 * np.eye(1)), dim_state=1)),
+        "drift": lambda: ((_Drift if pkg is ssmod else _JDrift.create)(rv(5, CT_M0, CT_P0),
+                                                                       rv(5, None, CT_Q)),
+                          new("Radar2DMeasurement")(rv(2, None, np.diag([1.0, 1e-4])),
+                                                    dim_state=5, state_index=[0, 2])),
         "ctrs": lambda: (new("ConstantTurnRateSpeed")(rv(5, np.array([10.0, 0.0, 5.0, 0.5, 0.1]),
                                                          0.1 * np.eye(5)),
                                                       rv(2, None, np.diag([0.1, 0.1 * np.pi])),
@@ -246,7 +266,9 @@ CONFIGS = {
     "ct_radar": ("ct_radar", lambda d, o: stt.UnscentedKalman(d, o),
                  lambda d, o: st.UnscentedKalman(d, o), True),
     "ct_bearing9": ("ct_bearing9", lambda d, o: stt.CubatureKalman(d, o),
-                    lambda d, o: st.CubatureKalman(d, o), False),
+                    lambda d, o: st.CubatureKalman(d, o), True),
+    "drift_ukf": ("drift", lambda d, o: stt.UnscentedKalman(d, o),
+                  lambda d, o: st.UnscentedKalman(d, o), False),
     "ct_tpq": ("ct_radar", lambda d, o: stt.StudentProcessKalman(d, o, GPQ_CT, GPQ_CT),
                lambda d, o: st.StudentProcessKalman(d, o, GPQ_CT, GPQ_CT, points="ut"), False),
     "ungm_na": ("ungm_na", lambda d, o: stt.UnscentedKalman(d, o),
@@ -255,10 +277,8 @@ CONFIGS = {
              lambda d, o: st.UnscentedKalman(d, o), False),
 }
 ADMITTED = sorted(k for k, v in CONFIGS.items() if v[3])
-#: refused by the port's fused engine, run by the JAX package's dd engine:
-#: bearings from more than 8 sensors (R is at most 8 x 8 in the kernels'
-#: parameters)
-JAX_ONLY = {"ct_bearing9"}
+#: refused by the port's fused engine, run by the JAX package's dd engine: none
+JAX_ONLY = set()
 SYSTEMS = {"reentry": (_reentry, _reentry_jax), "cv": (_cv, _cv_jax),
            **{name: (ZOO[name], ZOO_JAX[name]) for name in ZOO}}
 
@@ -469,8 +489,7 @@ def test_supports_matches_jax_dd_supports(name):
 @pytest.mark.parametrize("name,reason", [
     ("tpq", "TPQ"), ("bsq_matrix_emv", "scalar model variance"),
     ("ungm_na", "additive noise"), ("ctrs", "additive process and measurement noise"),
-    ("ct_tpq", "TPQ"),
-    ("ct_bearing9", "at most 8 bearing sensors \\(its parameters hold R up to 8 x 8\\); got 9")])
+    ("ct_tpq", "TPQ"), ("drift_ukf", "has no kernel form of _Drift")])
 def test_refused_configurations_route_to_f64(data, name, reason):
     """``engine="auto"`` sends what the kernels refuse to the eager path (the
     same moments to the bit); ``engine="dd"`` raises naming the reason."""
