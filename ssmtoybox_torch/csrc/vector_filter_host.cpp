@@ -1,20 +1,69 @@
 // Host builds of the vector filter steps (vector_filter_step.cuh, and
-// vector_filter_shaped.cuh and vector_filter_general.cuh, which include it),
+// vector_filter_shaped.cuh, vector_filter_general.cuh and
+// vector_filter_lanes.cuh, which include it),
 // for testing the kernels' arithmetic on a machine without a GPU.  Each entry
 // picks the template instantiation as its CUDA launcher does (the model pair,
 // then the kinds and point count of both rules) and runs the trajectories one
 // after another, with the kernel's layouts: time-major outputs and, for the
 // first version and the general step, a scratch buffer interleaved by
-// trajectory.
+// trajectory; the lane-group form runs its G lanes one after another in each
+// phase, a trajectory's shared memory a host buffer filled with NaN before the
+// trajectory starts (so a read of an entry no phase wrote shows), the staged
+// rules another.
 //
 // Built with -DVFR_REGISTERED beside a generated vfr_forms.cuh
 // (ops/vector_filter.py, build_registered), it holds only vfr_host_run, the
 // general step on the registered models, as vector_filter_registered.cu
 // launches it.
-#include "vector_filter_general.cuh"
+#include <algorithm>
+#include <limits>
+#include <vector>
+
+#include "vector_filter_lanes.cuh"
+
+namespace {
+
+// The lane-group form on the trajectories one after another.
+template <int D, int G, class Model>
+void vfl_host(const VfgParams& p, const double* y, long long y_b, long long y_e, long long y_k,
+              const double* s, int n_s, int B, int n_steps, double* m_fi, double* P_fi,
+              double* m_pr, double* P_pr, double* xx) {
+  std::vector<double> staged(vfl_stage_doubles(p.base)), sm(vfl_layout(p.base).size);
+  const VflRules rules = vfl_stage(p, staged.data(), 0, 1);
+  for (int b = 0; b < B; ++b) {
+    std::fill(sm.begin(), sm.end(), std::numeric_limits<double>::quiet_NaN());
+    vfl_record<D, G, Model>(p, rules, sm.data(), y + b * y_b, y_e, y_k, n_steps, s, n_s,
+                            m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b, B, VflLane{0});
+  }
+}
+
+}  // namespace
 
 #ifdef VFR_REGISTERED
 #include "vfr_forms.cuh"
+
+namespace {
+
+// Configuration (D, EB, G, Model) of VFR_PAIRS on the trajectories one after
+// another: the one-thread form (G = 0) if the parameters' bound on E is EB,
+// the lane-group form on G = VFL_G lanes a trajectory; whether it ran.
+template <int D, int EB, int G, class Model>
+bool vfr_host(const VfgParams& p, const double* y, long long y_b, long long y_e, long long y_k,
+              const double* s, int n_s, int B, int n_steps, double* m_fi, double* P_fi,
+              double* m_pr, double* P_pr, double* xx, double* scratch) {
+  static_assert(G == 0 || G == VFL_G, "the lane-group form runs on VFL_G lanes");
+  if constexpr (G == 0) {
+    if (vfg_bound(p.base.dim_out) != EB) return false;
+    for (int b = 0; b < B; ++b)
+      vfg_record<D, EB, Model>(p, y + b * y_b, y_e, y_k, n_steps, s, n_s, scratch + b, B,
+                               m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b, B);
+  } else {
+    vfl_host<D, G, Model>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, m_fi, P_fi, m_pr, P_pr, xx);
+  }
+  return true;
+}
+
+}  // namespace
 
 // Configuration `pair` of VFR_PAIRS on the trajectories one after another,
 // with vfr_launch's layouts.  Returns the state dimension of the
@@ -25,18 +74,13 @@ extern "C" int vfr_host_run(int pair, const VfgParams* params, const double* y, 
                             double* P_pr, double* xx, double* scratch) {
   const VfgParams& p = *params;
   if (!vfg_rules_ok(p.base)) return 0;
-  const int eb = vfg_bound(p.base.dim_out);
-  int ran = 0;
-#define VFR_RUN_IF(I, D, EB, MODEL)                                                        \
-  if (pair == I && p.base.dim_state == D && eb == EB) {                                    \
-    for (int b = 0; b < B; ++b)                                                            \
-      vfg_record<D, EB, MODEL>(p, y + b * y_b, y_e, y_k, n_steps, s, n_s, scratch + b, B,  \
-                               m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b, B);         \
-    ran = D;                                                                               \
-  }
+#define VFR_RUN_IF(I, D, EB, G, MODEL)                                                    \
+  if (pair == I && p.base.dim_state == D)                                                 \
+    return vfr_host<D, EB, G, MODEL>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, m_fi, P_fi, \
+                                     m_pr, P_pr, xx, scratch) ? D : 0;
   VFR_PAIRS(VFR_RUN_IF)
 #undef VFR_RUN_IF
-  return ran;
+  return 0;
 }
 
 #else
@@ -128,20 +172,30 @@ extern "C" int vfs_bq_host_run(const VfsBqParams* params, const double* y, long 
   return ran;
 }
 
-// The same for the step of the general kernel (vector_filter_general.cuh):
-// every model pair, E outputs run at the bound EB that holds them (the wide
-// form above 8).  Returns the state dimension of the instantiation that ran,
-// 0 if the general step does not take the configuration.
+// The same for the steps of the general kernel (vector_filter_general.cuh,
+// vector_filter_lanes.cuh): every model pair; `lanes` 0: the one-thread form,
+// E outputs at the bound EB that holds them (the wide form above 8); VFL_G:
+// the lane-group form on that many lanes a trajectory.  Returns the state
+// dimension of the instantiation that ran, 0 if the general step does not
+// take the configuration.
 extern "C" int vfg_host_run(const VfgParams* params, const double* y, long long y_b,
                             long long y_e, long long y_k, int B, int n_steps, double* m_fi,
                             double* P_fi, double* m_pr, double* P_pr, double* xx,
-                            double* scratch) {
+                            double* scratch, int lanes) {
   const VfgParams& p = *params;
   if (!vfg_takes(p.base)) return 0;
   const int eb = vfg_bound(p.base.dim_out);
   int ran = 0;
+#define VFL_RUN_IF(D)                                                                      \
+  if (p.base.dim_state == D && lanes == VFL_G) {                                           \
+    vfl_host<D, VFL_G, VfgZoo<D, 0>>(p, y, y_b, y_e, y_k, nullptr, 0, B, n_steps, m_fi,    \
+                                     P_fi, m_pr, P_pr, xx);                                \
+    ran = D;                                                                               \
+  }
+  VFL_SHAPES(VFL_RUN_IF)
+#undef VFL_RUN_IF
 #define VFG_RUN_IF(D, EB)                                                                  \
-  if (p.base.dim_state == D && eb == EB) {                                                 \
+  if (p.base.dim_state == D && eb == EB && lanes == 0) {                                   \
     for (int b = 0; b < B; ++b)                                                            \
       vfg_record<D, EB, VfgZoo<D, EB>>(p, y + b * y_b, y_e, y_k, n_steps, nullptr, 0,      \
                                        scratch + b, B, m_fi + b, P_fi + b, m_pr + b,       \

@@ -11,32 +11,60 @@
 // The header vfr_forms.cuh is generated by ops/vector_filter.py
 // (build_registered) from the registered forms' C++ statements, into a
 // directory of build/kernels, and names the instantiations:
-//   VFR_PAIRS(F)  F(index, D, EB, Model) for each configuration the library
-//                 was built for: D (1-8) and EB (2, 4, 8; 0 for the wide
-//                 form) as in vector_filter_general.cu, Model the policy whose
-//                 functors evaluate the configuration's transition and
-//                 measurement (a registered form's statements, or the table's
-//                 model through VfgDynFn / VfgObsFn).
+//   VFR_PAIRS(F)  F(index, D, EB, G, Model) for each configuration the
+//                 library was built for: D (1-8); G 0 for one thread a
+//                 trajectory at the bound EB on E (2, 4, 8; 0 for the wide
+//                 form) as in vector_filter_general.cu, or G = VFL_G lanes
+//                 a trajectory (the lane-group form, vector_filter_lanes.cuh;
+//                 EB 0); Model the policy whose functors evaluate the
+//                 configuration's transition and measurement (a registered
+//                 form's statements, or the table's model through VfgDynFn /
+//                 VfgObsFn).
 // Only the configurations the caller asked for are instantiated.
 //
-// What bounds it, and its design: those of vector_filter_general.cu, one
-// thread a trajectory; a registered transition reads its constants from
-// device memory (VfgParams::dyn_c) and this step's values of its per-step
-// streams from s[k * n_s] (the streams time-major, (T, n_s)).  Built with
+// What bounds it, and its design: those of vector_filter_general.cu: one
+// thread a trajectory up to 4 outputs on states of up to 5 dimensions, the
+// lane-group form above (ops/vector_filter.py, lanes_of); a registered
+// transition reads its constants from device memory (VfgParams::dyn_c) and
+// this step's values of its per-step streams from s[k * n_s] (the streams
+// time-major, (T, n_s)).  Built with
 // --fmad=false like the other vector filter kernels, so that a form whose
 // statements perform the plain version's operations in its order agrees with
 // it to the bit.
 #include <cuda_runtime.h>
 
-#include "vector_filter_general.cuh"
+#include "vector_filter_lanes.cuh"
 #include "vfr_forms.cuh"
+
+namespace {
+
+// Configuration (D, EB, G, Model) of VFR_PAIRS: the one-thread form (G = 0)
+// if the parameters' bound on E is EB, else cudaErrorInvalidValue; the
+// lane-group form on G = VFL_G lanes a trajectory.
+template <int D, int EB, int G, class Model>
+int vfr_run(const VfgParams& p, const double* y, long long y_b, long long y_e, long long y_k,
+            const double* s, int n_s, int B, int n_steps, const VfgStreams& out,
+            double* scratch, cudaStream_t stream) {
+  static_assert(G == 0 || G == VFL_G, "the lane-group form runs on VFL_G lanes");
+  if constexpr (G == 0) {
+    if (vfg_bound(p.base.dim_out) != EB) return static_cast<int>(cudaErrorInvalidValue);
+    vfg_launch_as<D, EB, Model>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, scratch, stream);
+    return static_cast<int>(cudaGetLastError());
+  } else {
+    return vfl_launch_as<D, G, Model>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, stream);
+  }
+}
+
+}  // namespace
 
 // Launch configuration `pair` (an index of VFR_PAIRS) on `stream` of card
 // `device` without synchronising: the layouts of vfg_launch, and the
-// transition's stream values of step k at s[k * n_s].  Returns the CUDA error
-// of selecting the device or, after the launch, cudaGetLastError();
-// cudaErrorInvalidValue if `pair` is not one of the library's or its D and
-// bound on E are not those of the parameters, or the rules cannot run.
+// transition's stream values of step k at s[k * n_s]; the scratch buffer is
+// read by the one-thread form only.  Returns the CUDA error of selecting the
+// device or, after the launch, cudaGetLastError(); cudaErrorInvalidValue if
+// `pair` is not one of the library's or its D and bound on E are not those of
+// the parameters, the rules cannot run, or a lane-group shape's arrays do not
+// fit in a block's shared memory.
 extern "C" int vfr_launch(int pair, const VfgParams* params, const double* y, long long y_b,
                           long long y_e, long long y_k, const double* s, int n_s, int B,
                           int n_steps, int device, double* m_fi, double* P_fi, double* m_pr,
@@ -47,18 +75,13 @@ extern "C" int vfr_launch(int pair, const VfgParams* params, const double* y, lo
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const VfgStreams out = {m_fi, P_fi, m_pr, P_pr, xx};
-  const int eb = vfg_bound(p.base.dim_out);
-  bool ran = false;
-#define VFR_LAUNCH_IF(I, D, EB, MODEL)                                                     \
-  if (pair == I && p.base.dim_state == D && eb == EB) {                                    \
-    vfg_launch_as<D, EB, MODEL>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, scratch,     \
-                                static_cast<cudaStream_t>(stream));                        \
-    ran = true;                                                                            \
-  }
+#define VFR_LAUNCH_IF(I, D, EB, G, MODEL)                                                  \
+  if (pair == I && p.base.dim_state == D)                                                  \
+    return vfr_run<D, EB, G, MODEL>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, scratch, \
+                                    static_cast<cudaStream_t>(stream));
   VFR_PAIRS(VFR_LAUNCH_IF)
 #undef VFR_LAUNCH_IF
-  if (!ran) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* vfr_error_string(int code) {

@@ -291,8 +291,10 @@ struct VfObs<VF_OBS_UNGM> {
 // Bearings of (idx[0], idx[1]) from the first S sensors at (c[2 s],
 // c[2 s + 1]), S read at run time: the bearing form of the general kernel.
 // SB > 0: a register array h of SB entries, SB predicated iterations (static
-// indices); SB == 0: any S, one iteration a sensor (h a scratch column).
-// Entries of h from S on are not written.
+// indices); SB == 0: any S (h a scratch column or shared memory), four
+// sensors an iteration, their atan2 computed before any is stored so that
+// the four can overlap (a store to h could alias c).  Entries of h from S on
+// are not written.
 template <int SB, int D, class C, class H>
 VF_HD void vf_bearings(const C& c, const int (&idx)[2], const double (&x)[D], int S, H&& h) {
   const double px = vf_pick(x, idx[0]), py = vf_pick(x, idx[1]);
@@ -301,8 +303,17 @@ VF_HD void vf_bearings(const C& c, const int (&idx)[2], const double (&x)[D], in
     for (int s = 0; s < SB; ++s)
       if (s < S) h[s] = atan2(py - c[2 * s + 1], px - c[2 * s]);
   } else {
+    int s = 0;
 #pragma unroll 1
-    for (int s = 0; s < S; ++s) h[s] = atan2(py - c[2 * s + 1], px - c[2 * s]);
+    for (; s + 4 <= S; s += 4) {
+      double b[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) b[u] = atan2(py - c[2 * (s + u) + 1], px - c[2 * (s + u)]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) h[s + u] = b[u];
+    }
+#pragma unroll 1
+    for (; s < S; ++s) h[s] = atan2(py - c[2 * s + 1], px - c[2 * s]);
   }
 }
 

@@ -37,8 +37,9 @@ _bound: dict[str, ctypes.CDLL] = {}
 #: what every CUDA source of the package is compiled with
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-#: what the host builds of the kernels' headers (tests only) are compiled with:
-#: no multiply-add contraction, as in the plain PyTorch versions
+#: what the host builds of the kernels' headers (the tests' builds, and the
+#: lane-group form's fit, ``vector_filter_fit.cpp``) are compiled with: no
+#: multiply-add contraction, as in the plain PyTorch versions
 HOST_CMD = ["g++", "-std=c++17", "-O2", "-ffp-contract=off", "-shared", "-fPIC"]
 
 #: compiler output of each library built by this process, by name

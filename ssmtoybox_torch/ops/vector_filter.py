@@ -21,16 +21,19 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   ``csrc/vector_filter_step.cuh``), the first version: every other
   configuration of those pairs (Gauss-Hermite rules, mixed point counts),
   one thread a trajectory, N at run time;
-- ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the step in
-  ``csrc/vector_filter_general.cuh``): every other pair of the table's
-  models, one thread a trajectory, D and a bound on E template arguments
-  (the wide form, E-sized arrays in the scratch buffer, above E = 8), the
-  models, E, the kinds and N at run time;
+- ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the steps in
+  ``csrc/vector_filter_general.cuh`` and ``csrc/vector_filter_lanes.cuh``):
+  every other pair of the table's models, the models, E, the kinds and N at
+  run time; up to 4 measurement outputs one thread a trajectory (D and a
+  bound on E template arguments), above that the lane-group form (a
+  trajectory on 8 lanes of a warp, its arrays in shared memory; D a
+  template argument), :func:`lanes_of`;
 - ``vector_filter_registered`` (``csrc/vector_filter_registered.cu``): the
-  general kernel instantiated on models registered at run time
+  general kernel's forms instantiated on models registered at run time
   (:func:`register_dyn_dd_vec`, :func:`register_obs_dd_vec`, and 1-D
-  measurement forms of ``scalar_filter.register_obs_dd``), built at first
-  use from a header generated from their :class:`~.forms.KernelForm` s
+  measurement forms of ``scalar_filter.register_obs_dd``), the lane-group
+  form also for states of more than 5 dimensions, built at first use from a
+  header generated from their :class:`~.forms.KernelForm` s
   (:func:`build_registered`).
 
 The first four take the table's models; the first three only the five
@@ -61,7 +64,8 @@ the compiler's output).  Each launch adds one to :data:`LAUNCHES`; a launch
 of the classical shaped kernel also to :data:`SHAPED_LAUNCHES`, one of the
 kernel of the BQ shapes to :data:`BQ_SHAPED_LAUNCHES`, one of the general
 kernel to :data:`GENERAL_LAUNCHES`, one of the registered kernel to
-:data:`REGISTERED_LAUNCHES`.
+:data:`REGISTERED_LAUNCHES`; a launch of either in the lane-group form also
+to :data:`GENERAL_LANE_LAUNCHES` or :data:`REGISTERED_LANE_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
@@ -92,9 +96,10 @@ from .forms import TORCH_FNS, KernelForm, Registered, find_dyn, find_obs
 from .scalar_filter import _floats, _memo
 
 __all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "GENERAL_LAUNCHES",
-           "REGISTERED_LAUNCHES", "VecRule", "VectorFilterParams", "register_dyn_dd_vec",
-           "register_obs_dd_vec", "lower_transform", "check", "supports", "prepare", "kernel_of",
-           "vector_filter", "build", "build_registered", "chain_floor_clocks", "TORCH_FNS"]
+           "REGISTERED_LAUNCHES", "GENERAL_LANE_LAUNCHES", "REGISTERED_LANE_LAUNCHES", "VecRule",
+           "VectorFilterParams", "register_dyn_dd_vec", "register_obs_dd_vec", "lower_transform",
+           "check", "supports", "prepare", "kernel_of", "lanes_of", "vector_filter", "build",
+           "build_registered", "chain_floor_clocks", "TORCH_FNS"]
 
 #: kernel launches made by :func:`vector_filter` in this process, all five kernels
 LAUNCHES = 0
@@ -106,6 +111,10 @@ BQ_SHAPED_LAUNCHES = 0
 GENERAL_LAUNCHES = 0
 #: the launches of the registered kernel among them
 REGISTERED_LAUNCHES = 0
+#: the general kernel's launches in the lane-group form, among its launches
+GENERAL_LANE_LAUNCHES = 0
+#: the registered kernel's launches in the lane-group form, among its launches
+REGISTERED_LANE_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
@@ -145,6 +154,13 @@ _BEARING_SENSORS = 4
 #: ``VF_MAX_OBS_C``: room for the measurement's constants in the parameter
 #: struct (8 sensors' x, y); the general kernels read them from device memory
 _MAX_OBS_C = 16
+#: the lanes a trajectory of the lane-group form runs on (``VFL_G`` of
+#: ``csrc/vector_filter_lanes.cuh``, what its launchers take beside 0)
+_LANES = 8
+#: the fewest warps of the lane-group form an SM must hold for that form to
+#: take a shape of at most 8 outputs from the one-thread form (PERF.md, PR
+#: 21: it won at 10-20 warps, lost at 1-2, many-point rules)
+_MIN_LANE_WARPS = 4
 
 
 def register_dyn_dd_vec(model_cls, lower):
@@ -403,6 +419,26 @@ def kernel_of(params: VectorFilterParams) -> str:
     if dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
         return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
     return "vector_filter"
+
+
+def lanes_of(params: VectorFilterParams) -> int:
+    """The lanes a trajectory of the general and registered kernels runs on.
+    0, one thread a trajectory (``vfg_step``), for at most 4 measurement
+    outputs on a state of at most 5 dimensions, and for every shape of the
+    other kernels.  Above that the lane-group form (``vfl_step`` of
+    ``csrc/vector_filter_lanes.cuh``) on :data:`_LANES` lanes where an SM
+    holds any warp of it (a warp's trajectories' arrays fit in a block's
+    shared memory: not a registered 8-D state under Gauss-Hermite rules,
+    say) and, for at most 8 outputs, where the one-thread form keeps its
+    arrays in registers, at least :data:`_MIN_LANE_WARPS` (not under rules
+    of some hundreds of points), as the header reckons them (:func:`_fit`);
+    else 0 again."""
+    if kernel_of(params) not in ("vector_filter_general", "vector_filter_registered"):
+        return 0
+    if params.dim_out <= 4 and params.dim_state <= 5:
+        return 0
+    warps = _fit().vfl_fit_warps(ctypes.byref(_c_params(params, torch.device("cpu"))))
+    return _LANES if warps >= (_MIN_LANE_WARPS if params.dim_out <= 8 else 1) else 0
 
 
 # ---------------------------------------------------------------------------
@@ -795,7 +831,8 @@ def _bind(lib: ctypes.CDLL):
     lib.vfs_bq_launch.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS + [ctypes.c_int]
                                   + [ctypes.c_void_p] * 6)
     lib.vfg_launch.restype = ctypes.c_int
-    lib.vfg_launch.argtypes = [ctypes.POINTER(_CGParams)] + lib.vf_launch.argtypes[1:]
+    lib.vfg_launch.argtypes = ([ctypes.POINTER(_CGParams)] + lib.vf_launch.argtypes[1:-1]
+                               + [ctypes.c_int, ctypes.c_void_p])
 
 
 #: the sources of the library: the first-version kernel, the classical shaped
@@ -820,7 +857,8 @@ def _bind_host(lib: ctypes.CDLL):
     lib.vfs_bq_host_run.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS
                                     + [ctypes.c_void_p] * 5)
     lib.vfg_host_run.restype = ctypes.c_int
-    lib.vfg_host_run.argtypes = [ctypes.POINTER(_CGParams)] + lib.vf_host_run.argtypes[1:]
+    lib.vfg_host_run.argtypes = ([ctypes.POINTER(_CGParams)] + lib.vf_host_run.argtypes[1:]
+                                 + [ctypes.c_int])
 
 
 def _host_shim() -> ctypes.CDLL:
@@ -829,12 +867,28 @@ def _host_shim() -> ctypes.CDLL:
                         host=True)
 
 
+def _bind_fit(lib: ctypes.CDLL):
+    for fn in (lib.vfl_fit_block, lib.vfl_fit_warps, lib.vfl_fit_doubles, lib.vfl_fit_stage):
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.POINTER(_CParams)]
+
+
+def _fit() -> ctypes.CDLL:
+    """``csrc/vector_filter_fit.cpp`` built with g++ (no step in it, a second
+    or two): the trajectories a block of the lane-group form holds for a
+    configuration, 0 where its launcher refuses it (``vfl_fit_block``), the
+    warps an SM holds (``vfl_fit_warps``), the doubles of a trajectory's
+    shared memory and of the staged rules."""
+    return _build.bound("vector_filter_fit", ["vector_filter_fit.cpp"], _bind_fit, host=True)
+
+
 # ---------------------------------------------------------------------------
 # the registered kernel: a library generated from the registered forms
 # ---------------------------------------------------------------------------
 
 #: the configurations of the registered libraries built in this process:
-#: ``(host, key)`` -> (library, index in its ``VFR_PAIRS``)
+#: ``(host, key)`` -> (library, index in its ``VFR_PAIRS``); a key names the
+#: form too (:func:`_key`)
 _REGISTERED: dict = {}
 #: the arguments of ``vfr_launch`` / ``vfr_host_run`` from ``y`` on
 _R_ARGS = ([ctypes.c_void_p] + [ctypes.c_longlong] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 3)
@@ -846,11 +900,12 @@ def _bound_of(E: int) -> int:
     return 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0
 
 
-def _model_policy(params: VectorFilterParams, name: str) -> str:
+def _model_policy(params: VectorFilterParams, name: str, EB: int) -> str:
     """The C++ model policy of ``params``' configuration (see
     ``csrc/vector_filter_registered.cu``): each registered form's statements
-    as a functor, the table's models through ``VfgDynFn`` / ``VfgObsFn``."""
-    D, EB = params.dim_state, _bound_of(params.dim_out)
+    as a functor, the table's models through ``VfgDynFn`` / ``VfgObsFn`` (a
+    table measurement at the bound ``EB`` on E, 0 for any E)."""
+    D = params.dim_state
     if params.dyn_form is None:
         dyn = (f"  VF_HD static VfgDynFn<{D}> dyn(const VfgParams& p, const double*) "
                "{ return {p.base}; }")
@@ -873,19 +928,24 @@ def _model_policy(params: VectorFilterParams, name: str) -> str:
     return f"struct {name} {{\n{dyn}\n{obs}\n}};\n"
 
 
-def _key(params: VectorFilterParams) -> tuple:
-    """What the registered library instantiates for ``params``: D, the bound
-    on E and the model policy."""
-    return params.dim_state, _bound_of(params.dim_out), _model_policy(params, "VfrPair")
+def _key(params: VectorFilterParams, lanes: int | None = None) -> tuple:
+    """What the registered library instantiates for ``params`` in the form of
+    ``lanes`` (:func:`lanes_of` by default; 0 one thread a trajectory,
+    :data:`_LANES` the lane-group form): D, the bound on E (0 in the
+    lane-group form), the lanes and the model policy."""
+    lanes = lanes_of(params) if lanes is None else lanes
+    EB = 0 if lanes else _bound_of(params.dim_out)
+    return params.dim_state, EB, lanes, _model_policy(params, "VfrPair", EB)
 
 
 def _registered_header(keys: list) -> str:
     """``vfr_forms.cuh`` for the configurations ``keys``."""
     parts = ["// Generated by ssmtoybox_torch/ops/vector_filter.py (build_registered): the",
              "// model policies of the registered configurations.", "#pragma once", ""]
-    for i, (_, _, policy) in enumerate(keys):
+    for i, (_, _, _, policy) in enumerate(keys):
         parts.append(policy.replace("struct VfrPair {", f"struct VfrPair{i} {{", 1))
-    pairs = " ".join(f"F({i}, {D}, {EB}, VfrPair{i})" for i, (D, EB, _) in enumerate(keys))
+    pairs = " ".join(f"F({i}, {D}, {EB}, {G}, VfrPair{i})"
+                     for i, (D, EB, G, _) in enumerate(keys))
     return "\n".join(parts) + f"\n#define VFR_PAIRS(F) {pairs}\n"
 
 
@@ -905,15 +965,18 @@ def _bind_registered_host(lib: ctypes.CDLL):
 
 def build_registered(configs, host: bool = False) -> str:
     """Build one library of the registered kernel for the configurations
-    ``configs`` (:class:`VectorFilterParams` with a registered model) with
-    nvcc for sm_90a (with g++, the host build ``vfr_host_run`` of
-    ``csrc/vector_filter_host.cpp``, if ``host``): a header of their model
-    policies is generated, only their instantiations are compiled, and
-    their launches go to it from then on.  A configuration's first launch
-    builds a library for it alone if none holds it.  Returns the library's
-    name (its compiler output is ``_build.BUILD_LOGS[name]``); a failed build
-    raises ``RuntimeError`` with the compiler's output."""
-    keys = list(dict.fromkeys(_key(p) for p in configs if _registered_pair(p)))
+    ``configs`` (:class:`VectorFilterParams` with a registered model, each in
+    the form of :func:`lanes_of`, or ``(params, lanes)`` in the form of
+    ``lanes``) with nvcc for sm_90a (with g++, the host build
+    ``vfr_host_run`` of ``csrc/vector_filter_host.cpp``, if ``host``): a
+    header of their model policies is generated, only their instantiations
+    are compiled, and their launches go to it from then on.  A
+    configuration's first launch builds a library for it alone if none
+    holds it.  Returns the library's name (its compiler output is
+    ``_build.BUILD_LOGS[name]``); a failed build raises ``RuntimeError``
+    with the compiler's output."""
+    pairs = [c if isinstance(c, tuple) else (c, None) for c in configs]
+    keys = list(dict.fromkeys(_key(p, lanes) for p, lanes in pairs if _registered_pair(p)))
     if not keys:
         raise ValueError("no configuration with a registered model to build")
     if host:
@@ -927,11 +990,12 @@ def build_registered(configs, host: bool = False) -> str:
         flags=_NVCC_FLAGS, host=False)
 
 
-def _registered(params: VectorFilterParams, host: bool) -> tuple:
-    """(library, index) of ``params``' configuration, built at first use."""
-    key = _key(params)
+def _registered(params: VectorFilterParams, host: bool, lanes: int | None = None) -> tuple:
+    """(library, index) of ``params``' configuration in the form of ``lanes``
+    (:func:`lanes_of` by default), built at first use."""
+    key = _key(params, lanes)
     if (host, key) not in _REGISTERED:
-        build_registered([params], host)
+        build_registered([(params, lanes)], host)
     return _REGISTERED[host, key]
 
 
@@ -944,26 +1008,30 @@ def _check_streams(params: VectorFilterParams, y: torch.Tensor):
         raise ValueError(f"at most 2**31 - 1 trajectories and steps; got {tuple(y.shape)}")
 
 
-def _scratch(params: VectorFilterParams, B: int, device) -> torch.Tensor:
-    """The function values of every point of a transform, interleaved by
-    trajectory, and for more than 8 measurement outputs the wide form's
-    E-sized arrays after them (``vfg_values`` and ``vfg_step_wide``)."""
+def _scratch(params: VectorFilterParams, B: int, device, lanes: int = 0) -> torch.Tensor:
+    """The one-thread forms' scratch buffer: the function values of every
+    point of a transform, interleaved by trajectory, and for more than 8
+    measurement outputs the wide form's E-sized arrays after them
+    (``vfg_values`` and ``vfg_step_wide``); empty for the lane-group form
+    (``lanes`` nonzero), whose arrays live in shared memory."""
     D, E = params.dim_state, params.dim_out
     n = max(params.dyn.n * D, params.obs.n * E)
-    if E > _MAX_DIM:
+    if _bound_of(E) == 0:
         n += 2 * E + 2 * E * E + 4 * D * E
-    return torch.empty(n * B, dtype=torch.float64, device=device)
+    return torch.empty(0 if lanes else n * B, dtype=torch.float64, device=device)
 
 
-def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | None = None):
+def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | None = None,
+                   lanes: int | None = None):
     """Run the step of ``kernel`` (``"vector_filter"``,
     ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"``,
     ``"vector_filter_general"`` or ``"vector_filter_registered"``; by default
     the first version where it has an instantiation of the model pair, the
     registered kernel for a registered model, else the general kernel)
-    compiled for the host on a CPU tensor; the five streams of
-    :func:`vector_filter`, after checking that an instantiation of the
-    configuration's dimensions ran."""
+    compiled for the host on a CPU tensor, the general and registered
+    kernels in the form of ``lanes`` (:func:`lanes_of` by default); the five
+    streams of :func:`vector_filter`, after checking that an instantiation
+    of the configuration's dimensions ran."""
     _check_streams(params, y)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
@@ -974,9 +1042,10 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     out = _empty_streams(params.dim_state, T, B, "cpu")
     cpu = torch.device("cpu")
     c = _c_struct(kernel, params, cpu)                     # refuses before anything is built
+    lanes = lanes_of(params) if lanes is None else lanes
     if kernel == "vector_filter_registered":
-        lib, pair = _registered(params, host=True)
-        s, scratch = _streams_on(params, T, cpu), _scratch(params, B, cpu)
+        lib, pair = _registered(params, host=True, lanes=lanes)
+        s, scratch = _streams_on(params, T, cpu), _scratch(params, B, cpu, lanes)
         ran = lib.vfr_host_run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
                                params.n_s, B, T, *(o.data_ptr() for o in out),
                                scratch.data_ptr())
@@ -986,11 +1055,14 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     elif kernel == "vector_filter_shaped_bq":
         ran = _host_shim().vfs_bq_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                            *(o.data_ptr() for o in out))
+    elif kernel == "vector_filter_general":
+        scratch = _scratch(params, B, cpu, lanes)
+        ran = _host_shim().vfg_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                        *(o.data_ptr() for o in out), scratch.data_ptr(), lanes)
     else:
-        lib, scratch = _host_shim(), _scratch(params, B, cpu)
-        run = lib.vfg_host_run if kernel == "vector_filter_general" else lib.vf_host_run
-        ran = run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
-                  *(o.data_ptr() for o in out), scratch.data_ptr())
+        scratch = _scratch(params, B, cpu)
+        ran = _host_shim().vf_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                       *(o.data_ptr() for o in out), scratch.data_ptr())
     if ran != params.dim_state:
         raise RuntimeError(f"the host build ran the D={ran} step for D={params.dim_state}")
     return out
@@ -1008,12 +1080,13 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     current stream, without synchronising, or raises.
     """
     global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES
+    global GENERAL_LANE_LAUNCHES, REGISTERED_LANE_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
     if y.device.type != "cuda":
         raise ValueError(f"the vector filter runs on CPU or CUDA tensors; got {y.device}")
-    kernel = kernel_of(params)
+    kernel, lanes = kernel_of(params), lanes_of(params)
     c = _c_struct(kernel, params, y.device)               # refuses before anything is built
     registered = kernel == "vector_filter_registered"
     lib, pair = _registered(params, host=False) if registered else (build(), None)
@@ -1025,7 +1098,7 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
             *(o.data_ptr() for o in out))
     stream = torch.cuda.current_stream(y.device).cuda_stream
     if registered:
-        s, scratch = _streams_on(params, T, y.device), _scratch(params, B, y.device)
+        s, scratch = _streams_on(params, T, y.device), _scratch(params, B, y.device, lanes)
         rc = lib.vfr_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
                             params.n_s, B, T, y.device.index or 0, *(o.data_ptr() for o in out),
                             scratch.data_ptr(), stream)
@@ -1033,10 +1106,12 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
         rc = lib.vfs_launch(*args, stream)
     elif kernel == "vector_filter_shaped_bq":
         rc = lib.vfs_bq_launch(*args, stream)
+    elif kernel == "vector_filter_general":
+        scratch = _scratch(params, B, y.device, lanes)
+        rc = lib.vfg_launch(*args, scratch.data_ptr(), lanes, stream)
     else:
         scratch = _scratch(params, B, y.device)
-        launch = lib.vfg_launch if kernel == "vector_filter_general" else lib.vf_launch
-        rc = launch(*args, scratch.data_ptr(), stream)
+        rc = lib.vf_launch(*args, scratch.data_ptr(), stream)
     if rc != 0:
         text = (lib.vfr_error_string if registered else lib.vf_error_string)(rc).decode()
         raise RuntimeError(f"{kernel} kernel launch failed: {text} (cudaError {rc})")
@@ -1045,6 +1120,8 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     BQ_SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped_bq")
     GENERAL_LAUNCHES += int(kernel == "vector_filter_general")
     REGISTERED_LAUNCHES += int(registered)
+    GENERAL_LANE_LAUNCHES += int(kernel == "vector_filter_general" and lanes > 0)
+    REGISTERED_LANE_LAUNCHES += int(registered and lanes > 0)
     return out
 
 

@@ -1074,3 +1074,119 @@ def test_a_registered_form_that_does_not_build_raises(card, registered):
     y = torch.zeros((3, 2, 5), dtype=torch.float64, device=card)
     with pytest.raises(RuntimeError, match="building vector_filter_registered.*failed"):
         alg.forward_pass_batch(y, engine="auto")
+
+
+# ---------------------------------------------------------------------------
+# the lane-group form of the general and registered kernels
+# (csrc/vector_filter_lanes.cuh): more than 4 outputs, or a registered state
+# of more than 5 dimensions
+# ---------------------------------------------------------------------------
+
+def _ct_bearings(card, sensors):
+    from ssmtoybox_torch.ssmod import BearingMeasurement
+    dyn = _general_systems(card)["ct_radar"][0]
+    pos = [[100.0 + 150.0 * np.cos(0.2 + 2 * np.pi * i / 16),
+            100.0 + 150.0 * np.sin(0.2 + 2 * np.pi * i / 16)] for i in range(sensors)]
+    return dyn, BearingMeasurement(GaussRV(sensors, cov=1e-3 * np.eye(sensors), device=card),
+                                   dim_state=5, state_index=[0, 2], sensor_pos=pos)
+
+
+def _forced(card, vf, params, y, lanes):
+    """The general kernel launched on ``lanes`` lanes a trajectory (0: one
+    thread) through its C entry point; the five streams."""
+    import ctypes
+    B, _, T = y.shape
+    out = vf._empty_streams(params.dim_state, T, B, card)
+    scratch = vf._scratch(params, B, card, lanes)
+    rc = vf.build().vfg_launch(ctypes.byref(vf._c_general(params, card)), y.data_ptr(),
+                               *y.stride(), B, T, card.index or 0, *(o.data_ptr() for o in out),
+                               scratch.data_ptr(), lanes,
+                               torch.cuda.current_stream(card).cuda_stream)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("rule", ["CKF", "GPQ"])
+@pytest.mark.parametrize("sensors", [5, 8, 16])
+def test_lane_form_matches_plain(card, sensors, rule):
+    """CT with more than 4 bearings: the wrapper launches the general
+    kernel's lane-group form once, counted on it, equal to the plain version
+    to the bit over 20 steps; the one-thread form, by force, gives the same
+    bits."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs = _ct_bearings(card, sensors)
+    par = np.array([[1.0] + [3.0] * 5])
+    alg = (stt.CubatureKalman(dyn, obs) if rule == "CKF"
+           else stt.GaussianProcessKalman(dyn, obs, par, par))
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_general", vf._LANES)
+    y = _zoo_records(card, dyn, obs, 257)
+    before = (vf.LAUNCHES, vf.GENERAL_LAUNCHES, vf.GENERAL_LANE_LAUNCHES)
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before[0], vf.GENERAL_LAUNCHES - before[1],
+            vf.GENERAL_LANE_LAUNCHES - before[2]) == (1, 1, 1)
+    others = [_forced(card, vf, params, y, 0)]
+    torch.cuda.synchronize()
+    for i, (s, r) in enumerate(zip(STREAMS, vf._vector_filter_plain(params, y))):
+        assert bool(torch.isfinite(got[i]).all()), s
+        assert torch.equal(got[i], r), f"{s}: {float((got[i] - r).abs().max()):.3e}"
+        for other in others:
+            assert torch.equal(other[i], r), s
+
+
+class _Chain8D(stt.ssmod.TransitionModel):
+    """Four coupled pendulums, 8 states."""
+    dim_state, dim_noise = 8, 8
+    DT, W, K = 0.05, 2.0, 0.5
+
+    def dyn_fcn(self, x, q, time):
+        p, v = x[..., 0::2], x[..., 1::2]
+        nxt = torch.roll(p, -1, dims=-1)
+        f = torch.stack([p + self.DT * v,
+                         v - self.DT * (self.W * torch.sin(p) - self.K * (nxt - p))], -1)
+        return f.reshape(x.shape) + q
+
+
+def _chain_lower(model, n_steps):
+    from ssmtoybox_torch.ops import KernelForm
+    lines = []
+    for i in range(4):
+        p, v, nxt = 2 * i, 2 * i + 1, 2 * ((i + 1) % 4)
+        lines += [f"f[{p}] = x[{p}] + c[0] * x[{v}];",
+                  f"f[{v}] = x[{v}] - c[0] * (c[1] * sin(x[{p}]) - c[2] * (x[{nxt}] - x[{p}]));"]
+
+    def plain(x, c, s, fns):
+        p, v = x[..., 0::2], x[..., 1::2]
+        nxt = torch.roll(p, -1, dims=-1)
+        f = torch.stack([p + c[0] * v, v - c[0] * (c[1] * fns.sin(p) - c[2] * (nxt - p))], -1)
+        return f.reshape(x.shape)
+    return [], KernelForm("\n".join(lines), (model.DT, model.W, model.K), plain)
+
+
+def test_registered_lane_form_matches_plain(card):
+    """A registered 8-D transition with the table's radar through
+    ``engine="dd"``: one launch of the registered kernel's lane-group form,
+    counted on it, equal to the plain version to the bit over 20 steps."""
+    from ssmtoybox_torch.ops import forms, register_dyn_dd_vec, vector_filter as vf
+    register_dyn_dd_vec(_Chain8D, _chain_lower)
+    try:
+        dyn = _Chain8D(GaussRV(8, mean=np.tile([0.5, 0.0], 4), cov=0.05 * np.eye(8), device=card),
+                       GaussRV(8, cov=1e-4 * np.eye(8), device=card))
+        alg = stt.CubatureKalman(dyn, _radar(card, 8))
+        params = vf.prepare(dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+        assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_registered",
+                                                               vf._LANES)
+        y = _zoo_records(card, dyn, alg.mod_obs, 1000)
+        before = (vf.REGISTERED_LAUNCHES, vf.REGISTERED_LANE_LAUNCHES)
+        res = alg.forward_pass_batch(y, engine="dd")
+        assert (vf.REGISTERED_LAUNCHES - before[0],
+                vf.REGISTERED_LANE_LAUNCHES - before[1]) == (1, 1)
+        torch.cuda.synchronize()
+        for f, r in zip(("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov"),
+                        vf._vector_filter_plain(params, y)):
+            g = getattr(res, f)
+            g = g.permute(2, 1, 0) if g.ndim == 3 else g.permute(3, 1, 2, 0)
+            assert bool(torch.isfinite(g).all()), f
+            assert torch.equal(g, r), f"{f}: {float((g - r).abs().max()):.3e}"
+    finally:
+        forms.DYN_DD_VEC.pop(_Chain8D, None)

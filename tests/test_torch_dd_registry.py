@@ -631,15 +631,16 @@ def test_registered_scalar_form_on_host_matches_plain(host_built, case):
 
 def test_generated_headers_hold_only_the_configurations_asked_for(host_built):
     """Each library instantiates the configurations it was built for, once
-    each, with D and the bound on E of each."""
+    each, with D, the bound on E and the lanes a trajectory of each (the
+    8-D chain in the lane-group form, its measurement at any E)."""
     vec_name, sca_name = host_built
     keys = [k for (host, k) in vf._REGISTERED if host]
-    assert {(D, EB) for D, EB, _ in keys} >= {(2, 2), (8, 2)}
+    assert {(D, EB, G) for D, EB, G, _ in keys} >= {(2, 2, 0), (8, 0, vf._LANES)}
     text = vf._registered_header(list(dict.fromkeys(
         vf._key(vf.prepare(a.mod_dyn, a.mod_obs, a.tf_dyn, a.tf_obs))
         for a in (_filter(*c) for c in HOST_CASES))))
-    assert text.count("struct VfrPair") == 4 and "F(2, 8, 2, VfrPair2)" in text
-    assert "VfgObsFn<8, 2>" in text and "const double x[1] = {x_state[1]};" in text
+    assert text.count("struct VfrPair") == 4 and f"F(2, 8, 0, {vf._LANES}, VfrPair2)" in text
+    assert "VfgObsFn<8, 0>" in text and "const double x[1] = {x_state[1]};" in text
     assert vec_name.startswith("vector_filter_registered_host-")
     assert sca_name.startswith("scalar_filter_registered_host-")
 

@@ -300,3 +300,40 @@ def test_fused_engines_refuse_gpqd(lowering):
             sf.lower_transform(tf)
         else:
             vf.lower_transform(tf, dim)
+
+
+@pytest.mark.parametrize("par", [[[1.0, 1.5]], [[1.0, 3.0]]], ids=["demo", "hybrid"])
+def test_gpqd_rules_keep_the_variance_of_a_constant(par):
+    """The GPQ+D rules of ``experiments/gpqd_demo.py`` (RBF ``[[1, 1.5]]``,
+    UT points, the transform study) and of its hybrid filter and
+    ``chip_smoke.py`` phase 20's GPQ+D lane (RBF ``[[1, 3]]``: a joint Gram
+    of condition number 3.5e5) form ``Wc = K^-1 Q K^-1`` directly.  Their
+    ``1^T Wc 1 - (1^T wm)^2``, the variance a filter gives a constant
+    integrand, stays positive and within 1e-7 relative of its value in
+    long-double arithmetic from the same joint Gram matrix and kernel
+    expectations (measured 5.4e-13 and 4.7e-9 off), unlike the reentry GPQ
+    rule of ``tests/test_torch_experiments_tracking.py``, which lost its sign
+    before its ``Wc`` was centred."""
+    tf = GaussianProcessDerTransform(1, 1, np.array(par), "ut", device="cpu")
+    k, x, wd = tf.model.kernel, tf.model.points, tf.model.which_der
+    p = k.get_parameters(None)
+    q, _, Q = k.exp_x_qRQ(p, x)
+    Qfd = k.exp_x_kxdkx(p, x, which_der=wd)
+    q_t = torch.cat([q, k.exp_x_dkx(p, x, which_der=wd)]).numpy().astype(np.longdouble)
+    Q_t = torch.cat([torch.cat([Q, Qfd], 1),
+                     torch.cat([Qfd.T, k.exp_x_dkxdkx(p, x, which_der=wd)], 1)])
+    Q_t = Q_t.numpy().astype(np.longdouble)
+    # the jittered joint Gram matrix the weights use, inverted by Gauss-Jordan in long double
+    A = k._jittered(p, x, False, wd).numpy().astype(np.longdouble)
+    n = A.shape[0]
+    G = np.hstack([A, np.eye(n, dtype=np.longdouble)])
+    for i in range(n):
+        G[i] /= G[i, i]
+        for j in range(n):
+            if j != i:
+                G[j] -= G[j, i] * G[i]
+    iK = G[:, n:]
+    want = float((iK @ Q_t @ iK).sum() - (q_t @ iK).sum() ** 2)
+    got = float(tf.Wc.sum() - tf.wm.sum() ** 2)
+    assert want > 0 and got > 0
+    assert abs(got - want) <= 1e-7 * want, (got, want)
