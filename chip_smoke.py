@@ -114,11 +114,12 @@ fails at once without them.  Phases, each fatal on failure:
     (``csrc/vector_filter_general.cu``, 16 one-thread instantiations: D = 2-5
     x a bound of 2, 4 or 8 on E, or the wide form of bearings from 9-12
     sensors; 4 of its lane-group form, ``csrc/vector_filter_lanes.cuh``: D
-    on 8 lanes) on ``VF_GENERAL_CASES``, the pairs only it takes, every pair
-    of rule kinds, at the same batch sizes through the wrapper (the
-    lane-group form above 4 outputs), the one-thread form of those above 4
-    by force on all 10,000, and by force on the UKF of the five other pairs;
-    it
+    on 8 lanes; 4 of its warp form, D on 32 lanes) on ``VF_GENERAL_CASES``,
+    the pairs only it takes, every pair of rule kinds, at the same batch
+    sizes through the wrapper (the lane-group form above 4 outputs, the warp
+    form under GH-3), the one-thread form of those by force on all 10,000,
+    and by force, one thread and warp form, on the UKF of the five other
+    pairs (GH-3 on reentry runs in the warp form through the wrapper); it
     fails if an instantiation ran no configuration; two launches on one input
     equal to the bit;
 16. the reentry bench lane (10,000 x 100, the main path's run) through the
@@ -126,7 +127,9 @@ fails at once without them.  Phases, each fatal on failure:
     the JAX package's dd-vs-f64 tolerances (1e-6 on means, 1e-7 on
     covariances), filter and smoother RMSE within 1e-6 relative, one launch a
     call; then the other kernels' paths, their launches counted from 0: the
-    same data under BSQ-UT (the kernel of the BQ shapes) and under GH-3 (the
+    same data under BSQ-UT (the kernel of the BQ shapes), under GH-3 (the
+    general kernel's warp form; its filter RMSE within 1e-6 relative of the
+    eager f64 lane's, every run finite) and under the UKF beside the CKF (the
     first version) through ``engine="dd"``, each against its plain version at
     the full shape to the bit, RMSE finite;
 17. ``tests/goldens/reentry.npz`` ``ukf`` (the shaped kernel) and ``bsqkf``
@@ -233,17 +236,18 @@ fails at once without them.  Phases, each fatal on failure:
     in standard errors (``studies_slice``);
 27. "dd pairs": what only the general forms take, at full width
     (``dd_pairs_slice``): CT + radar under UKF and CKF and CT with 2, 3, 5
-    and 8 bearings under CKF, 10,000 x 100 simulated on the card, through
-    the general vector kernel (5 and 8 bearings in its lane-group form);
+    and 8 bearings under CKF and 8 under GH-3, 10,000 x 100 simulated on the
+    card, through the general vector kernel (5 and 8 bearings under CKF in
+    its lane-group form, GH-3 in its warp form);
     UNGM under GH-9, GH-15 and GPQ on GH-15 points on the main path's 10,000
     x 500 data, through the scalar kernel's general form; each lane once
-    with the counts from 0 (4 one-thread, 2 lane-group and 3 scalar
-    launches, nothing else), its first 200 trajectories (all 10,000 on CT +
+    with the counts from 0 (4 one-thread, 2 lane-group, 1 warp-form and 3
+    scalar launches, nothing else), its first 200 trajectories (all 10,000 on CT +
     radar UKF) equal to the plain version to the bit, its filter RMSE within
     1e-6 (vector) or 1e-3 (UNGM) relative of the eager f64 lane's, at most
     1% non-finite; raw launches, wrapper, plain and bound, the libraries'
-    build times; on 5 and 8 bearings both forms of the general kernel (8
-    lanes, one thread) to the bit and in turns with their ptxas counts;
+    build times; on 5 and 8 bearings both forms of the general kernel (8 or
+    32 lanes, one thread) to the bit and in turns with their ptxas counts;
     the general form's range and sine measurements of the UNGM state against
     the plain version to the bit at B = 1, 7, 4,097 and 10,000; raw launches
     of the general kernel by force beside the first version and the shaped
@@ -259,16 +263,19 @@ fails at once without them.  Phases, each fatal on failure:
     2-output measurement, an 8-D one with the radar and a copy of the
     table's pendulum with the radar (the registered vector kernel, the 8-D
     one in its lane-group form), CT with 9 and 16 bearings under CKF (the
-    general kernel's lane-group form), 10,000 x 100; each lane once with the
-    counts from 0 (2 registered, 1 registered lane-group, 2 general
-    lane-group, 1 scalar launch, nothing else), equal to its plain version
+    general kernel's lane-group form), reentry with a copy of the table's
+    radar under GH-3 (the registered kernel's warp form), 10,000 x 100; each
+    lane once with the counts from 0 (2 registered, 1 registered lane-group,
+    1 registered warp-form, 2 general lane-group, 1 scalar launch, nothing
+    else), equal to its plain version
     to the bit (all 10,000 trajectories on the 2-D lane, the first 200
     elsewhere), its filter RMSE within 1e-6 (1e-3 on the 1-D lane) relative
     of the eager lane's; raw launches, wrapper, plain and bound; on the
     lane-group lanes both forms of the kernel to the bit and in turns (8
     lanes, one thread: the wide form on the bearings); the pendulum copy
     equal to the table's pendulum in the general kernel to the bit and timed
-    in turns with it.  Alone: ``chip_smoke.registry_alone()``; every form
+    in turns with it, and the radar copy the table's radar in the general
+    kernel's warp form.  Alone: ``chip_smoke.registry_alone()``; every form
     of the lane-group lanes, and two trees, in turns:
     ``tools/lane_variants.py``.
 
@@ -1485,11 +1492,12 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
 
 
 #: the vector filter kernels' entries of the ``kernels`` line, by name: the
-#: general and registered kernels' one-thread forms and their lane-group
-#: forms (``csrc/vector_filter_lanes.cuh``) apart
+#: general and registered kernels' one-thread forms, their lane-group forms
+#: and their warp forms (``csrc/vector_filter_lanes.cuh``) apart
 VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq",
               "vector_filter_general", "vector_filter_registered", "vector_filter_general_lanes",
-              "vector_filter_registered_lanes")
+              "vector_filter_registered_lanes", "vector_filter_general_warp",
+              "vector_filter_registered_warp")
 
 
 def vf_counts(vf):
@@ -1499,22 +1507,33 @@ def vf_counts(vf):
                               - vf.GENERAL_LAUNCHES - vf.REGISTERED_LAUNCHES),
             "vector_filter_shaped": vf.SHAPED_LAUNCHES,
             "vector_filter_shaped_bq": vf.BQ_SHAPED_LAUNCHES,
-            "vector_filter_general": vf.GENERAL_LAUNCHES - vf.GENERAL_LANE_LAUNCHES,
-            "vector_filter_registered": vf.REGISTERED_LAUNCHES - vf.REGISTERED_LANE_LAUNCHES,
+            "vector_filter_general": (vf.GENERAL_LAUNCHES - vf.GENERAL_LANE_LAUNCHES
+                                      - vf.GENERAL_WARP_LAUNCHES),
+            "vector_filter_registered": (vf.REGISTERED_LAUNCHES - vf.REGISTERED_LANE_LAUNCHES
+                                         - vf.REGISTERED_WARP_LAUNCHES),
             "vector_filter_general_lanes": vf.GENERAL_LANE_LAUNCHES,
-            "vector_filter_registered_lanes": vf.REGISTERED_LANE_LAUNCHES}
+            "vector_filter_registered_lanes": vf.REGISTERED_LANE_LAUNCHES,
+            "vector_filter_general_warp": vf.GENERAL_WARP_LAUNCHES,
+            "vector_filter_registered_warp": vf.REGISTERED_WARP_LAUNCHES}
 
 
 def vf_kernel(vf, params):
     """The entry of ``VF_KERNELS`` that the wrapper's launch for ``params``
     counts on."""
-    kernel = vf.kernel_of(params)
-    return f"{kernel}_lanes" if vf.lanes_of(params) else kernel
+    return vf_form(vf, vf.kernel_of(params), vf.lanes_of(params))
+
+
+def vf_form(vf, kernel, lanes):
+    """The entry of ``VF_KERNELS`` of ``kernel``'s form on ``lanes`` lanes (0
+    one thread a trajectory, ``vf._LANES`` the lane-group form, ``vf._WARP``
+    the warp form)."""
+    return kernel + {0: "", vf._LANES: "_lanes", vf._WARP: "_warp"}[lanes]
 
 
 def vf_zero(vf):
     vf.LAUNCHES = vf.SHAPED_LAUNCHES = vf.BQ_SHAPED_LAUNCHES = vf.GENERAL_LAUNCHES = 0
     vf.REGISTERED_LAUNCHES = vf.GENERAL_LANE_LAUNCHES = vf.REGISTERED_LANE_LAUNCHES = 0
+    vf.GENERAL_WARP_LAUNCHES = vf.REGISTERED_WARP_LAUNCHES = 0
 
 
 def only(kernel, n=1):
@@ -1577,11 +1596,13 @@ def vf_instantiation(kernel, params, lanes=0):
     """The template arguments of the instantiation of ``kernel`` that runs
     ``params``: (D, dynamics, kinds of both rules, N; N "any" for the first
     version); for the general kernel (D, the bound on E, 0 for the wide
-    form), or in the lane-group form on ``lanes`` lanes (D, the lanes)."""
+    form), or in the lane-group or warp form on ``lanes`` lanes (D, the
+    lanes)."""
+    from ssmtoybox_torch.ops import vector_filter as vf
     if kernel == "vector_filter_general":
         E = params.dim_out
         if lanes:
-            return ("vector_filter_general_lanes", params.dim_state, lanes)
+            return (vf_form(vf, kernel, lanes), params.dim_state, lanes)
         return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0)
     return (kernel, params.dim_state, params.dyn_model, params.dyn.kind, params.obs.kind,
             "any" if kernel == "vector_filter" else params.dyn.n)
@@ -1680,21 +1701,18 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     version at every instantiation (the general kernel through
     ``vf_general_checks``), the reentry bench lane through the
     shaped kernel (``fused_re``, the main path's result) against the eager
-    lane, the same data under BSQ-UT through the kernel of the BQ shapes
-    and under GH-3 through the first version (their paths), the reentry
-    goldens through ``engine="dd"``, and the timings.  Returns the figures
-    of the three kernels for the ``kernels`` line, by name."""
+    lane, the same data under BSQ-UT through the kernel of the BQ shapes,
+    under GH-3 through the general kernel's warp form (against the eager
+    lane too) and under the UKF beside the CKF through the first version
+    (their paths), the reentry goldens through ``engine="dd"``, and the
+    timings.  Returns the figures of the kernels for the ``kernels`` line,
+    by name."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
-    from ssmtoybox_torch.ssmod import ConstantVelocity, Radar2DMeasurement
-    from ssmtoybox_torch.utils import GaussRV
     from ssmtoybox_torch.utils.metrics import rmse
 
     dyn_re, obs_re = ukf_re.mod_dyn, ukf_re.mod_obs
-    dyn_cv = ConstantVelocity(GaussRV(4, mean=M0_TRUE, cov=np.diag(P0), device=dev),
-                              GaussRV(2, cov=np.diag(Q), device=dev), dt=DT)
-    obs_cv = Radar2DMeasurement(GaussRV(2, cov=np.diag(R0), device=dev), dim_state=4,
-                                state_index=SIDX)
+    dyn_cv, obs_cv = cv_radar_system(np, dev)
     zoo = zoo_systems(np, dev)
     systems = {"reentry": (dyn_re, obs_re), "CV": (dyn_cv, obs_cv),
                **{k: zoo[k] for k in ("pendulum", "falling body", "CT + 4 bearings")}}
@@ -1715,8 +1733,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         params = vf.prepare(algs[system][a].mod_dyn, algs[system][a].mod_obs,
                             algs[system][a].tf_dyn, algs[system][b].tf_obs)
         params_of[system, a, b] = params
-        kernel = vf.kernel_of(params)
-        seen.add(vf_instantiation(kernel, params))
+        kernel, form = vf.kernel_of(params), vf_kernel(vf, params)
+        seen.add(vf_instantiation(kernel, params, vf.lanes_of(params)))
         if kernel != "vector_filter":
             seen.add(vf_instantiation("vector_filter", params))
         # the plain version once, on the whole batch: on the card its operations
@@ -1738,9 +1756,9 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
                 first = launch.out
             torch.cuda.synchronize()
             moved = {k: v - before[k] for k, v in vf_counts(vf).items()}
-            if moved != {k: int(k == kernel) for k in VF_KERNELS}:
-                fail(f"{system} {a}/{b}: the wrapper's launches {moved}; {kernel} was to run once")
-            for k, out in ((kernel, got), ("vector_filter", first)):
+            if moved != only(form):
+                fail(f"{system} {a}/{b}: the wrapper's launches {moved}; {form} was to run once")
+            for k, out in ((form, got), ("vector_filter", first)):
                 if out is None:
                     continue
                 diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(out, ref))
@@ -1755,13 +1773,14 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         again = vf.vector_filter(params, yy)
         torch.cuda.synchronize()
         if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
-            fail(f"{kernel} kernel, {system} {a}/{b}: a second launch differs from the first")
+            fail(f"{form} kernel, {system} {a}/{b}: a second launch differs from the first")
     g_seen, g_err, g_cases = vf_general_checks(torch, np, dev, [
         (f"{system} {a}", params_of[system, a, a], ys_of[system][:, :, :VF_STEPS])
         for system, a in (("reentry", "UKF"), ("CV", "UKF"), ("pendulum", "UKF"),
                           ("falling body", "UKF"), ("CT + 4 bearings", "UKF"))])
     seen |= g_seen
-    err.update(g_err)
+    for k, v in g_err.items():
+        err[k] = max(err[k], v)
     missing = vf_all_instantiations(vf) - seen
     if missing:
         fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
@@ -1808,17 +1827,23 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             fail(f"reentry lane {what} RMSE of dd and f64 differ by {abs(a - b) / b:.3e}")
     del eager
 
-    # ---- 16b. the other kernels' paths: the bench lane under BSQ-UT, GH-3 ------
+    # ---- 16b. the other kernels' paths: the bench lane under BSQ-UT, GH-3 and --
+    # ---- the UKF beside the CKF ----------------------------------------------------
     launches, plain_ms = {}, {}
-    for rule, kernel in (("BSQ-UT", "vector_filter_shaped_bq"), ("GH-3", "vector_filter")):
+    p16 = {"UKF": params_of["reentry", "UKF", "UKF"]}
+    lanes16 = {"BSQ-UT": (re["BSQ-UT"], "vector_filter_shaped_bq"),
+               "GH-3": (re["GH-3"], "vector_filter_general_warp"),
+               "UKF/CKF": (stt.GaussianInference(dyn_re, obs_re, re["UKF"].tf_dyn,
+                                                 re["CKF"].tf_obs), "vector_filter")}
+    for rule, (alg, kernel) in lanes16.items():
         vf_zero(vf)
-        res = re[rule].forward_pass_batch(ys_re, engine="dd")
+        res = alg.forward_pass_batch(ys_re, engine="dd")
         torch.cuda.synchronize()
         moved = vf_counts(vf)
-        if moved != {k: int(k == kernel) for k in VF_KERNELS}:
+        if moved != only(kernel):
             fail(f"the reentry {rule} lane launched {moved}; expected {kernel} once")
         launches[kernel] = 1
-        p_rule = params_of["reentry", rule, rule]
+        p_rule = p16[rule] = vf.prepare(dyn_re, obs_re, alg.tf_dyn, alg.tf_obs)
         plain_ms[kernel], plain = event_ms(torch, lambda: vf._vector_filter_plain(p_rule, ys_re))
         err[kernel] = max(err[kernel], vf_against_plain(
             torch, res, plain, f"reentry {rule} lane {M}x{N}"))
@@ -1828,9 +1853,21 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
                   float(rmse(x_t, sm.permute(1, 2, 0))))
         if not all(map(np.isfinite, r_rule)):
             fail(f"reentry {rule} lane: RMSE {r_rule} not finite")
+        against = ""
+        if kernel.endswith("_warp"):
+            # the warp form's lane against the eager f64 lane, as phase 16 holds the shaped one
+            (r_fi, lost), (e_fi, e_lost) = (finite_rmse(torch, xs_re, res.fi_mean), finite_rmse(
+                torch, xs_re, alg.forward_pass_batch(ys_re, engine="f64").fi_mean))
+            rel = abs(r_fi - e_fi) / e_fi
+            against = (f"; over the finite runs, filter RMSE {r_fi:.9f} against the eager f64 "
+                       f"lane's {e_fi:.9f}, relative {rel:.2e} (limit 1e-6), not finite "
+                       f"{lost:.2%} (eager {e_lost:.2%}, limit 0)")
+            if not (rel <= 1e-6 and lost == 0.0):
+                fail(f"reentry {rule} lane: filter RMSE of dd and f64 differ by {rel:.3e} "
+                     f"relative, or {lost:.2%} of the runs are not finite")
         log(f"reentry {rule} lane ({M}x{N}) through {kernel} (1 launch): == plain version to "
             f"the bit, all five streams (plain version {plain_ms[kernel]:.1f} ms, one call); "
-            f"RMSE filter {r_rule[0]:.9f}, smoother {r_rule[1]:.9f}")
+            f"RMSE filter {r_rule[0]:.9f}, smoother {r_rule[1]:.9f}{against}")
         del res, sm
 
     # ---- 17. reentry goldens through engine="dd" on the card -----------------
@@ -1913,8 +1950,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         f"{lane['f64'][0]:.1f} ms (min {lane['f64'][1]:.1f})")
     entries = {}
     for kernel, rule in (("vector_filter_shaped", "UKF"), ("vector_filter_shaped_bq", "BSQ-UT"),
-                         ("vector_filter", "GH-3")):
-        p_k = params_of["reentry", rule, rule]
+                         ("vector_filter_general_warp", "GH-3"), ("vector_filter", "UKF/CKF")):
+        p_k = p16[rule]
         k_ms = cuda_ms(torch, lambda: vf.vector_filter(p_k, ys_re))
         b_ms, b_by = vf_bound(p_k, N, M)
         log(f"{kernel} reentry {rule} {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min "
@@ -2006,6 +2043,30 @@ VF_GENERAL_CASES = [
     ("CT + 9 bearings", "CKF", "CKF")]
 
 
+def cv_radar_system(np, dev):
+    """Constant velocity with the radar of the CV glint study's truth
+    (``M0_TRUE``, ``P0``, ``Q``, ``R0``, ``SIDX``) on ``dev``: (dynamics,
+    measurement)."""
+    from ssmtoybox_torch.ssmod import ConstantVelocity, Radar2DMeasurement
+    from ssmtoybox_torch.utils import GaussRV
+    return (ConstantVelocity(GaussRV(4, mean=M0_TRUE, cov=np.diag(P0), device=dev),
+                             GaussRV(2, cov=np.diag(Q), device=dev), dt=DT),
+            Radar2DMeasurement(GaussRV(2, cov=np.diag(R0), device=dev), dim_state=4,
+                               state_index=SIDX))
+
+
+def vf_probe_systems(np, dev):
+    """The reentry bench lane's system and three pairs of the five the first
+    version instantiates, by name, as the warp form's probes of the point
+    count under GH-3 (``tools/lane_variants.py``): the falling body with its
+    range (27 points), constant velocity with the radar (``cv_radar_system``,
+    81) and the coordinated turn with four bearings (243)."""
+    zoo = zoo_systems(np, dev)
+    return {"reentry + radar": reentry_system(np, dev),
+            "falling body + range": zoo["falling body"], "CV + radar": cv_radar_system(np, dev),
+            "CT + 4 bearings": zoo["CT + 4 bearings"]}
+
+
 def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule):
     """A Gaussian filter of ``dyn`` and ``obs`` with the named rules (UKF,
     CKF, GH-3 or GPQ-UT with the length-scales of ``VF_GPQ_ZOO``'s kind:
@@ -2030,9 +2091,10 @@ def vf_general_checks(torch, np, dev, forced):
     form ``lanes_of`` names, and no other) at B = ``VF_BATCHES`` against the
     plain version's run on all MC (its prefix), to the bit, NaN where it has
     NaN, at most 1% not finite; two launches equal to the bit; where that
-    form is the lane-group form, the one-thread form by force on the same MC
-    trajectories, to the bit; then the general kernel by force on ``forced``, ``(name, params,
-    y)`` of the pairs the other kernels take, at MC.  Returns the
+    form is the lane-group or warp form, the one-thread form by force on the
+    same MC trajectories, to the bit; then the general kernel by force, one
+    thread a trajectory and in the warp form, on ``forced``, ``(name,
+    params, y)`` of the pairs the other kernels take, at MC.  Returns the
     instantiations seen, the largest |diff| of each form (``VF_KERNELS``'
     names) and the count of configurations."""
     import ssmtoybox_torch as stt
@@ -2041,7 +2103,8 @@ def vf_general_checks(torch, np, dev, forced):
     systems = general_systems(np, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     seen, data = set(), {}
-    err = {"vector_filter_general": 0.0, "vector_filter_general_lanes": 0.0}
+    err = dict.fromkeys(("vector_filter_general", "vector_filter_general_lanes",
+                         "vector_filter_general_warp"), 0.0)
     for name, dyn_rule, obs_rule in VF_GENERAL_CASES:
         dyn, obs = systems[name]
         if name not in data:
@@ -2082,24 +2145,27 @@ def vf_general_checks(torch, np, dev, forced):
             torch.cuda.synchronize()
             diff = max(float((g_ - r_).nan_to_num().abs().max())
                        for g_, r_ in zip(launch.out, ref_all))
-            form = "vector_filter_general_lanes" if other else "vector_filter_general"
+            form = vf_form(vf, "vector_filter_general", other)
             err[form] = max(err[form], diff)
             if not all(same_bits(torch, g_, r_) for g_, r_ in zip(launch.out, ref_all)):
                 fail(f"{form} kernel by force on {other} lanes, {what} (B={MC}): max |diff| "
                      f"{diff:.3e}; expected equal bits")
             seen.add(vf_instantiation("vector_filter_general", params, other))
     for name, params, y in forced:
-        launch = vf_raw(torch, vf, params, y, dev, "vector_filter_general")
-        if launch() != 0:
-            fail(f"{name}: the general kernel's launch by force failed")
         ref = vf._vector_filter_plain(params, y)
-        torch.cuda.synchronize()
-        diff = max(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(launch.out, ref))
-        err["vector_filter_general"] = max(err["vector_filter_general"], diff)
-        if not all(same_bits(torch, g_, r_) for g_, r_ in zip(launch.out, ref)):
-            fail(f"vector_filter_general kernel by force on {name} (B={y.shape[0]}): max |diff| "
-                 f"{diff:.3e}; expected equal bits")
-        seen.add(vf_instantiation("vector_filter_general", params))
+        for lanes in (0, vf._WARP):
+            launch = vf_raw(torch, vf, params, y, dev, "vector_filter_general", lanes)
+            if launch() != 0:
+                fail(f"{name}: the general kernel's launch by force on {lanes} lanes failed")
+            torch.cuda.synchronize()
+            diff = max(float((g_ - r_).nan_to_num().abs().max())
+                       for g_, r_ in zip(launch.out, ref))
+            form = vf_form(vf, "vector_filter_general", lanes)
+            err[form] = max(err[form], diff)
+            if not all(same_bits(torch, g_, r_) for g_, r_ in zip(launch.out, ref)):
+                fail(f"{form} kernel by force on {name} (B={y.shape[0]}): max |diff| "
+                     f"{diff:.3e}; expected equal bits")
+            seen.add(vf_instantiation("vector_filter_general", params, lanes))
     return seen, err, len(VF_GENERAL_CASES) + len(forced)
 
 
@@ -2299,14 +2365,6 @@ def sf_raw(torch, sf, params, y, c, dev):
     return launch
 
 
-def lane_warps(torch, fit, vf, params):
-    """The warps an SM holds of the lane-group form on ``params`` and the
-    bytes of shared memory a trajectory, as the header reckons them
-    (``fit``: ``vf._fit()``, or a build of it on other lanes)."""
-    c = ctypes.byref(vf._c_params(params, torch.device("cpu")))
-    return fit.vfl_fit_warps(c), fit.vfl_fit_doubles(c) * 8
-
-
 def form_ptxas(vf, params, kernel, lanes, logs):
     """``(registers, stack frame, spill stores, entry)`` that ptxas reported
     for the instantiation of the general (``logs``: the vector filter
@@ -2330,11 +2388,11 @@ LANE_TURN_REPS = 5
 
 def lane_turns(torch, vf, params, ys, dev, kernel, logs, plain, what):
     """The general or registered kernel's two forms on one lane ``ys``: the
-    lane-group form (the route) and the one-thread form, each launched by
-    force, its streams on the first trajectories equal to ``plain`` (the
-    plain version's) to the bit, then raw launches in turns (lanes, one
-    thread, one thread, lanes), each with its ptxas counts and, for the
-    lane-group form, the warps an SM holds (``lane_warps``) beside the warps
+    lane-group or warp form (the route) and the one-thread form, each
+    launched by force, its streams on the first trajectories equal to
+    ``plain`` (the plain version's) to the bit, then raw launches in turns
+    (lanes, one thread, one thread, lanes), each with its ptxas counts and,
+    for the route, the warps an SM holds (``vf._form_fit``) beside the warps
     the lane gives an SM at all.  Logs one line a form."""
     order = (vf.lanes_of(params), 0)
     runs = {g: vf_raw(torch, vf, params, ys, dev, kernel, g) for g in order}
@@ -2355,10 +2413,12 @@ def lane_turns(torch, vf, params, ys, dev, kernel, logs, plain, what):
         regs, frame, spill, fn = form_ptxas(vf, params, kernel, g, logs)
         form, occupancy = "one-thread form", ""
         if g:
-            warps, shared = lane_warps(torch, vf._fit(), vf, params)
-            form = f"lane-group form on {g} lanes (routed)"
+            _, _, size, warps = vf._form_fit(params, g)
+            form = ("warp form (routed)" if g == vf._WARP else
+                    f"lane-group form on {g} lanes (routed)")
             occupancy = (f"; {warps} warps an SM resident, {ys.shape[0] * g / 32 / 132:.1f} "
-                         f"warps an SM in the lane; {shared} bytes of shared memory a trajectory")
+                         f"warps an SM in the lane; {size * 8} bytes of shared memory a "
+                         "trajectory")
         log(f"  {what}: {form}: raw launches " + " / ".join(f"{t:.4f}" for t in ms)
             + f" ms in turns; == plain to the bit on {head} trajectories; {regs} registers, "
             f"{frame} bytes stack frame, {spill} bytes spilled ({fn}){occupancy}")
@@ -2374,10 +2434,11 @@ def finite_rmse(torch, x_true, m):
 def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     """Phase 27, "dd pairs": the configurations that only the general forms
     take, at full width on the card.  The vector lanes (the general vector
-    filter kernel): CT + radar under UKF and CKF and CT with 2, 3, 5 and 8
-    bearings under CKF (``general_systems``), 10,000 trajectories x 100
-    steps simulated from the seed; the lanes of more than 4 bearings run in
-    its lane-group form.  The UNGM lanes (the scalar filter kernel's general
+    filter kernel): CT + radar under UKF and CKF, CT with 2, 3, 5 and 8
+    bearings under CKF and with 8 under GH-3 (``general_systems``), 10,000
+    trajectories x 100 steps simulated from the seed; the CKF lanes of more
+    than 4 bearings run in its lane-group form, the GH-3 lane in its warp
+    form.  The UNGM lanes (the scalar filter kernel's general
     form): GH-9, GH-15 and GPQ on GH-15 points (``UNGM_GPQ_PAR``) on phase
     4's data, 10,000 x 500.  Each lane once through ``engine="dd"`` with the
     counts set to 0 (one launch of the general kernel or form, none of
@@ -2408,7 +2469,8 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     gen = torch.Generator(device=dev).manual_seed(SEED + 27)
     data = {}
     vec_lanes = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"),
-                 ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 8 bearings", "CKF")]
+                 ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 8 bearings", "CKF"),
+                 ("CT + 8 bearings", "GH-3")]
     for name in dict.fromkeys(n for n, _ in vec_lanes):
         dyn, obs = systems[name]
         x = dyn.simulate_discrete(gen, steps=ZOO_STEPS, mc_sims=MC)
@@ -2436,16 +2498,18 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     torch.cuda.synchronize()
     vf_launches, sf_launches = vf_counts(vf), (sf.LAUNCHES, sf.GENERAL_LAUNCHES)
     if (vf_launches != want or sf_launches != (3, 3)
-            or not vf_launches["vector_filter_general"] * vf_launches["vector_filter_general_lanes"]):
+            or not all(vf_launches[k] for k in ("vector_filter_general",
+                                                "vector_filter_general_lanes",
+                                                "vector_filter_general_warp"))):
         fail(f"dd pairs path: vector filter launches {vf_launches}, scalar filter launches "
-             f"(all, general form) {sf_launches}; expected {want}, both forms of the general "
-             "kernel, and 3 of the scalar general form, nothing else")
+             f"(all, general form) {sf_launches}; expected {want}, the three forms of the "
+             "general kernel, and 3 of the scalar general form, nothing else")
     log(f"dd pairs path: vector filter launches {vf_launches}; scalar filter launches "
         f"{sf_launches[0]}, all of the general form")
 
     # ---- each lane: plain version, eager lane, scores, times -----------------------
     err = {"vector_filter_general": 0.0, "vector_filter_general_lanes": 0.0,
-           "scalar_filter": 0.0}
+           "vector_filter_general_warp": 0.0, "scalar_filter": 0.0}
     lat, mhz = sf.dependent_latencies(dev), float(clocks_line().split()[0])
     entries = {}
     for (name, rule), alg in algs.items():
@@ -2513,7 +2577,8 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
             f"{k_ms[1]:.4f}); plain version {p_ms:.1f} ms on {head_b} trajectories; bound "
             f"{b_ms:.4f} ms ({b_by}){floor}")
         if not scalar and kernel not in entries:
-            # the kernel's first lane: CT + radar UKF, and CT + 5 bearings in the lane-group form
+            # the kernel's first lane: CT + radar UKF, CT + 5 bearings in the lane-group form
+            # and CT + 8 bearings under GH-3 in the warp form
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -2588,7 +2653,11 @@ def registry_systems(np, dev):
       radar; ``pendulum + radar`` is the same system with the table's
       pendulum (the general kernel);
     - ``CT + 9 bearings`` and ``CT + 16 bearings``: the zoo's coordinated turn
-      with bearings from ``REG_SENSORS`` (the general kernel's wide form).
+      with bearings from ``REG_SENSORS`` (the general kernel's wide form);
+    - ``reentry + radar copy``: the bench lane's reentry with a subclass of
+      ``Radar2DMeasurement`` registered with the statements of
+      ``VfObs<VF_OBS_RADAR>`` (under GH-3 the registered kernel's warp form);
+      ``reentry + radar`` is the same system with the table's radar.
 
     A registration replaces an earlier one of its class, so calling this
     again is harmless."""
@@ -2642,6 +2711,9 @@ def registry_systems(np, dev):
     class PendulumCopy(ssmod.Pendulum2DTransition):
         pass
 
+    class RadarCopy(ssmod.Radar2DMeasurement):
+        pass
+
     register_dyn_dd(Growth1D, lambda m, n: 2.0 * np.cos(0.7 * np.arange(n)), KernelForm(
         "f[0] = c[0] * x[0] + c[1] * (x[0] / (1.0 + x[0] * x[0])) + s[0];",
         (Growth1D.A, Growth1D.B), lambda x, c, s, fns: c[0] * x + c[1] * (x / (1.0 + x * x)) + s[0]))
@@ -2686,8 +2758,19 @@ def registry_systems(np, dev):
         return [], KernelForm("f[0] = x[0] + x[1] * c[0];\nf[1] = x[1] - c[1] * sin(x[0]);",
                               (model.dt, model.g * model.dt), plain)
 
+    def radar_copy(model):
+        i, j = model.state_index
+
+        def plain(x, c, fns):
+            dx, dy = x[..., i] - c[0], x[..., j] - c[1]
+            return torch.stack([fns.sqrt(dx * dx + dy * dy), fns.atan2(dy, dx)], -1)
+        return KernelForm(f"const double dx = x[{i}] - c[0];\nconst double dy = x[{j}] - c[1];\n"
+                          "h[0] = sqrt(dx * dx + dy * dy);\nh[1] = atan2(dy, dx);",
+                          tuple(model.radar_loc.tolist()), plain)
+
     register_dyn_dd_vec(DrivenPendulum, driven)
     register_obs_dd_vec(Mix2, mix)
+    register_obs_dd_vec(RadarCopy, radar_copy)
     register_dyn_dd_vec(Chain8D, chain)
     register_dyn_dd_vec(PendulumCopy, pendulum)
 
@@ -2704,6 +2787,7 @@ def registry_systems(np, dev):
                    dt=0.01)
 
     ct = zoo_systems(np, dev)["CT + 4 bearings"][0]
+    reentry, table_radar = reentry_system(np, dev)
 
     def bearings(S):
         return ssmod.BearingMeasurement(rv(S, None, 1e-3 * np.eye(S)), dim_state=5,
@@ -2722,6 +2806,10 @@ def registry_systems(np, dev):
         "pendulum + radar": (pend(ssmod.Pendulum2DTransition), radar(2, [-2.0, -2.0])),
         "CT + 9 bearings": (ct, bearings(9)),
         "CT + 16 bearings": (ct, bearings(16)),
+        "reentry + radar copy": (reentry, RadarCopy(table_radar.noise_rv, dim_state=5,
+                                                    state_index=table_radar.state_index,
+                                                    radar_loc=table_radar.radar_loc)),
+        "reentry + radar": (reentry, table_radar),
     }
 
 
@@ -2732,7 +2820,10 @@ REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
              ("chain 8-D + radar", "CKF", "vector_filter_registered", REG_STEPS),
              ("pendulum copy + radar", "UKF", "vector_filter_registered", REG_STEPS),
              ("CT + 9 bearings", "CKF", "vector_filter_general", REG_STEPS),
-             ("CT + 16 bearings", "CKF", "vector_filter_general", REG_STEPS)]
+             ("CT + 16 bearings", "CKF", "vector_filter_general", REG_STEPS),
+             ("reentry + radar copy", "GH-3", "vector_filter_registered", REG_STEPS)]
+#: phase 28's filters by rule
+REG_RULES = {"UKF": "UnscentedKalman", "CKF": "CubatureKalman", "GH-3": "GaussHermiteKalman"}
 
 
 def registry_slice(torch, np, dev):
@@ -2743,23 +2834,26 @@ def registry_slice(torch, np, dev):
     1-D lane).  First the libraries of the registered forms are built, the
     vector lanes' and the scalar lane's at once (their build times and each
     instantiation's ptxas registers and spills printed).  Then every lane
-    once through ``engine="dd"`` with the counts set to 0: three launches of
-    the registered vector kernel (the chain's in its lane-group form), two of
-    the general kernel (its lane-group form), one of the scalar kernel's
-    registered form, nothing else.  Each lane: every stream
+    once through ``engine="dd"`` with the counts set to 0: four launches of
+    the registered vector kernel (the chain's in its lane-group form, the
+    radar copy's under GH-3 in its warp form), two of the general kernel
+    (its lane-group form), one of the scalar kernel's registered form,
+    nothing else.  Each lane: every stream
     of its first ``DD_PLAIN_B`` trajectories (all on the 2-D lane) equal to
     its plain version's to the bit; filter RMSE within 1e-6 relative (1e-3 on
     the 1-D lane) of the eager f64 lane's, at most 1% not finite; raw
     launches, the wrapper's and the plain version's time, the bound
     (``vf_bound`` / ``sf_bound``).  The pendulum copy's streams equal the
     table pendulum's in the general kernel on the same data, to the bit, and
-    the two are timed in turns (raw launches).  The 8-D chain and CT with 9
-    and 16 bearings run in the lane-group form; on them both forms of their
-    kernel (the lane-group form and the one-thread form) are held to the
-    plain version and timed in turns (``lane_turns``; the registered library
-    is built with the chain's two forms).  Returns the
-    entries of ``vector_filter_registered`` and
-    ``vector_filter_registered_lanes`` for the ``kernels`` line, the scalar
+    the radar copy's the table radar's in the general kernel's warp form; each
+    pair is timed in turns (raw launches).  The 8-D chain and CT with 9
+    and 16 bearings run in the lane-group form, the radar copy in the warp
+    form; on them both forms of their kernel (that form and the one-thread
+    form) are held to the plain version and timed in turns (``lane_turns``;
+    the registered library is built with the two forms of each).  Returns
+    the entries of ``vector_filter_registered``,
+    ``vector_filter_registered_lanes`` and
+    ``vector_filter_registered_warp`` for the ``kernels`` line, the scalar
     kernel's launches and largest |diff| on this phase, and the launches and
     largest |diff| of the general kernel's forms, by ``VF_KERNELS`` name."""
     import ssmtoybox_torch as stt
@@ -2769,15 +2863,19 @@ def registry_slice(torch, np, dev):
     systems = registry_systems(np, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 28)
     algs, data, params = {}, {}, {}
-    for name, rule, _, steps in REG_LANES + [("pendulum + radar", "UKF", None, REG_STEPS)]:
+    tables = {"pendulum + radar": ("pendulum copy + radar", "UKF"),
+              "reentry + radar": ("reentry + radar copy", "GH-3")}
+    for name, rule, _, steps in REG_LANES + [(n, r, None, REG_STEPS)
+                                             for n, (_, r) in tables.items()]:
         dyn, obs = systems[name]
-        algs[name] = (stt.UnscentedKalman if rule == "UKF" else stt.CubatureKalman)(dyn, obs)
+        algs[name] = getattr(stt, REG_RULES[rule])(dyn, obs)
         lowering = sf if dyn.dim_state == 1 else vf
         params[name] = lowering.prepare(dyn, obs, algs[name].tf_dyn, algs[name].tf_obs)
-        if name != "pendulum + radar":
+        if name not in tables:
             x = dyn.simulate_discrete(gen, steps=steps, mc_sims=MC)
             data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
-    data["pendulum + radar"] = data["pendulum copy + radar"]
+    for name, (copy, _) in tables.items():
+        data[name] = data[copy]
     torch.cuda.synchronize()
 
     # ---- the registered forms' libraries, built at once -------------------------
@@ -2820,11 +2918,12 @@ def registry_slice(torch, np, dev):
         if kernel != "scalar_filter":
             want[vf_kernel(vf, params[name])] += 1
     if (vf_launches != want or sf_launches != (1, 0, 1)
-            or sum(want[k] for k in ("vector_filter_registered",
-                                     "vector_filter_registered_lanes")) != 3):
+            or sum(want[k] for k in ("vector_filter_registered", "vector_filter_registered_lanes",
+                                     "vector_filter_registered_warp")) != 4
+            or not want["vector_filter_registered_warp"]):
         fail(f"registry path: vector filter launches {vf_launches}, scalar filter launches (all, "
-             f"general, registered) {sf_launches}; expected {want} (three of the registered "
-             "kernel) and (1, 0, 1)")
+             f"general, registered) {sf_launches}; expected {want} (four of the registered "
+             "kernel, one in its warp form) and (1, 0, 1)")
     log(f"registry path: vector filter launches {vf_launches}; scalar filter launches "
         f"{sf_launches[0]}, of the registered form")
 
@@ -2896,24 +2995,29 @@ def registry_slice(torch, np, dev):
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
-    # ---- the pendulum copy against the table's pendulum in the general kernel ----------
-    p_copy, p_table = params["pendulum copy + radar"], params["pendulum + radar"]
-    ys = data["pendulum copy + radar"][1]
-    if vf.kernel_of(p_table) != "vector_filter_general":
-        fail(f"the table's pendulum with the radar runs in {vf.kernel_of(p_table)}")
-    copy_run, table_run = vf_raw(torch, vf, p_copy, ys, dev), vf_raw(torch, vf, p_table, ys, dev)
-    turns = {"registered copy": [], "table (general)": []}
-    for who in ("registered copy", "table (general)", "table (general)", "registered copy"):
-        turns[who].append(raw_ms(torch, copy_run if who == "registered copy" else table_run))
-    torch.cuda.synchronize()
-    diff = max(float((a - b).nan_to_num().abs().max())
-               for a, b in zip(copy_run.out, table_run.out))
-    if not all(same_bits(torch, a, b) for a, b in zip(copy_run.out, table_run.out)):
-        fail(f"the registered pendulum copy differs from the table's pendulum in the general "
-             f"kernel on {ys.shape[0]} trajectories, max |diff| {diff:.3e}; expected equal bits")
-    log(f"registered pendulum copy == the table's pendulum in the general kernel to the bit, "
-        f"{ys.shape[0]}x{ys.shape[-1]}, all five streams; raw launches in turns: "
-        + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms" for k, v in turns.items()))
+    # ---- the registered copies against the table's models in the general kernel -------
+    for table, (copy, _) in tables.items():
+        p_copy, p_table = params[copy], params[table]
+        ys = data[copy][1]
+        forms = (vf_kernel(vf, p_copy), vf_kernel(vf, p_table))
+        if forms[1] != forms[0].replace("registered", "general"):
+            fail(f"{copy} runs in {forms[0]}, {table} in {forms[1]}: not the same form")
+        copy_run, table_run = vf_raw(torch, vf, p_copy, ys, dev), vf_raw(torch, vf, p_table, ys,
+                                                                          dev)
+        turns = {"registered copy": [], "table (general)": []}
+        for who in ("registered copy", "table (general)", "table (general)", "registered copy"):
+            turns[who].append(raw_ms(torch, copy_run if who == "registered copy" else table_run,
+                                     reps=5))
+        torch.cuda.synchronize()
+        diff = max(float((a - b).nan_to_num().abs().max())
+                   for a, b in zip(copy_run.out, table_run.out))
+        if not all(same_bits(torch, a, b) for a, b in zip(copy_run.out, table_run.out)):
+            fail(f"the registered {copy} differs from the table's {table} in the general kernel "
+                 f"on {ys.shape[0]} trajectories, max |diff| {diff:.3e}; expected equal bits")
+        log(f"registered {copy} ({forms[0]}) == the table's {table} ({forms[1]}) to the bit, "
+            f"{ys.shape[0]}x{ys.shape[-1]}, all five streams; raw launches in turns: "
+            + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+                        for k, v in turns.items()))
     for kernel, entry in entries.items():
         entry["max_abs_err"] = err[kernel]
     log(f"registry phase: {time.perf_counter() - t28:.1f} s; card: {card_line()}")
@@ -5239,6 +5343,8 @@ def main():
                                                         bench=(dyn_re, obs_re, ys_re))
     for k, entry in general.items():
         checked = vf_entries.pop(k)
+        if "ms" in checked:         # timed on its path in phase 18 (the warp form's reentry GH-3)
+            checked, entry = entry, checked
         entry["launches"] += checked["launches"]
         entry["max_abs_err"] = max(entry["max_abs_err"], checked["max_abs_err"])
         vf_entries[k] = entry
@@ -5273,7 +5379,7 @@ def main():
         "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": None}] + student + [vdm_entry] + [{
         "name": k, "route": "cuda",
-        "source": f"ssmtoybox_torch/csrc/{k.removesuffix('_lanes')}.cu",
+        "source": f"ssmtoybox_torch/csrc/{k.removesuffix('_lanes').removesuffix('_warp')}.cu",
         "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **entry} for k, entry in vf_entries.items()]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps(kernels), flush=True)

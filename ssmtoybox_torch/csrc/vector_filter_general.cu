@@ -35,6 +35,10 @@
 //   whose arrays do not fit in shared memory, or of at most 8 outputs that
 //   leaves an SM too few warps of that form (many points), keeps the
 //   one-thread form;
+// - rules of many points (Gauss-Hermite), the warp form of the same header:
+//   a trajectory on a whole warp, each lane evaluating every 32nd point, the
+//   offsets of a tile of 32 points recomputed for the sums that need them
+//   (4 instantiations, D = 2-5);
 // - the measurement's constants and R are read from device memory, so E has
 //   no cap;
 // - as in the first version: the rules' constants through the read-only path
@@ -55,7 +59,7 @@
 // `lanes` 0: the one-thread form at the bound that holds E, scratch of
 // vfg_values(p) * B doubles (and 2 E + 2 E^2 + 4 D E more a trajectory for
 // E > 8, the wide form); VFL_G: the lane-group form on that many lanes a
-// trajectory, no scratch.  Returns the CUDA error of selecting the device or,
+// trajectory, no scratch; VFL_WARP: the warp form, no scratch.  Returns the CUDA error of selecting the device or,
 // after the launch, cudaGetLastError(); cudaErrorInvalidValue for a
 // configuration the
 // general step does not take, other `lanes`, or a lane-group shape whose
@@ -66,7 +70,7 @@ extern "C" int vfg_launch(const VfgParams* params, const double* y, long long y_
                           int lanes, void* stream) {
   if (B <= 0 || n_steps <= 0) return 0;
   const VfgParams& p = *params;
-  if (!vfg_takes(p.base) || (lanes != 0 && lanes != VFL_G))
+  if (!vfg_takes(p.base) || (lanes != 0 && lanes != VFL_G && lanes != VFL_WARP))
     return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' card explicitly
@@ -77,8 +81,11 @@ extern "C" int vfg_launch(const VfgParams* params, const double* y, long long y_
   if (lanes != 0) {
 #define VFL_LAUNCH_IF(D)                                                                   \
   if (p.base.dim_state == D)                                                               \
-    return vfl_launch_as<D, VFL_G, VfgZoo<D, 0>>(p, y, y_b, y_e, y_k, nullptr, 0, B,      \
-                                                 n_steps, out, st);
+    return lanes == VFL_WARP                                                               \
+               ? vfl_launch_as<D, VFL_WARP, VfgZoo<D, 0>>(p, y, y_b, y_e, y_k, nullptr, 0, \
+                                                          B, n_steps, out, st)             \
+               : vfl_launch_as<D, VFL_G, VfgZoo<D, 0>>(p, y, y_b, y_e, y_k, nullptr, 0, B, \
+                                                       n_steps, out, st);
     VFL_SHAPES(VFL_LAUNCH_IF)
 #undef VFL_LAUNCH_IF
     return static_cast<int>(cudaErrorInvalidValue);
@@ -92,3 +99,20 @@ extern "C" int vfg_launch(const VfgParams* params, const double* y, long long y_
 #undef VFG_LAUNCH_IF
   return static_cast<int>(cudaGetLastError());
 }
+
+#ifdef VFL_CLOCKS
+// The clocks of each phase of the warp form summed over the warps into
+// out[0 .. 16) since the last call, which sets them to 0 (vfl_mark; slots 14
+// and 15 are a warp's last mark and its next slot).
+extern "C" int vfl_clock_totals(long long* out) {
+  static long long rows[VFL_CLOCK_WARPS][16];
+  cudaError_t rc = cudaDeviceSynchronize();
+  if (rc == cudaSuccess) rc = cudaMemcpyFromSymbol(rows, vfl_clocks, sizeof(rows));
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  for (int i = 0; i < 16; ++i) out[i] = 0;
+  for (int w = 0; w < VFL_CLOCK_WARPS; ++w)
+    for (int i = 0; i < 14; ++i) out[i] += rows[w][i];
+  static long long zeros[VFL_CLOCK_WARPS][16];
+  return static_cast<int>(cudaMemcpyToSymbol(vfl_clocks, zeros, sizeof(zeros)));
+}
+#endif

@@ -23,13 +23,15 @@
 
 namespace {
 
-// The lane-group form on the trajectories one after another.
+// The lane-group form on G lanes (VFL_G, or VFL_WARP: the warp form) on the
+// trajectories one after another, the rules staged where a block stages them.
 template <int D, int G, class Model>
 void vfl_host(const VfgParams& p, const double* y, long long y_b, long long y_e, long long y_k,
               const double* s, int n_s, int B, int n_steps, double* m_fi, double* P_fi,
               double* m_pr, double* P_pr, double* xx) {
-  std::vector<double> staged(vfl_stage_doubles(p.base)), sm(vfl_layout(p.base).size);
-  const VflRules rules = vfl_stage(p, staged.data(), 0, 1);
+  const VflFit fit = vfl_fit(p.base, G);
+  std::vector<double> staged(fit.stage), sm(fit.size);
+  const VflRules rules = vfl_stage(p, staged.data(), fit.stage, 0, 1);
   for (int b = 0; b < B; ++b) {
     std::fill(sm.begin(), sm.end(), std::numeric_limits<double>::quiet_NaN());
     vfl_record<D, G, Model>(p, rules, sm.data(), y + b * y_b, y_e, y_k, n_steps, s, n_s,
@@ -46,12 +48,14 @@ namespace {
 
 // Configuration (D, EB, G, Model) of VFR_PAIRS on the trajectories one after
 // another: the one-thread form (G = 0) if the parameters' bound on E is EB,
-// the lane-group form on G = VFL_G lanes a trajectory; whether it ran.
+// the lane-group form on G = VFL_G lanes a trajectory or the warp form (G =
+// VFL_WARP); whether it ran.
 template <int D, int EB, int G, class Model>
 bool vfr_host(const VfgParams& p, const double* y, long long y_b, long long y_e, long long y_k,
               const double* s, int n_s, int B, int n_steps, double* m_fi, double* P_fi,
               double* m_pr, double* P_pr, double* xx, double* scratch) {
-  static_assert(G == 0 || G == VFL_G, "the lane-group form runs on VFL_G lanes");
+  static_assert(G == 0 || G == VFL_G || G == VFL_WARP,
+                "the lane-group form runs on VFL_G lanes, the warp form on VFL_WARP");
   if constexpr (G == 0) {
     if (vfg_bound(p.base.dim_out) != EB) return false;
     for (int b = 0; b < B; ++b)
@@ -175,9 +179,9 @@ extern "C" int vfs_bq_host_run(const VfsBqParams* params, const double* y, long 
 // The same for the steps of the general kernel (vector_filter_general.cuh,
 // vector_filter_lanes.cuh): every model pair; `lanes` 0: the one-thread form,
 // E outputs at the bound EB that holds them (the wide form above 8); VFL_G:
-// the lane-group form on that many lanes a trajectory.  Returns the state
-// dimension of the instantiation that ran, 0 if the general step does not
-// take the configuration.
+// the lane-group form on that many lanes a trajectory; VFL_WARP: the warp
+// form.  Returns the state dimension of the instantiation that ran, 0 if the
+// general step does not take the configuration.
 extern "C" int vfg_host_run(const VfgParams* params, const double* y, long long y_b,
                             long long y_e, long long y_k, int B, int n_steps, double* m_fi,
                             double* P_fi, double* m_pr, double* P_pr, double* xx,
@@ -190,6 +194,11 @@ extern "C" int vfg_host_run(const VfgParams* params, const double* y, long long 
   if (p.base.dim_state == D && lanes == VFL_G) {                                           \
     vfl_host<D, VFL_G, VfgZoo<D, 0>>(p, y, y_b, y_e, y_k, nullptr, 0, B, n_steps, m_fi,    \
                                      P_fi, m_pr, P_pr, xx);                                \
+    ran = D;                                                                               \
+  }                                                                                        \
+  if (p.base.dim_state == D && lanes == VFL_WARP) {                                        \
+    vfl_host<D, VFL_WARP, VfgZoo<D, 0>>(p, y, y_b, y_e, y_k, nullptr, 0, B, n_steps, m_fi, \
+                                        P_fi, m_pr, P_pr, xx);                             \
     ran = D;                                                                               \
   }
   VFL_SHAPES(VFL_RUN_IF)

@@ -14,9 +14,9 @@
 //   VFR_PAIRS(F)  F(index, D, EB, G, Model) for each configuration the
 //                 library was built for: D (1-8); G 0 for one thread a
 //                 trajectory at the bound EB on E (2, 4, 8; 0 for the wide
-//                 form) as in vector_filter_general.cu, or G = VFL_G lanes
+//                 form) as in vector_filter_general.cu, G = VFL_G lanes
 //                 a trajectory (the lane-group form, vector_filter_lanes.cuh;
-//                 EB 0); Model the policy whose functors evaluate the
+//                 EB 0) or G = VFL_WARP (the warp form; EB 0); Model the policy whose functors evaluate the
 //                 configuration's transition and measurement (a registered
 //                 form's statements, or the table's model through VfgDynFn /
 //                 VfgObsFn).
@@ -24,7 +24,8 @@
 //
 // What bounds it, and its design: those of vector_filter_general.cu: one
 // thread a trajectory up to 4 outputs on states of up to 5 dimensions, the
-// lane-group form above (ops/vector_filter.py, lanes_of); a registered
+// lane-group form above, the warp form for rules of many points
+// (ops/vector_filter.py, lanes_of); a registered
 // transition reads its constants from device memory (VfgParams::dyn_c) and
 // this step's values of its per-step streams from s[k * n_s] (the streams
 // time-major, (T, n_s)).  Built with
@@ -40,12 +41,14 @@ namespace {
 
 // Configuration (D, EB, G, Model) of VFR_PAIRS: the one-thread form (G = 0)
 // if the parameters' bound on E is EB, else cudaErrorInvalidValue; the
-// lane-group form on G = VFL_G lanes a trajectory.
+// lane-group form on G = VFL_G lanes a trajectory, or the warp form (G =
+// VFL_WARP).
 template <int D, int EB, int G, class Model>
 int vfr_run(const VfgParams& p, const double* y, long long y_b, long long y_e, long long y_k,
             const double* s, int n_s, int B, int n_steps, const VfgStreams& out,
             double* scratch, cudaStream_t stream) {
-  static_assert(G == 0 || G == VFL_G, "the lane-group form runs on VFL_G lanes");
+  static_assert(G == 0 || G == VFL_G || G == VFL_WARP,
+                "the lane-group form runs on VFL_G lanes, the warp form on VFL_WARP");
   if constexpr (G == 0) {
     if (vfg_bound(p.base.dim_out) != EB) return static_cast<int>(cudaErrorInvalidValue);
     vfg_launch_as<D, EB, Model>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, scratch, stream);

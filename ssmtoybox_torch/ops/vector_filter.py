@@ -19,15 +19,18 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   ``Wc`` included) by value;
 - ``vector_filter`` (``csrc/vector_filter.cu``, the step in
   ``csrc/vector_filter_step.cuh``), the first version: every other
-  configuration of those pairs (Gauss-Hermite rules, mixed point counts),
-  one thread a trajectory, N at run time;
+  configuration of those pairs (mixed point counts, rules of fewer than
+  :data:`_WARP_MIN_POINTS` points at other counts), one thread a
+  trajectory, N at run time;
 - ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the steps in
   ``csrc/vector_filter_general.cuh`` and ``csrc/vector_filter_lanes.cuh``):
   every other pair of the table's models, the models, E, the kinds and N at
   run time; up to 4 measurement outputs one thread a trajectory (D and a
   bound on E template arguments), above that the lane-group form (a
   trajectory on 8 lanes of a warp, its arrays in shared memory; D a
-  template argument), :func:`lanes_of`;
+  template argument); rules of many points (Gauss-Hermite, of those five
+  pairs too) in the warp form (a trajectory on a whole warp, each lane a
+  32nd of the points), :func:`lanes_of`;
 - ``vector_filter_registered`` (``csrc/vector_filter_registered.cu``): the
   general kernel's forms instantiated on models registered at run time
   (:func:`register_dyn_dd_vec`, :func:`register_obs_dd_vec`, and 1-D
@@ -65,7 +68,9 @@ of the classical shaped kernel also to :data:`SHAPED_LAUNCHES`, one of the
 kernel of the BQ shapes to :data:`BQ_SHAPED_LAUNCHES`, one of the general
 kernel to :data:`GENERAL_LAUNCHES`, one of the registered kernel to
 :data:`REGISTERED_LAUNCHES`; a launch of either in the lane-group form also
-to :data:`GENERAL_LANE_LAUNCHES` or :data:`REGISTERED_LANE_LAUNCHES`.
+to :data:`GENERAL_LANE_LAUNCHES` or :data:`REGISTERED_LANE_LAUNCHES`, and one
+in the warp form to :data:`GENERAL_WARP_LAUNCHES` or
+:data:`REGISTERED_WARP_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
@@ -96,7 +101,8 @@ from .forms import TORCH_FNS, KernelForm, Registered, find_dyn, find_obs
 from .scalar_filter import _floats, _memo
 
 __all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "GENERAL_LAUNCHES",
-           "REGISTERED_LAUNCHES", "GENERAL_LANE_LAUNCHES", "REGISTERED_LANE_LAUNCHES", "VecRule",
+           "REGISTERED_LAUNCHES", "GENERAL_LANE_LAUNCHES", "REGISTERED_LANE_LAUNCHES",
+           "GENERAL_WARP_LAUNCHES", "REGISTERED_WARP_LAUNCHES", "VecRule",
            "VectorFilterParams", "register_dyn_dd_vec", "register_obs_dd_vec", "lower_transform",
            "check", "supports", "prepare", "kernel_of", "lanes_of", "vector_filter", "build",
            "build_registered", "chain_floor_clocks", "TORCH_FNS"]
@@ -115,6 +121,10 @@ REGISTERED_LAUNCHES = 0
 GENERAL_LANE_LAUNCHES = 0
 #: the registered kernel's launches in the lane-group form, among its launches
 REGISTERED_LANE_LAUNCHES = 0
+#: the general kernel's launches in the warp form, among its launches
+GENERAL_WARP_LAUNCHES = 0
+#: the registered kernel's launches in the warp form, among its launches
+REGISTERED_WARP_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
@@ -159,8 +169,15 @@ _MAX_OBS_C = 16
 _LANES = 8
 #: the fewest warps of the lane-group form an SM must hold for that form to
 #: take a shape of at most 8 outputs from the one-thread form (PERF.md, PR
-#: 21: it won at 10-20 warps, lost at 1-2, many-point rules)
+#: 21: it won at 10-20 warps, lost at 1-2, many-point rules); and of the warp
+#: form for it to take a shape
 _MIN_LANE_WARPS = 4
+#: the lanes a trajectory of the warp form runs on (``VFL_WARP`` of
+#: ``csrc/vector_filter_lanes.cuh``)
+_WARP = 32
+#: the fewest points of both rules for which the warp form takes a shape
+#: (:func:`lanes_of`, which gives the evidence)
+_WARP_MIN_POINTS = 243
 
 
 def register_dyn_dd_vec(model_cls, lower):
@@ -409,7 +426,9 @@ def kernel_of(params: VectorFilterParams) -> str:
     the shaped kernels do not instantiate: ``"vector_filter_general"``.
     Else both rules with the same point count N = 2 D + 1 or 2 D (the UT and
     CKF counts): ``"vector_filter_shaped"`` when both are classical, else
-    ``"vector_filter_shaped_bq"``.  Any other count (Gauss-Hermite) or mixed
+    ``"vector_filter_shaped_bq"``.  Rules that the warp form takes
+    (:func:`_warp_takes`: Gauss-Hermite on 5-D states):
+    ``"vector_filter_general"`` in that form.  Any other count or mixed
     counts: ``"vector_filter"``, the first version."""
     D, dyn, obs = params.dim_state, params.dyn, params.obs
     if _registered_pair(params):
@@ -418,12 +437,39 @@ def kernel_of(params: VectorFilterParams) -> str:
         return "vector_filter_general"
     if dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
         return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
-    return "vector_filter"
+    return "vector_filter_general" if _warp_takes(params) else "vector_filter"
+
+
+def _form_fit(params: VectorFilterParams, lanes: int) -> tuple:
+    """How ``params`` runs on ``lanes`` lanes (:data:`_LANES`, or
+    :data:`_WARP`: the warp form), as the header reckons it (``vfl_fit`` via
+    :func:`_fit`): trajectories a block (0 where the launcher refuses it),
+    doubles a block stages, doubles a trajectory, warps an SM."""
+    out = (ctypes.c_int * 4)()
+    _fit().vfl_fit_on(ctypes.byref(_c_params(params, torch.device("cpu"))), lanes, out)
+    return tuple(out)
+
+
+def _warp_takes(params: VectorFilterParams) -> bool:
+    """Whether the warp form runs ``params``: both rules of at least
+    :data:`_WARP_MIN_POINTS` points, and an SM holds at least
+    :data:`_MIN_LANE_WARPS` warps of it."""
+    return (min(params.dyn.n, params.obs.n) >= _WARP_MIN_POINTS
+            and _form_fit(params, _WARP)[3] >= _MIN_LANE_WARPS)
 
 
 def lanes_of(params: VectorFilterParams) -> int:
     """The lanes a trajectory of the general and registered kernels runs on.
-    0, one thread a trajectory (``vfg_step``), for at most 4 measurement
+    :data:`_WARP`, the warp form (``vfl_step`` on a whole warp), where both
+    rules have at least :data:`_WARP_MIN_POINTS` points and an SM holds at
+    least :data:`_MIN_LANE_WARPS` warps of it (:func:`_warp_takes`).  The
+    threshold is the card's (NVIDIA H100 80GB HBM3 at 700 W, raw launches at
+    10,000 x 100 in turns, ``tools/lane_variants.py``, PERF.md section 6, PR
+    22): under GH-3 the warp form took 5.0 ms on the falling body (27
+    points) against the first version's 1.6, 11.7 ms on constant velocity
+    with the radar (81) against 9.9, and 37.9 ms on CT with 4 bearings
+    (243) against 71.0; so 243 (between 81 and 243 not measured).  Else 0,
+    one thread a trajectory (``vfg_step``), for at most 4 measurement
     outputs on a state of at most 5 dimensions, and for every shape of the
     other kernels.  Above that the lane-group form (``vfl_step`` of
     ``csrc/vector_filter_lanes.cuh``) on :data:`_LANES` lanes where an SM
@@ -431,13 +477,15 @@ def lanes_of(params: VectorFilterParams) -> int:
     shared memory: not a registered 8-D state under Gauss-Hermite rules,
     say) and, for at most 8 outputs, where the one-thread form keeps its
     arrays in registers, at least :data:`_MIN_LANE_WARPS` (not under rules
-    of some hundreds of points), as the header reckons them (:func:`_fit`);
-    else 0 again."""
+    of some hundreds of points), as the header reckons them
+    (:func:`_form_fit`); else 0 again."""
     if kernel_of(params) not in ("vector_filter_general", "vector_filter_registered"):
         return 0
+    if _warp_takes(params):
+        return _WARP
     if params.dim_out <= 4 and params.dim_state <= 5:
         return 0
-    warps = _fit().vfl_fit_warps(ctypes.byref(_c_params(params, torch.device("cpu"))))
+    warps = _form_fit(params, _LANES)[3]
     return _LANES if warps >= (_MIN_LANE_WARPS if params.dim_out <= 8 else 1) else 0
 
 
@@ -455,7 +503,10 @@ def _const(v: float, like: torch.Tensor) -> torch.Tensor:
 
 def _streams_on(params: VectorFilterParams, T: int, device) -> torch.Tensor:
     """A registered transition's per-step streams of a T-step record,
-    (T, n_s), on ``device``."""
+    (T, n_s), on ``device``; (T, 0) for a table transition (beside a
+    registered measurement), which reads none."""
+    if params.streams is None:
+        return torch.empty((T, 0), dtype=torch.float64, device=device)
     return forms.on_device(params._on, f"streams_{T}", device, lambda: params.streams(T))
 
 
@@ -868,17 +919,14 @@ def _host_shim() -> ctypes.CDLL:
 
 
 def _bind_fit(lib: ctypes.CDLL):
-    for fn in (lib.vfl_fit_block, lib.vfl_fit_warps, lib.vfl_fit_doubles, lib.vfl_fit_stage):
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.POINTER(_CParams)]
+    lib.vfl_fit_on.restype = None
+    lib.vfl_fit_on.argtypes = [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_void_p]
 
 
 def _fit() -> ctypes.CDLL:
     """``csrc/vector_filter_fit.cpp`` built with g++ (no step in it, a second
-    or two): the trajectories a block of the lane-group form holds for a
-    configuration, 0 where its launcher refuses it (``vfl_fit_block``), the
-    warps an SM holds (``vfl_fit_warps``), the doubles of a trajectory's
-    shared memory and of the staged rules."""
+    or two): ``vfl_fit_on``, how a configuration runs in the lane-group or
+    warp form (:func:`_form_fit`)."""
     return _build.bound("vector_filter_fit", ["vector_filter_fit.cpp"], _bind_fit, host=True)
 
 
@@ -931,8 +979,9 @@ def _model_policy(params: VectorFilterParams, name: str, EB: int) -> str:
 def _key(params: VectorFilterParams, lanes: int | None = None) -> tuple:
     """What the registered library instantiates for ``params`` in the form of
     ``lanes`` (:func:`lanes_of` by default; 0 one thread a trajectory,
-    :data:`_LANES` the lane-group form): D, the bound on E (0 in the
-    lane-group form), the lanes and the model policy."""
+    :data:`_LANES` the lane-group form, :data:`_WARP` the warp form): D, the
+    bound on E (0 in the lane-group and warp forms), the lanes and the model
+    policy."""
     lanes = lanes_of(params) if lanes is None else lanes
     EB = 0 if lanes else _bound_of(params.dim_out)
     return params.dim_state, EB, lanes, _model_policy(params, "VfrPair", EB)
@@ -1012,8 +1061,8 @@ def _scratch(params: VectorFilterParams, B: int, device, lanes: int = 0) -> torc
     """The one-thread forms' scratch buffer: the function values of every
     point of a transform, interleaved by trajectory, and for more than 8
     measurement outputs the wide form's E-sized arrays after them
-    (``vfg_values`` and ``vfg_step_wide``); empty for the lane-group form
-    (``lanes`` nonzero), whose arrays live in shared memory."""
+    (``vfg_values`` and ``vfg_step_wide``); empty for the lane-group and
+    warp forms (``lanes`` nonzero), whose arrays live in shared memory."""
     D, E = params.dim_state, params.dim_out
     n = max(params.dyn.n * D, params.obs.n * E)
     if _bound_of(E) == 0:
@@ -1080,7 +1129,8 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     current stream, without synchronising, or raises.
     """
     global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES
-    global GENERAL_LANE_LAUNCHES, REGISTERED_LANE_LAUNCHES
+    global GENERAL_LANE_LAUNCHES, REGISTERED_LANE_LAUNCHES, GENERAL_WARP_LAUNCHES
+    global REGISTERED_WARP_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
@@ -1120,8 +1170,10 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     BQ_SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped_bq")
     GENERAL_LAUNCHES += int(kernel == "vector_filter_general")
     REGISTERED_LAUNCHES += int(registered)
-    GENERAL_LANE_LAUNCHES += int(kernel == "vector_filter_general" and lanes > 0)
-    REGISTERED_LANE_LAUNCHES += int(registered and lanes > 0)
+    GENERAL_LANE_LAUNCHES += int(kernel == "vector_filter_general" and lanes == _LANES)
+    REGISTERED_LANE_LAUNCHES += int(registered and lanes == _LANES)
+    GENERAL_WARP_LAUNCHES += int(kernel == "vector_filter_general" and lanes == _WARP)
+    REGISTERED_WARP_LAUNCHES += int(registered and lanes == _WARP)
     return out
 
 

@@ -550,9 +550,10 @@ def test_vector_shaped_kernel_matches_plain(card, system, rule, batch):
 #: reentry GPQ kernel parameters (``chip_smoke.VF_GPQ_DYN`` / ``VF_GPQ_OBS``)
 GPQ_RE_DYN = np.array([[1.0, 10, 10, 10, 10, 10]])
 GPQ_RE_OBS = np.array([[1.0, 10, 10, 1e4, 1e4, 1e4]])
-#: reentry rule -> the kernel ``kernel_of`` names: GH-3 and mixed point counts
-#: the first version, BQ rules and mixed kinds at one UT count the BQ shapes
-FIRST_OR_BQ = {"GH-3": "vector_filter", "UKF/CKF": "vector_filter",
+#: reentry rule -> the kernel ``kernel_of`` names: mixed point counts the first
+#: version, GH-3 (243 points) the general kernel's warp form, BQ rules and
+#: mixed kinds at one UT count the BQ shapes
+FIRST_OR_BQ = {"GH-3": "vector_filter_general", "UKF/CKF": "vector_filter",
                "BSQ-UT": "vector_filter_shaped_bq", "UKF/BSQ-UT": "vector_filter_shaped_bq",
                "BSQ-UT/UKF": "vector_filter_shaped_bq"}
 
@@ -563,11 +564,11 @@ def _launch_counts(vf):
 
 @pytest.mark.parametrize("rule", ["GH-3", "BSQ-UT", "UKF/BSQ-UT", "BSQ-UT/UKF", "UKF/CKF"])
 def test_vector_first_version_keeps_the_other_shapes(card, monkeypatch, rule):
-    """Gauss-Hermite and mixed point counts launch the first-version kernel;
-    BQ rules and mixed kinds at one UT count the kernel of the BQ shapes;
-    each equal to the plain version to the bit, counted on the kernel that
-    ran.  Sent there by force, the first version still runs the BQ rules to
-    the bit."""
+    """Mixed point counts launch the first-version kernel, GH-3 the general
+    kernel (its warp form); BQ rules and mixed kinds at one UT count the
+    kernel of the BQ shapes; each equal to the plain version to the bit,
+    counted on the kernel that ran.  Sent there by force, the first version
+    still runs GH-3 and the BQ rules to the bit."""
     from ssmtoybox_torch.ops import vector_filter as vf
     params, y = _vector_case(card, "reentry", rule, 257)
     kernel = FIRST_OR_BQ[rule]
@@ -1190,3 +1191,66 @@ def test_registered_lane_form_matches_plain(card):
             assert torch.equal(g, r), f"{f}: {float((g - r).abs().max()):.3e}"
     finally:
         forms.DYN_DD_VEC.pop(_Chain8D, None)
+
+
+# ---------------------------------------------------------------------------
+# the warp form of the general and registered kernels (a trajectory on a
+# whole warp, csrc/vector_filter_lanes.cuh): rules of many points
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("batch", [1, 4097])
+@pytest.mark.parametrize("system", ["reentry", "ct_bearings8"])
+def test_warp_form_matches_plain(card, monkeypatch, system, batch):
+    """GH-3 (243 points) on the reentry bench lane and on CT with 8
+    bearings: the wrapper launches the general kernel's warp form once,
+    counted on it, equal to the plain version to the bit over 20 steps (4,097
+    trajectories leave the last block of 16 warps one warp); the first
+    version (reentry) or the one-thread form (CT), by force, gives the same
+    bits."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    if system == "reentry":
+        params, y = _vector_case(card, "reentry", "GH-3", batch)
+    else:
+        dyn, obs = _ct_bearings(card, 8)
+        alg = stt.GaussHermiteKalman(dyn, obs, deg=3)
+        params, y = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs), _zoo_records(card, dyn, obs,
+                                                                               batch)
+    assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_general", vf._WARP)
+    before = (vf.LAUNCHES, vf.GENERAL_LAUNCHES, vf.GENERAL_WARP_LAUNCHES)
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before[0], vf.GENERAL_LAUNCHES - before[1],
+            vf.GENERAL_WARP_LAUNCHES - before[2]) == (1, 1, 1)
+    if system == "reentry":
+        monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter")
+        other = vf.vector_filter(params, y)
+    else:
+        other = _forced(card, vf, params, y, 0)
+    torch.cuda.synchronize()
+    for s, g, o, r in zip(STREAMS, got, other, vf._vector_filter_plain(params, y)):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(o, r), s
+
+
+def test_registered_warp_form_matches_plain(card, registered):
+    """A registered transition with a per-step stream and the table's radar
+    under GH-16 (256 points) through ``engine="dd"``: one launch of the
+    registered kernel's warp form, counted on it, equal to the plain version
+    to the bit over 20 steps."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn = _Driven(GaussRV(2, mean=[1.0, 0.0], cov=0.1 * np.eye(2), device=card),
+                  GaussRV(2, cov=1e-3 * np.eye(2), device=card))
+    alg = stt.GaussHermiteKalman(dyn, _radar(card, 2), deg=16)
+    params = vf.prepare(dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+    assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_registered", vf._WARP)
+    y = _zoo_records(card, dyn, alg.mod_obs, 1000)
+    before = (vf.REGISTERED_LAUNCHES, vf.REGISTERED_WARP_LAUNCHES)
+    res = alg.forward_pass_batch(y, engine="dd")
+    assert (vf.REGISTERED_LAUNCHES - before[0], vf.REGISTERED_WARP_LAUNCHES - before[1]) == (1, 1)
+    torch.cuda.synchronize()
+    for f, r in zip(("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov"),
+                    vf._vector_filter_plain(params, y)):
+        g = getattr(res, f)
+        g = g.permute(2, 1, 0) if g.ndim == 3 else g.permute(3, 1, 2, 0)
+        assert bool(torch.isfinite(g).all()), f
+        assert torch.equal(g, r), f"{f}: {float((g - r).abs().max()):.3e}"

@@ -273,15 +273,15 @@ ROUTES = [
     (("ct-b2", "ckf"), ("vector_filter_general", 0)),
     (("ct-b3", "ckf"), ("vector_filter_general", 0)),
     (("ct-b4", "ckf"), ("vector_filter_shaped", 0)),
-    (("ct-b4", "gh3"), ("vector_filter", 0)),
+    (("ct-b4", "gh3"), ("vector_filter_general", vf._WARP)),
     (("ct-b5", "ckf"), ("vector_filter_general", vf._LANES)),
     (("ct-b8", "gpq"), ("vector_filter_general", vf._LANES)),
     (("ct-b16", "ukf"), ("vector_filter_general", vf._LANES)),
     (("chain", "ckf"), ("vector_filter_registered", vf._LANES)),
     (("chain", "gh3"), ("vector_filter_registered", 0)),
-    (("ct-b5", "gh3"), ("vector_filter_general", 0)),
-    (("ct-b8", "gh3"), ("vector_filter_general", 0)),
-    (("ct-b9", "gh3"), ("vector_filter_general", vf._LANES)),
+    (("ct-b5", "gh3"), ("vector_filter_general", vf._WARP)),
+    (("ct-b8", "gh3"), ("vector_filter_general", vf._WARP)),
+    (("ct-b9", "gh3"), ("vector_filter_general", vf._WARP)),
 ]
 
 
@@ -291,17 +291,17 @@ def test_lanes_of_routes_by_shape(case, want):
     and for the other kernels; the lane-group form above, except where a
     warp's trajectories' arrays do not fit in a block's shared memory (the
     8-D chain under GH-3: 6,561 points) and, up to 8 outputs, where an SM
-    holds fewer than 4 warps of it (CT with 5 or 8 bearings under GH-3, 243
-    points: 2 and 1); CT with 9 bearings under GH-3 holds 1 and takes it,
-    the wide form its alternative."""
+    holds fewer than 4 warps of it; Gauss-Hermite rules of 243 points (CT
+    with 4, 5, 8 and 9 bearings under GH-3) in the warp form (a trajectory
+    on a whole warp, ``tests/test_torch_dd_warp.py``), of the general kernel
+    also for CT with 4 bearings, which the first version ran before."""
     _need_gxx()
     params = _params(*case)
     assert (vf.kernel_of(params), vf.lanes_of(params)) == want
     if case == ("chain", "gh3"):
-        assert vf._fit().vfl_fit_block(vf.ctypes.byref(vf._c_params(params, CPU))) == 0
+        assert vf._form_fit(params, vf._LANES)[0] == 0
 
 
-CPU = torch.device("cpu")
 #: the shared memory a block can take on sm_90, and an SM's, in bytes
 BLOCK_SHARED, SM_SHARED = 232448, 233472
 
@@ -319,11 +319,11 @@ def test_lane_fit_is_what_the_launcher_takes(case):
     points); an SM holds as many such blocks as its shared memory (beside 1 KB
     a block) and the launch bounds' 10 blocks allow; and ``lanes_of`` takes
     the lane-group form exactly where the shape is one it routes there and
-    an SM holds a warp of it, 4 up to 8 outputs."""
+    an SM holds a warp of it, 4 up to 8 outputs, where the warp form does
+    not take the shape (``_warp_takes``: CT under GH-3)."""
     _need_gxx()
-    params, fit = _params(*case), vf._fit()
-    c = vf.ctypes.byref(vf._c_params(params, CPU))
-    doubles, stage, block = fit.vfl_fit_doubles(c), fit.vfl_fit_stage(c), fit.vfl_fit_block(c)
+    params = _params(*case)
+    block, stage, doubles, sm_warps = vf._form_fit(params, vf._LANES)
     D, E = params.dim_state, params.dim_out
     rules = E * E + sum((D + 2) * r.n if r.kind == 0 else (2 * D + 1 + r.n) * r.n
                         for r in (params.dyn, params.obs))
@@ -333,10 +333,11 @@ def test_lane_fit_is_what_the_launcher_takes(case):
     assert block == (fits[0] if fits else 0)
     blocks = min(10, SM_SHARED // ((stage + block * doubles) * 8 + 1024)) if block else 0
     warps = blocks * block * 8 // 32
-    assert fit.vfl_fit_warps(c) == warps
+    assert sm_warps == warps
     takes = vf.kernel_of(params) in ("vector_filter_general", "vector_filter_registered")
     wants = takes and (E > 4 or D > 5) and warps >= (vf._MIN_LANE_WARPS if E <= 8 else 1)
-    assert vf.lanes_of(params) == (vf._LANES if wants else 0)
+    assert vf.lanes_of(params) == (vf._WARP if vf._warp_takes(params) else
+                                   vf._LANES if wants else 0)
 
 
 @pytest.mark.parametrize("sensors", [5, 16])

@@ -424,14 +424,15 @@ def _mixed(dyn_of, obs_of):
 
 #: configuration -> the kernel that runs it: the UT and CKF shapes of every model
 #: pair take the shaped kernels, classical rules the classical one, GPQ, BSQ and
-#: mixed kinds the kernel of the BQ shapes; Gauss-Hermite and mixed point counts
-#: the first version
+#: mixed kinds the kernel of the BQ shapes; mixed point counts the first
+#: version; Gauss-Hermite on the reentry state (243 points) the general
+#: kernel's warp form
 ROUTES = {"ukf": "vector_filter_shaped", "ckf": "vector_filter_shaped",
           "cv_ukf": "vector_filter_shaped", "cv_ckf": "vector_filter_shaped",
           "pend_ukf": "vector_filter_shaped", "fall_ukf": "vector_filter_shaped",
           "ct_ckf": "vector_filter_shaped", "ct_ukf": "vector_filter_shaped",
           "pend_gpq": "vector_filter_shaped_bq",
-          "gh3": "vector_filter", "gpq_ut": "vector_filter_shaped_bq",
+          "gh3": "vector_filter_general", "gpq_ut": "vector_filter_shaped_bq",
           "bsq_ut": "vector_filter_shaped_bq",
           "ukf/bsq_ut": "vector_filter_shaped_bq", "bsq_ut/ukf": "vector_filter_shaped_bq",
           "ukf/ckf": "vector_filter", "cv_ckf/cv_ukf": "vector_filter"}
