@@ -239,10 +239,11 @@ fails at once without them.  Phases, each fatal on failure:
     and 8 bearings under CKF and 8 under GH-3, 10,000 x 100 simulated on the
     card, through the general vector kernel (5 and 8 bearings under CKF in
     its lane-group form, GH-3 in its warp form);
-    UNGM under GH-9, GH-15 and GPQ on GH-15 points on the main path's 10,000
-    x 500 data, through the scalar kernel's general form; each lane once
-    with the counts from 0 (4 one-thread, 2 lane-group, 1 warp-form and 3
-    scalar launches, nothing else), its first 200 trajectories (all 10,000 on CT +
+    UNGM under GH-9, GH-15 and GPQ on GH-15 points (the slot design) and
+    under GH-17 (one thread a trajectory) on the main path's 10,000 x 500
+    data, through the scalar kernel's general form; each lane once with the
+    counts from 0 (4 one-thread, 2 lane-group, 1 warp-form and 4 scalar
+    launches, nothing else), its first 200 trajectories (all 10,000 on CT +
     radar UKF) equal to the plain version to the bit, its filter RMSE within
     1e-6 (vector) or 1e-3 (UNGM) relative of the eager f64 lane's, at most
     1% non-finite; raw launches, wrapper, plain and bound, the libraries'
@@ -275,7 +276,10 @@ fails at once without them.  Phases, each fatal on failure:
     lanes, one thread: the wide form on the bearings); the pendulum copy
     equal to the table's pendulum in the general kernel to the bit and timed
     in turns with it, and the radar copy the table's radar in the general
-    kernel's warp form.  Alone: ``chip_smoke.registry_alone()``; every form
+    kernel's warp form.  Then the 1-D registered lane under GH-17 (one
+    thread a trajectory) on its own path from counts of 0, equal to its
+    plain version to the bit at B = 1, 7, 4,097 and 10,000, timed.  Alone:
+    ``chip_smoke.registry_alone()``; every form
     of the lane-group lanes, and two trees, in turns:
     ``tools/lane_variants.py``.
 
@@ -825,8 +829,9 @@ def event_ms(torch, fn):
 
 def scalar_filter_shapes(torch, np, dev, dyn, obs, y_tm, c, n_steps=40):
     """Phase 2, second part: the scalar filter kernel against its twin, to the
-    bit, through every instantiation the launcher can pick and at batch sizes
-    that leave warps and blocks ragged."""
+    bit, through every instantiation of the shaped form, every slot count and
+    kind pair of the general form's slot design, and its one-thread design
+    (GH-17), at batch sizes that leave warps and blocks ragged."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import scalar_filter as sf
 
@@ -847,18 +852,23 @@ def scalar_filter_shapes(torch, np, dev, dyn, obs, y_tm, c, n_steps=40):
             "gh4": stt.GaussHermiteKalman(dyn, obs, deg=4),
             "gh8": stt.GaussHermiteKalman(dyn, obs, deg=8), "gpq_gh8": gpq(PAR_GH7, 8),
             "gh9": stt.GaussHermiteKalman(dyn, obs, deg=9),
-            "gh15": stt.GaussHermiteKalman(dyn, obs, deg=15), "gpq_gh15": gpq(UNGM_GPQ_PAR, 15)}
+            "gh12": stt.GaussHermiteKalman(dyn, obs, deg=12),
+            "gh15": stt.GaussHermiteKalman(dyn, obs, deg=15),
+            "gh16": stt.GaussHermiteKalman(dyn, obs, deg=16),
+            "gh17": stt.GaussHermiteKalman(dyn, obs, deg=17), "gpq_gh9": gpq(UNGM_GPQ_PAR, 9),
+            "gpq_gh15": gpq(UNGM_GPQ_PAR, 15), "bsq_gh9": bsq(PAR_GH7, 9)}
     # (dynamics rule of, measurement rule of): the six study shapes, a mixed
     # pair each way, rules outside the table (4 points padded to 5 slots, 5
-    # with 8, 8 points of either kind), and the general form's rules (9 and
-    # 15 points, GPQ on 15, mixed with 3-point rules of either kind)
+    # with 8, 8 points of either kind), and the general form's rules (9, 12,
+    # 15, 16 and 17 points, GPQ on 9 and 15, BSQ on 9, mixed with 3- and
+    # 9-point rules of either kind)
     pairs = [(a, a) for a in algs] + [("bsq_gh5", "ut"), ("gh7", "gpq_ut"), ("gh5", "gh8"),
-                                      ("gh15", "gpq_ut"), ("gpq_gh15", "ut")]
+                                      ("gh15", "gpq_ut"), ("gpq_gh15", "ut"), ("gh15", "gh9"),
+                                      ("gh9", "gpq_gh15")]
     seen = set()
     for a, b in pairs:
         params = sf.prepare(dyn, obs, algs[a].tf_dyn, algs[b].tf_obs)
-        seen.add((params.dyn.kind, params.obs.kind, sf.slots(params))
-                 if sf.form_of(params) == "shaped" else ("general",))
+        seen.add((sf.form_of(params), *sf.geometry(params), params.dyn.kind, params.obs.kind))
         for batch in (1, 7, 4097, y_tm.shape[1]):
             yy, cc = y_tm[:n_steps, :batch].contiguous(), c[:n_steps].contiguous()
             got, ref = sf.scalar_filter(params, yy, cc), sf._scalar_filter_plain(params, yy, cc)
@@ -875,7 +885,7 @@ def scalar_filter_shapes(torch, np, dev, dyn, obs, y_tm, c, n_steps=40):
             if not all(torch.equal(g_, o_) for g_, o_ in zip(got, other)):
                 fail(f"scalar filter kernel, rules {a}/{b}: {what} differs from the first")
     log(f"scalar filter kernel == twin to the bit at {len(pairs)} rule pairs "
-        f"({len(seen)} instantiations ((kinds, slots) and the general form): "
+        f"({len(seen)} instantiations (form, design, slots, lanes, kinds)): "
         f"{sorted(seen, key=str)}), B = 1, 7, 4097, "
         f"{y_tm.shape[1]}, N = {n_steps}; two launches and trajectory-major y equal to the bit")
 
@@ -2346,23 +2356,41 @@ def sf_raw(torch, sf, params, y, c, dev):
     scratch = sf._scratch(params, B, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs = [out[i].data_ptr() for i in range(5)]
+    vecs = ctypes.byref(sf._c_slot_rules(params))
     if sf.form_of(params) == "registered":
         lib, pair = sf._registered(params, host=False)
         cr = sf._c_registered_params(params, dev)
 
         def launch():
-            return lib.sfr_launch(pair, ctypes.byref(cr), y.data_ptr(), y.stride(0), y.stride(1),
-                                  c.data_ptr(), params.n_s, B, N, dev.index or 0, *outs,
-                                  scratch.data_ptr(), stream)
+            return lib.sfr_launch(pair, ctypes.byref(cr), vecs, y.data_ptr(), y.stride(0),
+                                  y.stride(1), c.data_ptr(), params.n_s, B, N, dev.index or 0,
+                                  *outs, scratch.data_ptr(), stream)
     else:
         lib, cg = sf.build(), sf._c_general_params(params, dev)
 
         def launch():
-            return lib.sfg_launch(ctypes.byref(cg), y.data_ptr(), y.stride(0), y.stride(1),
+            return lib.sfg_launch(ctypes.byref(cg), vecs, y.data_ptr(), y.stride(0), y.stride(1),
                                   c.data_ptr(), B, N, dev.index or 0, *outs, scratch.data_ptr(),
                                   stream)
     launch.out = out
     return launch
+
+
+def sf_entry(sf, params, pair=None) -> str:
+    """A part of the mangled name of the scalar filter kernel's instantiation
+    that runs ``params`` (``sf.geometry``), for ``ptxas_of``: the shaped
+    form's, the slot design's on the kernel's own models or on a registered
+    library's configuration ``pair`` (its index there; by default the one
+    the package built), or the one-thread design's."""
+    design, n, _ = sf.geometry(params)
+    kinds = f"ILi{params.dyn.kind}ELi{params.obs.kind}ELi{n}E"
+    if design == "shaped":
+        return f"scalar_filter_kernel{kinds}"
+    if sf.form_of(params) == "registered":
+        name = f"SfrPair{sf._registered(params, False)[1] if pair is None else pair}"
+        return (f"scalar_filter_slots_kernel{kinds}{len(name)}{name}" if n else
+                f"scalar_filter_registered_kernelI{len(name)}{name}E")
+    return f"scalar_filter_slots_kernel{kinds}6SfgZoo" if n else "scalar_filter_general_kernel"
 
 
 def form_ptxas(vf, params, kernel, lanes, logs):
@@ -2439,10 +2467,11 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     trajectories x 100 steps simulated from the seed; the CKF lanes of more
     than 4 bearings run in its lane-group form, the GH-3 lane in its warp
     form.  The UNGM lanes (the scalar filter kernel's general
-    form): GH-9, GH-15 and GPQ on GH-15 points (``UNGM_GPQ_PAR``) on phase
-    4's data, 10,000 x 500.  Each lane once through ``engine="dd"`` with the
-    counts set to 0 (one launch of the general kernel or form, none of
-    another); every stream of its first ``DD_PLAIN_B`` trajectories (all of
+    form): GH-9, GH-15 and GPQ on GH-15 points (``UNGM_GPQ_PAR``) in its
+    slot design, GH-17 one thread a trajectory, on phase 4's data, 10,000 x
+    500.  Each lane once
+    through ``engine="dd"`` with the counts set to 0 (one launch of the
+    general kernel or form, none of another); every stream of its first ``DD_PLAIN_B`` trajectories (all of
     them on CT + radar UKF) equal to its plain version's to the bit; filter
     RMSE against the eager f64 lane within 1e-6 relative (vector) or 1e-3
     (UNGM), at most 1% of the runs not finite; filter and smoother RMSE; raw
@@ -2451,13 +2480,15 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     chain floor; on the lanes of more than 4 bearings both forms of the
     general kernel to the bit and in turns (``lane_turns``).  Then the general form's range
     and sine measurements of the UNGM state against the plain version to the
-    bit at B = 1, 7, 4,097 and 10,000.  ``built``: the libraries' build
-    times.  ``bench``: ``(dynamics, measurement, ys)`` of the reentry bench
+    bit at B = 1, 7, 4,097 and 10,000, in the slot design.  ``built``: the
+    libraries' build times.  ``bench``: ``(dynamics, measurement, ys)`` of the reentry bench
     lane: its UKF, on which the general kernel by force, the first version by
     force and the shaped kernel are timed in turns (raw launches).  Returns the entries of ``vector_filter_general`` and
     ``vector_filter_general_lanes`` for the ``kernels`` line, the scalar
     general form's launches and its largest |diff| against the plain
-    version."""
+    version, the ``kernels`` entry of the scalar slot design (its launches
+    on the path, the GH-9 lane's times and bound) and that of the general
+    form's one-thread design (the GH-17 lane's)."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
     from ssmtoybox_torch.ssmod import Pendulum2DMeasurement, RangeMeasurement
@@ -2480,7 +2511,8 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     for rule, alg in (("GH-9", stt.GaussHermiteKalman(dyn_u, obs_u, deg=9)),
                       ("GH-15", stt.GaussHermiteKalman(dyn_u, obs_u, deg=15)),
                       ("GPQ-GH15", stt.GaussianProcessKalman(dyn_u, obs_u, par, par, points="gh",
-                                                             point_hyp={"degree": 15}))):
+                                                             point_hyp={"degree": 15})),
+                      ("GH-17", stt.GaussHermiteKalman(dyn_u, obs_u, deg=17))):
         algs["UNGM", rule] = alg
     data["UNGM"] = (xs_u, ys_u)
     torch.cuda.synchronize()
@@ -2490,28 +2522,31 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     for lane in vec_lanes:
         a = algs[lane]
         want[vf_kernel(vf, vf.prepare(a.mod_dyn, a.mod_obs, a.tf_dyn, a.tf_obs))] += 1
-    sf.LAUNCHES = sf.GENERAL_LAUNCHES = 0
+    sf.LAUNCHES = sf.GENERAL_LAUNCHES = sf.SLOT_LAUNCHES = 0
     vf_zero(vf)
     results = {}
     for (name, rule), alg in algs.items():
         results[name, rule] = alg.forward_pass_batch(data[name][1], engine="dd")
     torch.cuda.synchronize()
-    vf_launches, sf_launches = vf_counts(vf), (sf.LAUNCHES, sf.GENERAL_LAUNCHES)
-    if (vf_launches != want or sf_launches != (3, 3)
+    vf_launches = vf_counts(vf)
+    sf_launches = (sf.LAUNCHES, sf.GENERAL_LAUNCHES, sf.SLOT_LAUNCHES)
+    if (vf_launches != want or sf_launches != (4, 4, 3)
             or not all(vf_launches[k] for k in ("vector_filter_general",
                                                 "vector_filter_general_lanes",
                                                 "vector_filter_general_warp"))):
         fail(f"dd pairs path: vector filter launches {vf_launches}, scalar filter launches "
-             f"(all, general form) {sf_launches}; expected {want}, the three forms of the "
-             "general kernel, and 3 of the scalar general form, nothing else")
+             f"(all, general form, slot design) {sf_launches}; expected {want}, the three "
+             "forms of the general kernel, and 4 of the scalar general form, 3 in its slot "
+             "design, nothing else")
     log(f"dd pairs path: vector filter launches {vf_launches}; scalar filter launches "
-        f"{sf_launches[0]}, all of the general form")
+        f"{sf_launches[0]}, all of the general form, {sf_launches[2]} in its slot design and "
+        f"{sf_launches[1] - sf_launches[2]} (GH-17) one thread a trajectory")
 
     # ---- each lane: plain version, eager lane, scores, times -----------------------
     err = {"vector_filter_general": 0.0, "vector_filter_general_lanes": 0.0,
            "vector_filter_general_warp": 0.0, "scalar_filter": 0.0}
     lat, mhz = sf.dependent_latencies(dev), float(clocks_line().split()[0])
-    entries = {}
+    entries, slot_entry, wide_entry = {}, None, None
     for (name, rule), alg in algs.items():
         x_true, ys = data[name]
         res = results[name, rule]
@@ -2522,6 +2557,9 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
         head_b = MC if (name, rule) == vec_lanes[0] else DD_PLAIN_B
         if scalar:
             params = sf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+            design = "one-thread" if rule == "GH-17" else "slots"
+            if sf.geometry(params)[0] != design:
+                fail(f"dd pairs UNGM {rule}: design {sf.geometry(params)}, not {design}")
             y_tm = ys[:, 0, :].T.contiguous()
             c = torch.as_tensor(sf.ungm_consts(N), device=dev)
             p_ms, plain = event_ms(torch, lambda: sf._scalar_filter_plain(
@@ -2563,7 +2601,19 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
             raw = raw_ms(torch, sf_raw(torch, sf, params, y_tm, c, dev))
             k_ms = cuda_ms(torch, lambda: sf.scalar_filter(params, y_tm, c))
             b_ms, b_by = sf_bound(params, N, M)
-            floor = ""
+            fl = sf.chain_floor_clocks(lat, params)
+            fn = sf_entry(sf, params)
+            regs, _, spill = ptxas_of(_build.BUILD_LOGS.get("scalar_filter", ""), fn)
+            floor = (f", chain floor {fl:.0f} clocks a step = {fl * N / (mhz * 1e3):.4f} ms at "
+                     f"{mhz:.0f} MHz; {sf.geometry(params)}, {regs} registers, {spill} bytes "
+                     f"spilled ({fn})")
+            if design == "one-thread":
+                wide_entry = {"launches": sf_launches[1] - sf_launches[2], "ms": k_ms[0],
+                              "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                              "library_ms": None, "max_abs_err": diff}
+            slot_entry = slot_entry or {"launches": sf_launches[2], "ms": k_ms[0],
+                                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                                        "library_ms": None}
         else:
             raw = raw_ms(torch, vf_raw(torch, vf, params, ys, dev))
             k_ms = cuda_ms(torch, lambda: vf.vector_filter(params, ys))
@@ -2591,8 +2641,9 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
         for rule, alg in (("UKF", stt.UnscentedKalman(dyn_u, obs)),
                           ("GH-15", stt.GaussHermiteKalman(dyn_u, obs, deg=15))):
             params = sf.prepare(dyn_u, obs, alg.tf_dyn, alg.tf_obs)
-            if sf.form_of(params) != "general":
-                fail(f"{type(obs).__name__} {rule}: form {sf.form_of(params)}, not general")
+            if sf.form_of(params) != "general" or sf.geometry(params)[0] != "slots":
+                fail(f"{type(obs).__name__} {rule}: form {sf.form_of(params)}, design "
+                     f"{sf.geometry(params)}, not general in the slot design")
             ref_all = sf._scalar_filter_plain(params, y_m, c)
             for batch in (1, 7, 4097, MC):
                 got = sf.scalar_filter(params, y_m[:, :batch].contiguous(), c)
@@ -2603,8 +2654,9 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
                 if not all(same_bits(torch, a, b) for a, b in zip(got, ref)):
                     fail(f"scalar general form, {type(obs).__name__} {rule}, B={batch}: max "
                          f"|diff| {diff:.3e}; expected equal bits")
-    log(f"scalar general form == plain to the bit with the range and sine measurements of the "
-        f"UNGM state (UKF, GH-15), B = 1, 7, 4097, {MC}, N = {DD_SHAPE_STEPS}")
+    log(f"scalar general form (slot design) == plain to the bit with the range and sine "
+        f"measurements of the UNGM state (UKF, GH-15), B = 1, 7, 4097, {MC}, N = "
+        f"{DD_SHAPE_STEPS}")
     if bench is not None:
         d_re, o_re, y_re = bench
         ukf_re = stt.UnscentedKalman(d_re, o_re)
@@ -2619,9 +2671,10 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
                         for k, v in turns.items()))
     for kernel, entry in entries.items():
         entry["max_abs_err"] = err[kernel]
+    slot_entry["max_abs_err"] = err["scalar_filter"]
     log(f"dd pairs phase: {time.perf_counter() - t27:.1f} s; libraries built in "
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()) + f"; card: {card_line()}")
-    return entries, sf_launches[1], err["scalar_filter"]
+    return entries, sf_launches[1], err["scalar_filter"], slot_entry, wide_entry
 
 
 #: phase 28: the vector lanes' steps, the scalar lane's, and the bearing
@@ -2824,6 +2877,9 @@ REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
              ("reentry + radar copy", "GH-3", "vector_filter_registered", REG_STEPS)]
 #: phase 28's filters by rule
 REG_RULES = {"UKF": "UnscentedKalman", "CKF": "CubatureKalman", "GH-3": "GaussHermiteKalman"}
+#: phase 28's registered 1-D lane above ``MAX_SLOTS`` points (one thread a
+#: trajectory): the growth model under GH-17 on the growth lane's data
+REG_WIDE = "growth GH-17"
 
 
 def registry_slice(torch, np, dev):
@@ -2850,12 +2906,16 @@ def registry_slice(torch, np, dev):
     and 16 bearings run in the lane-group form, the radar copy in the warp
     form; on them both forms of their kernel (that form and the one-thread
     form) are held to the plain version and timed in turns (``lane_turns``;
-    the registered library is built with the two forms of each).  Returns
-    the entries of ``vector_filter_registered``,
+    the registered library is built with the two forms of each).  Then the
+    registered 1-D lane above 16 points (``registered_wide``: the growth
+    model under GH-17, one thread a trajectory, built into the same library
+    as the growth lane).  Returns the entries of ``vector_filter_registered``,
     ``vector_filter_registered_lanes`` and
     ``vector_filter_registered_warp`` for the ``kernels`` line, the scalar
     kernel's launches and largest |diff| on this phase, and the launches and
-    largest |diff| of the general kernel's forms, by ``VF_KERNELS`` name."""
+    largest |diff| of the general kernel's forms, by ``VF_KERNELS`` name,
+    and the ``kernels`` entries of the scalar registered form's slot design
+    and of its one-thread design."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
 
@@ -2876,6 +2936,9 @@ def registry_slice(torch, np, dev):
             data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
     for name, (copy, _) in tables.items():
         data[name] = data[copy]
+    algs[REG_WIDE] = stt.GaussHermiteKalman(*systems["growth"], deg=17)
+    params[REG_WIDE] = sf.prepare(*systems["growth"], algs[REG_WIDE].tf_dyn,
+                                  algs[REG_WIDE].tf_obs)
     torch.cuda.synchronize()
 
     # ---- the registered forms' libraries, built at once -------------------------
@@ -2887,15 +2950,15 @@ def registry_slice(torch, np, dev):
         return build(configs), time.perf_counter() - t0
     with ThreadPoolExecutor(2) as pool:
         v_job = pool.submit(timed, vf.build_registered, vec)
-        s_job = pool.submit(timed, sf.build_registered, [params["growth"]])
+        s_job = pool.submit(timed, sf.build_registered, [params["growth"], params[REG_WIDE]])
         (v_name, v_s), (s_name, s_s) = v_job.result(), s_job.result()
     log(f"registry: built vector_filter_registered.cu ({len(vec)} configurations) in {v_s:.1f} s "
-        f"and scalar_filter_registered.cu (1) in {s_s:.1f} s, at once, from generated headers")
+        f"and scalar_filter_registered.cu (2) in {s_s:.1f} s, at once, from generated headers")
     ptxas = {}
     for name, _, kernel, _ in REG_LANES:
         p = params[name]
         if kernel == "scalar_filter":
-            text, fn = _build.BUILD_LOGS.get(s_name, ""), f"SfrPair{sf._registered(p, False)[1]}E"
+            text, fn = _build.BUILD_LOGS.get(s_name, ""), sf_entry(sf, p)
         else:
             text = _build.BUILD_LOGS.get(
                 v_name if kernel == "vector_filter_registered" else "vector_filter", "")
@@ -2905,32 +2968,36 @@ def registry_slice(torch, np, dev):
             f"{ptxas[name][2]} bytes spill stores ({fn})")
 
     # ---- the path: every lane once, the counts from 0 ----------------------------
-    sf.LAUNCHES = sf.GENERAL_LAUNCHES = sf.REGISTERED_LAUNCHES = 0
+    sf.LAUNCHES = sf.GENERAL_LAUNCHES = sf.REGISTERED_LAUNCHES = sf.SLOT_LAUNCHES = 0
     vf_zero(vf)
     results = {}
     for name, _, _, _ in REG_LANES:
         results[name] = algs[name].forward_pass_batch(data[name][1], engine="dd")
     torch.cuda.synchronize()
     vf_launches = vf_counts(vf)
-    sf_launches = (sf.LAUNCHES, sf.GENERAL_LAUNCHES, sf.REGISTERED_LAUNCHES)
+    sf_launches = (sf.LAUNCHES, sf.GENERAL_LAUNCHES, sf.REGISTERED_LAUNCHES, sf.SLOT_LAUNCHES)
     want = dict.fromkeys(VF_KERNELS, 0)
     for name, _, kernel, _ in REG_LANES:
         if kernel != "scalar_filter":
             want[vf_kernel(vf, params[name])] += 1
-    if (vf_launches != want or sf_launches != (1, 0, 1)
+    if (vf_launches != want or sf_launches != (1, 0, 1, 1)
             or sum(want[k] for k in ("vector_filter_registered", "vector_filter_registered_lanes",
                                      "vector_filter_registered_warp")) != 4
             or not want["vector_filter_registered_warp"]):
         fail(f"registry path: vector filter launches {vf_launches}, scalar filter launches (all, "
-             f"general, registered) {sf_launches}; expected {want} (four of the registered "
-             "kernel, one in its warp form) and (1, 0, 1)")
+             f"general, registered, slot design) {sf_launches}; expected {want} (four of the "
+             "registered kernel, one in its warp form) and (1, 0, 1, 1)")
     log(f"registry path: vector filter launches {vf_launches}; scalar filter launches "
-        f"{sf_launches[0]}, of the registered form")
+        f"{sf_launches[0]}, of the registered form in its slot design "
+        f"{sf.geometry(params['growth'])}")
+    wide_entry = registered_wide(torch, sf, algs[REG_WIDE], params[REG_WIDE], data["growth"][1],
+                                 dev, ptxas_of(_build.BUILD_LOGS.get(s_name, ""),
+                                               sf_entry(sf, params[REG_WIDE])))
 
     # ---- each lane: plain version, eager lane, scores, times -------------------------
     err = dict.fromkeys(VF_KERNELS, 0.0)
     err["scalar_filter"] = 0.0
-    entries = {}
+    entries, slot_entry = {}, None
     for name, rule, family, steps in REG_LANES:
         x_true, ys = data[name]
         res, p = results[name], params[name]
@@ -2990,6 +3057,9 @@ def registry_slice(torch, np, dev):
             f"torch.cuda._sleep); wrapper call {k_ms[0]:.4f} ms (min {k_ms[1]:.4f}); plain "
             f"version {p_ms:.1f} ms on {head_b} trajectories; bound {b_ms:.4f} ms ({b_by}); "
             f"{regs} registers, {spill} bytes spilled")
+        if scalar:
+            slot_entry = {"launches": sf_launches[3], "ms": k_ms[0], "plain_ms": p_ms,
+                          "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         if family == "vector_filter_registered" and kernel not in entries:
             # the kernel's first lane: the driven pendulum, and the chain in the lane-group form
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
@@ -3020,10 +3090,60 @@ def registry_slice(torch, np, dev):
                         for k, v in turns.items()))
     for kernel, entry in entries.items():
         entry["max_abs_err"] = err[kernel]
+    slot_entry["max_abs_err"] = err["scalar_filter"]
     log(f"registry phase: {time.perf_counter() - t28:.1f} s; card: {card_line()}")
     general = {k: (vf_launches[k], err[k])
                for k in ("vector_filter_general", "vector_filter_general_lanes")}
-    return entries, sf_launches[2], err["scalar_filter"], general
+    return entries, sf_launches[2], err["scalar_filter"], general, slot_entry, wide_entry
+
+
+def registered_wide(torch, sf, alg, params, ys, dev, ptxas):
+    """Phase 28's registered 1-D lane above ``MAX_SLOTS`` points
+    (``REG_WIDE``, one thread a trajectory): once through ``engine="dd"``
+    with the counts set to 0 (one launch of the registered form, none of the
+    slot design), every stream equal to the plain version's to the bit on
+    all trajectories, then launches of B = 1, 7 and 4,097 of them through the
+    wrapper likewise; at most 1% of the runs not finite; raw launches, the
+    wrapper's and the plain version's time, the bound.  Returns its entry
+    for the ``kernels`` line."""
+    M, _, N = ys.shape
+    sf.LAUNCHES = sf.GENERAL_LAUNCHES = sf.REGISTERED_LAUNCHES = sf.SLOT_LAUNCHES = 0
+    res = alg.forward_pass_batch(ys, engine="dd")
+    torch.cuda.synchronize()
+    launches = (sf.LAUNCHES, sf.GENERAL_LAUNCHES, sf.REGISTERED_LAUNCHES, sf.SLOT_LAUNCHES)
+    if launches != (1, 0, 1, 0) or sf.geometry(params) != ("one-thread", 0, 1):
+        fail(f"registry {REG_WIDE}: scalar filter launches (all, general, registered, slot "
+             f"design) {launches}, design {sf.geometry(params)}; expected (1, 0, 1, 0), one "
+             "thread a trajectory")
+    y_tm = ys[:, 0, :].T.contiguous()
+    c = sf.step_consts(params, N, dev)
+    p_ms, plain = event_ms(torch, lambda: sf._scalar_filter_plain(params, y_tm, c))
+    err = 0.0
+    for batch in (1, 7, 4097, M):
+        got = ((res.fi_mean[:, 0].T, res.fi_cov[:, 0, 0].T, res.pr_mean[:, 0].T,
+                res.pr_cov[:, 0, 0].T, res.pr_xx_cov[:, 0, 0].T) if batch == M else
+               sf.scalar_filter(params, y_tm[:, :batch].contiguous(), c))
+        torch.cuda.synchronize()
+        ref = tuple(t[:, :batch] for t in plain)
+        diff = max(float((a - b).nan_to_num().abs().max()) for a, b in zip(got, ref))
+        err = max(err, diff)
+        if not all(same_bits(torch, a, b) for a, b in zip(got, ref)):
+            fail(f"registry {REG_WIDE}, B={batch}: the kernel's streams differ from the plain "
+                 f"version's, max |diff| {diff:.3e}; expected equal bits")
+    lost = 1.0 - float(torch.isfinite(plain[0]).all(0).double().mean())
+    if lost > 0.01:
+        fail(f"registry {REG_WIDE}: {lost:.2%} of the runs not finite")
+    del plain
+    raw = raw_ms(torch, sf_raw(torch, sf, params, y_tm, c, dev))
+    k_ms = cuda_ms(torch, lambda: sf.scalar_filter(params, y_tm, c))
+    b_ms, b_by = sf_bound(params, N, M)
+    log(f"registry {REG_WIDE} ({M}x{N}, scalar_filter registered form, {sf.geometry(params)}): "
+        f"launches {launches}; == plain version to the bit at B = 1, 7, 4097, {M}, all five "
+        f"streams; not finite {lost:.2%}; raw launches {raw:.4f} ms a launch; wrapper call "
+        f"{k_ms[0]:.4f} ms (min {k_ms[1]:.4f}); plain version {p_ms:.1f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}); {ptxas[0]} registers, {ptxas[2]} bytes spilled")
+    return {"launches": launches[2], "max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
 
 def registry_alone():
@@ -3048,7 +3168,7 @@ def registry_alone():
             job.result()
     log(f"built scalar_filter.cu and the four vector filter sources in "
         f"{time.perf_counter() - t0:.1f} s")
-    entries, sf_reg, sf_err, general = registry_slice(torch, np, dev)
+    entries, sf_reg, sf_err, general, _, _ = registry_slice(torch, np, dev)
     log(f"registry_alone: registered entries {json.dumps(entries)}; scalar registered launches "
         f"{sf_reg}, max |diff| {sf_err:.3e}; general kernel (launches, max |diff|) {general}; "
         f"{time.perf_counter() - t0:.1f} s; card: {card_line()}")
@@ -5134,8 +5254,8 @@ def dd_pairs_alone():
     d_re, o_re = systems["reentry"]
     x_re = d_re.simulate_discrete(gen, steps=REENTRY_STEPS, mc_sims=MC)
     y_re = o_re.simulate_measurements(gen, x_re).permute(2, 0, 1)
-    entry, sf_general, sf_err = dd_pairs_slice(torch, np, dev, (dyn, obs, xs, ys), took,
-                                               bench=(d_re, o_re, y_re))
+    entry, sf_general, sf_err, _, _ = dd_pairs_slice(torch, np, dev, (dyn, obs, xs, ys), took,
+                                                     bench=(d_re, o_re, y_re))
     log(f"dd_pairs_alone: general entries {json.dumps(entry)}; scalar general launches "
         f"{sf_general}, max |diff| {sf_err:.3e}; {time.perf_counter() - t0:.1f} s; card: "
         f"{card_line()}")
@@ -5179,7 +5299,8 @@ def main():
         took = {lib.__name__.split(".")[-1]: pool.submit(timed_build, lib)
                 for lib in (sf, smc, vdm, vf)}
         took = {name: build.result() for name, build in took.items()}
-    log(f"built scalar_filter.cu, student_mc.cu + student_qrq.cu, vandermonde.cu and "
+    log(f"built scalar_filter.cu + scalar_filter_slots.cu, student_mc.cu + student_qrq.cu, "
+        f"vandermonde.cu and "
         f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
         f"vector_filter_general.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
@@ -5339,8 +5460,8 @@ def main():
     for k, entry in vf_entries.items():
         entry["launches"] += zoo_launches[k]
         entry["max_abs_err"] = max(entry["max_abs_err"], zoo_err[k])
-    general, dd_sf_launches, dd_sf_err = dd_pairs_slice(torch, np, dev, (dyn, obs, xs, ys), took,
-                                                        bench=(dyn_re, obs_re, ys_re))
+    general, _, _, sf_slots, sf_wide = dd_pairs_slice(
+        torch, np, dev, (dyn, obs, xs, ys), took, bench=(dyn_re, obs_re, ys_re))
     for k, entry in general.items():
         checked = vf_entries.pop(k)
         if "ms" in checked:         # timed on its path in phase 18 (the warp form's reentry GH-3)
@@ -5348,7 +5469,8 @@ def main():
         entry["launches"] += checked["launches"]
         entry["max_abs_err"] = max(entry["max_abs_err"], checked["max_abs_err"])
         vf_entries[k] = entry
-    registered, reg_sf_launches, reg_sf_err, reg_general = registry_slice(torch, np, dev)
+    registered, _, _, reg_general, sf_reg_slots, sf_reg_wide = registry_slice(
+        torch, np, dev)
     for k, (n, e) in reg_general.items():
         vf_entries[k]["launches"] += n
         vf_entries[k]["max_abs_err"] = max(vf_entries[k]["max_abs_err"], e)
@@ -5373,11 +5495,22 @@ def main():
     kernels = {"kernels": [{
         "name": "scalar_filter", "route": "cuda", "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
         "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37",
-        "launches": (launches + bsq_sf_launches + rest["scalar_filter"] + studies["scalar_filter"]
-                     + dd_sf_launches + reg_sf_launches),
-        "max_abs_err": max(max_err, dd_sf_err, reg_sf_err), "ms": k_ms, "plain_ms": p_ms,
-        "bound_ms": b_ms,
-        "bound_by": b_by, "library_ms": None}] + student + [vdm_entry] + [{
+        "launches": launches + bsq_sf_launches + rest["scalar_filter"] + studies["scalar_filter"],
+        "max_abs_err": max_err, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+        "bound_by": b_by, "library_ms": None}, {
+        "name": "scalar_filter_slots", "route": "cuda",
+        "source": "ssmtoybox_torch/csrc/scalar_filter_slots.cu",
+        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", **sf_slots}, {
+        "name": "scalar_filter_registered_slots", "route": "cuda",
+        "source": "ssmtoybox_torch/csrc/scalar_filter_registered.cu",
+        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", **sf_reg_slots}, {
+        "name": "scalar_filter_general", "route": "cuda",
+        "source": "ssmtoybox_torch/csrc/scalar_filter.cu",
+        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", **sf_wide}, {
+        "name": "scalar_filter_registered", "route": "cuda",
+        "source": "ssmtoybox_torch/csrc/scalar_filter_registered.cu",
+        "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", **sf_reg_wide}] + student + [
+        vdm_entry] + [{
         "name": k, "route": "cuda",
         "source": f"ssmtoybox_torch/csrc/{k.removesuffix('_lanes').removesuffix('_warp')}.cu",
         "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **entry} for k, entry in vf_entries.items()]}

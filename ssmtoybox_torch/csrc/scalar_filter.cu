@@ -39,15 +39,19 @@
 // The general form (scalar_filter_general_kernel, step in
 // scalar_filter_step_general.cuh) takes what the shaped instantiations do not:
 // rules of any point count (GH-9 and up, GPQ and BSQ on those points) and the
-// sine and range measurements of a 1-D state.  One thread a trajectory; the
-// point count, both kinds and the measurement are read at run time (the same
-// in every thread of a launch, so no branch diverges); the rules are read
-// from device memory and the function values go through a scratch buffer
-// interleaved by trajectory.  Its step takes the models as functors
-// (sfg_record): scalar_filter_registered.cu runs it on models registered at
-// run time.  ops/scalar_filter.py sends a configuration to
-// the shaped instantiations whenever they take it (UNGM measurement, at most
-// SF_MAX_PTS points), so the main path keeps its kernel.
+// sine and range measurements of a 1-D state.  Up to SF_MAX_SLOTS (16) points
+// it runs the slot design (scalar_filter_slots.cu, scalar_filter_slots.cuh):
+// the shaped form's step at 3, 5, 7, 8, 9, 12 or 16 slots on lanes, the
+// models as a policy's functors, the rules staged in shared memory.  Above
+// that, one thread a trajectory: the point count, both kinds and the
+// measurement read at run time (the same in every thread of a launch, so no
+// branch diverges), the rules read from device memory and the function
+// values through a scratch buffer interleaved by trajectory.  Both designs
+// take the models as functors of a policy: scalar_filter_registered.cu runs
+// them on models registered at run time.  ops/scalar_filter.py sends a
+// configuration to the shaped instantiations whenever they take it (UNGM
+// measurement, at most SF_MAX_PTS points), so the main path keeps its
+// kernel.
 //
 // It is built with --fmad=false (ops/scalar_filter.py): every operation rounds
 // on its own, as in the plain PyTorch twin, so kernel and twin agree to the
@@ -60,17 +64,13 @@
 //   SF_RUNTIME_SHAPE=1  the step with run-time shapes, one thread a trajectory
 #include <cuda_runtime.h>
 
+#include "scalar_filter_slots.cuh"
 #include "scalar_filter_step.cuh"
 #include "scalar_filter_step_general.cuh"
 #ifdef SF_RUNTIME_SHAPE
 #include "scalar_filter_step_rt.cuh"
 #endif
 
-// 64 threads a block: 10,000 trajectories of 2 lanes are 313 blocks, 2 or 3 an
-// SM; blocks of 256 leave some SMs with twice the warps of others (+20%).
-#ifndef SF_THREADS
-#define SF_THREADS 64
-#endif
 #ifndef SF_SPREAD_STORES
 #define SF_SPREAD_STORES 0
 #endif
@@ -79,21 +79,6 @@ namespace {
 
 constexpr int kThreads = SF_THREADS;
 static_assert(kThreads % 32 == 0 && kThreads <= 1024, "whole warps a block");
-
-// Lanes a trajectory.  Measured at 10,000 x 500 on an H100 (tools/sf_variants.py):
-// two lanes are the fastest split of every classical rule and of a 5-point BQ
-// rule; the rows of a 7- or 8-point BQ rule pay for four, and a 3-point BQ
-// rule is fastest in one thread (its two gathers a rule cost more than three
-// divides side by side save).  Eight lanes lose everywhere: every lane
-// repeats the sums, and four times the warps then queue for the f64 pipe.
-constexpr int lanes_of(int kind_dyn, int kind_obs, int n_slots) {
-#ifdef SF_LANES
-  return SF_LANES;
-#else
-  if ((kind_dyn | kind_obs) == 0) return 2;
-  return n_slots >= 7 ? 4 : n_slots <= 3 ? 1 : 2;
-#endif
-}
 
 struct Streams {
   double *m_fi, *P_fi, *m_pr, *P_pr, *xx;
@@ -151,7 +136,8 @@ scalar_filter_kernel(const __grid_constant__ SfParams p, const double* __restric
   }
 }
 
-// The general form: one thread a trajectory, any rule, any 1-D measurement.
+// The general form above SF_MAX_SLOTS points: one thread a trajectory, any
+// rule, any 1-D measurement.
 __global__ void __launch_bounds__(kThreads)
 scalar_filter_general_kernel(const __grid_constant__ SfgParams p, const double* __restrict__ y,
                              long long y_step, long long y_traj, const double* __restrict__ c,
@@ -225,7 +211,7 @@ void launch(const SfParams& p, const double* y, long long y_step, long long y_tr
   scalar_filter_rt_kernel<<<(B + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       p, y, y_step, y_traj, c, B, n_steps, out);
 #else
-  constexpr int G = lanes_of(KD, KO, N);
+  constexpr int G = sf_lanes(KD, KO, N);
   const long long threads = static_cast<long long>(B) * G;
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
   scalar_filter_kernel<KD, KO, N, G><<<blocks, kThreads, 0, stream>>>(
@@ -234,6 +220,11 @@ void launch(const SfParams& p, const double* y, long long y_step, long long y_tr
 }
 
 }  // namespace
+
+// The slot design's launcher (scalar_filter_slots.cu).
+cudaError_t sfs_launch_zoo(const SfgParams& p, const SfsRules& v, const double* y,
+                           long long y_step, long long y_traj, const double* c, int B,
+                           int n_steps, int slots, const SfStreams& out, cudaStream_t stream);
 
 // Launch on `stream` of card `device` without synchronising.  Measurement k
 // of trajectory b is y[k * y_step + b * y_traj], c is (n_steps,), the five
@@ -265,21 +256,29 @@ extern "C" int sf_launch(const SfParams* params, const double* y, long long y_st
 }
 
 // Launch the general form on `stream` of card `device` without synchronising:
-// the layouts of sf_launch, and scratch of max(n_dyn, n_obs) * B doubles.
-// params->dyn and params->obs point to their constants in device memory.
-// Returns the CUDA error of selecting the device or, after the launch,
-// cudaGetLastError(); cudaErrorInvalidValue for a rule kind, point count or
-// measurement that the form does not take.
-extern "C" int sfg_launch(const SfgParams* params, const double* y, long long y_step,
-                          long long y_traj, const double* c, int B, int n_steps, int device,
-                          double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
-                          double* scratch, void* stream) {
+// the layouts of sf_launch; rules of at most SF_MAX_SLOTS points in the slot
+// design (their vectors in *vecs, host memory; scratch unused, may be null),
+// larger ones one thread a trajectory with scratch of max(n_dyn, n_obs) * B
+// doubles (vecs unused).  params->dyn and params->obs point to their
+// constants in device memory.  Returns the CUDA error of
+// selecting the device or, after the launch, cudaGetLastError();
+// cudaErrorInvalidValue for a rule kind, point count or measurement that the
+// form does not take.
+extern "C" int sfg_launch(const SfgParams* params, const SfsRules* vecs, const double* y,
+                          long long y_step, long long y_traj, const double* c, int B,
+                          int n_steps, int device, double* m_fi, double* P_fi, double* m_pr,
+                          double* P_pr, double* xx, double* scratch, void* stream) {
   if (B <= 0 || n_steps <= 0) return 0;
   const SfgParams& p = *params;
   if (!sfg_rules_ok(p) || p.obs_model < 0 || p.obs_model > SF_OBS_RANGE)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  const int slots = sf_slots(p.dyn.n, p.obs.n);
+  if (slots)
+    return static_cast<int>(sfs_launch_zoo(p, *vecs, y, y_step, y_traj, c, B, n_steps, slots,
+                                           {m_fi, P_fi, m_pr, P_pr, xx},
+                                           static_cast<cudaStream_t>(stream)));
   const Streams out = {m_fi, P_fi, m_pr, P_pr, xx};
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(B) + kThreads - 1) /
                                                 kThreads);
@@ -294,9 +293,15 @@ extern "C" void sf_geometry(int kind_dyn, int kind_obs, int slots, int* lanes, i
 #ifdef SF_RUNTIME_SHAPE
   *lanes = 1;
 #else
-  *lanes = lanes_of(kind_dyn, kind_obs, slots);
+  *lanes = sf_lanes(kind_dyn, kind_obs, slots);
 #endif
   *threads = kThreads;
+}
+
+// The design of a launch (sf_design_of in scalar_filter_step_general.cuh).
+extern "C" void sf_design(int shaped, int kind_dyn, int kind_obs, int n_dyn, int n_obs,
+                          int* slots, int* lanes) {
+  sf_design_of(shaped, kind_dyn, kind_obs, n_dyn, n_obs, slots, lanes);
 }
 
 // Clocks of a dependent add, multiply, divide, square root (and add),

@@ -74,12 +74,6 @@ struct SfgParams {
 static_assert(sizeof(SfgRule) == 56 && sizeof(SfgParams) == 168,
               "SfgRule and SfgParams are mirrored by ctypes in ops/scalar_filter.py");
 
-// The UNGM dynamics at the step's constant c.
-struct SfgDyn {
-  double c;
-  SF_HD double operator()(double x) const { return sf_ungm_dyn(x, c); }
-};
-
 // The measurement of p, its model read at run time.
 struct SfgObs {
   int model;
@@ -209,3 +203,165 @@ SF_HD void sfg_record(const P& p, const SfgParams& q, const double* y, long long
 SF_HD bool sfg_rules_ok(const SfgParams& p) {
   return p.dyn.n >= 1 && p.obs.n >= 1 && ((p.dyn.kind | p.obs.kind) >> 1) == 0;
 }
+
+// The general parameters of the kernel's own models and of registered ones.
+SF_HD const SfgParams& sf_base(const SfgParams& p) { return p; }
+SF_HD const SfgParams& sf_base(const SfrParams& p) { return p.base; }
+
+// ---------------------------------------------------------------------------
+// The slot design: rules of up to SF_MAX_SLOTS points on compile-time slots
+// ---------------------------------------------------------------------------
+//
+// The general and registered forms run a configuration whose rules have at
+// most SF_MAX_SLOTS points on the shaped form's step (SfStepper), with the
+// model policy's functors in place of the UNGM models: N = sf_slots(n_dyn,
+// n_obs) slots (3, 5, 7, 8, 9, 12 or 16; a shorter rule padded with zero
+// weights), G = sfs_lanes(KD, KO, N) lanes a trajectory, each lane evaluating
+// the models at its own slots and, for a BQ rule, its own rows of Wc f; the
+// values gathered by shuffles, every sum in every lane in the plain version's
+// order.  No value goes to device memory between the mean and the sums.  The
+// rules' vectors (SfsRules, 1 KB) travel by value, as the shaped form's rules
+// do, so that every sum reads its weights from the constant bank; a BQ rule's
+// dense Wc (2 KB at 16 points, 5.4 KB for two rules with the vectors: more
+// than the 4 KB a kernel's parameters traditionally hold) is staged once a
+// block from its SfgRule pointer into shared memory (SfSlotWc), where each
+// lane reads its own rows, rows an odd number of doubles apart so that the G
+// rows the lanes of a trajectory read at once lie in G banks.  Above
+// SF_MAX_SLOTS points the one-thread form (sfg_record) runs.
+
+// A rule's vectors for the slot design, zero past its n points.
+struct SfsVec {
+  double xi[SF_MAX_SLOTS];
+  double wm[SF_MAX_SLOTS];
+  double wc[SF_MAX_SLOTS];   // kind 0
+  double wcc[SF_MAX_SLOTS];  // kind 1
+};
+
+// Both rules' vectors, the slot design's by-value parameter: 1,024 bytes.
+struct SfsRules {
+  SfsVec dyn;
+  SfsVec obs;
+};
+static_assert(sizeof(SfsRules) == 1024, "SfsRules is mirrored by ctypes in ops/scalar_filter.py");
+
+// A BQ rule's dense weights staged for the slot design: rows kStride doubles
+// apart, zero past n (kRows of them, so that a lane's slots past N read zero
+// rows at any G up to 8).
+template <int KIND, int N>
+struct SfSlotWc {
+  static constexpr int kStride = N | 1;
+  static constexpr int kRows = (N + 7) / 8 * 8;
+  double Wc[KIND == 1 ? kRows * kStride : 1];
+};
+
+// What the slot design's step reads of a rule: its vectors (the by-value
+// parameter), its staged Wc and its expected model variance.
+template <int KIND, int N>
+struct SfSlotRule {
+  const double (&xi)[SF_MAX_SLOTS];
+  const double (&wm)[SF_MAX_SLOTS];
+  const double (&wc)[SF_MAX_SLOTS];
+  const double (&wcc)[SF_MAX_SLOTS];
+  const SfSlotWc<KIND, N>& w;
+  double emv;
+};
+
+template <int KIND, int N>
+SF_HD SfSlotRule<KIND, N> sfs_rule(const SfsVec& v, const SfSlotWc<KIND, N>& w,
+                                   const SfgRule& R) {
+  return {v.xi, v.wm, v.wc, v.wcc, w, KIND == 1 ? R.emv : 0.0};
+}
+
+template <int KIND, int N>
+SF_HD double sf_wc(const SfSlotRule<KIND, N>& R, int s, int j) {
+  return R.w.Wc[s * SfSlotWc<KIND, N>::kStride + j];
+}
+
+// Stage rule R's Wc into S: entries t, t + dt, ... of it, for thread t of dt
+// (the host build: 0 of 1).
+template <int KIND, int N>
+SF_HD void sfs_stage(SfSlotWc<KIND, N>& S, const SfgRule& R, int t, int dt) {
+  if constexpr (KIND == 1) {
+    const int n = R.n;
+    constexpr int W = SfSlotWc<KIND, N>::kStride;
+    for (int e = t; e < SfSlotWc<KIND, N>::kRows * W; e += dt) {
+      const int i = e / W, j = e % W;
+      S.Wc[e] = i < n && j < n ? SFG_LDG(R.Wc + static_cast<long long>(i) * n + j) : 0.0;
+    }
+  }
+}
+
+// Lanes a trajectory of the slot design, by the kinds of both rules and the
+// slot count (SFS_LANES=1|2|4|8 sets one count for every shape, for
+// tools/sf_variants.py).
+// Measured at 10,000 x 500 on an H100 (tools/sf_variants.py): up to 8 slots
+// a classical configuration here has the sine, the range or a registered
+// measurement, whose evaluation four lanes split best (1-2 points a lane; the
+// UNGM measurement alone would take two); at 9-16 slots every lane repeats
+// the sums of 9-16 points and two lanes beat four by 6-14%; a BQ rule's rows
+// of Wc f pay for four lanes from 12 slots (at 16: 1.30 ms against 1.97 on
+// two), two from 5 (at 9: 0.77 against 0.82 on four), one thread at 3 as in
+// the shaped form.
+SF_HD constexpr int sfs_lanes(int kind_dyn, int kind_obs, int n_slots) {
+#ifdef SFS_LANES
+  return SFS_LANES;
+#else
+  if ((kind_dyn | kind_obs) == 0) return n_slots <= 8 ? 4 : 2;
+  return n_slots <= 3 ? 1 : n_slots <= 9 ? 2 : 4;
+#endif
+}
+
+// The design of a launch, which ops/scalar_filter.py (geometry) asks through
+// the libraries' sf_design: for rules of kinds kind_dyn, kind_obs and n_dyn,
+// n_obs points in the shaped form (shaped) or in the general and registered
+// forms, the slot count (sf_slots; 0 above SF_MAX_SLOTS points, where the
+// general and registered forms run one thread a trajectory) and the lanes a
+// trajectory (sf_lanes, sfs_lanes; 1 for one thread a trajectory).
+SF_HD void sf_design_of(int shaped, int kind_dyn, int kind_obs, int n_dyn, int n_obs,
+                        int* slots, int* lanes) {
+  *slots = sf_slots(n_dyn, n_obs);
+  *lanes = shaped ? sf_lanes(kind_dyn, kind_obs, *slots)
+           : *slots ? sfs_lanes(kind_dyn, kind_obs, *slots) : 1;
+}
+
+// A whole record of one trajectory on lane `lane` of its G: n_steps steps
+// from the initial moments of q under the staged rules rd and ro, measurement
+// k at y[k * y_step], the n_s stream values of step k at s[k * n_s], the
+// models of Model made from p; if `store`, output k at out_*[k * ss].
+template <int KD, int KO, int N, int G, class Model, class P>
+SF_HD void sfs_record(const P& p, const SfSlotRule<KD, N>& rd, const SfSlotRule<KO, N>& ro,
+                      int lane, const double* y, long long y_step, const double* s, int n_s,
+                      int n_steps, long long ss, bool store, double* m_fi, double* P_fi,
+                      double* m_pr, double* P_pr, double* xx) {
+  const SfgParams& q = sf_base(p);
+  SfStepper<KD, KO, N, G, false> filter;
+  filter.load(rd, ro, lane);
+  const auto h = Model::obs(p);
+  auto f_next = Model::dyn(p, s);
+  double m = q.m0, Pv = q.P0, y_next = y[0];
+  for (int k = 0; k < n_steps; ++k) {
+    const double y_k = y_next;
+    const auto f_k = f_next;
+    if (k + 1 < n_steps) {
+      y_next = y[(k + 1) * y_step];
+      f_next = Model::dyn(p, s + static_cast<long long>(k + 1) * n_s);
+    }
+    const SfStep st = filter.step(rd, ro, q.gqg, q.r, m, Pv, y_k, f_k, h);
+    if (store) {
+      const long long o = static_cast<long long>(k) * ss;
+      m_pr[o] = st.m_pr;
+      P_pr[o] = st.P_pr;
+      xx[o] = st.xx;
+      m_fi[o] = st.m_fi;
+      P_fi[o] = st.P_fi;
+    }
+    m = st.m_fi;
+    Pv = st.P_fi;
+  }
+}
+
+// The zoo's slot shapes: every pair of kinds at every slot count.
+#define SFS_SHAPES_OF(F, KD, KO) F(KD, KO, 3) F(KD, KO, 5) F(KD, KO, 7) F(KD, KO, 8) \
+  F(KD, KO, 9) F(KD, KO, 12) F(KD, KO, 16)
+#define SFS_SHAPES(F) SFS_SHAPES_OF(F, 0, 0) SFS_SHAPES_OF(F, 0, 1) SFS_SHAPES_OF(F, 1, 0) \
+                      SFS_SHAPES_OF(F, 1, 1)

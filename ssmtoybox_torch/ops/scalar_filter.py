@@ -15,10 +15,8 @@ double-double arithmetic).  The kernel has two forms (:func:`form_of`):
   two sigma points a lane.  The main path's UNGM lanes run here.
 - ``"general"``: everything else the lowering admits of the kernel's own
   models, rules of any point count (Gauss-Hermite of degree 9 and up, GPQ
-  and BSQ on those points) and the sine and range measurements, one thread a
-  trajectory, the point count, kinds and measurement read at run time, the
-  rules from device memory (``csrc/scalar_filter_step_general.cuh``).
-- ``"registered"``: the general form's step on models registered at run
+  and BSQ on those points) and the sine and range measurements.
+- ``"registered"``: the general form's designs on models registered at run
   time (:func:`register_dyn_dd`, :func:`register_obs_dd`, and 1-D forms of
   ``vector_filter.register_dyn_dd_vec`` / ``register_obs_dd_vec``), as the
   JAX package's Pallas kernel takes the step of whatever model is registered
@@ -26,6 +24,17 @@ double-double arithmetic).  The kernel has two forms (:func:`form_of`):
   built at first use from a header generated from their
   :class:`~.forms.KernelForm` s (:func:`build_registered`), the transition's
   per-step streams in place of the UNGM constants.
+
+The general and registered forms have two designs (:func:`geometry`): up to
+:data:`MAX_SLOTS` points the slot design (``csrc/scalar_filter_slots.cuh``,
+``sfs_record`` in ``csrc/scalar_filter_step_general.cuh``): the shaped
+form's step at one of :data:`SLOTS` slots on a few lanes a trajectory, the
+models as a policy's functors (the kernel's own, or the registered forms'
+statements), the rules' vectors by value (:func:`_c_slot_rules`) and a BQ
+rule's dense weights staged in shared memory once a block, no scratch;
+above it one thread a trajectory, the point count, kinds and measurement
+read at run time, the rules from device memory and the function values
+through a scratch buffer.
 
 In all three, every sum runs in the order of the twin, so kernel and twin
 agree to the bit.
@@ -45,7 +54,8 @@ its own.  :func:`supports` says whether a configuration qualifies.
 plain PyTorch twin :func:`_scalar_filter_plain`; for a CUDA tensor it launches
 the kernel or raises.  Each launch adds one to :data:`LAUNCHES`; a launch of
 the general form also to :data:`GENERAL_LAUNCHES`, one of the registered form
-to :data:`REGISTERED_LAUNCHES`.
+to :data:`REGISTERED_LAUNCHES`, one of either in the slot design to
+:data:`SLOT_LAUNCHES`.
 
 Nothing is built, lowered or copied per call: the library is bound once a
 process, a transform's :class:`Rule` and a model's noise constants are kept
@@ -69,10 +79,12 @@ from ..bq.gpqd import GaussianProcessDerTransform
 from ..bq.transforms import BQTransform, MultiOutputBQTransform, StudentTProcessTransform
 from ..mtran import SigmaPointTransform
 from ..ssmod import Pendulum2DMeasurement, RangeMeasurement, UNGMMeasurement
+from ..utils.arrays import resolve_device
 from . import _build, forms
 from .forms import TORCH_FNS, KernelForm, Registered, find_dyn, find_obs
 
-__all__ = ["LAUNCHES", "GENERAL_LAUNCHES", "REGISTERED_LAUNCHES", "MAX_PTS", "form_of", "Rule",
+__all__ = ["LAUNCHES", "GENERAL_LAUNCHES", "REGISTERED_LAUNCHES", "SLOT_LAUNCHES", "MAX_PTS",
+           "MAX_SLOTS", "form_of", "geometry", "Rule",
            "ScalarFilterParams", "register_dyn_dd", "register_obs_dd", "lower_transform",
            "supports", "prepare", "ungm_consts", "scalar_filter", "scalar_filter_moments",
            "scalar_filter_batch", "build", "build_registered", "slots", "SLOTS",
@@ -84,15 +96,20 @@ LAUNCHES = 0
 GENERAL_LAUNCHES = 0
 #: the launches of the registered form among them
 REGISTERED_LAUNCHES = 0
+#: the launches of the general and registered forms in the slot design
+SLOT_LAUNCHES = 0
 
 #: most sigma points a rule of the shaped form may have (``SF_MAX_PTS`` in the
 #: step header): enough for the 7-point Gauss-Hermite and BSQ-GH7 rules; the
 #: parameter struct, passed by value, is then 1,600 bytes, under the 4 KB
-#: limit of a kernel's parameters.  The shaped form is instantiated at
-#: ``SLOTS`` points; a rule runs at the smallest of them that holds it, padded
-#: with zero weights.  Larger rules run in the general form
+#: limit of a kernel's parameters.  Larger rules run in the general form
 MAX_PTS = 8
-SLOTS = (3, 5, 7, 8)
+#: the slot counts: the shaped form's (3, 5, 7, 8) and the slot design's
+#: (all of them, up to ``MAX_SLOTS``, ``SF_MAX_SLOTS`` in the step header); a
+#: configuration runs at the smallest that holds both rules, padded with zero
+#: weights
+SLOTS = (3, 5, 7, 8, 9, 12, 16)
+MAX_SLOTS = 16
 
 #: the kernel's own measurements of a 1-D state: class -> (id in
 #: ``scalar_filter_step_general.cuh``, constants); the shaped form takes id 0
@@ -505,6 +522,31 @@ def _c_grule(rule: Rule, packed: torch.Tensor) -> _CGRule:
                    emv=rule.emv)
 
 
+class _CVec(ctypes.Structure):
+    """``SfsVec``: a rule's vectors for the slot design."""
+    _fields_ = [(name, ctypes.c_double * MAX_SLOTS) for name in ("xi", "wm", "wc", "wcc")]
+
+
+class _CSlotRules(ctypes.Structure):
+    """``SfsRules``: both rules' vectors, the slot design's by-value
+    parameter."""
+    _fields_ = [("dyn", _CVec), ("obs", _CVec)]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_slot_rules(p: ScalarFilterParams) -> _CSlotRules:
+    """The slot design's vectors of both rules, zero past each rule's points
+    (all zero for rules the slot design does not take); built once for a
+    given ``p``."""
+    c = _CSlotRules()
+    if slots(p):
+        for rule, vec in ((p.dyn, c.dyn), (p.obs, c.obs)):
+            for name in ("xi", "wm", "wc", "wcc"):
+                vals = getattr(rule, name)
+                getattr(vec, name)[:len(vals)] = vals
+    return c
+
+
 @functools.lru_cache(maxsize=64)
 def _c_general_params(p: ScalarFilterParams, device: torch.device) -> _CGParams:
     """The general form's parameter struct with both rules' constants copied
@@ -549,22 +591,36 @@ def _bind(lib: ctypes.CDLL):
     lib.sf_error_string.restype = ctypes.c_char_p
     lib.sf_error_string.argtypes = [ctypes.c_int]
     lib.sfg_launch.restype = ctypes.c_int
-    lib.sfg_launch.argtypes = ([ctypes.POINTER(_CGParams)] + _STREAMS + [ctypes.c_int]
-                               + [ctypes.c_void_p] * 7)
+    lib.sfg_launch.argtypes = ([ctypes.POINTER(_CGParams), ctypes.POINTER(_CSlotRules)]
+                               + _STREAMS + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+    _bind_geometry(lib)
     return lib
 
 
+def _bind_geometry(lib: ctypes.CDLL):
+    lib.sf_design.restype = None
+    lib.sf_design.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 2
+
+
+#: the library's sources, compiled at once, one nvcc each: the shaped form,
+#: the general form's one-thread design and the launchers; the slot design's
+#: 28 instantiations on the kernel's own models
+SOURCES = ["scalar_filter.cu", "scalar_filter_slots.cu"]
+
+
 def build() -> ctypes.CDLL:
-    """Compile ``csrc/scalar_filter.cu`` for sm_90a with nvcc (once) and bind
-    it; later calls return the bound library."""
-    return _build.bound("scalar_filter", ["scalar_filter.cu"], _bind, _NVCC_FLAGS)
+    """Compile :data:`SOURCES` for sm_90a with nvcc (once) and bind the
+    library; later calls return the bound library."""
+    return _build.bound("scalar_filter", SOURCES, _bind, _NVCC_FLAGS)
 
 
 def _bind_host(lib: ctypes.CDLL):
     lib.sf_host_run.restype = ctypes.c_int
     lib.sf_host_run.argtypes = [ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_void_p] * 5
     lib.sfg_host_run.restype = ctypes.c_int
-    lib.sfg_host_run.argtypes = [ctypes.POINTER(_CGParams)] + _STREAMS + [ctypes.c_void_p] * 6
+    lib.sfg_host_run.argtypes = ([ctypes.POINTER(_CGParams), ctypes.POINTER(_CSlotRules)]
+                                 + _STREAMS + [ctypes.c_void_p] * 6)
+    _bind_geometry(lib)
 
 
 def _host_shim() -> ctypes.CDLL:
@@ -578,7 +634,8 @@ def _host_shim() -> ctypes.CDLL:
 # ---------------------------------------------------------------------------
 
 #: the configurations of the registered libraries built in this process:
-#: ``(host, policy)`` -> (library, index in its ``SFR_PAIRS``)
+#: ``(host, key)`` -> (library, index in its ``SFR_PAIRS``), ``key`` being
+#: :func:`_key`
 _REGISTERED: dict = {}
 #: the arguments of ``sfr_launch`` / ``sfr_host_run`` from ``y`` to ``n_steps``
 _R_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p] + [
@@ -611,27 +668,37 @@ def _model_policy(params: ScalarFilterParams, name: str) -> str:
     return f"struct {name} {{\n{dyn}\n{obs}\n}};\n"
 
 
-def _registered_header(policies: list) -> str:
-    """``sfr_forms.cuh`` for the model policies ``policies``."""
+def _key(params: ScalarFilterParams) -> tuple:
+    """What a registered library instantiates for ``params``: its model
+    policy, both rules' kinds and its slot count (0: the one-thread
+    design)."""
+    return (_model_policy(params, "SfrPair"), params.dyn.kind, params.obs.kind, slots(params))
+
+
+def _registered_header(keys: list) -> str:
+    """``sfr_forms.cuh`` for the configurations ``keys`` (:func:`_key`)."""
     parts = ["// Generated by ssmtoybox_torch/ops/scalar_filter.py (build_registered): the",
              "// model policies of the registered configurations.", "#pragma once", ""]
-    for i, policy in enumerate(policies):
+    for i, (policy, *_) in enumerate(keys):
         parts.append(policy.replace("struct SfrPair {", f"struct SfrPair{i} {{", 1))
-    pairs = " ".join(f"F({i}, SfrPair{i})" for i in range(len(policies)))
+    pairs = " ".join(f"F({i}, SfrPair{i}, {kd}, {ko}, {n})"
+                     for i, (_, kd, ko, n) in enumerate(keys))
     return "\n".join(parts) + f"\n#define SFR_PAIRS(F) {pairs}\n"
 
 
 def _bind_registered(lib: ctypes.CDLL):
     lib.sfr_launch.restype = ctypes.c_int
-    lib.sfr_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CRParams)] + _R_ARGS
-                               + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+    lib.sfr_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CRParams),
+                                ctypes.POINTER(_CSlotRules)] + _R_ARGS + [ctypes.c_int]
+                               + [ctypes.c_void_p] * 7)
     lib.sfr_error_string.restype = ctypes.c_char_p
     lib.sfr_error_string.argtypes = [ctypes.c_int]
 
 
 def _bind_registered_host(lib: ctypes.CDLL):
     lib.sfr_host_run.restype = ctypes.c_int
-    lib.sfr_host_run.argtypes = ([ctypes.c_int, ctypes.POINTER(_CRParams)] + _R_ARGS
+    lib.sfr_host_run.argtypes = ([ctypes.c_int, ctypes.POINTER(_CRParams),
+                                  ctypes.POINTER(_CSlotRules)] + _R_ARGS
                                  + [ctypes.c_void_p] * 6)
 
 
@@ -645,25 +712,24 @@ def build_registered(configs, host: bool = False) -> str:
     it alone if none holds it.  Returns the library's name (its compiler
     output is ``_build.BUILD_LOGS[name]``); a failed build raises
     ``RuntimeError`` with the compiler's output."""
-    policies = list(dict.fromkeys(_model_policy(p, "SfrPair") for p in configs
-                                  if form_of(p) == "registered"))
-    if not policies:
+    keys = list(dict.fromkeys(_key(p) for p in configs if form_of(p) == "registered"))
+    if not keys:
         raise ValueError("no configuration with a registered model to build")
     if host:
         return forms.build_generated(
-            _REGISTERED, policies, _registered_header(policies),
+            _REGISTERED, keys, _registered_header(keys),
             name="scalar_filter_registered_host", source="scalar_filter_host.cpp",
             file="sfr_forms.cuh", bind=_bind_registered_host, flags=["-DSFR_REGISTERED"],
             host=True)
     return forms.build_generated(
-        _REGISTERED, policies, _registered_header(policies), name="scalar_filter_registered",
+        _REGISTERED, keys, _registered_header(keys), name="scalar_filter_registered",
         source="scalar_filter_registered.cu", file="sfr_forms.cuh", bind=_bind_registered,
         flags=_NVCC_FLAGS, host=False)
 
 
 def _registered(params: ScalarFilterParams, host: bool) -> tuple:
     """(library, index) of ``params``' configuration, built at first use."""
-    key = host, _model_policy(params, "SfrPair")
+    key = host, _key(params)
     if key not in _REGISTERED:
         build_registered([params], host)
     return _REGISTERED[key]
@@ -671,8 +737,26 @@ def _registered(params: ScalarFilterParams, host: bool) -> tuple:
 
 def slots(params: ScalarFilterParams) -> int:
     """Points of the instantiation that runs ``params``: the smallest of
-    :data:`SLOTS` that holds both rules (``sf_slots`` in the step header)."""
-    return next(n for n in SLOTS if n >= max(params.dyn.n, params.obs.n))
+    :data:`SLOTS` that holds both rules (``sf_slots`` in the step header); 0
+    above :data:`MAX_SLOTS`."""
+    return next((n for n in SLOTS if n >= max(params.dyn.n, params.obs.n)), 0)
+
+
+def geometry(params: ScalarFilterParams, device=None) -> tuple:
+    """``(design, slots, lanes)`` of the launch that runs ``params``:
+    ``"shaped"`` (the shaped form), ``"slots"`` (the general or registered
+    form up to :data:`MAX_SLOTS` points) or ``"one-thread"`` (above it; 0
+    slots, 1 lane); the slot count of :func:`slots` and the lanes a
+    trajectory the launcher gives that shape.  The step header answers it
+    (``sf_design_of``), through the card's library, or through the host
+    build where ``device`` (the card for None, as everywhere) is the CPU."""
+    lib = _host_shim() if resolve_device(device).type == "cpu" else build()
+    shaped = form_of(params) == "shaped"
+    n, lanes = ctypes.c_int(), ctypes.c_int()
+    lib.sf_design(int(shaped), params.dyn.kind, params.obs.kind, params.dyn.n, params.obs.n,
+                  ctypes.byref(n), ctypes.byref(lanes))
+    design = "shaped" if shaped else "slots" if n.value else "one-thread"
+    return design, n.value, lanes.value
 
 
 def _check_streams(y: torch.Tensor, c: torch.Tensor, params: ScalarFilterParams | None = None):
@@ -692,35 +776,40 @@ def _check_streams(y: torch.Tensor, c: torch.Tensor, params: ScalarFilterParams 
 
 
 def _scratch(params: ScalarFilterParams, B: int, device) -> torch.Tensor:
-    """The general form's function values of every point, interleaved by
-    trajectory."""
-    return torch.empty(max(params.dyn.n, params.obs.n) * B, dtype=torch.float64, device=device)
+    """The one-thread design's function values of every point, interleaved
+    by trajectory; empty for the slot design, which takes none."""
+    n = 0 if slots(params) else max(params.dyn.n, params.obs.n) * B
+    return torch.empty(n, dtype=torch.float64, device=device)
 
 
 def _host_shim_run(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     """Run the step header of :func:`form_of`'s form compiled for the host
     on CPU tensors; the five streams, after checking that the instantiation
-    of :func:`slots` (or the general or registered form) ran."""
+    of :func:`slots` ran (for the general and registered forms, the design of
+    :func:`geometry`: its slot count, 1 for the one-thread design)."""
     _check_streams(y, c, params)
     if y.device.type != "cpu":
         raise ValueError(f"the host build takes CPU tensors; got {y.device}")
     N, B = y.shape
     out = torch.empty((5, N, B), dtype=torch.float64)
-    if form_of(params) == "registered":
+    form, want = form_of(params), slots(params) or 1
+    if form == "registered":
         cpu = torch.device("cpu")
         cr, scratch = _c_registered_params(params, cpu), _scratch(params, B, "cpu")
         lib, pair = _registered(params, host=True)
-        if lib.sfr_host_run(pair, ctypes.byref(cr), y.data_ptr(), y.stride(0), y.stride(1),
-                            c.data_ptr(), params.n_s, B, N, *(o.data_ptr() for o in out),
-                            scratch.data_ptr()) != 1:
-            raise RuntimeError("the host build of the registered form refused the configuration")
-        return tuple(out)
-    if form_of(params) == "general":
+        ran = lib.sfr_host_run(pair, ctypes.byref(cr), ctypes.byref(_c_slot_rules(params)),
+                               y.data_ptr(), y.stride(0), y.stride(1), c.data_ptr(), params.n_s,
+                               B, N, *(o.data_ptr() for o in out), scratch.data_ptr())
+    elif form == "general":
         cg, scratch = _c_general_params(params, torch.device("cpu")), _scratch(params, B, "cpu")
-        if _host_shim().sfg_host_run(ctypes.byref(cg), y.data_ptr(), y.stride(0), y.stride(1),
-                                     c.data_ptr(), B, N, *(o.data_ptr() for o in out),
-                                     scratch.data_ptr()) != 1:
-            raise RuntimeError("the host build of the general form refused the configuration")
+        ran = _host_shim().sfg_host_run(ctypes.byref(cg), ctypes.byref(_c_slot_rules(params)),
+                                        y.data_ptr(), y.stride(0), y.stride(1), c.data_ptr(),
+                                        B, N, *(o.data_ptr() for o in out), scratch.data_ptr())
+    if form != "shaped":
+        if ran != want:
+            raise RuntimeError(f"the host build of the {form} form ran design {ran} (slots; 1: "
+                               f"one thread) for rules of {params.dyn.n} and {params.obs.n} "
+                               f"points, not {want}")
         return tuple(out)
     ran = _host_shim().sf_host_run(ctypes.byref(_c_params(params)), y.data_ptr(), y.stride(0),
                                    y.stride(1), c.data_ptr(), B, N,
@@ -742,10 +831,11 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     (N, B) streams ``(m_fi, P_fi, m_pr, P_pr, xx)``: filtered mean and
     variance, predicted mean and variance, and the dynamics transform's
     cross-covariance.  A CPU tensor runs the plain twin; a CUDA tensor
-    launches the kernel's form of :func:`form_of` on the current stream,
-    without synchronising, or raises.
+    launches the kernel's form of :func:`form_of`, in the design of
+    :func:`geometry`, on the current stream, without synchronising, or
+    raises.
     """
-    global LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES
+    global LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES, SLOT_LAUNCHES
     _check_streams(y, c, params)
     if y.device.type == "cpu":
         return _scalar_filter_plain(params, y, c)
@@ -765,11 +855,13 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     if registered:
         scratch = _scratch(params, B, y.device)
         rc = lib.sfr_launch(pair, ctypes.byref(_c_registered_params(params, y.device)),
-                            *args[:4], params.n_s, *args[4:], scratch.data_ptr(), stream)
+                            ctypes.byref(_c_slot_rules(params)), *args[:4], params.n_s,
+                            *args[4:], scratch.data_ptr(), stream)
     elif general:
         scratch = _scratch(params, B, y.device)
-        rc = lib.sfg_launch(ctypes.byref(_c_general_params(params, y.device)), *args,
-                            scratch.data_ptr(), stream)
+        rc = lib.sfg_launch(ctypes.byref(_c_general_params(params, y.device)),
+                            ctypes.byref(_c_slot_rules(params)), *args, scratch.data_ptr(),
+                            stream)
     else:
         rc = lib.sf_launch(ctypes.byref(_c_params(params)), *args, stream)
     if rc != 0:
@@ -779,6 +871,7 @@ def scalar_filter(params: ScalarFilterParams, y: torch.Tensor, c: torch.Tensor):
     LAUNCHES += 1
     GENERAL_LAUNCHES += int(general)
     REGISTERED_LAUNCHES += int(registered)
+    SLOT_LAUNCHES += int(form != "shaped" and slots(params) > 0)
     return tuple(out)
 
 

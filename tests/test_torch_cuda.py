@@ -1254,3 +1254,121 @@ def test_registered_warp_form_matches_plain(card, registered):
         g = g.permute(2, 1, 0) if g.ndim == 3 else g.permute(3, 1, 2, 0)
         assert bool(torch.isfinite(g).all()), f
         assert torch.equal(g, r), f"{f}: {float((g - r).abs().max()):.3e}"
+
+
+# ---------------------------------------------------------------------------
+# the slot design of the scalar kernel's general and registered forms
+# (csrc/scalar_filter_slots.cuh): rules of up to 16 points on compile-time
+# slots and lanes; above 16 points one thread a trajectory
+# ---------------------------------------------------------------------------
+
+#: the slot design's slot counts and the Gauss-Hermite degree that fills each
+SLOT_COUNTS = [3, 5, 7, 8, 9, 12, 16]
+
+
+def _slot_case(card, kinds, n, meas):
+    """The UNGM transition with ``meas`` under GH-n (kind 0) or GPQ on GH-n
+    points (kind 1) on each transform; at 16 slots GPQ takes 15 points (the
+    phase 27 lane's rule, padded to 16 slots): on 16 Gauss-Hermite points
+    the GP weights of ``KERN_PAR`` lose 10-99% of the runs, in the plain
+    version too."""
+    from ssmtoybox_torch.ssmod import Pendulum2DMeasurement, RangeMeasurement
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=card), GaussRV(1, cov=10.0, device=card))
+    obs = {"range": lambda: RangeMeasurement(GaussRV(1, cov=0.03, device=card), dim_state=1),
+           "sine": lambda: Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=card), dim_state=1),
+           "ungm": lambda: UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)}[meas]()
+
+    def rule(kind):
+        return (stt.GaussHermiteKalman(dyn, obs, deg=n) if kind == 0 else
+                stt.GaussianProcessKalman(dyn, obs, KERN_PAR, KERN_PAR, points="gh",
+                                          point_hyp={"degree": 15 if n == 16 else n}))
+    return sf.prepare(dyn, obs, rule(kinds[0]).tf_dyn, rule(kinds[1]).tf_obs), dyn, obs
+
+
+def _slot_streams_equal(card, params, dyn, obs, seed, counter="GENERAL_LAUNCHES", slot=1):
+    """Launch ``params`` at B = 1, 7, 4,097 and 10,000 (40 steps): one launch
+    each, counted on ``counter`` and ``slot`` times on ``SLOT_LAUNCHES``,
+    all five streams equal to the plain version's to the bit, a NaN where it
+    has one (GPQ on 16 Gauss-Hermite points with the sine measurement loses
+    some runs, in the plain version too), at least 99% of the 10,000 runs
+    finite."""
+    gen = torch.Generator(device=card).manual_seed(seed)
+    x = dyn.simulate_discrete(gen, steps=40, mc_sims=10_000)
+    y_all = obs.simulate_measurements(gen, x)[0].contiguous()
+    c = sf.step_consts(params, 40, card)
+    want = sf._scalar_filter_plain(params, y_all, c)
+    for batch in (1, 7, 4097, 10_000):
+        before = (sf.LAUNCHES, getattr(sf, counter), sf.SLOT_LAUNCHES)
+        got = sf.scalar_filter(params, y_all[:, :batch].contiguous(), c)
+        assert (sf.LAUNCHES - before[0], getattr(sf, counter) - before[1],
+                sf.SLOT_LAUNCHES - before[2]) == (1, 1, slot)
+        torch.cuda.synchronize()
+        for s, g, r in zip(STREAMS, got, want):
+            r = r[:, :batch]
+            assert torch.equal(g.isnan(), r.isnan()), (batch, s)
+            assert torch.equal(g.nan_to_num(), r.nan_to_num()), (
+                f"B={batch} {s}: {float((g - r).nan_to_num().abs().max()):.3e}")
+            assert batch < 10_000 or float(torch.isfinite(g).all(0).double().mean()) >= 0.99, s
+
+
+#: (kinds, slots, measurement): the UNGM measurement above 8 points only
+#: (below it the shaped form takes it)
+SLOT_CASES = [(kinds, n, meas) for kinds in [(0, 0), (0, 1), (1, 0), (1, 1)]
+              for n in SLOT_COUNTS for meas in ("range", "sine", "ungm")
+              if meas != "ungm" or n > 8]
+
+
+@pytest.mark.parametrize("kinds,n,meas", SLOT_CASES)
+def test_slot_design_matches_plain_at_every_instantiation(card, kinds, n, meas):
+    """Every instantiation of the general form's slot design (both kinds of
+    either rule x 3-16 slots) with the range, sine and UNGM measurements (the
+    UNGM one above 8 points; below it the shaped form takes it): one launch
+    of the slot design a batch, equal to the plain version to the bit at B =
+    1, 7, 4,097 and 10,000."""
+    params, dyn, obs = _slot_case(card, kinds, n, meas)
+    assert sf.form_of(params) == "general"
+    assert sf.geometry(params)[:2] == ("slots", n)
+    _slot_streams_equal(card, params, dyn, obs, seed=n + 10 * kinds[0] + 20 * kinds[1])
+
+
+def test_one_thread_form_takes_rules_above_16_points(card):
+    """GH-17 runs one thread a trajectory (not the slot design): one general
+    launch, none of the slot design, equal to the plain version to the bit
+    at B = 1, 7, 4,097 and 10,000."""
+    params, dyn, obs = _slot_case(card, (0, 0), 17, "ungm")
+    assert sf.geometry(params) == ("one-thread", 0, 1)
+    _slot_streams_equal(card, params, dyn, obs, seed=17, slot=0)
+
+
+@pytest.mark.parametrize("rule", ["UKF", "GH-9", "GPQ-GH15"])
+def test_registered_slot_design_matches_plain(card, registered, rule):
+    """A registered transition (``_Growth``, its cosine a per-step stream)
+    with the UNGM measurement in the registered form's slot design, at 3, 9
+    and 16 slots: one launch a batch, counted on the registered form and the
+    slot design, equal to the plain version to the bit at B = 1, 7, 4,097 and
+    10,000."""
+    dyn = _Growth(GaussRV(1, cov=1.0, device=card), GaussRV(1, cov=1.0, device=card))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)
+    alg = {"UKF": lambda: stt.UnscentedKalman(dyn, obs),
+           "GH-9": lambda: stt.GaussHermiteKalman(dyn, obs, deg=9),
+           "GPQ-GH15": lambda: stt.GaussianProcessKalman(dyn, obs, KERN_PAR, KERN_PAR,
+                                                         points="gh",
+                                                         point_hyp={"degree": 15})}[rule]()
+    params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert sf.form_of(params) == "registered" and sf.geometry(params)[0] == "slots"
+    _slot_streams_equal(card, params, dyn, obs, seed=23, counter="REGISTERED_LAUNCHES")
+
+
+def test_registered_one_thread_form_takes_rules_above_16_points(card, registered):
+    """The registered transition (``_Growth``) with the UNGM measurement
+    under GH-17 runs the registered form one thread a trajectory
+    (``scalar_filter_registered_kernel``): one registered launch a batch,
+    none of the slot design, equal to the plain version to the bit at B = 1,
+    7, 4,097 and 10,000."""
+    dyn = _Growth(GaussRV(1, cov=1.0, device=card), GaussRV(1, cov=1.0, device=card))
+    obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)
+    alg = stt.GaussHermiteKalman(dyn, obs, deg=17)
+    params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert sf.form_of(params) == "registered"
+    assert sf.geometry(params) == ("one-thread", 0, 1)
+    _slot_streams_equal(card, params, dyn, obs, seed=29, counter="REGISTERED_LAUNCHES", slot=0)
