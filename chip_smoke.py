@@ -9,9 +9,10 @@ fails at once without them.  Phases, each fatal on failure:
 1. set-up: print the card's name and power limit, build the CUDA sources
    ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
    ``student_qrq.cu``, ``vandermonde.cu``, ``vector_filter.cu``,
-   ``vector_filter_shaped.cu``, ``vector_filter_shaped_bq.cu`` and
-   ``vector_filter_general.cu`` for sm_90a (one nvcc each, at once; the two
-   Student-MC sources make one library, the four vector filter sources
+   ``vector_filter_shaped.cu``, ``vector_filter_shaped_bq.cu``,
+   ``vector_filter_general.cu`` and ``vector_filter_general_shaped.cu`` for
+   sm_90a (one nvcc each, at once; the two
+   Student-MC sources make one library, the five vector filter sources
    another), print each library's build time and
    their ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
@@ -114,10 +115,13 @@ fails at once without them.  Phases, each fatal on failure:
     (``csrc/vector_filter_general.cu``, 16 one-thread instantiations: D = 2-5
     x a bound of 2, 4 or 8 on E, or the wide form of bearings from 9-12
     sensors; 4 of its lane-group form, ``csrc/vector_filter_lanes.cuh``: D
-    on 8 lanes; 4 of its warp form, D on 32 lanes) on ``VF_GENERAL_CASES``,
+    on 8 lanes; 4 of its warp form, D on 32 lanes; 24 of its shaped
+    one-thread form, ``csrc/vector_filter_general_shaped.cu``: 12 pairs at
+    the UT and CKF counts) on ``VF_GENERAL_CASES``,
     the pairs only it takes, every pair of rule kinds, at the same batch
-    sizes through the wrapper (the lane-group form above 4 outputs, the warp
-    form under GH-3), the one-thread form of those by force on all 10,000,
+    sizes through the wrapper (the shaped form under the UKF and the CKF up
+    to 4 outputs, the lane-group form above, the warp form under GH-3), the
+    general one-thread form of those by force on all 10,000,
     and by force, one thread and warp form, on the UKF of the five other
     pairs (GH-3 on reentry runs in the warp form through the wrapper); it
     fails if an instantiation ran no configuration; two launches on one input
@@ -236,19 +240,22 @@ fails at once without them.  Phases, each fatal on failure:
     in standard errors (``studies_slice``);
 27. "dd pairs": what only the general forms take, at full width
     (``dd_pairs_slice``): CT + radar under UKF and CKF and CT with 2, 3, 5
-    and 8 bearings under CKF and 8 under GH-3, 10,000 x 100 simulated on the
-    card, through the general vector kernel (5 and 8 bearings under CKF in
-    its lane-group form, GH-3 in its warp form);
+    and 8 bearings under CKF and 8 under GH-3, CT + radar under the UKF
+    beside the CKF, 10,000 x 100 simulated on the card, through the general
+    vector kernel (radar and 2-3 bearings in its shaped one-thread form, 5
+    and 8 bearings under CKF in its lane-group form, GH-3 in its warp form,
+    the mixed counts in its general one-thread form);
     UNGM under GH-9, GH-15 and GPQ on GH-15 points (the slot design) and
     under GH-17 (one thread a trajectory) on the main path's 10,000 x 500
     data, through the scalar kernel's general form; each lane once with the
-    counts from 0 (4 one-thread, 2 lane-group, 1 warp-form and 4 scalar
-    launches, nothing else), its first 200 trajectories (all 10,000 on CT +
+    counts from 0 (4 shaped, 1 one-thread, 2 lane-group, 1 warp-form and 4
+    scalar launches, nothing else), its first 200 trajectories (all 10,000 on CT +
     radar UKF) equal to the plain version to the bit, its filter RMSE within
     1e-6 (vector) or 1e-3 (UNGM) relative of the eager f64 lane's, at most
     1% non-finite; raw launches, wrapper, plain and bound, the libraries'
-    build times; on 5 and 8 bearings both forms of the general kernel (8 or
-    32 lanes, one thread) to the bit and in turns with their ptxas counts;
+    build times; on every lane off the general one-thread form its route
+    and that form (at 3 bearings the lane-group form too) to the bit and in
+    turns with their ptxas counts;
     the general form's range and sine measurements of the UNGM state against
     the plain version to the bit at B = 1, 7, 4,097 and 10,000; raw launches
     of the general kernel by force beside the first version and the shaped
@@ -261,19 +268,22 @@ fails at once without them.  Phases, each fatal on failure:
     once, their times and ptxas registers and spills printed); a 1-D
     transition with a per-step stream and a 1-D measurement (the scalar
     kernel's registered form, 10,000 x 500), a 2-D one with a stream and a
-    2-output measurement, an 8-D one with the radar and a copy of the
-    table's pendulum with the radar (the registered vector kernel, the 8-D
+    2-output measurement and with the radar, an 8-D one with the radar and a
+    copy of the table's pendulum with the radar (the registered vector
+    kernel: the 2-D ones under the UKF in its shaped one-thread form, the 2-D
+    one with the radar under GH-3 in its general one-thread form, the 8-D
     one in its lane-group form), CT with 9 and 16 bearings under CKF (the
     general kernel's lane-group form), reentry with a copy of the table's
     radar under GH-3 (the registered kernel's warp form), 10,000 x 100; each
-    lane once with the counts from 0 (2 registered, 1 registered lane-group,
-    1 registered warp-form, 2 general lane-group, 1 scalar launch, nothing
-    else), equal to its plain version
+    lane once with the counts from 0 (2 registered shaped, 1 registered
+    one-thread, 1 registered lane-group, 1 registered warp-form, 2 general
+    lane-group, 1 scalar launch, nothing else), equal to its plain version
     to the bit (all 10,000 trajectories on the 2-D lane, the first 200
     elsewhere), its filter RMSE within 1e-6 (1e-3 on the 1-D lane) relative
     of the eager lane's; raw launches, wrapper, plain and bound; on the
-    lane-group lanes both forms of the kernel to the bit and in turns (8
-    lanes, one thread: the wide form on the bearings); the pendulum copy
+    shaped, lane-group and warp lanes that form and the general one-thread
+    form of the kernel to the bit and in turns (the wide form on the
+    bearings); the pendulum copy
     equal to the table's pendulum in the general kernel to the bit and timed
     in turns with it, and the radar copy the table's radar in the general
     kernel's warp form.  Then the 1-D registered lane under GH-17 (one
@@ -1462,25 +1472,34 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
     ``"vector_filter_general"`` (every configuration of the table's models)
     or ``"vector_filter_registered"`` (a registered model); by default the
     one the wrapper picks.  ``lanes``: the general and registered kernels'
-    form (0 one thread a trajectory, ``vf._LANES`` the lane-group form), by default
-    the wrapper's (``lanes_of``)."""
+    form (0 one thread a trajectory, ``vf._SHAPED`` the shaped one-thread
+    form, ``vf._LANES`` the lane-group form, ``vf._WARP`` the warp form), by
+    default the wrapper's (``lanes_of``)."""
     lib = vf.build()
     B, _, T = y.shape
     kernel = kernel or vf.kernel_of(params)
     lanes = vf.lanes_of(params) if lanes is None else lanes
     out = vf._empty_streams(params.dim_state, T, B, dev)
-    c = vf._c_struct(kernel, params, dev)
+    c = vf._c_struct(kernel, params, dev, lanes)
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, dev.index or 0,
             *(o.data_ptr() for o in out))
     if kernel == "vector_filter_registered":
         lib_r, pair = vf._registered(params, host=False, lanes=lanes)
         s, scratch = vf._streams_on(params, T, dev), vf._scratch(params, B, dev, lanes)
+        outs = [o.data_ptr() for o in out]
 
         def launch():
+            if lanes == vf._SHAPED:
+                return lib_r.vfr_shaped_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
+                                               s.data_ptr(), params.n_s, B, T, dev.index or 0,
+                                               *outs, stream)
             return lib_r.vfr_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
-                                    s.data_ptr(), params.n_s, B, T, dev.index or 0,
-                                    *(o.data_ptr() for o in out), scratch.data_ptr(), stream)
+                                    s.data_ptr(), params.n_s, B, T, dev.index or 0, *outs,
+                                    scratch.data_ptr(), stream)
+    elif kernel == "vector_filter_general" and lanes == vf._SHAPED:
+        def launch():
+            return lib.vgs_launch(*args, stream)
     elif kernel == "vector_filter_shaped":
         def launch():
             return lib.vfs_launch(*args, stream)
@@ -1503,11 +1522,13 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
 
 #: the vector filter kernels' entries of the ``kernels`` line, by name: the
 #: general and registered kernels' one-thread forms, their lane-group forms
-#: and their warp forms (``csrc/vector_filter_lanes.cuh``) apart
+#: and their warp forms (``csrc/vector_filter_lanes.cuh``) and their shaped
+#: one-thread forms (``csrc/vector_filter_general_shaped.cuh``) apart
 VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq",
               "vector_filter_general", "vector_filter_registered", "vector_filter_general_lanes",
               "vector_filter_registered_lanes", "vector_filter_general_warp",
-              "vector_filter_registered_warp")
+              "vector_filter_registered_warp", "vector_filter_general_shaped",
+              "vector_filter_registered_shaped")
 
 
 def vf_counts(vf):
@@ -1518,13 +1539,24 @@ def vf_counts(vf):
             "vector_filter_shaped": vf.SHAPED_LAUNCHES,
             "vector_filter_shaped_bq": vf.BQ_SHAPED_LAUNCHES,
             "vector_filter_general": (vf.GENERAL_LAUNCHES - vf.GENERAL_LANE_LAUNCHES
-                                      - vf.GENERAL_WARP_LAUNCHES),
+                                      - vf.GENERAL_WARP_LAUNCHES - vf.GENERAL_SHAPED_LAUNCHES),
             "vector_filter_registered": (vf.REGISTERED_LAUNCHES - vf.REGISTERED_LANE_LAUNCHES
-                                         - vf.REGISTERED_WARP_LAUNCHES),
+                                         - vf.REGISTERED_WARP_LAUNCHES
+                                         - vf.REGISTERED_SHAPED_LAUNCHES),
             "vector_filter_general_lanes": vf.GENERAL_LANE_LAUNCHES,
             "vector_filter_registered_lanes": vf.REGISTERED_LANE_LAUNCHES,
             "vector_filter_general_warp": vf.GENERAL_WARP_LAUNCHES,
-            "vector_filter_registered_warp": vf.REGISTERED_WARP_LAUNCHES}
+            "vector_filter_registered_warp": vf.REGISTERED_WARP_LAUNCHES,
+            "vector_filter_general_shaped": vf.GENERAL_SHAPED_LAUNCHES,
+            "vector_filter_registered_shaped": vf.REGISTERED_SHAPED_LAUNCHES}
+
+
+def vf_source(name):
+    """The source of the ``kernels`` line's entry ``name``: the lane-group
+    and warp forms are instantiated in their kernel's source, and so is the
+    registered kernel's shaped form."""
+    base = name.removesuffix("_lanes").removesuffix("_warp")
+    return f"ssmtoybox_torch/csrc/{base.replace('registered_shaped', 'registered')}.cu"
 
 
 def vf_kernel(vf, params):
@@ -1535,15 +1567,16 @@ def vf_kernel(vf, params):
 
 def vf_form(vf, kernel, lanes):
     """The entry of ``VF_KERNELS`` of ``kernel``'s form on ``lanes`` lanes (0
-    one thread a trajectory, ``vf._LANES`` the lane-group form, ``vf._WARP``
-    the warp form)."""
-    return kernel + {0: "", vf._LANES: "_lanes", vf._WARP: "_warp"}[lanes]
+    one thread a trajectory, ``vf._SHAPED`` the shaped one-thread form,
+    ``vf._LANES`` the lane-group form, ``vf._WARP`` the warp form)."""
+    return kernel + {0: "", vf._SHAPED: "_shaped", vf._LANES: "_lanes", vf._WARP: "_warp"}[lanes]
 
 
 def vf_zero(vf):
     vf.LAUNCHES = vf.SHAPED_LAUNCHES = vf.BQ_SHAPED_LAUNCHES = vf.GENERAL_LAUNCHES = 0
     vf.REGISTERED_LAUNCHES = vf.GENERAL_LANE_LAUNCHES = vf.REGISTERED_LANE_LAUNCHES = 0
     vf.GENERAL_WARP_LAUNCHES = vf.REGISTERED_WARP_LAUNCHES = 0
+    vf.GENERAL_SHAPED_LAUNCHES = vf.REGISTERED_SHAPED_LAUNCHES = 0
 
 
 def only(kernel, n=1):
@@ -1606,11 +1639,14 @@ def vf_instantiation(kernel, params, lanes=0):
     """The template arguments of the instantiation of ``kernel`` that runs
     ``params``: (D, dynamics, kinds of both rules, N; N "any" for the first
     version); for the general kernel (D, the bound on E, 0 for the wide
-    form), or in the lane-group or warp form on ``lanes`` lanes (D, the
-    lanes)."""
+    form), in the shaped one-thread form (D, E, both models, N), or in the
+    lane-group or warp form on ``lanes`` lanes (D, the lanes)."""
     from ssmtoybox_torch.ops import vector_filter as vf
     if kernel == "vector_filter_general":
         E = params.dim_out
+        if lanes == vf._SHAPED:
+            return (vf_form(vf, kernel, lanes), params.dim_state, E, params.dyn_model,
+                    params.obs_model, params.dyn.n)
         if lanes:
             return (vf_form(vf, kernel, lanes), params.dim_state, lanes)
         return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0)
@@ -1618,16 +1654,32 @@ def vf_instantiation(kernel, params, lanes=0):
             "any" if kernel == "vector_filter" else params.dyn.n)
 
 
+def vgs_pairs(vf):
+    """The table's pairs of the general kernel's shaped form, ``(D, E,
+    dynamics id, measurement id)`` of ``VGS_PAIRS`` in
+    ``csrc/vector_filter_general_shaped.cuh``."""
+    src = open(os.path.join(vf._build.CSRC, "vector_filter_general_shaped.cuh")).read()
+    body = src.split("#define VGS_PAIRS(X, F)")[1].split("\n\n")[0]
+    ids = {**{f"VF_DYN_{k}": i for i, k in enumerate(("REENTRY", "CV", "PENDULUM", "REENTRY1D",
+                                                     "CT"))},
+           **{f"VF_OBS_{k}": i for i, k in enumerate(("RADAR", "PENDULUM_SIN", "RANGE",
+                                                     "BEARING", "UNGM"))}}
+    return [(int(D), int(E), ids[d], ids[o])
+            for D, E, d, o in re.findall(r"X\(F, (\d), (\d), (\w+), (\w+)\)", body)]
+
+
 def vf_all_instantiations(vf):
-    """Every instantiation of the four sources, as ``vf_instantiation``
+    """Every instantiation of the five sources, as ``vf_instantiation``
     names them: the first version's 4 kinds of each model pair (20), the
     classical shaped kernel's 2 point counts (10), the BQ shapes' 3 kinds x 2
     counts (30), the general kernel's state dimensions x bounds on E (16,
-    the wide form's four among them) and its lane-group form's state
-    dimensions (4)."""
+    the wide form's four among them), its lane-group form's state
+    dimensions (4) and its shaped form's pairs x 2 point counts (24)."""
     dims = {0: 5, 1: 4, 2: 2, 3: 3, 4: 5}
     out = {("vector_filter_general", D, eb) for D in (2, 3, 4, 5) for eb in (2, 4, 8, 0)}
     out |= {("vector_filter_general_lanes", D, vf._LANES) for D in (2, 3, 4, 5)}
+    out |= {("vector_filter_general_shaped", D, E, dyn, obs, n)
+            for D, E, dyn, obs in vgs_pairs(vf) for n in (2 * D + 1, 2 * D)}
     for dyn, D in dims.items():
         for kd in (0, 1):
             for ko in (0, 1):
@@ -1796,7 +1848,7 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
     split = {k: sum(s[0] == k for s in seen) for k in VF_KERNELS}
     log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs "
-        f"and {g_cases} configurations of other pairs: every instantiation of the four sources "
+        f"and {g_cases} configurations of other pairs: every instantiation of the five sources "
         f"({split}; the first version at every pair of its five, the general kernel at the five "
         f"by force, where other kernels take them), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
         f"streams; two launches equal to the bit; {time.perf_counter() - t15:.1f} s")
@@ -1971,7 +2023,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
                            "ms": k_ms[0], "plain_ms": plain_ms[kernel], "bound_ms": b_ms,
                            "bound_by": b_by, "library_ms": None}
     # the general kernel's phase-15 figures; phases 27 and 28 time it on their paths
-    for kernel in ("vector_filter_general", "vector_filter_general_lanes"):
+    for kernel in ("vector_filter_general", "vector_filter_general_lanes",
+                   "vector_filter_general_shaped"):
         entries[kernel] = {"launches": 0, "max_abs_err": err[kernel]}
     return entries
 
@@ -2037,7 +2090,8 @@ def general_systems(np, dev):
 
 #: phase 15's rules on the pairs of the general kernel: (pair, dynamics rule,
 #: measurement rule), every instantiation (D, bound on E, the wide form of
-#: more than 8 outputs) and every pair of rule kinds
+#: more than 8 outputs; each pair of the shaped form at both point counts)
+#: and every pair of rule kinds
 VF_GENERAL_CASES = [
     ("pendulum + radar", "UKF", "UKF"), ("pendulum + radar", "GPQ-UT", "GPQ-UT"),
     ("pendulum + UNGM", "CKF", "CKF"), ("pendulum + 3 bearings", "UKF", "UKF"),
@@ -2050,7 +2104,14 @@ VF_GENERAL_CASES = [
     ("CT + 8 bearings", "UKF", "GPQ-UT"), ("reentry + range", "UKF", "UKF"),
     ("reentry + UNGM", "CKF", "CKF"), ("pendulum + 9 bearings", "UKF", "UKF"),
     ("falling body + 10 bearings", "CKF", "GPQ-UT"), ("CV + 12 bearings", "GPQ-UT", "GPQ-UT"),
-    ("CT + 9 bearings", "CKF", "CKF")]
+    ("CT + 9 bearings", "CKF", "CKF"),
+    ("pendulum + radar", "CKF", "CKF"), ("pendulum + UNGM", "UKF", "UKF"),
+    ("pendulum + 3 bearings", "CKF", "CKF"), ("falling body + sine", "CKF", "CKF"),
+    ("falling body + 4 bearings", "UKF", "UKF"), ("CV + 2 bearings", "CKF", "CKF"),
+    ("CV + 3 bearings", "UKF", "UKF"), ("CT + radar", "CKF", "CKF"),
+    ("CT + 2 bearings", "UKF", "UKF"), ("CT + 2 bearings", "CKF", "CKF"),
+    ("CT + 3 bearings", "UKF", "UKF"), ("reentry + range", "CKF", "CKF"),
+    ("reentry + UNGM", "UKF", "UKF")]
 
 
 def cv_radar_system(np, dev):
@@ -2077,10 +2138,13 @@ def vf_probe_systems(np, dev):
             "CT + 4 bearings": zoo["CT + 4 bearings"]}
 
 
-def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule):
+def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule=None):
     """A Gaussian filter of ``dyn`` and ``obs`` with the named rules (UKF,
     CKF, GH-3 or GPQ-UT with the length-scales of ``VF_GPQ_ZOO``'s kind:
-    3 on every input)."""
+    3 on every input); ``dyn_rule`` "A/B" with no ``obs_rule``: A on the
+    dynamics, B on the measurement; one name alone: that rule on both."""
+    if obs_rule is None:
+        dyn_rule, obs_rule = (dyn_rule.split("/") * 2)[:2]
     D = dyn.dim_state
     par = np.array([[1.0] + [3.0] * D])
 
@@ -2101,8 +2165,9 @@ def vf_general_checks(torch, np, dev, forced):
     form ``lanes_of`` names, and no other) at B = ``VF_BATCHES`` against the
     plain version's run on all MC (its prefix), to the bit, NaN where it has
     NaN, at most 1% not finite; two launches equal to the bit; where that
-    form is the lane-group or warp form, the one-thread form by force on the
-    same MC trajectories, to the bit; then the general kernel by force, one
+    form is another than the general one-thread form, that form by force on
+    the same MC trajectories, to the bit, and so the shaped one-thread form
+    where it takes a shape routed elsewhere; then the general kernel by force, one
     thread a trajectory and in the warp form, on ``forced``, ``(name,
     params, y)`` of the pairs the other kernels take, at MC.  Returns the
     instantiations seen, the largest |diff| of each form (``VF_KERNELS``'
@@ -2114,7 +2179,7 @@ def vf_general_checks(torch, np, dev, forced):
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     seen, data = set(), {}
     err = dict.fromkeys(("vector_filter_general", "vector_filter_general_lanes",
-                         "vector_filter_general_warp"), 0.0)
+                         "vector_filter_general_warp", "vector_filter_general_shaped"), 0.0)
     for name, dyn_rule, obs_rule in VF_GENERAL_CASES:
         dyn, obs = systems[name]
         if name not in data:
@@ -2148,7 +2213,8 @@ def vf_general_checks(torch, np, dev, forced):
         torch.cuda.synchronize()
         if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
             fail(f"{kernel} kernel, {what}: a second launch differs from the first")
-        for other in ((0,) if lanes else ()):
+        for other in (g for g in (0, vf._SHAPED) if g != lanes and (
+                g == 0 or vf._shaped_takes(params))):
             launch = vf_raw(torch, vf, params, data[name], dev, "vector_filter_general", other)
             if launch() != 0:
                 fail(f"{what}: the general kernel's launch by force on {other} lanes failed")
@@ -2397,11 +2463,14 @@ def form_ptxas(vf, params, kernel, lanes, logs):
     """``(registers, stack frame, spill stores, entry)`` that ptxas reported
     for the instantiation of the general (``logs``: the vector filter
     library's compiler output) or registered kernel (the registered
-    library's) that runs ``params`` in the lane-group form (``lanes``
-    nonzero) or one thread a trajectory."""
+    library's) that runs ``params`` in the form of ``lanes`` (the shaped
+    one-thread, lane-group or warp form; 0 the general one-thread form)."""
     D, E = params.dim_state, params.dim_out
     if kernel == "vector_filter_registered":
         fn = f"VfrPair{vf._registered(params, False, lanes)[1]}E"
+    elif lanes == vf._SHAPED:
+        fn = (f"vector_filter_general_shaped_kernelILi{D}ELi{E}ELi{params.dyn.n}ELi0ELi0E6VgsZoo"
+              f"ILi{D}ELi{E}ELi{params.dyn_model}ELi{params.obs_model}E")
     elif lanes:
         fn = f"vector_filter_lanes_kernelILi{D}ELi{lanes}E"
     else:
@@ -2415,14 +2484,18 @@ LANE_TURN_REPS = 5
 
 
 def lane_turns(torch, vf, params, ys, dev, kernel, logs, plain, what):
-    """The general or registered kernel's two forms on one lane ``ys``: the
-    lane-group or warp form (the route) and the one-thread form, each
-    launched by force, its streams on the first trajectories equal to
-    ``plain`` (the plain version's) to the bit, then raw launches in turns
-    (lanes, one thread, one thread, lanes), each with its ptxas counts and,
-    for the route, the warps an SM holds (``vf._form_fit``) beside the warps
-    the lane gives an SM at all.  Logs one line a form."""
-    order = (vf.lanes_of(params), 0)
+    """The general or registered kernel's forms on one lane ``ys``: the
+    route (the shaped one-thread, lane-group or warp form), the general
+    one-thread form and, where the shaped form takes a shape of 3 or 4
+    outputs, the lane-group form, each launched by force, its streams on
+    the first trajectories equal to ``plain`` (the plain version's) to the
+    bit, then raw launches in turns (the forms, then the same in reverse),
+    each with its ptxas counts and, for the lane-group and warp forms, the
+    warps an SM holds (``vf._form_fit``) beside the warps the lane gives an
+    SM at all.  Logs one line a form and returns the route's raw times."""
+    route = vf.lanes_of(params)
+    order = (route, 0) + tuple(g for g in (vf._SHAPED, vf._LANES) if g != route and (
+        3 <= params.dim_out <= 4 and vf._shaped_takes(params)))
     runs = {g: vf_raw(torch, vf, params, ys, dev, kernel, g) for g in order}
     head = plain[0].shape[-1]
     for g, run in runs.items():
@@ -2439,17 +2512,18 @@ def lane_turns(torch, vf, params, ys, dev, kernel, logs, plain, what):
         turns.setdefault(g, []).append(raw_ms(torch, runs[g], reps=LANE_TURN_REPS))
     for g, ms in turns.items():
         regs, frame, spill, fn = form_ptxas(vf, params, kernel, g, logs)
-        form, occupancy = "one-thread form", ""
-        if g:
+        form, occupancy = {0: "general one-thread form", vf._SHAPED: "shaped one-thread form",
+                           vf._WARP: "warp form"}.get(g, f"lane-group form on {g} lanes"), ""
+        if g in (vf._LANES, vf._WARP):
             _, _, size, warps = vf._form_fit(params, g)
-            form = ("warp form (routed)" if g == vf._WARP else
-                    f"lane-group form on {g} lanes (routed)")
             occupancy = (f"; {warps} warps an SM resident, {ys.shape[0] * g / 32 / 132:.1f} "
                          f"warps an SM in the lane; {size * 8} bytes of shared memory a "
                          "trajectory")
-        log(f"  {what}: {form}: raw launches " + " / ".join(f"{t:.4f}" for t in ms)
+        log(f"  {what}: {form}{' (routed)' if g == route else ''}: raw launches "
+            + " / ".join(f"{t:.4f}" for t in ms)
             + f" ms in turns; == plain to the bit on {head} trajectories; {regs} registers, "
             f"{frame} bytes stack frame, {spill} bytes spilled ({fn}){occupancy}")
+    return turns[route]
 
 
 def finite_rmse(torch, x_true, m):
@@ -2463,10 +2537,12 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     """Phase 27, "dd pairs": the configurations that only the general forms
     take, at full width on the card.  The vector lanes (the general vector
     filter kernel): CT + radar under UKF and CKF, CT with 2, 3, 5 and 8
-    bearings under CKF and with 8 under GH-3 (``general_systems``), 10,000
-    trajectories x 100 steps simulated from the seed; the CKF lanes of more
-    than 4 bearings run in its lane-group form, the GH-3 lane in its warp
-    form.  The UNGM lanes (the scalar filter kernel's general
+    bearings under CKF and with 8 under GH-3, and CT + radar under the UKF
+    beside the CKF (``general_systems``), 10,000 trajectories x 100 steps
+    simulated from the seed; the UKF and CKF lanes of up to 3 bearings run
+    in its shaped one-thread form (``lanes_of``), the CKF lanes of more
+    than 4 bearings in its lane-group form, the GH-3 lane in its warp form,
+    the mixed counts in its general one-thread form.  The UNGM lanes (the scalar filter kernel's general
     form): GH-9, GH-15 and GPQ on GH-15 points (``UNGM_GPQ_PAR``) in its
     slot design, GH-17 one thread a trajectory, on phase 4's data, 10,000 x
     500.  Each lane once
@@ -2477,14 +2553,15 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     (UNGM), at most 1% of the runs not finite; filter and smoother RMSE; raw
     launches behind ``_sleep``, the wrapper's and the plain version's time,
     the bound (``vf_bound`` / ``sf_bound``) and, for the vector lanes, the
-    chain floor; on the lanes of more than 4 bearings both forms of the
-    general kernel to the bit and in turns (``lane_turns``).  Then the general form's range
+    chain floor; on every lane that leaves the general one-thread form, its
+    route and that form (and at 3 bearings the lane-group form and the
+    shaped form) to the bit and in turns (``lane_turns``).  Then the general form's range
     and sine measurements of the UNGM state against the plain version to the
     bit at B = 1, 7, 4,097 and 10,000, in the slot design.  ``built``: the
     libraries' build times.  ``bench``: ``(dynamics, measurement, ys)`` of the reentry bench
     lane: its UKF, on which the general kernel by force, the first version by
     force and the shaped kernel are timed in turns (raw launches).  Returns the entries of ``vector_filter_general`` and
-    ``vector_filter_general_lanes`` for the ``kernels`` line, the scalar
+    its lane-group, warp and shaped forms for the ``kernels`` line, the scalar
     general form's launches and its largest |diff| against the plain
     version, the ``kernels`` entry of the scalar slot design (its launches
     on the path, the GH-9 lane's times and bound) and that of the general
@@ -2501,12 +2578,12 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     data = {}
     vec_lanes = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"),
                  ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 8 bearings", "CKF"),
-                 ("CT + 8 bearings", "GH-3")]
+                 ("CT + 8 bearings", "GH-3"), ("CT + radar", "UKF/CKF")]
     for name in dict.fromkeys(n for n, _ in vec_lanes):
         dyn, obs = systems[name]
         x = dyn.simulate_discrete(gen, steps=ZOO_STEPS, mc_sims=MC)
         data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
-    algs = {(n, r): general_filter(stt, np, *systems[n], r, r) for n, r in vec_lanes}
+    algs = {(n, r): general_filter(stt, np, *systems[n], r) for n, r in vec_lanes}
     par = np.array(UNGM_GPQ_PAR)
     for rule, alg in (("GH-9", stt.GaussHermiteKalman(dyn_u, obs_u, deg=9)),
                       ("GH-15", stt.GaussHermiteKalman(dyn_u, obs_u, deg=15)),
@@ -2533,9 +2610,10 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     if (vf_launches != want or sf_launches != (4, 4, 3)
             or not all(vf_launches[k] for k in ("vector_filter_general",
                                                 "vector_filter_general_lanes",
-                                                "vector_filter_general_warp"))):
+                                                "vector_filter_general_warp",
+                                                "vector_filter_general_shaped"))):
         fail(f"dd pairs path: vector filter launches {vf_launches}, scalar filter launches "
-             f"(all, general form, slot design) {sf_launches}; expected {want}, the three "
+             f"(all, general form, slot design) {sf_launches}; expected {want}, the four "
              "forms of the general kernel, and 4 of the scalar general form, 3 in its slot "
              "design, nothing else")
     log(f"dd pairs path: vector filter launches {vf_launches}; scalar filter launches "
@@ -2544,7 +2622,8 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
 
     # ---- each lane: plain version, eager lane, scores, times -----------------------
     err = {"vector_filter_general": 0.0, "vector_filter_general_lanes": 0.0,
-           "vector_filter_general_warp": 0.0, "scalar_filter": 0.0}
+           "vector_filter_general_warp": 0.0, "vector_filter_general_shaped": 0.0,
+           "scalar_filter": 0.0}
     lat, mhz = sf.dependent_latencies(dev), float(clocks_line().split()[0])
     entries, slot_entry, wide_entry = {}, None, None
     for (name, rule), alg in algs.items():
@@ -2579,7 +2658,7 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
                                       ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")))
             err[kernel] = max(err[kernel], vf_against_plain(
                 torch, head, plain, f"dd pairs {name} {rule}, first {head_b} trajectories"))
-            if ys.shape[1] > 4:
+            if vf.lanes_of(params):
                 lane_turns(torch, vf, params, ys, dev, "vector_filter_general",
                            _build.BUILD_LOGS.get("vector_filter", ""),
                            tuple(t[..., :DD_PLAIN_B] for t in plain), f"dd pairs {name} {rule}")
@@ -2627,8 +2706,9 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
             f"{k_ms[1]:.4f}); plain version {p_ms:.1f} ms on {head_b} trajectories; bound "
             f"{b_ms:.4f} ms ({b_by}){floor}")
         if not scalar and kernel not in entries:
-            # the kernel's first lane: CT + radar UKF, CT + 5 bearings in the lane-group form
-            # and CT + 8 bearings under GH-3 in the warp form
+            # the kernel's first lane: CT + radar UKF in the shaped form, CT + 5 bearings in
+            # the lane-group form, CT + 8 bearings under GH-3 in the warp form and CT + radar
+            # UKF/CKF in the general one-thread form
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -2698,7 +2778,8 @@ def registry_systems(np, dev):
       ``u_t = 0.5 sin(0.1 t)`` a per-step stream, with the two outputs
       ``[b^2 + 0.5 a, sin(a) + 0.2 b]`` of the components (b, a) its
       ``state_index`` (1, 0) picks (``register_dyn_dd_vec`` /
-      ``register_obs_dd_vec``);
+      ``register_obs_dd_vec``); ``driven pendulum + radar``, the same
+      transition with the table's radar;
     - ``chain 8-D + radar``: four coupled pendulums (8 states) with the
       table's radar of components 0 and 2;
     - ``pendulum copy + radar``: a subclass of ``Pendulum2DTransition``
@@ -2853,6 +2934,9 @@ def registry_systems(np, dev):
                                                  rv(2, None, 1e-3 * np.eye(2))),
                                   Mix2(rv(2, None, 0.05 * np.eye(2)), dim_state=2,
                                        state_index=[1, 0])),
+        "driven pendulum + radar": (DrivenPendulum(rv(2, np.array([1.0, 0.0]), 0.1 * np.eye(2)),
+                                                   rv(2, None, 1e-3 * np.eye(2))),
+                                    radar(2, [-2.0, -2.0])),
         "chain 8-D + radar": (Chain8D(rv(8, np.tile([0.5, 0.0], 4), 0.05 * np.eye(8)),
                                       rv(8, None, 1e-4 * np.eye(8))), radar(8, [-3.0, -3.0])),
         "pendulum copy + radar": (pend(PendulumCopy), radar(2, [-2.0, -2.0])),
@@ -2870,6 +2954,7 @@ def registry_systems(np, dev):
 #: held against its plain version on all of its trajectories
 REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
              ("driven pendulum + mix", "UKF", "vector_filter_registered", REG_STEPS),
+             ("driven pendulum + radar", "GH-3", "vector_filter_registered", REG_STEPS),
              ("chain 8-D + radar", "CKF", "vector_filter_registered", REG_STEPS),
              ("pendulum copy + radar", "UKF", "vector_filter_registered", REG_STEPS),
              ("CT + 9 bearings", "CKF", "vector_filter_general", REG_STEPS),
@@ -2890,9 +2975,11 @@ def registry_slice(torch, np, dev):
     1-D lane).  First the libraries of the registered forms are built, the
     vector lanes' and the scalar lane's at once (their build times and each
     instantiation's ptxas registers and spills printed).  Then every lane
-    once through ``engine="dd"`` with the counts set to 0: four launches of
-    the registered vector kernel (the chain's in its lane-group form, the
-    radar copy's under GH-3 in its warp form), two of the general kernel
+    once through ``engine="dd"`` with the counts set to 0: five launches of
+    the registered vector kernel (the driven pendulum's and the pendulum
+    copy's under the UKF in its shaped one-thread form, the driven pendulum
+    with the radar under GH-3 in its general one-thread form, the chain's in
+    its lane-group form, the radar copy's under GH-3 in its warp form), two of the general kernel
     (its lane-group form), one of the scalar kernel's registered form,
     nothing else.  Each lane: every stream
     of its first ``DD_PLAIN_B`` trajectories (all on the 2-D lane) equal to
@@ -2904,14 +2991,16 @@ def registry_slice(torch, np, dev):
     the radar copy's the table radar's in the general kernel's warp form; each
     pair is timed in turns (raw launches).  The 8-D chain and CT with 9
     and 16 bearings run in the lane-group form, the radar copy in the warp
-    form; on them both forms of their kernel (that form and the one-thread
-    form) are held to the plain version and timed in turns (``lane_turns``;
-    the registered library is built with the two forms of each).  Then the
+    form, the driven pendulum and the pendulum copy under the UKF in the
+    shaped form; on them both forms of their kernel (that form and the
+    general one-thread form) are held to the plain version and timed in turns
+    (``lane_turns``; the registered library is built with the two forms of
+    each).  Then the
     registered 1-D lane above 16 points (``registered_wide``: the growth
     model under GH-17, one thread a trajectory, built into the same library
     as the growth lane).  Returns the entries of ``vector_filter_registered``,
-    ``vector_filter_registered_lanes`` and
-    ``vector_filter_registered_warp`` for the ``kernels`` line, the scalar
+    ``vector_filter_registered_lanes``, ``vector_filter_registered_warp``
+    and ``vector_filter_registered_shaped`` for the ``kernels`` line, the scalar
     kernel's launches and largest |diff| on this phase, and the launches and
     largest |diff| of the general kernel's forms, by ``VF_KERNELS`` name,
     and the ``kernels`` entries of the scalar registered form's slot design
@@ -2980,13 +3069,13 @@ def registry_slice(torch, np, dev):
     for name, _, kernel, _ in REG_LANES:
         if kernel != "scalar_filter":
             want[vf_kernel(vf, params[name])] += 1
+    registered = ("vector_filter_registered", "vector_filter_registered_lanes",
+                  "vector_filter_registered_warp", "vector_filter_registered_shaped")
     if (vf_launches != want or sf_launches != (1, 0, 1, 1)
-            or sum(want[k] for k in ("vector_filter_registered", "vector_filter_registered_lanes",
-                                     "vector_filter_registered_warp")) != 4
-            or not want["vector_filter_registered_warp"]):
+            or sum(want[k] for k in registered) != 5 or not all(want[k] for k in registered)):
         fail(f"registry path: vector filter launches {vf_launches}, scalar filter launches (all, "
-             f"general, registered, slot design) {sf_launches}; expected {want} (four of the "
-             "registered kernel, one in its warp form) and (1, 0, 1, 1)")
+             f"general, registered, slot design) {sf_launches}; expected {want} (five of the "
+             "registered kernel, in each of its four forms) and (1, 0, 1, 1)")
     log(f"registry path: vector filter launches {vf_launches}; scalar filter launches "
         f"{sf_launches[0]}, of the registered form in its slot design "
         f"{sf.geometry(params['growth'])}")
@@ -3061,7 +3150,8 @@ def registry_slice(torch, np, dev):
             slot_entry = {"launches": sf_launches[3], "ms": k_ms[0], "plain_ms": p_ms,
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         if family == "vector_filter_registered" and kernel not in entries:
-            # the kernel's first lane: the driven pendulum, and the chain in the lane-group form
+            # the first lane of each form: the driven pendulum + mix (shaped), the driven
+            # pendulum + radar GH-3 (one thread), the chain (lane-group) and the radar copy (warp)
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -3093,7 +3183,8 @@ def registry_slice(torch, np, dev):
     slot_entry["max_abs_err"] = err["scalar_filter"]
     log(f"registry phase: {time.perf_counter() - t28:.1f} s; card: {card_line()}")
     general = {k: (vf_launches[k], err[k])
-               for k in ("vector_filter_general", "vector_filter_general_lanes")}
+               for k in ("vector_filter_general", "vector_filter_general_lanes",
+                         "vector_filter_general_shaped")}
     return entries, sf_launches[2], err["scalar_filter"], general, slot_entry, wide_entry
 
 
@@ -3166,7 +3257,7 @@ def registry_alone():
     with ThreadPoolExecutor(2) as pool:
         for job in [pool.submit(lib.build) for lib in (sf, vf)]:
             job.result()
-    log(f"built scalar_filter.cu and the four vector filter sources in "
+    log(f"built scalar_filter.cu and the five vector filter sources in "
         f"{time.perf_counter() - t0:.1f} s")
     entries, sf_reg, sf_err, general, _, _ = registry_slice(torch, np, dev)
     log(f"registry_alone: registered entries {json.dumps(entries)}; scalar registered launches "
@@ -5227,7 +5318,7 @@ def dd_pairs_alone():
         took = {lib.__name__.split(".")[-1]: pool.submit(
             lambda m: (m.build(), time.perf_counter() - t0)[1], lib) for lib in (sf, vf)}
         took = {name: f.result() for name, f in took.items()}
-    log(f"built scalar_filter.cu and the four vector filter sources in "
+    log(f"built scalar_filter.cu and the five vector filter sources in "
         f"{time.perf_counter() - t0:.1f} s ({took})")
     for line in _build.BUILD_LOGS.get("vector_filter", "").splitlines():
         if "general" in line or "registers" in line or "spill" in line:
@@ -5302,7 +5393,7 @@ def main():
     log(f"built scalar_filter.cu + scalar_filter_slots.cu, student_mc.cu + student_qrq.cu, "
         f"vandermonde.cu and "
         f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
-        f"vector_filter_general.cu for sm_90a in "
+        f"vector_filter_general.cu + vector_filter_general_shaped.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
         + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):
@@ -5511,8 +5602,7 @@ def main():
         "source": "ssmtoybox_torch/csrc/scalar_filter_registered.cu",
         "replaces": "ssmtoybox_tpu/ops/ddscan_pallas.py:37", **sf_reg_wide}] + student + [
         vdm_entry] + [{
-        "name": k, "route": "cuda",
-        "source": f"ssmtoybox_torch/csrc/{k.removesuffix('_lanes').removesuffix('_warp')}.cu",
+        "name": k, "route": "cuda", "source": vf_source(k),
         "replaces": "ssmtoybox_tpu/ops/ddvec.py:514", **entry} for k, entry in vf_entries.items()]}
     log(f"chip_smoke.py ran {time.perf_counter() - t_start:.0f} s in all")
     print(json.dumps(kernels), flush=True)

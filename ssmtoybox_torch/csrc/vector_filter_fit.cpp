@@ -1,9 +1,11 @@
 // The room the lane-group and warp forms of the general and registered vector
-// filter kernels (vector_filter_lanes.cuh) take for a configuration, reckoned
-// on the host by the header's own functions, so that ops/vector_filter.py
-// (lanes_of, kernel_of) routes a shape to a form only where its launcher
-// takes it.  Built with g++: it instantiates no step, so it builds in a second
-// or two.
+// filter kernels (vector_filter_lanes.cuh) take for a configuration, and
+// whether the general kernel's shaped one-thread form has an instantiation of
+// it (vector_filter_general_shaped.cuh), reckoned on the host by the headers'
+// own functions, so that ops/vector_filter.py (lanes_of, kernel_of) routes a
+// shape to a form only where its launcher takes it.  Built with g++: it
+// instantiates no step, so it builds in a second or two.
+#include "vector_filter_general_shaped.cuh"
 #include "vector_filter_lanes.cuh"
 
 // vfl_fit on `lanes` lanes (VFL_G, or VFL_WARP: the warp form) into out: the
@@ -17,3 +19,8 @@ extern "C" void vfl_fit_on(const VfParams* params, int lanes, int* out) {
   out[2] = fit.size;
   out[3] = fit.warps;
 }
+
+// vgs_takes: 1 if the general kernel's shaped form has an instantiation of
+// the configuration (a pair of VGS_PAIRS, both rules classical at N = 2 D + 1
+// or 2 D), else 0.
+extern "C" int vgs_takes_on(const VfParams* params) { return vgs_takes(*params) ? 1 : 0; }

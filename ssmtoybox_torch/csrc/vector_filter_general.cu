@@ -20,7 +20,10 @@
 //
 // Design (the steps in vector_filter_general.cuh and vector_filter_lanes.cuh):
 // - one thread a trajectory up to 4 measurement outputs, and for the shapes
-//   the lane-group form does not take; D (2-5) and EB, a
+//   the lane-group form does not take; where both rules are classical at one
+//   UT or CKF count on a pair of VGS_PAIRS, the shaped one-thread form of
+//   vector_filter_general_shaped.cu (built into the same library) runs it
+//   instead; here D (2-5) and EB, a
 //   bound on the measurement dimension E (2, 4, 8, or 0 for the wide form of
 //   any E), are template arguments, 16 instantiations in all; the transition
 //   among those of its D, the measurement, E, both rule kinds and point

@@ -19,6 +19,11 @@
 // 8; its constants are read from device memory (VfgParams::dyn_c, obs_c), a
 // transition's per-step stream values through s.
 //
+// The shaped one-thread form (vector_filter_general_shaped.cuh) takes the
+// shapes of at most 4 outputs whose rules have the UT or CKF point count on
+// the pairs it instantiates, and every such registered configuration
+// (ops/vector_filter.py, lanes_of); this step runs the rest.
+//
 // Shape.  D is a template argument, and so is EB, a bound on E (2, 4 or 8;
 // 0 for the wide form); everything else is read at run time and is the same
 // in every thread of a launch, so no branch diverges: the models among those

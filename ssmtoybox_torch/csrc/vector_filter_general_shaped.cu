@@ -1,0 +1,64 @@
+// The shaped one-thread form of the general vector filter kernel for Hopper
+// (sm_90a), native float64: the table's pairs of VGS_PAIRS (the coordinated
+// turn with the radar or 2-3 bearings, the pendulum, the falling body,
+// constant velocity and reentry with the general kernel's other
+// measurements), up to 4 measurement outputs, under classical rules at the
+// UT and CKF point counts (N = 2 D + 1 or 2 D on both transforms); 24
+// instantiations.  The general kernel's other shapes run in
+// vector_filter_general.cu, built into the same library; the registered
+// kernel instantiates the same step on its generated policies
+// (vector_filter_registered.cu).
+//
+// Replaces, with the other vector filter kernels, the JAX package's
+// ssmtoybox_tpu/ops/ddvec.py:514 dd_filter_batch (jnp double-double, no
+// Pallas kernel), at these shapes.
+//
+// What bounds it on this card: the dependency chain of a trajectory, not
+// bytes (0.21 ms for 10,000 x 100 at D = 5 at 3.35 TB/s) and not the f64
+// rate: two D x D Cholesky factors, N points through each model, the moment
+// sums, an E x E factor and the gain a step, the square roots, divisions and
+// transcendentals each a sequence of dependent instructions; 10,000
+// trajectories are 313 warps on 528 schedulers.
+//
+// Design (vector_filter_general_shaped.cuh): the shaped kernel's step on the
+// general step's model policies, the shape, the models and both rules'
+// kinds template arguments, the rules, R and the measurement's constants by
+// value in the constant bank, the points' values and offsets kept on chip,
+// no scratch buffer; the point loops of costly models stay loops.
+//
+// Built with --fmad=false (ops/vector_filter.py), as the other vector filter
+// kernels: every operation rounds on its own, as in the plain PyTorch
+// version, so the two agree to the bit.
+#include <cuda_runtime.h>
+
+#include "vector_filter_general_shaped.cuh"
+
+// Launch on `stream` of card `device` without synchronising; the layouts of
+// vfs_launch (vector_filter_shaped.cu), no scratch buffer.  Returns the CUDA
+// error of selecting the device or, after the launch, cudaGetLastError();
+// cudaErrorInvalidValue for a configuration that no instantiation takes
+// (vgs_takes).
+extern "C" int vgs_launch(const VgsParams* params, const double* y, long long y_b,
+                          long long y_e, long long y_k, int B, int n_steps, int device,
+                          double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
+                          void* stream) {
+  if (B <= 0 || n_steps <= 0) return 0;
+  const VgsParams& p = *params;
+  const VfParams& q = p.base;
+  if (!vgs_takes(q)) return static_cast<int>(cudaErrorInvalidValue);
+  // this library links its own CUDA runtime, whose current device is not
+  // PyTorch's: select the tensors' card explicitly
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const VfgStreams out = {m_fi, P_fi, m_pr, P_pr, xx};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define VGS_LAUNCH_IF(D, E, DYN, OBS, N)                                                   \
+  if (q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D && q.dim_out == E &&    \
+      q.dyn.n == N)                                                                        \
+    return vgs_launch_as<D, E, N, 0, 0, VgsZoo<D, E, DYN, OBS>>(p, y, y_b, y_e, y_k,       \
+                                                                nullptr, 0, B, n_steps,    \
+                                                                out, st);
+  VGS_SHAPES(VGS_LAUNCH_IF)
+#undef VGS_LAUNCH_IF
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,194 @@
+// The shaped one-thread form of the general and registered vector filter
+// kernels (vector_filter_general_shaped.cu, vector_filter_registered.cu): one
+// trajectory a thread, up to 4 measurement outputs on states of 2-5
+// dimensions, both rules at the UT or CKF point count of the state (N = 2 D +
+// 1 or 2 D), in native float64.
+//
+// Shared by the CUDA kernels and the host shims (vector_filter_general_shaped_host.cpp,
+// and vector_filter_host.cpp built for a registered library), which g++
+// builds, so that the CPU tests hold this exact code against the plain
+// PyTorch version in ssmtoybox_torch/ops/vector_filter.py.  Every sum runs in
+// the plain version's order, from 0.0 upwards.
+//
+// What held the general one-thread form (vfg_step, vector_filter_general.cuh)
+// back at these shapes: its point loops ran N read at run time, the rules'
+// points and weights came through pointers into device memory, each point's
+// offset was computed twice, every function value went out to a scratch
+// buffer in device memory and came back for the covariance sums, R and the
+// measurement's constants came from device memory, E was padded to a bound
+// (2, 4 or 8) with every loop over outputs predicated, and every measurement
+// of the table sat behind a run-time switch.  This form is the shaped
+// kernel's step (vfs_step_with, vector_filter_shaped.cuh) on the general
+// step's model policies:
+// - D, E, N and both rules' kinds (classical, BQ) are template arguments, and
+//   so are the models: the table's pair by its ids (VgsZoo), or a registered
+//   configuration's policy generated by ops/vector_filter.py;
+// - both rules travel by value in the parameters (VgsParams), in the constant
+//   bank, and so do R, the table measurement's constants (in base) and a
+//   registered form's constants (dyn_c, obs_c): every thread reads the same
+//   address, nothing waits on device memory but the measurements, a
+//   registered transition's per-step stream values and the outputs;
+// - each point's value and offset are computed once and kept on chip: in
+//   registers where the point loops unroll, in the thread's local memory (L1)
+//   where they stay loops; no scratch buffer.
+//
+// Unrolled or not.  The shaped header records the instruction-cache finding
+// (vector_filter_shaped.cuh): the coordinated turn and the bearings' atan2
+// unrolled to 13,900-15,200 instructions and lost.  Here a policy states the
+// cost of one evaluation of each model, its transcendental calls and
+// divisions (dyn_cost, obs_cost), and a transform's point loops stay loops
+// where cost x N passes VGS_UNROLL_BUDGET (vgs_roll): the coordinated turn
+// (4 x 10-11), reentry (5 x 10-11) and 3 or 4 bearings at 10-11 points stay
+// loops; the radar (2 x 11) and 1-2 bearings unroll, as the shaped kernel's
+// radar does.  A build may set the budget (tools/lane_variants.py times the
+// variants).
+#pragma once
+
+#include "vector_filter_general.cuh"
+#include "vector_filter_shaped.cuh"
+
+// Largest number of a registered form's constants the parameters hold by
+// value; a form with more keeps the general one-thread form.
+#define VGS_MAX_C 32
+
+// cost x N above which a transform's point loops stay loops (vgs_roll).
+#ifndef VGS_UNROLL_BUDGET
+#define VGS_UNROLL_BUDGET 24
+#endif
+
+// The parameters of the shaped one-thread form, by value: the vector
+// kernels' (models, initial moments, G Q G^T, R rows VF_MAX_DIM apart, a
+// table measurement's constants and state components; of its rule fields
+// only the kinds and point counts, which the launchers check), both rules of
+// either kind (VfsBqRule), and a registered transition's and measurement's
+// constants.  6,480 bytes.
+struct VgsParams {
+  VfParams base;
+  VfsBqRule dyn;
+  VfsBqRule obs;
+  double dyn_c[VGS_MAX_C];
+  double obs_c[VGS_MAX_C];
+};
+static_assert(sizeof(VgsParams) == 6480, "the layout the ctypes mirror (ops/vector_filter.py) expects");
+static_assert(sizeof(VgsParams) + 128 <= 32764,
+              "a kernel's parameters take at most 32,764 bytes (CUDA 12.1 and later)");
+
+// Whether a transform of N points through a model of this cost keeps its
+// point loops as loops.
+VF_HD constexpr bool vgs_roll(int cost, int N) { return cost * N > VGS_UNROLL_BUDGET; }
+
+// The transcendental calls and divisions of one evaluation of a table model.
+VF_HD constexpr int vgs_dyn_cost(int dyn) {
+  return dyn == VF_DYN_REENTRY ? 5 : dyn == VF_DYN_CT ? 4 : dyn == VF_DYN_CV ? 0 : 1;
+}
+VF_HD constexpr int vgs_obs_cost(int obs, int E) {
+  return obs == VF_OBS_RADAR ? 2 : obs == VF_OBS_BEARING ? E : obs == VF_OBS_UNGM ? 0 : 1;
+}
+
+// The table measurement OBS of E outputs, its constants and state components
+// by value in the parameters' base.
+template <int D, int OBS, int E>
+struct VgsObsFn {
+  const VfParams& p;
+  template <class H>
+  VF_HD void operator()(const double (&x)[D], H&& h) const {
+    if constexpr (OBS == VF_OBS_BEARING) {
+      vf_bearings<E>(p.obs_c, p.obs_idx, x, E, h);
+    } else {
+      static_assert(VfObs<OBS>::E == E, "model dimensions");
+      VfObs<OBS>::template eval<D>(p.obs_c, p.obs_idx, x, h);
+    }
+  }
+};
+
+// The model policy of a pair of the table's models: the functors, and the
+// cost of an evaluation of each.
+template <int D, int E, int DYN, int OBS>
+struct VgsZoo {
+  static_assert(VfDyn<DYN>::D == D, "model dimensions");
+  static constexpr int dyn_cost = vgs_dyn_cost(DYN), obs_cost = vgs_obs_cost(OBS, E);
+  VF_HD static VfDynFn<D, DYN> dyn(const VgsParams& p, const double*) { return {p.base}; }
+  VF_HD static VgsObsFn<D, OBS, E> obs(const VgsParams& p) { return {p.base}; }
+};
+
+// A whole record of one trajectory in this form (vfs_record_as's layouts),
+// the models of Model, the transforms' loops rolled as vgs_roll says.
+template <int D, int E, int N, int KD, int KO, class Model>
+VF_HD void vgs_record(const VgsParams& p, const double* y, long long y_e, long long y_k, int T,
+                      const double* s, int n_s, double* m_fi, double* P_fi, double* m_pr,
+                      double* P_pr, double* xx, long long cs) {
+  static_assert(D >= 2 && D <= VFS_MAX_DIM && E >= 1 && E <= 4, "the form's shapes");
+  static_assert(N == 2 * D || N == 2 * D + 1, "the UT and CKF point counts");
+  vfs_record_as<D, E, N, KD, KO, vgs_roll(Model::dyn_cost, N), vgs_roll(Model::obs_cost, N),
+                Model>(p, y, y_e, y_k, T, s, n_s, m_fi, P_fi, m_pr, P_pr, xx, cs);
+}
+
+// The table's pairs the general kernel runs in this form, (D, E, dynamics,
+// measurement): the general kernel's pairs of up to 4 outputs that
+// chip_smoke.py drives (phases 15 and 27), each given to X with F.  Every
+// other pair keeps the general one-thread form.
+#define VGS_PAIRS(X, F)                                                                       \
+  X(F, 5, 2, VF_DYN_CT, VF_OBS_RADAR) X(F, 5, 2, VF_DYN_CT, VF_OBS_BEARING)                   \
+  X(F, 5, 3, VF_DYN_CT, VF_OBS_BEARING) X(F, 2, 2, VF_DYN_PENDULUM, VF_OBS_RADAR)             \
+  X(F, 2, 1, VF_DYN_PENDULUM, VF_OBS_UNGM) X(F, 2, 3, VF_DYN_PENDULUM, VF_OBS_BEARING)        \
+  X(F, 3, 1, VF_DYN_REENTRY1D, VF_OBS_PENDULUM_SIN) X(F, 3, 4, VF_DYN_REENTRY1D, VF_OBS_BEARING) \
+  X(F, 4, 2, VF_DYN_CV, VF_OBS_BEARING) X(F, 4, 3, VF_DYN_CV, VF_OBS_BEARING)                 \
+  X(F, 5, 1, VF_DYN_REENTRY, VF_OBS_RANGE) X(F, 5, 1, VF_DYN_REENTRY, VF_OBS_UNGM)
+
+// The instantiations of the general kernel's shaped form: both classical
+// point counts of each pair, F(D, E, DYN, OBS, N): 24.  GPQ, BSQ and mixed
+// kinds of the table's pairs keep the general one-thread form; a registered
+// configuration is instantiated with the kinds it has.
+#define VGS_SHAPES(F) VGS_PAIRS(VFS_SHAPES_OF, F)
+
+// Whether the general kernel's shaped form has an instantiation of q: a pair
+// of VGS_PAIRS at its D and E, both rules classical with N = 2 D + 1 or 2 D
+// points.
+inline bool vgs_takes(const VfParams& q) {
+  if (q.dyn.kind != 0 || q.obs.kind != 0 || q.dyn.n != q.obs.n) return false;
+  bool found = false;
+#define VGS_TAKES_IF(D, E, DYN, OBS, N)                                                 \
+  found = found || (q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D &&     \
+                    q.dim_out == E && q.dyn.n == N);
+  VGS_SHAPES(VGS_TAKES_IF)
+#undef VGS_TAKES_IF
+  return found;
+}
+
+#ifdef __CUDACC__
+// Threads a block: 32, one warp.  10,000 trajectories are then 313 blocks,
+// 2 or 3 warps an SM, where 64 threads a block left 25 SMs 4 warps and the
+// rest 2: 1-3% faster on the 5-D lanes, level on the 2-D ones (raw launches
+// in turns, PERF.md section 6).  A build may set VGS_THREADS
+// (tools/lane_variants.py times 64 and 128).
+#ifndef VGS_THREADS
+#define VGS_THREADS 32
+#endif
+constexpr int kVgsThreads = VGS_THREADS;
+
+// The shaped one-thread kernel: one thread a trajectory, the models of Model.
+template <int D, int E, int N, int KD, int KO, class Model>
+__global__ void __launch_bounds__(kVgsThreads)
+vector_filter_general_shaped_kernel(const __grid_constant__ VgsParams p,
+                                    const double* __restrict__ y, long long y_b, long long y_e,
+                                    long long y_k, const double* __restrict__ s, int n_s, int B,
+                                    int n_steps, const VfgStreams out) {
+  const long long b = static_cast<long long>(blockIdx.x) * kVgsThreads + threadIdx.x;
+  if (b >= B) return;
+  vgs_record<D, E, N, KD, KO, Model>(p, y + b * y_b, y_e, y_k, n_steps, s, n_s, out.m_fi + b,
+                                     out.P_fi + b, out.m_pr + b, out.P_pr + b, out.xx + b, B);
+}
+
+// Launch the instantiation (D, E, N, KD, KO, Model) on `stream` without
+// synchronising; cudaGetLastError() after the launch.
+template <int D, int E, int N, int KD, int KO, class Model>
+int vgs_launch_as(const VgsParams& p, const double* y, long long y_b, long long y_e,
+                  long long y_k, const double* s, int n_s, int B, int n_steps,
+                  const VfgStreams& out, cudaStream_t stream) {
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(B) + kVgsThreads - 1) /
+                                                kVgsThreads);
+  vector_filter_general_shaped_kernel<D, E, N, KD, KO, Model>
+      <<<blocks, kVgsThreads, 0, stream>>>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out);
+  return static_cast<int>(cudaGetLastError());
+}
+#endif

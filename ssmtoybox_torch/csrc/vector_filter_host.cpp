@@ -12,9 +12,11 @@
 // rules another.
 //
 // Built with -DVFR_REGISTERED beside a generated vfr_forms.cuh
-// (ops/vector_filter.py, build_registered), it holds only vfr_host_run, the
-// general step on the registered models, as vector_filter_registered.cu
-// launches it.
+// (ops/vector_filter.py, build_registered), it holds only vfr_host_run and
+// vfr_shaped_host_run, the general step's forms on the registered models, as
+// vector_filter_registered.cu launches them.  The general kernel's shaped
+// one-thread form has a host build of its own
+// (vector_filter_general_shaped_host.cpp).
 #include <algorithm>
 #include <limits>
 #include <vector>
@@ -42,6 +44,7 @@ void vfl_host(const VfgParams& p, const double* y, long long y_b, long long y_e,
 }  // namespace
 
 #ifdef VFR_REGISTERED
+#include "vector_filter_general_shaped.cuh"
 #include "vfr_forms.cuh"
 
 namespace {
@@ -84,6 +87,29 @@ extern "C" int vfr_host_run(int pair, const VfgParams* params, const double* y, 
                                      m_pr, P_pr, xx, scratch) ? D : 0;
   VFR_PAIRS(VFR_RUN_IF)
 #undef VFR_RUN_IF
+  return 0;
+}
+
+// Configuration `pair` of VFR_SHAPED in the shaped one-thread form on the
+// trajectories one after another, with vfr_shaped_launch's layouts.  Returns
+// the state dimension of the instantiation that ran, 0 if `pair` does not
+// take the configuration.
+extern "C" int vfr_shaped_host_run(int pair, const VgsParams* params, const double* y,
+                                   long long y_b, long long y_e, long long y_k, const double* s,
+                                   int n_s, int B, int n_steps, double* m_fi, double* P_fi,
+                                   double* m_pr, double* P_pr, double* xx) {
+  const VfParams& q = params->base;
+#define VFR_SHAPED_RUN_IF(I, D, E, MODEL)                                                     \
+  if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::N &&               \
+      q.obs.n == MODEL::N && q.dyn.kind == MODEL::KD && q.obs.kind == MODEL::KO) {            \
+    for (int b = 0; b < B; ++b)                                                               \
+      vgs_record<D, E, MODEL::N, MODEL::KD, MODEL::KO, MODEL>(                                \
+          *params, y + b * y_b, y_e, y_k, n_steps, s, n_s, m_fi + b, P_fi + b, m_pr + b,      \
+          P_pr + b, xx + b, B);                                                               \
+    return D;                                                                                 \
+  }
+  VFR_SHAPED(VFR_SHAPED_RUN_IF)
+#undef VFR_SHAPED_RUN_IF
   return 0;
 }
 

@@ -4,8 +4,10 @@
 // and each transform's kind (classical or BQ) known at compile time.
 //
 // Shared by the CUDA kernels (vector_filter_shaped.cu: both rules classical;
-// vector_filter_shaped_bq.cu: a BQ rule on either transform or both) and the
-// host shim (vector_filter_host.cpp), which g++ builds, so that the CPU tests hold this
+// vector_filter_shaped_bq.cu: a BQ rule on either transform or both; the
+// general and registered kernels' shaped one-thread form,
+// vector_filter_general_shaped.cuh, whose model policies give the functors)
+// and the host shim (vector_filter_host.cpp), which g++ builds, so that the CPU tests hold this
 // exact code against the plain PyTorch version in
 // ssmtoybox_torch/ops/vector_filter.py.  The step is that of
 // vector_filter_step.cuh, whose models, Cholesky factor and parameter struct
@@ -282,20 +284,24 @@ VF_HD void vfs_transform(const VfsBqRule& R, const double (&m)[D], const double 
 // One filter step from the filtered state (m, P) of the previous step (only
 // the lower triangle of P is read), measurement y; writes the five streams
 // through `out` and leaves this step's filtered state in (m, P).  vf_step's
-// arithmetic, with vfs_transform for vf_moments.  KD, KO: the kinds of the
-// dynamics and measurement rules; P: VfsParams (both classical) or
-// VfsBqParams.
-template <int D, int E, int DYN, int OBS, int N, int KD = 0, int KO = 0, class Params>
-VF_HD void vfs_step(const Params& p, double (&m)[D], double (&P)[D][D], const double (&y)[E],
-                    const VfOut& out) {
-  static_assert(VfDyn<DYN>::D == D && VfObs<OBS>::E == E, "model dimensions");
+// arithmetic, with vfs_transform for vf_moments, on the functors dyn and obs
+// (a model policy's, below).  KD, KO: the kinds of the dynamics and
+// measurement rules; RD, RO: whether their transforms' point loops stay
+// loops; P: VfsParams (both classical), VfsBqParams, or the general kernel's
+// VgsParams (vector_filter_general_shaped.cuh), each with the fields base,
+// dyn and obs.
+template <int D, int E, int N, int KD, int KO, bool RD, bool RO, class Params, class Dyn,
+          class Obs>
+VF_HD void vfs_step_with(const Params& p, double (&m)[D], double (&P)[D][D],
+                         const double (&y)[E], const Dyn& dyn, const Obs& obs,
+                         const VfOut& out) {
   static_assert(D <= VFS_MAX_DIM && N <= VFS_MAX_PTS, "rule shape");
   const VfParams& q = p.base;
   double L[D][D], m_pr[D], P_pr[D][D];
   {
     double Pf[D][D], xx[D][D];
     vf_chol(P, L);
-    vfs_transform<KD, D, D, N, vfs_rolled<DYN>>(p.dyn, m, L, VfDynFn<D, DYN>{q}, m_pr, Pf, xx);
+    vfs_transform<KD, D, D, N, RD>(p.dyn, m, L, dyn, m_pr, Pf, xx);
 #pragma unroll
     for (int a = 0; a < D; ++a) {
       out.m_pr[a * out.cs] = m_pr[a];
@@ -309,8 +315,7 @@ VF_HD void vfs_step(const Params& p, double (&m)[D], double (&P)[D][D], const do
   }
   double y_pr[E], S[E][E], C[E][D];
   vf_chol(P_pr, L);
-  vfs_transform<KO, D, E, N, vfs_rolled_obs<OBS>>(p.obs, m_pr, L, VfObsFn<D, OBS>{q}, y_pr, S,
-                                                  C);
+  vfs_transform<KO, D, E, N, RO>(p.obs, m_pr, L, obs, y_pr, S, C);
 #pragma unroll
   for (int a = 0; a < E; ++a) {
 #pragma unroll
@@ -374,11 +379,14 @@ VF_HD void vfs_step(const Params& p, double (&m)[D], double (&P)[D][D], const do
 // A whole record of one trajectory: T steps from the initial moments,
 // measurement e of step k at y[e * y_e + k * y_k], the streams of step k at
 // out_*[k * (components) * cs], components cs apart (vf_record's layout); the
-// measurement of step k + 1 is loaded before the arithmetic of step k.
-template <int D, int E, int DYN, int OBS, int N, int KD = 0, int KO = 0, class Params>
-VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long y_k, int T,
-                      double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
-                      long long cs) {
+// measurement of step k + 1 is loaded before the arithmetic of step k.  The
+// models of the policy Model: Model::dyn(p, s + k * n_s) for step k (a
+// registered transition's n_s stream values of step k at s[k * n_s]) and
+// Model::obs(p).
+template <int D, int E, int N, int KD, int KO, bool RD, bool RO, class Model, class Params>
+VF_HD void vfs_record_as(const Params& p, const double* y, long long y_e, long long y_k, int T,
+                         const double* s, int n_s, double* m_fi, double* P_fi, double* m_pr,
+                         double* P_pr, double* xx, long long cs) {
   double m[D], P[D][D];
 #pragma unroll
   for (int a = 0; a < D; ++a) {
@@ -399,8 +407,35 @@ VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long
     }
     const long long v = static_cast<long long>(k) * D * cs, M = v * D;
     const VfOut out = {m_fi + v, P_fi + M, m_pr + v, P_pr + M, xx + M, cs};
-    vfs_step<D, E, DYN, OBS, N, KD, KO>(p, m, P, yk, out);
+    vfs_step_with<D, E, N, KD, KO, RD, RO>(p, m, P, yk,
+                                           Model::dyn(p, s + static_cast<long long>(k) * n_s),
+                                           Model::obs(p), out);
   }
+}
+
+// The model policy of a pair of the table's models known when compiling:
+// their functors on the parameters' base (their constants by value).
+template <int D, int E, int DYN, int OBS>
+struct VfsZoo {
+  static_assert(VfDyn<DYN>::D == D && VfObs<OBS>::E == E, "model dimensions");
+  template <class Params>
+  VF_HD static VfDynFn<D, DYN> dyn(const Params& p, const double*) {
+    return {p.base};
+  }
+  template <class Params>
+  VF_HD static VfObsFn<D, OBS> obs(const Params& p) {
+    return {p.base};
+  }
+};
+
+// The record of the shaped kernels: the model pair (DYN, OBS) of the table,
+// its loops rolled as vfs_rolled says.
+template <int D, int E, int DYN, int OBS, int N, int KD = 0, int KO = 0, class Params>
+VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long y_k, int T,
+                      double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
+                      long long cs) {
+  vfs_record_as<D, E, N, KD, KO, vfs_rolled<DYN>, vfs_rolled_obs<OBS>, VfsZoo<D, E, DYN, OBS>>(
+      p, y, y_e, y_k, T, nullptr, 0, m_fi, P_fi, m_pr, P_pr, xx, cs);
 }
 
 // The model pairs with a kernel form, (D, E, dynamics, measurement), each

@@ -23,18 +23,24 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   :data:`_WARP_MIN_POINTS` points at other counts), one thread a
   trajectory, N at run time;
 - ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the steps in
-  ``csrc/vector_filter_general.cuh`` and ``csrc/vector_filter_lanes.cuh``):
-  every other pair of the table's models, the models, E, the kinds and N at
-  run time; up to 4 measurement outputs one thread a trajectory (D and a
-  bound on E template arguments), above that the lane-group form (a
-  trajectory on 8 lanes of a warp, its arrays in shared memory; D a
-  template argument); rules of many points (Gauss-Hermite, of those five
-  pairs too) in the warp form (a trajectory on a whole warp, each lane a
-  32nd of the points), :func:`lanes_of`;
+  ``csrc/vector_filter_general.cuh`` and ``csrc/vector_filter_lanes.cuh``;
+  ``csrc/vector_filter_general_shaped.cu``, the step in
+  ``csrc/vector_filter_general_shaped.cuh``): every other pair of the
+  table's models; up to 4 measurement outputs one thread a trajectory, in
+  the shaped form where both rules are classical at one UT or CKF count on a
+  pair it instantiates (D, E, N, the models and the kinds template
+  arguments, the rules by value, no scratch), else in the general one-thread
+  form (the models, E, the kinds and N at run time; D and a bound on E
+  template arguments); above 4 outputs the lane-group form (a trajectory on
+  8 lanes of a warp, its arrays in shared memory; D a template argument);
+  rules of many points (Gauss-Hermite, of those five pairs too) in the warp
+  form (a trajectory on a whole warp, each lane a 32nd of the points),
+  :func:`lanes_of`;
 - ``vector_filter_registered`` (``csrc/vector_filter_registered.cu``): the
   general kernel's forms instantiated on models registered at run time
   (:func:`register_dyn_dd_vec`, :func:`register_obs_dd_vec`, and 1-D
-  measurement forms of ``scalar_filter.register_obs_dd``), the lane-group
+  measurement forms of ``scalar_filter.register_obs_dd``), the shaped
+  one-thread form at the UT and CKF counts of either kind, the lane-group
   form also for states of more than 5 dimensions, built at first use from a
   header generated from their :class:`~.forms.KernelForm` s
   (:func:`build_registered`).
@@ -68,9 +74,10 @@ of the classical shaped kernel also to :data:`SHAPED_LAUNCHES`, one of the
 kernel of the BQ shapes to :data:`BQ_SHAPED_LAUNCHES`, one of the general
 kernel to :data:`GENERAL_LAUNCHES`, one of the registered kernel to
 :data:`REGISTERED_LAUNCHES`; a launch of either in the lane-group form also
-to :data:`GENERAL_LANE_LAUNCHES` or :data:`REGISTERED_LANE_LAUNCHES`, and one
+to :data:`GENERAL_LANE_LAUNCHES` or :data:`REGISTERED_LANE_LAUNCHES`, one
 in the warp form to :data:`GENERAL_WARP_LAUNCHES` or
-:data:`REGISTERED_WARP_LAUNCHES`.
+:data:`REGISTERED_WARP_LAUNCHES`, and one in the shaped one-thread form to
+:data:`GENERAL_SHAPED_LAUNCHES` or :data:`REGISTERED_SHAPED_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
@@ -84,6 +91,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import re
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -102,7 +110,8 @@ from .scalar_filter import _floats, _memo
 
 __all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "GENERAL_LAUNCHES",
            "REGISTERED_LAUNCHES", "GENERAL_LANE_LAUNCHES", "REGISTERED_LANE_LAUNCHES",
-           "GENERAL_WARP_LAUNCHES", "REGISTERED_WARP_LAUNCHES", "VecRule",
+           "GENERAL_WARP_LAUNCHES", "REGISTERED_WARP_LAUNCHES", "GENERAL_SHAPED_LAUNCHES",
+           "REGISTERED_SHAPED_LAUNCHES", "VecRule",
            "VectorFilterParams", "register_dyn_dd_vec", "register_obs_dd_vec", "lower_transform",
            "check", "supports", "prepare", "kernel_of", "lanes_of", "vector_filter", "build",
            "build_registered", "chain_floor_clocks", "TORCH_FNS"]
@@ -125,6 +134,10 @@ REGISTERED_LANE_LAUNCHES = 0
 GENERAL_WARP_LAUNCHES = 0
 #: the registered kernel's launches in the warp form, among its launches
 REGISTERED_WARP_LAUNCHES = 0
+#: the general kernel's launches in the shaped one-thread form, among its launches
+GENERAL_SHAPED_LAUNCHES = 0
+#: the registered kernel's launches in the shaped one-thread form, among its launches
+REGISTERED_SHAPED_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
@@ -178,6 +191,13 @@ _WARP = 32
 #: the fewest points of both rules for which the warp form takes a shape
 #: (:func:`lanes_of`, which gives the evidence)
 _WARP_MIN_POINTS = 243
+#: what :func:`lanes_of` answers for the shaped one-thread form of the general
+#: and registered kernels (``csrc/vector_filter_general_shaped.cuh``): one lane
+#: a trajectory, the shape known when compiling
+_SHAPED = 1
+#: ``VGS_MAX_C``: a registered form's constants the shaped form's parameters
+#: hold by value
+_VGS_MAX_C = 32
 
 
 def register_dyn_dd_vec(model_cls, lower):
@@ -458,6 +478,25 @@ def _warp_takes(params: VectorFilterParams) -> bool:
             and _form_fit(params, _WARP)[3] >= _MIN_LANE_WARPS)
 
 
+def _shaped_takes(params: VectorFilterParams) -> bool:
+    """Whether the shaped one-thread form (``vgs_step`` of
+    ``csrc/vector_filter_general_shaped.cuh``) runs ``params``: at most 4
+    measurement outputs on a state of 2-5 dimensions, both rules with one
+    point count N = 2 D + 1 or 2 D; for the general kernel a pair and rules
+    it instantiates (``vgs_takes`` of the header, via :func:`_fit`: a pair of
+    ``VGS_PAIRS``, both rules classical), for the registered kernel rules of
+    either kind and registered constants that its parameters hold
+    (:data:`_VGS_MAX_C`)."""
+    D, n = params.dim_state, params.dyn.n
+    if not (2 <= D <= _SHAPED_MAX_DIM and params.dim_out <= 4 and params.obs.n == n
+            and n in (2 * D, 2 * D + 1)):
+        return False
+    if _registered_pair(params):
+        return all(len(f.consts) <= _VGS_MAX_C for f in (params.dyn_form, params.obs_form)
+                   if f is not None)
+    return bool(_fit().vgs_takes_on(ctypes.byref(_c_params(params, torch.device("cpu")))))
+
+
 def lanes_of(params: VectorFilterParams) -> int:
     """The lanes a trajectory of the general and registered kernels runs on.
     :data:`_WARP`, the warp form (``vfl_step`` on a whole warp), where both
@@ -468,10 +507,17 @@ def lanes_of(params: VectorFilterParams) -> int:
     22): under GH-3 the warp form took 5.0 ms on the falling body (27
     points) against the first version's 1.6, 11.7 ms on constant velocity
     with the radar (81) against 9.9, and 37.9 ms on CT with 4 bearings
-    (243) against 71.0; so 243 (between 81 and 243 not measured).  Else 0,
-    one thread a trajectory (``vfg_step``), for at most 4 measurement
-    outputs on a state of at most 5 dimensions, and for every shape of the
-    other kernels.  Above that the lane-group form (``vfl_step`` of
+    (243) against 71.0; so 243 (between 81 and 243 not measured).  For at
+    most 4 measurement outputs on a state of at most 5 dimensions, one thread
+    a trajectory: :data:`_SHAPED`, the shaped form (``vgs_record``), where it
+    takes the shape (:func:`_shaped_takes`), else 0, the general one-thread
+    form (``vfg_step``).  The shaped form keeps 3 and 4 outputs too: raw
+    launches at 10,000 x 100 in turns (NVIDIA H100 80GB HBM3 at 700 W,
+    ``tools/lane_variants.py``, PERF.md section 6), CT + 3 bearings
+    CKF 2.13 ms against 2.36 in the lane-group form on 8 lanes and 3.17 in
+    the general one-thread form, the falling body with 4 bearings CKF 1.06
+    against 1.49-1.55.  0 too for every shape of the other kernels.  Above
+    that the lane-group form (``vfl_step`` of
     ``csrc/vector_filter_lanes.cuh``) on :data:`_LANES` lanes where an SM
     holds any warp of it (a warp's trajectories' arrays fit in a block's
     shared memory: not a registered 8-D state under Gauss-Hermite rules,
@@ -484,7 +530,7 @@ def lanes_of(params: VectorFilterParams) -> int:
     if _warp_takes(params):
         return _WARP
     if params.dim_out <= 4 and params.dim_state <= 5:
-        return 0
+        return _SHAPED if _shaped_takes(params) else 0
     warps = _form_fit(params, _LANES)[3]
     return _LANES if warps >= (_MIN_LANE_WARPS if params.dim_out <= 8 else 1) else 0
 
@@ -735,16 +781,18 @@ def _square(vals: tuple, n: int, into):
 @functools.lru_cache(maxsize=64)
 def _c_params(p: VectorFilterParams, device: torch.device) -> _CParams:
     """The kernel's parameter struct for the rules' constants on ``device``,
-    built once for a given ``(p, device)``.  The measurement's constants and
-    R stand in it where they fit (the general kernels read them from device
-    memory, :func:`_c_general`), a table transition's constants always."""
+    built once for a given ``(p, device)``.  A table measurement's constants
+    and R stand in it where they fit (the general kernels' other forms read
+    them from device memory, :func:`_c_general`), a table transition's
+    constants always."""
     D, E = p.dim_state, p.dim_out
     c = _CParams(dyn=_c_rule(p.dyn, D, device), obs=_c_rule(p.obs, D, device),
                  dyn_model=p.dyn_model, obs_model=p.obs_model, dim_state=D, dim_out=E)
     if p.dyn_form is None:
         c.dyn_c[:len(p.dyn_c)] = p.dyn_c
-    if p.obs_form is None and len(p.obs_c) <= _MAX_OBS_C and E <= _MAX_DIM:
+    if p.obs_form is None and len(p.obs_c) <= _MAX_OBS_C:
         c.obs_c[:len(p.obs_c)] = p.obs_c
+    if E <= _MAX_DIM:
         _square(p.r, E, c.r)
     c.obs_idx[:len(p.obs_idx)] = p.obs_idx
     c.m0[:D] = p.m0
@@ -853,15 +901,39 @@ def _c_shaped_bq_params(p: VectorFilterParams, device: torch.device) -> _CShaped
                             obs=_c_shaped_bq_rule(p.obs))
 
 
-def _c_struct(kernel: str, params: VectorFilterParams, device: torch.device):
-    """The parameter struct of ``kernel`` for ``params`` on ``device``;
+class _CGShapedParams(ctypes.Structure):
+    """``VgsParams``: the parameters of the shaped one-thread form."""
+    _fields_ = [("base", _CParams), ("dyn", _CShapedBqRule), ("obs", _CShapedBqRule),
+                ("dyn_c", ctypes.c_double * _VGS_MAX_C), ("obs_c", ctypes.c_double * _VGS_MAX_C)]
+
+
+@functools.lru_cache(maxsize=64)
+def _c_general_shaped(p: VectorFilterParams, device: torch.device) -> _CGShapedParams:
+    """The shaped one-thread form's parameter struct: :func:`_c_params` (R by
+    value) and both rules by value, and a registered form's constants;
+    ``ValueError`` for rules or constants it cannot hold.  Built once for a
+    given ``(p, device)``."""
+    c = _CGShapedParams(base=_c_params(p, device), dyn=_c_shaped_bq_rule(p.dyn),
+                        obs=_c_shaped_bq_rule(p.obs))
+    for form, into in ((p.dyn_form, c.dyn_c), (p.obs_form, c.obs_c)):
+        if form is not None:
+            if len(form.consts) > _VGS_MAX_C:
+                raise ValueError(f"the shaped form holds up to {_VGS_MAX_C} constants of a "
+                                 f"registered form; got {len(form.consts)}")
+            into[:len(form.consts)] = form.consts
+    return c
+
+
+def _c_struct(kernel: str, params: VectorFilterParams, device: torch.device, lanes: int = 0):
+    """The parameter struct of ``kernel`` (in the form of ``lanes``, for the
+    general and registered kernels) for ``params`` on ``device``;
     ``ValueError`` for a rule that the shaped structs cannot hold."""
     if kernel == "vector_filter_shaped":
         return _c_shaped_params(params, device)
     if kernel == "vector_filter_shaped_bq":
         return _c_shaped_bq_params(params, device)
     if kernel in ("vector_filter_general", "vector_filter_registered"):
-        return _c_general(params, device)
+        return (_c_general_shaped if lanes == _SHAPED else _c_general)(params, device)
     return _c_params(params, device)
 
 
@@ -884,16 +956,20 @@ def _bind(lib: ctypes.CDLL):
     lib.vfg_launch.restype = ctypes.c_int
     lib.vfg_launch.argtypes = ([ctypes.POINTER(_CGParams)] + lib.vf_launch.argtypes[1:-1]
                                + [ctypes.c_int, ctypes.c_void_p])
+    lib.vgs_launch.restype = ctypes.c_int
+    lib.vgs_launch.argtypes = ([ctypes.POINTER(_CGShapedParams)] + _STREAMS + [ctypes.c_int]
+                               + [ctypes.c_void_p] * 6)
 
 
 #: the sources of the library: the first-version kernel, the classical shaped
-#: kernel, the kernel of the BQ shapes and the general kernel
+#: kernel, the kernel of the BQ shapes, the general kernel and its shaped
+#: one-thread form
 SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu",
-           "vector_filter_general.cu"]
+           "vector_filter_general.cu", "vector_filter_general_shaped.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile the four sources of :data:`SOURCES` for sm_90a with nvcc
+    """Compile the five sources of :data:`SOURCES` for sm_90a with nvcc
     (once, a compiler each, at once, into one library) and bind it; later
     calls return the bound library."""
     return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
@@ -918,15 +994,32 @@ def _host_shim() -> ctypes.CDLL:
                         host=True)
 
 
+def _bind_general_shaped_host(lib: ctypes.CDLL):
+    lib.vgs_host_run.restype = ctypes.c_int
+    lib.vgs_host_run.argtypes = ([ctypes.POINTER(_CGShapedParams)] + _STREAMS
+                                 + [ctypes.c_void_p] * 5)
+
+
+def _general_shaped_host() -> ctypes.CDLL:
+    """The general kernel's shaped one-thread form built for the host with
+    g++ (tests only; a library of its own, ``vgs_host_run``)."""
+    return _build.bound("vector_filter_general_shaped_host",
+                        ["vector_filter_general_shaped_host.cpp"], _bind_general_shaped_host,
+                        host=True)
+
+
 def _bind_fit(lib: ctypes.CDLL):
     lib.vfl_fit_on.restype = None
     lib.vfl_fit_on.argtypes = [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_void_p]
+    lib.vgs_takes_on.restype = ctypes.c_int
+    lib.vgs_takes_on.argtypes = [ctypes.POINTER(_CParams)]
 
 
 def _fit() -> ctypes.CDLL:
     """``csrc/vector_filter_fit.cpp`` built with g++ (no step in it, a second
     or two): ``vfl_fit_on``, how a configuration runs in the lane-group or
-    warp form (:func:`_form_fit`)."""
+    warp form (:func:`_form_fit`), and ``vgs_takes_on``, whether the general
+    kernel's shaped form has an instantiation of it (:func:`_shaped_takes`)."""
     return _build.bound("vector_filter_fit", ["vector_filter_fit.cpp"], _bind_fit, host=True)
 
 
@@ -948,23 +1041,53 @@ def _bound_of(E: int) -> int:
     return 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0
 
 
-def _model_policy(params: VectorFilterParams, name: str, EB: int) -> str:
+#: the C math library's functions whose calls :func:`_form_cost` counts
+_COSTLY = re.compile(r"\b(?:sqrt|cbrt|exp|expm1|exp2|log|log1p|log2|log10|sin|cos|tan|asin|acos"
+                     r"|atan|atan2|sinh|cosh|tanh|pow|hypot|erf|erfc|fmod)\s*\(")
+
+
+def _form_cost(form: KernelForm) -> int:
+    """The transcendental calls and divisions of one evaluation of a
+    registered form's statements: the cost by which the shaped form decides
+    whether its point loops unroll (``vgs_roll``)."""
+    return len(_COSTLY.findall(form.source)) + form.source.count("/")
+
+
+def _model_policy(params: VectorFilterParams, name: str, EB: int, shaped: bool = False) -> str:
     """The C++ model policy of ``params``' configuration (see
     ``csrc/vector_filter_registered.cu``): each registered form's statements
     as a functor, the table's models through ``VfgDynFn`` / ``VfgObsFn`` (a
-    table measurement at the bound ``EB`` on E, 0 for any E)."""
-    D = params.dim_state
+    table measurement at the bound ``EB`` on E, 0 for any E).  ``shaped``:
+    the policy of the shaped one-thread form (``VFR_SHAPED``), on
+    ``VgsParams``: the constants by value, the table's models by their ids
+    (``VfDynFn`` / ``VgsObsFn``), and the rules' point count and kinds and
+    the models' costs as its constants."""
+    D, E = params.dim_state, params.dim_out
+    P = "VgsParams" if shaped else "VfgParams"
+    head = ""
+    if shaped:
+        dyn_cost = (f"vgs_dyn_cost({params.dyn_model})" if params.dyn_form is None
+                    else _form_cost(params.dyn_form))
+        obs_cost = (f"vgs_obs_cost({params.obs_model}, {E})" if params.obs_form is None
+                    else _form_cost(params.obs_form))
+        head = (f"  static constexpr int N = {params.dyn.n}, KD = {params.dyn.kind}, "
+                f"KO = {params.obs.kind};\n  static constexpr int dyn_cost = {dyn_cost}, "
+                f"obs_cost = {obs_cost};\n")
     if params.dyn_form is None:
-        dyn = (f"  VF_HD static VfgDynFn<{D}> dyn(const VfgParams& p, const double*) "
+        dyn = (f"  VF_HD static VfDynFn<{D}, {params.dyn_model}> dyn(const {P}& p, const double*) "
+               "{ return {p.base}; }" if shaped else
+               f"  VF_HD static VfgDynFn<{D}> dyn(const {P}& p, const double*) "
                "{ return {p.base}; }")
     else:
         dyn = (f"  struct Dyn {{\n    const double* c;\n    const double* s;\n"
                f"    VF_HD void operator()(const double (&x)[{D}], double (&f)[{D}]) const {{\n"
                f"{forms.c_block(params.dyn_form.source)}\n    }}\n  }};\n"
-               "  VF_HD static Dyn dyn(const VfgParams& p, const double* s) "
+               f"  VF_HD static Dyn dyn(const {P}& p, const double* s) "
                "{ return {p.dyn_c, s}; }")
     if params.obs_form is None:
-        obs = (f"  VF_HD static VfgObsFn<{D}, {EB}> obs(const VfgParams& p) {{ return {{p}}; }}")
+        obs = (f"  VF_HD static VgsObsFn<{D}, {params.obs_model}, {E}> obs(const {P}& p) "
+               "{ return {p.base}; }" if shaped else
+               f"  VF_HD static VfgObsFn<{D}, {EB}> obs(const {P}& p) {{ return {{p}}; }}")
     else:
         arg, gather = "x", ""
         if params.obs_index is not None:
@@ -972,36 +1095,48 @@ def _model_policy(params: VectorFilterParams, name: str, EB: int) -> str:
         obs = (f"  struct Obs {{\n    const double* c;\n    template <class H>\n"
                f"    VF_HD void operator()(const double (&{arg})[{D}], H&& h) const {{\n"
                f"{gather}{forms.c_block(params.obs_form.source)}\n    }}\n  }};\n"
-               "  VF_HD static Obs obs(const VfgParams& p) { return {p.obs_c}; }")
-    return f"struct {name} {{\n{dyn}\n{obs}\n}};\n"
+               f"  VF_HD static Obs obs(const {P}& p) {{ return {{p.obs_c}}; }}")
+    return f"struct {name} {{\n{head}{dyn}\n{obs}\n}};\n"
 
 
 def _key(params: VectorFilterParams, lanes: int | None = None) -> tuple:
     """What the registered library instantiates for ``params`` in the form of
     ``lanes`` (:func:`lanes_of` by default; 0 one thread a trajectory,
-    :data:`_LANES` the lane-group form, :data:`_WARP` the warp form): D, the
-    bound on E (0 in the lane-group and warp forms), the lanes and the model
-    policy."""
+    :data:`_SHAPED` the shaped one-thread form, :data:`_LANES` the lane-group
+    form, :data:`_WARP` the warp form): D, the bound on E (0 in the
+    lane-group and warp forms; E itself in the shaped form), the lanes and
+    the model policy."""
     lanes = lanes_of(params) if lanes is None else lanes
+    if lanes == _SHAPED:
+        E = params.dim_out
+        return params.dim_state, E, lanes, _model_policy(params, "VfrPair", E, shaped=True)
     EB = 0 if lanes else _bound_of(params.dim_out)
     return params.dim_state, EB, lanes, _model_policy(params, "VfrPair", EB)
 
 
 def _registered_header(keys: list) -> str:
-    """``vfr_forms.cuh`` for the configurations ``keys``."""
+    """``vfr_forms.cuh`` for the configurations ``keys``: ``VFR_PAIRS``
+    lists those of the general step's forms, ``VFR_SHAPED`` those of the
+    shaped one-thread form."""
     parts = ["// Generated by ssmtoybox_torch/ops/vector_filter.py (build_registered): the",
              "// model policies of the registered configurations.", "#pragma once", ""]
     for i, (_, _, _, policy) in enumerate(keys):
         parts.append(policy.replace("struct VfrPair {", f"struct VfrPair{i} {{", 1))
     pairs = " ".join(f"F({i}, {D}, {EB}, {G}, VfrPair{i})"
-                     for i, (D, EB, G, _) in enumerate(keys))
-    return "\n".join(parts) + f"\n#define VFR_PAIRS(F) {pairs}\n"
+                     for i, (D, EB, G, _) in enumerate(keys) if G != _SHAPED)
+    shaped = " ".join(f"F({i}, {D}, {E}, VfrPair{i})"
+                      for i, (D, E, G, _) in enumerate(keys) if G == _SHAPED)
+    return ("\n".join(parts) + f"\n#define VFR_PAIRS(F) {pairs}\n"
+            f"#define VFR_SHAPED(F) {shaped}\n")
 
 
 def _bind_registered(lib: ctypes.CDLL):
     lib.vfr_launch.restype = ctypes.c_int
     lib.vfr_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CGParams)] + _R_ARGS
                                + [ctypes.c_int] + [ctypes.c_void_p] * 7)
+    lib.vfr_shaped_launch.restype = ctypes.c_int
+    lib.vfr_shaped_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CGShapedParams)] + _R_ARGS
+                                      + [ctypes.c_int] + [ctypes.c_void_p] * 6)
     lib.vfr_error_string.restype = ctypes.c_char_p
     lib.vfr_error_string.argtypes = [ctypes.c_int]
 
@@ -1010,6 +1145,9 @@ def _bind_registered_host(lib: ctypes.CDLL):
     lib.vfr_host_run.restype = ctypes.c_int
     lib.vfr_host_run.argtypes = ([ctypes.c_int, ctypes.POINTER(_CGParams)] + _R_ARGS
                                  + [ctypes.c_void_p] * 6)
+    lib.vfr_shaped_host_run.restype = ctypes.c_int
+    lib.vfr_shaped_host_run.argtypes = ([ctypes.c_int, ctypes.POINTER(_CGShapedParams)] + _R_ARGS
+                                        + [ctypes.c_void_p] * 5)
 
 
 def build_registered(configs, host: bool = False) -> str:
@@ -1061,8 +1199,9 @@ def _scratch(params: VectorFilterParams, B: int, device, lanes: int = 0) -> torc
     """The one-thread forms' scratch buffer: the function values of every
     point of a transform, interleaved by trajectory, and for more than 8
     measurement outputs the wide form's E-sized arrays after them
-    (``vfg_values`` and ``vfg_step_wide``); empty for the lane-group and
-    warp forms (``lanes`` nonzero), whose arrays live in shared memory."""
+    (``vfg_values`` and ``vfg_step_wide``); empty for the other forms
+    (``lanes`` nonzero): the shaped form keeps its values on chip, the
+    lane-group and warp forms theirs in shared memory."""
     D, E = params.dim_state, params.dim_out
     n = max(params.dyn.n * D, params.obs.n * E)
     if _bound_of(E) == 0:
@@ -1078,7 +1217,9 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     the first version where it has an instantiation of the model pair, the
     registered kernel for a registered model, else the general kernel)
     compiled for the host on a CPU tensor, the general and registered
-    kernels in the form of ``lanes`` (:func:`lanes_of` by default); the five
+    kernels in the form of ``lanes`` (:func:`lanes_of` by default; the
+    general kernel's shaped form through its own host build,
+    :func:`_general_shaped_host`); the five
     streams of :func:`vector_filter`, after checking that an instantiation
     of the configuration's dimensions ran."""
     _check_streams(params, y)
@@ -1090,14 +1231,22 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     B, _, T = y.shape
     out = _empty_streams(params.dim_state, T, B, "cpu")
     cpu = torch.device("cpu")
-    c = _c_struct(kernel, params, cpu)                     # refuses before anything is built
     lanes = lanes_of(params) if lanes is None else lanes
+    c = _c_struct(kernel, params, cpu, lanes)              # refuses before anything is built
     if kernel == "vector_filter_registered":
         lib, pair = _registered(params, host=True, lanes=lanes)
         s, scratch = _streams_on(params, T, cpu), _scratch(params, B, cpu, lanes)
-        ran = lib.vfr_host_run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
-                               params.n_s, B, T, *(o.data_ptr() for o in out),
-                               scratch.data_ptr())
+        if lanes == _SHAPED:
+            ran = lib.vfr_shaped_host_run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
+                                          s.data_ptr(), params.n_s, B, T,
+                                          *(o.data_ptr() for o in out))
+        else:
+            ran = lib.vfr_host_run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
+                                   s.data_ptr(), params.n_s, B, T, *(o.data_ptr() for o in out),
+                                   scratch.data_ptr())
+    elif kernel == "vector_filter_general" and lanes == _SHAPED:
+        ran = _general_shaped_host().vgs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B,
+                                                  T, *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_shaped":
         ran = _host_shim().vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                         *(o.data_ptr() for o in out))
@@ -1130,14 +1279,14 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     """
     global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES
     global GENERAL_LANE_LAUNCHES, REGISTERED_LANE_LAUNCHES, GENERAL_WARP_LAUNCHES
-    global REGISTERED_WARP_LAUNCHES
+    global REGISTERED_WARP_LAUNCHES, GENERAL_SHAPED_LAUNCHES, REGISTERED_SHAPED_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
     if y.device.type != "cuda":
         raise ValueError(f"the vector filter runs on CPU or CUDA tensors; got {y.device}")
     kernel, lanes = kernel_of(params), lanes_of(params)
-    c = _c_struct(kernel, params, y.device)               # refuses before anything is built
+    c = _c_struct(kernel, params, y.device, lanes)        # refuses before anything is built
     registered = kernel == "vector_filter_registered"
     lib, pair = _registered(params, host=False) if registered else (build(), None)
     B, _, T = y.shape
@@ -1147,11 +1296,18 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     args = (ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, y.device.index or 0,
             *(o.data_ptr() for o in out))
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    if registered:
+    if registered and lanes == _SHAPED:
+        s = _streams_on(params, T, y.device)
+        rc = lib.vfr_shaped_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
+                                   s.data_ptr(), params.n_s, B, T, y.device.index or 0,
+                                   *(o.data_ptr() for o in out), stream)
+    elif registered:
         s, scratch = _streams_on(params, T, y.device), _scratch(params, B, y.device, lanes)
         rc = lib.vfr_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
                             params.n_s, B, T, y.device.index or 0, *(o.data_ptr() for o in out),
                             scratch.data_ptr(), stream)
+    elif kernel == "vector_filter_general" and lanes == _SHAPED:
+        rc = lib.vgs_launch(*args, stream)
     elif kernel == "vector_filter_shaped":
         rc = lib.vfs_launch(*args, stream)
     elif kernel == "vector_filter_shaped_bq":
@@ -1174,6 +1330,8 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     REGISTERED_LANE_LAUNCHES += int(registered and lanes == _LANES)
     GENERAL_WARP_LAUNCHES += int(kernel == "vector_filter_general" and lanes == _WARP)
     REGISTERED_WARP_LAUNCHES += int(registered and lanes == _WARP)
+    GENERAL_SHAPED_LAUNCHES += int(kernel == "vector_filter_general" and lanes == _SHAPED)
+    REGISTERED_SHAPED_LAUNCHES += int(registered and lanes == _SHAPED)
     return out
 
 

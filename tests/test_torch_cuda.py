@@ -1372,3 +1372,66 @@ def test_registered_one_thread_form_takes_rules_above_16_points(card, registered
     assert sf.form_of(params) == "registered"
     assert sf.geometry(params) == ("one-thread", 0, 1)
     _slot_streams_equal(card, params, dyn, obs, seed=29, counter="REGISTERED_LAUNCHES", slot=0)
+
+
+# ---------------------------------------------------------------------------
+# the shaped one-thread form of the general and registered kernels
+# (csrc/vector_filter_general_shaped.cuh): up to 4 outputs, both rules at
+# the UT or CKF count
+# ---------------------------------------------------------------------------
+
+def _shaped_streams_equal(card, vf, params, dyn, obs, counter, batch):
+    """One wrapper launch on ``batch`` trajectories, counted on ``counter``
+    (the kernel's) and on the kernel's shaped form; its streams equal to the
+    plain version's to the bit over 20 steps, a second launch equal to the
+    first."""
+    shaped = f"{counter.removesuffix('_LAUNCHES')}_SHAPED_LAUNCHES"
+    y = _zoo_records(card, dyn, obs, batch)
+    before = (vf.LAUNCHES, getattr(vf, counter), getattr(vf, shaped))
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before[0], getattr(vf, counter) - before[1],
+            getattr(vf, shaped) - before[2]) == (1, 1, 1)
+    again = vf.vector_filter(params, y)
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097, 10000])
+@pytest.mark.parametrize("case", [("radar", "UKF"), ("radar", "CKF"), ("2 bearings", "CKF"),
+                                  ("3 bearings", "CKF")], ids=" ".join)
+def test_shaped_general_form_matches_plain(card, case, batch):
+    """CT with the radar or 2-3 bearings under the UKF or the CKF: the general
+    kernel's shaped one-thread form, one launch counted on it, equal to the
+    plain version to the bit over 20 steps at B = 1, 7, 4,097 and 10,000."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    obs_name, rule = case
+    dyn, obs = (_general_systems(card)["ct_radar"] if obs_name == "radar" else
+                _ct_bearings(card, int(obs_name.split()[0])))
+    alg = (stt.UnscentedKalman if rule == "UKF" else stt.CubatureKalman)(dyn, obs)
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_general", vf._SHAPED)
+    _shaped_streams_equal(card, vf, params, dyn, obs, "GENERAL_LAUNCHES", batch)
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097, 10000])
+@pytest.mark.parametrize("rule", ["UKF", "CKF", "GPQ"])
+def test_shaped_registered_form_matches_plain(card, registered, rule, batch):
+    """A registered transition with a per-step stream and the table's radar
+    under the UKF, the CKF and GPQ (BQ rules on both transforms): the
+    registered kernel's shaped one-thread form, one launch counted on it,
+    equal to the plain version to the bit over 20 steps at B = 1, 7, 4,097
+    and 10,000."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn = _Driven(GaussRV(2, mean=[1.0, 0.0], cov=0.1 * np.eye(2), device=card),
+                  GaussRV(2, cov=1e-3 * np.eye(2), device=card))
+    obs = _radar(card, 2)
+    par = np.array([[1.0, 3.0, 3.0]])
+    alg = {"UKF": lambda: stt.UnscentedKalman(dyn, obs),
+           "CKF": lambda: stt.CubatureKalman(dyn, obs),
+           "GPQ": lambda: stt.GaussianProcessKalman(dyn, obs, par, par)}[rule]()
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_registered", vf._SHAPED)
+    _shaped_streams_equal(card, vf, params, dyn, obs, "REGISTERED_LAUNCHES", batch)

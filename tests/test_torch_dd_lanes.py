@@ -269,9 +269,9 @@ def test_lane_form_matches_jax_f64():
 
 #: (system, rule) -> (kernel, lanes) the wrapper picks
 ROUTES = [
-    (("pendulum", "ukf"), ("vector_filter_general", 0)),
-    (("ct-b2", "ckf"), ("vector_filter_general", 0)),
-    (("ct-b3", "ckf"), ("vector_filter_general", 0)),
+    (("pendulum", "ukf"), ("vector_filter_general", vf._SHAPED)),
+    (("ct-b2", "ckf"), ("vector_filter_general", vf._SHAPED)),
+    (("ct-b3", "ckf"), ("vector_filter_general", vf._SHAPED)),
     (("ct-b4", "ckf"), ("vector_filter_shaped", 0)),
     (("ct-b4", "gh3"), ("vector_filter_general", vf._WARP)),
     (("ct-b5", "ckf"), ("vector_filter_general", vf._LANES)),
@@ -287,8 +287,10 @@ ROUTES = [
 
 @pytest.mark.parametrize("case,want", ROUTES, ids=["-".join(c) for c, _ in ROUTES])
 def test_lanes_of_routes_by_shape(case, want):
-    """The one-thread form up to 4 outputs on states of up to 5 dimensions
-    and for the other kernels; the lane-group form above, except where a
+    """One thread a trajectory up to 4 outputs on states of up to 5
+    dimensions (the shaped one-thread form at the UT and CKF counts of the
+    pairs it instantiates, ``tests/test_torch_dd_shaped_general.py``) and
+    for the other kernels; the lane-group form above, except where a
     warp's trajectories' arrays do not fit in a block's shared memory (the
     8-D chain under GH-3: 6,561 points) and, up to 8 outputs, where an SM
     holds fewer than 4 warps of it; Gauss-Hermite rules of 243 points (CT

@@ -632,14 +632,18 @@ def test_registered_scalar_form_on_host_matches_plain(host_built, case):
 def test_generated_headers_hold_only_the_configurations_asked_for(host_built):
     """Each library instantiates the configurations it was built for, once
     each, with D, the bound on E and the lanes a trajectory of each (the
-    8-D chain in the lane-group form, its measurement at any E)."""
+    8-D chain in the lane-group form, its measurement at any E; the 2-D
+    configurations at the UT and CKF counts in the shaped one-thread form,
+    each with its E, its point count and kinds in its policy)."""
     vec_name, sca_name = host_built
     keys = [k for (host, k) in vf._REGISTERED if host]
-    assert {(D, EB, G) for D, EB, G, _ in keys} >= {(2, 2, 0), (8, 0, vf._LANES)}
+    assert {(D, EB, G) for D, EB, G, _ in keys} >= {(2, 2, 0), (8, 0, vf._LANES),
+                                                    (2, 2, vf._SHAPED), (2, 1, vf._SHAPED)}
     text = vf._registered_header(list(dict.fromkeys(
         vf._key(vf.prepare(a.mod_dyn, a.mod_obs, a.tf_dyn, a.tf_obs))
         for a in (_filter(*c) for c in HOST_CASES))))
-    assert text.count("struct VfrPair") == 4 and f"F(2, 8, 0, {vf._LANES}, VfrPair2)" in text
+    assert text.count("struct VfrPair") == 6 and f"F(3, 8, 0, {vf._LANES}, VfrPair3)" in text
+    assert "F(0, 2, 2, VfrPair0) F(1, 2, 2, VfrPair1) F(2, 2, 1, VfrPair2)" in text
     assert "VfgObsFn<8, 0>" in text and "const double x[1] = {x_state[1]};" in text
     assert vec_name.startswith("vector_filter_registered_host-")
     assert sca_name.startswith("scalar_filter_registered_host-")

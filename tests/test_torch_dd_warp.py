@@ -274,7 +274,7 @@ ROUTES = [
     (("falling", "gh3"), ("vector_filter", 0)),
     (("reentry", "ukf/gh3"), ("vector_filter", 0)),
     (("pend-copy", "gh3"), ("vector_filter_registered", 0)),
-    (("ct-radar", "ukf"), ("vector_filter_general", 0)),
+    (("ct-radar", "ukf"), ("vector_filter_general", vf._SHAPED)),
 ]
 
 
@@ -285,7 +285,8 @@ def test_kernel_and_lanes_route_many_point_rules_to_the_warp_form(case, want):
     the general or registered kernel, the five pairs' too (their first
     version keeps mixed counts and rules of fewer points: constant velocity's
     81 GH-3 points, the falling body's 27, GH-3 beside the UKF); other shapes
-    keep their routes."""
+    keep their routes (CT + radar under the UKF: the general kernel's shaped
+    one-thread form, ``tests/test_torch_dd_shaped_general.py``)."""
     _need_gxx()
     params = _params(*case)
     assert (vf.kernel_of(params), vf.lanes_of(params)) == want

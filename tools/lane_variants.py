@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Time the lane-group and warp forms of the general and registered vector
-filter kernels (``csrc/vector_filter_lanes.cuh``) against the other forms
-and against another tree, on one CUDA card.
+"""Time the shaped one-thread, lane-group and warp forms of the general and
+registered vector filter kernels (``csrc/vector_filter_general_shaped.cuh``,
+``csrc/vector_filter_lanes.cuh``) against the other forms and against
+another tree, on one CUDA card.
 
     python3 tools/lane_variants.py [--tree DIR] [--reps 5] [--only TEXT ...]
 
@@ -10,21 +11,36 @@ at once, as the package ships it (the lane-group form on ``VFL_G`` = 8
 lanes a trajectory, the warp form on 32), with ``-DVFL_G=4`` and with
 ``-DVFL_WARP=16`` (the warp form's design on half a warp, two trajectories
 a warp), and so is a registered library for the 8-D chain of
-``chip_smoke.registry_systems`` (its forms, and 4 lanes). On each lane of
+``chip_smoke.registry_systems`` (its forms, and 4 lanes) and for the
+registered lanes of the shaped form (that form and the one-thread form),
+and the general kernel's shaped source alone four times more, with every
+point loop rolled (``-DVGS_UNROLL_BUDGET=0``), every one unrolled (a budget
+of 10^9), and on 64 and 128 threads a block (``-DVGS_THREADS``). On each lane of
 ``LANES`` (10,000 trajectories x 100 steps simulated on the card from the
 seed) every form runs by force: the warp form on 32 and on 16 lanes, the
 lane-group form on 8 and on 4 lanes where a block holds it, the one-thread
-form (EB = 8 up to 8 outputs, the wide form above) and,
+form (EB = 8 up to 8 outputs, the wide form above), the shaped one-thread
+form where it takes the shape (as shipped and as those four builds) and,
 on the five pairs the first version instantiates, the first version; each
 held to the plain PyTorch version on the first 200 trajectories to the bit,
 then timed in turns (the forms, then the same in reverse): ``reps`` raw
 launches between two CUDA events behind ``torch.cuda._sleep``. Each form's
 line gives its ptxas registers and spills and, for the lane-group and warp
-forms, the warps an SM holds and the bytes of shared memory a trajectory.
+forms, the warps an SM holds and the bytes of shared memory a trajectory,
+and for the shaped form its SASS: instructions in all and f64 instructions
+a step (``chip_smoke.sass_f64_a_step``).
 The lanes: PR 21's lane-group lanes under CKF, the Gauss-Hermite lanes
-(reentry + radar, CT + radar, CT + 5, 8, 9 and 16 bearings under GH-3) and
-the probes of the warp form's threshold on the point count (falling body +
-range, CV + radar and CT + 4 bearings under GH-3: 27, 81 and 243 points).
+(reentry + radar, CT + radar, CT + 5, 8, 9 and 16 bearings under GH-3), the
+probes of the warp form's threshold on the point count (falling body +
+range, CV + radar and CT + 4 bearings under GH-3: 27, 81 and 243 points),
+the shaped form's lanes (CT + radar under the UKF and the CKF, CT + 2 and
+3 bearings and the falling body with 4 under the CKF, the table's pendulum
+with the radar, the registered driven pendulum with its two-output
+measurement and the registered pendulum copy with the radar under the UKF)
+and lanes of other kernels and forms, for turns between trees (the reentry
+bench lane's UKF and CT + 4 bearings CKF in the shaped kernel, CT + radar
+under the UKF beside the CKF in the general one-thread form, the driven
+pendulum with the radar under GH-3 in the registered one).
 
 With ``--tree DIR``: the package of the checkout ``DIR`` is imported (only
 the wrapper's API is called on it) and each lane of ``LANES`` timed as that
@@ -51,7 +67,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 #: (system of ``chip_smoke.general_systems`` / ``registry_systems`` /
 #: ``vf_probe_systems``, rule)
-LANES = [("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 6 bearings", "CKF"),
+LANES = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"),
+         ("falling body + 4 bearings", "CKF"), ("pendulum + radar", "UKF"),
+         ("driven pendulum + mix", "UKF"), ("pendulum copy + radar", "UKF"),
+         ("reentry + radar", "UKF"), ("CT + 4 bearings", "CKF"), ("CT + radar", "UKF/CKF"),
+         ("driven pendulum + radar", "GH-3"),
+         ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 6 bearings", "CKF"),
          ("CT + 7 bearings", "CKF"), ("CT + 8 bearings", "CKF"), ("CT + 9 bearings", "CKF"),
          ("CT + 16 bearings", "CKF"), ("chain 8-D + radar", "CKF"),
          ("reentry + radar", "GH-3"), ("CT + radar", "GH-3"), ("CT + 5 bearings", "GH-3"),
@@ -91,7 +112,10 @@ def main():
     systems = {**cs.general_systems(np, dev), **cs.registry_systems(np, dev),
                **cs.vf_probe_systems(np, dev)}
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
-    rules = {"CKF": stt.CubatureKalman, "GH-3": lambda d, o: stt.GaussHermiteKalman(d, o, deg=3)}
+    rules = {"UKF": stt.UnscentedKalman, "CKF": stt.CubatureKalman,
+             "GH-3": lambda d, o: stt.GaussHermiteKalman(d, o, deg=3),
+             "UKF/CKF": lambda d, o: stt.GaussianInference(d, o, stt.UnscentedKalman(d, o).tf_dyn,
+                                                           stt.CubatureKalman(d, o).tf_obs)}
     lanes = [ln for ln in LANES if args.only is None or any(t in f"{ln[0]} {ln[1]}"
                                                             for t in args.only)]
     params, data = {}, {}
@@ -135,7 +159,8 @@ def other_tree(cs, torch, vf, params, data, reps, tag, card):
         ms = cs.raw_ms(torch, lambda: (vf.vector_filter(p, ys), 0)[1], reps=reps)
         b_ms, b_by = cs.vf_bound(p, ys.shape[-1], ys.shape[0])
         cs.log(f"lane_variants ({tag}) {name} {rule} ({p.dyn.n} points) {ys.shape[0]}x"
-               f"{ys.shape[-1]}: {vf.kernel_of(p)} on {vf.lanes_of(p)} lanes (0: one thread); "
+               f"{ys.shape[-1]}: {vf.kernel_of(p)} on {vf.lanes_of(p)} lanes (0: one thread; "
+               f"1, since the shaped form: one thread, shaped); "
                f"== plain to "
                f"the bit on {HEAD} trajectories; raw wrapper launches {ms:.4f} ms; bound "
                f"{b_ms:.4f} ms ({b_by}); card {card}")
@@ -174,11 +199,22 @@ def launcher(torch, vf, lib, pair, p, y, dev, lanes):
     ``lib`` in the form of ``lanes``, into buffers made once (``.out``)."""
     B, _, T = y.shape
     out = vf._empty_streams(p.dim_state, T, B, dev)
-    c = vf._c_general(p, dev)
+    c = vf._c_struct("vector_filter_general", p, dev, lanes)
     scratch = vf._scratch(p, B, dev, lanes)
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs = [o.data_ptr() for o in out]
-    if pair is None:
+    if lanes == vf._SHAPED and pair is None:
+        def launch():
+            return lib.vgs_launch(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                  dev.index or 0, *outs, stream)
+    elif lanes == vf._SHAPED:
+        s = vf._streams_on(p, T, dev)
+
+        def launch():
+            return lib.vfr_shaped_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
+                                         s.data_ptr(), p.n_s, B, T, dev.index or 0, *outs,
+                                         stream)
+    elif pair is None:
         def launch():
             return lib.vfg_launch(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                   dev.index or 0, *outs, scratch.data_ptr(), lanes, stream)
@@ -192,36 +228,76 @@ def launcher(torch, vf, lib, pair, p, y, dev, lanes):
     return launch
 
 
+#: the shaped form's other builds: every point loop rolled or unrolled
+#: (``VGS_UNROLL_BUDGET``), 64 or 128 threads a block (``VGS_THREADS``)
+BUDGETS = {"rolled": "VGS_UNROLL_BUDGET=0", "unrolled": f"VGS_UNROLL_BUDGET={10 ** 9}",
+           "64 threads a block": "VGS_THREADS=64", "128 threads a block": "VGS_THREADS=128"}
+
+
+def _bind_vgs(lib):
+    lib.vgs_launch.restype = ctypes.c_int
+    lib.vgs_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
+                               + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+
+
+def sass_of(cs, lib, fn, n_points):
+    """``(SASS instructions, f64 instructions a step)`` of the kernel whose
+    mangled name contains ``fn`` in ``lib``; Nones without cuobjdump."""
+    listing = cs.sass_listing(lib._name, fn)
+    if not listing:
+        return None, None
+    return len(listing), cs.sass_f64_a_step(listing, n_points)
+
+
 def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
     """Every form of every lane by force, in turns."""
     from concurrent.futures import ThreadPoolExecutor
     chain = params.get(("chain 8-D + radar", "CKF"))
     key4 = chain and (8, 0, 4, vf._model_policy(chain, "VfrPair", 0))
     reg4 = {}
+    # the registered lanes' forms: the chain's every form, the others' shaped and one-thread
+    reg_forms = {lane: ((vf._WARP, vf._LANES, 0) if p is chain else
+                        (vf._SHAPED, 0) if vf._shaped_takes(p) else (vf.lanes_of(p),))
+                 for lane, p in params.items() if vf.kernel_of(p) == "vector_filter_registered"}
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(6) as pool:
         jobs = [pool.submit(vf.build),
                 pool.submit(_build.bound, "vector_filter_g4", vf.SOURCES, vf._bind,
                             vf._NVCC_FLAGS + ["-DVFL_G=4"]),
                 pool.submit(_build.bound, "vector_filter_w16", vf.SOURCES, vf._bind,
                             vf._NVCC_FLAGS + ["-DVFL_WARP=16"])]
+        jobs += [pool.submit(_build.bound, f"vector_filter_gs_{name.split()[0]}",
+                             ["vector_filter_general_shaped.cu"], _bind_vgs,
+                             vf._NVCC_FLAGS + [f"-D{setting}"])
+                 for name, setting in BUDGETS.items()]
+        if reg_forms:
+            jobs.append(pool.submit(vf.build_registered, [(params[lane], g) for lane, gs in
+                                                          reg_forms.items() for g in gs]))
         if chain:
-            jobs += [pool.submit(vf.build_registered,
-                                 [(chain, g) for g in (vf._WARP, vf._LANES, 0)]),
-                     pool.submit(forms.build_generated, reg4, [key4],
-                                 vf._registered_header([key4]),
-                                 name="vector_filter_registered_g4",
-                                 source="vector_filter_registered.cu", file="vfr_forms.cuh",
-                                 bind=vf._bind_registered, flags=vf._NVCC_FLAGS + ["-DVFL_G=4"],
-                                 host=False)]
-        lib8, lib4, lib16, *reg = (j.result() for j in jobs)
+            jobs.append(pool.submit(forms.build_generated, reg4, [key4],
+                                    vf._registered_header([key4]),
+                                    name="vector_filter_registered_g4",
+                                    source="vector_filter_registered.cu", file="vfr_forms.cuh",
+                                    bind=vf._bind_registered,
+                                    flags=vf._NVCC_FLAGS + ["-DVFL_G=4"], host=False))
+        lib8, lib4, lib16, *rest = (j.result() for j in jobs)
+    budget_libs = dict(zip(BUDGETS, rest))
+    reg_name = rest[len(BUDGETS)] if reg_forms else None
     fit16 = _build.bound("vector_filter_fit_w16", ["vector_filter_fit.cpp"], vf._bind_fit,
                          ["-DVFL_WARP=16"], host=True)
-    cs.log(f"lane_variants: built the library on 8 and 4 lanes and with the warp form on 16, and "
-           f"the chain's registered libraries at once in {time.perf_counter() - t0:.1f} s")
-    logs = {("general", g): _build.BUILD_LOGS.get("vector_filter", "") for g in (32, 8, 0)}
+    cs.log(f"lane_variants: built the library on 8 and 4 lanes and with the warp form on 16, the "
+           f"shaped source rolled and unrolled, and the registered lanes' libraries at once in "
+           f"{time.perf_counter() - t0:.1f} s")
+    logs = {("general", g): _build.BUILD_LOGS.get("vector_filter", "")
+            for g in (32, 8, 0, vf._SHAPED)}
     logs["general", 4] = _build.BUILD_LOGS.get("vector_filter_g4", "")
     logs["general", 16] = _build.BUILD_LOGS.get("vector_filter_w16", "")
+    for name in BUDGETS:
+        logs["general", name] = _build.BUILD_LOGS.get(f"vector_filter_gs_{name.split()[0]}", "")
+    for g in (32, 8, 0, vf._SHAPED):
+        logs["registered", g] = _build.BUILD_LOGS.get(reg_name, "")
+    if chain:
+        logs["registered", 4] = _build.BUILD_LOGS.get(rest[-1], "")
 
     def fit(p, g):
         """``vf._form_fit`` on g lanes; the warp form on 16 from its own build."""
@@ -230,25 +306,37 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
         out = (ctypes.c_int * 4)()
         fit16.vfl_fit_on(ctypes.byref(vf._c_params(p, torch.device("cpu"))), 16, out)
         return tuple(out)
-    if chain:
-        for g in (32, 8, 0):
-            logs["registered", g] = _build.BUILD_LOGS.get(reg[0], "")
-        logs["registered", 4] = _build.BUILD_LOGS.get(reg[1], "")
     for (name, rule), p in params.items():
+        if vf.kernel_of(p).startswith("vector_filter_shaped"):
+            continue        # the shaped kernels' lanes are for turns between trees (--tree)
         ys = data[name]
         registered = vf.kernel_of(p) == "vector_filter_registered"
+        shaped = vf._shaped_takes(p)
         runs, entry = {}, {}
         plain = vf._vector_filter_plain(p, ys[:HEAD])
-        for g in (vf._WARP, 16, 8, 4, 0, "first"):
+        for g in (vf._SHAPED, *BUDGETS, vf._WARP, 16, 8, 4, 0, "first"):
             if g == "first":
                 if not vf._instantiated(p) or registered:
                     continue
                 runs[g] = cs.vf_raw(torch, vf, p, ys, dev, "vector_filter")
                 targs = (p.dim_state, p.dim_out, p.dyn_model, p.obs_model, p.dyn.kind, p.obs.kind)
                 entry[g] = ("vector_filter_kernelI" + "".join(f"Li{t}E" for t in targs) + "E",
-                            _build.BUILD_LOGS.get("vector_filter", ""))
+                            _build.BUILD_LOGS.get("vector_filter", ""), vf.build())
+            elif g == vf._SHAPED or g in BUDGETS:
+                if not shaped or (registered and g != vf._SHAPED):
+                    continue
+                if registered:
+                    lib, pair = vf._registered(p, False, g)
+                    fn = f"VfrPair{pair}E"
+                else:
+                    lib, pair = budget_libs.get(g, lib8), None
+                    fn = cs.form_ptxas(vf, p, "vector_filter_general", vf._SHAPED, "")[3]
+                runs[g] = launcher(torch, vf, lib, pair, p, ys, dev, vf._SHAPED)
+                entry[g] = (fn, logs["registered" if registered else "general", g], lib)
             else:
-                if (g and not fit(p, g)[0]) or (registered and g == 16):
+                if (g and not fit(p, g)[0]) or (registered and g == 16) or (
+                        registered and g not in reg_forms[name, rule] and g != 4) or (
+                        registered and g == 4 and p is not chain):
                     continue
                 if registered:
                     lib, pair = reg4[False, key4] if g == 4 else vf._registered(p, False, g)
@@ -259,7 +347,7 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
                           f"vector_filter_general_kernelILi{p.dim_state}ELi"
                           f"{vf._bound_of(p.dim_out)}E")
                 runs[g] = launcher(torch, vf, lib, pair, p, ys, dev, g)
-                entry[g] = (fn, logs["registered" if registered else "general", g])
+                entry[g] = (fn, logs["registered" if registered else "general", g], lib)
             if runs[g]() != 0:
                 cs.fail(f"{name} {rule}: the launch of form {g} failed")
             torch.cuda.synchronize()
@@ -272,21 +360,30 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
         routed = vf.lanes_of(p) if vf.kernel_of(p) != "vector_filter" else "first"
         cs.log(f"lane_variants {name} {rule} ({p.dyn.n} points) {ys.shape[0]}x{ys.shape[-1]}, "
                f"E={p.dim_out}, D={p.dim_state}: routed {vf.kernel_of(p)}, form {routed} "
-               f"(lanes; 0: one thread); bound {b_ms:.4f} ms ({b_by}); card {card}")
+               f"(lanes; 0: one thread, {vf._SHAPED}: shaped one thread); bound {b_ms:.4f} ms "
+               f"({b_by}); card {card}")
         for g, ms in turns.items():
-            regs, frame, spill = cs.ptxas_of(entry[g][1], entry[g][0])
+            fn, log_text, lib = entry[g]
+            regs, frame, spill = cs.ptxas_of(log_text, fn)
             occupancy = ""
             if g in (vf._WARP, 16, 8, 4):
                 _, _, size, warps = fit(p, g)
                 shared = size * 8
                 occupancy = (f"; {warps} warps an SM resident, {ys.shape[0] * g / 32 / 132:.1f} "
                              f"in the lane; {shared} bytes of shared memory a trajectory")
+            elif g == vf._SHAPED or g in BUDGETS:
+                n_sass, f64 = sass_of(cs, lib, fn, p.dyn.n)
+                occupancy = f"; SASS {n_sass} instructions, {f64} f64 a step"
             form = ("first version" if g == "first" else "warp form" if g == vf._WARP else
-                    "warp form on 16 lanes" if g == 16 else f"{g} lanes" if g else "one thread")
+                    "warp form on 16 lanes" if g == 16 else
+                    "shaped one thread" if g == vf._SHAPED else
+                    f"shaped one thread, {g}" if "threads" in str(g) else
+                    f"shaped one thread, every point loop {g}" if g in BUDGETS else
+                    f"{g} lanes" if g else "one thread")
             cs.log(f"  {name} {rule}: {form}{' (routed)' if g == routed else ''}: raw launches "
                    + " / ".join(f"{t:.4f}" for t in ms) + f" ms in turns; == plain on {HEAD}; "
                    f"{regs} registers, {frame} bytes stack frame, {spill} bytes spilled "
-                   f"({entry[g][0]}){occupancy}; card {card}")
+                   f"({fn}){occupancy}; card {card}")
         del runs
 
 
