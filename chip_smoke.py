@@ -10,9 +10,10 @@ fails at once without them.  Phases, each fatal on failure:
    ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
    ``student_qrq.cu``, ``vandermonde.cu``, ``vector_filter.cu``,
    ``vector_filter_shaped.cu``, ``vector_filter_shaped_bq.cu``,
-   ``vector_filter_general.cu`` and ``vector_filter_general_shaped.cu`` for
+   ``vector_filter_general.cu``, ``vector_filter_general_shaped.cu`` and
+   ``vector_filter_general_shaped_mixed.cu`` for
    sm_90a (one nvcc each, at once; the two
-   Student-MC sources make one library, the five vector filter sources
+   Student-MC sources make one library, the six vector filter sources
    another), print each library's build time and
    their ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
@@ -103,9 +104,11 @@ fails at once without them.  Phases, each fatal on failure:
     radar, the pendulum, the falling body with its range, CT with four
     bearings) under UKF, CKF, a BQ rule at the UT count (GPQ-UT; BSQ-UT too
     on reentry, on CV instead) and GPQ with spherical-radial points, every
-    rule on both transforms and the mixed kinds of both counts (on CV every
-    pair of its four rules), GH-3 on reentry: the classical shaped kernel
-    (``csrc/vector_filter_shaped.cu``, 10 instantiations), the kernel of the
+    rule on both transforms, the mixed kinds of both counts and the UKF
+    beside the CKF either way round (on CV every pair of its four rules),
+    GH-3 on reentry: the classical shaped kernel
+    (``csrc/vector_filter_shaped.cu``, 20 instantiations: 4 pairs of point
+    counts of each model pair), the kernel of the
     BQ shapes (``csrc/vector_filter_shaped_bq.cu``, 30) and, at every pair
     (sent there by force where another kernel takes it), the first version
     (``csrc/vector_filter.cu``, 20), at B = 1, 7, 31, 4,097 and 10,000, each
@@ -115,12 +118,14 @@ fails at once without them.  Phases, each fatal on failure:
     (``csrc/vector_filter_general.cu``, 16 one-thread instantiations: D = 2-5
     x a bound of 2, 4 or 8 on E, or the wide form of bearings from 9-12
     sensors; 4 of its lane-group form, ``csrc/vector_filter_lanes.cuh``: D
-    on 8 lanes; 4 of its warp form, D on 32 lanes; 24 of its shaped
-    one-thread form, ``csrc/vector_filter_general_shaped.cu``: 12 pairs at
-    the UT and CKF counts) on ``VF_GENERAL_CASES``,
+    on 8 lanes; 4 of its warp form, D on 32 lanes; 48 of its shaped
+    one-thread form, ``csrc/vector_filter_general_shaped.cu`` and
+    ``csrc/vector_filter_general_shaped_mixed.cu``: 12 pairs at the UT and
+    CKF counts, on both transforms or mixed) on ``VF_GENERAL_CASES``,
     the pairs only it takes, every pair of rule kinds, at the same batch
-    sizes through the wrapper (the shaped form under the UKF and the CKF up
-    to 4 outputs, the lane-group form above, the warp form under GH-3), the
+    sizes through the wrapper (the shaped form under the UKF and the CKF,
+    alone or beside each other, up to 4 outputs, the lane-group form above,
+    the warp form under GH-3), the
     general one-thread form of those by force on all 10,000,
     and by force, one thread and warp form, on the UKF of the five other
     pairs (GH-3 on reentry runs in the warp form through the wrapper); it
@@ -132,10 +137,13 @@ fails at once without them.  Phases, each fatal on failure:
     covariances), filter and smoother RMSE within 1e-6 relative, one launch a
     call; then the other kernels' paths, their launches counted from 0: the
     same data under BSQ-UT (the kernel of the BQ shapes), under GH-3 (the
-    general kernel's warp form; its filter RMSE within 1e-6 relative of the
-    eager f64 lane's, every run finite) and under the UKF beside the CKF (the
-    first version) through ``engine="dd"``, each against its plain version at
-    the full shape to the bit, RMSE finite;
+    general kernel's warp form), under the UKF beside the CKF (the classical
+    shaped kernel at mixed counts; these two with their filter RMSE within
+    1e-6 relative of the eager f64 lane's, every run finite) and under GPQ-UT
+    beside the CKF (the first version) through ``engine="dd"``, each against
+    its plain version at the full shape to the bit, RMSE finite; the UKF /
+    CKF lane's raw launches in turns with the first version's on the same
+    input;
 17. ``tests/goldens/reentry.npz`` ``ukf`` (the shaped kernel) and ``bsqkf``
     (the BQ shapes) through ``engine="dd"`` on the card (1e-7 / 1e-6);
 18. the main path's kernel result on the bench lane against the plain
@@ -241,14 +249,15 @@ fails at once without them.  Phases, each fatal on failure:
 27. "dd pairs": what only the general forms take, at full width
     (``dd_pairs_slice``): CT + radar under UKF and CKF and CT with 2, 3, 5
     and 8 bearings under CKF and 8 under GH-3, CT + radar under the UKF
-    beside the CKF, 10,000 x 100 simulated on the card, through the general
-    vector kernel (radar and 2-3 bearings in its shaped one-thread form, 5
-    and 8 bearings under CKF in its lane-group form, GH-3 in its warp form,
-    the mixed counts in its general one-thread form);
+    beside the CKF, the pendulum with the radar under GH-3 (9 points),
+    10,000 x 100 simulated on the card, through the general vector kernel
+    (radar and 2-3 bearings in its shaped one-thread form, the mixed counts
+    too, 5 and 8 bearings under CKF in its lane-group form, GH-3 on CT in its
+    warp form, the pendulum's GH-3 in its general one-thread form);
     UNGM under GH-9, GH-15 and GPQ on GH-15 points (the slot design) and
     under GH-17 (one thread a trajectory) on the main path's 10,000 x 500
     data, through the scalar kernel's general form; each lane once with the
-    counts from 0 (4 shaped, 1 one-thread, 2 lane-group, 1 warp-form and 4
+    counts from 0 (5 shaped, 1 one-thread, 2 lane-group, 1 warp-form and 4
     scalar launches, nothing else), its first 200 trajectories (all 10,000 on CT +
     radar UKF) equal to the plain version to the bit, its filter RMSE within
     1e-6 (vector) or 1e-3 (UNGM) relative of the eager f64 lane's, at most
@@ -1599,9 +1608,10 @@ def vf_rule_pairs(stt, np, systems):
     also BSQ-UT, the tracking study's, and GH-3; BSQ-UT on CV) and GPQ with
     spherical-radial points (N = 2 D).  Returns ``{system: {rule: filter}}``
     and the pairs ``(system, dynamics rule of, measurement rule of)``: every
-    rule on both transforms, and the mixed kinds of both counts (on CV every
-    pair of its four rules, mixed counts too), so that every instantiation
-    of the three sources runs."""
+    rule on both transforms, the mixed kinds of both counts and the UKF
+    beside the CKF either way round (on CV every pair of its four rules,
+    mixed counts too), so that every instantiation of the three sources
+    runs."""
     def mul(d):
         return np.hstack((np.zeros((d, 1), int), np.eye(d, dtype=int), 2 * np.eye(d, dtype=int)))
 
@@ -1631,27 +1641,29 @@ def vf_rule_pairs(stt, np, systems):
         bq_ut = "BSQ-UT" if "BSQ-UT" in a else "GPQ-UT"
         pairs += [(name, r, r) for r in a]
         pairs += [(name, "UKF", bq_ut), (name, bq_ut, "UKF"), (name, "CKF", "GPQ-SR"),
-                  (name, "GPQ-SR", "CKF")]
+                  (name, "GPQ-SR", "CKF"), (name, "UKF", "CKF"), (name, "CKF", "UKF")]
     return algs, pairs
 
 
 def vf_instantiation(kernel, params, lanes=0):
     """The template arguments of the instantiation of ``kernel`` that runs
-    ``params``: (D, dynamics, kinds of both rules, N; N "any" for the first
-    version); for the general kernel (D, the bound on E, 0 for the wide
-    form), in the shaped one-thread form (D, E, both models, N), or in the
-    lane-group or warp form on ``lanes`` lanes (D, the lanes)."""
+    ``params``: (D, dynamics, kinds of both rules, the point counts of both;
+    "any" for the first version); for the general kernel (D, the bound on E,
+    0 for the wide form), in the shaped one-thread form (D, E, both models,
+    both point counts), or in the lane-group or warp form on ``lanes`` lanes
+    (D, the lanes)."""
     from ssmtoybox_torch.ops import vector_filter as vf
+    counts = (params.dyn.n, params.obs.n)
     if kernel == "vector_filter_general":
         E = params.dim_out
         if lanes == vf._SHAPED:
             return (vf_form(vf, kernel, lanes), params.dim_state, E, params.dyn_model,
-                    params.obs_model, params.dyn.n)
+                    params.obs_model, counts)
         if lanes:
             return (vf_form(vf, kernel, lanes), params.dim_state, lanes)
         return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0)
     return (kernel, params.dim_state, params.dyn_model, params.dyn.kind, params.obs.kind,
-            "any" if kernel == "vector_filter" else params.dyn.n)
+            "any" if kernel == "vector_filter" else counts)
 
 
 def vgs_pairs(vf):
@@ -1669,24 +1681,32 @@ def vgs_pairs(vf):
 
 
 def vf_all_instantiations(vf):
-    """Every instantiation of the five sources, as ``vf_instantiation``
+    """Every instantiation of the six sources, as ``vf_instantiation``
     names them: the first version's 4 kinds of each model pair (20), the
-    classical shaped kernel's 2 point counts (10), the BQ shapes' 3 kinds x 2
+    classical shaped kernel's 4 pairs of point counts (20: the UT or CKF
+    count on both transforms, or the two mixed), the BQ shapes' 3 kinds x 2
     counts (30), the general kernel's state dimensions x bounds on E (16,
     the wide form's four among them), its lane-group form's state
-    dimensions (4) and its shaped form's pairs x 2 point counts (24)."""
+    dimensions (4) and its shaped form's pairs x 4 pairs of point counts
+    (48)."""
     dims = {0: 5, 1: 4, 2: 2, 3: 3, 4: 5}
+
+    def count_pairs(D):
+        return [(a, b) for a in (2 * D + 1, 2 * D) for b in (2 * D + 1, 2 * D)]
+
     out = {("vector_filter_general", D, eb) for D in (2, 3, 4, 5) for eb in (2, 4, 8, 0)}
     out |= {("vector_filter_general_lanes", D, vf._LANES) for D in (2, 3, 4, 5)}
-    out |= {("vector_filter_general_shaped", D, E, dyn, obs, n)
-            for D, E, dyn, obs in vgs_pairs(vf) for n in (2 * D + 1, 2 * D)}
+    out |= {("vector_filter_general_shaped", D, E, dyn, obs, counts)
+            for D, E, dyn, obs in vgs_pairs(vf) for counts in count_pairs(D)}
     for dyn, D in dims.items():
         for kd in (0, 1):
             for ko in (0, 1):
                 out.add(("vector_filter", D, dyn, kd, ko, "any"))
-                for n in (2 * D + 1, 2 * D):
-                    k = "vector_filter_shaped" if kd == ko == 0 else "vector_filter_shaped_bq"
-                    out.add((k, D, dyn, kd, ko, n))
+                if kd == ko == 0:
+                    out |= {("vector_filter_shaped", D, dyn, 0, 0, c) for c in count_pairs(D)}
+                else:
+                    out |= {("vector_filter_shaped_bq", D, dyn, kd, ko, (n, n))
+                            for n in (2 * D + 1, 2 * D)}
     return out
 
 
@@ -1848,7 +1868,7 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
     split = {k: sum(s[0] == k for s in seen) for k in VF_KERNELS}
     log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs "
-        f"and {g_cases} configurations of other pairs: every instantiation of the five sources "
+        f"and {g_cases} configurations of other pairs: every instantiation of the six sources "
         f"({split}; the first version at every pair of its five, the general kernel at the five "
         f"by force, where other kernels take them), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
         f"streams; two launches equal to the bit; {time.perf_counter() - t15:.1f} s")
@@ -1889,14 +1909,16 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             fail(f"reentry lane {what} RMSE of dd and f64 differ by {abs(a - b) / b:.3e}")
     del eager
 
-    # ---- 16b. the other kernels' paths: the bench lane under BSQ-UT, GH-3 and --
-    # ---- the UKF beside the CKF ----------------------------------------------------
+    # ---- 16b. the other kernels' paths: the bench lane under BSQ-UT, GH-3, ---------
+    # ---- the UKF beside the CKF and GPQ-UT beside the CKF ---------------------------
     launches, plain_ms = {}, {}
     p16 = {"UKF": params_of["reentry", "UKF", "UKF"]}
     lanes16 = {"BSQ-UT": (re["BSQ-UT"], "vector_filter_shaped_bq"),
                "GH-3": (re["GH-3"], "vector_filter_general_warp"),
                "UKF/CKF": (stt.GaussianInference(dyn_re, obs_re, re["UKF"].tf_dyn,
-                                                 re["CKF"].tf_obs), "vector_filter")}
+                                                 re["CKF"].tf_obs), "vector_filter_shaped"),
+               "GPQ-UT/CKF": (stt.GaussianInference(dyn_re, obs_re, re["GPQ-UT"].tf_dyn,
+                                                    re["CKF"].tf_obs), "vector_filter")}
     for rule, (alg, kernel) in lanes16.items():
         vf_zero(vf)
         res = alg.forward_pass_batch(ys_re, engine="dd")
@@ -1916,8 +1938,9 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         if not all(map(np.isfinite, r_rule)):
             fail(f"reentry {rule} lane: RMSE {r_rule} not finite")
         against = ""
-        if kernel.endswith("_warp"):
-            # the warp form's lane against the eager f64 lane, as phase 16 holds the shaped one
+        if rule in ("GH-3", "UKF/CKF"):
+            # the warp form's and the mixed counts' lanes against the eager f64 lane, as phase
+            # 16 holds the UKF's
             (r_fi, lost), (e_fi, e_lost) = (finite_rmse(torch, xs_re, res.fi_mean), finite_rmse(
                 torch, xs_re, alg.forward_pass_batch(ys_re, engine="f64").fi_mean))
             rel = abs(r_fi - e_fi) / e_fi
@@ -1927,9 +1950,10 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             if not (rel <= 1e-6 and lost == 0.0):
                 fail(f"reentry {rule} lane: filter RMSE of dd and f64 differ by {rel:.3e} "
                      f"relative, or {lost:.2%} of the runs are not finite")
-        log(f"reentry {rule} lane ({M}x{N}) through {kernel} (1 launch): == plain version to "
-            f"the bit, all five streams (plain version {plain_ms[kernel]:.1f} ms, one call); "
-            f"RMSE filter {r_rule[0]:.9f}, smoother {r_rule[1]:.9f}{against}")
+        log(f"reentry {rule} lane ({M}x{N}, N={p_rule.dyn.n}/{p_rule.obs.n}) through {kernel} "
+            f"(1 launch): == plain version to the bit, all five streams (plain version "
+            f"{plain_ms[kernel]:.1f} ms, one call); RMSE filter {r_rule[0]:.9f}, smoother "
+            f"{r_rule[1]:.9f}{against}")
         del res, sm
 
     # ---- 17. reentry goldens through engine="dd" on the card -----------------
@@ -1970,9 +1994,11 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         """ptxas registers / local memory and the f64 issue floor from the SASS
         of ``kernel``'s instantiation for ``p``, as one line."""
         targs = [p.dim_state, p.dim_out, p.dyn_model, p.obs_model]
-        if kernel != "vector_filter":
-            targs.append(p.dyn.n)
-        if kernel != "vector_filter_shaped":
+        if kernel == "vector_filter_shaped":
+            targs += [p.dyn.n, p.obs.n]
+        elif kernel == "vector_filter_shaped_bq":
+            targs += [p.dyn.n, p.dyn.kind, p.obs.kind]
+        else:
             targs += [p.dyn.kind, p.obs.kind]
         fn = f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs) + "E"
         regs, frame, spill = ptxas_of(build_log, fn)
@@ -2011,8 +2037,23 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         f"engine='dd' {lane['dd'][0]:.3f} ms (min {lane['dd'][1]:.3f}), engine='f64' "
         f"{lane['f64'][0]:.1f} ms (min {lane['f64'][1]:.1f})")
     entries = {}
+    # the UKF beside the CKF: the shaped kernel at mixed counts in turns with the first version,
+    # which ran this lane until the shaped kernel took two counts
+    p_mix = p16["UKF/CKF"]
+    turns = {}
+    for kernel in ("vector_filter", "vector_filter_shaped", "vector_filter_shaped",
+                   "vector_filter"):
+        turns.setdefault(kernel, []).append(
+            raw_ms(torch, vf_raw(torch, vf, p_mix, ys_re, dev, kernel)))
+    b_ms, b_by = vf_bound(p_mix, N, M)
+    fl = vf.chain_floor_clocks(lat, p_mix)
+    log(f"reentry UKF/CKF (N={p_mix.dyn.n}/{p_mix.obs.n}) {M}x{N}, raw launches in turns: "
+        + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms" for k, v in turns.items())
+        + f"; bound {b_ms:.4f} ms ({b_by}), chain floor {fl:.0f} clocks a step = "
+        f"{fl * N / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz; vector_filter_shaped: "
+        f"{code_of('vector_filter_shaped', p_mix)}")
     for kernel, rule in (("vector_filter_shaped", "UKF"), ("vector_filter_shaped_bq", "BSQ-UT"),
-                         ("vector_filter_general_warp", "GH-3"), ("vector_filter", "UKF/CKF")):
+                         ("vector_filter_general_warp", "GH-3"), ("vector_filter", "GPQ-UT/CKF")):
         p_k = p16[rule]
         k_ms = cuda_ms(torch, lambda: vf.vector_filter(p_k, ys_re))
         b_ms, b_by = vf_bound(p_k, N, M)
@@ -2111,7 +2152,14 @@ VF_GENERAL_CASES = [
     ("CV + 3 bearings", "UKF", "UKF"), ("CT + radar", "CKF", "CKF"),
     ("CT + 2 bearings", "UKF", "UKF"), ("CT + 2 bearings", "CKF", "CKF"),
     ("CT + 3 bearings", "UKF", "UKF"), ("reentry + range", "CKF", "CKF"),
-    ("reentry + UNGM", "UKF", "UKF")]
+    ("reentry + UNGM", "UKF", "UKF")] + [
+    # the UKF beside the CKF, either way round, on every pair of the shaped form
+    (name, a, b) for name in ("CT + radar", "CT + 2 bearings", "CT + 3 bearings",
+                              "pendulum + radar", "pendulum + UNGM", "pendulum + 3 bearings",
+                              "falling body + sine", "falling body + 4 bearings",
+                              "CV + 2 bearings", "CV + 3 bearings", "reentry + range",
+                              "reentry + UNGM")
+    for a, b in (("UKF", "CKF"), ("CKF", "UKF"))]
 
 
 def cv_radar_system(np, dev):
@@ -2469,8 +2517,9 @@ def form_ptxas(vf, params, kernel, lanes, logs):
     if kernel == "vector_filter_registered":
         fn = f"VfrPair{vf._registered(params, False, lanes)[1]}E"
     elif lanes == vf._SHAPED:
-        fn = (f"vector_filter_general_shaped_kernelILi{D}ELi{E}ELi{params.dyn.n}ELi0ELi0E6VgsZoo"
-              f"ILi{D}ELi{E}ELi{params.dyn_model}ELi{params.obs_model}E")
+        fn = (f"vector_filter_general_shaped_kernelILi{D}ELi{E}ELi{params.dyn.n}ELi"
+              f"{params.obs.n}ELi0ELi0E6VgsZooILi{D}ELi{E}ELi{params.dyn_model}ELi"
+              f"{params.obs_model}E")
     elif lanes:
         fn = f"vector_filter_lanes_kernelILi{D}ELi{lanes}E"
     else:
@@ -2537,12 +2586,14 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     """Phase 27, "dd pairs": the configurations that only the general forms
     take, at full width on the card.  The vector lanes (the general vector
     filter kernel): CT + radar under UKF and CKF, CT with 2, 3, 5 and 8
-    bearings under CKF and with 8 under GH-3, and CT + radar under the UKF
-    beside the CKF (``general_systems``), 10,000 trajectories x 100 steps
-    simulated from the seed; the UKF and CKF lanes of up to 3 bearings run
-    in its shaped one-thread form (``lanes_of``), the CKF lanes of more
-    than 4 bearings in its lane-group form, the GH-3 lane in its warp form,
-    the mixed counts in its general one-thread form.  The UNGM lanes (the scalar filter kernel's general
+    bearings under CKF and with 8 under GH-3, CT + radar under the UKF
+    beside the CKF, and the pendulum with the radar under GH-3
+    (``general_systems``), 10,000 trajectories x 100 steps simulated from
+    the seed; the UKF and CKF lanes of up to 3 bearings, and the UKF beside
+    the CKF, run in its shaped one-thread form (``lanes_of``), the CKF lanes
+    of more than 4 bearings in its lane-group form, the CT GH-3 lane in its
+    warp form, the pendulum's GH-3 (9 points, a count the shaped form does
+    not take) in its general one-thread form.  The UNGM lanes (the scalar filter kernel's general
     form): GH-9, GH-15 and GPQ on GH-15 points (``UNGM_GPQ_PAR``) in its
     slot design, GH-17 one thread a trajectory, on phase 4's data, 10,000 x
     500.  Each lane once
@@ -2578,7 +2629,8 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     data = {}
     vec_lanes = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"),
                  ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 8 bearings", "CKF"),
-                 ("CT + 8 bearings", "GH-3"), ("CT + radar", "UKF/CKF")]
+                 ("CT + 8 bearings", "GH-3"), ("CT + radar", "UKF/CKF"),
+                 ("pendulum + radar", "GH-3")]
     for name in dict.fromkeys(n for n, _ in vec_lanes):
         dyn, obs = systems[name]
         x = dyn.simulate_discrete(gen, steps=ZOO_STEPS, mc_sims=MC)
@@ -2707,8 +2759,8 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
             f"{b_ms:.4f} ms ({b_by}){floor}")
         if not scalar and kernel not in entries:
             # the kernel's first lane: CT + radar UKF in the shaped form, CT + 5 bearings in
-            # the lane-group form, CT + 8 bearings under GH-3 in the warp form and CT + radar
-            # UKF/CKF in the general one-thread form
+            # the lane-group form, CT + 8 bearings under GH-3 in the warp form and the
+            # pendulum + radar under GH-3 in the general one-thread form
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -3257,7 +3309,7 @@ def registry_alone():
     with ThreadPoolExecutor(2) as pool:
         for job in [pool.submit(lib.build) for lib in (sf, vf)]:
             job.result()
-    log(f"built scalar_filter.cu and the five vector filter sources in "
+    log(f"built scalar_filter.cu and the six vector filter sources in "
         f"{time.perf_counter() - t0:.1f} s")
     entries, sf_reg, sf_err, general, _, _ = registry_slice(torch, np, dev)
     log(f"registry_alone: registered entries {json.dumps(entries)}; scalar registered launches "
@@ -5272,8 +5324,8 @@ def vector_alone():
     log(f"card: {card_line()} | torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     vf.build()
-    log(f"built vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
-        f"vector_filter_general.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
+    log(f"built the vector filter library's sources ({' + '.join(vf.SOURCES)}) for sm_90a in "
+        f"{time.perf_counter() - t0:.1f} s")
     for line in _build.BUILD_LOGS.get("vector_filter", "").splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             log(f"  ptxas vector_filter: {line.strip()}")
@@ -5318,7 +5370,7 @@ def dd_pairs_alone():
         took = {lib.__name__.split(".")[-1]: pool.submit(
             lambda m: (m.build(), time.perf_counter() - t0)[1], lib) for lib in (sf, vf)}
         took = {name: f.result() for name, f in took.items()}
-    log(f"built scalar_filter.cu and the five vector filter sources in "
+    log(f"built scalar_filter.cu and the six vector filter sources in "
         f"{time.perf_counter() - t0:.1f} s ({took})")
     for line in _build.BUILD_LOGS.get("vector_filter", "").splitlines():
         if "general" in line or "registers" in line or "spill" in line:
@@ -5393,7 +5445,8 @@ def main():
     log(f"built scalar_filter.cu + scalar_filter_slots.cu, student_mc.cu + student_qrq.cu, "
         f"vandermonde.cu and "
         f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
-        f"vector_filter_general.cu + vector_filter_general_shaped.cu for sm_90a in "
+        f"vector_filter_general.cu + vector_filter_general_shaped.cu + "
+        f"vector_filter_general_shaped_mixed.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
         + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):

@@ -21,6 +21,6 @@ extern "C" void vfl_fit_on(const VfParams* params, int lanes, int* out) {
 }
 
 // vgs_takes: 1 if the general kernel's shaped form has an instantiation of
-// the configuration (a pair of VGS_PAIRS, both rules classical at N = 2 D + 1
-// or 2 D), else 0.
+// the configuration (a pair of VGS_PAIRS, both rules classical, each at
+// 2 D + 1 or 2 D points), else 0.
 extern "C" int vgs_takes_on(const VfParams* params) { return vgs_takes(*params) ? 1 : 0; }

@@ -3,11 +3,12 @@
 // turn with the radar or 2-3 bearings, the pendulum, the falling body,
 // constant velocity and reentry with the general kernel's other
 // measurements), up to 4 measurement outputs, under classical rules at the
-// UT and CKF point counts (N = 2 D + 1 or 2 D on both transforms); 24
-// instantiations.  The general kernel's other shapes run in
-// vector_filter_general.cu, built into the same library; the registered
-// kernel instantiates the same step on its generated policies
-// (vector_filter_registered.cu).
+// UT and CKF point counts (2 D + 1 or 2 D on each transform): here one count
+// on both transforms, 24 instantiations; the UKF beside the CKF in
+// vector_filter_general_shaped_mixed.cu, whose launcher vgs_launch calls.
+// The general kernel's other shapes run in vector_filter_general.cu, built
+// into the same library; the registered kernel instantiates the same step on
+// its generated policies (vector_filter_registered.cu).
 //
 // Replaces, with the other vector filter kernels, the JAX package's
 // ssmtoybox_tpu/ops/ddvec.py:514 dd_filter_batch (jnp double-double, no
@@ -33,15 +34,16 @@
 
 #include "vector_filter_general_shaped.cuh"
 
-// Launch on `stream` of card `device` without synchronising; the layouts of
-// vfs_launch (vector_filter_shaped.cu), no scratch buffer.  Returns the CUDA
-// error of selecting the device or, after the launch, cudaGetLastError();
-// cudaErrorInvalidValue for a configuration that no instantiation takes
-// (vgs_takes).
+// Launch on the stream `st` of card `device` without synchronising; the
+// layouts of vfs_launch (vector_filter_shaped.cu), no scratch buffer.
+// Returns the CUDA error of selecting the device or, after the launch,
+// cudaGetLastError(); cudaErrorInvalidValue for a configuration that no
+// instantiation takes (vgs_takes).  Mixed point counts go to
+// vgs_launch_mixed (vector_filter_general_shaped_mixed.cu).
 extern "C" int vgs_launch(const VgsParams* params, const double* y, long long y_b,
                           long long y_e, long long y_k, int B, int n_steps, int device,
                           double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
-                          void* stream) {
+                          void* st) {
   if (B <= 0 || n_steps <= 0) return 0;
   const VgsParams& p = *params;
   const VfParams& q = p.base;
@@ -51,14 +53,9 @@ extern "C" int vgs_launch(const VgsParams* params, const double* y, long long y_
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
   const VfgStreams out = {m_fi, P_fi, m_pr, P_pr, xx};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define VGS_LAUNCH_IF(D, E, DYN, OBS, N)                                                   \
-  if (q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D && q.dim_out == E &&    \
-      q.dyn.n == N)                                                                        \
-    return vgs_launch_as<D, E, N, 0, 0, VgsZoo<D, E, DYN, OBS>>(p, y, y_b, y_e, y_k,       \
-                                                                nullptr, 0, B, n_steps,    \
-                                                                out, st);
+  const cudaStream_t stream = static_cast<cudaStream_t>(st);
+  if (q.dyn.n != q.obs.n)
+    return vgs_launch_mixed(p, y, y_b, y_e, y_k, B, n_steps, out, stream);
   VGS_SHAPES(VGS_LAUNCH_IF)
-#undef VGS_LAUNCH_IF
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,9 @@
 // The shaped one-thread form of the general and registered vector filter
 // kernels (vector_filter_general_shaped.cu, vector_filter_registered.cu): one
 // trajectory a thread, up to 4 measurement outputs on states of 2-5
-// dimensions, both rules at the UT or CKF point count of the state (N = 2 D +
-// 1 or 2 D), in native float64.
+// dimensions, each rule at the UT or CKF point count of the state (ND on the
+// dynamics, NO on the measurement, each 2 D + 1 or 2 D: one count on both,
+// or the UKF beside the CKF), in native float64.
 //
 // Shared by the CUDA kernels and the host shims (vector_filter_general_shaped_host.cpp,
 // and vector_filter_host.cpp built for a registered library), which g++
@@ -20,7 +21,8 @@
 // of the table sat behind a run-time switch.  This form is the shaped
 // kernel's step (vfs_step_with, vector_filter_shaped.cuh) on the general
 // step's model policies:
-// - D, E, N and both rules' kinds (classical, BQ) are template arguments, and
+// - D, E, both point counts and both rules' kinds (classical, BQ) are
+//   template arguments, and
 //   so are the models: the table's pair by its ids (VgsZoo), or a registered
 //   configuration's policy generated by ops/vector_filter.py;
 // - both rules travel by value in the parameters (VgsParams), in the constant
@@ -37,7 +39,8 @@
 // unrolled to 13,900-15,200 instructions and lost.  Here a policy states the
 // cost of one evaluation of each model, its transcendental calls and
 // divisions (dyn_cost, obs_cost), and a transform's point loops stay loops
-// where cost x N passes VGS_UNROLL_BUDGET (vgs_roll): the coordinated turn
+// where cost x N passes VGS_UNROLL_BUDGET (vgs_roll, on each transform's own
+// count): the coordinated turn
 // (4 x 10-11), reentry (5 x 10-11) and 3 or 4 bearings at 10-11 points stay
 // loops; the radar (2 x 11) and 1-2 bearings unroll, as the shaped kernel's
 // radar does.  A build may set the budget (tools/lane_variants.py times the
@@ -112,15 +115,18 @@ struct VgsZoo {
 };
 
 // A whole record of one trajectory in this form (vfs_record_as's layouts),
-// the models of Model, the transforms' loops rolled as vgs_roll says.
-template <int D, int E, int N, int KD, int KO, class Model>
+// the models of Model, ND and NO points on the dynamics and measurement
+// rules, each transform's loops rolled as vgs_roll says of its own count.
+template <int D, int E, int ND, int NO, int KD, int KO, class Model>
 VF_HD void vgs_record(const VgsParams& p, const double* y, long long y_e, long long y_k, int T,
                       const double* s, int n_s, double* m_fi, double* P_fi, double* m_pr,
                       double* P_pr, double* xx, long long cs) {
   static_assert(D >= 2 && D <= VFS_MAX_DIM && E >= 1 && E <= 4, "the form's shapes");
-  static_assert(N == 2 * D || N == 2 * D + 1, "the UT and CKF point counts");
-  vfs_record_as<D, E, N, KD, KO, vgs_roll(Model::dyn_cost, N), vgs_roll(Model::obs_cost, N),
-                Model>(p, y, y_e, y_k, T, s, n_s, m_fi, P_fi, m_pr, P_pr, xx, cs);
+  static_assert((ND == 2 * D || ND == 2 * D + 1) && (NO == 2 * D || NO == 2 * D + 1),
+                "the UT and CKF point counts");
+  vfs_record_as<D, E, ND, NO, KD, KO, vgs_roll(Model::dyn_cost, ND),
+                vgs_roll(Model::obs_cost, NO), Model>(p, y, y_e, y_k, T, s, n_s, m_fi, P_fi,
+                                                      m_pr, P_pr, xx, cs);
 }
 
 // The table's pairs the general kernel runs in this form, (D, E, dynamics,
@@ -135,22 +141,28 @@ VF_HD void vgs_record(const VgsParams& p, const double* y, long long y_e, long l
   X(F, 4, 2, VF_DYN_CV, VF_OBS_BEARING) X(F, 4, 3, VF_DYN_CV, VF_OBS_BEARING)                 \
   X(F, 5, 1, VF_DYN_REENTRY, VF_OBS_RANGE) X(F, 5, 1, VF_DYN_REENTRY, VF_OBS_UNGM)
 
-// The instantiations of the general kernel's shaped form: both classical
-// point counts of each pair, F(D, E, DYN, OBS, N): 24.  GPQ, BSQ and mixed
-// kinds of the table's pairs keep the general one-thread form; a registered
-// configuration is instantiated with the kinds it has.
+// The instantiations of the general kernel's shaped form, F(D, E, DYN, OBS,
+// ND, NO), under classical rules: one point count on both transforms, the
+// UT's or the CKF's, in vector_filter_general_shaped.cu (VGS_SHAPES, 24); the
+// two counts mixed, the UKF beside the CKF either way round, in
+// vector_filter_general_shaped_mixed.cu (VGS_MIXED, 24), a source of its own
+// so that the library's sources still build in about the same time at once.
+// GPQ, BSQ and mixed kinds of the table's pairs keep the general one-thread
+// form; a registered configuration is instantiated with the kinds it has.
 #define VGS_SHAPES(F) VGS_PAIRS(VFS_SHAPES_OF, F)
+#define VGS_MIXED(F) VGS_PAIRS(VFS_MIXED_OF, F)
 
 // Whether the general kernel's shaped form has an instantiation of q: a pair
-// of VGS_PAIRS at its D and E, both rules classical with N = 2 D + 1 or 2 D
-// points.
+// of VGS_PAIRS at its D and E, both rules classical with 2 D + 1 or 2 D points
+// each.
 inline bool vgs_takes(const VfParams& q) {
-  if (q.dyn.kind != 0 || q.obs.kind != 0 || q.dyn.n != q.obs.n) return false;
+  if (q.dyn.kind != 0 || q.obs.kind != 0) return false;
   bool found = false;
-#define VGS_TAKES_IF(D, E, DYN, OBS, N)                                                 \
+#define VGS_TAKES_IF(D, E, DYN, OBS, ND, NO)                                            \
   found = found || (q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D &&     \
-                    q.dim_out == E && q.dyn.n == N);
+                    q.dim_out == E && q.dyn.n == ND && q.obs.n == NO);
   VGS_SHAPES(VGS_TAKES_IF)
+  VGS_MIXED(VGS_TAKES_IF)
 #undef VGS_TAKES_IF
   return found;
 }
@@ -167,7 +179,7 @@ inline bool vgs_takes(const VfParams& q) {
 constexpr int kVgsThreads = VGS_THREADS;
 
 // The shaped one-thread kernel: one thread a trajectory, the models of Model.
-template <int D, int E, int N, int KD, int KO, class Model>
+template <int D, int E, int ND, int NO, int KD, int KO, class Model>
 __global__ void __launch_bounds__(kVgsThreads)
 vector_filter_general_shaped_kernel(const __grid_constant__ VgsParams p,
                                     const double* __restrict__ y, long long y_b, long long y_e,
@@ -175,20 +187,39 @@ vector_filter_general_shaped_kernel(const __grid_constant__ VgsParams p,
                                     int n_steps, const VfgStreams out) {
   const long long b = static_cast<long long>(blockIdx.x) * kVgsThreads + threadIdx.x;
   if (b >= B) return;
-  vgs_record<D, E, N, KD, KO, Model>(p, y + b * y_b, y_e, y_k, n_steps, s, n_s, out.m_fi + b,
-                                     out.P_fi + b, out.m_pr + b, out.P_pr + b, out.xx + b, B);
+  vgs_record<D, E, ND, NO, KD, KO, Model>(p, y + b * y_b, y_e, y_k, n_steps, s, n_s,
+                                          out.m_fi + b, out.P_fi + b, out.m_pr + b,
+                                          out.P_pr + b, out.xx + b, B);
 }
 
-// Launch the instantiation (D, E, N, KD, KO, Model) on `stream` without
+// Launch the instantiation (D, E, ND, NO, KD, KO, Model) on `stream` without
 // synchronising; cudaGetLastError() after the launch.
-template <int D, int E, int N, int KD, int KO, class Model>
+template <int D, int E, int ND, int NO, int KD, int KO, class Model>
 int vgs_launch_as(const VgsParams& p, const double* y, long long y_b, long long y_e,
                   long long y_k, const double* s, int n_s, int B, int n_steps,
                   const VfgStreams& out, cudaStream_t stream) {
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(B) + kVgsThreads - 1) /
                                                 kVgsThreads);
-  vector_filter_general_shaped_kernel<D, E, N, KD, KO, Model>
+  vector_filter_general_shaped_kernel<D, E, ND, NO, KD, KO, Model>
       <<<blocks, kVgsThreads, 0, stream>>>(p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out);
   return static_cast<int>(cudaGetLastError());
 }
+
+// Within a launcher (p, q = p.base, y, its strides, B, n_steps, out and
+// stream in scope): launch the table pair's instantiation F(D, E, DYN, OBS,
+// ND, NO) if it is q's, and return what vgs_launch_as returns.
+#define VGS_LAUNCH_IF(D, E, DYN, OBS, ND, NO)                                                \
+  if (q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D && q.dim_out == E &&      \
+      q.dyn.n == ND && q.obs.n == NO)                                                        \
+    return vgs_launch_as<D, E, ND, NO, 0, 0, VgsZoo<D, E, DYN, OBS>>(p, y, y_b, y_e, y_k,    \
+                                                                     nullptr, 0, B, n_steps, \
+                                                                     out, stream);
+
+// The launcher of the table pairs' mixed point counts
+// (vector_filter_general_shaped_mixed.cu), which vgs_launch calls once it
+// has selected the device: what vgs_launch_as returns, cudaErrorInvalidValue
+// if no instantiation of VGS_MIXED takes the configuration.
+int vgs_launch_mixed(const VgsParams& p, const double* y, long long y_b, long long y_e,
+                     long long y_k, int B, int n_steps, const VfgStreams& out,
+                     cudaStream_t stream);
 #endif

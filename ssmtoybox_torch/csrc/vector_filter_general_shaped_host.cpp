@@ -1,10 +1,11 @@
 // Host build of the general kernel's shaped one-thread form
 // (vector_filter_general_shaped.cuh), for testing its arithmetic on a
-// machine without a GPU: the instantiations of vector_filter_general_shaped.cu,
-// picked as its launcher picks them, the trajectories one after another with
-// the kernel's layouts (time-major outputs, no scratch buffer).  A library of
-// its own, beside vector_filter_host.cpp, so that the tests of the other
-// steps do not compile these 24 instantiations.
+// machine without a GPU: the instantiations of vector_filter_general_shaped.cu
+// and of vector_filter_general_shaped_mixed.cu (the mixed point counts),
+// picked as their launchers pick them, the trajectories one after another
+// with the kernel's layouts (time-major outputs, no scratch buffer).  A
+// library of its own, beside vector_filter_host.cpp, so that the tests of the
+// other steps do not compile these 48 instantiations.
 #include "vector_filter_general_shaped.cuh"
 
 // Returns the state dimension of the instantiation that ran, 0 if none takes
@@ -16,16 +17,17 @@ extern "C" int vgs_host_run(const VgsParams* params, const double* y, long long 
   const VfParams& q = p.base;
   if (!vgs_takes(q)) return 0;
   int ran = 0;
-#define VGS_RUN_IF(D, E, DYN, OBS, N)                                                       \
+#define VGS_RUN_IF(D, E, DYN, OBS, ND, NO)                                                  \
   if (!ran && q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D &&               \
-      q.dim_out == E && q.dyn.n == N) {                                                     \
+      q.dim_out == E && q.dyn.n == ND && q.obs.n == NO) {                                   \
     for (int b = 0; b < B; ++b)                                                             \
-      vgs_record<D, E, N, 0, 0, VgsZoo<D, E, DYN, OBS>>(p, y + b * y_b, y_e, y_k, n_steps,  \
-                                                        nullptr, 0, m_fi + b, P_fi + b,     \
-                                                        m_pr + b, P_pr + b, xx + b, B);     \
+      vgs_record<D, E, ND, NO, 0, 0, VgsZoo<D, E, DYN, OBS>>(                               \
+          p, y + b * y_b, y_e, y_k, n_steps, nullptr, 0, m_fi + b, P_fi + b, m_pr + b,      \
+          P_pr + b, xx + b, B);                                                             \
     ran = D;                                                                                \
   }
   VGS_SHAPES(VGS_RUN_IF)
+  VGS_MIXED(VGS_RUN_IF)
 #undef VGS_RUN_IF
   return ran;
 }

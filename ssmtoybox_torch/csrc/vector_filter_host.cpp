@@ -1,5 +1,5 @@
 // Host builds of the vector filter steps (vector_filter_step.cuh, and
-// vector_filter_shaped.cuh, vector_filter_general.cuh and
+// vector_filter_shaped.cuh for the BQ shapes, vector_filter_general.cuh and
 // vector_filter_lanes.cuh, which include it),
 // for testing the kernels' arithmetic on a machine without a GPU.  Each entry
 // picks the template instantiation as its CUDA launcher does (the model pair,
@@ -14,9 +14,9 @@
 // Built with -DVFR_REGISTERED beside a generated vfr_forms.cuh
 // (ops/vector_filter.py, build_registered), it holds only vfr_host_run and
 // vfr_shaped_host_run, the general step's forms on the registered models, as
-// vector_filter_registered.cu launches them.  The general kernel's shaped
-// one-thread form has a host build of its own
-// (vector_filter_general_shaped_host.cpp).
+// vector_filter_registered.cu launches them.  The classical shaped kernel and
+// the general kernel's shaped one-thread form have host builds of their own
+// (vector_filter_shaped_host.cpp, vector_filter_general_shaped_host.cpp).
 #include <algorithm>
 #include <limits>
 #include <vector>
@@ -103,7 +103,7 @@ extern "C" int vfr_shaped_host_run(int pair, const VgsParams* params, const doub
   if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::N &&               \
       q.obs.n == MODEL::N && q.dyn.kind == MODEL::KD && q.obs.kind == MODEL::KO) {            \
     for (int b = 0; b < B; ++b)                                                               \
-      vgs_record<D, E, MODEL::N, MODEL::KD, MODEL::KO, MODEL>(                                \
+      vgs_record<D, E, MODEL::N, MODEL::N, MODEL::KD, MODEL::KO, MODEL>(                      \
           *params, y + b * y_b, y_e, y_k, n_steps, s, n_s, m_fi + b, P_fi + b, m_pr + b,      \
           P_pr + b, xx + b, B);                                                               \
     return D;                                                                                 \
@@ -156,32 +156,11 @@ extern "C" int vf_host_run(const VfParams* params, const double* y, long long y_
   return ran;
 }
 
-// The same for the step of the shaped kernel (vector_filter_shaped.cuh):
-// both rules classical with N = 2 D + 1 or 2 D points.  Returns the state
-// dimension of the instantiation that ran, 0 if none takes the configuration.
-extern "C" int vfs_host_run(const VfsParams* params, const double* y, long long y_b,
-                            long long y_e, long long y_k, int B, int n_steps, double* m_fi,
-                            double* P_fi, double* m_pr, double* P_pr, double* xx) {
-  const VfParams& q = params->base;
-  if (q.dyn.kind != 0 || q.obs.kind != 0 || q.dyn.n != q.obs.n) return 0;
-  int ran = 0;
-#define VFS_RUN_IF(D, E, DYN, OBS, N)                                                      \
-  if (!ran && q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D &&              \
-      q.dim_out == E && q.dyn.n == N) {                                                    \
-    for (int b = 0; b < B; ++b)                                                            \
-      vfs_record<D, E, DYN, OBS, N>(*params, y + b * y_b, y_e, y_k, n_steps, m_fi + b,     \
-                                    P_fi + b, m_pr + b, P_pr + b, xx + b, B);              \
-    ran = D;                                                                               \
-  }
-  VFS_SHAPES(VFS_RUN_IF)
-#undef VFS_RUN_IF
-  return ran;
-}
-
 // The same for the step of the kernel of the BQ shapes
-// (vector_filter_shaped_bq.cu): N = 2 D + 1 or 2 D points on both rules, a
-// BQ rule on one transform or both.  Returns the state dimension of the
-// instantiation that ran, 0 if none takes the configuration.
+// (vector_filter_shaped.cuh, vector_filter_shaped_bq.cu): N = 2 D + 1 or 2 D
+// points on both rules, a BQ rule on one transform or both.  Returns the
+// state dimension of the instantiation that ran, 0 if none takes the
+// configuration.
 extern "C" int vfs_bq_host_run(const VfsBqParams* params, const double* y, long long y_b,
                                long long y_e, long long y_k, int B, int n_steps, double* m_fi,
                                double* P_fi, double* m_pr, double* P_pr, double* xx) {
@@ -192,9 +171,9 @@ extern "C" int vfs_bq_host_run(const VfsBqParams* params, const double* y, long 
   if (!ran && q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D &&              \
       q.dim_out == E && q.dyn.n == N && q.dyn.kind == KD && q.obs.kind == KO) {            \
     for (int b = 0; b < B; ++b)                                                            \
-      vfs_record<D, E, DYN, OBS, N, KD, KO>(*params, y + b * y_b, y_e, y_k, n_steps,       \
-                                            m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b, \
-                                            B);                                            \
+      vfs_record<D, E, DYN, OBS, N, N, KD, KO>(*params, y + b * y_b, y_e, y_k, n_steps,    \
+                                               m_fi + b, P_fi + b, m_pr + b, P_pr + b,     \
+                                               xx + b, B);                                 \
     ran = D;                                                                               \
   }
   VFS_BQ_SHAPES(VFS_BQ_RUN_IF)

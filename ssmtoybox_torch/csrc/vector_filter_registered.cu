@@ -115,7 +115,7 @@ extern "C" int vfr_shaped_launch(int pair, const VgsParams* params, const double
 #define VFR_SHAPED_LAUNCH_IF(I, D, E, MODEL)                                                  \
   if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::N &&               \
       q.obs.n == MODEL::N && q.dyn.kind == MODEL::KD && q.obs.kind == MODEL::KO)              \
-    return vgs_launch_as<D, E, MODEL::N, MODEL::KD, MODEL::KO, MODEL>(                        \
+    return vgs_launch_as<D, E, MODEL::N, MODEL::N, MODEL::KD, MODEL::KO, MODEL>(              \
         p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, static_cast<cudaStream_t>(stream));
   VFR_SHAPED(VFR_SHAPED_LAUNCH_IF)
 #undef VFR_SHAPED_LAUNCH_IF

@@ -2,11 +2,14 @@
 // (sm_90a), native float64, for the configurations of the main path: the
 // reentry and constant-velocity models with the range-bearing radar, and the
 // pendulum, the falling body with its range and the coordinated turn with
-// four bearings, under classical rules at the UT and CKF point counts (N =
-// 2 D + 1 or 2 D on both transforms), N a template argument.  Every other configuration of the fused
-// vector filter (Gauss-Hermite, GPQ and BSQ rules, mixed kinds or counts)
-// runs in the first-version kernel of vector_filter.cu, built into the same
-// library.
+// four bearings, under classical rules at the UT and CKF point counts (2 D +
+// 1 or 2 D on each transform: one count on both, or the UKF beside the CKF),
+// both counts template arguments.  The fused vector filter's other
+// configurations of these pairs run in the library's other kernels: GPQ and
+// BSQ rules at one of these counts in vector_filter_shaped_bq.cu, rules of
+// many points in the general kernel's warp form, everything else (a BQ rule
+// beside another count, Gauss-Hermite rules of fewer points) in the
+// first-version kernel of vector_filter.cu.
 //
 // Replaces, as that kernel does, ssmtoybox_tpu/ops/ddvec.py:514
 // dd_filter_batch (jnp double-double, no Pallas kernel).
@@ -47,15 +50,15 @@ struct Streams {
   double *m_fi, *P_fi, *m_pr, *P_pr, *xx;
 };
 
-template <int D, int E, int DYN, int OBS, int N>
+template <int D, int E, int DYN, int OBS, int ND, int NO>
 __global__ void __launch_bounds__(kThreads)
 vector_filter_shaped_kernel(const __grid_constant__ VfsParams p, const double* __restrict__ y,
                             long long y_b, long long y_e, long long y_k, int B, int n_steps,
                             const Streams out) {
   const long long b = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (b >= B) return;
-  vfs_record<D, E, DYN, OBS, N>(p, y + b * y_b, y_e, y_k, n_steps, out.m_fi + b, out.P_fi + b,
-                                out.m_pr + b, out.P_pr + b, out.xx + b, B);
+  vfs_record<D, E, DYN, OBS, ND, NO>(p, y + b * y_b, y_e, y_k, n_steps, out.m_fi + b,
+                                     out.P_fi + b, out.m_pr + b, out.P_pr + b, out.xx + b, B);
 }
 
 }  // namespace
@@ -64,16 +67,15 @@ vector_filter_shaped_kernel(const __grid_constant__ VfsParams p, const double* _
 // vf_launch (vector_filter.cu), no scratch buffer.  Returns the CUDA error of
 // selecting the device or, after the launch, cudaGetLastError();
 // cudaErrorInvalidValue for a configuration that no instantiation takes (a
-// rule of another kind, mixed point counts, N other than 2 D + 1 or 2 D, a
-// model pair without a kernel form).
+// rule of another kind, a point count other than 2 D + 1 or 2 D on either
+// transform, a model pair without a kernel form).
 extern "C" int vfs_launch(const VfsParams* params, const double* y, long long y_b,
                           long long y_e, long long y_k, int B, int n_steps, int device,
                           double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
                           void* stream) {
   if (B <= 0 || n_steps <= 0) return 0;
   const VfParams& q = params->base;
-  if (q.dyn.kind != 0 || q.obs.kind != 0 || q.dyn.n != q.obs.n)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (q.dyn.kind != 0 || q.obs.kind != 0) return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' card explicitly
   const cudaError_t set = cudaSetDevice(device);
@@ -82,10 +84,10 @@ extern "C" int vfs_launch(const VfsParams* params, const double* y, long long y_
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(B) + kThreads - 1) /
                                                 kThreads);
   bool ran = false;
-#define VFS_LAUNCH_IF(D, E, DYN, OBS, N)                                                    \
+#define VFS_LAUNCH_IF(D, E, DYN, OBS, ND, NO)                                               \
   if (!ran && q.dyn_model == DYN && q.obs_model == OBS && q.dim_state == D &&               \
-      q.dim_out == E && q.dyn.n == N) {                                                     \
-    vector_filter_shaped_kernel<D, E, DYN, OBS, N>                                          \
+      q.dim_out == E && q.dyn.n == ND && q.obs.n == NO) {                                   \
+    vector_filter_shaped_kernel<D, E, DYN, OBS, ND, NO>                                     \
         <<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(*params, y, y_b, y_e,  \
                                                                      y_k, B, n_steps, out); \
     ran = true;                                                                             \

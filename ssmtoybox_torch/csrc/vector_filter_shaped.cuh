@@ -1,23 +1,27 @@
 // One step of the Gaussian sigma-point filter for small vector states with
 // additive noise, in native float64, one trajectory a thread, for rules at
-// the UT and CKF point counts (N = 2 D + 1 or 2 D on both transforms), with N
-// and each transform's kind (classical or BQ) known at compile time.
+// the UT and CKF point counts (ND and NO, the dynamics and measurement rules'
+// counts, each 2 D + 1 or 2 D), with both counts and each transform's kind
+// (classical or BQ) known at compile time.
 //
 // Shared by the CUDA kernels (vector_filter_shaped.cu: both rules classical;
 // vector_filter_shaped_bq.cu: a BQ rule on either transform or both; the
 // general and registered kernels' shaped one-thread form,
 // vector_filter_general_shaped.cuh, whose model policies give the functors)
-// and the host shim (vector_filter_host.cpp), which g++ builds, so that the CPU tests hold this
-// exact code against the plain PyTorch version in
+// and the host shims (vector_filter_shaped_host.cpp for the classical kernel,
+// vector_filter_host.cpp for the BQ shapes), which g++ builds, so that the
+// CPU tests hold this exact code against the plain PyTorch version in
 // ssmtoybox_torch/ops/vector_filter.py.  The step is that of
 // vector_filter_step.cuh, whose models, Cholesky factor and parameter struct
 // it reuses; every sum runs in the plain version's order, from 0.0 upwards,
 // so that both agree to the bit where their exp, sqrt and atan2 agree.
 //
 // What differs from the first version's step (vector_filter_step.cuh):
-// - N, the model pair and the rules' kinds are template arguments, so the
-//   point loops have N iterations known to the compiler, and nothing is read
-//   at run time to decide the shape;
+// - both point counts, the model pair and the rules' kinds are template
+//   arguments, so each transform's point loops have a count known to the
+//   compiler (ND on the time update, NO on the measurement update: the UKF
+//   beside the CKF is one shape like the others), and nothing is read at run
+//   time to decide the shape;
 // - the rules' constants travel by value in the parameters and are read at
 //   offsets the compiler knows (the constant bank), not through pointers;
 // - each point's value f_j and offset dx_j = L xi_j are computed once and
@@ -285,23 +289,23 @@ VF_HD void vfs_transform(const VfsBqRule& R, const double (&m)[D], const double 
 // the lower triangle of P is read), measurement y; writes the five streams
 // through `out` and leaves this step's filtered state in (m, P).  vf_step's
 // arithmetic, with vfs_transform for vf_moments, on the functors dyn and obs
-// (a model policy's, below).  KD, KO: the kinds of the dynamics and
-// measurement rules; RD, RO: whether their transforms' point loops stay
-// loops; P: VfsParams (both classical), VfsBqParams, or the general kernel's
-// VgsParams (vector_filter_general_shaped.cuh), each with the fields base,
-// dyn and obs.
-template <int D, int E, int N, int KD, int KO, bool RD, bool RO, class Params, class Dyn,
-          class Obs>
+// (a model policy's, below).  ND, NO: the point counts of the dynamics and
+// measurement rules; KD, KO: their kinds; RD, RO: whether their transforms'
+// point loops stay loops; P: VfsParams (both classical), VfsBqParams, or the
+// general kernel's VgsParams (vector_filter_general_shaped.cuh), each with
+// the fields base, dyn and obs.
+template <int D, int E, int ND, int NO, int KD, int KO, bool RD, bool RO, class Params,
+          class Dyn, class Obs>
 VF_HD void vfs_step_with(const Params& p, double (&m)[D], double (&P)[D][D],
                          const double (&y)[E], const Dyn& dyn, const Obs& obs,
                          const VfOut& out) {
-  static_assert(D <= VFS_MAX_DIM && N <= VFS_MAX_PTS, "rule shape");
+  static_assert(D <= VFS_MAX_DIM && ND <= VFS_MAX_PTS && NO <= VFS_MAX_PTS, "rule shape");
   const VfParams& q = p.base;
   double L[D][D], m_pr[D], P_pr[D][D];
   {
     double Pf[D][D], xx[D][D];
     vf_chol(P, L);
-    vfs_transform<KD, D, D, N, RD>(p.dyn, m, L, dyn, m_pr, Pf, xx);
+    vfs_transform<KD, D, D, ND, RD>(p.dyn, m, L, dyn, m_pr, Pf, xx);
 #pragma unroll
     for (int a = 0; a < D; ++a) {
       out.m_pr[a * out.cs] = m_pr[a];
@@ -315,7 +319,7 @@ VF_HD void vfs_step_with(const Params& p, double (&m)[D], double (&P)[D][D],
   }
   double y_pr[E], S[E][E], C[E][D];
   vf_chol(P_pr, L);
-  vfs_transform<KO, D, E, N, RO>(p.obs, m_pr, L, obs, y_pr, S, C);
+  vfs_transform<KO, D, E, NO, RO>(p.obs, m_pr, L, obs, y_pr, S, C);
 #pragma unroll
   for (int a = 0; a < E; ++a) {
 #pragma unroll
@@ -383,7 +387,8 @@ VF_HD void vfs_step_with(const Params& p, double (&m)[D], double (&P)[D][D],
 // models of the policy Model: Model::dyn(p, s + k * n_s) for step k (a
 // registered transition's n_s stream values of step k at s[k * n_s]) and
 // Model::obs(p).
-template <int D, int E, int N, int KD, int KO, bool RD, bool RO, class Model, class Params>
+template <int D, int E, int ND, int NO, int KD, int KO, bool RD, bool RO, class Model,
+          class Params>
 VF_HD void vfs_record_as(const Params& p, const double* y, long long y_e, long long y_k, int T,
                          const double* s, int n_s, double* m_fi, double* P_fi, double* m_pr,
                          double* P_pr, double* xx, long long cs) {
@@ -407,9 +412,8 @@ VF_HD void vfs_record_as(const Params& p, const double* y, long long y_e, long l
     }
     const long long v = static_cast<long long>(k) * D * cs, M = v * D;
     const VfOut out = {m_fi + v, P_fi + M, m_pr + v, P_pr + M, xx + M, cs};
-    vfs_step_with<D, E, N, KD, KO, RD, RO>(p, m, P, yk,
-                                           Model::dyn(p, s + static_cast<long long>(k) * n_s),
-                                           Model::obs(p), out);
+    vfs_step_with<D, E, ND, NO, KD, KO, RD, RO>(
+        p, m, P, yk, Model::dyn(p, s + static_cast<long long>(k) * n_s), Model::obs(p), out);
   }
 }
 
@@ -429,13 +433,15 @@ struct VfsZoo {
 };
 
 // The record of the shaped kernels: the model pair (DYN, OBS) of the table,
-// its loops rolled as vfs_rolled says.
-template <int D, int E, int DYN, int OBS, int N, int KD = 0, int KO = 0, class Params>
+// ND and NO points on the dynamics and measurement rules, its loops rolled as
+// vfs_rolled says.
+template <int D, int E, int DYN, int OBS, int ND, int NO, int KD = 0, int KO = 0, class Params>
 VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long y_k, int T,
                       double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
                       long long cs) {
-  vfs_record_as<D, E, N, KD, KO, vfs_rolled<DYN>, vfs_rolled_obs<OBS>, VfsZoo<D, E, DYN, OBS>>(
-      p, y, y_e, y_k, T, nullptr, 0, m_fi, P_fi, m_pr, P_pr, xx, cs);
+  vfs_record_as<D, E, ND, NO, KD, KO, vfs_rolled<DYN>, vfs_rolled_obs<OBS>,
+                VfsZoo<D, E, DYN, OBS>>(p, y, y_e, y_k, T, nullptr, 0, m_fi, P_fi, m_pr, P_pr,
+                                        xx, cs);
 }
 
 // The model pairs with a kernel form, (D, E, dynamics, measurement), each
@@ -447,10 +453,18 @@ VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long
   X(F, 3, 1, VF_DYN_REENTRY1D, VF_OBS_RANGE)                \
   X(F, 5, 4, VF_DYN_CT, VF_OBS_BEARING)
 
-// The instantiations of the classical kernel: both rule point counts of each
-// model pair, F(D, E, DYN, OBS, N).
-#define VFS_SHAPES_OF(F, D, E, DYN, OBS) F(D, E, DYN, OBS, 2 * (D) + 1) F(D, E, DYN, OBS, 2 * (D))
-#define VFS_SHAPES(F) VFS_PAIRS(VFS_SHAPES_OF, F)
+// The point counts of a model pair's rules, F(D, E, DYN, OBS, ND, NO): one
+// count on both transforms, the UT's or the CKF's (VFS_SHAPES_OF), or the
+// two mixed, the UT on the dynamics beside the CKF on the measurement and
+// the other way round (VFS_MIXED_OF).
+#define VFS_SHAPES_OF(F, D, E, DYN, OBS) \
+  F(D, E, DYN, OBS, 2 * (D) + 1, 2 * (D) + 1) F(D, E, DYN, OBS, 2 * (D), 2 * (D))
+#define VFS_MIXED_OF(F, D, E, DYN, OBS) \
+  F(D, E, DYN, OBS, 2 * (D) + 1, 2 * (D)) F(D, E, DYN, OBS, 2 * (D), 2 * (D) + 1)
+
+// The instantiations of the classical kernel: the four pairs of point counts
+// of each model pair, F(D, E, DYN, OBS, ND, NO): 20.
+#define VFS_SHAPES(F) VFS_PAIRS(VFS_SHAPES_OF, F) VFS_PAIRS(VFS_MIXED_OF, F)
 
 // The instantiations of the kernel of the BQ shapes: both point counts of
 // each model pair, each with the kinds (BQ, BQ), (classical, BQ) and (BQ,

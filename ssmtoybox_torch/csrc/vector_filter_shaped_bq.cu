@@ -5,8 +5,10 @@
 // template arguments.  The model pairs are those of the classical shaped
 // kernel (vector_filter_shaped.cu): reentry and constant velocity with the
 // radar, the pendulum, the falling body with its range and the coordinated
-// turn with four bearings.  Gauss-Hermite rules and mixed point counts stay
-// on the first version (vector_filter.cu), built into the same library.
+// turn with four bearings.  A BQ rule beside another point count and
+// Gauss-Hermite rules of fewer than 243 points stay on the first version
+// (vector_filter.cu), built into the same library; two classical rules at
+// these counts, mixed or not, run in the classical shaped kernel.
 //
 // Replaces, as those kernels do, ssmtoybox_tpu/ops/ddvec.py:514
 // dd_filter_batch (jnp double-double, no Pallas kernel).
@@ -50,9 +52,9 @@ vector_filter_shaped_bq_kernel(const __grid_constant__ VfsBqParams p,
                                long long y_k, int B, int n_steps, const Streams out) {
   const long long b = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
   if (b >= B) return;
-  vfs_record<D, E, DYN, OBS, N, KD, KO>(p, y + b * y_b, y_e, y_k, n_steps, out.m_fi + b,
-                                        out.P_fi + b, out.m_pr + b, out.P_pr + b, out.xx + b,
-                                        B);
+  vfs_record<D, E, DYN, OBS, N, N, KD, KO>(p, y + b * y_b, y_e, y_k, n_steps, out.m_fi + b,
+                                           out.P_fi + b, out.m_pr + b, out.P_pr + b, out.xx + b,
+                                           B);
 }
 
 }  // namespace

@@ -10,28 +10,30 @@ returns all five moment streams that the RTS smoother reads.  Five kernels,
 picked by the model pair and the rules' shape (:func:`kernel_of`):
 
 - ``vector_filter_shaped`` (``csrc/vector_filter_shaped.cu``, the step in
-  ``csrc/vector_filter_shaped.cuh``): both rules classical with the same
-  N = 2 D + 1 or 2 D points (UKF, CKF), N a template argument, the rules by
-  value;
+  ``csrc/vector_filter_shaped.cuh``): both rules classical with N = 2 D + 1
+  or 2 D points each (UKF, CKF: one count on both transforms, or the UKF
+  beside the CKF either way round), both counts template arguments, the
+  rules by value;
 - ``vector_filter_shaped_bq`` (``csrc/vector_filter_shaped_bq.cu``, the same
-  step header): the same point counts with a BQ rule (GPQ, BSQ) on either
-  transform or both, N and both kinds template arguments, the rules (dense
-  ``Wc`` included) by value;
+  step header): one of those counts on both transforms with a BQ rule (GPQ,
+  BSQ) on either transform or both, N and both kinds template arguments, the
+  rules (dense ``Wc`` included) by value;
 - ``vector_filter`` (``csrc/vector_filter.cu``, the step in
   ``csrc/vector_filter_step.cuh``), the first version: every other
-  configuration of those pairs (mixed point counts, rules of fewer than
-  :data:`_WARP_MIN_POINTS` points at other counts), one thread a
-  trajectory, N at run time;
+  configuration of those pairs (a BQ rule beside another point count, rules
+  of fewer than :data:`_WARP_MIN_POINTS` points at other counts), one
+  thread a trajectory, N at run time;
 - ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the steps in
   ``csrc/vector_filter_general.cuh`` and ``csrc/vector_filter_lanes.cuh``;
-  ``csrc/vector_filter_general_shaped.cu``, the step in
+  ``csrc/vector_filter_general_shaped.cu`` and
+  ``csrc/vector_filter_general_shaped_mixed.cu``, the step in
   ``csrc/vector_filter_general_shaped.cuh``): every other pair of the
   table's models; up to 4 measurement outputs one thread a trajectory, in
-  the shaped form where both rules are classical at one UT or CKF count on a
-  pair it instantiates (D, E, N, the models and the kinds template
-  arguments, the rules by value, no scratch), else in the general one-thread
-  form (the models, E, the kinds and N at run time; D and a bound on E
-  template arguments); above 4 outputs the lane-group form (a trajectory on
+  the shaped form where both rules are classical at the UT or CKF count
+  each, on a pair it instantiates (D, E, both counts, the models and the
+  kinds template arguments, the rules by value, no scratch), else in the
+  general one-thread form (the models, E, the kinds and N at run time; D
+  and a bound on E template arguments); above 4 outputs the lane-group form (a trajectory on
   8 lanes of a warp, its arrays in shared memory; D a template argument);
   rules of many points (Gauss-Hermite, of those five pairs too) in the warp
   form (a trajectory on a whole warp, each lane a 32nd of the points),
@@ -40,9 +42,9 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   general kernel's forms instantiated on models registered at run time
   (:func:`register_dyn_dd_vec`, :func:`register_obs_dd_vec`, and 1-D
   measurement forms of ``scalar_filter.register_obs_dd``), the shaped
-  one-thread form at the UT and CKF counts of either kind, the lane-group
-  form also for states of more than 5 dimensions, built at first use from a
-  header generated from their :class:`~.forms.KernelForm` s
+  one-thread form at one UT or CKF count on both rules, of either kind, the
+  lane-group form also for states of more than 5 dimensions, built at first
+  use from a header generated from their :class:`~.forms.KernelForm` s
   (:func:`build_registered`).
 
 The first four take the table's models; the first three only the five
@@ -440,23 +442,35 @@ def _registered_pair(params: VectorFilterParams) -> bool:
     return params.dyn_form is not None or params.obs_form is not None
 
 
+def _shaped_counts(params: VectorFilterParams) -> bool:
+    """Whether each rule has the UT or the CKF point count of the state
+    (2 D + 1 or 2 D), the counts of the shaped kernels and forms."""
+    D = params.dim_state
+    return params.dyn.n in (2 * D, 2 * D + 1) and params.obs.n in (2 * D, 2 * D + 1)
+
+
 def kernel_of(params: VectorFilterParams) -> str:
     """The kernel that runs ``params``.  A registered model on either side:
     ``"vector_filter_registered"``.  A model pair that the first version and
     the shaped kernels do not instantiate: ``"vector_filter_general"``.
-    Else both rules with the same point count N = 2 D + 1 or 2 D (the UT and
-    CKF counts): ``"vector_filter_shaped"`` when both are classical, else
+    Else, each rule at the UT or CKF count (2 D + 1 or 2 D points): both
+    classical, ``"vector_filter_shaped"`` (one count on both transforms, or
+    the UKF beside the CKF); a BQ rule on either or both at one count,
     ``"vector_filter_shaped_bq"``.  Rules that the warp form takes
     (:func:`_warp_takes`: Gauss-Hermite on 5-D states):
-    ``"vector_filter_general"`` in that form.  Any other count or mixed
-    counts: ``"vector_filter"``, the first version."""
-    D, dyn, obs = params.dim_state, params.dyn, params.obs
+    ``"vector_filter_general"`` in that form.  Any other count, and a BQ
+    rule beside a rule of another count: ``"vector_filter"``, the first
+    version."""
+    dyn, obs = params.dyn, params.obs
     if _registered_pair(params):
         return "vector_filter_registered"
     if not _instantiated(params):
         return "vector_filter_general"
-    if dyn.n == obs.n and dyn.n in (2 * D, 2 * D + 1):
-        return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
+    if _shaped_counts(params):
+        if dyn.kind == obs.kind == 0:
+            return "vector_filter_shaped"
+        if dyn.n == obs.n:
+            return "vector_filter_shaped_bq"
     return "vector_filter_general" if _warp_takes(params) else "vector_filter"
 
 
@@ -479,21 +493,21 @@ def _warp_takes(params: VectorFilterParams) -> bool:
 
 
 def _shaped_takes(params: VectorFilterParams) -> bool:
-    """Whether the shaped one-thread form (``vgs_step`` of
+    """Whether the shaped one-thread form (``vgs_record`` of
     ``csrc/vector_filter_general_shaped.cuh``) runs ``params``: at most 4
-    measurement outputs on a state of 2-5 dimensions, both rules with one
-    point count N = 2 D + 1 or 2 D; for the general kernel a pair and rules
-    it instantiates (``vgs_takes`` of the header, via :func:`_fit`: a pair of
-    ``VGS_PAIRS``, both rules classical), for the registered kernel rules of
-    either kind and registered constants that its parameters hold
-    (:data:`_VGS_MAX_C`)."""
-    D, n = params.dim_state, params.dyn.n
-    if not (2 <= D <= _SHAPED_MAX_DIM and params.dim_out <= 4 and params.obs.n == n
-            and n in (2 * D, 2 * D + 1)):
+    measurement outputs on a state of 2-5 dimensions, each rule with 2 D + 1
+    or 2 D points; for the general kernel a pair and rules it instantiates
+    (``vgs_takes`` of the header, via :func:`_fit`: a pair of ``VGS_PAIRS``,
+    both rules classical, one count on both or the two mixed), for the
+    registered kernel one count on both rules, rules of either kind and
+    registered constants that its parameters hold (:data:`_VGS_MAX_C`)."""
+    if not (2 <= params.dim_state <= _SHAPED_MAX_DIM and params.dim_out <= 4
+            and _shaped_counts(params)):
         return False
     if _registered_pair(params):
-        return all(len(f.consts) <= _VGS_MAX_C for f in (params.dyn_form, params.obs_form)
-                   if f is not None)
+        return params.obs.n == params.dyn.n and all(
+            len(f.consts) <= _VGS_MAX_C for f in (params.dyn_form, params.obs_form)
+            if f is not None)
     return bool(_fit().vgs_takes_on(ctypes.byref(_c_params(params, torch.device("cpu")))))
 
 
@@ -510,13 +524,15 @@ def lanes_of(params: VectorFilterParams) -> int:
     (243) against 71.0; so 243 (between 81 and 243 not measured).  For at
     most 4 measurement outputs on a state of at most 5 dimensions, one thread
     a trajectory: :data:`_SHAPED`, the shaped form (``vgs_record``), where it
-    takes the shape (:func:`_shaped_takes`), else 0, the general one-thread
-    form (``vfg_step``).  The shaped form keeps 3 and 4 outputs too: raw
-    launches at 10,000 x 100 in turns (NVIDIA H100 80GB HBM3 at 700 W,
-    ``tools/lane_variants.py``, PERF.md section 6), CT + 3 bearings
-    CKF 2.13 ms against 2.36 in the lane-group form on 8 lanes and 3.17 in
-    the general one-thread form, the falling body with 4 bearings CKF 1.06
-    against 1.49-1.55.  0 too for every shape of the other kernels.  Above
+    takes the shape (:func:`_shaped_takes`: the general kernel's UKF beside
+    its CKF too), else 0, the general one-thread form (``vfg_step``; mixed
+    counts with a BQ rule, Gauss-Hermite rules under 243 points, a
+    registered configuration's mixed counts).  The shaped form keeps 3 and
+    4 outputs too: raw launches at 10,000 x 100 in turns (NVIDIA H100 80GB
+    HBM3 at 700 W, ``tools/lane_variants.py``, PERF.md section 6), CT + 3
+    bearings CKF 2.13 ms against 2.36 in the lane-group form on 8 lanes and
+    3.17 in the general one-thread form, the falling body with 4 bearings
+    CKF 1.06 against 1.49-1.55.  0 too for every shape of the other kernels.  Above
     that the lane-group form (``vfl_step`` of
     ``csrc/vector_filter_lanes.cuh``) on :data:`_LANES` lanes where an SM
     holds any warp of it (a warp's trajectories' arrays fit in a block's
@@ -963,13 +979,14 @@ def _bind(lib: ctypes.CDLL):
 
 #: the sources of the library: the first-version kernel, the classical shaped
 #: kernel, the kernel of the BQ shapes, the general kernel and its shaped
-#: one-thread form
+#: one-thread form (one count on both rules, then the mixed counts)
 SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu",
-           "vector_filter_general.cu", "vector_filter_general_shaped.cu"]
+           "vector_filter_general.cu", "vector_filter_general_shaped.cu",
+           "vector_filter_general_shaped_mixed.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile the five sources of :data:`SOURCES` for sm_90a with nvcc
+    """Compile the six sources of :data:`SOURCES` for sm_90a with nvcc
     (once, a compiler each, at once, into one library) and bind it; later
     calls return the bound library."""
     return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
@@ -978,8 +995,6 @@ def build() -> ctypes.CDLL:
 def _bind_host(lib: ctypes.CDLL):
     lib.vf_host_run.restype = ctypes.c_int
     lib.vf_host_run.argtypes = [ctypes.POINTER(_CParams)] + _STREAMS + [ctypes.c_void_p] * 6
-    lib.vfs_host_run.restype = ctypes.c_int
-    lib.vfs_host_run.argtypes = [ctypes.POINTER(_CShapedParams)] + _STREAMS + [ctypes.c_void_p] * 5
     lib.vfs_bq_host_run.restype = ctypes.c_int
     lib.vfs_bq_host_run.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS
                                     + [ctypes.c_void_p] * 5)
@@ -992,6 +1007,18 @@ def _host_shim() -> ctypes.CDLL:
     """The step header built for the host with g++ (tests only)."""
     return _build.bound("vector_filter_host", ["vector_filter_host.cpp"], _bind_host,
                         host=True)
+
+
+def _bind_shaped_host(lib: ctypes.CDLL):
+    lib.vfs_host_run.restype = ctypes.c_int
+    lib.vfs_host_run.argtypes = [ctypes.POINTER(_CShapedParams)] + _STREAMS + [ctypes.c_void_p] * 5
+
+
+def _shaped_host() -> ctypes.CDLL:
+    """The classical shaped kernel's step built for the host with g++ (tests
+    only; a library of its own, ``vfs_host_run``)."""
+    return _build.bound("vector_filter_shaped_host", ["vector_filter_shaped_host.cpp"],
+                        _bind_shaped_host, host=True)
 
 
 def _bind_general_shaped_host(lib: ctypes.CDLL):
@@ -1218,7 +1245,8 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     registered kernel for a registered model, else the general kernel)
     compiled for the host on a CPU tensor, the general and registered
     kernels in the form of ``lanes`` (:func:`lanes_of` by default; the
-    general kernel's shaped form through its own host build,
+    classical shaped kernel and the general kernel's shaped form through
+    host builds of their own, :func:`_shaped_host` and
     :func:`_general_shaped_host`); the five
     streams of :func:`vector_filter`, after checking that an instantiation
     of the configuration's dimensions ran."""
@@ -1248,8 +1276,8 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
         ran = _general_shaped_host().vgs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B,
                                                   T, *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_shaped":
-        ran = _host_shim().vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
-                                        *(o.data_ptr() for o in out))
+        ran = _shaped_host().vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                          *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_shaped_bq":
         ran = _host_shim().vfs_bq_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                            *(o.data_ptr() for o in out))

@@ -526,11 +526,12 @@ def _same_bits(a, b):
 
 
 @pytest.mark.parametrize("batch", [1, 7, 31, 4097, 10_000])
-@pytest.mark.parametrize("rule", ["UKF", "CKF"])
+@pytest.mark.parametrize("rule", ["UKF", "CKF", "UKF/CKF", "CKF/UKF"])
 @pytest.mark.parametrize("system", ["reentry", "cv"])
 def test_vector_shaped_kernel_matches_plain(card, system, rule, batch):
-    """The four shapes of the shaped kernel at batch sizes that leave the last
-    warp and block ragged: equal to the plain version to the bit over 20
+    """The eight shapes of the shaped kernel on these two pairs (the UT and
+    CKF counts on both transforms, and the two mixed) at batch sizes that
+    leave the last warp and block ragged: equal to the plain version to the bit over 20
     steps, all five streams; a second launch equal to the first; both
     counters move by one."""
     from ssmtoybox_torch.ops import vector_filter as vf
@@ -550,25 +551,28 @@ def test_vector_shaped_kernel_matches_plain(card, system, rule, batch):
 #: reentry GPQ kernel parameters (``chip_smoke.VF_GPQ_DYN`` / ``VF_GPQ_OBS``)
 GPQ_RE_DYN = np.array([[1.0, 10, 10, 10, 10, 10]])
 GPQ_RE_OBS = np.array([[1.0, 10, 10, 1e4, 1e4, 1e4]])
-#: reentry rule -> the kernel ``kernel_of`` names: mixed point counts the first
-#: version, GH-3 (243 points) the general kernel's warp form, BQ rules and
+#: reentry rule -> the kernel ``kernel_of`` names: a BQ rule beside another
+#: point count the first version, the UKF beside the CKF the classical shaped
+#: kernel, GH-3 (243 points) the general kernel's warp form, BQ rules and
 #: mixed kinds at one UT count the BQ shapes
-FIRST_OR_BQ = {"GH-3": "vector_filter_general", "UKF/CKF": "vector_filter",
-               "BSQ-UT": "vector_filter_shaped_bq", "UKF/BSQ-UT": "vector_filter_shaped_bq",
-               "BSQ-UT/UKF": "vector_filter_shaped_bq"}
+FIRST_OR_BQ = {"GH-3": "vector_filter_general", "UKF/CKF": "vector_filter_shaped",
+               "GPQ-UT/CKF": "vector_filter", "BSQ-UT": "vector_filter_shaped_bq",
+               "UKF/BSQ-UT": "vector_filter_shaped_bq", "BSQ-UT/UKF": "vector_filter_shaped_bq"}
 
 
 def _launch_counts(vf):
     return vf.LAUNCHES, vf.SHAPED_LAUNCHES, vf.BQ_SHAPED_LAUNCHES
 
 
-@pytest.mark.parametrize("rule", ["GH-3", "BSQ-UT", "UKF/BSQ-UT", "BSQ-UT/UKF", "UKF/CKF"])
+@pytest.mark.parametrize("rule", ["GH-3", "BSQ-UT", "UKF/BSQ-UT", "BSQ-UT/UKF", "UKF/CKF",
+                                  "GPQ-UT/CKF"])
 def test_vector_first_version_keeps_the_other_shapes(card, monkeypatch, rule):
-    """Mixed point counts launch the first-version kernel, GH-3 the general
-    kernel (its warp form); BQ rules and mixed kinds at one UT count the
-    kernel of the BQ shapes; each equal to the plain version to the bit,
+    """A BQ rule beside another point count launches the first-version
+    kernel, the UKF beside the CKF the classical shaped kernel, GH-3 the
+    general kernel (its warp form); BQ rules and mixed kinds at one UT count
+    the kernel of the BQ shapes; each equal to the plain version to the bit,
     counted on the kernel that ran.  Sent there by force, the first version
-    still runs GH-3 and the BQ rules to the bit."""
+    still runs every one of them to the bit."""
     from ssmtoybox_torch.ops import vector_filter as vf
     params, y = _vector_case(card, "reentry", rule, 257)
     kernel = FIRST_OR_BQ[rule]
@@ -576,7 +580,7 @@ def test_vector_first_version_keeps_the_other_shapes(card, monkeypatch, rule):
     plain = vf._vector_filter_plain(params, y)
     before = _launch_counts(vf)
     got = vf.vector_filter(params, y)
-    assert _launch_counts(vf) == (before[0] + 1, before[1],
+    assert _launch_counts(vf) == (before[0] + 1, before[1] + int(kernel == "vector_filter_shaped"),
                                   before[2] + int(kernel == "vector_filter_shaped_bq"))
     monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter")
     first = vf.vector_filter(params, y)
@@ -639,11 +643,14 @@ def test_a_failed_bq_shaped_launch_raises(card, monkeypatch):
 
 
 def test_a_failed_shaped_launch_raises(card, monkeypatch):
-    """A configuration the shaped kernel's launcher refuses (mixed point
-    counts, routed to it by force) raises, counts nothing and falls back to
-    nothing."""
+    """A configuration the shaped kernel's launcher refuses (CT with the
+    radar, a model pair it does not instantiate, under the UKF, routed to it
+    by force) raises, counts nothing and falls back to nothing."""
     from ssmtoybox_torch.ops import vector_filter as vf
-    params, y = _vector_case(card, "reentry", "UKF/CKF", 7)
+    dyn, obs = _general_systems(card)["ct_radar"]
+    ukf = stt.UnscentedKalman(dyn, obs)
+    params = vf.prepare(dyn, obs, ukf.tf_dyn, ukf.tf_obs)
+    y = _zoo_records(card, dyn, obs, 7)
     monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter_shaped")
     before, shaped_before = vf.LAUNCHES, vf.SHAPED_LAUNCHES
     with pytest.raises(RuntimeError, match="vector_filter_shaped kernel launch failed"):
@@ -1401,17 +1408,20 @@ def _shaped_streams_equal(card, vf, params, dyn, obs, counter, batch):
 
 @pytest.mark.parametrize("batch", [1, 7, 4097, 10000])
 @pytest.mark.parametrize("case", [("radar", "UKF"), ("radar", "CKF"), ("2 bearings", "CKF"),
-                                  ("3 bearings", "CKF")], ids=" ".join)
+                                  ("3 bearings", "CKF"), ("radar", "UKF/CKF"),
+                                  ("3 bearings", "CKF/UKF")], ids=" ".join)
 def test_shaped_general_form_matches_plain(card, case, batch):
-    """CT with the radar or 2-3 bearings under the UKF or the CKF: the general
-    kernel's shaped one-thread form, one launch counted on it, equal to the
-    plain version to the bit over 20 steps at B = 1, 7, 4,097 and 10,000."""
+    """CT with the radar or 2-3 bearings under the UKF, the CKF or the two
+    mixed (the first on the dynamics): the general kernel's shaped one-thread
+    form, one launch counted on it, equal to the plain version to the bit
+    over 20 steps at B = 1, 7, 4,097 and 10,000."""
     from ssmtoybox_torch.ops import vector_filter as vf
     obs_name, rule = case
     dyn, obs = (_general_systems(card)["ct_radar"] if obs_name == "radar" else
                 _ct_bearings(card, int(obs_name.split()[0])))
-    alg = (stt.UnscentedKalman if rule == "UKF" else stt.CubatureKalman)(dyn, obs)
-    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    rules = {"UKF": stt.UnscentedKalman(dyn, obs), "CKF": stt.CubatureKalman(dyn, obs)}
+    a, _, b = rule.partition("/")
+    params = vf.prepare(dyn, obs, rules[a].tf_dyn, rules[b or a].tf_obs)
     assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_general", vf._SHAPED)
     _shaped_streams_equal(card, vf, params, dyn, obs, "GENERAL_LAUNCHES", batch)
 

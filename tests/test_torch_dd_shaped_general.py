@@ -341,7 +341,7 @@ ROUTES = [
     (("falling_body", "b4", "ckf"), ("vector_filter_general", vf._SHAPED)),
     (("ct", "b1", "ukf"), ("vector_filter_general", 0)),              # a pair it does not hold
     (("ct", "radar", "gpq"), ("vector_filter_general", 0)),           # BQ on a table pair
-    (("ct", "radar", "ukf/ckf"), ("vector_filter_general", 0)),       # mixed counts
+    (("ct", "radar", "ukf/ckf"), ("vector_filter_general", vf._SHAPED)),  # mixed counts
     (("pendulum", "radar", "gh3"), ("vector_filter_general", 0)),     # 9 points
     (("ct", "radar", "gh3"), ("vector_filter_general", vf._WARP)),
     (("pendulum", "sine", "ukf"), ("vector_filter_shaped", 0)),       # the shaped kernel's pair
@@ -356,11 +356,12 @@ ROUTES = [
 @pytest.mark.parametrize("case,want", ROUTES, ids=["-".join(c) for c, _ in ROUTES])
 def test_lanes_of_routes_the_shaped_shapes(case, want):
     """The shaped one-thread form takes a general-kernel shape of at most 4
-    outputs whose pair and classical rules at one UT or CKF count it
-    instantiates, and a registered configuration at those counts of either
-    kind; every other shape keeps its form (the general one-thread form for
-    other pairs, BQ or mixed kinds on a table pair, mixed counts and
-    Gauss-Hermite rules under 243 points; the warp form above)."""
+    outputs whose pair and classical rules at the UT or CKF counts (one on
+    both, or the two mixed) it instantiates, and a registered configuration
+    at one of those counts of either kind; every other shape keeps its form
+    (the general one-thread form for other pairs, BQ or mixed kinds on a
+    table pair, a registered configuration's mixed counts and Gauss-Hermite
+    rules under 243 points; the warp form above)."""
     _need_gxx()
     assert (vf.kernel_of(_params(*case)), vf.lanes_of(_params(*case))) == want
 

@@ -30,10 +30,11 @@ of the JAX package's ``ddvec.dd_supports`` on a table of configurations
 (``JAX_ONLY``, the configurations only the JAX package's dd engine runs, is
 empty), and
 :func:`vector_filter.kernel_of` sends the UT and CKF shapes to the shaped
-kernels (classical rules to ``vector_filter_shaped``, a BQ rule on either
-transform to ``vector_filter_shaped_bq``, whose host build
-``tests/test_torch_vector_filter_bq.py`` holds), Gauss-Hermite and mixed
-point counts to the first version, and the model pairs those three do not
+kernels (classical rules to ``vector_filter_shaped``, the UKF beside the
+CKF too, whose mixed counts ``tests/test_torch_dd_mixed_counts.py`` holds;
+a BQ rule on either transform to ``vector_filter_shaped_bq``, whose host
+build ``tests/test_torch_vector_filter_bq.py`` holds), Gauss-Hermite
+rules of fewer points to the first version, and the model pairs those three do not
 instantiate (CT + radar, CT + 3 bearings) to the general kernel, whose host
 build ``tests/test_torch_dd_pairs.py`` holds on more pairs.
 
@@ -423,9 +424,9 @@ def _mixed(dyn_of, obs_of):
 
 
 #: configuration -> the kernel that runs it: the UT and CKF shapes of every model
-#: pair take the shaped kernels, classical rules the classical one, GPQ, BSQ and
-#: mixed kinds the kernel of the BQ shapes; mixed point counts the first
-#: version; Gauss-Hermite on the reentry state (243 points) the general
+#: pair take the shaped kernels, classical rules the classical one (the UKF
+#: beside the CKF too), GPQ, BSQ and mixed kinds at one count the kernel of the
+#: BQ shapes; Gauss-Hermite on the reentry state (243 points) the general
 #: kernel's warp form
 ROUTES = {"ukf": "vector_filter_shaped", "ckf": "vector_filter_shaped",
           "cv_ukf": "vector_filter_shaped", "cv_ckf": "vector_filter_shaped",
@@ -435,7 +436,7 @@ ROUTES = {"ukf": "vector_filter_shaped", "ckf": "vector_filter_shaped",
           "gh3": "vector_filter_general", "gpq_ut": "vector_filter_shaped_bq",
           "bsq_ut": "vector_filter_shaped_bq",
           "ukf/bsq_ut": "vector_filter_shaped_bq", "bsq_ut/ukf": "vector_filter_shaped_bq",
-          "ukf/ckf": "vector_filter", "cv_ckf/cv_ukf": "vector_filter"}
+          "ukf/ckf": "vector_filter_shaped", "cv_ckf/cv_ukf": "vector_filter_shaped"}
 
 
 @pytest.mark.parametrize("name", sorted(ROUTES))
@@ -446,16 +447,16 @@ def test_kernel_of_routes_by_shape(name):
 
 
 def test_shaped_host_build_refuses_other_shapes(data):
-    """The shaped header's host entries run no instantiation for mixed point
-    counts (the classical one for UKF / CKF, the BQ one for BSQ-UT / CKF),
-    and a rule that does not fit the parameter struct (GH-3's 243 points; a
-    BQ rule in the classical struct) is refused before any call."""
-    for pair, kernel in ((("ukf", "ckf"), "vector_filter_shaped"),
-                         (("bsq_ut", "ckf"), "vector_filter_shaped_bq")):
-        alg = _mixed(*pair)
+    """The shaped header's host entries run no instantiation for a shape
+    they do not hold (the classical one for CT with the radar, a model pair
+    without its form; the BQ one for the mixed counts of BSQ-UT / CKF), and
+    a rule that does not fit the parameter struct (GH-3's 243 points; a BQ
+    rule in the classical struct) is refused before any call."""
+    for alg, system, kernel in ((_port("ct_radar"), "ct_radar", "vector_filter_shaped"),
+                                (_mixed("bsq_ut", "ckf"), "reentry", "vector_filter_shaped_bq")):
         params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
         with pytest.raises(RuntimeError, match="ran the D=0 step"):
-            vf._host_shim_run(params, data["reentry"][:1], kernel=kernel)
+            vf._host_shim_run(params, data[system][:1], kernel=kernel)
     for name, kernel, what in (("gh3", "vector_filter_shaped", "shaped kernel takes classical"),
                                ("gh3", "vector_filter_shaped_bq", "BQ shapes takes classical "
                                                                   "and BQ rules of up to 11"),

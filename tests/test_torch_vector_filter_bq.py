@@ -19,7 +19,7 @@ On the CPU:
   quadratic form in different orders;
 - the ctypes mirror of the parameter struct against the header, and the
   refusals: a rule the struct cannot hold raises before any build or call,
-  mixed point counts run no instantiation.
+  mixed point counts with a BQ rule run no instantiation.
 
 Measurements come from a numpy seed (``_simulate`` of
 ``test_torch_vector_filter.py``): 33 trajectories of 20 steps.
@@ -161,11 +161,12 @@ def test_new_pairs_bq_fused_engine_matches_jax_f64(data33, name):
     ("gpq_ut", "vector_filter_shaped_bq"), ("pend_gpq_sr", "vector_filter_shaped_bq"),
     ("ukf/bsq_ut", "vector_filter_shaped_bq"), ("ckf/gpq_sr", "vector_filter_shaped_bq"),
     ("gpq_sr/ckf", "vector_filter_shaped_bq"), ("ckf", "vector_filter_shaped"),
-    ("ukf/ckf", "vector_filter"), ("bsq_ut/ckf", "vector_filter")])
+    ("ukf/ckf", "vector_filter_shaped"), ("bsq_ut/ckf", "vector_filter")])
 def test_kernel_of_sends_bq_rules_at_the_shaped_counts_to_the_bq_shapes(name, kernel):
     """GPQ and BSQ rules, alone or beside a classical rule, at one point
     count N = 2 D + 1 or 2 D take the BQ shapes; two classical rules the
-    classical shaped kernel; mixed counts the first version."""
+    classical shaped kernel, at mixed counts too; a BQ rule beside another
+    count the first version."""
     assert vf.kernel_of(_params(name)[1]) == kernel
 
 

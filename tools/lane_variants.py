@@ -13,7 +13,7 @@ lanes a trajectory, the warp form on 32), with ``-DVFL_G=4`` and with
 a warp), and so is a registered library for the 8-D chain of
 ``chip_smoke.registry_systems`` (its forms, and 4 lanes) and for the
 registered lanes of the shaped form (that form and the one-thread form),
-and the general kernel's shaped source alone four times more, with every
+and the general kernel's two shaped sources alone four times more, with every
 point loop rolled (``-DVGS_UNROLL_BUDGET=0``), every one unrolled (a budget
 of 10^9), and on 64 and 128 threads a block (``-DVGS_THREADS``). On each lane of
 ``LANES`` (10,000 trajectories x 100 steps simulated on the card from the
@@ -39,8 +39,11 @@ with the radar, the registered driven pendulum with its two-output
 measurement and the registered pendulum copy with the radar under the UKF)
 and lanes of other kernels and forms, for turns between trees (the reentry
 bench lane's UKF and CT + 4 bearings CKF in the shaped kernel, CT + radar
-under the UKF beside the CKF in the general one-thread form, the driven
-pendulum with the radar under GH-3 in the registered one).
+and reentry + radar under the UKF beside the CKF, in the general kernel's
+shaped form and the shaped kernel, the driven pendulum with the radar under
+GH-3 in the registered one).  A lane of the classical shaped kernel runs
+there and in the first version by force, each with its ptxas counts and
+SASS.
 
 With ``--tree DIR``: the package of the checkout ``DIR`` is imported (only
 the wrapper's API is called on it) and each lane of ``LANES`` timed as that
@@ -71,7 +74,7 @@ LANES = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"
          ("falling body + 4 bearings", "CKF"), ("pendulum + radar", "UKF"),
          ("driven pendulum + mix", "UKF"), ("pendulum copy + radar", "UKF"),
          ("reentry + radar", "UKF"), ("CT + 4 bearings", "CKF"), ("CT + radar", "UKF/CKF"),
-         ("driven pendulum + radar", "GH-3"),
+         ("reentry + radar", "UKF/CKF"), ("driven pendulum + radar", "GH-3"),
          ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 6 bearings", "CKF"),
          ("CT + 7 bearings", "CKF"), ("CT + 8 bearings", "CKF"), ("CT + 9 bearings", "CKF"),
          ("CT + 16 bearings", "CKF"), ("chain 8-D + radar", "CKF"),
@@ -158,7 +161,7 @@ def other_tree(cs, torch, vf, params, data, reps, tag, card):
         held(cs, torch, vf, p, ys, out, f"{tag} {name} {rule}")
         ms = cs.raw_ms(torch, lambda: (vf.vector_filter(p, ys), 0)[1], reps=reps)
         b_ms, b_by = cs.vf_bound(p, ys.shape[-1], ys.shape[0])
-        cs.log(f"lane_variants ({tag}) {name} {rule} ({p.dyn.n} points) {ys.shape[0]}x"
+        cs.log(f"lane_variants ({tag}) {name} {rule} ({p.dyn.n}/{p.obs.n} points) {ys.shape[0]}x"
                f"{ys.shape[-1]}: {vf.kernel_of(p)} on {vf.lanes_of(p)} lanes (0: one thread; "
                f"1, since the shaped form: one thread, shaped); "
                f"== plain to "
@@ -267,7 +270,8 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
                 pool.submit(_build.bound, "vector_filter_w16", vf.SOURCES, vf._bind,
                             vf._NVCC_FLAGS + ["-DVFL_WARP=16"])]
         jobs += [pool.submit(_build.bound, f"vector_filter_gs_{name.split()[0]}",
-                             ["vector_filter_general_shaped.cu"], _bind_vgs,
+                             ["vector_filter_general_shaped.cu",
+                              "vector_filter_general_shaped_mixed.cu"], _bind_vgs,
                              vf._NVCC_FLAGS + [f"-D{setting}"])
                  for name, setting in BUDGETS.items()]
         if reg_forms:
@@ -307,15 +311,24 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
         fit16.vfl_fit_on(ctypes.byref(vf._c_params(p, torch.device("cpu"))), 16, out)
         return tuple(out)
     for (name, rule), p in params.items():
-        if vf.kernel_of(p).startswith("vector_filter_shaped"):
-            continue        # the shaped kernels' lanes are for turns between trees (--tree)
+        kernel = vf.kernel_of(p)
+        if kernel == "vector_filter_shaped_bq":
+            continue        # its lanes are for turns between trees (--tree)
         ys = data[name]
-        registered = vf.kernel_of(p) == "vector_filter_registered"
+        registered = kernel == "vector_filter_registered"
         shaped = vf._shaped_takes(p)
         runs, entry = {}, {}
         plain = vf._vector_filter_plain(p, ys[:HEAD])
-        for g in (vf._SHAPED, *BUDGETS, vf._WARP, 16, 8, 4, 0, "first"):
-            if g == "first":
+        candidates = (("kernel", "first") if kernel == "vector_filter_shaped" else
+                      (vf._SHAPED, *BUDGETS, vf._WARP, 16, 8, 4, 0, "first"))
+        for g in candidates:
+            if g == "kernel":
+                # the classical shaped kernel, both point counts template arguments
+                runs[g] = cs.vf_raw(torch, vf, p, ys, dev, kernel)
+                targs = (p.dim_state, p.dim_out, p.dyn_model, p.obs_model, p.dyn.n, p.obs.n)
+                entry[g] = (f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs) + "E",
+                            _build.BUILD_LOGS.get("vector_filter", ""), vf.build())
+            elif g == "first":
                 if not vf._instantiated(p) or registered:
                     continue
                 runs[g] = cs.vf_raw(torch, vf, p, ys, dev, "vector_filter")
@@ -357,9 +370,10 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
         for g in order + order[::-1]:
             turns.setdefault(g, []).append(cs.raw_ms(torch, runs[g], reps=reps))
         b_ms, b_by = cs.vf_bound(p, ys.shape[-1], ys.shape[0])
-        routed = vf.lanes_of(p) if vf.kernel_of(p) != "vector_filter" else "first"
-        cs.log(f"lane_variants {name} {rule} ({p.dyn.n} points) {ys.shape[0]}x{ys.shape[-1]}, "
-               f"E={p.dim_out}, D={p.dim_state}: routed {vf.kernel_of(p)}, form {routed} "
+        routed = {"vector_filter": "first", "vector_filter_shaped": "kernel"}.get(
+            kernel, vf.lanes_of(p))
+        cs.log(f"lane_variants {name} {rule} ({p.dyn.n}/{p.obs.n} points) {ys.shape[0]}x"
+               f"{ys.shape[-1]}, E={p.dim_out}, D={p.dim_state}: routed {kernel}, form {routed} "
                f"(lanes; 0: one thread, {vf._SHAPED}: shaped one thread); bound {b_ms:.4f} ms "
                f"({b_by}); card {card}")
         for g, ms in turns.items():
@@ -371,10 +385,12 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
                 shared = size * 8
                 occupancy = (f"; {warps} warps an SM resident, {ys.shape[0] * g / 32 / 132:.1f} "
                              f"in the lane; {shared} bytes of shared memory a trajectory")
-            elif g == vf._SHAPED or g in BUDGETS:
+            elif g in (vf._SHAPED, "kernel") or g in BUDGETS:
                 n_sass, f64 = sass_of(cs, lib, fn, p.dyn.n)
-                occupancy = f"; SASS {n_sass} instructions, {f64} f64 a step"
-            form = ("first version" if g == "first" else "warp form" if g == vf._WARP else
+                occupancy = (f"; SASS {n_sass} instructions, {f64} f64 a step (loops counted at "
+                             f"{p.dyn.n} points)")
+            form = ("first version" if g == "first" else "shaped kernel" if g == "kernel" else
+                    "warp form" if g == vf._WARP else
                     "warp form on 16 lanes" if g == 16 else
                     "shaped one thread" if g == vf._SHAPED else
                     f"shaped one thread, {g}" if "threads" in str(g) else

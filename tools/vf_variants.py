@@ -234,7 +234,7 @@ def main():
                 if not m:
                     continue
                 kernel, targs = m.group(1), [int(t) for t in re.findall(r"Li(\d+)E", m.group(2))]
-                # points of the shaped kernel's rule; the first version's at the UT
+                # points of the shaped kernel's dynamics rule; the first version's at the UT
                 # count, classical rules only (a BQ rule's loops nest)
                 shaped = kernel.endswith("shaped_kernel")
                 if not shaped and targs[4:] != [0, 0]:
