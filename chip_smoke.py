@@ -7,14 +7,15 @@ Needs one CUDA card and ``nvcc`` (PATH, $CUDA_HOME or /usr/local/cuda); it
 fails at once without them.  Phases, each fatal on failure:
 
 1. set-up: print the card's name and power limit, build the CUDA sources
-   ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``student_mc.cu``,
-   ``student_qrq.cu``, ``vandermonde.cu``, ``vector_filter.cu``,
-   ``vector_filter_shaped.cu``, ``vector_filter_shaped_bq.cu``,
-   ``vector_filter_general.cu``, ``vector_filter_general_shaped.cu`` and
-   ``vector_filter_general_shaped_mixed.cu`` for
-   sm_90a (one nvcc each, at once; the two
-   Student-MC sources make one library, the six vector filter sources
-   another), print each library's build time and
+   ``ssmtoybox_torch/csrc/scalar_filter.cu``, ``scalar_filter_slots.cu``,
+   ``scalar_filter_slots_wide.cu``, ``student_mc.cu``, ``student_qrq.cu``,
+   ``vandermonde.cu``, ``vector_filter.cu``, ``vector_filter_shaped.cu``,
+   ``vector_filter_shaped_bq.cu``, ``vector_filter_general.cu``,
+   ``vector_filter_general_shaped.cu``,
+   ``vector_filter_general_shaped_mixed.cu`` and
+   ``vector_filter_shaped_bq_mixed.cu`` for sm_90a (one nvcc each, at once;
+   the three scalar filter sources make one library, the two Student-MC
+   sources another, the seven vector filter sources a third), print each library's build time and
    their ptxas lines; the UNGM UKF lane is built with no device argument and
    must lie on the card, the port's default device;
 2. the scalar filter kernel vs its plain PyTorch twin, both on the card, for
@@ -104,12 +105,13 @@ fails at once without them.  Phases, each fatal on failure:
     radar, the pendulum, the falling body with its range, CT with four
     bearings) under UKF, CKF, a BQ rule at the UT count (GPQ-UT; BSQ-UT too
     on reentry, on CV instead) and GPQ with spherical-radial points, every
-    rule on both transforms, the mixed kinds of both counts and the UKF
-    beside the CKF either way round (on CV every pair of its four rules),
-    GH-3 on reentry: the classical shaped kernel
-    (``csrc/vector_filter_shaped.cu``, 20 instantiations: 4 pairs of point
-    counts of each model pair), the kernel of the
-    BQ shapes (``csrc/vector_filter_shaped_bq.cu``, 30) and, at every pair
+    rule on both transforms, the mixed kinds of both counts, the UKF beside
+    the CKF and a BQ rule beside the other count either way round (on CV
+    every pair of its four rules), GH-3 on reentry: the classical shaped
+    kernel (``csrc/vector_filter_shaped.cu``, 20 instantiations: 4 pairs of
+    point counts of each model pair), the kernel of the BQ shapes
+    (``csrc/vector_filter_shaped_bq.cu`` and ``_mixed.cu``, 60: one count on
+    both transforms or the two mixed, three pairs of kinds) and, at every pair
     (sent there by force where another kernel takes it), the first version
     (``csrc/vector_filter.cu``, 20), at B = 1, 7, 31, 4,097 and 10,000, each
     wrapper launch counted on the kernel ``kernel_of`` names, each batch
@@ -139,10 +141,12 @@ fails at once without them.  Phases, each fatal on failure:
     same data under BSQ-UT (the kernel of the BQ shapes), under GH-3 (the
     general kernel's warp form), under the UKF beside the CKF (the classical
     shaped kernel at mixed counts; these two with their filter RMSE within
-    1e-6 relative of the eager f64 lane's, every run finite) and under GPQ-UT
-    beside the CKF (the first version) through ``engine="dd"``, each against
-    its plain version at the full shape to the bit, RMSE finite; the UKF /
-    CKF lane's raw launches in turns with the first version's on the same
+    1e-6 relative of the eager f64 lane's, every run finite), under GPQ-UT
+    beside the CKF (the kernel of the BQ shapes at mixed counts; the first
+    version by force on the same input, to the bit too) and under GH-2 (32
+    points: the first version) through ``engine="dd"``, each against its
+    plain version at the full shape to the bit, RMSE finite; the two mixed
+    lanes' raw launches in turns with the first version's on the same
     input;
 17. ``tests/goldens/reentry.npz`` ``ukf`` (the shaped kernel) and ``bsqkf``
     (the BQ shapes) through ``engine="dd"`` on the card (1e-7 / 1e-6);
@@ -254,12 +258,14 @@ fails at once without them.  Phases, each fatal on failure:
     (radar and 2-3 bearings in its shaped one-thread form, the mixed counts
     too, 5 and 8 bearings under CKF in its lane-group form, GH-3 on CT in its
     warp form, the pendulum's GH-3 in its general one-thread form);
-    UNGM under GH-9, GH-15 and GPQ on GH-15 points (the slot design) and
-    under GH-17 (one thread a trajectory) on the main path's 10,000 x 500
-    data, through the scalar kernel's general form; each lane once with the
-    counts from 0 (5 shaped, 1 one-thread, 2 lane-group, 1 warp-form and 4
-    scalar launches, nothing else), its first 200 trajectories (all 10,000 on CT +
-    radar UKF) equal to the plain version to the bit, its filter RMSE within
+    UNGM under GH-9, GH-15, GPQ on GH-15 points and GH-17 (the slot design,
+    GH-17 at 20 slots) on the main path's 10,000 x 500 data and under GH-33
+    (one thread a trajectory) on its first 100 steps, through the scalar
+    kernel's general form; each lane once with the counts from 0 (5 shaped,
+    1 one-thread, 2 lane-group, 1 warp-form and 5 scalar launches, nothing
+    else), its first 200 trajectories (all 10,000 on CT + radar UKF and on
+    UNGM GH-17 and GH-33, which also match at B = 1, 7 and 4,097 through the
+    wrapper) equal to the plain version to the bit, its filter RMSE within
     1e-6 (vector) or 1e-3 (UNGM) relative of the eager f64 lane's, at most
     1% non-finite; raw launches, wrapper, plain and bound, the libraries'
     build times; on every lane off the general one-thread form its route
@@ -295,9 +301,10 @@ fails at once without them.  Phases, each fatal on failure:
     bearings); the pendulum copy
     equal to the table's pendulum in the general kernel to the bit and timed
     in turns with it, and the radar copy the table's radar in the general
-    kernel's warp form.  Then the 1-D registered lane under GH-17 (one
-    thread a trajectory) on its own path from counts of 0, equal to its
-    plain version to the bit at B = 1, 7, 4,097 and 10,000, timed.  Alone:
+    kernel's warp form.  Then the 1-D registered lanes under GH-17 (at 20
+    slots, 500 steps) and GH-33 (one thread a trajectory, 100 steps), each
+    on its own path from counts of 0, equal to its plain version to the bit
+    at B = 1, 7, 4,097 and 10,000, timed.  Alone:
     ``chip_smoke.registry_alone()``; every form
     of the lane-group lanes, and two trees, in turns:
     ``tools/lane_variants.py``.
@@ -822,6 +829,10 @@ def student_slice(torch, np, dev):
 PAR_UT, PAR_GH5, PAR_GH7 = [[3.0, 0.3]], [[5.0, 0.6]], [[3.0, 0.4]]
 #: the GPQ kernel parameters of the UNGM lanes (the main path's GPQKF's)
 UNGM_GPQ_PAR = [[1.0, 3.0]]
+#: GPQ kernel parameters of UNGM rules of 17-32 Gauss-Hermite points: a
+#: length-scale of 1 keeps the step's variances positive there, where the
+#: studies' [[1, 3]] loses most runs (tests/test_torch_sf_wide_slots.py)
+UNGM_GPQ_WIDE_PAR = [[1.0, 1.0]]
 #: the BSQ reentry tracking study (experiments/bsq_tracking.py:40-84), cut
 #: from its 200 s to TRACK_DUR for the script's time limit (the eager lanes
 #: are host-bound, ~3.5 ms a step on the card); the RMSE order it gates on
@@ -1568,6 +1579,22 @@ def vf_source(name):
     return f"ssmtoybox_torch/csrc/{base.replace('registered_shaped', 'registered')}.cu"
 
 
+def shaped_entry(kernel, p) -> str:
+    """The mangled-name part of the instantiation of the shaped kernel
+    ``kernel`` (``vector_filter_shaped`` or ``vector_filter_shaped_bq``) that
+    runs ``p``: its template arguments, both point counts among them (the BQ
+    shapes' mixed counts in a kernel of their own)."""
+    targs = [p.dim_state, p.dim_out, p.dyn_model, p.obs_model]
+    if kernel == "vector_filter_shaped":
+        targs += [p.dyn.n, p.obs.n]
+    elif p.dyn.n == p.obs.n:
+        targs += [p.dyn.n, p.dyn.kind, p.obs.kind]
+    else:
+        kernel += "_mixed"
+        targs += [p.dyn.n, p.obs.n, p.dyn.kind, p.obs.kind]
+    return f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs) + "E"
+
+
 def vf_kernel(vf, params):
     """The entry of ``VF_KERNELS`` that the wrapper's launch for ``params``
     counts on."""
@@ -1609,9 +1636,10 @@ def vf_rule_pairs(stt, np, systems):
     spherical-radial points (N = 2 D).  Returns ``{system: {rule: filter}}``
     and the pairs ``(system, dynamics rule of, measurement rule of)``: every
     rule on both transforms, the mixed kinds of both counts and the UKF
-    beside the CKF either way round (on CV every pair of its four rules,
-    mixed counts too), so that every instantiation of the three sources
-    runs."""
+    beside the CKF either way round, and a BQ rule beside a rule of the
+    other count with the three pairs of kinds either way round (on CV every
+    pair of its four rules, mixed counts too), so that every instantiation
+    of the five pairs' sources runs."""
     def mul(d):
         return np.hstack((np.zeros((d, 1), int), np.eye(d, dtype=int), 2 * np.eye(d, dtype=int)))
 
@@ -1642,6 +1670,11 @@ def vf_rule_pairs(stt, np, systems):
         pairs += [(name, r, r) for r in a]
         pairs += [(name, "UKF", bq_ut), (name, bq_ut, "UKF"), (name, "CKF", "GPQ-SR"),
                   (name, "GPQ-SR", "CKF"), (name, "UKF", "CKF"), (name, "CKF", "UKF")]
+        # a BQ rule beside the other count: both orders of the counts, three pairs of kinds
+        # (GPQ-UT: reentry's GPQ-SR dynamics beside its BSQ-UT measurement loses every run,
+        # in the plain version too)
+        pairs += [(name, "GPQ-UT", "GPQ-SR"), (name, "UKF", "GPQ-SR"), (name, "GPQ-UT", "CKF"),
+                  (name, "GPQ-SR", "GPQ-UT"), (name, "CKF", "GPQ-UT"), (name, "GPQ-SR", "UKF")]
     return algs, pairs
 
 
@@ -1681,14 +1714,14 @@ def vgs_pairs(vf):
 
 
 def vf_all_instantiations(vf):
-    """Every instantiation of the six sources, as ``vf_instantiation``
+    """Every instantiation of the seven sources, as ``vf_instantiation``
     names them: the first version's 4 kinds of each model pair (20), the
     classical shaped kernel's 4 pairs of point counts (20: the UT or CKF
-    count on both transforms, or the two mixed), the BQ shapes' 3 kinds x 2
-    counts (30), the general kernel's state dimensions x bounds on E (16,
-    the wide form's four among them), its lane-group form's state
-    dimensions (4) and its shaped form's pairs x 4 pairs of point counts
-    (48)."""
+    count on both transforms, or the two mixed), the BQ shapes' 3 kinds x 4
+    pairs of counts (60: one count on both, or the two mixed), the general
+    kernel's state dimensions x bounds on E (16, the wide form's four among
+    them), its lane-group form's state dimensions (4) and its shaped form's
+    pairs x 4 pairs of point counts (48)."""
     dims = {0: 5, 1: 4, 2: 2, 3: 3, 4: 5}
 
     def count_pairs(D):
@@ -1705,8 +1738,8 @@ def vf_all_instantiations(vf):
                 if kd == ko == 0:
                     out |= {("vector_filter_shaped", D, dyn, 0, 0, c) for c in count_pairs(D)}
                 else:
-                    out |= {("vector_filter_shaped_bq", D, dyn, kd, ko, (n, n))
-                            for n in (2 * D + 1, 2 * D)}
+                    out |= {("vector_filter_shaped_bq", D, dyn, kd, ko, c)
+                            for c in count_pairs(D)}
     return out
 
 
@@ -1785,10 +1818,13 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     shaped kernel (``fused_re``, the main path's result) against the eager
     lane, the same data under BSQ-UT through the kernel of the BQ shapes,
     under GH-3 through the general kernel's warp form (against the eager
-    lane too) and under the UKF beside the CKF through the first version
-    (their paths), the reentry goldens through ``engine="dd"``, and the
-    timings.  Returns the figures of the kernels for the ``kernels`` line,
-    by name."""
+    lane too), under the UKF beside the CKF and GPQ-UT beside the CKF
+    through the shaped kernels at mixed counts (the first lane against the
+    eager lane; the second's first version by force, to the bit) and under
+    GH-2 (32 points) through the first version (their paths), the reentry
+    goldens through ``engine="dd"``, and the timings: the two mixed lanes in
+    turns with the first version by force.  Returns the figures of the
+    kernels for the ``kernels`` line, by name."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
     from ssmtoybox_torch.utils.metrics import rmse
@@ -1868,7 +1904,7 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
     split = {k: sum(s[0] == k for s in seen) for k in VF_KERNELS}
     log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs "
-        f"and {g_cases} configurations of other pairs: every instantiation of the six sources "
+        f"and {g_cases} configurations of other pairs: every instantiation of the seven sources "
         f"({split}; the first version at every pair of its five, the general kernel at the five "
         f"by force, where other kernels take them), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
         f"streams; two launches equal to the bit; {time.perf_counter() - t15:.1f} s")
@@ -1910,7 +1946,7 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     del eager
 
     # ---- 16b. the other kernels' paths: the bench lane under BSQ-UT, GH-3, ---------
-    # ---- the UKF beside the CKF and GPQ-UT beside the CKF ---------------------------
+    # ---- the UKF beside the CKF, GPQ-UT beside the CKF and GH-2 ---------------------
     launches, plain_ms = {}, {}
     p16 = {"UKF": params_of["reentry", "UKF", "UKF"]}
     lanes16 = {"BSQ-UT": (re["BSQ-UT"], "vector_filter_shaped_bq"),
@@ -1918,7 +1954,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
                "UKF/CKF": (stt.GaussianInference(dyn_re, obs_re, re["UKF"].tf_dyn,
                                                  re["CKF"].tf_obs), "vector_filter_shaped"),
                "GPQ-UT/CKF": (stt.GaussianInference(dyn_re, obs_re, re["GPQ-UT"].tf_dyn,
-                                                    re["CKF"].tf_obs), "vector_filter")}
+                                                    re["CKF"].tf_obs), "vector_filter_shaped_bq"),
+               "GH-2": (stt.GaussHermiteKalman(dyn_re, obs_re, deg=2), "vector_filter")}
     for rule, (alg, kernel) in lanes16.items():
         vf_zero(vf)
         res = alg.forward_pass_batch(ys_re, engine="dd")
@@ -1926,11 +1963,25 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         moved = vf_counts(vf)
         if moved != only(kernel):
             fail(f"the reentry {rule} lane launched {moved}; expected {kernel} once")
-        launches[kernel] = 1
+        launches[kernel] = launches.get(kernel, 0) + 1
         p_rule = p16[rule] = vf.prepare(dyn_re, obs_re, alg.tf_dyn, alg.tf_obs)
-        plain_ms[kernel], plain = event_ms(torch, lambda: vf._vector_filter_plain(p_rule, ys_re))
+        plain_ms[rule], plain = event_ms(torch, lambda: vf._vector_filter_plain(p_rule, ys_re))
         err[kernel] = max(err[kernel], vf_against_plain(
             torch, res, plain, f"reentry {rule} lane {M}x{N}"))
+        if rule == "GPQ-UT/CKF":
+            # the first version by force on the same input: it ran this lane until the
+            # kernel of the BQ shapes took the two counts
+            first = vf_raw(torch, vf, p_rule, ys_re, dev, "vector_filter")
+            if first() != 0:
+                fail(f"reentry {rule}: the first version's launch failed")
+            torch.cuda.synchronize()
+            for f, got, want in zip(("m_fi", "P_fi", "m_pr", "P_pr", "xx"), first.out, plain):
+                diff = float((got - want).nan_to_num().abs().max())
+                err["vector_filter"] = max(err["vector_filter"], diff)
+                if not same_bits(torch, got, want):
+                    fail(f"reentry {rule}: the first version by force differs from the plain "
+                         f"version in {f}, max |diff| {diff:.3e}; expected equal bits")
+            del first
         del plain
         sm, _ = stt.gaussian_smoother(res)
         r_rule = (float(rmse(x_t, res.fi_mean.permute(1, 2, 0))),
@@ -1950,9 +2001,10 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             if not (rel <= 1e-6 and lost == 0.0):
                 fail(f"reentry {rule} lane: filter RMSE of dd and f64 differ by {rel:.3e} "
                      f"relative, or {lost:.2%} of the runs are not finite")
+        forced = "; the first version by force too" if rule == "GPQ-UT/CKF" else ""
         log(f"reentry {rule} lane ({M}x{N}, N={p_rule.dyn.n}/{p_rule.obs.n}) through {kernel} "
             f"(1 launch): == plain version to the bit, all five streams (plain version "
-            f"{plain_ms[kernel]:.1f} ms, one call); RMSE filter {r_rule[0]:.9f}, smoother "
+            f"{plain_ms[rule]:.1f} ms, one call){forced}; RMSE filter {r_rule[0]:.9f}, smoother "
             f"{r_rule[1]:.9f}{against}")
         del res, sm
 
@@ -1974,7 +2026,7 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
 
     # ---- 18. the plain version on the main path's input; timings --------------
     params = params_of["reentry", "UKF", "UKF"]
-    plain_ms["vector_filter_shaped"], plain = event_ms(
+    plain_ms["UKF"], plain = event_ms(
         torch, lambda: vf._vector_filter_plain(params, ys_re))
     torch.cuda.synchronize()
     err["vector_filter_shaped"] = max(err["vector_filter_shaped"], vf_against_plain(
@@ -1993,14 +2045,11 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     def code_of(kernel, p):
         """ptxas registers / local memory and the f64 issue floor from the SASS
         of ``kernel``'s instantiation for ``p``, as one line."""
-        targs = [p.dim_state, p.dim_out, p.dyn_model, p.obs_model]
-        if kernel == "vector_filter_shaped":
-            targs += [p.dyn.n, p.obs.n]
-        elif kernel == "vector_filter_shaped_bq":
-            targs += [p.dyn.n, p.dyn.kind, p.obs.kind]
+        if kernel == "vector_filter":
+            fn = "vector_filter_kernelI" + "".join(f"Li{t}E" for t in (
+                p.dim_state, p.dim_out, p.dyn_model, p.obs_model, p.dyn.kind, p.obs.kind)) + "E"
         else:
-            targs += [p.dyn.kind, p.obs.kind]
-        fn = f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs) + "E"
+            fn = shaped_entry(kernel, p)
         regs, frame, spill = ptxas_of(build_log, fn)
         listing = sass_listing(lib_path, fn)
         if not listing:
@@ -2033,35 +2082,38 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             log(f"  {kernel}: {code_of(kernel, p_n)}")
             log(f"  vector_filter: {code_of('vector_filter', p_n)}")
     log(f"vector_filter_shaped reentry UKF {M}x{N}: plain version "
-        f"{plain_ms['vector_filter_shaped']:.1f} ms (one call); lane forward_pass_batch "
+        f"{plain_ms['UKF']:.1f} ms (one call); lane forward_pass_batch "
         f"engine='dd' {lane['dd'][0]:.3f} ms (min {lane['dd'][1]:.3f}), engine='f64' "
         f"{lane['f64'][0]:.1f} ms (min {lane['f64'][1]:.1f})")
     entries = {}
-    # the UKF beside the CKF: the shaped kernel at mixed counts in turns with the first version,
-    # which ran this lane until the shaped kernel took two counts
-    p_mix = p16["UKF/CKF"]
-    turns = {}
-    for kernel in ("vector_filter", "vector_filter_shaped", "vector_filter_shaped",
-                   "vector_filter"):
-        turns.setdefault(kernel, []).append(
-            raw_ms(torch, vf_raw(torch, vf, p_mix, ys_re, dev, kernel)))
-    b_ms, b_by = vf_bound(p_mix, N, M)
-    fl = vf.chain_floor_clocks(lat, p_mix)
-    log(f"reentry UKF/CKF (N={p_mix.dyn.n}/{p_mix.obs.n}) {M}x{N}, raw launches in turns: "
-        + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms" for k, v in turns.items())
-        + f"; bound {b_ms:.4f} ms ({b_by}), chain floor {fl:.0f} clocks a step = "
-        f"{fl * N / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz; vector_filter_shaped: "
-        f"{code_of('vector_filter_shaped', p_mix)}")
+    # the UKF beside the CKF and GPQ-UT beside the CKF: the shaped kernels at mixed counts in
+    # turns with the first version, which ran these lanes until the shaped kernels took two
+    # counts
+    for rule, kernel in (("UKF/CKF", "vector_filter_shaped"),
+                         ("GPQ-UT/CKF", "vector_filter_shaped_bq")):
+        p_mix = p16[rule]
+        turns = {}
+        for k in ("vector_filter", kernel, kernel, "vector_filter"):
+            turns.setdefault(k, []).append(raw_ms(torch, vf_raw(torch, vf, p_mix, ys_re, dev, k)))
+        b_ms, b_by = vf_bound(p_mix, N, M)
+        fl = vf.chain_floor_clocks(lat, p_mix)
+        log(f"reentry {rule} (N={p_mix.dyn.n}/{p_mix.obs.n}) {M}x{N}, raw launches in turns: "
+            + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v) + " ms"
+                        for k, v in turns.items())
+            + f"; bound {b_ms:.4f} ms ({b_by}), chain floor {fl:.0f} clocks a step = "
+            f"{fl * N / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz; {kernel}: {code_of(kernel, p_mix)}; "
+            f"vector_filter: {code_of('vector_filter', p_mix)}")
     for kernel, rule in (("vector_filter_shaped", "UKF"), ("vector_filter_shaped_bq", "BSQ-UT"),
-                         ("vector_filter_general_warp", "GH-3"), ("vector_filter", "GPQ-UT/CKF")):
+                         ("vector_filter_general_warp", "GH-3"), ("vector_filter", "GH-2")):
         p_k = p16[rule]
         k_ms = cuda_ms(torch, lambda: vf.vector_filter(p_k, ys_re))
+        raw = raw_ms(torch, vf_raw(torch, vf, p_k, ys_re, dev))
         b_ms, b_by = vf_bound(p_k, N, M)
         log(f"{kernel} reentry {rule} {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min "
-            f"{k_ms[1]:.4f}), plain version {plain_ms[kernel]:.1f} ms, bound {b_ms:.4f} ms "
-            f"({b_by})")
+            f"{k_ms[1]:.4f}), raw launches {raw:.4f} ms, plain version {plain_ms[rule]:.1f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
         entries[kernel] = {"launches": launches.get(kernel, 0), "max_abs_err": err[kernel],
-                           "ms": k_ms[0], "plain_ms": plain_ms[kernel], "bound_ms": b_ms,
+                           "ms": k_ms[0], "plain_ms": plain_ms[rule], "bound_ms": b_ms,
                            "bound_by": b_by, "library_ms": None}
     # the general kernel's phase-15 figures; phases 27 and 28 time it on their paths
     for kernel in ("vector_filter_general", "vector_filter_general_lanes",
@@ -2456,9 +2508,34 @@ def zoo_slice(torch, np, dev):
 
 
 #: phase 27: the trajectories each lane holds against its plain version (all
-#: of them on the lane the ``kernels`` line times), the steps of the
-#: measurement-kind checks of the scalar kernel's general form
-DD_PLAIN_B, DD_SHAPE_STEPS = 200, 40
+#: of them on the lane the ``kernels`` line times, and on the UNGM lanes
+#: around the slot design's ceiling), the steps of the measurement-kind
+#: checks of the scalar kernel's general form, and those of the UNGM lane
+#: above ``MAX_SLOTS`` points (GH-33, one thread a trajectory: a depth cut
+#: from 500 to hold the phase's time)
+DD_PLAIN_B, DD_SHAPE_STEPS, DD_WIDE_STEPS = 200, 40, 100
+#: the rules of the scalar lanes held to the plain version on every trajectory
+#: and at B = 1, 7 and 4,097 through the wrapper (phases 27 and 28): the first
+#: past 16 points, in the slot design since it reaches 32, and one past 32
+SF_CEILING_RULES = ("GH-17", "GH-33")
+
+
+def sf_held_at_batches(torch, sf, params, y_tm, c, plain, what) -> float:
+    """Wrapper launches of the scalar filter kernel for ``params`` on the
+    first 1, 7 and 4,097 trajectories of ``y_tm`` (time-major, steps x B),
+    each stream equal to the plain version's ``plain`` (on all B) to the bit;
+    fails otherwise, returns the largest |diff|."""
+    err = 0.0
+    for batch in (1, 7, 4097):
+        got = sf.scalar_filter(params, y_tm[:, :batch].contiguous(), c)
+        torch.cuda.synchronize()
+        ref = tuple(t[:, :batch] for t in plain)
+        diff = max(float((a - b).nan_to_num().abs().max()) for a, b in zip(got, ref))
+        err = max(err, diff)
+        if not all(same_bits(torch, a, b) for a, b in zip(got, ref)):
+            fail(f"{what}, B={batch}: the kernel's streams differ from the plain version's, "
+                 f"max |diff| {diff:.3e}; expected equal bits")
+    return err
 
 
 def sf_raw(torch, sf, params, y, c, dev):
@@ -2594,12 +2671,14 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     of more than 4 bearings in its lane-group form, the CT GH-3 lane in its
     warp form, the pendulum's GH-3 (9 points, a count the shaped form does
     not take) in its general one-thread form.  The UNGM lanes (the scalar filter kernel's general
-    form): GH-9, GH-15 and GPQ on GH-15 points (``UNGM_GPQ_PAR``) in its
-    slot design, GH-17 one thread a trajectory, on phase 4's data, 10,000 x
-    500.  Each lane once
-    through ``engine="dd"`` with the counts set to 0 (one launch of the
-    general kernel or form, none of another); every stream of its first ``DD_PLAIN_B`` trajectories (all of
-    them on CT + radar UKF) equal to its plain version's to the bit; filter
+    form): GH-9, GH-15, GPQ on GH-15 points (``UNGM_GPQ_PAR``) and GH-17 (20
+    slots) in its slot design on phase 4's data, 10,000 x 500, and GH-33
+    one thread a trajectory on its first ``DD_WIDE_STEPS`` steps.  Each lane
+    once through ``engine="dd"`` with the counts set to 0 (one launch of the
+    general kernel or form, none of another); every stream of its first
+    ``DD_PLAIN_B`` trajectories (all of them on CT + radar UKF and on the
+    UNGM GH-17 and GH-33 lanes, which wrapper launches at B = 1, 7 and 4,097
+    also match) equal to its plain version's to the bit; filter
     RMSE against the eager f64 lane within 1e-6 relative (vector) or 1e-3
     (UNGM), at most 1% of the runs not finite; filter and smoother RMSE; raw
     launches behind ``_sleep``, the wrapper's and the plain version's time,
@@ -2616,7 +2695,7 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     general form's launches and its largest |diff| against the plain
     version, the ``kernels`` entry of the scalar slot design (its launches
     on the path, the GH-9 lane's times and bound) and that of the general
-    form's one-thread design (the GH-17 lane's)."""
+    form's one-thread design (the GH-33 lane's)."""
     import ssmtoybox_torch as stt
     from ssmtoybox_torch.ops import _build, scalar_filter as sf, vector_filter as vf
     from ssmtoybox_torch.ssmod import Pendulum2DMeasurement, RangeMeasurement
@@ -2637,13 +2716,16 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
         data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
     algs = {(n, r): general_filter(stt, np, *systems[n], r) for n, r in vec_lanes}
     par = np.array(UNGM_GPQ_PAR)
+    wide = f"UNGM, {DD_WIDE_STEPS} steps"
     for rule, alg in (("GH-9", stt.GaussHermiteKalman(dyn_u, obs_u, deg=9)),
                       ("GH-15", stt.GaussHermiteKalman(dyn_u, obs_u, deg=15)),
                       ("GPQ-GH15", stt.GaussianProcessKalman(dyn_u, obs_u, par, par, points="gh",
                                                              point_hyp={"degree": 15})),
                       ("GH-17", stt.GaussHermiteKalman(dyn_u, obs_u, deg=17))):
         algs["UNGM", rule] = alg
+    algs[wide, "GH-33"] = stt.GaussHermiteKalman(dyn_u, obs_u, deg=33)
     data["UNGM"] = (xs_u, ys_u)
+    data[wide] = (xs_u[..., :DD_WIDE_STEPS], ys_u[..., :DD_WIDE_STEPS])
     torch.cuda.synchronize()
 
     # ---- the path: every lane once, the counts from 0 -------------------------
@@ -2659,18 +2741,19 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     torch.cuda.synchronize()
     vf_launches = vf_counts(vf)
     sf_launches = (sf.LAUNCHES, sf.GENERAL_LAUNCHES, sf.SLOT_LAUNCHES)
-    if (vf_launches != want or sf_launches != (4, 4, 3)
+    if (vf_launches != want or sf_launches != (5, 5, 4)
             or not all(vf_launches[k] for k in ("vector_filter_general",
                                                 "vector_filter_general_lanes",
                                                 "vector_filter_general_warp",
                                                 "vector_filter_general_shaped"))):
         fail(f"dd pairs path: vector filter launches {vf_launches}, scalar filter launches "
              f"(all, general form, slot design) {sf_launches}; expected {want}, the four "
-             "forms of the general kernel, and 4 of the scalar general form, 3 in its slot "
+             "forms of the general kernel, and 5 of the scalar general form, 4 in its slot "
              "design, nothing else")
     log(f"dd pairs path: vector filter launches {vf_launches}; scalar filter launches "
-        f"{sf_launches[0]}, all of the general form, {sf_launches[2]} in its slot design and "
-        f"{sf_launches[1] - sf_launches[2]} (GH-17) one thread a trajectory")
+        f"{sf_launches[0]}, all of the general form, {sf_launches[2]} in its slot design (GH-17 "
+        f"at 20 slots among them) and {sf_launches[1] - sf_launches[2]} (GH-33) one thread a "
+        "trajectory")
 
     # ---- each lane: plain version, eager lane, scores, times -----------------------
     err = {"vector_filter_general": 0.0, "vector_filter_general_lanes": 0.0,
@@ -2682,13 +2765,14 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
         x_true, ys = data[name]
         res = results[name, rule]
         M, _, N = ys.shape
-        scalar = name == "UNGM"
+        scalar = name.startswith("UNGM")
         kernel = "scalar_filter" if scalar else vf_kernel(vf, vf.prepare(
             alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs))
-        head_b = MC if (name, rule) == vec_lanes[0] else DD_PLAIN_B
+        head_b = (MC if (name, rule) == vec_lanes[0] or (scalar and rule in SF_CEILING_RULES)
+                  else DD_PLAIN_B)
         if scalar:
             params = sf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
-            design = "one-thread" if rule == "GH-17" else "slots"
+            design = "one-thread" if rule == "GH-33" else "slots"
             if sf.geometry(params)[0] != design:
                 fail(f"dd pairs UNGM {rule}: design {sf.geometry(params)}, not {design}")
             y_tm = ys[:, 0, :].T.contiguous()
@@ -2702,6 +2786,9 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
             if not all(same_bits(torch, a, b) for a, b in zip(got, plain)):
                 fail(f"dd pairs UNGM {rule}: the kernel's streams differ from the plain "
                      f"version's on {head_b} trajectories, max |diff| {diff:.3e}")
+            if rule in SF_CEILING_RULES:
+                diff = max(diff, sf_held_at_batches(torch, sf, params, y_tm, c, plain,
+                                                    f"dd pairs UNGM {rule}"))
             err[kernel] = max(err[kernel], diff)
         else:
             params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
@@ -2720,10 +2807,13 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
                                         finite_rmse(torch, x_true, ref.fi_mean))
         r_sm = finite_rmse(torch, x_true, stt.gaussian_smoother(res)[0])[0]
         rel, limit = abs(r_fi - e_fi) / e_fi, 1e-3 if scalar else 1e-6
+        batches = (", and at B = 1, 7, 4,097 through the wrapper" if scalar and
+                   rule in SF_CEILING_RULES else "")
         log(f"dd pairs {name} {rule} ({M}x{N}, {kernel}{' general form' if scalar else ''}): "
-            f"== plain version to the bit on {head_b} trajectories, all five streams; RMSE "
-            f"filter {r_fi:.9f}, smoother {r_sm:.9f} (eager f64: filter {e_fi:.9f}; relative "
-            f"{rel:.2e}, limit {limit}); not finite {lost:.2%} (eager {e_lost:.2%}, limit 1%)")
+            f"== plain version to the bit on {head_b} trajectories{batches}, all five streams; "
+            f"RMSE filter {r_fi:.9f}, smoother {r_sm:.9f} (eager f64: filter {e_fi:.9f}; "
+            f"relative {rel:.2e}, limit {limit}); not finite {lost:.2%} (eager {e_lost:.2%}, "
+            "limit 1%)")
         if not (rel <= limit and lost <= 0.01):
             fail(f"dd pairs {name} {rule}: filter RMSE of dd and f64 differ by {rel:.3e} "
                  f"relative, or {lost:.2%} of the runs are not finite")
@@ -3014,9 +3104,12 @@ REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
              ("reentry + radar copy", "GH-3", "vector_filter_registered", REG_STEPS)]
 #: phase 28's filters by rule
 REG_RULES = {"UKF": "UnscentedKalman", "CKF": "CubatureKalman", "GH-3": "GaussHermiteKalman"}
-#: phase 28's registered 1-D lane above ``MAX_SLOTS`` points (one thread a
-#: trajectory): the growth model under GH-17 on the growth lane's data
-REG_WIDE = "growth GH-17"
+#: phase 28's registered 1-D lanes around the slot design's ceiling, the
+#: growth model on the growth lane's data: (name, Gauss-Hermite points,
+#: steps, design): GH-17 at 20 slots, and GH-33 one thread a trajectory on
+#: the first ``DD_WIDE_STEPS`` steps
+REG_WIDE = (("growth GH-17", 17, REG_SCALAR_STEPS, "slots"),
+            ("growth GH-33", 33, DD_WIDE_STEPS, "one-thread"))
 
 
 def registry_slice(torch, np, dev):
@@ -3048,9 +3141,10 @@ def registry_slice(torch, np, dev):
     general one-thread form) are held to the plain version and timed in turns
     (``lane_turns``; the registered library is built with the two forms of
     each).  Then the
-    registered 1-D lane above 16 points (``registered_wide``: the growth
-    model under GH-17, one thread a trajectory, built into the same library
-    as the growth lane).  Returns the entries of ``vector_filter_registered``,
+    registered 1-D lanes around the slot design's ceiling (``registered_wide``,
+    ``REG_WIDE``: the growth model under GH-17 at 20 slots and under GH-33
+    one thread a trajectory, built into the same library as the growth
+    lane).  Returns the entries of ``vector_filter_registered``,
     ``vector_filter_registered_lanes``, ``vector_filter_registered_warp``
     and ``vector_filter_registered_shaped`` for the ``kernels`` line, the scalar
     kernel's launches and largest |diff| on this phase, and the launches and
@@ -3077,9 +3171,9 @@ def registry_slice(torch, np, dev):
             data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
     for name, (copy, _) in tables.items():
         data[name] = data[copy]
-    algs[REG_WIDE] = stt.GaussHermiteKalman(*systems["growth"], deg=17)
-    params[REG_WIDE] = sf.prepare(*systems["growth"], algs[REG_WIDE].tf_dyn,
-                                  algs[REG_WIDE].tf_obs)
+    for name, deg, _, _ in REG_WIDE:
+        algs[name] = stt.GaussHermiteKalman(*systems["growth"], deg=deg)
+        params[name] = sf.prepare(*systems["growth"], algs[name].tf_dyn, algs[name].tf_obs)
     torch.cuda.synchronize()
 
     # ---- the registered forms' libraries, built at once -------------------------
@@ -3091,10 +3185,12 @@ def registry_slice(torch, np, dev):
         return build(configs), time.perf_counter() - t0
     with ThreadPoolExecutor(2) as pool:
         v_job = pool.submit(timed, vf.build_registered, vec)
-        s_job = pool.submit(timed, sf.build_registered, [params["growth"], params[REG_WIDE]])
+        s_job = pool.submit(timed, sf.build_registered,
+                            [params["growth"]] + [params[n] for n, _, _, _ in REG_WIDE])
         (v_name, v_s), (s_name, s_s) = v_job.result(), s_job.result()
     log(f"registry: built vector_filter_registered.cu ({len(vec)} configurations) in {v_s:.1f} s "
-        f"and scalar_filter_registered.cu (2) in {s_s:.1f} s, at once, from generated headers")
+        f"and scalar_filter_registered.cu ({1 + len(REG_WIDE)}) in {s_s:.1f} s, at once, from "
+        "generated headers")
     ptxas = {}
     for name, _, kernel, _ in REG_LANES:
         p = params[name]
@@ -3131,9 +3227,11 @@ def registry_slice(torch, np, dev):
     log(f"registry path: vector filter launches {vf_launches}; scalar filter launches "
         f"{sf_launches[0]}, of the registered form in its slot design "
         f"{sf.geometry(params['growth'])}")
-    wide_entry = registered_wide(torch, sf, algs[REG_WIDE], params[REG_WIDE], data["growth"][1],
-                                 dev, ptxas_of(_build.BUILD_LOGS.get(s_name, ""),
-                                               sf_entry(sf, params[REG_WIDE])))
+    wide = {name: registered_wide(torch, sf, name, algs[name], params[name],
+                                  data["growth"][1][..., :steps], dev, design,
+                                  ptxas_of(_build.BUILD_LOGS.get(s_name, ""),
+                                           sf_entry(sf, params[name])))
+            for name, _, steps, design in REG_WIDE}
 
     # ---- each lane: plain version, eager lane, scores, times -------------------------
     err = dict.fromkeys(VF_KERNELS, 0.0)
@@ -3232,7 +3330,10 @@ def registry_slice(torch, np, dev):
                         for k, v in turns.items()))
     for kernel, entry in entries.items():
         entry["max_abs_err"] = err[kernel]
-    slot_entry["max_abs_err"] = err["scalar_filter"]
+    # the GH-17 lane runs in the slot design, GH-33 one thread a trajectory
+    slot_entry["launches"] += wide["growth GH-17"]["launches"]
+    slot_entry["max_abs_err"] = max(err["scalar_filter"], wide["growth GH-17"]["max_abs_err"])
+    wide_entry = wide["growth GH-33"]
     log(f"registry phase: {time.perf_counter() - t28:.1f} s; card: {card_line()}")
     general = {k: (vf_launches[k], err[k])
                for k in ("vector_filter_general", "vector_filter_general_lanes",
@@ -3240,51 +3341,50 @@ def registry_slice(torch, np, dev):
     return entries, sf_launches[2], err["scalar_filter"], general, slot_entry, wide_entry
 
 
-def registered_wide(torch, sf, alg, params, ys, dev, ptxas):
-    """Phase 28's registered 1-D lane above ``MAX_SLOTS`` points
-    (``REG_WIDE``, one thread a trajectory): once through ``engine="dd"``
-    with the counts set to 0 (one launch of the registered form, none of the
-    slot design), every stream equal to the plain version's to the bit on
-    all trajectories, then launches of B = 1, 7 and 4,097 of them through the
-    wrapper likewise; at most 1% of the runs not finite; raw launches, the
-    wrapper's and the plain version's time, the bound.  Returns its entry
-    for the ``kernels`` line."""
+def registered_wide(torch, sf, name, alg, params, ys, dev, want, ptxas):
+    """One of phase 28's registered 1-D lanes around the slot design's
+    ceiling (``REG_WIDE``: GH-17 at 20 slots, GH-33 one thread a
+    trajectory): once through ``engine="dd"`` with the counts set to 0 (one
+    launch of the registered form, in the slot design or not as
+    ``geometry`` says), every stream equal to the plain version's to the bit
+    on all trajectories, then launches of B = 1, 7 and 4,097 of them through
+    the wrapper likewise; its design ``want``; at most 1% of the runs not
+    finite; raw launches,
+    the wrapper's and the plain version's time, the bound.  Returns its
+    entry for the ``kernels`` line (its launches those of the registered
+    form on this path)."""
     M, _, N = ys.shape
+    design = sf.geometry(params)
+    slot = design[0] == "slots"
     sf.LAUNCHES = sf.GENERAL_LAUNCHES = sf.REGISTERED_LAUNCHES = sf.SLOT_LAUNCHES = 0
     res = alg.forward_pass_batch(ys, engine="dd")
     torch.cuda.synchronize()
     launches = (sf.LAUNCHES, sf.GENERAL_LAUNCHES, sf.REGISTERED_LAUNCHES, sf.SLOT_LAUNCHES)
-    if launches != (1, 0, 1, 0) or sf.geometry(params) != ("one-thread", 0, 1):
-        fail(f"registry {REG_WIDE}: scalar filter launches (all, general, registered, slot "
-             f"design) {launches}, design {sf.geometry(params)}; expected (1, 0, 1, 0), one "
-             "thread a trajectory")
+    if launches != (1, 0, 1, int(slot)) or design[0] != want:
+        fail(f"registry {name}: scalar filter launches (all, general, registered, slot design) "
+             f"{launches}, design {design}; expected (1, 0, 1, {int(slot)}) in the design {want}")
     y_tm = ys[:, 0, :].T.contiguous()
     c = sf.step_consts(params, N, dev)
     p_ms, plain = event_ms(torch, lambda: sf._scalar_filter_plain(params, y_tm, c))
-    err = 0.0
-    for batch in (1, 7, 4097, M):
-        got = ((res.fi_mean[:, 0].T, res.fi_cov[:, 0, 0].T, res.pr_mean[:, 0].T,
-                res.pr_cov[:, 0, 0].T, res.pr_xx_cov[:, 0, 0].T) if batch == M else
-               sf.scalar_filter(params, y_tm[:, :batch].contiguous(), c))
-        torch.cuda.synchronize()
-        ref = tuple(t[:, :batch] for t in plain)
-        diff = max(float((a - b).nan_to_num().abs().max()) for a, b in zip(got, ref))
-        err = max(err, diff)
-        if not all(same_bits(torch, a, b) for a, b in zip(got, ref)):
-            fail(f"registry {REG_WIDE}, B={batch}: the kernel's streams differ from the plain "
-                 f"version's, max |diff| {diff:.3e}; expected equal bits")
+    got = (res.fi_mean[:, 0].T, res.fi_cov[:, 0, 0].T, res.pr_mean[:, 0].T,
+           res.pr_cov[:, 0, 0].T, res.pr_xx_cov[:, 0, 0].T)
+    err = max(float((a - b).nan_to_num().abs().max()) for a, b in zip(got, plain))
+    if not all(same_bits(torch, a, b) for a, b in zip(got, plain)):
+        fail(f"registry {name}, B={M}: the kernel's streams differ from the plain version's, "
+             f"max |diff| {err:.3e}; expected equal bits")
+    err = max(err, sf_held_at_batches(torch, sf, params, y_tm, c, plain, f"registry {name}"))
     lost = 1.0 - float(torch.isfinite(plain[0]).all(0).double().mean())
     if lost > 0.01:
-        fail(f"registry {REG_WIDE}: {lost:.2%} of the runs not finite")
+        fail(f"registry {name}: {lost:.2%} of the runs not finite")
     del plain
     raw = raw_ms(torch, sf_raw(torch, sf, params, y_tm, c, dev))
     k_ms = cuda_ms(torch, lambda: sf.scalar_filter(params, y_tm, c))
     b_ms, b_by = sf_bound(params, N, M)
-    log(f"registry {REG_WIDE} ({M}x{N}, scalar_filter registered form, {sf.geometry(params)}): "
-        f"launches {launches}; == plain version to the bit at B = 1, 7, 4097, {M}, all five "
-        f"streams; not finite {lost:.2%}; raw launches {raw:.4f} ms a launch; wrapper call "
-        f"{k_ms[0]:.4f} ms (min {k_ms[1]:.4f}); plain version {p_ms:.1f} ms; bound {b_ms:.4f} ms "
-        f"({b_by}); {ptxas[0]} registers, {ptxas[2]} bytes spilled")
+    log(f"registry {name} ({M}x{N}, scalar_filter registered form, {design}): launches "
+        f"{launches}; == plain version to the bit at B = 1, 7, 4097, {M}, all five streams; not "
+        f"finite {lost:.2%}; raw launches {raw:.4f} ms a launch; wrapper call {k_ms[0]:.4f} ms "
+        f"(min {k_ms[1]:.4f}); plain version {p_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}); "
+        f"{ptxas[0]} registers, {ptxas[2]} bytes spilled")
     return {"launches": launches[2], "max_abs_err": err, "ms": k_ms[0], "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -3309,7 +3409,7 @@ def registry_alone():
     with ThreadPoolExecutor(2) as pool:
         for job in [pool.submit(lib.build) for lib in (sf, vf)]:
             job.result()
-    log(f"built scalar_filter.cu and the six vector filter sources in "
+    log(f"built the three scalar filter sources and the seven vector filter sources in "
         f"{time.perf_counter() - t0:.1f} s")
     entries, sf_reg, sf_err, general, _, _ = registry_slice(torch, np, dev)
     log(f"registry_alone: registered entries {json.dumps(entries)}; scalar registered launches "
@@ -5370,7 +5470,7 @@ def dd_pairs_alone():
         took = {lib.__name__.split(".")[-1]: pool.submit(
             lambda m: (m.build(), time.perf_counter() - t0)[1], lib) for lib in (sf, vf)}
         took = {name: f.result() for name, f in took.items()}
-    log(f"built scalar_filter.cu and the six vector filter sources in "
+    log(f"built the three scalar filter sources and the seven vector filter sources in "
         f"{time.perf_counter() - t0:.1f} s ({took})")
     for line in _build.BUILD_LOGS.get("vector_filter", "").splitlines():
         if "general" in line or "registers" in line or "spill" in line:
@@ -5442,11 +5542,11 @@ def main():
         took = {lib.__name__.split(".")[-1]: pool.submit(timed_build, lib)
                 for lib in (sf, smc, vdm, vf)}
         took = {name: build.result() for name, build in took.items()}
-    log(f"built scalar_filter.cu + scalar_filter_slots.cu, student_mc.cu + student_qrq.cu, "
-        f"vandermonde.cu and "
+    log(f"built scalar_filter.cu + scalar_filter_slots.cu + scalar_filter_slots_wide.cu, "
+        f"student_mc.cu + student_qrq.cu, vandermonde.cu and "
         f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
         f"vector_filter_general.cu + vector_filter_general_shaped.cu + "
-        f"vector_filter_general_shaped_mixed.cu for sm_90a in "
+        f"vector_filter_general_shaped_mixed.cu + vector_filter_shaped_bq_mixed.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
         + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):

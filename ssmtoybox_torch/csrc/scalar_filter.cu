@@ -39,10 +39,12 @@
 // The general form (scalar_filter_general_kernel, step in
 // scalar_filter_step_general.cuh) takes what the shaped instantiations do not:
 // rules of any point count (GH-9 and up, GPQ and BSQ on those points) and the
-// sine and range measurements of a 1-D state.  Up to SF_MAX_SLOTS (16) points
-// it runs the slot design (scalar_filter_slots.cu, scalar_filter_slots.cuh):
-// the shaped form's step at 3, 5, 7, 8, 9, 12 or 16 slots on lanes, the
-// models as a policy's functors, the rules staged in shared memory.  Above
+// sine and range measurements of a 1-D state.  Up to SF_MAX_SLOTS (32) points
+// it runs the slot design (scalar_filter_slots.cu up to 16 slots,
+// scalar_filter_slots_wide.cu above, scalar_filter_slots.cuh): the shaped
+// form's step at 3, 5, 7, 8, 9, 12, 16, 20, 24 or 32 slots on lanes, the
+// models as a policy's functors, the rules' vectors by value and a BQ rule's
+// dense weights staged in shared memory.  Above
 // that, one thread a trajectory: the point count, both kinds and the
 // measurement read at run time (the same in every thread of a launch, so no
 // branch diverges), the rules read from device memory and the function
@@ -221,10 +223,15 @@ void launch(const SfParams& p, const double* y, long long y_step, long long y_tr
 
 }  // namespace
 
-// The slot design's launcher (scalar_filter_slots.cu).
+// The slot design's launchers: up to SF_NARROW_SLOTS slots
+// (scalar_filter_slots.cu) and above (scalar_filter_slots_wide.cu).
 cudaError_t sfs_launch_zoo(const SfgParams& p, const SfsRules& v, const double* y,
                            long long y_step, long long y_traj, const double* c, int B,
                            int n_steps, int slots, const SfStreams& out, cudaStream_t stream);
+cudaError_t sfs_launch_zoo_wide(const SfgParams& p, const SfsRules& v, const double* y,
+                                long long y_step, long long y_traj, const double* c, int B,
+                                int n_steps, int slots, const SfStreams& out,
+                                cudaStream_t stream);
 
 // Launch on `stream` of card `device` without synchronising.  Measurement k
 // of trajectory b is y[k * y_step + b * y_traj], c is (n_steps,), the five
@@ -276,9 +283,9 @@ extern "C" int sfg_launch(const SfgParams* params, const SfsRules* vecs, const d
   if (set != cudaSuccess) return static_cast<int>(set);
   const int slots = sf_slots(p.dyn.n, p.obs.n);
   if (slots)
-    return static_cast<int>(sfs_launch_zoo(p, *vecs, y, y_step, y_traj, c, B, n_steps, slots,
-                                           {m_fi, P_fi, m_pr, P_pr, xx},
-                                           static_cast<cudaStream_t>(stream)));
+    return static_cast<int>((slots > SF_NARROW_SLOTS ? sfs_launch_zoo_wide : sfs_launch_zoo)(
+        p, *vecs, y, y_step, y_traj, c, B, n_steps, slots, {m_fi, P_fi, m_pr, P_pr, xx},
+        static_cast<cudaStream_t>(stream)));
   const Streams out = {m_fi, P_fi, m_pr, P_pr, xx};
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(B) + kThreads - 1) /
                                                 kThreads);

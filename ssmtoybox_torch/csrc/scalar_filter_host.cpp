@@ -148,6 +148,7 @@ extern "C" int sfg_host_run(const SfgParams* params, const SfsRules* vecs, const
       return N;                                                                            \
     }
     SFS_SHAPES(SFS_RUN_IF)
+    SFS_WIDE_SHAPES(SFS_RUN_IF)
 #undef SFS_RUN_IF
     return 0;
   }

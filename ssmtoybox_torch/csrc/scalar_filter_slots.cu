@@ -1,9 +1,10 @@
 // The slot design of the scalar filter kernel's general form on the kernel's
 // own models (the UNGM transition with the UNGM, sine or range measurement),
 // for Hopper (sm_90a), native float64: every pair of rule kinds at every slot
-// count (SFS_SHAPES, 28 instantiations), launched by sfg_launch
-// (scalar_filter.cu) for rules of at most SF_MAX_SLOTS points.  Its own
-// source, so that nvcc builds it beside scalar_filter.cu, at once.
+// count up to SF_NARROW_SLOTS (SFS_SHAPES, 28 instantiations), launched by
+// sfg_launch (scalar_filter.cu) for rules of at most SF_NARROW_SLOTS points;
+// the counts above it are scalar_filter_slots_wide.cu's.  Its own source, so
+// that nvcc builds it beside scalar_filter.cu, at once.
 //
 // Replaces, with scalar_filter.cu, the TPU kernel
 // ssmtoybox_tpu/ops/ddscan_pallas.py::pallas_scalar_filter; the design is in

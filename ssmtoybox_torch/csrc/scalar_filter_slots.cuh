@@ -31,6 +31,8 @@
 struct SfStreams {
   double *m_fi, *P_fi, *m_pr, *P_pr, *xx;
 };
+static_assert(sizeof(SfrParams) + sizeof(SfsRules) + sizeof(SfStreams) + 64 <= 4096,
+              "the slot design's kernel parameters fit the 4 KB of every CUDA version");
 
 template <int KD, int KO, int N, class Model, class P>
 __global__ void __launch_bounds__(SF_THREADS)

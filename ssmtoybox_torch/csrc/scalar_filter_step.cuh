@@ -82,15 +82,18 @@ struct SfStep {
                      SF_SHAPES_OF(F, 1, 1)
 
 // Most slots of the slot design (scalar_filter_step_general.cuh, sfs_record):
-// its counts are those of the shaped form and 9, 12 and SF_MAX_SLOTS.
-#define SF_MAX_SLOTS 16
+// its counts are those of the shaped form, 9, 12 and 16 (scalar_filter_slots.cu)
+// and, above SF_NARROW_SLOTS, 20, 24 and SF_MAX_SLOTS
+// (scalar_filter_slots_wide.cu).
+#define SF_NARROW_SLOTS 16
+#define SF_MAX_SLOTS 32
 
 // The smallest slot count that holds rules of n_dyn and n_obs points; 0 above
 // SF_MAX_SLOTS.
 SF_HD int sf_slots(int n_dyn, int n_obs) {
   const int n = n_dyn > n_obs ? n_dyn : n_obs;
   return n <= 3 ? 3 : n <= 5 ? 5 : n <= 7 ? 7 : n <= 8 ? 8 : n <= 9 ? 9 : n <= 12 ? 12
-         : n <= SF_MAX_SLOTS ? SF_MAX_SLOTS : 0;
+         : n <= 16 ? 16 : n <= 20 ? 20 : n <= 24 ? 24 : n <= SF_MAX_SLOTS ? SF_MAX_SLOTS : 0;
 }
 
 // Lanes a trajectory of the shaped form (SF_LANES=1|2|4|8 sets one count for

@@ -215,16 +215,15 @@ SF_HD const SfgParams& sf_base(const SfrParams& p) { return p.base; }
 // The general and registered forms run a configuration whose rules have at
 // most SF_MAX_SLOTS points on the shaped form's step (SfStepper), with the
 // model policy's functors in place of the UNGM models: N = sf_slots(n_dyn,
-// n_obs) slots (3, 5, 7, 8, 9, 12 or 16; a shorter rule padded with zero
-// weights), G = sfs_lanes(KD, KO, N) lanes a trajectory, each lane evaluating
-// the models at its own slots and, for a BQ rule, its own rows of Wc f; the
-// values gathered by shuffles, every sum in every lane in the plain version's
-// order.  No value goes to device memory between the mean and the sums.  The
-// rules' vectors (SfsRules, 1 KB) travel by value, as the shaped form's rules
-// do, so that every sum reads its weights from the constant bank; a BQ rule's
-// dense Wc (2 KB at 16 points, 5.4 KB for two rules with the vectors: more
-// than the 4 KB a kernel's parameters traditionally hold) is staged once a
-// block from its SfgRule pointer into shared memory (SfSlotWc), where each
+// n_obs) slots (3, 5, 7, 8, 9, 12, 16, 20, 24 or 32; a shorter rule padded
+// with zero weights), G = sfs_lanes(KD, KO, N) lanes a trajectory, each lane
+// evaluating the models at its own slots and, for a BQ rule, its own rows of
+// Wc f; the values gathered by shuffles, every sum in every lane in the plain
+// version's order.  No value goes to device memory between the mean and the
+// sums.  The rules' vectors (SfsRules, 2 KB) travel by value, as the shaped
+// form's rules do, so that every sum reads its weights from the constant
+// bank; a BQ rule's dense Wc (2 KB at 16 points, 8.4 KB at 32) is staged once
+// a block from its SfgRule pointer into shared memory (SfSlotWc), where each
 // lane reads its own rows, rows an odd number of doubles apart so that the G
 // rows the lanes of a trajectory read at once lie in G banks.  Above
 // SF_MAX_SLOTS points the one-thread form (sfg_record) runs.
@@ -237,12 +236,12 @@ struct SfsVec {
   double wcc[SF_MAX_SLOTS];  // kind 1
 };
 
-// Both rules' vectors, the slot design's by-value parameter: 1,024 bytes.
+// Both rules' vectors, the slot design's by-value parameter: 2,048 bytes.
 struct SfsRules {
   SfsVec dyn;
   SfsVec obs;
 };
-static_assert(sizeof(SfsRules) == 1024, "SfsRules is mirrored by ctypes in ops/scalar_filter.py");
+static_assert(sizeof(SfsRules) == 2048, "SfsRules is mirrored by ctypes in ops/scalar_filter.py");
 
 // A BQ rule's dense weights staged for the slot design: rows kStride doubles
 // apart, zero past n (kRows of them, so that a lane's slots past N read zero
@@ -301,13 +300,18 @@ SF_HD void sfs_stage(SfSlotWc<KIND, N>& S, const SfgRule& R, int t, int dt) {
 // the sums of 9-16 points and two lanes beat four by 6-14%; a BQ rule's rows
 // of Wc f pay for four lanes from 12 slots (at 16: 1.30 ms against 1.97 on
 // two), two from 5 (at 9: 0.77 against 0.82 on four), one thread at 3 as in
-// the shaped form.
+// the shaped form.  Above 16 slots: UNGM GH-17 / GH-24 / GH-32 1.02 / 1.20
+// / 1.66 ms on two lanes against 1.12 / 1.28 / 1.64 on four and 1.64 / 1.82
+// / 2.45 on eight (the registered growth model's GH-17 the reverse: 1.42 on
+// four, 1.64 on two); GPQ on GH-17 / GH-24 / GH-32 points 2.03 / 2.80 /
+// 5.34 on four against 3.24 / 4.05 / 6.51 on two and 2.87 / 3.38 / 5.18 on
+// eight, which pays for itself at 32 rows of 32.
 SF_HD constexpr int sfs_lanes(int kind_dyn, int kind_obs, int n_slots) {
 #ifdef SFS_LANES
   return SFS_LANES;
 #else
   if ((kind_dyn | kind_obs) == 0) return n_slots <= 8 ? 4 : 2;
-  return n_slots <= 3 ? 1 : n_slots <= 9 ? 2 : 4;
+  return n_slots <= 3 ? 1 : n_slots <= 9 ? 2 : n_slots <= 24 ? 4 : 8;
 #endif
 }
 
@@ -360,8 +364,12 @@ SF_HD void sfs_record(const P& p, const SfSlotRule<KD, N>& rd, const SfSlotRule<
   }
 }
 
-// The zoo's slot shapes: every pair of kinds at every slot count.
-#define SFS_SHAPES_OF(F, KD, KO) F(KD, KO, 3) F(KD, KO, 5) F(KD, KO, 7) F(KD, KO, 8) \
+// The zoo's slot shapes: every pair of kinds at every slot count up to
+// SF_NARROW_SLOTS (SFS_SHAPES, scalar_filter_slots.cu) and above it
+// (SFS_WIDE_SHAPES, scalar_filter_slots_wide.cu), F(KD, KO, N).
+#define SFS_COUNTS_OF(F, KD, KO) F(KD, KO, 3) F(KD, KO, 5) F(KD, KO, 7) F(KD, KO, 8) \
   F(KD, KO, 9) F(KD, KO, 12) F(KD, KO, 16)
-#define SFS_SHAPES(F) SFS_SHAPES_OF(F, 0, 0) SFS_SHAPES_OF(F, 0, 1) SFS_SHAPES_OF(F, 1, 0) \
-                      SFS_SHAPES_OF(F, 1, 1)
+#define SFS_WIDE_COUNTS_OF(F, KD, KO) F(KD, KO, 20) F(KD, KO, 24) F(KD, KO, 32)
+#define SFS_KINDS(X, F) X(F, 0, 0) X(F, 0, 1) X(F, 1, 0) X(F, 1, 1)
+#define SFS_SHAPES(F) SFS_KINDS(SFS_COUNTS_OF, F)
+#define SFS_WIDE_SHAPES(F) SFS_KINDS(SFS_WIDE_COUNTS_OF, F)

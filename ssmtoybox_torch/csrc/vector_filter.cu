@@ -35,6 +35,15 @@
 //   read through three strides, so any layout of the caller's (B, E, T)
 //   batch is read without a copy.
 //
+// What it runs (ops/vector_filter.py, kernel_of): every configuration of its
+// five pairs when sent here by force, as the tests and chip_smoke.py send
+// it; routed, only rules at other counts than the UT's and the CKF's below
+// 243 points (Gauss-Hermite on 2-4-D states, GH-2 on reentry).  The UT and
+// CKF counts, one on both transforms or the two mixed, of either kind, run
+// in the shaped kernels (vector_filter_shaped.cu, vector_filter_shaped_bq.cu
+// and vector_filter_shaped_bq_mixed.cu), rules of 243 points and more in the
+// general kernel's warp form.
+//
 // Built with --fmad=false (ops/vector_filter.py): every operation rounds on
 // its own, as in the plain PyTorch version, so the two can agree to the bit.
 #include <cuda_runtime.h>

@@ -5,16 +5,19 @@
 // (classical or BQ) known at compile time.
 //
 // Shared by the CUDA kernels (vector_filter_shaped.cu: both rules classical;
-// vector_filter_shaped_bq.cu: a BQ rule on either transform or both; the
+// vector_filter_shaped_bq.cu and vector_filter_shaped_bq_mixed.cu: a BQ rule
+// on either transform or both, at one count and at the two mixed; the
 // general and registered kernels' shaped one-thread form,
 // vector_filter_general_shaped.cuh, whose model policies give the functors)
 // and the host shims (vector_filter_shaped_host.cpp for the classical kernel,
-// vector_filter_host.cpp for the BQ shapes), which g++ builds, so that the
-// CPU tests hold this exact code against the plain PyTorch version in
-// ssmtoybox_torch/ops/vector_filter.py.  The step is that of
-// vector_filter_step.cuh, whose models, Cholesky factor and parameter struct
-// it reuses; every sum runs in the plain version's order, from 0.0 upwards,
-// so that both agree to the bit where their exp, sqrt and atan2 agree.
+// vector_filter_host.cpp for the BQ shapes at one count and
+// vector_filter_shaped_bq_host.cpp for those at mixed counts), which g++
+// builds, so that the CPU tests hold this exact code against the plain
+// PyTorch version in ssmtoybox_torch/ops/vector_filter.py.  The step is that
+// of vector_filter_step.cuh, whose models, Cholesky factor and parameter
+// struct it reuses; every sum runs in the plain version's order, from 0.0
+// upwards, so that both agree to the bit where their exp, sqrt and atan2
+// agree.
 //
 // What differs from the first version's step (vector_filter_step.cuh):
 // - both point counts, the model pair and the rules' kinds are template
@@ -475,3 +478,15 @@ VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long
 #define VFS_BQ_SHAPES_OF(F, D, E, DYN, OBS) \
   VFS_BQ_KINDS_OF(F, D, E, DYN, OBS, 2 * (D) + 1) VFS_BQ_KINDS_OF(F, D, E, DYN, OBS, 2 * (D))
 #define VFS_BQ_SHAPES(F) VFS_PAIRS(VFS_BQ_SHAPES_OF, F)
+
+// The instantiations of the kernel of the BQ shapes at mixed point counts
+// (vector_filter_shaped_bq_mixed.cu): the UT count on the dynamics beside the
+// CKF count on the measurement and the other way round, each with the kinds
+// (BQ, BQ), (classical, BQ) and (BQ, classical), F(D, E, DYN, OBS, ND, NO,
+// KD, KO): 30.
+#define VFS_BQ_MIXED_KINDS_OF(F, D, E, DYN, OBS, ND, NO) \
+  F(D, E, DYN, OBS, ND, NO, 1, 1) F(D, E, DYN, OBS, ND, NO, 0, 1) F(D, E, DYN, OBS, ND, NO, 1, 0)
+#define VFS_BQ_MIXED_OF(F, D, E, DYN, OBS)                                 \
+  VFS_BQ_MIXED_KINDS_OF(F, D, E, DYN, OBS, 2 * (D) + 1, 2 * (D))           \
+  VFS_BQ_MIXED_KINDS_OF(F, D, E, DYN, OBS, 2 * (D), 2 * (D) + 1)
+#define VFS_BQ_MIXED(F) VFS_PAIRS(VFS_BQ_MIXED_OF, F)

@@ -5,10 +5,12 @@
 // template arguments.  The model pairs are those of the classical shaped
 // kernel (vector_filter_shaped.cu): reentry and constant velocity with the
 // radar, the pendulum, the falling body with its range and the coordinated
-// turn with four bearings.  A BQ rule beside another point count and
-// Gauss-Hermite rules of fewer than 243 points stay on the first version
-// (vector_filter.cu), built into the same library; two classical rules at
-// these counts, mixed or not, run in the classical shaped kernel.
+// turn with four bearings.  A BQ rule beside the other count (2 D + 1 beside
+// 2 D, either way round) runs in vector_filter_shaped_bq_mixed.cu, built
+// into the same library, which this file's launcher calls; two classical
+// rules at these counts, mixed or not, run in the classical shaped kernel,
+// Gauss-Hermite rules of fewer than 243 points in the first version
+// (vector_filter.cu).
 //
 // Replaces, as those kernels do, ssmtoybox_tpu/ops/ddvec.py:514
 // dd_filter_batch (jnp double-double, no Pallas kernel).
@@ -59,23 +61,31 @@ vector_filter_shaped_bq_kernel(const __grid_constant__ VfsBqParams p,
 
 }  // namespace
 
+// The mixed point counts' launcher (vector_filter_shaped_bq_mixed.cu).
+int vfs_bq_launch_mixed(const VfsBqParams* params, const double* y, long long y_b,
+                        long long y_e, long long y_k, int B, int n_steps, double* m_fi,
+                        double* P_fi, double* m_pr, double* P_pr, double* xx,
+                        cudaStream_t stream);
+
 // Launch on `stream` of card `device` without synchronising; the layouts of
 // vfs_launch (vector_filter_shaped.cu).  Returns the CUDA error of selecting
 // the device or, after the launch, cudaGetLastError();
 // cudaErrorInvalidValue for a configuration that no instantiation takes
-// (both rules classical, mixed point counts, N other than 2 D + 1 or 2 D, a
-// model pair without a kernel form).
+// (both rules classical, a count other than 2 D + 1 or 2 D, a model pair
+// without a kernel form).
 extern "C" int vfs_bq_launch(const VfsBqParams* params, const double* y, long long y_b,
                              long long y_e, long long y_k, int B, int n_steps, int device,
                              double* m_fi, double* P_fi, double* m_pr, double* P_pr,
                              double* xx, void* stream) {
   if (B <= 0 || n_steps <= 0) return 0;
   const VfParams& q = params->base;
-  if (q.dyn.n != q.obs.n) return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current device is not
   // PyTorch's: select the tensors' card explicitly
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return static_cast<int>(set);
+  if (q.dyn.n != q.obs.n)
+    return vfs_bq_launch_mixed(params, y, y_b, y_e, y_k, B, n_steps, m_fi, P_fi, m_pr, P_pr, xx,
+                               static_cast<cudaStream_t>(stream));
   const Streams out = {m_fi, P_fi, m_pr, P_pr, xx};
   const unsigned blocks = static_cast<unsigned>((static_cast<long long>(B) + kThreads - 1) /
                                                 kThreads);

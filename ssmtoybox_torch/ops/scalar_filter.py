@@ -108,8 +108,8 @@ MAX_PTS = 8
 #: (all of them, up to ``MAX_SLOTS``, ``SF_MAX_SLOTS`` in the step header); a
 #: configuration runs at the smallest that holds both rules, padded with zero
 #: weights
-SLOTS = (3, 5, 7, 8, 9, 12, 16)
-MAX_SLOTS = 16
+SLOTS = (3, 5, 7, 8, 9, 12, 16, 20, 24, 32)
+MAX_SLOTS = 32
 
 #: the kernel's own measurements of a 1-D state: class -> (id in
 #: ``scalar_filter_step_general.cuh``, constants); the shaped form takes id 0
@@ -604,8 +604,9 @@ def _bind_geometry(lib: ctypes.CDLL):
 
 #: the library's sources, compiled at once, one nvcc each: the shaped form,
 #: the general form's one-thread design and the launchers; the slot design's
-#: 28 instantiations on the kernel's own models
-SOURCES = ["scalar_filter.cu", "scalar_filter_slots.cu"]
+#: 28 instantiations on the kernel's own models up to 16 slots; its 12 at 20,
+#: 24 and 32 slots
+SOURCES = ["scalar_filter.cu", "scalar_filter_slots.cu", "scalar_filter_slots_wide.cu"]
 
 
 def build() -> ctypes.CDLL:

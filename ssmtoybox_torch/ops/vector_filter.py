@@ -14,15 +14,17 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   or 2 D points each (UKF, CKF: one count on both transforms, or the UKF
   beside the CKF either way round), both counts template arguments, the
   rules by value;
-- ``vector_filter_shaped_bq`` (``csrc/vector_filter_shaped_bq.cu``, the same
-  step header): one of those counts on both transforms with a BQ rule (GPQ,
-  BSQ) on either transform or both, N and both kinds template arguments, the
-  rules (dense ``Wc`` included) by value;
+- ``vector_filter_shaped_bq`` (``csrc/vector_filter_shaped_bq.cu`` and
+  ``csrc/vector_filter_shaped_bq_mixed.cu``, the same step header): those
+  counts with a BQ rule (GPQ, BSQ) on either transform or both, one count on
+  both transforms or the UT count beside the CKF count either way round,
+  both counts and both kinds template arguments, the rules (dense ``Wc``
+  included) by value;
 - ``vector_filter`` (``csrc/vector_filter.cu``, the step in
   ``csrc/vector_filter_step.cuh``), the first version: every other
-  configuration of those pairs (a BQ rule beside another point count, rules
-  of fewer than :data:`_WARP_MIN_POINTS` points at other counts), one
-  thread a trajectory, N at run time;
+  configuration of those pairs (rules of fewer than
+  :data:`_WARP_MIN_POINTS` points at other counts, Gauss-Hermite rules
+  below 243 points), one thread a trajectory, N at run time;
 - ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the steps in
   ``csrc/vector_filter_general.cuh`` and ``csrc/vector_filter_lanes.cuh``;
   ``csrc/vector_filter_general_shaped.cu`` and
@@ -453,24 +455,20 @@ def kernel_of(params: VectorFilterParams) -> str:
     """The kernel that runs ``params``.  A registered model on either side:
     ``"vector_filter_registered"``.  A model pair that the first version and
     the shaped kernels do not instantiate: ``"vector_filter_general"``.
-    Else, each rule at the UT or CKF count (2 D + 1 or 2 D points): both
-    classical, ``"vector_filter_shaped"`` (one count on both transforms, or
-    the UKF beside the CKF); a BQ rule on either or both at one count,
+    Else, each rule at the UT or CKF count (2 D + 1 or 2 D points, one
+    count on both transforms or the two mixed): both classical,
+    ``"vector_filter_shaped"``; a BQ rule on either or both,
     ``"vector_filter_shaped_bq"``.  Rules that the warp form takes
     (:func:`_warp_takes`: Gauss-Hermite on 5-D states):
-    ``"vector_filter_general"`` in that form.  Any other count, and a BQ
-    rule beside a rule of another count: ``"vector_filter"``, the first
-    version."""
+    ``"vector_filter_general"`` in that form.  Any other count:
+    ``"vector_filter"``, the first version."""
     dyn, obs = params.dyn, params.obs
     if _registered_pair(params):
         return "vector_filter_registered"
     if not _instantiated(params):
         return "vector_filter_general"
     if _shaped_counts(params):
-        if dyn.kind == obs.kind == 0:
-            return "vector_filter_shaped"
-        if dyn.n == obs.n:
-            return "vector_filter_shaped_bq"
+        return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
     return "vector_filter_general" if _warp_takes(params) else "vector_filter"
 
 
@@ -979,14 +977,15 @@ def _bind(lib: ctypes.CDLL):
 
 #: the sources of the library: the first-version kernel, the classical shaped
 #: kernel, the kernel of the BQ shapes, the general kernel and its shaped
-#: one-thread form (one count on both rules, then the mixed counts)
+#: one-thread form (one count on both rules, then the mixed counts), and the
+#: BQ shapes' mixed counts
 SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu",
            "vector_filter_general.cu", "vector_filter_general_shaped.cu",
-           "vector_filter_general_shaped_mixed.cu"]
+           "vector_filter_general_shaped_mixed.cu", "vector_filter_shaped_bq_mixed.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile the six sources of :data:`SOURCES` for sm_90a with nvcc
+    """Compile the seven sources of :data:`SOURCES` for sm_90a with nvcc
     (once, a compiler each, at once, into one library) and bind it; later
     calls return the bound library."""
     return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
@@ -1019,6 +1018,19 @@ def _shaped_host() -> ctypes.CDLL:
     only; a library of its own, ``vfs_host_run``)."""
     return _build.bound("vector_filter_shaped_host", ["vector_filter_shaped_host.cpp"],
                         _bind_shaped_host, host=True)
+
+
+def _bind_shaped_bq_host(lib: ctypes.CDLL):
+    lib.vfs_bq_mixed_host_run.restype = ctypes.c_int
+    lib.vfs_bq_mixed_host_run.argtypes = ([ctypes.POINTER(_CShapedBqParams)] + _STREAMS
+                                          + [ctypes.c_void_p] * 5)
+
+
+def _shaped_bq_host() -> ctypes.CDLL:
+    """The BQ shapes' step at mixed point counts built for the host with g++
+    (tests only; a library of its own, ``vfs_bq_mixed_host_run``)."""
+    return _build.bound("vector_filter_shaped_bq_host", ["vector_filter_shaped_bq_host.cpp"],
+                        _bind_shaped_bq_host, host=True)
 
 
 def _bind_general_shaped_host(lib: ctypes.CDLL):
@@ -1245,8 +1257,9 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     registered kernel for a registered model, else the general kernel)
     compiled for the host on a CPU tensor, the general and registered
     kernels in the form of ``lanes`` (:func:`lanes_of` by default; the
-    classical shaped kernel and the general kernel's shaped form through
-    host builds of their own, :func:`_shaped_host` and
+    classical shaped kernel, the BQ shapes' mixed counts and the general
+    kernel's shaped form through host builds of their own,
+    :func:`_shaped_host`, :func:`_shaped_bq_host` and
     :func:`_general_shaped_host`); the five
     streams of :func:`vector_filter`, after checking that an instantiation
     of the configuration's dimensions ran."""
@@ -1279,8 +1292,9 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
         ran = _shaped_host().vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                           *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_shaped_bq":
-        ran = _host_shim().vfs_bq_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
-                                           *(o.data_ptr() for o in out))
+        run = (_host_shim().vfs_bq_host_run if params.dyn.n == params.obs.n else
+               _shaped_bq_host().vfs_bq_mixed_host_run)
+        ran = run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_general":
         scratch = _scratch(params, B, cpu, lanes)
         ran = _host_shim().vfg_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,

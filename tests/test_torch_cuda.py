@@ -551,12 +551,12 @@ def test_vector_shaped_kernel_matches_plain(card, system, rule, batch):
 #: reentry GPQ kernel parameters (``chip_smoke.VF_GPQ_DYN`` / ``VF_GPQ_OBS``)
 GPQ_RE_DYN = np.array([[1.0, 10, 10, 10, 10, 10]])
 GPQ_RE_OBS = np.array([[1.0, 10, 10, 1e4, 1e4, 1e4]])
-#: reentry rule -> the kernel ``kernel_of`` names: a BQ rule beside another
-#: point count the first version, the UKF beside the CKF the classical shaped
-#: kernel, GH-3 (243 points) the general kernel's warp form, BQ rules and
-#: mixed kinds at one UT count the BQ shapes
+#: reentry rule -> the kernel ``kernel_of`` names: the UKF beside the CKF the
+#: classical shaped kernel, GH-3 (243 points) the general kernel's warp form,
+#: BQ rules and mixed kinds at the UT and CKF counts (one count on both, or
+#: the two mixed) the BQ shapes
 FIRST_OR_BQ = {"GH-3": "vector_filter_general", "UKF/CKF": "vector_filter_shaped",
-               "GPQ-UT/CKF": "vector_filter", "BSQ-UT": "vector_filter_shaped_bq",
+               "GPQ-UT/CKF": "vector_filter_shaped_bq", "BSQ-UT": "vector_filter_shaped_bq",
                "UKF/BSQ-UT": "vector_filter_shaped_bq", "BSQ-UT/UKF": "vector_filter_shaped_bq"}
 
 
@@ -567,10 +567,10 @@ def _launch_counts(vf):
 @pytest.mark.parametrize("rule", ["GH-3", "BSQ-UT", "UKF/BSQ-UT", "BSQ-UT/UKF", "UKF/CKF",
                                   "GPQ-UT/CKF"])
 def test_vector_first_version_keeps_the_other_shapes(card, monkeypatch, rule):
-    """A BQ rule beside another point count launches the first-version
-    kernel, the UKF beside the CKF the classical shaped kernel, GH-3 the
-    general kernel (its warp form); BQ rules and mixed kinds at one UT count
-    the kernel of the BQ shapes; each equal to the plain version to the bit,
+    """The UKF beside the CKF launches the classical shaped kernel, GH-3 the
+    general kernel (its warp form); BQ rules and mixed kinds at one UT count,
+    and a BQ rule beside the other count, the kernel of the BQ shapes; each
+    equal to the plain version to the bit,
     counted on the kernel that ran.  Sent there by force, the first version
     still runs every one of them to the bit."""
     from ssmtoybox_torch.ops import vector_filter as vf
@@ -595,7 +595,10 @@ def test_vector_first_version_keeps_the_other_shapes(card, monkeypatch, rule):
 BQ_SHAPES = [("reentry", "GPQ-UT"), ("reentry", "BSQ-UT"), ("reentry", "GPQ-SR"),
              ("reentry", "UKF/BSQ-UT"), ("reentry", "BSQ-UT/UKF"), ("reentry", "CKF/GPQ-SR"),
              ("reentry", "GPQ-SR/CKF"), ("cv", "BSQ-UT"), ("cv", "UKF/BSQ-UT"),
-             ("pendulum", "GPQ-SR"), ("falling_body", "GPQ-UT"), ("ct_bearing", "GPQ-UT")]
+             ("pendulum", "GPQ-SR"), ("falling_body", "GPQ-UT"), ("ct_bearing", "GPQ-UT"),
+             ("reentry", "GPQ-UT/GPQ-SR"), ("reentry", "UKF/GPQ-SR"), ("reentry", "GPQ-UT/CKF"),
+             ("reentry", "GPQ-SR/GPQ-UT"), ("reentry", "CKF/GPQ-UT"), ("reentry", "GPQ-SR/UKF"),
+             ("cv", "BSQ-UT/CKF")]
 #: GPQ kernel parameters of the zoo's pairs (``tests/test_torch_vector_filter_bq.py``)
 GPQ_ZOO = {"pendulum": np.array([[1.0, 2.0, 2.0]]),
            "falling_body": np.array([[1.0, 3.0, 3.0, 3.0]]),
@@ -630,11 +633,12 @@ def test_vector_bq_shapes_match_plain(card, system, rule):
 
 
 def test_a_failed_bq_shaped_launch_raises(card, monkeypatch):
-    """Mixed point counts sent to the kernel of the BQ shapes by force: its
-    launcher refuses them, the wrapper raises, counts nothing and falls back
-    to nothing."""
+    """Two classical rules at mixed counts (the classical shaped kernel's
+    shape) sent to the kernel of the BQ shapes by force: its launcher
+    refuses them (its mixed counts all hold a BQ rule), the wrapper raises,
+    counts nothing and falls back to nothing."""
     from ssmtoybox_torch.ops import vector_filter as vf
-    params, y = _vector_case(card, "reentry", "BSQ-UT/CKF", 7)
+    params, y = _vector_case(card, "reentry", "UKF/CKF", 7)
     monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter_shaped_bq")
     before = _launch_counts(vf)
     with pytest.raises(RuntimeError, match="vector_filter_shaped_bq kernel launch failed"):
@@ -1265,8 +1269,8 @@ def test_registered_warp_form_matches_plain(card, registered):
 
 # ---------------------------------------------------------------------------
 # the slot design of the scalar kernel's general and registered forms
-# (csrc/scalar_filter_slots.cuh): rules of up to 16 points on compile-time
-# slots and lanes; above 16 points one thread a trajectory
+# (csrc/scalar_filter_slots.cuh): rules of up to 32 points on compile-time
+# slots and lanes; above 32 points one thread a trajectory
 # ---------------------------------------------------------------------------
 
 #: the slot design's slot counts and the Gauss-Hermite degree that fills each
@@ -1338,29 +1342,63 @@ def test_slot_design_matches_plain_at_every_instantiation(card, kinds, n, meas):
     _slot_streams_equal(card, params, dyn, obs, seed=n + 10 * kinds[0] + 20 * kinds[1])
 
 
+#: GPQ kernel parameters of rules of 17-32 Gauss-Hermite points: a length-scale
+#: of 1 keeps every run finite there (``chip_smoke.UNGM_GPQ_WIDE_PAR``)
+KERN_PAR_WIDE = np.array([[1.0, 1.0]])
+#: (kinds, Gauss-Hermite points, measurement) of the slot design above 16
+#: slots: 17 points padded to 20 slots, 24 and 32
+WIDE_SLOT_CASES = [(kinds, n, meas) for kinds in [(0, 0), (0, 1), (1, 0), (1, 1)]
+                   for n in (17, 24, 32) for meas in ("range", "sine", "ungm")]
+
+
+@pytest.mark.parametrize("kinds,n,meas", WIDE_SLOT_CASES)
+def test_wide_slot_design_matches_plain_at_every_instantiation(card, kinds, n, meas):
+    """Every instantiation of the general form's slot design above 16 slots
+    (both kinds of either rule x 20, 24 and 32 slots, ``scalar_filter_slots_wide.cu``)
+    with the range, sine and UNGM measurements, under GH-n and GPQ on GH-n
+    points (``KERN_PAR_WIDE``): one launch of the slot design a batch,
+    equal to the plain version to the bit at B = 1, 7, 4,097 and 10,000."""
+    from ssmtoybox_torch.ssmod import Pendulum2DMeasurement, RangeMeasurement
+    dyn = UNGMTransition(GaussRV(1, cov=5.0, device=card), GaussRV(1, cov=10.0, device=card))
+    obs = {"range": lambda: RangeMeasurement(GaussRV(1, cov=0.03, device=card), dim_state=1),
+           "sine": lambda: Pendulum2DMeasurement(GaussRV(1, cov=0.1, device=card), dim_state=1),
+           "ungm": lambda: UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)}[meas]()
+    rules = [stt.GaussHermiteKalman(dyn, obs, deg=n) if kind == 0 else
+             stt.GaussianProcessKalman(dyn, obs, KERN_PAR_WIDE, KERN_PAR_WIDE, points="gh",
+                                       point_hyp={"degree": n}) for kind in kinds]
+    params = sf.prepare(dyn, obs, rules[0].tf_dyn, rules[1].tf_obs)
+    assert sf.form_of(params) == "general"
+    assert sf.geometry(params)[:2] == ("slots", {17: 20}.get(n, n))
+    _slot_streams_equal(card, params, dyn, obs, seed=n + 10 * kinds[0] + 20 * kinds[1])
+
+
 def test_one_thread_form_takes_rules_above_16_points(card):
-    """GH-17 runs one thread a trajectory (not the slot design): one general
-    launch, none of the slot design, equal to the plain version to the bit
-    at B = 1, 7, 4,097 and 10,000."""
-    params, dyn, obs = _slot_case(card, (0, 0), 17, "ungm")
+    """GH-33, above the slot design's 32 points, runs one thread a
+    trajectory: one general launch, none of the slot design, equal to the
+    plain version to the bit at B = 1, 7, 4,097 and 10,000."""
+    params, dyn, obs = _slot_case(card, (0, 0), 33, "ungm")
     assert sf.geometry(params) == ("one-thread", 0, 1)
     _slot_streams_equal(card, params, dyn, obs, seed=17, slot=0)
 
 
-@pytest.mark.parametrize("rule", ["UKF", "GH-9", "GPQ-GH15"])
+@pytest.mark.parametrize("rule", ["UKF", "GH-9", "GPQ-GH15", "GH-17", "GPQ-GH32"])
 def test_registered_slot_design_matches_plain(card, registered, rule):
     """A registered transition (``_Growth``, its cosine a per-step stream)
-    with the UNGM measurement in the registered form's slot design, at 3, 9
-    and 16 slots: one launch a batch, counted on the registered form and the
-    slot design, equal to the plain version to the bit at B = 1, 7, 4,097 and
-    10,000."""
+    with the UNGM measurement in the registered form's slot design, at 3, 9,
+    16, 20 and 32 slots: one launch a batch, counted on the registered form
+    and the slot design, equal to the plain version to the bit at B = 1, 7,
+    4,097 and 10,000."""
     dyn = _Growth(GaussRV(1, cov=1.0, device=card), GaussRV(1, cov=1.0, device=card))
     obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)
     alg = {"UKF": lambda: stt.UnscentedKalman(dyn, obs),
            "GH-9": lambda: stt.GaussHermiteKalman(dyn, obs, deg=9),
            "GPQ-GH15": lambda: stt.GaussianProcessKalman(dyn, obs, KERN_PAR, KERN_PAR,
                                                          points="gh",
-                                                         point_hyp={"degree": 15})}[rule]()
+                                                         point_hyp={"degree": 15}),
+           "GH-17": lambda: stt.GaussHermiteKalman(dyn, obs, deg=17),
+           "GPQ-GH32": lambda: stt.GaussianProcessKalman(dyn, obs, KERN_PAR_WIDE, KERN_PAR_WIDE,
+                                                         points="gh",
+                                                         point_hyp={"degree": 32})}[rule]()
     params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
     assert sf.form_of(params) == "registered" and sf.geometry(params)[0] == "slots"
     _slot_streams_equal(card, params, dyn, obs, seed=23, counter="REGISTERED_LAUNCHES")
@@ -1368,13 +1406,13 @@ def test_registered_slot_design_matches_plain(card, registered, rule):
 
 def test_registered_one_thread_form_takes_rules_above_16_points(card, registered):
     """The registered transition (``_Growth``) with the UNGM measurement
-    under GH-17 runs the registered form one thread a trajectory
+    under GH-33 runs the registered form one thread a trajectory
     (``scalar_filter_registered_kernel``): one registered launch a batch,
     none of the slot design, equal to the plain version to the bit at B = 1,
     7, 4,097 and 10,000."""
     dyn = _Growth(GaussRV(1, cov=1.0, device=card), GaussRV(1, cov=1.0, device=card))
     obs = UNGMMeasurement(GaussRV(1, cov=1.0, device=card), dim_state=1)
-    alg = stt.GaussHermiteKalman(dyn, obs, deg=17)
+    alg = stt.GaussHermiteKalman(dyn, obs, deg=33)
     params = sf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
     assert sf.form_of(params) == "registered"
     assert sf.geometry(params) == ("one-thread", 0, 1)

@@ -17,7 +17,8 @@ with both counts template arguments (``vfs_step_with<D, E, ND, NO, ...>`` of
   1e-10, the tolerance of ``tests/test_torch_dd_pairs.py``.
 - Routing: ``kernel_of`` / ``lanes_of`` on mixed classical counts (the
   shaped kernel, or the general kernel's shaped form), mixed counts beside a
-  BQ rule (the first version, or the general one-thread form), a registered
+  BQ rule (the kernel of the BQ shapes on its five pairs, the general
+  one-thread form on the others), a registered
   configuration's mixed counts (the registered kernel's one-thread form, as
   before), and the headers' instantiation lists as the routing sees them.
 
@@ -307,7 +308,7 @@ ROUTES = [
     (("ct", "b4", "ukf/ckf"), ("vector_filter_shaped", 0)),
     (("ct", "radar", "ukf/ckf"), ("vector_filter_general", vf._SHAPED)),
     (("ct", "b3", "ckf/ukf"), ("vector_filter_general", vf._SHAPED)),
-    (("reentry", "re_radar", "gpq/ckf"), ("vector_filter", 0)),       # a BQ rule, mixed counts
+    (("reentry", "re_radar", "gpq/ckf"), ("vector_filter_shaped_bq", 0)),  # BQ, mixed counts
     (("reentry", "re_radar", "ukf/ukf"), ("vector_filter_shaped", 0)),
     (("reentry", "re_radar", "gpq/ukf"), ("vector_filter_shaped_bq", 0)),
     (("ct", "radar", "gpq/ckf"), ("vector_filter_general", 0)),
@@ -322,9 +323,9 @@ def test_routes_of_mixed_counts(case, want):
     """Two classical rules at the UT and CKF counts, mixed either way round,
     go to the classical shaped kernel on its five pairs and to the general
     kernel's shaped form on the pairs of ``VGS_PAIRS``; a BQ rule beside a
-    rule of the other count keeps the first version (or the general
-    one-thread form); a registered configuration keeps its shaped form for
-    one count on both rules only."""
+    rule of the other count goes to the kernel of the BQ shapes on its five
+    pairs (the general one-thread form on the others); a registered
+    configuration keeps its shaped form for one count on both rules only."""
     _need_gxx()
     params = _params(*case)
     assert (vf.kernel_of(params), vf.lanes_of(params)) == want

@@ -1,18 +1,20 @@
 """The slot design of the scalar filter kernel's general and registered forms
 (``sfs_record`` in ``csrc/scalar_filter_step_general.cuh``, launched by
 ``csrc/scalar_filter_slots.cuh``): the shaped form's step at 3-16
-compile-time slots on lanes, the models as a policy's functors, both rules
-staged as the kernel stages them in shared memory, no scratch.
+compile-time slots on lanes (17-32 points: ``test_torch_sf_wide_slots.py``),
+the models as a policy's functors, both rules staged as the kernel stages
+them in shared memory, no scratch.
 
 - Host builds: ``csrc/scalar_filter_host.cpp`` built with g++ (one lane a
   trajectory) equals the plain version ``_scalar_filter_plain`` to the bit,
   all five streams, with the C library's square root and sine, on 30-step
   records of 1 and 7 trajectories: GH-9, GH-12 and GH-15 (9, 12 and 16
-  slots), GH-16, GH-17 (still the one-thread design), GPQ on GH-9 and GH-15,
-  BSQ on GH-9, a 15-point dynamics rule beside a 9-point measurement rule,
-  the range and sine measurements under the UKF and GH-15, a registered
-  transition under the UKF and GH-9 and a registered measurement (the
-  registered form's generated library, built once for the module).
+  slots), GH-16, GH-17 (20 slots, since the slot design reaches 32
+  points), GPQ on GH-9 and GH-15, BSQ on GH-9, a 15-point dynamics rule
+  beside a 9-point measurement rule, the range and sine measurements under
+  the UKF and GH-15, a registered transition under the UKF and GH-9 and a
+  registered measurement (the registered form's generated library, built
+  once for the module).
 - Routing: :func:`scalar_filter.geometry` (the step header's
   ``sf_design_of``, asked through the host build) names each case's design,
   slot count and lanes; :func:`scalar_filter.slots` agrees with the
@@ -152,7 +154,7 @@ CASES = {
     ("ungm", "ungm", "gh12"): ("slots", 12, 2),
     ("ungm", "ungm", "gh15"): ("slots", 16, 2),
     ("ungm", "ungm", "gh16"): ("slots", 16, 2),
-    ("ungm", "ungm", "gh17"): ("one-thread", 0, 1),
+    ("ungm", "ungm", "gh17"): ("slots", 20, 2),
     ("ungm", "ungm", "gpq_gh9"): ("slots", 9, 2),
     ("ungm", "ungm", "gpq_gh15"): ("slots", 16, 4),
     ("ungm", "ungm", "bsq_gh9"): ("slots", 9, 2),
@@ -223,14 +225,15 @@ def test_geometry_routes_each_case(host_built, case):
     """The form, design, slot count and lanes of each case, as the step
     header's ``sf_design_of`` gives them through the host build: the general
     or registered form, in the slot design up to 16 points (padded to 9, 12
-    or 16 slots above 8), one thread a trajectory at 17; classical rules on
-    4 lanes up to 8 slots and on 2 above, a BQ rule on 2 lanes up to 9 slots
-    and on 4 above."""
+    or 16 slots above 8; 17 points at 20 slots); classical rules on 4 lanes
+    up to 8 slots and on 2 above, a BQ rule on 2 lanes up to 9 slots and on
+    4 above."""
     params = _params(case)
     assert sf.form_of(params) == ("registered" if "growth" in case or "sat" in case
                                   else "general")
     assert sf.geometry(params) == CASES[case]
-    assert sf._scratch(params, 7, "cpu").numel() == (0 if CASES[case][1] else 17 * 7)
+    n = max(params.dyn.n, params.obs.n)
+    assert sf._scratch(params, 7, "cpu").numel() == (0 if CASES[case][1] else n * 7)
 
 
 def test_slots_agrees_with_the_header(host_built):
@@ -250,7 +253,7 @@ def test_slots_agrees_with_the_header(host_built):
                     p = SimpleNamespace(dyn=SimpleNamespace(kind=kd, n=n_dyn),
                                         obs=SimpleNamespace(kind=ko, n=n_obs))
                     assert got_slots.value == sf.slots(p), (kd, ko, n_dyn, n_obs)
-                    assert got_lanes.value in ((1, 2, 4) if got_slots.value else (1,))
+                    assert got_lanes.value in ((1, 2, 4, 8) if got_slots.value else (1,))
     shaped = _params(("ungm", "ungm", "ukf"))
     assert sf.geometry(shaped) == ("shaped", 3, 2)
 
@@ -291,15 +294,15 @@ def test_slot_rules_struct_matches_the_header():
     body = src.split("struct SfsVec {")[1].split("};")[0]
     for name, _ in sf._CVec._fields_:
         assert f" {name}[SF_MAX_SLOTS];" in body, name
-    assert ctypes.sizeof(sf._CSlotRules) == 1024 and "sizeof(SfsRules) == 1024" in src
+    assert ctypes.sizeof(sf._CSlotRules) == 2048 and "sizeof(SfsRules) == 2048" in src
     assert f"#define SF_MAX_SLOTS {sf.MAX_SLOTS}" in open(sf._build.CSRC
                                                           + "/scalar_filter_step.cuh").read()
     params = _params(("ungm", "ungm", "gpq_gh9"))
     c = sf._c_slot_rules(params)
-    assert list(c.dyn.xi) == list(params.dyn.xi) + [0.0] * 7
-    assert list(c.obs.wcc) == list(params.obs.wcc) + [0.0] * 7
+    assert list(c.dyn.xi) == list(params.dyn.xi) + [0.0] * (sf.MAX_SLOTS - 9)
+    assert list(c.obs.wcc) == list(params.obs.wcc) + [0.0] * (sf.MAX_SLOTS - 9)
     assert not any(c.dyn.wc)
-    assert not any(sf._c_slot_rules(_params(("ungm", "ungm", "gh17"))).dyn.xi)
+    assert not any(sf._c_slot_rules(_params(("ungm", "ungm", "gh33"))).dyn.xi)
 
 
 # ---------------------------------------------------------------------------

@@ -449,11 +449,12 @@ def test_kernel_of_routes_by_shape(name):
 def test_shaped_host_build_refuses_other_shapes(data):
     """The shaped header's host entries run no instantiation for a shape
     they do not hold (the classical one for CT with the radar, a model pair
-    without its form; the BQ one for the mixed counts of BSQ-UT / CKF), and
-    a rule that does not fit the parameter struct (GH-3's 243 points; a BQ
-    rule in the classical struct) is refused before any call."""
+    without its form; the BQ one at mixed counts for the UKF beside the CKF,
+    two classical rules, which the classical kernel takes), and a rule that
+    does not fit the parameter struct (GH-3's 243 points; a BQ rule in the
+    classical struct) is refused before any call."""
     for alg, system, kernel in ((_port("ct_radar"), "ct_radar", "vector_filter_shaped"),
-                                (_mixed("bsq_ut", "ckf"), "reentry", "vector_filter_shaped_bq")):
+                                (_mixed("ukf", "ckf"), "reentry", "vector_filter_shaped_bq")):
         params = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
         with pytest.raises(RuntimeError, match="ran the D=0 step"):
             vf._host_shim_run(params, data[system][:1], kernel=kernel)

@@ -19,7 +19,7 @@ On the CPU:
   quadratic form in different orders;
 - the ctypes mirror of the parameter struct against the header, and the
   refusals: a rule the struct cannot hold raises before any build or call,
-  mixed point counts with a BQ rule run no instantiation.
+  two classical rules at mixed counts run no instantiation of the BQ shapes.
 
 Measurements come from a numpy seed (``_simulate`` of
 ``test_torch_vector_filter.py``): 33 trajectories of 20 steps.
@@ -161,12 +161,12 @@ def test_new_pairs_bq_fused_engine_matches_jax_f64(data33, name):
     ("gpq_ut", "vector_filter_shaped_bq"), ("pend_gpq_sr", "vector_filter_shaped_bq"),
     ("ukf/bsq_ut", "vector_filter_shaped_bq"), ("ckf/gpq_sr", "vector_filter_shaped_bq"),
     ("gpq_sr/ckf", "vector_filter_shaped_bq"), ("ckf", "vector_filter_shaped"),
-    ("ukf/ckf", "vector_filter_shaped"), ("bsq_ut/ckf", "vector_filter")])
+    ("ukf/ckf", "vector_filter_shaped"), ("bsq_ut/ckf", "vector_filter_shaped_bq")])
 def test_kernel_of_sends_bq_rules_at_the_shaped_counts_to_the_bq_shapes(name, kernel):
-    """GPQ and BSQ rules, alone or beside a classical rule, at one point
-    count N = 2 D + 1 or 2 D take the BQ shapes; two classical rules the
-    classical shaped kernel, at mixed counts too; a BQ rule beside another
-    count the first version."""
+    """GPQ and BSQ rules, alone or beside a classical rule, at the point
+    counts N = 2 D + 1 or 2 D take the BQ shapes, one count on both rules or
+    the two mixed; two classical rules the classical shaped kernel, at mixed
+    counts too."""
     assert vf.kernel_of(_params(name)[1]) == kernel
 
 
@@ -194,7 +194,9 @@ def test_bq_parameter_struct_matches_the_header():
 def test_bq_shapes_refuse_what_they_cannot_run(data33, monkeypatch):
     """A rule the struct cannot hold (Gauss-Hermite of degree 3, 243 points)
     is refused with a ``ValueError`` before anything is built or called;
-    mixed point counts reach the host entry, which runs no instantiation."""
+    two classical rules at mixed counts (the classical kernel's shape) reach
+    the host entry of the BQ shapes' mixed counts, which runs no
+    instantiation."""
     dyn, obs = SYSTEMS["reentry"][0]()
     gh = CONFIGS["gh3"][1](dyn, obs)
     params = vf.prepare(dyn, obs, gh.tf_dyn, gh.tf_obs)
@@ -209,7 +211,7 @@ def test_bq_shapes_refuse_what_they_cannot_run(data33, monkeypatch):
             vf._host_shim_run(params, data33["reentry"][:1], kernel="vector_filter_shaped_bq")
     if shutil.which("g++") is None:
         pytest.skip("g++ is not installed: the step header cannot be built for the host")
-    _, mixed = _params("bsq_ut/ckf")
+    _, mixed = _params("ukf/ckf")
     with pytest.raises(RuntimeError, match="ran the D=0 step"):
         vf._host_shim_run(mixed, data33["reentry"][:1], kernel="vector_filter_shaped_bq")
 

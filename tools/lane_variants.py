@@ -41,9 +41,10 @@ and lanes of other kernels and forms, for turns between trees (the reentry
 bench lane's UKF and CT + 4 bearings CKF in the shaped kernel, CT + radar
 and reentry + radar under the UKF beside the CKF, in the general kernel's
 shaped form and the shaped kernel, the driven pendulum with the radar under
-GH-3 in the registered one).  A lane of the classical shaped kernel runs
-there and in the first version by force, each with its ptxas counts and
-SASS.
+GH-3 in the registered one, reentry + radar under GPQ-UT and under GPQ-UT
+beside the CKF in the kernel of the BQ shapes).  A lane of a shaped kernel
+(classical or of the BQ shapes) runs there and in the first version by
+force, each with its ptxas counts and SASS.
 
 With ``--tree DIR``: the package of the checkout ``DIR`` is imported (only
 the wrapper's API is called on it) and each lane of ``LANES`` timed as that
@@ -80,7 +81,8 @@ LANES = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"
          ("CT + 16 bearings", "CKF"), ("chain 8-D + radar", "CKF"),
          ("reentry + radar", "GH-3"), ("CT + radar", "GH-3"), ("CT + 5 bearings", "GH-3"),
          ("CT + 8 bearings", "GH-3"), ("CT + 9 bearings", "GH-3"), ("CT + 16 bearings", "GH-3"),
-         ("falling body + range", "GH-3"), ("CV + radar", "GH-3"), ("CT + 4 bearings", "GH-3")]
+         ("falling body + range", "GH-3"), ("CV + radar", "GH-3"), ("CT + 4 bearings", "GH-3"),
+         ("reentry + radar", "GPQ-UT/CKF"), ("reentry + radar", "GPQ-UT")]
 #: the first trajectories held to the plain version
 HEAD = 200
 
@@ -115,10 +117,15 @@ def main():
     systems = {**cs.general_systems(np, dev), **cs.registry_systems(np, dev),
                **cs.vf_probe_systems(np, dev)}
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
+    gpq_re = (np.array(cs.VF_GPQ_DYN), np.array(cs.VF_GPQ_OBS))     # reentry's GPQ parameters
     rules = {"UKF": stt.UnscentedKalman, "CKF": stt.CubatureKalman,
              "GH-3": lambda d, o: stt.GaussHermiteKalman(d, o, deg=3),
              "UKF/CKF": lambda d, o: stt.GaussianInference(d, o, stt.UnscentedKalman(d, o).tf_dyn,
-                                                           stt.CubatureKalman(d, o).tf_obs)}
+                                                           stt.CubatureKalman(d, o).tf_obs),
+             "GPQ-UT": lambda d, o: stt.GaussianProcessKalman(d, o, *gpq_re),
+             "GPQ-UT/CKF": lambda d, o: stt.GaussianInference(
+                 d, o, stt.GaussianProcessKalman(d, o, *gpq_re).tf_dyn,
+                 stt.CubatureKalman(d, o).tf_obs)}
     lanes = [ln for ln in LANES if args.only is None or any(t in f"{ln[0]} {ln[1]}"
                                                             for t in args.only)]
     params, data = {}, {}
@@ -312,22 +319,21 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
         return tuple(out)
     for (name, rule), p in params.items():
         kernel = vf.kernel_of(p)
-        if kernel == "vector_filter_shaped_bq":
-            continue        # its lanes are for turns between trees (--tree)
         ys = data[name]
         registered = kernel == "vector_filter_registered"
         shaped = vf._shaped_takes(p)
         runs, entry = {}, {}
         plain = vf._vector_filter_plain(p, ys[:HEAD])
-        candidates = (("kernel", "first") if kernel == "vector_filter_shaped" else
+        candidates = (("kernel", "first") if kernel in ("vector_filter_shaped",
+                                                        "vector_filter_shaped_bq") else
                       (vf._SHAPED, *BUDGETS, vf._WARP, 16, 8, 4, 0, "first"))
         for g in candidates:
             if g == "kernel":
-                # the classical shaped kernel, both point counts template arguments
+                # a shaped kernel (classical, or of the BQ shapes), the point counts
+                # template arguments
                 runs[g] = cs.vf_raw(torch, vf, p, ys, dev, kernel)
-                targs = (p.dim_state, p.dim_out, p.dyn_model, p.obs_model, p.dyn.n, p.obs.n)
-                entry[g] = (f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs) + "E",
-                            _build.BUILD_LOGS.get("vector_filter", ""), vf.build())
+                entry[g] = (cs.shaped_entry(kernel, p), _build.BUILD_LOGS.get("vector_filter", ""),
+                            vf.build())
             elif g == "first":
                 if not vf._instantiated(p) or registered:
                     continue
@@ -370,8 +376,8 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
         for g in order + order[::-1]:
             turns.setdefault(g, []).append(cs.raw_ms(torch, runs[g], reps=reps))
         b_ms, b_by = cs.vf_bound(p, ys.shape[-1], ys.shape[0])
-        routed = {"vector_filter": "first", "vector_filter_shaped": "kernel"}.get(
-            kernel, vf.lanes_of(p))
+        routed = {"vector_filter": "first", "vector_filter_shaped": "kernel",
+                  "vector_filter_shaped_bq": "kernel"}.get(kernel, vf.lanes_of(p))
         cs.log(f"lane_variants {name} {rule} ({p.dyn.n}/{p.obs.n} points) {ys.shape[0]}x"
                f"{ys.shape[-1]}, E={p.dim_out}, D={p.dim_state}: routed {kernel}, form {routed} "
                f"(lanes; 0: one thread, {vf._SHAPED}: shaped one thread); bound {b_ms:.4f} ms "

@@ -19,7 +19,7 @@ flag,
 - ``SF_LANES=1|2|4|8``: lanes a trajectory of the shaped form at every slot
   count (1: compile-time shapes alone, one thread a trajectory);
 - ``SFS_LANES=1|2|4|8``: lanes a trajectory of the slot design (the general
-  and registered forms up to 16 points) at every shape;
+  and registered forms up to 32 points) at every shape;
 - ``SF_THREADS=32|64|128|256``: threads a block;
 - ``SF_SPREAD_STORES=1``: lanes 0..3 (0..4 of 8) of the shaped form store
   one stream each,
@@ -43,11 +43,13 @@ the timed kernels.
 
 The rules (``RULES``; UNGM transition and measurement unless named): the
 shaped form's UT, GH-5, GH-7, GPQ-UT, BSQ-GH5 and BSQ-GH7; the general
-form's GH-9, GH-12, GH-15, GH-16, GH-17 (one thread a trajectory), GPQ on
-GH-9, GH-12 and GH-15 points, BSQ-GH9, the range and sine measurements
-under the UKF (and the sine under GH-5, GH-7, the range and sine under
-GH-15); the registered form's growth lane of ``chip_smoke.py`` phase 28
-under the UKF, GH-5 and GH-9.  A shaped rule named with `` by slots``
+form's GH-9, GH-12, GH-15, GH-16, GH-17, GH-20, GH-24, GH-32, GH-33 (one
+thread a trajectory), GPQ on GH-9, GH-12, GH-15, GH-17, GH-20, GH-24 and
+GH-32 points (above 16 points with ``chip_smoke.UNGM_GPQ_WIDE_PAR``),
+BSQ-GH9, the range and sine measurements under the UKF (and the sine under
+GH-5, GH-7, the range and sine under GH-15); the registered form's growth
+lane of ``chip_smoke.py`` phase 28 under the UKF, GH-5, GH-9, GH-17 and
+GH-33.  A shaped rule named with `` by slots``
 (``"UT by slots"``) runs in the slot design by force, through
 ``sfg_launch``.
 
@@ -75,11 +77,12 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 #: the rules that can be timed, and the measurement or registered system
 #: each runs on
 RULES = ("UT", "GH-5", "GH-7", "GPQ-UT", "BSQ-GH5", "BSQ-GH7", "GH-9", "GH-12", "GH-15",
-         "GH-16", "GH-17", "GPQ-GH9", "GPQ-GH12", "GPQ-GH15", "BSQ-GH9", "range UKF",
+         "GH-16", "GH-17", "GH-20", "GH-24", "GH-32", "GH-33", "GPQ-GH9", "GPQ-GH12",
+         "GPQ-GH15", "GPQ-GH17", "GPQ-GH20", "GPQ-GH24", "GPQ-GH32", "BSQ-GH9", "range UKF",
          "range GH-15", "sine UKF", "sine GH-5", "sine GH-7", "sine GH-15", "growth UKF",
-         "growth GH-5", "growth GH-9")
+         "growth GH-5", "growth GH-9", "growth GH-17", "growth GH-33")
 #: a rule of the shaped form with this suffix runs in the slot design by force
-#: (``sfg_launch``, which takes any rule of at most 16 points)
+#: (``sfg_launch``, which takes any rule of at most 32 points)
 FORCED = " by slots"
 DEFAULT_RULES = "UT,GH-7,BSQ-GH7"
 
@@ -151,7 +154,7 @@ def lanes(cs, np, torch, stt, sf, dev, rules, batch, steps):
     yg = growth[1].simulate_measurements(gen, xg)[0].contiguous()
 
     def gpq(d, o, deg):
-        par = np.array(cs.UNGM_GPQ_PAR)
+        par = np.array(cs.UNGM_GPQ_PAR if deg <= 16 else cs.UNGM_GPQ_WIDE_PAR)
         return stt.GaussianProcessKalman(d, o, par, par, points="gh", point_hyp={"degree": deg})
 
     def bsq(d, o, deg, par):
