@@ -99,17 +99,22 @@ fails at once without them.  Phases, each fatal on failure:
     operations on the critical path of a step) beside its bound; the shaped
     vector filter kernel on the tracking UKF lane (raw launches, the first
     version's on the same input, bound, chain floor);
-15. the three vector filter kernels against their plain version, both on
+15. the vector filter kernels against their plain version, both on
     the card, to the bit, 20 steps, all five streams, at every instantiation
-    of the three sources: the five model pairs (reentry and CV with the
+    of the nine sources: the five model pairs (reentry and CV with the
     radar, the pendulum, the falling body with its range, CT with four
     bearings) under UKF, CKF, a BQ rule at the UT count (GPQ-UT; BSQ-UT too
     on reentry, on CV instead) and GPQ with spherical-radial points, every
     rule on both transforms, the mixed kinds of both counts, the UKF beside
     the CKF and a BQ rule beside the other count either way round (on CV
-    every pair of its four rules), GH-3 on reentry: the classical shaped
-    kernel (``csrc/vector_filter_shaped.cu``, 20 instantiations: 4 pairs of
-    point counts of each model pair), the kernel of the BQ shapes
+    every pair of its four rules), GH-3 on reentry, and the Gauss-Hermite
+    rules of ``VF_GH_RULES`` (GH-3 on the pendulum, GH-2 and GH-3 on the
+    falling body and CV, GH-2 on reentry and CT): the classical shaped
+    kernel (``csrc/vector_filter_shaped.cu``, 22 instantiations: 4 pairs of
+    point counts of each model pair, and 9 points on the pendulum, 8 on the
+    falling body), the slot kernel (``csrc/vector_filter_slots.cu``, 5:
+    Gauss-Hermite rules of 16-81 points on 2 or 4 lanes a trajectory), the
+    kernel of the BQ shapes
     (``csrc/vector_filter_shaped_bq.cu`` and ``_mixed.cu``, 60: one count on
     both transforms or the two mixed, three pairs of kinds) and, at every pair
     (sent there by force where another kernel takes it), the first version
@@ -120,14 +125,17 @@ fails at once without them.  Phases, each fatal on failure:
     (``csrc/vector_filter_general.cu``, 16 one-thread instantiations: D = 2-5
     x a bound of 2, 4 or 8 on E, or the wide form of bearings from 9-12
     sensors; 4 of its lane-group form, ``csrc/vector_filter_lanes.cuh``: D
-    on 8 lanes; 4 of its warp form, D on 32 lanes; 48 of its shaped
-    one-thread form, ``csrc/vector_filter_general_shaped.cu`` and
-    ``csrc/vector_filter_general_shaped_mixed.cu``: 12 pairs at the UT and
-    CKF counts, on both transforms or mixed) on ``VF_GENERAL_CASES``,
+    on 8 lanes; 4 of its warp form, D on 32 lanes; 53 of its shaped
+    one-thread form, ``csrc/vector_filter_general_shaped.cu``,
+    ``csrc/vector_filter_general_shaped_mixed.cu`` and
+    ``csrc/vector_filter_general_shaped_gh.cu``: 12 pairs at the UT and
+    CKF counts, on both transforms or mixed, and 5 at the Gauss-Hermite
+    count of 8 or 9 points) on ``VF_GENERAL_CASES``,
     the pairs only it takes, every pair of rule kinds, at the same batch
     sizes through the wrapper (the shaped form under the UKF and the CKF,
-    alone or beside each other, up to 4 outputs, the lane-group form above,
-    the warp form under GH-3), the
+    alone or beside each other, and GH-3 on 2-D or GH-2 on 3-D states, up
+    to 4 outputs, the lane-group form above, the warp form under GH-3 on
+    5-D states), the
     general one-thread form of those by force on all 10,000,
     and by force, one thread and warp form, on the UKF of the five other
     pairs (GH-3 on reentry runs in the warp form through the wrapper); it
@@ -144,17 +152,20 @@ fails at once without them.  Phases, each fatal on failure:
     1e-6 relative of the eager f64 lane's, every run finite), under GPQ-UT
     beside the CKF (the kernel of the BQ shapes at mixed counts; the first
     version by force on the same input, to the bit too) and under GH-2 (32
-    points: the first version) through ``engine="dd"``, each against its
-    plain version at the full shape to the bit, RMSE finite; the two mixed
-    lanes' raw launches in turns with the first version's on the same
-    input;
+    points: the slot kernel, the first version by force on the same input,
+    to the bit too; its filter RMSE within 1e-6 relative of the eager f64
+    lane's), and the pendulum under GH-4 (16 points, 10,000 x 50: the first
+    version, which keeps the Gauss-Hermite counts no other kernel takes)
+    through ``engine="dd"``, each against its plain version at the full
+    shape to the bit, RMSE finite; the two mixed lanes' and the GH-2 lane's
+    raw launches in turns with the first version's on the same input;
 17. ``tests/goldens/reentry.npz`` ``ukf`` (the shaped kernel) and ``bsqkf``
     (the BQ shapes) through ``engine="dd"`` on the card (1e-7 / 1e-6);
 18. the main path's kernel result on the bench lane against the plain
     version at its full 10,000 x 100, to the bit, all five streams; then
     timings: raw launches on the bench lane under each rule beside its bound
     and chain floor (the card's dependent-issue latencies, exp and atan2
-    included), for every rule that a shaped kernel takes the first-version
+    included), for every rule that another kernel takes the first-version
     kernel on the same input in turns with it, for GPQ-UT, BSQ-UT and GPQ-SR
     the registers, local memory and f64 issue floor (from the SASS) of both
     kernels' instantiations; the wrapper calls of the three kernels beside
@@ -254,14 +265,16 @@ fails at once without them.  Phases, each fatal on failure:
     (``dd_pairs_slice``): CT + radar under UKF and CKF and CT with 2, 3, 5
     and 8 bearings under CKF and 8 under GH-3, CT + radar under the UKF
     beside the CKF, the pendulum with the radar under GH-3 (9 points),
-    10,000 x 100 simulated on the card, through the general vector kernel
+    10,000 x 100 simulated on the card, and under GH-4 (16 points) on its
+    first 50 steps, through the general vector kernel
     (radar and 2-3 bearings in its shaped one-thread form, the mixed counts
-    too, 5 and 8 bearings under CKF in its lane-group form, GH-3 on CT in its
-    warp form, the pendulum's GH-3 in its general one-thread form);
+    and the pendulum's GH-3 too, 5 and 8 bearings under CKF in its
+    lane-group form, GH-3 on CT in its warp form, the pendulum's GH-4 in its
+    general one-thread form);
     UNGM under GH-9, GH-15, GPQ on GH-15 points and GH-17 (the slot design,
     GH-17 at 20 slots) on the main path's 10,000 x 500 data and under GH-33
     (one thread a trajectory) on its first 100 steps, through the scalar
-    kernel's general form; each lane once with the counts from 0 (5 shaped,
+    kernel's general form; each lane once with the counts from 0 (6 shaped,
     1 one-thread, 2 lane-group, 1 warp-form and 5 scalar launches, nothing
     else), its first 200 trajectories (all 10,000 on CT + radar UKF and on
     UNGM GH-17 and GH-33, which also match at B = 1, 7 and 4,097 through the
@@ -286,11 +299,12 @@ fails at once without them.  Phases, each fatal on failure:
     2-output measurement and with the radar, an 8-D one with the radar and a
     copy of the table's pendulum with the radar (the registered vector
     kernel: the 2-D ones under the UKF in its shaped one-thread form, the 2-D
-    one with the radar under GH-3 in its general one-thread form, the 8-D
+    one with the radar under GH-3 in that form too and under GH-4 (10,000 x
+    50) in its general one-thread form, the 8-D
     one in its lane-group form), CT with 9 and 16 bearings under CKF (the
     general kernel's lane-group form), reentry with a copy of the table's
     radar under GH-3 (the registered kernel's warp form), 10,000 x 100; each
-    lane once with the counts from 0 (2 registered shaped, 1 registered
+    lane once with the counts from 0 (3 registered shaped, 1 registered
     one-thread, 1 registered lane-group, 1 registered warp-form, 2 general
     lane-group, 1 scalar launch, nothing else), equal to its plain version
     to the bit (all 10,000 trajectories on the 2-D lane, the first 200
@@ -1403,6 +1417,8 @@ def bsq_slice(torch, np, dev, xs, ys):
 #: and a BSQ rule for the CV radar system (its BQ instantiations)
 VF_STEPS = 20
 VF_BATCHES = (1, 7, 31, 4097, MC)
+#: steps of phase 16b's pendulum GH-4 lane, the first version's path
+VF_GH4_STEPS = 50
 VF_GPQ_DYN, VF_GPQ_OBS = [[1.0, 10, 10, 10, 10, 10]], [[1.0, 10, 10, 1e4, 1e4, 1e4]]
 VF_CV_BSQ = [[1.0, 100.0, 100.0, 100.0, 100.0]]
 #: the ceilings of the reentry lane's dd-vs-f64 comparison: the JAX package's
@@ -1489,6 +1505,7 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
     ``raw_ms``.  ``kernel``: ``"vector_filter"`` (the first version, which
     takes every configuration of its five model pairs),
     ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"``,
+    ``"vector_filter_slots"``,
     ``"vector_filter_general"`` (every configuration of the table's models)
     or ``"vector_filter_registered"`` (a registered model); by default the
     one the wrapper picks.  ``lanes``: the general and registered kernels'
@@ -1526,6 +1543,9 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
     elif kernel == "vector_filter_shaped_bq":
         def launch():
             return lib.vfs_bq_launch(*args, stream)
+    elif kernel == "vector_filter_slots":
+        def launch():
+            return lib.vsl_launch(*args, stream)
     elif kernel == "vector_filter_general":
         scratch = vf._scratch(params, B, dev, lanes)
 
@@ -1545,7 +1565,8 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
 #: and their warp forms (``csrc/vector_filter_lanes.cuh``) and their shaped
 #: one-thread forms (``csrc/vector_filter_general_shaped.cuh``) apart
 VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq",
-              "vector_filter_general", "vector_filter_registered", "vector_filter_general_lanes",
+              "vector_filter_slots", "vector_filter_general", "vector_filter_registered",
+              "vector_filter_general_lanes",
               "vector_filter_registered_lanes", "vector_filter_general_warp",
               "vector_filter_registered_warp", "vector_filter_general_shaped",
               "vector_filter_registered_shaped")
@@ -1555,9 +1576,11 @@ def vf_counts(vf):
     """The launches of each vector filter kernel since the counts were last
     set to 0."""
     return {"vector_filter": (vf.LAUNCHES - vf.SHAPED_LAUNCHES - vf.BQ_SHAPED_LAUNCHES
-                              - vf.GENERAL_LAUNCHES - vf.REGISTERED_LAUNCHES),
+                              - vf.SLOT_LAUNCHES - vf.GENERAL_LAUNCHES
+                              - vf.REGISTERED_LAUNCHES),
             "vector_filter_shaped": vf.SHAPED_LAUNCHES,
             "vector_filter_shaped_bq": vf.BQ_SHAPED_LAUNCHES,
+            "vector_filter_slots": vf.SLOT_LAUNCHES,
             "vector_filter_general": (vf.GENERAL_LAUNCHES - vf.GENERAL_LANE_LAUNCHES
                                       - vf.GENERAL_WARP_LAUNCHES - vf.GENERAL_SHAPED_LAUNCHES),
             "vector_filter_registered": (vf.REGISTERED_LAUNCHES - vf.REGISTERED_LANE_LAUNCHES
@@ -1581,10 +1604,13 @@ def vf_source(name):
 
 def shaped_entry(kernel, p) -> str:
     """The mangled-name part of the instantiation of the shaped kernel
-    ``kernel`` (``vector_filter_shaped`` or ``vector_filter_shaped_bq``) that
-    runs ``p``: its template arguments, both point counts among them (the BQ
-    shapes' mixed counts in a kernel of their own)."""
+    ``kernel`` (``vector_filter_shaped``, ``vector_filter_shaped_bq`` or
+    ``vector_filter_slots``) that runs ``p``: its template arguments, both
+    point counts among them (the BQ shapes' mixed counts in a kernel of their
+    own; the slot kernel's design, a type, left out)."""
     targs = [p.dim_state, p.dim_out, p.dyn_model, p.obs_model]
+    if kernel == "vector_filter_slots":
+        return f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs + [p.dyn.n])
     if kernel == "vector_filter_shaped":
         targs += [p.dyn.n, p.obs.n]
     elif p.dyn.n == p.obs.n:
@@ -1610,6 +1636,7 @@ def vf_form(vf, kernel, lanes):
 
 def vf_zero(vf):
     vf.LAUNCHES = vf.SHAPED_LAUNCHES = vf.BQ_SHAPED_LAUNCHES = vf.GENERAL_LAUNCHES = 0
+    vf.SLOT_LAUNCHES = 0
     vf.REGISTERED_LAUNCHES = vf.GENERAL_LANE_LAUNCHES = vf.REGISTERED_LANE_LAUNCHES = 0
     vf.GENERAL_WARP_LAUNCHES = vf.REGISTERED_WARP_LAUNCHES = 0
     vf.GENERAL_SHAPED_LAUNCHES = vf.REGISTERED_SHAPED_LAUNCHES = 0
@@ -1628,18 +1655,26 @@ VF_GPQ_ZOO = {"pendulum": [[1.0, 2.0, 2.0]], "falling body": [[1.0, 3.0, 3.0, 3.
               "CV": [[1.0, 3.0, 3.0, 3.0, 3.0]]}
 
 
+#: phase 15's Gauss-Hermite rules of the five pairs that the shaped kernel
+#: (``VFS_GH``: 9 points on the pendulum, 8 on the falling body) and the slot
+#: kernel (``VSL_SHAPES``: 16-81 points) take, on both transforms
+VF_GH_RULES = {"pendulum": (3,), "falling body": (2, 3), "reentry": (2,), "CV": (2, 3),
+               "CT + 4 bearings": (2,)}
+
+
 def vf_rule_pairs(stt, np, systems):
     """Phase 15's filters and rule pairs.  ``systems``: name -> (dynamics,
     measurement) of the five model pairs with a kernel form.  Each system
     gets the UKF, the CKF, a BQ rule at N = 2 D + 1 (GPQ-UT; on reentry
     also BSQ-UT, the tracking study's, and GH-3; BSQ-UT on CV) and GPQ with
-    spherical-radial points (N = 2 D).  Returns ``{system: {rule: filter}}``
-    and the pairs ``(system, dynamics rule of, measurement rule of)``: every
-    rule on both transforms, the mixed kinds of both counts and the UKF
-    beside the CKF either way round, and a BQ rule beside a rule of the
-    other count with the three pairs of kinds either way round (on CV every
-    pair of its four rules, mixed counts too), so that every instantiation
-    of the five pairs' sources runs."""
+    spherical-radial points (N = 2 D), and the Gauss-Hermite rules of
+    ``VF_GH_RULES``.  Returns ``{system: {rule: filter}}`` and the pairs
+    ``(system, dynamics rule of, measurement rule of)``: every rule on both
+    transforms, the mixed kinds of both counts and the UKF beside the CKF
+    either way round, and a BQ rule beside a rule of the other count with
+    the three pairs of kinds either way round (on CV every pair of its four
+    rules, mixed counts too), so that every instantiation of the five pairs'
+    sources runs."""
     def mul(d):
         return np.hstack((np.zeros((d, 1), int), np.eye(d, dtype=int), 2 * np.eye(d, dtype=int)))
 
@@ -1675,13 +1710,19 @@ def vf_rule_pairs(stt, np, systems):
         # in the plain version too)
         pairs += [(name, "GPQ-UT", "GPQ-SR"), (name, "UKF", "GPQ-SR"), (name, "GPQ-UT", "CKF"),
                   (name, "GPQ-SR", "GPQ-UT"), (name, "CKF", "GPQ-UT"), (name, "GPQ-SR", "UKF")]
+    for name, degrees in VF_GH_RULES.items():
+        dyn, obs = systems[name]
+        for deg in degrees:
+            algs[name][f"GH-{deg}"] = stt.GaussHermiteKalman(dyn, obs, deg=deg)
+            pairs.append((name, f"GH-{deg}", f"GH-{deg}"))
     return algs, pairs
 
 
 def vf_instantiation(kernel, params, lanes=0):
     """The template arguments of the instantiation of ``kernel`` that runs
     ``params``: (D, dynamics, kinds of both rules, the point counts of both;
-    "any" for the first version); for the general kernel (D, the bound on E,
+    "any" for the first version; for the slot kernel its lanes too); for the
+    general kernel (D, the bound on E,
     0 for the wide form), in the shaped one-thread form (D, E, both models,
     both point counts), or in the lane-group or warp form on ``lanes`` lanes
     (D, the lanes)."""
@@ -1695,33 +1736,53 @@ def vf_instantiation(kernel, params, lanes=0):
         if lanes:
             return (vf_form(vf, kernel, lanes), params.dim_state, lanes)
         return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0)
+    if kernel == "vector_filter_slots":
+        return (kernel, params.dim_state, params.dyn_model, 0, 0, counts, vf.slot_lanes(params))
     return (kernel, params.dim_state, params.dyn_model, params.dyn.kind, params.obs.kind,
             "any" if kernel == "vector_filter" else counts)
+
+
+#: the step header's model ids, by macro name
+VF_IDS = {**{f"VF_DYN_{k}": i for i, k in enumerate(("REENTRY", "CV", "PENDULUM", "REENTRY1D",
+                                                    "CT"))},
+          **{f"VF_OBS_{k}": i for i, k in enumerate(("RADAR", "PENDULUM_SIN", "RANGE", "BEARING",
+                                                    "UNGM"))}}
+
+
+def header_list(vf, header, macro, fields):
+    """The entries ``F(D, E, DYN, OBS, ...)`` (``X(F, D, E, DYN, OBS)`` where
+    ``fields`` is ``"X"``) of ``macro`` in ``header`` of ``csrc``: ``(D, E,
+    dynamics id, measurement id, the first further integer fields)``, as many
+    further fields as ``fields`` counts beyond 4 (``"X"``: none)."""
+    src = open(os.path.join(vf._build.CSRC, header)).read()
+    body = src.split(f"#define {macro}(")[1].split("\n\n")[0]
+    head = r"X\(F, " if fields == "X" else r"F\("
+    out = []
+    for m in re.finditer(head + r"(\d), (\d), (\w+), (\w+)((?:, \w+)*)\)", body):
+        rest = [int(v) for v in m.group(5).split(", ")[1:] if v.isdigit()]
+        out.append((int(m.group(1)), int(m.group(2)), VF_IDS[m.group(3)], VF_IDS[m.group(4)],
+                    *rest[:0 if fields == "X" else fields - 4]))
+    return out
 
 
 def vgs_pairs(vf):
     """The table's pairs of the general kernel's shaped form, ``(D, E,
     dynamics id, measurement id)`` of ``VGS_PAIRS`` in
     ``csrc/vector_filter_general_shaped.cuh``."""
-    src = open(os.path.join(vf._build.CSRC, "vector_filter_general_shaped.cuh")).read()
-    body = src.split("#define VGS_PAIRS(X, F)")[1].split("\n\n")[0]
-    ids = {**{f"VF_DYN_{k}": i for i, k in enumerate(("REENTRY", "CV", "PENDULUM", "REENTRY1D",
-                                                     "CT"))},
-           **{f"VF_OBS_{k}": i for i, k in enumerate(("RADAR", "PENDULUM_SIN", "RANGE",
-                                                     "BEARING", "UNGM"))}}
-    return [(int(D), int(E), ids[d], ids[o])
-            for D, E, d, o in re.findall(r"X\(F, (\d), (\d), (\w+), (\w+)\)", body)]
+    return header_list(vf, "vector_filter_general_shaped.cuh", "VGS_PAIRS", "X")
 
 
 def vf_all_instantiations(vf):
-    """Every instantiation of the seven sources, as ``vf_instantiation``
+    """Every instantiation of the nine sources, as ``vf_instantiation``
     names them: the first version's 4 kinds of each model pair (20), the
     classical shaped kernel's 4 pairs of point counts (20: the UT or CKF
-    count on both transforms, or the two mixed), the BQ shapes' 3 kinds x 4
-    pairs of counts (60: one count on both, or the two mixed), the general
-    kernel's state dimensions x bounds on E (16, the wide form's four among
-    them), its lane-group form's state dimensions (4) and its shaped form's
-    pairs x 4 pairs of point counts (48)."""
+    count on both transforms, or the two mixed) and its Gauss-Hermite counts
+    (2, ``VFS_GH``), the BQ shapes' 3 kinds x 4 pairs of counts (60: one
+    count on both, or the two mixed), the slot kernel's shapes (5,
+    ``VSL_SHAPES``), the general kernel's state dimensions x bounds on E (16,
+    the wide form's four among them), its lane-group form's state dimensions
+    (4) and its shaped form's pairs x 4 pairs of point counts (48) and
+    Gauss-Hermite counts (5, ``VGS_GH``)."""
     dims = {0: 5, 1: 4, 2: 2, 3: 3, 4: 5}
 
     def count_pairs(D):
@@ -1731,6 +1792,12 @@ def vf_all_instantiations(vf):
     out |= {("vector_filter_general_lanes", D, vf._LANES) for D in (2, 3, 4, 5)}
     out |= {("vector_filter_general_shaped", D, E, dyn, obs, counts)
             for D, E, dyn, obs in vgs_pairs(vf) for counts in count_pairs(D)}
+    out |= {("vector_filter_general_shaped", D, E, dyn, obs, (nd, no)) for D, E, dyn, obs, nd, no
+            in header_list(vf, "vector_filter_general_shaped.cuh", "VGS_GH", 6)}
+    out |= {("vector_filter_shaped", D, dyn, 0, 0, (nd, no)) for D, _, dyn, _, nd, no
+            in header_list(vf, "vector_filter_shaped.cuh", "VFS_GH", 6)}
+    out |= {("vector_filter_slots", D, dyn, 0, 0, (n, n), g) for D, _, dyn, _, n, g
+            in header_list(vf, "vector_filter_slots.cuh", "VSL_SHAPES", 6)}
     for dyn, D in dims.items():
         for kd in (0, 1):
             for ko in (0, 1):
@@ -1904,7 +1971,7 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
     split = {k: sum(s[0] == k for s in seen) for k in VF_KERNELS}
     log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs "
-        f"and {g_cases} configurations of other pairs: every instantiation of the seven sources "
+        f"and {g_cases} configurations of other pairs: every instantiation of the nine sources "
         f"({split}; the first version at every pair of its five, the general kernel at the five "
         f"by force, where other kernels take them), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
         f"streams; two launches equal to the bit; {time.perf_counter() - t15:.1f} s")
@@ -1946,7 +2013,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     del eager
 
     # ---- 16b. the other kernels' paths: the bench lane under BSQ-UT, GH-3, ---------
-    # ---- the UKF beside the CKF, GPQ-UT beside the CKF and GH-2 ---------------------
+    # ---- the UKF beside the CKF, GPQ-UT beside the CKF and GH-2; the pendulum -------
+    # ---- under GH-4 -----------------------------------------------------------------
     launches, plain_ms = {}, {}
     p16 = {"UKF": params_of["reentry", "UKF", "UKF"]}
     lanes16 = {"BSQ-UT": (re["BSQ-UT"], "vector_filter_shaped_bq"),
@@ -1955,23 +2023,33 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
                                                  re["CKF"].tf_obs), "vector_filter_shaped"),
                "GPQ-UT/CKF": (stt.GaussianInference(dyn_re, obs_re, re["GPQ-UT"].tf_dyn,
                                                     re["CKF"].tf_obs), "vector_filter_shaped_bq"),
-               "GH-2": (stt.GaussHermiteKalman(dyn_re, obs_re, deg=2), "vector_filter")}
+               "GH-2": (re["GH-2"], "vector_filter_slots"),
+               "pendulum GH-4": (stt.GaussHermiteKalman(*systems["pendulum"], deg=4),
+                                 "vector_filter")}
+    # the first version's lane: the pendulum under GH-4 (16 points, a count that no
+    # other kernel takes) on its own data, VF_GH4_STEPS steps
+    x_pend = systems["pendulum"][0].simulate_discrete(gen, steps=VF_GH4_STEPS, mc_sims=MC)
+    data16 = {rule: (xs_re, ys_re) for rule in lanes16}
+    y_pend = systems["pendulum"][1].simulate_measurements(gen, x_pend)
+    data16["pendulum GH-4"] = (x_pend.permute(2, 0, 1), y_pend.permute(2, 0, 1))
     for rule, (alg, kernel) in lanes16.items():
+        x16, y16 = data16[rule]
+        M16, _, N16 = y16.shape
         vf_zero(vf)
-        res = alg.forward_pass_batch(ys_re, engine="dd")
+        res = alg.forward_pass_batch(y16, engine="dd")
         torch.cuda.synchronize()
         moved = vf_counts(vf)
         if moved != only(kernel):
-            fail(f"the reentry {rule} lane launched {moved}; expected {kernel} once")
+            fail(f"the {rule} lane launched {moved}; expected {kernel} once")
         launches[kernel] = launches.get(kernel, 0) + 1
-        p_rule = p16[rule] = vf.prepare(dyn_re, obs_re, alg.tf_dyn, alg.tf_obs)
-        plain_ms[rule], plain = event_ms(torch, lambda: vf._vector_filter_plain(p_rule, ys_re))
+        p_rule = p16[rule] = vf.prepare(alg.mod_dyn, alg.mod_obs, alg.tf_dyn, alg.tf_obs)
+        plain_ms[rule], plain = event_ms(torch, lambda: vf._vector_filter_plain(p_rule, y16))
         err[kernel] = max(err[kernel], vf_against_plain(
-            torch, res, plain, f"reentry {rule} lane {M}x{N}"))
-        if rule == "GPQ-UT/CKF":
+            torch, res, plain, f"{rule} lane {M16}x{N16}"))
+        if rule in ("GPQ-UT/CKF", "GH-2"):
             # the first version by force on the same input: it ran this lane until the
-            # kernel of the BQ shapes took the two counts
-            first = vf_raw(torch, vf, p_rule, ys_re, dev, "vector_filter")
+            # kernel of the BQ shapes took the two counts (the slot kernel GH-2)
+            first = vf_raw(torch, vf, p_rule, y16, dev, "vector_filter")
             if first() != 0:
                 fail(f"reentry {rule}: the first version's launch failed")
             torch.cuda.synchronize()
@@ -1984,16 +2062,17 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             del first
         del plain
         sm, _ = stt.gaussian_smoother(res)
-        r_rule = (float(rmse(x_t, res.fi_mean.permute(1, 2, 0))),
-                  float(rmse(x_t, sm.permute(1, 2, 0))))
+        x16_t = x16.permute(1, 2, 0)
+        r_rule = (float(rmse(x16_t, res.fi_mean.permute(1, 2, 0))),
+                  float(rmse(x16_t, sm.permute(1, 2, 0))))
         if not all(map(np.isfinite, r_rule)):
-            fail(f"reentry {rule} lane: RMSE {r_rule} not finite")
+            fail(f"{rule} lane: RMSE {r_rule} not finite")
         against = ""
-        if rule in ("GH-3", "UKF/CKF"):
-            # the warp form's and the mixed counts' lanes against the eager f64 lane, as phase
-            # 16 holds the UKF's
-            (r_fi, lost), (e_fi, e_lost) = (finite_rmse(torch, xs_re, res.fi_mean), finite_rmse(
-                torch, xs_re, alg.forward_pass_batch(ys_re, engine="f64").fi_mean))
+        if rule in ("GH-3", "UKF/CKF", "GH-2"):
+            # the warp form's, the mixed counts' and the slot kernel's lanes against the eager
+            # f64 lane, as phase 16 holds the UKF's
+            (r_fi, lost), (e_fi, e_lost) = (finite_rmse(torch, x16, res.fi_mean), finite_rmse(
+                torch, x16, alg.forward_pass_batch(y16, engine="f64").fi_mean))
             rel = abs(r_fi - e_fi) / e_fi
             against = (f"; over the finite runs, filter RMSE {r_fi:.9f} against the eager f64 "
                        f"lane's {e_fi:.9f}, relative {rel:.2e} (limit 1e-6), not finite "
@@ -2001,8 +2080,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             if not (rel <= 1e-6 and lost == 0.0):
                 fail(f"reentry {rule} lane: filter RMSE of dd and f64 differ by {rel:.3e} "
                      f"relative, or {lost:.2%} of the runs are not finite")
-        forced = "; the first version by force too" if rule == "GPQ-UT/CKF" else ""
-        log(f"reentry {rule} lane ({M}x{N}, N={p_rule.dyn.n}/{p_rule.obs.n}) through {kernel} "
+        forced = "; the first version by force too" if rule in ("GPQ-UT/CKF", "GH-2") else ""
+        log(f"{rule} lane ({M16}x{N16}, N={p_rule.dyn.n}/{p_rule.obs.n}) through {kernel} "
             f"(1 launch): == plain version to the bit, all five streams (plain version "
             f"{plain_ms[rule]:.1f} ms, one call){forced}; RMSE filter {r_rule[0]:.9f}, smoother "
             f"{r_rule[1]:.9f}{against}")
@@ -2089,8 +2168,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
     # the UKF beside the CKF and GPQ-UT beside the CKF: the shaped kernels at mixed counts in
     # turns with the first version, which ran these lanes until the shaped kernels took two
     # counts
-    for rule, kernel in (("UKF/CKF", "vector_filter_shaped"),
-                         ("GPQ-UT/CKF", "vector_filter_shaped_bq")):
+    for rule, kernel in (("UKF/CKF", "vector_filter_shaped"), ("GPQ-UT/CKF", "vector_filter_shaped_bq"),
+                         ("GH-2", "vector_filter_slots")):
         p_mix = p16[rule]
         turns = {}
         for k in ("vector_filter", kernel, kernel, "vector_filter"):
@@ -2104,12 +2183,13 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
             f"{fl * N / (mhz * 1e3):.4f} ms at {mhz:.0f} MHz; {kernel}: {code_of(kernel, p_mix)}; "
             f"vector_filter: {code_of('vector_filter', p_mix)}")
     for kernel, rule in (("vector_filter_shaped", "UKF"), ("vector_filter_shaped_bq", "BSQ-UT"),
-                         ("vector_filter_general_warp", "GH-3"), ("vector_filter", "GH-2")):
-        p_k = p16[rule]
-        k_ms = cuda_ms(torch, lambda: vf.vector_filter(p_k, ys_re))
-        raw = raw_ms(torch, vf_raw(torch, vf, p_k, ys_re, dev))
-        b_ms, b_by = vf_bound(p_k, N, M)
-        log(f"{kernel} reentry {rule} {M}x{N}: wrapper call {k_ms[0]:.4f} ms (min "
+                         ("vector_filter_general_warp", "GH-3"), ("vector_filter_slots", "GH-2"),
+                         ("vector_filter", "pendulum GH-4")):
+        p_k, y_k = p16[rule], data16.get(rule, (xs_re, ys_re))[1]
+        k_ms = cuda_ms(torch, lambda: vf.vector_filter(p_k, y_k))
+        raw = raw_ms(torch, vf_raw(torch, vf, p_k, y_k, dev))
+        b_ms, b_by = vf_bound(p_k, y_k.shape[-1], y_k.shape[0])
+        log(f"{kernel} {rule} {y_k.shape[0]}x{y_k.shape[-1]}: wrapper call {k_ms[0]:.4f} ms (min "
             f"{k_ms[1]:.4f}), raw launches {raw:.4f} ms, plain version {plain_ms[rule]:.1f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
         entries[kernel] = {"launches": launches.get(kernel, 0), "max_abs_err": err[kernel],
@@ -2183,8 +2263,8 @@ def general_systems(np, dev):
 
 #: phase 15's rules on the pairs of the general kernel: (pair, dynamics rule,
 #: measurement rule), every instantiation (D, bound on E, the wide form of
-#: more than 8 outputs; each pair of the shaped form at both point counts)
-#: and every pair of rule kinds
+#: more than 8 outputs; each pair of the shaped form at both point counts,
+#: mixed, and at its Gauss-Hermite count) and every pair of rule kinds
 VF_GENERAL_CASES = [
     ("pendulum + radar", "UKF", "UKF"), ("pendulum + radar", "GPQ-UT", "GPQ-UT"),
     ("pendulum + UNGM", "CKF", "CKF"), ("pendulum + 3 bearings", "UKF", "UKF"),
@@ -2204,7 +2284,12 @@ VF_GENERAL_CASES = [
     ("CV + 3 bearings", "UKF", "UKF"), ("CT + radar", "CKF", "CKF"),
     ("CT + 2 bearings", "UKF", "UKF"), ("CT + 2 bearings", "CKF", "CKF"),
     ("CT + 3 bearings", "UKF", "UKF"), ("reentry + range", "CKF", "CKF"),
-    ("reentry + UNGM", "UKF", "UKF")] + [
+    ("reentry + UNGM", "UKF", "UKF"),
+    # the Gauss-Hermite counts of the shaped form (VGS_GH): GH-3 on the 2-D pairs, GH-2 on
+    # the 3-D ones
+    ("pendulum + radar", "GH-3", "GH-3"), ("pendulum + UNGM", "GH-3", "GH-3"),
+    ("pendulum + 3 bearings", "GH-3", "GH-3"), ("falling body + sine", "GH-2", "GH-2"),
+    ("falling body + 4 bearings", "GH-2", "GH-2")] + [
     # the UKF beside the CKF, either way round, on every pair of the shaped form
     (name, a, b) for name in ("CT + radar", "CT + 2 bearings", "CT + 3 bearings",
                               "pendulum + radar", "pendulum + UNGM", "pendulum + 3 bearings",
@@ -2240,7 +2325,7 @@ def vf_probe_systems(np, dev):
 
 def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule=None):
     """A Gaussian filter of ``dyn`` and ``obs`` with the named rules (UKF,
-    CKF, GH-3 or GPQ-UT with the length-scales of ``VF_GPQ_ZOO``'s kind:
+    CKF, GH-2, GH-3, GH-4 or GPQ-UT with the length-scales of ``VF_GPQ_ZOO``'s kind:
     3 on every input); ``dyn_rule`` "A/B" with no ``obs_rule``: A on the
     dynamics, B on the measurement; one name alone: that rule on both."""
     if obs_rule is None:
@@ -2251,7 +2336,8 @@ def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule=None):
     def rule(name, model):
         alg = {"UKF": lambda: stt.UnscentedKalman(dyn, obs),
                "CKF": lambda: stt.CubatureKalman(dyn, obs),
-               "GH-3": lambda: stt.GaussHermiteKalman(dyn, obs, deg=3),
+               **{f"GH-{g}": (lambda g=g: stt.GaussHermiteKalman(dyn, obs, deg=g))
+                  for g in (2, 3, 4)},
                "GPQ-UT": lambda: stt.GaussianProcessKalman(dyn, obs, par, par)}[name]()
         return alg.tf_dyn if model == "dyn" else alg.tf_obs
 
@@ -2706,14 +2792,17 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     systems = general_systems(np, dev)
     gen = torch.Generator(device=dev).manual_seed(SEED + 27)
     data = {}
+    gh4 = f"pendulum + radar, {DD_GH4_STEPS} steps"
     vec_lanes = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"),
                  ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 8 bearings", "CKF"),
                  ("CT + 8 bearings", "GH-3"), ("CT + radar", "UKF/CKF"),
-                 ("pendulum + radar", "GH-3")]
-    for name in dict.fromkeys(n for n, _ in vec_lanes):
+                 ("pendulum + radar", "GH-3"), (gh4, "GH-4")]
+    systems[gh4] = systems["pendulum + radar"]
+    for name in dict.fromkeys(n for n, _ in vec_lanes if n != gh4):
         dyn, obs = systems[name]
         x = dyn.simulate_discrete(gen, steps=ZOO_STEPS, mc_sims=MC)
         data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
+    data[gh4] = tuple(t[..., :DD_GH4_STEPS] for t in data["pendulum + radar"])
     algs = {(n, r): general_filter(stt, np, *systems[n], r) for n, r in vec_lanes}
     par = np.array(UNGM_GPQ_PAR)
     wide = f"UNGM, {DD_WIDE_STEPS} steps"
@@ -2850,7 +2939,7 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
         if not scalar and kernel not in entries:
             # the kernel's first lane: CT + radar UKF in the shaped form, CT + 5 bearings in
             # the lane-group form, CT + 8 bearings under GH-3 in the warp form and the
-            # pendulum + radar under GH-3 in the general one-thread form
+            # pendulum + radar under GH-4 in the general one-thread form
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -2898,6 +2987,10 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
         + ", ".join(f"{k} {v:.1f} s" for k, v in built.items()) + f"; card: {card_line()}")
     return entries, sf_launches[1], err["scalar_filter"], slot_entry, wide_entry
 
+
+#: phase 27's lane of the general one-thread form (the pendulum + radar under
+#: GH-4, 16 points): its steps, the first of the GH-3 lane's data
+DD_GH4_STEPS = 50
 
 #: phase 28: the vector lanes' steps, the scalar lane's, and the bearing
 #: sensors of the wide lanes (16 on a circle about the turning target's start)
@@ -3094,16 +3187,23 @@ def registry_systems(np, dev):
 
 #: phase 28's lanes: (system, rule, kernel, steps); the first vector lane is
 #: held against its plain version on all of its trajectories
+#: phase 28's lane of the registered one-thread form: the driven pendulum +
+#: radar under GH-4 (16 points) on the first ``REG_GH4_STEPS`` steps of the
+#: GH-3 lane's data
+REG_GH4_STEPS = 50
+REG_GH4 = f"driven pendulum + radar, {REG_GH4_STEPS} steps"
 REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
              ("driven pendulum + mix", "UKF", "vector_filter_registered", REG_STEPS),
              ("driven pendulum + radar", "GH-3", "vector_filter_registered", REG_STEPS),
+             (REG_GH4, "GH-4", "vector_filter_registered", REG_GH4_STEPS),
              ("chain 8-D + radar", "CKF", "vector_filter_registered", REG_STEPS),
              ("pendulum copy + radar", "UKF", "vector_filter_registered", REG_STEPS),
              ("CT + 9 bearings", "CKF", "vector_filter_general", REG_STEPS),
              ("CT + 16 bearings", "CKF", "vector_filter_general", REG_STEPS),
              ("reentry + radar copy", "GH-3", "vector_filter_registered", REG_STEPS)]
-#: phase 28's filters by rule
-REG_RULES = {"UKF": "UnscentedKalman", "CKF": "CubatureKalman", "GH-3": "GaussHermiteKalman"}
+#: phase 28's filters by rule: (class, keyword arguments)
+REG_RULES = {"UKF": ("UnscentedKalman", {}), "CKF": ("CubatureKalman", {}),
+             "GH-3": ("GaussHermiteKalman", {"deg": 3}), "GH-4": ("GaussHermiteKalman", {"deg": 4})}
 #: phase 28's registered 1-D lanes around the slot design's ceiling, the
 #: growth model on the growth lane's data: (name, Gauss-Hermite points,
 #: steps, design): GH-17 at 20 slots, and GH-33 one thread a trajectory on
@@ -3156,6 +3256,7 @@ def registry_slice(torch, np, dev):
 
     t28 = time.perf_counter()
     systems = registry_systems(np, dev)
+    systems[REG_GH4] = systems["driven pendulum + radar"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 28)
     algs, data, params = {}, {}, {}
     tables = {"pendulum + radar": ("pendulum copy + radar", "UKF"),
@@ -3163,14 +3264,16 @@ def registry_slice(torch, np, dev):
     for name, rule, _, steps in REG_LANES + [(n, r, None, REG_STEPS)
                                              for n, (_, r) in tables.items()]:
         dyn, obs = systems[name]
-        algs[name] = getattr(stt, REG_RULES[rule])(dyn, obs)
+        cls, kwargs = REG_RULES[rule]
+        algs[name] = getattr(stt, cls)(dyn, obs, **kwargs)
         lowering = sf if dyn.dim_state == 1 else vf
         params[name] = lowering.prepare(dyn, obs, algs[name].tf_dyn, algs[name].tf_obs)
-        if name not in tables:
+        if name not in tables and name != REG_GH4:
             x = dyn.simulate_discrete(gen, steps=steps, mc_sims=MC)
             data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
     for name, (copy, _) in tables.items():
         data[name] = data[copy]
+    data[REG_GH4] = tuple(t[..., :REG_GH4_STEPS] for t in data["driven pendulum + radar"])
     for name, deg, _, _ in REG_WIDE:
         algs[name] = stt.GaussHermiteKalman(*systems["growth"], deg=deg)
         params[name] = sf.prepare(*systems["growth"], algs[name].tf_dyn, algs[name].tf_obs)
@@ -3220,9 +3323,9 @@ def registry_slice(torch, np, dev):
     registered = ("vector_filter_registered", "vector_filter_registered_lanes",
                   "vector_filter_registered_warp", "vector_filter_registered_shaped")
     if (vf_launches != want or sf_launches != (1, 0, 1, 1)
-            or sum(want[k] for k in registered) != 5 or not all(want[k] for k in registered)):
+            or sum(want[k] for k in registered) != 6 or not all(want[k] for k in registered)):
         fail(f"registry path: vector filter launches {vf_launches}, scalar filter launches (all, "
-             f"general, registered, slot design) {sf_launches}; expected {want} (five of the "
+             f"general, registered, slot design) {sf_launches}; expected {want} (six of the "
              "registered kernel, in each of its four forms) and (1, 0, 1, 1)")
     log(f"registry path: vector filter launches {vf_launches}; scalar filter launches "
         f"{sf_launches[0]}, of the registered form in its slot design "
@@ -3301,7 +3404,7 @@ def registry_slice(torch, np, dev):
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         if family == "vector_filter_registered" and kernel not in entries:
             # the first lane of each form: the driven pendulum + mix (shaped), the driven
-            # pendulum + radar GH-3 (one thread), the chain (lane-group) and the radar copy (warp)
+            # pendulum + radar GH-4 (one thread), the chain (lane-group) and the radar copy (warp)
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -5546,7 +5649,8 @@ def main():
         f"student_mc.cu + student_qrq.cu, vandermonde.cu and "
         f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
         f"vector_filter_general.cu + vector_filter_general_shaped.cu + "
-        f"vector_filter_general_shaped_mixed.cu + vector_filter_shaped_bq_mixed.cu for sm_90a in "
+        f"vector_filter_general_shaped_mixed.cu + vector_filter_shaped_bq_mixed.cu + "
+        f"vector_filter_general_shaped_gh.cu + vector_filter_slots.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
         + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):

@@ -37,12 +37,16 @@
 //
 // What it runs (ops/vector_filter.py, kernel_of): every configuration of its
 // five pairs when sent here by force, as the tests and chip_smoke.py send
-// it; routed, only rules at other counts than the UT's and the CKF's below
-// 243 points (Gauss-Hermite on 2-4-D states, GH-2 on reentry).  The UT and
-// CKF counts, one on both transforms or the two mixed, of either kind, run
-// in the shaped kernels (vector_filter_shaped.cu, vector_filter_shaped_bq.cu
-// and vector_filter_shaped_bq_mixed.cu), rules of 243 points and more in the
-// general kernel's warp form.
+// it; routed, only the counts below 243 points that no other kernel takes
+// (Gauss-Hermite of other degrees, GH-4 on the pendulum and the falling body
+// say; a BQ rule at a Gauss-Hermite count; Gauss-Hermite beside another
+// count).  The UT and CKF counts, one on both transforms or the two mixed,
+// of either kind, run in the shaped kernels (vector_filter_shaped.cu,
+// vector_filter_shaped_bq.cu and vector_filter_shaped_bq_mixed.cu), and so
+// do both classical rules at the Gauss-Hermite count of at most 11 points
+// (vector_filter_shaped.cu); classical Gauss-Hermite rules of 16-81 points
+// in the slot kernel (vector_filter_slots.cu); rules of 243 points and more
+// in the general kernel's warp form.
 //
 // Built with --fmad=false (ops/vector_filter.py): every operation rounds on
 // its own, as in the plain PyTorch version, so the two can agree to the bit.

@@ -3,10 +3,12 @@
 // whether the general kernel's shaped one-thread form has an instantiation of
 // it (vector_filter_general_shaped.cuh), reckoned on the host by the headers'
 // own functions, so that ops/vector_filter.py (lanes_of, kernel_of) routes a
-// shape to a form only where its launcher takes it.  Built with g++: it
+// shape to a form only where its launcher takes it; and the lanes of the slot
+// kernel's instantiation of it (vector_filter_slots.cuh).  Built with g++: it
 // instantiates no step, so it builds in a second or two.
 #include "vector_filter_general_shaped.cuh"
 #include "vector_filter_lanes.cuh"
+#include "vector_filter_slots.cuh"
 
 // vfl_fit on `lanes` lanes (VFL_G, or VFL_WARP: the warp form) into out: the
 // trajectories a block holds (0 where the launcher refuses the shape), the
@@ -22,5 +24,10 @@ extern "C" void vfl_fit_on(const VfParams* params, int lanes, int* out) {
 
 // vgs_takes: 1 if the general kernel's shaped form has an instantiation of
 // the configuration (a pair of VGS_PAIRS, both rules classical, each at
-// 2 D + 1 or 2 D points), else 0.
+// 2 D + 1 or 2 D points, or both at the Gauss-Hermite count of VGS_GH),
+// else 0.
 extern "C" int vgs_takes_on(const VfParams* params) { return vgs_takes(*params) ? 1 : 0; }
+
+// vsl_lanes_of: the lanes a trajectory of the slot kernel's instantiation of
+// the configuration runs on (VSL_SHAPES), 0 if none takes it.
+extern "C" int vsl_lanes_on(const VfParams* params) { return vsl_lanes_of(*params); }

@@ -5,7 +5,9 @@
 // measurements), up to 4 measurement outputs, under classical rules at the
 // UT and CKF point counts (2 D + 1 or 2 D on each transform): here one count
 // on both transforms, 24 instantiations; the UKF beside the CKF in
-// vector_filter_general_shaped_mixed.cu, whose launcher vgs_launch calls.
+// vector_filter_general_shaped_mixed.cu and the Gauss-Hermite counts of at
+// most 11 points in vector_filter_general_shaped_gh.cu, whose launchers
+// vgs_launch calls.
 // The general kernel's other shapes run in vector_filter_general.cu, built
 // into the same library; the registered kernel instantiates the same step on
 // its generated policies (vector_filter_registered.cu).
@@ -39,7 +41,8 @@
 // Returns the CUDA error of selecting the device or, after the launch,
 // cudaGetLastError(); cudaErrorInvalidValue for a configuration that no
 // instantiation takes (vgs_takes).  Mixed point counts go to
-// vgs_launch_mixed (vector_filter_general_shaped_mixed.cu).
+// vgs_launch_mixed (vector_filter_general_shaped_mixed.cu), the
+// Gauss-Hermite counts to vgs_launch_gh (vector_filter_general_shaped_gh.cu).
 extern "C" int vgs_launch(const VgsParams* params, const double* y, long long y_b,
                           long long y_e, long long y_k, int B, int n_steps, int device,
                           double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
@@ -56,6 +59,8 @@ extern "C" int vgs_launch(const VgsParams* params, const double* y, long long y_
   const cudaStream_t stream = static_cast<cudaStream_t>(st);
   if (q.dyn.n != q.obs.n)
     return vgs_launch_mixed(p, y, y_b, y_e, y_k, B, n_steps, out, stream);
+  if (q.dyn.n != 2 * q.dim_state && q.dyn.n != 2 * q.dim_state + 1)
+    return vgs_launch_gh(p, y, y_b, y_e, y_k, B, n_steps, out, stream);
   VGS_SHAPES(VGS_LAUNCH_IF)
   return static_cast<int>(cudaErrorInvalidValue);
 }

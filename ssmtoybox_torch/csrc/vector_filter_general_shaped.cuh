@@ -3,7 +3,9 @@
 // trajectory a thread, up to 4 measurement outputs on states of 2-5
 // dimensions, each rule at the UT or CKF point count of the state (ND on the
 // dynamics, NO on the measurement, each 2 D + 1 or 2 D: one count on both,
-// or the UKF beside the CKF), in native float64.
+// or the UKF beside the CKF), or both classical rules at the Gauss-Hermite
+// count of at most 11 points (vfs_gh_count: GH-3 on 2-D states, GH-2 on 3-D
+// ones), in native float64.
 //
 // Shared by the CUDA kernels and the host shims (vector_filter_general_shaped_host.cpp,
 // and vector_filter_host.cpp built for a registered library), which g++
@@ -122,8 +124,9 @@ VF_HD void vgs_record(const VgsParams& p, const double* y, long long y_e, long l
                       const double* s, int n_s, double* m_fi, double* P_fi, double* m_pr,
                       double* P_pr, double* xx, long long cs) {
   static_assert(D >= 2 && D <= VFS_MAX_DIM && E >= 1 && E <= 4, "the form's shapes");
-  static_assert((ND == 2 * D || ND == 2 * D + 1) && (NO == 2 * D || NO == 2 * D + 1),
-                "the UT and CKF point counts");
+  static_assert(vfs_counts_ok(D, ND, NO), "the UT and CKF point counts, or the Gauss-Hermite one");
+  static_assert(ND != NO || ND != vfs_gh_count(D) || (KD == 0 && KO == 0),
+                "classical rules at the Gauss-Hermite count");
   vfs_record_as<D, E, ND, NO, KD, KO, vgs_roll(Model::dyn_cost, ND),
                 vgs_roll(Model::obs_cost, NO), Model>(p, y, y_e, y_k, T, s, n_s, m_fi, P_fi,
                                                       m_pr, P_pr, xx, cs);
@@ -145,16 +148,23 @@ VF_HD void vgs_record(const VgsParams& p, const double* y, long long y_e, long l
 // ND, NO), under classical rules: one point count on both transforms, the
 // UT's or the CKF's, in vector_filter_general_shaped.cu (VGS_SHAPES, 24); the
 // two counts mixed, the UKF beside the CKF either way round, in
-// vector_filter_general_shaped_mixed.cu (VGS_MIXED, 24), a source of its own
+// vector_filter_general_shaped_mixed.cu (VGS_MIXED, 24); the Gauss-Hermite
+// count of the pairs of 2-D and 3-D states (vfs_gh_count: 9 and 8 points) in
+// vector_filter_general_shaped_gh.cu (VGS_GH, 5).  Each a source of its own
 // so that the library's sources still build in about the same time at once.
 // GPQ, BSQ and mixed kinds of the table's pairs keep the general one-thread
 // form; a registered configuration is instantiated with the kinds it has.
 #define VGS_SHAPES(F) VGS_PAIRS(VFS_SHAPES_OF, F)
 #define VGS_MIXED(F) VGS_PAIRS(VFS_MIXED_OF, F)
+#define VGS_GH(F)                                                                     \
+  F(2, 2, VF_DYN_PENDULUM, VF_OBS_RADAR, 9, 9) F(2, 1, VF_DYN_PENDULUM, VF_OBS_UNGM, 9, 9) \
+  F(2, 3, VF_DYN_PENDULUM, VF_OBS_BEARING, 9, 9)                                       \
+  F(3, 1, VF_DYN_REENTRY1D, VF_OBS_PENDULUM_SIN, 8, 8)                                  \
+  F(3, 4, VF_DYN_REENTRY1D, VF_OBS_BEARING, 8, 8)
 
 // Whether the general kernel's shaped form has an instantiation of q: a pair
 // of VGS_PAIRS at its D and E, both rules classical with 2 D + 1 or 2 D points
-// each.
+// each, or with the Gauss-Hermite count of VGS_GH on both.
 inline bool vgs_takes(const VfParams& q) {
   if (q.dyn.kind != 0 || q.obs.kind != 0) return false;
   bool found = false;
@@ -163,6 +173,7 @@ inline bool vgs_takes(const VfParams& q) {
                     q.dim_out == E && q.dyn.n == ND && q.obs.n == NO);
   VGS_SHAPES(VGS_TAKES_IF)
   VGS_MIXED(VGS_TAKES_IF)
+  VGS_GH(VGS_TAKES_IF)
 #undef VGS_TAKES_IF
   return found;
 }
@@ -222,4 +233,12 @@ int vgs_launch_as(const VgsParams& p, const double* y, long long y_b, long long 
 int vgs_launch_mixed(const VgsParams& p, const double* y, long long y_b, long long y_e,
                      long long y_k, int B, int n_steps, const VfgStreams& out,
                      cudaStream_t stream);
+
+// The launcher of the table pairs' Gauss-Hermite counts
+// (vector_filter_general_shaped_gh.cu), which vgs_launch calls for a count
+// other than 2 D + 1 and 2 D: what vgs_launch_as returns,
+// cudaErrorInvalidValue if no instantiation of VGS_GH takes the
+// configuration.
+int vgs_launch_gh(const VgsParams& p, const double* y, long long y_b, long long y_e,
+                  long long y_k, int B, int n_steps, const VfgStreams& out, cudaStream_t stream);
 #endif

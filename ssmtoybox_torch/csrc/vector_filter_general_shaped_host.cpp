@@ -1,11 +1,12 @@
 // Host build of the general kernel's shaped one-thread form
 // (vector_filter_general_shaped.cuh), for testing its arithmetic on a
-// machine without a GPU: the instantiations of vector_filter_general_shaped.cu
-// and of vector_filter_general_shaped_mixed.cu (the mixed point counts),
+// machine without a GPU: the instantiations of vector_filter_general_shaped.cu,
+// vector_filter_general_shaped_mixed.cu (the mixed point counts) and
+// vector_filter_general_shaped_gh.cu (the Gauss-Hermite counts),
 // picked as their launchers pick them, the trajectories one after another
 // with the kernel's layouts (time-major outputs, no scratch buffer).  A
 // library of its own, beside vector_filter_host.cpp, so that the tests of the
-// other steps do not compile these 48 instantiations.
+// other steps do not compile these 53 instantiations.
 #include "vector_filter_general_shaped.cuh"
 
 // Returns the state dimension of the instantiation that ran, 0 if none takes
@@ -28,6 +29,7 @@ extern "C" int vgs_host_run(const VgsParams* params, const double* y, long long 
   }
   VGS_SHAPES(VGS_RUN_IF)
   VGS_MIXED(VGS_RUN_IF)
+  VGS_GH(VGS_RUN_IF)
 #undef VGS_RUN_IF
   return ran;
 }

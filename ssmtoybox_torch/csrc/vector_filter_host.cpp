@@ -100,10 +100,10 @@ extern "C" int vfr_shaped_host_run(int pair, const VgsParams* params, const doub
                                    double* m_pr, double* P_pr, double* xx) {
   const VfParams& q = params->base;
 #define VFR_SHAPED_RUN_IF(I, D, E, MODEL)                                                     \
-  if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::N &&               \
-      q.obs.n == MODEL::N && q.dyn.kind == MODEL::KD && q.obs.kind == MODEL::KO) {            \
+  if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::ND &&              \
+      q.obs.n == MODEL::NO && q.dyn.kind == MODEL::KD && q.obs.kind == MODEL::KO) {           \
     for (int b = 0; b < B; ++b)                                                               \
-      vgs_record<D, E, MODEL::N, MODEL::N, MODEL::KD, MODEL::KO, MODEL>(                      \
+      vgs_record<D, E, MODEL::ND, MODEL::NO, MODEL::KD, MODEL::KO, MODEL>(                    \
           *params, y + b * y_b, y_e, y_k, n_steps, s, n_s, m_fi + b, P_fi + b, m_pr + b,      \
           P_pr + b, xx + b, B);                                                               \
     return D;                                                                                 \

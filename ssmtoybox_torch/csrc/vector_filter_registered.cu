@@ -22,9 +22,11 @@
 //                 VfgObsFn).
 //   VFR_SHAPED(F) F(index, D, E, Model) for each configuration of the shaped
 //                 one-thread form (vector_filter_general_shaped.cuh): D (2-5),
-//                 E (1-4); Model's policy states the rules' point count N and
-//                 kinds KD, KO, the costs of its models, and evaluates them
-//                 with their constants by value in the parameters (VgsParams).
+//                 E (1-4); Model's policy states the rules' point counts ND
+//                 and NO (the UT or CKF count each, or the Gauss-Hermite count
+//                 on both) and kinds KD, KO, the costs of its models, and
+//                 evaluates them with their constants by value in the
+//                 parameters (VgsParams).
 // Only the configurations the caller asked for are instantiated.
 //
 // What bounds it, and its design: those of vector_filter_general.cu: one
@@ -99,7 +101,7 @@ extern "C" int vfr_launch(int pair, const VfgParams* params, const double* y, lo
 // layouts of vfr_launch, no scratch buffer.  Returns the CUDA error of
 // selecting the device or, after the launch, cudaGetLastError();
 // cudaErrorInvalidValue if `pair` is not one of the library's shaped
-// configurations or its D, E, point count or kinds are not those of the
+// configurations or its D, E, point counts or kinds are not those of the
 // parameters.
 extern "C" int vfr_shaped_launch(int pair, const VgsParams* params, const double* y,
                                  long long y_b, long long y_e, long long y_k, const double* s,
@@ -113,9 +115,9 @@ extern "C" int vfr_shaped_launch(int pair, const VgsParams* params, const double
   if (set != cudaSuccess) return static_cast<int>(set);
   const VfgStreams out = {m_fi, P_fi, m_pr, P_pr, xx};
 #define VFR_SHAPED_LAUNCH_IF(I, D, E, MODEL)                                                  \
-  if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::N &&               \
-      q.obs.n == MODEL::N && q.dyn.kind == MODEL::KD && q.obs.kind == MODEL::KO)              \
-    return vgs_launch_as<D, E, MODEL::N, MODEL::N, MODEL::KD, MODEL::KO, MODEL>(              \
+  if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::ND &&              \
+      q.obs.n == MODEL::NO && q.dyn.kind == MODEL::KD && q.obs.kind == MODEL::KO)             \
+    return vgs_launch_as<D, E, MODEL::ND, MODEL::NO, MODEL::KD, MODEL::KO, MODEL>(            \
         p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, static_cast<cudaStream_t>(stream));
   VFR_SHAPED(VFR_SHAPED_LAUNCH_IF)
 #undef VFR_SHAPED_LAUNCH_IF

@@ -3,13 +3,16 @@
 // reentry and constant-velocity models with the range-bearing radar, and the
 // pendulum, the falling body with its range and the coordinated turn with
 // four bearings, under classical rules at the UT and CKF point counts (2 D +
-// 1 or 2 D on each transform: one count on both, or the UKF beside the CKF),
-// both counts template arguments.  The fused vector filter's other
+// 1 or 2 D on each transform: one count on both, or the UKF beside the CKF)
+// and at the Gauss-Hermite counts of at most 11 points on both transforms
+// (VFS_GH: the pendulum under GH-3, the falling body under GH-2), both
+// counts template arguments.  The fused vector filter's other
 // configurations of these pairs run in the library's other kernels: GPQ and
-// BSQ rules at one of these counts in vector_filter_shaped_bq.cu, rules of
-// many points in the general kernel's warp form, everything else (a BQ rule
-// beside another count, Gauss-Hermite rules of fewer points) in the
-// first-version kernel of vector_filter.cu.
+// BSQ rules at the UT and CKF counts in vector_filter_shaped_bq.cu and
+// vector_filter_shaped_bq_mixed.cu, Gauss-Hermite rules of 16-81 points in
+// vector_filter_slots.cu, rules of many points in the general kernel's warp
+// form, everything else (other Gauss-Hermite counts, a BQ rule at a
+// Gauss-Hermite count) in the first-version kernel of vector_filter.cu.
 //
 // Replaces, as that kernel does, ssmtoybox_tpu/ops/ddvec.py:514
 // dd_filter_batch (jnp double-double, no Pallas kernel).
@@ -67,8 +70,8 @@ vector_filter_shaped_kernel(const __grid_constant__ VfsParams p, const double* _
 // vf_launch (vector_filter.cu), no scratch buffer.  Returns the CUDA error of
 // selecting the device or, after the launch, cudaGetLastError();
 // cudaErrorInvalidValue for a configuration that no instantiation takes (a
-// rule of another kind, a point count other than 2 D + 1 or 2 D on either
-// transform, a model pair without a kernel form).
+// rule of another kind, point counts that VFS_SHAPES does not list, a model
+// pair without a kernel form).
 extern "C" int vfs_launch(const VfsParams* params, const double* y, long long y_b,
                           long long y_e, long long y_k, int B, int n_steps, int device,
                           double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,

@@ -19,6 +19,11 @@
 // upwards, so that both agree to the bit where their exp, sqrt and atan2
 // agree.
 //
+// Besides the UT and CKF counts, one Gauss-Hermite count p^D of at most
+// VFS_MAX_PTS points that is neither (vfs_gh_count: GH-3 on a 2-D state, 9
+// points; GH-2 on a 3-D one, 8) runs here on both transforms of classical
+// rules (VFS_GH; GH-2 on a 2-D state has the CKF's 4 points).
+//
 // What differs from the first version's step (vector_filter_step.cuh):
 // - both point counts, the model pair and the rules' kinds are template
 //   arguments, so each transform's point loops have a count known to the
@@ -119,6 +124,7 @@ template <int D, int EO, int N, bool ROLL, class F>
 VF_HD void vfs_moments(const VfsRule& R, const double (&m)[D], const double (&L)[D][D],
                        const F& f, double (&mu)[EO], double (&cov)[EO][EO],
                        double (&cross)[EO][D]) {
+  static_assert(N <= VFS_MAX_PTS, "a VfsRule holds VFS_MAX_PTS points");
   [[maybe_unused]] constexpr int U = ROLL ? 1 : N;  // unroll factor of the point loops
   double v[N][EO + D];             // point j: its values, then its offset
   VFS_PRAGMA(unroll (U))
@@ -183,6 +189,7 @@ template <int D, int EO, int N, bool ROLL, class F>
 VF_HD void vfs_bq_moments(const VfsBqRule& R, const double (&m)[D], const double (&L)[D][D],
                           const F& f, double (&mu)[EO], double (&cov)[EO][EO],
                           double (&cross)[EO][D]) {
+  static_assert(N <= VFS_MAX_PTS, "a VfsBqRule holds VFS_MAX_PTS points");
   [[maybe_unused]] constexpr int U = ROLL ? 1 : N;  // unroll factor of the point loops
   double v[N][EO];                 // point j: its values
   VFS_PRAGMA(unroll (U))
@@ -296,13 +303,15 @@ VF_HD void vfs_transform(const VfsBqRule& R, const double (&m)[D], const double 
 // measurement rules; KD, KO: their kinds; RD, RO: whether their transforms'
 // point loops stay loops; P: VfsParams (both classical), VfsBqParams, or the
 // general kernel's VgsParams (vector_filter_general_shaped.cuh), each with
-// the fields base, dyn and obs.
+// the fields base, dyn and obs; or the slot kernel's lane view of its
+// parameters (vector_filter_slots.cuh), whose rules' moments overload
+// vfs_transform.
 template <int D, int E, int ND, int NO, int KD, int KO, bool RD, bool RO, class Params,
           class Dyn, class Obs>
 VF_HD void vfs_step_with(const Params& p, double (&m)[D], double (&P)[D][D],
                          const double (&y)[E], const Dyn& dyn, const Obs& obs,
                          const VfOut& out) {
-  static_assert(D <= VFS_MAX_DIM && ND <= VFS_MAX_PTS && NO <= VFS_MAX_PTS, "rule shape");
+  static_assert(D <= VFS_MAX_DIM, "rule shape");
   const VfParams& q = p.base;
   double L[D][D], m_pr[D], P_pr[D][D];
   {
@@ -465,9 +474,42 @@ VF_HD void vfs_record(const Params& p, const double* y, long long y_e, long long
 #define VFS_MIXED_OF(F, D, E, DYN, OBS) \
   F(D, E, DYN, OBS, 2 * (D) + 1, 2 * (D)) F(D, E, DYN, OBS, 2 * (D), 2 * (D) + 1)
 
-// The instantiations of the classical kernel: the four pairs of point counts
-// of each model pair, F(D, E, DYN, OBS, ND, NO): 20.
-#define VFS_SHAPES(F) VFS_PAIRS(VFS_SHAPES_OF, F) VFS_PAIRS(VFS_MIXED_OF, F)
+// The Gauss-Hermite point count p^D (p >= 2) of a D-dimensional state that
+// the shaped steps take beside the UT and CKF counts: at most VFS_MAX_PTS
+// points and neither 2 D + 1 nor 2 D.  GH-3 on 2-D states (9), GH-2 on 3-D
+// ones (8); none from 4-D on (16 points and more), and GH-2 on 2-D has the
+// CKF's 4.  0 where there is none.
+VF_HD constexpr int vfs_gh_count(int D) {
+  for (int p = 2, n = 1; p <= VFS_MAX_PTS; ++p, n = 1) {
+    for (int k = 0; k < D; ++k) n *= p;
+    if (n > VFS_MAX_PTS) return 0;
+    if (n != 2 * D && n != 2 * D + 1) return n;
+  }
+  return 0;
+}
+static_assert(vfs_gh_count(2) == 9 && vfs_gh_count(3) == 8 && vfs_gh_count(4) == 0 &&
+                  vfs_gh_count(5) == 0,
+              "the Gauss-Hermite counts that ops/vector_filter.py routes (_gh_count)");
+
+// Whether the shaped steps take ND and NO points on a D-dimensional state:
+// the UT or CKF count on each transform, or the Gauss-Hermite count of
+// vfs_gh_count on both.
+VF_HD constexpr bool vfs_counts_ok(int D, int ND, int NO) {
+  return ((ND == 2 * D || ND == 2 * D + 1) && (NO == 2 * D || NO == 2 * D + 1)) ||
+         (ND == NO && ND == vfs_gh_count(D) && ND > 0);
+}
+
+// The Gauss-Hermite count of each model pair of VFS_PAIRS that has one, on
+// both rules, F(D, E, DYN, OBS, N, N): the pendulum at 9 points (GH-3), the
+// falling body at 8 (GH-2).
+#define VFS_GH(F)                                                 \
+  F(2, 1, VF_DYN_PENDULUM, VF_OBS_PENDULUM_SIN, 9, 9)             \
+  F(3, 1, VF_DYN_REENTRY1D, VF_OBS_RANGE, 8, 8)
+
+// The instantiations of the classical kernel: the four pairs of UT and CKF
+// point counts of each model pair and the Gauss-Hermite counts of VFS_GH,
+// F(D, E, DYN, OBS, ND, NO): 22.
+#define VFS_SHAPES(F) VFS_PAIRS(VFS_SHAPES_OF, F) VFS_PAIRS(VFS_MIXED_OF, F) VFS_GH(F)
 
 // The instantiations of the kernel of the BQ shapes: both point counts of
 // each model pair, each with the kinds (BQ, BQ), (classical, BQ) and (BQ,

@@ -1,14 +1,16 @@
 // Host build of the classical shaped kernel's step (vector_filter_shaped.cuh),
 // for testing its arithmetic on a machine without a GPU: the instantiations
-// of vector_filter_shaped.cu, one count on both rules and the mixed counts,
-// picked as its launcher picks them.  A library of its own, beside
-// vector_filter_host.cpp, so that a test of these 20 instantiations does not
-// compile the other steps' (and the other steps' tests not these).
+// of vector_filter_shaped.cu, one count on both rules, the mixed counts and
+// the Gauss-Hermite counts, picked as its launcher picks them.  A library of
+// its own, beside vector_filter_host.cpp, so that a test of these 22
+// instantiations does not compile the other steps' (and the other steps'
+// tests not these).
 #include "vector_filter_shaped.cuh"
 
 // The shaped step on the trajectories one after another, with vfs_launch's
 // layouts (time-major outputs, no scratch buffer): both rules classical with
-// 2 D + 1 or 2 D points each.  Returns the state dimension of the
+// 2 D + 1 or 2 D points each, or the Gauss-Hermite count of VFS_GH on both.
+// Returns the state dimension of the
 // instantiation that ran, 0 if none takes the configuration.
 extern "C" int vfs_host_run(const VfsParams* params, const double* y, long long y_b,
                             long long y_e, long long y_k, int B, int n_steps, double* m_fi,

@@ -6,25 +6,33 @@ Counterpart of the JAX package's ``ops/ddvec.py`` (``dd_filter_batch``, the
 ``lax.scan`` of double-double f32-pair arithmetic in jnp because the TPU has
 no f64 unit.  The card has native float64, so the port runs the whole record
 of every trajectory inside one launch of a CUDA kernel in plain f64 and
-returns all five moment streams that the RTS smoother reads.  Five kernels,
+returns all five moment streams that the RTS smoother reads.  Six kernels,
 picked by the model pair and the rules' shape (:func:`kernel_of`):
 
 - ``vector_filter_shaped`` (``csrc/vector_filter_shaped.cu``, the step in
   ``csrc/vector_filter_shaped.cuh``): both rules classical with N = 2 D + 1
   or 2 D points each (UKF, CKF: one count on both transforms, or the UKF
-  beside the CKF either way round), both counts template arguments, the
-  rules by value;
+  beside the CKF either way round), or both at the Gauss-Hermite count of at
+  most 11 points (GH-3 on the pendulum, GH-2 on the falling body), both
+  counts template arguments, the rules by value;
 - ``vector_filter_shaped_bq`` (``csrc/vector_filter_shaped_bq.cu`` and
   ``csrc/vector_filter_shaped_bq_mixed.cu``, the same step header): those
   counts with a BQ rule (GPQ, BSQ) on either transform or both, one count on
   both transforms or the UT count beside the CKF count either way round,
   both counts and both kinds template arguments, the rules (dense ``Wc``
   included) by value;
+- ``vector_filter_slots`` (``csrc/vector_filter_slots.cu``, the step in
+  ``csrc/vector_filter_slots.cuh``): classical Gauss-Hermite rules of 16-81
+  points on both transforms (reentry + radar and CT + 4 bearings under GH-2,
+  CV + radar under GH-2 and GH-3, the falling body under GH-3), the shaped
+  step with N a template argument and a trajectory's points split over 2 or
+  4 lanes of a warp (:func:`slot_lanes`), the values gathered by shuffles;
 - ``vector_filter`` (``csrc/vector_filter.cu``, the step in
   ``csrc/vector_filter_step.cuh``), the first version: every other
   configuration of those pairs (rules of fewer than
-  :data:`_WARP_MIN_POINTS` points at other counts, Gauss-Hermite rules
-  below 243 points), one thread a trajectory, N at run time;
+  :data:`_WARP_MIN_POINTS` points at other counts: other Gauss-Hermite
+  degrees, a BQ rule at a Gauss-Hermite count), one thread a trajectory, N at
+  run time;
 - ``vector_filter_general`` (``csrc/vector_filter_general.cu``, the steps in
   ``csrc/vector_filter_general.cuh`` and ``csrc/vector_filter_lanes.cuh``;
   ``csrc/vector_filter_general_shaped.cu`` and
@@ -32,8 +40,9 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   ``csrc/vector_filter_general_shaped.cuh``): every other pair of the
   table's models; up to 4 measurement outputs one thread a trajectory, in
   the shaped form where both rules are classical at the UT or CKF count
-  each, on a pair it instantiates (D, E, both counts, the models and the
-  kinds template arguments, the rules by value, no scratch), else in the
+  each or at the Gauss-Hermite count of at most 11 points on both, on a pair
+  it instantiates (D, E, both counts, the models and the kinds template
+  arguments, the rules by value, no scratch), else in the
   general one-thread form (the models, E, the kinds and N at run time; D
   and a bound on E template arguments); above 4 outputs the lane-group form (a trajectory on
   8 lanes of a warp, its arrays in shared memory; D a template argument);
@@ -44,12 +53,14 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   general kernel's forms instantiated on models registered at run time
   (:func:`register_dyn_dd_vec`, :func:`register_obs_dd_vec`, and 1-D
   measurement forms of ``scalar_filter.register_obs_dd``), the shaped
-  one-thread form at one UT or CKF count on both rules, of either kind, the
+  one-thread form at one UT or CKF count on both rules, of either kind, at
+  the two mixed or at the Gauss-Hermite count of at most 11 points on both
+  classical rules, the
   lane-group form also for states of more than 5 dimensions, built at first
   use from a header generated from their :class:`~.forms.KernelForm` s
   (:func:`build_registered`).
 
-The first four take the table's models; the first three only the five
+The first five take the table's models; the first four only the five
 pairs ``ReentryVehicle2DTransition`` or ``ConstantVelocity`` with
 ``Radar2DMeasurement``, ``Pendulum2DTransition`` with
 ``Pendulum2DMeasurement``, ``ReentryVehicle1DTransition`` with
@@ -75,7 +86,8 @@ plain PyTorch version :func:`_vector_filter_plain` (a registered form's
 raises (a registered configuration whose library does not build raises with
 the compiler's output).  Each launch adds one to :data:`LAUNCHES`; a launch
 of the classical shaped kernel also to :data:`SHAPED_LAUNCHES`, one of the
-kernel of the BQ shapes to :data:`BQ_SHAPED_LAUNCHES`, one of the general
+kernel of the BQ shapes to :data:`BQ_SHAPED_LAUNCHES`, one of the slot
+kernel to :data:`SLOT_LAUNCHES`, one of the general
 kernel to :data:`GENERAL_LAUNCHES`, one of the registered kernel to
 :data:`REGISTERED_LAUNCHES`; a launch of either in the lane-group form also
 to :data:`GENERAL_LANE_LAUNCHES` or :data:`REGISTERED_LANE_LAUNCHES`, one
@@ -112,20 +124,22 @@ from . import _build, forms
 from .forms import TORCH_FNS, KernelForm, Registered, find_dyn, find_obs
 from .scalar_filter import _floats, _memo
 
-__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "GENERAL_LAUNCHES",
-           "REGISTERED_LAUNCHES", "GENERAL_LANE_LAUNCHES", "REGISTERED_LANE_LAUNCHES",
-           "GENERAL_WARP_LAUNCHES", "REGISTERED_WARP_LAUNCHES", "GENERAL_SHAPED_LAUNCHES",
-           "REGISTERED_SHAPED_LAUNCHES", "VecRule",
+__all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "SLOT_LAUNCHES",
+           "GENERAL_LAUNCHES", "REGISTERED_LAUNCHES", "GENERAL_LANE_LAUNCHES",
+           "REGISTERED_LANE_LAUNCHES", "GENERAL_WARP_LAUNCHES", "REGISTERED_WARP_LAUNCHES",
+           "GENERAL_SHAPED_LAUNCHES", "REGISTERED_SHAPED_LAUNCHES", "VecRule",
            "VectorFilterParams", "register_dyn_dd_vec", "register_obs_dd_vec", "lower_transform",
-           "check", "supports", "prepare", "kernel_of", "lanes_of", "vector_filter", "build",
-           "build_registered", "chain_floor_clocks", "TORCH_FNS"]
+           "check", "supports", "prepare", "kernel_of", "lanes_of", "slot_lanes", "vector_filter",
+           "build", "build_registered", "chain_floor_clocks", "TORCH_FNS"]
 
-#: kernel launches made by :func:`vector_filter` in this process, all five kernels
+#: kernel launches made by :func:`vector_filter` in this process, all six kernels
 LAUNCHES = 0
 #: the launches of the classical shaped kernel among them
 SHAPED_LAUNCHES = 0
 #: the launches of the kernel of the BQ shapes among them
 BQ_SHAPED_LAUNCHES = 0
+#: the launches of the slot kernel among them
+SLOT_LAUNCHES = 0
 #: the launches of the general kernel among them
 GENERAL_LAUNCHES = 0
 #: the launches of the registered kernel among them
@@ -149,6 +163,9 @@ _MAX_DIM = 8
 #: ``VFS_MAX_DIM`` and ``VFS_MAX_PTS`` of the shaped kernel's header: the
 #: largest state of a model pair with a kernel form and its UT point count
 _SHAPED_MAX_DIM, _SHAPED_MAX_PTS = 5, 11
+#: ``VSL_MAX_DIM`` and ``VSL_MAX_PTS`` of the slot kernel's header: the
+#: largest state and point count its parameters hold (GH-3 on a 4-D state)
+_SLOT_MAX_DIM, _SLOT_MAX_PTS = 5, 81
 
 #: no multiply-add contraction, as the scalar filter kernel is built: every
 #: operation rounds on its own, like the plain version's separate operations
@@ -451,6 +468,38 @@ def _shaped_counts(params: VectorFilterParams) -> bool:
     return params.dyn.n in (2 * D, 2 * D + 1) and params.obs.n in (2 * D, 2 * D + 1)
 
 
+def _gh_count(D: int) -> int:
+    """``vfs_gh_count`` of the shaped kernel's header: the Gauss-Hermite
+    count p^D (p >= 2) of at most :data:`_SHAPED_MAX_PTS` points that is
+    neither 2 D + 1 nor 2 D (9 on a 2-D state, 8 on a 3-D one), 0 if none."""
+    for p in range(2, _SHAPED_MAX_PTS + 1):
+        if p ** D > _SHAPED_MAX_PTS:
+            return 0
+        if p ** D not in (2 * D, 2 * D + 1):
+            return p ** D
+    return 0
+
+
+def _shaped_gh(params: VectorFilterParams) -> bool:
+    """Whether both rules are classical with the Gauss-Hermite count of
+    :func:`_gh_count`, which the shaped kernel and forms take beside the UT
+    and CKF counts (a BQ rule at that count keeps its route)."""
+    n = _gh_count(params.dim_state)
+    return (n > 0 and params.dyn.n == params.obs.n == n
+            and params.dyn.kind == params.obs.kind == 0)
+
+
+def slot_lanes(params: VectorFilterParams) -> int:
+    """The lanes a trajectory of the slot kernel (``vector_filter_slots``)
+    runs on for ``params``, 0 if it has no instantiation of it: the header's
+    answer (``vsl_lanes_of`` of ``csrc/vector_filter_slots.cuh``, via
+    :func:`_fit`), where the shapes (``VSL_SHAPES``) and the lanes of each
+    (``vsl_lanes``) are those the card chose (PERF.md, section 6)."""
+    if not _instantiated(params):
+        return 0
+    return int(_fit().vsl_lanes_on(ctypes.byref(_c_params(params, torch.device("cpu")))))
+
+
 def kernel_of(params: VectorFilterParams) -> str:
     """The kernel that runs ``params``.  A registered model on either side:
     ``"vector_filter_registered"``.  A model pair that the first version and
@@ -458,8 +507,12 @@ def kernel_of(params: VectorFilterParams) -> str:
     Else, each rule at the UT or CKF count (2 D + 1 or 2 D points, one
     count on both transforms or the two mixed): both classical,
     ``"vector_filter_shaped"``; a BQ rule on either or both,
-    ``"vector_filter_shaped_bq"``.  Rules that the warp form takes
-    (:func:`_warp_takes`: Gauss-Hermite on 5-D states):
+    ``"vector_filter_shaped_bq"``.  Both classical at the Gauss-Hermite count
+    of at most 11 points (:func:`_shaped_gh`): ``"vector_filter_shaped"``.
+    Both classical at a count of 16-81 points that the slot kernel
+    instantiates (:func:`slot_lanes`: GH-2 and GH-3 on the pairs the card
+    showed faster there): ``"vector_filter_slots"``.  Rules that the warp
+    form takes (:func:`_warp_takes`: Gauss-Hermite on 5-D states):
     ``"vector_filter_general"`` in that form.  Any other count:
     ``"vector_filter"``, the first version."""
     dyn, obs = params.dyn, params.obs
@@ -469,6 +522,10 @@ def kernel_of(params: VectorFilterParams) -> str:
         return "vector_filter_general"
     if _shaped_counts(params):
         return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
+    if _shaped_gh(params):
+        return "vector_filter_shaped"
+    if slot_lanes(params):
+        return "vector_filter_slots"
     return "vector_filter_general" if _warp_takes(params) else "vector_filter"
 
 
@@ -494,16 +551,20 @@ def _shaped_takes(params: VectorFilterParams) -> bool:
     """Whether the shaped one-thread form (``vgs_record`` of
     ``csrc/vector_filter_general_shaped.cuh``) runs ``params``: at most 4
     measurement outputs on a state of 2-5 dimensions, each rule with 2 D + 1
-    or 2 D points; for the general kernel a pair and rules it instantiates
-    (``vgs_takes`` of the header, via :func:`_fit`: a pair of ``VGS_PAIRS``,
-    both rules classical, one count on both or the two mixed), for the
-    registered kernel one count on both rules, rules of either kind and
-    registered constants that its parameters hold (:data:`_VGS_MAX_C`)."""
+    or 2 D points, or both classical with the Gauss-Hermite count of
+    :func:`_shaped_gh`; for the general kernel a pair and rules it
+    instantiates (``vgs_takes`` of the header, via :func:`_fit`: a pair of
+    ``VGS_PAIRS``, both rules classical, one count on both, the two mixed or
+    the Gauss-Hermite count of ``VGS_GH``), for the registered kernel rules
+    of either kind at one UT or CKF count on both, classical rules at the
+    two mixed or at the Gauss-Hermite count (a BQ rule at mixed counts keeps
+    the one-thread form), and registered constants that its parameters hold
+    (:data:`_VGS_MAX_C`)."""
     if not (2 <= params.dim_state <= _SHAPED_MAX_DIM and params.dim_out <= 4
-            and _shaped_counts(params)):
+            and (_shaped_counts(params) or _shaped_gh(params))):
         return False
     if _registered_pair(params):
-        return params.obs.n == params.dyn.n and all(
+        return (params.obs.n == params.dyn.n or params.dyn.kind == params.obs.kind == 0) and all(
             len(f.consts) <= _VGS_MAX_C for f in (params.dyn_form, params.obs_form)
             if f is not None)
     return bool(_fit().vgs_takes_on(ctypes.byref(_c_params(params, torch.device("cpu")))))
@@ -523,14 +584,15 @@ def lanes_of(params: VectorFilterParams) -> int:
     most 4 measurement outputs on a state of at most 5 dimensions, one thread
     a trajectory: :data:`_SHAPED`, the shaped form (``vgs_record``), where it
     takes the shape (:func:`_shaped_takes`: the general kernel's UKF beside
-    its CKF too), else 0, the general one-thread form (``vfg_step``; mixed
-    counts with a BQ rule, Gauss-Hermite rules under 243 points, a
-    registered configuration's mixed counts).  The shaped form keeps 3 and
+    its CKF too, and GH-3 on 2-D or GH-2 on 3-D states), else 0, the general
+    one-thread form (``vfg_step``; mixed counts with a BQ rule, Gauss-Hermite
+    rules of 16-242 points, BQ rules at a Gauss-Hermite count).  The shaped form keeps 3 and
     4 outputs too: raw launches at 10,000 x 100 in turns (NVIDIA H100 80GB
     HBM3 at 700 W, ``tools/lane_variants.py``, PERF.md section 6), CT + 3
     bearings CKF 2.13 ms against 2.36 in the lane-group form on 8 lanes and
     3.17 in the general one-thread form, the falling body with 4 bearings
-    CKF 1.06 against 1.49-1.55.  0 too for every shape of the other kernels.  Above
+    CKF 1.06 against 1.49-1.55.  0 too for every shape of the other kernels
+    (the slot kernel's lanes: :func:`slot_lanes`).  Above
     that the lane-group form (``vfl_step`` of
     ``csrc/vector_filter_lanes.cuh``) on :data:`_LANES` lanes where an SM
     holds any warp of it (a warp's trajectories' arrays fit in a block's
@@ -915,6 +977,42 @@ def _c_shaped_bq_params(p: VectorFilterParams, device: torch.device) -> _CShaped
                             obs=_c_shaped_bq_rule(p.obs))
 
 
+class _CSlotRule(ctypes.Structure):
+    """``VslRule``: a classical rule of up to :data:`_SLOT_MAX_PTS` points by
+    value, rows :data:`_SLOT_MAX_PTS` apart."""
+    _fields_ = [("xi", ctypes.c_double * (_SLOT_MAX_DIM * _SLOT_MAX_PTS)),
+                ("wm", ctypes.c_double * _SLOT_MAX_PTS),
+                ("wc", ctypes.c_double * _SLOT_MAX_PTS)]
+
+
+class _CSlotParams(ctypes.Structure):
+    """``VslParams``: the slot kernel's parameters."""
+    _fields_ = [("base", _CParams), ("dyn", _CSlotRule), ("obs", _CSlotRule)]
+
+
+def _c_slot_rule(rule: VecRule) -> _CSlotRule:
+    """A classical rule by value for the slot kernel; ``ValueError`` for a
+    rule the struct cannot hold."""
+    if rule.kind != 0 or rule.n > _SLOT_MAX_PTS or rule.xi.shape[0] > _SLOT_MAX_DIM:
+        raise ValueError(f"the slot kernel takes classical rules of up to {_SLOT_MAX_PTS} "
+                         f"points in up to {_SLOT_MAX_DIM} dimensions; got kind {rule.kind}, "
+                         f"{rule.xi.shape}")
+    c = _CSlotRule()
+    for d, row in enumerate(rule.xi):
+        c.xi[d * _SLOT_MAX_PTS:d * _SLOT_MAX_PTS + len(row)] = row.tolist()
+    c.wm[:rule.n] = rule.wm.tolist()
+    c.wc[:rule.n] = rule.wc.tolist()
+    return c
+
+
+@functools.lru_cache(maxsize=64)
+def _c_slot_params(p: VectorFilterParams, device: torch.device) -> _CSlotParams:
+    """The slot kernel's parameter struct (both rules by value), built once
+    for a given ``(p, device)``."""
+    return _CSlotParams(base=_c_params(p, device), dyn=_c_slot_rule(p.dyn),
+                        obs=_c_slot_rule(p.obs))
+
+
 class _CGShapedParams(ctypes.Structure):
     """``VgsParams``: the parameters of the shaped one-thread form."""
     _fields_ = [("base", _CParams), ("dyn", _CShapedBqRule), ("obs", _CShapedBqRule),
@@ -946,6 +1044,8 @@ def _c_struct(kernel: str, params: VectorFilterParams, device: torch.device, lan
         return _c_shaped_params(params, device)
     if kernel == "vector_filter_shaped_bq":
         return _c_shaped_bq_params(params, device)
+    if kernel == "vector_filter_slots":
+        return _c_slot_params(params, device)
     if kernel in ("vector_filter_general", "vector_filter_registered"):
         return (_c_general_shaped if lanes == _SHAPED else _c_general)(params, device)
     return _c_params(params, device)
@@ -973,19 +1073,24 @@ def _bind(lib: ctypes.CDLL):
     lib.vgs_launch.restype = ctypes.c_int
     lib.vgs_launch.argtypes = ([ctypes.POINTER(_CGShapedParams)] + _STREAMS + [ctypes.c_int]
                                + [ctypes.c_void_p] * 6)
+    lib.vsl_launch.restype = ctypes.c_int
+    lib.vsl_launch.argtypes = ([ctypes.POINTER(_CSlotParams)] + _STREAMS + [ctypes.c_int]
+                               + [ctypes.c_void_p] * 6)
 
 
 #: the sources of the library: the first-version kernel, the classical shaped
 #: kernel, the kernel of the BQ shapes, the general kernel and its shaped
-#: one-thread form (one count on both rules, then the mixed counts), and the
-#: BQ shapes' mixed counts
+#: one-thread form (one count on both rules, then the mixed counts), the BQ
+#: shapes' mixed counts, the general kernel's shaped form at the
+#: Gauss-Hermite counts, and the slot kernel
 SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu",
            "vector_filter_general.cu", "vector_filter_general_shaped.cu",
-           "vector_filter_general_shaped_mixed.cu", "vector_filter_shaped_bq_mixed.cu"]
+           "vector_filter_general_shaped_mixed.cu", "vector_filter_shaped_bq_mixed.cu",
+           "vector_filter_general_shaped_gh.cu", "vector_filter_slots.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile the seven sources of :data:`SOURCES` for sm_90a with nvcc
+    """Compile the nine sources of :data:`SOURCES` for sm_90a with nvcc
     (once, a compiler each, at once, into one library) and bind it; later
     calls return the bound library."""
     return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
@@ -1047,18 +1152,33 @@ def _general_shaped_host() -> ctypes.CDLL:
                         host=True)
 
 
+def _bind_slots_host(lib: ctypes.CDLL):
+    lib.vsl_host_run.restype = ctypes.c_int
+    lib.vsl_host_run.argtypes = [ctypes.POINTER(_CSlotParams)] + _STREAMS + [ctypes.c_void_p] * 5
+
+
+def _slots_host() -> ctypes.CDLL:
+    """The slot kernel's step built for the host with g++, its lanes
+    collapsed to one (tests only; a library of its own, ``vsl_host_run``)."""
+    return _build.bound("vector_filter_slots_host", ["vector_filter_slots_host.cpp"],
+                        _bind_slots_host, host=True)
+
+
 def _bind_fit(lib: ctypes.CDLL):
     lib.vfl_fit_on.restype = None
     lib.vfl_fit_on.argtypes = [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_void_p]
     lib.vgs_takes_on.restype = ctypes.c_int
     lib.vgs_takes_on.argtypes = [ctypes.POINTER(_CParams)]
+    lib.vsl_lanes_on.restype = ctypes.c_int
+    lib.vsl_lanes_on.argtypes = [ctypes.POINTER(_CParams)]
 
 
 def _fit() -> ctypes.CDLL:
     """``csrc/vector_filter_fit.cpp`` built with g++ (no step in it, a second
     or two): ``vfl_fit_on``, how a configuration runs in the lane-group or
-    warp form (:func:`_form_fit`), and ``vgs_takes_on``, whether the general
-    kernel's shaped form has an instantiation of it (:func:`_shaped_takes`)."""
+    warp form (:func:`_form_fit`), ``vgs_takes_on``, whether the general
+    kernel's shaped form has an instantiation of it (:func:`_shaped_takes`),
+    and ``vsl_lanes_on``, the slot kernel's lanes for it (:func:`slot_lanes`)."""
     return _build.bound("vector_filter_fit", ["vector_filter_fit.cpp"], _bind_fit, host=True)
 
 
@@ -1099,7 +1219,7 @@ def _model_policy(params: VectorFilterParams, name: str, EB: int, shaped: bool =
     table measurement at the bound ``EB`` on E, 0 for any E).  ``shaped``:
     the policy of the shaped one-thread form (``VFR_SHAPED``), on
     ``VgsParams``: the constants by value, the table's models by their ids
-    (``VfDynFn`` / ``VgsObsFn``), and the rules' point count and kinds and
+    (``VfDynFn`` / ``VgsObsFn``), and the rules' point counts and kinds and
     the models' costs as its constants."""
     D, E = params.dim_state, params.dim_out
     P = "VgsParams" if shaped else "VfgParams"
@@ -1109,8 +1229,9 @@ def _model_policy(params: VectorFilterParams, name: str, EB: int, shaped: bool =
                     else _form_cost(params.dyn_form))
         obs_cost = (f"vgs_obs_cost({params.obs_model}, {E})" if params.obs_form is None
                     else _form_cost(params.obs_form))
-        head = (f"  static constexpr int N = {params.dyn.n}, KD = {params.dyn.kind}, "
-                f"KO = {params.obs.kind};\n  static constexpr int dyn_cost = {dyn_cost}, "
+        head = (f"  static constexpr int ND = {params.dyn.n}, NO = {params.obs.n}, "
+                f"KD = {params.dyn.kind}, KO = {params.obs.kind};\n"
+                f"  static constexpr int dyn_cost = {dyn_cost}, "
                 f"obs_cost = {obs_cost};\n")
     if params.dyn_form is None:
         dyn = (f"  VF_HD static VfDynFn<{D}, {params.dyn_model}> dyn(const {P}& p, const double*) "
@@ -1252,14 +1373,15 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
                    lanes: int | None = None):
     """Run the step of ``kernel`` (``"vector_filter"``,
     ``"vector_filter_shaped"``, ``"vector_filter_shaped_bq"``,
+    ``"vector_filter_slots"`` (its lanes collapsed to one),
     ``"vector_filter_general"`` or ``"vector_filter_registered"``; by default
     the first version where it has an instantiation of the model pair, the
     registered kernel for a registered model, else the general kernel)
     compiled for the host on a CPU tensor, the general and registered
     kernels in the form of ``lanes`` (:func:`lanes_of` by default; the
-    classical shaped kernel, the BQ shapes' mixed counts and the general
-    kernel's shaped form through host builds of their own,
-    :func:`_shaped_host`, :func:`_shaped_bq_host` and
+    classical shaped kernel, the BQ shapes' mixed counts, the slot kernel and
+    the general kernel's shaped form through host builds of their own,
+    :func:`_shaped_host`, :func:`_shaped_bq_host`, :func:`_slots_host` and
     :func:`_general_shaped_host`); the five
     streams of :func:`vector_filter`, after checking that an instantiation
     of the configuration's dimensions ran."""
@@ -1291,6 +1413,9 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     elif kernel == "vector_filter_shaped":
         ran = _shaped_host().vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                           *(o.data_ptr() for o in out))
+    elif kernel == "vector_filter_slots":
+        ran = _slots_host().vsl_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
+                                         *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_shaped_bq":
         run = (_host_shim().vfs_bq_host_run if params.dyn.n == params.obs.n else
                _shaped_bq_host().vfs_bq_mixed_host_run)
@@ -1319,7 +1444,8 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     version; a CUDA tensor launches the kernel of :func:`kernel_of` on the
     current stream, without synchronising, or raises.
     """
-    global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, GENERAL_LAUNCHES, REGISTERED_LAUNCHES
+    global LAUNCHES, SHAPED_LAUNCHES, BQ_SHAPED_LAUNCHES, SLOT_LAUNCHES, GENERAL_LAUNCHES
+    global REGISTERED_LAUNCHES
     global GENERAL_LANE_LAUNCHES, REGISTERED_LANE_LAUNCHES, GENERAL_WARP_LAUNCHES
     global REGISTERED_WARP_LAUNCHES, GENERAL_SHAPED_LAUNCHES, REGISTERED_SHAPED_LAUNCHES
     _check_streams(params, y)
@@ -1354,6 +1480,8 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
         rc = lib.vfs_launch(*args, stream)
     elif kernel == "vector_filter_shaped_bq":
         rc = lib.vfs_bq_launch(*args, stream)
+    elif kernel == "vector_filter_slots":
+        rc = lib.vsl_launch(*args, stream)
     elif kernel == "vector_filter_general":
         scratch = _scratch(params, B, y.device, lanes)
         rc = lib.vfg_launch(*args, scratch.data_ptr(), lanes, stream)
@@ -1366,6 +1494,7 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     LAUNCHES += 1
     SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped")
     BQ_SHAPED_LAUNCHES += int(kernel == "vector_filter_shaped_bq")
+    SLOT_LAUNCHES += int(kernel == "vector_filter_slots")
     GENERAL_LAUNCHES += int(kernel == "vector_filter_general")
     REGISTERED_LAUNCHES += int(registered)
     GENERAL_LANE_LAUNCHES += int(kernel == "vector_filter_general" and lanes == _LANES)

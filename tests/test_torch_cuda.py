@@ -1483,3 +1483,75 @@ def test_shaped_registered_form_matches_plain(card, registered, rule, batch):
     params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
     assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_registered", vf._SHAPED)
     _shaped_streams_equal(card, vf, params, dyn, obs, "REGISTERED_LAUNCHES", batch)
+
+
+# ---------------------------------------------------------------------------
+# Gauss-Hermite rules below 243 points: the shaped forms' Gauss-Hermite
+# counts (csrc/vector_filter_shaped.cuh, VFS_GH / VGS_GH), the slot kernel
+# (csrc/vector_filter_slots.cuh, VSL_SHAPES), the registered shaped form at
+# mixed counts
+# ---------------------------------------------------------------------------
+
+#: (system, Gauss-Hermite degree) -> the kernel ``kernel_of`` names: GH-3 on
+#: the pendulum (9 points) and GH-2 on the falling body (8) the classical
+#: shaped kernel, 16-81 points the slot kernel
+GH_CASES = {("pendulum", 3): "vector_filter_shaped", ("falling_body", 2): "vector_filter_shaped",
+            ("reentry", 2): "vector_filter_slots", ("ct_bearing", 2): "vector_filter_slots",
+            ("cv", 2): "vector_filter_slots", ("cv", 3): "vector_filter_slots",
+            ("falling_body", 3): "vector_filter_slots"}
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097])
+@pytest.mark.parametrize("case", list(GH_CASES), ids=lambda c: f"{c[0]}-GH{c[1]}")
+def test_gauss_hermite_shapes_match_plain(card, monkeypatch, case, batch):
+    """Each Gauss-Hermite shape that left the first version: one launch,
+    counted on the kernel ``kernel_of`` names, equal to the plain version to
+    the bit over 20 steps, all five streams, a second launch equal to the
+    first (the slot kernel's lanes gather by shuffle, the last warp ragged);
+    the first version by force equal too."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    system, deg = case
+    dyn, obs = ({**_zoo_systems(card), **{k: v[:2] for k, v in _vector_systems(card).items()}}
+                [system])
+    alg = stt.GaussHermiteKalman(dyn, obs, deg=deg)
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    kernel = GH_CASES[case]
+    assert (vf.kernel_of(params), vf.lanes_of(params)) == (kernel, 0)
+    counter = "SLOT_LAUNCHES" if kernel == "vector_filter_slots" else "SHAPED_LAUNCHES"
+    y = _zoo_records(card, dyn, obs, batch)
+    before = (vf.LAUNCHES, getattr(vf, counter))
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before[0], getattr(vf, counter) - before[1]) == (1, 1)
+    again = vf.vector_filter(params, y)
+    monkeypatch.setattr(vf, "kernel_of", lambda p: "vector_filter")
+    first = vf.vector_filter(params, y)
+    torch.cuda.synchronize()
+    for s, g, r, g2, f in zip(STREAMS, got, vf._vector_filter_plain(params, y), again, first):
+        assert _same_bits(g, r), f"{s}: {float((g - r).nan_to_num().abs().max()):.3e}"
+        assert _same_bits(g, g2) and _same_bits(f, r), s
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097])
+@pytest.mark.parametrize("system", ["pendulum_ungm", "registered GH-3", "registered UKF/CKF"])
+def test_shaped_forms_take_gauss_hermite_and_mixed_counts(card, registered, system, batch):
+    """The general kernel's shaped form under GH-3 on the pendulum with the
+    UNGM measurement (9 points, ``VGS_GH``), the registered kernel's under
+    GH-3 and under the UKF beside the CKF on the driven pendulum with the
+    radar: one launch counted on the form, equal to the plain version to the
+    bit over 20 steps at B = 1, 7 and 4,097."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    if system == "pendulum_ungm":
+        dyn, obs = _general_systems(card)[system]
+        alg = stt.GaussHermiteKalman(dyn, obs, deg=3)
+        counter = "GENERAL_LAUNCHES"
+    else:
+        dyn = _Driven(GaussRV(2, mean=[1.0, 0.0], cov=0.1 * np.eye(2), device=card),
+                      GaussRV(2, cov=1e-3 * np.eye(2), device=card))
+        obs = _radar(card, 2)
+        alg = (stt.GaussHermiteKalman(dyn, obs, deg=3) if system.endswith("GH-3") else
+               stt.GaussianInference(dyn, obs, stt.UnscentedKalman(dyn, obs).tf_dyn,
+                                     stt.CubatureKalman(dyn, obs).tf_obs))
+        counter = "REGISTERED_LAUNCHES"
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.lanes_of(params) == vf._SHAPED
+    _shaped_streams_equal(card, vf, params, dyn, obs, counter, batch)

@@ -322,7 +322,10 @@ def test_lane_fit_is_what_the_launcher_takes(case):
     a block) and the launch bounds' 10 blocks allow; and ``lanes_of`` takes
     the lane-group form exactly where the shape is one it routes there and
     an SM holds a warp of it, 4 up to 8 outputs, where the warp form does
-    not take the shape (``_warp_takes``: CT under GH-3)."""
+    not take the shape (``_warp_takes``: CT under GH-3); up to 4 outputs the
+    shaped one-thread form where it takes the shape (``_shaped_takes``: the
+    pendulum + radar under GH-3, 9 points, since it takes Gauss-Hermite
+    counts of at most 11)."""
     _need_gxx()
     params = _params(*case)
     block, stage, doubles, sm_warps = vf._form_fit(params, vf._LANES)
@@ -339,7 +342,8 @@ def test_lane_fit_is_what_the_launcher_takes(case):
     takes = vf.kernel_of(params) in ("vector_filter_general", "vector_filter_registered")
     wants = takes and (E > 4 or D > 5) and warps >= (vf._MIN_LANE_WARPS if E <= 8 else 1)
     assert vf.lanes_of(params) == (vf._WARP if vf._warp_takes(params) else
-                                   vf._LANES if wants else 0)
+                                   vf._LANES if wants else
+                                   vf._SHAPED if takes and vf._shaped_takes(params) else 0)
 
 
 @pytest.mark.parametrize("sensors", [5, 16])

@@ -19,8 +19,10 @@ with both counts template arguments (``vfs_step_with<D, E, ND, NO, ...>`` of
   shaped kernel, or the general kernel's shaped form), mixed counts beside a
   BQ rule (the kernel of the BQ shapes on its five pairs, the general
   one-thread form on the others), a registered
-  configuration's mixed counts (the registered kernel's one-thread form, as
-  before), and the headers' instantiation lists as the routing sees them.
+  configuration's mixed counts (the registered kernel's shaped form, which
+  instantiates them as asked, for classical rules; beside a BQ rule its
+  one-thread form), and the headers' instantiation lists as the routing
+  sees them.
 
 Measurements come from a numpy seed: 4 trajectories of 20 steps simulated
 through the port's model functions with numpy noise; the same arrays go to
@@ -313,8 +315,11 @@ ROUTES = [
     (("reentry", "re_radar", "gpq/ukf"), ("vector_filter_shaped_bq", 0)),
     (("ct", "radar", "gpq/ckf"), ("vector_filter_general", 0)),
     (("ct", "radar", "ckf/gpq"), ("vector_filter_general", 0)),
-    (("pend_copy", "radar", "ukf/ckf"), ("vector_filter_registered", 0)),
+    (("pend_copy", "radar", "ukf/ckf"), ("vector_filter_registered", vf._SHAPED)),
     (("pend_copy", "radar", "ukf/ukf"), ("vector_filter_registered", vf._SHAPED)),
+    (("pend_copy", "radar", "gpq/ckf"), ("vector_filter_registered", 0)),
+    (("pend_copy", "radar", "ckf/gpq"), ("vector_filter_registered", 0)),
+    (("pend_copy", "radar", "gpq/gpq"), ("vector_filter_registered", vf._SHAPED)),
 ]
 
 
@@ -325,23 +330,33 @@ def test_routes_of_mixed_counts(case, want):
     kernel's shaped form on the pairs of ``VGS_PAIRS``; a BQ rule beside a
     rule of the other count goes to the kernel of the BQ shapes on its five
     pairs (the general one-thread form on the others); a registered
-    configuration keeps its shaped form for one count on both rules only."""
+    configuration takes its shaped form at mixed counts of classical rules
+    too, and keeps its one-thread form for a BQ rule beside the other
+    count."""
     _need_gxx()
     params = _params(*case)
     assert (vf.kernel_of(params), vf.lanes_of(params)) == want
 
 
-def _listed(name, macro):
-    """``(D, E, dynamics id, measurement id)`` of the X(F, ...) entries of
-    ``macro`` in the header ``name``."""
+#: the step header's model ids, by macro name
+VF_IDS = {**{f"VF_DYN_{k}": i for i, k in enumerate(("REENTRY", "CV", "PENDULUM", "REENTRY1D",
+                                                    "CT"))},
+          **{f"VF_OBS_{k}": i for i, k in enumerate(("RADAR", "PENDULUM_SIN", "RANGE", "BEARING",
+                                                    "UNGM"))}}
+
+
+def _listed(name, macro, further=0):
+    """``(D, E, dynamics id, measurement id)`` and the next ``further``
+    integer fields of the entries of ``macro`` in the header ``name``: its
+    ``X(F, D, E, DYN, OBS)`` entries where it takes ``(X, F)``, else its
+    ``F(D, E, DYN, OBS, ...)``."""
     src = open(f"{vf._build.CSRC}/{name}").read()
-    body = src.split(f"#define {macro}(X, F)")[1].split("\n\n")[0]
-    ids = {**{f"VF_DYN_{k}": i for i, k in enumerate(("REENTRY", "CV", "PENDULUM", "REENTRY1D",
-                                                     "CT"))},
-           **{f"VF_OBS_{k}": i for i, k in enumerate(("RADAR", "PENDULUM_SIN", "RANGE",
-                                                     "BEARING", "UNGM"))}}
-    return {(int(D), int(E), ids[d], ids[o])
-            for D, E, d, o in re.findall(r"X\(F, (\d), (\d), (\w+), (\w+)\)", body)}
+    pairs = f"#define {macro}(X, F)" in src
+    body = src.split(f"#define {macro}({'X, F' if pairs else 'F'})")[1].split("\n\n")[0]
+    head = r"X\(F, " if pairs else r"F\("
+    return {(int(m[1]), int(m[2]), VF_IDS[m[3]], VF_IDS[m[4]],
+             *(int(v) for v in m[5].split(", ")[1:further + 1]))
+            for m in re.finditer(head + r"(\d), (\d), (\w+), (\w+)((?:, \w+)*)\)", body)}
 
 
 def test_the_routing_sees_the_headers_mixed_instantiations():

@@ -342,14 +342,14 @@ ROUTES = [
     (("ct", "b1", "ukf"), ("vector_filter_general", 0)),              # a pair it does not hold
     (("ct", "radar", "gpq"), ("vector_filter_general", 0)),           # BQ on a table pair
     (("ct", "radar", "ukf/ckf"), ("vector_filter_general", vf._SHAPED)),  # mixed counts
-    (("pendulum", "radar", "gh3"), ("vector_filter_general", 0)),     # 9 points
+    (("pendulum", "radar", "gh3"), ("vector_filter_general", vf._SHAPED)),  # 9 points
     (("ct", "radar", "gh3"), ("vector_filter_general", vf._WARP)),
     (("pendulum", "sine", "ukf"), ("vector_filter_shaped", 0)),       # the shaped kernel's pair
     (("driven", "mix", "ukf"), ("vector_filter_registered", vf._SHAPED)),
     (("driven", "mix", "gpq"), ("vector_filter_registered", vf._SHAPED)),
     (("pend_copy", "radar", "ukf"), ("vector_filter_registered", vf._SHAPED)),
-    (("driven", "mix", "gh3"), ("vector_filter_registered", 0)),
-    (("driven", "mix", "ukf/ckf"), ("vector_filter_registered", 0)),
+    (("driven", "mix", "gh3"), ("vector_filter_registered", vf._SHAPED)),
+    (("driven", "mix", "ukf/ckf"), ("vector_filter_registered", vf._SHAPED)),
 ]
 
 
@@ -357,11 +357,12 @@ ROUTES = [
 def test_lanes_of_routes_the_shaped_shapes(case, want):
     """The shaped one-thread form takes a general-kernel shape of at most 4
     outputs whose pair and classical rules at the UT or CKF counts (one on
-    both, or the two mixed) it instantiates, and a registered configuration
-    at one of those counts of either kind; every other shape keeps its form
-    (the general one-thread form for other pairs, BQ or mixed kinds on a
-    table pair, a registered configuration's mixed counts and Gauss-Hermite
-    rules under 243 points; the warp form above)."""
+    both, or the two mixed) or at the Gauss-Hermite count of at most 11
+    points (GH-3 on a 2-D state) it instantiates, and a registered
+    configuration at those counts (of either kind at the UT and CKF counts,
+    mixed too); every other shape keeps its form (the general one-thread
+    form for other pairs and BQ or mixed kinds on a table pair; the warp
+    form above 242 points)."""
     _need_gxx()
     assert (vf.kernel_of(_params(*case)), vf.lanes_of(_params(*case))) == want
 
@@ -407,9 +408,10 @@ def test_shaped_params_mirror_the_header():
 
 
 def test_registered_shaped_policy_states_its_shape():
-    """A registered configuration's shaped policy states N, the kinds and
-    the models' costs (calls of transcendentals and divisions: the driven
-    pendulum's sine; the table radar's ``vgs_obs_cost``), reads its
+    """A registered configuration's shaped policy states both point counts
+    (ND, NO), the kinds and the models' costs (calls of transcendentals and
+    divisions: the driven pendulum's sine; the table radar's
+    ``vgs_obs_cost``), reads its
     constants from the parameters by value and is listed in ``VFR_SHAPED``,
     not ``VFR_PAIRS``; a form with more constants than the parameters hold
     keeps the general one-thread form."""
@@ -417,7 +419,7 @@ def test_registered_shaped_policy_states_its_shape():
     key = vf._key(p)
     assert key[:3] == (2, 2, vf._SHAPED)
     text = vf._registered_header([key])
-    assert "static constexpr int N = 5, KD = 1, KO = 1;" in text
+    assert "static constexpr int ND = 5, NO = 5, KD = 1, KO = 1;" in text
     assert "dyn_cost = 1, obs_cost = vgs_obs_cost(0, 2);" in text
     assert "VgsObsFn<2, 0, 2> obs(const VgsParams& p)" in text and "{ return {p.dyn_c, s}; }" in text
     assert "#define VFR_PAIRS(F) \n" in text and "#define VFR_SHAPED(F) F(0, 2, 2, VfrPair0)" in text

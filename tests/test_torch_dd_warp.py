@@ -262,7 +262,7 @@ W = vf._WARP
 ROUTES = [
     (("reentry", "gh3"), ("vector_filter_general", W)),
     (("ct-b4", "gh3"), ("vector_filter_general", W)),
-    (("cv", "gh3"), ("vector_filter", 0)),
+    (("cv", "gh3"), ("vector_filter_slots", 0)),
     (("ct-radar", "gh3"), ("vector_filter_general", W)),
     (("ct-b5", "gh3"), ("vector_filter_general", W)),
     (("ct-b8", "gh3"), ("vector_filter_general", W)),
@@ -271,9 +271,9 @@ ROUTES = [
     (("ct-radar", "gpq-gh3"), ("vector_filter_general", W)),
     (("pend-copy", "gh16"), ("vector_filter_registered", W)),
     (("reentry-copy", "gh3"), ("vector_filter_registered", W)),
-    (("falling", "gh3"), ("vector_filter", 0)),
+    (("falling", "gh3"), ("vector_filter_slots", 0)),
     (("reentry", "ukf/gh3"), ("vector_filter", 0)),
-    (("pend-copy", "gh3"), ("vector_filter_registered", 0)),
+    (("pend-copy", "gh3"), ("vector_filter_registered", vf._SHAPED)),
     (("ct-radar", "ukf"), ("vector_filter_general", vf._SHAPED)),
 ]
 
@@ -282,11 +282,13 @@ ROUTES = [
 def test_kernel_and_lanes_route_many_point_rules_to_the_warp_form(case, want):
     """Both rules of at least ``_WARP_MIN_POINTS`` points (GH-3 on 5-D
     states, GH-16 on a 2-D one, GPQ on GH-3 points) go to the warp form of
-    the general or registered kernel, the five pairs' too (their first
-    version keeps mixed counts and rules of fewer points: constant velocity's
-    81 GH-3 points, the falling body's 27, GH-3 beside the UKF); other shapes
-    keep their routes (CT + radar under the UKF: the general kernel's shaped
-    one-thread form, ``tests/test_torch_dd_shaped_general.py``)."""
+    the general or registered kernel, the five pairs' too (rules of fewer
+    points keep their routes: constant velocity's 81 GH-3 points and the
+    falling body's 27 the slot kernel, ``tests/test_torch_dd_slots.py``, a
+    registered 2-D state's 9 the registered kernel's shaped form,
+    ``tests/test_torch_dd_gh_shaped.py``, GH-3 beside the UKF the first
+    version; CT + radar under the UKF the general kernel's shaped one-thread
+    form, ``tests/test_torch_dd_shaped_general.py``)."""
     _need_gxx()
     params = _params(*case)
     assert (vf.kernel_of(params), vf.lanes_of(params)) == want

@@ -4,7 +4,7 @@ registered vector filter kernels (``csrc/vector_filter_general_shaped.cuh``,
 ``csrc/vector_filter_lanes.cuh``) against the other forms and against
 another tree, on one CUDA card.
 
-    python3 tools/lane_variants.py [--tree DIR] [--reps 5] [--only TEXT ...]
+    python3 tools/lane_variants.py [--tree DIR] [--reps 5] [--only TEXT ...] [--slots]
 
 Without ``--tree``: this tree's vector filter library is built three times
 at once, as the package ships it (the lane-group form on ``VFL_G`` = 8
@@ -52,6 +52,20 @@ tree routes it (raw launches of the wrapper call), after its first 200
 trajectories are held to its plain version to the bit. Two trees are
 compared in one call in turns: the other, this, this, the other.
 
+With ``--slots``: the lanes of ``SLOT_LANES`` instead, the Gauss-Hermite
+rules that left the first version and the general and registered one-thread
+forms: each of the slot kernel's shapes (``csrc/vector_filter_slots.cuh``)
+as routed and in the designs of ``SLOT_VARIANTS`` (builds of
+``vector_filter_slots.cu`` alone): G lanes a trajectory (2, 4 and 8) and one
+thread a trajectory with the point count a template argument (G = 1), the
+covariance sums on every lane or split by output row, the offsets kept or
+made again, beside the first version; the shaped forms' new
+Gauss-Hermite counts (the shaped kernel against the first version, the
+general and registered kernels' shaped form against their one-thread
+form; the registered shaped form's UKF beside the CKF against its one-thread
+form).  Each held to the plain version on the first 200 trajectories to the
+bit, then timed in turns, with ptxas registers, stack and spills.
+
 ``--only`` keeps the lanes whose name contains one of the texts. With
 ``--clocks`` the library is built once more with ``-DVFL_CLOCKS`` and each
 lane run once in the warp form: lane 0 of every warp reads ``clock64`` at the
@@ -83,6 +97,29 @@ LANES = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"
          ("CT + 8 bearings", "GH-3"), ("CT + 9 bearings", "GH-3"), ("CT + 16 bearings", "GH-3"),
          ("falling body + range", "GH-3"), ("CV + radar", "GH-3"), ("CT + 4 bearings", "GH-3"),
          ("reentry + radar", "GPQ-UT/CKF"), ("reentry + radar", "GPQ-UT")]
+#: ``--slots``: the slot kernel's shapes (GH-2 on reentry + radar, CT + 4
+#: bearings and CV + radar; GH-3 on CV + radar and the falling body) and the
+#: shaped forms' Gauss-Hermite counts (the zoo's pendulum under GH-3 and
+#: falling body under GH-2 in the shaped kernel, the pendulum + radar under
+#: GH-3 in the general kernel's shaped form, the registered driven pendulum +
+#: radar under GH-3 in the registered kernel's), the registered lanes of
+#: the UKF beside the CKF (the driven pendulum + mix and the pendulum copy +
+#: radar, in the registered shaped form against its one-thread form), and
+#: the first version's GH-4 on the pendulum (16 points), which it keeps
+SLOT_LANES = [("reentry + radar", "GH-2"), ("CT + 4 bearings", "GH-2"), ("CV + radar", "GH-2"),
+              ("CV + radar", "GH-3"), ("falling body + range", "GH-3"),
+              ("pendulum + sine", "GH-3"), ("falling body + range", "GH-2"),
+              ("pendulum + radar", "GH-3"), ("driven pendulum + radar", "GH-3"),
+              ("driven pendulum + mix", "UKF/CKF"), ("pendulum copy + radar", "UKF/CKF"),
+              ("pendulum + sine", "GH-4")]
+#: ``--slots``' builds of the slot source alone, each shape otherwise in its
+#: design of ``VSL_SHAPES``: G lanes a trajectory (1: the shaped step one
+#: thread a trajectory), the covariance sums on every lane or split by row,
+#: the offsets kept or made again
+SLOT_VARIANTS = {**{f"G={g}": f"-DVSL_LANES={g}" for g in (1, 2, 4, 8)},
+                 "sums on every lane": "-DVSL_SPLIT=0", "sums split by row": "-DVSL_SPLIT=1",
+                 "offsets kept": "-DVSL_KEEP_OFFSETS=1",
+                 "offsets made again": "-DVSL_KEEP_OFFSETS=0"}
 #: the first trajectories held to the plain version
 HEAD = 200
 
@@ -93,6 +130,8 @@ def main():
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--only", nargs="*", default=None, help="lanes whose name contains one of these")
     ap.add_argument("--clocks", action="store_true", help="the warp form's clocks a phase")
+    ap.add_argument("--slots", action="store_true", help="the slot kernel's and the shaped "
+                    "forms' Gauss-Hermite lanes (SLOT_LANES)")
     args = ap.parse_args()
     root = os.path.abspath(args.tree or HERE)
     sys.path.insert(0, HERE)
@@ -116,18 +155,20 @@ def main():
            f"{torch.version.cuda}")
     systems = {**cs.general_systems(np, dev), **cs.registry_systems(np, dev),
                **cs.vf_probe_systems(np, dev)}
+    systems["pendulum + sine"] = cs.zoo_systems(np, dev)["pendulum"]
     gen = torch.Generator(device=dev).manual_seed(cs.SEED + 21)
     gpq_re = (np.array(cs.VF_GPQ_DYN), np.array(cs.VF_GPQ_OBS))     # reentry's GPQ parameters
     rules = {"UKF": stt.UnscentedKalman, "CKF": stt.CubatureKalman,
-             "GH-3": lambda d, o: stt.GaussHermiteKalman(d, o, deg=3),
+             **{f"GH-{g}": (lambda g: lambda d, o: stt.GaussHermiteKalman(d, o, deg=g))(g)
+                for g in (2, 3, 4)},
              "UKF/CKF": lambda d, o: stt.GaussianInference(d, o, stt.UnscentedKalman(d, o).tf_dyn,
                                                            stt.CubatureKalman(d, o).tf_obs),
              "GPQ-UT": lambda d, o: stt.GaussianProcessKalman(d, o, *gpq_re),
              "GPQ-UT/CKF": lambda d, o: stt.GaussianInference(
                  d, o, stt.GaussianProcessKalman(d, o, *gpq_re).tf_dyn,
                  stt.CubatureKalman(d, o).tf_obs)}
-    lanes = [ln for ln in LANES if args.only is None or any(t in f"{ln[0]} {ln[1]}"
-                                                            for t in args.only)]
+    lanes = [ln for ln in (SLOT_LANES if args.slots else LANES)
+             if args.only is None or any(t in f"{ln[0]} {ln[1]}" for t in args.only)]
     params, data = {}, {}
     for name, rule in lanes:
         dyn, obs = systems[name]
@@ -142,6 +183,8 @@ def main():
         clocks(cs, torch, vf, _build, params, data, dev, card)
     if args.tree:
         other_tree(cs, torch, vf, params, data, args.reps, tag, card)
+    elif args.slots:
+        slot_turns(cs, torch, vf, _build, params, data, dev, args.reps, card)
     else:
         this_tree(cs, torch, vf, _build, forms, params, data, dev, args.reps, card)
     cs.log(f"lane_variants ({tag}): {time.perf_counter() - t0:.1f} s; card: {cs.card_line()}")
@@ -406,6 +449,109 @@ def this_tree(cs, torch, vf, _build, forms, params, data, dev, reps, card):
                    + " / ".join(f"{t:.4f}" for t in ms) + f" ms in turns; == plain on {HEAD}; "
                    f"{regs} registers, {frame} bytes stack frame, {spill} bytes spilled "
                    f"({fn}){occupancy}; card {card}")
+        del runs
+
+
+def _bind_vsl(lib):
+    lib.vsl_launch.restype = ctypes.c_int
+    lib.vsl_launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
+                               + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6)
+    lib.vsl_lanes_on.restype = ctypes.c_int
+    lib.vsl_lanes_on.argtypes = [ctypes.c_void_p]
+
+
+def _slot_lib(variant):
+    """The library name of a ``--slots`` build of the slot source."""
+    return "vector_filter_slots_" + "".join(ch for ch in variant if ch.isalnum())
+
+
+def slot_turns(cs, torch, vf, _build, params, data, dev, reps, card):
+    """``--slots``: every design of each lane of ``SLOT_LANES`` by force, in
+    turns with the route it left."""
+    from concurrent.futures import ThreadPoolExecutor
+    variants = dict(SLOT_VARIANTS)
+    reg = [(p, g) for p in params.values() if vf.kernel_of(p) == "vector_filter_registered"
+           for g in (vf._SHAPED, 0)]
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(variants) + 2) as pool:
+        jobs = {name: pool.submit(_build.bound, _slot_lib(name), ["vector_filter_slots.cu"],
+                                  _bind_vsl, vf._NVCC_FLAGS + flag.split())
+                for name, flag in variants.items()}
+        main = pool.submit(vf.build)
+        if reg:
+            regj = pool.submit(vf.build_registered, reg)
+        libs = {name: j.result() for name, j in jobs.items()}
+        lib = main.result()
+        reg_name = regj.result() if reg else None
+    cs.log(f"lane_variants --slots: built the library, the slot source on "
+           f"{', '.join(variants)} and the registered lanes at once in "
+           f"{time.perf_counter() - t0:.1f} s")
+    main_log = _build.BUILD_LOGS.get("vector_filter", "")
+    for (name, rule), p in params.items():
+        kernel = vf.kernel_of(p)
+        ys = data[name]
+        B, _, T = ys.shape
+        plain = vf._vector_filter_plain(p, ys[:HEAD])
+        runs, entry = {}, {}
+        targs = (p.dim_state, p.dim_out, p.dyn_model, p.obs_model)
+        first_fn = ("vector_filter_kernelI" + "".join(f"Li{t}E" for t in targs + (
+            p.dyn.kind, p.obs.kind)) + "E")
+        if kernel in ("vector_filter", "vector_filter_shaped", "vector_filter_slots"):
+            if kernel != "vector_filter":
+                runs["routed"] = cs.vf_raw(torch, vf, p, ys, dev)
+                fn = cs.shaped_entry(kernel, p)
+                entry["routed"] = (fn, main_log)
+            runs["first"] = cs.vf_raw(torch, vf, p, ys, dev, "vector_filter")
+            entry["first"] = (first_fn, main_log)
+            if kernel == "vector_filter_slots":
+                c = vf._c_slot_params(p, dev)
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                for name_v, vlib in libs.items():
+                    vname = f"{name_v} ({vlib.vsl_lanes_on(ctypes.byref(c.base))} lanes)"
+                    out = vf._empty_streams(p.dim_state, T, B, dev)
+                    outs = [o.data_ptr() for o in out]
+
+                    def launch(vlib=vlib, outs=outs):
+                        return vlib.vsl_launch(ctypes.byref(c), ys.data_ptr(), *ys.stride(), B,
+                                               T, dev.index or 0, *outs, stream)
+                    launch.out = out
+                    runs[vname] = launch
+                    entry[vname] = (cs.shaped_entry(kernel, p),
+                                    _build.BUILD_LOGS.get(_slot_lib(name_v), ""))
+        else:
+            registered = kernel == "vector_filter_registered"
+            for g in (vf._SHAPED, 0):
+                if registered:
+                    rlib, pair = vf._registered(p, False, g)
+                    fn, log_text = f"VfrPair{pair}E", _build.BUILD_LOGS.get(reg_name, "")
+                else:
+                    rlib, pair = lib, None
+                    fn = (cs.form_ptxas(vf, p, kernel, g, "")[3] if g else
+                          f"vector_filter_general_kernelILi{p.dim_state}ELi"
+                          f"{vf._bound_of(p.dim_out)}E")
+                    log_text = main_log
+                runs[g] = launcher(torch, vf, rlib, pair, p, ys, dev, g)
+                entry[g] = (fn, log_text)
+        for g, run in runs.items():
+            if run() != 0:
+                cs.fail(f"{name} {rule}: the launch of {g} failed")
+            torch.cuda.synchronize()
+            held(cs, torch, vf, p, ys, run.out, f"{name} {rule} {g}", plain)
+        order = list(runs)
+        turns = {}
+        for g in order + order[::-1]:
+            turns.setdefault(g, []).append(cs.raw_ms(torch, runs[g], reps=reps))
+        b_ms, b_by = cs.vf_bound(p, T, B)
+        cs.log(f"lane_variants --slots {name} {rule} ({p.dyn.n} points) {B}x{T}, D={p.dim_state}, "
+               f"E={p.dim_out}: routed {kernel} (lanes_of {vf.lanes_of(p)}, slot_lanes "
+               f"{vf.slot_lanes(p)}); bound {b_ms:.4f} ms ({b_by}); card {card}")
+        for g, ms in turns.items():
+            fn, log_text = entry[g]
+            regs, frame, spill = cs.ptxas_of(log_text, fn)
+            form = {vf._SHAPED: "shaped one thread", 0: "one thread (N at run time)"}.get(g, g)
+            cs.log(f"  {name} {rule}: {form}: raw launches " + " / ".join(f"{t:.4f}" for t in ms)
+                   + f" ms in turns; == plain on {HEAD}; {regs} registers, {frame} bytes stack "
+                   f"frame, {spill} bytes spilled ({fn}); card {card}")
         del runs
 
 
