@@ -101,7 +101,7 @@ fails at once without them.  Phases, each fatal on failure:
     version's on the same input, bound, chain floor);
 15. the vector filter kernels against their plain version, both on
     the card, to the bit, 20 steps, all five streams, at every instantiation
-    of the nine sources: the five model pairs (reentry and CV with the
+    of the eleven sources: the five model pairs (reentry and CV with the
     radar, the pendulum, the falling body with its range, CT with four
     bearings) under UKF, CKF, a BQ rule at the UT count (GPQ-UT; BSQ-UT too
     on reentry, on CV instead) and GPQ with spherical-radial points, every
@@ -113,7 +113,8 @@ fails at once without them.  Phases, each fatal on failure:
     kernel (``csrc/vector_filter_shaped.cu``, 22 instantiations: 4 pairs of
     point counts of each model pair, and 9 points on the pendulum, 8 on the
     falling body), the slot kernel (``csrc/vector_filter_slots.cu``, 5:
-    Gauss-Hermite rules of 16-81 points on 2 or 4 lanes a trajectory), the
+    Gauss-Hermite rules of 16-81 points on 2 or 4 lanes a trajectory; 16
+    more of the general pairs, ``VSL_GENERAL``, below), the
     kernel of the BQ shapes
     (``csrc/vector_filter_shaped_bq.cu`` and ``_mixed.cu``, 60: one count on
     both transforms or the two mixed, three pairs of kinds) and, at every pair
@@ -135,7 +136,9 @@ fails at once without them.  Phases, each fatal on failure:
     sizes through the wrapper (the shaped form under the UKF and the CKF,
     alone or beside each other, and GH-3 on 2-D or GH-2 on 3-D states, up
     to 4 outputs, the lane-group form above, the warp form under GH-3 on
-    5-D states), the
+    5-D states; the slot kernel, ``csrc/vector_filter_general_slots.cu`` and
+    ``_hi.cu``, under GH-2 to GH-4 of 16-81 points, its 16 instantiations of
+    ``VSL_GENERAL``), the
     general one-thread form of those by force on all 10,000,
     and by force, one thread and warp form, on the UKF of the five other
     pairs (GH-3 on reentry runs in the warp form through the wrapper); it
@@ -265,25 +268,25 @@ fails at once without them.  Phases, each fatal on failure:
     (``dd_pairs_slice``): CT + radar under UKF and CKF and CT with 2, 3, 5
     and 8 bearings under CKF and 8 under GH-3, CT + radar under the UKF
     beside the CKF, the pendulum with the radar under GH-3 (9 points),
-    10,000 x 100 simulated on the card, and under GH-4 (16 points) on its
-    first 50 steps, through the general vector kernel
+    10,000 x 100 simulated on the card, and under GH-4 (16 points) and GH-5
+    (25) on its first 50 steps, through the general vector kernel
     (radar and 2-3 bearings in its shaped one-thread form, the mixed counts
     and the pendulum's GH-3 too, 5 and 8 bearings under CKF in its
-    lane-group form, GH-3 on CT in its warp form, the pendulum's GH-4 in its
-    general one-thread form);
+    lane-group form, GH-3 on CT in its warp form, the pendulum's GH-5 in its
+    general one-thread form) and the slot kernel (the pendulum's GH-4);
     UNGM under GH-9, GH-15, GPQ on GH-15 points and GH-17 (the slot design,
     GH-17 at 20 slots) on the main path's 10,000 x 500 data and under GH-33
     (one thread a trajectory) on its first 100 steps, through the scalar
     kernel's general form; each lane once with the counts from 0 (6 shaped,
-    1 one-thread, 2 lane-group, 1 warp-form and 5 scalar launches, nothing
-    else), its first 200 trajectories (all 10,000 on CT + radar UKF and on
+    1 one-thread, 2 lane-group, 1 warp-form, 1 slot-kernel and 5 scalar
+    launches, nothing else), its first 200 trajectories (all 10,000 on CT + radar UKF and on
     UNGM GH-17 and GH-33, which also match at B = 1, 7 and 4,097 through the
     wrapper) equal to the plain version to the bit, its filter RMSE within
     1e-6 (vector) or 1e-3 (UNGM) relative of the eager f64 lane's, at most
     1% non-finite; raw launches, wrapper, plain and bound, the libraries'
     build times; on every lane off the general one-thread form its route
-    and that form (at 3 bearings the lane-group form too) to the bit and in
-    turns with their ptxas counts;
+    (the slot kernel's GH-4 too) and that form (at 3 bearings the lane-group
+    form too) to the bit and in turns with their ptxas counts;
     the general form's range and sine measurements of the UNGM state against
     the plain version to the bit at B = 1, 7, 4,097 and 10,000; raw launches
     of the general kernel by force beside the first version and the shaped
@@ -299,18 +302,20 @@ fails at once without them.  Phases, each fatal on failure:
     2-output measurement and with the radar, an 8-D one with the radar and a
     copy of the table's pendulum with the radar (the registered vector
     kernel: the 2-D ones under the UKF in its shaped one-thread form, the 2-D
-    one with the radar under GH-3 in that form too and under GH-4 (10,000 x
-    50) in its general one-thread form, the 8-D
+    one with the radar under GH-3 in that form too, under GH-4 (10,000 x
+    50) in its slot form (also at B = 1, 7 and 4,097 through the wrapper)
+    and under GH-5 (the same data) in its general one-thread form, the 8-D
     one in its lane-group form), CT with 9 and 16 bearings under CKF (the
     general kernel's lane-group form), reentry with a copy of the table's
     radar under GH-3 (the registered kernel's warp form), 10,000 x 100; each
     lane once with the counts from 0 (3 registered shaped, 1 registered
-    one-thread, 1 registered lane-group, 1 registered warp-form, 2 general
-    lane-group, 1 scalar launch, nothing else), equal to its plain version
+    slot-form, 1 registered one-thread, 1 registered lane-group, 1
+    registered warp-form, 2 general lane-group, 1 scalar launch, nothing
+    else), equal to its plain version
     to the bit (all 10,000 trajectories on the 2-D lane, the first 200
     elsewhere), its filter RMSE within 1e-6 (1e-3 on the 1-D lane) relative
     of the eager lane's; raw launches, wrapper, plain and bound; on the
-    shaped, lane-group and warp lanes that form and the general one-thread
+    shaped, slot, lane-group and warp lanes that form and the general one-thread
     form of the kernel to the bit and in turns (the wide form on the
     bearings); the pendulum copy
     equal to the table's pendulum in the general kernel to the bit and timed
@@ -1510,8 +1515,9 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
     or ``"vector_filter_registered"`` (a registered model); by default the
     one the wrapper picks.  ``lanes``: the general and registered kernels'
     form (0 one thread a trajectory, ``vf._SHAPED`` the shaped one-thread
-    form, ``vf._LANES`` the lane-group form, ``vf._WARP`` the warp form), by
-    default the wrapper's (``lanes_of``)."""
+    form, ``vf._SLOTS`` the registered kernel's slot form, ``vf._LANES`` the
+    lane-group form, ``vf._WARP`` the warp form), by default the wrapper's
+    (``lanes_of``)."""
     lib = vf.build()
     B, _, T = y.shape
     kernel = kernel or vf.kernel_of(params)
@@ -1527,10 +1533,10 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
         outs = [o.data_ptr() for o in out]
 
         def launch():
-            if lanes == vf._SHAPED:
-                return lib_r.vfr_shaped_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
-                                               s.data_ptr(), params.n_s, B, T, dev.index or 0,
-                                               *outs, stream)
+            if lanes in (vf._SHAPED, vf._SLOTS):
+                run = lib_r.vfr_shaped_launch if lanes == vf._SHAPED else lib_r.vfr_slots_launch
+                return run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
+                           params.n_s, B, T, dev.index or 0, *outs, stream)
             return lib_r.vfr_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
                                     s.data_ptr(), params.n_s, B, T, dev.index or 0, *outs,
                                     scratch.data_ptr(), stream)
@@ -1562,14 +1568,17 @@ def vf_raw(torch, vf, params, y, dev, kernel=None, lanes=None):
 
 #: the vector filter kernels' entries of the ``kernels`` line, by name: the
 #: general and registered kernels' one-thread forms, their lane-group forms
-#: and their warp forms (``csrc/vector_filter_lanes.cuh``) and their shaped
-#: one-thread forms (``csrc/vector_filter_general_shaped.cuh``) apart
+#: and their warp forms (``csrc/vector_filter_lanes.cuh``), their shaped
+#: one-thread forms (``csrc/vector_filter_general_shaped.cuh``) and the
+#: registered kernel's slot form (``csrc/vector_filter_general_slots.cuh``;
+#: the general kernel's pairs in the slot design count on the slot kernel,
+#: which launches them) apart
 VF_KERNELS = ("vector_filter", "vector_filter_shaped", "vector_filter_shaped_bq",
               "vector_filter_slots", "vector_filter_general", "vector_filter_registered",
               "vector_filter_general_lanes",
               "vector_filter_registered_lanes", "vector_filter_general_warp",
               "vector_filter_registered_warp", "vector_filter_general_shaped",
-              "vector_filter_registered_shaped")
+              "vector_filter_registered_shaped", "vector_filter_registered_slots")
 
 
 def vf_counts(vf):
@@ -1585,21 +1594,25 @@ def vf_counts(vf):
                                       - vf.GENERAL_WARP_LAUNCHES - vf.GENERAL_SHAPED_LAUNCHES),
             "vector_filter_registered": (vf.REGISTERED_LAUNCHES - vf.REGISTERED_LANE_LAUNCHES
                                          - vf.REGISTERED_WARP_LAUNCHES
-                                         - vf.REGISTERED_SHAPED_LAUNCHES),
+                                         - vf.REGISTERED_SHAPED_LAUNCHES
+                                         - vf.REGISTERED_SLOT_LAUNCHES),
             "vector_filter_general_lanes": vf.GENERAL_LANE_LAUNCHES,
             "vector_filter_registered_lanes": vf.REGISTERED_LANE_LAUNCHES,
             "vector_filter_general_warp": vf.GENERAL_WARP_LAUNCHES,
             "vector_filter_registered_warp": vf.REGISTERED_WARP_LAUNCHES,
             "vector_filter_general_shaped": vf.GENERAL_SHAPED_LAUNCHES,
-            "vector_filter_registered_shaped": vf.REGISTERED_SHAPED_LAUNCHES}
+            "vector_filter_registered_shaped": vf.REGISTERED_SHAPED_LAUNCHES,
+            "vector_filter_registered_slots": vf.REGISTERED_SLOT_LAUNCHES}
 
 
 def vf_source(name):
     """The source of the ``kernels`` line's entry ``name``: the lane-group
-    and warp forms are instantiated in their kernel's source, and so is the
-    registered kernel's shaped form."""
+    and warp forms are instantiated in their kernel's source, and so are the
+    registered kernel's shaped and slot forms."""
     base = name.removesuffix("_lanes").removesuffix("_warp")
-    return f"ssmtoybox_torch/csrc/{base.replace('registered_shaped', 'registered')}.cu"
+    for form in ("registered_shaped", "registered_slots"):
+        base = base.replace(form, "registered")
+    return f"ssmtoybox_torch/csrc/{base}.cu"
 
 
 def shaped_entry(kernel, p) -> str:
@@ -1607,8 +1620,13 @@ def shaped_entry(kernel, p) -> str:
     ``kernel`` (``vector_filter_shaped``, ``vector_filter_shaped_bq`` or
     ``vector_filter_slots``) that runs ``p``: its template arguments, both
     point counts among them (the BQ shapes' mixed counts in a kernel of their
-    own; the slot kernel's design, a type, left out)."""
+    own; the slot kernel's design, a type, left out; the general kernel's
+    pairs in the slot kernel's instantiations on their model policy)."""
+    from ssmtoybox_torch.ops import vector_filter as vf
     targs = [p.dim_state, p.dim_out, p.dyn_model, p.obs_model]
+    if kernel == "vector_filter_slots" and not vf._instantiated(p):
+        return (f"vector_filter_general_slots_kernelILi{p.dim_state}ELi{p.dim_out}ELi{p.dyn.n}E"
+                "6VgsZooI" + "".join(f"Li{t}E" for t in targs) + "E")
     if kernel == "vector_filter_slots":
         return f"{kernel}_kernelI" + "".join(f"Li{t}E" for t in targs + [p.dyn.n])
     if kernel == "vector_filter_shaped":
@@ -1630,8 +1648,10 @@ def vf_kernel(vf, params):
 def vf_form(vf, kernel, lanes):
     """The entry of ``VF_KERNELS`` of ``kernel``'s form on ``lanes`` lanes (0
     one thread a trajectory, ``vf._SHAPED`` the shaped one-thread form,
-    ``vf._LANES`` the lane-group form, ``vf._WARP`` the warp form)."""
-    return kernel + {0: "", vf._SHAPED: "_shaped", vf._LANES: "_lanes", vf._WARP: "_warp"}[lanes]
+    ``vf._SLOTS`` the slot form, ``vf._LANES`` the lane-group form,
+    ``vf._WARP`` the warp form)."""
+    return kernel + {0: "", vf._SHAPED: "_shaped", vf._SLOTS: "_slots", vf._LANES: "_lanes",
+                     vf._WARP: "_warp"}[lanes]
 
 
 def vf_zero(vf):
@@ -1639,7 +1659,7 @@ def vf_zero(vf):
     vf.SLOT_LAUNCHES = 0
     vf.REGISTERED_LAUNCHES = vf.GENERAL_LANE_LAUNCHES = vf.REGISTERED_LANE_LAUNCHES = 0
     vf.GENERAL_WARP_LAUNCHES = vf.REGISTERED_WARP_LAUNCHES = 0
-    vf.GENERAL_SHAPED_LAUNCHES = vf.REGISTERED_SHAPED_LAUNCHES = 0
+    vf.GENERAL_SHAPED_LAUNCHES = vf.REGISTERED_SHAPED_LAUNCHES = vf.REGISTERED_SLOT_LAUNCHES = 0
 
 
 def only(kernel, n=1):
@@ -1721,8 +1741,8 @@ def vf_rule_pairs(stt, np, systems):
 def vf_instantiation(kernel, params, lanes=0):
     """The template arguments of the instantiation of ``kernel`` that runs
     ``params``: (D, dynamics, kinds of both rules, the point counts of both;
-    "any" for the first version; for the slot kernel its lanes too); for the
-    general kernel (D, the bound on E,
+    "any" for the first version; for the slot kernel D, E, both models, the
+    point counts and its lanes); for the general kernel (D, the bound on E,
     0 for the wide form), in the shaped one-thread form (D, E, both models,
     both point counts), or in the lane-group or warp form on ``lanes`` lanes
     (D, the lanes)."""
@@ -1737,7 +1757,8 @@ def vf_instantiation(kernel, params, lanes=0):
             return (vf_form(vf, kernel, lanes), params.dim_state, lanes)
         return (kernel, params.dim_state, 2 if E <= 2 else 4 if E <= 4 else 8 if E <= 8 else 0)
     if kernel == "vector_filter_slots":
-        return (kernel, params.dim_state, params.dyn_model, 0, 0, counts, vf.slot_lanes(params))
+        return (kernel, params.dim_state, params.dim_out, params.dyn_model, params.obs_model,
+                counts, vf.slot_lanes(params))
     return (kernel, params.dim_state, params.dyn_model, params.dyn.kind, params.obs.kind,
             "any" if kernel == "vector_filter" else counts)
 
@@ -1773,13 +1794,14 @@ def vgs_pairs(vf):
 
 
 def vf_all_instantiations(vf):
-    """Every instantiation of the nine sources, as ``vf_instantiation``
+    """Every instantiation of the eleven sources, as ``vf_instantiation``
     names them: the first version's 4 kinds of each model pair (20), the
     classical shaped kernel's 4 pairs of point counts (20: the UT or CKF
     count on both transforms, or the two mixed) and its Gauss-Hermite counts
     (2, ``VFS_GH``), the BQ shapes' 3 kinds x 4 pairs of counts (60: one
     count on both, or the two mixed), the slot kernel's shapes (5,
-    ``VSL_SHAPES``), the general kernel's state dimensions x bounds on E (16,
+    ``VSL_SHAPES``; the general kernel's pairs, 16, ``VSL_GENERAL_LO`` and
+    ``_HI``), the general kernel's state dimensions x bounds on E (16,
     the wide form's four among them), its lane-group form's state dimensions
     (4) and its shaped form's pairs x 4 pairs of point counts (48) and
     Gauss-Hermite counts (5, ``VGS_GH``)."""
@@ -1796,8 +1818,9 @@ def vf_all_instantiations(vf):
             in header_list(vf, "vector_filter_general_shaped.cuh", "VGS_GH", 6)}
     out |= {("vector_filter_shaped", D, dyn, 0, 0, (nd, no)) for D, _, dyn, _, nd, no
             in header_list(vf, "vector_filter_shaped.cuh", "VFS_GH", 6)}
-    out |= {("vector_filter_slots", D, dyn, 0, 0, (n, n), g) for D, _, dyn, _, n, g
-            in header_list(vf, "vector_filter_slots.cuh", "VSL_SHAPES", 6)}
+    out |= {("vector_filter_slots", D, E, dyn, obs, (n, n), g) for macro in (
+        "VSL_SHAPES", "VSL_GENERAL_LO", "VSL_GENERAL_HI") for D, E, dyn, obs, n, g
+        in header_list(vf, "vector_filter_slots.cuh", macro, 6)}
     for dyn, D in dims.items():
         for kd in (0, 1):
             for ko in (0, 1):
@@ -1817,7 +1840,13 @@ def ptxas_of(log_text, kernel_fn):
     lines = log_text.splitlines()
     for i, line in enumerate(lines):
         if "Compiling entry function" in line and kernel_fn in line:
-            near = " ".join(lines[i + 1:i + 4])
+            # its lines, up to the next entry function's
+            near = []
+            for nxt in lines[i + 1:i + 9]:
+                if "Compiling entry function" in nxt:
+                    break
+                near.append(nxt)
+            near = " ".join(near)
             regs = re.search(r"Used (\d+) registers", near)
             frame = re.search(r"(\d+) bytes stack frame", near)
             spill = re.search(r"(\d+) bytes spill stores", near)
@@ -1971,7 +2000,8 @@ def vector_slice(torch, np, dev, ukf_re, xs_re, ys_re, fused_re):
         fail(f"phase 15 ran no configuration of these instantiations: {sorted(missing, key=str)}")
     split = {k: sum(s[0] == k for s in seen) for k in VF_KERNELS}
     log(f"vector filter kernels == plain to the bit at {len(pairs)} rule pairs of 5 model pairs "
-        f"and {g_cases} configurations of other pairs: every instantiation of the nine sources "
+        f"and {g_cases} configurations of other pairs: every instantiation of the "
+        f"{len(vf.SOURCES)} sources "
         f"({split}; the first version at every pair of its five, the general kernel at the five "
         f"by force, where other kernels take them), B = {VF_BATCHES}, N = {VF_STEPS}, all five "
         f"streams; two launches equal to the bit; {time.perf_counter() - t15:.1f} s")
@@ -2296,7 +2326,17 @@ VF_GENERAL_CASES = [
                               "falling body + sine", "falling body + 4 bearings",
                               "CV + 2 bearings", "CV + 3 bearings", "reentry + range",
                               "reentry + UNGM")
-    for a, b in (("UKF", "CKF"), ("CKF", "UKF"))]
+    for a, b in (("UKF", "CKF"), ("CKF", "UKF"))] + [
+    # the general pairs' Gauss-Hermite shapes of the slot kernel (VSL_GENERAL): GH-4 on the
+    # 2-D pairs, GH-3 and GH-4 on the 3-D ones, GH-2 and GH-3 on the 4-D ones, GH-2 on the 5-D
+    (name, rule, rule) for name, rules in (
+        ("pendulum + radar", ("GH-4",)), ("pendulum + UNGM", ("GH-4",)),
+        ("pendulum + 3 bearings", ("GH-4",)), ("falling body + sine", ("GH-3", "GH-4")),
+        ("falling body + 4 bearings", ("GH-3", "GH-4")), ("CV + 2 bearings", ("GH-2", "GH-3")),
+        ("CV + 3 bearings", ("GH-2", "GH-3")), ("CT + radar", ("GH-2",)),
+        ("CT + 2 bearings", ("GH-2",)), ("CT + 3 bearings", ("GH-2",)),
+        ("reentry + range", ("GH-2",)), ("reentry + UNGM", ("GH-2",)))
+    for rule in rules]
 
 
 def cv_radar_system(np, dev):
@@ -2326,8 +2366,8 @@ def vf_probe_systems(np, dev):
 def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule=None):
     """A Gaussian filter of ``dyn`` and ``obs`` with the named rules (UKF,
     CKF, GH-2, GH-3, GH-4 or GPQ-UT with the length-scales of ``VF_GPQ_ZOO``'s kind:
-    3 on every input); ``dyn_rule`` "A/B" with no ``obs_rule``: A on the
-    dynamics, B on the measurement; one name alone: that rule on both."""
+    3 on every input; GH-5 too); ``dyn_rule`` "A/B" with no ``obs_rule``: A on
+    the dynamics, B on the measurement; one name alone: that rule on both."""
     if obs_rule is None:
         dyn_rule, obs_rule = (dyn_rule.split("/") * 2)[:2]
     D = dyn.dim_state
@@ -2337,7 +2377,7 @@ def general_filter(stt, np, dyn, obs, dyn_rule, obs_rule=None):
         alg = {"UKF": lambda: stt.UnscentedKalman(dyn, obs),
                "CKF": lambda: stt.CubatureKalman(dyn, obs),
                **{f"GH-{g}": (lambda g=g: stt.GaussHermiteKalman(dyn, obs, deg=g))
-                  for g in (2, 3, 4)},
+                  for g in (2, 3, 4, 5)},
                "GPQ-UT": lambda: stt.GaussianProcessKalman(dyn, obs, par, par)}[name]()
         return alg.tf_dyn if model == "dyn" else alg.tf_obs
 
@@ -2348,7 +2388,8 @@ def vf_general_checks(torch, np, dev, forced):
     """Phase 15, the general vector filter kernel: ``VF_GENERAL_CASES``
     simulated on the card from the seed (MC trajectories, ``VF_STEPS``
     steps), each through the wrapper (one launch of the general kernel in the
-    form ``lanes_of`` names, and no other) at B = ``VF_BATCHES`` against the
+    form ``lanes_of`` names, or of the slot kernel where ``kernel_of`` names
+    it, and no other) at B = ``VF_BATCHES`` against the
     plain version's run on all MC (its prefix), to the bit, NaN where it has
     NaN, at most 1% not finite; two launches equal to the bit; where that
     form is another than the general one-thread form, that form by force on
@@ -2365,7 +2406,8 @@ def vf_general_checks(torch, np, dev, forced):
     gen = torch.Generator(device=dev).manual_seed(SEED + 15)
     seen, data = set(), {}
     err = dict.fromkeys(("vector_filter_general", "vector_filter_general_lanes",
-                         "vector_filter_general_warp", "vector_filter_general_shaped"), 0.0)
+                         "vector_filter_general_warp", "vector_filter_general_shaped",
+                         "vector_filter_slots"), 0.0)
     for name, dyn_rule, obs_rule in VF_GENERAL_CASES:
         dyn, obs = systems[name]
         if name not in data:
@@ -2374,10 +2416,12 @@ def vf_general_checks(torch, np, dev, forced):
         alg = general_filter(stt, np, dyn, obs, dyn_rule, obs_rule)
         params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
         what = f"{name} {dyn_rule}/{obs_rule}"
-        if vf.kernel_of(params) != "vector_filter_general":
-            fail(f"{what}: kernel_of names {vf.kernel_of(params)}, not the general kernel")
+        slots = vf.kernel_of(params) == "vector_filter_slots"
+        if vf.kernel_of(params) != "vector_filter_general" and not slots:
+            fail(f"{what}: kernel_of names {vf.kernel_of(params)}, not the general kernel or "
+                 "the slot kernel")
         lanes, kernel = vf.lanes_of(params), vf_kernel(vf, params)
-        seen.add(vf_instantiation("vector_filter_general", params, lanes))
+        seen.add(vf_instantiation(vf.kernel_of(params), params, lanes))
         ref_all = vf._vector_filter_plain(params, data[name])
         for batch in VF_BATCHES:
             yy = data[name][:batch]
@@ -2399,7 +2443,7 @@ def vf_general_checks(torch, np, dev, forced):
         torch.cuda.synchronize()
         if not all(same_bits(torch, g_, o_) for g_, o_ in zip(got, again)):
             fail(f"{kernel} kernel, {what}: a second launch differs from the first")
-        for other in (g for g in (0, vf._SHAPED) if g != lanes and (
+        for other in (g for g in (0, vf._SHAPED) if (slots or g != lanes) and (
                 g == 0 or vf._shaped_takes(params))):
             launch = vf_raw(torch, vf, params, data[name], dev, "vector_filter_general", other)
             if launch() != 0:
@@ -2675,10 +2719,16 @@ def form_ptxas(vf, params, kernel, lanes, logs):
     for the instantiation of the general (``logs``: the vector filter
     library's compiler output) or registered kernel (the registered
     library's) that runs ``params`` in the form of ``lanes`` (the shaped
-    one-thread, lane-group or warp form; 0 the general one-thread form)."""
+    one-thread, slot, lane-group or warp form; 0 the general one-thread form;
+    ``"slots"`` the slot kernel, which runs the general kernel's
+    Gauss-Hermite shapes of 16-81 points)."""
     D, E = params.dim_state, params.dim_out
-    if kernel == "vector_filter_registered":
-        fn = f"VfrPair{vf._registered(params, False, lanes)[1]}E"
+    if lanes == "slots":
+        fn = shaped_entry("vector_filter_slots", params)
+    elif kernel == "vector_filter_registered":
+        policy = f"VfrPair{vf._registered(params, False, lanes)[1]}"
+        # the policy is the slot form's fourth template argument, the design's type after it
+        fn = f"{len(policy)}{policy}9VslDesign" if lanes == vf._SLOTS else f"{policy}E"
     elif lanes == vf._SHAPED:
         fn = (f"vector_filter_general_shaped_kernelILi{D}ELi{E}ELi{params.dyn.n}ELi"
               f"{params.obs.n}ELi0ELi0E6VgsZooILi{D}ELi{E}ELi{params.dyn_model}ELi"
@@ -2697,18 +2747,20 @@ LANE_TURN_REPS = 5
 
 def lane_turns(torch, vf, params, ys, dev, kernel, logs, plain, what):
     """The general or registered kernel's forms on one lane ``ys``: the
-    route (the shaped one-thread, lane-group or warp form), the general
-    one-thread form and, where the shaped form takes a shape of 3 or 4
-    outputs, the lane-group form, each launched by force, its streams on
+    route (the shaped one-thread, slot, lane-group or warp form; the slot
+    kernel, ``"slots"``, for the general kernel's Gauss-Hermite shapes that
+    it takes), the general one-thread form and, where the shaped form takes
+    a shape of 3 or 4 outputs, the lane-group form, each launched by force, its streams on
     the first trajectories equal to ``plain`` (the plain version's) to the
     bit, then raw launches in turns (the forms, then the same in reverse),
     each with its ptxas counts and, for the lane-group and warp forms, the
     warps an SM holds (``vf._form_fit``) beside the warps the lane gives an
     SM at all.  Logs one line a form and returns the route's raw times."""
-    route = vf.lanes_of(params)
+    route = "slots" if vf.kernel_of(params) == "vector_filter_slots" else vf.lanes_of(params)
     order = (route, 0) + tuple(g for g in (vf._SHAPED, vf._LANES) if g != route and (
         3 <= params.dim_out <= 4 and vf._shaped_takes(params)))
-    runs = {g: vf_raw(torch, vf, params, ys, dev, kernel, g) for g in order}
+    runs = {g: vf_raw(torch, vf, params, ys, dev, *(() if g == "slots" else (kernel, g)))
+            for g in order}
     head = plain[0].shape[-1]
     for g, run in runs.items():
         if run() != 0:
@@ -2725,7 +2777,9 @@ def lane_turns(torch, vf, params, ys, dev, kernel, logs, plain, what):
     for g, ms in turns.items():
         regs, frame, spill, fn = form_ptxas(vf, params, kernel, g, logs)
         form, occupancy = {0: "general one-thread form", vf._SHAPED: "shaped one-thread form",
-                           vf._WARP: "warp form"}.get(g, f"lane-group form on {g} lanes"), ""
+                           vf._WARP: "warp form", "slots": "slot kernel",
+                           vf._SLOTS: f"slot form on {vf.slot_lanes(params)} lanes"}.get(
+                               g, f"lane-group form on {g} lanes"), ""
         if g in (vf._LANES, vf._WARP):
             _, _, size, warps = vf._form_fit(params, g)
             occupancy = (f"; {warps} warps an SM resident, {ys.shape[0] * g / 32 / 132:.1f} "
@@ -2753,10 +2807,12 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     beside the CKF, and the pendulum with the radar under GH-3
     (``general_systems``), 10,000 trajectories x 100 steps simulated from
     the seed; the UKF and CKF lanes of up to 3 bearings, and the UKF beside
-    the CKF, run in its shaped one-thread form (``lanes_of``), the CKF lanes
-    of more than 4 bearings in its lane-group form, the CT GH-3 lane in its
-    warp form, the pendulum's GH-3 (9 points, a count the shaped form does
-    not take) in its general one-thread form.  The UNGM lanes (the scalar filter kernel's general
+    the CKF, and the pendulum's GH-3 (9 points), run in its shaped one-thread
+    form (``lanes_of``), the CKF lanes of more than 4 bearings in its
+    lane-group form, the CT GH-3 lane in its warp form; the pendulum's GH-4
+    (16 points, ``DD_GH4_STEPS`` steps) in the slot kernel (``VSL_GENERAL``),
+    its GH-5 (25 points, no slot shape; the same data) in the general
+    one-thread form.  The UNGM lanes (the scalar filter kernel's general
     form): GH-9, GH-15, GPQ on GH-15 points (``UNGM_GPQ_PAR``) and GH-17 (20
     slots) in its slot design on phase 4's data, 10,000 x 500, and GH-33
     one thread a trajectory on its first ``DD_WIDE_STEPS`` steps.  Each lane
@@ -2769,15 +2825,17 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     (UNGM), at most 1% of the runs not finite; filter and smoother RMSE; raw
     launches behind ``_sleep``, the wrapper's and the plain version's time,
     the bound (``vf_bound`` / ``sf_bound``) and, for the vector lanes, the
-    chain floor; on every lane that leaves the general one-thread form, its
-    route and that form (and at 3 bearings the lane-group form and the
-    shaped form) to the bit and in turns (``lane_turns``).  Then the general form's range
+    chain floor; on every lane that leaves the general one-thread form (the
+    GH-4 lane's slot kernel too), its route and that form (and at 3 bearings
+    the lane-group form and the shaped form) to the bit and in turns
+    (``lane_turns``).  Then the general form's range
     and sine measurements of the UNGM state against the plain version to the
     bit at B = 1, 7, 4,097 and 10,000, in the slot design.  ``built``: the
     libraries' build times.  ``bench``: ``(dynamics, measurement, ys)`` of the reentry bench
     lane: its UKF, on which the general kernel by force, the first version by
     force and the shaped kernel are timed in turns (raw launches).  Returns the entries of ``vector_filter_general`` and
-    its lane-group, warp and shaped forms for the ``kernels`` line, the scalar
+    its lane-group, warp and shaped forms and of the slot kernel (its GH-4
+    lane) for the ``kernels`` line, the scalar
     general form's launches and its largest |diff| against the plain
     version, the ``kernels`` entry of the scalar slot design (its launches
     on the path, the GH-9 lane's times and bound) and that of the general
@@ -2796,7 +2854,7 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     vec_lanes = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"),
                  ("CT + 3 bearings", "CKF"), ("CT + 5 bearings", "CKF"), ("CT + 8 bearings", "CKF"),
                  ("CT + 8 bearings", "GH-3"), ("CT + radar", "UKF/CKF"),
-                 ("pendulum + radar", "GH-3"), (gh4, "GH-4")]
+                 ("pendulum + radar", "GH-3"), (gh4, "GH-4"), (gh4, "GH-5")]
     systems[gh4] = systems["pendulum + radar"]
     for name in dict.fromkeys(n for n, _ in vec_lanes if n != gh4):
         dyn, obs = systems[name]
@@ -2834,11 +2892,12 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
             or not all(vf_launches[k] for k in ("vector_filter_general",
                                                 "vector_filter_general_lanes",
                                                 "vector_filter_general_warp",
-                                                "vector_filter_general_shaped"))):
+                                                "vector_filter_general_shaped",
+                                                "vector_filter_slots"))):
         fail(f"dd pairs path: vector filter launches {vf_launches}, scalar filter launches "
              f"(all, general form, slot design) {sf_launches}; expected {want}, the four "
-             "forms of the general kernel, and 5 of the scalar general form, 4 in its slot "
-             "design, nothing else")
+             "forms of the general kernel and the slot kernel, and 5 of the scalar general "
+             "form, 4 in its slot design, nothing else")
     log(f"dd pairs path: vector filter launches {vf_launches}; scalar filter launches "
         f"{sf_launches[0]}, all of the general form, {sf_launches[2]} in its slot design (GH-17 "
         f"at 20 slots among them) and {sf_launches[1] - sf_launches[2]} (GH-33) one thread a "
@@ -2847,7 +2906,7 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     # ---- each lane: plain version, eager lane, scores, times -----------------------
     err = {"vector_filter_general": 0.0, "vector_filter_general_lanes": 0.0,
            "vector_filter_general_warp": 0.0, "vector_filter_general_shaped": 0.0,
-           "scalar_filter": 0.0}
+           "vector_filter_slots": 0.0, "scalar_filter": 0.0}
     lat, mhz = sf.dependent_latencies(dev), float(clocks_line().split()[0])
     entries, slot_entry, wide_entry = {}, None, None
     for (name, rule), alg in algs.items():
@@ -2886,7 +2945,7 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
                                       ("fi_mean", "fi_cov", "pr_mean", "pr_cov", "pr_xx_cov")))
             err[kernel] = max(err[kernel], vf_against_plain(
                 torch, head, plain, f"dd pairs {name} {rule}, first {head_b} trajectories"))
-            if vf.lanes_of(params):
+            if vf.lanes_of(params) or kernel == "vector_filter_slots":
                 lane_turns(torch, vf, params, ys, dev, "vector_filter_general",
                            _build.BUILD_LOGS.get("vector_filter", ""),
                            tuple(t[..., :DD_PLAIN_B] for t in plain), f"dd pairs {name} {rule}")
@@ -2938,8 +2997,8 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
             f"{b_ms:.4f} ms ({b_by}){floor}")
         if not scalar and kernel not in entries:
             # the kernel's first lane: CT + radar UKF in the shaped form, CT + 5 bearings in
-            # the lane-group form, CT + 8 bearings under GH-3 in the warp form and the
-            # pendulum + radar under GH-4 in the general one-thread form
+            # the lane-group form, CT + 8 bearings under GH-3 in the warp form, the pendulum +
+            # radar under GH-4 in the slot kernel and under GH-5 in the general one-thread form
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -2988,8 +3047,9 @@ def dd_pairs_slice(torch, np, dev, ungm, built, bench=None):
     return entries, sf_launches[1], err["scalar_filter"], slot_entry, wide_entry
 
 
-#: phase 27's lane of the general one-thread form (the pendulum + radar under
-#: GH-4, 16 points): its steps, the first of the GH-3 lane's data
+#: phase 27's lanes of the pendulum + radar under GH-4 (16 points, the slot
+#: kernel) and GH-5 (25, the general one-thread form): their steps, the first
+#: of the GH-3 lane's data
 DD_GH4_STEPS = 50
 
 #: phase 28: the vector lanes' steps, the scalar lane's, and the bearing
@@ -3187,11 +3247,12 @@ def registry_systems(np, dev):
 
 #: phase 28's lanes: (system, rule, kernel, steps); the first vector lane is
 #: held against its plain version on all of its trajectories
-#: phase 28's lane of the registered one-thread form: the driven pendulum +
-#: radar under GH-4 (16 points) on the first ``REG_GH4_STEPS`` steps of the
-#: GH-3 lane's data
+#: phase 28's lanes of the driven pendulum + radar under GH-4 (16 points, the
+#: registered kernel's slot form) and GH-5 (25, its one-thread form) on the
+#: first ``REG_GH4_STEPS`` steps of the GH-3 lane's data
 REG_GH4_STEPS = 50
 REG_GH4 = f"driven pendulum + radar, {REG_GH4_STEPS} steps"
+REG_GH5 = f"{REG_GH4}, GH-5"
 REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
              ("driven pendulum + mix", "UKF", "vector_filter_registered", REG_STEPS),
              ("driven pendulum + radar", "GH-3", "vector_filter_registered", REG_STEPS),
@@ -3200,10 +3261,11 @@ REG_LANES = [("growth", "UKF", "scalar_filter", REG_SCALAR_STEPS),
              ("pendulum copy + radar", "UKF", "vector_filter_registered", REG_STEPS),
              ("CT + 9 bearings", "CKF", "vector_filter_general", REG_STEPS),
              ("CT + 16 bearings", "CKF", "vector_filter_general", REG_STEPS),
-             ("reentry + radar copy", "GH-3", "vector_filter_registered", REG_STEPS)]
+             ("reentry + radar copy", "GH-3", "vector_filter_registered", REG_STEPS),
+             (REG_GH5, "GH-5", "vector_filter_registered", REG_GH4_STEPS)]
 #: phase 28's filters by rule: (class, keyword arguments)
 REG_RULES = {"UKF": ("UnscentedKalman", {}), "CKF": ("CubatureKalman", {}),
-             "GH-3": ("GaussHermiteKalman", {"deg": 3}), "GH-4": ("GaussHermiteKalman", {"deg": 4})}
+             **{f"GH-{g}": ("GaussHermiteKalman", {"deg": g}) for g in (3, 4, 5)}}
 #: phase 28's registered 1-D lanes around the slot design's ceiling, the
 #: growth model on the growth lane's data: (name, Gauss-Hermite points,
 #: steps, design): GH-17 at 20 slots, and GH-33 one thread a trajectory on
@@ -3220,13 +3282,14 @@ def registry_slice(torch, np, dev):
     1-D lane).  First the libraries of the registered forms are built, the
     vector lanes' and the scalar lane's at once (their build times and each
     instantiation's ptxas registers and spills printed).  Then every lane
-    once through ``engine="dd"`` with the counts set to 0: five launches of
+    once through ``engine="dd"`` with the counts set to 0: seven launches of
     the registered vector kernel (the driven pendulum's and the pendulum
-    copy's under the UKF in its shaped one-thread form, the driven pendulum
-    with the radar under GH-3 in its general one-thread form, the chain's in
-    its lane-group form, the radar copy's under GH-3 in its warp form), two of the general kernel
-    (its lane-group form), one of the scalar kernel's registered form,
-    nothing else.  Each lane: every stream
+    copy's under the UKF and the driven pendulum with the radar under GH-3
+    in its shaped one-thread form, the latter under GH-4 in its slot form
+    and under GH-5 in its general one-thread form, the chain's in its
+    lane-group form, the radar copy's under GH-3 in its warp form), two of
+    the general kernel (its lane-group form), one of the scalar kernel's
+    registered form, nothing else.  Each lane: every stream
     of its first ``DD_PLAIN_B`` trajectories (all on the 2-D lane) equal to
     its plain version's to the bit; filter RMSE within 1e-6 relative (1e-3 on
     the 1-D lane) of the eager f64 lane's, at most 1% not finite; raw
@@ -3237,16 +3300,19 @@ def registry_slice(torch, np, dev):
     pair is timed in turns (raw launches).  The 8-D chain and CT with 9
     and 16 bearings run in the lane-group form, the radar copy in the warp
     form, the driven pendulum and the pendulum copy under the UKF in the
-    shaped form; on them both forms of their kernel (that form and the
-    general one-thread form) are held to the plain version and timed in turns
-    (``lane_turns``; the registered library is built with the two forms of
-    each).  Then the
+    shaped form, the driven pendulum + radar under GH-4 in the slot form; on
+    them both forms of their kernel (that form and the general one-thread
+    form) are held to the plain version and timed in turns (``lane_turns``;
+    the registered library is built with the two forms of each); the slot
+    form's lane also through the wrapper at B = 1, 7 and 4,097 against the
+    plain version to the bit.  Then the
     registered 1-D lanes around the slot design's ceiling (``registered_wide``,
     ``REG_WIDE``: the growth model under GH-17 at 20 slots and under GH-33
     one thread a trajectory, built into the same library as the growth
     lane).  Returns the entries of ``vector_filter_registered``,
-    ``vector_filter_registered_lanes``, ``vector_filter_registered_warp``
-    and ``vector_filter_registered_shaped`` for the ``kernels`` line, the scalar
+    ``vector_filter_registered_lanes``, ``vector_filter_registered_warp``,
+    ``vector_filter_registered_shaped`` and ``vector_filter_registered_slots``
+    for the ``kernels`` line, the scalar
     kernel's launches and largest |diff| on this phase, and the launches and
     largest |diff| of the general kernel's forms, by ``VF_KERNELS`` name,
     and the ``kernels`` entries of the scalar registered form's slot design
@@ -3256,7 +3322,7 @@ def registry_slice(torch, np, dev):
 
     t28 = time.perf_counter()
     systems = registry_systems(np, dev)
-    systems[REG_GH4] = systems["driven pendulum + radar"]
+    systems[REG_GH4] = systems[REG_GH5] = systems["driven pendulum + radar"]
     gen = torch.Generator(device=dev).manual_seed(SEED + 28)
     algs, data, params = {}, {}, {}
     tables = {"pendulum + radar": ("pendulum copy + radar", "UKF"),
@@ -3268,12 +3334,13 @@ def registry_slice(torch, np, dev):
         algs[name] = getattr(stt, cls)(dyn, obs, **kwargs)
         lowering = sf if dyn.dim_state == 1 else vf
         params[name] = lowering.prepare(dyn, obs, algs[name].tf_dyn, algs[name].tf_obs)
-        if name not in tables and name != REG_GH4:
+        if name not in tables and name not in (REG_GH4, REG_GH5):
             x = dyn.simulate_discrete(gen, steps=steps, mc_sims=MC)
             data[name] = (x.permute(2, 0, 1), obs.simulate_measurements(gen, x).permute(2, 0, 1))
     for name, (copy, _) in tables.items():
         data[name] = data[copy]
-    data[REG_GH4] = tuple(t[..., :REG_GH4_STEPS] for t in data["driven pendulum + radar"])
+    data[REG_GH4] = data[REG_GH5] = tuple(t[..., :REG_GH4_STEPS]
+                                          for t in data["driven pendulum + radar"])
     for name, deg, _, _ in REG_WIDE:
         algs[name] = stt.GaussHermiteKalman(*systems["growth"], deg=deg)
         params[name] = sf.prepare(*systems["growth"], algs[name].tf_dyn, algs[name].tf_obs)
@@ -3321,12 +3388,13 @@ def registry_slice(torch, np, dev):
         if kernel != "scalar_filter":
             want[vf_kernel(vf, params[name])] += 1
     registered = ("vector_filter_registered", "vector_filter_registered_lanes",
-                  "vector_filter_registered_warp", "vector_filter_registered_shaped")
+                  "vector_filter_registered_warp", "vector_filter_registered_shaped",
+                  "vector_filter_registered_slots")
     if (vf_launches != want or sf_launches != (1, 0, 1, 1)
-            or sum(want[k] for k in registered) != 6 or not all(want[k] for k in registered)):
+            or sum(want[k] for k in registered) != 7 or not all(want[k] for k in registered)):
         fail(f"registry path: vector filter launches {vf_launches}, scalar filter launches (all, "
-             f"general, registered, slot design) {sf_launches}; expected {want} (six of the "
-             "registered kernel, in each of its four forms) and (1, 0, 1, 1)")
+             f"general, registered, slot design) {sf_launches}; expected {want} (seven of the "
+             "registered kernel, in each of its five forms) and (1, 0, 1, 1)")
     log(f"registry path: vector filter launches {vf_launches}; scalar filter launches "
         f"{sf_launches[0]}, of the registered form in its slot design "
         f"{sf.geometry(params['growth'])}")
@@ -3370,6 +3438,9 @@ def registry_slice(torch, np, dev):
                 lane_turns(torch, vf, p, ys, dev, family, _build.BUILD_LOGS.get(
                     v_name if family == "vector_filter_registered" else "vector_filter", ""),
                     tuple(t[..., :DD_PLAIN_B] for t in plain), f"registry {name} {rule}")
+            if vf.lanes_of(p) == vf._SLOTS:
+                err[kernel] = max(err[kernel], registered_slot_batches(torch, vf, p, ys,
+                                                                       f"registry {name} {rule}"))
         del plain
         ref = algs[name].forward_pass_batch(ys, engine="f64")
         (r_fi, lost), (e_fi, e_lost) = (finite_rmse(torch, x_true, res.fi_mean),
@@ -3404,7 +3475,8 @@ def registry_slice(torch, np, dev):
                           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
         if family == "vector_filter_registered" and kernel not in entries:
             # the first lane of each form: the driven pendulum + mix (shaped), the driven
-            # pendulum + radar GH-4 (one thread), the chain (lane-group) and the radar copy (warp)
+            # pendulum + radar GH-4 (slot form) and GH-5 (one thread), the chain (lane-group)
+            # and the radar copy (warp)
             entries[kernel] = {"launches": vf_launches[kernel], "ms": k_ms[0], "plain_ms": p_ms,
                                "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
 
@@ -3442,6 +3514,32 @@ def registry_slice(torch, np, dev):
                for k in ("vector_filter_general", "vector_filter_general_lanes",
                          "vector_filter_general_shaped")}
     return entries, sf_launches[2], err["scalar_filter"], general, slot_entry, wide_entry
+
+
+def registered_slot_batches(torch, vf, params, ys, what):
+    """The registered kernel's slot form on the first 1, 7 and 4,097
+    trajectories of ``ys`` through the wrapper (one launch each, counted on
+    that form), every stream equal to the plain version's on those 4,097 to
+    the bit (its prefix: on the card the plain version's operations are
+    elementwise across trajectories); logs and returns the largest |diff|."""
+    batches, err = (1, 7, 4097), 0.0
+    ref_all = vf._vector_filter_plain(params, ys[:max(batches)])
+    for batch in batches:
+        before = vf_counts(vf)
+        got = vf.vector_filter(params, ys[:batch])
+        torch.cuda.synchronize()
+        moved = {k: v - before[k] for k, v in vf_counts(vf).items()}
+        if moved != only("vector_filter_registered_slots"):
+            fail(f"{what}, B={batch}: the wrapper's launches {moved}; the registered slot form "
+                 "was to run once")
+        ref = tuple(r[..., :batch] for r in ref_all)
+        err = max(err, *(float((g_ - r_).nan_to_num().abs().max()) for g_, r_ in zip(got, ref)))
+        if not all(same_bits(torch, g_, r_) for g_, r_ in zip(got, ref)):
+            fail(f"{what}, B={batch}: the registered slot form differs from the plain version, "
+                 f"max |diff| {err:.3e}; expected equal bits")
+    log(f"  {what}: the registered slot form == plain to the bit at B = {batches} through the "
+        f"wrapper, all five streams")
+    return err
 
 
 def registered_wide(torch, sf, name, alg, params, ys, dev, want, ptxas):
@@ -5650,7 +5748,8 @@ def main():
         f"vector_filter.cu + vector_filter_shaped.cu + vector_filter_shaped_bq.cu + "
         f"vector_filter_general.cu + vector_filter_general_shaped.cu + "
         f"vector_filter_general_shaped_mixed.cu + vector_filter_shaped_bq_mixed.cu + "
-        f"vector_filter_general_shaped_gh.cu + vector_filter_slots.cu for sm_90a in "
+        f"vector_filter_general_shaped_gh.cu + vector_filter_general_slots.cu + "
+        f"vector_filter_general_slots_hi.cu + vector_filter_slots.cu for sm_90a in "
         f"{time.perf_counter() - t0:.1f} s (each library done after: "
         + ", ".join(f"{name} {t:.1f} s" for name, t in took.items()) + ")")
     for name in ("scalar_filter", "student_mc", "vandermonde", "vector_filter"):

@@ -3,8 +3,9 @@
 // whether the general kernel's shaped one-thread form has an instantiation of
 // it (vector_filter_general_shaped.cuh), reckoned on the host by the headers'
 // own functions, so that ops/vector_filter.py (lanes_of, kernel_of) routes a
-// shape to a form only where its launcher takes it; and the lanes of the slot
-// kernel's instantiation of it (vector_filter_slots.cuh).  Built with g++: it
+// shape to a form only where its launcher takes it; the lanes of the slot
+// kernel's instantiation of it and the slot design of a registered
+// configuration (vector_filter_slots.cuh).  Built with g++: it
 // instantiates no step, so it builds in a second or two.
 #include "vector_filter_general_shaped.cuh"
 #include "vector_filter_lanes.cuh"
@@ -29,5 +30,14 @@ extern "C" void vfl_fit_on(const VfParams* params, int lanes, int* out) {
 extern "C" int vgs_takes_on(const VfParams* params) { return vgs_takes(*params) ? 1 : 0; }
 
 // vsl_lanes_of: the lanes a trajectory of the slot kernel's instantiation of
-// the configuration runs on (VSL_SHAPES), 0 if none takes it.
+// the configuration runs on (VSL_SHAPES, VSL_GENERAL), 0 if none takes it.
 extern "C" int vsl_lanes_on(const VfParams* params) { return vsl_lanes_of(*params); }
+
+// vsr_design into out: the lanes (0: none), split and keep of the slot
+// design of a registered configuration of D states, E outputs and N points.
+extern "C" void vsr_design_on(int D, int E, int N, int* out) {
+  const VslDesignOf d = vsr_design(D, E, N);
+  out[0] = d.G;
+  out[1] = d.split;
+  out[2] = d.keep;
+}

@@ -106,14 +106,29 @@ struct VgsObsFn {
   }
 };
 
-// The model policy of a pair of the table's models: the functors, and the
-// cost of an evaluation of each.
+// Whether a model of this cost is costly in the slot form
+// (vector_filter_slots.cuh): whether its point loops stay loops at the
+// shaped forms' largest count, VFS_MAX_PTS; the table's reentry, coordinated
+// turn and 3 or more bearings are, the radar is not, as vfs_rolled has them.
+VF_HD constexpr bool vgs_rolled(int cost) { return vgs_roll(cost, VFS_MAX_PTS); }
+
+// The model policy of a pair of the table's models: the functors on the
+// parameters' base (VgsParams, or a lane's view of the slot form's), the
+// cost of an evaluation of each, and whether each is costly in the slot
+// form.
 template <int D, int E, int DYN, int OBS>
 struct VgsZoo {
   static_assert(VfDyn<DYN>::D == D, "model dimensions");
   static constexpr int dyn_cost = vgs_dyn_cost(DYN), obs_cost = vgs_obs_cost(OBS, E);
-  VF_HD static VfDynFn<D, DYN> dyn(const VgsParams& p, const double*) { return {p.base}; }
-  VF_HD static VgsObsFn<D, OBS, E> obs(const VgsParams& p) { return {p.base}; }
+  static constexpr bool dyn_rolled = vgs_rolled(dyn_cost), obs_rolled = vgs_rolled(obs_cost);
+  template <class Params>
+  VF_HD static VfDynFn<D, DYN> dyn(const Params& p, const double*) {
+    return {p.base};
+  }
+  template <class Params>
+  VF_HD static VgsObsFn<D, OBS, E> obs(const Params& p) {
+    return {p.base};
+  }
 };
 
 // A whole record of one trajectory in this form (vfs_record_as's layouts),

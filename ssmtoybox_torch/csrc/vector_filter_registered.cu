@@ -27,13 +27,24 @@
 //                 on both) and kinds KD, KO, the costs of its models, and
 //                 evaluates them with their constants by value in the
 //                 parameters (VgsParams).
+//   VFR_SLOTS(F)  F(index, D, E, Model) for each configuration of the slot
+//                 form (vector_filter_general_slots.cuh): D (2-5), E (1-4),
+//                 both rules classical with Model::N points (16-81, a
+//                 Gauss-Hermite count of a table shape); Model's policy
+//                 states N and the design vsr_design names for (D, E, N)
+//                 (G lanes a trajectory, split, keep: the design the table's
+//                 shape of that D and N with the nearest E won on the card),
+//                 whether each model is costly, and evaluates them with
+//                 their constants by value in the parameters (VsrParams).
 // Only the configurations the caller asked for are instantiated.
 //
 // What bounds it, and its design: those of vector_filter_general.cu: one
 // thread a trajectory up to 4 outputs on states of up to 5 dimensions (the
-// shaped form where both rules have the UT or CKF point count, the general
-// one-thread step elsewhere), the lane-group form above, the warp form for
-// rules of many points (ops/vector_filter.py, lanes_of); a registered
+// shaped form where both rules have the UT or CKF point count, the slot
+// form's G lanes a trajectory where both are classical at a Gauss-Hermite
+// count of 16-81 points that the table's slot shapes have at that D, the
+// general one-thread step elsewhere), the lane-group form above, the warp
+// form for rules of many points (ops/vector_filter.py, lanes_of); a registered
 // transition reads its constants from device memory (VfgParams::dyn_c) and
 // this step's values of its per-step streams from s[k * n_s] (the streams
 // time-major, (T, n_s)).  Built with
@@ -42,7 +53,7 @@
 // it to the bit.
 #include <cuda_runtime.h>
 
-#include "vector_filter_general_shaped.cuh"
+#include "vector_filter_general_slots.cuh"
 #include "vector_filter_lanes.cuh"
 #include "vfr_forms.cuh"
 
@@ -121,6 +132,35 @@ extern "C" int vfr_shaped_launch(int pair, const VgsParams* params, const double
         p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, static_cast<cudaStream_t>(stream));
   VFR_SHAPED(VFR_SHAPED_LAUNCH_IF)
 #undef VFR_SHAPED_LAUNCH_IF
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launch configuration `pair` (an index of VFR_SLOTS) in the slot form on
+// `stream` of card `device` without synchronising: the layouts of
+// vfr_launch, no scratch buffer.  Returns the CUDA error of selecting the
+// device or, after the launch, cudaGetLastError(); cudaErrorInvalidValue if
+// `pair` is not one of the library's slot configurations or its D, E, point
+// counts or kinds are not those of the parameters.
+extern "C" int vfr_slots_launch(int pair, const VsrParams* params, const double* y,
+                                long long y_b, long long y_e, long long y_k, const double* s,
+                                int n_s, int B, int n_steps, int device, double* m_fi,
+                                double* P_fi, double* m_pr, double* P_pr, double* xx,
+                                void* stream) {
+  if (B <= 0 || n_steps <= 0) return 0;
+  const VsrParams& p = *params;
+  const VfParams& q = p.base;
+  if (q.dyn.kind != 0 || q.obs.kind != 0) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  const VfgStreams out = {m_fi, P_fi, m_pr, P_pr, xx};
+#define VFR_SLOTS_LAUNCH_IF(I, D, E, MODEL)                                                   \
+  if (pair == I && q.dim_state == D && q.dim_out == E && q.dyn.n == MODEL::N &&               \
+      q.obs.n == MODEL::N)                                                                    \
+    return vsl_launch_as<D, E, MODEL::N, MODEL,                                               \
+                         VslDesign<MODEL::G, MODEL::split, MODEL::keep>>(                     \
+        p, y, y_b, y_e, y_k, s, n_s, B, n_steps, out, static_cast<cudaStream_t>(stream));
+  VFR_SLOTS(VFR_SLOTS_LAUNCH_IF)
+#undef VFR_SLOTS_LAUNCH_IF
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

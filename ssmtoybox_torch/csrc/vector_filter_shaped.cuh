@@ -430,10 +430,13 @@ VF_HD void vfs_record_as(const Params& p, const double* y, long long y_e, long l
 }
 
 // The model policy of a pair of the table's models known when compiling:
-// their functors on the parameters' base (their constants by value).
+// their functors on the parameters' base (their constants by value), and
+// whether each model's point loops stay loops (vfs_rolled; what the slot
+// kernel's vsl_record reads of a policy).
 template <int D, int E, int DYN, int OBS>
 struct VfsZoo {
   static_assert(VfDyn<DYN>::D == D && VfObs<OBS>::E == E, "model dimensions");
+  static constexpr bool dyn_rolled = vfs_rolled<DYN>, obs_rolled = vfs_rolled_obs<OBS>;
   template <class Params>
   VF_HD static VfDynFn<D, DYN> dyn(const Params& p, const double*) {
     return {p.base};

@@ -3,7 +3,9 @@
 // pairs with a kernel form (VSL_SHAPES: reentry + radar and CT + 4 bearings
 // under GH-2, 32 points; constant velocity + radar under GH-2 and GH-3, 16
 // and 81; the falling body + range under GH-3, 27), a trajectory on G lanes
-// of a warp.  The same pairs' other rules run in the library's other
+// of a warp; its launcher also launches the general kernel's pairs'
+// Gauss-Hermite shapes (VSL_GENERAL, vector_filter_general_slots.cu and
+// _hi.cu).  The same five pairs' other rules run in the library's other
 // kernels: the UT, CKF and Gauss-Hermite counts of at most 11 points in
 // vector_filter_shaped.cu and vector_filter_shaped_bq*.cu, rules of 243
 // points and more in the general kernel's warp form, everything else in the
@@ -57,9 +59,10 @@ vector_filter_slots_kernel(const __grid_constant__ VslParams p, const double* __
   // the lanes of trajectories past the last return; the shuffles name the others
   const unsigned mask = __ballot_sync(0xffffffffu, b < B);
   if (b >= B) return;
-  vsl_record<D, E, DYN, OBS, N, Design>(p, lane, mask, y + b * y_b, y_e, y_k, n_steps,
-                                        out.m_fi + b, out.P_fi + b, out.m_pr + b, out.P_pr + b,
-                                        out.xx + b, B);
+  vsl_record<D, E, N, Design, VfsZoo<D, E, DYN, OBS>>(p, lane, mask, y + b * y_b, y_e, y_k,
+                                                      n_steps, nullptr, 0, out.m_fi + b,
+                                                      out.P_fi + b, out.m_pr + b, out.P_pr + b,
+                                                      out.xx + b, B);
 }
 
 }  // namespace
@@ -68,7 +71,8 @@ vector_filter_slots_kernel(const __grid_constant__ VslParams p, const double* __
 // vf_launch (vector_filter.cu), no scratch buffer.  Returns the CUDA error of
 // selecting the device or, after the launch, cudaGetLastError();
 // cudaErrorInvalidValue for a configuration that no instantiation of
-// VSL_SHAPES takes (vsl_lanes_of).
+// VSL_SHAPES or VSL_GENERAL takes (vsl_lanes_of).  The general kernel's pairs
+// (VSL_GENERAL) go to vsl_launch_general (vector_filter_general_slots.cu).
 extern "C" int vsl_launch(const VslParams* params, const double* y, long long y_b,
                           long long y_e, long long y_k, int B, int n_steps, int device,
                           double* m_fi, double* P_fi, double* m_pr, double* P_pr, double* xx,
@@ -94,7 +98,8 @@ extern "C" int vsl_launch(const VslParams* params, const double* y, long long y_
   }
   VSL_SHAPES(VSL_LAUNCH_IF)
 #undef VSL_LAUNCH_IF
-  return static_cast<int>(cudaErrorInvalidValue);
+  return vsl_launch_general(*params, y, y_b, y_e, y_k, B, n_steps, m_fi, P_fi, m_pr, P_pr, xx,
+                            st);
 }
 
 // The lanes a trajectory of the configuration runs on in this build

@@ -1,19 +1,23 @@
 // The slot kernel of the vector filter (vector_filter_slots.cu): Gauss-Hermite
-// rules of 16-81 points on the five model pairs of VFS_PAIRS, a trajectory on
-// G lanes of a warp (G a template argument: 1, 2, 4 or 8), in native float64.
+// rules of 16-81 points on both transforms, a trajectory on G lanes of a warp
+// (G a template argument: 1, 2, 4 or 8), in native float64: the five model
+// pairs of VFS_PAIRS (VSL_SHAPES), the general kernel's pairs of VGS_PAIRS
+// (VSL_GENERAL, vector_filter_general_slots.cuh) and the registered kernel's
+// slot form (VFR_SLOTS, vector_filter_registered.cu).
 //
-// Shared by the CUDA kernel and a host shim (vector_filter_slots_host.cpp),
-// which g++ builds with the lanes collapsed to one (vsl_from_lane returns the
-// lane's own value), so that the CPU tests hold this exact arithmetic against
-// the plain PyTorch version in ssmtoybox_torch/ops/vector_filter.py; the card
-// holds the lanes' gather (chip_smoke.py, phase 15).
+// Shared by the CUDA kernels and host shims (vector_filter_slots_host.cpp,
+// vector_filter_general_slots_host.cpp), which g++ builds with the lanes
+// collapsed to one (vsl_from_lane returns the lane's own value), so that the
+// CPU tests hold this exact arithmetic against the plain PyTorch version in
+// ssmtoybox_torch/ops/vector_filter.py; the card holds the lanes' gather
+// (chip_smoke.py, phase 15).
 //
 // The step is the shaped kernels' (vfs_step_with, vector_filter_shaped.cuh):
 // D, E, N, the models and both rules' kinds template arguments, the models
-// from a policy (VfsZoo here), so that the general and registered kernels can
-// instantiate it on theirs.  Only the moments of a transform differ
-// (vsl_moments, through vfs_transform's overload for a lane's view of a
-// rule):
+// from a policy (vsl_record's Model: VfsZoo for the five pairs, VgsZoo for
+// the general kernel's, a generated policy for a registered configuration).
+// Only the moments of a transform differ (vsl_moments, through
+// vfs_transform's overload for a lane's view of a rule):
 // - lane l of a trajectory's G evaluates points l, l + G, l + 2 G, ... whole
 //   (x_j = m + L xi_j, f(x_j)) and keeps their values on chip (registers where
 //   its point loops unroll, the thread's local memory where they stay loops);
@@ -27,14 +31,18 @@
 //   plain version's order, then gathered by shuffle), and the offsets L xi_j
 //   of the cross-covariance either come by shuffle from the lane that made
 //   them or are made again, the same operations in the same order, so that
-//   all lanes hold the same bits; each shape's design is the one that won on
-//   the card (VSL_SHAPES);
+//   all lanes hold the same bits; each table shape's design is the one that
+//   won on the card (VSL_SHAPES, VSL_GENERAL), a registered configuration's
+//   the one vsr_design names from them;
 // - the rules travel by value in the parameters (VslParams, 10,976 bytes, in
-//   the constant bank): the sums read them at an index the whole warp shares;
-// - nothing goes through device memory but the measurements and the five
-//   output streams.  The lanes of a trajectory store the same values to the
-//   same addresses; a group of lanes past the last trajectory returns at once,
-//   and the shuffles name only the live lanes of the warp.
+//   the constant bank; a registered configuration's VsrParams, 11,488 bytes,
+//   also hold its forms' constants): the sums read them at an index the whole
+//   warp shares;
+// - nothing goes through device memory but the measurements, a registered
+//   transition's per-step stream values and the five output streams.  The
+//   lanes of a trajectory store the same values to the same addresses; a
+//   group of lanes past the last trajectory returns at once, and the
+//   shuffles name only the live lanes of the warp.
 #pragma once
 
 #include "vector_filter_shaped.cuh"
@@ -133,14 +141,25 @@ struct VslView {
   unsigned mask;
 };
 
-// Lane `lane`'s view of the parameters, what vfs_step_with takes: base, and
-// the two rules' views.
+// Lane `lane`'s view of the parameters, what vfs_step_with and a model
+// policy take: base, the two rules' views and a registered configuration's
+// constants of its transition and measurement forms (VsrParams'; nullptr in
+// a table pair's VslParams, whose models read base).
 template <class Design>
 struct VslLaneParams {
   const VfParams& base;
   VslView<Design> dyn;
   VslView<Design> obs;
+  const double* dyn_c;
+  const double* obs_c;
 };
+
+// Lane `lane`'s view of a table pair's parameters (VslParams); the view of
+// a registered configuration's (VsrParams) is vector_filter_general_slots.cuh's.
+template <class Design>
+VF_HD VslLaneParams<Design> vsl_view(const VslParams& p, int lane, unsigned mask) {
+  return {p.base, {p.dyn, lane, mask}, {p.obs, lane, mask}, nullptr, nullptr};
+}
 
 // dx = L xi_j, point j's offset from the mean, vfs_moments' sum.
 template <int D>
@@ -321,16 +340,18 @@ VF_HD void vfs_transform(const VslView<Design>& V, const double (&m)[D],
 }
 
 // A whole record of one trajectory on lane `lane` of the design's G
-// (vfs_record_as's layouts): the model pair (DYN, OBS) of the table, N points
-// on both classical rules, each transform's loops rolled as vsl_roll says.
-template <int D, int E, int DYN, int OBS, int N, class Design>
-VF_HD void vsl_record(const VslParams& p, int lane, unsigned mask, const double* y,
-                      long long y_e, long long y_k, int T, double* m_fi, double* P_fi,
+// (vfs_record_as's layouts): the models of the policy Model (which states
+// whether each model is costly: dyn_rolled, obs_rolled), N points on both
+// classical rules, each transform's loops rolled as vsl_roll says; a
+// registered transition's n_s stream values of step k at s[k * n_s].
+// Params: VslParams, or VsrParams (vector_filter_general_slots.cuh).
+template <int D, int E, int N, class Design, class Model, class Params>
+VF_HD void vsl_record(const Params& p, int lane, unsigned mask, const double* y, long long y_e,
+                      long long y_k, int T, const double* s, int n_s, double* m_fi, double* P_fi,
                       double* m_pr, double* P_pr, double* xx, long long cs) {
-  const VslLaneParams<Design> q = {p.base, {p.dyn, lane, mask}, {p.obs, lane, mask}};
-  vfs_record_as<D, E, N, N, 0, 0, vsl_roll(vfs_rolled<DYN>, N), vsl_roll(vfs_rolled_obs<OBS>, N),
-                VfsZoo<D, E, DYN, OBS>>(q, y, y_e, y_k, T, nullptr, 0, m_fi, P_fi, m_pr, P_pr,
-                                        xx, cs);
+  const VslLaneParams<Design> q = vsl_view<Design>(p, lane, mask);
+  vfs_record_as<D, E, N, N, 0, 0, vsl_roll(Model::dyn_rolled, N), vsl_roll(Model::obs_rolled, N),
+                Model>(q, y, y_e, y_k, T, s, n_s, m_fi, P_fi, m_pr, P_pr, xx, cs);
 }
 
 // The slot kernel's shapes, F(D, E, DYN, OBS, N, G, SPLIT, KEEP): the
@@ -354,8 +375,50 @@ VF_HD void vsl_record(const VslParams& p, int lane, unsigned mask, const double*
   F(4, 2, VF_DYN_CV, VF_OBS_RADAR, 81, 4, true, false)         \
   F(3, 1, VF_DYN_REENTRY1D, VF_OBS_RANGE, 27, 4, true, true)
 
-// The lanes of q's instantiation in VSL_SHAPES (both rules classical, N on
-// both) in this build, 0 if none takes it.
+// The general kernel's shapes in the slot kernel, F(D, E, DYN, OBS, N, G,
+// SPLIT, KEEP) (vector_filter_general_slots.cu): the pairs of VGS_PAIRS
+// (vector_filter_general_shaped.cuh) under classical Gauss-Hermite rules of
+// 12-81 points on both transforms, the 2-D and 3-D states' (VSL_GENERAL_LO)
+// and the 4-D and 5-D states' (VSL_GENERAL_HI), each list a source of its
+// own: GH-4 on the 2-D pairs (16 points), GH-3 and GH-4 on the 3-D ones (27,
+// 64), GH-2 and GH-3 on the 4-D ones (16, 81), GH-2 on the 5-D ones (32).
+// GH-3 on the 5-D pairs (243 points) runs in the general kernel's warp form.
+// Each in the design that won its turns against the 13 others and the
+// general one-thread form it left (NVIDIA H100 80GB HBM3 at 700 W, raw
+// launches at 10,000 x 100, tools/lane_variants.py --slots; PERF.md, section
+// 6): 4 lanes, the sums split by row and the offsets kept, on 12 of them
+// (pendulum + radar GH-4 0.594 ms, 0.646 with the offsets made again, 1.506
+// one thread; CT + radar GH-2 3.171, 3.612, 5.758; CT + 2 and 3 bearings GH-2
+// 3.418 and 4.108, 3.809 and 4.443, 6.573 and 8.985, where CT + 4 bearings
+// runs on 2 lanes repeating the sums); 2 lanes, split, kept on the pendulum +
+// UNGM GH-4 (0.365; 0.375 on 4, 1.008 one thread); 4 lanes, split, the
+// offsets made again at 64 and 81 points with bearings (falling body + 4
+// bearings GH-4 5.156, 5.527 kept, 14.247 one thread; CV + 2 and 3 bearings
+// GH-3 6.060 and 6.992, 7.574 and 8.786 kept, 15.352 and 17.259 one thread).
+#define VSL_GENERAL_LO(F)                                                \
+  F(2, 2, VF_DYN_PENDULUM, VF_OBS_RADAR, 16, 4, true, true)              \
+  F(2, 1, VF_DYN_PENDULUM, VF_OBS_UNGM, 16, 2, true, true)               \
+  F(2, 3, VF_DYN_PENDULUM, VF_OBS_BEARING, 16, 4, true, true)            \
+  F(3, 1, VF_DYN_REENTRY1D, VF_OBS_PENDULUM_SIN, 27, 4, true, true)      \
+  F(3, 4, VF_DYN_REENTRY1D, VF_OBS_BEARING, 27, 4, true, true)           \
+  F(3, 1, VF_DYN_REENTRY1D, VF_OBS_PENDULUM_SIN, 64, 4, true, true)      \
+  F(3, 4, VF_DYN_REENTRY1D, VF_OBS_BEARING, 64, 4, true, false)
+
+#define VSL_GENERAL_HI(F)                                                \
+  F(4, 2, VF_DYN_CV, VF_OBS_BEARING, 16, 4, true, true)                  \
+  F(4, 3, VF_DYN_CV, VF_OBS_BEARING, 16, 4, true, true)                  \
+  F(4, 2, VF_DYN_CV, VF_OBS_BEARING, 81, 4, true, false)                 \
+  F(4, 3, VF_DYN_CV, VF_OBS_BEARING, 81, 4, true, false)                 \
+  F(5, 2, VF_DYN_CT, VF_OBS_RADAR, 32, 4, true, true)                    \
+  F(5, 2, VF_DYN_CT, VF_OBS_BEARING, 32, 4, true, true)                  \
+  F(5, 3, VF_DYN_CT, VF_OBS_BEARING, 32, 4, true, true)                  \
+  F(5, 1, VF_DYN_REENTRY, VF_OBS_RANGE, 32, 4, true, true)               \
+  F(5, 1, VF_DYN_REENTRY, VF_OBS_UNGM, 32, 4, true, true)
+
+#define VSL_GENERAL(F) VSL_GENERAL_LO(F) VSL_GENERAL_HI(F)
+
+// The lanes of q's instantiation in VSL_SHAPES or VSL_GENERAL (both rules
+// classical, N on both) in this build, 0 if none takes it.
 inline int vsl_lanes_of(const VfParams& q) {
   if (q.dyn.kind != 0 || q.obs.kind != 0 || q.dyn.n != q.obs.n) return 0;
   int lanes = 0;
@@ -364,6 +427,51 @@ inline int vsl_lanes_of(const VfParams& q) {
       q.dyn.n == N)                                                                     \
     lanes = VSL_G(LANES);
   VSL_SHAPES(VSL_LANES_IF)
+  VSL_GENERAL(VSL_LANES_IF)
 #undef VSL_LANES_IF
   return lanes;
 }
+
+// A design of the slot kernel by value: G lanes (0: none), split, keep.
+struct VslDesignOf {
+  int G;
+  bool split, keep;
+};
+
+// The design of a registered configuration's slot form (VFR_SLOTS,
+// vector_filter_registered.cu), which cannot be timed model by model: the
+// design of the table's shape (VSL_SHAPES, VSL_GENERAL) of the same state
+// dimension D and point count N whose output count is nearest E, the first
+// listed among equals; G = 0 where no table shape has that D and N, and the
+// configuration keeps the one-thread form.  The table shapes' designs are
+// the card's (tools/lane_variants.py --slots, PERF.md section 6).
+inline VslDesignOf vsr_design(int D, int E, int N) {
+  VslDesignOf best = {0, false, false};
+  int dist = 1 << 30;
+#define VSR_NEAREST(D_, E_, DYN, OBS, N_, LANES, SPLIT, KEEP)  \
+  if (D_ == D && N_ == N && (E_ - E) * (E_ - E) < dist) {    \
+    dist = (E_ - E) * (E_ - E);                              \
+    best = {LANES, SPLIT, KEEP};                             \
+  }
+  VSL_SHAPES(VSR_NEAREST)
+  VSL_GENERAL(VSR_NEAREST)
+#undef VSR_NEAREST
+  return best;
+}
+
+#ifdef __CUDACC__
+// The launchers of the general kernel's pairs in the slot kernel, which
+// vsl_launch (vector_filter_slots.cu) calls once it has selected the device
+// for a configuration outside VSL_SHAPES: vsl_launch_general
+// (vector_filter_general_slots.cu) launches the instantiations of
+// VSL_GENERAL_LO and passes any other configuration to vsl_launch_general_hi
+// (vector_filter_general_slots_hi.cu), VSL_GENERAL_HI's; the layouts of
+// vsl_launch; cudaGetLastError() after the launch, cudaErrorInvalidValue if
+// no instantiation takes the configuration.
+int vsl_launch_general(const VslParams& p, const double* y, long long y_b, long long y_e,
+                       long long y_k, int B, int n_steps, double* m_fi, double* P_fi,
+                       double* m_pr, double* P_pr, double* xx, cudaStream_t stream);
+int vsl_launch_general_hi(const VslParams& p, const double* y, long long y_b, long long y_e,
+                          long long y_k, int B, int n_steps, double* m_fi, double* P_fi,
+                          double* m_pr, double* P_pr, double* xx, cudaStream_t stream);
+#endif

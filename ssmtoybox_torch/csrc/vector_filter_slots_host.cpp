@@ -21,9 +21,10 @@ extern "C" int vsl_host_run(const VslParams* params, const double* y, long long 
       q.dyn.n == N) {                                                                        \
     using Design = VslDesign<1, SPLIT, KEEP>;                                                \
     for (int b = 0; b < B; ++b)                                                              \
-      vsl_record<D, E, DYN, OBS, N, Design>(*params, 0, ~0u, y + b * y_b, y_e, y_k, n_steps, \
-                                            m_fi + b, P_fi + b, m_pr + b, P_pr + b, xx + b,  \
-                                            B);                                              \
+      vsl_record<D, E, N, Design, VfsZoo<D, E, DYN, OBS>>(*params, 0, ~0u, y + b * y_b, y_e, \
+                                                          y_k, n_steps, nullptr, 0,          \
+                                                          m_fi + b, P_fi + b, m_pr + b,      \
+                                                          P_pr + b, xx + b, B);              \
     return D;                                                                                \
   }
   VSL_SHAPES(VSL_RUN_IF)

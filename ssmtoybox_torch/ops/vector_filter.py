@@ -24,9 +24,12 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
 - ``vector_filter_slots`` (``csrc/vector_filter_slots.cu``, the step in
   ``csrc/vector_filter_slots.cuh``): classical Gauss-Hermite rules of 16-81
   points on both transforms (reentry + radar and CT + 4 bearings under GH-2,
-  CV + radar under GH-2 and GH-3, the falling body under GH-3), the shaped
-  step with N a template argument and a trajectory's points split over 2 or
-  4 lanes of a warp (:func:`slot_lanes`), the values gathered by shuffles;
+  CV + radar under GH-2 and GH-3, the falling body under GH-3; and the
+  general kernel's pairs of up to 4 outputs under GH-2 to GH-4 of 16-81
+  points, ``csrc/vector_filter_general_slots.cu`` and ``_hi.cu`` on the
+  general step's model policies), the shaped step with N a template
+  argument and a trajectory's points split over 1-4 lanes of a warp
+  (:func:`slot_lanes`), the values gathered by shuffles;
 - ``vector_filter`` (``csrc/vector_filter.cu``, the step in
   ``csrc/vector_filter_step.cuh``), the first version: every other
   configuration of those pairs (rules of fewer than
@@ -55,8 +58,9 @@ picked by the model pair and the rules' shape (:func:`kernel_of`):
   measurement forms of ``scalar_filter.register_obs_dd``), the shaped
   one-thread form at one UT or CKF count on both rules, of either kind, at
   the two mixed or at the Gauss-Hermite count of at most 11 points on both
-  classical rules, the
-  lane-group form also for states of more than 5 dimensions, built at first
+  classical rules, the slot form (the slot kernel's step on the registered
+  policy) at a Gauss-Hermite count of 16-81 points on both classical rules,
+  the lane-group form also for states of more than 5 dimensions, built at first
   use from a header generated from their :class:`~.forms.KernelForm` s
   (:func:`build_registered`).
 
@@ -92,8 +96,10 @@ kernel to :data:`GENERAL_LAUNCHES`, one of the registered kernel to
 :data:`REGISTERED_LAUNCHES`; a launch of either in the lane-group form also
 to :data:`GENERAL_LANE_LAUNCHES` or :data:`REGISTERED_LANE_LAUNCHES`, one
 in the warp form to :data:`GENERAL_WARP_LAUNCHES` or
-:data:`REGISTERED_WARP_LAUNCHES`, and one in the shaped one-thread form to
-:data:`GENERAL_SHAPED_LAUNCHES` or :data:`REGISTERED_SHAPED_LAUNCHES`.
+:data:`REGISTERED_WARP_LAUNCHES`, one in the shaped one-thread form to
+:data:`GENERAL_SHAPED_LAUNCHES` or :data:`REGISTERED_SHAPED_LAUNCHES`, and
+one of the registered kernel in its slot form to
+:data:`REGISTERED_SLOT_LAUNCHES`.
 
 As in :mod:`.scalar_filter`, nothing is lowered or copied per call that was
 lowered before: a transform's :class:`VecRule` and a model's constants are kept
@@ -127,7 +133,8 @@ from .scalar_filter import _floats, _memo
 __all__ = ["LAUNCHES", "SHAPED_LAUNCHES", "BQ_SHAPED_LAUNCHES", "SLOT_LAUNCHES",
            "GENERAL_LAUNCHES", "REGISTERED_LAUNCHES", "GENERAL_LANE_LAUNCHES",
            "REGISTERED_LANE_LAUNCHES", "GENERAL_WARP_LAUNCHES", "REGISTERED_WARP_LAUNCHES",
-           "GENERAL_SHAPED_LAUNCHES", "REGISTERED_SHAPED_LAUNCHES", "VecRule",
+           "GENERAL_SHAPED_LAUNCHES", "REGISTERED_SHAPED_LAUNCHES", "REGISTERED_SLOT_LAUNCHES",
+           "VecRule",
            "VectorFilterParams", "register_dyn_dd_vec", "register_obs_dd_vec", "lower_transform",
            "check", "supports", "prepare", "kernel_of", "lanes_of", "slot_lanes", "vector_filter",
            "build", "build_registered", "chain_floor_clocks", "TORCH_FNS"]
@@ -156,6 +163,8 @@ REGISTERED_WARP_LAUNCHES = 0
 GENERAL_SHAPED_LAUNCHES = 0
 #: the registered kernel's launches in the shaped one-thread form, among its launches
 REGISTERED_SHAPED_LAUNCHES = 0
+#: the registered kernel's launches in the slot form, among its launches
+REGISTERED_SLOT_LAUNCHES = 0
 
 #: largest state dimension the fused vector filter takes (``ddvec.DIM_MAX``):
 #: ``VF_MAX_DIM`` of the step header, the size of the parameter struct's matrices
@@ -216,8 +225,12 @@ _WARP_MIN_POINTS = 243
 #: and registered kernels (``csrc/vector_filter_general_shaped.cuh``): one lane
 #: a trajectory, the shape known when compiling
 _SHAPED = 1
-#: ``VGS_MAX_C``: a registered form's constants the shaped form's parameters
-#: hold by value
+#: what :func:`lanes_of` answers for the registered kernel's slot form
+#: (``csrc/vector_filter_general_slots.cuh``): its lanes a trajectory are the
+#: design's (:func:`slot_lanes`)
+_SLOTS = -1
+#: ``VGS_MAX_C``: a registered form's constants the shaped and slot forms'
+#: parameters hold by value
 _VGS_MAX_C = 32
 
 
@@ -490,21 +503,51 @@ def _shaped_gh(params: VectorFilterParams) -> bool:
 
 
 def slot_lanes(params: VectorFilterParams) -> int:
-    """The lanes a trajectory of the slot kernel (``vector_filter_slots``)
-    runs on for ``params``, 0 if it has no instantiation of it: the header's
-    answer (``vsl_lanes_of`` of ``csrc/vector_filter_slots.cuh``, via
-    :func:`_fit`), where the shapes (``VSL_SHAPES``) and the lanes of each
-    (``vsl_lanes``) are those the card chose (PERF.md, section 6)."""
-    if not _instantiated(params):
-        return 0
+    """The lanes a trajectory of the slot design runs on for ``params``, 0
+    if it has no instantiation of it.  A table pair: the slot kernel's
+    (``vector_filter_slots``), the header's answer (``vsl_lanes_of`` of
+    ``csrc/vector_filter_slots.cuh``, via :func:`_fit`), where the shapes
+    (``VSL_SHAPES``, the five pairs; ``VSL_GENERAL``, the general kernel's)
+    and the lanes of each are those the card chose (PERF.md, section 6).  A
+    registered configuration: the registered kernel's slot form's, the
+    design :func:`_slot_design` names."""
+    if _registered_pair(params):
+        return _slot_design(params)[0]
     return int(_fit().vsl_lanes_on(ctypes.byref(_c_params(params, torch.device("cpu")))))
+
+
+def _slot_design(params: VectorFilterParams) -> tuple:
+    """``(G, split, keep)`` of the registered kernel's slot form for a
+    registered configuration (``G`` 0 where the form does not take it): at
+    most 4 measurement outputs on a state of 2-5 dimensions, both rules
+    classical with the same count, at most :data:`_VGS_MAX_C` constants a
+    form, and a design of the header's rule for (D, E, N) (``vsr_design``:
+    the design of the table's slot shape of the same D and N with the
+    nearest E)."""
+    D, E, n = params.dim_state, params.dim_out, params.dyn.n
+    if not (2 <= D <= _SLOT_MAX_DIM and E <= 4 and params.dyn.kind == params.obs.kind == 0
+            and n == params.obs.n and n <= _SLOT_MAX_PTS and all(
+                len(f.consts) <= _VGS_MAX_C for f in (params.dyn_form, params.obs_form)
+                if f is not None)):
+        return 0, False, False
+    out = (ctypes.c_int * 3)()
+    _fit().vsr_design_on(D, E, n, out)
+    return out[0], bool(out[1]), bool(out[2])
 
 
 def kernel_of(params: VectorFilterParams) -> str:
     """The kernel that runs ``params``.  A registered model on either side:
-    ``"vector_filter_registered"``.  A model pair that the first version and
-    the shaped kernels do not instantiate: ``"vector_filter_general"``.
-    Else, each rule at the UT or CKF count (2 D + 1 or 2 D points, one
+    ``"vector_filter_registered"`` (in its slot form, :func:`lanes_of`, at
+    the Gauss-Hermite counts of 16-81 points the table's slot shapes have).
+    A model pair that the first version and the shaped kernels do not
+    instantiate: ``"vector_filter_slots"`` where both rules are classical
+    with a count of 16-81 points that the slot kernel instantiates for it
+    (:func:`slot_lanes`: GH-4 on the 2-D pairs of ``VGS_PAIRS``, GH-3 and
+    GH-4 on the 3-D ones, GH-2 and GH-3 on the 4-D ones, GH-2 on the 5-D
+    ones, ``VSL_GENERAL``), else ``"vector_filter_general"`` (GH-3 on 5-D
+    states, 243 points, in its warp form; other degrees such as GH-5 on 2-D
+    states, BQ rules at any Gauss-Hermite count and mixed counts in its
+    one-thread form).  Else, each rule at the UT or CKF count (2 D + 1 or 2 D points, one
     count on both transforms or the two mixed): both classical,
     ``"vector_filter_shaped"``; a BQ rule on either or both,
     ``"vector_filter_shaped_bq"``.  Both classical at the Gauss-Hermite count
@@ -519,7 +562,7 @@ def kernel_of(params: VectorFilterParams) -> str:
     if _registered_pair(params):
         return "vector_filter_registered"
     if not _instantiated(params):
-        return "vector_filter_general"
+        return "vector_filter_slots" if slot_lanes(params) else "vector_filter_general"
     if _shaped_counts(params):
         return "vector_filter_shaped" if dyn.kind == obs.kind == 0 else "vector_filter_shaped_bq"
     if _shaped_gh(params):
@@ -572,6 +615,10 @@ def _shaped_takes(params: VectorFilterParams) -> bool:
 
 def lanes_of(params: VectorFilterParams) -> int:
     """The lanes a trajectory of the general and registered kernels runs on.
+    :data:`_SLOTS` for a registered configuration the registered kernel's
+    slot form takes (:func:`slot_lanes`: both rules classical at a
+    Gauss-Hermite count of 16-81 points of the table's slot shapes, up to 4
+    outputs on 2-5-D states; its lanes the design's).
     :data:`_WARP`, the warp form (``vfl_step`` on a whole warp), where both
     rules have at least :data:`_WARP_MIN_POINTS` points and an SM holds at
     least :data:`_MIN_LANE_WARPS` warps of it (:func:`_warp_takes`).  The
@@ -586,7 +633,10 @@ def lanes_of(params: VectorFilterParams) -> int:
     takes the shape (:func:`_shaped_takes`: the general kernel's UKF beside
     its CKF too, and GH-3 on 2-D or GH-2 on 3-D states), else 0, the general
     one-thread form (``vfg_step``; mixed counts with a BQ rule, Gauss-Hermite
-    rules of 16-242 points, BQ rules at a Gauss-Hermite count).  The shaped form keeps 3 and
+    rules of 12-242 points that neither the slot design nor the warp form
+    takes (GH-5 on a 2-D state, say), BQ rules at a Gauss-Hermite count).  The
+    table's Gauss-Hermite shapes of 16-81 points run in the slot kernel
+    (``kernel_of``), GH-3 on 5-D states in the warp form.  The shaped form keeps 3 and
     4 outputs too: raw launches at 10,000 x 100 in turns (NVIDIA H100 80GB
     HBM3 at 700 W, ``tools/lane_variants.py``, PERF.md section 6), CT + 3
     bearings CKF 2.13 ms against 2.36 in the lane-group form on 8 lanes and
@@ -601,8 +651,11 @@ def lanes_of(params: VectorFilterParams) -> int:
     arrays in registers, at least :data:`_MIN_LANE_WARPS` (not under rules
     of some hundreds of points), as the header reckons them
     (:func:`_form_fit`); else 0 again."""
-    if kernel_of(params) not in ("vector_filter_general", "vector_filter_registered"):
+    kernel = kernel_of(params)
+    if kernel not in ("vector_filter_general", "vector_filter_registered"):
         return 0
+    if kernel == "vector_filter_registered" and slot_lanes(params):
+        return _SLOTS
     if _warp_takes(params):
         return _WARP
     if params.dim_out <= 4 and params.dim_state <= 5:
@@ -1013,6 +1066,36 @@ def _c_slot_params(p: VectorFilterParams, device: torch.device) -> _CSlotParams:
                         obs=_c_slot_rule(p.obs))
 
 
+class _CSlotRegParams(ctypes.Structure):
+    """``VsrParams``: the registered kernel's slot form's parameters, the
+    slot kernel's and a registered form's constants by value."""
+    _fields_ = [("base", _CParams), ("dyn", _CSlotRule), ("obs", _CSlotRule),
+                ("dyn_c", ctypes.c_double * _VGS_MAX_C), ("obs_c", ctypes.c_double * _VGS_MAX_C)]
+
+
+def _registered_consts(p: VectorFilterParams, c):
+    """A registered form's constants into ``c.dyn_c`` / ``c.obs_c``;
+    ``ValueError`` where a form has more than the struct holds."""
+    for form, into in ((p.dyn_form, c.dyn_c), (p.obs_form, c.obs_c)):
+        if form is not None:
+            if len(form.consts) > _VGS_MAX_C:
+                raise ValueError(f"each of the shaped and slot forms holds up to {_VGS_MAX_C} "
+                                 f"constants of a registered form; got {len(form.consts)}")
+            into[:len(form.consts)] = form.consts
+
+
+@functools.lru_cache(maxsize=64)
+def _c_registered_slots(p: VectorFilterParams, device: torch.device) -> _CSlotRegParams:
+    """The registered slot form's parameter struct: the slot kernel's (both
+    rules by value) and the registered forms' constants; ``ValueError`` for
+    rules or constants it cannot hold.  Built once for a given ``(p,
+    device)``."""
+    c = _CSlotRegParams(base=_c_params(p, device), dyn=_c_slot_rule(p.dyn),
+                        obs=_c_slot_rule(p.obs))
+    _registered_consts(p, c)
+    return c
+
+
 class _CGShapedParams(ctypes.Structure):
     """``VgsParams``: the parameters of the shaped one-thread form."""
     _fields_ = [("base", _CParams), ("dyn", _CShapedBqRule), ("obs", _CShapedBqRule),
@@ -1027,12 +1110,7 @@ def _c_general_shaped(p: VectorFilterParams, device: torch.device) -> _CGShapedP
     given ``(p, device)``."""
     c = _CGShapedParams(base=_c_params(p, device), dyn=_c_shaped_bq_rule(p.dyn),
                         obs=_c_shaped_bq_rule(p.obs))
-    for form, into in ((p.dyn_form, c.dyn_c), (p.obs_form, c.obs_c)):
-        if form is not None:
-            if len(form.consts) > _VGS_MAX_C:
-                raise ValueError(f"the shaped form holds up to {_VGS_MAX_C} constants of a "
-                                 f"registered form; got {len(form.consts)}")
-            into[:len(form.consts)] = form.consts
+    _registered_consts(p, c)
     return c
 
 
@@ -1046,6 +1124,8 @@ def _c_struct(kernel: str, params: VectorFilterParams, device: torch.device, lan
         return _c_shaped_bq_params(params, device)
     if kernel == "vector_filter_slots":
         return _c_slot_params(params, device)
+    if kernel == "vector_filter_registered" and lanes == _SLOTS:
+        return _c_registered_slots(params, device)
     if kernel in ("vector_filter_general", "vector_filter_registered"):
         return (_c_general_shaped if lanes == _SHAPED else _c_general)(params, device)
     return _c_params(params, device)
@@ -1082,15 +1162,17 @@ def _bind(lib: ctypes.CDLL):
 #: kernel, the kernel of the BQ shapes, the general kernel and its shaped
 #: one-thread form (one count on both rules, then the mixed counts), the BQ
 #: shapes' mixed counts, the general kernel's shaped form at the
-#: Gauss-Hermite counts, and the slot kernel
+#: Gauss-Hermite counts, the general kernel's pairs in the slot kernel (2-D
+#: and 3-D states, then 4-D and 5-D), and the slot kernel
 SOURCES = ["vector_filter.cu", "vector_filter_shaped.cu", "vector_filter_shaped_bq.cu",
            "vector_filter_general.cu", "vector_filter_general_shaped.cu",
            "vector_filter_general_shaped_mixed.cu", "vector_filter_shaped_bq_mixed.cu",
-           "vector_filter_general_shaped_gh.cu", "vector_filter_slots.cu"]
+           "vector_filter_general_shaped_gh.cu", "vector_filter_general_slots.cu",
+           "vector_filter_general_slots_hi.cu", "vector_filter_slots.cu"]
 
 
 def build() -> ctypes.CDLL:
-    """Compile the nine sources of :data:`SOURCES` for sm_90a with nvcc
+    """Compile the eleven sources of :data:`SOURCES` for sm_90a with nvcc
     (once, a compiler each, at once, into one library) and bind it; later
     calls return the bound library."""
     return _build.bound("vector_filter", SOURCES, _bind, _NVCC_FLAGS)
@@ -1164,6 +1246,20 @@ def _slots_host() -> ctypes.CDLL:
                         _bind_slots_host, host=True)
 
 
+def _bind_general_slots_host(lib: ctypes.CDLL):
+    lib.vsg_host_run.restype = ctypes.c_int
+    lib.vsg_host_run.argtypes = [ctypes.POINTER(_CSlotParams)] + _STREAMS + [ctypes.c_void_p] * 5
+
+
+def _general_slots_host() -> ctypes.CDLL:
+    """The general kernel's pairs in the slot kernel (``VSL_GENERAL``) built
+    for the host with g++, the lanes collapsed to one (tests only; a library
+    of its own, ``vsg_host_run``)."""
+    return _build.bound("vector_filter_general_slots_host",
+                        ["vector_filter_general_slots_host.cpp"], _bind_general_slots_host,
+                        host=True)
+
+
 def _bind_fit(lib: ctypes.CDLL):
     lib.vfl_fit_on.restype = None
     lib.vfl_fit_on.argtypes = [ctypes.POINTER(_CParams), ctypes.c_int, ctypes.c_void_p]
@@ -1171,6 +1267,8 @@ def _bind_fit(lib: ctypes.CDLL):
     lib.vgs_takes_on.argtypes = [ctypes.POINTER(_CParams)]
     lib.vsl_lanes_on.restype = ctypes.c_int
     lib.vsl_lanes_on.argtypes = [ctypes.POINTER(_CParams)]
+    lib.vsr_design_on.restype = None
+    lib.vsr_design_on.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def _fit() -> ctypes.CDLL:
@@ -1178,7 +1276,9 @@ def _fit() -> ctypes.CDLL:
     or two): ``vfl_fit_on``, how a configuration runs in the lane-group or
     warp form (:func:`_form_fit`), ``vgs_takes_on``, whether the general
     kernel's shaped form has an instantiation of it (:func:`_shaped_takes`),
-    and ``vsl_lanes_on``, the slot kernel's lanes for it (:func:`slot_lanes`)."""
+    ``vsl_lanes_on``, the slot kernel's lanes for it (:func:`slot_lanes`),
+    and ``vsr_design_on``, the registered slot form's design
+    (:func:`_slot_design`)."""
     return _build.bound("vector_filter_fit", ["vector_filter_fit.cpp"], _bind_fit, host=True)
 
 
@@ -1212,7 +1312,8 @@ def _form_cost(form: KernelForm) -> int:
     return len(_COSTLY.findall(form.source)) + form.source.count("/")
 
 
-def _model_policy(params: VectorFilterParams, name: str, EB: int, shaped: bool = False) -> str:
+def _model_policy(params: VectorFilterParams, name: str, EB: int, shaped: bool = False,
+                  slots: tuple | None = None) -> str:
     """The C++ model policy of ``params``' configuration (see
     ``csrc/vector_filter_registered.cu``): each registered form's statements
     as a functor, the table's models through ``VfgDynFn`` / ``VfgObsFn`` (a
@@ -1220,32 +1321,44 @@ def _model_policy(params: VectorFilterParams, name: str, EB: int, shaped: bool =
     the policy of the shaped one-thread form (``VFR_SHAPED``), on
     ``VgsParams``: the constants by value, the table's models by their ids
     (``VfDynFn`` / ``VgsObsFn``), and the rules' point counts and kinds and
-    the models' costs as its constants."""
+    the models' costs as its constants.  ``slots``: the design ``(G, split,
+    keep)`` of the slot form (``VFR_SLOTS``), whose policy is the shaped
+    one's on any parameters with ``base``, ``dyn_c`` and ``obs_c`` (a lane's
+    view of ``VsrParams``), stating N, the design and whether each model is
+    costly (``vgs_rolled`` of its cost)."""
     D, E = params.dim_state, params.dim_out
-    P = "VgsParams" if shaped else "VfgParams"
+    shaped = shaped or slots is not None
+    P = "P" if slots else "VgsParams" if shaped else "VfgParams"
+    on = "template <class P>\n  " if slots else ""
     head = ""
     if shaped:
         dyn_cost = (f"vgs_dyn_cost({params.dyn_model})" if params.dyn_form is None
                     else _form_cost(params.dyn_form))
         obs_cost = (f"vgs_obs_cost({params.obs_model}, {E})" if params.obs_form is None
                     else _form_cost(params.obs_form))
-        head = (f"  static constexpr int ND = {params.dyn.n}, NO = {params.obs.n}, "
-                f"KD = {params.dyn.kind}, KO = {params.obs.kind};\n"
-                f"  static constexpr int dyn_cost = {dyn_cost}, "
-                f"obs_cost = {obs_cost};\n")
+        head = (f"  static constexpr int N = {params.dyn.n}, G = {slots[0]};\n"
+                f"  static constexpr bool split = {str(slots[1]).lower()}, "
+                f"keep = {str(slots[2]).lower()};\n" if slots else
+                f"  static constexpr int ND = {params.dyn.n}, NO = {params.obs.n}, "
+                f"KD = {params.dyn.kind}, KO = {params.obs.kind};\n")
+        head += (f"  static constexpr int dyn_cost = {dyn_cost}, "
+                 f"obs_cost = {obs_cost};\n")
+        if slots:
+            head += ("  static constexpr bool dyn_rolled = vgs_rolled(dyn_cost), "
+                     "obs_rolled = vgs_rolled(obs_cost);\n")
     if params.dyn_form is None:
-        dyn = (f"  VF_HD static VfDynFn<{D}, {params.dyn_model}> dyn(const {P}& p, const double*) "
-               "{ return {p.base}; }" if shaped else
+        dyn = (f"  {on}VF_HD static VfDynFn<{D}, {params.dyn_model}> dyn(const {P}& p, "
+               "const double*) { return {p.base}; }" if shaped else
                f"  VF_HD static VfgDynFn<{D}> dyn(const {P}& p, const double*) "
                "{ return {p.base}; }")
     else:
         dyn = (f"  struct Dyn {{\n    const double* c;\n    const double* s;\n"
                f"    VF_HD void operator()(const double (&x)[{D}], double (&f)[{D}]) const {{\n"
                f"{forms.c_block(params.dyn_form.source)}\n    }}\n  }};\n"
-               f"  VF_HD static Dyn dyn(const {P}& p, const double* s) "
+               f"  {on}VF_HD static Dyn dyn(const {P}& p, const double* s) "
                "{ return {p.dyn_c, s}; }")
     if params.obs_form is None:
-        obs = (f"  VF_HD static VgsObsFn<{D}, {params.obs_model}, {E}> obs(const {P}& p) "
+        obs = (f"  {on}VF_HD static VgsObsFn<{D}, {params.obs_model}, {E}> obs(const {P}& p) "
                "{ return {p.base}; }" if shaped else
                f"  VF_HD static VfgObsFn<{D}, {EB}> obs(const {P}& p) {{ return {{p}}; }}")
     else:
@@ -1255,21 +1368,27 @@ def _model_policy(params: VectorFilterParams, name: str, EB: int, shaped: bool =
         obs = (f"  struct Obs {{\n    const double* c;\n    template <class H>\n"
                f"    VF_HD void operator()(const double (&{arg})[{D}], H&& h) const {{\n"
                f"{gather}{forms.c_block(params.obs_form.source)}\n    }}\n  }};\n"
-               f"  VF_HD static Obs obs(const {P}& p) {{ return {{p.obs_c}}; }}")
+               f"  {on}VF_HD static Obs obs(const {P}& p) {{ return {{p.obs_c}}; }}")
     return f"struct {name} {{\n{head}{dyn}\n{obs}\n}};\n"
 
 
 def _key(params: VectorFilterParams, lanes: int | None = None) -> tuple:
     """What the registered library instantiates for ``params`` in the form of
     ``lanes`` (:func:`lanes_of` by default; 0 one thread a trajectory,
-    :data:`_SHAPED` the shaped one-thread form, :data:`_LANES` the lane-group
-    form, :data:`_WARP` the warp form): D, the bound on E (0 in the
-    lane-group and warp forms; E itself in the shaped form), the lanes and
-    the model policy."""
+    :data:`_SHAPED` the shaped one-thread form, :data:`_SLOTS` the slot form,
+    :data:`_LANES` the lane-group form, :data:`_WARP` the warp form): D, the
+    bound on E (0 in the lane-group and warp forms; E itself in the shaped
+    and slot forms), the lanes and the model policy."""
     lanes = lanes_of(params) if lanes is None else lanes
     if lanes == _SHAPED:
         E = params.dim_out
         return params.dim_state, E, lanes, _model_policy(params, "VfrPair", E, shaped=True)
+    if lanes == _SLOTS:
+        E, design = params.dim_out, _slot_design(params)
+        if not design[0]:
+            raise ValueError("the registered kernel's slot form does not take this "
+                             "configuration (slot_lanes)")
+        return params.dim_state, E, lanes, _model_policy(params, "VfrPair", E, slots=design)
     EB = 0 if lanes else _bound_of(params.dim_out)
     return params.dim_state, EB, lanes, _model_policy(params, "VfrPair", EB)
 
@@ -1277,17 +1396,18 @@ def _key(params: VectorFilterParams, lanes: int | None = None) -> tuple:
 def _registered_header(keys: list) -> str:
     """``vfr_forms.cuh`` for the configurations ``keys``: ``VFR_PAIRS``
     lists those of the general step's forms, ``VFR_SHAPED`` those of the
-    shaped one-thread form."""
+    shaped one-thread form, ``VFR_SLOTS`` those of the slot form."""
     parts = ["// Generated by ssmtoybox_torch/ops/vector_filter.py (build_registered): the",
              "// model policies of the registered configurations.", "#pragma once", ""]
     for i, (_, _, _, policy) in enumerate(keys):
         parts.append(policy.replace("struct VfrPair {", f"struct VfrPair{i} {{", 1))
     pairs = " ".join(f"F({i}, {D}, {EB}, {G}, VfrPair{i})"
-                     for i, (D, EB, G, _) in enumerate(keys) if G != _SHAPED)
-    shaped = " ".join(f"F({i}, {D}, {E}, VfrPair{i})"
-                      for i, (D, E, G, _) in enumerate(keys) if G == _SHAPED)
+                     for i, (D, EB, G, _) in enumerate(keys) if G not in (_SHAPED, _SLOTS))
+    shaped, slots = (" ".join(f"F({i}, {D}, {E}, VfrPair{i})"
+                              for i, (D, E, G, _) in enumerate(keys) if G == form)
+                     for form in (_SHAPED, _SLOTS))
     return ("\n".join(parts) + f"\n#define VFR_PAIRS(F) {pairs}\n"
-            f"#define VFR_SHAPED(F) {shaped}\n")
+            f"#define VFR_SHAPED(F) {shaped}\n#define VFR_SLOTS(F) {slots}\n")
 
 
 def _bind_registered(lib: ctypes.CDLL):
@@ -1297,6 +1417,9 @@ def _bind_registered(lib: ctypes.CDLL):
     lib.vfr_shaped_launch.restype = ctypes.c_int
     lib.vfr_shaped_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CGShapedParams)] + _R_ARGS
                                       + [ctypes.c_int] + [ctypes.c_void_p] * 6)
+    lib.vfr_slots_launch.restype = ctypes.c_int
+    lib.vfr_slots_launch.argtypes = ([ctypes.c_int, ctypes.POINTER(_CSlotRegParams)] + _R_ARGS
+                                     + [ctypes.c_int] + [ctypes.c_void_p] * 6)
     lib.vfr_error_string.restype = ctypes.c_char_p
     lib.vfr_error_string.argtypes = [ctypes.c_int]
 
@@ -1310,12 +1433,20 @@ def _bind_registered_host(lib: ctypes.CDLL):
                                         + [ctypes.c_void_p] * 5)
 
 
+def _bind_registered_slots_host(lib: ctypes.CDLL):
+    lib.vfr_slots_host_run.restype = ctypes.c_int
+    lib.vfr_slots_host_run.argtypes = ([ctypes.c_int, ctypes.POINTER(_CSlotRegParams)] + _R_ARGS
+                                       + [ctypes.c_void_p] * 5)
+
+
 def build_registered(configs, host: bool = False) -> str:
     """Build one library of the registered kernel for the configurations
     ``configs`` (:class:`VectorFilterParams` with a registered model, each in
     the form of :func:`lanes_of`, or ``(params, lanes)`` in the form of
-    ``lanes``) with nvcc for sm_90a (with g++, the host build
-    ``vfr_host_run`` of ``csrc/vector_filter_host.cpp``, if ``host``): a
+    ``lanes``) with nvcc for sm_90a (with g++, if ``host``, the host builds
+    ``vfr_host_run`` of ``csrc/vector_filter_host.cpp`` and, for the slot
+    form's configurations, a library of their own,
+    ``vfr_slots_host_run`` of ``csrc/vector_filter_general_slots_host.cpp``): a
     header of their model policies is generated, only their instantiations
     are compiled, and their launches go to it from then on.  A
     configuration's first launch builds a library for it alone if none
@@ -1327,6 +1458,16 @@ def build_registered(configs, host: bool = False) -> str:
     if not keys:
         raise ValueError("no configuration with a registered model to build")
     if host:
+        slot_keys = [k for k in keys if k[2] == _SLOTS]
+        keys = [k for k in keys if k[2] != _SLOTS]
+        if slot_keys:
+            name = forms.build_generated(
+                _REGISTERED, slot_keys, _registered_header(slot_keys),
+                name="vector_filter_registered_slots_host",
+                source="vector_filter_general_slots_host.cpp", file="vfr_forms.cuh",
+                bind=_bind_registered_slots_host, flags=["-DVFR_REGISTERED"], host=True)
+            if not keys:
+                return name
         return forms.build_generated(
             _REGISTERED, keys, _registered_header(keys), name="vector_filter_registered_host",
             source="vector_filter_host.cpp", file="vfr_forms.cuh", bind=_bind_registered_host,
@@ -1379,10 +1520,12 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     registered kernel for a registered model, else the general kernel)
     compiled for the host on a CPU tensor, the general and registered
     kernels in the form of ``lanes`` (:func:`lanes_of` by default; the
-    classical shaped kernel, the BQ shapes' mixed counts, the slot kernel and
-    the general kernel's shaped form through host builds of their own,
-    :func:`_shaped_host`, :func:`_shaped_bq_host`, :func:`_slots_host` and
-    :func:`_general_shaped_host`); the five
+    classical shaped kernel, the BQ shapes' mixed counts, the slot kernel (the
+    general kernel's pairs in it too) and the general kernel's shaped form
+    through host builds of their own, :func:`_shaped_host`,
+    :func:`_shaped_bq_host`, :func:`_slots_host`, :func:`_general_slots_host`
+    and :func:`_general_shaped_host`; the registered slot form through its
+    library's, :func:`build_registered`); the five
     streams of :func:`vector_filter`, after checking that an instantiation
     of the configuration's dimensions ran."""
     _check_streams(params, y)
@@ -1399,10 +1542,10 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
     if kernel == "vector_filter_registered":
         lib, pair = _registered(params, host=True, lanes=lanes)
         s, scratch = _streams_on(params, T, cpu), _scratch(params, B, cpu, lanes)
-        if lanes == _SHAPED:
-            ran = lib.vfr_shaped_host_run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
-                                          s.data_ptr(), params.n_s, B, T,
-                                          *(o.data_ptr() for o in out))
+        if lanes in (_SHAPED, _SLOTS):
+            run = lib.vfr_shaped_host_run if lanes == _SHAPED else lib.vfr_slots_host_run
+            ran = run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(), params.n_s,
+                      B, T, *(o.data_ptr() for o in out))
         else:
             ran = lib.vfr_host_run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
                                    s.data_ptr(), params.n_s, B, T, *(o.data_ptr() for o in out),
@@ -1414,8 +1557,9 @@ def _host_shim_run(params: VectorFilterParams, y: torch.Tensor, kernel: str | No
         ran = _shaped_host().vfs_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                           *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_slots":
-        ran = _slots_host().vsl_host_run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
-                                         *(o.data_ptr() for o in out))
+        run = (_slots_host().vsl_host_run if _instantiated(params) else
+               _general_slots_host().vsg_host_run)
+        ran = run(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, *(o.data_ptr() for o in out))
     elif kernel == "vector_filter_shaped_bq":
         run = (_host_shim().vfs_bq_host_run if params.dyn.n == params.obs.n else
                _shaped_bq_host().vfs_bq_mixed_host_run)
@@ -1448,6 +1592,7 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     global REGISTERED_LAUNCHES
     global GENERAL_LANE_LAUNCHES, REGISTERED_LANE_LAUNCHES, GENERAL_WARP_LAUNCHES
     global REGISTERED_WARP_LAUNCHES, GENERAL_SHAPED_LAUNCHES, REGISTERED_SHAPED_LAUNCHES
+    global REGISTERED_SLOT_LAUNCHES
     _check_streams(params, y)
     if y.device.type == "cpu":
         return _vector_filter_plain(params, y)
@@ -1464,11 +1609,11 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     args = (ctypes.byref(c), y.data_ptr(), *y.stride(), B, T, y.device.index or 0,
             *(o.data_ptr() for o in out))
     stream = torch.cuda.current_stream(y.device).cuda_stream
-    if registered and lanes == _SHAPED:
+    if registered and lanes in (_SHAPED, _SLOTS):
         s = _streams_on(params, T, y.device)
-        rc = lib.vfr_shaped_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
-                                   s.data_ptr(), params.n_s, B, T, y.device.index or 0,
-                                   *(o.data_ptr() for o in out), stream)
+        run = lib.vfr_shaped_launch if lanes == _SHAPED else lib.vfr_slots_launch
+        rc = run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(), params.n_s, B, T,
+                 y.device.index or 0, *(o.data_ptr() for o in out), stream)
     elif registered:
         s, scratch = _streams_on(params, T, y.device), _scratch(params, B, y.device, lanes)
         rc = lib.vfr_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(),
@@ -1503,6 +1648,7 @@ def vector_filter(params: VectorFilterParams, y: torch.Tensor):
     REGISTERED_WARP_LAUNCHES += int(registered and lanes == _WARP)
     GENERAL_SHAPED_LAUNCHES += int(kernel == "vector_filter_general" and lanes == _SHAPED)
     REGISTERED_SHAPED_LAUNCHES += int(registered and lanes == _SHAPED)
+    REGISTERED_SLOT_LAUNCHES += int(registered and lanes == _SLOTS)
     return out
 
 

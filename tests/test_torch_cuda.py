@@ -1555,3 +1555,124 @@ def test_shaped_forms_take_gauss_hermite_and_mixed_counts(card, registered, syst
     params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
     assert vf.lanes_of(params) == vf._SHAPED
     _shaped_streams_equal(card, vf, params, dyn, obs, counter, batch)
+
+
+# ---------------------------------------------------------------------------
+# the slot form of the general and registered kernels
+# (csrc/vector_filter_general_slots.cuh): the general pairs' Gauss-Hermite
+# shapes of 16-81 points in the slot kernel (VSL_GENERAL), a registered
+# configuration's in the registered kernel's slot form (VFR_SLOTS)
+# ---------------------------------------------------------------------------
+
+def _gh_slot_systems(card):
+    """The general kernel's pairs of ``VGS_PAIRS``, by name: (dynamics,
+    measurement)."""
+    from ssmtoybox_torch import ssmod
+
+    def rv(d, mean, cov):
+        return GaussRV(d, mean=mean, cov=cov, device=card)
+
+    sensors = np.array([[0.0, 0.0], [200.0, 0.0], [0.0, 200.0], [200.0, 200.0]])
+    dt = 0.01
+    dyns = {
+        "pendulum": lambda: ssmod.Pendulum2DTransition(
+            rv(2, [1.5, 0.0], 0.01 * np.eye(2)),
+            rv(2, None, 0.1 * np.array([[dt ** 3 / 3, dt ** 2 / 2], [dt ** 2 / 2, dt]])), dt=dt),
+        "falling_body": lambda: ssmod.ReentryVehicle1DTransition(
+            rv(3, [90.0, 6.0, 1.5], 0.09 * np.eye(3)), rv(3, None, 1e-8 * np.eye(3)), dt=0.1),
+        "cv": lambda: ssmod.ConstantVelocity(rv(4, [100.0, 10.0, 100.0, 5.0],
+                                                np.diag([10.0, 1.0, 10.0, 1.0])),
+                                             rv(2, None, np.diag([0.5, 0.5])), dt=0.5),
+        "ct": lambda: ssmod.CoordinatedTurnTransition(
+            rv(5, [100.0, 10.0, 100.0, 5.0, 0.06], np.diag([10.0, 1.0, 10.0, 1.0, 1e-3])),
+            rv(5, None, np.diag([0.1, 0.1, 0.1, 0.1, 1e-5])), dt=0.1),
+        "reentry": lambda: ssmod.ReentryVehicle2DTransition(
+            rv(5, [6500.4, 349.14, -1.8093, -6.7967, 0.6932],
+               np.diag([1e-6, 1e-6, 1e-6, 1e-6, 1.0])),
+            rv(3, None, np.diag([2.4064e-5, 2.4064e-5, 1e-6])), dt=0.05)}
+
+    def obs(kind, D):
+        pos = [0, 2] if D >= 4 else [0, 1]
+        if kind == "radar":
+            return ssmod.Radar2DMeasurement(rv(2, None, np.diag([1.0, 1e-4])), dim_state=D,
+                                            state_index=pos, radar_loc=np.array([-5.0, -5.0]))
+        if kind == "sine":
+            return ssmod.Pendulum2DMeasurement(rv(1, None, 0.1 * np.eye(1)), dim_state=D)
+        if kind == "range":
+            return ssmod.RangeMeasurement(rv(1, None, 0.03 * np.eye(1)), dim_state=D)
+        if kind == "ungm":
+            return UNGMMeasurement(rv(1, None, np.eye(1)), dim_state=D, state_index=[0])
+        S = int(kind[1:])
+        return ssmod.BearingMeasurement(rv(S, None, 1e-3 * np.eye(S)), dim_state=D,
+                                        state_index=pos,
+                                        sensor_pos=sensors[:S] / 100.0 - 1.0 if D == 2 else
+                                        sensors[:S])
+
+    dims = {"pendulum": 2, "falling_body": 3, "cv": 4, "ct": 5, "reentry": 5}
+    return lambda d, o: (dyns[d](), obs(o, dims[d]))
+
+
+#: (dynamics, measurement, Gauss-Hermite degree): every instantiation of
+#: ``VSL_GENERAL``
+GH_SLOT_CASES = [("pendulum", "radar", 4), ("pendulum", "ungm", 4), ("pendulum", "b3", 4),
+                 ("falling_body", "sine", 3), ("falling_body", "b4", 3),
+                 ("falling_body", "sine", 4), ("falling_body", "b4", 4), ("cv", "b2", 2),
+                 ("cv", "b3", 2), ("cv", "b2", 3), ("cv", "b3", 3), ("ct", "radar", 2),
+                 ("ct", "b2", 2), ("ct", "b3", 2), ("reentry", "range", 2), ("reentry", "ungm", 2)]
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097])
+@pytest.mark.parametrize("case", GH_SLOT_CASES, ids=lambda c: f"{c[0]}-{c[1]}-GH{c[2]}")
+def test_general_pairs_in_the_slot_kernel_match_plain(card, case, batch):
+    """Each general pair's Gauss-Hermite shape of the slot kernel: one launch
+    counted on the slot kernel, equal to the plain version to the bit over
+    20 steps, all five streams (NaN where it has NaN), a second launch equal
+    to the first (the lanes gather by shuffle, the last warp ragged); the
+    general kernel's one-thread form by force equal too."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn, obs = _gh_slot_systems(card)(*case[:2])
+    alg = stt.GaussHermiteKalman(dyn, obs, deg=case[2])
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert (vf.kernel_of(params), vf.lanes_of(params)) == ("vector_filter_slots", 0)
+    y = _zoo_records(card, dyn, obs, batch)
+    before = (vf.LAUNCHES, vf.SLOT_LAUNCHES)
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before[0], vf.SLOT_LAUNCHES - before[1]) == (1, 1)
+    again = vf.vector_filter(params, y)
+    B, _, T = y.shape
+    out = vf._empty_streams(params.dim_state, T, B, card)
+    c = vf._c_general(params, card)
+    scratch = vf._scratch(params, B, card)
+    assert vf.build().vfg_launch(c, y.data_ptr(), *y.stride(), B, T, card.index or 0,
+                                 *(o.data_ptr() for o in out), scratch.data_ptr(), 0,
+                                 torch.cuda.current_stream(card).cuda_stream) == 0
+    torch.cuda.synchronize()
+    for s, g, r, g2, f in zip(STREAMS, got, vf._vector_filter_plain(params, y), again, out):
+        assert _same_bits(g, r), f"{s}: {float((g - r).nan_to_num().abs().max()):.3e}"
+        assert _same_bits(g, g2) and _same_bits(f, r), s
+
+
+@pytest.mark.parametrize("batch", [1, 7, 4097])
+def test_registered_slot_form_matches_plain(card, registered, batch):
+    """The driven pendulum (a registered transition with a per-step stream)
+    with the table's radar under GH-4 (16 points): one launch counted on the
+    registered kernel and its slot form, equal to the plain version to the
+    bit over 20 steps, a second launch equal to the first."""
+    from ssmtoybox_torch.ops import vector_filter as vf
+    dyn = _Driven(GaussRV(2, mean=[1.0, 0.0], cov=0.1 * np.eye(2), device=card),
+                  GaussRV(2, cov=1e-3 * np.eye(2), device=card))
+    obs = _radar(card, 2)
+    alg = stt.GaussHermiteKalman(dyn, obs, deg=4)
+    params = vf.prepare(dyn, obs, alg.tf_dyn, alg.tf_obs)
+    assert vf.lanes_of(params) == vf._SLOTS
+    y = _zoo_records(card, dyn, obs, batch)
+    before = (vf.LAUNCHES, vf.REGISTERED_LAUNCHES, vf.REGISTERED_SLOT_LAUNCHES)
+    got = vf.vector_filter(params, y)
+    assert (vf.LAUNCHES - before[0], vf.REGISTERED_LAUNCHES - before[1],
+            vf.REGISTERED_SLOT_LAUNCHES - before[2]) == (1, 1, 1)
+    again = vf.vector_filter(params, y)
+    torch.cuda.synchronize()
+    for s, g, r, g2 in zip(STREAMS, got, vf._vector_filter_plain(params, y), again):
+        assert bool(torch.isfinite(g).all()), s
+        assert torch.equal(g, r), f"{s}: {float((g - r).abs().max()):.3e}"
+        assert torch.equal(g, g2), s

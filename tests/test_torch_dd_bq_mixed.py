@@ -137,7 +137,7 @@ def test_the_routing_sees_the_headers_mixed_bq_instantiations():
     seventh source launches them and is among the library's sources, the
     launcher of the BQ shapes sends mixed counts to it, and Gauss-Hermite
     rules of 16-242 points (the falling body's GH-3, 27 points; reentry's
-    GH-2, 32) run in the slot kernel, the ninth source."""
+    GH-2, 32) run in the slot kernel, the eleventh source."""
     src = vf._build.CSRC
     shaped = open(f"{src}/vector_filter_shaped.cuh").read()
     assert "#define VFS_BQ_MIXED(F) VFS_PAIRS(VFS_BQ_MIXED_OF, F)" in shaped
@@ -149,7 +149,7 @@ def test_the_routing_sees_the_headers_mixed_bq_instantiations():
     assert "VFS_BQ_MIXED(VFS_BQ_MIXED_LAUNCH_IF)" in open(
         f"{src}/vector_filter_shaped_bq_mixed.cu").read()
     assert "return vfs_bq_launch_mixed(" in open(f"{src}/vector_filter_shaped_bq.cu").read()
-    assert "vector_filter_shaped_bq_mixed.cu" in vf.SOURCES and len(vf.SOURCES) == 9
+    assert "vector_filter_shaped_bq_mixed.cu" in vf.SOURCES and len(vf.SOURCES) == 11
     for system, deg in (("falling_body", 3), ("reentry", 2)):
         dyn, obs = SYSTEMS[system][0]()
         gh = stt.GaussHermiteKalman(dyn, obs, deg=deg)

@@ -207,11 +207,11 @@ ROUTES = [
     (("falling_body", "b4", "gh2"), ("vector_filter_general", vf._SHAPED)),
     (("pendulum", "radar", "gpq-gh3"), ("vector_filter_general", 0)),
     (("pendulum", "b2", "gh3"), ("vector_filter_general", 0)),         # a pair it does not hold
-    (("pendulum", "radar", "gh4"), ("vector_filter_general", 0)),
+    (("pendulum", "radar", "gh4"), ("vector_filter_slots", 0)),         # 16: the slot kernel
     (("driven", None, "gh3"), ("vector_filter_registered", vf._SHAPED)),
     (("driven", None, "ukf/ckf"), ("vector_filter_registered", vf._SHAPED)),
     (("driven", None, "gpq-gh3"), ("vector_filter_registered", 0)),
-    (("driven", None, "gh4"), ("vector_filter_registered", 0)),
+    (("driven", None, "gh4"), ("vector_filter_registered", vf._SLOTS)),  # its slot form
 ]
 
 
@@ -222,7 +222,8 @@ def test_routes_of_gauss_hermite_counts(case, want):
     the pairs of ``VGS_GH``, the registered kernel's shaped form for a
     registered model (which also takes the UKF beside the CKF); a BQ rule at
     that count, another count or a pair the form does not hold keeps its
-    route."""
+    route; GH-4 (16 points) goes to the slot design (the slot kernel, the
+    registered kernel's slot form)."""
     _need_gxx()
     assert (vf.kernel_of(_params(*case)), vf.lanes_of(_params(*case))) == want
 

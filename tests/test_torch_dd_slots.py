@@ -129,7 +129,7 @@ ROUTES = [
     (("cv", "radar", "gh4"), ("vector_filter_general", vf._WARP, 0)),           # 256 points
     (("reentry", "re_radar", "gpq-gh2"), ("vector_filter", 0, 0)),              # BQ at 32
     (("reentry", "re_radar", "gh2/ukf"), ("vector_filter", 0, 0)),              # mixed counts
-    (("ct", "radar", "gh2"), ("vector_filter_general", 0, 0)),                  # not its pair
+    (("ct", "radar", "gh2"), ("vector_filter_slots", 0, 4)),                    # a general pair
 ]
 
 
@@ -137,9 +137,9 @@ ROUTES = [
 def test_routes_of_slot_shapes(case, want):
     """Classical Gauss-Hermite rules on both transforms at a shape of
     ``VSL_SHAPES`` go to the slot kernel; other degrees, a BQ rule at those
-    counts, mixed counts and pairs the first version does not instantiate
-    keep their routes (the first version, the warp form above 242 points,
-    the general kernel)."""
+    counts and mixed counts keep their routes (the first version, the warp
+    form above 242 points); a general pair's Gauss-Hermite shape goes to the
+    slot kernel too (``VSL_GENERAL``)."""
     _need_gxx()
     params = _params(*case)
     assert (vf.kernel_of(params), vf.lanes_of(params), vf.slot_lanes(params)) == want

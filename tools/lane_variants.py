@@ -51,20 +51,26 @@ the wrapper's API is called on it) and each lane of ``LANES`` timed as that
 tree routes it (raw launches of the wrapper call), after its first 200
 trajectories are held to its plain version to the bit. Two trees are
 compared in one call in turns: the other, this, this, the other.
+``--sass-out FILE`` (with ``--tree``) writes the SASS opcodes of each lane's
+slot-kernel instantiation of the five pairs (``VSL_SHAPES``) in that tree's
+library to ``FILE`` as JSON, for comparing two trees' code.
 
 With ``--slots``: the lanes of ``SLOT_LANES`` instead, the Gauss-Hermite
 rules that left the first version and the general and registered one-thread
-forms: each of the slot kernel's shapes (``csrc/vector_filter_slots.cuh``)
-as routed and in the designs of ``SLOT_VARIANTS`` (builds of
-``vector_filter_slots.cu`` alone): G lanes a trajectory (2, 4 and 8) and one
-thread a trajectory with the point count a template argument (G = 1), the
-covariance sums on every lane or split by output row, the offsets kept or
-made again, beside the first version; the shaped forms' new
-Gauss-Hermite counts (the shaped kernel against the first version, the
-general and registered kernels' shaped form against their one-thread
-form; the registered shaped form's UKF beside the CKF against its one-thread
-form).  Each held to the plain version on the first 200 trajectories to the
-bit, then timed in turns, with ptxas registers, stack and spills.
+forms: each of the slot kernel's shapes (``csrc/vector_filter_slots.cuh``:
+the five pairs' and the general kernel's pairs') as routed and in every
+design of ``SLOT_VARIANTS`` (builds of the slot kernel's three sources
+alone): G lanes a trajectory (2, 4 and 8) and one thread a trajectory with
+the point count a template argument (G = 1), the covariance sums on every
+lane or split by output row, the offsets kept or made again, beside the
+route each left (the first version; the general kernel's one-thread form);
+the registered kernel's slot form against its one-thread form; the shaped
+forms' Gauss-Hermite counts (the shaped kernel against the first version,
+the general and registered kernels' shaped form against their one-thread
+form; the registered shaped form's UKF beside the CKF against its
+one-thread form).  Each held to the plain version on the first 200
+trajectories to the bit, then timed in turns, with ptxas registers, stack
+and spills.
 
 ``--only`` keeps the lanes whose name contains one of the texts. With
 ``--clocks`` the library is built once more with ``-DVFL_CLOCKS`` and each
@@ -97,29 +103,42 @@ LANES = [("CT + radar", "UKF"), ("CT + radar", "CKF"), ("CT + 2 bearings", "CKF"
          ("CT + 8 bearings", "GH-3"), ("CT + 9 bearings", "GH-3"), ("CT + 16 bearings", "GH-3"),
          ("falling body + range", "GH-3"), ("CV + radar", "GH-3"), ("CT + 4 bearings", "GH-3"),
          ("reentry + radar", "GPQ-UT/CKF"), ("reentry + radar", "GPQ-UT")]
-#: ``--slots``: the slot kernel's shapes (GH-2 on reentry + radar, CT + 4
-#: bearings and CV + radar; GH-3 on CV + radar and the falling body) and the
-#: shaped forms' Gauss-Hermite counts (the zoo's pendulum under GH-3 and
-#: falling body under GH-2 in the shaped kernel, the pendulum + radar under
-#: GH-3 in the general kernel's shaped form, the registered driven pendulum +
-#: radar under GH-3 in the registered kernel's), the registered lanes of
-#: the UKF beside the CKF (the driven pendulum + mix and the pendulum copy +
-#: radar, in the registered shaped form against its one-thread form), and
-#: the first version's GH-4 on the pendulum (16 points), which it keeps
+#: ``--slots``: the slot kernel's shapes of the five pairs (GH-2 on reentry +
+#: radar, CT + 4 bearings and CV + radar; GH-3 on CV + radar and the falling
+#: body) and the shaped forms' Gauss-Hermite counts (the zoo's pendulum under
+#: GH-3 and falling body under GH-2 in the shaped kernel, the pendulum + radar
+#: under GH-3 in the general kernel's shaped form, the registered driven
+#: pendulum + radar under GH-3 in the registered kernel's), the registered
+#: lanes of the UKF beside the CKF (the driven pendulum + mix and the
+#: pendulum copy + radar, in the registered shaped form against its
+#: one-thread form), the first version's GH-4 on the pendulum (16 points),
+#: which it keeps; then the general kernel's pairs' shapes in the slot kernel
+#: (``VSL_GENERAL``) and the registered driven pendulum + radar under GH-4 in
+#: the registered slot form
 SLOT_LANES = [("reentry + radar", "GH-2"), ("CT + 4 bearings", "GH-2"), ("CV + radar", "GH-2"),
               ("CV + radar", "GH-3"), ("falling body + range", "GH-3"),
               ("pendulum + sine", "GH-3"), ("falling body + range", "GH-2"),
               ("pendulum + radar", "GH-3"), ("driven pendulum + radar", "GH-3"),
               ("driven pendulum + mix", "UKF/CKF"), ("pendulum copy + radar", "UKF/CKF"),
-              ("pendulum + sine", "GH-4")]
-#: ``--slots``' builds of the slot source alone, each shape otherwise in its
-#: design of ``VSL_SHAPES``: G lanes a trajectory (1: the shaped step one
-#: thread a trajectory), the covariance sums on every lane or split by row,
-#: the offsets kept or made again
-SLOT_VARIANTS = {**{f"G={g}": f"-DVSL_LANES={g}" for g in (1, 2, 4, 8)},
-                 "sums on every lane": "-DVSL_SPLIT=0", "sums split by row": "-DVSL_SPLIT=1",
-                 "offsets kept": "-DVSL_KEEP_OFFSETS=1",
-                 "offsets made again": "-DVSL_KEEP_OFFSETS=0"}
+              ("pendulum + sine", "GH-4"),
+              ("pendulum + radar", "GH-4"), ("pendulum + UNGM", "GH-4"),
+              ("pendulum + 3 bearings", "GH-4"), ("falling body + sine", "GH-3"),
+              ("falling body + 4 bearings", "GH-3"), ("falling body + sine", "GH-4"),
+              ("falling body + 4 bearings", "GH-4"), ("CV + 2 bearings", "GH-2"),
+              ("CV + 3 bearings", "GH-2"), ("CV + 2 bearings", "GH-3"), ("CV + 3 bearings", "GH-3"),
+              ("CT + radar", "GH-2"), ("CT + 2 bearings", "GH-2"), ("CT + 3 bearings", "GH-2"),
+              ("reentry + range", "GH-2"), ("reentry + UNGM", "GH-2"),
+              ("driven pendulum + radar", "GH-4")]
+#: ``--slots``' builds of the slot kernel's sources alone, every shape in each
+#: design: G lanes a trajectory (1: the shaped step one thread a trajectory),
+#: the covariance sums on every lane (rep.) or split by row, the offsets kept
+#: or made again
+SLOT_SOURCES = ["vector_filter_general_slots.cu", "vector_filter_general_slots_hi.cu",
+                "vector_filter_slots.cu"]
+SLOT_VARIANTS = {f"G={g}{' split' * split}{', kept' if keep else ''}":
+                 f"-DVSL_LANES={g} -DVSL_SPLIT={split} -DVSL_KEEP_OFFSETS={keep}"
+                 for g in (1, 2, 4, 8) for split in (0, 1) for keep in (0, 1)
+                 if g > 1 or not split}
 #: the first trajectories held to the plain version
 HEAD = 200
 
@@ -132,6 +151,8 @@ def main():
     ap.add_argument("--clocks", action="store_true", help="the warp form's clocks a phase")
     ap.add_argument("--slots", action="store_true", help="the slot kernel's and the shaped "
                     "forms' Gauss-Hermite lanes (SLOT_LANES)")
+    ap.add_argument("--sass-out", default=None, help="with --tree: the five pairs' slot "
+                    "kernels' SASS opcodes to this JSON file")
     args = ap.parse_args()
     root = os.path.abspath(args.tree or HERE)
     sys.path.insert(0, HERE)
@@ -182,7 +203,7 @@ def main():
     if args.clocks:
         clocks(cs, torch, vf, _build, params, data, dev, card)
     if args.tree:
-        other_tree(cs, torch, vf, params, data, args.reps, tag, card)
+        other_tree(cs, torch, vf, params, data, args.reps, tag, card, args.sass_out)
     elif args.slots:
         slot_turns(cs, torch, vf, _build, params, data, dev, args.reps, card)
     else:
@@ -202,8 +223,11 @@ def held(cs, torch, vf, p, ys, out, what, plain=None):
                 f"{diff:.3e}; expected equal bits")
 
 
-def other_tree(cs, torch, vf, params, data, reps, tag, card):
-    """Each lane as the tree routes it, through the wrapper."""
+def other_tree(cs, torch, vf, params, data, reps, tag, card, sass_out=None):
+    """Each lane as the tree routes it, through the wrapper; ``sass_out``: a
+    JSON file for the SASS opcodes of the five pairs' slot-kernel lanes."""
+    import json
+    sass = {}
     for (name, rule), p in params.items():
         ys = data[name]
         out = vf.vector_filter(p, ys)
@@ -217,6 +241,14 @@ def other_tree(cs, torch, vf, params, data, reps, tag, card):
                f"== plain to "
                f"the bit on {HEAD} trajectories; raw wrapper launches {ms:.4f} ms; bound "
                f"{b_ms:.4f} ms ({b_by}); card {card}")
+        if sass_out and vf.kernel_of(p) == "vector_filter_slots" and vf._instantiated(p):
+            fn = cs.shaped_entry("vector_filter_slots", p)
+            sass[fn] = [op for _, op, _ in cs.sass_listing(vf.build()._name, fn) or []]
+    if sass_out:
+        with open(sass_out, "w") as f:
+            json.dump(sass, f)
+        cs.log(f"lane_variants ({tag}): SASS of {len(sass)} slot-kernel instantiations ("
+               + ", ".join(f"{len(v)} instructions" for v in sass.values()) + f") to {sass_out}")
 
 
 #: the phases of a step that ``vfl_mark`` ends, in order
@@ -249,24 +281,26 @@ def clocks(cs, torch, vf, _build, params, data, dev, card):
 
 def launcher(torch, vf, lib, pair, p, y, dev, lanes):
     """A raw launch of the general (``pair`` None) or registered kernel of
-    ``lib`` in the form of ``lanes``, into buffers made once (``.out``)."""
+    ``lib`` in the form of ``lanes`` (the registered slot form too), into
+    buffers made once (``.out``)."""
     B, _, T = y.shape
     out = vf._empty_streams(p.dim_state, T, B, dev)
-    c = vf._c_struct("vector_filter_general", p, dev, lanes)
+    c = vf._c_struct("vector_filter_general" if pair is None else "vector_filter_registered", p,
+                     dev, lanes)
     scratch = vf._scratch(p, B, dev, lanes)
     stream = torch.cuda.current_stream(dev).cuda_stream
     outs = [o.data_ptr() for o in out]
-    if lanes == vf._SHAPED and pair is None:
+    if lanes in (vf._SHAPED, vf._SLOTS) and pair is not None:
+        s = vf._streams_on(p, T, dev)
+        run = lib.vfr_shaped_launch if lanes == vf._SHAPED else lib.vfr_slots_launch
+
+        def launch():
+            return run(pair, ctypes.byref(c), y.data_ptr(), *y.stride(), s.data_ptr(), p.n_s, B,
+                       T, dev.index or 0, *outs, stream)
+    elif lanes == vf._SHAPED:
         def launch():
             return lib.vgs_launch(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
                                   dev.index or 0, *outs, stream)
-    elif lanes == vf._SHAPED:
-        s = vf._streams_on(p, T, dev)
-
-        def launch():
-            return lib.vfr_shaped_launch(pair, ctypes.byref(c), y.data_ptr(), *y.stride(),
-                                         s.data_ptr(), p.n_s, B, T, dev.index or 0, *outs,
-                                         stream)
     elif pair is None:
         def launch():
             return lib.vfg_launch(ctypes.byref(c), y.data_ptr(), *y.stride(), B, T,
@@ -471,10 +505,10 @@ def slot_turns(cs, torch, vf, _build, params, data, dev, reps, card):
     from concurrent.futures import ThreadPoolExecutor
     variants = dict(SLOT_VARIANTS)
     reg = [(p, g) for p in params.values() if vf.kernel_of(p) == "vector_filter_registered"
-           for g in (vf._SHAPED, 0)]
+           for g in (vf.lanes_of(p), 0)]
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(variants) + 2) as pool:
-        jobs = {name: pool.submit(_build.bound, _slot_lib(name), ["vector_filter_slots.cu"],
+        jobs = {name: pool.submit(_build.bound, _slot_lib(name), SLOT_SOURCES,
                                   _bind_vsl, vf._NVCC_FLAGS + flag.split())
                 for name, flag in variants.items()}
         main = pool.submit(vf.build)
@@ -501,8 +535,14 @@ def slot_turns(cs, torch, vf, _build, params, data, dev, reps, card):
                 runs["routed"] = cs.vf_raw(torch, vf, p, ys, dev)
                 fn = cs.shaped_entry(kernel, p)
                 entry["routed"] = (fn, main_log)
-            runs["first"] = cs.vf_raw(torch, vf, p, ys, dev, "vector_filter")
-            entry["first"] = (first_fn, main_log)
+            if vf._instantiated(p):
+                runs["first"] = cs.vf_raw(torch, vf, p, ys, dev, "vector_filter")
+                entry["first"] = (first_fn, main_log)
+            else:
+                # a general pair: the general kernel's one-thread form, the route it left
+                runs[0] = launcher(torch, vf, lib, None, p, ys, dev, 0)
+                entry[0] = (f"vector_filter_general_kernelILi{p.dim_state}ELi"
+                            f"{vf._bound_of(p.dim_out)}E", main_log)
             if kernel == "vector_filter_slots":
                 c = vf._c_slot_params(p, dev)
                 stream = torch.cuda.current_stream(dev).cuda_stream
@@ -520,10 +560,11 @@ def slot_turns(cs, torch, vf, _build, params, data, dev, reps, card):
                                     _build.BUILD_LOGS.get(_slot_lib(name_v), ""))
         else:
             registered = kernel == "vector_filter_registered"
-            for g in (vf._SHAPED, 0):
+            for g in (vf.lanes_of(p), 0):
                 if registered:
                     rlib, pair = vf._registered(p, False, g)
-                    fn, log_text = f"VfrPair{pair}E", _build.BUILD_LOGS.get(reg_name, "")
+                    fn = cs.form_ptxas(vf, p, kernel, g, "")[3]
+                    log_text = _build.BUILD_LOGS.get(reg_name, "")
                 else:
                     rlib, pair = lib, None
                     fn = (cs.form_ptxas(vf, p, kernel, g, "")[3] if g else
@@ -548,7 +589,8 @@ def slot_turns(cs, torch, vf, _build, params, data, dev, reps, card):
         for g, ms in turns.items():
             fn, log_text = entry[g]
             regs, frame, spill = cs.ptxas_of(log_text, fn)
-            form = {vf._SHAPED: "shaped one thread", 0: "one thread (N at run time)"}.get(g, g)
+            form = {vf._SHAPED: "shaped one thread", 0: "one thread (N at run time)",
+                    vf._SLOTS: f"slot form on {vf.slot_lanes(p)} lanes"}.get(g, g)
             cs.log(f"  {name} {rule}: {form}: raw launches " + " / ".join(f"{t:.4f}" for t in ms)
                    + f" ms in turns; == plain on {HEAD}; {regs} registers, {frame} bytes stack "
                    f"frame, {spill} bytes spilled ({fn}); card {card}")
